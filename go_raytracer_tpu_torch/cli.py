@@ -1,0 +1,142 @@
+"""Command-line renderer, flag-compatible with the JAX package's CLI and
+the reference binary (main.go:416-480): -S scene number, -o output file,
+-N thread count (accepted, unused).
+
+Runs on the GPU; `--cpu` runs the plain PyTorch versions of the kernels
+on the CPU instead. Without a GPU and without `--cpu` it exits with an
+error rather than falling back. An unknown -S exits with 2 and the list of
+valid scenes. Flags whose paths are not ported yet (other integrators,
+schedules and backends, profiling) are accepted with their JAX-package
+choices and exit with 2 and a message naming ROADMAP.md when set to
+anything but the ported path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="GPU path tracer (PyTorch + CUDA)")
+    ap.add_argument("-S", "--scene", default="6",
+                    help="scene number 1-8 or name (default cornellBox)")
+    ap.add_argument("-o", "--out", default="image.ppm",
+                    help="output image (.ppm or .png)")
+    ap.add_argument("-N", "--threads", type=int, default=1,
+                    help="accepted for reference CLI parity; unused")
+    ap.add_argument("--spp", type=int, default=None, help="override samples per pixel")
+    ap.add_argument("--width", type=int, default=None, help="override image width")
+    ap.add_argument("--max-depth", type=int, default=None, help="override max depth")
+    ap.add_argument("--mode", choices=["while", "scan"], default="while",
+                    help="wavefront loop form (wavefront integrator only)")
+    ap.add_argument("--backend", choices=["auto", "xla", "pallas"], default="auto",
+                    help="bounce backend: auto = the fused CUDA kernel")
+    ap.add_argument("--integrator", choices=["regen", "wavefront"],
+                    default="regen", help="regen (the ported path)")
+    ap.add_argument("--regen", action="store_true",
+                    help="(compat alias for --integrator regen)")
+    ap.add_argument("--batch", type=int, default=1 << 17,
+                    help="rays per launch (wavefront integrator only)")
+    ap.add_argument("--lanes", type=int, default=1 << 17,
+                    help="regen lane-pool size (multiple of 256)")
+    ap.add_argument("--cadence", type=int, default=0,
+                    help="bounce levels per kernel call; 0 = per-scene default")
+    ap.add_argument("--schedule",
+                    choices=["auto", "queue_ik", "queue", "positional"],
+                    default="auto",
+                    help="regen work assignment: auto = queue_ik, the item "
+                         "queue refilled inside the kernel every level")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--obj", default="dragon.obj", help="OBJ path for scene 8")
+    ap.add_argument("--profile", default="",
+                    help="write a torch.profiler trace (Chrome JSON) here")
+    ap.add_argument("--checkpoint", default="",
+                    help="accumulator checkpoint path (.npz); resumes if present")
+    ap.add_argument("--stats", action="store_true", help="print JSON stats")
+    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU with the kernels' plain versions")
+    args = ap.parse_args(argv)
+
+    from go_raytracer_tpu_torch.scenes import registry
+
+    try:
+        name, fn = registry.get_scene(args.scene)
+    except KeyError:
+        valid = ", ".join(f"{k}={v[0]}" for k, v in registry.SCENES.items())
+        print(f"error: unknown scene {args.scene!r}; valid: {valid}",
+              file=sys.stderr)
+        return 2
+    if args.integrator != "regen" and not args.regen:
+        print("error: only the regen integrator is ported (ROADMAP.md: the "
+              "XLA-engine / wavefront path is queued)", file=sys.stderr)
+        return 2
+    if args.backend == "xla":
+        print("error: --backend xla has no counterpart here; auto and pallas "
+              "both run the CUDA kernel", file=sys.stderr)
+        return 2
+
+    import torch
+
+    from go_raytracer_tpu_torch.integrator import regen as regen_mod
+    from go_raytracer_tpu_torch.render import film
+
+    try:
+        device = regen_mod.resolve_device("cpu" if args.cpu else None)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if not args.quiet:
+        print(f"Beginning render of {name!r} on {device} . . .", file=sys.stderr)
+    t0 = time.perf_counter()
+    try:
+        scene, cam = fn()
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.spp is not None:
+        cam.samples_per_pixel = args.spp
+    if args.width is not None:
+        cam.width = args.width
+    if args.max_depth is not None:
+        cam.max_depth = args.max_depth
+    build_s = time.perf_counter() - t0
+
+    prof = None
+    if args.profile:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+    try:
+        linear, stats = regen_mod.render_regen(
+            scene, cam, seed=args.seed, n_lanes=args.lanes,
+            cadence=args.cadence, schedule=args.schedule, device=device,
+            checkpoint_path=args.checkpoint or None,
+            scene_name=name, verbose=not args.quiet)
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(args.profile)
+    film.write_image(args.out, film.tonemap(torch.from_numpy(linear)).numpy())
+
+    stats["scene"] = name
+    stats["scene_build_s"] = build_s
+    stats["out"] = args.out
+    if args.stats:
+        print(json.dumps(stats))
+    elif not args.quiet:
+        print(f"wrote {args.out}: {stats['paths']} paths, "
+              f"{stats['rays_per_s']:.3g} rays/s", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

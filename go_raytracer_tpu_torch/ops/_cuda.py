@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+Each source has a plain C interface and no PyTorch headers, so `nvcc`
+compiles it in seconds into a shared library of its own, loaded with
+ctypes. All sources build at once (one `nvcc` each, started together) at
+first use, into `build/torch_kernels/` at the repository root, named by a
+hash of the source and flags so an edited kernel rebuilds. The compiler's
+register and spill report (`-Xptxas -v`) is kept beside each library as
+`<name>-<hash>.log`.
+
+Only `library()` builds; importing this module does nothing, so the CPU
+tests import every module without a CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "build", "torch_kernels")
+SOURCES = ("bounce_fused_q", "harvest")
+FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+
+_libs = {}
+build_seconds = None   # wall time of the last build_all() that compiled
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if not home:
+        try:
+            from torch.utils.cpp_extension import CUDA_HOME as home
+        except ImportError:
+            home = None
+    cands = ([os.path.join(home, "bin", "nvcc")] if home else []) \
+        + [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+def _target(name: str) -> str:
+    with open(os.path.join(_CSRC, name + ".cu"), "rb") as fh:
+        h = hashlib.sha256(fh.read() + " ".join(FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"{name}-{h[:16]}.so")
+
+
+def build_all() -> dict:
+    """Compile every source whose library is missing, all in parallel.
+    Returns {name: library path}; raises with the compiler's output if a
+    build fails."""
+    global build_seconds
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    todo = {name: _target(name) for name in SOURCES}
+    procs = {}
+    t0 = time.perf_counter()
+    for name, so in todo.items():
+        if os.path.exists(so):
+            continue
+        tmp = so + f".{os.getpid()}.tmp"
+        log = open(so[:-3] + ".log", "w")
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *FLAGS, "-o", tmp, os.path.join(_CSRC, name + ".cu")],
+            stdout=log, stderr=subprocess.STDOUT), tmp, so, log)
+    failed = []
+    for name, (proc, tmp, so, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, so)
+        else:
+            with open(so[:-3] + ".log") as fh:
+                failed.append(f"{name} (nvcc exit {rc}):\n{fh.read()}")
+    if procs:
+        build_seconds = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return todo
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = build_all()[name]
+        lib = ctypes.CDLL(path)
+        for fn in ("grt_bounce_fused_q", "grt_harvest_levels"):
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+                getattr(lib, fn).restype = ctypes.c_int
+        lib.grt_error_string.argtypes = [ctypes.c_int]
+        lib.grt_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def error_string(err: int) -> str:
+    lib = next(iter(_libs.values()))
+    return f"{lib.grt_error_string(err).decode()} (cudaError {err})"

@@ -17,3 +17,9 @@ import jax  # noqa: E402
 # the env var), so set it explicitly after import as well.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_threefry_partitionable", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (the PyTorch port's CUDA "
+        "kernels); skips without one")

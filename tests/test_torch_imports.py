@@ -1,0 +1,57 @@
+"""Package rules of the port: no module of go_raytracer_tpu_torch, and not
+chip_smoke.py, imports jax, flax or the JAX package — checked on the
+source (AST), so a lazy import inside a function is caught too."""
+
+import ast
+import os
+
+import pytest
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_FORBIDDEN = ("jax", "jaxlib", "flax", "go_raytracer_tpu")
+
+
+def _port_sources():
+    pkg = os.path.join(_ROOT, "go_raytracer_tpu_torch")
+    out = [os.path.join(_ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(pkg):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, _ROOT))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_roots(path)
+           if m.split(".")[0] in _FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, _ROOT)} imports {bad}"
+
+
+def test_chip_smoke_needs_the_repo(tmp_path):
+    """chip_smoke.py alone in a directory exits non-zero without a result
+    line (here also for want of a GPU)."""
+    import shutil
+    import subprocess
+    import sys
+
+    shutil.copy(os.path.join(_ROOT, "chip_smoke.py"), tmp_path)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

@@ -1,0 +1,96 @@
+"""The port's host side against the JAX package: scene compiler tables,
+camera, kernel packing and statics must be identical (exact equality, same
+dtypes and shapes) for every dense reference scene."""
+
+import dataclasses
+
+import jax  # noqa: F401  (conftest pins JAX to the CPU)
+import numpy as np
+import pytest
+import torch
+
+from go_raytracer_tpu.ops.pallas import bounce as jpb
+from go_raytracer_tpu.scenes import registry as jreg
+from go_raytracer_tpu_torch.ops import bounce as tpb
+from go_raytracer_tpu_torch.render import camera as tcam
+from go_raytracer_tpu_torch.scene import types as TT
+from go_raytracer_tpu_torch.scenes import registry as treg
+
+torch.set_num_threads(2)
+
+
+def _assert_tables_equal(js, ts):
+    for f in dataclasses.fields(TT.Scene):
+        a, b = getattr(js, f.name), getattr(ts, f.name)
+        if dataclasses.is_dataclass(b):
+            for g in dataclasses.fields(b):
+                x = np.asarray(getattr(a, g.name))
+                y = np.asarray(getattr(b, g.name))
+                assert x.dtype == y.dtype and x.shape == y.shape, \
+                    (f.name, g.name, x.dtype, y.dtype, x.shape, y.shape)
+                np.testing.assert_array_equal(x, y, err_msg=f"{f.name}.{g.name}")
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                          err_msg=f.name)
+
+
+def _port_camera(jc):
+    fields = [f.name for f in dataclasses.fields(tcam.Camera)]
+    return tcam.Camera(**{k: getattr(jc, k) for k in fields})
+
+
+@pytest.mark.parametrize("num", range(1, 8))
+def test_scene_tables_and_packing_identical(num):
+    """build() tables, scene_statics, pack_scene and pack_camera: exact."""
+    js, jc = jreg.SCENES[num][1]()
+    ts, tc = treg.SCENES[num][1]()
+    assert jreg.SCENES[num][0] == treg.SCENES[num][0]
+    _assert_tables_equal(js, ts)
+    assert tpb.scene_statics(ts) == jpb.scene_statics(js)
+    for x, y in zip(jpb.pack_scene(js), tpb.pack_scene(ts)):
+        x = np.asarray(x)
+        assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(np.asarray(jpb.pack_camera(jc.derived())),
+                                  tpb.pack_camera(tc.derived()))
+    assert dataclasses.asdict(tc) == dataclasses.asdict(_port_camera(jc))
+
+
+def test_camera_derived_identical():
+    """Camera.derived at odd settings (defocus, non-square, tilted vup)."""
+    _, jc = jreg.book1()
+    jc.width, jc.aspect_ratio = 123, 1.7
+    jc.position((3.0, -2.0, 7.5), (0.5, 1.0, -2.0), (0.1, 1.0, 0.2))
+    tc = _port_camera(jc)
+    ja, ta = jc.derived(), tc.derived()
+    for name in ("center", "pixel00", "du", "dv", "defocus_u", "defocus_v"):
+        x, y = np.asarray(getattr(ja, name)), getattr(ta, name)
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y, err_msg=name)
+    assert ta.defocus_angle == ja.defocus_angle
+    assert ta.recip_spp_sqrt == ja.recip_spp_sqrt
+    assert (tc.image_height, tc.spp_sqrt) == (jc.image_height, jc.spp_sqrt)
+
+
+def test_scene_from_numpy_carries_jax_scene():
+    """The JAX package's Scene, carried across, packs to the same tables
+    as the port's own build."""
+    js, _ = jreg.cornell_box()
+    cs = TT.scene_from_numpy(js)
+    ts, _ = treg.cornell_box()
+    _assert_tables_equal(js, cs)
+    assert cs.lights.n == ts.lights.n and cs.has_rot_boxes
+    for x, y in zip(tpb.pack_scene(cs), tpb.pack_scene(ts)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_supported_is_the_cornell_subset():
+    """Only scenes inside the kernel's subset are supported; scene 8 (the
+    mesh path) is not built at all."""
+    ok = {treg.SCENES[k][0]: tpb.supported(treg.SCENES[k][1]()[0])
+          for k in range(1, 8)}
+    assert ok == {"book1": False, "book2": False, "book3": False,
+                  "simpleLight": False, "quads": False, "cornellBox": True,
+                  "cornellSmoke": False}
+    with pytest.raises(NotImplementedError, match="mesh path"):
+        treg.model_example()
