@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
      and the build of every CUDA kernel from csrc/ (one nvcc each, in
      parallel);
   2. K1 `bounce_fused_q` against its plain PyTorch version on the card
-     (cornellBox tables, 65536 lanes, 8 levels, a mixed alive/depth state);
+     (cornellBox tables, 131072 lanes = 512 blocks as in the flagship, 8
+     levels, a mixed alive/depth state), and every level's starts taking
+     the items base .. base+take-1 once each;
   3. K2 `harvest_levels_into` against its plain version on K1's records;
   4. exact accounting through the kernels (quad-only scene, background 1:
      image exactly 1; a multi-window render chaining the queue cursor),
@@ -17,7 +19,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
   5. the flagship through `go_raytracer_tpu_torch.cli.main`: cornellBox
      600x600, 100 spp, depth 50, 1<<17 lanes, launch counts read around
      it;
-  6. per-kernel timings at the flagship's shapes (CUDA events);
+  6. per-kernel timings at the flagship's shapes (CUDA events), with one
+     flagship window's starts checked item by item over all its levels
+     and K2 held against its plain version on that window;
 then the `kernels` JSON line, the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
@@ -82,6 +86,20 @@ def time_ms(fn, reps, warmup=1):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def started_ranks_are_a_prefix(fl, take):
+    """Per level, the started lanes' ranks (FL bits 3..) are exactly
+    0 .. take-1: no item is skipped or given to two lanes."""
+    import torch
+    s, n = fl.shape
+    started = (fl & 4) != 0
+    lvl = torch.arange(s, device=fl.device)[:, None].expand(s, n)[started]
+    hits = torch.zeros(s * n, dtype=torch.int32, device=fl.device)
+    hits.index_add_(0, lvl * n + (fl[started] >> 3).long(),
+                    torch.ones_like(lvl, dtype=torch.int32))
+    want = torch.arange(n, device=fl.device)[None, :] < take[:, None]
+    return torch.equal(hits.view(s, n), want.to(torch.int32))
 
 
 def cornell_inputs(dev, n, seed=0):
@@ -153,7 +171,7 @@ def main():
     # (b) refill at every level: one lane that branches the other way
     #     shifts the items of every later dead lane in flat order, so only
     #     the counts, the cursor chain and level 0 are compared per lane.
-    n, n_inner = 65536, 8
+    n, n_inner = 1 << 17, 8
     scene, cam, tables, statics, cam_row, bg, state = cornell_inputs(dev, n)
     npix, sqrt_spp, width = 600 * 600, 10, 600
     kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner, width=width,
@@ -182,6 +200,8 @@ def main():
                   "K1: per-level bases do not chain the cursor")
         check(all(abs(a - b) <= K1_MISMATCH_FRAC * n for a, b in zip(kt, pt)),
               "K1: take counts differ beyond the mismatch fraction")
+        check(started_ranks_are_a_prefix(k_out.rec[3], k_out.take),
+              "K1: a level's starts skip or repeat an item")
         return k_out, p_out
 
     k_out, p_out = k1_pair(1)
@@ -387,6 +407,16 @@ def main():
     next_item, _, s_run = (int(x) for x in cur.tolist())
     rec = [r[:s_run] for r in bufs.rec]
     bases = bufs.base.reshape(-1)
+    takes = bufs.take.reshape(-1)[:s_run]
+    b_, t_ = bases[:s_run].tolist(), takes.tolist()
+    check(next_item == total and b_[0] == 0
+          and all(b_[j + 1] == b_[j] + t_[j] for j in range(s_run - 1))
+          and b_[-1] + t_[-1] == next_item,
+          "flagship window: per-level bases do not chain the cursor")
+    check(started_ranks_are_a_prefix(rec[3], takes),
+          "flagship window: a level's starts skip or repeat an item")
+    print(f"[6] flagship window: {s_run} levels, {next_item} items, each "
+          f"started once at its own slot")
     hk = dict(item_base=0, s_run=s_run, refill_levels=refill,
               max_contribution=cam.max_contribution)
     acc2 = torch.zeros_like(acc)
@@ -395,14 +425,22 @@ def main():
     check(torch.equal(acc2[:next_item], acc[:next_item]),
           "K2 timing run differs from the window's harvest")
 
+    acc3 = torch.zeros_like(acc)
+
     def run_k2_plain():
         rows_ = harvest.reverse_harvest_levels_ref(
             *rec, refill_levels=refill,
             max_contribution=cam.max_contribution, s_run=s_run)
-        harvest.write_rows_ref(acc2, rows_, bases, item_base=0,
+        harvest.write_rows_ref(acc3, rows_, bases, item_base=0,
                                n_rows=min(s_run, refill))
 
     k2_plain_ms = time_ms(run_k2_plain, 1, warmup=0)
+    k2_win_err = (acc3[:next_item] - acc[:next_item]).abs().max().item()
+    print(f"[6] K2 vs plain on the flagship window ({s_run} levels, "
+          f"{next_item} paths): max abs err {k2_win_err}")
+    check(k2_win_err == 0.0,
+          "K2 differs from its plain version on the flagship window")
+    k2_err = max(k2_err, k2_win_err)
     k2_bytes = s_run * n * 16 + next_item * 12 + s_run * 4
     k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
     print(f"[6] K2 {n} lanes x {s_run} levels, {next_item} paths: kernel "

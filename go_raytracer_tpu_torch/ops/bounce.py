@@ -78,21 +78,28 @@ MAX_PRIMS = 4096
 MAX_LIGHTS = 8
 
 
-def supported(scene: T.Scene) -> bool:
-    """True when this package's kernel carries the scene: quads and fused
+def supported_statics(st: dict) -> bool:
+    """The kernel's subset, read from `scene_statics`: quads and fused
     boxes with lambertian / diffuse-light materials, solid textures and
     quad lights. Spheres, media, metal, dielectric, isotropic, noise,
-    image and checker textures, and sphere or triangle lights are later
-    slices (ROADMAP.md)."""
-    if scene.has_triangles or scene.has_tri_lights or scene.has_spheres:
+    image and checker textures are later slices (ROADMAP.md)."""
+    if (st["n_sph"] or st["n_media"] or st["has_metal"]
+            or st["has_dielectric"] or st["has_isotropic"]
+            or st["has_noise"] or st["has_image"] or st["has_checker"]
+            or st["ext_hit"]):
         return False
-    if (scene.has_media or scene.has_metal or scene.has_dielectric
-            or scene.has_isotropic or scene.has_noise or scene.has_image
-            or scene.has_checker or scene.has_sphere_lights):
+    return (0 < st["n_quad"] + st["n_box"] <= MAX_PRIMS
+            and 0 < st["n_lights_live"] <= MAX_LIGHTS)
+
+
+def supported(scene: T.Scene) -> bool:
+    """True when this package's kernel carries the scene: `supported_statics`
+    plus what the statics do not record — triangles (kept outside the
+    packed tables) and sphere or triangle lights (a kind column of the
+    light table)."""
+    if scene.has_triangles or scene.has_tri_lights or scene.has_sphere_lights:
         return False
-    n_prims = (scene.quads.count if scene.has_quads else 0) + \
-        (scene.boxes.count if scene.has_boxes else 0)
-    return 0 < n_prims <= MAX_PRIMS and 0 < scene.lights.n <= MAX_LIGHTS
+    return supported_statics(scene_statics(scene))
 
 
 def scene_statics(scene: T.Scene) -> dict:
@@ -717,10 +724,7 @@ def bounce_fused_q(tables, statics, cam_row, bg, seed4, ox, oy, oz, dx, dy,
     CUDA tensors launch the kernel; CPU tensors run `bounce_fused_q_ref`.
     The kernel leaves a dead lane's direction as it was, where the plain
     version (like the JAX kernel) writes a don't-care sampled direction."""
-    if statics["n_sph"] or statics["n_media"] or statics["has_metal"] \
-            or statics["has_dielectric"] or statics["has_noise"] \
-            or statics["has_image"] or statics["has_checker"] \
-            or statics["has_isotropic"]:
+    if not supported_statics(statics):
         raise NotImplementedError(
             "scene outside this kernel's subset (see supported())")
     state = (ox, oy, oz, dx, dy, dz, time, alive_i32, depth)

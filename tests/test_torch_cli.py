@@ -21,10 +21,12 @@ def run_cli(args, timeout=300):
         capture_output=True, text=True, timeout=timeout, env=_ENV, cwd=_ROOT)
 
 
-def test_unknown_scene_exits_2_with_listing():
-    r = run_cli(["-S", "99", "-o", "/tmp/cli_torch_unknown.ppm", "--cpu"])
+def test_unknown_scene_exits_2_with_listing(tmp_path):
+    out = tmp_path / "unknown.ppm"
+    r = run_cli(["-S", "99", "-o", str(out), "--cpu"])
     assert r.returncode == 2
     assert "cornellBox" in r.stderr + r.stdout
+    assert not out.exists()
 
 
 def test_render_ppm_and_stats(tmp_path):

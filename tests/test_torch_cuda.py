@@ -41,10 +41,32 @@ def _cornell(dev, n, seed=0):
             to(np.asarray(scene.background, np.float32)), state)
 
 
+RTOL = ATOL = 2e-3     # FMA / rsqrtf / __sincosf rounding, as chip_smoke
+MISMATCH_FRAC = 2e-3   # lanes whose ray grazes an edge may branch the other way
+
+
+def _started_ranks_are_a_prefix(fl, take):
+    """Per level, the started lanes' ranks (FL bits 3..) are exactly
+    0 .. take-1: no item is skipped or given to two lanes."""
+    s, n = fl.shape
+    started = (fl & 4) != 0
+    lvl = torch.arange(s, device=fl.device)[:, None].expand(s, n)[started]
+    hits = torch.zeros(s * n, dtype=torch.int32, device=fl.device)
+    hits.index_add_(0, lvl * n + (fl[started] >> 3).long(),
+                    torch.ones_like(lvl, dtype=torch.int32))
+    want = torch.arange(n, device=fl.device)[None, :] < take[:, None]
+    return torch.equal(hits.view(s, n), want.to(torch.int32))
+
+
 def test_bounce_kernel_matches_plain(cuda):
-    """Starts at level 0 only, 8 levels: exact starts, per-lane mismatch
-    below 0.2% (FMA / rsqrtf / __sincosf rounding)."""
-    n, n_inner = 16384, 8
+    """Starts at level 0 only, 8 levels, 512 blocks (so each block sums
+    the dead counts of the blocks before it over more than one pass):
+    exact takes and starts; level-0 V within rtol = atol = 2e-3 wherever
+    the flags agree; over all levels, at most 0.2% of the flags, alive
+    bits, V values and alive lanes' origins beyond that tolerance (a lane
+    that branched the other way at one level carries a different path
+    from then on)."""
+    n, n_inner = 512 * bounce.BLOCK, 8
     scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n)
     seed4 = torch.tensor([12345, 1, 0, 360000 * 100], dtype=torch.int32,
                          device=cuda)
@@ -55,12 +77,42 @@ def test_bounce_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert torch.equal(k[3], p[3])
     assert torch.equal(k[0][3][0] & ~3, p[0][3][0] & ~3)
-    assert ((k[0][3] & 7) != (p[0][3] & 7)).float().mean() <= 2e-3
-    assert (k[4 + 7] != p[4 + 7]).float().mean() <= 2e-3
+    assert _started_ranks_are_a_prefix(k[0][3], k[3])
+    assert ((k[0][3] & 7) != (p[0][3] & 7)).float().mean() <= MISMATCH_FRAC
+    assert (k[4 + 7] != p[4 + 7]).float().mean() <= MISMATCH_FRAC
+    agree0 = k[0][3][0] == p[0][3][0]
+    for a, b in zip(k[0][:3], p[0][:3]):
+        torch.testing.assert_close(a[0][agree0], b[0][agree0], rtol=RTOL,
+                                   atol=ATOL)
+        off = ~torch.isclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
+        assert off.float().mean() <= MISMATCH_FRAC
+    alive = (k[4 + 7] > 0) & (p[4 + 7] > 0)
+    for a, b in zip(k[4:7], p[4:7]):
+        off = ~torch.isclose(a[alive], b[alive], rtol=RTOL, atol=ATOL)
+        assert off.float().mean() <= MISMATCH_FRAC
+
+
+def test_bounce_kernel_ranks_every_refill_level(cuda):
+    """Refill at every level, 512 blocks: each level's starts take the
+    items base .. base+take-1 once each, and the bases chain the cursor."""
+    n, n_inner = 512 * bounce.BLOCK, 8
+    scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n, seed=1)
+    seed4 = torch.tensor([99, n_inner, 1000, 360000 * 100],
+                         dtype=torch.int32, device=cuda)
+    out = bounce.FusedQOut.empty(n, n_inner, cuda)
+    bounce.bounce_fused_q(tables, st, cam_row, bg, seed4, *state, out=out,
+                          has_defocus=False, max_depth=50, n_inner=n_inner,
+                          width=600, sqrt_spp=10, npix=360000)
+    torch.cuda.synchronize()
+    assert _started_ranks_are_a_prefix(out.rec[3], out.take)
+    base, take = out.base.tolist(), out.take.tolist()
+    assert base[0] == 1000
+    assert all(base[j + 1] == base[j] + take[j] for j in range(n_inner - 1))
+    assert int(out.cursor) == base[-1] + take[-1]
 
 
 def test_harvest_kernel_matches_plain(cuda):
-    n, n_inner = 16384, 8
+    n, n_inner = 512 * bounce.BLOCK, 8
     scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n)
     seed4 = torch.tensor([777, n_inner, 50, 360000 * 100], dtype=torch.int32,
                          device=cuda)
