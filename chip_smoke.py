@@ -22,7 +22,31 @@ Phases (any failure exits non-zero; nothing is swallowed):
   6. per-kernel timings at the flagship's shapes (CUDA events), with one
      flagship window's starts checked item by item over all its levels
      and K2 held against its plain version on that window;
-then the `kernels` JSON line, the nvidia-smi line, and the final
+  7. the mesh path's intersectors at scene 8's shapes (modelExample: the
+     65,536-triangle statue, 65,536 rays of a real bounce level, capped and
+     dead lanes included): K4 `stream_rows` on every call one
+     `binned_closest` makes, and K5 `bvh8_closest`, against their plain
+     versions (idx equal on every lane, t bit for bit); K4's winners
+     against K5's; both routes of `mesh_closest` against the plain
+     skip-link walk;
+  8. K3 `bounce` against its plain version on that level with its ext
+     planes;
+  9. a small scene-8 render on the kernels against the same render, on
+     the card and on the same random stream, with every kernel swapped
+     for its plain version;
+ 10. one real scene-8 window (255 levels, starts at the first 204, 65,536
+     lanes), whose start ranks and per-level bases come from the refill's
+     cumulative sum: every level's starts take base .. base+take-1 once
+     each, and K2 against its plain version on those records; then the
+     scene-8 flagship through `cli.main` at the registry configuration
+     (600x337, 250 spp = 225 strata, depth 50, 65,536 lanes, binned
+     route), launch counts read around it; then the walk route through
+     `cli.main` at the same configuration, so that K5 runs on a main
+     path, held against the binned run;
+ 11. timings of K3-K5 at those shapes with their bounds, rounds and host
+     reads per level, and the device's busy share of a scene-8 render
+     under torch.profiler;
+then the `kernels` JSON line (K1-K5), the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -51,6 +75,24 @@ K1_OPS_PER_SEGMENT = 480
 # branch the other way)
 K1_RTOL = K1_ATOL = 2e-3
 K1_MISMATCH_FRAC = 2e-3
+# K3 shares K1's bounce core and its tolerance; alive and clamp flags may
+# differ on this fraction of the lanes (a ray grazing an edge)
+K3_MISMATCH_FRAC = 1e-3
+# float arithmetic per test, counted from csrc/mt.cuh and
+# csrc/traverse8.cu: one Moller-Trumbore test is 27 multiplies, 18 adds or
+# subtracts and 1 divide; one slab test of a child box is 6 subtracts and 6
+# multiplies. These sources are built with -fmad=false, so each multiply
+# and each add is one operation of its own (the peak above counts a fused
+# multiply-add as two). Compares and min/max are left out (9 compares per
+# triangle test; 11 min/max and 7 compares per box test): they are not
+# float arithmetic, so the bound is the lower for it.
+MT_OPS = 46
+BOX_OPS = 12
+# per alive lane of `bounce` on scene 8, counted from csrc/bounce_core.cuh:
+# 2 spheres x ~30, the ext fold, shading, the sphere-light sample and pdf,
+# the metal reflection
+K3_OPS_PER_SEGMENT = 300
+SCENE8_PATHS = 600 * 337 * 225
 
 
 def fail(msg):
@@ -100,6 +142,38 @@ def started_ranks_are_a_prefix(fl, take):
                     torch.ones_like(lvl, dtype=torch.int32))
     want = torch.arange(n, device=fl.device)[None, :] < take[:, None]
     return torch.equal(hits.view(s, n), want.to(torch.int32))
+
+
+@contextlib.contextmanager
+def plain_versions(bounce, harvest, stream, traverse8):
+    """Swap the mesh path's four kernel wrappers for their plain PyTorch
+    versions, whatever device the tensors are on, so that a render on the
+    card can be repeated op for op without the kernels, on the same
+    random stream."""
+    saved = (bounce.bounce, stream.stream_rows, traverse8.bvh8_closest,
+             harvest.harvest_levels_into)
+
+    def plain_walk(nodes, tris, o, d, t_cap=None, *, dense_nodes=False,
+                   max_stack=None):
+        return traverse8.bvh8_closest_ref(nodes, tris, o, d, t_cap,
+                                          dense_nodes=dense_nodes)
+
+    def plain_harvest(acc, Vr, Vg, Vb, FL, bases, *, item_base, s_run,
+                      refill_levels, max_contribution):
+        rows = harvest.reverse_harvest_levels_ref(
+            Vr, Vg, Vb, FL, refill_levels=refill_levels,
+            max_contribution=max_contribution, s_run=s_run)
+        return harvest.write_rows_ref(acc, rows, bases, item_base=item_base,
+                                      n_rows=min(s_run, refill_levels))
+
+    bounce.bounce, stream.stream_rows = bounce.bounce_ref, stream.stream_rows_ref
+    traverse8.bvh8_closest = plain_walk
+    harvest.harvest_levels_into = plain_harvest
+    try:
+        yield
+    finally:
+        (bounce.bounce, stream.stream_rows, traverse8.bvh8_closest,
+         harvest.harvest_levels_into) = saved
 
 
 def cornell_inputs(dev, n, seed=0):
@@ -387,6 +461,21 @@ def main():
     print(f"[6] K1 {n} lanes x {n_inner} levels ({segs} segments): kernel "
           f"{k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms, bound "
           f"{k1_bound:.4f} ms ({k1_bound_by}) on {card}")
+    # K1's two __global__ functions, per launch: a level moves the lane
+    # state in and out and writes one record; count_dead reads alive once
+    k1a_bytes = n * (36 + 36 + 16)
+    k1a_bound = max(k1a_bytes / HBM_BYTES_PER_S, segs / n_inner
+                    * K1_OPS_PER_SEGMENT / FP32_OPS_PER_S) * 1e3
+    k1b_bound = (n * 4 + 4 * (n // bounce.BLOCK)) / HBM_BYTES_PER_S * 1e3
+    lvl_us = sum(v for k, v in dev_us.items() if k.startswith("fused_q_level"))
+    cnt_us = sum(v for k, v in dev_us.items() if k.startswith("count_dead"))
+    n_lvl = k1_launches * n_inner
+    print(f"[6] K1a fused_q_level: bound {k1a_bound:.5f} ms per launch (bytes), "
+          f"{k1a_bound * n_lvl:.4f} ms over the flagship's {n_lvl} launches; "
+          f"profiled {lvl_us / 1e3 / n_lvl:.5f} ms per launch. K1b count_dead: "
+          f"bound {k1b_bound:.6f} ms per launch (bytes), "
+          f"{k1b_bound * k1_launches:.5f} ms over {k1_launches} launches; "
+          f"profiled {cnt_us / 1e3 / k1_launches:.5f} ms per launch")
 
     # K2 on one flagship window's records
     _, cam = cornell_inputs(dev, 8)[:2]
@@ -447,6 +536,382 @@ def main():
           f"{k2_ms:.4f} ms, plain {k2_plain_ms:.2f} ms, bound {k2_bound:.4f}"
           f" ms (bytes) on {card}")
 
+
+    # ---- 7. K4 and K5 against their plain versions at scene 8's shapes --
+    from go_raytracer_tpu_torch.ops import intersect, stream, trace, traverse8
+    from go_raytracer_tpu_torch.scenes import registry as reg8
+
+    scene8, cam8 = reg8.model_example()
+    ctx = regen.MeshContext.build(scene8, cam8, dev)
+    ms, bvh = ctx.ms, ctx.ms.tri_bvh
+    n8 = regen.MESH_MAX_LANES
+    npix8 = cam8.width * cam8.image_height
+    geo = dict(width=cam8.width, npix=npix8, sqrt_spp=cam8.spp_sqrt)
+    # three levels of a real window, then the fourth level's refill: the
+    # pool holds camera rays, bounced rays and dead lanes
+    gen = regen.window_generator(0, 0, dev)
+    bufs3 = regen.WindowBuffers.empty(n8, 3, 1, dev)
+    acc8 = torch.zeros((4 * n8, 3), dtype=torch.float32, device=dev)
+    state8, nxt, _, _ = regen._mesh_window(
+        ctx, acc8, regen._init_state_mesh(n8, dev), 0, gen, SCENE8_PATHS,
+        window=3, refill=2, max_depth=cam8.max_depth,
+        max_contribution=cam8.max_contribution, bufs=bufs3, **geo)
+    del bufs3, acc8
+    o8, d8, t8, alive8, _, _, _ = regen.refill_lanes(
+        ctx.arrays, state8, torch.tensor(nxt, device=dev), gen, True,
+        nxt + n8 // 4, **geo)
+    u8 = torch.rand((n8, 9), generator=gen, dtype=torch.float32, device=dev)
+    cap8 = intersect.sphere_ts(ms.spheres, o8, d8, t8, 1e-3,
+                               float("inf")).amin(dim=1)
+    n_alive8 = int(alive8.sum())
+    n_capped8 = int((torch.isfinite(cap8) & alive8).sum())
+    print(f"[7] scene 8 level: {n8} lanes, {n_alive8} alive, {n_capped8} "
+          f"capped by a sphere, {n8 - n_alive8} dead; statue "
+          f"{scene8.triangles.count} triangles, {bvh.cl_lo.shape[0]} clusters,"
+          f" {bvh.cl_lines.shape[0]} groups, BVH8 max stack {bvh.max_stack}")
+    check(0 < n8 - n_alive8 < n8 and n_capped8 > 0,
+          "scene 8 level has no mix of alive, capped and dead lanes")
+
+    # K4: every call one binned_closest makes, against the plain version
+    calls = []
+    real_stream_rows = stream.stream_rows
+
+    def spy(*a):
+        out = real_stream_rows(*a)
+        calls.append((a, out))
+        return out
+
+    stream.stream_rows = spy
+    try:
+        counters7 = {}
+        bt8, bi8 = trace.binned_closest(ms, o8, d8, cap8, alive8,
+                                        counters=counters7)
+    finally:
+        stream.stream_rows = real_stream_rows
+    torch.cuda.synchronize()
+    check(len(calls) == counters7["rounds"] > 0, "K4: no round ran")
+    k4_err = 0.0
+    for a, (kt, ki) in calls:
+        pt, pi = stream.stream_rows_ref(*a)
+        check(torch.equal(ki, pi), "K4: a winner differs from the plain version")
+        check(torch.equal(kt, pt), "K4: t differs from the plain version")
+        k4_err = max(k4_err, (kt - pt).abs().nan_to_num(0.0).max().item())
+    k4_args = calls[0][0]
+    k4_tests = int(((k4_args[2] - k4_args[1]).long().sum()) * 8 * stream.BLOCK)
+    print(f"[7] K4 vs plain on the {len(calls)} rounds of one binned_closest "
+          f"(pools {[c[0][3].numel() for c in calls]}): idx equal, t bit for "
+          f"bit; round 0 tests {k4_tests} ray-triangle pairs")
+
+    # K5 against its plain version, and against K4's winners
+    cap0 = torch.where(alive8, cap8, 0.0)
+    visits = {}
+    kt5, ki5 = traverse8.bvh8_closest(bvh.nodes8, bvh.tris8, o8, d8, cap0,
+                                      dense_nodes=bvh.bvh8_dense,
+                                      max_stack=bvh.max_stack)
+    torch.cuda.synchronize()
+    pt5, pi5 = traverse8.bvh8_closest_ref(bvh.nodes8, bvh.tris8, o8, d8, cap0,
+                                          dense_nodes=bvh.bvh8_dense,
+                                          visits=visits)
+    check(torch.equal(ki5, pi5) and torch.equal(kt5, pt5),
+          "K5 differs from its plain version")
+    k5_err = (kt5 - pt5).abs().nan_to_num(0.0).max().item()
+    check(torch.equal(bi8, ki5) and torch.equal(bt8, kt5),
+          "K4's winners (binned route) differ from K5's (walk)")
+    wt8, wi8 = trace.mesh_closest(ms, o8, d8, cap8, alive8, mesh="walk")
+    check(torch.equal(wi8, ki5) and torch.equal(wt8, kt5),
+          "the walk route's sort and unsort change a result")
+    n_hit8 = int((ki5 >= 0).sum())
+    print(f"[7] K5 vs plain: idx equal, t bit for bit; {n_hit8} lanes hit the "
+          f"statue; walk work {visits['node_visits']} node visits, "
+          f"{visits['group_tests']} group tests; K4 winners == K5 winners")
+    # both routes against the plain skip-link walk (its own Moller-Trumbore
+    # form and closed intervals: an edge-grazing ray may differ)
+    st8, si8 = trace.bvh_tri_closest(ms, o8, d8, trace.T_MIN, float("inf"))
+    hit_s = torch.isfinite(st8) & (st8 < cap8) & alive8
+    set_mis = ((ki5 >= 0) != hit_s).float().mean().item()
+    both8 = (ki5 >= 0) & hit_s
+    win_mis = (ki5[both8] != si8[both8]).float().mean().item()
+    print(f"[7] both routes vs the plain skip-link walk: hit set differs on "
+          f"{set_mis:.2e} of the lanes, winner on {win_mis:.2e} of the common "
+          f"hits (limit 1e-3)")
+    check(set_mis <= 1e-3 and win_mis <= 1e-3,
+          "mesh_closest disagrees with the plain skip-link walk")
+
+    # ---- 8. K3 against its plain version on that level -----------------
+    ext8 = bounce.mesh_ext_planes(ms, ctx.statics, ctx.tri_mat, o8, d8, cap8,
+                                  alive8)
+    k3 = bounce.bounce(ctx.tables, ctx.statics, o8, d8, t8, alive8, u8,
+                       ctx.bg, ext=ext8)
+    torch.cuda.synchronize()
+    p3 = bounce.bounce_ref(ctx.tables, ctx.statics, o8, d8, t8, alive8, u8,
+                           ctx.bg, ext=ext8)
+    alive_mis3 = (k3[5] != p3[5]).float().mean().item()
+    cf_mis3 = (k3[2] != p3[2]).float().mean().item()
+    agree3 = k3[5] == p3[5]
+    ew_off = torch.zeros(n8, dtype=torch.bool, device=dev)
+    for a, b in ((k3[0], p3[0]), (k3[1], p3[1])):
+        ew_off |= (~torch.isclose(a, b, rtol=K1_RTOL, atol=K1_ATOL,
+                                  equal_nan=True)).any(dim=-1)
+    ew_mis3 = (ew_off & agree3).float().mean().item()
+    ok3 = agree3 & ~ew_off
+    k3_err = max((a - b)[ok3].abs().nan_to_num(0.0).max().item()
+                 for a, b in ((k3[0], p3[0]), (k3[1], p3[1])))
+    go3 = agree3 & k3[5]
+    ray_mis3 = max((~torch.isclose(a[go3], b[go3], rtol=K1_RTOL,
+                                   atol=K1_ATOL)).float().mean().item()
+                   for a, b in ((k3[3], p3[3]), (k3[4], p3[4])))
+    print(f"[8] K3 vs plain at {n8} lanes with ext planes: mismatch fractions"
+          f" alive {alive_mis3:.2e}  clamp flag {cf_mis3:.2e}  E/W "
+          f"{ew_mis3:.2e}  scattered ray {ray_mis3:.2e} (limit "
+          f"{K3_MISMATCH_FRAC}, rtol=atol={K1_RTOL}); E/W max abs err "
+          f"{k3_err:.3e}; {int(k3[5].sum())} lanes go on")
+    for name, frac in (("alive", alive_mis3), ("clamp flag", cf_mis3),
+                       ("E/W", ew_mis3), ("scattered ray", ray_mis3)):
+        check(frac <= K3_MISMATCH_FRAC, f"K3: {name} mismatch {frac}")
+    check(not k3[5][~alive8].any() and not k3[0][~alive8].any(),
+          "K3: a dead lane shades or goes on")
+
+    # ---- 9. a small scene-8 render: kernels against plain versions ------
+    def reset_counts():
+        bounce.launches = bounce.launches_bounce = 0
+        harvest.launches = stream.launches = traverse8.launches = 0
+
+    # 32,768 lanes hold all 20,736 paths at once, so every path keeps its
+    # lane and its random numbers in both renders, and a lane that K3's
+    # rounding sends the other way changes that one path only (with fewer
+    # lanes it would shift every later item to another lane)
+    sc8, cm8 = reg8.model_example()
+    cm8.width, cm8.samples_per_pixel = 48, 16
+    kw9 = dict(seed=3, n_lanes=1 << 15, device=dev)
+    img_k, st_k = regen.render_regen(sc8, cm8, **kw9)
+    img_w, st_w = regen.render_regen(sc8, cm8, mesh="walk", **kw9)
+    check(np.array_equal(img_k, img_w) and st_k["segments"] == st_w["segments"],
+          "scene 8: the two routes render different images from one seed")
+    reset_counts()
+    with plain_versions(bounce, harvest, stream, traverse8):
+        img_p, st_p = regen.render_regen(sc8, cm8, mesh="walk", **kw9)
+    check(bounce.launches_bounce + stream.launches + traverse8.launches
+          + harvest.launches == 0, "the plain render launched a kernel")
+    small_ratio = st_k["segments"] / st_k["paths"]
+    mean_k, mean_p = img_k.mean(axis=(0, 1)), img_p.mean(axis=(0, 1))
+    pix_off = (~np.isclose(img_k, img_p, rtol=1e-3, atol=1e-3)).any(-1).mean()
+    print(f"[9] scene 8, 48x27, 16 spp, depth 50, 32768 lanes, one random "
+          f"stream: kernels vs plain versions: segments {st_k['segments']} / "
+          f"{st_p['segments']} ({small_ratio:.4f}/path), pixels beyond 1e-3 "
+          f"{pix_off:.4f}, channel means {np.round(mean_k, 6).tolist()} / "
+          f"{np.round(mean_p, 6).tolist()}; binned and walk images identical")
+    check(st_k["paths"] == st_p["paths"] and st_k["nonfinite"] == 0,
+          "scene 8 small render: paths or non-finite pixels")
+    check(abs(st_k["segments"] - st_p["segments"]) <= 0.01 * st_p["segments"],
+          "scene 8 small render: segments differ by more than 1%")
+    check(np.abs(mean_k - mean_p).max() <= 1e-2 and pix_off <= 0.05,
+          "scene 8 small render: channel means differ by more than 1e-2, or "
+          "more than 5% of the pixels by more than 1e-3")
+
+    # ---- 10. one flagship window, then the flagship through the CLI -----
+    # The mesh path's start ranks (FL bits 3..) and per-level bases come
+    # from `refill_assign`'s cumulative sum, not from K1, and most starts
+    # happen after level 0: record one window as the flagship runs it and
+    # hold K2 against its plain version on those records.
+    d1_8 = cam8.max_depth + 1
+    refill8, window8 = 4 * d1_8, 5 * d1_8
+    bufs8 = regen.WindowBuffers.empty(n8, window8, 1, dev)
+    acc8_k = torch.zeros((SCENE8_PATHS + n8, 3), dtype=torch.float32,
+                         device=dev)
+    harvest.launches = 0
+    _, nxt8, seg8, s_run8 = regen._mesh_window(
+        ctx, acc8_k, regen._init_state_mesh(n8, dev), 0,
+        regen.window_generator(0, 0, dev), SCENE8_PATHS, window=window8,
+        refill=refill8, max_depth=cam8.max_depth,
+        max_contribution=cam8.max_contribution, bufs=bufs8, **geo)
+    check(harvest.launches == 1, "the mesh window did not launch K2 once")
+    rec8 = [r[:s_run8] for r in bufs8.rec]
+    bases8 = bufs8.base.reshape(-1)
+    b8 = bases8[:s_run8].tolist()
+    t8_ = [hi - lo for lo, hi in zip(b8, b8[1:] + [nxt8])]
+    takes8 = torch.tensor(t8_, dtype=torch.int32, device=dev)
+    later8 = sum(1 for x in t8_[1:] if x > 0)
+    check(b8[0] == 0 and min(t8_) >= 0 and not any(t8_[refill8:]),
+          "scene 8 window: bases go backwards or a level past the refill "
+          "starts paths")
+    check(later8 >= refill8 // 2,
+          f"scene 8 window: only {later8} levels after the first start paths")
+    check(started_ranks_are_a_prefix(rec8[3], takes8),
+          "scene 8 window: a level's starts skip or repeat an item")
+    hk8 = dict(item_base=0, s_run=s_run8, refill_levels=refill8,
+               max_contribution=cam8.max_contribution)
+    acc8_p = torch.zeros_like(acc8_k)
+
+    def run_k2_plain8():
+        rows_ = harvest.reverse_harvest_levels_ref(
+            *rec8, refill_levels=refill8,
+            max_contribution=cam8.max_contribution, s_run=s_run8)
+        harvest.write_rows_ref(acc8_p, rows_, bases8, item_base=0,
+                               n_rows=min(s_run8, refill8))
+
+    k2_plain_ms8 = time_ms(run_k2_plain8, 1, warmup=0)
+    k2_err8 = (acc8_k[:nxt8] - acc8_p[:nxt8]).abs().max().item()
+    check(not acc8_k[nxt8:].any() and not acc8_p[nxt8:].any(),
+          "scene 8 window: a row past the window's items is not zero")
+    acc8_t = torch.zeros_like(acc8_k)
+    k2_ms8 = time_ms(lambda: harvest.harvest_levels_into(
+        acc8_t, *rec8, bases8, **hk8), 10)
+    check(torch.equal(acc8_t[:nxt8], acc8_k[:nxt8]),
+          "K2 timing run differs from the scene 8 window's harvest")
+    k2_bound8 = (s_run8 * n8 * 16 + nxt8 * 12 + s_run8 * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"[10] scene 8 window (window {window8}, refill {refill8}, {n8} "
+          f"lanes): {s_run8} levels, {nxt8} paths started at "
+          f"{later8 + 1} levels, {seg8} segments; each level's starts take "
+          f"base..base+take-1 once; K2 vs plain: max abs err {k2_err8}; K2 "
+          f"{k2_ms8:.4f} ms, plain {k2_plain_ms8:.2f} ms, bound "
+          f"{k2_bound8:.4f} ms (bytes) on {card}")
+    check(k2_err8 == 0.0,
+          "K2 differs from its plain version on the scene 8 window")
+    k2_err = max(k2_err, k2_err8)
+    del bufs8, rec8, acc8_k, acc8_p, acc8_t
+
+    def run_cli8(extra, image):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-S", "8", "-o", os.path.join(out_dir, image),
+                           "--stats", "--quiet", *extra])
+        check(rc == 0, f"cli.main -S 8 {extra} returned {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    reset_counts()
+    s8 = run_cli8([], "modelExample_flagship.ppm")
+    k3_launches, k4_launches = bounce.launches_bounce, stream.launches
+    k2_launches_8 = harvest.launches
+    ratio8 = s8["segments"] / s8["paths"]
+    m8 = s8["mesh"]
+    print(f"[10] flagship modelExample 600x337 250spp (225 strata) depth 50, "
+          f"{s8['lanes']} lanes, binned route, on {card}: paths {s8['paths']},"
+          f" segments {s8['segments']} ({ratio8:.4f}/path), "
+          f"{s8['rays_per_s']:.6g} rays/s, elapsed {s8['elapsed_s']:.3f} s, "
+          f"windows {s8['windows']}, levels {s8['levels']}, occupancy "
+          f"{s8['occupancy']:.4f}, nonfinite {s8['nonfinite']}; launches K3 "
+          f"{k3_launches} K4 {k4_launches} K2 {k2_launches_8} K5 "
+          f"{traverse8.launches} K1 {bounce.launches}; rounds per level "
+          f"{m8['rounds'] / s8['levels']:.3f}, host reads per level "
+          f"{m8['host_reads'] / s8['levels'] + 1:.3f} (one per round, one "
+          f"before the first, one for the level's counts)")
+    check(s8["paths"] == SCENE8_PATHS, f"scene 8: paths != {SCENE8_PATHS}")
+    check(s8["nonfinite"] == 0 and s8["schedule"] == "queue",
+          "scene 8: non-finite pixels or wrong schedule")
+    check(abs(ratio8 - small_ratio) <= 0.05 * small_ratio,
+          f"scene 8: segments/path {ratio8} vs the small render's {small_ratio}")
+    check(k3_launches == s8["levels"] and k4_launches == m8["rounds"]
+          and k2_launches_8 == s8["windows"],
+          "scene 8: launch counts do not match levels, rounds and windows")
+    check(k3_launches > 0 and k4_launches > 0 and k2_launches_8 > 0,
+          "scene 8 flagship did not launch K3, K4 and K2")
+    # the walk route as a main path of its own, at the same configuration
+    # and seed. Both routes return the same winners, so the two runs trace
+    # the same paths unless a ray meets two triangles of different groups
+    # at one t (the routes visit groups in different orders); after one
+    # such lane the lanes' items and random numbers part ways, and the
+    # segment totals then differ by their statistical spread (about 1e-4
+    # of the total at this size).
+    reset_counts()
+    s8w = run_cli8(["--mesh", "walk"], "modelExample_walk.ppm")
+    k5_launches = traverse8.launches
+    with open(os.path.join(out_dir, "modelExample_flagship.ppm"), "rb") as fa, \
+            open(os.path.join(out_dir, "modelExample_walk.ppm"), "rb") as fb:
+        same_image = fa.read() == fb.read()
+    print(f"[10] modelExample, walk route, same configuration on {card}: "
+          f"paths {s8w['paths']}, segments {s8w['segments']} "
+          f"({s8w['segments'] / s8w['paths']:.4f}/path), "
+          f"{s8w['rays_per_s']:.6g} rays/s, elapsed {s8w['elapsed_s']:.3f} s,"
+          f" levels {s8w['levels']}; launches K5 {k5_launches} K3 "
+          f"{bounce.launches_bounce} K4 {stream.launches} K2 "
+          f"{harvest.launches}; segments equal to the binned run's: "
+          f"{s8w['segments'] == s8['segments']}, image files identical: "
+          f"{same_image}")
+    check(s8w["paths"] == s8["paths"] and s8w["nonfinite"] == 0,
+          "scene 8 walk route: paths or non-finite pixels")
+    check(k5_launches == s8w["levels"] > 0 and stream.launches == 0,
+          "scene 8 walk route did not go through K5 alone")
+    check(abs(s8w["segments"] - s8["segments"]) <= 1e-3 * s8["segments"],
+          "scene 8 walk route: segments differ from the binned run's by "
+          "more than 1e-3")
+
+    # ---- 11. timings of K3-K5, and the busy share of a scene-8 render --
+    k4_ms = time_ms(lambda: real_stream_rows(*k4_args), 20)
+    k4_plain_ms = time_ms(lambda: stream.stream_rows_ref(*k4_args), 1, warmup=0)
+    k4_bytes = bvh.cl_lines.numel() * 4 + n8 * (8 * 4 + 8) + 8 * (n8 // stream.BLOCK)
+    k4_ops_s = k4_tests * MT_OPS / FP32_OPS_PER_S
+    k4_bound = max(k4_bytes / HBM_BYTES_PER_S, k4_ops_s) * 1e3
+    k4_by = "bytes" if k4_bytes / HBM_BYTES_PER_S >= k4_ops_s else "operations"
+    k5_args = (bvh.nodes8, bvh.tris8, o8, d8, cap0)
+    k5_kw = dict(dense_nodes=bvh.bvh8_dense)
+    k5_ms = time_ms(lambda: traverse8.bvh8_closest(
+        *k5_args, max_stack=bvh.max_stack, **k5_kw), 20)
+    k5_plain_ms = time_ms(lambda: traverse8.bvh8_closest_ref(*k5_args, **k5_kw),
+                          1, warmup=0)
+    k5_bytes = (bvh.nodes8.numel() + bvh.tris8.numel()) * 4 + n8 * (28 + 8)
+    k5_ops_s = (visits["node_visits"] * 8 * BOX_OPS
+                + visits["group_tests"] * 8 * MT_OPS) / FP32_OPS_PER_S
+    k5_bound = max(k5_bytes / HBM_BYTES_PER_S, k5_ops_s) * 1e3
+    k5_by = "bytes" if k5_bytes / HBM_BYTES_PER_S >= k5_ops_s else "operations"
+    # the sort of the walk route, timed beside the kernel it feeds
+    walk_ms = time_ms(lambda: trace.mesh_closest(ms, o8, d8, cap8, alive8,
+                                                 mesh="walk"), 10)
+    binned_ms = time_ms(lambda: trace.binned_closest(ms, o8, d8, cap8, alive8),
+                        5)
+    k3_run = lambda: bounce.bounce(ctx.tables, ctx.statics, o8, d8, t8, alive8,
+                                   u8, ctx.bg, ext=ext8)
+    k3_ms = time_ms(k3_run, 20)
+    k3_plain_ms = time_ms(lambda: bounce.bounce_ref(
+        ctx.tables, ctx.statics, o8, d8, t8, alive8, u8, ctx.bg, ext=ext8), 3)
+    k3_bytes = n8 * (24 + 4 + 1 + 36 + 4 * len(ext8) + 50) \
+        + sum(t.numel() * 4 for t in ctx.tables)
+    k3_ops_s = n_alive8 * K3_OPS_PER_SEGMENT / FP32_OPS_PER_S
+    k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops_s) * 1e3
+    k3_by = "bytes" if k3_bytes / HBM_BYTES_PER_S >= k3_ops_s else "operations"
+    print(f"[11] at {n8} lanes of scene 8 on {card}: K3 {k3_ms:.4f} ms, "
+          f"plain {k3_plain_ms:.3f} ms, bound {k3_bound:.5f} ms ({k3_by}); K4 round 0 {k4_ms:.4f} ms, "
+          f"plain {k4_plain_ms:.2f} ms, bound {k4_bound:.5f} ms ({k4_by}); K5 "
+          f"{k5_ms:.4f} ms, plain {k5_plain_ms:.2f} ms, bound {k5_bound:.5f} "
+          f"ms ({k5_by}); one binned_closest {binned_ms:.3f} ms "
+          f"({counters7['rounds']} rounds), one walk-route mesh_closest "
+          f"{walk_ms:.3f} ms")
+    # device busy share: a one-window render (4 spp) under the profiler
+    sc8, cm8 = reg8.model_example()
+    cm8.samples_per_pixel = 4
+    _, ust = regen.render_regen(sc8, cm8, seed=5, device=dev)
+    with torch.profiler.profile(activities=acts) as prof8:
+        _, pst8 = regen.render_regen(sc8, cm8, seed=5, device=dev)
+    dev_us8 = {}
+    for e in prof8.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0 and "CUDA" in str(getattr(e, "device_type", "")):
+            dev_us8[e.key] = t
+    if dev_us8:
+        all_us = sum(dev_us8.values())
+        own_us = sum(v for k, v in dev_us8.items() if k.startswith(
+            ("bounce_level", "stream_rows_kernel", "bvh8_closest_kernel",
+             "harvest_levels")))
+        per = lambda name, count: sum(
+            v for k, v in dev_us8.items() if k.startswith(name)) / 1e3 / count
+        print(f"[11] profiled device ms per launch in that render: K3 "
+              f"bounce_level {per('bounce_level', pst8['levels']):.5f}, K4 "
+              f"stream_rows_kernel (all rounds) "
+              f"{per('stream_rows_kernel', pst8['mesh']['rounds']):.5f}, K2 "
+              f"harvest_levels {per('harvest_levels', pst8['windows']):.5f}")
+        top8 = sorted(dev_us8.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[11] scene 8 at 4 spp ({pst8['levels']} levels): render loop "
+              f"{ust['elapsed_s']:.3f} s unprofiled, {pst8['elapsed_s']:.3f} s"
+              f" under the profiler; device busy {all_us / 1e6:.3f} s = "
+              f"{all_us / 1e6 / pst8['elapsed_s']:.3f} of the profiled loop "
+              f"(incl. set-up and readback events), the port's kernels "
+              f"{own_us / 1e6:.4f} s = {own_us / 1e6 / pst8['elapsed_s']:.4f};"
+              f" top device events, ms: " + ", ".join(
+                  f"{k[:48]} {v / 1e3:.2f}" for k, v in top8))
+    else:
+        print("[11] profiler reported no device time: busy share not measured")
+
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_q.cu",
@@ -460,6 +925,24 @@ def main():
          "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None},
+        {"name": "bounce", "route": "cuda",
+         "source": "go_raytracer_tpu_torch/ops/csrc/bounce.cu",
+         "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:1245",
+         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
+         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": None},
+        {"name": "stream_rows", "route": "cuda",
+         "source": "go_raytracer_tpu_torch/ops/csrc/stream.cu",
+         "replaces": "go_raytracer_tpu/ops/pallas/stream.py:213",
+         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms,
+         "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
+         "library_ms": None},
+        {"name": "bvh8_closest", "route": "cuda",
+         "source": "go_raytracer_tpu_torch/ops/csrc/traverse8.cu",
+         "replaces": "go_raytracer_tpu/ops/pallas/traverse8.py:238",
+         "launches": k5_launches, "max_abs_err": k5_err, "ms": k5_ms,
+         "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,7 +5,9 @@ the reference binary (main.go:416-480): -S scene number, -o output file,
 Runs on the GPU; `--cpu` runs the plain PyTorch versions of the kernels
 on the CPU instead. Without a GPU and without `--cpu` it exits with an
 error rather than falling back. An unknown -S exits with 2 and the list of
-valid scenes. Flags whose paths are not ported yet (other integrators,
+valid scenes. `-S 8` (a mesh) runs the mesh path; `--mesh walk` takes the
+BVH8 walk instead of the binned intersector. Flags whose paths are not
+ported yet (other integrators,
 schedules and backends, profiling) are accepted with their JAX-package
 choices and exit with 2 and a message naming ROADMAP.md when set to
 anything but the ported path.
@@ -47,8 +49,12 @@ def main(argv=None):
     ap.add_argument("--schedule",
                     choices=["auto", "queue_ik", "queue", "positional"],
                     default="auto",
-                    help="regen work assignment: auto = queue_ik, the item "
-                         "queue refilled inside the kernel every level")
+                    help="regen work assignment: auto = queue_ik (the item "
+                         "queue refilled inside the kernel every level) for "
+                         "dense scenes, queue for mesh scenes")
+    ap.add_argument("--mesh", choices=["binned", "walk"], default="binned",
+                    help="closest mesh hit: the binned intersector or the "
+                         "BVH8 stack walk")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--obj", default="dragon.obj", help="OBJ path for scene 8")
     ap.add_argument("--profile", default="",
@@ -93,7 +99,8 @@ def main(argv=None):
         print(f"Beginning render of {name!r} on {device} . . .", file=sys.stderr)
     t0 = time.perf_counter()
     try:
-        scene, cam = fn()
+        scene, cam = (fn(obj_path=args.obj) if fn is registry.model_example
+                      else fn())
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -116,6 +123,7 @@ def main(argv=None):
         linear, stats = regen_mod.render_regen(
             scene, cam, seed=args.seed, n_lanes=args.lanes,
             cadence=args.cadence, schedule=args.schedule, device=device,
+            mesh=args.mesh,
             checkpoint_path=args.checkpoint or None,
             scene_name=name, verbose=not args.quiet)
     except NotImplementedError as e:

@@ -1,8 +1,14 @@
-"""Ray regeneration with the in-kernel item queue: the production path.
+"""Ray regeneration: the production paths.
 
 A fixed pool of N lanes works through a queue of (pixel, stratum) items.
-Inside `bounce_fused_q`, every bounce level refills the dead lanes with the
+Dense scenes the fused kernel carries run the in-kernel queue: inside
+`bounce_fused_q`, every bounce level refills the dead lanes with the
 next items in flat lane order, so a lane restarts the level its path dies.
+Mesh scenes (a triangle BVH) run the `queue` schedule's unfused window
+(`_mesh_window`): per level the refill, the camera rays and the uniforms
+are plain tensor code, the closest mesh hit comes from the binned
+intersector or the BVH8 walk (ops/trace.py), and the `bounce` kernel folds
+it into the dense winner and shades.
 The forward pass records, per level and lane, the merged V plane (the
 vertex's emission or its scatter weight) and flag bits (clamp, emit,
 started); the reverse harvest then evaluates L = clamp?(emit ? V : V*L)
@@ -17,8 +23,9 @@ path state crosses windows; the host loops windows until the queue
 drains. The forward loop stops early once every lane is dead and nothing
 can refill (the unwritten levels would be all-zero records).
 
-This is the JAX package's `queue_ik` schedule with the fused harvest
-(integrator/regen.py there); the other schedules are not ported.
+These are the JAX package's `queue_ik` schedule with the fused harvest and
+its `queue` schedule on the external-mesh-hit path (integrator/regen.py
+there); the fused `queue` kernels and `positional` are not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ import torch
 
 from go_raytracer_tpu_torch.ops import bounce as bounce_mod
 from go_raytracer_tpu_torch.ops import harvest as harvest_mod
+from go_raytracer_tpu_torch.ops import intersect as ix_mod
+from go_raytracer_tpu_torch.ops import trace as trace_mod
 from go_raytracer_tpu_torch.render import camera as camera_mod
 from go_raytracer_tpu_torch.scene import types as T
 
@@ -210,6 +219,191 @@ def _window_impl(tables, statics, cam_row, bg, acc, state, next_item, seeds,
     return acc, state, cur
 
 
+# ---------------------------------------------------------------------------
+# the mesh path: the `queue` schedule's unfused window
+# ---------------------------------------------------------------------------
+
+# Lane cap of the mesh path, and its cadence of 1: the JAX package's
+# defaults, kept so both packages walk the same windows.
+MESH_MAX_LANES = 1 << 16
+
+
+def window_generator(seed: int, w: int, device) -> torch.Generator:
+    """The random stream of window `w` on `device`, keyed by (seed, w): a
+    resumed render draws the same numbers for the same window."""
+    g = torch.Generator(device=device)
+    g.manual_seed((seed * 0x9E3779B97F4A7C15 + w) & ((1 << 63) - 1))
+    return g
+
+
+@dataclasses.dataclass
+class MeshContext:
+    """What the mesh window reads, on the render device: the scene tables
+    of `ops/trace.to_device`, the packed kernel tables and statics, the
+    per-triangle material columns, background and camera. `mesh` picks
+    the closest-hit route; `counters` gathers calls, rounds and host
+    reads of the intersector."""
+
+    ms: object
+    tables: tuple
+    statics: dict
+    tri_mat: torch.Tensor
+    bg: torch.Tensor
+    arrays: camera_mod.CameraArrays
+    mesh: str = "binned"
+    counters: dict = dataclasses.field(default_factory=dict)
+
+    @staticmethod
+    def build(scene: T.Scene, cam: camera_mod.Camera, device,
+              mesh: str = "binned") -> "MeshContext":
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        statics = bounce_mod.scene_statics(scene, ext=True)
+        return MeshContext(
+            ms=trace_mod.to_device(scene, device),
+            tables=tuple(to_dev(t) for t in bounce_mod.pack_scene(scene)),
+            statics=statics,
+            tri_mat=to_dev(bounce_mod.tri_mat_table(scene, statics)),
+            bg=to_dev(np.asarray(scene.background, np.float32)),
+            arrays=cam.derived(), mesh=mesh)
+
+
+def mesh_bounce(ctx: MeshContext, o, d, t, alive, u, out=None):
+    """One bounce level of a mesh scene: the dense classes' nearest hits
+    cap the mesh traversal (the cross-class shrinking rayT.Max), the mesh
+    closest hit becomes the ext planes, and `bounce` does the rest.
+    Returns (E, W, cf, new_o, new_d, alive'), in `out` where given
+    (`bounce_out`)."""
+    ms = ctx.ms
+    t_cap = torch.full((o.shape[0],), float("inf"), dtype=o.dtype,
+                       device=o.device)
+    if ms.has_spheres:
+        t_cap = torch.minimum(t_cap, ix_mod.sphere_ts(
+            ms.spheres, o, d, t, trace_mod.T_MIN, float("inf")).amin(dim=1))
+    if ms.has_quads:
+        t_cap = torch.minimum(t_cap, ix_mod.quad_ts(
+            ms.quads, o, d, trace_mod.T_MIN, float("inf")).amin(dim=1))
+    if ms.has_boxes:
+        t_cap = torch.minimum(t_cap, ix_mod.box_ts(
+            ms.boxes, o, d, trace_mod.T_MIN, float("inf")).amin(dim=1))
+    ext = bounce_mod.mesh_ext_planes(ctx.ms, ctx.statics, ctx.tri_mat, o, d,
+                                     t_cap, alive, mesh=ctx.mesh,
+                                     counters=ctx.counters)
+    return bounce_mod.bounce(ctx.tables, ctx.statics, o, d, t, alive, u,
+                             ctx.bg, ext=ext, out=out)[:6]
+
+
+def _init_state_mesh(n: int, device):
+    """Fresh lane-pool state of the mesh path: o, d (N, 3), time (N,)
+    float32, alive (N,) bool, bounces done (N,) int32."""
+    d = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    d[:, 2] = 1.0
+    return [torch.zeros((n, 3), dtype=torch.float32, device=device), d,
+            torch.zeros(n, dtype=torch.float32, device=device),
+            torch.zeros(n, dtype=torch.bool, device=device),
+            torch.zeros(n, dtype=torch.int32, device=device)]
+
+
+def refill_assign(next_item, alive, do_refill: bool, item_end: int, *,
+                  npix: int, sqrt_spp: int):
+    """Queue items -> dead lanes: a dead lane's item is `next_item` plus
+    its rank among the dead lanes in lane order, so the lanes that take
+    form a prefix of the dead lanes and map to consecutive items.
+    `next_item` is a 0-d int64 tensor. Returns (take, rank, pixel id,
+    stratum row, stratum column)."""
+    dead = ~alive
+    rank = torch.cumsum(dead.to(torch.int64), 0) - 1
+    item = next_item + rank
+    take = dead & (item < item_end) if do_refill else torch.zeros_like(dead)
+    stratum = torch.div(item, npix, rounding_mode="floor")
+    pid = item - stratum * npix
+    s_i = torch.div(stratum, sqrt_spp, rounding_mode="floor")
+    return (take, rank, pid, s_i.to(torch.float32),
+            (stratum - s_i * sqrt_spp).to(torch.float32))
+
+
+def refill_lanes(arrays, state, cursor, gen, do_refill: bool, item_end: int,
+                 *, width, npix, sqrt_spp):
+    """One level's refill: the dead lanes of `state` (o, d, t, alive,
+    depth) take the next queue items from `cursor` on (`refill_assign`)
+    and start on fresh camera rays drawn from `gen`. Returns the new
+    (o, d, t, alive, depth) and (take, rank)."""
+    o, d, t, alive, depth = state
+    take, rank, pid, s_i, s_j = refill_assign(
+        cursor, alive, do_refill, item_end, npix=npix, sqrt_spp=sqrt_spp)
+    u_cam = torch.rand((o.shape[0], camera_mod.N_U_RAYGEN), generator=gen,
+                       dtype=torch.float32, device=o.device)
+    o_n, d_n, t_n = camera_mod.generate_rays(arrays, width, pid, s_i, s_j,
+                                             u_cam)
+    return (torch.where(take[:, None], o_n, o),
+            torch.where(take[:, None], d_n, d), torch.where(take, t_n, t),
+            alive | take, torch.where(take, torch.zeros_like(depth), depth),
+            take, rank)
+
+
+def _mesh_window(ctx: MeshContext, acc, state, next_item: int, gen,
+                 item_end: int, *, width, npix, sqrt_spp, window, refill,
+                 max_depth, max_contribution, bufs: WindowBuffers):
+    """One window of the mesh path over items [next_item, item_end):
+    `window` levels of refill (the first `refill` only), camera rays, one
+    draw of uniforms and `mesh_bounce`, recorded as V/FL planes, then the
+    harvest into `acc` (in place). The started lane's rank rides in FL
+    bits 3.. and FL bit 2 marks the start, as `bounce_fused_q` writes
+    them, so the harvest is the one of the in-kernel-queue path. The loop
+    ends early once every lane is dead and nothing can start; that and
+    the counts cost one host read per level. Returns (state, next item,
+    segments, levels recorded)."""
+    o, d, t, alive, depth = state
+    n = o.shape[0]
+    dev = o.device
+    n_u = bounce_mod.N_U + ctx.statics["n_media"]
+    cursor = torch.tensor(next_item, dtype=torch.int64, device=dev)
+    # one set of bounce outputs for every level: `refill_lanes` copies the
+    # lane state into fresh tensors before the next bounce overwrites it
+    out = bounce_mod.bounce_out(n, dev)
+    segments = 0
+    s_run = 0
+    for s in range(window):
+        o, d, t, alive, depth, take, rank = refill_lanes(
+            ctx.arrays, (o, d, t, alive, depth), cursor, gen, s < refill,
+            item_end, width=width, npix=npix, sqrt_spp=sqrt_spp)
+        bufs.base[s, 0] = cursor
+        cursor = cursor + take.sum()
+
+        u = torch.rand((n, n_u), generator=gen, dtype=torch.float32,
+                       device=dev)
+        E, W, cf, o, d, alive_out = mesh_bounce(ctx, o, d, t, alive, u, out)
+        dead = ~alive
+        E = torch.where(dead[:, None], 0.0, E)
+        W = torch.where(dead[:, None], 0.0, W)
+        # depth cap (camera.go:293-296): a path gets max_depth + 1 levels
+        alive_out = alive_out & (depth < max_depth)
+        depth = torch.where(alive, depth + 1, depth)
+        # merged V/FL records (E and W are disjoint: lights and background
+        # terminate, scatterers do not emit)
+        emit = (E != 0.0).any(dim=-1)
+        V = torch.where(emit[:, None], E, W)
+        for c in range(3):
+            bufs.rec[c][s] = V[:, c]
+        bufs.rec[3][s] = ((cf & alive).to(torch.int64)
+                          | (emit.to(torch.int64) << 1)
+                          | (take.to(torch.int64) << 2)
+                          | torch.where(take, rank << 3,
+                                        torch.zeros_like(rank))) \
+            .to(torch.int32)
+        counts = torch.stack([alive.sum(), alive_out.sum(), cursor]).tolist()
+        segments += counts[0]
+        alive = alive_out
+        s_run = s + 1
+        if counts[1] == 0 and (s + 1 >= refill or counts[2] >= item_end):
+            break
+    next_item = int(cursor)
+    harvest_mod.harvest_levels_into(
+        acc, *(r[:s_run] for r in bufs.rec), bufs.base.reshape(-1),
+        item_base=0, s_run=s_run, refill_levels=refill,
+        max_contribution=max_contribution)
+    return [o, d, t, alive, depth], next_item, segments, s_run
+
+
 def _window_pipeline(dispatch, total_items, n_windows, bar,
                      checkpoint_cb=None, checkpoint_every=4, start_i=0):
     """Depth-1 window pipeline: `dispatch(w)` launches window w (chaining
@@ -273,30 +467,44 @@ def _assemble_image(acc, *, total_items, n_strata, npix, h, w):
 def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                  n_lanes: int = 1 << 17, refill_len: int = 0,
                  cadence: int = 0, schedule: str = "auto", device=None,
-                 checkpoint_path=None, checkpoint_every: int = 4,
-                 scene_name: str = "", verbose: bool = False):
+                 mesh: str = "binned", checkpoint_path=None,
+                 checkpoint_every: int = 4, scene_name: str = "",
+                 verbose: bool = False):
     """Render the full image with ray regeneration on `device` (default
     CUDA; "cpu" runs the kernels' plain versions). Returns (linear image
     (H, W, 3) float32 numpy, stats).
 
-    `refill_len` 0 sizes the window to the workload (`_auto_refill`);
-    `cadence` 0 takes the scene's hint. Checkpoint/resume: between windows
-    no path is in flight, so (accumulator, cursor, window count) is a
-    consistent checkpoint, and a matching one resumes where it stopped."""
+    A dense scene inside `bounce_fused_q`'s subset runs the in-kernel
+    queue (stats["schedule"] == "queue_ik"): `refill_len` 0 sizes the
+    window to the workload (`_auto_refill`), `cadence` 0 takes the scene's
+    hint. A scene with a triangle BVH runs the mesh path
+    (stats["schedule"] == "queue"): at most `MESH_MAX_LANES` lanes,
+    cadence 1, `refill_len` 0 means 4 * (max_depth + 1), and `mesh` picks
+    the closest-hit route ("binned" or "walk"). Checkpoint/resume: between
+    windows no path is in flight, so (accumulator, cursor, window count)
+    is a consistent checkpoint, and a matching one resumes where it
+    stopped."""
     from go_raytracer_tpu_torch.render import checkpoint as checkpoint_mod
     from go_raytracer_tpu_torch.utils import progress
 
-    if schedule not in ("auto", "queue_ik"):
+    use_fused = bounce_mod.supported(scene)
+    use_ext = (not use_fused and scene.has_tri_bvh
+               and bounce_mod.supported_ext(scene))
+    if not (use_fused or use_ext):
         raise NotImplementedError(
-            f"schedule {schedule!r}: only the in-kernel queue (queue_ik) is "
-            "ported; 'queue' and 'positional' are queued in ROADMAP.md")
-    if not bounce_mod.supported(scene):
+            "scene outside the ported kernels' subsets (dense scenes: quads, "
+            "fused boxes, lambertian and diffuse-light materials, solid "
+            "textures, quad lights; mesh scenes add spheres, metal and "
+            "sphere lights); the other features are queued in ROADMAP.md")
+    if schedule not in (("auto", "queue_ik") if use_fused
+                        else ("auto", "queue")):
         raise NotImplementedError(
-            "scene outside the ported kernel's subset (quads, fused boxes, "
-            "lambertian and diffuse-light materials, solid textures, quad "
-            "lights); the other features are queued in ROADMAP.md")
-    if cam.defocus_angle > 0:
-        raise NotImplementedError("defocus blur is a later slice (ROADMAP.md)")
+            f"schedule {schedule!r}: dense scenes run the in-kernel queue "
+            "(queue_ik) and mesh scenes the unfused queue; the fused 'queue' "
+            "kernels and 'positional' are queued in ROADMAP.md")
+    if use_fused and cam.defocus_angle > 0:
+        raise NotImplementedError("defocus blur on the in-kernel-queue path "
+                                  "is a later slice (ROADMAP.md)")
     if n_lanes % bounce_mod.BLOCK:
         raise ValueError(f"n_lanes must be a multiple of {bounce_mod.BLOCK}")
     device = resolve_device(device)
@@ -309,17 +517,26 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     total_items = npix * n_strata
     d1 = cam.max_depth + 1
     n = n_lanes
-    refill = refill_len or _auto_refill(total_items, n, d1, cadence, cam)
-    window = -(-(refill + d1) // cadence) * cadence
+    if use_ext:
+        n = min(n, MESH_MAX_LANES)
+        cadence = 1
+        refill = refill_len or 4 * d1
+        window = refill + d1
+    else:
+        refill = refill_len or _auto_refill(total_items, n, d1, cadence, cam)
+        window = -(-(refill + d1) // cadence) * cadence
     outer = window // cadence
 
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    tables = tuple(to_dev(t) for t in bounce_mod.pack_scene(scene))
-    statics = bounce_mod.scene_statics(scene)
-    cam_row = to_dev(bounce_mod.pack_camera(arrays))
-    bg = to_dev(np.asarray(scene.background, np.float32))
-
-    state = _init_state(n, device)
+    if use_ext:
+        ctx = MeshContext.build(scene, cam, device, mesh=mesh)
+        state = _init_state_mesh(n, device)
+    else:
+        tables = tuple(to_dev(t) for t in bounce_mod.pack_scene(scene))
+        statics = bounce_mod.scene_statics(scene)
+        cam_row = to_dev(bounce_mod.pack_camera(arrays))
+        bg = to_dev(np.asarray(scene.background, np.float32))
+        state = _init_state(n, device)
     bufs = WindowBuffers.empty(n, outer, cadence, device)
     n_windows = 0
     meta = checkpoint_mod.meta_for(scene_name, cam)
@@ -339,6 +556,18 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
             n_windows = int(loaded[2].get("windows", 0))
     bar.tick(start_i)
     next_dev = torch.tensor([start_i], dtype=torch.int32, device=device)
+
+    def dispatch_mesh(wi):
+        nonlocal state, next_host
+        state, next_host, segs, s_run = _mesh_window(
+            ctx, acc, state, next_host, window_generator(seed, wi, device),
+            total_items, width=w, npix=npix, sqrt_spp=sqrt_spp,
+            window=window, refill=refill, max_depth=cam.max_depth,
+            max_contribution=cam.max_contribution, bufs=bufs)
+        ctx.counters["levels"] = ctx.counters.get("levels", 0) + s_run
+        return torch.tensor([next_host, segs, s_run], dtype=torch.int64)
+
+    next_host = start_i
 
     def dispatch(wi):
         nonlocal next_dev
@@ -360,7 +589,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         torch.cuda.synchronize(device)
     t0 = _time.perf_counter()
     next_i, segments, n_windows, window_times = _window_pipeline(
-        dispatch, total_items, n_windows, bar,
+        dispatch_mesh if use_ext else dispatch, total_items, n_windows, bar,
         checkpoint_cb=checkpoint_cb if checkpoint_path else None,
         checkpoint_every=checkpoint_every, start_i=start_i)
     if device.type == "cuda":
@@ -379,10 +608,14 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         "paths_per_s": total_items / elapsed if elapsed > 0 else float("nan"),
         "windows": n_windows,
         "window_s": window_times,
-        "schedule": "queue_ik",
+        "schedule": "queue" if use_ext else "queue_ik",
         "occupancy": segments / max(n_windows * window * n, 1),
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "nonfinite": int((~np.isfinite(linear)).sum()),
     }
+    if use_ext:
+        stats["lanes"] = n
+        stats["levels"] = ctx.counters.pop("levels", 0)
+        stats["mesh"] = dict(ctx.counters, route=mesh)
     return linear, stats

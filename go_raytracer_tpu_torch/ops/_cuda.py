@@ -4,7 +4,8 @@ Each source has a plain C interface and no PyTorch headers, so `nvcc`
 compiles it in seconds into a shared library of its own, loaded with
 ctypes. All sources build at once (one `nvcc` each, started together) at
 first use, into `build/torch_kernels/` at the repository root, named by a
-hash of the source and flags so an edited kernel rebuilds. The compiler's
+hash of the source, the headers and the flags so an edited kernel
+rebuilds. The compiler's
 register and spill report (`-Xptxas -v`) is kept beside each library as
 `<name>-<hash>.log`.
 
@@ -15,6 +16,7 @@ tests import every module without a CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -24,7 +26,14 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "torch_kernels")
-SOURCES = ("bounce_fused_q", "harvest")
+SOURCES = ("bounce_fused_q", "harvest", "bounce", "stream", "traverse8")
+# entry point of each library, all `int fn(const Args*, cudaStream_t)`
+ENTRY = {"bounce_fused_q": "grt_bounce_fused_q",
+         "harvest": "grt_harvest_levels", "bounce": "grt_bounce",
+         "stream": "grt_stream_rows", "traverse8": "grt_bvh8_closest"}
+# The mesh intersectors must agree with their plain versions bit for bit,
+# so their multiply-adds stay uncontracted (csrc/mt.cuh).
+EXTRA_FLAGS = {"stream": ["-fmad=false"], "traverse8": ["-fmad=false"]}
 FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
@@ -48,10 +57,17 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
+def _flags(name: str) -> list:
+    return FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(_CSRC, name + ".cu"), "rb") as fh:
-        h = hashlib.sha256(fh.read() + " ".join(FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{h[:16]}.so")
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
+    for path in [os.path.join(_CSRC, name + ".cu")] \
+            + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all() -> dict:
@@ -69,7 +85,8 @@ def build_all() -> dict:
         tmp = so + f".{os.getpid()}.tmp"
         log = open(so[:-3] + ".log", "w")
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *FLAGS, "-o", tmp, os.path.join(_CSRC, name + ".cu")],
+            [_nvcc(), *_flags(name), "-o", tmp,
+             os.path.join(_CSRC, name + ".cu")],
             stdout=log, stderr=subprocess.STDOUT), tmp, so, log)
     failed = []
     for name, (proc, tmp, so, log) in procs.items():
@@ -93,10 +110,9 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         path = build_all()[name]
         lib = ctypes.CDLL(path)
-        for fn in ("grt_bounce_fused_q", "grt_harvest_levels"):
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-                getattr(lib, fn).restype = ctypes.c_int
+        fn = getattr(lib, ENTRY[name])
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         lib.grt_error_string.argtypes = [ctypes.c_int]
         lib.grt_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

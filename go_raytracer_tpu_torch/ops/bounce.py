@@ -1,6 +1,6 @@
-"""The fused bounce kernel of the regen main path, and its host packing.
+"""The bounce kernels of the regen paths, and their host packing.
 
-Counterpart of the JAX package's `ops/pallas/bounce.py`. Two halves:
+Counterpart of the JAX package's `ops/pallas/bounce.py`. Three parts:
 
 * Host packing in numpy (`pack_scene`, `scene_statics`, `pack_camera`):
   primitives joined with their material/texture columns into one dense
@@ -16,9 +16,16 @@ Counterpart of the JAX package's `ops/pallas/bounce.py`. Two halves:
   version `bounce_fused_q_ref` — the same function, op for op as the JAX
   kernel, which the tests hold against the JAX package.
 
-The kernel covers the scenes `supported()` accepts: quads and (rotated)
-fused boxes, lambertian and diffuse-light materials, solid textures, quad
-lights, no defocus. Everything else raises; nothing falls back.
+* `bounce`: one bounce level of the mesh path from given uniforms, with
+  the closest mesh hit folded in as per-lane planes (`mesh_ext_planes`).
+  CUDA tensors launch `csrc/bounce.cu`, CPU tensors run `bounce_ref`.
+
+`bounce_fused_q` covers the scenes `supported()` accepts: quads and
+(rotated) fused boxes, lambertian and diffuse-light materials, solid
+textures, quad lights, no defocus. `bounce` adds spheres, metal, sphere
+lights and the external mesh hit (`supported_ext`). Everything else
+raises; nothing falls back. Both share one bounce core: `_bounce_core_ref`
+here, `csrc/bounce_core.cuh` on the card.
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ BLOCK = 256
 
 # Launches of the CUDA kernel through `bounce_fused_q` (one per call).
 launches = 0
+# Launches of the CUDA kernel through `bounce` (one per call).
+launches_bounce = 0
 
 
 def _mat_layout(st: dict):
@@ -93,7 +102,7 @@ def supported_statics(st: dict) -> bool:
 
 
 def supported(scene: T.Scene) -> bool:
-    """True when this package's kernel carries the scene: `supported_statics`
+    """True when `bounce_fused_q` carries the scene: `supported_statics`
     plus what the statics do not record — triangles (kept outside the
     packed tables) and sphere or triangle lights (a kind column of the
     light table)."""
@@ -102,9 +111,32 @@ def supported(scene: T.Scene) -> bool:
     return supported_statics(scene_statics(scene))
 
 
-def scene_statics(scene: T.Scene) -> dict:
-    """Static kernel parameters from the scene's flags and table shapes
-    (the JAX package's `scene_statics` with ext=False)."""
+def supported_ext_statics(st: dict) -> bool:
+    """What `bounce` carries, read from `scene_statics`: spheres, quads and
+    fused boxes; lambertian, metal and diffuse-light materials; solid
+    textures; quad and sphere lights; optionally an external mesh hit.
+    Media, dielectric, isotropic, noise, image and checker textures are
+    later slices (ROADMAP.md)."""
+    if (st["n_media"] or st["has_dielectric"] or st["has_isotropic"]
+            or st["has_noise"] or st["has_image"] or st["has_checker"]):
+        return False
+    return (0 < st["n_sph"] + st["n_quad"] + st["n_box"] <= MAX_PRIMS
+            and 0 < st["n_lights_live"] <= MAX_LIGHTS)
+
+
+def supported_ext(scene: T.Scene) -> bool:
+    """True when `bounce` with external mesh-hit planes carries the scene:
+    triangles are allowed (their closest hit arrives as planes), triangle
+    lights are not (the light sampler covers quad and sphere rows)."""
+    if scene.has_tri_lights:
+        return False
+    return supported_ext_statics(scene_statics(scene, ext=True))
+
+
+def scene_statics(scene: T.Scene, ext: bool = False) -> dict:
+    """Static kernel parameters from the scene's flags and table shapes.
+    `ext`: the bounce folds an externally computed mesh closest hit
+    (per-lane planes from `mesh_ext_planes`) into its winner."""
     n_sph = scene.spheres.count if scene.has_spheres else 0
     n_quad = scene.quads.count if scene.has_quads else 0
     n_box = scene.boxes.count if scene.has_boxes else 0
@@ -120,7 +152,7 @@ def scene_statics(scene: T.Scene) -> dict:
         has_isotropic=scene.has_isotropic or scene.has_media,
         has_noise=scene.has_noise, has_image=scene.has_image,
         has_checker=scene.has_checker, box_rot=scene.has_rot_boxes,
-        ext_hit=False, cull=False)
+        ext_hit=ext, cull=False)
 
 
 def join_mat_cols(scene: T.Scene, lay, mat_id):
@@ -334,28 +366,63 @@ def _onb_transform(nx, ny, nz, lx, ly, lz):
             lx * uz + ly * vz + lz * wz)
 
 
-def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u):
+def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
+                     tm=None, ext=None):
     """One bounce of the supported subset (camera.go:293-331): closest hit
-    over the quad and box sections, face-forward flip, emission or
-    background, mixture light/cosine sampling and its pdf. Mirrors the JAX
-    kernel's `_bounce_core` op for op. Returns (vr, vg, vb, emit, cf,
-    new origin xyz, new direction xyz, alive_out)."""
+    over the sphere, quad and box sections, the external mesh hit folded
+    in (`ext`, with st["ext_hit"]), face-forward flip, emission or
+    background, mixture light/cosine sampling and its pdf, metal
+    reflection. Mirrors the JAX kernel's `_bounce_core` op for op. `tm`
+    (ray time) is needed when the scene has spheres. Returns (vr, vg, vb,
+    emit, cf, new origin xyz, new direction xyz, alive_out)."""
     P = prims.tolist()
     Lr = lights.tolist()
+    lay = _mat_layout(st)
+    fr_i = lay.index("fr") if "fr" in lay else None
     t_best = torch.full_like(ox, float("inf"))
     n_hx = torch.zeros_like(ox)
     n_hy = torch.zeros_like(ox)
     n_hz = torch.zeros_like(ox)
-    mat = [torch.zeros_like(ox) for _ in range(4)]   # kind, ev_r, ev_g, ev_b
+    # kind, ev_r, ev_g, ev_b, then the metal fuzz where the table has it
+    mat_cols = [0, 1, 2, 3] + ([fr_i] if fr_i is not None else [])
+    mat = [torch.zeros_like(ox) for _ in mat_cols]
+    win_sphere = torch.zeros_like(ox, dtype=torch.bool)
+    sph_r = torch.ones_like(ox)
 
-    def update(ok, t_c, cnx, cny, cnz, g):
-        nonlocal t_best, n_hx, n_hy, n_hz, mat
+    def update(ok, t_c, cnx, cny, cnz, g, sphere_r=None):
+        nonlocal t_best, n_hx, n_hy, n_hz, mat, win_sphere, sph_r
         ok = ok & (t_c < t_best)
         t_best = torch.where(ok, t_c, t_best)
         n_hx = torch.where(ok, cnx, n_hx)
         n_hy = torch.where(ok, cny, n_hy)
         n_hz = torch.where(ok, cnz, n_hz)
-        mat = [torch.where(ok, g[MAT_BASE + i], m) for i, m in enumerate(mat)]
+        mat = [torch.where(ok, g[MAT_BASE + c], m)
+               for c, m in zip(mat_cols, mat)]
+        if st["n_sph"]:
+            win_sphere = torch.where(ok, sphere_r is not None, win_sphere)
+            if sphere_r is not None:
+                sph_r = torch.where(ok, sphere_r, sph_r)
+
+    # spheres (objects.go:83-115): the normal slots carry c - o until the
+    # winner's outward normal (p - c) / r is resolved below
+    if st["n_sph"]:
+        a_quad = _dot3(dx, dy, dz, dx, dy, dz)
+        inv_a = 1.0 / a_quad
+    for p in range(st["n_sph"]):
+        g = P[st["sph_base"] + p]
+        cx = g[1] + tm * g[4] - ox
+        cy = g[2] + tm * g[5] - oy
+        cz = g[3] + tm * g[6] - oz
+        h = _dot3(dx, dy, dz, cx, cy, cz)
+        c = _dot3(cx, cy, cz, cx, cy, cz) - g[8]
+        disc = h * h - a_quad * c
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        r1 = (h - sq) * inv_a
+        r2 = (h + sq) * inv_a
+        sur1 = (T_MIN < r1) & (r1 < t_best)
+        root = torch.where(sur1, r1, r2)
+        ok = (g[0] >= 0.0) & (disc >= 0.0) & (T_MIN < root) & (root < t_best)
+        update(ok, root, cx, cy, cz, g, sphere_r=g[7])
 
     for p in range(st["n_quad"]):
         g = P[st["quad_base"] + p]
@@ -421,12 +488,29 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u):
             nx, nz = cos * nx + sin * nz, -sin * nx + cos * nz
         update(ok, t_c, nx, ny, nz, g)
 
-    m_kind, tex_r, tex_g, tex_b = mat
+    if st["ext_hit"]:
+        # the mesh hit wins only when strictly nearer; planes: t, the
+        # un-flipped outward normal, then the material columns (`lay`)
+        okx = ext[0] < t_best
+        t_best = torch.where(okx, ext[0], t_best)
+        n_hx = torch.where(okx, ext[1], n_hx)
+        n_hy = torch.where(okx, ext[2], n_hy)
+        n_hz = torch.where(okx, ext[3], n_hz)
+        mat = [torch.where(okx, ext[4 + c], m) for c, m in zip(mat_cols, mat)]
+        win_sphere = win_sphere & ~okx
+
+    m_kind, tex_r, tex_g, tex_b = mat[:4]
     hit = torch.isfinite(t_best)
     t_safe = torch.where(hit, t_best, 1.0)
     hx = ox + t_safe * dx
     hy = oy + t_safe * dy
     hz = oz + t_safe * dz
+    if st["n_sph"]:
+        sph_ok = win_sphere & hit
+        inv_r = 1.0 / torch.where(sph_ok, sph_r, 1.0)
+        n_hx = torch.where(sph_ok, (t_safe * dx - n_hx) * inv_r, n_hx)
+        n_hy = torch.where(sph_ok, (t_safe * dy - n_hy) * inv_r, n_hy)
+        n_hz = torch.where(sph_ok, (t_safe * dz - n_hz) * inv_r, n_hz)
     front = _dot3(dx, dy, dz, n_hx, n_hy, n_hz) < 0.0
     n_hx = torch.where(front, n_hx, -n_hx)
     n_hy = torch.where(front, n_hy, -n_hy)
@@ -435,6 +519,7 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u):
     miss = alive & ~hit
     lit = alive & hit
     is_light = lit & (m_kind == float(T.MAT_DIFFUSE_LIGHT))
+    is_metal = lit & (m_kind == float(T.MAT_METAL))
     diffuse = lit & (m_kind == float(T.MAT_LAMBERTIAN))
     e_on = is_light & front
     zero = torch.zeros_like(ox)
@@ -442,7 +527,7 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u):
     eg = torch.where(miss, bg[1], torch.where(e_on, tex_g, zero))
     eb = torch.where(miss, bg[2], torch.where(e_on, tex_b, zero))
 
-    # mixture sampling (pdf.go:58-74): light pick + quad sample
+    # mixture sampling (pdf.go:58-74): light pick + per-kind sample
     n_lights, n_live = st["n_lights"], st["n_lights_live"]
     li = torch.clamp((u[4] * n_live).to(torch.int32), max=n_live - 1)
     ldx = torch.zeros_like(ox)
@@ -451,9 +536,22 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u):
     for l in range(n_lights):
         g = Lr[l]
         sel = li == l
-        ldx = torch.where(sel, g[1] + u[5] * g[4] + u[6] * g[7] - hx, ldx)
-        ldy = torch.where(sel, g[2] + u[5] * g[5] + u[6] * g[8] - hy, ldy)
-        ldz = torch.where(sel, g[3] + u[5] * g[6] + u[6] * g[9] - hz, ldz)
+        if g[0] < 0.5:      # quad (objects.go:161-165)
+            cand = (g[1] + u[5] * g[4] + u[6] * g[7] - hx,
+                    g[2] + u[5] * g[5] + u[6] * g[8] - hy,
+                    g[3] + u[5] * g[6] + u[6] * g[9] - hz)
+        else:               # sphere cone sample (objects.go:63-80)
+            tcx, tcy, tcz = g[1] - hx, g[2] - hy, g[3] - hz
+            dist_sq = _dot3(tcx, tcy, tcz, tcx, tcy, tcz)
+            ctm = torch.sqrt(torch.clamp(1.0 - g[4] * g[4] / dist_sq, min=0.0))
+            zz = 1.0 + u[6] * (ctm - 1.0)
+            phi = 2.0 * math.pi * u[5]
+            st_ = torch.sqrt(torch.clamp(1.0 - zz * zz, min=0.0))
+            cand = _onb_transform(tcx, tcy, tcz, torch.cos(phi) * st_,
+                                  torch.sin(phi) * st_, zz)
+        ldx = torch.where(sel, cand[0], ldx)
+        ldy = torch.where(sel, cand[1], ldy)
+        ldz = torch.where(sel, cand[2], ldz)
 
     # cosine about the shading normal (pdf.go:38-40)
     phi_m = 2.0 * math.pi * u[7]
@@ -466,12 +564,28 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u):
     gdy = torch.where(use_light, ldy, mdy)
     gdz = torch.where(use_light, ldz, mdz)
 
-    # mixture pdf: mean of the quad-light pdfs (objects.go:152-160)
+    # mixture pdf: mean of the live lights' pdfs (hittable.go:89-97)
     g_len_sq = _dot3(gdx, gdy, gdz, gdx, gdy, gdz)
     g_len = torch.sqrt(g_len_sq)
     l_pdf = torch.zeros_like(ox)
-    for l in range(n_lights):
+    for l in range(n_live):
         g = Lr[l]
+        if g[0] >= 0.5:
+            # sphere pdf (objects.go:52-62); NaN from inside is kept
+            ocx, ocy, ocz = g[1] - hx, g[2] - hy, g[3] - hz
+            hh = _dot3(gdx, gdy, gdz, ocx, ocy, ocz)
+            dsq = _dot3(ocx, ocy, ocz, ocx, ocy, ocz)
+            disc_l = hh * hh - g_len_sq * (dsq - g[4] * g[4])
+            sql = torch.sqrt(torch.clamp(disc_l, min=0.0))
+            r1l = (hh - sql) / g_len_sq
+            r2l = (hh + sql) / g_len_sq
+            rootl = torch.where(r1l > 1e-4, r1l, r2l)
+            hit_s = (disc_l >= 0.0) & (rootl > 1e-4)
+            ctm2 = torch.sqrt(1.0 - g[4] * g[4] / dsq)
+            pdf_s = 1.0 / (2.0 * math.pi * (1.0 - ctm2))
+            l_pdf = l_pdf + torch.where(hit_s, pdf_s, zero)
+            continue
+        # quad pdf (objects.go:152-160)
         dnl = _dot3(gdx, gdy, gdz, g[10], g[11], g[12])
         onl = _dot3(hx, hy, hz, g[10], g[11], g[12])
         t_l = (g[13] - onl) / dnl
@@ -483,8 +597,7 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u):
         hit_q = ((torch.abs(dnl) >= 1e-8) & (t_l >= 1e-3)
                  & (al >= 0.0) & (al <= 1.0) & (be >= 0.0) & (be <= 1.0))
         pdf_q = t_l * t_l * g_len_sq * g_len / (torch.abs(dnl) * g[22])
-        live = 1.0 if l < n_live else 0.0
-        l_pdf = l_pdf + live * torch.where(hit_q, pdf_q, zero)
+        l_pdf = l_pdf + torch.where(hit_q, pdf_q, zero)
     l_pdf = l_pdf / float(n_live)
 
     ugx, ugy, ugz = _normalize3(gdx, gdy, gdz)
@@ -497,6 +610,27 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u):
     vr = torch.where(emit, er, torch.where(diffuse, tex_r * ratio, zero))
     vg = torch.where(emit, eg, torch.where(diffuse, tex_g * ratio, zero))
     vb = torch.where(emit, eb, torch.where(diffuse, tex_b * ratio, zero))
+    ndx, ndy, ndz = gdx, gdy, gdz
+    if st["has_metal"]:
+        # metal (materials.go:70-79): mirror direction plus fuzz * a
+        # uniform unit vector
+        m_fr = mat[4]
+        dn_m = _dot3(dx, dy, dz, n_hx, n_hy, n_hz)
+        rx, ry, rz = _normalize3(dx - 2.0 * dn_m * n_hx,
+                                 dy - 2.0 * dn_m * n_hy,
+                                 dz - 2.0 * dn_m * n_hz)
+        zf = 1.0 - 2.0 * u[0]
+        rf = torch.sqrt(torch.clamp(1.0 - zf * zf, min=0.0))
+        phif = 2.0 * math.pi * u[1]
+        rx = rx + m_fr * rf * torch.cos(phif)
+        ry = ry + m_fr * rf * torch.sin(phif)
+        rz = rz + m_fr * zf
+        vr = torch.where(is_metal, tex_r, vr)
+        vg = torch.where(is_metal, tex_g, vg)
+        vb = torch.where(is_metal, tex_b, vb)
+        ndx = torch.where(is_metal, rx, ndx)
+        ndy = torch.where(is_metal, ry, ndy)
+        ndz = torch.where(is_metal, rz, ndz)
     dead = ~alive
     vr = torch.where(dead, zero, vr)
     vg = torch.where(dead, zero, vg)
@@ -504,7 +638,7 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u):
     cf = diffuse & alive
     return (vr, vg, vb, emit, cf,
             torch.where(lit, hx, ox), torch.where(lit, hy, oy),
-            torch.where(lit, hz, oz), gdx, gdy, gdz, diffuse)
+            torch.where(lit, hz, oz), ndx, ndy, ndz, diffuse | is_metal)
 
 
 @dataclasses.dataclass
@@ -741,3 +875,187 @@ def bounce_fused_q(tables, statics, cam_row, bg, seed4, ox, oy, oz, dx, dy,
                          max_depth=max_depth, n_inner=n_inner, width=width,
                          sqrt_spp=sqrt_spp, npix=npix, out=out)
     return (tuple(out.rec), None, out.seg, out.take) + tuple(out.state)
+
+
+# ---------------------------------------------------------------------------
+# the mesh path's bounce: uniforms and the mesh hit come from the caller
+# ---------------------------------------------------------------------------
+
+def tri_mat_table(scene: T.Scene, statics) -> np.ndarray:
+    """(len(_mat_layout), T) float32: every triangle's joined material
+    columns, one row per column, so the per-lane join of
+    `mesh_ext_planes` is one gather that yields contiguous planes."""
+    lay = _mat_layout(statics)
+    return np.stack(join_mat_cols(scene, lay, scene.triangles.mat_id)) \
+        .astype(np.float32)
+
+
+def mesh_ext_planes(ms, statics, tri_mat, o, d, t_cap, alive, *,
+                    mesh="binned", counters=None):
+    """The external mesh-hit planes for `bounce(..., ext=...)`: run the
+    mesh closest hit (`ops/trace.mesh_closest`, pruned by `t_cap`, the
+    caller's dense-class pass), recompute the winning triangle's
+    barycentrics, and gather its normal and material. Returns a tuple of
+    contiguous (N,) float32 planes: t (inf where no triangle beats the cap), the
+    outward normal (interpolated vertex normals where present, else the
+    face normal; un-flipped, the bounce recomputes `front`), then the
+    material columns of `_mat_layout(statics)`.
+
+    ms: `ops/trace.to_device(scene, device)`; tri_mat: `tri_mat_table` as
+    a tensor on the same device."""
+    from go_raytracer_tpu_torch.ops import trace as trace_mod
+
+    if statics["has_image"]:
+        raise NotImplementedError(
+            "an image-textured mesh needs the texel patch of the JAX "
+            "package's patch_image_weight, a later slice (ROADMAP.md)")
+    if not ms.has_tri_bvh:
+        raise ValueError("mesh_ext_planes requires a built triangle BVH")
+    t_t, i_t = trace_mod.mesh_closest(ms, o, d, t_cap=t_cap, alive=alive,
+                                      mesh=mesh, counters=counters)
+    # the intersectors return the untouched cap with idx = -1 when no
+    # triangle beats it: gate on the idx
+    hit = torch.isfinite(t_t) & (i_t >= 0) & (t_t < t_cap)
+    idx = torch.where(hit, i_t, 0).to(torch.int64)
+    tr = ms.triangles
+    t_safe = torch.where(hit, t_t, 1.0)
+    _, bu, bv, _ = trace_mod.tri_hit_gathered(tr, idx, o, d, -trace_mod.INF,
+                                              trace_mod.INF)
+    w = 1.0 - bu - bv
+    vn = tr.vn[idx]
+    n_interp = (w[:, None] * vn[:, 0] + bu[:, None] * vn[:, 1]
+                + bv[:, None] * vn[:, 2])
+    ln = torch.sqrt(torch.sum(n_interp * n_interp, dim=-1))
+    n_interp = n_interp / torch.clamp(ln, min=1e-30)[:, None]
+    n_raw = torch.where(tr.has_vn[idx][:, None], n_interp, tr.n_face[idx])
+    return (torch.where(hit, t_safe, trace_mod.INF),
+            *n_raw.t().contiguous(), *tri_mat[:, idx])
+
+
+def _check_bounce_statics(statics, ext):
+    if not supported_ext_statics(statics):
+        raise NotImplementedError(
+            "scene outside this kernel's subset (see supported_ext())")
+    n_ext = 4 + len(_mat_layout(statics))
+    if statics["ext_hit"] and (ext is None or len(ext) != n_ext):
+        raise ValueError(f"statics['ext_hit'] needs {n_ext} ext planes")
+    if not statics["ext_hit"] and ext is not None:
+        raise ValueError("ext planes given but statics['ext_hit'] is false")
+
+
+def bounce_ref(tables, statics, o, d, time, alive, u, bg, ext=None, out=None):
+    """Plain PyTorch version of `bounce` (same arguments, same results)."""
+    _check_bounce_statics(statics, ext)
+    prims, lights = tables[0], tables[1]
+    us = [u[:, k] for k in range(N_U)]
+    (vr, vg, vb, emit, cf, nox, noy, noz, ndx, ndy, ndz, alive_out) = \
+        _bounce_core_ref(statics, prims, lights, bg.tolist(),
+                         o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                         d[:, 2], alive, us, tm=time, ext=ext)
+    V = torch.stack([vr, vg, vb], dim=-1)
+    zero = torch.zeros_like(V)
+    res = (torch.where(emit[:, None], V, zero),
+           torch.where(emit[:, None], zero, V), cf,
+           torch.stack([nox, noy, noz], dim=-1),
+           torch.stack([ndx, ndy, ndz], dim=-1), alive_out & alive)
+    if out is not None:
+        for dst, src in zip(out, res):
+            dst.copy_(src)
+        res = tuple(out)
+    return (*res, None)
+
+
+class _BounceArgs(ctypes.Structure):
+    """Mirror of `BounceArgs` in csrc/bounce.cu (field for field)."""
+
+    MAX_EXT = 16
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "prims", "lights", "bg", "o", "d", "tm", "alive", "u")] + [
+            ("ext", ctypes.c_void_p * MAX_EXT)] + [
+            (name, ctypes.c_void_p) for name in (
+                "E", "W", "cf", "new_o", "new_d", "alive_out")] + [
+            (name, ctypes.c_int) for name in (
+                "p_cols", "sph_base", "n_sph", "quad_base", "n_quad",
+                "box_base", "n_box", "n_lights", "n_lights_live", "fr_col",
+                "n", "n_u", "n_ext", "ext_fr")]
+
+
+def bounce_out(n: int, device):
+    """Output buffers of `bounce` for `n` lanes: E, W (N, 3) float32, cf
+    (N,) bool, new_o, new_d (N, 3) float32, alive' (N,) bool."""
+    vec = lambda: torch.empty((n, 3), dtype=torch.float32, device=device)
+    flag = lambda: torch.empty(n, dtype=torch.bool, device=device)
+    return vec(), vec(), flag(), vec(), vec(), flag()
+
+
+def bounce(tables, statics, o, d, time, alive, u, bg, ext=None, out=None):
+    """One bounce for the whole ray bundle from given uniforms (the JAX
+    package's `bounce`).
+
+    tables = `pack_scene(scene)` as tensors; statics =
+    `scene_statics(scene, ext=...)`; o, d: (N, 3) float32; time: (N,)
+    float32; alive: (N,) bool; u: (N, N_U) uniforms in the slot order
+    metal a/b, dielectric, mix, light pick, light a/b, material a/b; bg:
+    (3,). With statics["ext_hit"], `ext` = the planes of
+    `mesh_ext_planes`. Returns E (N, 3), W (N, 3), cf (N,) bool, new_o,
+    new_d (N, 3), alive' (N,) bool, None (the image-texture planes of the
+    JAX package, which this package does not produce yet). `out` =
+    `bounce_out(N, device)` is written in place and returned, so a loop
+    over levels allocates nothing; none of its tensors may be an input.
+
+    CUDA tensors launch the kernel; CPU tensors run `bounce_ref`. The
+    kernel leaves a dead lane's direction as it was, where the plain
+    version writes a don't-care sampled direction."""
+    global launches_bounce
+    if not o.is_cuda:
+        return bounce_ref(tables, statics, o, d, time, alive, u, bg, ext, out)
+    _check_bounce_statics(statics, ext)
+    from go_raytracer_tpu_torch.ops import _cuda
+
+    st = statics
+    n = o.shape[0]
+    prims, lights = tables[0], tables[1]
+    f32 = torch.float32
+    checks = [("prims", prims, f32, None), ("lights", lights, f32, None),
+              ("bg", bg, f32, (3,)), ("o", o, f32, (n, 3)),
+              ("d", d, f32, (n, 3)), ("time", time, f32, (n,)),
+              ("alive", alive, torch.bool, (n,)),
+              ("u", u, f32, (n, u.shape[1]))]
+    ext = tuple(ext) if ext is not None else ()
+    if len(ext) > _BounceArgs.MAX_EXT:
+        raise ValueError(f"at most {_BounceArgs.MAX_EXT} ext planes")
+    checks += [(f"ext[{k}]", e, f32, (n,)) for k, e in enumerate(ext)]
+    _check_cuda_args(checks)
+    if u.shape[1] < N_U:
+        raise ValueError(f"u needs at least {N_U} columns")
+    if n == 0:
+        return (*out, None)
+    if out is None:
+        out = bounce_out(n, o.device)
+    E, W, cf, new_o, new_d, alive_out = out
+    checks += [(name, t, f32, (n, 3)) for name, t in (
+        ("out E", E), ("out W", W), ("out new_o", new_o),
+        ("out new_d", new_d))]
+    checks += [("out cf", cf, torch.bool, (n,)),
+               ("out alive", alive_out, torch.bool, (n,))]
+    lay = _mat_layout(st)
+    fr = lay.index("fr") if "fr" in lay else -1
+    p = lambda t: t.data_ptr()
+    a = _BounceArgs(
+        prims=p(prims), lights=p(lights), bg=p(bg), o=p(o), d=p(d),
+        tm=p(time), alive=p(alive), u=p(u),
+        ext=(ctypes.c_void_p * _BounceArgs.MAX_EXT)(*(p(e) for e in ext)),
+        E=p(E), W=p(W), cf=p(cf), new_o=p(new_o), new_d=p(new_d),
+        alive_out=p(alive_out), p_cols=prims.shape[1],
+        sph_base=st["sph_base"], n_sph=st["n_sph"],
+        quad_base=st["quad_base"], n_quad=st["n_quad"],
+        box_base=st["box_base"], n_box=st["n_box"],
+        n_lights=st["n_lights"], n_lights_live=st["n_lights_live"],
+        fr_col=MAT_BASE + fr if fr >= 0 else -1, n=n, n_u=u.shape[1],
+        n_ext=len(ext), ext_fr=4 + fr if fr >= 0 else -1)
+    err = _cuda.library("bounce").grt_bounce(
+        ctypes.addressof(a), torch.cuda.current_stream(o.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"bounce launch failed: {_cuda.error_string(err)}")
+    launches_bounce += 1
+    return (*out, None)

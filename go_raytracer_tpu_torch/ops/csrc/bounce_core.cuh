@@ -1,0 +1,355 @@
+// One bounce of one ray (camera.go:293-331): closest hit over the packed
+// primitive table (spheres, quads, fused boxes), an optional externally
+// computed mesh hit folded in, face-forward flip, emission or background,
+// mixture light/cosine sampling with its pdf, and the metal reflection.
+// Shared by bounce_fused_q.cu (uniforms from its hash PRNG, no spheres or
+// metal in the scenes it accepts) and bounce.cu (uniforms and the mesh hit
+// from memory). Mirrors `_bounce_core_ref` in ops/bounce.py op for op.
+//
+// Table layouts (ops/bounce.py): primitive row = 13 geometry columns then
+// the material block (kind, even rgb, odd rgb, [fr]); light row = L_COLS.
+//
+// Precision: nvcc contracts multiply-adds into FMAs, and the code uses
+// rsqrtf and __sincosf; the plain PyTorch version does neither, so the two
+// agree to about 1e-6 relative, and a ray grazing an edge may take the
+// other branch.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define MAT_BASE 13
+#define L_COLS 23
+#define N_U 9
+#define T_MIN 1e-3f
+#define MAT_LAMBERTIAN 0.0f
+#define MAT_METAL 1.0f
+#define MAT_DIFFUSE_LIGHT 3.0f
+// uniform slots (the wavefront order of the JAX package)
+#define U_METAL_A 0
+#define U_METAL_B 1
+#define U_MIX 3
+#define U_PICK 4
+#define U_LA 5
+#define U_LB 6
+#define U_MA 7
+#define U_MB 8
+
+struct BounceTables {
+  const float* prims;
+  const float* lights;
+  const float* bg;
+  int p_cols;
+  int sph_base, n_sph, quad_base, n_quad, box_base, n_box;
+  int n_lights, n_lights_live;
+  int fr_col;  // column of the metal fuzz in a primitive row, -1 if none
+};
+
+// The externally computed closest mesh hit of one ray: t (inf = none), the
+// un-flipped outward normal, and the winning triangle's material columns.
+struct ExtHit {
+  float t, nx, ny, nz, kind, tex_r, tex_g, tex_b, fr;
+};
+
+struct BounceResult {
+  float vr, vg, vb;       // merged V: emission, or the scatter weight
+  bool emit, cf, alive;   // V is emission; clamp flag; the path goes on
+  float ox, oy, oz;       // new origin (the hit point, if any)
+  float dx, dy, dz;       // new direction
+};
+
+__device__ __forceinline__ float safe_inv(float v) {
+  const float tiny = 1e-30f;
+  return 1.0f / (fabsf(v) < tiny ? (v < 0.0f ? -tiny : tiny) : v);
+}
+
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
+  const float inv = rsqrtf(x * x + y * y + z * z + 1e-38f);
+  x *= inv;
+  y *= inv;
+  z *= inv;
+}
+
+// The reference ONB about n (onb.go:13-25) applied to (lx, ly, lz).
+__device__ __forceinline__ void onb_transform(float nx, float ny, float nz, float lx, float ly,
+                                              float lz, float& ox, float& oy, float& oz) {
+  float wx = nx, wy = ny, wz = nz;
+  normalize3(wx, wy, wz);
+  const bool use_y = fabsf(nx) > 0.9f;
+  const float ax = use_y ? 0.0f : 1.0f, ay = use_y ? 1.0f : 0.0f;
+  float vx = ny * 0.0f - nz * ay, vy = nz * ax - nx * 0.0f, vz = nx * ay - ny * ax;
+  normalize3(vx, vy, vz);
+  float ux = ny * vz - nz * vy, uy = nz * vx - nx * vz, uz = nx * vy - ny * vx;
+  normalize3(ux, uy, uz);
+  ox = lx * ux + ly * vx + lz * wx;
+  oy = lx * uy + ly * vy + lz * wy;
+  oz = lx * uz + ly * vz + lz * wz;
+}
+
+// `ext` may be null (no mesh hit to fold). The ray must be alive.
+__device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float ox, float oy,
+                                                    float oz, float dx, float dy, float dz,
+                                                    float tm, const float* u,
+                                                    const ExtHit* ext) {
+  const float* __restrict__ P = T.prims;
+  const int pc = T.p_cols;
+  float t_best = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
+  float m_kind = 0.0f, tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f, m_fr = 0.0f;
+  bool win_sphere = false;
+  float sph_r = 1.0f;
+
+  // ---- closest hit: spheres (objects.go:83-115) ---------------------------
+  // the normal slots carry c - o until the winner's (p - c) / r is resolved
+  if (T.n_sph > 0) {
+    const float a_quad = dx * dx + dy * dy + dz * dz;
+    const float inv_a = 1.0f / a_quad;
+    for (int s = 0; s < T.n_sph; ++s) {
+      const float* g = P + (T.sph_base + s) * pc;
+      const float cx = __ldg(g + 1) + tm * __ldg(g + 4) - ox;
+      const float cy = __ldg(g + 2) + tm * __ldg(g + 5) - oy;
+      const float cz = __ldg(g + 3) + tm * __ldg(g + 6) - oz;
+      const float h = dx * cx + dy * cy + dz * cz;
+      const float c = cx * cx + cy * cy + cz * cz - __ldg(g + 8);
+      const float disc = h * h - a_quad * c;
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float r1 = (h - sq) * inv_a, r2 = (h + sq) * inv_a;
+      const float root = (T_MIN < r1 && r1 < t_best) ? r1 : r2;
+      const bool ok = __ldg(g) >= 0.0f && disc >= 0.0f && T_MIN < root && root < t_best;
+      if (ok) {
+        t_best = root;
+        nx = cx;
+        ny = cy;
+        nz = cz;
+        win_sphere = true;
+        sph_r = __ldg(g + 7);
+        m_kind = __ldg(g + MAT_BASE);
+        tex_r = __ldg(g + MAT_BASE + 1);
+        tex_g = __ldg(g + MAT_BASE + 2);
+        tex_b = __ldg(g + MAT_BASE + 3);
+        if (T.fr_col >= 0) m_fr = __ldg(g + T.fr_col);
+      }
+    }
+  }
+  // ---- quads (objects.go:167-206) ------------------------------------------
+  for (int q = 0; q < T.n_quad; ++q) {
+    const float* g = P + (T.quad_base + q) * pc;
+    const float dn = dx * __ldg(g + 1) + dy * __ldg(g + 2) + dz * __ldg(g + 3);
+    const float on = ox * __ldg(g + 1) + oy * __ldg(g + 2) + oz * __ldg(g + 3);
+    const float t_q = (__ldg(g + 4) - on) / dn;
+    const float px = ox + t_q * dx, py = oy + t_q * dy, pz = oz + t_q * dz;
+    const float al = px * __ldg(g + 5) + py * __ldg(g + 6) + pz * __ldg(g + 7) - __ldg(g + 11);
+    const float be = px * __ldg(g + 8) + py * __ldg(g + 9) + pz * __ldg(g + 10) - __ldg(g + 12);
+    const bool ok = __ldg(g) >= 0.0f && fabsf(dn) >= 1e-8f && T_MIN <= t_q &&
+                    t_q < t_best && al >= 0.0f && al <= 1.0f && be >= 0.0f && be <= 1.0f;
+    if (ok) {
+      t_best = t_q;
+      nx = __ldg(g + 1);
+      ny = __ldg(g + 2);
+      nz = __ldg(g + 3);
+      win_sphere = false;
+      m_kind = __ldg(g + MAT_BASE);
+      tex_r = __ldg(g + MAT_BASE + 1);
+      tex_g = __ldg(g + MAT_BASE + 2);
+      tex_b = __ldg(g + MAT_BASE + 3);
+      if (T.fr_col >= 0) m_fr = __ldg(g + T.fr_col);
+    }
+  }
+  // ---- fused boxes, rotate-Y + translate rows (transformation.go) -----------
+  for (int k = 0; k < T.n_box; ++k) {
+    const float* g = P + (T.box_base + k) * pc;
+    const float cs = __ldg(g + 7), sn = __ldg(g + 8);
+    const float osx = ox - __ldg(g + 9), oyo = oy - __ldg(g + 10), osz = oz - __ldg(g + 11);
+    const float oxo = cs * osx - sn * osz;
+    const float ozo = sn * osx + cs * osz;
+    const float dxo = cs * dx - sn * dz;
+    const float dzo = sn * dx + cs * dz;
+    const float ix = safe_inv(dxo), iy = safe_inv(dy), iz = safe_inv(dzo);
+    const float tx0 = (__ldg(g + 1) - oxo) * ix, tx1 = (__ldg(g + 4) - oxo) * ix;
+    const float ty0 = (__ldg(g + 2) - oyo) * iy, ty1 = (__ldg(g + 5) - oyo) * iy;
+    const float tz0 = (__ldg(g + 3) - ozo) * iz, tz1 = (__ldg(g + 6) - ozo) * iz;
+    const float lx = fminf(tx0, tx1), hx = fmaxf(tx0, tx1);
+    const float ly = fminf(ty0, ty1), hy = fmaxf(ty0, ty1);
+    const float lz = fminf(tz0, tz1), hz = fmaxf(tz0, tz1);
+    const float near = fmaxf(fmaxf(lx, ly), lz);
+    const float far = fminf(fminf(hx, hy), hz);
+    const bool entry = near >= T_MIN;
+    const float t_c = entry ? near : far;
+    const bool ok = __ldg(g) >= 0.0f && far > near && T_MIN <= t_c && t_c < t_best;
+    if (ok) {
+      const bool is_x = (entry ? lx : hx) == t_c;
+      const bool is_y = !is_x && (entry ? ly : hy) == t_c;
+      const bool is_z = !is_x && !is_y;
+      const float flip = entry ? -1.0f : 1.0f;
+      const float nxo = is_x ? (dxo >= 0.0f ? flip : -flip) : 0.0f;
+      const float nyo = is_y ? (dy >= 0.0f ? flip : -flip) : 0.0f;
+      const float nzo = is_z ? (dzo >= 0.0f ? flip : -flip) : 0.0f;
+      t_best = t_c;
+      nx = cs * nxo + sn * nzo;
+      ny = nyo;
+      nz = -sn * nxo + cs * nzo;
+      win_sphere = false;
+      m_kind = __ldg(g + MAT_BASE);
+      tex_r = __ldg(g + MAT_BASE + 1);
+      tex_g = __ldg(g + MAT_BASE + 2);
+      tex_b = __ldg(g + MAT_BASE + 3);
+      if (T.fr_col >= 0) m_fr = __ldg(g + T.fr_col);
+    }
+  }
+  // ---- the external mesh hit wins only when strictly nearer ------------------
+  if (ext != nullptr && ext->t < t_best) {
+    t_best = ext->t;
+    nx = ext->nx;
+    ny = ext->ny;
+    nz = ext->nz;
+    win_sphere = false;
+    m_kind = ext->kind;
+    tex_r = ext->tex_r;
+    tex_g = ext->tex_g;
+    tex_b = ext->tex_b;
+    m_fr = ext->fr;
+  }
+
+  const bool hit = isfinite(t_best);
+  const float ts = hit ? t_best : 1.0f;
+  const float hx = ox + ts * dx, hy = oy + ts * dy, hz = oz + ts * dz;
+  // the winning sphere's outward normal (t*d - (c - o)) / r (objects.go:96-99)
+  if (win_sphere && hit) {
+    const float inv_r = 1.0f / sph_r;
+    nx = (ts * dx - nx) * inv_r;
+    ny = (ts * dy - ny) * inv_r;
+    nz = (ts * dz - nz) * inv_r;
+  }
+  // face-forward flip (hittable.go:27-34), from the un-flipped outward normal
+  const bool front = dx * nx + dy * ny + dz * nz < 0.0f;
+  if (!front) {
+    nx = -nx;
+    ny = -ny;
+    nz = -nz;
+  }
+  const bool is_light = hit && m_kind == MAT_DIFFUSE_LIGHT;
+  const bool diffuse = hit && m_kind == MAT_LAMBERTIAN;
+  const bool is_metal = hit && m_kind == MAT_METAL;
+  const bool e_on = is_light && front;
+  const bool emit = !hit || e_on;
+
+  // ---- mixture sampling (pdf.go:58-74): light pick + per-kind sample --------
+  const float* __restrict__ L = T.lights;
+  const int n_live = T.n_lights_live;
+  int li = (int)(u[U_PICK] * (float)n_live);
+  li = li < n_live - 1 ? li : n_live - 1;
+  float ldx = 0.0f, ldy = 0.0f, ldz = 0.0f;
+  for (int l = 0; l < T.n_lights; ++l) {
+    if (li == l) {
+      const float* g = L + l * L_COLS;
+      if (__ldg(g) < 0.5f) {  // quad (objects.go:161-165)
+        ldx = __ldg(g + 1) + u[U_LA] * __ldg(g + 4) + u[U_LB] * __ldg(g + 7) - hx;
+        ldy = __ldg(g + 2) + u[U_LA] * __ldg(g + 5) + u[U_LB] * __ldg(g + 8) - hy;
+        ldz = __ldg(g + 3) + u[U_LA] * __ldg(g + 6) + u[U_LB] * __ldg(g + 9) - hz;
+      } else {  // sphere cone sample (objects.go:63-80)
+        const float tcx = __ldg(g + 1) - hx, tcy = __ldg(g + 2) - hy, tcz = __ldg(g + 3) - hz;
+        const float dist_sq = tcx * tcx + tcy * tcy + tcz * tcz;
+        const float rad = __ldg(g + 4);
+        const float ctm = sqrtf(fmaxf(0.0f, 1.0f - rad * rad / dist_sq));
+        const float zz = 1.0f + u[U_LB] * (ctm - 1.0f);
+        float s, c;
+        __sincosf(6.2831855f * u[U_LA], &s, &c);
+        const float st = sqrtf(fmaxf(0.0f, 1.0f - zz * zz));
+        onb_transform(tcx, tcy, tcz, c * st, s * st, zz, ldx, ldy, ldz);
+      }
+    }
+  }
+  // cosine about the shading normal (pdf.go:38-40, onb.go:13-25)
+  float gdx, gdy, gdz;
+  if (u[U_MIX] < 0.5f) {
+    gdx = ldx;
+    gdy = ldy;
+    gdz = ldz;
+  } else {
+    float s, c;
+    __sincosf(6.2831855f * u[U_MA], &s, &c);
+    const float sq = sqrtf(u[U_MB]);
+    onb_transform(nx, ny, nz, c * sq, s * sq, sqrtf(fmaxf(0.0f, 1.0f - u[U_MB])), gdx, gdy,
+                  gdz);
+  }
+
+  // ---- mixture pdf: mean of the live lights' pdfs (hittable.go:89-97) -------
+  const float g_len_sq = gdx * gdx + gdy * gdy + gdz * gdz;
+  const float g_len = sqrtf(g_len_sq);
+  float l_pdf = 0.0f;
+  for (int l = 0; l < n_live; ++l) {
+    const float* g = L + l * L_COLS;
+    if (__ldg(g) < 0.5f) {  // quad pdf (objects.go:152-160)
+      const float dnl = gdx * __ldg(g + 10) + gdy * __ldg(g + 11) + gdz * __ldg(g + 12);
+      const float onl = hx * __ldg(g + 10) + hy * __ldg(g + 11) + hz * __ldg(g + 12);
+      const float t_l = (__ldg(g + 13) - onl) / dnl;
+      const float lpx = hx + t_l * gdx, lpy = hy + t_l * gdy, lpz = hz + t_l * gdz;
+      const float al =
+          lpx * __ldg(g + 14) + lpy * __ldg(g + 15) + lpz * __ldg(g + 16) - __ldg(g + 20);
+      const float be =
+          lpx * __ldg(g + 17) + lpy * __ldg(g + 18) + lpz * __ldg(g + 19) - __ldg(g + 21);
+      const bool hit_q = fabsf(dnl) >= 1e-8f && t_l >= 1e-3f && al >= 0.0f && al <= 1.0f &&
+                         be >= 0.0f && be <= 1.0f;
+      const float pdf_q = t_l * t_l * g_len_sq * g_len / (fabsf(dnl) * __ldg(g + 22));
+      if (hit_q) l_pdf += pdf_q;
+    } else {  // sphere pdf (objects.go:52-62); NaN from inside is kept
+      const float ocx = __ldg(g + 1) - hx, ocy = __ldg(g + 2) - hy, ocz = __ldg(g + 3) - hz;
+      const float rad = __ldg(g + 4);
+      const float hh = gdx * ocx + gdy * ocy + gdz * ocz;
+      const float dsq = ocx * ocx + ocy * ocy + ocz * ocz;
+      const float disc_l = hh * hh - g_len_sq * (dsq - rad * rad);
+      const float sql = sqrtf(fmaxf(disc_l, 0.0f));
+      const float r1l = (hh - sql) / g_len_sq, r2l = (hh + sql) / g_len_sq;
+      const float rootl = r1l > 1e-4f ? r1l : r2l;
+      const bool hit_s = disc_l >= 0.0f && rootl > 1e-4f;
+      const float ctm2 = sqrtf(1.0f - rad * rad / dsq);
+      const float pdf_s = 1.0f / (6.2831855f * (1.0f - ctm2));
+      if (hit_s) l_pdf += pdf_s;
+    }
+  }
+  l_pdf = l_pdf / (float)n_live;
+  const float inv_g = rsqrtf(g_len_sq + 1e-38f);
+  const float cos_t = (gdx * inv_g) * nx + (gdy * inv_g) * ny + (gdz * inv_g) * nz;
+  const float mat_pdf = fmaxf(0.0f, cos_t) * 0.31830988618379067f;
+  const float pdf_value = 0.5f * l_pdf + 0.5f * mat_pdf;
+
+  BounceResult r;
+  r.vr = r.vg = r.vb = 0.0f;
+  if (emit) {
+    r.vr = hit ? tex_r : T.bg[0];
+    r.vg = hit ? tex_g : T.bg[1];
+    r.vb = hit ? tex_b : T.bg[2];
+  } else if (diffuse) {
+    const float ratio = mat_pdf / pdf_value;
+    r.vr = tex_r * ratio;
+    r.vg = tex_g * ratio;
+    r.vb = tex_b * ratio;
+  }
+  r.dx = gdx;
+  r.dy = gdy;
+  r.dz = gdz;
+  if (is_metal) {
+    // metal (materials.go:70-79): mirror direction plus fuzz * unit vector
+    const float dn_m = dx * nx + dy * ny + dz * nz;
+    float rx = dx - 2.0f * dn_m * nx, ry = dy - 2.0f * dn_m * ny, rz = dz - 2.0f * dn_m * nz;
+    normalize3(rx, ry, rz);
+    const float zf = 1.0f - 2.0f * u[U_METAL_A];
+    const float rf = sqrtf(fmaxf(0.0f, 1.0f - zf * zf));
+    float s, c;
+    __sincosf(6.2831855f * u[U_METAL_B], &s, &c);
+    r.dx = rx + m_fr * rf * c;
+    r.dy = ry + m_fr * rf * s;
+    r.dz = rz + m_fr * zf;
+    r.vr = tex_r;
+    r.vg = tex_g;
+    r.vb = tex_b;
+  }
+  r.emit = emit;
+  r.cf = diffuse;
+  r.alive = diffuse || is_metal;
+  r.ox = hit ? hx : ox;
+  r.oy = hit ? hy : oy;
+  r.oz = hit ? hz : oz;
+  return r;
+}

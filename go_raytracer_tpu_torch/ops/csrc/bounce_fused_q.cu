@@ -30,25 +30,15 @@
 // different materials. Tables are a few hundred floats, read with uniform
 // read-only loads (one broadcast per warp).
 //
-// Precision: nvcc contracts multiply-adds into FMAs, and the kernel uses
-// rsqrtf and __sincosf; the plain PyTorch version does neither, so the two
-// agree to about 1e-6 relative per level, and a lane whose ray grazes an
-// edge may take the other branch.
+// The bounce itself (closest hit, shading, sampling) is `bounce_core` in
+// bounce_core.cuh, shared with bounce.cu; its precision note applies here.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "bounce_core.cuh"
 
 #define BLOCK 256
 #define NWARP (BLOCK / 32)
-#define MAT_BASE 13
-#define L_COLS 23
-#define N_U 9
 #define N_U_RAYGEN 5
 #define SLOTS (N_U_RAYGEN + N_U)
-#define T_MIN 1e-3f
-#define MAT_LAMBERTIAN 0.0f
-#define MAT_DIFFUSE_LIGHT 3.0f
 
 struct FusedQArgs {
   const float* prims;
@@ -105,18 +95,6 @@ count_dead(const int* __restrict__ alive, int* __restrict__ dead_cnt) {
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   const int c = block_sum(alive[lane] == 0 ? 1 : 0, red);
   if (threadIdx.x == 0) dead_cnt[blockIdx.x] = c;
-}
-
-__device__ __forceinline__ float safe_inv(float v) {
-  const float tiny = 1e-30f;
-  return 1.0f / (fabsf(v) < tiny ? (v < 0.0f ? -tiny : tiny) : v);
-}
-
-__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
-  const float inv = rsqrtf(x * x + y * y + z * z + 1e-38f);
-  x *= inv;
-  y *= inv;
-  z *= inv;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -209,172 +187,36 @@ fused_q_level(FusedQArgs a, int j) {
   float vr = 0.0f, vg = 0.0f, vb = 0.0f;
   bool emit = false, cf = false, alive_out = false;
   if (alive) {
-    // ---- closest hit: quads (objects.go:167-206) ------------------------
-    const float* __restrict__ P = a.prims;
-    const int pc = a.p_cols;
-    float t_best = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
-    float m_kind = 0.0f, tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f;
-    for (int q = 0; q < a.n_quad; ++q) {
-      const float* g = P + (a.quad_base + q) * pc;
-      const float dn = dx * __ldg(g + 1) + dy * __ldg(g + 2) + dz * __ldg(g + 3);
-      const float on = ox * __ldg(g + 1) + oy * __ldg(g + 2) + oz * __ldg(g + 3);
-      const float t_q = (__ldg(g + 4) - on) / dn;
-      const float px = ox + t_q * dx, py = oy + t_q * dy, pz = oz + t_q * dz;
-      const float al = px * __ldg(g + 5) + py * __ldg(g + 6) + pz * __ldg(g + 7) - __ldg(g + 11);
-      const float be = px * __ldg(g + 8) + py * __ldg(g + 9) + pz * __ldg(g + 10) - __ldg(g + 12);
-      const bool ok = __ldg(g) >= 0.0f && fabsf(dn) >= 1e-8f && T_MIN <= t_q &&
-                      t_q < t_best && al >= 0.0f && al <= 1.0f && be >= 0.0f && be <= 1.0f;
-      if (ok) {
-        t_best = t_q;
-        nx = __ldg(g + 1);
-        ny = __ldg(g + 2);
-        nz = __ldg(g + 3);
-        m_kind = __ldg(g + MAT_BASE);
-        tex_r = __ldg(g + MAT_BASE + 1);
-        tex_g = __ldg(g + MAT_BASE + 2);
-        tex_b = __ldg(g + MAT_BASE + 3);
-      }
-    }
-    // ---- fused boxes, rotate-Y + translate rows (transformation.go) -------
-    for (int k = 0; k < a.n_box; ++k) {
-      const float* g = P + (a.box_base + k) * pc;
-      const float cs = __ldg(g + 7), sn = __ldg(g + 8);
-      const float osx = ox - __ldg(g + 9), oyo = oy - __ldg(g + 10), osz = oz - __ldg(g + 11);
-      const float oxo = cs * osx - sn * osz;
-      const float ozo = sn * osx + cs * osz;
-      const float dxo = cs * dx - sn * dz;
-      const float dzo = sn * dx + cs * dz;
-      const float ix = safe_inv(dxo), iy = safe_inv(dy), iz = safe_inv(dzo);
-      const float tx0 = (__ldg(g + 1) - oxo) * ix, tx1 = (__ldg(g + 4) - oxo) * ix;
-      const float ty0 = (__ldg(g + 2) - oyo) * iy, ty1 = (__ldg(g + 5) - oyo) * iy;
-      const float tz0 = (__ldg(g + 3) - ozo) * iz, tz1 = (__ldg(g + 6) - ozo) * iz;
-      const float lx = fminf(tx0, tx1), hx = fmaxf(tx0, tx1);
-      const float ly = fminf(ty0, ty1), hy = fmaxf(ty0, ty1);
-      const float lz = fminf(tz0, tz1), hz = fmaxf(tz0, tz1);
-      const float near = fmaxf(fmaxf(lx, ly), lz);
-      const float far = fminf(fminf(hx, hy), hz);
-      const bool entry = near >= T_MIN;
-      const float t_c = entry ? near : far;
-      const bool ok = __ldg(g) >= 0.0f && far > near && T_MIN <= t_c && t_c < t_best;
-      if (ok) {
-        const bool is_x = (entry ? lx : hx) == t_c;
-        const bool is_y = !is_x && (entry ? ly : hy) == t_c;
-        const bool is_z = !is_x && !is_y;
-        const float flip = entry ? -1.0f : 1.0f;
-        const float nxo = is_x ? (dxo >= 0.0f ? flip : -flip) : 0.0f;
-        const float nyo = is_y ? (dy >= 0.0f ? flip : -flip) : 0.0f;
-        const float nzo = is_z ? (dzo >= 0.0f ? flip : -flip) : 0.0f;
-        t_best = t_c;
-        nx = cs * nxo + sn * nzo;
-        ny = nyo;
-        nz = -sn * nxo + cs * nzo;
-        m_kind = __ldg(g + MAT_BASE);
-        tex_r = __ldg(g + MAT_BASE + 1);
-        tex_g = __ldg(g + MAT_BASE + 2);
-        tex_b = __ldg(g + MAT_BASE + 3);
-      }
-    }
-
-    const bool hit = isfinite(t_best);
-    const float ts = hit ? t_best : 1.0f;
-    const float hx = ox + ts * dx, hy = oy + ts * dy, hz = oz + ts * dz;
-    // face-forward flip (hittable.go:27-34)
-    const bool front = dx * nx + dy * ny + dz * nz < 0.0f;
-    if (!front) {
-      nx = -nx;
-      ny = -ny;
-      nz = -nz;
-    }
-    const bool is_light = hit && m_kind == MAT_DIFFUSE_LIGHT;
-    const bool diffuse = hit && m_kind == MAT_LAMBERTIAN;
-    const bool e_on = is_light && front;
-    emit = !hit || e_on;
-
     float u[N_U];
 #pragma unroll
     for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + N_U_RAYGEN + k);
-
-    // ---- mixture sampling (pdf.go:58-74): light pick + quad sample --------
-    const float* __restrict__ L = a.lights;
-    const int n_live = a.n_lights_live;
-    int li = (int)(u[4] * (float)n_live);
-    li = li < n_live - 1 ? li : n_live - 1;
-    float ldx = 0.0f, ldy = 0.0f, ldz = 0.0f;
-    for (int l = 0; l < a.n_lights; ++l) {
-      if (li == l) {
-        const float* g = L + l * L_COLS;
-        ldx = __ldg(g + 1) + u[5] * __ldg(g + 4) + u[6] * __ldg(g + 7) - hx;
-        ldy = __ldg(g + 2) + u[5] * __ldg(g + 5) + u[6] * __ldg(g + 8) - hy;
-        ldz = __ldg(g + 3) + u[5] * __ldg(g + 6) + u[6] * __ldg(g + 9) - hz;
-      }
-    }
-    // cosine about the shading normal (pdf.go:38-40, onb.go:13-25)
-    float gdx, gdy, gdz;
-    if (u[3] < 0.5f) {
-      gdx = ldx;
-      gdy = ldy;
-      gdz = ldz;
-    } else {
-      float s, c;
-      __sincosf(6.2831855f * u[7], &s, &c);
-      const float sq = sqrtf(u[8]);
-      const float lx = c * sq, ly = s * sq, lz = sqrtf(fmaxf(0.0f, 1.0f - u[8]));
-      float wx = nx, wy = ny, wz = nz;
-      normalize3(wx, wy, wz);
-      const bool use_y = fabsf(nx) > 0.9f;
-      const float ax = use_y ? 0.0f : 1.0f, ay = use_y ? 1.0f : 0.0f;
-      float vx = ny * 0.0f - nz * ay, vy = nz * ax - nx * 0.0f, vz = nx * ay - ny * ax;
-      normalize3(vx, vy, vz);
-      float ux = ny * vz - nz * vy, uy = nz * vx - nx * vz, uz = nx * vy - ny * vx;
-      normalize3(ux, uy, uz);
-      gdx = lx * ux + ly * vx + lz * wx;
-      gdy = lx * uy + ly * vy + lz * wy;
-      gdz = lx * uz + ly * vz + lz * wz;
-    }
-
-    // ---- mixture pdf: mean of the quad-light pdfs (objects.go:152-160) -----
-    const float g_len_sq = gdx * gdx + gdy * gdy + gdz * gdz;
-    const float g_len = sqrtf(g_len_sq);
-    float l_pdf = 0.0f;
-    for (int l = 0; l < a.n_lights; ++l) {
-      const float* g = L + l * L_COLS;
-      const float dnl = gdx * __ldg(g + 10) + gdy * __ldg(g + 11) + gdz * __ldg(g + 12);
-      const float onl = hx * __ldg(g + 10) + hy * __ldg(g + 11) + hz * __ldg(g + 12);
-      const float t_l = (__ldg(g + 13) - onl) / dnl;
-      const float lpx = hx + t_l * gdx, lpy = hy + t_l * gdy, lpz = hz + t_l * gdz;
-      const float al = lpx * __ldg(g + 14) + lpy * __ldg(g + 15) + lpz * __ldg(g + 16) - __ldg(g + 20);
-      const float be = lpx * __ldg(g + 17) + lpy * __ldg(g + 18) + lpz * __ldg(g + 19) - __ldg(g + 21);
-      const bool hit_q = fabsf(dnl) >= 1e-8f && t_l >= 1e-3f && al >= 0.0f && al <= 1.0f &&
-                         be >= 0.0f && be <= 1.0f;
-      const float pdf_q = t_l * t_l * g_len_sq * g_len / (fabsf(dnl) * __ldg(g + 22));
-      if (hit_q && l < n_live) l_pdf += pdf_q;
-    }
-    l_pdf = l_pdf / (float)n_live;
-    const float inv_g = rsqrtf(g_len_sq + 1e-38f);
-    const float cos_t = (gdx * inv_g) * nx + (gdy * inv_g) * ny + (gdz * inv_g) * nz;
-    const float mat_pdf = fmaxf(0.0f, cos_t) * 0.31830988618379067f;
-    const float pdf_value = 0.5f * l_pdf + 0.5f * mat_pdf;
-    if (emit) {
-      const float* bg = a.bg;
-      vr = hit ? tex_r : bg[0];
-      vg = hit ? tex_g : bg[1];
-      vb = hit ? tex_b : bg[2];
-    } else if (diffuse) {
-      const float ratio = mat_pdf / pdf_value;
-      vr = tex_r * ratio;
-      vg = tex_g * ratio;
-      vb = tex_b * ratio;
-    }
-    cf = diffuse;
-    alive_out = diffuse;
-    if (hit) {
-      ox = hx;
-      oy = hy;
-      oz = hz;
-    }
-    dx = gdx;
-    dy = gdy;
-    dz = gdz;
+    BounceTables T;
+    T.prims = a.prims;
+    T.lights = a.lights;
+    T.bg = a.bg;
+    T.p_cols = a.p_cols;
+    T.sph_base = 0;
+    T.n_sph = 0;
+    T.quad_base = a.quad_base;
+    T.n_quad = a.n_quad;
+    T.box_base = a.box_base;
+    T.n_box = a.n_box;
+    T.n_lights = a.n_lights;
+    T.n_lights_live = a.n_lights_live;
+    T.fr_col = -1;
+    const BounceResult r = bounce_core(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr);
+    vr = r.vr;
+    vg = r.vg;
+    vb = r.vb;
+    emit = r.emit;
+    cf = r.cf;
+    alive_out = r.alive;
+    ox = r.ox;
+    oy = r.oy;
+    oz = r.oz;
+    dx = r.dx;
+    dy = r.dy;
+    dz = r.dz;
   }
 
   // ---- records: merged V plane + flag bits -------------------------------

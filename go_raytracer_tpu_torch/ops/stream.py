@@ -1,0 +1,183 @@
+"""The row-stream kernel of the binned mesh intersector, and the
+Moller-Trumbore test it shares with the BVH8 walk.
+
+Counterpart of the JAX package's `ops/pallas/stream.stream_rows`. The
+glue (`ops/trace.binned_closest`) sorts the ray pool by candidate cluster,
+so each block of `BLOCK` consecutive rays wants one contiguous range
+[glo, ghi) of packed 8-triangle groups. `stream_rows` tests every ray of a
+block against every triangle of the block's range, shrinking the ray's
+(T_MIN, t_best) interval; rays testing a neighbour cluster's triangles
+are waste, not error (closest-hit updates are idempotent).
+
+On CUDA tensors it launches the hand-written kernel in `csrc/stream.cu`;
+on CPU tensors it runs the plain PyTorch version `stream_rows_ref`.
+
+Tie rules (they keep the winners equal to the BVH8 walk's): inside a
+group the least t wins and, on equal t, the largest triangle id; across
+groups only a strictly smaller t replaces the best. A hit needs
+t > T_MIN, t < t_best and |det| >= 1e-12.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+T_MIN = 1.0e-3
+# Rays per block: the CUDA kernel's thread-block size, and the unit in
+# which the glue computes group ranges and marks clusters processed.
+BLOCK = 128
+
+# Launches of the CUDA kernel through `stream_rows` (one per call).
+launches = 0
+
+
+def unpack_lines(lines: torch.Tensor) -> torch.Tensor:
+    """Line-packed table (scene/bvh8._pack_lines), (L*8, 128) -> entries
+    (L*8, 8, 16): entry m, slot s, field f."""
+    return lines.view(-1, 8, 8, 16).permute(0, 2, 1, 3).reshape(-1, 8, 16)
+
+
+def mt_groups_ref(e, ox, oy, oz, dx, dy, dz, t_best, idx, mask=None):
+    """Moller-Trumbore of C group entries per ray, taken in order
+    (objects.go:408-461). Ray planes, t_best and idx share a shape S; `e`
+    is (*S, C, 8, 16) or broadcasts to it (the same groups for many
+    rays); `mask` (bool, broadcasting to (*S, C)) drops groups. Returns
+    the updated (t_best, idx).
+
+    Taking the groups one after the other, each against the best so far,
+    ends at the first group that reaches the least t of them all, and in
+    it at the largest triangle id of that t; that is what this computes,
+    in one pass. The operation order per triangle is the JAX kernel's and
+    the CUDA kernels', so all agree bit for bit."""
+    col = lambda k: e[..., k]
+    v0x, v0y, v0z = col(0), col(1), col(2)
+    e0x, e0y, e0z = col(3), col(4), col(5)
+    e1x, e1y, e1z = col(6), col(7), col(8)
+    tid = col(9)
+    ox, oy, oz = (x[..., None, None] for x in (ox, oy, oz))
+    dx, dy, dz = (x[..., None, None] for x in (dx, dy, dz))
+    pvx = dy * e1z - dz * e1y
+    pvy = dz * e1x - dx * e1z
+    pvz = dx * e1y - dy * e1x
+    det = e0x * pvx + e0y * pvy + e0z * pvz
+    inv = 1.0 / torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+    tvx = ox - v0x
+    tvy = oy - v0y
+    tvz = oz - v0z
+    uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    qvx = tvy * e0z - tvz * e0y
+    qvy = tvz * e0x - tvx * e0z
+    qvz = tvx * e0y - tvy * e0x
+    vv = (dx * qvx + dy * qvy + dz * qvz) * inv
+    tt = (e1x * qvx + e1y * qvy + e1z * qvz) * inv
+    ok = ((torch.abs(det) >= 1e-12)
+          & (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0)
+          & (uu + vv <= 1.0) & (tt > T_MIN)
+          & (tt < t_best[..., None, None]))
+    if mask is not None:
+        ok = ok & mask[..., None]
+    tcand = torch.where(ok, tt, float("inf"))
+    tmin_g = tcand.amin(dim=-1)                             # (*S, C)
+    icand_g = torch.where(ok & (tcand <= tmin_g[..., None]), tid, -1.0) \
+        .amax(dim=-1)
+    tmin = tmin_g.amin(dim=-1)                              # (*S,)
+    c = tmin_g.shape[-1]
+    order = torch.arange(c, device=tmin_g.device)
+    first = torch.where(tmin_g <= tmin[..., None], order, c - 1).amin(dim=-1)
+    icand = torch.gather(icand_g, -1, first[..., None])[..., 0] \
+        .to(torch.int32)
+    upd = tmin < t_best
+    return torch.where(upd, tmin, t_best), torch.where(upd, icand, idx)
+
+
+# groups the plain version takes per step (its results do not depend on it)
+_REF_CHUNK = 16
+
+
+def stream_rows_ref(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
+    """Plain PyTorch version of `stream_rows` (same arguments, same
+    results): each step takes the next `_REF_CHUNK` groups of every block
+    whose range is that long, so each ray meets its range in ascending
+    order."""
+    blocks = ox.numel() // BLOCK
+    entries = unpack_lines(tri_lines)
+    n_groups = entries.shape[0]
+    rows = lambda x: x.reshape(blocks, BLOCK)
+    rays = [rows(x) for x in (ox, oy, oz, dx, dy, dz)]
+    t_best, best = rows(t).clone(), rows(idx).clone()
+    glo_l = torch.clamp(glo.to(torch.int64), min=0)
+    span = torch.clamp(ghi.to(torch.int64), max=n_groups) - glo_l
+    step = torch.arange(_REF_CHUNK, device=ox.device)
+    for j in range(0, int(span.max()) if blocks else 0, _REF_CHUNK):
+        live = torch.nonzero(span > j)[:, 0]
+        g = glo_l[live, None] + j + step[None, :]           # (live, C)
+        in_range = (j + step)[None, :] < span[live, None]
+        e = entries[torch.clamp(g, max=n_groups - 1)][:, None]
+        t_best[live], best[live] = mt_groups_ref(
+            e, *(r[live] for r in rays), t_best[live], best[live],
+            mask=in_range[:, None, :])
+    return t_best.reshape(t.shape), best.reshape(idx.shape)
+
+
+class _StreamArgs(ctypes.Structure):
+    """Mirror of `StreamArgs` in csrc/stream.cu (field for field)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "lines", "glo", "ghi", "ox", "oy", "oz", "dx", "dy", "dz",
+        "t_in", "idx_in", "t_out", "idx_out")] + [
+            ("n_blocks", ctypes.c_int), ("n_groups", ctypes.c_int)]
+
+
+def stream_rows(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
+    """Stream each block's group range against its `BLOCK` rays.
+
+    tri_lines: the packed group table (scene/clusters.py), (R, 128)
+    float32. Ray planes ox..dz and t (float32), idx (int32): any shape
+    with a multiple of `BLOCK` elements, block b owning elements
+    [b*BLOCK, (b+1)*BLOCK) in flat order. glo/ghi: (blocks,) int32 group
+    ranges (glo == ghi leaves the block untouched). Returns the updated
+    (t, idx) as new tensors."""
+    global launches
+    n = ox.numel()
+    if n % BLOCK:
+        raise ValueError(f"ray count {n} is not a multiple of {BLOCK}")
+    blocks = n // BLOCK
+    if glo.shape != (blocks,) or ghi.shape != (blocks,):
+        raise ValueError(f"glo/ghi must have shape ({blocks},)")
+    if not ox.is_cuda:
+        return stream_rows_ref(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz,
+                               t, idx)
+    from go_raytracer_tpu_torch.ops import _cuda
+
+    f32, i32 = torch.float32, torch.int32
+    planes = [("ox", ox, f32), ("oy", oy, f32), ("oz", oz, f32),
+              ("dx", dx, f32), ("dy", dy, f32), ("dz", dz, f32),
+              ("t", t, f32), ("idx", idx, i32)]
+    for name, x, dt in planes + [("tri_lines", tri_lines, f32),
+                                 ("glo", glo, i32), ("ghi", ghi, i32)]:
+        if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"{name}: needs a contiguous CUDA {dt} tensor")
+    for name, x, _ in planes:
+        if x.numel() != n:
+            raise ValueError(f"{name}: {x.numel()} elements, expected {n}")
+    if tri_lines.dim() != 2 or tri_lines.shape[1] != 128 \
+            or tri_lines.shape[0] % 8:
+        raise ValueError("tri_lines must be (8*L, 128)")
+    t_out = torch.empty_like(t)
+    idx_out = torch.empty_like(idx)
+    if blocks == 0:
+        return t_out, idx_out
+    p = lambda x: x.data_ptr()
+    a = _StreamArgs(lines=p(tri_lines), glo=p(glo), ghi=p(ghi), ox=p(ox),
+                    oy=p(oy), oz=p(oz), dx=p(dx), dy=p(dy), dz=p(dz),
+                    t_in=p(t), idx_in=p(idx), t_out=p(t_out),
+                    idx_out=p(idx_out), n_blocks=blocks,
+                    n_groups=tri_lines.shape[0])
+    err = _cuda.library("stream").grt_stream_rows(
+        ctypes.addressof(a), torch.cuda.current_stream(ox.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"stream_rows launch failed: {_cuda.error_string(err)}")
+    launches += 1
+    return t_out, idx_out

@@ -1,0 +1,373 @@
+"""Closest triangle hit over a mesh: the binned intersector, the BVH8
+walk behind a coherence sort, and the plain skip-link walk.
+
+Counterpart of the mesh half of the JAX package's `ops/trace.py`:
+
+* `to_device` moves the scene tables the mesh path reads onto a device;
+* `mesh_closest` (the JAX package's `pallas_bvh_closest`) routes to
+  `binned_closest` (the default, K4 `ops/stream.stream_rows` inside) or,
+  with `mesh="walk"` or no cluster tables, sorts the rays by direction
+  octant and origin Morton cell and calls K5 `ops/traverse8.bvh8_closest`;
+* `bvh_tri_closest` is the plain lockstep skip-link walk over the binary
+  BVH, kept as an oracle that shares nothing with the two kernels;
+* `tri_hit_gathered` recomputes one triangle per ray (attributes of the
+  winner).
+
+The binned rounds end when no ray has a candidate cluster left, which
+the host learns from one device read per round; `counters` (a dict the
+caller passes) counts calls, rounds and those reads.
+"""
+
+from __future__ import annotations
+
+import types as _pytypes
+
+import numpy as np
+import torch
+
+from go_raytracer_tpu_torch.ops import intersect as ix
+from go_raytracer_tpu_torch.ops import stream as stream_mod
+from go_raytracer_tpu_torch.ops import traverse8 as trav8_mod
+from go_raytracer_tpu_torch.scene import bvh8 as bvh8_mod
+from go_raytracer_tpu_torch.scene import types as T
+
+T_MIN = 1.0e-3  # rayColor's interval.New(0.001, inf) (camera.go:300)
+INF = float("inf")
+_TINY = 1e-30
+
+
+def _ns(table, fields, device):
+    return _pytypes.SimpleNamespace(**{
+        f: torch.from_numpy(np.array(getattr(table, f))).to(device)
+        for f in fields})
+
+
+def to_device(scene: T.Scene, device) -> _pytypes.SimpleNamespace:
+    """The tables the mesh path reads, as tensors on `device`: the dense
+    primitive tables (for the caps), the triangle table, and the BVH with
+    its 8-wide collapse and cluster partition. `bvh.max_stack` is the
+    deepest stack the BVH8 walk can reach on this tree."""
+    dev = torch.device(device)
+    out = _pytypes.SimpleNamespace(
+        has_spheres=scene.has_spheres, has_quads=scene.has_quads,
+        has_boxes=scene.has_boxes, has_tri_bvh=scene.has_tri_bvh)
+    out.spheres = _ns(scene.spheres, ("center0", "center_delta", "radius",
+                                      "active"), dev)
+    out.quads = _ns(scene.quads, ("q", "normal", "d_plane", "cvw", "cwu",
+                                  "active"), dev)
+    out.boxes = _ns(scene.boxes, ("lo", "hi", "cos_t", "sin_t", "offset",
+                                  "active"), dev)
+    out.triangles = _ns(scene.triangles, (
+        "v0", "e0", "e1", "n_face", "vn", "has_vn", "uv", "has_uv",
+        "mat_id", "active"), dev)
+    b = scene.tri_bvh
+    derived = ("nodes8", "tris8", "cl_lo", "cl_hi", "cl_gs", "cl_lines")
+    bvh = _ns(b, ["node_min", "node_max", "first", "count", "skip", "order"]
+              + [f for f in derived if getattr(b, f) is not None], dev)
+    for f in derived:
+        if getattr(b, f) is None:
+            setattr(bvh, f, None)
+    bvh.n_nodes, bvh.leaf_size = b.n_nodes, b.leaf_size
+    bvh.bvh8_dense = b.bvh8_dense
+    bvh.max_stack = (bvh8_mod.max_stack(b.nodes8, b.bvh8_dense)
+                     if b.nodes8 is not None else None)
+    out.tri_bvh = bvh
+    return out
+
+
+def _cross(a, b):
+    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=-1)
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def tri_hit_gathered(tr, idx, o, d, t_min, t_max):
+    """Local-form Moller-Trumbore for per-ray gathered triangles idx (N,)
+    (objects.go:408-461): returns (t, u, v, ok)."""
+    v0, e0, e1 = tr.v0[idx], tr.e0[idx], tr.e1[idx]
+    pvec = _cross(d, e1)
+    det = _dot(e0, pvec)
+    inv = 1.0 / torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+    tvec = o - v0
+    u = _dot(tvec, pvec) * inv
+    qvec = _cross(tvec, e0)
+    v = _dot(d, qvec) * inv
+    t = _dot(e1, qvec) * inv
+    ok = ((torch.abs(det) >= ix.PARALLEL_EPS)
+          & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (t_min <= t) & (t <= t_max) & tr.active[idx])
+    return t, u, v, ok
+
+
+def _safe(v):
+    return torch.where(torch.abs(v) < _TINY,
+                       torch.where(v < 0, -_TINY, _TINY), v)
+
+
+def bvh_tri_closest(ms, o, d, t_min, t_max):
+    """Closest triangle hit via the stackless skip-link walk over the
+    binary BVH (replacing the recursive walk of hittable/bvh.go:69-82).
+    All rays step the tree in lockstep; finished rays park at node ==
+    n_nodes. Returns (t (inf on a miss), idx)."""
+    bvh, tr = ms.tri_bvh, ms.triangles
+    n = o.shape[0]
+    n_nodes = bvh.n_nodes
+    n_tri = tr.v0.shape[0]
+    inv_d = 1.0 / _safe(d)
+    node = torch.zeros(n, dtype=torch.int64, device=o.device)
+    t_best = torch.full((n,), INF, dtype=o.dtype, device=o.device)
+    idx_best = torch.zeros(n, dtype=torch.int64, device=o.device)
+    order = bvh.order.to(torch.int64)
+    while bool((node < n_nodes).any()):
+        nc = torch.clamp(node, max=n_nodes - 1)
+        t0 = (bvh.node_min[nc] - o) * inv_d
+        t1 = (bvh.node_max[nc] - o) * inv_d
+        near = torch.minimum(t0, t1).amax(dim=-1)
+        far = torch.maximum(t0, t1).amin(dim=-1)
+        live = node < n_nodes
+        hit_box = live & (torch.clamp(near, min=t_min)
+                          < torch.clamp(torch.minimum(far, t_best), max=t_max))
+        count = bvh.count[nc]
+        is_leaf = count > 0
+        do_leaf = hit_box & is_leaf
+        first = bvh.first[nc].to(torch.int64)
+        for k in range(bvh.leaf_size):
+            tid = order[torch.clamp(first + k, 0, order.shape[0] - 1)]
+            tid_c = torch.clamp(tid, 0, n_tri - 1)
+            t_k, _, _, ok_k = tri_hit_gathered(tr, tid_c, o, d, t_min, t_max)
+            upd = do_leaf & (k < count) & (tid >= 0) & ok_k & (t_k < t_best)
+            t_best = torch.where(upd, t_k, t_best)
+            idx_best = torch.where(upd, tid_c, idx_best)
+        node = torch.where(
+            live, torch.where(hit_box & ~is_leaf, nc + 1,
+                              bvh.skip[nc].to(torch.int64)), node)
+    return t_best, idx_best.to(torch.int32)
+
+
+def _part1by2(x):
+    """Spread 10 bits of x two apart (standard Morton magic numbers)."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def mesh_closest(ms, o, d, t_cap=None, alive=None, *, mesh="binned",
+                 counters=None):
+    """Closest triangle hit for rays o, d (N, 3) with per-ray cap `t_cap`
+    (default inf) and live mask `alive`: returns (t, idx) with idx == -1
+    and t == the cap (0 for a dead ray) where nothing beats the cap.
+
+    mesh="binned": the binned intersector, when the scene has cluster
+    tables. mesh="walk" (or no cluster tables): rays are grouped by
+    (direction octant, 5-bit Morton cell of the origin in the root box),
+    dead rays last, so neighbouring threads of the BVH8 walk visit the
+    same nodes; a scatter by the permutation restores lane order."""
+    if mesh not in ("binned", "walk"):
+        raise ValueError(f"mesh={mesh!r}: expected 'binned' or 'walk'")
+    bvh = ms.tri_bvh
+    if bvh.nodes8 is None:
+        raise ValueError("mesh_closest needs a scene with a triangle BVH")
+    if mesh == "binned" and bvh.cl_lines is not None:
+        return binned_closest(ms, o, d, t_cap, alive, counters=counters)
+    n = o.shape[0]
+    lo = bvh.node_min[0]
+    ext = torch.clamp(bvh.node_max[0] - lo, min=1e-6)
+    q = torch.clamp((o - lo) / ext * 32.0, 0.0, 31.0).to(torch.int32)
+    morton = (_part1by2(q[:, 0]) << 2) | (_part1by2(q[:, 1]) << 1) \
+        | _part1by2(q[:, 2])
+    octant = ((d[:, 0] > 0).to(torch.int32) << 2) \
+        | ((d[:, 1] > 0).to(torch.int32) << 1) | (d[:, 2] > 0).to(torch.int32)
+    key = (octant << 15) | morton
+    if t_cap is None:
+        t_cap = torch.full((n,), INF, dtype=o.dtype, device=o.device)
+    if alive is not None:
+        # a zero cap kills the walk at the root
+        t_cap = torch.where(alive, t_cap, 0.0)
+        key = torch.where(alive, key, 0x7FFFFFFF)
+    perm = torch.sort(key).indices
+    t_s, i_s = trav8_mod.bvh8_closest(
+        bvh.nodes8, bvh.tris8, o[perm].contiguous(), d[perm].contiguous(),
+        t_cap[perm].contiguous(), dense_nodes=bvh.bvh8_dense,
+        max_stack=bvh.max_stack)
+    t_t = torch.empty_like(t_s)
+    i_t = torch.empty_like(i_s)
+    t_t[perm] = t_s
+    i_t[perm] = i_s
+    if counters is not None:
+        counters["mesh_calls"] = counters.get("mesh_calls", 0) + 1
+    return t_t, i_t
+
+
+def _range_bits(lo_b, hi_b):
+    """int32 words with bits [lo_b, hi_b) set, for 0 <= lo_b, hi_b <= 32
+    (a shift by 32 is avoided through the all-ones form)."""
+    one = torch.ones_like(lo_b)
+    hi_bits = torch.where(hi_b >= 32, -one,
+                          (one << torch.clamp(hi_b, max=31)) - 1)
+    lo_bits = torch.where(lo_b >= 32, -one,
+                          (one << torch.clamp(lo_b, max=31)) - 1)
+    return hi_bits & ~lo_bits
+
+
+def _candidates(lo_k, hi_k, ox, oy, oz, dx, dy, dz, t_best, masks):
+    """Per-ray lex-min (near, k) over the clusters the ray's interval
+    (T_MIN, t_best) hits and whose processed bit is clear. Returns
+    (k (int32, K where none), has)."""
+    k_cl = lo_k.shape[0]
+    ix_, iy_, iz_ = 1.0 / _safe(dx), 1.0 / _safe(dy), 1.0 / _safe(dz)
+    tx0 = (lo_k[None, :, 0] - ox[:, None]) * ix_[:, None]
+    tx1 = (hi_k[None, :, 0] - ox[:, None]) * ix_[:, None]
+    ty0 = (lo_k[None, :, 1] - oy[:, None]) * iy_[:, None]
+    ty1 = (hi_k[None, :, 1] - oy[:, None]) * iy_[:, None]
+    tz0 = (lo_k[None, :, 2] - oz[:, None]) * iz_[:, None]
+    tz1 = (hi_k[None, :, 2] - oz[:, None]) * iz_[:, None]
+    near = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                       torch.minimum(ty0, ty1)),
+                         torch.minimum(tz0, tz1))
+    far = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                      torch.maximum(ty0, ty1)),
+                        torch.maximum(tz0, tz1))
+    near = torch.clamp(near, min=T_MIN)
+    hit = near < torch.minimum(far, t_best[:, None])
+    shifts = torch.arange(32, dtype=torch.int32, device=ox.device)
+    proc = ((torch.stack(masks, dim=1)[:, :, None] >> shifts) & 1) \
+        .reshape(ox.shape[0], -1)[:, :k_cl]
+    nearm = torch.where(hit & (proc == 0), near, INF)
+    best_near, best_k = nearm.min(dim=1)
+    # the least cluster id among equal nears
+    kid = torch.arange(k_cl, dtype=torch.int32, device=ox.device)
+    best_k = torch.where(nearm <= best_near[:, None], kid[None, :],
+                         0x7FFFFFFF).amin(dim=1)
+    has = torch.isfinite(best_near)
+    return torch.where(has, best_k, k_cl).to(torch.int32), has
+
+
+def binned_closest(ms, o, d, t_cap=None, alive=None, max_iters: int = 512,
+                   counters=None):
+    """Closest triangle hit via the binned intersector: every round each
+    ray picks its nearest cluster whose processed bit is clear (front to
+    back, pruned by the ray's evolving t_best), the pool is sorted by that
+    cluster id, and `stream_rows` tests each block of `stream.BLOCK`
+    sorted rays against the block's contiguous group range. Every cluster
+    in a block's range is marked processed for every ray of the block
+    (the bits ride the sort as K/32 int32 planes), so progress is strict
+    and rounds are bounded by K.
+
+    Once at most an eighth of the pool still has a candidate, one sort
+    packs those rays into the pool's first eighth and the remaining
+    rounds run on that prefix only.
+
+    Semantics match the BVH8 walk: the (T_MIN, t_best) interval is seeded
+    from t_cap (bvh.go:69-82); front-to-back cluster order with strict
+    `near < t_best` candidacy reproduces the BVH early-out."""
+    bvh = ms.tri_bvh
+    n_orig = o.shape[0]
+    dev = o.device
+    tile = stream_mod.BLOCK
+    n = -(-n_orig // tile) * tile
+    pad = n - n_orig
+    if t_cap is None:
+        t_cap = torch.full((n_orig,), INF, dtype=o.dtype, device=dev)
+    if alive is not None:
+        t_cap = torch.where(alive, t_cap, 0.0)
+    if pad:
+        o = torch.cat([o, torch.zeros((pad, 3), dtype=o.dtype, device=dev)])
+        d = torch.cat([d, torch.ones((pad, 3), dtype=d.dtype, device=dev)])
+        t_cap = torch.cat([t_cap, torch.zeros(pad, dtype=t_cap.dtype,
+                                              device=dev)])
+    k_cl = bvh.cl_lo.shape[0]
+    n_mask = (k_cl + 31) // 32
+    gs = bvh.cl_gs.to(torch.int64)
+    rays = [o[:, 0].contiguous(), o[:, 1].contiguous(), o[:, 2].contiguous(),
+            d[:, 0].contiguous(), d[:, 1].contiguous(), d[:, 2].contiguous()]
+    t_best = t_cap.contiguous()
+    idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    masks = [torch.zeros(n, dtype=torch.int32, device=dev)
+             for _ in range(n_mask)]
+    io = torch.arange(n, device=dev)
+    rounds = reads = 0
+
+    def count_active(has):
+        nonlocal reads
+        reads += 1
+        return int(has.sum())        # the round's one host read
+
+    def permute(perm, rays, t_best, idx, io, masks):
+        return ([r[perm] for r in rays], t_best[perm], idx[perm], io[perm],
+                [m[perm] for m in masks])
+
+    def one_round(key, rays, t_best, idx, io, masks):
+        """Sort by candidate cluster, mark and stream each block's range,
+        and find the next candidates."""
+        n_p = key.shape[0]
+        blocks_p = n_p // tile
+        key_s, perm = torch.sort(key)
+        rays, t_best, idx, io, masks = permute(perm, rays, t_best, idx, io,
+                                               masks)
+        kb = key_s.view(blocks_p, tile)
+        blk_first = kb[:, 0]
+        # last real (non-sentinel) key of the block; keys ascend, so the
+        # sentinel rays are a suffix
+        blk_last = torch.where(kb < k_cl, kb, -1).amax(dim=1)
+        empty = blk_last < 0
+        zero = torch.zeros_like(blk_first)
+        glo = torch.where(
+            empty, zero, gs[torch.clamp(blk_first, 0, k_cl - 1).long()]
+            .to(torch.int32))
+        ghi = torch.where(
+            empty, zero, gs[torch.clamp(blk_last, 0, k_cl - 1).long() + 1]
+            .to(torch.int32))
+        ca = blk_first.repeat_interleave(tile)
+        cb = blk_last.repeat_interleave(tile)
+        masks = [mk | _range_bits(torch.clamp(ca - 32 * m, 0, 32),
+                                  torch.clamp(cb + 1 - 32 * m, 0, 32))
+                 for m, mk in enumerate(masks)]
+        t_best, idx = stream_mod.stream_rows(
+            bvh.cl_lines, glo.contiguous(), ghi.contiguous(), *rays, t_best,
+            idx)
+        bk, has = _candidates(bvh.cl_lo, bvh.cl_hi, *rays, t_best, masks)
+        return bk, has, rays, t_best, idx, io, masks
+
+    key, has = _candidates(bvh.cl_lo, bvh.cl_hi, *rays, t_best, masks)
+    n_active = count_active(has)
+    thresh = max(tile, -(-(n // 8) // tile) * tile)
+    floor = thresh if thresh < n else 0
+    while rounds < max_iters and n_active > floor:
+        key, has, rays, t_best, idx, io, masks = one_round(
+            key, rays, t_best, idx, io, masks)
+        n_active = count_active(has)
+        rounds += 1
+    if floor and n_active > 0:
+        perm = torch.sort(key).indices
+        rays, t_best, idx, io, masks = permute(perm, rays, t_best, idx, io,
+                                               masks)
+        key = key[perm]
+        head = lambda x: x[:thresh].contiguous()
+        h_rays, h_t, h_idx, h_io = [head(r) for r in rays], head(t_best), \
+            head(idx), head(io)
+        h_masks, h_key = [head(m) for m in masks], head(key)
+        while rounds < max_iters and n_active > 0:
+            h_key, has, h_rays, h_t, h_idx, h_io, h_masks = one_round(
+                h_key, h_rays, h_t, h_idx, h_io, h_masks)
+            n_active = count_active(has)
+            rounds += 1
+        t_best = torch.cat([h_t, t_best[thresh:]])
+        idx = torch.cat([h_idx, idx[thresh:]])
+        io = torch.cat([h_io, io[thresh:]])
+    # undo the pool permutation
+    t_o = torch.empty_like(t_best)
+    i_o = torch.empty_like(idx)
+    t_o[io] = t_best
+    i_o[io] = idx
+    if counters is not None:
+        counters["mesh_calls"] = counters.get("mesh_calls", 0) + 1
+        counters["rounds"] = counters.get("rounds", 0) + rounds
+        counters["host_reads"] = counters.get("host_reads", 0) + reads
+    return t_o[:n_orig], i_o[:n_orig]

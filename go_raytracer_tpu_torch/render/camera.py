@@ -3,8 +3,9 @@
 Reproduces the reference camera's public fields (camera/camera.go:24-62)
 and `initialize` (camera.go:179-253) as a host computation in float64,
 cast to float32 last. Effective spp is floor(sqrt(spp))^2 exactly as in the
-reference (camera.go:211-212). Ray generation itself happens inside the
-bounce kernel (ops/bounce.py) from the packed camera row.
+reference (camera.go:211-212). On the in-kernel-queue path ray generation
+happens inside the bounce kernel (ops/bounce.py) from the packed camera
+row; the mesh path's window calls `generate_rays` here.
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from go_raytracer_tpu_torch.core import rng
 
 Vec = Tuple[float, float, float]
 
@@ -107,3 +111,34 @@ class Camera:
             defocus_u=f(u * defocus_radius), defocus_v=f(v * defocus_radius),
             defocus_angle=self.defocus_angle,
             recip_spp_sqrt=1.0 / self.spp_sqrt)
+
+
+N_U_RAYGEN = 5   # jitter x/y, defocus a/b, time
+
+
+def generate_rays(arrays: CameraArrays, width: int, pixel_ids: torch.Tensor,
+                  s_i: torch.Tensor, s_j: torch.Tensor, u: torch.Tensor):
+    """Rays for flat pixel ids (row-major j*width+i) at stratum (s_i, s_j),
+    from `u`, an (n, 5) float32 tensor of uniforms on the ids' device.
+    Returns (origin (n, 3), direction (n, 3), time (n,)).
+
+    getRay (camera.go:256-270): stratified jitter in the pixel footprint,
+    optional defocus-disk origin, uniform ray time for motion blur."""
+    dev = pixel_ids.device
+    vec = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    i = (pixel_ids % width).to(torch.float32)
+    j = torch.div(pixel_ids, width, rounding_mode="floor").to(torch.float32)
+    # sampleSquareStratified (camera.go:277-282)
+    off_x = (s_i + u[:, 0]) * arrays.recip_spp_sqrt - 0.5
+    off_y = (s_j + u[:, 1]) * arrays.recip_spp_sqrt - 0.5
+    pixel_sample = (vec(arrays.pixel00)[None, :]
+                    + (i + off_x)[:, None] * vec(arrays.du)[None, :]
+                    + (j + off_y)[:, None] * vec(arrays.dv)[None, :])
+    if arrays.defocus_angle > 0:
+        disk = rng.unit_disk(u[:, 2], u[:, 3])   # camera.go:285-290
+        origin = (vec(arrays.center)[None, :]
+                  + disk[:, 0:1] * vec(arrays.defocus_u)[None, :]
+                  + disk[:, 1:2] * vec(arrays.defocus_v)[None, :])
+    else:
+        origin = vec(arrays.center)[None, :].expand(pixel_ids.shape[0], 3)
+    return origin, pixel_sample - origin, u[:, 4]

@@ -10,8 +10,10 @@ translate / rotateY wrappers) with a build-time compiler:
 * the lights list (hittable/hittable.go:89-103) becomes (kind, prim_id) rows.
 
 Everything is numpy: the output `Scene` holds float32/int32/bool arrays,
-value for value the tables of the JAX package's compiler. Meshes large
-enough for a triangle BVH are not compiled here yet (ROADMAP: mesh path).
+value for value the tables of the JAX package's compiler. A mesh of
+BVH_THRESHOLD triangles or more gets the triangle BVH (scene/bvh.py), its
+8-wide collapse (scene/bvh8.py) and its cluster partition
+(scene/clusters.py), and is stored in BVH leaf order.
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from go_raytracer_tpu_torch.scene import bvh as bvh_mod
+from go_raytracer_tpu_torch.scene import bvh8 as bvh8_mod
+from go_raytracer_tpu_torch.scene import clusters as cl_mod
 from go_raytracer_tpu_torch.scene import perlin as perlin_mod
 from go_raytracer_tpu_torch.scene import types as T
 
@@ -58,8 +63,12 @@ class Transform:
 
 
 IDENTITY = Transform()
-# triangle count from which the JAX package builds a triangle BVH
+# triangle count from which the mesh gets a triangle BVH
 BVH_THRESHOLD = 2048
+BVH_LEAF_SIZE = 16
+# triangles per cluster of the binned intersector (at most 256 clusters,
+# so the processed bits ride the per-round sort as at most 8 int32 planes)
+CLUSTER_TRIS = 512
 
 
 def _bulk_transform_vectors(tr: Transform, v: np.ndarray) -> np.ndarray:
@@ -307,7 +316,9 @@ class SceneBuilder:
         self._lights.append((kmap[kind], idx))
 
     # ---------------------------------------------------------------- build
-    def build(self) -> T.Scene:
+    def build(self, bvh_threshold: int = BVH_THRESHOLD,
+              bvh_leaf_size: int = BVH_LEAF_SIZE,
+              cluster_tris: int = CLUSTER_TRIS) -> T.Scene:
         f = lambda x: np.asarray(np.asarray(x, dtype=np.float64), np.float32)
         i32 = lambda x: np.asarray(x, dtype=np.int32)
         act = lambda rows, n: np.arange(len(rows)) < n
@@ -349,11 +360,6 @@ class SceneBuilder:
             mat_id=i32([r["mat_id"] for r in bx]), active=act(bx, n_bx))
 
         n_td = self._tri_count
-        if n_td >= BVH_THRESHOLD:
-            raise NotImplementedError(
-                f"{n_td} triangles need the triangle BVH, which belongs to "
-                "the mesh path (ROADMAP.md, queue item 'mesh path'); this "
-                "package compiles dense scenes only so far")
         if self._tri_blocks:
             blocks = self._tri_blocks
             v = np.concatenate([blk["v"] for blk in blocks])
@@ -372,10 +378,49 @@ class SceneBuilder:
             mat_id_tri = np.zeros(1, dtype=np.int32)
             vn = np.zeros((1, 3, 3))
             uv = np.zeros((1, 3, 2))
-        tri_bvh = T.TriBVH(
-            node_min=f(np.zeros((1, 3))), node_max=f(np.ones((1, 3))),
-            first=i32([0]), count=i32([0]), skip=i32([1]), order=i32([-1]),
-            n_nodes=1, leaf_size=1)
+        # The BVH is built before the triangle table so the table can be
+        # permuted into leaf order: leaves, BVH8 groups and cluster groups
+        # then reference contiguous rows and no traversal needs order[].
+        has_tri_bvh = n_td >= bvh_threshold
+        tri_light_remap = None
+        if has_tri_bvh:
+            fb = bvh_mod.build(v[:n_td], leaf_size=bvh_leaf_size)
+            perm = fb.order[:n_td]
+            inv_perm = np.empty(n_td, dtype=np.int32)
+            inv_perm[perm] = np.arange(n_td, dtype=np.int32)
+            tri_light_remap = inv_perm
+
+            def permute(a):
+                out = a.copy()
+                out[:n_td] = a[perm]
+                return out
+
+            v, vn, uv = permute(v), permute(vn), permute(uv)
+            has_vn, has_uv = permute(has_vn), permute(has_uv)
+            mat_id_tri = permute(mat_id_tri)
+            fb.order[:n_td] = np.arange(n_td, dtype=np.int32)
+            v0_np = v[:n_td, 0]
+            e0_np, e1_np = v[:n_td, 1] - v0_np, v[:n_td, 2] - v0_np
+            b8 = bvh8_mod.collapse(fb.node_min, fb.node_max, fb.first,
+                                   fb.count, fb.skip, v0_np, e0_np, e1_np,
+                                   max_leaf=fb.leaf_size)
+            cl = cl_mod.partition(fb, v0_np, e0_np, e1_np,
+                                  max_tris=cluster_tris)
+            tri_bvh = T.TriBVH(
+                node_min=f(fb.node_min), node_max=f(fb.node_max),
+                first=i32(fb.first), count=i32(fb.count), skip=i32(fb.skip),
+                order=i32(fb.order), n_nodes=fb.n_nodes,
+                leaf_size=fb.leaf_size,
+                nodes8=b8.node_lines, tris8=b8.tri_lines,
+                bvh8_dense=b8.dense_nodes,
+                cl_lo=cl.aabb_lo, cl_hi=cl.aabb_hi, cl_gs=cl.group_start,
+                cl_lines=cl.tri_lines,
+                cl_boxes=cl_mod.pack_cluster_boxes(cl.aabb_lo, cl.aabb_hi))
+        else:
+            tri_bvh = T.TriBVH(
+                node_min=f(np.zeros((1, 3))), node_max=f(np.ones((1, 3))),
+                first=i32([0]), count=i32([0]), skip=i32([1]),
+                order=i32([-1]), n_nodes=1, leaf_size=1)
         v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
         e0, e1 = v1 - v0, v2 - v0
         cn = np.cross(e0, e1)
@@ -441,6 +486,9 @@ class SceneBuilder:
         images = T.Images(data=f(data), wh=i32(wh))
 
         lt = self._lights or [(T.LIGHT_QUAD, 0)]
+        if tri_light_remap is not None:
+            lt = [(k, int(tri_light_remap[p]) if k == T.LIGHT_TRIANGLE else p)
+                  for k, p in lt]
         lights = T.Lights(kind=i32([k for k, _ in lt]),
                           prim_id=i32([p for _, p in lt]),
                           n=len(self._lights))
@@ -451,7 +499,7 @@ class SceneBuilder:
             images=images, lights=lights, background=f(self.background),
             tri_bvh=tri_bvh, boxes=boxes,
             has_boxes=n_bx > 0, has_rot_boxes=has_rot_boxes,
-            has_tri_bvh=False, has_spheres=n_sp > 0, has_quads=n_qd > 0,
+            has_tri_bvh=has_tri_bvh, has_spheres=n_sp > 0, has_quads=n_qd > 0,
             has_triangles=n_td > 0, has_media=n_md > 0,
             has_noise=any(r["kind"] in (T.TEX_PERLIN, T.TEX_MARBLE, T.TEX_TURBULENT)
                           for r in tx),

@@ -104,8 +104,9 @@ class Boxes:
 @dataclasses.dataclass
 class Triangles:
     """Triangle table (hittable/objects.go:242-465) with the factored
-    Moller-Trumbore precomputes. Only the one-row padding table occurs in
-    the scenes this package renders; meshes wait for the mesh path."""
+    Moller-Trumbore precomputes. A mesh large enough for a triangle BVH
+    is stored in BVH leaf order, so leaves, BVH8 groups and cluster groups
+    all index this table directly."""
 
     v0: np.ndarray
     e0: np.ndarray
@@ -222,16 +223,34 @@ class Lights:
 
 @dataclasses.dataclass
 class TriBVH:
-    """The one-node placeholder hierarchy of a scene without a mesh BVH."""
+    """Flattened skip-link BVH over the triangle table (scene/bvh.py),
+    its 8-wide collapse (scene/bvh8.py) and its cluster partition
+    (scene/clusters.py). A scene without a mesh BVH carries a one-node
+    placeholder and None for the derived tables."""
 
-    node_min: np.ndarray
-    node_max: np.ndarray
-    first: np.ndarray
-    count: np.ndarray
-    skip: np.ndarray
-    order: np.ndarray
+    node_min: np.ndarray  # (M, 3)
+    node_max: np.ndarray  # (M, 3)
+    first: np.ndarray     # (M,) int32
+    count: np.ndarray     # (M,) int32 (0 = inner node)
+    skip: np.ndarray      # (M,) int32
+    order: np.ndarray     # (Tp,) int32 triangle ids, -1 padding
     n_nodes: int = 1
     leaf_size: int = 1
+    # 8-wide collapse for the stack walk (ops/traverse8.py)
+    nodes8: Optional[np.ndarray] = None   # packed (R, 128) float32 lines
+    tris8: Optional[np.ndarray] = None    # packed (R2, 128) float32 lines
+    bvh8_dense: bool = False
+    # cluster partition for the binned intersector (ops/trace.binned_closest)
+    cl_lo: Optional[np.ndarray] = None     # (K, 3) cluster box min
+    cl_hi: Optional[np.ndarray] = None     # (K, 3) cluster box max
+    cl_gs: Optional[np.ndarray] = None     # (K + 1,) int32 group offsets
+    cl_lines: Optional[np.ndarray] = None  # packed triangle-group lines
+    cl_boxes: Optional[np.ndarray] = None  # packed cluster-box lines
+    # the finer partition of the persistent-block intersector, which this
+    # package does not build yet (ROADMAP.md); carried when given
+    cl2_boxes: Optional[np.ndarray] = None
+    cl2_gs: Optional[np.ndarray] = None
+    cl2_lines: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -289,7 +308,7 @@ def scene_from_numpy(other) -> Scene:
             sub = {}
             for g in dataclasses.fields(cls):
                 x = getattr(val, g.name)
-                sub[g.name] = x if isinstance(x, (int, bool)) \
+                sub[g.name] = x if x is None or isinstance(x, (int, bool)) \
                     else np.asarray(x)
             val = cls(**sub)
         elif f.name == "background":

@@ -1,6 +1,5 @@
 """The eight reference scenes (main.go:19-414), rebuilt on the scene
-compiler. Each function returns (Scene, Camera); modelExample (8) waits
-for the mesh path.
+compiler. Each function returns (Scene, Camera).
 
 The reference composes scenes with an unseeded global math/rand
 (main.go:40-41 etc.), so its random layouts differ run-to-run; here layout
@@ -229,11 +228,37 @@ def cornell_smoke():
 
 
 def model_example(obj_path: str = "dragon.obj"):
-    """Gold statue on a gray ground (main.go:371-409): an OBJ mesh behind
-    a triangle BVH, which this package does not build yet."""
-    raise NotImplementedError(
-        "modelExample needs the OBJ loader and the triangle BVH of the "
-        "mesh path (ROADMAP.md, queue item 'mesh path')")
+    """Gold statue on a gray ground (main.go:371-409). Loads the OBJ if
+    present; otherwise substitutes a procedural high-poly statue so the
+    scene renders standalone."""
+    from go_raytracer_tpu_torch.scene import obj_loader
+
+    b = SceneBuilder(background=(0, 0, 0))
+    b.sphere((0, -1000, 0), 1000, b.lambertian((0.4, 0.4, 0.4)))
+
+    default_mat = b.metal((255 / 255, 215 / 255, 0.0), 0.5)
+    opts = obj_loader.LoadOptions(scale_factor=5.0, center=True,
+                                  position=(0, 1.8, 0),
+                                  default_material=default_mat)
+    try:
+        path = assets.find_asset(obj_path)
+        light_handles = obj_loader.load_obj(b, path, opts,
+                                            transform=Transform(rotate_y_deg=180))
+    except FileNotFoundError:
+        light_handles = obj_loader.procedural_statue(
+            b, default_mat, opts, transform=Transform(rotate_y_deg=180))
+
+    sun = b.sphere((7, 13, 7), 5, b.diffuse_light((4, 4, 4)))
+    for h in light_handles:
+        b.add_light(h)
+    b.add_light(sun)
+
+    cam = Camera(aspect_ratio=16 / 9, width=600, samples_per_pixel=250,
+                 max_depth=50, vertical_fov=40, background=(0, 0, 0),
+                 max_contribution=2.0, defocus_angle=0.1,
+                 regen_cadence=1)
+    cam.position((10, 5, 10), (0, 0, 0), (0, 1, 0))
+    return b.build(), cam
 
 
 SCENES = {

@@ -73,7 +73,8 @@ def test_unported_paths_exit_2(tmp_path):
     """Flags kept for parity but naming unported paths exit 2 with a
     message, and so do scenes outside the kernel's subset."""
     for extra in (["--integrator", "wavefront"], ["--schedule", "queue"],
-                  ["-S", "3"], ["-S", "8"]):
+                  ["-S", "3"], ["-S", "7"],
+                  ["-S", "8", "--schedule", "queue_ik"]):
         r = run_cli(["-o", str(tmp_path / "x.ppm"), "--cpu", "--width", "8",
                      "--spp", "1", "--quiet", *extra])
         assert r.returncode == 2, (extra, r.stderr[-500:])

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from go_raytracer_tpu_torch.integrator import regen
-from go_raytracer_tpu_torch.ops import bounce, harvest
+from go_raytracer_tpu_torch.ops import bounce, harvest, intersect, stream
+from go_raytracer_tpu_torch.ops import trace, traverse8
 from go_raytracer_tpu_torch.render.camera import Camera
 from go_raytracer_tpu_torch.scene.builder import SceneBuilder
 from go_raytracer_tpu_torch.scenes import registry
@@ -148,3 +149,164 @@ def test_exact_accounting_on_kernels(cuda):
     np.testing.assert_array_equal(img, 1.0)
     assert st["segments"] == 32 * 32 * 9
     assert bounce.launches > 0 and harvest.launches > 0
+
+
+# ---------------------------------------------------------------------------
+# the mesh path's kernels (scene 8's tables)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def scene8():
+    return registry.model_example()
+
+
+def _mesh_rays(dev, n, seed):
+    """Rays around and towards the statue, some capped, some dead."""
+    rs = np.random.default_rng(seed)
+    o = rs.uniform(-6, 8, (n, 3)).astype(np.float32)
+    d = (-o * rs.uniform(0, 1, (n, 1)) + rs.normal(size=(n, 3))) \
+        .astype(np.float32)
+    cap = np.where(rs.uniform(size=n) < 0.3, 6.0, np.inf).astype(np.float32)
+    alive = rs.uniform(size=n) < 0.9
+    to = lambda a: torch.from_numpy(a).to(dev)
+    return to(o), to(d), to(cap), to(alive)
+
+
+def test_stream_kernel_matches_plain(cuda, scene8):
+    """K4 on sorted pools: idx equal on every lane and t bit for bit,
+    empty blocks, capped and dead lanes included."""
+    ms = trace.to_device(scene8[0], cuda)
+    bvh = ms.tri_bvh
+    n = 128 * stream.BLOCK
+    o, d, cap, alive = _mesh_rays(cuda, n, 1)
+    k_cl = bvh.cl_lo.shape[0]
+    rs = np.random.default_rng(2)
+    key = np.sort(rs.integers(0, k_cl, n))
+    key[-5 * stream.BLOCK:] = k_cl
+    kb = torch.from_numpy(key).to(cuda).view(-1, stream.BLOCK)
+    last = torch.where(kb < k_cl, kb, -1).amax(dim=1)
+    empty = last < 0
+    gs = bvh.cl_gs.long()
+    glo = torch.where(empty, 0, gs[kb[:, 0].clamp(0, k_cl - 1)]).int()
+    ghi = torch.where(empty, 0, gs[last.clamp(0, k_cl - 1) + 1]).int()
+    planes = [o[:, k].contiguous() for k in range(3)] \
+        + [d[:, k].contiguous() for k in range(3)]
+    t0 = torch.where(alive, cap, 0.0)
+    idx0 = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    before = stream.launches
+    kt, ki = stream.stream_rows(bvh.cl_lines, glo, ghi, *planes, t0, idx0)
+    torch.cuda.synchronize()
+    assert stream.launches == before + 1
+    pt, pi = stream.stream_rows_ref(bvh.cl_lines, glo, ghi, *planes, t0, idx0)
+    assert torch.equal(ki, pi) and torch.equal(kt, pt)
+    assert (ki >= 0).sum() > 100
+
+
+def test_bvh8_kernel_matches_plain(cuda, scene8):
+    """K5 on the statue: idx equal and t bit for bit, on the padded node
+    table and on a line-packed copy; a dead lane keeps cap 0 and -1."""
+    from go_raytracer_tpu_torch.scene import bvh8
+
+    ms = trace.to_device(scene8[0], cuda)
+    bvh = ms.tri_bvh
+    o, d, cap, alive = _mesh_rays(cuda, 20000, 3)
+    cap0 = torch.where(alive, cap, 0.0)
+    entries = traverse8.node_entries(bvh.nodes8, bvh.bvh8_dense).cpu().numpy()
+    packed = torch.from_numpy(bvh8._pack_lines(entries.copy())).to(cuda)
+    for nodes, dense in ((bvh.nodes8, bvh.bvh8_dense), (packed, True)):
+        before = traverse8.launches
+        kt, ki = traverse8.bvh8_closest(nodes, bvh.tris8, o, d, cap0,
+                                        dense_nodes=dense,
+                                        max_stack=bvh.max_stack)
+        torch.cuda.synchronize()
+        assert traverse8.launches == before + 1
+        pt, pi = traverse8.bvh8_closest_ref(nodes, bvh.tris8, o, d, cap0,
+                                            dense_nodes=dense)
+        assert torch.equal(ki, pi) and torch.equal(kt, pt)
+        assert (ki >= 0).sum() > 1000 and (ki[~alive] == -1).all()
+    with pytest.raises(ValueError, match="max_stack"):
+        traverse8.bvh8_closest(bvh.nodes8, bvh.tris8, o, d, cap0)
+
+
+def test_mesh_closest_routes_agree_on_card(cuda, scene8):
+    """The binned route (K4) and the walk route (K5) return the same
+    winners and t, and the plain skip-link walk agrees with them."""
+    ms = trace.to_device(scene8[0], cuda)
+    o, d, cap, alive = _mesh_rays(cuda, 10000, 5)
+    bt, bi = trace.mesh_closest(ms, o, d, cap, alive, mesh="binned")
+    wt, wi = trace.mesh_closest(ms, o, d, cap, alive, mesh="walk")
+    assert torch.equal(bi, wi) and torch.equal(bt, wt)
+    st, si = trace.bvh_tri_closest(ms, o, d, trace.T_MIN, float("inf"))
+    hit = torch.isfinite(st) & (st < cap) & alive
+    assert ((bi >= 0) == hit).float().mean() > 0.999
+    both = (bi >= 0) & hit
+    assert (bi[both] == si[both]).float().mean() > 0.999
+
+
+def test_bounce_ext_kernel_matches_plain(cuda, scene8):
+    """K3 on scene 8 with ext planes from a real closest hit: alive and
+    cf mismatch at most 1e-3 of the lanes, E/W and the scattered rays
+    within rtol = atol = 2e-3 on all but 1e-3 of the agreeing lanes."""
+    scene = scene8[0]
+    st = bounce.scene_statics(scene, ext=True)
+    ms = trace.to_device(scene, cuda)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    tables = tuple(to(t) for t in bounce.pack_scene(scene))
+    tri_mat = to(bounce.tri_mat_table(scene, st))
+    n = 1 << 16
+    o, d, _, alive = _mesh_rays(cuda, n, 7)
+    tm = torch.zeros(n, device=cuda)
+    u = to(np.random.default_rng(8).random((n, 9)).astype(np.float32))
+    cap = intersect.sphere_ts(ms.spheres, o, d, tm, 1e-3,
+                              float("inf")).amin(dim=1)
+    ext = bounce.mesh_ext_planes(ms, st, tri_mat, o, d, cap, alive)
+    bg = to(np.asarray(scene.background, np.float32))
+    before = bounce.launches_bounce
+    k = bounce.bounce(tables, st, o, d, tm, alive, u, bg, ext=ext)
+    torch.cuda.synchronize()
+    assert bounce.launches_bounce == before + 1
+    p = bounce.bounce_ref(tables, st, o, d, tm, alive, u, bg, ext=ext)
+    assert (k[5] != p[5]).float().mean() <= 1e-3
+    assert (k[2] != p[2]).float().mean() <= 1e-3
+    agree = k[5] == p[5]
+    for a, b in ((k[0], p[0]), (k[1], p[1])):
+        off = ~torch.isclose(a[agree], b[agree], rtol=RTOL, atol=ATOL,
+                             equal_nan=True)
+        assert off.float().mean() <= 1e-3
+    go_on = agree & k[5]
+    for a, b in ((k[3], p[3]), (k[4], p[4])):
+        off = ~torch.isclose(a[go_on], b[go_on], rtol=RTOL, atol=ATOL)
+        assert off.float().mean() <= 1e-3
+    assert not k[5][~alive].any() and not k[0][~alive].any()
+    # given output buffers are written in place, with the same values
+    out = bounce.bounce_out(n, cuda)
+    k2 = bounce.bounce(tables, st, o, d, tm, alive, u, bg, ext=ext, out=out)
+    assert all(a is b for a, b in zip(k2[:6], out))
+    assert all(torch.equal(a, b) for a, b in zip(k2[:6], k[:6]))
+
+
+def test_scene8_render_on_kernels(cuda, scene8):
+    """A small scene-8 render on the kernels: both routes render the same
+    image from one seed, and it agrees with a render on the plain
+    versions (CPU, its own random stream) statistically: segments within
+    4% and channel means within 0.03, about four standard deviations of
+    the difference of two 48 px, 16 spp renders."""
+    scene, cam = registry.model_example()
+    cam.width, cam.samples_per_pixel, cam.max_depth = 48, 16, 6
+    for m in (bounce, stream, traverse8, harvest):
+        m.launches = 0
+    bounce.launches_bounce = 0
+    img_k, st_k = regen.render_regen(scene, cam, seed=3, n_lanes=4096,
+                                     device=cuda)
+    assert bounce.launches_bounce > 0 and stream.launches > 0
+    assert harvest.launches > 0 and traverse8.launches == 0
+    img_w, st_w = regen.render_regen(scene, cam, seed=3, n_lanes=4096,
+                                     device=cuda, mesh="walk")
+    assert traverse8.launches > 0
+    np.testing.assert_array_equal(img_w, img_k)
+    img_p, st_p = regen.render_regen(scene, cam, seed=4, n_lanes=4096,
+                                     device="cpu", mesh="walk")
+    assert st_k["paths"] == st_p["paths"] and st_k["nonfinite"] == 0
+    assert abs(st_k["segments"] - st_p["segments"]) < 0.04 * st_p["segments"]
+    np.testing.assert_allclose(img_k.mean(axis=(0, 1)),
+                               img_p.mean(axis=(0, 1)), atol=0.03)

@@ -55,3 +55,27 @@ def test_chip_smoke_needs_the_repo(tmp_path):
                        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_every_cuda_source_is_registered_and_bound():
+    """Each csrc/*.cu is built by ops/_cuda (SOURCES, ENTRY) and names the
+    TPU kernel it replaces; each wrapper module counts its launches from
+    zero and imports without a CUDA toolkit."""
+    import importlib
+
+    from go_raytracer_tpu_torch.ops import _cuda
+
+    csrc = os.path.join(_ROOT, "go_raytracer_tpu_torch", "ops", "csrc")
+    sources = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
+    assert sources == sorted(_cuda.SOURCES) == sorted(_cuda.ENTRY)
+    for name in sources:
+        text = open(os.path.join(csrc, name + ".cu")).read()
+        assert f'extern "C" int {_cuda.ENTRY[name]}(' in text, name
+        note = " ".join(text.replace("//", " ").split())
+        assert "Replaces the Pallas TPU kernel" in note, name
+        assert "What bounds it" in note, name
+    for mod, counters in (("bounce", ("launches", "launches_bounce")),
+                          ("harvest", ("launches",)), ("stream", ("launches",)),
+                          ("traverse8", ("launches",))):
+        m = importlib.import_module(f"go_raytracer_tpu_torch.ops.{mod}")
+        assert all(getattr(m, c) == 0 for c in counters), mod

@@ -85,12 +85,13 @@ def test_scene_from_numpy_carries_jax_scene():
 
 
 def test_supported_is_the_cornell_subset():
-    """Only scenes inside the kernel's subset are supported; scene 8 (the
-    mesh path) is not built at all."""
+    """Only scenes inside the fused kernel's subset are supported by it;
+    scene 8 (a mesh) is outside it and inside the ext-mode kernel's."""
     ok = {treg.SCENES[k][0]: tpb.supported(treg.SCENES[k][1]()[0])
           for k in range(1, 8)}
     assert ok == {"book1": False, "book2": False, "book3": False,
                   "simpleLight": False, "quads": False, "cornellBox": True,
                   "cornellSmoke": False}
-    with pytest.raises(NotImplementedError, match="mesh path"):
-        treg.model_example()
+    mesh, _ = treg.model_example()
+    assert not tpb.supported(mesh) and tpb.supported_ext(mesh)
+    assert mesh.has_tri_bvh and not tpb.supported_ext(treg.book3()[0])
