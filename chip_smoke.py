@@ -38,15 +38,33 @@ Phases (any failure exits non-zero; nothing is swallowed):
      lanes), whose start ranks and per-level bases come from the refill's
      cumulative sum: every level's starts take base .. base+take-1 once
      each, and K2 against its plain version on those records; then the
-     scene-8 flagship through `cli.main` at the registry configuration
-     (600x337, 250 spp = 225 strata, depth 50, 65,536 lanes, binned
-     route), launch counts read around it; then the walk route through
-     `cli.main` at the same configuration, so that K5 runs on a main
-     path, held against the binned run;
+     scene-8 render through `cli.main` on the binned route, launch counts
+     read around it. To keep the script's time, this one render is CUT to
+     25 spp (5x5 strata; 600x337, depth 50, 65,536 lanes otherwise as the
+     registry has it) and held against the walk route at the same 25 spp
+     in the same call; then the walk route through `cli.main` at the full
+     registry configuration (250 spp = 225 strata), so that K5 runs on a
+     main path at full width;
  11. timings of K3-K5 at those shapes with their bounds, rounds and host
      reads per level, and the device's busy share of a scene-8 render
      under torch.profiler;
-then the `kernels` JSON line (K1-K5), the nvidia-smi line, and the final
+ 12. K6 `bounce_fused` against its plain version (cornellBox tables,
+     131072 lanes, 8 levels, a mixed alive/depth state, the take plane of
+     a real refill), and K8 `bounce_fused_pos` likewise with `rem` mixed
+     (zero, one, many) and the refill cut mid-call: the pointer planes
+     equal on every lane that did not flip;
+ 13. one real flagship `queue` window (256 levels, 26 refill rows): K7
+     `reverse_harvest_into` against `reverse_harvest_ref` +
+     `write_rows_ref` on its records, every refill row's starts taking
+     NIs[r] .. NIs[r]+count-1 once each;
+ 14. exact accounting through K6/K7 and K8 (image exactly 1, one window
+     and several);
+ 15. the cornellBox flagship through `cli.main` under `--schedule queue`
+     and `--schedule positional` at full width, held to the gates of the
+     `queue_ik` flagship of phase 5 and to its image;
+ 16. timings of K6, K7 and K8 at the flagship's shapes with their bounds,
+     and each schedule's device time by kernel under torch.profiler;
+then the `kernels` JSON line (K1-K8), the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -116,18 +134,48 @@ def nvidia_smi_line():
 
 
 def time_ms(fn, reps, warmup=1):
+    """Milliseconds per call of `fn` between two CUDA events around `reps`
+    calls. With 10 calls or more the batch is run three times and the
+    least taken: these calls are host-bound, and one stall of the host (a
+    garbage collection, another process on its cores) would otherwise be
+    spread over the batch."""
     import torch
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    best = float("inf")
+    for _ in range(3 if reps >= 10 else 1):
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) / reps)
+    return best
+
+
+def device_times(prof):
+    """{kernel or copy name: microseconds on the device} of a profile:
+    device-side events only (the host ops that launched them would count
+    the same time twice)."""
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0 and "CUDA" in str(getattr(e, "device_type", "")):
+            out[e.key] = t
+    return out
+
+
+def ppm_channel_means(path):
+    """Channel means in [0, 1] of a P3 PPM as the CLI writes it."""
+    import numpy as np
+    with open(path) as fh:
+        txt = fh.read().split()
+    vals = np.asarray(txt[4:], dtype=np.float64).reshape(-1, 3)
+    return vals.mean(axis=0) / float(txt[3])
 
 
 def started_ranks_are_a_prefix(fl, take):
@@ -403,14 +451,7 @@ def main():
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         _, pst = regen.render_regen(fscene, fcam, seed=4, device=dev)
-    # device-side events only (kernels and copies; the host ops that
-    # launched them would count the same time twice)
-    dev_us = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if t > 0 and "CUDA" in str(getattr(e, "device_type", "")):
-            dev_us[e.key] = t
+    dev_us = device_times(prof)
     render_us = sum(v for k, v in dev_us.items() if k.startswith(
         ("fused_q_level", "count_dead", "harvest_levels")))
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
@@ -674,7 +715,9 @@ def main():
     # ---- 9. a small scene-8 render: kernels against plain versions ------
     def reset_counts():
         bounce.launches = bounce.launches_bounce = 0
-        harvest.launches = stream.launches = traverse8.launches = 0
+        bounce.launches_fused = bounce.launches_fused_pos = 0
+        harvest.launches = harvest.launches_rows = 0
+        stream.launches = traverse8.launches = 0
 
     # 32,768 lanes hold all 20,736 paths at once, so every path keeps its
     # lane and its random numbers in both renders, and a lane that K3's
@@ -779,13 +822,15 @@ def main():
         check(rc == 0, f"cli.main -S 8 {extra} returned {rc}")
         return json.loads(buf.getvalue().strip().splitlines()[-1])
 
+    # the binned route, cut to 25 spp (5x5 strata) for the script's time
+    paths25 = 600 * 337 * 25
     reset_counts()
-    s8 = run_cli8([], "modelExample_flagship.ppm")
+    s8 = run_cli8(["--spp", "25"], "modelExample_binned25.ppm")
     k3_launches, k4_launches = bounce.launches_bounce, stream.launches
     k2_launches_8 = harvest.launches
     ratio8 = s8["segments"] / s8["paths"]
     m8 = s8["mesh"]
-    print(f"[10] flagship modelExample 600x337 250spp (225 strata) depth 50, "
+    print(f"[10] modelExample 600x337 CUT to 25 spp (full: 250), depth 50, "
           f"{s8['lanes']} lanes, binned route, on {card}: paths {s8['paths']},"
           f" segments {s8['segments']} ({ratio8:.4f}/path), "
           f"{s8['rays_per_s']:.6g} rays/s, elapsed {s8['elapsed_s']:.3f} s, "
@@ -796,7 +841,7 @@ def main():
           f"{m8['rounds'] / s8['levels']:.3f}, host reads per level "
           f"{m8['host_reads'] / s8['levels'] + 1:.3f} (one per round, one "
           f"before the first, one for the level's counts)")
-    check(s8["paths"] == SCENE8_PATHS, f"scene 8: paths != {SCENE8_PATHS}")
+    check(s8["paths"] == paths25, f"scene 8 binned: paths != {paths25}")
     check(s8["nonfinite"] == 0 and s8["schedule"] == "queue",
           "scene 8: non-finite pixels or wrong schedule")
     check(abs(ratio8 - small_ratio) <= 0.05 * small_ratio,
@@ -805,36 +850,55 @@ def main():
           and k2_launches_8 == s8["windows"],
           "scene 8: launch counts do not match levels, rounds and windows")
     check(k3_launches > 0 and k4_launches > 0 and k2_launches_8 > 0,
-          "scene 8 flagship did not launch K3, K4 and K2")
-    # the walk route as a main path of its own, at the same configuration
-    # and seed. Both routes return the same winners, so the two runs trace
-    # the same paths unless a ray meets two triangles of different groups
-    # at one t (the routes visit groups in different orders); after one
-    # such lane the lanes' items and random numbers part ways, and the
-    # segment totals then differ by their statistical spread (about 1e-4
-    # of the total at this size).
+          "scene 8 binned render did not launch K3, K4 and K2")
+    # the walk route at the same cut and seed, held against the binned run.
+    # Both routes return the same winners, so the two runs trace the same
+    # paths unless a ray meets two triangles of different groups at one t
+    # (the routes visit groups in different orders); after one such lane
+    # the lanes' items and random numbers part ways, and the segment totals
+    # then differ by their statistical spread.
+    reset_counts()
+    s8w25 = run_cli8(["--mesh", "walk", "--spp", "25"],
+                     "modelExample_walk25.ppm")
+    with open(os.path.join(out_dir, "modelExample_binned25.ppm"), "rb") as fa, \
+            open(os.path.join(out_dir, "modelExample_walk25.ppm"), "rb") as fb:
+        same_image = fa.read() == fb.read()
+    print(f"[10] modelExample, walk route, the same 25 spp on {card}: paths "
+          f"{s8w25['paths']}, segments {s8w25['segments']}, elapsed "
+          f"{s8w25['elapsed_s']:.3f} s, levels {s8w25['levels']}; launches K5 "
+          f"{traverse8.launches} K4 {stream.launches}; segments equal to the "
+          f"binned run's: {s8w25['segments'] == s8['segments']}, image files "
+          f"identical: {same_image}")
+    check(s8w25["paths"] == s8["paths"] and s8w25["nonfinite"] == 0,
+          "scene 8 walk route at 25 spp: paths or non-finite pixels")
+    check(traverse8.launches == s8w25["levels"] > 0 and stream.launches == 0,
+          "scene 8 walk route at 25 spp did not go through K5 alone")
+    check(abs(s8w25["segments"] - s8["segments"]) <= 2e-3 * s8["segments"],
+          "scene 8 at 25 spp: the routes' segments differ by more than 2e-3")
+    # the walk route as a main path of its own, at the full registry
+    # configuration
     reset_counts()
     s8w = run_cli8(["--mesh", "walk"], "modelExample_walk.ppm")
     k5_launches = traverse8.launches
-    with open(os.path.join(out_dir, "modelExample_flagship.ppm"), "rb") as fa, \
-            open(os.path.join(out_dir, "modelExample_walk.ppm"), "rb") as fb:
-        same_image = fa.read() == fb.read()
-    print(f"[10] modelExample, walk route, same configuration on {card}: "
-          f"paths {s8w['paths']}, segments {s8w['segments']} "
-          f"({s8w['segments'] / s8w['paths']:.4f}/path), "
+    k3_launches = bounce.launches_bounce    # K3 on the uncut main path
+    ratio8w = s8w["segments"] / s8w["paths"]
+    print(f"[10] flagship modelExample 600x337 250spp (225 strata) depth 50, "
+          f"{s8w['lanes']} lanes, walk route, on {card}: paths {s8w['paths']},"
+          f" segments {s8w['segments']} ({ratio8w:.4f}/path), "
           f"{s8w['rays_per_s']:.6g} rays/s, elapsed {s8w['elapsed_s']:.3f} s,"
-          f" levels {s8w['levels']}; launches K5 {k5_launches} K3 "
+          f" windows {s8w['windows']}, levels {s8w['levels']}, occupancy "
+          f"{s8w['occupancy']:.4f}; launches K5 {k5_launches} K3 "
           f"{bounce.launches_bounce} K4 {stream.launches} K2 "
-          f"{harvest.launches}; segments equal to the binned run's: "
-          f"{s8w['segments'] == s8['segments']}, image files identical: "
-          f"{same_image}")
-    check(s8w["paths"] == s8["paths"] and s8w["nonfinite"] == 0,
+          f"{harvest.launches}")
+    check(s8w["paths"] == SCENE8_PATHS and s8w["nonfinite"] == 0,
           "scene 8 walk route: paths or non-finite pixels")
-    check(k5_launches == s8w["levels"] > 0 and stream.launches == 0,
-          "scene 8 walk route did not go through K5 alone")
-    check(abs(s8w["segments"] - s8["segments"]) <= 1e-3 * s8["segments"],
-          "scene 8 walk route: segments differ from the binned run's by "
-          "more than 1e-3")
+    check(k5_launches == s8w["levels"] > 0 and stream.launches == 0
+          and bounce.launches_bounce == s8w["levels"]
+          and harvest.launches == s8w["windows"],
+          "scene 8 walk route did not go through K5, K3 and K2 alone")
+    check(abs(ratio8w - small_ratio) <= 0.05 * small_ratio,
+          f"scene 8 walk: segments/path {ratio8w} vs the small render's "
+          f"{small_ratio}")
 
     # ---- 11. timings of K3-K5, and the busy share of a scene-8 render --
     k4_ms = time_ms(lambda: real_stream_rows(*k4_args), 20)
@@ -882,12 +946,7 @@ def main():
     _, ust = regen.render_regen(sc8, cm8, seed=5, device=dev)
     with torch.profiler.profile(activities=acts) as prof8:
         _, pst8 = regen.render_regen(sc8, cm8, seed=5, device=dev)
-    dev_us8 = {}
-    for e in prof8.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if t > 0 and "CUDA" in str(getattr(e, "device_type", "")):
-            dev_us8[e.key] = t
+    dev_us8 = device_times(prof8)
     if dev_us8:
         all_us = sum(dev_us8.values())
         own_us = sum(v for k, v in dev_us8.items() if k.startswith(
@@ -911,6 +970,324 @@ def main():
                   f"{k[:48]} {v / 1e3:.2f}" for k, v in top8))
     else:
         print("[11] profiler reported no device time: busy share not measured")
+
+    # ---- 12. K6 and K8 against their plain versions ---------------------
+    n, n_inner = 1 << 17, 8
+    scene, cam, tables, statics, cam_row, bg, state = cornell_inputs(dev, n)
+    fkw = dict(has_defocus=False, max_depth=50, n_inner=n_inner)
+
+    def queue_refill(st_, next_item, item_end):
+        return regen.queue_refill_planes(
+            torch.tensor(next_item, device=dev), st_[7], item_end, width=600,
+            npix=npix, sqrt_spp=10)
+
+    def fused_pair(name, k, p):
+        """Mismatch fractions of one fused call, kernel against plain
+        version; returns (level-0 record max abs err, lanes that did not
+        flip)."""
+        krec, _, kseg, *kst = k
+        prec, _, pseg, *pst = p
+        check(kseg[0].item() == pseg[0].item(),
+              f"{name}: level-0 alive counts differ")
+        check(all(abs(a - b) <= K1_MISMATCH_FRAC * n
+                  for a, b in zip(kseg.tolist(), pseg.tolist())),
+              f"{name}: alive counts {kseg.tolist()} vs {pseg.tolist()}")
+        noflip = kst[7] == pst[7]
+        alive_mis = (~noflip).float().mean().item()
+        agree0 = torch.ones(n, dtype=torch.bool, device=dev)
+        int_mis = v_mis = 0.0
+        for a, b in zip(krec, prec):
+            if a.dtype == torch.int32:
+                int_mis = max(int_mis, (a != b).float().mean().item())
+                noflip &= (a == b).all(dim=0)
+                agree0 &= a[0] == b[0]
+            else:
+                v_mis = max(v_mis, (~torch.isclose(
+                    a, b, rtol=K1_RTOL, atol=K1_ATOL,
+                    equal_nan=True)).float().mean().item())
+        err0 = max((a[0] - b[0])[agree0].abs().nan_to_num(0.0).max().item()
+                   for a, b in zip(krec, prec) if a.dtype != torch.int32)
+        alive_both = (kst[7] > 0) & (pst[7] > 0)
+        ray_mis = max((~torch.isclose(a[alive_both], b[alive_both],
+                                      rtol=K1_RTOL, atol=K1_ATOL))
+                      .float().mean().item()
+                      for a, b in zip(kst[:6], pst[:6]))
+        flip = (~noflip).float().mean().item()
+        print(f"[12] {name} vs plain at {n} lanes x {n_inner} levels: "
+              f"mismatch fractions flags {int_mis:.2e}  alive {alive_mis:.2e}"
+              f"  records {v_mis:.2e}  alive lanes' rays {ray_mis:.2e}  "
+              f"flipped lanes {flip:.2e} (limit {K1_MISMATCH_FRAC}, "
+              f"rtol=atol={K1_RTOL}); level-0 record max abs err {err0:.3e};"
+              f" alive per level {kseg.tolist()}")
+        for what, frac in (("flags", int_mis), ("alive", alive_mis),
+                           ("records", v_mis), ("rays", ray_mis),
+                           ("flipped lanes", flip)):
+            check(frac <= K1_MISMATCH_FRAC, f"{name}: {what} mismatch {frac}")
+        check(torch.equal(kst[6][noflip], pst[6][noflip])
+              and torch.equal(kst[8][noflip], pst[8][noflip]),
+              f"{name}: time or depth differ on a lane that did not flip")
+        return err0, noflip
+
+    refill6 = queue_refill(state, 1000, npix * 100)
+    check(int(refill6[0].sum()) == int((state[7] == 0).sum()) > 0,
+          "K6: the refill did not take every dead lane")
+    seed6 = torch.tensor([-123456789], dtype=torch.int32, device=dev)
+    k6 = bounce.bounce_fused(tables, statics, cam_row, bg, seed6, *state,
+                             *refill6, **fkw)
+    torch.cuda.synchronize()
+    p6 = bounce.bounce_fused_ref(tables, statics, cam_row, bg, seed6, *state,
+                                 *refill6, **fkw)
+    k6_err, _ = fused_pair("K6", k6, p6)
+    check(k6[2][0].item() == n, "K6: not every lane is alive at level 0")
+
+    rs = np.random.default_rng(5)
+    to_f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    ptr8 = [to_f(rs.choice([0, 7, 599], n)), to_f(rs.integers(0, 599, n)),
+            to_f(rs.choice([0, 9], n)), to_f(rs.choice([0, 3, 9], n)),
+            to_f(rs.choice([0, 1, 2, 275], n))]
+    seed8 = torch.tensor([24680, 5], dtype=torch.int32, device=dev)
+    pkw = dict(width=600, sqrt_spp=10, **fkw)
+    k8 = bounce.bounce_fused_pos(tables, statics, cam_row, bg, seed8, *state,
+                                 *ptr8, **pkw)
+    torch.cuda.synchronize()
+    p8 = bounce.bounce_fused_pos_ref(tables, statics, cam_row, bg, seed8,
+                                     *state, *ptr8, **pkw)
+    k8_err, noflip8 = fused_pair("K8", k8, p8)
+    check(all(torch.equal(a[noflip8], b[noflip8])
+              for a, b in zip(k8[12:], p8[12:])),
+          "K8: pi, pj, si, sj or rem differ on a lane that did not flip")
+    st8_ = k8[0][7]
+    check(torch.equal(st8_[0], p8[0][7][0]) and not st8_[5:].any()
+          and bool(st8_[:5].any(dim=1).all())
+          and torch.equal(st8_.sum(dim=0).float(), ptr8[4] - k8[16]),
+          "K8: starts do not follow rem and the refill cut")
+    print(f"[12] K8 starts per level {st8_.sum(dim=1).tolist()} (refill cut "
+          f"after level 5); pointer planes equal on all "
+          f"{int(noflip8.sum())} lanes that did not flip")
+
+    # ---- 13. K7 on one real flagship queue window -----------------------
+    _, fcam6 = registry.cornell_box()
+    d1 = fcam6.max_depth + 1
+    total = npix * 100
+    q_refill = 4 * d1
+    q_window = -(-(q_refill + d1) // n_inner) * n_inner
+    q_outer, q_rows = q_window // n_inner, -(-q_refill // n_inner)
+    qbufs = regen.SchedBuffers.empty(n, q_outer, n_inner, dev, q_rows)
+    nan = float("nan")
+    acc_k = torch.full((total + n, 3), nan, dtype=torch.float32, device=dev)
+    wkw = dict(width=600, sqrt_spp=10, window=q_window, refill=q_refill,
+               cadence=n_inner, max_depth=50,
+               max_contribution=fcam6.max_contribution)
+    q_seeds = regen.window_seeds(0, 0, q_outer).to(dev)
+    reset_counts()
+    _, _, cur = regen._queue_window(
+        tables, statics, cam_row, bg, acc_k, regen._init_state(n, dev),
+        torch.tensor(0, device=dev), q_seeds, 0, total, npix=npix,
+        bufs=qbufs, **wkw)
+    torch.cuda.synchronize()
+    check(bounce.launches_fused == q_outer and harvest.launches_rows == 1,
+          "the queue window did not launch K6 once per call and K7 once")
+    q_next, q_segs, _ = (int(x) for x in cur.tolist())
+    q_counts = qbufs.sts.sum(dim=1).tolist()
+    q_nis = qbufs.nis.tolist()
+    check(q_nis[0] == 0 and q_next == q_nis[-1] + q_counts[-1]
+          and all(q_nis[r + 1] == q_nis[r] + q_counts[r]
+                  for r in range(q_rows - 1)),
+          "queue window: the refill rows' bases do not chain the cursor")
+    q_rec = [r.view(q_outer, n_inner, n) for r in qbufs.rec]
+    hkw = dict(cadence=n_inner, refill_outer=q_rows,
+               max_contribution=fcam6.max_contribution)
+    acc_p = torch.full_like(acc_k, nan)
+
+    def run_k7_plain():
+        rows_ = harvest.reverse_harvest_ref(*q_rec, qbufs.sts, **hkw)
+        harvest.write_rows_ref(acc_p, rows_, qbufs.nis, item_base=0,
+                               n_rows=q_rows)
+
+    k7_plain_ms = time_ms(run_k7_plain, 1, warmup=0)
+    check(not torch.isnan(acc_k[:q_next]).any(),
+          "K7: an item started in the window was not written")
+    check(bool(torch.isnan(acc_k[q_next:]).all()),
+          "K7: a row past the window's items was written")
+    k7_err = (acc_k[:q_next] - acc_p[:q_next]).abs().max().item()
+    print(f"[13] flagship queue window ({q_window} levels, {q_rows} refill "
+          f"rows, {n} lanes): {q_next} paths started ({q_counts[0]} at row 0,"
+          f" {min(q_counts)}-{max(q_counts[1:])} at the others), {q_segs} "
+          f"segments; each row's starts take NIs[r]..NIs[r]+count-1 once; "
+          f"K7 vs plain accumulator: max abs err {k7_err}")
+    check(k7_err == 0.0, "K7 differs from its plain version on the window")
+    acc_t = torch.full_like(acc_k, nan)
+    k7_ms = time_ms(lambda: harvest.reverse_harvest_into(
+        acc_t, *q_rec, qbufs.sts, qbufs.nis, item_base=0, **hkw), 10)
+    check(torch.equal(acc_t[:q_next], acc_k[:q_next]),
+          "K7 timing run differs from the window's harvest")
+    k7_bytes = q_window * n * 16 + q_rows * n * 4 + q_next * 12 + q_rows * 4
+    k7_bound = k7_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[13] K7 {n} lanes x {q_window} levels, {q_next} paths: kernel "
+          f"{k7_ms:.4f} ms, plain {k7_plain_ms:.2f} ms, bound {k7_bound:.4f} "
+          f"ms (bytes) on {card}")
+    del acc_k, acc_p, acc_t, q_rec, qbufs
+
+    # ---- 14. exact accounting through K6/K7 and K8 ----------------------
+    for sched in ("queue", "positional"):
+        reset_counts()
+        c = Camera(width=32, aspect_ratio=1.0, samples_per_pixel=9,
+                   max_depth=4)
+        c.position((0, 0, 5), (0, 0, 0))
+        img, st = regen.render_regen(quad_scene((1.0, 1.0, 1.0)), c, seed=0,
+                                     n_lanes=4096, cadence=3, schedule=sched,
+                                     device=dev)
+        check(np.abs(img - 1.0).max() == 0.0 and st["schedule"] == sched
+              and st["segments"] == 32 * 32 * 9,
+              f"exact accounting ({sched}): max |img-1| "
+              f"{np.abs(img - 1.0).max()}, segments {st['segments']}")
+        c = Camera(width=64, aspect_ratio=1.0, samples_per_pixel=16,
+                   max_depth=3)
+        c.position((0, 0, 5), (0, 0, 0))
+        img, st = regen.render_regen(quad_scene((1.0, 1.0, 1.0)), c, seed=1,
+                                     n_lanes=4096, cadence=2, refill_len=4,
+                                     schedule=sched, device=dev)
+        err = np.abs(img - 1.0).max()
+        check(st["windows"] > 1 and err == 0.0
+              and st["segments"] == 64 * 64 * 16,
+              f"multi-window ({sched}): windows {st['windows']}, err {err}")
+        used = (bounce.launches_fused, harvest.launches_rows) \
+            if sched == "queue" else (bounce.launches_fused_pos,)
+        check(all(u > 0 for u in used) and bounce.launches == 0,
+              f"{sched}: the renders did not go through its kernels")
+        print(f"[14] {sched}: exact accounting ok; multi-window ok "
+              f"({st['windows']} windows)")
+
+    # ---- 15. the two flagships through the CLI --------------------------
+    ik_means = ppm_channel_means(os.path.join(out_dir,
+                                              "cornellBox_flagship.ppm"))
+    flag = {}
+    for sched in ("queue", "positional"):
+        reset_counts()
+        buf = io.StringIO()
+        image = os.path.join(out_dir, f"cornellBox_{sched}.ppm")
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-S", "6", "--schedule", sched, "-o", image,
+                           "--stats", "--quiet"])
+        check(rc == 0, f"cli.main --schedule {sched} returned {rc}")
+        fs = json.loads(buf.getvalue().strip().splitlines()[-1])
+        fs["launches"] = (bounce.launches_fused, harvest.launches_rows,
+                          bounce.launches_fused_pos)
+        flag[sched] = fs
+        ratio = fs["segments"] / fs["paths"]
+        means = ppm_channel_means(image)
+        ws = fs["window_s"]
+        print(f"[15] flagship cornellBox 600x600 100spp depth 50, 131072 "
+              f"lanes, schedule {sched}, on {card}: paths {fs['paths']}, "
+              f"segments {fs['segments']} ({ratio:.4f}/path), "
+              f"{fs['rays_per_s']:.6g} rays/s, elapsed {fs['elapsed_s']:.4f} "
+              f"s, windows {fs['windows']}, occupancy {fs['occupancy']:.4f}, "
+              f"nonfinite {fs['nonfinite']}; launches K6 {fs['launches'][0]} "
+              f"K7 {fs['launches'][1]} K8 {fs['launches'][2]} K1 "
+              f"{bounce.launches}; host s per window dispatch min "
+              f"{min(ws):.4f} max {max(ws):.4f}; image channel means "
+              f"{np.round(means, 5).tolist()} vs queue_ik "
+              f"{np.round(ik_means, 5).tolist()}")
+        check(fs["schedule"] == sched, f"{sched}: stats say {fs['schedule']}")
+        check(fs["paths"] == 36_000_000, f"{sched}: paths != 36,000,000")
+        check(fs["nonfinite"] == 0, f"{sched}: non-finite pixels")
+        check(2.78 <= ratio <= 3.08, f"{sched}: segments/path {ratio}")
+        check(np.abs(means - ik_means).max() <= 1e-2,
+              f"{sched}: image channel means differ from queue_ik's by more "
+              f"than 1e-2")
+        check(bounce.launches == 0, f"{sched}: the render launched K1")
+    k6_launches, k7_launches, _ = flag["queue"]["launches"]
+    k8_launches = flag["positional"]["launches"][2]
+    q_calls = q_outer * flag["queue"]["windows"]
+    check(k6_launches == q_calls and k7_launches == flag["queue"]["windows"],
+          "queue flagship: K6/K7 launches do not match calls and windows")
+    check(k8_launches == q_outer * flag["positional"]["windows"]
+          and flag["positional"]["launches"][:2] == (0, 0),
+          "positional flagship: K8 launches do not match its calls")
+
+    # ---- 16. timings of K6 and K8, and the schedules' device time -------
+    # steady state: a few refilled calls age the pool
+    st6 = regen._init_state(n, dev)
+    o6 = bounce.FusedOut.empty(n, n_inner, dev)
+    o6.state = st6
+    nxt6 = 0
+    for _ in range(8):
+        r6 = queue_refill(st6, nxt6, total)
+        nxt6 += int(r6[0].sum())
+        bounce.bounce_fused(tables, statics, cam_row, bg, seed6, *st6, *r6,
+                            out=o6, **fkw)
+    r6 = queue_refill(st6, nxt6, total)
+    st6 = [x.clone() for x in st6]
+    o6 = bounce.FusedOut.empty(n, n_inner, dev)
+    run_k6 = lambda: bounce.bounce_fused(
+        tables, statics, cam_row, bg, seed6, *st6, *r6, out=o6, **fkw)
+    k6_ms = time_ms(run_k6, 20)
+    segs6 = int(o6.seg.sum())
+    k6_plain_ms = time_ms(lambda: bounce.bounce_fused_ref(
+        tables, statics, cam_row, bg, seed6, *st6, *r6, out=o6, **fkw), 3)
+    refill_ms = time_ms(lambda: queue_refill(st6, nxt6, total), 20)
+    table_bytes = sum(t.numel() * 4 for t in tables)
+
+    def bound(nbytes, segs):
+        b, o = nbytes / HBM_BYTES_PER_S, segs * K1_OPS_PER_SEGMENT \
+            / FP32_OPS_PER_S
+        return max(b, o) * 1e3, "bytes" if b >= o else "operations"
+
+    k6_bound, k6_by = bound(n * (36 + 20 + 36) + n_inner * n * 16
+                            + table_bytes, segs6)
+    print(f"[16] K6 {n} lanes x {n_inner} levels ({segs6} segments, "
+          f"{int(r6[0].sum())} starts): kernel {k6_ms:.4f} ms, plain "
+          f"{k6_plain_ms:.3f} ms, bound {k6_bound:.4f} ms ({k6_by}); the "
+          f"refill's plain tensor code before each call {refill_ms:.4f} ms; "
+          f"on {card}")
+    quota, lane_base, first_pix, G = regen.pos_tables(npix, 100, n)
+    st8 = regen._init_state_pos(n, dev, quota, lane_base, 100, 600)
+    o8 = bounce.FusedOut.empty(n, n_inner, dev, positional=True)
+    o8.state = st8
+    seed8f = torch.tensor([13579, n_inner], dtype=torch.int32, device=dev)
+    for _ in range(8):
+        bounce.bounce_fused_pos(tables, statics, cam_row, bg, seed8f, *st8,
+                                out=o8, **pkw)
+    st8 = [x.clone() for x in st8]
+    o8 = bounce.FusedOut.empty(n, n_inner, dev, positional=True)
+    run_k8 = lambda: bounce.bounce_fused_pos(
+        tables, statics, cam_row, bg, seed8f, *st8, out=o8, **pkw)
+    k8_ms = time_ms(run_k8, 20)
+    segs8 = int(o8.seg.sum())
+    starts8 = int(o8.rec[7].sum())
+    k8_plain_ms = time_ms(lambda: bounce.bounce_fused_pos_ref(
+        tables, statics, cam_row, bg, seed8f, *st8, out=o8, **pkw), 3)
+    k8_bound, k8_by = bound(n * (56 + 56) + n_inner * n * 32 + table_bytes,
+                            segs8)
+    print(f"[16] K8 {n} lanes x {n_inner} levels ({segs8} segments, "
+          f"{starts8} starts, G = {G} pixel slots per lane): kernel "
+          f"{k8_ms:.4f} ms, plain {k8_plain_ms:.3f} ms, bound {k8_bound:.4f} "
+          f"ms ({k8_by}) on {card}")
+    for sched, own in (("queue", ("bounce_fused_levels", "count_starts",
+                                  "scan_counts", "harvest_rows")),
+                       ("positional", ("bounce_fused_pos_levels",))):
+        with torch.profiler.profile(activities=acts) as prof_s:
+            _, pst = regen.render_regen(fscene, fcam, seed=4, schedule=sched,
+                                        device=dev)
+        us = device_times(prof_s)
+        if not us:
+            print(f"[16] {sched}: profiler reported no device time: busy "
+                  f"share not measured")
+            continue
+        own_us = {k: sum(v for kk, v in us.items() if kk.startswith(k))
+                  for k in own}
+        top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[16] {sched} flagship under the profiler (seed 4): loop "
+              f"{pst['elapsed_s']:.4f} s ({flag[sched]['elapsed_s']:.4f} s "
+              f"unprofiled), windows {pst['windows']}; device busy "
+              f"{sum(us.values()) / 1e6:.4f} s (incl. set-up and readback); "
+              f"the port's kernels, ms (total / per wrapper call): "
+              + ", ".join(
+                  f"{k} {v / 1e3:.3f} / "
+                  f"{v / 1e3 / (pst['windows'] * (1 if k in ('count_starts', 'scan_counts', 'harvest_rows') else q_outer)):.5f}"
+                  for k, v in own_us.items())
+              + "; top device events, ms: " + ", ".join(
+                  f"{k[:44]} {v / 1e3:.2f}" for k, v in top))
 
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",
@@ -942,6 +1319,24 @@ def main():
          "replaces": "go_raytracer_tpu/ops/pallas/traverse8.py:238",
          "launches": k5_launches, "max_abs_err": k5_err, "ms": k5_ms,
          "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by,
+         "library_ms": None},
+        {"name": "bounce_fused", "route": "cuda",
+         "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused.cu",
+         "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:1577",
+         "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_ms,
+         "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by,
+         "library_ms": None},
+        {"name": "reverse_harvest", "route": "cuda",
+         "source": "go_raytracer_tpu_torch/ops/csrc/harvest_rows.cu",
+         "replaces": "go_raytracer_tpu/ops/pallas/harvest.py:225",
+         "launches": k7_launches, "max_abs_err": k7_err, "ms": k7_ms,
+         "plain_ms": k7_plain_ms, "bound_ms": k7_bound, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "bounce_fused_pos", "route": "cuda",
+         "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_pos.cu",
+         "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:1842",
+         "launches": k8_launches, "max_abs_err": k8_err, "ms": k8_ms,
+         "plain_ms": k8_plain_ms, "bound_ms": k8_bound, "bound_by": k8_by,
          "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -6,11 +6,12 @@ Runs on the GPU; `--cpu` runs the plain PyTorch versions of the kernels
 on the CPU instead. Without a GPU and without `--cpu` it exits with an
 error rather than falling back. An unknown -S exits with 2 and the list of
 valid scenes. `-S 8` (a mesh) runs the mesh path; `--mesh walk` takes the
-BVH8 walk instead of the binned intersector. Flags whose paths are not
-ported yet (other integrators,
-schedules and backends, profiling) are accepted with their JAX-package
-choices and exit with 2 and a message naming ROADMAP.md when set to
-anything but the ported path.
+BVH8 walk instead of the binned intersector. `--schedule queue` and
+`--schedule positional` run a dense scene on those schedules instead of
+the in-kernel queue. Flags whose paths are not ported yet (other
+integrators and backends, the schedules a scene kind does not have) are
+accepted with their JAX-package choices and exit with 2 and a message
+naming ROADMAP.md when set to anything but a ported path.
 """
 
 from __future__ import annotations
@@ -51,7 +52,10 @@ def main(argv=None):
                     default="auto",
                     help="regen work assignment: auto = queue_ik (the item "
                          "queue refilled inside the kernel every level) for "
-                         "dense scenes, queue for mesh scenes")
+                         "dense scenes, queue for mesh scenes; on a dense "
+                         "scene, queue refills the item queue before each "
+                         "kernel call and positional gives every lane a "
+                         "static block of items")
     ap.add_argument("--mesh", choices=["binned", "walk"], default="binned",
                     help="closest mesh hit: the binned intersector or the "
                          "BVH8 stack walk")

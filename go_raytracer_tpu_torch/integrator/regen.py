@@ -1,9 +1,17 @@
 """Ray regeneration: the production paths.
 
 A fixed pool of N lanes works through a queue of (pixel, stratum) items.
-Dense scenes the fused kernel carries run the in-kernel queue: inside
-`bounce_fused_q`, every bounce level refills the dead lanes with the
+Dense scenes the fused kernels carry run, by default, the in-kernel queue:
+inside `bounce_fused_q`, every bounce level refills the dead lanes with the
 next items in flat lane order, so a lane restarts the level its path dies.
+Two more schedules serve the same scenes on request. `queue`
+(`_queue_window`): the refill is a cumulative sum over the dead lanes in
+plain tensor code before each `bounce_fused` call of `cadence` levels, and
+`reverse_harvest_into` harvests the refill rows. `positional`
+(`_pos_window`): every lane owns a contiguous block of the pixel-major
+item index and `bounce_fused_pos` restarts it at any level from its own
+pointer planes; the reverse scan retreats the pointers and sums each
+path into one of the lane's few pixel slots.
 Mesh scenes (a triangle BVH) run the `queue` schedule's unfused window
 (`_mesh_window`): per level the refill, the camera rays and the uniforms
 are plain tensor code, the closest mesh hit comes from the binned
@@ -23,9 +31,9 @@ path state crosses windows; the host loops windows until the queue
 drains. The forward loop stops early once every lane is dead and nothing
 can refill (the unwritten levels would be all-zero records).
 
-These are the JAX package's `queue_ik` schedule with the fused harvest and
-its `queue` schedule on the external-mesh-hit path (integrator/regen.py
-there); the fused `queue` kernels and `positional` are not ported.
+These are the JAX package's `queue_ik`, `queue` (fused harvest) and
+`positional` schedules on its fused-kernel branch, and its `queue` schedule
+on the external-mesh-hit path (integrator/regen.py there).
 """
 
 from __future__ import annotations
@@ -70,6 +78,85 @@ def _init_state(n: int, device):
     zi = lambda: torch.zeros(n, dtype=torch.int32, device=device)
     return [z(), z(), z(), z(), z(),
             torch.ones(n, dtype=torch.float32, device=device), z(), zi(), zi()]
+
+
+def queue_state_from_numpy(planes, device):
+    """The JAX package's queue lane state (`_init_state` there: ox oy oz dx
+    dy dz, time, alive (bool), item id, bounces done, as numpy arrays) as
+    this package's nine planes: the item id is dropped (the harvest finds
+    items by rank) and alive becomes int32."""
+    ox, oy, oz, dx, dy, dz, t, alive, _, depth = planes
+    f = lambda a, dt: torch.from_numpy(
+        np.ascontiguousarray(np.asarray(a).astype(dt))).to(device)
+    return [f(a, np.float32) for a in (ox, oy, oz, dx, dy, dz, t)] \
+        + [f(alive, np.int32), f(depth, np.int32)]
+
+
+def pos_state_from_numpy(planes, device):
+    """The JAX package's positional lane state (its `_init_state_pos`
+    fused-kernel layout: the queue planes without the item id, then pi, pj,
+    si, sj, rem, as numpy arrays) as this package's fourteen planes."""
+    f = lambda a, dt: torch.from_numpy(
+        np.ascontiguousarray(np.asarray(a).astype(dt))).to(device)
+    return [f(a, np.float32) for a in planes[:7]] \
+        + [f(planes[7], np.int32), f(planes[8], np.int32)] \
+        + [f(a, np.float32) for a in planes[9:14]]
+
+
+def pos_tables(npix: int, n_strata: int, n: int):
+    """Static positional schedule: lane L owns the contiguous block
+    [lane_base[L], lane_base[L] + quota[L]) of the PIXEL-MAJOR item index
+    (item = pixel * n_strata + stratum), blocks as even as possible. A
+    lane's items are consecutive, so they span at most G pixels (2-5 for
+    the reference configurations), and the harvest sums into per-lane
+    pixel slots. Returns (quota, lane_base, first_pix) int64 arrays and G."""
+    total = npix * n_strata
+    q, r = divmod(total, n)
+    lanes = np.arange(n, dtype=np.int64)
+    quota = np.full(n, q, np.int64)
+    quota[:r] += 1
+    lane_base = lanes * q + np.minimum(lanes, r)
+    first_pix = lane_base // n_strata
+    last_pix = (lane_base + np.maximum(quota, 1) - 1) // n_strata
+    return quota, lane_base, first_pix, int((last_pix - first_pix).max()) + 1
+
+
+def _init_state_pos(n: int, device, quota, lane_base, n_strata: int,
+                    width: int, k=None):
+    """Fresh positional lane state, or one resumed at the per-lane start
+    counts `k` (a checkpoint's): the nine planes of `_init_state`, then
+    the next item's pixel column and row, stratum row and column, and the
+    items left, as float32 planes holding exact small integers."""
+    k0 = np.zeros(n, np.int64) if k is None else np.asarray(k, np.int64)
+    item = lane_base + k0
+    pix, strat = item // n_strata, item % n_strata
+    sqrt_spp = int(round(np.sqrt(n_strata)))
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return _init_state(n, device) + [
+        f(pix % width), f(pix // width), f(strat // sqrt_spp),
+        f(strat % sqrt_spp), f(np.maximum(quota - k0, 0))]
+
+
+def _pos_state_k(state, quota) -> np.ndarray:
+    """The per-lane start counts of a positional state (what a checkpoint
+    stores)."""
+    rem = np.round(state[13].cpu().numpy()).astype(np.int64)
+    return (quota - rem).astype(np.int32)
+
+
+def pos_film(B, first_pix, npix: int, n_strata: int, h: int, w: int):
+    """Film assembly from the positional accumulator B (3, G, N): slot g
+    of lane L is pixel first_pix[L] + g, summed per pixel in float64 and
+    divided by the strata. Slots a lane never owns hold exact zeros, so
+    clipping their pixel ids is harmless."""
+    B = np.asarray(B, np.float64)
+    G = B.shape[1]
+    pix = first_pix[None, :] + np.arange(G, dtype=np.int64)[:, None]
+    flat = pix.clip(0, npix - 1).ravel()
+    chans = [np.bincount(flat, weights=B[c].ravel(), minlength=npix)
+             for c in range(3)]
+    return (np.stack(chans, axis=-1) / n_strata).reshape(h, w, 3) \
+        .astype(np.float32)
 
 
 def _auto_refill(total_items: int, n: int, d1: int, cadence: int,
@@ -220,6 +307,168 @@ def _window_impl(tables, statics, cam_row, bg, acc, state, next_item, seeds,
 
 
 # ---------------------------------------------------------------------------
+# the fused `queue` and `positional` schedules (dense scenes, on request)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SchedBuffers:
+    """One window's device buffers of the `queue` or `positional` schedule,
+    reused across windows. `rec`: level-major record planes (S, N) — Vr,
+    Vg, Vb, FL for `queue`; Er, Eg, Eb, Wr, Wg, Wb, CF, ST for
+    `positional`, whose E and W planes are rows of one (3, S, N) tensor
+    each (`E`, `W`) so that the reverse scan reads a level's three
+    channels as one view. `seg`: (outer, cadence) alive counts. `queue`
+    only: `sts` (refill_outer, N) started flags, `nis` (refill_outer,)
+    first item of each refill row, and `idle`, five all-zero refill planes
+    for the calls past the refill."""
+
+    rec: list
+    seg: torch.Tensor
+    sts: torch.Tensor = None
+    nis: torch.Tensor = None
+    idle: tuple = None
+    E: torch.Tensor = None
+    W: torch.Tensor = None
+
+    @staticmethod
+    def empty(n: int, outer: int, cadence: int, device,
+              refill_outer: int = None) -> "SchedBuffers":
+        S = outer * cadence
+        f = lambda shape, dt: torch.empty(shape, dtype=dt, device=device)
+        seg = f((outer, cadence), torch.int32)
+        if refill_outer is None:
+            E, W = f((3, S, n), torch.float32), f((3, S, n), torch.float32)
+            return SchedBuffers(
+                rec=[*E, *W, f((S, n), torch.int32), f((S, n), torch.int32)],
+                seg=seg, E=E, W=W)
+        zf = torch.zeros(n, dtype=torch.float32, device=device)
+        return SchedBuffers(
+            rec=[f((S, n), torch.float32) for _ in range(3)]
+            + [f((S, n), torch.int32)], seg=seg,
+            sts=f((refill_outer, n), torch.int32),
+            nis=f((refill_outer,), torch.int32),
+            idle=(torch.zeros(n, dtype=torch.int32, device=device),
+                  zf, zf, zf, zf))
+
+
+def _queue_window(tables, statics, cam_row, bg, acc, state, next_item, seeds,
+                  item_base: int, item_end: int, *, width, npix, sqrt_spp,
+                  window, refill, cadence, max_depth, max_contribution,
+                  bufs: SchedBuffers = None):
+    """One window of the `queue` schedule over items [item_base, item_end):
+    `window // cadence` calls of `bounce_fused`, each of the first
+    ceil(refill / cadence) preceded by the refill (`queue_refill_planes`:
+    dead lanes take the next items by their rank in lane order), then the
+    harvest of the refill rows into `acc` (rows relative to item_base, in
+    place). `state` (nine planes) is updated in place; `next_item` is a 0-d
+    int64 tensor on the device; `seeds` the (outer,) int32 per-call seeds
+    on the device. Nothing is read back: returns (acc, state, cur) with
+    cur an int64 device tensor [next item, segments traced, levels]."""
+    n = state[0].shape[0]
+    outer = window // cadence
+    refill_outer = -(-refill // cadence)
+    if bufs is None:
+        bufs = SchedBuffers.empty(n, outer, cadence, state[0].device,
+                                  refill_outer)
+    for i in range(outer):
+        sl = slice(i * cadence, (i + 1) * cadence)
+        if i < refill_outer:
+            refill_planes = queue_refill_planes(
+                next_item, state[7], item_end, width=width, npix=npix,
+                sqrt_spp=sqrt_spp)
+            bufs.sts[i] = refill_planes[0]
+            bufs.nis[i] = next_item
+            next_item = next_item + refill_planes[0].sum()
+        else:
+            refill_planes = bufs.idle
+        bounce_mod.bounce_fused(
+            tables, statics, cam_row, bg, seeds[i:i + 1], *state,
+            *refill_planes, has_defocus=False, max_depth=max_depth,
+            n_inner=cadence,
+            out=bounce_mod.FusedOut(rec=[r[sl] for r in bufs.rec],
+                                    seg=bufs.seg[i], state=state))
+    harvest_mod.reverse_harvest_into(
+        acc, *(r.view(outer, cadence, n) for r in bufs.rec), bufs.sts,
+        bufs.nis, item_base=item_base, cadence=cadence,
+        refill_outer=refill_outer, max_contribution=max_contribution)
+    segments = bufs.seg.sum(dtype=torch.int64)
+    cur = torch.stack([next_item, segments,
+                       segments.new_full((), outer * cadence)])
+    return acc, state, cur
+
+
+def _pos_window(tables, statics, cam_row, bg, B, state, quota, first_pix,
+                seeds, *, width, sqrt_spp, G, window, refill, cadence,
+                max_depth, max_contribution, bufs: SchedBuffers = None):
+    """One window of the `positional` schedule: `window // cadence` calls
+    of `bounce_fused_pos`, then the reverse scan in plain tensor code. It
+    runs the clamp recursion L = clamp?(E + W * L) backwards per lane and,
+    at every started flag, retreats the lane's item pointer by the exact
+    inverse of the kernel's advance, which gives the path's pixel slot
+    g = pj * width + pi - first_pix in [0, G), and adds L into B[:, g]
+    (B: (3, G, N) float32, in place). Only the first `refill` levels can
+    hold starts, so the retreat is skipped after them. `state` (fourteen
+    planes) is updated in place; `quota` and `first_pix` are (N,) device
+    tensors (int64, float32); `seeds` the (outer,) int32 per-call seeds on
+    the device. Returns (B, state, cur) with cur an int64 device tensor
+    [paths started so far over all lanes, segments traced, levels]."""
+    n = state[0].shape[0]
+    outer = window // cadence
+    if bufs is None:
+        bufs = SchedBuffers.empty(n, outer, cadence, state[0].device)
+    steps = torch.arange(outer, dtype=torch.int32, device=seeds.device)
+    seed2 = torch.stack([seeds, torch.clamp(refill - steps * cadence, 0,
+                                            cadence)], dim=1)
+    for i in range(outer):
+        sl = slice(i * cadence, (i + 1) * cadence)
+        bounce_mod.bounce_fused_pos(
+            tables, statics, cam_row, bg, seed2[i], *state,
+            has_defocus=False, max_depth=max_depth, n_inner=cadence,
+            width=width, sqrt_spp=sqrt_spp,
+            out=bounce_mod.FusedOut(rec=[r[sl] for r in bufs.rec],
+                                    seg=bufs.seg[i], state=state))
+
+    CF, ST = bufs.rec[6], bufs.rec[7]
+    L = torch.zeros((3, n), dtype=torch.float32, device=state[0].device)
+    pi, pj, si, sj = state[9:13]
+    last_s, last_p = float(sqrt_spp - 1), float(width - 1)
+    for s in reversed(range(outer * cadence)):
+        raw = bufs.E[:, s] + bufs.W[:, s] * L
+        tot = raw[0] + raw[1] + raw[2]
+        over = (CF[s] != 0) & (tot > max_contribution)
+        # a true division; a NaN sum compares false and passes unclamped
+        scale = torch.where(over, torch.full_like(tot, max_contribution)
+                            / torch.where(over, tot, 1.0), 1.0)
+        L = raw * scale
+        if s >= refill:
+            continue
+        started = ST[s] != 0
+        sj_r = sj - 1.0
+        bor_s = sj_r < -0.5
+        sj_r = torch.where(bor_s, last_s, sj_r)
+        si_r = si - bor_s.to(torch.float32)
+        bor_i = si_r < -0.5
+        si_r = torch.where(bor_i, last_s, si_r)
+        pi_r = pi - (bor_s & bor_i).to(torch.float32)
+        bor_p = pi_r < -0.5
+        pi_r = torch.where(bor_p, last_p, pi_r)
+        pj_r = pj - bor_p.to(torch.float32)
+        pi = torch.where(started, pi_r, pi)
+        pj = torch.where(started, pj_r, pj)
+        si = torch.where(started, si_r, si)
+        sj = torch.where(started, sj_r, sj)
+        g = pj * float(width) + pi - first_pix
+        for gi in range(G):
+            B[:, gi] += torch.where(started & (g == float(gi)), L, 0.0)
+        L = torch.where(started, 0.0, L)
+    k_total = (quota - torch.round(state[13]).to(torch.int64)).sum()
+    segments = bufs.seg.sum(dtype=torch.int64)
+    cur = torch.stack([k_total, segments,
+                       segments.new_full((), outer * cadence)])
+    return B, state, cur
+
+
+# ---------------------------------------------------------------------------
 # the mesh path: the `queue` schedule's unfused window
 # ---------------------------------------------------------------------------
 
@@ -319,6 +568,19 @@ def refill_assign(next_item, alive, do_refill: bool, item_end: int, *,
     s_i = torch.div(stratum, sqrt_spp, rounding_mode="floor")
     return (take, rank, pid, s_i.to(torch.float32),
             (stratum - s_i * sqrt_spp).to(torch.float32))
+
+
+def queue_refill_planes(next_item, alive_i32, item_end: int, *, width: int,
+                        npix: int, sqrt_spp: int):
+    """The refill of the `queue` schedule as the planes `bounce_fused`
+    takes: which lanes start a path (int32), and their pixel column, pixel
+    row, stratum row and stratum column (float32), from `refill_assign`."""
+    take, _, pid, s_i, s_j = refill_assign(
+        next_item, alive_i32 > 0, True, item_end, npix=npix,
+        sqrt_spp=sqrt_spp)
+    pj = torch.div(pid, width, rounding_mode="floor")
+    return (take.to(torch.int32), (pid - pj * width).to(torch.float32),
+            pj.to(torch.float32), s_i, s_j)
 
 
 def refill_lanes(arrays, state, cursor, gen, do_refill: bool, item_end: int,
@@ -474,16 +736,23 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     CUDA; "cpu" runs the kernels' plain versions). Returns (linear image
     (H, W, 3) float32 numpy, stats).
 
-    A dense scene inside `bounce_fused_q`'s subset runs the in-kernel
-    queue (stats["schedule"] == "queue_ik"): `refill_len` 0 sizes the
-    window to the workload (`_auto_refill`), `cadence` 0 takes the scene's
-    hint. A scene with a triangle BVH runs the mesh path
-    (stats["schedule"] == "queue"): at most `MESH_MAX_LANES` lanes,
-    cadence 1, `refill_len` 0 means 4 * (max_depth + 1), and `mesh` picks
-    the closest-hit route ("binned" or "walk"). Checkpoint/resume: between
-    windows no path is in flight, so (accumulator, cursor, window count)
-    is a consistent checkpoint, and a matching one resumes where it
-    stopped."""
+    A dense scene inside the fused kernels' subset runs, with `schedule`
+    "auto" or "queue_ik", the in-kernel queue (stats["schedule"] ==
+    "queue_ik"): `refill_len` 0 sizes the window to the workload
+    (`_auto_refill`), `cadence` 0 takes the scene's hint. On request it
+    runs "queue" (the refill in plain tensor code before each
+    `bounce_fused` call) or "positional" (static per-lane item blocks,
+    `bounce_fused_pos`); for both, `refill_len` 0 means 4 * (max_depth +
+    1). There is no `harvest` argument: "queue" always harvests through
+    the `reverse_harvest` kernel, which the JAX package's tests show
+    bit-identical to its scan-and-sort epilogue. A scene with a triangle
+    BVH runs the mesh path (stats["schedule"] == "queue"): at most
+    `MESH_MAX_LANES` lanes, cadence 1, `refill_len` 0 means 4 *
+    (max_depth + 1), and `mesh` picks the closest-hit route ("binned" or
+    "walk"). Checkpoint/resume: between windows no path is in flight, so
+    (accumulator, cursor, window count) is a consistent checkpoint, and a
+    matching one resumes where it stopped; "positional" stores its
+    (3, G, N) accumulator and the per-lane start counts `k`."""
     from go_raytracer_tpu_torch.render import checkpoint as checkpoint_mod
     from go_raytracer_tpu_torch.utils import progress
 
@@ -496,14 +765,22 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
             "fused boxes, lambertian and diffuse-light materials, solid "
             "textures, quad lights; mesh scenes add spheres, metal and "
             "sphere lights); the other features are queued in ROADMAP.md")
-    if schedule not in (("auto", "queue_ik") if use_fused
-                        else ("auto", "queue")):
+    if not use_fused and schedule == "positional":
         raise NotImplementedError(
-            f"schedule {schedule!r}: dense scenes run the in-kernel queue "
-            "(queue_ik) and mesh scenes the unfused queue; the fused 'queue' "
-            "kernels and 'positional' are queued in ROADMAP.md")
+            "schedule 'positional' on a mesh scene runs the unfused "
+            "reference-engine window, which is ROADMAP.md item 8")
+    if schedule not in (("auto", "queue_ik", "queue", "positional")
+                        if use_fused else ("auto", "queue")):
+        raise NotImplementedError(
+            f"schedule {schedule!r}: dense scenes run 'queue_ik' (auto), "
+            "'queue' or 'positional', mesh scenes the unfused 'queue'; the "
+            "other combinations are queued in ROADMAP.md")
+    if use_ext:
+        schedule = "queue"
+    elif schedule == "auto":
+        schedule = "queue_ik"
     if use_fused and cam.defocus_angle > 0:
-        raise NotImplementedError("defocus blur on the in-kernel-queue path "
+        raise NotImplementedError("defocus blur on the fused-kernel paths "
                                   "is a later slice (ROADMAP.md)")
     if n_lanes % bounce_mod.BLOCK:
         raise ValueError(f"n_lanes must be a multiple of {bounce_mod.BLOCK}")
@@ -523,9 +800,12 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         refill = refill_len or 4 * d1
         window = refill + d1
     else:
-        refill = refill_len or _auto_refill(total_items, n, d1, cadence, cam)
+        refill = refill_len or (
+            _auto_refill(total_items, n, d1, cadence, cam)
+            if schedule == "queue_ik" else 4 * d1)
         window = -(-(refill + d1) // cadence) * cadence
     outer = window // cadence
+    positional = schedule == "positional"
 
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     if use_ext:
@@ -537,23 +817,46 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         cam_row = to_dev(bounce_mod.pack_camera(arrays))
         bg = to_dev(np.asarray(scene.background, np.float32))
         state = _init_state(n, device)
-    bufs = WindowBuffers.empty(n, outer, cadence, device)
+    if schedule in ("queue", "positional") and use_fused:
+        bufs = SchedBuffers.empty(
+            n, outer, cadence, device,
+            None if positional else -(-refill // cadence))
+    else:
+        bufs = WindowBuffers.empty(n, outer, cadence, device)
     n_windows = 0
     meta = checkpoint_mod.meta_for(scene_name, cam)
     meta["lanes"] = n
     bar = progress.Bar(total_items, enabled=verbose)
 
-    # `n_lanes` tail rows absorb the plain harvest's row-tail writes
-    acc = torch.zeros((total_items + n, 3), dtype=torch.float32, device=device)
     start_i = 0
+    k_resume = None
+    if positional:
+        quota, lane_base, first_pix, G = pos_tables(npix, n_strata, n)
+        acc = torch.zeros((3, G, n), dtype=torch.float32, device=device)
+        meta["schedule"] = np.bytes_(b"positional")
+    else:
+        # `n_lanes` tail rows absorb the plain harvest's row-tail writes
+        acc = torch.zeros((total_items + n, 3), dtype=torch.float32,
+                          device=device)
     if checkpoint_path:
         loaded = checkpoint_mod.load(checkpoint_path)
         if loaded is not None \
                 and checkpoint_mod.compatible(loaded[2], meta) \
-                and loaded[0].shape == tuple(acc.shape):
-            acc.copy_(torch.from_numpy(loaded[0]).to(torch.float32))
-            start_i = int(loaded[1])
-            n_windows = int(loaded[2].get("windows", 0))
+                and loaded[0].shape == tuple(acc.shape) \
+                and loaded[2].get("schedule") == meta.get("schedule"):
+            k = checkpoint_mod.load_extra(checkpoint_path).get("k") \
+                if positional else None
+            if not positional or (k is not None and k.shape == (n,)):
+                acc.copy_(torch.from_numpy(loaded[0]).to(torch.float32))
+                start_i = int(loaded[1])
+                n_windows = int(loaded[2].get("windows", 0))
+                k_resume = k
+    if positional:
+        state = _init_state_pos(n, device, quota, lane_base, n_strata, w,
+                                k=k_resume)
+        quota_dev = torch.from_numpy(quota).to(device)
+        first_pix_dev = torch.from_numpy(first_pix.astype(np.float32)) \
+            .to(device)
     bar.tick(start_i)
     next_dev = torch.tensor([start_i], dtype=torch.int32, device=device)
 
@@ -581,15 +884,49 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         next_dev = cur[0:1].to(torch.int32)
         return cur
 
+    def device_seeds(wi):
+        seeds = window_seeds(seed, wi, outer)
+        # pinned + non_blocking: a pageable copy would wait for the stream
+        return (seeds.pin_memory() if device.type == "cuda" else seeds) \
+            .to(device, non_blocking=True)
+
+    next_q = torch.tensor(start_i, dtype=torch.int64, device=device)
+
+    def dispatch_queue(wi):
+        nonlocal next_q
+        _, _, cur = _queue_window(
+            tables, statics, cam_row, bg, acc, state, next_q,
+            device_seeds(wi), 0, total_items, width=w, npix=npix,
+            sqrt_spp=sqrt_spp, window=window, refill=refill, cadence=cadence,
+            max_depth=cam.max_depth, max_contribution=cam.max_contribution,
+            bufs=bufs)
+        next_q = cur[0]
+        return cur
+
+    def dispatch_pos(wi):
+        return _pos_window(
+            tables, statics, cam_row, bg, acc, state, quota_dev,
+            first_pix_dev, device_seeds(wi), width=w, sqrt_spp=sqrt_spp, G=G,
+            window=window, refill=refill, cadence=cadence,
+            max_depth=cam.max_depth, max_contribution=cam.max_contribution,
+            bufs=bufs)[2]
+
     def checkpoint_cb(ni, nw):
         meta["windows"] = nw
-        checkpoint_mod.save(checkpoint_path, acc.cpu().numpy(), ni, meta)
+        if positional:
+            checkpoint_mod.save(checkpoint_path, acc.cpu().numpy(), ni, meta,
+                                extra={"k": _pos_state_k(state, quota)})
+        else:
+            checkpoint_mod.save(checkpoint_path, acc.cpu().numpy(), ni, meta)
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = _time.perf_counter()
     next_i, segments, n_windows, window_times = _window_pipeline(
-        dispatch_mesh if use_ext else dispatch, total_items, n_windows, bar,
+        dispatch_mesh if use_ext else
+        {"queue_ik": dispatch, "queue": dispatch_queue,
+         "positional": dispatch_pos}[schedule],
+        total_items, n_windows, bar,
         checkpoint_cb=checkpoint_cb if checkpoint_path else None,
         checkpoint_every=checkpoint_every, start_i=start_i)
     if device.type == "cuda":
@@ -597,9 +934,12 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     bar.close()
     elapsed = _time.perf_counter() - t0
 
-    linear = _assemble_image(acc, total_items=total_items,
-                             n_strata=n_strata, npix=npix, h=h, w=w) \
-        .cpu().numpy()
+    if positional:
+        linear = pos_film(acc.cpu().numpy(), first_pix, npix, n_strata, h, w)
+    else:
+        linear = _assemble_image(acc, total_items=total_items,
+                                 n_strata=n_strata, npix=npix, h=h, w=w) \
+            .cpu().numpy()
     stats = {
         "elapsed_s": elapsed,
         "segments": segments,
@@ -608,7 +948,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         "paths_per_s": total_items / elapsed if elapsed > 0 else float("nan"),
         "windows": n_windows,
         "window_s": window_times,
-        "schedule": "queue" if use_ext else "queue_ik",
+        "schedule": schedule,
         "occupancy": segments / max(n_windows * window * n, 1),
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),

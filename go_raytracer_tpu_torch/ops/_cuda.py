@@ -26,11 +26,15 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "torch_kernels")
-SOURCES = ("bounce_fused_q", "harvest", "bounce", "stream", "traverse8")
+SOURCES = ("bounce_fused_q", "harvest", "bounce", "stream", "traverse8",
+           "bounce_fused", "bounce_fused_pos", "harvest_rows")
 # entry point of each library, all `int fn(const Args*, cudaStream_t)`
 ENTRY = {"bounce_fused_q": "grt_bounce_fused_q",
          "harvest": "grt_harvest_levels", "bounce": "grt_bounce",
-         "stream": "grt_stream_rows", "traverse8": "grt_bvh8_closest"}
+         "stream": "grt_stream_rows", "traverse8": "grt_bvh8_closest",
+         "bounce_fused": "grt_bounce_fused",
+         "bounce_fused_pos": "grt_bounce_fused_pos",
+         "harvest_rows": "grt_harvest_rows"}
 # The mesh intersectors must agree with their plain versions bit for bit,
 # so their multiply-adds stay uncontracted (csrc/mt.cuh).
 EXTRA_FLAGS = {"stream": ["-fmad=false"], "traverse8": ["-fmad=false"]}

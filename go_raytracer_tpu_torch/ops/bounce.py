@@ -16,16 +16,25 @@ Counterpart of the JAX package's `ops/pallas/bounce.py`. Three parts:
   version `bounce_fused_q_ref` — the same function, op for op as the JAX
   kernel, which the tests hold against the JAX package.
 
+* `bounce_fused`: `n_inner` levels of the `queue` schedule, whose refill
+  (which lanes start, and on which pixel and stratum) the caller computes
+  and hands in as planes; it happens at the first level only.
+  `csrc/bounce_fused.cu` on the card, `bounce_fused_ref` on the CPU.
+* `bounce_fused_pos`: `n_inner` levels of the `positional` schedule: each
+  lane carries its own next-item pointer as exact small-integer float32
+  planes and restarts at any level. `csrc/bounce_fused_pos.cu` on the
+  card, `bounce_fused_pos_ref` on the CPU.
 * `bounce`: one bounce level of the mesh path from given uniforms, with
   the closest mesh hit folded in as per-lane planes (`mesh_ext_planes`).
   CUDA tensors launch `csrc/bounce.cu`, CPU tensors run `bounce_ref`.
 
-`bounce_fused_q` covers the scenes `supported()` accepts: quads and
+The three fused kernels cover the scenes `supported()` accepts: quads and
 (rotated) fused boxes, lambertian and diffuse-light materials, solid
 textures, quad lights, no defocus. `bounce` adds spheres, metal, sphere
 lights and the external mesh hit (`supported_ext`). Everything else
-raises; nothing falls back. Both share one bounce core: `_bounce_core_ref`
-here, `csrc/bounce_core.cuh` on the card.
+raises; nothing falls back. All share one bounce core (`_bounce_core_ref`
+here, `csrc/bounce_core.cuh` on the card), and the fused ones one PRNG and
+one camera ray generation (`_camera_rays_ref`, `csrc/fused_common.cuh`).
 """
 
 from __future__ import annotations
@@ -67,6 +76,10 @@ BLOCK = 256
 launches = 0
 # Launches of the CUDA kernel through `bounce` (one per call).
 launches_bounce = 0
+# Launches of the CUDA kernels through `bounce_fused` and
+# `bounce_fused_pos` (one per call each).
+launches_fused = 0
+launches_fused_pos = 0
 
 
 def _mat_layout(st: dict):
@@ -312,15 +325,26 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
+def _bits_to_u01(bits):
+    """23 hash bits -> the mantissa of a float in [1, 2) -> minus 1."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
 def _u01_dyn(lane, seed, slot):
-    """U[0,1) = hash(lane, seed, slot) -> 23-bit mantissa via the exponent
-    trick: bits -> [1, 2) -> minus 1. Arguments are int64 tensors or ints
+    """U[0,1) = hash(lane, seed, slot). Arguments are int64 tensors or ints
     holding uint32 values (a negative int32 seed is taken mod 2^32)."""
     x = lane ^ _mul32(torch.as_tensor(seed) & _M32, 0x9E3779B9) \
         ^ _mul32(torch.as_tensor(slot) & _M32, 0x632BE5AB)
-    bits = _mix32(x)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return f - 1.0
+    return _bits_to_u01(_mix32(x))
+
+
+def _u01(lane, seed: int, slot: int):
+    """`_u01_dyn` for a slot and a seed known on the host (the JAX
+    package's static-slot `_u01`): both multiplies fold into constants."""
+    x = lane ^ (((seed & _M32) * 0x9E3779B9) & _M32) \
+        ^ ((slot * 0x632BE5AB) & _M32)
+    return _bits_to_u01(_mix32(x))
 
 
 def _item_to_coords(item, npix: int, width: int, sqrt_spp: int):
@@ -641,6 +665,25 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
             torch.where(lit, hz, oz), ndx, ndy, ndz, diffuse | is_metal)
 
 
+def _camera_rays_ref(cam, pi, pj, si, sj, u_jx, u_jy):
+    """Camera ray generation (camera.go:256-270) without defocus, for every
+    lane: the ray from the camera centre through pixel (pi, pj) at stratum
+    (si, sj) jittered by (u_jx, u_jy). `cam` = the `pack_camera` row as a
+    list. Returns (origin xyz, direction xyz) planes."""
+    recip = cam[18]
+    off_x = (si + u_jx) * recip - 0.5
+    off_y = (sj + u_jy) * recip - 0.5
+    px = pi + off_x
+    py = pj + off_y
+    sx = cam[0] + px * cam[3] + py * cam[6]
+    sy = cam[1] + px * cam[4] + py * cam[7]
+    sz = cam[2] + px * cam[5] + py * cam[8]
+    cx = cam[9] + torch.zeros_like(sx)
+    cy = cam[10] + torch.zeros_like(sx)
+    cz = cam[11] + torch.zeros_like(sx)
+    return cx, cy, cz, sx - cx, sy - cy, sz - cz
+
+
 @dataclasses.dataclass
 class FusedQOut:
     """Preallocated outputs of `bounce_fused_q`, so a caller can have the
@@ -709,23 +752,14 @@ def bounce_fused_q_ref(tables, statics, cam_row, bg, seed4, ox, oy, oz,
         out.take[j] = n_take
         pi, pj, si, sj = (c.to(torch.float32) for c in
                           _item_to_coords(item, npix, width, sqrt_spp))
-        recip = cam[18]
-        off_x = (si + u01(0)) * recip - 0.5
-        off_y = (sj + u01(1)) * recip - 0.5
-        px = pi + off_x
-        py = pj + off_y
-        sx = cam[0] + px * cam[3] + py * cam[6]
-        sy = cam[1] + px * cam[4] + py * cam[7]
-        sz = cam[2] + px * cam[5] + py * cam[8]
-        cx = cam[9] + torch.zeros_like(sx)
-        cy = cam[10] + torch.zeros_like(sx)
-        cz = cam[11] + torch.zeros_like(sx)
+        cx, cy, cz, rdx, rdy, rdz = _camera_rays_ref(cam, pi, pj, si, sj,
+                                                     u01(0), u01(1))
         ox = torch.where(take, cx, ox)
         oy = torch.where(take, cy, oy)
         oz = torch.where(take, cz, oz)
-        dx = torch.where(take, sx - cx, dx)
-        dy = torch.where(take, sy - cy, dy)
-        dz = torch.where(take, sz - cz, dz)
+        dx = torch.where(take, rdx, dx)
+        dy = torch.where(take, rdy, dy)
+        dz = torch.where(take, rdz, dz)
         tm = torch.where(take, u01(4), tm)
         alive = alive | take
         depth = torch.where(take, torch.zeros_like(depth), depth)
@@ -875,6 +909,349 @@ def bounce_fused_q(tables, statics, cam_row, bg, seed4, ox, oy, oz, dx, dy,
                          max_depth=max_depth, n_inner=n_inner, width=width,
                          sqrt_spp=sqrt_spp, npix=npix, out=out)
     return (tuple(out.rec), None, out.seg, out.take) + tuple(out.state)
+
+
+# ---------------------------------------------------------------------------
+# the `queue` and `positional` schedules' kernels: the refill comes from the
+# caller (bounce_fused) or from per-lane pointer planes (bounce_fused_pos)
+# ---------------------------------------------------------------------------
+
+STATE_NAMES = ("ox", "oy", "oz", "dx", "dy", "dz", "tm", "alive", "depth")
+POS_NAMES = ("pi", "pj", "si", "sj", "rem")
+_TABLE_INTS = ("p_cols", "quad_base", "n_quad", "box_base", "n_box",
+               "n_lights", "n_lights_live")
+
+
+@dataclasses.dataclass
+class FusedOut:
+    """Preallocated outputs of `bounce_fused` and `bounce_fused_pos`, so a
+    caller can have the records written straight into its window buffers.
+    `rec`: the record planes, each (n_inner, N) — Vr, Vg, Vb (float32) and
+    FL (int32) for `bounce_fused`; Er, Eg, Eb, Wr, Wg, Wb (float32), CF and
+    ST (int32) for `bounce_fused_pos`. `seg`: (n_inner,) int32, the lanes
+    alive at each level's bounce. `state`: the nine state planes, plus
+    pi, pj, si, sj, rem (float32) for `bounce_fused_pos`; they may be the
+    input planes themselves (the update is per lane, read before write)."""
+
+    rec: Sequence[torch.Tensor]
+    seg: torch.Tensor
+    state: Sequence[torch.Tensor]
+
+    @staticmethod
+    def empty(n: int, n_inner: int, device, positional=False) -> "FusedOut":
+        f = lambda shape, dt: torch.empty(shape, dtype=dt, device=device)
+        n_f, n_i = (6, 2) if positional else (3, 1)
+        return FusedOut(
+            rec=[f((n_inner, n), torch.float32) for _ in range(n_f)]
+            + [f((n_inner, n), torch.int32) for _ in range(n_i)],
+            seg=f((n_inner,), torch.int32),
+            state=[f((n,), torch.float32) for _ in range(7)]
+            + [f((n,), torch.int32) for _ in range(2)]
+            + [f((n,), torch.float32) for _ in range(5 if positional else 0)])
+
+
+def _check_fused(statics, has_defocus):
+    if not supported_statics(statics):
+        raise NotImplementedError(
+            "scene outside this kernel's subset (see supported())")
+    if has_defocus:
+        raise NotImplementedError("defocus blur is a later slice (ROADMAP.md)")
+
+
+def _finish_fused(out, seg_counts, state):
+    for j, c in enumerate(seg_counts):
+        out.seg[j] = c
+    for dst, src in zip(out.state, state):
+        dst.copy_(src)
+    return (tuple(out.rec), None, out.seg) + tuple(out.state)
+
+
+def bounce_fused_ref(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy,
+                     dz, time, alive_i32, depth, take_i32, pi, pj, si, sj, *,
+                     has_defocus, max_depth, n_inner=1,
+                     out: Optional[FusedOut] = None):
+    """Plain PyTorch version of `bounce_fused` (same arguments, same
+    results), op for op as the JAX kernel: the camera rays blended into
+    the taken lanes from PRNG slots 0-4, then per level j one bounce from
+    slots 5 + 9j .., the merged V/FL records, the alive count and the
+    depth cap."""
+    _check_fused(statics, has_defocus)
+    prims, lights = tables[0], tables[1]
+    n = ox.shape[0]
+    if out is None:
+        out = FusedOut.empty(n, n_inner, ox.device)
+    seed = int(seed)
+    cam = cam_row.reshape(-1).tolist()
+    bgl = bg.tolist()
+    lane = torch.arange(n, dtype=torch.int64, device=ox.device)
+    u01 = lambda slot: _u01(lane, seed, slot)
+    take = take_i32 > 0
+    cx, cy, cz, rdx, rdy, rdz = _camera_rays_ref(cam, pi, pj, si, sj,
+                                                 u01(0), u01(1))
+    ox = torch.where(take, cx, ox)
+    oy = torch.where(take, cy, oy)
+    oz = torch.where(take, cz, oz)
+    dx = torch.where(take, rdx, dx)
+    dy = torch.where(take, rdy, dy)
+    dz = torch.where(take, rdz, dz)
+    tm = torch.where(take, u01(4), time)
+    alive = (alive_i32 > 0) | take
+    depth = torch.where(take, torch.zeros_like(depth), depth)
+    n_u = N_U + statics["n_media"]
+    segs = []
+    for j in range(n_inner):
+        u = [u01(N_U_RAYGEN + j * n_u + k) for k in range(n_u)]
+        (vr, vg, vb, emit, cf, nox, noy, noz, ndx, ndy, ndz,
+         alive_out) = _bounce_core_ref(statics, prims, lights, bgl, ox, oy,
+                                       oz, dx, dy, dz, alive, u)
+        out.rec[0][j] = vr
+        out.rec[1][j] = vg
+        out.rec[2][j] = vb
+        out.rec[3][j] = cf.to(torch.int32) | (emit.to(torch.int32) << 1)
+        segs.append(alive.sum())
+        # depth cap (camera.go:293-296): a path gets max_depth + 1 levels
+        alive_out = alive_out & (depth < max_depth)
+        depth = torch.where(alive, depth + 1, depth)
+        ox, oy, oz, dx, dy, dz = nox, noy, noz, ndx, ndy, ndz
+        alive = alive_out
+    return _finish_fused(out, segs, (ox, oy, oz, dx, dy, dz, tm,
+                                     alive.to(torch.int32), depth))
+
+
+def bounce_fused_pos_ref(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx,
+                         dy, dz, time, alive_i32, depth, pi, pj, si, sj, rem,
+                         *, has_defocus, max_depth, n_inner=1, width=0,
+                         sqrt_spp=0, out: Optional[FusedOut] = None):
+    """Plain PyTorch version of `bounce_fused_pos` (same arguments, same
+    results), op for op as the JAX kernel. Per level j < seed2[1], a dead
+    lane with rem > 0.5 starts its next item: the started flag is recorded,
+    the camera ray comes from PRNG slots 14j .. 14j + 4, and the item
+    pointer advances by carry selects (sj, then si, then pi, then pj) that
+    keep the planes exact integers; then one bounce from slots 14j + 5 ..,
+    the unmerged E / W / clamp records, the alive count and the depth cap."""
+    _check_fused(statics, has_defocus)
+    prims, lights = tables[0], tables[1]
+    n = ox.shape[0]
+    if out is None:
+        out = FusedOut.empty(n, n_inner, ox.device, positional=True)
+    seed, refill_rem = (int(v) for v in seed2.tolist())
+    cam = cam_row.reshape(-1).tolist()
+    bgl = bg.tolist()
+    lane = torch.arange(n, dtype=torch.int64, device=ox.device)
+    u01 = lambda slot: _u01(lane, seed, slot)
+    alive = alive_i32 > 0
+    tm = time
+    n_u = N_U + statics["n_media"]
+    zero = torch.zeros_like(ox)
+    one = torch.ones_like(ox)
+    segs = []
+    for j in range(n_inner):
+        base = j * (N_U_RAYGEN + n_u)
+        take = ~alive & (rem > 0.5) if refill_rem > j \
+            else torch.zeros_like(alive)
+        out.rec[7][j] = take.to(torch.int32)
+        cx, cy, cz, rdx, rdy, rdz = _camera_rays_ref(
+            cam, pi, pj, si, sj, u01(base + 0), u01(base + 1))
+        ox = torch.where(take, cx, ox)
+        oy = torch.where(take, cy, oy)
+        oz = torch.where(take, cz, oz)
+        dx = torch.where(take, rdx, dx)
+        dy = torch.where(take, rdy, dy)
+        dz = torch.where(take, rdz, dz)
+        tm = torch.where(take, u01(base + 4), tm)
+        alive = alive | take
+        depth = torch.where(take, torch.zeros_like(depth), depth)
+
+        # advance the item pointer (pixel-major: sj fastest, then si, then
+        # the pixel column pi, then the pixel row pj), exact float carries
+        sj_n = sj + 1.0
+        wrap_s = sj_n > (sqrt_spp - 0.5)
+        sj_n = torch.where(wrap_s, zero, sj_n)
+        si_n = si + torch.where(wrap_s, one, zero)
+        wrap_i = si_n > (sqrt_spp - 0.5)
+        si_n = torch.where(wrap_i, zero, si_n)
+        adv_p = wrap_s & wrap_i
+        pi_n = pi + torch.where(adv_p, one, zero)
+        wrap_p = pi_n > (width - 0.5)
+        pi_n = torch.where(wrap_p, zero, pi_n)
+        pj_n = pj + torch.where(wrap_p, one, zero)
+        pi = torch.where(take, pi_n, pi)
+        pj = torch.where(take, pj_n, pj)
+        si = torch.where(take, si_n, si)
+        sj = torch.where(take, sj_n, sj)
+        rem = rem - take.to(torch.float32)
+
+        u = [u01(base + N_U_RAYGEN + k) for k in range(n_u)]
+        (vr, vg, vb, emit, cf, nox, noy, noz, ndx, ndy, ndz,
+         alive_out) = _bounce_core_ref(statics, prims, lights, bgl, ox, oy,
+                                       oz, dx, dy, dz, alive, u)
+        for c, v in enumerate((vr, vg, vb)):
+            out.rec[c][j] = torch.where(emit, v, zero)
+            out.rec[3 + c][j] = torch.where(emit, zero, v)
+        out.rec[6][j] = cf.to(torch.int32)
+        segs.append(alive.sum())
+        # depth cap (camera.go:293-296)
+        alive_out = alive_out & (depth < max_depth)
+        depth = torch.where(alive, depth + 1, depth)
+        ox, oy, oz, dx, dy, dz = nox, noy, noz, ndx, ndy, ndz
+        alive = alive_out
+    return _finish_fused(out, segs, (ox, oy, oz, dx, dy, dz, tm,
+                                     alive.to(torch.int32), depth,
+                                     pi, pj, si, sj, rem))
+
+
+def _args_struct(name, pointers, ints):
+    """A ctypes mirror of a kernel's argument struct: pointers, then ints."""
+    return type(name, (ctypes.Structure,), {"_fields_": [
+        (p, ctypes.c_void_p) for p in pointers] + [
+        (i, ctypes.c_int) for i in ints]})
+
+
+# Mirror of `FusedArgs` in csrc/bounce_fused.cu (field for field).
+_FusedArgs = _args_struct(
+    "_FusedArgs",
+    ("prims", "lights", "cam", "bg", "seed")
+    + tuple(k + "_in" for k in STATE_NAMES) + ("take",) + POS_NAMES[:4]
+    + STATE_NAMES + ("vr", "vg", "vb", "fl", "seg"),
+    _TABLE_INTS + ("n", "n_inner", "max_depth"))
+
+# Mirror of `FusedPosArgs` in csrc/bounce_fused_pos.cu (field for field).
+_FusedPosArgs = _args_struct(
+    "_FusedPosArgs",
+    ("prims", "lights", "cam", "bg", "seed2")
+    + tuple(k + "_in" for k in STATE_NAMES + POS_NAMES)
+    + STATE_NAMES + POS_NAMES
+    + ("er", "eg", "eb", "wr", "wg", "wb", "cf", "st", "seg"),
+    _TABLE_INTS + ("n", "n_inner", "max_depth", "width", "sqrt_spp"))
+
+
+def _launch_fused(lib, struct, tables, statics, cam_row, bg, seed_field, seed,
+                  state, extra_in, rec_names, out: FusedOut, n_inner, ints):
+    """Check every tensor, fill `struct` and launch the entry point of
+    library `lib`. `seed_field`: the struct's name of the seed tensor
+    ("seed", one int, or "seed2", two); `state`: the input state planes
+    (nine, or fourteen with the pointer planes); `extra_in`: further
+    (name, tensor, dtype) inputs; `rec_names`: the struct's names of the
+    record planes; `ints`: the struct's ints beyond the common ones."""
+    from go_raytracer_tpu_torch.ops import _cuda
+
+    st = statics
+    n = state[0].shape[0]
+    if n % BLOCK:
+        raise ValueError(f"lane count {n} is not a multiple of {BLOCK}")
+    prims, lights = tables[0], tables[1]
+    f32, i32 = torch.float32, torch.int32
+    names = (STATE_NAMES + POS_NAMES)[:len(state)]
+    dtypes = [i32 if k in ("alive", "depth") else f32 for k in names]
+    if len(out.state) != len(state) or len(out.rec) != len(rec_names):
+        raise ValueError("out: wrong number of state or record planes")
+    checks = [("prims", prims, f32, None), ("lights", lights, f32, None),
+              ("cam_row", cam_row, f32, (1, 20)), ("bg", bg, f32, (3,)),
+              (seed_field, seed, i32, (2 if seed_field == "seed2" else 1,)),
+              ("seg", out.seg, i32, (n_inner,))]
+    checks += [(nm, t, dt, (n,)) for nm, t, dt in zip(names, state, dtypes)]
+    checks += [(nm + "_out", t, dt, (n,))
+               for nm, t, dt in zip(names, out.state, dtypes)]
+    checks += [(nm, t, dt, (n,)) for nm, t, dt in extra_in]
+    checks += [(nm, t, i32 if nm in ("fl", "cf", "st") else f32, (n_inner, n))
+               for nm, t in zip(rec_names, out.rec)]
+    _check_cuda_args(checks)
+    p = lambda t: t.data_ptr()
+    a = struct(
+        prims=p(prims), lights=p(lights), cam=p(cam_row), bg=p(bg),
+        **{seed_field: p(seed)},
+        **{k + "_in": p(t) for k, t in zip(names, state)},
+        **{k: p(t) for k, t in zip(names, out.state)},
+        **{nm: p(t) for nm, t, _ in extra_in},
+        **{nm: p(t) for nm, t in zip(rec_names, out.rec)}, seg=p(out.seg),
+        p_cols=prims.shape[1], quad_base=st["quad_base"],
+        n_quad=st["n_quad"], box_base=st["box_base"], n_box=st["n_box"],
+        n_lights=st["n_lights"], n_lights_live=st["n_lights_live"], n=n,
+        n_inner=n_inner, **ints)
+    err = getattr(_cuda.library(lib), _cuda.ENTRY[lib])(
+        ctypes.addressof(a),
+        torch.cuda.current_stream(prims.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{lib} launch failed: {_cuda.error_string(err)}")
+
+
+def bounce_fused(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy, dz,
+                 time, alive_i32, depth, take_i32, pi, pj, si, sj, *,
+                 has_defocus, max_depth, n_inner=1,
+                 out: Optional[FusedOut] = None):
+    """`n_inner` bounce levels of the `queue` schedule in one kernel call,
+    the refill at the first level only (the JAX package's `bounce_fused`).
+
+    tables = (prims, lights, media, blk) tensors from `pack_scene`; seed: a
+    (1,) int32 tensor on the lanes' device; the nine state planes; and the
+    refill the caller computed: `take_i32` (int32, > 0 where a lane starts
+    a path) and its pixel column, pixel row, stratum row and stratum column
+    `pi, pj, si, sj` (float32). Returns (rec_planes, None, seg_counts, ox,
+    oy, oz, dx, dy, dz, time, alive_i32, depth): rec_planes = (Vr, Vg, Vb,
+    FL), each (n_inner, N) — the merged emission-or-weight planes and the
+    flag bits (bit0 firefly clamp, bit1 emit); seg_counts (n_inner,) int32.
+    `out` (optional) receives every output.
+
+    CUDA tensors launch the kernel; CPU tensors run `bounce_fused_ref`.
+    The kernel leaves a dead lane's direction as it was, where the plain
+    version (like the JAX kernel) writes a don't-care sampled direction."""
+    global launches_fused
+    state = (ox, oy, oz, dx, dy, dz, time, alive_i32, depth)
+    refill = (take_i32, pi, pj, si, sj)
+    if not ox.is_cuda:
+        return bounce_fused_ref(
+            tables, statics, cam_row, bg, seed, *state, *refill,
+            has_defocus=has_defocus, max_depth=max_depth, n_inner=n_inner,
+            out=out)
+    _check_fused(statics, has_defocus)
+    if out is None:
+        out = FusedOut.empty(ox.shape[0], n_inner, ox.device)
+    extra = [("take", take_i32, torch.int32)] + [
+        (nm, t, torch.float32) for nm, t in zip(POS_NAMES, refill[1:])]
+    _launch_fused("bounce_fused", _FusedArgs, tables, statics, cam_row, bg,
+                  "seed", seed, state, extra, ("vr", "vg", "vb", "fl"), out,
+                  n_inner, dict(max_depth=max_depth))
+    launches_fused += 1
+    return (tuple(out.rec), None, out.seg) + tuple(out.state)
+
+
+def bounce_fused_pos(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx, dy,
+                     dz, time, alive_i32, depth, pi, pj, si, sj, rem, *,
+                     has_defocus, max_depth, n_inner=1, width=0, sqrt_spp=0,
+                     out: Optional[FusedOut] = None):
+    """`n_inner` bounce levels of the `positional` schedule in one kernel
+    call, with the per-lane refill at every level (the JAX package's
+    `bounce_fused_pos`).
+
+    seed2: (2,) int32 on the lanes' device, [seed, refill levels
+    remaining]; the nine state planes; and each lane's next-item pointer
+    `pi, pj, si, sj` with its remaining item count `rem`, float32 planes
+    holding exact small integers. Returns (rec_planes, None, seg_counts,
+    the fourteen new state planes): rec_planes = (Er, Eg, Eb, Wr, Wg, Wb,
+    CF, ST), each (n_inner, N) — emission and weight apart, the clamp flag
+    and the started flag (int32). `out` (optional) receives every output.
+
+    CUDA tensors launch the kernel; CPU tensors run
+    `bounce_fused_pos_ref`. The kernel leaves a dead lane's direction as
+    it was, where the plain version writes a don't-care direction."""
+    global launches_fused_pos
+    state = (ox, oy, oz, dx, dy, dz, time, alive_i32, depth,
+             pi, pj, si, sj, rem)
+    if not ox.is_cuda:
+        return bounce_fused_pos_ref(
+            tables, statics, cam_row, bg, seed2, *state,
+            has_defocus=has_defocus, max_depth=max_depth, n_inner=n_inner,
+            width=width, sqrt_spp=sqrt_spp, out=out)
+    _check_fused(statics, has_defocus)
+    if out is None:
+        out = FusedOut.empty(ox.shape[0], n_inner, ox.device, positional=True)
+    _launch_fused("bounce_fused_pos", _FusedPosArgs, tables, statics, cam_row,
+                  bg, "seed2", seed2, state, [],
+                  ("er", "eg", "eb", "wr", "wg", "wb", "cf", "st"), out,
+                  n_inner, dict(max_depth=max_depth, width=width,
+                                sqrt_spp=sqrt_spp))
+    launches_fused_pos += 1
+    return (tuple(out.rec), None, out.seg) + tuple(out.state)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 // primitive table (spheres, quads, fused boxes), an optional externally
 // computed mesh hit folded in, face-forward flip, emission or background,
 // mixture light/cosine sampling with its pdf, and the metal reflection.
-// Shared by bounce_fused_q.cu (uniforms from its hash PRNG, no spheres or
-// metal in the scenes it accepts) and bounce.cu (uniforms and the mesh hit
-// from memory). Mirrors `_bounce_core_ref` in ops/bounce.py op for op.
+// Shared by the fused regen kernels (bounce_fused_q.cu, bounce_fused.cu,
+// bounce_fused_pos.cu: uniforms from the hash PRNG of fused_common.cuh, no
+// spheres or metal in the scenes they accept) and bounce.cu (uniforms and
+// the mesh hit from memory). Mirrors `_bounce_core_ref` in ops/bounce.py op for op.
 //
 // Table layouts (ops/bounce.py): primitive row = 13 geometry columns then
 // the material block (kind, even rgb, odd rgb, [fr]); light row = L_COLS.

@@ -32,12 +32,11 @@
 //
 // The bounce itself (closest hit, shading, sampling) is `bounce_core` in
 // bounce_core.cuh, shared with bounce.cu; its precision note applies here.
+// The PRNG and the camera ray generation are fused_common.cuh's, shared
+// with bounce_fused.cu and bounce_fused_pos.cu.
 
-#include "bounce_core.cuh"
+#include "fused_common.cuh"
 
-#define BLOCK 256
-#define NWARP (BLOCK / 32)
-#define N_U_RAYGEN 5
 #define SLOTS (N_U_RAYGEN + N_U)
 
 struct FusedQArgs {
@@ -60,22 +59,6 @@ struct FusedQArgs {
   int n_lights, n_lights_live;
   int n, n_inner, max_depth, width, sqrt_spp, npix;
 };
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// U[0,1) from (lane, seed, slot): bit for bit the TPU kernel's _u01_dyn.
-__device__ __forceinline__ float u01(uint32_t lane, uint32_t seed_mix,
-                                     uint32_t slot) {
-  uint32_t bits = mix32(lane ^ seed_mix ^ (slot * 0x632BE5ABu));
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-}
 
 __device__ __forceinline__ int block_sum(int v, int* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -165,20 +148,9 @@ fused_q_level(FusedQArgs a, int j) {
     const int pi = pixel - pj * a.width;
     const int si = stratum / a.sqrt_spp;
     const int sj = stratum - si * a.sqrt_spp;
-    const float recip = cam[18];
-    const float off_x = ((float)si + u01(ulane, seed_mix, slot0 + 0)) * recip - 0.5f;
-    const float off_y = ((float)sj + u01(ulane, seed_mix, slot0 + 1)) * recip - 0.5f;
-    const float px = (float)pi + off_x;
-    const float py = (float)pj + off_y;
-    const float sx = cam[0] + px * cam[3] + py * cam[6];
-    const float sy = cam[1] + px * cam[4] + py * cam[7];
-    const float sz = cam[2] + px * cam[5] + py * cam[8];
-    ox = cam[9];
-    oy = cam[10];
-    oz = cam[11];
-    dx = sx - ox;
-    dy = sy - oy;
-    dz = sz - oz;
+    camera_ray(cam, (float)pi, (float)pj, (float)si, (float)sj,
+               u01(ulane, seed_mix, slot0 + 0), u01(ulane, seed_mix, slot0 + 1), ox, oy,
+               oz, dx, dy, dz);
     tm = u01(ulane, seed_mix, slot0 + 4);
     alive = true;
     depth = 0;
@@ -190,20 +162,9 @@ fused_q_level(FusedQArgs a, int j) {
     float u[N_U];
 #pragma unroll
     for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + N_U_RAYGEN + k);
-    BounceTables T;
-    T.prims = a.prims;
-    T.lights = a.lights;
-    T.bg = a.bg;
-    T.p_cols = a.p_cols;
-    T.sph_base = 0;
-    T.n_sph = 0;
-    T.quad_base = a.quad_base;
-    T.n_quad = a.n_quad;
-    T.box_base = a.box_base;
-    T.n_box = a.n_box;
-    T.n_lights = a.n_lights;
-    T.n_lights_live = a.n_lights_live;
-    T.fr_col = -1;
+    const BounceTables T =
+        fused_tables(a.prims, a.lights, a.bg, a.p_cols, a.quad_base, a.n_quad, a.box_base,
+                     a.n_box, a.n_lights, a.n_lights_live);
     const BounceResult r = bounce_core(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr);
     vr = r.vr;
     vg = r.vg;

@@ -2,8 +2,8 @@
 recursion run backwards over the recorded levels, each started path's
 radiance landing in its accumulator slot.
 
-Counterpart of the JAX package's `ops/pallas/harvest.reverse_harvest_levels`
-plus the accumulator row scan of its regen window (`write_row_ik`).
+Counterpart of the JAX package's `ops/pallas/harvest.py` (both entry
+points) plus the accumulator row scans of its regen windows.
 
 * `harvest_levels_into(acc, ...)` is the main-path entry point. On a CUDA
   tensor it launches the hand-written kernel in `csrc/harvest.cu`, which
@@ -13,6 +13,13 @@ plus the accumulator row scan of its regen window (`write_row_ik`).
 * `reverse_harvest_levels_ref` keeps the JAX kernel's output, one
   compacted row of started-lane radiances per refill level, so the tests
   compare it row by row.
+
+* `reverse_harvest_into(acc, ...)` is the same for the `queue` schedule,
+  whose paths start only at inner level 0 of a refill row and whose started
+  flags arrive as planes of their own (`STs`), as the JAX kernel
+  `reverse_harvest` takes them. `csrc/harvest_rows.cu` ranks each row's
+  starts itself; the plain version is `reverse_harvest_ref` +
+  `write_rows_ref`.
 
 Record planes are level-major (S, N): level s of a window is row s, the
 (outer, cadence, N) layout of the JAX package flattened.
@@ -26,6 +33,10 @@ import torch
 
 # Launches of the CUDA kernel through `harvest_levels_into` (one per call).
 launches = 0
+# Launches of the CUDA kernel through `reverse_harvest_into` (one per call).
+launches_rows = 0
+# block size of csrc/harvest_rows.cu; the lane count must be a multiple
+ROWS_BLOCK = 256
 
 
 def reverse_harvest_levels_ref(Vr, Vg, Vb, FL, *, refill_levels,
@@ -41,25 +52,59 @@ def reverse_harvest_levels_ref(Vr, Vg, Vb, FL, *, refill_levels,
     rows = [torch.zeros((refill_levels, n), dtype=torch.float32, device=dev)
             for _ in range(3)]
     L = [torch.zeros(n, dtype=torch.float32, device=dev) for _ in range(3)]
-    zero = torch.zeros(n, dtype=torch.float32, device=dev)
     for s in reversed(range(s_run)):
         fl = FL[s]
-        emit = (fl & 2) != 0
-        raw = [torch.where(emit, V[s], V[s] * Lc)
-               for V, Lc in zip((Vr, Vg, Vb), L)]
-        tot = raw[0] + raw[1] + raw[2]
-        over = ((fl & 1) != 0) & (tot > max_contribution)
-        # a true division (`scalar / tensor` would multiply by the
-        # reciprocal and round twice)
-        scale = torch.where(over, torch.full_like(tot, max_contribution)
-                            / torch.where(over, tot, 1.0), 1.0)
-        L = [r * scale for r in raw]
+        L = _clamp_step((Vr[s], Vg[s], Vb[s]), fl, L, max_contribution)
         if s < refill_levels:
-            started = (fl & 4) != 0
-            k = int(started.sum())
-            for row, Lc in zip(rows, L):
-                row[s, :k] = Lc[started]
-            L = [torch.where(started, zero, Lc) for Lc in L]
+            L = _pull_started((fl & 4) != 0, rows, s, L)
+    return tuple(rows)
+
+
+def _clamp_step(V, fl, L, max_contribution):
+    """One level of the recursion, per channel: L' = clamp?(emit ? V : V*L)
+    (camera.go:330-341); a NaN sum compares false and passes unclamped."""
+    emit = (fl & 2) != 0
+    raw = [torch.where(emit, Vc, Vc * Lc) for Vc, Lc in zip(V, L)]
+    tot = raw[0] + raw[1] + raw[2]
+    over = ((fl & 1) != 0) & (tot > max_contribution)
+    # a true division (`scalar / tensor` would multiply by the
+    # reciprocal and round twice)
+    scale = torch.where(over, torch.full_like(tot, max_contribution)
+                        / torch.where(over, tot, 1.0), 1.0)
+    return [r * scale for r in raw]
+
+
+def _pull_started(started, rows, r, L):
+    """Pack the started lanes' finished radiances to the front of row `r`
+    in lane order, and reset those lanes' recursion."""
+    k = int(started.sum())
+    for row, Lc in zip(rows, L):
+        row[r, :k] = Lc[started]
+    return [torch.where(started, torch.zeros_like(Lc), Lc) for Lc in L]
+
+
+def reverse_harvest_ref(Vr, Vg, Vb, FL, STs, *, cadence, refill_outer,
+                        max_contribution):
+    """Plain PyTorch version of the JAX kernel `reverse_harvest`: records
+    Vr/Vg/Vb (float32) and FL (int32, bit0 clamp, bit1 emit) of shape
+    (outer, cadence, N), started flags STs (outer, N) int32 of which only
+    the first `refill_outer` rows can hold starts. Returns (hr, hg, hb),
+    each (refill_outer, N) float32: row r holds the radiances of the paths
+    that started at inner level 0 of outer row r, packed to the row front
+    in lane order (zeros after)."""
+    outer, cad, n = Vr.shape
+    if cad != cadence:
+        raise ValueError(f"records have cadence {cad}, not {cadence}")
+    dev = Vr.device
+    rows = [torch.zeros((refill_outer, n), dtype=torch.float32, device=dev)
+            for _ in range(3)]
+    L = [torch.zeros(n, dtype=torch.float32, device=dev) for _ in range(3)]
+    for r in reversed(range(outer)):
+        for j in reversed(range(cadence)):
+            L = _clamp_step((Vr[r, j], Vg[r, j], Vb[r, j]), FL[r, j], L,
+                            max_contribution)
+        if r < refill_outer:
+            L = _pull_started(STs[r] != 0, rows, r, L)
     return tuple(rows)
 
 
@@ -129,4 +174,70 @@ def harvest_levels_into(acc, Vr, Vg, Vb, FL, bases, *, item_base, s_run,
     if err:
         raise RuntimeError(f"harvest launch failed: {_cuda.error_string(err)}")
     launches += 1
+    return acc
+
+
+class _HarvestRowsArgs(ctypes.Structure):
+    """Mirror of `HarvestRowsArgs` in csrc/harvest_rows.cu (field for
+    field)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "vr", "vg", "vb", "fl", "sts", "nis", "acc", "cnt")] + [
+        ("item_base", ctypes.c_longlong), ("n", ctypes.c_int),
+        ("outer", ctypes.c_int), ("cadence", ctypes.c_int),
+        ("refill_outer", ctypes.c_int), ("max_contribution", ctypes.c_float)]
+
+
+def reverse_harvest_into(acc, Vr, Vg, Vb, FL, STs, NIs, *, item_base, cadence,
+                         refill_outer, max_contribution):
+    """Harvest a `queue` window into `acc` ((rows, 3) float32, in place):
+    every path started at inner level 0 of an outer row r < refill_outer
+    writes its radiance to acc[NIs[r] - item_base + rank], its rank among
+    the row's starts in lane order. Records Vr/Vg/Vb float32 and FL int32,
+    (outer, cadence, N), as `bounce_fused` writes them; STs: int32
+    (>= refill_outer, N) started flags; NIs: int32 (>= refill_outer,), each
+    row's first item.
+
+    On a CUDA tensor the kernel ranks the starts itself and writes only
+    real starts, each once. The plain version (`reverse_harvest_ref` +
+    `write_rows_ref`) also writes each row's zero tail, which later rows
+    overwrite; rows of acc past the window's last started item so hold
+    zeros there and are left as they were by the kernel. Everything before
+    is identical."""
+    global launches_rows
+    if not acc.is_cuda:
+        rows = reverse_harvest_ref(
+            Vr, Vg, Vb, FL, STs, cadence=cadence, refill_outer=refill_outer,
+            max_contribution=max_contribution)
+        return write_rows_ref(acc, rows, NIs, item_base=item_base,
+                              n_rows=refill_outer)
+    from go_raytracer_tpu_torch.ops import _cuda
+
+    outer, cad, n = Vr.shape
+    for name, t, dt in (("Vr", Vr, torch.float32), ("Vg", Vg, torch.float32),
+                        ("Vb", Vb, torch.float32), ("FL", FL, torch.int32),
+                        ("STs", STs, torch.int32), ("NIs", NIs, torch.int32),
+                        ("acc", acc, torch.float32)):
+        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: needs a contiguous CUDA {dt} tensor")
+    if cad != cadence or n % ROWS_BLOCK or refill_outer > outer \
+            or any(t.shape != Vr.shape for t in (Vg, Vb, FL)) \
+            or STs.dim() != 2 or STs.shape[0] < refill_outer \
+            or STs.shape[1] != n or NIs.shape[0] < refill_outer \
+            or acc.dim() != 2 or acc.shape[1] != 3:
+        raise ValueError("reverse_harvest_into: inconsistent shapes")
+    cnt = torch.empty(max(refill_outer, 1) * (n // ROWS_BLOCK),
+                      dtype=torch.int32, device=acc.device)
+    a = _HarvestRowsArgs(
+        vr=Vr.data_ptr(), vg=Vg.data_ptr(), vb=Vb.data_ptr(),
+        fl=FL.data_ptr(), sts=STs.data_ptr(), nis=NIs.data_ptr(),
+        acc=acc.data_ptr(), cnt=cnt.data_ptr(), item_base=item_base, n=n,
+        outer=outer, cadence=cadence, refill_outer=refill_outer,
+        max_contribution=max_contribution)
+    err = _cuda.library("harvest_rows").grt_harvest_rows(
+        ctypes.addressof(a), torch.cuda.current_stream(acc.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"harvest_rows launch failed: {_cuda.error_string(err)}")
+    launches_rows += 1
     return acc

@@ -48,6 +48,24 @@ def test_render_ppm_and_stats(tmp_path):
     assert vals.min() >= 0 and vals.max() <= 255
 
 
+import pytest
+
+
+@pytest.mark.parametrize("schedule", ["queue", "positional"])
+def test_schedule_flag_reaches_render_regen(tmp_path, schedule):
+    """`--schedule queue|positional` render cornellBox on that schedule."""
+    out = tmp_path / f"{schedule}.ppm"
+    r = run_cli(["-S", "6", "-o", str(out), "--cpu", "--schedule", schedule,
+                 "--width", "24", "--spp", "4", "--max-depth", "3",
+                 "--lanes", "2048", "--stats", "--quiet"])
+    assert r.returncode == 0, r.stderr[-2000:]
+    stats = json.loads(r.stdout.strip().splitlines()[-1])
+    assert stats["schedule"] == schedule and stats["device"] == "cpu"
+    assert stats["paths"] == 24 * 24 * 4 <= stats["segments"]
+    assert stats["nonfinite"] == 0
+    assert out.read_text().split()[:4] == ["P3", "24", "24", "255"]
+
+
 def test_seed_reproducibility(tmp_path):
     """Same --seed: the same image bit for bit; another seed: not."""
     outs = []
@@ -72,7 +90,8 @@ def test_without_gpu_and_without_cpu_flag_fails_clearly(tmp_path):
 def test_unported_paths_exit_2(tmp_path):
     """Flags kept for parity but naming unported paths exit 2 with a
     message, and so do scenes outside the kernel's subset."""
-    for extra in (["--integrator", "wavefront"], ["--schedule", "queue"],
+    for extra in (["--integrator", "wavefront"],
+                  ["-S", "8", "--schedule", "positional"],
                   ["-S", "3"], ["-S", "7"],
                   ["-S", "8", "--schedule", "queue_ik"]):
         r = run_cli(["-o", str(tmp_path / "x.ppm"), "--cpu", "--width", "8",

@@ -310,3 +310,162 @@ def test_scene8_render_on_kernels(cuda, scene8):
     assert abs(st_k["segments"] - st_p["segments"]) < 0.04 * st_p["segments"]
     np.testing.assert_allclose(img_k.mean(axis=(0, 1)),
                                img_p.mean(axis=(0, 1)), atol=0.03)
+
+
+# ---------------------------------------------------------------------------
+# the `queue` and `positional` schedules' kernels (cornellBox tables)
+# ---------------------------------------------------------------------------
+
+def _queue_refill(state, next_item, item_end):
+    """The refill planes of one real queue refill of `state`."""
+    return regen.queue_refill_planes(
+        torch.tensor(next_item, device=state[7].device), state[7], item_end,
+        width=600, npix=360000, sqrt_spp=10)
+
+
+def _fused_close(k, p, frac=MISMATCH_FRAC):
+    """Outputs of one fused call, kernel against plain version: the alive
+    count of level 0 is exact (it depends on the inputs only); flags,
+    records and the alive lanes' rays agree within rtol = atol = 2e-3 on
+    all but `frac` of the lanes. Returns the lanes that did not flip: equal
+    integer records at every level and equal alive at the end. On those
+    the time and depth planes are exact."""
+    krec, _, kseg, *kst = k
+    prec, _, pseg, *pst = p
+    assert kseg[0].item() == pseg[0].item()
+    assert ((kseg - pseg).abs() <= frac * kst[0].numel()).all()
+    noflip = kst[7] == pst[7]
+    assert (~noflip).float().mean() <= frac
+    for a, b in zip(krec, prec):
+        if a.dtype == torch.int32:
+            assert (a != b).float().mean() <= frac
+            noflip &= (a == b).all(dim=0)
+        else:
+            off = ~torch.isclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
+            assert off.float().mean() <= frac
+    alive = (kst[7] > 0) & (pst[7] > 0)
+    for a, b in zip(kst[:6], pst[:6]):
+        off = ~torch.isclose(a[alive], b[alive], rtol=RTOL, atol=ATOL)
+        assert off.float().mean() <= frac
+    assert (~noflip).float().mean() <= frac
+    assert torch.equal(kst[6][noflip], pst[6][noflip])
+    assert torch.equal(kst[8][noflip], pst[8][noflip])
+    return noflip
+
+
+def test_bounce_fused_kernel_matches_plain(cuda):
+    """K6 at 512 blocks, 8 levels, the refill planes of a real refill that
+    runs out of items before the last dead lane."""
+    n, n_inner = 512 * bounce.BLOCK, 8
+    scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n)
+    n_dead = int((state[7] == 0).sum())
+    refill = _queue_refill(state, 1000, 1000 + n_dead - 100)
+    assert int(refill[0].sum()) == n_dead - 100
+    seed = torch.tensor([-123456789], dtype=torch.int32, device=cuda)
+    kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner)
+    before = bounce.launches_fused
+    k = bounce.bounce_fused(tables, st, cam_row, bg, seed, *state, *refill,
+                            **kw)
+    torch.cuda.synchronize()
+    assert bounce.launches_fused == before + 1
+    p = bounce.bounce_fused_ref(tables, st, cam_row, bg, seed, *state,
+                                *refill, **kw)
+    _fused_close(k, p)
+    assert k[2][0].item() == n - 100
+    # in place: the state planes may be the outputs
+    st2 = [s.clone() for s in state]
+    out = bounce.FusedOut.empty(n, n_inner, cuda)
+    out.state = st2
+    bounce.bounce_fused(tables, st, cam_row, bg, seed, *st2, *refill,
+                        out=out, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(st2, k[3:]))
+    assert all(torch.equal(a, b) for a, b in zip(out.rec, k[0]))
+
+
+def test_bounce_fused_pos_kernel_matches_plain(cuda):
+    """K8 at 512 blocks, 8 levels, `rem` mixed (zero, one, many), pointers
+    near every carry, the refill cut after level 5: the pointer planes are
+    exact on every lane that did not flip."""
+    n, n_inner, width, sq = 512 * bounce.BLOCK, 8, 600, 10
+    scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n, seed=2)
+    rs = np.random.default_rng(3)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
+    ptr = [to(rs.choice([0, 7, width - 1], n)), to(rs.integers(0, 500, n)),
+           to(rs.choice([0, sq - 1], n)), to(rs.choice([0, 3, sq - 1], n)),
+           to(rs.choice([0, 1, 2, 300], n))]
+    seed2 = torch.tensor([24680, 5], dtype=torch.int32, device=cuda)
+    kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner, width=width,
+              sqrt_spp=sq)
+    before = bounce.launches_fused_pos
+    k = bounce.bounce_fused_pos(tables, st, cam_row, bg, seed2, *state, *ptr,
+                                **kw)
+    torch.cuda.synchronize()
+    assert bounce.launches_fused_pos == before + 1
+    p = bounce.bounce_fused_pos_ref(tables, st, cam_row, bg, seed2, *state,
+                                    *ptr, **kw)
+    noflip = _fused_close(k, p)
+    for a, b in zip(k[3 + 9:], p[3 + 9:]):
+        assert torch.equal(a[noflip], b[noflip])
+    ST = k[0][7]
+    assert torch.equal(ST[0], p[0][7][0])
+    assert not ST[5:].any() and ST[:5].any(dim=1).all()
+    assert torch.equal(ST.sum(dim=0).float(), ptr[4] - k[3 + 13])
+
+
+@pytest.mark.parametrize("schedule", ["queue", "positional"])
+def test_schedule_window_kernels_match_plain(cuda, schedule):
+    """One window of each schedule on the kernels, then the window's
+    epilogue repeated with the plain versions on the kernels' records: for
+    `queue`, K7 against `reverse_harvest_ref` + `write_rows_ref` (bit for
+    bit, every started item written once and nothing else); for
+    `positional`, exact accounting of the starts."""
+    n, cad, depth = 64 * bounce.BLOCK, 4, 6
+    scene, cam, tables, st, cam_row, bg, _ = _cornell(cuda, n)
+    npix, sq, width = 360000, 10, 600
+    total = 5 * n
+    refill, window = 12, 20
+    seeds = regen.window_seeds(5, 0, window // cad).to(cuda)
+    kw = dict(width=width, sqrt_spp=sq, window=window, refill=refill,
+              cadence=cad, max_depth=depth,
+              max_contribution=cam.max_contribution)
+    if schedule == "queue":
+        bufs = regen.SchedBuffers.empty(n, window // cad, cad, cuda, 3)
+        acc = torch.full((total + n, 3), float("nan"), device=cuda)
+        before = (bounce.launches_fused, harvest.launches_rows)
+        _, _, cur = regen._queue_window(
+            tables, st, cam_row, bg, acc, regen._init_state(n, cuda),
+            torch.tensor(0, device=cuda), seeds, 0, total, npix=npix,
+            bufs=bufs, **kw)
+        torch.cuda.synchronize()
+        assert bounce.launches_fused == before[0] + window // cad
+        assert harvest.launches_rows == before[1] + 1
+        nxt = int(cur[0])
+        counts = bufs.sts.sum(dim=1)
+        nis = bufs.nis.tolist()
+        assert nis[0] == 0 and nxt == nis[-1] + int(counts[-1]) \
+            and all(nis[r + 1] == nis[r] + int(counts[r]) for r in range(2))
+        rows = harvest.reverse_harvest_ref(
+            *(r.view(window // cad, cad, n) for r in bufs.rec), bufs.sts,
+            cadence=cad, refill_outer=3,
+            max_contribution=cam.max_contribution)
+        acc_p = torch.full_like(acc, float("nan"))
+        harvest.write_rows_ref(acc_p, rows, bufs.nis, item_base=0, n_rows=3)
+        assert not torch.isnan(acc[:nxt]).any()
+        assert torch.equal(acc[:nxt], acc_p[:nxt])
+        assert torch.isnan(acc[nxt:]).all()
+    else:
+        quota, lane_base, first_pix, G = regen.pos_tables(npix, 1, n)
+        state = regen._init_state_pos(n, cuda, quota, lane_base, 1, width)
+        B = torch.zeros((3, G, n), device=cuda)
+        before = bounce.launches_fused_pos
+        _, state, cur = regen._pos_window(
+            tables, st, cam_row, bg, B, state,
+            torch.from_numpy(quota).to(cuda),
+            torch.from_numpy(first_pix.astype(np.float32)).to(cuda), seeds,
+            G=G, **kw)
+        torch.cuda.synchronize()
+        assert bounce.launches_fused_pos == before + window // cad
+        started = int(cur[0])
+        k = regen._pos_state_k(state, quota)
+        assert started == int(k.sum()) > n and (k <= quota).all()
+        assert torch.isfinite(B).all() and float(B.sum()) > 0

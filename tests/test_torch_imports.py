@@ -74,8 +74,10 @@ def test_every_cuda_source_is_registered_and_bound():
         note = " ".join(text.replace("//", " ").split())
         assert "Replaces the Pallas TPU kernel" in note, name
         assert "What bounds it" in note, name
-    for mod, counters in (("bounce", ("launches", "launches_bounce")),
-                          ("harvest", ("launches",)), ("stream", ("launches",)),
+    for mod, counters in (("bounce", ("launches", "launches_bounce",
+                                      "launches_fused", "launches_fused_pos")),
+                          ("harvest", ("launches", "launches_rows")),
+                          ("stream", ("launches",)),
                           ("traverse8", ("launches",))):
         m = importlib.import_module(f"go_raytracer_tpu_torch.ops.{mod}")
         assert all(getattr(m, c) == 0 for c in counters), mod

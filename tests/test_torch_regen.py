@@ -174,22 +174,43 @@ def test_checkpoint_resume_bit_exact(tmp_path, monkeypatch):
 
 
 def test_no_silent_fallbacks(monkeypatch):
-    """No GPU and no CPU request: a clear error. Unported schedules,
-    scenes outside the kernel's subset and defocus raise."""
+    """No GPU and no CPU request: a clear error, on every schedule.
+    Unported schedules, scenes outside the kernels' subset and defocus
+    raise; and a wrapper handed a CUDA tensor goes for its kernel (here,
+    with no card, it fails) instead of taking its plain version."""
     scene, cam = registry.cornell_box()
     cam.width, cam.samples_per_pixel = 8, 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        regen.render_regen(scene, cam, n_lanes=256)
+    for schedule in ("auto", "queue", "positional"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            regen.render_regen(scene, cam, n_lanes=256, schedule=schedule)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            regen.render_regen(scene, cam, n_lanes=256, schedule=schedule,
+                               device="cuda")
     with pytest.raises(NotImplementedError):
-        regen.render_regen(scene, cam, n_lanes=256, schedule="queue",
+        regen.render_regen(scene, cam, n_lanes=256, schedule="reorder",
                            device="cpu")
     with pytest.raises(NotImplementedError):
-        regen.render_regen(registry.book3()[0], cam, n_lanes=256,
-                           device="cpu")
+        regen.render_regen(registry.model_example()[0], cam, n_lanes=256,
+                           schedule="positional", device="cpu")
+    for schedule in ("auto", "queue", "positional"):
+        with pytest.raises(NotImplementedError):
+            regen.render_regen(registry.book3()[0], cam, n_lanes=256,
+                               schedule=schedule, device="cpu")
     cam.defocus_angle = 0.5
-    with pytest.raises(NotImplementedError, match="defocus"):
-        regen.render_regen(scene, cam, n_lanes=256, device="cpu")
+    for schedule in ("auto", "queue", "positional"):
+        with pytest.raises(NotImplementedError, match="defocus"):
+            regen.render_regen(scene, cam, n_lanes=256, schedule=schedule,
+                               device="cpu")
+    # no wrapper catches a failed build or launch to take its plain
+    # version: the only way to it is the tensor's own `is_cuda` test
+    import inspect
+    from go_raytracer_tpu_torch.ops import harvest as tph
+    for fn in (tpb.bounce_fused_q, tpb.bounce_fused, tpb.bounce_fused_pos,
+               tpb.bounce, tph.harvest_levels_into, tph.reverse_harvest_into):
+        src = inspect.getsource(fn)
+        assert "is_cuda" in src and "try:" not in src \
+            and "except" not in src, fn.__name__
 
 
 def test_window_seeds_are_keyed_by_seed_and_window():
