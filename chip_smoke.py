@@ -46,8 +46,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
      registry configuration (250 spp = 225 strata), so that K5 runs on a
      main path at full width;
  11. timings of K3-K5 at those shapes with their bounds, rounds and host
-     reads per level, and the device's busy share of a scene-8 render
-     under torch.profiler;
+     reads per level, and the device's busy share of a scene-8 render at 1
+     spp under torch.profiler;
  12. K6 `bounce_fused` against its plain version (cornellBox tables,
      131072 lanes, 8 levels, a mixed alive/depth state, the take plane of
      a real refill), and K8 `bounce_fused_pos` likewise with `rem` mixed
@@ -63,8 +63,28 @@ Phases (any failure exits non-zero; nothing is swallowed):
      and `--schedule positional` at full width, held to the gates of the
      `queue_ik` flagship of phase 5 and to its image;
  16. timings of K6, K7 and K8 at the flagship's shapes with their bounds,
-     and each schedule's device time by kernel under torch.profiler;
-then the `kernels` JSON line (K1-K8), the nvidia-smi line, and the final
+     and each schedule's device time by kernel under torch.profiler
+     (cornellBox at 25 spp);
+ 17. K9 `bounce_fused_q_direct` against K1 on the same inputs (bit for
+     bit, rows outside its levels untouched) and against its plain
+     version with K1's tolerances; one flagship window through K1 and
+     through K9 (bit for bit); the cornellBox flagship through `cli.main
+     --direct-rec`, held to phase 5's gates and to its segments;
+ 18. at phase 7's scene-8 level: K10 `stream_round_rows` on every round of
+     one fused `binned_closest` against its plain version (t, idx, key,
+     bits bit for bit) and the fused route against the unfused one (the
+     same rounds, bit-equal results); K11 `stream2_rows` and K12
+     `bvh_closest` against their plain versions (idx equal, t bit for
+     bit); the five routes' winners against K5's, every lane where two
+     differ printed;
+ 19. renders through `cli.main`, launch counts read around each: the
+     slice's main path `-S 8 --mesh binned2` (K11 once per level, no K4),
+     `--b1-fused` and `--mesh walk --no-traverse8`, all three CUT to 25 spp
+     (5x5 strata, the full frame) and held to phase 10's 25-spp walk
+     render (uncut, the binned2 render took 68.0 s; PERF.md);
+ 20. timings of K9-K12 at those shapes with their bounds, and the device's
+     busy share of a 4-spp binned2 render under torch.profiler;
+then the `kernels` JSON line (K1-K12), the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -269,6 +289,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi_line()
+    t_start = time.perf_counter()
+
+    def phase_start(k):
+        print(f"[{k}] starts at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 1. environment and build --------------------------------------
     print(f"[1] python {sys.version.split()[0]}  torch {torch.__version__}  "
@@ -288,6 +312,7 @@ def main():
             print(f"[1] {os.path.basename(log)}: " + " | ".join(regs))
 
     # ---- 2. K1 against its plain version -------------------------------
+    phase_start(2)
     # (a) starts at level 0 only: every lane's path is then its own, and
     #     per-lane mismatches stay local;
     # (b) refill at every level: one lane that branches the other way
@@ -358,6 +383,7 @@ def main():
           f"K1: alive counts {seg_k} vs {seg_p}")
 
     # ---- 3. K2 against its plain version -------------------------------
+    phase_start(3)
     base0 = int(k_out.base[0])
     end = int(k_out.cursor[0])
     rows = end - base0 + n
@@ -377,6 +403,7 @@ def main():
     check(k2_err == 0.0, "K2: accumulator differs from the plain version")
 
     # ---- 4. exact accounting, and kernels vs plain on a small render ---
+    phase_start(4)
     def quad_scene(bg_):
         b = SceneBuilder(background=bg_)
         m = b.lambertian((0.5, 0.5, 0.5))
@@ -414,6 +441,7 @@ def main():
           and pix_mis < 0.05, "kernels vs plain render disagree")
 
     # ---- 5. the flagship through the CLI -------------------------------
+    phase_start(5)
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
@@ -427,6 +455,7 @@ def main():
     k1_launches, k2_launches = bounce.launches, harvest.launches
     check(rc == 0, f"cli.main returned {rc}")
     stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    flag5 = stats
     ratio = stats["segments"] / stats["paths"]
     print(f"[5] flagship cornellBox 600x600 100spp depth 50, 131072 lanes on "
           f"{card}: paths {stats['paths']}, segments {stats['segments']} "
@@ -466,6 +495,7 @@ def main():
         print("[5] profiler reported no device time: busy share not measured")
 
     # ---- 6. timings at the flagship's shapes ---------------------------
+    phase_start(6)
     n = 1 << 17
     scene, cam, tables, statics, cam_row, bg, _ = cornell_inputs(dev, n)
     n_inner = cam.regen_cadence
@@ -579,7 +609,9 @@ def main():
 
 
     # ---- 7. K4 and K5 against their plain versions at scene 8's shapes --
-    from go_raytracer_tpu_torch.ops import intersect, stream, trace, traverse8
+    phase_start(7)
+    from go_raytracer_tpu_torch.ops import intersect, stream, stream2, trace
+    from go_raytracer_tpu_torch.ops import traverse, traverse8
     from go_raytracer_tpu_torch.scenes import registry as reg8
 
     scene8, cam8 = reg8.model_example()
@@ -604,6 +636,7 @@ def main():
     u8 = torch.rand((n8, 9), generator=gen, dtype=torch.float32, device=dev)
     cap8 = intersect.sphere_ts(ms.spheres, o8, d8, t8, 1e-3,
                                float("inf")).amin(dim=1)
+    rays8 = (o8, d8)      # kept for phase 18 (phase 16 reuses the names)
     n_alive8 = int(alive8.sum())
     n_capped8 = int((torch.isfinite(cap8) & alive8).sum())
     print(f"[7] scene 8 level: {n8} lanes, {n_alive8} alive, {n_capped8} "
@@ -679,6 +712,7 @@ def main():
           "mesh_closest disagrees with the plain skip-link walk")
 
     # ---- 8. K3 against its plain version on that level -----------------
+    phase_start(8)
     ext8 = bounce.mesh_ext_planes(ms, ctx.statics, ctx.tri_mat, o8, d8, cap8,
                                   alive8)
     k3 = bounce.bounce(ctx.tables, ctx.statics, o8, d8, t8, alive8, u8,
@@ -713,11 +747,14 @@ def main():
           "K3: a dead lane shades or goes on")
 
     # ---- 9. a small scene-8 render: kernels against plain versions ------
+    phase_start(9)
     def reset_counts():
         bounce.launches = bounce.launches_bounce = 0
         bounce.launches_fused = bounce.launches_fused_pos = 0
+        bounce.launches_direct = 0
         harvest.launches = harvest.launches_rows = 0
         stream.launches = traverse8.launches = 0
+        stream.launches_round = stream2.launches = traverse.launches = 0
 
     # 32,768 lanes hold all 20,736 paths at once, so every path keeps its
     # lane and its random numbers in both renders, and a lane that K3's
@@ -752,6 +789,7 @@ def main():
           "more than 5% of the pixels by more than 1e-3")
 
     # ---- 10. one flagship window, then the flagship through the CLI -----
+    phase_start(10)
     # The mesh path's start ranks (FL bits 3..) and per-level bases come
     # from `refill_assign`'s cumulative sum, not from K1, and most starts
     # happen after level 0: record one window as the flagship runs it and
@@ -901,6 +939,7 @@ def main():
           f"{small_ratio}")
 
     # ---- 11. timings of K3-K5, and the busy share of a scene-8 render --
+    phase_start(11)
     k4_ms = time_ms(lambda: real_stream_rows(*k4_args), 20)
     k4_plain_ms = time_ms(lambda: stream.stream_rows_ref(*k4_args), 1, warmup=0)
     k4_bytes = bvh.cl_lines.numel() * 4 + n8 * (8 * 4 + 8) + 8 * (n8 // stream.BLOCK)
@@ -940,9 +979,11 @@ def main():
           f"ms ({k5_by}); one binned_closest {binned_ms:.3f} ms "
           f"({counters7['rounds']} rounds), one walk-route mesh_closest "
           f"{walk_ms:.3f} ms")
-    # device busy share: a one-window render (4 spp) under the profiler
+    # device busy share: a one-window render under the profiler, CUT to
+    # 1 spp for the script's time (the profile's post-processing grows with
+    # the binned route's ~40 launches per round)
     sc8, cm8 = reg8.model_example()
-    cm8.samples_per_pixel = 4
+    cm8.samples_per_pixel = 1
     _, ust = regen.render_regen(sc8, cm8, seed=5, device=dev)
     with torch.profiler.profile(activities=acts) as prof8:
         _, pst8 = regen.render_regen(sc8, cm8, seed=5, device=dev)
@@ -960,7 +1001,7 @@ def main():
               f"{per('stream_rows_kernel', pst8['mesh']['rounds']):.5f}, K2 "
               f"harvest_levels {per('harvest_levels', pst8['windows']):.5f}")
         top8 = sorted(dev_us8.items(), key=lambda kv: -kv[1])[:8]
-        print(f"[11] scene 8 at 4 spp ({pst8['levels']} levels): render loop "
+        print(f"[11] scene 8 at 1 spp ({pst8['levels']} levels): render loop "
               f"{ust['elapsed_s']:.3f} s unprofiled, {pst8['elapsed_s']:.3f} s"
               f" under the profiler; device busy {all_us / 1e6:.3f} s = "
               f"{all_us / 1e6 / pst8['elapsed_s']:.3f} of the profiled loop "
@@ -972,6 +1013,7 @@ def main():
         print("[11] profiler reported no device time: busy share not measured")
 
     # ---- 12. K6 and K8 against their plain versions ---------------------
+    phase_start(12)
     n, n_inner = 1 << 17, 8
     scene, cam, tables, statics, cam_row, bg, state = cornell_inputs(dev, n)
     fkw = dict(has_defocus=False, max_depth=50, n_inner=n_inner)
@@ -1066,6 +1108,7 @@ def main():
           f"{int(noflip8.sum())} lanes that did not flip")
 
     # ---- 13. K7 on one real flagship queue window -----------------------
+    phase_start(13)
     _, fcam6 = registry.cornell_box()
     d1 = fcam6.max_depth + 1
     total = npix * 100
@@ -1129,6 +1172,7 @@ def main():
     del acc_k, acc_p, acc_t, q_rec, qbufs
 
     # ---- 14. exact accounting through K6/K7 and K8 ----------------------
+    phase_start(14)
     for sched in ("queue", "positional"):
         reset_counts()
         c = Camera(width=32, aspect_ratio=1.0, samples_per_pixel=9,
@@ -1159,6 +1203,7 @@ def main():
               f"({st['windows']} windows)")
 
     # ---- 15. the two flagships through the CLI --------------------------
+    phase_start(15)
     ik_means = ppm_channel_means(os.path.join(out_dir,
                                               "cornellBox_flagship.ppm"))
     flag = {}
@@ -1206,6 +1251,7 @@ def main():
           "positional flagship: K8 launches do not match its calls")
 
     # ---- 16. timings of K6 and K8, and the schedules' device time -------
+    phase_start(16)
     # steady state: a few refilled calls age the pool
     st6 = regen._init_state(n, dev)
     o6 = bounce.FusedOut.empty(n, n_inner, dev)
@@ -1263,11 +1309,16 @@ def main():
           f"{starts8} starts, G = {G} pixel slots per lane): kernel "
           f"{k8_ms:.4f} ms, plain {k8_plain_ms:.3f} ms, bound {k8_bound:.4f} "
           f"ms ({k8_by}) on {card}")
+    # profiled at 25 spp (the flagship's 100 CUT for the script's time: the
+    # profile's post-processing grows with the positional reverse scan's
+    # ~10,000 launches per window)
+    pcam = registry.cornell_box()[1]
+    pcam.samples_per_pixel = 25
     for sched, own in (("queue", ("bounce_fused_levels", "count_starts",
                                   "scan_counts", "harvest_rows")),
                        ("positional", ("bounce_fused_pos_levels",))):
         with torch.profiler.profile(activities=acts) as prof_s:
-            _, pst = regen.render_regen(fscene, fcam, seed=4, schedule=sched,
+            _, pst = regen.render_regen(fscene, pcam, seed=4, schedule=sched,
                                         device=dev)
         us = device_times(prof_s)
         if not us:
@@ -1277,9 +1328,10 @@ def main():
         own_us = {k: sum(v for kk, v in us.items() if kk.startswith(k))
                   for k in own}
         top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
-        print(f"[16] {sched} flagship under the profiler (seed 4): loop "
-              f"{pst['elapsed_s']:.4f} s ({flag[sched]['elapsed_s']:.4f} s "
-              f"unprofiled), windows {pst['windows']}; device busy "
+        print(f"[16] {sched}, cornellBox at 25 spp under the profiler (seed "
+              f"4): loop {pst['elapsed_s']:.4f} s (the 100-spp flagship "
+              f"{flag[sched]['elapsed_s']:.4f} s unprofiled), windows "
+              f"{pst['windows']}; device busy "
               f"{sum(us.values()) / 1e6:.4f} s (incl. set-up and readback); "
               f"the port's kernels, ms (total / per wrapper call): "
               + ", ".join(
@@ -1288,6 +1340,392 @@ def main():
                   for k, v in own_us.items())
               + "; top device events, ms: " + ", ".join(
                   f"{k[:44]} {v / 1e3:.2f}" for k, v in top))
+
+    # ---- 17. K9: the direct-record queue --------------------------------
+    phase_start(17)
+    n, n_inner = 1 << 17, 8
+    _, _, tables, statics, cam_row, bg, state = cornell_inputs(dev, n)
+    kw17 = dict(has_defocus=False, max_depth=50, n_inner=n_inner, width=600,
+                sqrt_spp=10, npix=npix)
+    seed17 = torch.tensor([-123456789, 1, 1000, npix * 100],
+                          dtype=torch.int32, device=dev)
+    base17, rows17 = 5, 24
+    base17_dev = torch.tensor([base17], dtype=torch.int32, device=dev)
+    lv17 = slice(base17, base17 + n_inner)
+
+    def marked_bufs():
+        return [torch.full((rows17, n), -7.5, device=dev) for _ in range(3)] \
+            + [torch.full((rows17, n), -9, dtype=torch.int32, device=dev)]
+
+    kb17, k9o = marked_bufs(), bounce.FusedQOut.empty(n, n_inner, dev)
+    bounce.launches_direct = 0
+    bounce.bounce_fused_q_direct(tables, statics, cam_row, bg, seed17,
+                                 base17_dev, kb17, *state, out=k9o, **kw17)
+    k1o = bounce.FusedQOut.empty(n, n_inner, dev)
+    bounce.bounce_fused_q(tables, statics, cam_row, bg, seed17, *state,
+                          out=k1o, **kw17)
+    torch.cuda.synchronize()
+    check(bounce.launches_direct == 1, "K9 was not launched once")
+    untouched = all(bool((b[:base17] == b[0, 0]).all())
+                    and bool((b[base17 + n_inner:] == b[0, 0]).all())
+                    for b in kb17)
+    same17 = all(torch.equal(b[lv17], r) for b, r in zip(kb17, k1o.rec)) \
+        and all(torch.equal(getattr(k9o, f), getattr(k1o, f))
+                for f in ("seg", "take", "base", "cursor")) \
+        and all(torch.equal(a, b) for a, b in zip(k9o.state, k1o.state))
+    check(untouched and same17, "K9 differs from K1 on the same inputs, or "
+          "wrote outside its rows")
+    pb17, p9o = marked_bufs(), bounce.FusedQOut.empty(n, n_inner, dev)
+    bounce.bounce_fused_q_direct_ref(tables, statics, cam_row, bg, seed17,
+                                     base17_dev, pb17, *state, out=p9o,
+                                     **kw17)
+    fl_k, fl_p = kb17[3][lv17], pb17[3][lv17]
+    check(torch.equal(fl_k[0] & 4, fl_p[0] & 4)
+          and torch.equal(fl_k[0] >> 3, fl_p[0] >> 3)
+          and k9o.take[0].item() == p9o.take[0].item(),
+          "K9: level-0 starts, their ranks or the take count differ")
+    fl_mis9 = ((fl_k & 7) != (fl_p & 7)).float().mean().item()
+    close9 = torch.ones_like(fl_k, dtype=torch.bool)
+    for a, b in zip(kb17[:3], pb17[:3]):
+        close9 &= torch.isclose(a[lv17], b[lv17], rtol=K1_RTOL, atol=K1_ATOL,
+                                equal_nan=True)
+    v_mis9 = (~close9).float().mean().item()
+    agree9 = fl_k[0] == fl_p[0]
+    k9_err = max((a[base17] - b[base17])[agree9].abs().max().item()
+                 for a, b in zip(kb17[:3], pb17[:3]))
+    print(f"[17] K9 at {n} lanes x {n_inner} levels, rows {base17}.."
+          f"{base17 + n_inner - 1} of a {rows17}-row buffer: equal to K1 bit "
+          f"for bit (records, counts, bases, cursor, state), other rows "
+          f"untouched; vs plain: mismatch FL {fl_mis9:.2e} V {v_mis9:.2e} "
+          f"(limit {K1_MISMATCH_FRAC}, rtol=atol={K1_RTOL}), level-0 V max "
+          f"abs err {k9_err:.3e}")
+    check(fl_mis9 <= K1_MISMATCH_FRAC and v_mis9 <= K1_MISMATCH_FRAC,
+          "K9 differs from its plain version beyond K1's tolerances")
+    del kb17, pb17, k1o, p9o
+    # one flagship window through K1 and through K9
+    d1 = fcam.max_depth + 1
+    total = npix * 100
+    refill17 = regen._auto_refill(total, n, d1, n_inner, fcam)
+    window17 = -(-(refill17 + d1) // n_inner) * n_inner
+    win = {}
+    for direct in (False, True):
+        wb = regen.WindowBuffers.empty(n, window17 // n_inner, n_inner, dev)
+        for r in wb.rec:
+            r.zero_()
+        acc17 = torch.zeros((total + n, 3), dtype=torch.float32, device=dev)
+        _, _, cur = regen._window_impl(
+            tables, statics, cam_row, bg, acc17, regen._init_state(n, dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            regen.window_seeds(0, 0, window17 // n_inner), 0, total,
+            width=600, npix=npix, sqrt_spp=10, window=window17,
+            refill=refill17, cadence=n_inner, max_depth=50,
+            max_contribution=fcam.max_contribution, bufs=wb,
+            direct_rec=direct)
+        torch.cuda.synchronize()
+        win[direct] = (cur.cpu(), wb, acc17)
+    (c0, w0, a0), (c1, w1, a1) = win[False], win[True]
+    s_run17 = int(c0[2])
+    calls17 = s_run17 // n_inner        # the calls that ran
+    same_win = torch.equal(c0, c1) and all(
+        torch.equal(x[:s_run17], y[:s_run17]) for x, y in zip(w0.rec, w1.rec)) \
+        and all(torch.equal(getattr(w0, f)[:calls17], getattr(w1, f)[:calls17])
+                for f in ("base", "seg", "take")) and torch.equal(a0, a1)
+    print(f"[17] flagship window ({window17} levels, refill {refill17}) "
+          f"through K1 and through K9: {s_run17} levels, {int(c0[0])} items, "
+          f"{int(c0[1])} segments; records, bases, counts and accumulator "
+          f"equal bit for bit: {same_win}")
+    check(same_win, "the flagship window differs between K1 and K9")
+    del win, w0, w1, a0, a1
+    # the flagship through the CLI with --direct-rec
+    reset_counts()
+    buf = io.StringIO()
+    image9 = os.path.join(out_dir, "cornellBox_direct_rec.ppm")
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-S", "6", "--direct-rec", "-o", image9, "--stats",
+                       "--quiet"])
+    check(rc == 0, f"cli.main --direct-rec returned {rc}")
+    s9 = json.loads(buf.getvalue().strip().splitlines()[-1])
+    k9_launches = bounce.launches_direct
+    ratio9 = s9["segments"] / s9["paths"]
+    with open(image9, "rb") as fa, open(os.path.join(
+            out_dir, "cornellBox_flagship.ppm"), "rb") as fb:
+        same9 = fa.read() == fb.read()
+    print(f"[17] flagship cornellBox 600x600 100spp depth 50, 131072 lanes, "
+          f"--direct-rec, on {card}: paths {s9['paths']}, segments "
+          f"{s9['segments']} ({ratio9:.4f}/path; the K1 run: "
+          f"{flag5['segments']}), elapsed {s9['elapsed_s']:.4f} s, windows "
+          f"{s9['windows']}; launches K9 {k9_launches} K1 {bounce.launches} "
+          f"K2 {harvest.launches}; image file identical to the K1 run's: "
+          f"{same9}")
+    check(s9["paths"] == 36_000_000 and s9["nonfinite"] == 0
+          and 2.78 <= ratio9 <= 3.08 and s9["direct_rec"],
+          "--direct-rec flagship: paths, non-finite pixels or segments/path")
+    check(s9["segments"] == flag5["segments"],
+          "--direct-rec flagship: segments differ from the K1 run's")
+    check(k9_launches > 0 and bounce.launches == 0 and harvest.launches > 0,
+          "--direct-rec flagship did not go through K9 and K2 alone")
+
+    # ---- 18. K10, K11 and K12 at the scene-8 level ---------------------
+    phase_start(18)
+    o8, d8 = rays8
+    # K10: every round of one fused binned_closest against the plain version
+    calls10 = []
+    real_round = stream.stream_round_rows
+
+    def spy10(*a):
+        out_ = real_round(*a)
+        calls10.append((a, out_))
+        return out_
+
+    stream.stream_round_rows = spy10
+    try:
+        c10 = {}
+        ft8, fi8 = trace.binned_closest(ms, o8, d8, cap8, alive8,
+                                        b1_fused=True, counters=c10)
+    finally:
+        stream.stream_round_rows = real_round
+    torch.cuda.synchronize()
+    check(len(calls10) == c10["rounds"] > 0, "K10: no round ran")
+    k10_err = 0.0
+    for a, k_out in calls10:
+        p_out = stream.stream_round_rows_ref(*a)
+        check(all(torch.equal(x, y) for x, y in zip(k_out, p_out)),
+              "K10 differs from its plain version (t, idx, key or bits)")
+        k10_err = max(k10_err, (k_out[0] - p_out[0]).abs().nan_to_num(0.0)
+                      .max().item())
+    check(c10 == counters7 and torch.equal(fi8, bi8) and torch.equal(ft8, bt8),
+          f"K10's route differs from the unfused binned route ({c10} vs "
+          f"{counters7})")
+    k10_args = calls10[0][0]
+    print(f"[18] K10 vs plain on the {len(calls10)} rounds of one fused "
+          f"binned_closest: t, idx, next key and bits equal bit for bit; the "
+          f"same rounds ({c10['rounds']}) and host reads ({c10['host_reads']})"
+          f" as the unfused route, and bit-equal (t, idx)")
+    del calls10
+    # K11 on the level's coherence-sorted rays
+    key11 = torch.where(cap0 > 0, trace.coherence_key(bvh, o8, d8),
+                        0x7FFFFFFF)
+    perm11 = torch.sort(key11).indices
+    k11_args = (bvh.cl2_lines, bvh.cl2_lo, bvh.cl2_hi, bvh.cl2_gs,
+                *(x[perm11, k].contiguous() for x in (o8, d8)
+                  for k in range(3)),
+                cap0[perm11].contiguous(),
+                torch.full((n8,), -1, dtype=torch.int32, device=dev))
+    rounds11 = torch.zeros(n8 // stream2.BLOCK, dtype=torch.int32, device=dev)
+    kt11, ki11 = stream2.stream2_rows(*k11_args, rounds=rounds11)
+    torch.cuda.synchronize()
+    work11 = {}
+    pt11, pi11 = stream2.stream2_rows_ref(*k11_args, work=work11)
+    check(torch.equal(ki11, pi11) and torch.equal(kt11, pt11),
+          "K11 differs from its plain version")
+    check(torch.equal(rounds11.long(), work11["rounds"]),
+          "K11's rounds per block differ from its plain version's")
+    k11_err = (kt11 - pt11).abs().nan_to_num(0.0).max().item()
+    r11 = rounds11.float()
+    print(f"[18] K11 vs plain at {n8} coherence-sorted rays ("
+          f"{bvh.cl2_lo.shape[0]} cl2 clusters, {n8 // stream2.BLOCK} blocks):"
+          f" idx equal, t bit for bit, rounds per block equal (mean "
+          f"{r11.mean().item():.2f}, max {int(r11.max())}); work "
+          f"{work11['box_tests']} box tests, {work11['group_tests']} ray-group"
+          f" tests")
+    # K12 on the walk route's sorted rays
+    keyw = torch.where(alive8, trace.coherence_key(bvh, o8, d8), 0x7FFFFFFF)
+    permw = torch.sort(keyw).indices
+    k12_args = (bvh.bvh_nodes, bvh.bvh_tris, o8[permw].contiguous(),
+                d8[permw].contiguous(), cap0[permw].contiguous())
+    kt12, ki12 = traverse.bvh_closest(*k12_args, n_nodes=bvh.n_nodes)
+    torch.cuda.synchronize()
+    visits12 = {}
+    pt12, pi12 = traverse.bvh_closest_ref(*k12_args, n_nodes=bvh.n_nodes,
+                                          visits=visits12)
+    check(torch.equal(ki12, pi12) and torch.equal(kt12, pt12),
+          "K12 differs from its plain version")
+    k12_err = (kt12 - pt12).abs().nan_to_num(0.0).max().item()
+    print(f"[18] K12 vs plain at {n8} sorted rays ({bvh.n_nodes} nodes, leaf "
+          f"size {bvh.leaf_size}): idx equal, t bit for bit; walk work "
+          f"{visits12['node_visits']} node visits, {visits12['tri_tests']} "
+          f"triangle tests")
+    # the five routes' winners at this level
+    routes18 = {
+        "binned": (bt8, bi8), "binned+b1_fused": (ft8, fi8),
+        "binned2": trace.mesh_closest(ms, o8, d8, cap8, alive8,
+                                      mesh="binned2"),
+        "walk": (kt5, ki5),
+        "walk+bvh2": trace.mesh_closest(ms, o8, d8, cap8, alive8,
+                                        mesh="walk", traverse8=False)}
+    torch.cuda.synchronize()
+    differ = torch.zeros(n8, dtype=torch.bool, device=dev)
+    for name, (t_, i_) in routes18.items():
+        differ |= (i_ != ki5) | (t_ != kt5)
+    lanes18 = torch.nonzero(differ)[:, 0].tolist()
+    print(f"[18] five routes at {n8} lanes against K5's winners: "
+          f"{len(lanes18)} lane(s) where two differ"
+          + "".join(f"\n[18]   lane {k}: " + ", ".join(
+              f"{name} t {t_[k].item():.9g} idx {int(i_[k])}"
+              for name, (t_, i_) in routes18.items()) for k in lanes18[:50]))
+    check(len(lanes18) <= 1e-3 * n8,
+          "the five routes differ on more than 1e-3 of the lanes")
+
+    # ---- 19. renders of the new routes through the CLI ------------------
+    phase_start(19)
+    walk25_means = ppm_channel_means(os.path.join(out_dir,
+                                                  "modelExample_walk25.ppm"))
+
+    def held_to(name, st_, image, ref, ref_image, ref_means):
+        means = ppm_channel_means(os.path.join(out_dir, image))
+        with open(os.path.join(out_dir, image), "rb") as fa, \
+                open(os.path.join(out_dir, ref_image), "rb") as fb:
+            same = fa.read() == fb.read()
+        seg_rel = abs(st_["segments"] - ref["segments"]) / ref["segments"]
+        print(f"[19] {name}: segments {st_['segments']} vs walk "
+              f"{ref['segments']} (rel {seg_rel:.2e}), channel means "
+              f"{np.round(means, 5).tolist()} vs {np.round(ref_means, 5).tolist()}"
+              f", image file identical: {same}")
+        check(st_["paths"] == ref["paths"] and st_["nonfinite"] == 0,
+              f"{name}: paths or non-finite pixels")
+        check(seg_rel <= 1e-3 and np.abs(means - ref_means).max() <= 1e-2,
+              f"{name}: segments beyond 1e-3 or channel means beyond 1e-2 of "
+              f"the walk route's")
+
+    # the slice's main path, CUT to 25 spp (5x5 strata; the full 600x337
+    # frame, depth 50, 65,536 lanes): uncut (250 spp) it took 68.0 s, over
+    # the script's 60 s for one render (PERF.md)
+    reset_counts()
+    s8b2 = run_cli8(["--mesh", "binned2", "--spp", "25"],
+                    "modelExample_binned2_25.ppm")
+    k11_launches = stream2.launches
+    print(f"[19] modelExample 600x337 CUT to 25 spp (full: 250), depth 50, "
+          f"{s8b2['lanes']} lanes, binned2 route (main path), on {card}: "
+          f"paths {s8b2['paths']}, segments {s8b2['segments']}, "
+          f"{s8b2['rays_per_s']:.6g} rays/s, elapsed {s8b2['elapsed_s']:.3f} "
+          f"s, windows {s8b2['windows']}, levels {s8b2['levels']}, occupancy "
+          f"{s8b2['occupancy']:.4f}; launches K11 {k11_launches} K3 "
+          f"{bounce.launches_bounce} K2 {harvest.launches} K4 "
+          f"{stream.launches} K10 {stream.launches_round} K5 "
+          f"{traverse8.launches} K12 {traverse.launches}")
+    check(s8b2["mesh"]["route"] == "binned2", "binned2: stats name another "
+          "route")
+    check(k11_launches == s8b2["levels"] > 0
+          and bounce.launches_bounce == s8b2["levels"]
+          and harvest.launches == s8b2["windows"]
+          and stream.launches + stream.launches_round + traverse8.launches
+          + traverse.launches == 0,
+          "binned2 render did not go through K11 once per level, K3 and K2 "
+          "alone")
+    held_to("binned2, 25 spp", s8b2, "modelExample_binned2_25.ppm", s8w25,
+            "modelExample_walk25.ppm", walk25_means)
+    reset_counts()
+    s8f = run_cli8(["--b1-fused", "--spp", "25"], "modelExample_fused25.ppm")
+    k10_launches = stream.launches_round
+    print(f"[19] modelExample 600x337 at 25 spp, binned + b1_fused, on {card}:"
+          f" elapsed {s8f['elapsed_s']:.3f} s, levels {s8f['levels']}, rounds "
+          f"{s8f['mesh']['rounds']}, host reads {s8f['mesh']['host_reads']}; "
+          f"launches K10 {k10_launches} K4 {stream.launches}")
+    check(k10_launches == s8f["mesh"]["rounds"] > 0 and stream.launches == 0
+          and s8f["mesh"]["route"] == "binned+b1_fused",
+          "--b1-fused render did not go through K10 alone")
+    held_to("binned + b1_fused, 25 spp", s8f, "modelExample_fused25.ppm",
+            s8w25, "modelExample_walk25.ppm", walk25_means)
+    reset_counts()
+    s8t = run_cli8(["--mesh", "walk", "--no-traverse8", "--spp", "25"],
+                   "modelExample_bvh2_25.ppm")
+    k12_launches = traverse.launches
+    print(f"[19] modelExample 600x337 at 25 spp, walk on the binary BVH, on "
+          f"{card}: elapsed {s8t['elapsed_s']:.3f} s, levels {s8t['levels']};"
+          f" launches K12 {k12_launches} K5 {traverse8.launches}")
+    check(k12_launches == s8t["levels"] > 0 and traverse8.launches == 0
+          and s8t["mesh"]["route"] == "walk+bvh2",
+          "--no-traverse8 render did not go through K12 alone")
+    held_to("walk + bvh2, 25 spp", s8t, "modelExample_bvh2_25.ppm", s8w25,
+            "modelExample_walk25.ppm", walk25_means)
+
+    # ---- 20. timings of K9-K12 with their bounds ------------------------
+    phase_start(20)
+    st9 = [x.clone() for x in st0]
+    k9_bufs = regen.WindowBuffers.empty(n, 2, n_inner, dev).rec
+    o9 = bounce.FusedQOut.empty(n, n_inner, dev)
+    base9 = torch.zeros(1, dtype=torch.int32, device=dev)
+    k9_ms = time_ms(lambda: bounce.bounce_fused_q_direct(
+        tables, statics, cam_row, bg, seed4, base9, k9_bufs, *st9, out=o9,
+        **kw17), 20)
+    segs9 = int(o9.seg.sum())
+    k9_plain_ms = time_ms(lambda: bounce.bounce_fused_q_direct_ref(
+        tables, statics, cam_row, bg, seed4, base9, k9_bufs, *st9, out=o9,
+        **kw17), 3)
+    k9_bytes = n * (36 + 36) + n_inner * n * 16 \
+        + sum(t.numel() * 4 for t in tables)
+    k9_bound, k9_by = bound(k9_bytes, segs9)
+    print(f"[20] K9 {n} lanes x {n_inner} levels ({segs9} segments): kernel "
+          f"{k9_ms:.4f} ms, plain {k9_plain_ms:.3f} ms, bound {k9_bound:.4f} ms"
+          f" ({k9_by}; K1's bytes) on {card}")
+
+    def bound_of(nbytes, ops):
+        b, o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        return max(b, o) * 1e3, "bytes" if b >= o else "operations"
+
+    k10_ms = time_ms(lambda: real_round(*k10_args), 20)
+    k10_plain_ms = time_ms(lambda: stream.stream_round_rows_ref(*k10_args), 1,
+                           warmup=0)
+    n10 = k10_args[7].numel()
+    k_cl = bvh.cl_lo.shape[0]
+    n_mask = (k_cl + 31) // 32
+    k10_tests = int(((k10_args[4] - k10_args[3]).long().sum()) * 8
+                    * stream.BLOCK)
+    k10_bound, k10_by = bound_of(
+        bvh.cl_lines.numel() * 4 + n10 * (8 * 4 + 8) + 8 * (n10 // stream.BLOCK)
+        + n10 * 4 * (3 + n_mask),
+        k10_tests * MT_OPS + n10 * k_cl * BOX_OPS)
+    print(f"[20] K10 round 0 at {n10} rays ({k10_tests} ray-triangle tests, "
+          f"{k_cl} boxes per ray): kernel {k10_ms:.4f} ms, plain "
+          f"{k10_plain_ms:.2f} ms, bound {k10_bound:.5f} ms ({k10_by}) on "
+          f"{card}")
+    k11_ms = time_ms(lambda: stream2.stream2_rows(*k11_args), 10)
+    k11_plain_ms = time_ms(lambda: stream2.stream2_rows_ref(*k11_args), 1,
+                           warmup=0)
+    k11_bytes = (bvh.cl2_lines.numel() + bvh.cl2_lo.numel() * 2
+                 + bvh.cl2_gs.numel()) * 4 + n8 * (6 * 4 + 4 + 4 + 4 + 4)
+    k11_bound, k11_by = bound_of(
+        k11_bytes, work11["group_tests"] * 8 * MT_OPS
+        + work11["box_tests"] * BOX_OPS)
+    binned2_ms = time_ms(lambda: trace.mesh_closest(
+        ms, o8, d8, cap8, alive8, mesh="binned2"), 10)
+    print(f"[20] K11 at {n8} rays: kernel {k11_ms:.4f} ms, plain "
+          f"{k11_plain_ms:.2f} ms, bound {k11_bound:.5f} ms ({k11_by}); one "
+          f"binned2 mesh_closest (sort, K11, unsort) {binned2_ms:.4f} ms; "
+          f"on {card}")
+    k12_ms = time_ms(lambda: traverse.bvh_closest(*k12_args,
+                                                  n_nodes=bvh.n_nodes), 20)
+    k12_plain_ms = time_ms(lambda: traverse.bvh_closest_ref(
+        *k12_args, n_nodes=bvh.n_nodes), 1, warmup=0)
+    k12_bound, k12_by = bound_of(
+        (bvh.bvh_nodes.numel() + bvh.bvh_tris.numel()) * 4 + n8 * (28 + 8),
+        visits12["node_visits"] * BOX_OPS + visits12["tri_tests"] * MT_OPS)
+    print(f"[20] K12 at {n8} rays: kernel {k12_ms:.4f} ms, plain "
+          f"{k12_plain_ms:.2f} ms, bound {k12_bound:.5f} ms ({k12_by}) on "
+          f"{card}")
+    # device busy share of a 4-spp binned2 render (one launch per level, so
+    # the profile stays small)
+    sc8, cm8 = reg8.model_example()
+    cm8.samples_per_pixel = 4
+    _, ust2 = regen.render_regen(sc8, cm8, seed=5, device=dev, mesh="binned2")
+    with torch.profiler.profile(activities=acts) as prof20:
+        _, pst20 = regen.render_regen(sc8, cm8, seed=5, device=dev,
+                                      mesh="binned2")
+    us20 = device_times(prof20)
+    if us20:
+        all20 = sum(us20.values())
+        k11_us = sum(v for k, v in us20.items() if k.startswith("stream2"))
+        top20 = sorted(us20.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[20] scene 8 at 4 spp on binned2 ({pst20['levels']} levels): "
+              f"render loop {ust2['elapsed_s']:.3f} s unprofiled, "
+              f"{pst20['elapsed_s']:.3f} s under the profiler; device busy "
+              f"{all20 / 1e6:.3f} s = {all20 / 1e6 / pst20['elapsed_s']:.3f} of"
+              f" the profiled loop; K11 {k11_us / 1e3:.2f} ms = "
+              f"{k11_us / 1e3 / pst20['levels']:.4f} ms per level; top device "
+              f"events, ms: " + ", ".join(f"{k[:48]} {v / 1e3:.2f}"
+                                          for k, v in top20))
+    else:
+        print("[20] profiler reported no device time: busy share not measured")
 
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",
@@ -1338,7 +1776,33 @@ def main():
          "launches": k8_launches, "max_abs_err": k8_err, "ms": k8_ms,
          "plain_ms": k8_plain_ms, "bound_ms": k8_bound, "bound_by": k8_by,
          "library_ms": None},
+        {"name": "bounce_fused_q_direct", "route": "cuda",
+         "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_q.cu",
+         "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:2343",
+         "launches": k9_launches, "max_abs_err": k9_err, "ms": k9_ms,
+         "plain_ms": k9_plain_ms, "bound_ms": k9_bound, "bound_by": k9_by,
+         "library_ms": None},
+        {"name": "stream_round_rows", "route": "cuda",
+         "source": "go_raytracer_tpu_torch/ops/csrc/stream_round.cu",
+         "replaces": "go_raytracer_tpu/ops/pallas/stream.py:369",
+         "launches": k10_launches, "max_abs_err": k10_err, "ms": k10_ms,
+         "plain_ms": k10_plain_ms, "bound_ms": k10_bound,
+         "bound_by": k10_by, "library_ms": None},
+        {"name": "stream2_rows", "route": "cuda",
+         "source": "go_raytracer_tpu_torch/ops/csrc/stream2.cu",
+         "replaces": "go_raytracer_tpu/ops/pallas/stream2.py:230",
+         "launches": k11_launches, "max_abs_err": k11_err, "ms": k11_ms,
+         "plain_ms": k11_plain_ms, "bound_ms": k11_bound,
+         "bound_by": k11_by, "library_ms": None},
+        {"name": "bvh_closest", "route": "cuda",
+         "source": "go_raytracer_tpu_torch/ops/csrc/traverse.cu",
+         "replaces": "go_raytracer_tpu/ops/pallas/traverse.py:219",
+         "launches": k12_launches, "max_abs_err": k12_err, "ms": k12_ms,
+         "plain_ms": k12_plain_ms, "bound_ms": k12_bound,
+         "bound_by": k12_by, "library_ms": None},
     ]
+    print(f"[end] {time.perf_counter() - t_start:.1f} s after the build "
+          f"began")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,14 @@ the reference binary (main.go:416-480): -S scene number, -o output file,
 Runs on the GPU; `--cpu` runs the plain PyTorch versions of the kernels
 on the CPU instead. Without a GPU and without `--cpu` it exits with an
 error rather than falling back. An unknown -S exits with 2 and the list of
-valid scenes. `-S 8` (a mesh) runs the mesh path; `--mesh walk` takes the
-BVH8 walk instead of the binned intersector. `--schedule queue` and
+valid scenes. `-S 8` (a mesh) runs the mesh path; `--mesh` picks its
+closest-hit route: `binned` (default; `--b1-fused` fuses each round into
+one kernel), `binned2` (the persistent-block intersector) or `walk` (the
+BVH8 walk; `--no-traverse8` the binary BVH walk). `--direct-rec` has the
+in-kernel-queue kernel write its records in place. These are the JAX
+package's GRT_MESH, GRT_B1_FUSED, GRT_TRAVERSE8 and GRT_DIRECT_REC as
+flags; where the JAX package would quietly take another route, the run
+exits with 2 and a message. `--schedule queue` and
 `--schedule positional` run a dense scene on those schedules instead of
 the in-kernel queue. Flags whose paths are not ported yet (other
 integrators and backends, the schedules a scene kind does not have) are
@@ -56,9 +62,20 @@ def main(argv=None):
                          "scene, queue refills the item queue before each "
                          "kernel call and positional gives every lane a "
                          "static block of items")
-    ap.add_argument("--mesh", choices=["binned", "walk"], default="binned",
-                    help="closest mesh hit: the binned intersector or the "
-                         "BVH8 stack walk")
+    ap.add_argument("--mesh", choices=["binned", "binned2", "walk"],
+                    default="binned",
+                    help="closest mesh hit: the binned intersector, the "
+                         "persistent-block binned intersector (one kernel "
+                         "launch per level) or the BVH walk (JAX: GRT_MESH)")
+    ap.add_argument("--b1-fused", action="store_true",
+                    help="binned route: one fused kernel per round (stream, "
+                         "mark, next candidates; JAX: GRT_B1_FUSED=1)")
+    ap.add_argument("--no-traverse8", dest="traverse8", action="store_false",
+                    help="walk route: the binary skip-link BVH walk instead "
+                         "of the BVH8 walk (JAX: GRT_TRAVERSE8=0)")
+    ap.add_argument("--direct-rec", action="store_true",
+                    help="in-kernel queue: records written in place into the "
+                         "window buffers (JAX: GRT_DIRECT_REC=1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--obj", default="dragon.obj", help="OBJ path for scene 8")
     ap.add_argument("--profile", default="",
@@ -127,10 +144,11 @@ def main(argv=None):
         linear, stats = regen_mod.render_regen(
             scene, cam, seed=args.seed, n_lanes=args.lanes,
             cadence=args.cadence, schedule=args.schedule, device=device,
-            mesh=args.mesh,
+            mesh=args.mesh, b1_fused=args.b1_fused,
+            traverse8=args.traverse8, direct_rec=args.direct_rec,
             checkpoint_path=args.checkpoint or None,
             scene_name=name, verbose=not args.quiet)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     finally:

@@ -14,9 +14,11 @@ pointer planes; the reverse scan retreats the pointers and sums each
 path into one of the lane's few pixel slots.
 Mesh scenes (a triangle BVH) run the `queue` schedule's unfused window
 (`_mesh_window`): per level the refill, the camera rays and the uniforms
-are plain tensor code, the closest mesh hit comes from the binned
-intersector or the BVH8 walk (ops/trace.py), and the `bounce` kernel folds
-it into the dense winner and shades.
+are plain tensor code, the closest mesh hit comes from one of the five
+routes of ops/trace.mesh_closest (the binned intersector, its fused
+rounds, the persistent-block intersector, the BVH8 walk or the binary
+BVH walk), and the `bounce` kernel folds it into the dense winner and
+shades.
 The forward pass records, per level and lane, the merged V plane (the
 vertex's emission or its scatter weight) and flag bits (clamp, emit,
 started); the reverse harvest then evaluates L = clamp?(emit ? V : V*L)
@@ -255,13 +257,16 @@ class _DrainWatch:
 def _window_impl(tables, statics, cam_row, bg, acc, state, next_item, seeds,
                  item_base: int, item_end: int, *, width, npix, sqrt_spp,
                  window, refill, cadence, max_depth, max_contribution,
-                 bufs: WindowBuffers = None):
+                 bufs: WindowBuffers = None, direct_rec: bool = False):
     """One window over items [item_base, item_end): forward kernel calls
     until the window drains, then the harvest into `acc` (rows relative to
     item_base, updated in place). `state` (nine planes) is updated in
     place; `next_item` is a (1,) int32 tensor on the device; `seeds` the
-    (outer,) int32 per-call seeds. Returns (acc, state, cur) with cur an
-    int64 device tensor [next item, segments traced, levels recorded]."""
+    (outer,) int32 per-call seeds. `direct_rec`: every call gets the whole
+    record buffers and its first level's row as a device tensor
+    (`bounce_fused_q_direct`) instead of its slice of the buffers; the
+    records are the same. Returns (acc, state, cur) with cur an int64
+    device tensor [next item, segments traced, levels recorded]."""
     n = state[0].shape[0]
     dev = state[0].device
     outer = window // cadence
@@ -280,17 +285,25 @@ def _window_impl(tables, statics, cam_row, bg, acc, state, next_item, seeds,
     tab.copy_(src.pin_memory() if tab.is_cuda else src, non_blocking=True)
     tab[0, 2:3].copy_(next_item)
     watch = _DrainWatch(bufs.seg)
+    if direct_rec:
+        level_base = torch.arange(0, outer * cadence, cadence,
+                                  dtype=torch.int32, device=dev)
     n_run = 0
+    kw = dict(has_defocus=False, max_depth=max_depth, n_inner=cadence,
+              width=width, sqrt_spp=sqrt_spp, npix=npix)
     for i in range(outer):
         sl = slice(i * cadence, (i + 1) * cadence)
         out = bounce_mod.FusedQOut(
-            rec=[r[sl] for r in bufs.rec], seg=bufs.seg[i],
-            take=bufs.take[i], base=bufs.base[i], cursor=tab[i + 1, 2:3],
-            state=state)
-        bounce_mod.bounce_fused_q(
-            tables, statics, cam_row, bg, tab[i], *state,
-            has_defocus=False, max_depth=max_depth, n_inner=cadence,
-            width=width, sqrt_spp=sqrt_spp, npix=npix, out=out)
+            rec=bufs.rec if direct_rec else [r[sl] for r in bufs.rec],
+            seg=bufs.seg[i], take=bufs.take[i], base=bufs.base[i],
+            cursor=tab[i + 1, 2:3], state=state)
+        if direct_rec:
+            bounce_mod.bounce_fused_q_direct(
+                tables, statics, cam_row, bg, tab[i], level_base[i:i + 1],
+                bufs.rec, *state, out=out, **kw)
+        else:
+            bounce_mod.bounce_fused_q(tables, statics, cam_row, bg, tab[i],
+                                      *state, out=out, **kw)
         n_run = i + 1
         watch.record(i)
         if watch.drained():
@@ -489,8 +502,9 @@ def window_generator(seed: int, w: int, device) -> torch.Generator:
 class MeshContext:
     """What the mesh window reads, on the render device: the scene tables
     of `ops/trace.to_device`, the packed kernel tables and statics, the
-    per-triangle material columns, background and camera. `mesh` picks
-    the closest-hit route; `counters` gathers calls, rounds and host
+    per-triangle material columns, background and camera. `mesh`,
+    `b1_fused` and `traverse8` pick the closest-hit route
+    (`ops/trace.mesh_closest`); `counters` gathers calls, rounds and host
     reads of the intersector."""
 
     ms: object
@@ -500,20 +514,34 @@ class MeshContext:
     bg: torch.Tensor
     arrays: camera_mod.CameraArrays
     mesh: str = "binned"
+    b1_fused: bool = False
+    traverse8: bool = True
     counters: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def route(self) -> dict:
+        return dict(mesh=self.mesh, b1_fused=self.b1_fused,
+                    traverse8=self.traverse8)
 
     @staticmethod
     def build(scene: T.Scene, cam: camera_mod.Camera, device,
-              mesh: str = "binned") -> "MeshContext":
+              mesh: str = "binned", b1_fused: bool = False,
+              traverse8: bool = True) -> "MeshContext":
+        """Raises ValueError when the scene's tables cannot run the
+        route (`ops/trace.check_route`)."""
         to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
         statics = bounce_mod.scene_statics(scene, ext=True)
+        ms = trace_mod.to_device(scene, device)
+        trace_mod.check_route(ms.tri_bvh, mesh, b1_fused=b1_fused,
+                              traverse8=traverse8)
         return MeshContext(
-            ms=trace_mod.to_device(scene, device),
+            ms=ms,
             tables=tuple(to_dev(t) for t in bounce_mod.pack_scene(scene)),
             statics=statics,
             tri_mat=to_dev(bounce_mod.tri_mat_table(scene, statics)),
             bg=to_dev(np.asarray(scene.background, np.float32)),
-            arrays=cam.derived(), mesh=mesh)
+            arrays=cam.derived(), mesh=mesh, b1_fused=b1_fused,
+            traverse8=traverse8)
 
 
 def mesh_bounce(ctx: MeshContext, o, d, t, alive, u, out=None):
@@ -535,8 +563,8 @@ def mesh_bounce(ctx: MeshContext, o, d, t, alive, u, out=None):
         t_cap = torch.minimum(t_cap, ix_mod.box_ts(
             ms.boxes, o, d, trace_mod.T_MIN, float("inf")).amin(dim=1))
     ext = bounce_mod.mesh_ext_planes(ctx.ms, ctx.statics, ctx.tri_mat, o, d,
-                                     t_cap, alive, mesh=ctx.mesh,
-                                     counters=ctx.counters)
+                                     t_cap, alive, counters=ctx.counters,
+                                     **ctx.route)
     return bounce_mod.bounce(ctx.tables, ctx.statics, o, d, t, alive, u,
                              ctx.bg, ext=ext, out=out)[:6]
 
@@ -729,9 +757,10 @@ def _assemble_image(acc, *, total_items, n_strata, npix, h, w):
 def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                  n_lanes: int = 1 << 17, refill_len: int = 0,
                  cadence: int = 0, schedule: str = "auto", device=None,
-                 mesh: str = "binned", checkpoint_path=None,
-                 checkpoint_every: int = 4, scene_name: str = "",
-                 verbose: bool = False):
+                 mesh: str = "binned", b1_fused: bool = False,
+                 traverse8: bool = True, direct_rec: bool = False,
+                 checkpoint_path=None, checkpoint_every: int = 4,
+                 scene_name: str = "", verbose: bool = False):
     """Render the full image with ray regeneration on `device` (default
     CUDA; "cpu" runs the kernels' plain versions). Returns (linear image
     (H, W, 3) float32 numpy, stats).
@@ -748,17 +777,30 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     bit-identical to its scan-and-sort epilogue. A scene with a triangle
     BVH runs the mesh path (stats["schedule"] == "queue"): at most
     `MESH_MAX_LANES` lanes, cadence 1, `refill_len` 0 means 4 *
-    (max_depth + 1), and `mesh` picks the closest-hit route ("binned" or
-    "walk"). Checkpoint/resume: between windows no path is in flight, so
-    (accumulator, cursor, window count) is a consistent checkpoint, and a
-    matching one resumes where it stopped; "positional" stores its
-    (3, G, N) accumulator and the per-lane start counts `k`."""
+    (max_depth + 1), and `mesh` ("binned", "binned2" or "walk"),
+    `b1_fused` (binned only) and `traverse8` (walk only) pick the
+    closest-hit route (`ops/trace.mesh_closest`; stats["mesh"]["route"]
+    names it). `direct_rec` runs `queue_ik` through
+    `bounce_fused_q_direct`. A route or option the scene cannot run raises
+    ValueError; nothing falls back to another. Checkpoint/resume: between
+    windows no path is in flight, so (accumulator, cursor, window count)
+    is a consistent checkpoint, and a matching one resumes where it
+    stopped; "positional" stores its (3, G, N) accumulator and the
+    per-lane start counts `k`."""
     from go_raytracer_tpu_torch.render import checkpoint as checkpoint_mod
     from go_raytracer_tpu_torch.utils import progress
 
+    if direct_rec and scene.has_image:
+        raise ValueError(
+            "direct_rec: the direct-record path excludes scenes with image "
+            "textures (their texel patch needs each level's planes), as in "
+            "the JAX package")
     use_fused = bounce_mod.supported(scene)
     use_ext = (not use_fused and scene.has_tri_bvh
                and bounce_mod.supported_ext(scene))
+    if not use_ext and (mesh != "binned" or b1_fused or not traverse8):
+        raise ValueError("mesh, b1_fused and traverse8 pick the closest-hit "
+                         "route of a mesh scene; this scene has no mesh")
     if not (use_fused or use_ext):
         raise NotImplementedError(
             "scene outside the ported kernels' subsets (dense scenes: quads, "
@@ -779,6 +821,9 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         schedule = "queue"
     elif schedule == "auto":
         schedule = "queue_ik"
+    if direct_rec and schedule != "queue_ik":
+        raise ValueError(f"direct_rec is an option of the queue_ik "
+                         f"schedule, not of {schedule!r}")
     if use_fused and cam.defocus_angle > 0:
         raise NotImplementedError("defocus blur on the fused-kernel paths "
                                   "is a later slice (ROADMAP.md)")
@@ -809,7 +854,8 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
 
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     if use_ext:
-        ctx = MeshContext.build(scene, cam, device, mesh=mesh)
+        ctx = MeshContext.build(scene, cam, device, mesh=mesh,
+                                b1_fused=b1_fused, traverse8=traverse8)
         state = _init_state_mesh(n, device)
     else:
         tables = tuple(to_dev(t) for t in bounce_mod.pack_scene(scene))
@@ -880,7 +926,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
             0, total_items, width=w, npix=npix, sqrt_spp=sqrt_spp,
             window=window, refill=refill, cadence=cadence,
             max_depth=cam.max_depth, max_contribution=cam.max_contribution,
-            bufs=bufs)
+            bufs=bufs, direct_rec=direct_rec)
         next_dev = cur[0:1].to(torch.int32)
         return cur
 
@@ -957,5 +1003,8 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     if use_ext:
         stats["lanes"] = n
         stats["levels"] = ctx.counters.pop("levels", 0)
-        stats["mesh"] = dict(ctx.counters, route=mesh)
+        stats["mesh"] = dict(ctx.counters, route=trace_mod.route_name(
+            **ctx.route))
+    if schedule == "queue_ik":
+        stats["direct_rec"] = direct_rec
     return linear, stats

@@ -27,17 +27,23 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "torch_kernels")
 SOURCES = ("bounce_fused_q", "harvest", "bounce", "stream", "traverse8",
-           "bounce_fused", "bounce_fused_pos", "harvest_rows")
+           "bounce_fused", "bounce_fused_pos", "harvest_rows", "traverse",
+           "stream_round", "stream2")
 # entry point of each library, all `int fn(const Args*, cudaStream_t)`
 ENTRY = {"bounce_fused_q": "grt_bounce_fused_q",
          "harvest": "grt_harvest_levels", "bounce": "grt_bounce",
          "stream": "grt_stream_rows", "traverse8": "grt_bvh8_closest",
          "bounce_fused": "grt_bounce_fused",
          "bounce_fused_pos": "grt_bounce_fused_pos",
-         "harvest_rows": "grt_harvest_rows"}
+         "harvest_rows": "grt_harvest_rows", "traverse": "grt_bvh_closest",
+         "stream_round": "grt_stream_round_rows",
+         "stream2": "grt_stream2_rows"}
+# further entry points of a library, with the same signature
+MORE_ENTRIES = {"bounce_fused_q": ("grt_bounce_fused_q_direct",)}
 # The mesh intersectors must agree with their plain versions bit for bit,
 # so their multiply-adds stay uncontracted (csrc/mt.cuh).
-EXTRA_FLAGS = {"stream": ["-fmad=false"], "traverse8": ["-fmad=false"]}
+EXTRA_FLAGS = {name: ["-fmad=false"] for name in (
+    "stream", "traverse8", "traverse", "stream_round", "stream2")}
 FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
@@ -114,9 +120,10 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         path = build_all()[name]
         lib = ctypes.CDLL(path)
-        fn = getattr(lib, ENTRY[name])
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for entry in (ENTRY[name],) + MORE_ENTRIES.get(name, ()):
+            fn = getattr(lib, entry)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.grt_error_string.argtypes = [ctypes.c_int]
         lib.grt_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

@@ -15,6 +15,10 @@ Counterpart of the JAX package's `ops/pallas/bounce.py`. Three parts:
   `csrc/bounce_fused_q.cu`; on a CPU tensor it runs the plain PyTorch
   version `bounce_fused_q_ref` — the same function, op for op as the JAX
   kernel, which the tests hold against the JAX package.
+  `bounce_fused_q_direct` is the same levels writing their records in
+  place into whole-window buffers at a level base held on the device
+  (the `grt_bounce_fused_q_direct` entry of the same source;
+  `bounce_fused_q_direct_ref` on the CPU).
 
 * `bounce_fused`: `n_inner` levels of the `queue` schedule, whose refill
   (which lanes start, and on which pixel and stratum) the caller computes
@@ -72,8 +76,10 @@ N_U_RAYGEN = 5   # camera ray generation: jitter x/y, defocus a/b, time
 # the CUDA kernel's block size; the lane count must be a multiple of it
 BLOCK = 256
 
-# Launches of the CUDA kernel through `bounce_fused_q` (one per call).
+# Launches of the CUDA kernel through `bounce_fused_q` and
+# `bounce_fused_q_direct` (one per call each).
 launches = 0
+launches_direct = 0
 # Launches of the CUDA kernel through `bounce` (one per call).
 launches_bounce = 0
 # Launches of the CUDA kernels through `bounce_fused` and
@@ -803,10 +809,10 @@ class _FusedQArgs(ctypes.Structure):
         "alive_in", "depth_in",
         "ox", "oy", "oz", "dx", "dy", "dz", "tm", "alive", "depth",
         "vr", "vg", "vb", "fl", "seg", "take", "base", "cursor_out",
-        "dead_cnt", "cur_buf")] + [(name, ctypes.c_int) for name in (
+        "dead_cnt", "cur_buf", "lvl_base")] + [(name, ctypes.c_int) for name in (
             "p_cols", "quad_base", "n_quad", "box_base", "n_box",
             "n_lights", "n_lights_live", "n", "n_inner", "max_depth",
-            "width", "sqrt_spp", "npix")]
+            "width", "sqrt_spp", "npix", "rec_levels")]
 
 
 def _check_cuda_args(tensors):
@@ -823,8 +829,11 @@ def _check_cuda_args(tensors):
 
 def _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state, *,
                          max_depth, n_inner, width, sqrt_spp, npix,
-                         out: FusedQOut):
-    global launches
+                         out: FusedQOut, lvl_base=None):
+    """Launch K1, or with `lvl_base` (a (1,) int32 tensor) its direct entry
+    point, which writes level j to row lvl_base[0] + j of the whole-window
+    buffers `out.rec` (S, N)."""
+    global launches, launches_direct
     from go_raytracer_tpu_torch.ops import _cuda
 
     st = statics
@@ -841,11 +850,15 @@ def _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state, *,
         checks.append((nm, t, f32 if k < 7 else i32, (n,)))
     for k, (nm, t) in enumerate(zip(names, out.state)):
         checks.append((nm + "_out", t, f32 if k < 7 else i32, (n,)))
+    rec_levels = out.rec[0].shape[0] if lvl_base is not None else n_inner
     for k, t in enumerate(out.rec):
-        checks.append((f"rec{k}", t, f32 if k < 3 else i32, (n_inner, n)))
+        checks.append((f"rec{k}", t, f32 if k < 3 else i32,
+                       (rec_levels, n)))
     for nm in ("seg", "take", "base"):
         checks.append((nm, getattr(out, nm), i32, (n_inner,)))
     checks.append(("cursor", out.cursor, i32, (1,)))
+    if lvl_base is not None:
+        checks.append(("base", lvl_base, i32, (1,)))
     _check_cuda_args(checks)
 
     scratch = torch.empty(2 * (n // BLOCK) + 2, dtype=i32,
@@ -864,17 +877,24 @@ def _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state, *,
         fl=p(out.rec[3]), seg=p(out.seg), take=p(out.take),
         base=p(out.base), cursor_out=p(out.cursor),
         dead_cnt=p(scratch), cur_buf=p(scratch) + 4 * 2 * (n // BLOCK),
+        lvl_base=None if lvl_base is None else p(lvl_base),
+        rec_levels=rec_levels,
         p_cols=prims.shape[1], quad_base=st["quad_base"],
         n_quad=st["n_quad"], box_base=st["box_base"], n_box=st["n_box"],
         n_lights=st["n_lights"], n_lights_live=st["n_lights_live"], n=n,
         n_inner=n_inner, max_depth=max_depth, width=width,
         sqrt_spp=sqrt_spp, npix=npix)
-    err = _cuda.library("bounce_fused_q").grt_bounce_fused_q(
-        ctypes.addressof(a),
-        torch.cuda.current_stream(prims.device).cuda_stream)
+    lib = _cuda.library("bounce_fused_q")
+    entry = lib.grt_bounce_fused_q if lvl_base is None \
+        else lib.grt_bounce_fused_q_direct
+    err = entry(ctypes.addressof(a),
+                torch.cuda.current_stream(prims.device).cuda_stream)
     if err:
         raise RuntimeError(f"bounce_fused_q launch failed: {_cuda.error_string(err)}")
-    launches += 1
+    if lvl_base is None:
+        launches += 1
+    else:
+        launches_direct += 1
 
 
 def bounce_fused_q(tables, statics, cam_row, bg, seed4, ox, oy, oz, dx, dy,
@@ -909,6 +929,77 @@ def bounce_fused_q(tables, statics, cam_row, bg, seed4, ox, oy, oz, dx, dy,
                          max_depth=max_depth, n_inner=n_inner, width=width,
                          sqrt_spp=sqrt_spp, npix=npix, out=out)
     return (tuple(out.rec), None, out.seg, out.take) + tuple(out.state)
+
+
+def bounce_fused_q_direct_ref(tables, statics, cam_row, bg, seed4, base,
+                              rec_bufs, ox, oy, oz, dx, dy, dz, time,
+                              alive_i32, depth, *, has_defocus, max_depth,
+                              n_inner=1, width=0, sqrt_spp=0, npix=0,
+                              out: Optional[FusedQOut] = None):
+    """Plain PyTorch version of `bounce_fused_q_direct` (same arguments,
+    same results): `bounce_fused_q_ref`, its records copied to rows
+    base[0] .. base[0] + n_inner - 1 of the buffers (the rows that
+    exist)."""
+    n = ox.shape[0]
+    if out is None:
+        out = FusedQOut.empty(n, n_inner, ox.device)
+    else:
+        out = dataclasses.replace(out, rec=[
+            torch.empty((n_inner, n), dtype=r.dtype, device=r.device)
+            for r in rec_bufs])
+    bounce_fused_q_ref(tables, statics, cam_row, bg, seed4, ox, oy, oz, dx,
+                       dy, dz, time, alive_i32, depth,
+                       has_defocus=has_defocus, max_depth=max_depth,
+                       n_inner=n_inner, width=width, sqrt_spp=sqrt_spp,
+                       npix=npix, out=out)
+    b = int(base.reshape(-1)[0])
+    lo, hi = max(b, 0), min(b + n_inner, rec_bufs[0].shape[0])
+    for buf, r in zip(rec_bufs, out.rec):
+        if hi > lo:
+            buf[lo:hi] = r[lo - b:hi - b]
+    return tuple(rec_bufs) + (out.seg, out.take) + tuple(out.state)
+
+
+def bounce_fused_q_direct(tables, statics, cam_row, bg, seed4, base,
+                          rec_bufs, ox, oy, oz, dx, dy, dz, time, alive_i32,
+                          depth, *, has_defocus, max_depth, n_inner=1,
+                          width=0, sqrt_spp=0, npix=0,
+                          out: Optional[FusedQOut] = None):
+    """`bounce_fused_q` writing its records in place (the JAX package's
+    `bounce_fused_q_direct`): `rec_bufs` = (Vr, Vg, Vb, FL) whole-window
+    buffers (S, N); level j lands at row base[0] + j, `base` a (1,) int32
+    tensor on the lanes' device, and every other row keeps its contents.
+    Returns (Vr, Vg, Vb, FL, seg_counts, take_counts, ox, oy, oz, dx, dy,
+    dz, time, alive_i32, depth); `out` (optional, its `rec` unused)
+    receives the counts, bases, cursor and state as for `bounce_fused_q`.
+
+    CUDA tensors launch the kernel's direct entry point; CPU tensors run
+    `bounce_fused_q_direct_ref`."""
+    if not supported_statics(statics):
+        raise NotImplementedError(
+            "scene outside this kernel's subset (see supported())")
+    if len(rec_bufs) != 4 or any(r.shape != rec_bufs[0].shape
+                                 or r.dim() != 2 for r in rec_bufs):
+        raise ValueError("rec_bufs must be four (S, N) buffers")
+    if base.numel() != 1:
+        raise ValueError("base must hold one level index")
+    state = (ox, oy, oz, dx, dy, dz, time, alive_i32, depth)
+    kw = dict(has_defocus=has_defocus, max_depth=max_depth, n_inner=n_inner,
+              width=width, sqrt_spp=sqrt_spp, npix=npix)
+    if not ox.is_cuda:
+        return bounce_fused_q_direct_ref(tables, statics, cam_row, bg, seed4,
+                                         base, rec_bufs, *state, out=out,
+                                         **kw)
+    if has_defocus:
+        raise NotImplementedError("defocus blur is a later slice (ROADMAP.md)")
+    if out is None:
+        out = FusedQOut.empty(ox.shape[0], n_inner, ox.device)
+    out = dataclasses.replace(out, rec=list(rec_bufs))
+    _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state,
+                         max_depth=max_depth, n_inner=n_inner, width=width,
+                         sqrt_spp=sqrt_spp, npix=npix, out=out,
+                         lvl_base=base)
+    return tuple(rec_bufs) + (out.seg, out.take) + tuple(out.state)
 
 
 # ---------------------------------------------------------------------------
@@ -1268,10 +1359,12 @@ def tri_mat_table(scene: T.Scene, statics) -> np.ndarray:
 
 
 def mesh_ext_planes(ms, statics, tri_mat, o, d, t_cap, alive, *,
-                    mesh="binned", counters=None):
+                    mesh="binned", b1_fused=False, traverse8=True,
+                    counters=None):
     """The external mesh-hit planes for `bounce(..., ext=...)`: run the
     mesh closest hit (`ops/trace.mesh_closest`, pruned by `t_cap`, the
-    caller's dense-class pass), recompute the winning triangle's
+    caller's dense-class pass, on the route that `mesh`, `b1_fused` and
+    `traverse8` pick), recompute the winning triangle's
     barycentrics, and gather its normal and material. Returns a tuple of
     contiguous (N,) float32 planes: t (inf where no triangle beats the cap), the
     outward normal (interpolated vertex normals where present, else the
@@ -1289,7 +1382,8 @@ def mesh_ext_planes(ms, statics, tri_mat, o, d, t_cap, alive, *,
     if not ms.has_tri_bvh:
         raise ValueError("mesh_ext_planes requires a built triangle BVH")
     t_t, i_t = trace_mod.mesh_closest(ms, o, d, t_cap=t_cap, alive=alive,
-                                      mesh=mesh, counters=counters)
+                                      mesh=mesh, b1_fused=b1_fused,
+                                      traverse8=traverse8, counters=counters)
     # the intersectors return the untouched cap with idx = -1 when no
     # triangle beats it: gate on the idx
     hit = torch.isfinite(t_t) & (i_t >= 0) & (t_t < t_cap)

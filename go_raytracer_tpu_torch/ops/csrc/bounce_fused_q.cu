@@ -30,6 +30,14 @@
 // different materials. Tables are a few hundred floats, read with uniform
 // read-only loads (one broadcast per warp).
 //
+// `grt_bounce_fused_q_direct` replaces the Pallas TPU kernel
+// `bounce_fused_q_direct` (the same file, `_fused_q_kernel_direct`): the same
+// launches, but level j's records land in whole-window buffers (rec_levels,
+// n) at row lvl_base[0] + j, the base read on the device from a (1,) int32
+// tensor, so the host loop passes the whole buffers and a device base instead
+// of slicing them per call; a row past rec_levels is not written. Every other
+// row keeps its contents. What bounds it is K1's.
+//
 // The bounce itself (closest hit, shading, sampling) is `bounce_core` in
 // bounce_core.cuh, shared with bounce.cu; its precision note applies here.
 // The PRNG and the camera ray generation are fused_common.cuh's, shared
@@ -55,9 +63,11 @@ struct FusedQArgs {
   int* cursor_out;         // (1,)
   int* dead_cnt;           // (2, n / BLOCK) scratch
   int* cur_buf;            // (2,) scratch
+  const int* lvl_base;     // (1,) record row of level 0; null: row j
   int p_cols, quad_base, n_quad, box_base, n_box;
   int n_lights, n_lights_live;
   int n, n_inner, max_depth, width, sqrt_spp, npix;
+  int rec_levels;  // rows of the record buffers
 };
 
 __device__ __forceinline__ int block_sum(int v, int* red) {
@@ -181,11 +191,14 @@ fused_q_level(FusedQArgs a, int j) {
   }
 
   // ---- records: merged V plane + flag bits -------------------------------
-  const size_t r = (size_t)j * a.n + lane;
-  a.vr[r] = vr;
-  a.vg[r] = vg;
-  a.vb[r] = vb;
-  a.fl[r] = (cf ? 1 : 0) | (emit ? 2 : 0) | (take ? 4 | ((int)(item - cursor) << 3) : 0);
+  const int row = (a.lvl_base ? a.lvl_base[0] : 0) + j;
+  if (row >= 0 && row < a.rec_levels) {
+    const size_t r = (size_t)row * a.n + lane;
+    a.vr[r] = vr;
+    a.vg[r] = vg;
+    a.vb[r] = vb;
+    a.fl[r] = (cf ? 1 : 0) | (emit ? 2 : 0) | (take ? 4 | ((int)(item - cursor) << 3) : 0);
+  }
 
   // depth cap (camera.go:293-296): a path gets exactly max_depth + 1 levels
   alive_out = alive_out && depth < a.max_depth;
@@ -204,9 +217,7 @@ fused_q_level(FusedQArgs a, int j) {
   if (tid == 0) dcnt_out[b] = dead_next;
 }
 
-extern "C" int grt_bounce_fused_q(const FusedQArgs* args, void* stream) {
-  FusedQArgs a = *args;
-  cudaStream_t s = (cudaStream_t)stream;
+static int run_levels(FusedQArgs a, cudaStream_t s) {
   const int nb = a.n / BLOCK;
   count_dead<<<nb, BLOCK, 0, s>>>(a.alive_in, a.dead_cnt);
   cudaError_t err = cudaGetLastError();
@@ -227,6 +238,18 @@ extern "C" int grt_bounce_fused_q(const FusedQArgs* args, void* stream) {
     a.depth_in = a.depth;
   }
   return 0;
+}
+
+extern "C" int grt_bounce_fused_q(const FusedQArgs* args, void* stream) {
+  FusedQArgs a = *args;
+  a.lvl_base = nullptr;
+  a.rec_levels = a.n_inner;
+  return run_levels(a, (cudaStream_t)stream);
+}
+
+extern "C" int grt_bounce_fused_q_direct(const FusedQArgs* args, void* stream) {
+  if (args->lvl_base == nullptr) return (int)cudaErrorInvalidValue;
+  return run_levels(*args, (cudaStream_t)stream);
 }
 
 extern "C" const char* grt_error_string(int err) {

@@ -6,10 +6,12 @@
 //
 // The glue sorts the ray pool by candidate cluster, so block b's BLOCK rays
 // want one contiguous range [glo[b], ghi[b]) of packed 8-triangle groups.
-// One thread per ray; the block stages CHUNK groups at a time through shared
-// memory (each group is 8 triangles x 16 floats, read as 16-byte vectors)
-// and every thread tests its ray against each staged triangle, reading the
-// same shared address as its neighbours (a broadcast, no bank conflict).
+// One thread per ray; the block stages STREAM_CHUNK groups at a time through
+// shared memory (each group is 8 triangles x 16 floats, read as 16-byte
+// vectors) and every thread tests its ray against each staged triangle,
+// reading the same shared address as its neighbours (a broadcast, no bank
+// conflict): `stream_groups` in mt.cuh, shared with stream_round.cu and
+// stream2.cu.
 //
 // What bounds it: operations. A group costs each ray 8 Moller-Trumbore
 // tests of about 60 float operations, against 512 bytes read once per
@@ -18,7 +20,6 @@
 #include "mt.cuh"
 
 #define BLOCK 128
-#define CHUNK 16  // groups staged per step: 8 KB of shared memory
 
 struct StreamArgs {
   const float* lines;  // (n_groups, 128) packed group table
@@ -32,31 +33,13 @@ struct StreamArgs {
 };
 
 __global__ void __launch_bounds__(BLOCK) stream_rows_kernel(StreamArgs a) {
-  __shared__ __align__(16) float sh[CHUNK * ENTRY_FLOATS];
+  __shared__ __align__(16) float sh[STREAM_CHUNK * ENTRY_FLOATS];
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = b * BLOCK + tid;
-  const float ox = a.ox[lane], oy = a.oy[lane], oz = a.oz[lane];
-  const float dx = a.dx[lane], dy = a.dy[lane], dz = a.dz[lane];
+  const int lane = b * BLOCK + threadIdx.x;
   float t_best = a.t_in[lane];
   int idx = a.idx_in[lane];
-  const int glo = max(a.glo[b], 0);
-  const int ghi = min(a.ghi[b], a.n_groups);
-  const float4* __restrict__ src = reinterpret_cast<const float4*>(a.lines);
-  float4* dst = reinterpret_cast<float4*>(sh);
-  for (int g0 = glo; g0 < ghi; g0 += CHUNK) {
-    const int ng = min(CHUNK, ghi - g0);
-    __syncthreads();
-    // stage ng groups: 32 float4 per group (slot s = 4 float4, 8 slots)
-    for (int i = tid; i < ng * 32; i += BLOCK) {
-      const int g = g0 + (i >> 5);
-      const int s = (i >> 2) & 7;
-      dst[i] = __ldg(src + (packed_offset(g) + (size_t)s * 128) / 4 + (i & 3));
-    }
-    __syncthreads();
-    for (int k = 0; k < ng; ++k)
-      mt_group(sh + k * ENTRY_FLOATS, 16, ox, oy, oz, dx, dy, dz, t_best, idx);
-  }
+  stream_groups<BLOCK>(a.lines, max(a.glo[b], 0), min(a.ghi[b], a.n_groups), sh, a.ox[lane],
+                       a.oy[lane], a.oz[lane], a.dx[lane], a.dy[lane], a.dz[lane], t_best, idx);
   a.t_out[lane] = t_best;
   a.idx_out[lane] = idx;
 }

@@ -31,11 +31,6 @@ struct Traverse8Args {
   int n, dense_nodes;
 };
 
-__device__ __forceinline__ float safe_inv(float v) {
-  const float tiny = 1e-30f;
-  return 1.0f / (fabsf(v) < tiny ? (v < 0.0f ? -tiny : tiny) : v);
-}
-
 __global__ void __launch_bounds__(BLOCK) bvh8_closest_kernel(Traverse8Args a) {
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   if (lane >= a.n) return;

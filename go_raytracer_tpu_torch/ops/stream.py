@@ -1,7 +1,9 @@
-"""The row-stream kernel of the binned mesh intersector, and the
-Moller-Trumbore test it shares with the BVH8 walk.
+"""The row-stream kernel of the binned mesh intersector, its fused round,
+and the Moller-Trumbore test and candidate scan they share with the other
+intersectors.
 
-Counterpart of the JAX package's `ops/pallas/stream.stream_rows`. The
+Counterpart of the JAX package's `ops/pallas/stream.stream_rows` and
+`stream_round_rows`. The
 glue (`ops/trace.binned_closest`) sorts the ray pool by candidate cluster,
 so each block of `BLOCK` consecutive rays wants one contiguous range
 [glo, ghi) of packed 8-triangle groups. `stream_rows` tests every ray of a
@@ -11,6 +13,12 @@ are waste, not error (closest-hit updates are idempotent).
 
 On CUDA tensors it launches the hand-written kernel in `csrc/stream.cu`;
 on CPU tensors it runs the plain PyTorch version `stream_rows_ref`.
+
+`stream_round_rows` (K10, `csrc/stream_round.cu`) is one whole round of
+`ops/trace.binned_closest` in one launch: the stream of `stream_rows`, the
+mark of the block's cluster interval in each ray's processed bits, and
+each ray's next candidate cluster (`candidates`); its plain version is
+`stream_round_rows_ref`.
 
 Tie rules (they keep the winners equal to the BVH8 walk's): inside a
 group the least t wins and, on equal t, the largest triangle id; across
@@ -29,8 +37,11 @@ T_MIN = 1.0e-3
 # which the glue computes group ranges and marks clusters processed.
 BLOCK = 128
 
-# Launches of the CUDA kernel through `stream_rows` (one per call).
+# Launches of the CUDA kernels through `stream_rows` and `stream_round_rows`
+# (one per call).
 launches = 0
+launches_round = 0
+_TINY = 1e-30
 
 
 def unpack_lines(lines: torch.Tensor) -> torch.Tensor:
@@ -39,25 +50,15 @@ def unpack_lines(lines: torch.Tensor) -> torch.Tensor:
     return lines.view(-1, 8, 8, 16).permute(0, 2, 1, 3).reshape(-1, 8, 16)
 
 
-def mt_groups_ref(e, ox, oy, oz, dx, dy, dz, t_best, idx, mask=None):
-    """Moller-Trumbore of C group entries per ray, taken in order
-    (objects.go:408-461). Ray planes, t_best and idx share a shape S; `e`
-    is (*S, C, 8, 16) or broadcasts to it (the same groups for many
-    rays); `mask` (bool, broadcasting to (*S, C)) drops groups. Returns
-    the updated (t_best, idx).
-
-    Taking the groups one after the other, each against the best so far,
-    ends at the first group that reaches the least t of them all, and in
-    it at the largest triangle id of that t; that is what this computes,
-    in one pass. The operation order per triangle is the JAX kernel's and
-    the CUDA kernels', so all agree bit for bit."""
+def mt_tri_ref(e, ox, oy, oz, dx, dy, dz, t_best):
+    """Moller-Trumbore of triangles whose fields 0-2 are v0, 3-5 e0 and 6-8
+    e1 in the last dimension of `e`, against rays and bests that broadcast
+    to e[..., 0]: returns (t, hit inside (T_MIN, t_best)). The operation
+    order is the CUDA kernels' (`mt_hit` of csrc/mt.cuh)."""
     col = lambda k: e[..., k]
     v0x, v0y, v0z = col(0), col(1), col(2)
     e0x, e0y, e0z = col(3), col(4), col(5)
     e1x, e1y, e1z = col(6), col(7), col(8)
-    tid = col(9)
-    ox, oy, oz = (x[..., None, None] for x in (ox, oy, oz))
-    dx, dy, dz = (x[..., None, None] for x in (dx, dy, dz))
     pvx = dy * e1z - dz * e1y
     pvy = dz * e1x - dx * e1z
     pvz = dx * e1y - dy * e1x
@@ -74,8 +75,91 @@ def mt_groups_ref(e, ox, oy, oz, dx, dy, dz, t_best, idx, mask=None):
     tt = (e1x * qvx + e1y * qvy + e1z * qvz) * inv
     ok = ((torch.abs(det) >= 1e-12)
           & (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0)
-          & (uu + vv <= 1.0) & (tt > T_MIN)
-          & (tt < t_best[..., None, None]))
+          & (uu + vv <= 1.0) & (tt > T_MIN) & (tt < t_best))
+    return tt, ok
+
+
+def safe_inv(v):
+    """1 / v with |v| lifted to 1e-30, sign kept (the slab tests'
+    inverse direction)."""
+    return 1.0 / torch.where(torch.abs(v) < _TINY,
+                             torch.where(v < 0, -_TINY, _TINY), v)
+
+
+def candidates(lo, hi, ox, oy, oz, dx, dy, dz, t_best, proc):
+    """Each ray's next candidate cluster: the lex-least (near, k) over the
+    clusters k whose box (lo[k], hi[k]) the ray's interval (T_MIN, t_best)
+    hits and whose processed flag proc[ray, k] (bool, (N, K)) is clear.
+    Returns (k (int32, K where there is none), has). The arithmetic of the
+    CUDA kernels' scans (csrc/stream_round.cu, csrc/stream2.cu)."""
+    k_cl = lo.shape[0]
+    ix_, iy_, iz_ = safe_inv(dx), safe_inv(dy), safe_inv(dz)
+    tx0 = (lo[None, :, 0] - ox[:, None]) * ix_[:, None]
+    tx1 = (hi[None, :, 0] - ox[:, None]) * ix_[:, None]
+    ty0 = (lo[None, :, 1] - oy[:, None]) * iy_[:, None]
+    ty1 = (hi[None, :, 1] - oy[:, None]) * iy_[:, None]
+    tz0 = (lo[None, :, 2] - oz[:, None]) * iz_[:, None]
+    tz1 = (hi[None, :, 2] - oz[:, None]) * iz_[:, None]
+    near = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                       torch.minimum(ty0, ty1)),
+                         torch.minimum(tz0, tz1))
+    far = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                      torch.maximum(ty0, ty1)),
+                        torch.maximum(tz0, tz1))
+    near = torch.clamp(near, min=T_MIN)
+    hit = near < torch.minimum(far, t_best[:, None])
+    nearm = torch.where(hit & ~proc, near, float("inf"))
+    best_near, _ = nearm.min(dim=1)
+    # the least cluster id among equal nears
+    kid = torch.arange(k_cl, dtype=torch.int32, device=ox.device)
+    best_k = torch.where(nearm <= best_near[:, None], kid[None, :],
+                         0x7FFFFFFF).amin(dim=1)
+    has = torch.isfinite(best_near)
+    return torch.where(has, best_k, k_cl).to(torch.int32), has
+
+
+def range_bits(lo_b, hi_b):
+    """int32 words with bits [lo_b, hi_b) set, for 0 <= lo_b, hi_b <= 32
+    (a shift by 32 is avoided through the all-ones form)."""
+    one = torch.ones_like(lo_b)
+    hi_bits = torch.where(hi_b >= 32, -one,
+                          (one << torch.clamp(hi_b, max=31)) - 1)
+    lo_bits = torch.where(lo_b >= 32, -one,
+                          (one << torch.clamp(lo_b, max=31)) - 1)
+    return hi_bits & ~lo_bits
+
+
+def mark_range(masks, ca, cb):
+    """masks (n_mask, N) int32 processed-bit words with each ray's cluster
+    interval [ca, cb] (per ray, (N,) int32) set; cb < ca marks nothing."""
+    m = torch.arange(masks.shape[0], dtype=ca.dtype, device=ca.device)[:, None]
+    return masks | range_bits(torch.clamp(ca[None, :] - 32 * m, 0, 32),
+                              torch.clamp(cb[None, :] + 1 - 32 * m, 0, 32))
+
+
+def processed(masks, k_cl: int):
+    """(N, k_cl) bool: bit k of word k // 32 of each ray's mask words."""
+    shifts = torch.arange(32, dtype=torch.int32, device=masks.device)
+    return (((masks.t()[:, :, None] >> shifts) & 1) != 0) \
+        .reshape(masks.shape[1], -1)[:, :k_cl]
+
+
+def mt_groups_ref(e, ox, oy, oz, dx, dy, dz, t_best, idx, mask=None):
+    """Moller-Trumbore of C group entries per ray, taken in order
+    (objects.go:408-461). Ray planes, t_best and idx share a shape S; `e`
+    is (*S, C, 8, 16) or broadcasts to it (the same groups for many
+    rays); `mask` (bool, broadcasting to (*S, C)) drops groups. Returns
+    the updated (t_best, idx).
+
+    Taking the groups one after the other, each against the best so far,
+    ends at the first group that reaches the least t of them all, and in
+    it at the largest triangle id of that t; that is what this computes,
+    in one pass. The operation order per triangle is the JAX kernel's and
+    the CUDA kernels', so all agree bit for bit."""
+    ox, oy, oz = (x[..., None, None] for x in (ox, oy, oz))
+    dx, dy, dz = (x[..., None, None] for x in (dx, dy, dz))
+    tt, ok = mt_tri_ref(e, ox, oy, oz, dx, dy, dz, t_best[..., None, None])
+    tid = e[..., 9]
     if mask is not None:
         ok = ok & mask[..., None]
     tcand = torch.where(ok, tt, float("inf"))
@@ -181,3 +265,108 @@ def stream_rows(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
         raise RuntimeError(f"stream_rows launch failed: {_cuda.error_string(err)}")
     launches += 1
     return t_out, idx_out
+
+
+# ---------------------------------------------------------------------------
+# K10: one fused round of the binned intersector
+# ---------------------------------------------------------------------------
+
+MAX_ROUND_K = 256    # cluster boxes the fused round stages in shared memory
+
+
+def stream_round_rows_ref(tri_lines, lo, hi, glo, ghi, ca, cb, ox, oy, oz,
+                          dx, dy, dz, t, idx, masks):
+    """Plain PyTorch version of `stream_round_rows` (same arguments, same
+    results): `stream_rows_ref`, the mark of [ca, cb] per block, and
+    `candidates` on the updated bests and bits."""
+    t2, i2 = stream_rows_ref(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t,
+                             idx)
+    m2 = mark_range(masks, ca.repeat_interleave(BLOCK),
+                    cb.repeat_interleave(BLOCK))
+    key, _ = candidates(lo, hi, ox, oy, oz, dx, dy, dz, t2,
+                        processed(m2, lo.shape[0]))
+    return t2, i2, key, m2
+
+
+class _RoundArgs(ctypes.Structure):
+    """Mirror of `RoundArgs` in csrc/stream_round.cu (field for field)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "lines", "lo", "hi", "glo", "ghi", "ca", "cb", "ox", "oy", "oz",
+        "dx", "dy", "dz", "t_in", "idx_in", "masks_in", "t_out", "idx_out",
+        "key_out", "masks_out")] + [(name, ctypes.c_int) for name in (
+            "n_blocks", "n_groups", "k_cl", "n_mask")]
+
+
+def stream_round_rows(tri_lines, lo, hi, glo, ghi, ca, cb, ox, oy, oz, dx,
+                      dy, dz, t, idx, masks):
+    """One fused round of the binned intersector per block of `BLOCK`
+    sorted rays: stream the block's group range [glo, ghi) (as
+    `stream_rows`), OR the block's cluster interval [ca, cb] (cb < ca: none)
+    into each ray's processed bits, and scan the K <= 256 cluster boxes
+    (lo, hi: (K, 3) float32) for each ray's next candidate (`candidates`).
+
+    Ray planes, t (float32) and idx (int32): (N,) with N a multiple of
+    `BLOCK`; glo/ghi/ca/cb: (blocks,) int32; masks: (ceil(K/32), N) int32.
+    Returns new (t, idx, key, masks) with key = K where a ray has no
+    candidate. CUDA tensors launch csrc/stream_round.cu; CPU tensors run
+    `stream_round_rows_ref`."""
+    global launches_round
+    n = ox.numel()
+    k_cl = lo.shape[0]
+    n_mask = (k_cl + 31) // 32
+    if n % BLOCK:
+        raise ValueError(f"ray count {n} is not a multiple of {BLOCK}")
+    blocks = n // BLOCK
+    if k_cl > MAX_ROUND_K:
+        raise ValueError(f"the fused round takes at most {MAX_ROUND_K} "
+                         f"clusters, got {k_cl}")
+    for name, x in (("glo", glo), ("ghi", ghi), ("ca", ca), ("cb", cb)):
+        if x.shape != (blocks,):
+            raise ValueError(f"{name} must have shape ({blocks},)")
+    if lo.shape != (k_cl, 3) or hi.shape != (k_cl, 3):
+        raise ValueError("lo/hi must be (K, 3)")
+    if masks.shape != (n_mask, n):
+        raise ValueError(f"masks must be ({n_mask}, {n}), got "
+                         f"{tuple(masks.shape)}")
+    if not ox.is_cuda:
+        return stream_round_rows_ref(tri_lines, lo, hi, glo, ghi, ca, cb, ox,
+                                     oy, oz, dx, dy, dz, t, idx, masks)
+    from go_raytracer_tpu_torch.ops import _cuda
+
+    f32, i32 = torch.float32, torch.int32
+    planes = [("ox", ox, f32), ("oy", oy, f32), ("oz", oz, f32),
+              ("dx", dx, f32), ("dy", dy, f32), ("dz", dz, f32),
+              ("t", t, f32), ("idx", idx, i32)]
+    for name, x, dt in planes + [
+            ("tri_lines", tri_lines, f32), ("lo", lo, f32), ("hi", hi, f32),
+            ("glo", glo, i32), ("ghi", ghi, i32), ("ca", ca, i32),
+            ("cb", cb, i32), ("masks", masks, i32)]:
+        if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"{name}: needs a contiguous CUDA {dt} tensor")
+    for name, x, _ in planes:
+        if x.numel() != n:
+            raise ValueError(f"{name}: {x.numel()} elements, expected {n}")
+    if tri_lines.dim() != 2 or tri_lines.shape[1] != 128 \
+            or tri_lines.shape[0] % 8:
+        raise ValueError("tri_lines must be (8*L, 128)")
+    t_out, idx_out = torch.empty_like(t), torch.empty_like(idx)
+    key = torch.empty_like(idx)
+    m_out = torch.empty_like(masks)
+    if blocks == 0:
+        return t_out, idx_out, key, m_out
+    p = lambda x: x.data_ptr()
+    a = _RoundArgs(lines=p(tri_lines), lo=p(lo), hi=p(hi), glo=p(glo),
+                   ghi=p(ghi), ca=p(ca), cb=p(cb), ox=p(ox), oy=p(oy),
+                   oz=p(oz), dx=p(dx), dy=p(dy), dz=p(dz), t_in=p(t),
+                   idx_in=p(idx), masks_in=p(masks), t_out=p(t_out),
+                   idx_out=p(idx_out), key_out=p(key), masks_out=p(m_out),
+                   n_blocks=blocks, n_groups=tri_lines.shape[0], k_cl=k_cl,
+                   n_mask=n_mask)
+    err = _cuda.library("stream_round").grt_stream_round_rows(
+        ctypes.addressof(a), torch.cuda.current_stream(ox.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"stream_round_rows launch failed: {_cuda.error_string(err)}")
+    launches_round += 1
+    return t_out, idx_out, key, m_out

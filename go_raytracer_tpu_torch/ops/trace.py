@@ -1,21 +1,29 @@
-"""Closest triangle hit over a mesh: the binned intersector, the BVH8
-walk behind a coherence sort, and the plain skip-link walk.
+"""Closest triangle hit over a mesh: the binned intersectors, the BVH
+walks behind a coherence sort, and the plain skip-link walk.
 
 Counterpart of the mesh half of the JAX package's `ops/trace.py`:
 
 * `to_device` moves the scene tables the mesh path reads onto a device;
-* `mesh_closest` (the JAX package's `pallas_bvh_closest`) routes to
-  `binned_closest` (the default, K4 `ops/stream.stream_rows` inside) or,
-  with `mesh="walk"` or no cluster tables, sorts the rays by direction
-  octant and origin Morton cell and calls K5 `ops/traverse8.bvh8_closest`;
+* `mesh_closest` (the JAX package's `pallas_bvh_closest`) routes a bounce
+  level's rays to one of five kernels (`route_name` names them):
+  - mesh="binned" (the default): `binned_closest`, K4
+    `ops/stream.stream_rows` inside, or with `b1_fused` K10
+    `ops/stream.stream_round_rows`;
+  - mesh="binned2": `binned2_closest`, one launch of K11
+    `ops/stream2.stream2_rows` behind a coherence sort;
+  - mesh="walk": the coherence sort (direction octant, origin Morton
+    cell), then K5 `ops/traverse8.bvh8_closest` or, with
+    `traverse8=False`, K12 `ops/traverse.bvh_closest`;
 * `bvh_tri_closest` is the plain lockstep skip-link walk over the binary
-  BVH, kept as an oracle that shares nothing with the two kernels;
+  BVH, kept as an oracle that shares nothing with the kernels;
 * `tri_hit_gathered` recomputes one triangle per ray (attributes of the
   winner).
 
-The binned rounds end when no ray has a candidate cluster left, which
-the host learns from one device read per round; `counters` (a dict the
-caller passes) counts calls, rounds and those reads.
+Where the JAX package quietly takes another route (no `cl2_*` tables for
+binned2, too many clusters for the fused round), `check_route` raises.
+The binned rounds end when no ray has a candidate cluster left, which the
+host learns from one device read per round; `counters` (a dict the caller
+passes) counts calls, rounds and those reads.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import torch
 
 from go_raytracer_tpu_torch.ops import intersect as ix
 from go_raytracer_tpu_torch.ops import stream as stream_mod
+from go_raytracer_tpu_torch.ops import stream2 as stream2_mod
+from go_raytracer_tpu_torch.ops import traverse as trav_mod
 from go_raytracer_tpu_torch.ops import traverse8 as trav8_mod
 from go_raytracer_tpu_torch.scene import bvh8 as bvh8_mod
 from go_raytracer_tpu_torch.scene import types as T
@@ -45,8 +55,10 @@ def _ns(table, fields, device):
 def to_device(scene: T.Scene, device) -> _pytypes.SimpleNamespace:
     """The tables the mesh path reads, as tensors on `device`: the dense
     primitive tables (for the caps), the triangle table, and the BVH with
-    its 8-wide collapse and cluster partition. `bvh.max_stack` is the
-    deepest stack the BVH8 walk can reach on this tree."""
+    its 8-wide collapse, `ops/traverse.pack_bvh`'s rows (`bvh_nodes`,
+    `bvh_tris`) and both cluster partitions (the finer one's boxes also as
+    `cl2_lo`/`cl2_hi`). `bvh.max_stack` is the deepest stack the BVH8 walk
+    can reach on this tree."""
     dev = torch.device(device)
     out = _pytypes.SimpleNamespace(
         has_spheres=scene.has_spheres, has_quads=scene.has_quads,
@@ -61,7 +73,8 @@ def to_device(scene: T.Scene, device) -> _pytypes.SimpleNamespace:
         "v0", "e0", "e1", "n_face", "vn", "has_vn", "uv", "has_uv",
         "mat_id", "active"), dev)
     b = scene.tri_bvh
-    derived = ("nodes8", "tris8", "cl_lo", "cl_hi", "cl_gs", "cl_lines")
+    derived = ("nodes8", "tris8", "cl_lo", "cl_hi", "cl_gs", "cl_lines",
+               "cl_boxes", "cl2_boxes", "cl2_gs", "cl2_lines")
     bvh = _ns(b, ["node_min", "node_max", "first", "count", "skip", "order"]
               + [f for f in derived if getattr(b, f) is not None], dev)
     for f in derived:
@@ -71,6 +84,12 @@ def to_device(scene: T.Scene, device) -> _pytypes.SimpleNamespace:
     bvh.bvh8_dense = b.bvh8_dense
     bvh.max_stack = (bvh8_mod.max_stack(b.nodes8, b.bvh8_dense)
                      if b.nodes8 is not None else None)
+    bvh.bvh_nodes, bvh.bvh_tris = (
+        torch.from_numpy(x).to(dev) for x in trav_mod.pack_bvh(scene))
+    bvh.cl2_lo = bvh.cl2_hi = None
+    if bvh.cl2_gs is not None:
+        bvh.cl2_lo, bvh.cl2_hi = stream2_mod.boxes_lo_hi(
+            bvh.cl2_boxes, bvh.cl2_gs.shape[0] - 1)
     out.tri_bvh = bvh
     return out
 
@@ -158,25 +177,51 @@ def _part1by2(x):
     return x
 
 
-def mesh_closest(ms, o, d, t_cap=None, alive=None, *, mesh="binned",
-                 counters=None):
-    """Closest triangle hit for rays o, d (N, 3) with per-ray cap `t_cap`
-    (default inf) and live mask `alive`: returns (t, idx) with idx == -1
-    and t == the cap (0 for a dead ray) where nothing beats the cap.
+ROUTES = ("binned", "binned2", "walk")
 
-    mesh="binned": the binned intersector, when the scene has cluster
-    tables. mesh="walk" (or no cluster tables): rays are grouped by
-    (direction octant, 5-bit Morton cell of the origin in the root box),
-    dead rays last, so neighbouring threads of the BVH8 walk visit the
-    same nodes; a scatter by the permutation restores lane order."""
-    if mesh not in ("binned", "walk"):
-        raise ValueError(f"mesh={mesh!r}: expected 'binned' or 'walk'")
-    bvh = ms.tri_bvh
+
+def route_name(mesh="binned", *, b1_fused=False, traverse8=True) -> str:
+    """The route's name as the render stats give it: "binned",
+    "binned+b1_fused", "binned2", "walk" (the BVH8 walk) or "walk+bvh2"."""
+    if mesh == "binned" and b1_fused:
+        return "binned+b1_fused"
+    if mesh == "walk" and not traverse8:
+        return "walk+bvh2"
+    return mesh
+
+
+def check_route(bvh, mesh="binned", *, b1_fused=False, traverse8=True):
+    """Raise ValueError where the route cannot run on these tables, rather
+    than take another one: binned2 without the finer `cl2_*` partition,
+    b1_fused off the binned route or with more than 256 clusters or no
+    cluster-box table, traverse8=False off the walk route."""
+    if mesh not in ROUTES:
+        raise ValueError(f"mesh={mesh!r}: expected one of {ROUTES}")
     if bvh.nodes8 is None:
         raise ValueError("mesh_closest needs a scene with a triangle BVH")
-    if mesh == "binned" and bvh.cl_lines is not None:
-        return binned_closest(ms, o, d, t_cap, alive, counters=counters)
-    n = o.shape[0]
+    if mesh == "binned2" and bvh.cl2_lines is None:
+        raise ValueError(
+            "mesh='binned2' needs the finer cl2_* cluster partition, which "
+            "the builder makes only for meshes whose group table fits "
+            "CLUSTER2_TABLE_BYTES; this scene has none")
+    if b1_fused:
+        if mesh != "binned":
+            raise ValueError(f"b1_fused is an option of the binned route, "
+                             f"not of mesh={mesh!r}")
+        k_cl = None if bvh.cl_lo is None else bvh.cl_lo.shape[0]
+        if bvh.cl_boxes is None or k_cl > stream_mod.MAX_ROUND_K:
+            raise ValueError(
+                f"b1_fused needs the cluster-box table and at most "
+                f"{stream_mod.MAX_ROUND_K} clusters (this scene: {k_cl})")
+    if not traverse8 and mesh != "walk":
+        raise ValueError(f"traverse8=False picks the walk route's kernel; "
+                         f"it does not apply to mesh={mesh!r}")
+
+
+def coherence_key(bvh, o, d):
+    """(direction octant << 15) | 15-bit Morton code of the origin's cell
+    in a 32^3 grid over the root box: the walk routes' and binned2's sort
+    key, so neighbouring threads visit the same nodes and clusters."""
     lo = bvh.node_min[0]
     ext = torch.clamp(bvh.node_max[0] - lo, min=1e-6)
     q = torch.clamp((o - lo) / ext * 32.0, 0.0, 31.0).to(torch.int32)
@@ -184,7 +229,64 @@ def mesh_closest(ms, o, d, t_cap=None, alive=None, *, mesh="binned",
         | _part1by2(q[:, 2])
     octant = ((d[:, 0] > 0).to(torch.int32) << 2) \
         | ((d[:, 1] > 0).to(torch.int32) << 1) | (d[:, 2] > 0).to(torch.int32)
-    key = (octant << 15) | morton
+    return (octant << 15) | morton
+
+
+def _count_call(counters):
+    if counters is not None:
+        counters["mesh_calls"] = counters.get("mesh_calls", 0) + 1
+
+
+def _unsort(perm, t_s, i_s):
+    t_t = torch.empty_like(t_s)
+    i_t = torch.empty_like(i_s)
+    t_t[perm] = t_s
+    i_t[perm] = i_s
+    return t_t, i_t
+
+
+def _pad_pool(o, d, t_cap, alive, tile):
+    """Rays padded to a multiple of `tile` (zero-capped padding rays), with
+    dead rays' caps set to 0."""
+    n_orig = o.shape[0]
+    dev = o.device
+    pad = -(-n_orig // tile) * tile - n_orig
+    if t_cap is None:
+        t_cap = torch.full((n_orig,), INF, dtype=o.dtype, device=dev)
+    if alive is not None:
+        t_cap = torch.where(alive, t_cap, 0.0)
+    if pad:
+        o = torch.cat([o, torch.zeros((pad, 3), dtype=o.dtype, device=dev)])
+        d = torch.cat([d, torch.ones((pad, 3), dtype=d.dtype, device=dev)])
+        t_cap = torch.cat([t_cap, torch.zeros(pad, dtype=t_cap.dtype,
+                                              device=dev)])
+    return o, d, t_cap
+
+
+def mesh_closest(ms, o, d, t_cap=None, alive=None, *, mesh="binned",
+                 b1_fused=False, traverse8=True, counters=None):
+    """Closest triangle hit for rays o, d (N, 3) with per-ray cap `t_cap`
+    (default inf) and live mask `alive`: returns (t, idx) with idx == -1
+    and t == the cap (0 for a dead ray) where nothing beats the cap.
+
+    mesh="binned": the binned intersector (`b1_fused`: its fused rounds),
+    when the scene has cluster tables; mesh="binned2": the
+    persistent-block intersector; mesh="walk" (or "binned" with no cluster
+    tables): rays are grouped by `coherence_key`, dead rays last, so
+    neighbouring threads of the walk (the BVH8 walk, or with
+    `traverse8=False` the binary skip-link walk) visit the same nodes; a
+    scatter by the permutation restores lane order. All routes return the
+    closest hit; where a ray meets two triangles of different groups at
+    one t, they may keep different ones."""
+    bvh = ms.tri_bvh
+    check_route(bvh, mesh, b1_fused=b1_fused, traverse8=traverse8)
+    if mesh == "binned" and bvh.cl_lines is not None:
+        return binned_closest(ms, o, d, t_cap, alive, b1_fused=b1_fused,
+                              counters=counters)
+    if mesh == "binned2":
+        return binned2_closest(ms, o, d, t_cap, alive, counters=counters)
+    n = o.shape[0]
+    key = coherence_key(bvh, o, d)
     if t_cap is None:
         t_cap = torch.full((n,), INF, dtype=o.dtype, device=o.device)
     if alive is not None:
@@ -192,73 +294,40 @@ def mesh_closest(ms, o, d, t_cap=None, alive=None, *, mesh="binned",
         t_cap = torch.where(alive, t_cap, 0.0)
         key = torch.where(alive, key, 0x7FFFFFFF)
     perm = torch.sort(key).indices
-    t_s, i_s = trav8_mod.bvh8_closest(
-        bvh.nodes8, bvh.tris8, o[perm].contiguous(), d[perm].contiguous(),
-        t_cap[perm].contiguous(), dense_nodes=bvh.bvh8_dense,
-        max_stack=bvh.max_stack)
-    t_t = torch.empty_like(t_s)
-    i_t = torch.empty_like(i_s)
-    t_t[perm] = t_s
-    i_t[perm] = i_s
-    if counters is not None:
-        counters["mesh_calls"] = counters.get("mesh_calls", 0) + 1
-    return t_t, i_t
-
-
-def _range_bits(lo_b, hi_b):
-    """int32 words with bits [lo_b, hi_b) set, for 0 <= lo_b, hi_b <= 32
-    (a shift by 32 is avoided through the all-ones form)."""
-    one = torch.ones_like(lo_b)
-    hi_bits = torch.where(hi_b >= 32, -one,
-                          (one << torch.clamp(hi_b, max=31)) - 1)
-    lo_bits = torch.where(lo_b >= 32, -one,
-                          (one << torch.clamp(lo_b, max=31)) - 1)
-    return hi_bits & ~lo_bits
+    o_s, d_s, cap_s = (x[perm].contiguous() for x in (o, d, t_cap))
+    if traverse8:
+        t_s, i_s = trav8_mod.bvh8_closest(
+            bvh.nodes8, bvh.tris8, o_s, d_s, cap_s,
+            dense_nodes=bvh.bvh8_dense, max_stack=bvh.max_stack)
+    else:
+        t_s, i_s = trav_mod.bvh_closest(bvh.bvh_nodes, bvh.bvh_tris, o_s,
+                                        d_s, cap_s, n_nodes=bvh.n_nodes)
+    _count_call(counters)
+    return _unsort(perm, t_s, i_s)
 
 
 def _candidates(lo_k, hi_k, ox, oy, oz, dx, dy, dz, t_best, masks):
-    """Per-ray lex-min (near, k) over the clusters the ray's interval
-    (T_MIN, t_best) hits and whose processed bit is clear. Returns
-    (k (int32, K where none), has)."""
-    k_cl = lo_k.shape[0]
-    ix_, iy_, iz_ = 1.0 / _safe(dx), 1.0 / _safe(dy), 1.0 / _safe(dz)
-    tx0 = (lo_k[None, :, 0] - ox[:, None]) * ix_[:, None]
-    tx1 = (hi_k[None, :, 0] - ox[:, None]) * ix_[:, None]
-    ty0 = (lo_k[None, :, 1] - oy[:, None]) * iy_[:, None]
-    ty1 = (hi_k[None, :, 1] - oy[:, None]) * iy_[:, None]
-    tz0 = (lo_k[None, :, 2] - oz[:, None]) * iz_[:, None]
-    tz1 = (hi_k[None, :, 2] - oz[:, None]) * iz_[:, None]
-    near = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
-                                       torch.minimum(ty0, ty1)),
-                         torch.minimum(tz0, tz1))
-    far = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
-                                      torch.maximum(ty0, ty1)),
-                        torch.maximum(tz0, tz1))
-    near = torch.clamp(near, min=T_MIN)
-    hit = near < torch.minimum(far, t_best[:, None])
-    shifts = torch.arange(32, dtype=torch.int32, device=ox.device)
-    proc = ((torch.stack(masks, dim=1)[:, :, None] >> shifts) & 1) \
-        .reshape(ox.shape[0], -1)[:, :k_cl]
-    nearm = torch.where(hit & (proc == 0), near, INF)
-    best_near, best_k = nearm.min(dim=1)
-    # the least cluster id among equal nears
-    kid = torch.arange(k_cl, dtype=torch.int32, device=ox.device)
-    best_k = torch.where(nearm <= best_near[:, None], kid[None, :],
-                         0x7FFFFFFF).amin(dim=1)
-    has = torch.isfinite(best_near)
-    return torch.where(has, best_k, k_cl).to(torch.int32), has
+    """`ops/stream.candidates` with the processed bits as (n_mask, N)
+    int32 words."""
+    return stream_mod.candidates(lo_k, hi_k, ox, oy, oz, dx, dy, dz, t_best,
+                                 stream_mod.processed(masks, lo_k.shape[0]))
 
 
 def binned_closest(ms, o, d, t_cap=None, alive=None, max_iters: int = 512,
-                   counters=None):
+                   b1_fused=False, counters=None):
     """Closest triangle hit via the binned intersector: every round each
     ray picks its nearest cluster whose processed bit is clear (front to
     back, pruned by the ray's evolving t_best), the pool is sorted by that
     cluster id, and `stream_rows` tests each block of `stream.BLOCK`
     sorted rays against the block's contiguous group range. Every cluster
     in a block's range is marked processed for every ray of the block
-    (the bits ride the sort as K/32 int32 planes), so progress is strict
-    and rounds are bounded by K.
+    (the bits ride the sort as (K/32, N) int32 words), so progress is
+    strict and rounds are bounded by K.
+
+    b1_fused: each round after the sort is one launch of
+    `stream_round_rows` (the stream, the mark and the next candidates) in
+    place of `stream_rows` and the tensor-code mark and scan: the same
+    arithmetic, so the same rounds, winners and t.
 
     Once at most an eighth of the pool still has a candidate, one sort
     packs those rays into the pool's first eighth and the remaining
@@ -271,17 +340,8 @@ def binned_closest(ms, o, d, t_cap=None, alive=None, max_iters: int = 512,
     n_orig = o.shape[0]
     dev = o.device
     tile = stream_mod.BLOCK
-    n = -(-n_orig // tile) * tile
-    pad = n - n_orig
-    if t_cap is None:
-        t_cap = torch.full((n_orig,), INF, dtype=o.dtype, device=dev)
-    if alive is not None:
-        t_cap = torch.where(alive, t_cap, 0.0)
-    if pad:
-        o = torch.cat([o, torch.zeros((pad, 3), dtype=o.dtype, device=dev)])
-        d = torch.cat([d, torch.ones((pad, 3), dtype=d.dtype, device=dev)])
-        t_cap = torch.cat([t_cap, torch.zeros(pad, dtype=t_cap.dtype,
-                                              device=dev)])
+    o, d, t_cap = _pad_pool(o, d, t_cap, alive, tile)
+    n = o.shape[0]
     k_cl = bvh.cl_lo.shape[0]
     n_mask = (k_cl + 31) // 32
     gs = bvh.cl_gs.to(torch.int64)
@@ -289,19 +349,18 @@ def binned_closest(ms, o, d, t_cap=None, alive=None, max_iters: int = 512,
             d[:, 0].contiguous(), d[:, 1].contiguous(), d[:, 2].contiguous()]
     t_best = t_cap.contiguous()
     idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    masks = [torch.zeros(n, dtype=torch.int32, device=dev)
-             for _ in range(n_mask)]
+    masks = torch.zeros((n_mask, n), dtype=torch.int32, device=dev)
     io = torch.arange(n, device=dev)
     rounds = reads = 0
 
-    def count_active(has):
+    def count_active(key):
         nonlocal reads
         reads += 1
-        return int(has.sum())        # the round's one host read
+        return int((key < k_cl).sum())        # the round's one host read
 
     def permute(perm, rays, t_best, idx, io, masks):
         return ([r[perm] for r in rays], t_best[perm], idx[perm], io[perm],
-                [m[perm] for m in masks])
+                masks[:, perm])
 
     def one_round(key, rays, t_best, idx, io, masks):
         """Sort by candidate cluster, mark and stream each block's range,
@@ -324,50 +383,72 @@ def binned_closest(ms, o, d, t_cap=None, alive=None, max_iters: int = 512,
         ghi = torch.where(
             empty, zero, gs[torch.clamp(blk_last, 0, k_cl - 1).long() + 1]
             .to(torch.int32))
-        ca = blk_first.repeat_interleave(tile)
-        cb = blk_last.repeat_interleave(tile)
-        masks = [mk | _range_bits(torch.clamp(ca - 32 * m, 0, 32),
-                                  torch.clamp(cb + 1 - 32 * m, 0, 32))
-                 for m, mk in enumerate(masks)]
-        t_best, idx = stream_mod.stream_rows(
-            bvh.cl_lines, glo.contiguous(), ghi.contiguous(), *rays, t_best,
-            idx)
-        bk, has = _candidates(bvh.cl_lo, bvh.cl_hi, *rays, t_best, masks)
-        return bk, has, rays, t_best, idx, io, masks
+        if b1_fused:
+            t_best, idx, key, masks = stream_mod.stream_round_rows(
+                bvh.cl_lines, bvh.cl_lo, bvh.cl_hi, glo, ghi,
+                torch.where(empty, zero, blk_first), blk_last, *rays,
+                t_best, idx, masks)
+            return key, rays, t_best, idx, io, masks
+        masks = stream_mod.mark_range(masks, blk_first.repeat_interleave(tile),
+                                      blk_last.repeat_interleave(tile))
+        t_best, idx = stream_mod.stream_rows(bvh.cl_lines, glo, ghi, *rays,
+                                             t_best, idx)
+        key, _ = _candidates(bvh.cl_lo, bvh.cl_hi, *rays, t_best, masks)
+        return key, rays, t_best, idx, io, masks
 
-    key, has = _candidates(bvh.cl_lo, bvh.cl_hi, *rays, t_best, masks)
-    n_active = count_active(has)
+    key, _ = _candidates(bvh.cl_lo, bvh.cl_hi, *rays, t_best, masks)
+    n_active = count_active(key)
     thresh = max(tile, -(-(n // 8) // tile) * tile)
     floor = thresh if thresh < n else 0
     while rounds < max_iters and n_active > floor:
-        key, has, rays, t_best, idx, io, masks = one_round(
+        key, rays, t_best, idx, io, masks = one_round(
             key, rays, t_best, idx, io, masks)
-        n_active = count_active(has)
+        n_active = count_active(key)
         rounds += 1
     if floor and n_active > 0:
         perm = torch.sort(key).indices
         rays, t_best, idx, io, masks = permute(perm, rays, t_best, idx, io,
                                                masks)
         key = key[perm]
-        head = lambda x: x[:thresh].contiguous()
+        head = lambda x: x[..., :thresh].contiguous()
         h_rays, h_t, h_idx, h_io = [head(r) for r in rays], head(t_best), \
             head(idx), head(io)
-        h_masks, h_key = [head(m) for m in masks], head(key)
+        h_masks, h_key = head(masks), head(key)
         while rounds < max_iters and n_active > 0:
-            h_key, has, h_rays, h_t, h_idx, h_io, h_masks = one_round(
+            h_key, h_rays, h_t, h_idx, h_io, h_masks = one_round(
                 h_key, h_rays, h_t, h_idx, h_io, h_masks)
-            n_active = count_active(has)
+            n_active = count_active(h_key)
             rounds += 1
         t_best = torch.cat([h_t, t_best[thresh:]])
         idx = torch.cat([h_idx, idx[thresh:]])
         io = torch.cat([h_io, io[thresh:]])
     # undo the pool permutation
-    t_o = torch.empty_like(t_best)
-    i_o = torch.empty_like(idx)
-    t_o[io] = t_best
-    i_o[io] = idx
+    t_o, i_o = _unsort(io, t_best, idx)
+    _count_call(counters)
     if counters is not None:
-        counters["mesh_calls"] = counters.get("mesh_calls", 0) + 1
         counters["rounds"] = counters.get("rounds", 0) + rounds
         counters["host_reads"] = counters.get("host_reads", 0) + reads
+    return t_o[:n_orig], i_o[:n_orig]
+
+
+def binned2_closest(ms, o, d, t_cap=None, alive=None, counters=None):
+    """Closest triangle hit via the persistent-block binned intersector:
+    one `coherence_key` sort groups the rays (dead and zero-capped rays
+    last, so whole blocks finish at their first scan), then one launch of
+    `ops/stream2.stream2_rows` runs every block's rounds over the finer
+    `cl2_*` partition, with no host read; a scatter by the permutation
+    restores lane order. Winners match the BVH8 walk's."""
+    bvh = ms.tri_bvh
+    n_orig = o.shape[0]
+    o, d, t_cap = _pad_pool(o, d, t_cap, alive, stream2_mod.BLOCK)
+    key = torch.where(t_cap > 0.0, coherence_key(bvh, o, d), 0x7FFFFFFF)
+    perm = torch.sort(key).indices
+    o_s, d_s = o[perm], d[perm]
+    t_s, i_s = stream2_mod.stream2_rows(
+        bvh.cl2_lines, bvh.cl2_lo, bvh.cl2_hi, bvh.cl2_gs,
+        *(x[:, k].contiguous() for x in (o_s, d_s) for k in range(3)),
+        t_cap[perm].contiguous(),
+        torch.full((o.shape[0],), -1, dtype=torch.int32, device=o.device))
+    t_o, i_o = _unsort(perm, t_s, i_s)
+    _count_call(counters)
     return t_o[:n_orig], i_o[:n_orig]

@@ -69,6 +69,12 @@ BVH_LEAF_SIZE = 16
 # triangles per cluster of the binned intersector (at most 256 clusters,
 # so the processed bits ride the per-round sort as at most 8 int32 planes)
 CLUSTER_TRIS = 512
+# triangles per cluster of the finer partition of the persistent-block
+# intersector (ops/stream2.py; at most 1024 clusters)
+CLUSTER2_TRIS = 128
+# the finer partition is built only for meshes whose packed group table
+# (64 B per triangle) fits this budget, as in the JAX package
+CLUSTER2_TABLE_BYTES = 12 * 1024 * 1024
 
 
 def _bulk_transform_vectors(tr: Transform, v: np.ndarray) -> np.ndarray:
@@ -318,7 +324,8 @@ class SceneBuilder:
     # ---------------------------------------------------------------- build
     def build(self, bvh_threshold: int = BVH_THRESHOLD,
               bvh_leaf_size: int = BVH_LEAF_SIZE,
-              cluster_tris: int = CLUSTER_TRIS) -> T.Scene:
+              cluster_tris: int = CLUSTER_TRIS,
+              cluster2_tris: int = CLUSTER2_TRIS) -> T.Scene:
         f = lambda x: np.asarray(np.asarray(x, dtype=np.float64), np.float32)
         i32 = lambda x: np.asarray(x, dtype=np.int32)
         act = lambda rows, n: np.arange(len(rows)) < n
@@ -406,6 +413,11 @@ class SceneBuilder:
                                    max_leaf=fb.leaf_size)
             cl = cl_mod.partition(fb, v0_np, e0_np, e1_np,
                                   max_tris=cluster_tris)
+            cl2 = None
+            if n_td * 64 <= CLUSTER2_TABLE_BYTES:
+                cl2 = cl_mod.partition(fb, v0_np, e0_np, e1_np,
+                                       max_tris=cluster2_tris,
+                                       max_clusters=1024)
             tri_bvh = T.TriBVH(
                 node_min=f(fb.node_min), node_max=f(fb.node_max),
                 first=i32(fb.first), count=i32(fb.count), skip=i32(fb.skip),
@@ -415,7 +427,11 @@ class SceneBuilder:
                 bvh8_dense=b8.dense_nodes,
                 cl_lo=cl.aabb_lo, cl_hi=cl.aabb_hi, cl_gs=cl.group_start,
                 cl_lines=cl.tri_lines,
-                cl_boxes=cl_mod.pack_cluster_boxes(cl.aabb_lo, cl.aabb_hi))
+                cl_boxes=cl_mod.pack_cluster_boxes(cl.aabb_lo, cl.aabb_hi),
+                cl2_boxes=(None if cl2 is None else cl_mod.pack_cluster_boxes(
+                    cl2.aabb_lo, cl2.aabb_hi)),
+                cl2_gs=None if cl2 is None else cl2.group_start,
+                cl2_lines=None if cl2 is None else cl2.tri_lines)
         else:
             tri_bvh = T.TriBVH(
                 node_min=f(np.zeros((1, 3))), node_max=f(np.ones((1, 3))),

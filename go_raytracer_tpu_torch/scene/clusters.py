@@ -27,10 +27,11 @@ from go_raytracer_tpu_torch.scene.bvh8 import ROW_PAD, WIDE, _pack_lines
 
 def pack_cluster_boxes(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
     """Pack cluster AABBs in the bvh8._pack_lines layout: octet m holds
-    clusters [8m, 8m+8) in its slots with fields lo.xyz, hi.xyz at 0-5
-    (the table of the fused-round intersector, which this package does
-    not run yet). Padding clusters get inverted boxes (lo=+inf, hi=-inf)
-    that can never be hit."""
+    clusters [8m, 8m+8) in its slots with fields lo.xyz, hi.xyz at 0-5,
+    as the JAX package's in-kernel candidate scans read them. Padding
+    clusters get inverted boxes (lo=+inf, hi=-inf); the port's kernels
+    read only the real boxes (ops/stream2.boxes_lo_hi), since a min/max
+    slab test reads an inverted box as one holding everything."""
     k = lo.shape[0]
     pad = (-k) % 8
     if pad:

@@ -246,8 +246,8 @@ class TriBVH:
     cl_gs: Optional[np.ndarray] = None     # (K + 1,) int32 group offsets
     cl_lines: Optional[np.ndarray] = None  # packed triangle-group lines
     cl_boxes: Optional[np.ndarray] = None  # packed cluster-box lines
-    # the finer partition of the persistent-block intersector, which this
-    # package does not build yet (ROADMAP.md); carried when given
+    # the finer partition of the persistent-block intersector
+    # (ops/stream2.py); None for a mesh above the builder's table budget
     cl2_boxes: Optional[np.ndarray] = None
     cl2_gs: Optional[np.ndarray] = None
     cl2_lines: Optional[np.ndarray] = None

@@ -98,3 +98,56 @@ def test_unported_paths_exit_2(tmp_path):
                      "--spp", "1", "--quiet", *extra])
         assert r.returncode == 2, (extra, r.stderr[-500:])
         assert "ROADMAP" in r.stderr or "subset" in r.stderr, extra
+
+
+def test_route_flags_refuse_instead_of_falling_back(tmp_path):
+    """Where the JAX package would quietly take another route, the port
+    exits 2 with a message: the BVH walk's option off the walk route, the
+    fused round off the binned route, and records written in place on a
+    scene with image textures (scene 5)."""
+    for extra, word in ((["-S", "8", "--no-traverse8"], "traverse8"),
+                        (["-S", "8", "--mesh", "walk", "--b1-fused"],
+                         "b1_fused"),
+                        (["-S", "5", "--direct-rec"], "image")):
+        r = run_cli(["-o", str(tmp_path / "x.ppm"), "--cpu", "--width", "8",
+                     "--spp", "1", "--quiet", *extra])
+        assert r.returncode == 2, (extra, r.stderr[-500:])
+        assert word in r.stderr, (extra, r.stderr[-500:])
+        assert not (tmp_path / "x.ppm").exists()
+
+
+def test_binned2_and_fused_need_their_tables(tmp_path, monkeypatch):
+    """Scene 8 built without the finer cl2 partition (the budget rule set
+    to nothing) refuses --mesh binned2, and with more clusters than the
+    fused round holds (its limit lowered below scene 8's 128) refuses
+    --b1-fused: exit 2, no image."""
+    from go_raytracer_tpu_torch import cli
+    from go_raytracer_tpu_torch.ops import stream
+    from go_raytracer_tpu_torch.scene import builder
+
+    out = tmp_path / "x.ppm"
+    args = ["-S", "8", "-o", str(out), "--cpu", "--width", "8", "--spp",
+            "1", "--quiet"]
+    with monkeypatch.context() as m:
+        m.setattr(builder, "CLUSTER2_TABLE_BYTES", 0)
+        assert cli.main(args + ["--mesh", "binned2"]) == 2
+    with monkeypatch.context() as m:
+        m.setattr(stream, "MAX_ROUND_K", 64)
+        assert cli.main(args + ["--b1-fused"]) == 2
+    assert not out.exists()
+
+
+def test_direct_rec_flag_renders_the_same_image(tmp_path):
+    """`--direct-rec` on cornellBox at 32 px: exit 0, the stats say so, and
+    the image equals the plane path's at the same seed."""
+    imgs = []
+    for extra in ([], ["--direct-rec"]):
+        out = tmp_path / f"d{len(imgs)}.ppm"
+        r = run_cli(["-S", "6", "-o", str(out), "--cpu", "--width", "32",
+                     "--spp", "4", "--max-depth", "4", "--lanes", "2048",
+                     "--stats", "--quiet", *extra])
+        assert r.returncode == 0, r.stderr[-2000:]
+        stats = json.loads(r.stdout.strip().splitlines()[-1])
+        assert stats["direct_rec"] == bool(extra)
+        imgs.append(out.read_text())
+    assert imgs[0] == imgs[1]

@@ -11,7 +11,7 @@ import torch
 
 from go_raytracer_tpu_torch.integrator import regen
 from go_raytracer_tpu_torch.ops import bounce, harvest, intersect, stream
-from go_raytracer_tpu_torch.ops import trace, traverse8
+from go_raytracer_tpu_torch.ops import stream2, trace, traverse, traverse8
 from go_raytracer_tpu_torch.render.camera import Camera
 from go_raytracer_tpu_torch.scene.builder import SceneBuilder
 from go_raytracer_tpu_torch.scenes import registry
@@ -469,3 +469,188 @@ def test_schedule_window_kernels_match_plain(cuda, schedule):
         k = regen._pos_state_k(state, quota)
         assert started == int(k.sum()) > n and (k <= quota).all()
         assert torch.isfinite(B).all() and float(B.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K9-K12: the direct-record queue and the further mesh routes' kernels
+# ---------------------------------------------------------------------------
+
+def test_direct_rec_kernel_matches_k1_and_plain(cuda):
+    """K9 at 131072 lanes: its rows at base 3 of a 12-row buffer equal K1's
+    planes bit for bit (the same device code), the other rows keep their
+    marker; against the plain version within K1's tolerances."""
+    n, n_inner, base = 1 << 17, 8, 3
+    _, _, tables, st, cam_row, bg, state = _cornell(cuda, n)
+    seed4 = torch.tensor([-5, n_inner, 1000, 360000 * 100],
+                         dtype=torch.int32, device=cuda)
+    kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner, width=600,
+              sqrt_spp=10, npix=360000)
+    k1 = bounce.bounce_fused_q(tables, st, cam_row, bg, seed4, *state, **kw)
+    bufs = [torch.full((12, n), -7.5, device=cuda) for _ in range(3)] \
+        + [torch.full((12, n), -9, dtype=torch.int32, device=cuda)]
+    before = bounce.launches_direct
+    k9 = bounce.bounce_fused_q_direct(
+        tables, st, cam_row, bg, seed4,
+        torch.tensor([base], dtype=torch.int32, device=cuda), bufs, *state,
+        **kw)
+    torch.cuda.synchronize()
+    assert bounce.launches_direct == before + 1
+    rows = slice(base, base + n_inner)
+    for a, b in zip(bufs, k1[0]):
+        assert torch.equal(a[rows], b)
+        assert (a[:base] == a.new_tensor(-9 if a.dtype == torch.int32
+                                         else -7.5)).all()
+        assert (a[base + n_inner:] == a[0, 0]).all()
+    assert torch.equal(k9[4], k1[2]) and torch.equal(k9[5], k1[3])
+    assert all(torch.equal(a, b) for a, b in zip(k9[6:], k1[4:]))
+    pbufs = [b.clone() for b in bufs]
+    p = bounce.bounce_fused_q_direct_ref(
+        tables, st, cam_row, bg, seed4,
+        torch.tensor([base], dtype=torch.int32, device=cuda), pbufs, *state,
+        **kw)
+    assert p[5][0].item() == k9[5][0].item()
+    fl_k, fl_p = bufs[3][rows], pbufs[3][rows]
+    assert torch.equal(fl_k[0] & 4, fl_p[0] & 4)
+    assert ((fl_k & 7) != (fl_p & 7)).float().mean() <= MISMATCH_FRAC
+    agree = fl_k == fl_p
+    for a, b in zip(bufs[:3], pbufs[:3]):
+        off = ~torch.isclose(a[rows][agree], b[rows][agree], rtol=RTOL,
+                             atol=ATOL, equal_nan=True)
+        assert off.float().mean() <= MISMATCH_FRAC
+
+
+def test_direct_rec_window_equals_plane_window(cuda):
+    """One cornellBox window through K9 and through K1: the same records,
+    bases, counts and accumulator, bit for bit."""
+    scene, cam, tables, st, cam_row, bg, _ = _cornell(cuda, 8)
+    n, cad, window = 1 << 15, 8, 64
+    npix = 600 * 600
+    res = []
+    for direct in (False, True):
+        bufs = regen.WindowBuffers.empty(n, window // cad, cad, cuda)
+        for r in bufs.rec:
+            r.zero_()
+        acc = torch.zeros((npix * 100 + n, 3), device=cuda)
+        _, _, cur = regen._window_impl(
+            tables, st, cam_row, bg, acc, regen._init_state(n, cuda),
+            torch.zeros(1, dtype=torch.int32, device=cuda),
+            regen.window_seeds(0, 0, window // cad), 0, npix * 100,
+            width=600, npix=npix, sqrt_spp=10, window=window, refill=40,
+            cadence=cad, max_depth=50,
+            max_contribution=cam.max_contribution, bufs=bufs,
+            direct_rec=direct)
+        torch.cuda.synchronize()
+        ran = int(cur[2]) // cad          # count rows of the calls that ran
+        res.append((cur.cpu(), [r.clone() for r in bufs.rec],
+                    bufs.base[:ran].clone(), bufs.seg[:ran].clone(), acc))
+    (c0, r0, b0, s0, a0), (c1, r1, b1, s1, a1) = res
+    assert torch.equal(c0, c1) and torch.equal(b0, b1) and torch.equal(s0, s1)
+    assert all(torch.equal(x, y) for x, y in zip(r0, r1))
+    assert torch.equal(a0, a1)
+
+
+def test_stream_round_kernel_matches_plain(cuda, scene8):
+    """K10 on a sorted pool with random processed bits: t, idx, the next
+    key and the bits equal the plain version's bit for bit; an empty
+    block keeps its rays."""
+    ms = trace.to_device(scene8[0], cuda)
+    bvh = ms.tri_bvh
+    n = 128 * stream.BLOCK
+    o, d, cap, alive = _mesh_rays(cuda, n, 11)
+    k_cl = bvh.cl_lo.shape[0]
+    rs = np.random.default_rng(12)
+    key = np.sort(rs.integers(0, k_cl, n))
+    key[-5 * stream.BLOCK:] = k_cl
+    kb = torch.from_numpy(key).to(cuda).view(-1, stream.BLOCK)
+    first, last = kb[:, 0], torch.where(kb < k_cl, kb, -1).amax(dim=1)
+    empty = last < 0
+    gs = bvh.cl_gs.long()
+    glo = torch.where(empty, 0, gs[first.clamp(0, k_cl - 1)]).int()
+    ghi = torch.where(empty, 0, gs[last.clamp(0, k_cl - 1) + 1]).int()
+    ca = torch.where(empty, 0, first).int()
+    cb = last.int()
+    masks = torch.from_numpy(rs.integers(
+        -(1 << 31), 1 << 31, ((k_cl + 31) // 32, n)).astype(np.int32)).to(cuda)
+    planes = [o[:, k].contiguous() for k in range(3)] \
+        + [d[:, k].contiguous() for k in range(3)]
+    t0 = torch.where(alive, cap, 0.0)
+    idx0 = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    args = (bvh.cl_lines, bvh.cl_lo, bvh.cl_hi, glo, ghi, ca, cb, *planes,
+            t0, idx0, masks)
+    before = stream.launches_round
+    k = stream.stream_round_rows(*args)
+    torch.cuda.synchronize()
+    assert stream.launches_round == before + 1
+    p = stream.stream_round_rows_ref(*args)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert (k[1] >= 0).sum() > 100 and (k[2] < k_cl).any()
+    tail = slice(n - 5 * stream.BLOCK, n)
+    assert torch.equal(k[3][:, tail], masks[:, tail])
+
+
+def test_stream2_kernel_matches_plain(cuda, scene8):
+    """K11 on 20,480 coherence-sorted rays of the statue (capped, dead):
+    idx equal, t bit for bit, and every block's rounds equal the plain
+    version's."""
+    ms = trace.to_device(scene8[0], cuda)
+    bvh = ms.tri_bvh
+    n = 160 * stream2.BLOCK
+    o, d, cap, alive = _mesh_rays(cuda, n, 13)
+    t0 = torch.where(alive, cap, 0.0)
+    key = torch.where(t0 > 0, trace.coherence_key(bvh, o, d), 0x7FFFFFFF)
+    perm = torch.sort(key).indices
+    planes = [x[perm, k].contiguous() for x in (o, d) for k in range(3)]
+    args = (bvh.cl2_lines, bvh.cl2_lo, bvh.cl2_hi, bvh.cl2_gs, *planes,
+            t0[perm].contiguous(),
+            torch.full((n,), -1, dtype=torch.int32, device=cuda))
+    rounds = torch.zeros(n // stream2.BLOCK, dtype=torch.int32, device=cuda)
+    before = stream2.launches
+    kt, ki = stream2.stream2_rows(*args, rounds=rounds)
+    torch.cuda.synchronize()
+    assert stream2.launches == before + 1
+    work = {}
+    pt, pi = stream2.stream2_rows_ref(*args, work=work)
+    assert torch.equal(ki, pi) and torch.equal(kt, pt)
+    assert torch.equal(rounds.long(), work["rounds"])
+    assert (ki >= 0).sum() > 1000
+
+
+def test_bvh_kernel_matches_plain(cuda, scene8):
+    """K12 on the statue: idx equal and t bit for bit (one walk per ray in
+    both); a dead lane keeps cap 0 and -1."""
+    ms = trace.to_device(scene8[0], cuda)
+    bvh = ms.tri_bvh
+    o, d, cap, alive = _mesh_rays(cuda, 20000, 14)
+    cap0 = torch.where(alive, cap, 0.0)
+    before = traverse.launches
+    kt, ki = traverse.bvh_closest(bvh.bvh_nodes, bvh.bvh_tris, o, d, cap0,
+                                  n_nodes=bvh.n_nodes)
+    torch.cuda.synchronize()
+    assert traverse.launches == before + 1
+    pt, pi = traverse.bvh_closest_ref(bvh.bvh_nodes, bvh.bvh_tris, o, d, cap0,
+                                      n_nodes=bvh.n_nodes)
+    assert torch.equal(ki, pi) and torch.equal(kt, pt)
+    assert (ki >= 0).sum() > 1000 and (ki[~alive] == -1).all()
+
+
+def test_five_routes_agree_on_card(cuda, scene8):
+    """binned, binned + b1_fused, binned2, walk and walk on the binary BVH
+    return the same winners and t on the card, each through its kernel."""
+    ms = trace.to_device(scene8[0], cuda)
+    o, d, cap, alive = _mesh_rays(cuda, 10000, 15)
+    routes = [dict(mesh="binned"), dict(mesh="binned", b1_fused=True),
+              dict(mesh="binned2"), dict(mesh="walk"),
+              dict(mesh="walk", traverse8=False)]
+    counts = (lambda: (stream.launches, stream.launches_round,
+                       stream2.launches, traverse8.launches,
+                       traverse.launches))
+    ref = None
+    for k, route in enumerate(routes):
+        before = counts()
+        t, i = trace.mesh_closest(ms, o, d, cap, alive, **route)
+        torch.cuda.synchronize()
+        grew = [b > a for a, b in zip(before, counts())]
+        assert grew[k] and sum(grew) == 1, route
+        if ref is None:
+            ref = (t, i)
+        assert torch.equal(i, ref[1]) and torch.equal(t, ref[0]), route

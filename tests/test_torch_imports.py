@@ -70,14 +70,18 @@ def test_every_cuda_source_is_registered_and_bound():
     assert sources == sorted(_cuda.SOURCES) == sorted(_cuda.ENTRY)
     for name in sources:
         text = open(os.path.join(csrc, name + ".cu")).read()
-        assert f'extern "C" int {_cuda.ENTRY[name]}(' in text, name
+        for entry in (_cuda.ENTRY[name],) + _cuda.MORE_ENTRIES.get(name, ()):
+            assert f'extern "C" int {entry}(' in text, (name, entry)
         note = " ".join(text.replace("//", " ").split())
         assert "Replaces the Pallas TPU kernel" in note, name
         assert "What bounds it" in note, name
-    for mod, counters in (("bounce", ("launches", "launches_bounce",
-                                      "launches_fused", "launches_fused_pos")),
+    for mod, counters in (("bounce", ("launches", "launches_direct",
+                                      "launches_bounce", "launches_fused",
+                                      "launches_fused_pos")),
                           ("harvest", ("launches", "launches_rows")),
-                          ("stream", ("launches",)),
+                          ("stream", ("launches", "launches_round")),
+                          ("stream2", ("launches",)),
+                          ("traverse", ("launches",)),
                           ("traverse8", ("launches",))):
         m = importlib.import_module(f"go_raytracer_tpu_torch.ops.{mod}")
         assert all(getattr(m, c) == 0 for c in counters), mod

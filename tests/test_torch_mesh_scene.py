@@ -43,15 +43,12 @@ def _eq(a, b, what):
 
 def assert_scenes_equal(js, ts):
     """Every table field of the port's Scene equals the other scene's
-    (None where both have none; the finer `cl2_*` partition, which the
-    port does not build, is skipped when the port has none)."""
+    (None where both have none), the finer `cl2_*` partition included."""
     for f in dataclasses.fields(TT.Scene):
         a, b = getattr(js, f.name), getattr(ts, f.name)
         if dataclasses.is_dataclass(b):
             for g in dataclasses.fields(b):
                 x, y = getattr(a, g.name), getattr(b, g.name)
-                if g.name.startswith("cl2_") and y is None:
-                    continue
                 if x is None or y is None:
                     assert x is None and y is None, (f.name, g.name)
                 elif isinstance(y, (bool, int)):
@@ -175,13 +172,14 @@ def test_model_example_tables_identical(model_scenes):
 
 def test_scene_from_numpy_round_trip(model_scenes):
     """A JAX Scene carried across equals the port's own build, every
-    TriBVH table and triangle array included (the finer cl2 partition the
-    JAX package builds comes along too)."""
+    TriBVH table and triangle array included, the finer cl2 partition
+    (512 clusters of the statue) too."""
     (js, _), (ts, _) = model_scenes
     cs = TT.scene_from_numpy(js)
     assert_scenes_equal(cs, ts)
     assert isinstance(cs.tri_bvh.nodes8, np.ndarray)
-    assert cs.tri_bvh.cl2_lines is not None and ts.tri_bvh.cl2_lines is None
+    assert cs.tri_bvh.cl2_lines is not None \
+        and ts.tri_bvh.cl2_gs.shape == (513,)
     assert (cs.tri_bvh.n_nodes, cs.tri_bvh.leaf_size, cs.tri_bvh.bvh8_dense) \
         == (ts.tri_bvh.n_nodes, ts.tri_bvh.leaf_size, ts.tri_bvh.bvh8_dense)
     back = TT.scene_from_numpy(cs)

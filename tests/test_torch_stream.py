@@ -158,6 +158,6 @@ def test_binned_closest_matches_independent_oracles(monkeypatch):
 def test_range_bits_guards_the_shift_by_32():
     lo = torch.tensor([0, 0, 5, 32, 31, 0], dtype=torch.int32)
     hi = torch.tensor([32, 0, 9, 32, 32, 31], dtype=torch.int32)
-    got = ttrace._range_bits(lo, hi).tolist()
+    got = tstream.range_bits(lo, hi).tolist()
     want = [-1, 0, 0b111100000, 0, -(1 << 31), (1 << 31) - 1]
     assert got == want
