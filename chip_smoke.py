@@ -5,8 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is swallowed):
   1. environment: torch / CUDA versions, the card's name and power limit,
-     and the build of every CUDA kernel from csrc/ (one nvcc each, in
-     parallel);
+     the build of every CUDA kernel from csrc/ (one nvcc each, in
+     parallel), and each kernel's registers, shared memory and spills from
+     its build log;
   2. K1 `bounce_fused_q` against its plain PyTorch version on the card
      (cornellBox tables, 131072 lanes = 512 blocks as in the flagship, 8
      levels, a mixed alive/depth state), and every level's starts taking
@@ -28,7 +29,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
      `binned_closest` makes, and K5 `bvh8_closest`, against their plain
      versions (idx equal on every lane, t bit for bit); K4's winners
      against K5's; both routes of `mesh_closest` against the plain
-     skip-link walk;
+     skip-link walk; the blocks' group ranges (mean, max) at round 0 and
+     over all rounds, and K4's work items;
   8. K3 `bounce` against its plain version on that level with its ext
      planes;
   9. a small scene-8 render on the kernels against the same render, on
@@ -45,9 +47,10 @@ Phases (any failure exits non-zero; nothing is swallowed):
      in the same call; then the walk route through `cli.main` at the full
      registry configuration (250 spp = 225 strata), so that K5 runs on a
      main path at full width;
- 11. timings of K3-K5 at those shapes with their bounds, rounds and host
-     reads per level, and the device's busy share of a scene-8 render at 1
-     spp under torch.profiler;
+ 11. timings of K3-K5 at those shapes with their bounds (K4 on every round
+     of phase 7's call: each round, the sum and the largest), rounds and
+     host reads per level, and the device's busy share of a scene-8 render
+     at 1 spp under torch.profiler;
  12. K6 `bounce_fused` against its plain version (cornellBox tables,
      131072 lanes, 8 levels, a mixed alive/depth state, the take plane of
      a real refill), and K8 `bounce_fused_pos` likewise with `rem` mixed
@@ -75,15 +78,20 @@ Phases (any failure exits non-zero; nothing is swallowed):
      bits bit for bit) and the fused route against the unfused one (the
      same rounds, bit-equal results); K11 `stream2_rows` and K12
      `bvh_closest` against their plain versions (idx equal, t bit for
-     bit); the five routes' winners against K5's, every lane where two
-     differ printed;
- 19. renders through `cli.main`, launch counts read around each: the
-     slice's main path `-S 8 --mesh binned2` (K11 once per level, no K4),
-     `--b1-fused` and `--mesh walk --no-traverse8`, all three CUT to 25 spp
-     (5x5 strata, the full frame) and held to phase 10's 25-spp walk
-     render (uncut, the binned2 render took 68.0 s; PERF.md);
- 20. timings of K9-K12 at those shapes with their bounds, and the device's
-     busy share of a 4-spp binned2 render under torch.profiler;
+     bit; K11's rounds per unit equal), and K11's plain version on the
+     earlier schedule, blocks of 128 rays and a window of 32 clusters (the
+     same winners, its own rounds and work); the five
+     routes' winners against K5's, every lane where two differ printed;
+ 19. renders through `cli.main`, launch counts read around each:
+     `-S 8 --mesh binned2` (K11 once per level, no K4), `--b1-fused` and
+     `--mesh walk --no-traverse8`, all three CUT to 25 spp (5x5 strata, the
+     full frame) and held to phase 10's 25-spp walk render; then the
+     slice's main path, `--mesh binned2` at the full registry
+     configuration, held to phase 10's uncut walk render;
+ 20. timings of K9-K12 at those shapes with their bounds (K11's also under
+     the work of the earlier schedule: blocks of 128, a window of 32), and
+     the device's busy share of a 4-spp binned2 render under
+     torch.profiler;
 then the `kernels` JSON line (K1-K12), the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
@@ -303,13 +311,8 @@ def main():
     print(f"[1] kernels built in {time.perf_counter() - t0:.2f} s "
           f"(nvcc wall {_cuda.build_seconds}): "
           + ", ".join(os.path.basename(p) for p in libs.values()))
-    for p in libs.values():
-        log = p[:-3] + ".log"
-        if os.path.exists(log):
-            with open(log) as fh:
-                regs = [l.strip() for l in fh if "registers" in l
-                        or "spill" in l]
-            print(f"[1] {os.path.basename(log)}: " + " | ".join(regs))
+    for name in libs:
+        print(f"[1] {name}.cu: " + " | ".join(_cuda.ptxas_report(name)))
 
     # ---- 2. K1 against its plain version -------------------------------
     phase_start(2)
@@ -672,9 +675,23 @@ def main():
         k4_err = max(k4_err, (kt - pt).abs().nan_to_num(0.0).max().item())
     k4_args = calls[0][0]
     k4_tests = int(((k4_args[2] - k4_args[1]).long().sum()) * 8 * stream.BLOCK)
+    # the blocks' group ranges, and K4's work items (CH groups of a range
+    # between multiples of CH), at round 0 and over all rounds
+    n_grp8 = bvh.cl_lines.shape[0]
+    spans7 = [(a[2].clamp(max=n_grp8) - a[1].clamp(min=0)).clamp(min=0)
+              for a, _ in calls]
+    items7 = [int(torch.where(sp > 0, (a[2].clamp(max=n_grp8) - 1) // stream.CH
+                              - a[1].clamp(min=0) // stream.CH + 1, 0).sum())
+              for (a, _), sp in zip(calls, spans7)]
+    all7 = torch.cat(spans7).float()
     print(f"[7] K4 vs plain on the {len(calls)} rounds of one binned_closest "
           f"(pools {[c[0][3].numel() for c in calls]}): idx equal, t bit for "
-          f"bit; round 0 tests {k4_tests} ray-triangle pairs")
+          f"bit; round 0 tests {k4_tests} ray-triangle pairs; groups per "
+          f"block's range: round 0 mean {spans7[0].float().mean().item():.2f}"
+          f" max {int(spans7[0].max())}, all rounds mean "
+          f"{all7.mean().item():.2f} max {int(all7.max())}; work items of "
+          f"CH={stream.CH} groups: round 0 {items7[0]}, all rounds "
+          f"{sum(items7)} ({items7})")
 
     # K5 against its plain version, and against K4's winners
     cap0 = torch.where(alive8, cap8, 0.0)
@@ -940,7 +957,8 @@ def main():
 
     # ---- 11. timings of K3-K5, and the busy share of a scene-8 render --
     phase_start(11)
-    k4_ms = time_ms(lambda: real_stream_rows(*k4_args), 20)
+    k4_per = [time_ms(lambda a=a: real_stream_rows(*a), 20) for a, _ in calls]
+    k4_ms = k4_per[0]
     k4_plain_ms = time_ms(lambda: stream.stream_rows_ref(*k4_args), 1, warmup=0)
     k4_bytes = bvh.cl_lines.numel() * 4 + n8 * (8 * 4 + 8) + 8 * (n8 // stream.BLOCK)
     k4_ops_s = k4_tests * MT_OPS / FP32_OPS_PER_S
@@ -972,6 +990,15 @@ def main():
     k3_ops_s = n_alive8 * K3_OPS_PER_SEGMENT / FP32_OPS_PER_S
     k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops_s) * 1e3
     k3_by = "bytes" if k3_bytes / HBM_BYTES_PER_S >= k3_ops_s else "operations"
+    k4_all_bound = sum(max(
+        (bvh.cl_lines.numel() * 4 + a[3].numel() * 40
+         + 8 * (a[3].numel() // stream.BLOCK)) / HBM_BYTES_PER_S,
+        int(sp.sum()) * 8 * stream.BLOCK * MT_OPS / FP32_OPS_PER_S)
+        for (a, _), sp in zip(calls, spans7)) * 1e3
+    print(f"[11] K4 on every round of that binned_closest, on {card}: "
+          f"{[round(x, 4) for x in k4_per]} ms; sum {sum(k4_per):.4f} ms, "
+          f"largest {max(k4_per):.4f} ms, mean {sum(k4_per) / len(k4_per):.4f}"
+          f" ms; the rounds' bounds sum to {k4_all_bound:.5f} ms")
     print(f"[11] at {n8} lanes of scene 8 on {card}: K3 {k3_ms:.4f} ms, "
           f"plain {k3_plain_ms:.3f} ms, bound {k3_bound:.5f} ms ({k3_by}); K4 round 0 {k4_ms:.4f} ms, "
           f"plain {k4_plain_ms:.2f} ms, bound {k4_bound:.5f} ms ({k4_by}); K5 "
@@ -990,15 +1017,16 @@ def main():
     dev_us8 = device_times(prof8)
     if dev_us8:
         all_us = sum(dev_us8.values())
+        k4_names = ("stream_prep", "stream_items", "stream_finish")
         own_us = sum(v for k, v in dev_us8.items() if k.startswith(
-            ("bounce_level", "stream_rows_kernel", "bvh8_closest_kernel",
-             "harvest_levels")))
-        per = lambda name, count: sum(
-            v for k, v in dev_us8.items() if k.startswith(name)) / 1e3 / count
+            ("bounce_level", "bvh8_closest_kernel", "harvest_levels")
+            + k4_names))
+        per = lambda names, count: sum(
+            v for k, v in dev_us8.items() if k.startswith(names)) / 1e3 / count
         print(f"[11] profiled device ms per launch in that render: K3 "
               f"bounce_level {per('bounce_level', pst8['levels']):.5f}, K4 "
-              f"stream_rows_kernel (all rounds) "
-              f"{per('stream_rows_kernel', pst8['mesh']['rounds']):.5f}, K2 "
+              f"stream_prep + stream_items + stream_finish (all rounds) "
+              f"{per(k4_names, pst8['mesh']['rounds']):.5f}, K2 "
               f"harvest_levels {per('harvest_levels', pst8['windows']):.5f}")
         top8 = sorted(dev_us8.items(), key=lambda kv: -kv[1])[:8]
         print(f"[11] scene 8 at 1 spp ({pst8['levels']} levels): render loop "
@@ -1424,16 +1452,25 @@ def main():
         torch.cuda.synchronize()
         win[direct] = (cur.cpu(), wb, acc17)
     (c0, w0, a0), (c1, w1, a1) = win[False], win[True]
+    # The loop notices the drain from an event it polls without waiting, so
+    # how many calls run after the last alive lane died follows the host's
+    # pace; those calls trace nothing. The records, bases and counts are
+    # compared over the levels both runs made, and the longer run's surplus
+    # calls must be empty.
     s_run17 = int(c0[2])
-    calls17 = s_run17 // n_inner        # the calls that ran
-    same_win = torch.equal(c0, c1) and all(
-        torch.equal(x[:s_run17], y[:s_run17]) for x, y in zip(w0.rec, w1.rec)) \
+    s_min17 = min(s_run17, int(c1[2]))
+    calls17 = s_min17 // n_inner        # the calls both ran
+    longer = w0 if s_run17 > s_min17 else w1
+    same_win = torch.equal(c0[:2], c1[:2]) and all(
+        torch.equal(x[:s_min17], y[:s_min17]) for x, y in zip(w0.rec, w1.rec)) \
         and all(torch.equal(getattr(w0, f)[:calls17], getattr(w1, f)[:calls17])
-                for f in ("base", "seg", "take")) and torch.equal(a0, a1)
+                for f in ("base", "seg", "take")) and torch.equal(a0, a1) \
+        and not longer.seg[calls17:max(s_run17, int(c1[2])) // n_inner].any()
     print(f"[17] flagship window ({window17} levels, refill {refill17}) "
-          f"through K1 and through K9: {s_run17} levels, {int(c0[0])} items, "
-          f"{int(c0[1])} segments; records, bases, counts and accumulator "
-          f"equal bit for bit: {same_win}")
+          f"through K1 and through K9: {s_run17} / {int(c1[2])} levels run "
+          f"(the surplus traced nothing), {int(c0[0])} items, {int(c0[1])} "
+          f"segments; records, bases, counts and accumulator over the "
+          f"{s_min17} levels both ran equal bit for bit: {same_win}")
     check(same_win, "the flagship window differs between K1 and K9")
     del win, w0, w1, a0, a1
     # the flagship through the CLI with --direct-rec
@@ -1511,7 +1548,7 @@ def main():
                   for k in range(3)),
                 cap0[perm11].contiguous(),
                 torch.full((n8,), -1, dtype=torch.int32, device=dev))
-    rounds11 = torch.zeros(n8 // stream2.BLOCK, dtype=torch.int32, device=dev)
+    rounds11 = torch.zeros(n8 // stream2.UNIT, dtype=torch.int32, device=dev)
     kt11, ki11 = stream2.stream2_rows(*k11_args, rounds=rounds11)
     torch.cuda.synchronize()
     work11 = {}
@@ -1519,15 +1556,29 @@ def main():
     check(torch.equal(ki11, pi11) and torch.equal(kt11, pt11),
           "K11 differs from its plain version")
     check(torch.equal(rounds11.long(), work11["rounds"]),
-          "K11's rounds per block differ from its plain version's")
+          "K11's rounds per unit differ from its plain version's")
     k11_err = (kt11 - pt11).abs().nan_to_num(0.0).max().item()
     r11 = rounds11.float()
+    # the same traversal on the earlier kernel's schedule (blocks of 128
+    # rays, a window of 32 clusters): the same winners, its own rounds and
+    # work
+    work128 = {}
+    pt128, pi128 = stream2.stream2_rows_ref(*k11_args, unit=128, range_w=32,
+                                            work=work128)
+    check(torch.equal(pi128, pi11) and torch.equal(pt128, pt11),
+          "K11's plain version on the earlier schedule finds other winners")
+    r128 = work128["rounds"].float()
     print(f"[18] K11 vs plain at {n8} coherence-sorted rays ("
-          f"{bvh.cl2_lo.shape[0]} cl2 clusters, {n8 // stream2.BLOCK} blocks):"
-          f" idx equal, t bit for bit, rounds per block equal (mean "
-          f"{r11.mean().item():.2f}, max {int(r11.max())}); work "
+          f"{bvh.cl2_lo.shape[0]} cl2 clusters, {n8 // stream2.UNIT} units of "
+          f"{stream2.UNIT}, window {stream2.RANGE_W}, {stream2.TEAM} warps "
+          f"per unit): idx equal, t bit for bit, rounds per unit "
+          f"equal (mean {r11.mean().item():.2f}, max {int(r11.max())}); work "
           f"{work11['box_tests']} box tests, {work11['group_tests']} ray-group"
-          f" tests")
+          f" tests; in blocks of 128 with a window of 32: the same winners, "
+          f"rounds per block mean"
+          f" {r128.mean().item():.2f} max {int(r128.max())}, work "
+          f"{work128['box_tests']} box tests, {work128['group_tests']} "
+          f"ray-group tests")
     # K12 on the walk route's sorted rays
     keyw = torch.where(alive8, trace.coherence_key(bvh, o8, d8), 0x7FFFFFFF)
     permw = torch.sort(keyw).indices
@@ -1587,15 +1638,14 @@ def main():
               f"{name}: segments beyond 1e-3 or channel means beyond 1e-2 of "
               f"the walk route's")
 
-    # the slice's main path, CUT to 25 spp (5x5 strata; the full 600x337
-    # frame, depth 50, 65,536 lanes): uncut (250 spp) it took 68.0 s, over
-    # the script's 60 s for one render (PERF.md)
+    # the binned2 route at 25 spp (5x5 strata, the full frame), held to the
+    # walk route's 25-spp render, then uncut below
     reset_counts()
     s8b2 = run_cli8(["--mesh", "binned2", "--spp", "25"],
                     "modelExample_binned2_25.ppm")
     k11_launches = stream2.launches
-    print(f"[19] modelExample 600x337 CUT to 25 spp (full: 250), depth 50, "
-          f"{s8b2['lanes']} lanes, binned2 route (main path), on {card}: "
+    print(f"[19] modelExample 600x337 at 25 spp, depth 50, "
+          f"{s8b2['lanes']} lanes, binned2 route, on {card}: "
           f"paths {s8b2['paths']}, segments {s8b2['segments']}, "
           f"{s8b2['rays_per_s']:.6g} rays/s, elapsed {s8b2['elapsed_s']:.3f} "
           f"s, windows {s8b2['windows']}, levels {s8b2['levels']}, occupancy "
@@ -1614,6 +1664,32 @@ def main():
           "alone")
     held_to("binned2, 25 spp", s8b2, "modelExample_binned2_25.ppm", s8w25,
             "modelExample_walk25.ppm", walk25_means)
+    # the slice's main path at the full registry configuration (600x337,
+    # 250 spp = 225 strata, depth 50, 65,536 lanes), held to phase 10's
+    # uncut walk render
+    reset_counts()
+    s8b2u = run_cli8(["--mesh", "binned2"], "modelExample_binned2.ppm")
+    k11_launches = stream2.launches
+    print(f"[19] flagship modelExample 600x337 250spp (225 strata) depth 50,"
+          f" {s8b2u['lanes']} lanes, binned2 route (main path), on {card}: "
+          f"paths {s8b2u['paths']}, segments {s8b2u['segments']}, "
+          f"{s8b2u['rays_per_s']:.6g} rays/s, elapsed "
+          f"{s8b2u['elapsed_s']:.3f} s, windows {s8b2u['windows']}, levels "
+          f"{s8b2u['levels']}, occupancy {s8b2u['occupancy']:.4f}; launches "
+          f"K11 {k11_launches} K3 {bounce.launches_bounce} K2 "
+          f"{harvest.launches}")
+    check(s8b2u["paths"] == SCENE8_PATHS and s8b2u["mesh"]["route"]
+          == "binned2", "binned2 flagship: paths or route")
+    check(k11_launches == s8b2u["levels"] > 0
+          and bounce.launches_bounce == s8b2u["levels"]
+          and harvest.launches == s8b2u["windows"]
+          and stream.launches + stream.launches_round + traverse8.launches
+          + traverse.launches == 0,
+          "binned2 flagship did not go through K11 once per level, K3 and K2 "
+          "alone")
+    held_to("binned2, uncut", s8b2u, "modelExample_binned2.ppm", s8w,
+            "modelExample_walk.ppm", ppm_channel_means(
+                os.path.join(out_dir, "modelExample_walk.ppm")))
     reset_counts()
     s8f = run_cli8(["--b1-fused", "--spp", "25"], "modelExample_fused25.ppm")
     k10_launches = stream.launches_round
@@ -1687,12 +1763,18 @@ def main():
     k11_bound, k11_by = bound_of(
         k11_bytes, work11["group_tests"] * 8 * MT_OPS
         + work11["box_tests"] * BOX_OPS)
+    k11_bound128, _ = bound_of(
+        k11_bytes, work128["group_tests"] * 8 * MT_OPS
+        + work128["box_tests"] * BOX_OPS)
     binned2_ms = time_ms(lambda: trace.mesh_closest(
         ms, o8, d8, cap8, alive8, mesh="binned2"), 10)
     print(f"[20] K11 at {n8} rays: kernel {k11_ms:.4f} ms, plain "
-          f"{k11_plain_ms:.2f} ms, bound {k11_bound:.5f} ms ({k11_by}); one "
-          f"binned2 mesh_closest (sort, K11, unsort) {binned2_ms:.4f} ms; "
-          f"on {card}")
+          f"{k11_plain_ms:.2f} ms, bound {k11_bound:.5f} ms ({k11_by}) under "
+          f"this schedule's work (units of {stream2.UNIT}, window "
+          f"{stream2.RANGE_W}), {k11_bound128:.5f} ms under the work of "
+          f"blocks of 128 with a window of 32; rounds per unit mean {r11.mean().item():.2f} max "
+          f"{int(r11.max())}; one binned2 mesh_closest (sort, K11, unsort) "
+          f"{binned2_ms:.4f} ms; on {card}")
     k12_ms = time_ms(lambda: traverse.bvh_closest(*k12_args,
                                                   n_nodes=bvh.n_nodes), 20)
     k12_plain_ms = time_ms(lambda: traverse.bvh_closest_ref(
@@ -1714,7 +1796,7 @@ def main():
     us20 = device_times(prof20)
     if us20:
         all20 = sum(us20.values())
-        k11_us = sum(v for k, v in us20.items() if k.startswith("stream2"))
+        k11_us = sum(v for k, v in us20.items() if "stream2_kernel" in k)
         top20 = sorted(us20.items(), key=lambda kv: -kv[1])[:8]
         print(f"[20] scene 8 at 4 spp on binned2 ({pst20['levels']} levels): "
               f"render loop {ust2['elapsed_s']:.3f} s unprofiled, "

@@ -19,6 +19,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -128,6 +129,36 @@ def library(name: str) -> ctypes.CDLL:
         lib.grt_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+def ptxas_report(name: str) -> list:
+    """One line per kernel of csrc/<name>.cu from its build log: the entry
+    function (its template argument, if any), registers, static shared
+    memory and spill stores, as `-Xptxas -v` reported them. Empty before
+    the build."""
+    log = _target(name)[:-3] + ".log"
+    if not os.path.exists(log):
+        return []
+    out, func, spill = [], None, ""
+    with open(log) as fh:
+        for line in fh:
+            m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+            if m:
+                k = int(m.group(1))
+                arg = re.match(r"IL[ib](\d+)E", m.group(2)[k:])
+                func = m.group(2)[:k] + (f"<{arg.group(1)}>" if arg else "")
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and func:
+                smem = re.search(r"(\d+) bytes smem", line)
+                out.append(f"{func}: {m.group(1)} registers, "
+                           f"{smem.group(1) if smem else 0} bytes static "
+                           f"smem, {spill or '0'} bytes spill stores")
+                func, spill = None, ""
+    return out
 
 
 def error_string(err: int) -> str:

@@ -1,8 +1,8 @@
 // Moller-Trumbore of one ray against one triangle and against one packed
 // 8-triangle group (objects.go:408-461), the staged stream of a block's
-// group range, and the addressing of the packed tables of scene/bvh8.py.
-// Shared by stream.cu, stream_round.cu, stream2.cu, traverse8.cu and
-// traverse.cu.
+// group range (stream_round.cu's), cp.async helpers, and the addressing of
+// the packed tables of scene/bvh8.py. Shared by stream.cu, stream_round.cu,
+// stream2.cu, traverse8.cu and traverse.cu.
 //
 // The operation order is that of `mt_groups_ref` in ops/stream.py (and of the
 // JAX kernels). Sources that include this header are compiled with
@@ -81,6 +81,58 @@ __device__ __forceinline__ void mt_group(const float* tri, int stride, float ox,
     t_best = tmin;
     idx = (int)imax;
   }
+}
+
+// mt_group that also names the winner: when the group's least t replaces
+// t_best it returns true and leaves in `slot` the slot of the largest
+// triangle id at that t (the slot whose id mt_group would keep). The same
+// operations in the same order as mt_group, so the same t.
+__device__ __forceinline__ bool mt_group_slot(const float* tri, int stride, float ox, float oy,
+                                              float oz, float dx, float dy, float dz,
+                                              float& t_best, int& slot) {
+  float tmin = INFINITY;
+  float imax = -1.0f;
+  int smax = 0;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const float4 a = *reinterpret_cast<const float4*>(tri + s * stride);
+    const float4 b = *reinterpret_cast<const float4*>(tri + s * stride + 4);
+    const float4 c = *reinterpret_cast<const float4*>(tri + s * stride + 8);
+    float tt;
+    if (mt_hit(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox, oy, oz, dx, dy, dz, t_best,
+               tt)) {
+      if (tt < tmin) {
+        tmin = tt;
+        imax = c.y;
+        smax = s;
+      } else if (tt == tmin && c.y > imax) {
+        imax = c.y;
+        smax = s;
+      }
+    }
+  }
+  if (tmin < t_best) {
+    t_best = tmin;
+    slot = smax;
+    return true;
+  }
+  return false;
+}
+
+// Asynchronous 16-byte copies from device to shared memory (Ampere's
+// cp.async, bypassing L1), committed in groups; wait_group<n> returns once
+// at most n of this thread's groups are still in flight. A barrier (the
+// block's or the warp's) must follow before other threads read the data.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Stream the groups [glo, ghi) of a line-packed table against this thread's

@@ -5,8 +5,8 @@
 // The block is stream.cu's: BLOCK = 128 consecutive rays of the pool that the
 // glue sorted by candidate cluster, one thread per ray, and the block's group
 // range [glo, ghi). Each thread
-//   1. streams the range against its ray (`stream_groups` of mt.cuh, the
-//      very code of stream_rows);
+//   1. streams the range against its ray (`stream_groups` of mt.cuh: one
+//      CTA per block; stream.cu instead splits the ranges across the card);
 //   2. ORs the block's cluster interval [ca, cb] into its processed-bit words
 //      (n_mask int32 planes, bit k of word k / 32);
 //   3. scans the K <= 256 cluster boxes, staged once per block in shared

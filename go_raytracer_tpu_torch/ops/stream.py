@@ -11,8 +11,12 @@ block against every triangle of the block's range, shrinking the ray's
 (T_MIN, t_best) interval; rays testing a neighbour cluster's triangles
 are waste, not error (closest-hit updates are idempotent).
 
-On CUDA tensors it launches the hand-written kernel in `csrc/stream.cu`;
-on CPU tensors it runs the plain PyTorch version `stream_rows_ref`.
+On CUDA tensors it launches the hand-written kernel in `csrc/stream.cu`,
+which splits the blocks' ranges into work items of at most `CH` groups
+spread over the whole card and merges each ray's items with one 64-bit
+atomic minimum (the source's header says why that equals the sequential
+stream); on CPU tensors it runs the plain PyTorch version
+`stream_rows_ref`.
 
 `stream_round_rows` (K10, `csrc/stream_round.cu`) is one whole round of
 `ops/trace.binned_closest` in one launch: the stream of `stream_rows`, the
@@ -36,6 +40,10 @@ T_MIN = 1.0e-3
 # Rays per block: the CUDA kernel's thread-block size, and the unit in
 # which the glue computes group ranges and marks clusters processed.
 BLOCK = 128
+# Groups per work item of the CUDA kernel `stream_rows`: a multiple of 8, so
+# an item stages whole octets of the table. Chosen on the H100 from 16, 32
+# and 64 (PERF.md §6); results do not depend on it.
+CH = 16
 
 # Launches of the CUDA kernels through `stream_rows` and `stream_round_rows`
 # (one per call).
@@ -180,15 +188,17 @@ def mt_groups_ref(e, ox, oy, oz, dx, dy, dz, t_best, idx, mask=None):
 _REF_CHUNK = 16
 
 
-def stream_rows_ref(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
+def stream_rows_ref(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx, *,
+                    block=BLOCK):
     """Plain PyTorch version of `stream_rows` (same arguments, same
     results): each step takes the next `_REF_CHUNK` groups of every block
     whose range is that long, so each ray meets its range in ascending
-    order."""
-    blocks = ox.numel() // BLOCK
+    order. `block` is the rays per range (`stream2_rows_ref` streams units
+    of its own size)."""
+    blocks = ox.numel() // block
     entries = unpack_lines(tri_lines)
     n_groups = entries.shape[0]
-    rows = lambda x: x.reshape(blocks, BLOCK)
+    rows = lambda x: x.reshape(blocks, block)
     rays = [rows(x) for x in (ox, oy, oz, dx, dy, dz)]
     t_best, best = rows(t).clone(), rows(idx).clone()
     glo_l = torch.clamp(glo.to(torch.int64), min=0)
@@ -210,8 +220,8 @@ class _StreamArgs(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "lines", "glo", "ghi", "ox", "oy", "oz", "dx", "dy", "dz",
-        "t_in", "idx_in", "t_out", "idx_out")] + [
-            ("n_blocks", ctypes.c_int), ("n_groups", ctypes.c_int)]
+        "t_in", "idx_in", "t_out", "idx_out", "keys", "scan")] + [
+            (name, ctypes.c_int) for name in ("n_blocks", "n_groups", "ch")]
 
 
 def stream_rows(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
@@ -249,16 +259,21 @@ def stream_rows(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
     if tri_lines.dim() != 2 or tri_lines.shape[1] != 128 \
             or tri_lines.shape[0] % 8:
         raise ValueError("tri_lines must be (8*L, 128)")
+    if CH % 8 or CH <= 0:
+        raise ValueError(f"CH={CH} must be a positive multiple of 8")
     t_out = torch.empty_like(t)
     idx_out = torch.empty_like(idx)
     if blocks == 0:
         return t_out, idx_out
+    # scratch: each ray's merged best, and the item scan with its counter
+    keys = torch.empty(n, dtype=torch.int64, device=ox.device)
+    scan = torch.empty(blocks + 2, dtype=torch.int32, device=ox.device)
     p = lambda x: x.data_ptr()
     a = _StreamArgs(lines=p(tri_lines), glo=p(glo), ghi=p(ghi), ox=p(ox),
                     oy=p(oy), oz=p(oz), dx=p(dx), dy=p(dy), dz=p(dz),
                     t_in=p(t), idx_in=p(idx), t_out=p(t_out),
-                    idx_out=p(idx_out), n_blocks=blocks,
-                    n_groups=tri_lines.shape[0])
+                    idx_out=p(idx_out), keys=p(keys), scan=p(scan),
+                    n_blocks=blocks, n_groups=tri_lines.shape[0], ch=CH)
     err = _cuda.library("stream").grt_stream_rows(
         ctypes.addressof(a), torch.cuda.current_stream(ox.device).cuda_stream)
     if err:

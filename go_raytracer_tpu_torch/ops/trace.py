@@ -432,15 +432,16 @@ def binned_closest(ms, o, d, t_cap=None, alive=None, max_iters: int = 512,
 
 
 def binned2_closest(ms, o, d, t_cap=None, alive=None, counters=None):
-    """Closest triangle hit via the persistent-block binned intersector:
-    one `coherence_key` sort groups the rays (dead and zero-capped rays
-    last, so whole blocks finish at their first scan), then one launch of
-    `ops/stream2.stream2_rows` runs every block's rounds over the finer
+    """Closest triangle hit via the persistent binned intersector: one
+    `coherence_key` sort groups the rays (dead and zero-capped rays last,
+    so whole units finish at their first scan), the pool is padded to a
+    multiple of `stream2.UNIT`, then one launch of
+    `ops/stream2.stream2_rows` runs every unit's rounds over the finer
     `cl2_*` partition, with no host read; a scatter by the permutation
     restores lane order. Winners match the BVH8 walk's."""
     bvh = ms.tri_bvh
     n_orig = o.shape[0]
-    o, d, t_cap = _pad_pool(o, d, t_cap, alive, stream2_mod.BLOCK)
+    o, d, t_cap = _pad_pool(o, d, t_cap, alive, stream2_mod.UNIT)
     key = torch.where(t_cap > 0.0, coherence_key(bvh, o, d), 0x7FFFFFFF)
     perm = torch.sort(key).indices
     o_s, d_s = o[perm], d[perm]

@@ -1,0 +1,242 @@
+#!/usr/bin/env python3
+"""Time and check the binned mesh kernels K4 `stream_rows` and K11
+`stream2_rows` on one NVIDIA GPU, at one real bounce level of scene 8
+(modelExample, 65,536 lanes), with their compile-time choices swept.
+
+    python3 scripts/tune_mesh_kernels.py [--repo DIR] [--sweep] [--out FILE]
+
+It builds the kernels, prints each one's registers, shared memory and
+spills, makes the level the way chip_smoke.py phase 7 does (three levels
+of a real window, then a refill: camera rays, bounced rays, dead and
+capped lanes), and then:
+
+* K4: records the arguments of every round of one `binned_closest`, holds
+  the kernel on each round against `stream_rows_ref` (idx and t bit for
+  bit), and times every round (CUDA events; the least of three batches):
+  the round-0 time, the sum over the rounds and the largest round, with
+  the lengths of the blocks' group ranges (mean, max) per round;
+* K11: sorts the level's rays as `binned2_closest` does, holds the kernel
+  against `stream2_rows_ref` (idx, t and rounds per unit equal) and times
+  it.
+
+--repo DIR imports the package from another checkout (the parent commit,
+unpacked with `git archive`) and times its kernels the same way, so two
+commits compare in one call: parent, change, change, parent. --sweep
+times K4 at `stream.CH` in (16, 32, 64) and K11 at `stream2.RANGE_W` in
+(2, 4, 8, 16, 32) with `stream2.TEAM` in (1, 2, 4, 8) warps per unit, each
+variant held against its plain version first, in two passes (forward,
+then reversed).
+The results go to --out as JSON (default build/tune_mesh_kernels.json,
+git-ignored) beside a printed summary. Without a GPU it exits non-zero.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def time_ms(fn, reps):
+    """Milliseconds per call between two CUDA events around `reps` calls,
+    after one warm-up call; the least of three batches."""
+    import torch
+    fn()
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) / reps)
+    return best
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout whose package is timed")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time every variant of CH, RANGE_W and TEAM")
+    ap.add_argument("--out", default=os.path.join("build",
+                                                  "tune_mesh_kernels.json"))
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.repo))
+    from go_raytracer_tpu_torch.integrator import regen
+    from go_raytracer_tpu_torch.ops import _cuda, intersect, stream, stream2
+    from go_raytracer_tpu_torch.ops import trace
+    from go_raytracer_tpu_torch.scenes import registry
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(f"package {os.path.abspath(args.repo)} on {card}; torch "
+          f"{torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _cuda.build_all()
+    print(f"built in {time.perf_counter() - t0:.1f} s")
+    report = {}
+    if hasattr(_cuda, "ptxas_report"):
+        for name in ("stream", "stream2"):
+            report[name] = _cuda.ptxas_report(name)
+            for line in report[name]:
+                print(f"ptxas {name}: {line}")
+    dev = torch.device("cuda")
+
+    # ---- the level (chip_smoke.py phase 7) --------------------------------
+    scene8, cam8 = registry.model_example()
+    ctx = regen.MeshContext.build(scene8, cam8, dev)
+    ms, bvh = ctx.ms, ctx.ms.tri_bvh
+    n8 = regen.MESH_MAX_LANES
+    geo = dict(width=cam8.width, npix=cam8.width * cam8.image_height,
+               sqrt_spp=cam8.spp_sqrt)
+    paths = cam8.width * cam8.image_height * cam8.spp_sqrt ** 2
+    gen = regen.window_generator(0, 0, dev)
+    bufs = regen.WindowBuffers.empty(n8, 3, 1, dev)
+    acc = torch.zeros((4 * n8, 3), dtype=torch.float32, device=dev)
+    state, nxt, _, _ = regen._mesh_window(
+        ctx, acc, regen._init_state_mesh(n8, dev), 0, gen, paths, window=3,
+        refill=2, max_depth=cam8.max_depth,
+        max_contribution=cam8.max_contribution, bufs=bufs, **geo)
+    o8, d8, t8, alive8, _, _, _ = regen.refill_lanes(
+        ctx.arrays, state, torch.tensor(nxt, device=dev), gen, True,
+        nxt + n8 // 4, **geo)
+    cap8 = intersect.sphere_ts(ms.spheres, o8, d8, t8, 1e-3,
+                               float("inf")).amin(dim=1)
+    del bufs, acc
+    print(f"level: {n8} lanes, {int(alive8.sum())} alive")
+
+    # ---- K4: every round of one binned_closest ----------------------------
+    calls = []
+    real = stream.stream_rows
+
+    def spy(*a):
+        calls.append(a)
+        return real(*a)
+
+    stream.stream_rows = spy
+    try:
+        trace.binned_closest(ms, o8, d8, cap8, alive8)
+    finally:
+        stream.stream_rows = real
+    spans = [(a[2] - a[1]).clamp(min=0).float() for a in calls]
+    k4_rounds = [{"rays": a[3].numel(),
+                  "span_mean": float(s.mean()), "span_max": int(s.max()),
+                  "groups": int(s.sum())} for a, s in zip(calls, spans)]
+
+    def k4_items(ch):
+        n_groups = bvh.cl_lines.shape[0]
+        tot = 0
+        for a in calls:
+            lo, hi = a[1].clamp(min=0).long(), a[2].clamp(max=n_groups).long()
+            tot += int(torch.where(hi > lo, (hi - 1) // ch - lo // ch + 1,
+                                   0).sum())
+        return tot
+
+    def k4_check():
+        for a in calls:
+            kt, ki = real(*a)
+            pt, pi = stream.stream_rows_ref(*a)
+            if not (torch.equal(ki, pi) and torch.equal(kt, pt)):
+                raise SystemExit("K4 differs from its plain version")
+
+    def k4_time():
+        per = [time_ms(lambda a=a: real(*a), 20) for a in calls]
+        return {"round0_ms": per[0], "sum_ms": sum(per), "max_ms": max(per),
+                "per_round_ms": per}
+
+    # ---- K11: the level's coherence-sorted rays ---------------------------
+    cap0 = torch.where(alive8, cap8, 0.0)
+    key = torch.where(cap0 > 0, trace.coherence_key(bvh, o8, d8), 0x7FFFFFFF)
+    perm = torch.sort(key).indices
+    k11_args = (bvh.cl2_lines, bvh.cl2_lo, bvh.cl2_hi, bvh.cl2_gs,
+                *(x[perm, k].contiguous() for x in (o8, d8) for k in range(3)),
+                cap0[perm].contiguous(),
+                torch.full((n8,), -1, dtype=torch.int32, device=dev))
+    unit = getattr(stream2, "UNIT", None) or stream2.BLOCK
+
+    def k11_check():
+        rounds = torch.zeros(n8 // unit, dtype=torch.int32, device=dev)
+        kt, ki = stream2.stream2_rows(*k11_args, rounds=rounds)
+        torch.cuda.synchronize()
+        work = {}
+        pt, pi = stream2.stream2_rows_ref(*k11_args, work=work)
+        if not (torch.equal(ki, pi) and torch.equal(kt, pt)
+                and torch.equal(rounds.long(), work["rounds"])):
+            raise SystemExit("K11 differs from its plain version")
+        r = rounds.float()
+        return {"unit": unit, "rounds_mean": float(r.mean()),
+                "rounds_max": int(r.max()), "box_tests": work["box_tests"],
+                "group_tests": work["group_tests"]}
+
+    def k11_time():
+        return time_ms(lambda: stream2.stream2_rows(*k11_args), 10)
+
+    out = {"card": card, "package": os.path.abspath(args.repo),
+           "ptxas": report, "k4_rounds": k4_rounds}
+    if not args.sweep:
+        k4_check()
+        out["k4"] = k4_time()
+        if hasattr(stream, "CH"):
+            out["k4"].update(ch=stream.CH, items=k4_items(stream.CH))
+        out["k11"] = dict(k11_check(), ms=k11_time())
+    else:
+        chs = (16, 32, 64)
+        k11_vars = [(team, w) for team in (1, 2, 4, 8)
+                    for w in (2, 4, 8, 16, 32)]
+        saved = stream.CH, stream2.RANGE_W, stream2.TEAM
+        k4_res = {ch: [] for ch in chs}
+        k11_res = {v: [] for v in k11_vars}
+        k11_work = {}
+        try:
+            for ch in chs:
+                stream.CH = ch
+                k4_check()
+            for v in k11_vars:
+                stream2.TEAM, stream2.RANGE_W = v
+                k11_work[v] = k11_check()
+            for order in (1, -1):
+                for ch in chs[::order]:
+                    stream.CH = ch
+                    k4_res[ch].append(k4_time())
+                for v in k11_vars[::order]:
+                    stream2.TEAM, stream2.RANGE_W = v
+                    k11_res[v].append(k11_time())
+        finally:
+            stream.CH, stream2.RANGE_W, stream2.TEAM = saved
+        out["k4_sweep"] = [
+            {"ch": ch, "items": k4_items(ch),
+             "round0_ms": [r["round0_ms"] for r in k4_res[ch]],
+             "sum_ms": [r["sum_ms"] for r in k4_res[ch]],
+             "max_ms": [r["max_ms"] for r in k4_res[ch]]} for ch in chs]
+        out["k11_sweep"] = [
+            dict(k11_work[v], team=v[0], range_w=v[1], ms=k11_res[v])
+            for v in k11_vars]
+    # the earlier schedule's work (blocks of 128, a window of 32) on the
+    # same rays, for the bound's like-for-like comparison
+    if unit != 128:
+        w128 = {}
+        stream2.stream2_rows_ref(*k11_args, unit=128, range_w=32, work=w128)
+        r = w128["rounds"].float()
+        out["k11_128"] = {"rounds_mean": float(r.mean()),
+                          "rounds_max": int(r.max()),
+                          "box_tests": w128["box_tests"],
+                          "group_tests": w128["group_tests"]}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps({k: v for k, v in out.items() if k != "ptxas"}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -202,6 +202,59 @@ def test_stream_kernel_matches_plain(cuda, scene8):
     assert (ki >= 0).sum() > 100
 
 
+def test_stream_kernel_on_adversarial_ranges(cuda, scene8):
+    """K4's split and merge on ranges the sort never makes: one block holding
+    the whole table, empty blocks, a range ending at the table's end, ranges
+    cut mid-octet, dead and capped lanes, and a triangle duplicated (another
+    id) from group 63 into group 64, a boundary of every item size, hit by a
+    block of rays at one t: idx equal on every lane, t bit for bit, and the
+    earlier group's id wins the tie."""
+    ms = trace.to_device(scene8[0], cuda)
+    entries = stream.unpack_lines(ms.tri_bvh.cl_lines).clone()
+    n_groups = entries.shape[0]
+    src_id = int(entries[63, 2, 9])
+    entries[64, 5] = entries[63, 2]
+    entries[64, 5, 9] = 999999.0
+    lines = entries.view(-1, 8, 8, 16).permute(0, 2, 1, 3).reshape(-1, 128) \
+        .contiguous()
+    blocks = 40
+    n = blocks * stream.BLOCK
+    o, d, cap, alive = _mesh_rays(cuda, n, 21)
+    v0, e0, e1 = (entries[63, 2, k:k + 3] for k in (0, 3, 6))
+    nrm = torch.linalg.cross(e0, e1)
+    nrm = nrm / nrm.norm()
+    u = torch.rand((stream.BLOCK, 2), generator=torch.Generator().manual_seed(3))
+    head = slice(0, stream.BLOCK)
+    o[head] = v0 + u[:, :1].to(cuda) * 0.4 * e0 + u[:, 1:].to(cuda) * 0.4 * e1 \
+        + 0.05 * nrm
+    d[head] = -nrm
+    alive[head] = True
+    cap[head] = float("inf")
+    rs = np.random.default_rng(22)
+    lo = np.sort(rs.integers(0, n_groups, blocks))
+    hi = np.minimum(lo + rs.integers(0, 200, blocks), n_groups)
+    lo[0], hi[0] = 0, n_groups              # the whole table
+    lo[1:4] = hi[1:4] = 17                  # empty
+    lo[4], hi[4] = n_groups - 11, n_groups  # up to the table's end
+    lo[5], hi[5] = 3, 5                     # inside one octet
+    planes = [o[:, k].contiguous() for k in range(3)] \
+        + [d[:, k].contiguous() for k in range(3)]
+    args = (lines, torch.from_numpy(lo).int().to(cuda),
+            torch.from_numpy(hi).int().to(cuda), *planes,
+            torch.where(alive, cap, 0.0),
+            torch.full((n,), -1, dtype=torch.int32, device=cuda))
+    before = stream.launches
+    kt, ki = stream.stream_rows(*args)
+    torch.cuda.synchronize()
+    assert stream.launches == before + 1
+    pt, pi = stream.stream_rows_ref(*args)
+    assert torch.equal(ki, pi) and torch.equal(kt, pt)
+    assert (ki[head] == src_id).sum() > 100 and not (ki == 999999).any()
+    assert (ki[stream.BLOCK:] >= 0).sum() > 100
+    assert torch.equal(kt[stream.BLOCK:4 * stream.BLOCK],
+                       args[9][stream.BLOCK:4 * stream.BLOCK])
+
+
 def test_bvh8_kernel_matches_plain(cuda, scene8):
     """K5 on the statue: idx equal and t bit for bit, on the padded node
     table and on a line-packed copy; a dead lane keeps cap 0 and -1."""
@@ -588,13 +641,15 @@ def test_stream_round_kernel_matches_plain(cuda, scene8):
     assert torch.equal(k[3][:, tail], masks[:, tail])
 
 
-def test_stream2_kernel_matches_plain(cuda, scene8):
-    """K11 on 20,480 coherence-sorted rays of the statue (capped, dead):
-    idx equal, t bit for bit, and every block's rounds equal the plain
-    version's."""
+@pytest.mark.parametrize("team", [1, 2, 4, 8])
+def test_stream2_kernel_matches_plain(cuda, scene8, team, monkeypatch):
+    """K11 on 20,480 coherence-sorted rays of the statue (capped, dead),
+    with one, two, four or eight warps per unit: idx equal, t bit for bit, and
+    every unit's rounds equal the plain version's."""
+    monkeypatch.setattr(stream2, "TEAM", team)
     ms = trace.to_device(scene8[0], cuda)
     bvh = ms.tri_bvh
-    n = 160 * stream2.BLOCK
+    n = 640 * stream2.UNIT
     o, d, cap, alive = _mesh_rays(cuda, n, 13)
     t0 = torch.where(alive, cap, 0.0)
     key = torch.where(t0 > 0, trace.coherence_key(bvh, o, d), 0x7FFFFFFF)
@@ -603,7 +658,7 @@ def test_stream2_kernel_matches_plain(cuda, scene8):
     args = (bvh.cl2_lines, bvh.cl2_lo, bvh.cl2_hi, bvh.cl2_gs, *planes,
             t0[perm].contiguous(),
             torch.full((n,), -1, dtype=torch.int32, device=cuda))
-    rounds = torch.zeros(n // stream2.BLOCK, dtype=torch.int32, device=cuda)
+    rounds = torch.zeros(n // stream2.UNIT, dtype=torch.int32, device=cuda)
     before = stream2.launches
     kt, ki = stream2.stream2_rows(*args, rounds=rounds)
     torch.cuda.synchronize()

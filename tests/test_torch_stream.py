@@ -1,8 +1,10 @@
 """The binned mesh intersector of the port against the JAX package: the
 plain version of the row-stream kernel against the Pallas kernel in
-interpret mode on the same sorted planes and ranges, `binned_closest`
-against the JAX `binned_closest`, and both against oracles that share
-nothing with them (the skip-link walk and the dense all-pairs test)."""
+interpret mode on the same sorted planes and ranges, a plain model of the
+CUDA kernel's split into work items and merge against the plain version,
+`binned_closest` against the JAX `binned_closest`, and both against
+oracles that share nothing with them (the skip-link walk and the dense
+all-pairs test)."""
 
 import jax  # noqa: F401  (conftest pins JAX to the CPU)
 import jax.numpy as jnp
@@ -102,6 +104,118 @@ def test_stream_rows_ref_chunking_is_invisible(monkeypatch):
         monkeypatch.setattr(tstream, "_REF_CHUNK", chunk)
         got = tstream.stream_rows_ref(*args)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def pack_lines(entries):
+    """Entries (L*8, 8, 16) back to the line-packed (L*8, 128) table: the
+    inverse of `stream.unpack_lines`."""
+    return entries.view(-1, 8, 8, 16).permute(0, 2, 1, 3).reshape(-1, 128) \
+        .contiguous()
+
+
+_NO_HIT = (1 << 63) - 1     # above every key (t bits < 2^31)
+
+
+def split_merge_model(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx,
+                      ch):
+    """Plain model of the CUDA kernel's split and merge (csrc/stream.cu):
+    each block's range [glo, ghi) is cut into items at multiples of `ch` in
+    the global group index; every item streams its groups in ascending
+    order from t_in, one group at a time, and a ray that found a hit
+    offers the key (float bits of t) << 32 | g << 3 | slot of its winner;
+    each ray keeps the least key, and the finalize step reads t from the
+    key and idx from field 9 of (g, slot), or keeps t_in and idx_in."""
+    entries = tstream.unpack_lines(tri_lines)
+    n_groups = entries.shape[0]
+    blk = tstream.BLOCK
+    rays = [x.view(-1, blk) for x in (ox, oy, oz, dx, dy, dz)]
+    t_in = t.view(-1, blk)
+    key = torch.full(t_in.shape, _NO_HIT, dtype=torch.int64)
+    for b in range(t_in.shape[0]):
+        lo, hi = max(int(glo[b]), 0), min(int(ghi[b]), n_groups)
+        r = [x[b] for x in rays]
+        for c in range(lo // ch, (hi - 1) // ch + 1) if hi > lo else ():
+            t_b = t_in[b].clone()
+            i_b = torch.full((blk,), -1, dtype=torch.int32)
+            g_b = torch.full((blk,), -1, dtype=torch.int64)
+            for g in range(max(lo, c * ch), min(hi, (c + 1) * ch)):
+                t_n, i_n = tstream.mt_groups_ref(entries[g][None], *r, t_b,
+                                                 i_b)
+                g_b = torch.where(t_n < t_b, g, g_b)
+                t_b, i_b = t_n, i_n
+            hit = g_b >= 0
+            ids = entries[g_b.clamp(min=0), :, 9]           # (BLOCK, 8)
+            slot = (ids == i_b[:, None].float()).int().argmax(dim=1)
+            k = (t_b.view(torch.int32).long() << 32) | (g_b << 3) | slot
+            key[b] = torch.where(hit, torch.minimum(key[b], k), key[b])
+    found = key != _NO_HIT
+    g, slot = (key & 0xFFFFFFFF) >> 3, key & 7
+    t_out = torch.where(found, (key >> 32).int().view(torch.float32), t_in)
+    idx_out = torch.where(
+        found, entries[g.clamp(max=n_groups - 1), slot, 9].int(),
+        idx.view(-1, blk))
+    return t_out.reshape(t.shape), idx_out.reshape(idx.shape)
+
+
+@pytest.mark.parametrize("ch", [1, 8, 16, 64])
+def test_split_merge_equals_the_stream(ch, monkeypatch):
+    """The kernel's split into items of `ch` groups and its merge on a
+    64-bit key give `stream_rows_ref`'s t bit for bit and its idx on every
+    lane: a block whose range is the whole table, an empty one, short and
+    long ranges, capped and dead rays, and a triangle duplicated (another
+    id) from group 63 into group 64, a boundary of every `ch`, which rays
+    of the whole-table block hit at one t: the earlier group's id wins."""
+    _, ms = mesh_pair(1000, 93, monkeypatch)
+    entries = tstream.unpack_lines(ms.tri_bvh.cl_lines).clone()
+    n_groups = entries.shape[0]
+    assert n_groups > 80
+    src_id, dup_id = float(entries[63, 2, 9]), 123457.0
+    assert src_id >= 0
+    entries[64, 5] = entries[63, 2]
+    entries[64, 5, 9] = dup_id
+    lines = pack_lines(entries)
+    assert torch.equal(tstream.unpack_lines(lines), entries)
+    n = 6 * tstream.BLOCK
+    glo = torch.tensor([0, 5, 7, 7, 60, 3], dtype=torch.int32)
+    ghi = torch.tensor([n_groups, 40, 7, 9, 70, n_groups - 2],
+                       dtype=torch.int32)
+    _, _, cap, alive = rays(n, 94)
+    t0 = np.where(alive, cap, 0.0).astype(np.float32)
+    # every ray starts above a real triangle of its block's range (block 0:
+    # the duplicated one) and looks down on it, so hits abound and nearby
+    # triangles of other groups compete
+    rs = np.random.default_rng(95)
+    e = entries.numpy()
+    real = np.argwhere(e[:, :, 9] >= 0)
+    pick = np.empty((n, 2), np.int64)
+    for b in range(6):
+        lo, hi = int(glo[b]), max(int(ghi[b]), int(glo[b]) + 1)
+        pool = real[(real[:, 0] >= lo) & (real[:, 0] < hi)]
+        pick[b * 128:(b + 1) * 128] = pool[rs.integers(0, len(pool), 128)]
+    pick[:tstream.BLOCK] = (63, 2)
+    tri = e[pick[:, 0], pick[:, 1]]
+    v0, e0, e1 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+    nrm = np.cross(e0, e1)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    u = rs.uniform(0.05, 0.45, (n, 2))
+    dist = np.where(np.arange(n) < tstream.BLOCK, 0.05,
+                    rs.uniform(0.05, 3.0, n))[:, None]
+    o = (v0 + u[:, :1] * e0 + u[:, 1:] * e1 + dist * nrm).astype(np.float32)
+    d = (-nrm + rs.normal(scale=0.05, size=(n, 3))).astype(np.float32)
+    d[:tstream.BLOCK] = -nrm[:tstream.BLOCK]
+    t0[:tstream.BLOCK] = np.inf
+    tt = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    args = (lines, glo, ghi, *(tt(o[:, k]) for k in range(3)),
+            *(tt(d[:, k]) for k in range(3)), tt(t0),
+            torch.full((n,), -1, dtype=torch.int32))
+    want_t, want_i = tstream.stream_rows_ref(*args)
+    got_t, got_i = split_merge_model(*args, ch=ch)
+    assert torch.equal(got_i, want_i) and torch.equal(got_t, want_t)
+    head = want_i[:tstream.BLOCK]
+    assert (head == int(src_id)).sum() > 100 and not (head == dup_id).any()
+    assert (want_i[tstream.BLOCK:] >= 0).sum() > 300
+    assert torch.equal(want_t[2 * tstream.BLOCK:3 * tstream.BLOCK],
+                       tt(t0[2 * tstream.BLOCK:3 * tstream.BLOCK]))
 
 
 @pytest.mark.parametrize("seed,n_tris,n_rays,caps", [

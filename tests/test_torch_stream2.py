@@ -3,7 +3,7 @@ against the JAX package: the finer `cl2_*` partition, the plain version
 against the Pallas kernel `stream2_rows` in interpret mode on the same
 coherence-sorted planes, and `binned2_closest` against the JAX route and
 the port's BVH8 walk. The JAX kernel's blocks are 1024 rays, the port's
-128: the winners agree, the rounds differ."""
+units `UNIT` = 32: the winners agree, the rounds differ."""
 
 import jax  # noqa: F401  (conftest pins JAX to the CPU)
 import jax.numpy as jnp
@@ -120,17 +120,47 @@ def test_stream2_rows_ref_matches_pallas_kernel(scene_pair):
     np.testing.assert_allclose(pt.numpy(), jt, rtol=1e-5)
     assert (ji >= 0).sum() > 300
     rounds = work["rounds"]
-    assert rounds.shape == (n // 128,) and 1 <= int(rounds.max()) < 4096
-    assert int(rounds[-1]) == 0                 # the dead lanes' block
+    assert rounds.shape == (n // tstream2.UNIT,) \
+        and 1 <= int(rounds.max()) < 4096
+    assert int(rounds[-1]) == 0                 # the dead lanes' unit
     assert work["box_tests"] >= 128 * k2 and work["group_tests"] > 0
     # the wrapper on CPU tensors returns the same and fills `rounds`
-    r = torch.zeros(n // 128, dtype=torch.int64)
+    r = torch.zeros(n // tstream2.UNIT, dtype=torch.int64)
     wt, wi = tstream2.stream2_rows(
         bvh.cl2_lines, bvh.cl2_lo, bvh.cl2_hi, bvh.cl2_gs,
         *(tt(o[:, k]) for k in range(3)), *(tt(d[:, k]) for k in range(3)),
         tt(t0), tt(idx0), rounds=r)
     assert torch.equal(wi, pi) and torch.equal(wt, pt)
     assert torch.equal(r, rounds) and tstream2.launches == 0
+
+
+def test_stream2_rows_ref_unit_changes_rounds_not_winners(scene_pair):
+    """The plain version in units of `UNIT` = 32 rays and on the earlier
+    kernel's schedule (blocks of 128, a window of 32 clusters) on the same
+    3,072 sorted rays: idx and t equal on every lane; rounds and work are
+    counted per unit of each size."""
+    js, ts, ms = scene_pair
+    bvh = ms.tri_bvh
+    n = 3072
+    o, d, cap, alive = _rays(n, 37)
+    t0 = torch.from_numpy(np.where(alive, cap, 0.0).astype(np.float32))
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    key = torch.where(t0 > 0, ttrace.coherence_key(bvh, o, d), 0x7FFFFFFF)
+    perm = torch.sort(key).indices
+    args = (bvh.cl2_lines, bvh.cl2_lo, bvh.cl2_hi, bvh.cl2_gs,
+            *(x[perm, k].contiguous() for x in (o, d) for k in range(3)),
+            t0[perm].contiguous(), torch.full((n,), -1, dtype=torch.int32))
+    w32, w128 = {}, {}
+    t32, i32 = tstream2.stream2_rows_ref(*args, work=w32)
+    t128, i128 = tstream2.stream2_rows_ref(*args, unit=128, range_w=32,
+                                           work=w128)
+    assert torch.equal(i32, i128) and torch.equal(t32, t128)
+    assert (i32 >= 0).sum() > 300
+    r32, r128 = w32["rounds"], w128["rounds"]
+    assert r32.shape == (n // 32,) and r128.shape == (n // 128,)
+    assert int(r32.max()) >= 1 and int(r128.max()) >= 1
+    assert int(r32[-1]) == int(r128[-1]) == 0   # the dead lanes' unit
+    assert min(w32["group_tests"], w128["group_tests"]) > 0
 
 
 def test_binned2_route_matches_jax_and_the_walk(scene_pair):
