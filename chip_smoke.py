@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
   1. environment: torch / CUDA versions, the card's name and power limit,
      the build of every CUDA kernel from csrc/ (one nvcc each, in
      parallel), and each kernel's registers, shared memory and spills from
-     its build log;
+     its build log (the fused kernels once per feature set of the bounce
+     core: <spheres, dielectric, media>);
   2. K1 `bounce_fused_q` against its plain PyTorch version on the card
      (cornellBox tables, 131072 lanes = 512 blocks as in the flagship, 8
      levels, a mixed alive/depth state), and every level's starts taking
@@ -22,7 +23,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
      it;
   6. per-kernel timings at the flagship's shapes (CUDA events), with one
      flagship window's starts checked item by item over all its levels
-     and K2 held against its plain version on that window;
+     and K2 held against its plain version on that window; cornellBox's K1
+     beside its earlier time; K1 and K9 on book3 and cornellSmoke;
   7. the mesh path's intersectors at scene 8's shapes (modelExample: the
      65,536-triangle statue, 65,536 rays of a real bounce level, capped and
      dead lanes included): K4 `stream_rows` on every call one
@@ -67,11 +69,12 @@ Phases (any failure exits non-zero; nothing is swallowed):
      `queue_ik` flagship of phase 5 and to its image;
  16. timings of K6, K7 and K8 at the flagship's shapes with their bounds,
      and each schedule's device time by kernel under torch.profiler
-     (cornellBox at 25 spp);
+     (cornellBox at 25 spp); K6 and K8 on book3 and cornellSmoke;
  17. K9 `bounce_fused_q_direct` against K1 on the same inputs (bit for
      bit, rows outside its levels untouched) and against its plain
      version with K1's tolerances; one flagship window through K1 and
-     through K9 (bit for bit); the cornellBox flagship through `cli.main
+     through K9 (bit for bit, the same levels recorded however late the
+     host saw the drain); the cornellBox flagship through `cli.main
      --direct-rec`, held to phase 5's gates and to its segments;
  18. at phase 7's scene-8 level: K10 `stream_round_rows` on every round of
      one fused `binned_closest` against its plain version (t, idx, key,
@@ -82,6 +85,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
      earlier schedule, blocks of 128 rays and a window of 32 clusters (the
      same winners, its own rounds and work); the five
      routes' winners against K5's, every lane where two differ printed;
+     then one uncut scene-8 window on the walk route with binned2 and the
+     binary BVH walk fed the same rays at every level: the lanes whose
+     winners differ, as ties (equal t) and non-ties, and the first one;
  19. renders through `cli.main`, launch counts read around each:
      `-S 8 --mesh binned2` (K11 once per level, no K4), `--b1-fused` and
      `--mesh walk --no-traverse8`, all three CUT to 25 spp (5x5 strata, the
@@ -92,6 +98,15 @@ Phases (any failure exits non-zero; nothing is swallowed):
      the work of the earlier schedule: blocks of 128, a window of 32), and
      the device's busy share of a 4-spp binned2 render under
      torch.profiler;
+ 21. book3 (glass sphere, sphere light) and cornellSmoke (two media): K1,
+     K9, K6 and K8 against their plain versions at 131072 lanes on a mixed
+     state (starts, ranks, time planes exact; NaN lanes counted), then
+     both scenes at their registry configuration (600x600, 10 spp = 9
+     strata, depth 50, 131072 lanes) through `cli.main` under `queue_ik`,
+     `--direct-rec`, `--schedule queue` and `--schedule positional`:
+     paths, no non-finite pixel, segments per path within 5% of the
+     registry's mean path length, `--direct-rec` with `queue_ik`'s
+     segments, the schedules' channel means within 1e-2 of `queue_ik`'s;
 then the `kernels` JSON line (K1-K12), the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
@@ -115,6 +130,23 @@ FP32_OPS_PER_S = 67e12
 # counted from csrc/bounce_fused_q.cu: 6 quads x ~38, 2 rotated boxes x
 # ~50, shading + light sample + pdf ~150 (the 14 hashes are integer work)
 K1_OPS_PER_SEGMENT = 480
+# the same count for the two scenes the fused kernels gained, from
+# csrc/bounce_core.cuh: book3 has 6 quads, one rotated box and one sphere
+# (~30), a second light whose sphere pdf every lane evaluates (~35) and the
+# dielectric branch (~45 on the lanes that meet the glass); cornellSmoke
+# has 6 quads and two rotated box media (~45 each: the slab in object
+# space, the log of the free flight), and no box
+OPS_PER_SEGMENT = {"cornell_box": K1_OPS_PER_SEGMENT, "book3": 560,
+                   "cornell_smoke": 470}
+# the new scenes' registry configurations: (-S number, mean path length)
+NEW_SCENES = {"book3": (3, 5.54), "cornell_smoke": (7, 2.91)}
+# book3's glass sphere turns a rounding into a reflect/refract flip within a
+# few levels: the fraction of lanes its checks allow to flip
+# (tests/test_torch_fused.py measures 2.5e-3 against the JAX package)
+DIEL_MISMATCH_FRAC = 5e-3
+# cornellBox's K1 per call as PERF.md §6 records it before this version of
+# the core (NVIDIA H100 80GB HBM3, 700 W)
+K1_EARLIER_MS = 0.1079
 # plain-vs-kernel tolerances (module docstrings of ops/bounce.py and
 # csrc/bounce_fused_q.cu: FMA contraction, rsqrtf and __sincosf differ
 # from the plain ops by ~1e-6 relative, and a lane grazing an edge may
@@ -182,6 +214,13 @@ def time_ms(fn, reps, warmup=1):
         torch.cuda.synchronize()
         best = min(best, t0.elapsed_time(t1) / reps)
     return best
+
+
+def kernel_of(key, names):
+    """True when a profiler event key is a launch of one of the kernels
+    `names` (a template instance `void name<...>(...)` included)."""
+    return any(key.startswith(nm) or key.startswith("void " + nm + "<")
+               for nm in ((names,) if isinstance(names, str) else names))
 
 
 def device_times(prof):
@@ -252,14 +291,32 @@ def plain_versions(bounce, harvest, stream, traverse8):
          harvest.harvest_levels_into) = saved
 
 
-def cornell_inputs(dev, n, seed=0):
-    """cornellBox tables and a mixed lane state at the flagship's camera."""
+def fused_bound(nbytes, segs, scene="cornell_box"):
+    """(bound in ms, "bytes" or "operations") of a fused bounce call that
+    moves `nbytes` and traces `segs` segments of `scene`."""
+    b = nbytes / HBM_BYTES_PER_S
+    o = segs * OPS_PER_SEGMENT[scene] / FP32_OPS_PER_S
+    return max(b, o) * 1e3, "bytes" if b >= o else "operations"
+
+
+def aged_state(run, state, calls=8):
+    """The lane state after `calls` calls of `run(state) -> new state`
+    with a deep queue: the pool holds camera rays, bounced rays and dead
+    lanes, as in a render."""
+    for _ in range(calls):
+        state = [s.clone() for s in run(state)]
+    return state
+
+
+def cornell_inputs(dev, n, seed=0, scene="cornell_box"):
+    """A dense scene's tables (cornellBox unless `scene` names another
+    registry function) and a mixed lane state at its registry camera."""
     import numpy as np
     import torch
     from go_raytracer_tpu_torch.ops import bounce
     from go_raytracer_tpu_torch.scenes import registry
 
-    scene, cam = registry.cornell_box()
+    scene, cam = getattr(registry, scene)()
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     tables = tuple(to(t) for t in bounce.pack_scene(scene))
     statics = bounce.scene_statics(scene)
@@ -484,8 +541,8 @@ def main():
     with torch.profiler.profile(activities=acts) as prof:
         _, pst = regen.render_regen(fscene, fcam, seed=4, device=dev)
     dev_us = device_times(prof)
-    render_us = sum(v for k, v in dev_us.items() if k.startswith(
-        ("fused_q_level", "count_dead", "harvest_levels")))
+    render_us = sum(v for k, v in dev_us.items() if kernel_of(
+        k, ("fused_q_level", "count_dead", "harvest_levels")))
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
     if dev_us:
         print(f"[5] profiled render (seed 4): elapsed {pst['elapsed_s']:.5f} s"
@@ -528,10 +585,7 @@ def main():
     k1_plain_ms = time_ms(run_k1_plain, 3)
     k1_bytes = n * (36 + 36) + n_inner * n * 16 \
         + sum(t.numel() * 4 for t in tables)
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S,
-                   segs * K1_OPS_PER_SEGMENT / FP32_OPS_PER_S) * 1e3
-    k1_bound_by = "bytes" if k1_bytes / HBM_BYTES_PER_S >= \
-        segs * K1_OPS_PER_SEGMENT / FP32_OPS_PER_S else "operations"
+    k1_bound, k1_bound_by = fused_bound(k1_bytes, segs)
     print(f"[6] K1 {n} lanes x {n_inner} levels ({segs} segments): kernel "
           f"{k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms, bound "
           f"{k1_bound:.4f} ms ({k1_bound_by}) on {card}")
@@ -541,8 +595,9 @@ def main():
     k1a_bound = max(k1a_bytes / HBM_BYTES_PER_S, segs / n_inner
                     * K1_OPS_PER_SEGMENT / FP32_OPS_PER_S) * 1e3
     k1b_bound = (n * 4 + 4 * (n // bounce.BLOCK)) / HBM_BYTES_PER_S * 1e3
-    lvl_us = sum(v for k, v in dev_us.items() if k.startswith("fused_q_level"))
-    cnt_us = sum(v for k, v in dev_us.items() if k.startswith("count_dead"))
+    lvl_us = sum(v for k, v in dev_us.items()
+                 if kernel_of(k, "fused_q_level"))
+    cnt_us = sum(v for k, v in dev_us.items() if kernel_of(k, "count_dead"))
     n_lvl = k1_launches * n_inner
     print(f"[6] K1a fused_q_level: bound {k1a_bound:.5f} ms per launch (bytes), "
           f"{k1a_bound * n_lvl:.4f} ms over the flagship's {n_lvl} launches; "
@@ -609,6 +664,44 @@ def main():
     print(f"[6] K2 {n} lanes x {s_run} levels, {next_item} paths: kernel "
           f"{k2_ms:.4f} ms, plain {k2_plain_ms:.2f} ms, bound {k2_bound:.4f}"
           f" ms (bytes) on {card}")
+    print(f"[6] K1 on cornellBox (the core variant without spheres, "
+          f"dielectric or media): {k1_ms:.4f} ms per call, against "
+          f"{K1_EARLIER_MS} ms before this core ({k1_ms / K1_EARLIER_MS - 1:+.1%})")
+    # K1 and K9 on the new scenes, at their registry cadence, on an aged
+    # pool; a K9 call writes its levels at row 0 of a two-call buffer
+    for sc in NEW_SCENES:
+        _, cam_s, tab_s, st_s, row_s, bg_s, _ = cornell_inputs(dev, 8,
+                                                               scene=sc)
+        cad_s = cam_s.regen_cadence
+        kw_s = dict(has_defocus=False, max_depth=50, n_inner=cad_s,
+                    width=600, sqrt_spp=cam_s.spp_sqrt, npix=npix)
+        seed_s = torch.tensor([7, cad_s, 0, npix * 10], dtype=torch.int32,
+                              device=dev)
+        o_s = bounce.FusedQOut.empty(n, cad_s, dev)
+        st0_s = aged_state(lambda st_: bounce.bounce_fused_q(
+            tab_s, st_s, row_s, bg_s, seed_s, *st_, out=o_s, **kw_s)[4:],
+            regen._init_state(n, dev))
+        tb_bytes = sum(t.numel() * 4 for t in tab_s)
+        nbytes = n * (36 + 36) + cad_s * n * 16 + tb_bytes
+        k1s = time_ms(lambda: bounce.bounce_fused_q(
+            tab_s, st_s, row_s, bg_s, seed_s, *st0_s, out=o_s, **kw_s), 20)
+        segs_s = int(o_s.seg.sum())
+        k1s_plain = time_ms(lambda: bounce.bounce_fused_q_ref(
+            tab_s, st_s, row_s, bg_s, seed_s, *st0_s, out=o_s, **kw_s), 3)
+        bufs_s = regen.WindowBuffers.empty(n, 2, cad_s, dev).rec
+        base_s = torch.zeros(1, dtype=torch.int32, device=dev)
+        k9s = time_ms(lambda: bounce.bounce_fused_q_direct(
+            tab_s, st_s, row_s, bg_s, seed_s, base_s, bufs_s, *st0_s,
+            out=o_s, **kw_s), 20)
+        k9s_plain = time_ms(lambda: bounce.bounce_fused_q_direct_ref(
+            tab_s, st_s, row_s, bg_s, seed_s, base_s, bufs_s, *st0_s,
+            out=o_s, **kw_s), 3)
+        bnd, by = fused_bound(nbytes, segs_s, sc)
+        print(f"[6] {sc}: K1 {n} lanes x {cad_s} levels ({segs_s} segments):"
+              f" kernel {k1s:.4f} ms, plain {k1s_plain:.3f} ms; K9 (the same "
+              f"levels written at a device base) {k9s:.4f} ms, plain "
+              f"{k9s_plain:.3f} ms; bound {bnd:.4f} ms ({by}; "
+              f"{OPS_PER_SEGMENT[sc]} operations per segment) on {card}")
 
 
     # ---- 7. K4 and K5 against their plain versions at scene 8's shapes --
@@ -1051,15 +1144,15 @@ def main():
             torch.tensor(next_item, device=dev), st_[7], item_end, width=600,
             npix=npix, sqrt_spp=10)
 
-    def fused_pair(name, k, p):
+    def fused_pair(name, k, p, frac=K1_MISMATCH_FRAC, tag="12"):
         """Mismatch fractions of one fused call, kernel against plain
-        version; returns (level-0 record max abs err, lanes that did not
-        flip)."""
+        version, at most `frac` of the lanes each; returns (level-0 record
+        max abs err, lanes that did not flip)."""
         krec, _, kseg, *kst = k
         prec, _, pseg, *pst = p
         check(kseg[0].item() == pseg[0].item(),
               f"{name}: level-0 alive counts differ")
-        check(all(abs(a - b) <= K1_MISMATCH_FRAC * n
+        check(all(abs(a - b) <= frac * n
                   for a, b in zip(kseg.tolist(), pseg.tolist())),
               f"{name}: alive counts {kseg.tolist()} vs {pseg.tolist()}")
         noflip = kst[7] == pst[7]
@@ -1072,9 +1165,12 @@ def main():
                 noflip &= (a == b).all(dim=0)
                 agree0 &= a[0] == b[0]
             else:
-                v_mis = max(v_mis, (~torch.isclose(
-                    a, b, rtol=K1_RTOL, atol=K1_ATOL,
-                    equal_nan=True)).float().mean().item())
+                off = ~torch.isclose(a, b, rtol=K1_RTOL, atol=K1_ATOL,
+                                     equal_nan=True)
+                v_mis = max(v_mis, off.float().mean().item())
+                # a lane that took another way through glass keeps its
+                # flags; its records tell
+                noflip &= ~off.any(dim=0)
         err0 = max((a[0] - b[0])[agree0].abs().nan_to_num(0.0).max().item()
                    for a, b in zip(krec, prec) if a.dtype != torch.int32)
         alive_both = (kst[7] > 0) & (pst[7] > 0)
@@ -1083,16 +1179,16 @@ def main():
                       .float().mean().item()
                       for a, b in zip(kst[:6], pst[:6]))
         flip = (~noflip).float().mean().item()
-        print(f"[12] {name} vs plain at {n} lanes x {n_inner} levels: "
+        print(f"[{tag}] {name} vs plain at {n} lanes x {n_inner} levels: "
               f"mismatch fractions flags {int_mis:.2e}  alive {alive_mis:.2e}"
               f"  records {v_mis:.2e}  alive lanes' rays {ray_mis:.2e}  "
-              f"flipped lanes {flip:.2e} (limit {K1_MISMATCH_FRAC}, "
+              f"flipped lanes {flip:.2e} (limit {frac}, "
               f"rtol=atol={K1_RTOL}); level-0 record max abs err {err0:.3e};"
               f" alive per level {kseg.tolist()}")
-        for what, frac in (("flags", int_mis), ("alive", alive_mis),
-                           ("records", v_mis), ("rays", ray_mis),
-                           ("flipped lanes", flip)):
-            check(frac <= K1_MISMATCH_FRAC, f"{name}: {what} mismatch {frac}")
+        for what, mis in (("flags", int_mis), ("alive", alive_mis),
+                          ("records", v_mis), ("rays", ray_mis),
+                          ("flipped lanes", flip)):
+            check(mis <= frac, f"{name}: {what} mismatch {mis}")
         check(torch.equal(kst[6][noflip], pst[6][noflip])
               and torch.equal(kst[8][noflip], pst[8][noflip]),
               f"{name}: time or depth differ on a lane that did not flip")
@@ -1302,13 +1398,8 @@ def main():
     refill_ms = time_ms(lambda: queue_refill(st6, nxt6, total), 20)
     table_bytes = sum(t.numel() * 4 for t in tables)
 
-    def bound(nbytes, segs):
-        b, o = nbytes / HBM_BYTES_PER_S, segs * K1_OPS_PER_SEGMENT \
-            / FP32_OPS_PER_S
-        return max(b, o) * 1e3, "bytes" if b >= o else "operations"
-
-    k6_bound, k6_by = bound(n * (36 + 20 + 36) + n_inner * n * 16
-                            + table_bytes, segs6)
+    k6_bound, k6_by = fused_bound(n * (36 + 20 + 36) + n_inner * n * 16
+                                  + table_bytes, segs6)
     print(f"[16] K6 {n} lanes x {n_inner} levels ({segs6} segments, "
           f"{int(r6[0].sum())} starts): kernel {k6_ms:.4f} ms, plain "
           f"{k6_plain_ms:.3f} ms, bound {k6_bound:.4f} ms ({k6_by}); the "
@@ -1331,12 +1422,61 @@ def main():
     starts8 = int(o8.rec[7].sum())
     k8_plain_ms = time_ms(lambda: bounce.bounce_fused_pos_ref(
         tables, statics, cam_row, bg, seed8f, *st8, out=o8, **pkw), 3)
-    k8_bound, k8_by = bound(n * (56 + 56) + n_inner * n * 32 + table_bytes,
-                            segs8)
+    k8_bound, k8_by = fused_bound(
+        n * (56 + 56) + n_inner * n * 32 + table_bytes, segs8)
     print(f"[16] K8 {n} lanes x {n_inner} levels ({segs8} segments, "
           f"{starts8} starts, G = {G} pixel slots per lane): kernel "
           f"{k8_ms:.4f} ms, plain {k8_plain_ms:.3f} ms, bound {k8_bound:.4f} "
           f"ms ({k8_by}) on {card}")
+    # K6 and K8 on the new scenes, at their registry cadence, on aged pools
+    for sc in NEW_SCENES:
+        _, cam_s, tab_s, st_s, row_s, bg_s, _ = cornell_inputs(dev, 8,
+                                                               scene=sc)
+        cad_s, sq_s = cam_s.regen_cadence, cam_s.spp_sqrt
+        total_s = npix * sq_s * sq_s
+        f_kw = dict(has_defocus=False, max_depth=50, n_inner=cad_s)
+        tb_bytes = sum(t.numel() * 4 for t in tab_s)
+        nxt_s = [0]
+
+        def refill_s(st_):
+            r_ = regen.queue_refill_planes(
+                torch.tensor(nxt_s[0], device=dev), st_[7], total_s,
+                width=600, npix=npix, sqrt_spp=sq_s)
+            nxt_s[0] += int(r_[0].sum())
+            return r_
+
+        o6s = bounce.FusedOut.empty(n, cad_s, dev)
+        st6s = aged_state(lambda st_: bounce.bounce_fused(
+            tab_s, st_s, row_s, bg_s, seed6, *st_, *refill_s(st_), out=o6s,
+            **f_kw)[3:], regen._init_state(n, dev))
+        r6s = refill_s(st6s)
+        k6s = time_ms(lambda: bounce.bounce_fused(
+            tab_s, st_s, row_s, bg_s, seed6, *st6s, *r6s, out=o6s, **f_kw),
+            20)
+        segs6s = int(o6s.seg.sum())
+        k6s_plain = time_ms(lambda: bounce.bounce_fused_ref(
+            tab_s, st_s, row_s, bg_s, seed6, *st6s, *r6s, out=o6s, **f_kw), 3)
+        b6s = fused_bound(n * (36 + 20 + 36) + cad_s * n * 16 + tb_bytes,
+                          segs6s, sc)
+        q_s, lb_s, _, _ = regen.pos_tables(npix, sq_s * sq_s, n)
+        o8s = bounce.FusedOut.empty(n, cad_s, dev, positional=True)
+        p_kw = dict(width=600, sqrt_spp=sq_s, **f_kw)
+        seed8s = torch.tensor([13579, cad_s], dtype=torch.int32, device=dev)
+        st8s = aged_state(lambda st_: bounce.bounce_fused_pos(
+            tab_s, st_s, row_s, bg_s, seed8s, *st_, out=o8s, **p_kw)[3:],
+            regen._init_state_pos(n, dev, q_s, lb_s, sq_s * sq_s, 600))
+        k8s = time_ms(lambda: bounce.bounce_fused_pos(
+            tab_s, st_s, row_s, bg_s, seed8s, *st8s, out=o8s, **p_kw), 20)
+        segs8s = int(o8s.seg.sum())
+        k8s_plain = time_ms(lambda: bounce.bounce_fused_pos_ref(
+            tab_s, st_s, row_s, bg_s, seed8s, *st8s, out=o8s, **p_kw), 3)
+        b8s = fused_bound(n * (56 + 56) + cad_s * n * 32 + tb_bytes, segs8s,
+                          sc)
+        print(f"[16] {sc}: K6 {n} lanes x {cad_s} levels ({segs6s} "
+              f"segments): kernel {k6s:.4f} ms, plain {k6s_plain:.3f} ms, "
+              f"bound {b6s[0]:.4f} ms ({b6s[1]}); K8 ({segs8s} segments) "
+              f"kernel {k8s:.4f} ms, plain {k8s_plain:.3f} ms, bound "
+              f"{b8s[0]:.4f} ms ({b8s[1]}) on {card}")
     # profiled at 25 spp (the flagship's 100 CUT for the script's time: the
     # profile's post-processing grows with the positional reverse scan's
     # ~10,000 launches per window)
@@ -1353,7 +1493,7 @@ def main():
             print(f"[16] {sched}: profiler reported no device time: busy "
                   f"share not measured")
             continue
-        own_us = {k: sum(v for kk, v in us.items() if kk.startswith(k))
+        own_us = {k: sum(v for kk, v in us.items() if kernel_of(kk, k))
                   for k in own}
         top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
         print(f"[16] {sched}, cornellBox at 25 spp under the profiler (seed "
@@ -1438,7 +1578,7 @@ def main():
     win = {}
     for direct in (False, True):
         wb = regen.WindowBuffers.empty(n, window17 // n_inner, n_inner, dev)
-        for r in wb.rec:
+        for r in wb.rec + [wb.seg]:
             r.zero_()
         acc17 = torch.zeros((total + n, 3), dtype=torch.float32, device=dev)
         _, _, cur = regen._window_impl(
@@ -1453,24 +1593,23 @@ def main():
         win[direct] = (cur.cpu(), wb, acc17)
     (c0, w0, a0), (c1, w1, a1) = win[False], win[True]
     # The loop notices the drain from an event it polls without waiting, so
-    # how many calls run after the last alive lane died follows the host's
-    # pace; those calls trace nothing. The records, bases and counts are
-    # compared over the levels both runs made, and the longer run's surplus
-    # calls must be empty.
+    # how many calls run after the first drained one follows the host's
+    # pace; those calls trace nothing, and the levels recorded are counted
+    # on the device up to the first drained call. So the two windows'
+    # counts (cursor, segments, levels) are equal, and so are the records,
+    # bases and counts over those levels; a surplus call is empty.
     s_run17 = int(c0[2])
-    s_min17 = min(s_run17, int(c1[2]))
-    calls17 = s_min17 // n_inner        # the calls both ran
-    longer = w0 if s_run17 > s_min17 else w1
-    same_win = torch.equal(c0[:2], c1[:2]) and all(
-        torch.equal(x[:s_min17], y[:s_min17]) for x, y in zip(w0.rec, w1.rec)) \
+    calls17 = s_run17 // n_inner
+    same_win = torch.equal(c0, c1) and all(
+        torch.equal(x[:s_run17], y[:s_run17]) for x, y in zip(w0.rec, w1.rec)) \
         and all(torch.equal(getattr(w0, f)[:calls17], getattr(w1, f)[:calls17])
                 for f in ("base", "seg", "take")) and torch.equal(a0, a1) \
-        and not longer.seg[calls17:max(s_run17, int(c1[2])) // n_inner].any()
+        and not w0.seg[calls17:].any() and not w1.seg[calls17:].any()
     print(f"[17] flagship window ({window17} levels, refill {refill17}) "
-          f"through K1 and through K9: {s_run17} / {int(c1[2])} levels run "
-          f"(the surplus traced nothing), {int(c0[0])} items, {int(c0[1])} "
-          f"segments; records, bases, counts and accumulator over the "
-          f"{s_min17} levels both ran equal bit for bit: {same_win}")
+          f"through K1 and through K9: {int(c0[2])} / {int(c1[2])} levels "
+          f"recorded, {int(c0[0])} items, {int(c0[1])} segments; records, "
+          f"bases, counts and accumulator over those levels equal bit for "
+          f"bit, no segment after them: {same_win}")
     check(same_win, "the flagship window differs between K1 and K9")
     del win, w0, w1, a0, a1
     # the flagship through the CLI with --direct-rec
@@ -1616,6 +1755,66 @@ def main():
               for name, (t_, i_) in routes18.items()) for k in lanes18[:50]))
     check(len(lanes18) <= 1e-3 * n8,
           "the five routes differ on more than 1e-3 of the lanes")
+    # Where the routes part in a whole render: one uncut window (255
+    # levels, 204 of them refilling) on the walk route, and at every level
+    # the same rays, caps and live lanes through binned2 and the binary BVH
+    # walk too. A lane whose winners differ is a tie when both t are equal
+    # (two triangles at one distance: each route keeps the first it meets)
+    # and a fault otherwise (a route missed the nearer triangle).
+    ctxw = regen.MeshContext.build(scene8, cam8, dev, mesh="walk")
+    real_mc = trace.mesh_closest
+    parts = {"levels": 0, "lanes": 0, "first": None,
+             "binned2": [0, 0], "walk+bvh2": [0, 0]}   # [ties, non-ties]
+
+    def mc_spy(ms_, o_, d_, t_cap=None, alive=None, **kw):
+        t_w, i_w = real_mc(ms_, o_, d_, t_cap, alive, **kw)
+        parts["levels"] += 1
+        parts["lanes"] += int(alive.sum())
+        for name, rk in (("binned2", dict(mesh="binned2")),
+                         ("walk+bvh2", dict(mesh="walk", traverse8=False))):
+            t_r, i_r = real_mc(ms_, o_, d_, t_cap, alive, **rk)
+            diff = (i_r != i_w) | (t_r != t_w)
+            tie = diff & (t_r == t_w)
+            parts[name][0] += int(tie.sum())
+            parts[name][1] += int((diff & ~tie).sum())
+            if parts["first"] is None and bool(diff.any()):
+                k = int(torch.nonzero(diff)[0, 0])
+                ids = torch.tensor([max(int(i_w[k]), 0), max(int(i_r[k]), 0)],
+                                   device=dev)
+                t_mt, _, _, ok_mt = trace.tri_hit_gathered(
+                    ms_.triangles, ids, o_[k].expand(2, 3), d_[k].expand(2, 3),
+                    -float("inf"), float("inf"))
+                parts["first"] = (
+                    f"level {parts['levels'] - 1}, lane {k}: walk t "
+                    f"{t_w[k].item():.9g} idx {int(i_w[k])}, {name} t "
+                    f"{t_r[k].item():.9g} idx {int(i_r[k])}; cap "
+                    f"{t_cap[k].item():.9g}; the plain Moller-Trumbore of "
+                    f"the two triangles: t {t_mt[0].item():.9g} / "
+                    f"{t_mt[1].item():.9g}, hit {bool(ok_mt[0])} / "
+                    f"{bool(ok_mt[1])}")
+        return t_w, i_w
+
+    bufs18 = regen.WindowBuffers.empty(n8, window8, 1, dev)
+    acc18 = torch.zeros((SCENE8_PATHS + n8, 3), dtype=torch.float32,
+                        device=dev)
+    trace.mesh_closest = mc_spy
+    try:
+        _, _, _, s_run18 = regen._mesh_window(
+            ctxw, acc18, regen._init_state_mesh(n8, dev), 0,
+            regen.window_generator(0, 0, dev), SCENE8_PATHS, window=window8,
+            refill=refill8, max_depth=cam8.max_depth,
+            max_contribution=cam8.max_contribution, bufs=bufs18, **geo)
+    finally:
+        trace.mesh_closest = real_mc
+    del bufs18, acc18
+    print(f"[18] one uncut scene-8 window on the walk route ({parts['levels']}"
+          f" levels, {parts['lanes']} live lanes), the same rays through "
+          f"binned2 and the binary BVH walk: lanes whose winner differs from "
+          f"the walk's (ties / non-ties) binned2 {parts['binned2'][0]} / "
+          f"{parts['binned2'][1]}, walk+bvh2 {parts['walk+bvh2'][0]} / "
+          f"{parts['walk+bvh2'][1]}; first: {parts['first']}")
+    check(parts["levels"] == s_run18 > refill8,
+          "the route comparison did not see every level of the window")
 
     # ---- 19. renders of the new routes through the CLI ------------------
     phase_start(19)
@@ -1730,7 +1929,7 @@ def main():
         **kw17), 3)
     k9_bytes = n * (36 + 36) + n_inner * n * 16 \
         + sum(t.numel() * 4 for t in tables)
-    k9_bound, k9_by = bound(k9_bytes, segs9)
+    k9_bound, k9_by = fused_bound(k9_bytes, segs9)
     print(f"[20] K9 {n} lanes x {n_inner} levels ({segs9} segments): kernel "
           f"{k9_ms:.4f} ms, plain {k9_plain_ms:.3f} ms, bound {k9_bound:.4f} ms"
           f" ({k9_by}; K1's bytes) on {card}")
@@ -1808,6 +2007,171 @@ def main():
                                           for k, v in top20))
     else:
         print("[20] profiler reported no device time: busy share not measured")
+
+    # ---- 21. book3 and cornellSmoke on the fused kernels ----------------
+    phase_start(21)
+    n, n_inner = 1 << 17, 8
+    for sc in NEW_SCENES:
+        frac = DIEL_MISMATCH_FRAC if sc == "book3" else K1_MISMATCH_FRAC
+        _, cam_s, tab_s, st_s, row_s, bg_s, state = cornell_inputs(
+            dev, n, scene=sc)
+        sq_s = cam_s.spp_sqrt
+        q_kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner,
+                    width=600, sqrt_spp=sq_s, npix=npix)
+        print(f"[21] {sc}: statics {st_s}; core variant "
+              f"{bounce.fused_features(st_s)}")
+        # K1 with starts at level 0 only: the starts, their ranks and the
+        # time planes (PRNG slot 4) exact, the rest within `frac`
+        seed21 = torch.tensor([-123456789, 1, 1000, npix * 10],
+                              dtype=torch.int32, device=dev)
+        k_o = bounce.FusedQOut.empty(n, n_inner, dev)
+        bounce.bounce_fused_q(tab_s, st_s, row_s, bg_s, seed21, *state,
+                              out=k_o, **q_kw)
+        torch.cuda.synchronize()
+        p_o = bounce.FusedQOut.empty(n, n_inner, dev)
+        bounce.bounce_fused_q_ref(tab_s, st_s, row_s, bg_s, seed21, *state,
+                                  out=p_o, **q_kw)
+        check(torch.equal(k_o.take, p_o.take)
+              and torch.equal(k_o.base, p_o.base)
+              and torch.equal(k_o.rec[3][0] & ~3, p_o.rec[3][0] & ~3)
+              and torch.equal(k_o.state[6], p_o.state[6]),
+              f"K1 on {sc}: takes, bases, level-0 starts and ranks, or the "
+              f"time plane differ")
+        fl_k, fl_p = k_o.rec[3] & 7, p_o.rec[3] & 7
+        fl_mis = (fl_k != fl_p).float().mean().item()
+        alive_mis = (k_o.state[7] != p_o.state[7]).float().mean().item()
+        v_off = torch.zeros_like(fl_k, dtype=torch.bool)
+        for a, b in zip(k_o.rec[:3], p_o.rec[:3]):
+            v_off |= ~torch.isclose(a, b, rtol=K1_RTOL, atol=K1_ATOL,
+                                    equal_nan=True)
+        v_mis = v_off.float().mean().item()
+        agree0 = fl_k[0] == fl_p[0]
+        err0 = max((a[0] - b[0])[agree0].abs().nan_to_num(0.0).max().item()
+                   for a, b in zip(k_o.rec[:3], p_o.rec[:3]))
+        nan_k = [int(torch.isnan(k_o.rec[0][j]).sum()) for j in range(n_inner)]
+        nan_p = [int(torch.isnan(p_o.rec[0][j]).sum()) for j in range(n_inner)]
+        print(f"[21] {sc}: K1 vs plain at {n} lanes x {n_inner} levels: "
+              f"takes, bases, level-0 starts and ranks and the time plane "
+              f"exact; mismatch fractions FL {fl_mis:.2e} alive "
+              f"{alive_mis:.2e} V {v_mis:.2e} (limit {frac}, rtol=atol="
+              f"{K1_RTOL}); level-0 V max abs err {err0:.3e}; NaN V lanes "
+              f"per level kernel {nan_k} plain {nan_p}")
+        for what, mis in (("FL", fl_mis), ("alive", alive_mis), ("V", v_mis)):
+            check(mis <= frac, f"K1 on {sc}: {what} mismatch {mis}")
+        # K9 against K1 bit for bit at a device base, and against its plain
+        # version
+        base21 = torch.tensor([3], dtype=torch.int32, device=dev)
+        kb = [torch.full((n_inner + 5, n), -7.5, device=dev)
+              for _ in range(3)] + [torch.full((n_inner + 5, n), -9,
+                                               dtype=torch.int32, device=dev)]
+        k9o = bounce.FusedQOut.empty(n, n_inner, dev)
+        bounce.bounce_fused_q_direct(tab_s, st_s, row_s, bg_s, seed21, base21,
+                                     kb, *state, out=k9o, **q_kw)
+        torch.cuda.synchronize()
+        lv = slice(3, 3 + n_inner)
+        check(all(torch.equal(b[lv], r) for b, r in zip(kb, k_o.rec))
+              and all(torch.equal(a, b) for a, b in zip(k9o.state, k_o.state))
+              and all(bool((b[:3] == b[0, 0]).all())
+                      and bool((b[3 + n_inner:] == b[0, 0]).all()) for b in kb),
+              f"K9 on {sc} differs from K1, or wrote outside its rows")
+        pb = [b.clone() for b in kb]
+        bounce.bounce_fused_q_direct_ref(tab_s, st_s, row_s, bg_s, seed21,
+                                         base21, pb, *state, **q_kw)
+        fl9 = ((kb[3][lv] & 7) != (pb[3][lv] & 7)).float().mean().item()
+        check(fl9 <= frac and torch.equal(kb[3][3] & ~3, pb[3][3] & ~3),
+              f"K9 on {sc}: flags differ from its plain version")
+        print(f"[21] {sc}: K9 equal to K1 bit for bit at rows 3..{2 + n_inner}"
+              f", other rows untouched; vs plain FL mismatch {fl9:.2e}")
+        # K6 on the refill planes of a real refill, K8 with rem mixed and
+        # the refill cut after level 5
+        r21 = regen.queue_refill_planes(
+            torch.tensor(1000, device=dev), state[7], npix * 10, width=600,
+            npix=npix, sqrt_spp=sq_s)
+        f_kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner)
+        k6 = bounce.bounce_fused(tab_s, st_s, row_s, bg_s, seed6, *state,
+                                 *r21, **f_kw)
+        torch.cuda.synchronize()
+        p6 = bounce.bounce_fused_ref(tab_s, st_s, row_s, bg_s, seed6, *state,
+                                     *r21, **f_kw)
+        fused_pair(f"K6 on {sc}", k6, p6, frac, tag="21")
+        rs = np.random.default_rng(5)
+        to_f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+        ptr21 = [to_f(rs.choice([0, 7, 599], n)), to_f(rs.integers(0, 599, n)),
+                 to_f(rs.choice([0, sq_s - 1], n)),
+                 to_f(rs.choice([0, 1, sq_s - 1], n)),
+                 to_f(rs.choice([0, 1, 2, 275], n))]
+        seed21p = torch.tensor([24680, 5], dtype=torch.int32, device=dev)
+        p_kw = dict(width=600, sqrt_spp=sq_s, **f_kw)
+        k8 = bounce.bounce_fused_pos(tab_s, st_s, row_s, bg_s, seed21p, *state,
+                                     *ptr21, **p_kw)
+        torch.cuda.synchronize()
+        p8 = bounce.bounce_fused_pos_ref(tab_s, st_s, row_s, bg_s, seed21p,
+                                         *state, *ptr21, **p_kw)
+        _, noflip21 = fused_pair(f"K8 on {sc}", k8, p8, frac, tag="21")
+        check(all(torch.equal(a[noflip21], b[noflip21])
+                  for a, b in zip(k8[12:], p8[12:]))
+              and torch.equal(k8[0][7][0], p8[0][7][0])
+              and not k8[0][7][5:].any(),
+              f"K8 on {sc}: pointer planes or starts differ")
+
+    # the registry configurations through the CLI, on the four routes of a
+    # dense scene; launch counts read around each render
+    def run_cli_dense(num, extra, image):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-S", str(num), "-o", os.path.join(out_dir, image),
+                           "--stats", "--quiet", *extra])
+        check(rc == 0, f"cli.main -S {num} {extra} returned {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    routes21 = (("queue_ik", [], "bounce_fused_q"),
+                ("direct_rec", ["--direct-rec"], "bounce_fused_q_direct"),
+                ("queue", ["--schedule", "queue"], "bounce_fused"),
+                ("positional", ["--schedule", "positional"],
+                 "bounce_fused_pos"))
+    for sc, (num, regen_len) in NEW_SCENES.items():
+        _, cam_s = cornell_inputs(dev, 8, scene=sc)[:2]
+        paths_s = cam_s.width * cam_s.image_height * cam_s.spp_sqrt ** 2
+        res = {}
+        for label, extra, kern in routes21:
+            reset_counts()
+            st_r = run_cli_dense(num, extra, f"{sc}_{label}.ppm")
+            counts = {"bounce_fused_q": bounce.launches,
+                      "bounce_fused_q_direct": bounce.launches_direct,
+                      "bounce_fused": bounce.launches_fused,
+                      "bounce_fused_pos": bounce.launches_fused_pos,
+                      "harvest_levels": harvest.launches,
+                      "reverse_harvest": harvest.launches_rows}
+            st_r["means"] = ppm_channel_means(os.path.join(
+                out_dir, f"{sc}_{label}.ppm"))
+            res[label] = st_r
+            ratio = st_r["segments"] / st_r["paths"]
+            print(f"[21] {sc} {cam_s.width}x{cam_s.image_height} "
+                  f"{cam_s.samples_per_pixel}spp "
+                  f"({cam_s.spp_sqrt ** 2} strata) depth 50, 131072 lanes, "
+                  f"{label}, on {card}: paths {st_r['paths']}, segments "
+                  f"{st_r['segments']} ({ratio:.4f}/path, registry "
+                  f"{regen_len}), {st_r['rays_per_s']:.6g} rays/s, render "
+                  f"loop {st_r['elapsed_s']:.4f} s, windows {st_r['windows']}"
+                  f", nonfinite {st_r['nonfinite']}, channel means "
+                  f"{np.round(st_r['means'], 5).tolist()}; launches "
+                  + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+            check(st_r["paths"] == paths_s, f"{sc} {label}: paths {st_r['paths']}"
+                  f" != {paths_s}")
+            check(st_r["nonfinite"] == 0, f"{sc} {label}: non-finite pixels")
+            check(abs(ratio - regen_len) <= 0.05 * regen_len,
+                  f"{sc} {label}: segments/path {ratio} vs {regen_len}")
+            others = [k for k in ("bounce_fused_q", "bounce_fused_q_direct",
+                                  "bounce_fused", "bounce_fused_pos")
+                      if k != kern]
+            check(counts[kern] > 0 and not any(counts[k] for k in others),
+                  f"{sc} {label}: the render did not go through {kern} alone")
+        check(res["direct_rec"]["segments"] == res["queue_ik"]["segments"],
+              f"{sc}: --direct-rec segments differ from queue_ik's")
+        for label in ("queue", "positional"):
+            check(np.abs(res[label]["means"] - res["queue_ik"]["means"]).max()
+                  <= 1e-2, f"{sc} {label}: channel means beyond 1e-2 of "
+                  f"queue_ik's")
 
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",

@@ -225,7 +225,10 @@ class _DrainWatch:
     no alive lane after its refill proves the window drained: every lane
     is dead and no item can start again. On the CPU that count is read
     directly; on the GPU it is copied to pinned memory behind the kernel
-    and read once its event has completed, so the host never waits."""
+    and read once its event has completed, so the host never waits, and
+    how many calls run past the drained one follows the host's pace. Those
+    calls trace nothing; the window's counts come from the device
+    (`_window_impl`), not from the number of calls."""
 
     def __init__(self, seg):
         self.seg = seg
@@ -308,14 +311,20 @@ def _window_impl(tables, statics, cam_row, bg, acc, state, next_item, seeds,
         watch.record(i)
         if watch.drained():
             break
+    # the harvest may run over every call made: a call after the drained
+    # one records only dead lanes (zero V, no flags), which add nothing
     s_run = n_run * cadence
     harvest_mod.harvest_levels_into(
         acc, *(r[:s_run] for r in bufs.rec), bufs.base.reshape(-1),
         item_base=item_base, s_run=s_run, refill_levels=refill,
         max_contribution=max_contribution)
     segments = bufs.seg[:n_run].sum(dtype=torch.int64)
+    # levels recorded: up to the first drained call, read on the device, so
+    # that the count does not follow how late the host saw the drain
+    drained = (bufs.seg[:n_run, -1] == 0).to(torch.int64)
+    calls = torch.where(drained.any(), drained.argmax() + 1, n_run)
     cur = torch.stack([tab[n_run, 2].to(torch.int64), segments,
-                       segments.new_full((), s_run)])
+                       calls * cadence])
     return acc, state, cur
 
 
@@ -802,11 +811,15 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         raise ValueError("mesh, b1_fused and traverse8 pick the closest-hit "
                          "route of a mesh scene; this scene has no mesh")
     if not (use_fused or use_ext):
+        missing = bounce_mod.refused_features(scene)
+        if scene.has_tri_bvh:
+            # the mesh path's kernel (`bounce`) takes triangles but not yet
+            # the dense kernels' media and dielectric
+            missing = [m for m in missing if m != "triangles"] or [
+                "media, dielectric or isotropic materials beside a mesh"]
         raise NotImplementedError(
-            "scene outside the ported kernels' subsets (dense scenes: quads, "
-            "fused boxes, lambertian and diffuse-light materials, solid "
-            "textures, quad lights; mesh scenes add spheres, metal and "
-            "sphere lights); the other features are queued in ROADMAP.md")
+            "scene outside the ported kernels' subsets: it has "
+            + ", ".join(missing) + "; these are queued in ROADMAP.md")
     if not use_fused and schedule == "positional":
         raise NotImplementedError(
             "schedule 'positional' on a mesh scene runs the unfused "

@@ -133,7 +133,7 @@ def library(name: str) -> ctypes.CDLL:
 
 def ptxas_report(name: str) -> list:
     """One line per kernel of csrc/<name>.cu from its build log: the entry
-    function (its template argument, if any), registers, static shared
+    function (its template arguments, if any), registers, static shared
     memory and spill stores, as `-Xptxas -v` reported them. Empty before
     the build."""
     log = _target(name)[:-3] + ".log"
@@ -145,8 +145,10 @@ def ptxas_report(name: str) -> list:
             m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
             if m:
                 k = int(m.group(1))
-                arg = re.match(r"IL[ib](\d+)E", m.group(2)[k:])
-                func = m.group(2)[:k] + (f"<{arg.group(1)}>" if arg else "")
+                targs = re.match(r"I((?:L[ib]\d+E)+)E", m.group(2)[k:])
+                func = m.group(2)[:k] + (
+                    "<" + ",".join(re.findall(r"L[ib](\d+)E", targs.group(1)))
+                    + ">" if targs else "")
                 continue
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:

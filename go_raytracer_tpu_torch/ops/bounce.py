@@ -32,13 +32,17 @@ Counterpart of the JAX package's `ops/pallas/bounce.py`. Three parts:
   the closest mesh hit folded in as per-lane planes (`mesh_ext_planes`).
   CUDA tensors launch `csrc/bounce.cu`, CPU tensors run `bounce_ref`.
 
-The three fused kernels cover the scenes `supported()` accepts: quads and
-(rotated) fused boxes, lambertian and diffuse-light materials, solid
-textures, quad lights, no defocus. `bounce` adds spheres, metal, sphere
-lights and the external mesh hit (`supported_ext`). Everything else
-raises; nothing falls back. All share one bounce core (`_bounce_core_ref`
-here, `csrc/bounce_core.cuh` on the card), and the fused ones one PRNG and
-one camera ray generation (`_camera_rays_ref`, `csrc/fused_common.cuh`).
+The four fused kernels cover the scenes `supported()` accepts: spheres,
+quads and (rotated) fused boxes; lambertian, metal, dielectric,
+diffuse-light and isotropic materials; constant-density media; solid
+textures; quad and sphere lights; no defocus. `bounce` covers spheres,
+quads, boxes, lambertian, metal and diffuse-light materials, quad and
+sphere lights and the external mesh hit (`supported_ext`). Everything else
+(noise, image and checker textures, defocus, triangle lights) raises;
+nothing falls back. All share one bounce core (`_bounce_core_ref` here,
+`csrc/bounce_core.cuh` on the card, compiled once per feature set), and
+the fused ones one PRNG and one camera ray generation (`_camera_rays_ref`,
+`csrc/fused_common.cuh`).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ import torch
 from go_raytracer_tpu_torch.scene import types as T
 
 INV_PI = 1.0 / math.pi
+INV_4PI = 1.0 / (4.0 * math.pi)
 T_MIN = 1e-3  # rayColor's interval.New(0.001, inf) (camera.go:300)
 
 # primitive row layout — kind-homogeneous sections share the material block
@@ -104,30 +109,56 @@ def _mat_layout(st: dict):
 
 MAX_PRIMS = 4096
 MAX_LIGHTS = 8
+MAX_MEDIA = 8
+
+
+def _refused_statics(st: dict) -> list:
+    """What in these statics the fused kernels do not compute, in words."""
+    named = [("noise textures", st["has_noise"]),
+             ("image textures", st["has_image"]),
+             ("checker textures", st["has_checker"]),
+             ("an external mesh hit", st["ext_hit"]),
+             (f"more than {MAX_MEDIA} media", st["n_media"] > MAX_MEDIA),
+             (f"no primitive or more than {MAX_PRIMS}",
+              not 0 < st["n_sph"] + st["n_quad"] + st["n_box"] <= MAX_PRIMS),
+             (f"no light or more than {MAX_LIGHTS}",
+              not 0 < st["n_lights_live"] <= MAX_LIGHTS)]
+    return [name for name, on in named if on]
 
 
 def supported_statics(st: dict) -> bool:
-    """The kernel's subset, read from `scene_statics`: quads and fused
-    boxes with lambertian / diffuse-light materials, solid textures and
-    quad lights. Spheres, media, metal, dielectric, isotropic, noise,
+    """The fused kernels' subset, read from `scene_statics`: spheres, quads
+    and fused boxes; lambertian, metal, dielectric, diffuse-light and
+    isotropic materials; constant-density media; solid textures. Noise,
     image and checker textures are later slices (ROADMAP.md)."""
-    if (st["n_sph"] or st["n_media"] or st["has_metal"]
-            or st["has_dielectric"] or st["has_isotropic"]
-            or st["has_noise"] or st["has_image"] or st["has_checker"]
-            or st["ext_hit"]):
-        return False
-    return (0 < st["n_quad"] + st["n_box"] <= MAX_PRIMS
-            and 0 < st["n_lights_live"] <= MAX_LIGHTS)
+    return not _refused_statics(st)
+
+
+def refused_features(scene: T.Scene) -> list:
+    """What keeps a scene off the fused kernels, in words (empty when
+    `supported(scene)`): triangles (kept outside the packed tables),
+    triangle lights (the light sampler covers quad and sphere rows), and
+    what `supported_statics` refuses."""
+    return ([m for m, on in (("triangles", scene.has_triangles),
+                             ("triangle lights", scene.has_tri_lights)) if on]
+            + _refused_statics(scene_statics(scene)))
 
 
 def supported(scene: T.Scene) -> bool:
-    """True when `bounce_fused_q` carries the scene: `supported_statics`
-    plus what the statics do not record — triangles (kept outside the
-    packed tables) and sphere or triangle lights (a kind column of the
-    light table)."""
-    if scene.has_triangles or scene.has_tri_lights or scene.has_sphere_lights:
-        return False
-    return supported_statics(scene_statics(scene))
+    """True when `bounce_fused_q` carries the scene."""
+    return not refused_features(scene)
+
+
+def fused_features(st: dict) -> int:
+    """The compile-time feature set of the fused kernels' bounce core for
+    these statics (csrc/fused_common.cuh): bit 0 the sphere section, bit 1
+    the fr column (metal fuzz or dielectric index) with the dielectric
+    branch, bit 2 isotropic scattering with the media loop. A scene
+    without spheres, fr column and media runs the core compiled without
+    them."""
+    return ((1 if st["n_sph"] else 0)
+            | (2 if "fr" in _mat_layout(st) else 0)
+            | (4 if st["has_isotropic"] else 0))
 
 
 def supported_ext_statics(st: dict) -> bool:
@@ -377,6 +408,12 @@ def _normalize3(x, y, z):
     return x * inv, y * inv, z * inv
 
 
+def _safe_d(v):
+    """v kept at least 1e-30 away from zero, its sign kept."""
+    return torch.where(torch.abs(v) < 1e-30, torch.where(v < 0, -1e-30, 1e-30),
+                       v)
+
+
 def _onb_transform(nx, ny, nz, lx, ly, lz):
     """The reference ONB about n (onb.go:13-25) applied to (lx, ly, lz)."""
     wx, wy, wz = _normalize3(nx, ny, nz)
@@ -396,15 +433,81 @@ def _onb_transform(nx, ny, nz, lx, ly, lz):
             lx * uz + ly * vz + lz * wz)
 
 
+def _media_update(st, med, rays, u, carry):
+    """Constant-density media (medium.go:27-58), after every primitive
+    section and the ext hit: each medium's boundary span (sphere roots, or
+    the rotated box's slabs in object space) clamped by the closest hit so
+    far, and an exponential free-flight distance from the medium's
+    uniform u[N_U + m]. A medium winner carries normal (1, 0, 0), front
+    face true and an isotropic material with the medium's albedo. `carry`
+    = (t_best, normal xyz, material planes, sphere winner, medium winner),
+    updated and returned."""
+    ox, oy, oz, dx, dy, dz, a_quad, inv_a = rays
+    t_best, n_hx, n_hy, n_hz, mat, win_sphere, win_med = carry
+    ray_len = torch.sqrt(a_quad)
+    inv_len = 1.0 / ray_len
+    for m, g in enumerate(med.tolist()[:st["n_media"]]):
+        if g[0] > 0.5:
+            # box span in object space (transformation.go:25-34, 79-85)
+            cth, sth = g[5], g[6]
+            osx = ox - g[7]
+            osz = oz - g[9]
+            xo = cth * osx - sth * osz
+            yo = oy - g[8]
+            zo = sth * osx + cth * osz
+            dxo = cth * dx - sth * dz
+            dzo = sth * dx + cth * dz
+            near = torch.full_like(ox, -float("inf"))
+            far = torch.full_like(ox, float("inf"))
+            for oc, dc, lo_c, hi_c in ((xo, dxo, 10, 13), (yo, dy, 11, 14),
+                                       (zo, dzo, 12, 15)):
+                t0a = (g[lo_c] - oc) / _safe_d(dc)
+                t1a = (g[hi_c] - oc) / _safe_d(dc)
+                near = torch.maximum(near, torch.minimum(t0a, t1a))
+                far = torch.minimum(far, torch.maximum(t0a, t1a))
+            ok = far > near
+        else:
+            # sphere span
+            cx, cy, cz = g[1] - ox, g[2] - oy, g[3] - oz
+            h = _dot3(dx, dy, dz, cx, cy, cz)
+            c = _dot3(cx, cy, cz, cx, cy, cz) - g[4] * g[4]
+            disc = h * h - a_quad * c
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            near = (h - sq) * inv_a
+            far = (h + sq) * inv_a
+            ok = disc >= 0.0
+        ok = ok & (far > near + 1e-4)      # second boundary hit (medium.go:34)
+        t0 = torch.clamp(near, min=T_MIN)  # medium.go:37
+        t1 = torch.minimum(far, t_best)    # medium.go:38
+        ok = ok & (t0 < t1)                # medium.go:39
+        t0 = torch.clamp(t0, min=0.0)      # medium.go:43
+        dist_inside = (t1 - t0) * ray_len
+        hit_dist = g[16] * torch.log(u[N_U + m])
+        ok = ok & (hit_dist <= dist_inside)
+        t_c = t0 + hit_dist * inv_len
+        win = ok & (t_c < t_best)
+        t_best = torch.where(win, t_c, t_best)
+        n_hx = torch.where(win, 1.0, n_hx)    # medium.go:54
+        n_hy = torch.where(win, 0.0, n_hy)
+        n_hz = torch.where(win, 0.0, n_hz)
+        vals = [float(T.MAT_ISOTROPIC), g[17], g[18], g[19], 0.0]
+        mat = [torch.where(win, v, mv) for v, mv in zip(vals, mat)]
+        win_sphere = win_sphere & ~win
+        win_med = win_med | win
+    return t_best, n_hx, n_hy, n_hz, mat, win_sphere, win_med
+
+
 def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
-                     tm=None, ext=None):
+                     tm=None, ext=None, med=None):
     """One bounce of the supported subset (camera.go:293-331): closest hit
     over the sphere, quad and box sections, the external mesh hit folded
-    in (`ext`, with st["ext_hit"]), face-forward flip, emission or
-    background, mixture light/cosine sampling and its pdf, metal
-    reflection. Mirrors the JAX kernel's `_bounce_core` op for op. `tm`
-    (ray time) is needed when the scene has spheres. Returns (vr, vg, vb,
-    emit, cf, new origin xyz, new direction xyz, alive_out)."""
+    in (`ext`, with st["ext_hit"]), the media (`med`, the `pack_scene`
+    media table, with st["n_media"]), face-forward flip, emission or
+    background, mixture light/cosine/isotropic sampling and its pdf, metal
+    and dielectric scattering. Mirrors the JAX kernel's `_bounce_core` op
+    for op. `u` holds N_U + n_media uniform planes; `tm` (ray time) is
+    needed when the scene has spheres. Returns (vr, vg, vb, emit, cf, new
+    origin xyz, new direction xyz, alive_out)."""
     P = prims.tolist()
     Lr = lights.tolist()
     lay = _mat_layout(st)
@@ -413,10 +516,12 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     n_hx = torch.zeros_like(ox)
     n_hy = torch.zeros_like(ox)
     n_hz = torch.zeros_like(ox)
-    # kind, ev_r, ev_g, ev_b, then the metal fuzz where the table has it
+    # kind, ev_r, ev_g, ev_b, then the metal fuzz / dielectric index where
+    # the table has it
     mat_cols = [0, 1, 2, 3] + ([fr_i] if fr_i is not None else [])
     mat = [torch.zeros_like(ox) for _ in mat_cols]
     win_sphere = torch.zeros_like(ox, dtype=torch.bool)
+    win_med = torch.zeros_like(ox, dtype=torch.bool)
     sph_r = torch.ones_like(ox)
 
     def update(ok, t_c, cnx, cny, cnz, g, sphere_r=None):
@@ -435,7 +540,7 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
 
     # spheres (objects.go:83-115): the normal slots carry c - o until the
     # winner's outward normal (p - c) / r is resolved below
-    if st["n_sph"]:
+    if st["n_sph"] or st["n_media"]:
         a_quad = _dot3(dx, dy, dz, dx, dy, dz)
         inv_a = 1.0 / a_quad
     for p in range(st["n_sph"]):
@@ -471,10 +576,8 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
         update(ok, t_q, g[1], g[2], g[3], g)
 
     if st["n_box"]:
-        tiny = 1e-30
-        safe = lambda v: torch.where(torch.abs(v) < tiny,
-                                     torch.where(v < 0, -tiny, tiny), v)
-        ix_w, iy_w, iz_w = 1.0 / safe(dx), 1.0 / safe(dy), 1.0 / safe(dz)
+        ix_w, iy_w, iz_w = (1.0 / _safe_d(dx), 1.0 / _safe_d(dy),
+                            1.0 / _safe_d(dz))
     for b in range(st["n_box"]):
         g = P[st["box_base"] + b]
         if st["box_rot"]:
@@ -487,7 +590,8 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
             by_o = oy_
             bdx = cos * dx - sin * dz
             bdz = sin * dx + cos * dz
-            ix_, iy_, iz_ = 1.0 / safe(bdx), 1.0 / safe(dy), 1.0 / safe(bdz)
+            ix_, iy_, iz_ = (1.0 / _safe_d(bdx), 1.0 / _safe_d(dy),
+                             1.0 / _safe_d(bdz))
         else:
             ix_, iy_, iz_ = ix_w, iy_w, iz_w
             bx_o, by_o, bz_o = ox, oy, oz
@@ -528,6 +632,10 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
         n_hz = torch.where(okx, ext[3], n_hz)
         mat = [torch.where(okx, ext[4 + c], m) for c, m in zip(mat_cols, mat)]
         win_sphere = win_sphere & ~okx
+    if st["n_media"]:
+        t_best, n_hx, n_hy, n_hz, mat, win_sphere, win_med = _media_update(
+            st, med, (ox, oy, oz, dx, dy, dz, a_quad, inv_a), u,
+            (t_best, n_hx, n_hy, n_hz, mat, win_sphere, win_med))
 
     m_kind, tex_r, tex_g, tex_b = mat[:4]
     hit = torch.isfinite(t_best)
@@ -541,7 +649,8 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
         n_hx = torch.where(sph_ok, (t_safe * dx - n_hx) * inv_r, n_hx)
         n_hy = torch.where(sph_ok, (t_safe * dy - n_hy) * inv_r, n_hy)
         n_hz = torch.where(sph_ok, (t_safe * dz - n_hz) * inv_r, n_hz)
-    front = _dot3(dx, dy, dz, n_hx, n_hy, n_hz) < 0.0
+    # media force frontFace = true (medium.go:55)
+    front = (_dot3(dx, dy, dz, n_hx, n_hy, n_hz) < 0.0) | win_med
     n_hx = torch.where(front, n_hx, -n_hx)
     n_hy = torch.where(front, n_hy, -n_hy)
     n_hz = torch.where(front, n_hz, -n_hz)
@@ -550,7 +659,11 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     lit = alive & hit
     is_light = lit & (m_kind == float(T.MAT_DIFFUSE_LIGHT))
     is_metal = lit & (m_kind == float(T.MAT_METAL))
+    is_diel = lit & (m_kind == float(T.MAT_DIELECTRIC))
     diffuse = lit & (m_kind == float(T.MAT_LAMBERTIAN))
+    if st["has_isotropic"]:
+        is_iso = lit & (m_kind == float(T.MAT_ISOTROPIC))
+        diffuse = diffuse | is_iso
     e_on = is_light & front
     zero = torch.zeros_like(ox)
     er = torch.where(miss, bg[0], torch.where(e_on, tex_r, zero))
@@ -589,6 +702,14 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     cz_m = torch.sqrt(torch.clamp(1.0 - u[8], min=0.0))
     mdx, mdy, mdz = _onb_transform(n_hx, n_hy, n_hz, torch.cos(phi_m) * sq_m,
                                    torch.sin(phi_m) * sq_m, cz_m)
+    if st["has_isotropic"]:
+        # uniform sphere for isotropic scattering (pdf.go:15-23)
+        z_i = 1.0 - 2.0 * u[7]
+        r_i = torch.sqrt(torch.clamp(1.0 - z_i * z_i, min=0.0))
+        phi_i = 2.0 * math.pi * u[8]
+        mdx = torch.where(is_iso, r_i * torch.cos(phi_i), mdx)
+        mdy = torch.where(is_iso, r_i * torch.sin(phi_i), mdy)
+        mdz = torch.where(is_iso, z_i, mdz)
     use_light = u[3] < 0.5
     gdx = torch.where(use_light, ldx, mdx)
     gdy = torch.where(use_light, ldy, mdy)
@@ -633,6 +754,8 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     ugx, ugy, ugz = _normalize3(gdx, gdy, gdz)
     cos_t = _dot3(ugx, ugy, ugz, n_hx, n_hy, n_hz)
     mat_pdf = torch.clamp(cos_t, min=0.0) * INV_PI
+    if st["has_isotropic"]:
+        mat_pdf = torch.where(is_iso, INV_4PI, mat_pdf)
     pdf_value = 0.5 * l_pdf + 0.5 * mat_pdf
     ratio = torch.where(diffuse, mat_pdf, zero) \
         / torch.where(diffuse, pdf_value, 1.0)
@@ -661,6 +784,37 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
         ndx = torch.where(is_metal, rx, ndx)
         ndy = torch.where(is_metal, ry, ndy)
         ndz = torch.where(is_metal, rz, ndz)
+    if st["has_dielectric"]:
+        # dielectric (materials.go:94-130): Schlick reflectance against
+        # u[2], total internal reflection tested on squares, refraction as
+        # vec.go:141-146
+        udx, udy, udz = _normalize3(dx, dy, dz)
+        m_ridx = mat[4]
+        ri = torch.where(front, 1.0 / m_ridx, m_ridx)
+        cos_d = torch.clamp(-_dot3(udx, udy, udz, n_hx, n_hy, n_hz), max=1.0)
+        r0 = (1.0 - m_ridx) / (1.0 + m_ridx)
+        r0 = r0 * r0
+        x = 1.0 - cos_d
+        x2 = x * x
+        schlick = r0 + (1.0 - r0) * (x * (x2 * x2))
+        do_reflect = (ri * ri * (1.0 - cos_d * cos_d) > 1.0) | (schlick > u[2])
+        dn_d = _dot3(udx, udy, udz, n_hx, n_hy, n_hz)
+        rfx = udx - 2.0 * dn_d * n_hx
+        rfy = udy - 2.0 * dn_d * n_hy
+        rfz = udz - 2.0 * dn_d * n_hz
+        ppx = ri * (udx + cos_d * n_hx)
+        ppy = ri * (udy + cos_d * n_hy)
+        ppz = ri * (udz + cos_d * n_hz)
+        par = -torch.sqrt(torch.abs(1.0 - _dot3(ppx, ppy, ppz, ppx, ppy, ppz)))
+        ddx = torch.where(do_reflect, rfx, ppx + par * n_hx)
+        ddy = torch.where(do_reflect, rfy, ppy + par * n_hy)
+        ddz = torch.where(do_reflect, rfz, ppz + par * n_hz)
+        vr = torch.where(is_diel, 1.0, vr)
+        vg = torch.where(is_diel, 1.0, vg)
+        vb = torch.where(is_diel, 1.0, vb)
+        ndx = torch.where(is_diel, ddx, ndx)
+        ndy = torch.where(is_diel, ddy, ndy)
+        ndz = torch.where(is_diel, ddz, ndz)
     dead = ~alive
     vr = torch.where(dead, zero, vr)
     vg = torch.where(dead, zero, vg)
@@ -668,7 +822,8 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     cf = diffuse & alive
     return (vr, vg, vb, emit, cf,
             torch.where(lit, hx, ox), torch.where(lit, hy, oy),
-            torch.where(lit, hz, oz), ndx, ndy, ndz, diffuse | is_metal)
+            torch.where(lit, hz, oz), ndx, ndy, ndz,
+            diffuse | is_metal | is_diel)
 
 
 def _camera_rays_ref(cam, pi, pj, si, sj, u_jx, u_jy):
@@ -773,7 +928,8 @@ def bounce_fused_q_ref(tables, statics, cam_row, bg, seed4, ox, oy, oz,
         u = [u01(N_U_RAYGEN + k) for k in range(N_U + st["n_media"])]
         (vr, vg, vb, emit, cf, nox, noy, noz, ndx, ndy, ndz,
          alive_out) = _bounce_core_ref(st, prims, lights, bgl, ox, oy, oz,
-                                       dx, dy, dz, alive, u)
+                                       dx, dy, dz, alive, u, tm=tm,
+                                       med=tables[2])
         out.rec[0][j] = vr
         out.rec[1][j] = vg
         out.rec[2][j] = vb
@@ -800,19 +956,52 @@ def bounce_fused_q_ref(tables, statics, cam_row, bg, seed4, ox, oy, oz,
 # the CUDA kernel (csrc/bounce_fused_q.cu)
 # ---------------------------------------------------------------------------
 
+# The table ints of every fused kernel's argument struct, in the order of
+# FUSED_TABLE_FIELDS in csrc/fused_common.cuh.
+_FUSED_TABLE_INTS = ("p_cols", "sph_base", "n_sph", "quad_base", "n_quad",
+                     "box_base", "n_box", "n_lights", "n_lights_live",
+                     "fr_col", "n_media", "feat")
+
+
+def _fused_table_ints(statics, prims) -> dict:
+    """Values of `_FUSED_TABLE_INTS` for a scene's statics and prim table."""
+    st = statics
+    lay = _mat_layout(st)
+    return dict(p_cols=prims.shape[1], sph_base=st["sph_base"],
+                n_sph=st["n_sph"], quad_base=st["quad_base"],
+                n_quad=st["n_quad"], box_base=st["box_base"],
+                n_box=st["n_box"], n_lights=st["n_lights"],
+                n_lights_live=st["n_lights_live"],
+                fr_col=MAT_BASE + lay.index("fr") if "fr" in lay else -1,
+                n_media=st["n_media"], feat=fused_features(st))
+
+
+def _fused_table_checks(tables, statics):
+    """The (name, tensor, dtype, shape) checks of the tables a fused kernel
+    reads: prims, lights, and the media table, whose n_media rows it reads
+    (raises here if it has fewer)."""
+    med = tables[2]
+    if med.dim() != 2 or med.shape[1] != M_COLS \
+            or med.shape[0] < statics["n_media"]:
+        raise ValueError(f"media table: shape {tuple(med.shape)}, expected "
+                         f"at least ({statics['n_media']}, {M_COLS})")
+    f32 = torch.float32
+    return [("prims", tables[0], f32, None), ("lights", tables[1], f32, None),
+            ("med", med, f32, None)]
+
+
 class _FusedQArgs(ctypes.Structure):
     """Mirror of `FusedQArgs` in csrc/bounce_fused_q.cu (field for field)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "prims", "lights", "cam", "bg", "seed4",
+        "prims", "lights", "med", "cam", "bg", "seed4",
         "ox_in", "oy_in", "oz_in", "dx_in", "dy_in", "dz_in", "tm_in",
         "alive_in", "depth_in",
         "ox", "oy", "oz", "dx", "dy", "dz", "tm", "alive", "depth",
         "vr", "vg", "vb", "fl", "seg", "take", "base", "cursor_out",
         "dead_cnt", "cur_buf", "lvl_base")] + [(name, ctypes.c_int) for name in (
-            "p_cols", "quad_base", "n_quad", "box_base", "n_box",
-            "n_lights", "n_lights_live", "n", "n_inner", "max_depth",
-            "width", "sqrt_spp", "npix", "rec_levels")]
+            _FUSED_TABLE_INTS + ("n", "n_inner", "max_depth", "width",
+                                 "sqrt_spp", "npix", "rec_levels"))]
 
 
 def _check_cuda_args(tensors):
@@ -842,9 +1031,9 @@ def _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state, *,
         raise ValueError(f"lane count {n} is not a multiple of {BLOCK}")
     prims, lights = tables[0], tables[1]
     f32, i32 = torch.float32, torch.int32
-    checks = [("prims", prims, f32, None), ("lights", lights, f32, None),
-              ("cam_row", cam_row, f32, (1, 20)), ("bg", bg, f32, (3,)),
-              ("seed4", seed4, i32, (4,))]
+    checks = _fused_table_checks(tables, st) + [
+        ("cam_row", cam_row, f32, (1, 20)), ("bg", bg, f32, (3,)),
+        ("seed4", seed4, i32, (4,))]
     names = ("ox", "oy", "oz", "dx", "dy", "dz", "time", "alive", "depth")
     for k, (nm, t) in enumerate(zip(names, state)):
         checks.append((nm, t, f32 if k < 7 else i32, (n,)))
@@ -865,8 +1054,8 @@ def _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state, *,
                           device=prims.device)
     p = lambda t: t.data_ptr()
     a = _FusedQArgs(
-        prims=p(prims), lights=p(lights), cam=p(cam_row), bg=p(bg),
-        seed4=p(seed4),
+        prims=p(prims), lights=p(lights), med=p(tables[2]), cam=p(cam_row),
+        bg=p(bg), seed4=p(seed4),
         **{k + "_in": p(t) for k, t in zip(
             ("ox", "oy", "oz", "dx", "dy", "dz", "tm", "alive", "depth"),
             state)},
@@ -878,10 +1067,7 @@ def _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state, *,
         base=p(out.base), cursor_out=p(out.cursor),
         dead_cnt=p(scratch), cur_buf=p(scratch) + 4 * 2 * (n // BLOCK),
         lvl_base=None if lvl_base is None else p(lvl_base),
-        rec_levels=rec_levels,
-        p_cols=prims.shape[1], quad_base=st["quad_base"],
-        n_quad=st["n_quad"], box_base=st["box_base"], n_box=st["n_box"],
-        n_lights=st["n_lights"], n_lights_live=st["n_lights_live"], n=n,
+        rec_levels=rec_levels, **_fused_table_ints(st, prims), n=n,
         n_inner=n_inner, max_depth=max_depth, width=width,
         sqrt_spp=sqrt_spp, npix=npix)
     lib = _cuda.library("bounce_fused_q")
@@ -1009,8 +1195,6 @@ def bounce_fused_q_direct(tables, statics, cam_row, bg, seed4, base,
 
 STATE_NAMES = ("ox", "oy", "oz", "dx", "dy", "dz", "tm", "alive", "depth")
 POS_NAMES = ("pi", "pj", "si", "sj", "rem")
-_TABLE_INTS = ("p_cols", "quad_base", "n_quad", "box_base", "n_box",
-               "n_lights", "n_lights_live")
 
 
 @dataclasses.dataclass
@@ -1064,8 +1248,9 @@ def bounce_fused_ref(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy,
     """Plain PyTorch version of `bounce_fused` (same arguments, same
     results), op for op as the JAX kernel: the camera rays blended into
     the taken lanes from PRNG slots 0-4, then per level j one bounce from
-    slots 5 + 9j .., the merged V/FL records, the alive count and the
-    depth cap."""
+    slots 5 + k j .. (k = N_U + n_media uniforms per level: the last
+    n_media feed the media), the merged V/FL records, the alive count and
+    the depth cap."""
     _check_fused(statics, has_defocus)
     prims, lights = tables[0], tables[1]
     n = ox.shape[0]
@@ -1094,7 +1279,8 @@ def bounce_fused_ref(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy,
         u = [u01(N_U_RAYGEN + j * n_u + k) for k in range(n_u)]
         (vr, vg, vb, emit, cf, nox, noy, noz, ndx, ndy, ndz,
          alive_out) = _bounce_core_ref(statics, prims, lights, bgl, ox, oy,
-                                       oz, dx, dy, dz, alive, u)
+                                       oz, dx, dy, dz, alive, u, tm=tm,
+                                       med=tables[2])
         out.rec[0][j] = vr
         out.rec[1][j] = vg
         out.rec[2][j] = vb
@@ -1116,10 +1302,11 @@ def bounce_fused_pos_ref(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx,
     """Plain PyTorch version of `bounce_fused_pos` (same arguments, same
     results), op for op as the JAX kernel. Per level j < seed2[1], a dead
     lane with rem > 0.5 starts its next item: the started flag is recorded,
-    the camera ray comes from PRNG slots 14j .. 14j + 4, and the item
-    pointer advances by carry selects (sj, then si, then pi, then pj) that
-    keep the planes exact integers; then one bounce from slots 14j + 5 ..,
-    the unmerged E / W / clamp records, the alive count and the depth cap."""
+    the camera ray comes from PRNG slots k j .. k j + 4 (k = N_U_RAYGEN +
+    N_U + n_media slots per level), and the item pointer advances by carry
+    selects (sj, then si, then pi, then pj) that keep the planes exact
+    integers; then one bounce from slots k j + 5 .., the unmerged E / W /
+    clamp records, the alive count and the depth cap."""
     _check_fused(statics, has_defocus)
     prims, lights = tables[0], tables[1]
     n = ox.shape[0]
@@ -1175,7 +1362,8 @@ def bounce_fused_pos_ref(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx,
         u = [u01(base + N_U_RAYGEN + k) for k in range(n_u)]
         (vr, vg, vb, emit, cf, nox, noy, noz, ndx, ndy, ndz,
          alive_out) = _bounce_core_ref(statics, prims, lights, bgl, ox, oy,
-                                       oz, dx, dy, dz, alive, u)
+                                       oz, dx, dy, dz, alive, u, tm=tm,
+                                       med=tables[2])
         for c, v in enumerate((vr, vg, vb)):
             out.rec[c][j] = torch.where(emit, v, zero)
             out.rec[3 + c][j] = torch.where(emit, zero, v)
@@ -1201,19 +1389,19 @@ def _args_struct(name, pointers, ints):
 # Mirror of `FusedArgs` in csrc/bounce_fused.cu (field for field).
 _FusedArgs = _args_struct(
     "_FusedArgs",
-    ("prims", "lights", "cam", "bg", "seed")
+    ("prims", "lights", "med", "cam", "bg", "seed")
     + tuple(k + "_in" for k in STATE_NAMES) + ("take",) + POS_NAMES[:4]
     + STATE_NAMES + ("vr", "vg", "vb", "fl", "seg"),
-    _TABLE_INTS + ("n", "n_inner", "max_depth"))
+    _FUSED_TABLE_INTS + ("n", "n_inner", "max_depth"))
 
 # Mirror of `FusedPosArgs` in csrc/bounce_fused_pos.cu (field for field).
 _FusedPosArgs = _args_struct(
     "_FusedPosArgs",
-    ("prims", "lights", "cam", "bg", "seed2")
+    ("prims", "lights", "med", "cam", "bg", "seed2")
     + tuple(k + "_in" for k in STATE_NAMES + POS_NAMES)
     + STATE_NAMES + POS_NAMES
     + ("er", "eg", "eb", "wr", "wg", "wb", "cf", "st", "seg"),
-    _TABLE_INTS + ("n", "n_inner", "max_depth", "width", "sqrt_spp"))
+    _FUSED_TABLE_INTS + ("n", "n_inner", "max_depth", "width", "sqrt_spp"))
 
 
 def _launch_fused(lib, struct, tables, statics, cam_row, bg, seed_field, seed,
@@ -1236,10 +1424,10 @@ def _launch_fused(lib, struct, tables, statics, cam_row, bg, seed_field, seed,
     dtypes = [i32 if k in ("alive", "depth") else f32 for k in names]
     if len(out.state) != len(state) or len(out.rec) != len(rec_names):
         raise ValueError("out: wrong number of state or record planes")
-    checks = [("prims", prims, f32, None), ("lights", lights, f32, None),
-              ("cam_row", cam_row, f32, (1, 20)), ("bg", bg, f32, (3,)),
-              (seed_field, seed, i32, (2 if seed_field == "seed2" else 1,)),
-              ("seg", out.seg, i32, (n_inner,))]
+    checks = _fused_table_checks(tables, st) + [
+        ("cam_row", cam_row, f32, (1, 20)), ("bg", bg, f32, (3,)),
+        (seed_field, seed, i32, (2 if seed_field == "seed2" else 1,)),
+        ("seg", out.seg, i32, (n_inner,))]
     checks += [(nm, t, dt, (n,)) for nm, t, dt in zip(names, state, dtypes)]
     checks += [(nm + "_out", t, dt, (n,))
                for nm, t, dt in zip(names, out.state, dtypes)]
@@ -1249,16 +1437,13 @@ def _launch_fused(lib, struct, tables, statics, cam_row, bg, seed_field, seed,
     _check_cuda_args(checks)
     p = lambda t: t.data_ptr()
     a = struct(
-        prims=p(prims), lights=p(lights), cam=p(cam_row), bg=p(bg),
-        **{seed_field: p(seed)},
+        prims=p(prims), lights=p(lights), med=p(tables[2]), cam=p(cam_row),
+        bg=p(bg), **{seed_field: p(seed)},
         **{k + "_in": p(t) for k, t in zip(names, state)},
         **{k: p(t) for k, t in zip(names, out.state)},
         **{nm: p(t) for nm, t, _ in extra_in},
         **{nm: p(t) for nm, t in zip(rec_names, out.rec)}, seg=p(out.seg),
-        p_cols=prims.shape[1], quad_base=st["quad_base"],
-        n_quad=st["n_quad"], box_base=st["box_base"], n_box=st["n_box"],
-        n_lights=st["n_lights"], n_lights_live=st["n_lights_live"], n=n,
-        n_inner=n_inner, **ints)
+        **_fused_table_ints(st, prims), n=n, n_inner=n_inner, **ints)
     err = getattr(_cuda.library(lib), _cuda.ENTRY[lib])(
         ctypes.addressof(a),
         torch.cuda.current_stream(prims.device).cuda_stream)

@@ -65,6 +65,8 @@ __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
     T.n_lights = a.n_lights;
     T.n_lights_live = a.n_lights_live;
     T.fr_col = a.fr_col;
+    T.med = nullptr;
+    T.n_media = 0;
     ExtHit ext;
     if (a.n_ext > 0) {
       ext.t = a.ext[0][lane];
@@ -77,8 +79,9 @@ __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
       ext.tex_b = a.ext[7][lane];
       ext.fr = a.ext_fr >= 0 ? a.ext[a.ext_fr][lane] : 0.0f;
     }
-    const BounceResult r = bounce_core(T, ox, oy, oz, dx, dy, dz, a.tm[lane], u,
-                                       a.n_ext > 0 ? &ext : nullptr);
+    // spheres, no dielectric, no media: the subset of ops/bounce.supported_ext
+    const BounceResult r = bounce_core<true, false, false>(
+        T, ox, oy, oz, dx, dy, dz, a.tm[lane], u, a.n_ext > 0 ? &ext : nullptr, NoMediaU{});
     if (r.emit) {
       er = r.vr;
       eg = r.vg;

@@ -1,19 +1,30 @@
 // One bounce of one ray (camera.go:293-331): closest hit over the packed
 // primitive table (spheres, quads, fused boxes), an optional externally
-// computed mesh hit folded in, face-forward flip, emission or background,
-// mixture light/cosine sampling with its pdf, and the metal reflection.
-// Shared by the fused regen kernels (bounce_fused_q.cu, bounce_fused.cu,
-// bounce_fused_pos.cu: uniforms from the hash PRNG of fused_common.cuh, no
-// spheres or metal in the scenes they accept) and bounce.cu (uniforms and
-// the mesh hit from memory). Mirrors `_bounce_core_ref` in ops/bounce.py op for op.
+// computed mesh hit folded in, constant-density media, face-forward flip,
+// emission or background, mixture light/cosine/isotropic sampling with its
+// pdf, and the metal and dielectric scattering. Shared by the fused regen
+// kernels (bounce_fused_q.cu, bounce_fused.cu, bounce_fused_pos.cu: uniforms
+// from the hash PRNG of fused_common.cuh) and bounce.cu (uniforms and the
+// mesh hit from memory). Mirrors `_bounce_core_ref` in ops/bounce.py op for
+// op.
+//
+// The core is compiled once per feature set, as the TPU kernel is traced
+// once per scene's statics: SPH the sphere section and the deferred sphere
+// normal, DIEL the dielectric branch, MED the media loop and isotropic
+// scattering. A scene without them (cornellBox) runs code that has none of
+// their branches or registers. Metal is a runtime branch of every variant.
 //
 // Table layouts (ops/bounce.py): primitive row = 13 geometry columns then
-// the material block (kind, even rgb, odd rgb, [fr]); light row = L_COLS.
+// the material block (kind, even rgb, odd rgb, [fr]); light row = L_COLS;
+// medium row = M_COLS.
 //
 // Precision: nvcc contracts multiply-adds into FMAs, and the code uses
 // rsqrtf and __sincosf; the plain PyTorch version does neither, so the two
 // agree to about 1e-6 relative, and a ray grazing an edge may take the
-// other branch.
+// other branch. The medium's free flight uses logf (not __logf), so its
+// `hit_dist <= dist_inside` test flips only where the inputs already
+// differ by a rounding. The sphere-light pdf's sqrt(1 - r^2 / dsq) is left
+// unclamped, as in the reference: from inside the sphere it is NaN.
 
 #pragma once
 
@@ -23,14 +34,19 @@
 
 #define MAT_BASE 13
 #define L_COLS 23
+#define M_COLS 20
 #define N_U 9
 #define T_MIN 1e-3f
 #define MAT_LAMBERTIAN 0.0f
 #define MAT_METAL 1.0f
+#define MAT_DIELECTRIC 2.0f
 #define MAT_DIFFUSE_LIGHT 3.0f
-// uniform slots (the wavefront order of the JAX package)
+#define MAT_ISOTROPIC 4.0f
+// uniform slots (the wavefront order of the JAX package); medium m draws
+// slot N_U + m, through the caller's functor
 #define U_METAL_A 0
 #define U_METAL_B 1
+#define U_DIEL 2
 #define U_MIX 3
 #define U_PICK 4
 #define U_LA 5
@@ -41,11 +57,13 @@
 struct BounceTables {
   const float* prims;
   const float* lights;
+  const float* med;  // (n_media, M_COLS)
   const float* bg;
   int p_cols;
   int sph_base, n_sph, quad_base, n_quad, box_base, n_box;
   int n_lights, n_lights_live;
-  int fr_col;  // column of the metal fuzz in a primitive row, -1 if none
+  int fr_col;  // column of the metal fuzz / dielectric index, -1 if none
+  int n_media;
 };
 
 // The externally computed closest mesh hit of one ray: t (inf = none), the
@@ -61,10 +79,17 @@ struct BounceResult {
   float dx, dy, dz;       // new direction
 };
 
-__device__ __forceinline__ float safe_inv(float v) {
-  const float tiny = 1e-30f;
-  return 1.0f / (fabsf(v) < tiny ? (v < 0.0f ? -tiny : tiny) : v);
+// The medium uniforms of a caller without media (never called).
+struct NoMediaU {
+  __device__ __forceinline__ float operator()(int) const { return 0.5f; }
+};
+
+// v kept at least 1e-30 away from zero, its sign kept
+__device__ __forceinline__ float safe_d(float v) {
+  return fabsf(v) < 1e-30f ? (v < 0.0f ? -1e-30f : 1e-30f) : v;
 }
+
+__device__ __forceinline__ float safe_inv(float v) { return 1.0f / safe_d(v); }
 
 __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
   const float inv = rsqrtf(x * x + y * y + z * z + 1e-38f);
@@ -89,47 +114,51 @@ __device__ __forceinline__ void onb_transform(float nx, float ny, float nz, floa
   oz = lx * uz + ly * vz + lz * wz;
 }
 
-// `ext` may be null (no mesh hit to fold). The ray must be alive.
+// `ext` may be null (no mesh hit to fold). The ray must be alive. `u`
+// holds the N_U uniforms of the level; `u_med(m)` returns medium m's.
+template <bool SPH, bool DIEL, bool MED, class UMed>
 __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float ox, float oy,
                                                     float oz, float dx, float dy, float dz,
                                                     float tm, const float* u,
-                                                    const ExtHit* ext) {
+                                                    const ExtHit* ext, const UMed& u_med) {
   const float* __restrict__ P = T.prims;
   const int pc = T.p_cols;
   float t_best = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
   float m_kind = 0.0f, tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f, m_fr = 0.0f;
-  bool win_sphere = false;
+  bool win_sphere = false, win_med = false;
   float sph_r = 1.0f;
 
   // ---- closest hit: spheres (objects.go:83-115) ---------------------------
   // the normal slots carry c - o until the winner's (p - c) / r is resolved
-  if (T.n_sph > 0) {
-    const float a_quad = dx * dx + dy * dy + dz * dz;
-    const float inv_a = 1.0f / a_quad;
-    for (int s = 0; s < T.n_sph; ++s) {
-      const float* g = P + (T.sph_base + s) * pc;
-      const float cx = __ldg(g + 1) + tm * __ldg(g + 4) - ox;
-      const float cy = __ldg(g + 2) + tm * __ldg(g + 5) - oy;
-      const float cz = __ldg(g + 3) + tm * __ldg(g + 6) - oz;
-      const float h = dx * cx + dy * cy + dz * cz;
-      const float c = cx * cx + cy * cy + cz * cz - __ldg(g + 8);
-      const float disc = h * h - a_quad * c;
-      const float sq = sqrtf(fmaxf(disc, 0.0f));
-      const float r1 = (h - sq) * inv_a, r2 = (h + sq) * inv_a;
-      const float root = (T_MIN < r1 && r1 < t_best) ? r1 : r2;
-      const bool ok = __ldg(g) >= 0.0f && disc >= 0.0f && T_MIN < root && root < t_best;
-      if (ok) {
-        t_best = root;
-        nx = cx;
-        ny = cy;
-        nz = cz;
-        win_sphere = true;
-        sph_r = __ldg(g + 7);
-        m_kind = __ldg(g + MAT_BASE);
-        tex_r = __ldg(g + MAT_BASE + 1);
-        tex_g = __ldg(g + MAT_BASE + 2);
-        tex_b = __ldg(g + MAT_BASE + 3);
-        if (T.fr_col >= 0) m_fr = __ldg(g + T.fr_col);
+  if constexpr (SPH) {
+    if (T.n_sph > 0) {
+      const float a_quad = dx * dx + dy * dy + dz * dz;
+      const float inv_a = 1.0f / a_quad;
+      for (int s = 0; s < T.n_sph; ++s) {
+        const float* g = P + (T.sph_base + s) * pc;
+        const float cx = __ldg(g + 1) + tm * __ldg(g + 4) - ox;
+        const float cy = __ldg(g + 2) + tm * __ldg(g + 5) - oy;
+        const float cz = __ldg(g + 3) + tm * __ldg(g + 6) - oz;
+        const float h = dx * cx + dy * cy + dz * cz;
+        const float c = cx * cx + cy * cy + cz * cz - __ldg(g + 8);
+        const float disc = h * h - a_quad * c;
+        const float sq = sqrtf(fmaxf(disc, 0.0f));
+        const float r1 = (h - sq) * inv_a, r2 = (h + sq) * inv_a;
+        const float root = (T_MIN < r1 && r1 < t_best) ? r1 : r2;
+        const bool ok = __ldg(g) >= 0.0f && disc >= 0.0f && T_MIN < root && root < t_best;
+        if (ok) {
+          t_best = root;
+          nx = cx;
+          ny = cy;
+          nz = cz;
+          win_sphere = true;
+          sph_r = __ldg(g + 7);
+          m_kind = __ldg(g + MAT_BASE);
+          tex_r = __ldg(g + MAT_BASE + 1);
+          tex_g = __ldg(g + MAT_BASE + 2);
+          tex_b = __ldg(g + MAT_BASE + 3);
+          if (T.fr_col >= 0) m_fr = __ldg(g + T.fr_col);
+        }
       }
     }
   }
@@ -211,27 +240,100 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
     tex_b = ext->tex_b;
     m_fr = ext->fr;
   }
+  // ---- constant-density media (medium.go:27-58) ------------------------------
+  // each medium's boundary span (sphere roots, or the rotated box's slabs in
+  // object space), clamped by the closest hit so far; an exponential free
+  // flight from the medium's uniform. A medium winner has normal (1, 0, 0),
+  // front face true and an isotropic material with the medium's albedo.
+  if constexpr (MED) {
+    if (T.n_media > 0) {
+      const float a_quad = dx * dx + dy * dy + dz * dz;
+      const float inv_a = 1.0f / a_quad;
+      const float ray_len = sqrtf(a_quad);
+      const float inv_len = 1.0f / ray_len;
+      for (int m = 0; m < T.n_media; ++m) {
+        const float* g = T.med + m * M_COLS;
+        float near, far;
+        bool ok;
+        if (__ldg(g) > 0.5f) {
+          const float cth = __ldg(g + 5), sth = __ldg(g + 6);
+          const float osx = ox - __ldg(g + 7), osz = oz - __ldg(g + 9);
+          const float oo[3] = {cth * osx - sth * osz, oy - __ldg(g + 8), sth * osx + cth * osz};
+          const float dd[3] = {cth * dx - sth * dz, dy, sth * dx + cth * dz};
+          near = -INFINITY;
+          far = INFINITY;
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            const float ds = safe_d(dd[a]);
+            const float t0a = (__ldg(g + 10 + a) - oo[a]) / ds;
+            const float t1a = (__ldg(g + 13 + a) - oo[a]) / ds;
+            near = fmaxf(near, fminf(t0a, t1a));
+            far = fminf(far, fmaxf(t0a, t1a));
+          }
+          ok = far > near;
+        } else {
+          const float cx = __ldg(g + 1) - ox, cy = __ldg(g + 2) - oy, cz = __ldg(g + 3) - oz;
+          const float rad = __ldg(g + 4);
+          const float h = dx * cx + dy * cy + dz * cz;
+          const float c = cx * cx + cy * cy + cz * cz - rad * rad;
+          const float disc = h * h - a_quad * c;
+          const float sq = sqrtf(fmaxf(disc, 0.0f));
+          near = (h - sq) * inv_a;
+          far = (h + sq) * inv_a;
+          ok = disc >= 0.0f;
+        }
+        ok = ok && far > near + 1e-4f;           // second boundary hit (medium.go:34)
+        float t0 = fmaxf(near, T_MIN);           // medium.go:37
+        const float t1 = fminf(far, t_best);     // medium.go:38
+        ok = ok && t0 < t1;                      // medium.go:39
+        if (ok) {
+          t0 = fmaxf(t0, 0.0f);                  // medium.go:43
+          const float dist_inside = (t1 - t0) * ray_len;
+          const float hit_dist = __ldg(g + 16) * logf(u_med(m));
+          const float t_c = t0 + hit_dist * inv_len;
+          if (hit_dist <= dist_inside && t_c < t_best) {
+            t_best = t_c;
+            nx = 1.0f;
+            ny = 0.0f;
+            nz = 0.0f;
+            win_sphere = false;
+            win_med = true;
+            m_kind = MAT_ISOTROPIC;
+            tex_r = __ldg(g + 17);
+            tex_g = __ldg(g + 18);
+            tex_b = __ldg(g + 19);
+            m_fr = 0.0f;
+          }
+        }
+      }
+    }
+  }
 
   const bool hit = isfinite(t_best);
   const float ts = hit ? t_best : 1.0f;
   const float hx = ox + ts * dx, hy = oy + ts * dy, hz = oz + ts * dz;
   // the winning sphere's outward normal (t*d - (c - o)) / r (objects.go:96-99)
-  if (win_sphere && hit) {
-    const float inv_r = 1.0f / sph_r;
-    nx = (ts * dx - nx) * inv_r;
-    ny = (ts * dy - ny) * inv_r;
-    nz = (ts * dz - nz) * inv_r;
+  if constexpr (SPH) {
+    if (win_sphere && hit) {
+      const float inv_r = 1.0f / sph_r;
+      nx = (ts * dx - nx) * inv_r;
+      ny = (ts * dy - ny) * inv_r;
+      nz = (ts * dz - nz) * inv_r;
+    }
   }
-  // face-forward flip (hittable.go:27-34), from the un-flipped outward normal
-  const bool front = dx * nx + dy * ny + dz * nz < 0.0f;
+  // face-forward flip (hittable.go:27-34), from the un-flipped outward
+  // normal; a medium winner's front face is true (medium.go:55)
+  const bool front = dx * nx + dy * ny + dz * nz < 0.0f || win_med;
   if (!front) {
     nx = -nx;
     ny = -ny;
     nz = -nz;
   }
   const bool is_light = hit && m_kind == MAT_DIFFUSE_LIGHT;
-  const bool diffuse = hit && m_kind == MAT_LAMBERTIAN;
+  const bool is_iso = MED && hit && m_kind == MAT_ISOTROPIC;
+  const bool diffuse = (hit && m_kind == MAT_LAMBERTIAN) || is_iso;
   const bool is_metal = hit && m_kind == MAT_METAL;
+  const bool is_diel = DIEL && hit && m_kind == MAT_DIELECTRIC;
   const bool e_on = is_light && front;
   const bool emit = !hit || e_on;
 
@@ -261,12 +363,21 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
       }
     }
   }
-  // cosine about the shading normal (pdf.go:38-40, onb.go:13-25)
+  // material direction: cosine about the shading normal (pdf.go:38-40,
+  // onb.go:13-25), or the uniform sphere for isotropic (pdf.go:15-23)
   float gdx, gdy, gdz;
   if (u[U_MIX] < 0.5f) {
     gdx = ldx;
     gdy = ldy;
     gdz = ldz;
+  } else if (is_iso) {
+    const float z = 1.0f - 2.0f * u[U_MA];
+    const float r_i = sqrtf(fmaxf(0.0f, 1.0f - z * z));
+    float s, c;
+    __sincosf(6.2831855f * u[U_MB], &s, &c);
+    gdx = r_i * c;
+    gdy = r_i * s;
+    gdz = z;
   } else {
     float s, c;
     __sincosf(6.2831855f * u[U_MA], &s, &c);
@@ -312,7 +423,8 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
   l_pdf = l_pdf / (float)n_live;
   const float inv_g = rsqrtf(g_len_sq + 1e-38f);
   const float cos_t = (gdx * inv_g) * nx + (gdy * inv_g) * ny + (gdz * inv_g) * nz;
-  const float mat_pdf = fmaxf(0.0f, cos_t) * 0.31830988618379067f;
+  const float mat_pdf =
+      is_iso ? 0.07957747154594767f : fmaxf(0.0f, cos_t) * 0.31830988618379067f;
   const float pdf_value = 0.5f * l_pdf + 0.5f * mat_pdf;
 
   BounceResult r;
@@ -346,9 +458,39 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
     r.vg = tex_g;
     r.vb = tex_b;
   }
+  if constexpr (DIEL) {
+    if (is_diel) {
+      // dielectric (materials.go:94-130): Schlick reflectance against
+      // u[U_DIEL], total internal reflection tested on squares, refraction
+      // as vec.go:141-146
+      float ux = dx, uy = dy, uz = dz;
+      normalize3(ux, uy, uz);
+      const float ri = front ? 1.0f / m_fr : m_fr;
+      const float cos_d = fminf(-(ux * nx + uy * ny + uz * nz), 1.0f);
+      float r0 = (1.0f - m_fr) / (1.0f + m_fr);
+      r0 = r0 * r0;
+      const float x = 1.0f - cos_d;
+      const float x2 = x * x;
+      const float schlick = r0 + (1.0f - r0) * (x * (x2 * x2));
+      if (ri * ri * (1.0f - cos_d * cos_d) > 1.0f || schlick > u[U_DIEL]) {
+        const float dn = ux * nx + uy * ny + uz * nz;
+        r.dx = ux - 2.0f * dn * nx;
+        r.dy = uy - 2.0f * dn * ny;
+        r.dz = uz - 2.0f * dn * nz;
+      } else {
+        const float px = ri * (ux + cos_d * nx), py = ri * (uy + cos_d * ny),
+                    pz = ri * (uz + cos_d * nz);
+        const float par = -sqrtf(fabsf(1.0f - (px * px + py * py + pz * pz)));
+        r.dx = px + par * nx;
+        r.dy = py + par * ny;
+        r.dz = pz + par * nz;
+      }
+      r.vr = r.vg = r.vb = 1.0f;
+    }
+  }
   r.emit = emit;
   r.cf = diffuse;
-  r.alive = diffuse || is_metal;
+  r.alive = diffuse || is_metal || is_diel;
   r.ox = hit ? hx : ox;
   r.oy = hit ? hy : oy;
   r.oz = hit ? hz : oz;

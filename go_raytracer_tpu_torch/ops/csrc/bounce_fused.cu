@@ -13,7 +13,8 @@
 // applies the depth cap.
 //
 // The PRNG slots are the TPU kernel's: the ray generation draws slots 0-4
-// once per call, level j draws slots 5 + 9j .. 5 + 9j + 8.
+// once per call, level j draws slots 5 + kj .. 5 + kj + k - 1 with k = 9 +
+// n_media (nine for the bounce, one per medium).
 //
 // The per-level segment count is the number of lanes alive before the
 // level's bounce: one `__syncthreads_count` per level and block, added to
@@ -28,13 +29,16 @@
 // materials and the dependent chain of levels inside one thread.
 //
 // The bounce itself is `bounce_core` (bounce_core.cuh), whose precision note
-// applies here; the PRNG and the ray generation are fused_common.cuh's.
+// applies here, compiled once per feature set of the scene (fused_common.cuh's
+// FEATURE_SWITCH picks the variant); the PRNG and the ray generation are
+// fused_common.cuh's.
 
 #include "fused_common.cuh"
 
 struct FusedArgs {
   const float* prims;
   const float* lights;
+  const float* med;
   const float* cam;
   const float* bg;
   const int* seed;  // (1,)
@@ -47,11 +51,11 @@ struct FusedArgs {
   float *vr, *vg, *vb;  // (n_inner, n)
   int* fl;              // (n_inner, n)
   int* seg;             // (n_inner,)
-  int p_cols, quad_base, n_quad, box_base, n_box;
-  int n_lights, n_lights_live;
+  FUSED_TABLE_FIELDS
   int n, n_inner, max_depth;
 };
 
+template <bool SPH, bool DIEL, bool MED>
 __global__ void __launch_bounds__(BLOCK) bounce_fused_levels(FusedArgs a) {
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   float ox = a.ox_in[lane], oy = a.oy_in[lane], oz = a.oz_in[lane];
@@ -72,9 +76,8 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_levels(FusedArgs a) {
     depth = 0;
   }
 
-  const BounceTables T =
-      fused_tables(a.prims, a.lights, a.bg, a.p_cols, a.quad_base, a.n_quad, a.box_base,
-                   a.n_box, a.n_lights, a.n_lights_live);
+  const BounceTables T = fused_tables<SPH, DIEL, MED>(a);
+  const uint32_t n_u = N_U + (uint32_t)a.n_media;
   for (int j = 0; j < a.n_inner; ++j) {
     const int n_alive = __syncthreads_count(alive);
     if (threadIdx.x == 0 && n_alive > 0) atomicAdd(a.seg + j, n_alive);
@@ -82,11 +85,13 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_levels(FusedArgs a) {
     float vr = 0.0f, vg = 0.0f, vb = 0.0f;
     bool emit = false, cf = false, alive_out = false;
     if (alive) {
-      const uint32_t slot0 = N_U_RAYGEN + (uint32_t)j * N_U;
+      const uint32_t slot0 = N_U_RAYGEN + (uint32_t)j * n_u;
       float u[N_U];
 #pragma unroll
       for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + k);
-      const BounceResult r = bounce_core(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr);
+      const HashMediaU um{ulane, seed_mix, slot0};
+      const BounceResult r =
+          bounce_core<SPH, DIEL, MED>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
       vr = r.vr;
       vg = r.vg;
       vb = r.vb;
@@ -127,7 +132,9 @@ extern "C" int grt_bounce_fused(const FusedArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(a.seg, 0, sizeof(int) * a.n_inner, s);
   if (err != cudaSuccess) return (int)err;
-  bounce_fused_levels<<<a.n / BLOCK, BLOCK, 0, s>>>(a);
+#define LAUNCH_LEVELS(S, D, M) bounce_fused_levels<S, D, M><<<a.n / BLOCK, BLOCK, 0, s>>>(a)
+  FEATURE_SWITCH(a.feat, LAUNCH_LEVELS)
+#undef LAUNCH_LEVELS
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,9 @@
 // registers.
 //
 // Per level: the started flag is recorded BEFORE the bounce; a taken lane
-// gets its camera ray from fresh PRNG slots (level j draws slots 14j ..
-// 14j + 13: five for the ray generation, nine for the bounce) and advances
+// gets its camera ray from fresh PRNG slots (level j draws slots kj ..
+// kj + k - 1, k = 14 + n_media: five for the ray generation, nine for the
+// bounce, one per medium) and advances
 // its item pointer by the TPU kernel's compare-and-select chain (sj, then
 // si, then pi, then pj, against sqrt_spp - 0.5 and width - 0.5), in the same
 // order, so the planes stay exact integers and equal the reference's; then
@@ -32,15 +33,16 @@
 // divergence and the dependent chain of levels inside one thread.
 //
 // The bounce itself is `bounce_core` (bounce_core.cuh), whose precision note
-// applies here; the PRNG and the ray generation are fused_common.cuh's.
+// applies here, compiled once per feature set of the scene (fused_common.cuh's
+// FEATURE_SWITCH picks the variant); the PRNG and the ray generation are
+// fused_common.cuh's.
 
 #include "fused_common.cuh"
-
-#define SLOTS (N_U_RAYGEN + N_U)
 
 struct FusedPosArgs {
   const float* prims;
   const float* lights;
+  const float* med;
   const float* cam;
   const float* bg;
   const int* seed2;  // [seed, refill levels remaining]
@@ -53,11 +55,11 @@ struct FusedPosArgs {
   float *er, *eg, *eb, *wr, *wg, *wb;  // (n_inner, n)
   int *cf, *st;                        // (n_inner, n)
   int* seg;                            // (n_inner,)
-  int p_cols, quad_base, n_quad, box_base, n_box;
-  int n_lights, n_lights_live;
+  FUSED_TABLE_FIELDS
   int n, n_inner, max_depth, width, sqrt_spp;
 };
 
+template <bool SPH, bool DIEL, bool MED>
 __global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a) {
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   float ox = a.ox_in[lane], oy = a.oy_in[lane], oz = a.oz_in[lane];
@@ -75,11 +77,10 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a)
   const float s_wrap = (float)a.sqrt_spp - 0.5f;
   const float p_wrap = (float)a.width - 0.5f;
 
-  const BounceTables T =
-      fused_tables(a.prims, a.lights, a.bg, a.p_cols, a.quad_base, a.n_quad, a.box_base,
-                   a.n_box, a.n_lights, a.n_lights_live);
+  const BounceTables T = fused_tables<SPH, DIEL, MED>(a);
+  const uint32_t slots = N_U_RAYGEN + N_U + (uint32_t)a.n_media;
   for (int j = 0; j < a.n_inner; ++j) {
-    const uint32_t slot0 = (uint32_t)j * SLOTS;
+    const uint32_t slot0 = (uint32_t)j * slots;
     const size_t rec = (size_t)j * a.n + lane;
     // ---- per-level refill: dead, items left, inside the refill span -------
     const bool take = !alive && rem > 0.5f && refill_rem > j;
@@ -119,7 +120,9 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a)
       float u[N_U];
 #pragma unroll
       for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + N_U_RAYGEN + k);
-      const BounceResult r = bounce_core(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr);
+      const HashMediaU um{ulane, seed_mix, slot0 + N_U_RAYGEN};
+      const BounceResult r =
+          bounce_core<SPH, DIEL, MED>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
       vr = r.vr;
       vg = r.vg;
       vb = r.vb;
@@ -167,7 +170,10 @@ extern "C" int grt_bounce_fused_pos(const FusedPosArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(a.seg, 0, sizeof(int) * a.n_inner, s);
   if (err != cudaSuccess) return (int)err;
-  bounce_fused_pos_levels<<<a.n / BLOCK, BLOCK, 0, s>>>(a);
+#define LAUNCH_LEVELS(S, D, M) \
+  bounce_fused_pos_levels<S, D, M><<<a.n / BLOCK, BLOCK, 0, s>>>(a)
+  FEATURE_SWITCH(a.feat, LAUNCH_LEVELS)
+#undef LAUNCH_LEVELS
   return (int)cudaGetLastError();
 }
 

@@ -38,18 +38,22 @@
 // of slicing them per call; a row past rec_levels is not written. Every other
 // row keeps its contents. What bounds it is K1's.
 //
-// The bounce itself (closest hit, shading, sampling) is `bounce_core` in
-// bounce_core.cuh, shared with bounce.cu; its precision note applies here.
-// The PRNG and the camera ray generation are fused_common.cuh's, shared
-// with bounce_fused.cu and bounce_fused_pos.cu.
+// The bounce itself (closest hit, media, shading, sampling) is `bounce_core`
+// in bounce_core.cuh, shared with bounce.cu; its precision note applies
+// here. `fused_q_level` is compiled once per feature set of the core
+// (spheres, the fr column with dielectric, media with isotropic) and the
+// entry points launch the scene's variant. Level j draws its uniforms from
+// PRNG slots j * (N_U_RAYGEN + N_U + n_media) on: five for the camera ray,
+// nine for the bounce, one per medium, as the TPU kernel does. The PRNG and
+// the camera ray generation are fused_common.cuh's, shared with
+// bounce_fused.cu and bounce_fused_pos.cu.
 
 #include "fused_common.cuh"
-
-#define SLOTS (N_U_RAYGEN + N_U)
 
 struct FusedQArgs {
   const float* prims;
   const float* lights;
+  const float* med;
   const float* cam;
   const float* bg;
   const int* seed4;  // [seed, refill levels remaining, cursor, item_end]
@@ -64,8 +68,7 @@ struct FusedQArgs {
   int* dead_cnt;           // (2, n / BLOCK) scratch
   int* cur_buf;            // (2,) scratch
   const int* lvl_base;     // (1,) record row of level 0; null: row j
-  int p_cols, quad_base, n_quad, box_base, n_box;
-  int n_lights, n_lights_live;
+  FUSED_TABLE_FIELDS
   int n, n_inner, max_depth, width, sqrt_spp, npix;
   int rec_levels;  // rows of the record buffers
 };
@@ -90,6 +93,7 @@ count_dead(const int* __restrict__ alive, int* __restrict__ dead_cnt) {
   if (threadIdx.x == 0) dead_cnt[blockIdx.x] = c;
 }
 
+template <bool SPH, bool DIEL, bool MED>
 __global__ void __launch_bounds__(BLOCK)
 fused_q_level(FusedQArgs a, int j) {
   __shared__ int red[NWARP];
@@ -145,7 +149,7 @@ fused_q_level(FusedQArgs a, int j) {
   const bool take = !alive && refilling && item < item_end;
 
   const uint32_t seed_mix = (uint32_t)a.seed4[0] * 0x9E3779B9u;
-  const uint32_t slot0 = (uint32_t)j * SLOTS;
+  const uint32_t slot0 = (uint32_t)j * (N_U_RAYGEN + N_U + (uint32_t)a.n_media);
   const uint32_t ulane = (uint32_t)lane;
   const float* __restrict__ cam = a.cam;
 
@@ -172,10 +176,10 @@ fused_q_level(FusedQArgs a, int j) {
     float u[N_U];
 #pragma unroll
     for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + N_U_RAYGEN + k);
-    const BounceTables T =
-        fused_tables(a.prims, a.lights, a.bg, a.p_cols, a.quad_base, a.n_quad, a.box_base,
-                     a.n_box, a.n_lights, a.n_lights_live);
-    const BounceResult r = bounce_core(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr);
+    const BounceTables T = fused_tables<SPH, DIEL, MED>(a);
+    const HashMediaU um{ulane, seed_mix, slot0 + N_U_RAYGEN};
+    const BounceResult r =
+        bounce_core<SPH, DIEL, MED>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
     vr = r.vr;
     vg = r.vg;
     vb = r.vb;
@@ -223,7 +227,9 @@ static int run_levels(FusedQArgs a, cudaStream_t s) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   for (int j = 0; j < a.n_inner; ++j) {
-    fused_q_level<<<nb, BLOCK, 0, s>>>(a, j);
+#define LAUNCH_LEVEL(S, D, M) fused_q_level<S, D, M><<<nb, BLOCK, 0, s>>>(a, j)
+    FEATURE_SWITCH(a.feat, LAUNCH_LEVEL)
+#undef LAUNCH_LEVEL
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     // later levels read the state this level wrote

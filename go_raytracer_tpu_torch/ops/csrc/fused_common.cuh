@@ -1,6 +1,7 @@
 // What the fused regen kernels share (bounce_fused_q.cu, bounce_fused.cu,
-// bounce_fused_pos.cu): the counter-based PRNG, the camera ray generation
-// and the block size. One thread per lane, state as SoA planes; the lane
+// bounce_fused_pos.cu): the counter-based PRNG, the camera ray generation,
+// the block size, the table fields and the dispatch on the scene's
+// features. One thread per lane, state as SoA planes; the lane
 // count is a multiple of BLOCK (checked by the wrappers).
 
 #pragma once
@@ -51,26 +52,58 @@ __device__ __forceinline__ void camera_ray(const float* __restrict__ cam, float 
   dz = sz - oz;
 }
 
-// The dense tables of a scene inside ops/bounce.supported_statics: quads
-// and fused boxes only, no metal column.
-__device__ __forceinline__ BounceTables fused_tables(const float* prims, const float* lights,
-                                                     const float* bg, int p_cols,
-                                                     int quad_base, int n_quad, int box_base,
-                                                     int n_box, int n_lights,
-                                                     int n_lights_live) {
+// The counter-based uniforms of the media: medium m of the level whose
+// bounce uniforms start at slot `slot` draws slot + N_U + m. The hash is
+// pure, so the core computes each one where it needs it, and no array of
+// them is kept.
+struct HashMediaU {
+  uint32_t lane, seed_mix, slot;
+  __device__ __forceinline__ float operator()(int m) const {
+    return u01(lane, seed_mix, slot + N_U + (uint32_t)m);
+  }
+};
+
+// The table fields every fused kernel's argument struct carries, in this
+// order (ops/bounce._FUSED_TABLE_INTS mirrors them).
+#define FUSED_TABLE_FIELDS                                                  \
+  int p_cols, sph_base, n_sph, quad_base, n_quad, box_base, n_box;         \
+  int n_lights, n_lights_live, fr_col, n_media;                            \
+  int feat; /* bit 0 spheres, bit 1 the fr column, bit 2 isotropic/media */
+
+// The dense tables of a scene inside ops/bounce.supported_statics, for the
+// core compiled with these features: a section the variant lacks is
+// hard-wired empty, so its code folds away.
+template <bool SPH, bool DIEL, bool MED, class A>
+__device__ __forceinline__ BounceTables fused_tables(const A& a) {
   BounceTables T;
-  T.prims = prims;
-  T.lights = lights;
-  T.bg = bg;
-  T.p_cols = p_cols;
-  T.sph_base = 0;
-  T.n_sph = 0;
-  T.quad_base = quad_base;
-  T.n_quad = n_quad;
-  T.box_base = box_base;
-  T.n_box = n_box;
-  T.n_lights = n_lights;
-  T.n_lights_live = n_lights_live;
-  T.fr_col = -1;
+  T.prims = a.prims;
+  T.lights = a.lights;
+  T.med = a.med;
+  T.bg = a.bg;
+  T.p_cols = a.p_cols;
+  T.sph_base = a.sph_base;
+  T.n_sph = SPH ? a.n_sph : 0;
+  T.quad_base = a.quad_base;
+  T.n_quad = a.n_quad;
+  T.box_base = a.box_base;
+  T.n_box = a.n_box;
+  T.n_lights = a.n_lights;
+  T.n_lights_live = a.n_lights_live;
+  T.fr_col = DIEL ? a.fr_col : -1;
+  T.n_media = MED ? a.n_media : 0;
   return T;
 }
+
+// Run CASE(SPH, DIEL, MED) for the feature bits of a call: one kernel
+// variant per feature set, picked once per call on the host.
+#define FEATURE_SWITCH(feat, CASE)            \
+  switch ((feat) & 7) {                       \
+    case 0: CASE(false, false, false); break; \
+    case 1: CASE(true, false, false); break;  \
+    case 2: CASE(false, true, false); break;  \
+    case 3: CASE(true, true, false); break;   \
+    case 4: CASE(false, false, true); break;  \
+    case 5: CASE(true, false, true); break;   \
+    case 6: CASE(false, true, true); break;   \
+    default: CASE(true, true, true); break;   \
+  }

@@ -1,0 +1,189 @@
+#!/usr/bin/env python3
+"""Time the fused bounce kernels K1 `bounce_fused_q`, K9
+`bounce_fused_q_direct`, K6 `bounce_fused` and K8 `bounce_fused_pos` on one
+NVIDIA GPU at the flagships' shapes (131,072 lanes, the scene's cadence,
+an aged pool), and split a call's time into the host's and the device's.
+
+    python3 scripts/time_fused_kernels.py [--repo DIR] [--scene NAME ...]
+                                          [--out FILE]
+
+For each scene (default: cornell_box, book3, cornell_smoke; a scene the
+checkout's kernels do not take is skipped) and kernel it prints:
+
+* ms per call between two CUDA events around 20 calls, the least of three
+  batches (what chip_smoke.py reports);
+* host us per call: the wall time of 40 calls enqueued back to back,
+  before the synchronize (under the launch queue's depth, so the host
+  never waits for the device); when it is near the per-call time above,
+  the call is host-bound;
+* device us per call: the kernel's launches in a torch.profiler trace of
+  20 calls, summed, over 20.
+
+--repo DIR imports the package from another checkout (the parent commit,
+unpacked with `git archive` into a git-ignored directory) and times its
+kernels the same way, so two commits compare in one call: parent, change,
+change, parent. The results go to --out as JSON (default
+build/time_fused_kernels.json, git-ignored). Without a GPU it exits
+non-zero.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+# the kernels' names in a profile, per wrapper
+DEVICE_NAMES = {"K1": ("fused_q_level", "count_dead"),
+                "K9": ("fused_q_level", "count_dead"),
+                "K6": ("bounce_fused_levels",),
+                "K8": ("bounce_fused_pos_levels",)}
+
+
+def time_ms(fn, reps):
+    """Milliseconds per call between two CUDA events around `reps` calls,
+    after one warm-up call; the least of three batches."""
+    import torch
+    fn()
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) / reps)
+    return best
+
+
+def host_us(fn, reps=40):
+    """Host microseconds per call, enqueueing `reps` calls back to back
+    (the least of three batches)."""
+    import torch
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def device_us(fn, names, reps=20):
+    """Device microseconds per call of the kernels `names` under
+    torch.profiler; None when the profiler records no device time."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0 and any(e.key.startswith(nm) or e.key.startswith(
+                "void " + nm + "<") for nm in names):
+            total += t
+    return total / reps if total > 0 else None
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout whose package is timed")
+    ap.add_argument("--scene", nargs="*",
+                    default=["cornell_box", "book3", "cornell_smoke"])
+    ap.add_argument("--out", default=os.path.join("build",
+                                                  "time_fused_kernels.json"))
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.repo))
+    from go_raytracer_tpu_torch.integrator import regen
+    from go_raytracer_tpu_torch.ops import _cuda, bounce
+    from go_raytracer_tpu_torch.scenes import registry
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    _cuda.build_all()
+    for name in ("bounce_fused_q", "bounce_fused", "bounce_fused_pos"):
+        print(f"{name}.cu: " + " | ".join(_cuda.ptxas_report(name)))
+    dev = torch.device("cuda")
+    n, width = 1 << 17, 600
+    npix = width * width
+    results = {"repo": os.path.abspath(args.repo), "card": card,
+               "scenes": {}}
+    for sc in args.scene:
+        scene, cam = getattr(registry, sc)()
+        if not bounce.supported(scene):
+            print(f"{sc}: outside this checkout's kernels, skipped")
+            continue
+        to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        tab = tuple(to(t) for t in bounce.pack_scene(scene))
+        st = bounce.scene_statics(scene)
+        row = to(bounce.pack_camera(cam.derived()))
+        bg = to(np.asarray(scene.background, np.float32))
+        cad, sq = cam.regen_cadence, cam.spp_sqrt
+        qkw = dict(has_defocus=False, max_depth=cam.max_depth, n_inner=cad,
+                   width=width, sqrt_spp=sq, npix=npix)
+        seed4 = torch.tensor([7, cad, 0, npix * sq * sq], dtype=torch.int32,
+                             device=dev)
+        out = bounce.FusedQOut.empty(n, cad, dev)
+        state = regen._init_state(n, dev)
+        for _ in range(8):      # age the pool with a deep queue
+            bounce.bounce_fused_q(tab, st, row, bg, seed4, *state, out=out,
+                                  **qkw)
+            state = [s.clone() for s in out.state]
+        bufs = regen.WindowBuffers.empty(n, 2, cad, dev).rec
+        base = torch.zeros(1, dtype=torch.int32, device=dev)
+        refill = regen.queue_refill_planes(
+            torch.tensor(0, device=dev), state[7], npix * sq * sq,
+            width=width, npix=npix, sqrt_spp=sq)
+        fout = bounce.FusedOut.empty(n, cad, dev)
+        seed1 = torch.tensor([11], dtype=torch.int32, device=dev)
+        quota, lane_base, _, _ = regen.pos_tables(npix, sq * sq, n)
+        pstate = regen._init_state_pos(n, dev, quota, lane_base, sq * sq,
+                                       width)
+        pout = bounce.FusedOut.empty(n, cad, dev, positional=True)
+        seed2 = torch.tensor([13, cad], dtype=torch.int32, device=dev)
+        calls = {
+            "K1": lambda: bounce.bounce_fused_q(tab, st, row, bg, seed4,
+                                                *state, out=out, **qkw),
+            "K9": lambda: bounce.bounce_fused_q_direct(
+                tab, st, row, bg, seed4, base, bufs, *state, out=out, **qkw),
+            "K6": lambda: bounce.bounce_fused(
+                tab, st, row, bg, seed1, *state, *refill, out=fout,
+                has_defocus=False, max_depth=cam.max_depth, n_inner=cad),
+            "K8": lambda: bounce.bounce_fused_pos(
+                tab, st, row, bg, seed2, *pstate, out=pout,
+                has_defocus=False, max_depth=cam.max_depth, n_inner=cad,
+                width=width, sqrt_spp=sq)}
+        res = {}
+        for k, fn in calls.items():
+            res[k] = dict(ms=time_ms(fn, 20), host_us=host_us(fn),
+                          device_us=device_us(fn, DEVICE_NAMES[k]))
+            print(f"{sc} {k} ({cad} levels, {n} lanes): {res[k]['ms']:.4f} ms "
+                  f"per call, host {res[k]['host_us']:.1f} us, device "
+                  f"{res[k]['device_us']} us; {card}")
+        results["scenes"][sc] = res
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(results, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

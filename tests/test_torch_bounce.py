@@ -84,12 +84,15 @@ def _lane_state(n, seed=0):
             rs.integers(0, 50, n).astype(np.int32)]
 
 
+@pytest.mark.parametrize("scene", ["cornell_box", "book3", "cornell_smoke"])
 @pytest.mark.parametrize("n_inner", [1, 3])
-def test_bounce_fused_q_ref_matches_pallas(n_inner):
-    """cornellBox tables, 4096 lanes, a mixed alive/depth state, the
-    queue refilling at the first two levels: the plain PyTorch version
-    against the JAX kernel in interpret mode."""
-    js, jc = jreg.cornell_box()
+def test_bounce_fused_q_ref_matches_pallas(n_inner, scene):
+    """cornellBox, book3 (glass sphere, sphere light, rotated box) and
+    cornellSmoke (two media: 2 more PRNG slots per level) tables, 4096
+    lanes, a mixed alive/depth state, the queue refilling at the first two
+    levels: the plain PyTorch version against the JAX kernel in interpret
+    mode."""
+    js, jc = getattr(jreg, scene)()
     ts = TT.scene_from_numpy(js)
     jc.width, jc.samples_per_pixel = 32, 16
     npix, sqrt_spp, n = 32 * 32, 4, 4096
@@ -143,9 +146,9 @@ def test_bounce_fused_q_ref_matches_pallas(n_inner):
 
 
 def test_cpu_wrapper_rejects_unsupported_statics():
-    """A scene outside the kernel's subset raises instead of running
-    another path."""
-    js, _ = jreg.book3()
+    """A scene outside the kernel's subset (simpleLight: noise textures)
+    raises instead of running another path."""
+    js, _ = jreg.simple_light()
     ts = TT.scene_from_numpy(js)
     assert not tpb.supported(ts)
     z = torch.zeros(256)

@@ -89,15 +89,36 @@ def test_without_gpu_and_without_cpu_flag_fails_clearly(tmp_path):
 
 def test_unported_paths_exit_2(tmp_path):
     """Flags kept for parity but naming unported paths exit 2 with a
-    message, and so do scenes outside the kernel's subset."""
-    for extra in (["--integrator", "wavefront"],
-                  ["-S", "8", "--schedule", "positional"],
-                  ["-S", "3"], ["-S", "7"],
-                  ["-S", "8", "--schedule", "queue_ik"]):
+    message, and so do scenes outside the kernels' subsets, naming what
+    they lack: book1's checker, book2's, simpleLight's and quads' noise."""
+    for extra, word in ((["--integrator", "wavefront"], "ROADMAP"),
+                        (["-S", "8", "--schedule", "positional"], "ROADMAP"),
+                        (["-S", "1"], "checker"), (["-S", "2"], "noise"),
+                        (["-S", "4"], "noise"), (["-S", "5"], "noise"),
+                        (["-S", "8", "--schedule", "queue_ik"], "ROADMAP")):
         r = run_cli(["-o", str(tmp_path / "x.ppm"), "--cpu", "--width", "8",
                      "--spp", "1", "--quiet", *extra])
         assert r.returncode == 2, (extra, r.stderr[-500:])
-        assert "ROADMAP" in r.stderr or "subset" in r.stderr, extra
+        assert word in r.stderr, (extra, r.stderr[-500:])
+
+
+@pytest.mark.parametrize("scene,regen_len", [(3, 5.54), (7, 2.91)])
+def test_book3_and_cornell_smoke_render(tmp_path, scene, regen_len):
+    """-S 3 (book3: glass sphere, sphere light) and -S 7 (cornellSmoke: two
+    media) at 32 px, 4 spp: exit 0, a finite image, and segments per path
+    near the registry's mean path length (within 10%: a 4,096-path
+    sample)."""
+    out = tmp_path / f"s{scene}.ppm"
+    r = run_cli(["-S", str(scene), "-o", str(out), "--cpu", "--width", "32",
+                 "--spp", "4", "--lanes", "4096", "--stats", "--quiet"])
+    assert r.returncode == 0, r.stderr[-2000:]
+    stats = json.loads(r.stdout.strip().splitlines()[-1])
+    assert stats["paths"] == 32 * 32 * 4 and stats["nonfinite"] == 0
+    assert abs(stats["segments"] / stats["paths"] - regen_len) \
+        <= 0.1 * regen_len
+    txt = out.read_text().split()
+    assert txt[:4] == ["P3", "32", "32", "255"]
+    assert len(txt) == 4 + 32 * 32 * 3
 
 
 def test_route_flags_refuse_instead_of_falling_back(tmp_path):

@@ -26,8 +26,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _cornell(dev, n, seed=0):
-    scene, cam = registry.cornell_box()
+def _cornell(dev, n, seed=0, scene="cornell_box"):
+    scene, cam = getattr(registry, scene)()
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     tables = tuple(to(t) for t in bounce.pack_scene(scene))
     rs = np.random.default_rng(seed)
@@ -44,6 +44,12 @@ def _cornell(dev, n, seed=0):
 
 RTOL = ATOL = 2e-3     # FMA / rsqrtf / __sincosf rounding, as chip_smoke
 MISMATCH_FRAC = 2e-3   # lanes whose ray grazes an edge may branch the other way
+# the three scenes of the fused kernels, and the fraction each may flip:
+# book3's glass sphere turns a rounding into a reflect/refract flip within
+# a few levels (tests/test_torch_fused.py measures 2.5e-3 against the JAX
+# package at 3 levels)
+FUSED_SCENES = {"cornell_box": MISMATCH_FRAC, "book3": 5e-3,
+                "cornell_smoke": MISMATCH_FRAC}
 
 
 def _started_ranks_are_a_prefix(fl, take):
@@ -59,16 +65,19 @@ def _started_ranks_are_a_prefix(fl, take):
     return torch.equal(hits.view(s, n), want.to(torch.int32))
 
 
-def test_bounce_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("scene", FUSED_SCENES)
+def test_bounce_kernel_matches_plain(cuda, scene):
     """Starts at level 0 only, 8 levels, 512 blocks (so each block sums
-    the dead counts of the blocks before it over more than one pass):
-    exact takes and starts; level-0 V within rtol = atol = 2e-3 wherever
-    the flags agree; over all levels, at most 0.2% of the flags, alive
-    bits, V values and alive lanes' origins beyond that tolerance (a lane
-    that branched the other way at one level carries a different path
-    from then on)."""
+    the dead counts of the blocks before it over more than one pass), on
+    cornellBox, book3 and cornellSmoke tables: exact takes and starts;
+    level-0 V within rtol = atol = 2e-3 wherever the flags agree; over all
+    levels, at most 0.2% (book3: 0.5%) of the flags, alive bits, V values
+    and alive lanes' origins beyond that tolerance (a lane that branched
+    the other way at one level carries a different path from then on)."""
     n, n_inner = 512 * bounce.BLOCK, 8
-    scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n)
+    frac = FUSED_SCENES[scene]
+    scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n,
+                                                          scene=scene)
     seed4 = torch.tensor([12345, 1, 0, 360000 * 100], dtype=torch.int32,
                          device=cuda)
     kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner, width=600,
@@ -79,18 +88,18 @@ def test_bounce_kernel_matches_plain(cuda):
     assert torch.equal(k[3], p[3])
     assert torch.equal(k[0][3][0] & ~3, p[0][3][0] & ~3)
     assert _started_ranks_are_a_prefix(k[0][3], k[3])
-    assert ((k[0][3] & 7) != (p[0][3] & 7)).float().mean() <= MISMATCH_FRAC
-    assert (k[4 + 7] != p[4 + 7]).float().mean() <= MISMATCH_FRAC
+    assert ((k[0][3] & 7) != (p[0][3] & 7)).float().mean() <= frac
+    assert (k[4 + 7] != p[4 + 7]).float().mean() <= frac
     agree0 = k[0][3][0] == p[0][3][0]
     for a, b in zip(k[0][:3], p[0][:3]):
         torch.testing.assert_close(a[0][agree0], b[0][agree0], rtol=RTOL,
-                                   atol=ATOL)
+                                   atol=ATOL, equal_nan=True)
         off = ~torch.isclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
-        assert off.float().mean() <= MISMATCH_FRAC
+        assert off.float().mean() <= frac
     alive = (k[4 + 7] > 0) & (p[4 + 7] > 0)
     for a, b in zip(k[4:7], p[4:7]):
         off = ~torch.isclose(a[alive], b[alive], rtol=RTOL, atol=ATOL)
-        assert off.float().mean() <= MISMATCH_FRAC
+        assert off.float().mean() <= frac
 
 
 def test_bounce_kernel_ranks_every_refill_level(cuda):
@@ -381,8 +390,10 @@ def _fused_close(k, p, frac=MISMATCH_FRAC):
     count of level 0 is exact (it depends on the inputs only); flags,
     records and the alive lanes' rays agree within rtol = atol = 2e-3 on
     all but `frac` of the lanes. Returns the lanes that did not flip: equal
-    integer records at every level and equal alive at the end. On those
-    the time and depth planes are exact."""
+    integer records and float records within the tolerance at every level,
+    and equal alive at the end (a lane that took another way through glass
+    keeps its flags: no clamp flag either way). On those the time and depth
+    planes are exact."""
     krec, _, kseg, *kst = k
     prec, _, pseg, *pst = p
     assert kseg[0].item() == pseg[0].item()
@@ -396,6 +407,7 @@ def _fused_close(k, p, frac=MISMATCH_FRAC):
         else:
             off = ~torch.isclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
             assert off.float().mean() <= frac
+            noflip &= ~off.any(dim=0)
     alive = (kst[7] > 0) & (pst[7] > 0)
     for a, b in zip(kst[:6], pst[:6]):
         off = ~torch.isclose(a[alive], b[alive], rtol=RTOL, atol=ATOL)
@@ -406,11 +418,14 @@ def _fused_close(k, p, frac=MISMATCH_FRAC):
     return noflip
 
 
-def test_bounce_fused_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("scene", FUSED_SCENES)
+def test_bounce_fused_kernel_matches_plain(cuda, scene):
     """K6 at 512 blocks, 8 levels, the refill planes of a real refill that
-    runs out of items before the last dead lane."""
+    runs out of items before the last dead lane, on the three scenes."""
     n, n_inner = 512 * bounce.BLOCK, 8
-    scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n)
+    frac = FUSED_SCENES[scene]
+    scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n,
+                                                          scene=scene)
     n_dead = int((state[7] == 0).sum())
     refill = _queue_refill(state, 1000, 1000 + n_dead - 100)
     assert int(refill[0].sum()) == n_dead - 100
@@ -423,7 +438,7 @@ def test_bounce_fused_kernel_matches_plain(cuda):
     assert bounce.launches_fused == before + 1
     p = bounce.bounce_fused_ref(tables, st, cam_row, bg, seed, *state,
                                 *refill, **kw)
-    _fused_close(k, p)
+    _fused_close(k, p, frac)
     assert k[2][0].item() == n - 100
     # in place: the state planes may be the outputs
     st2 = [s.clone() for s in state]
@@ -435,12 +450,15 @@ def test_bounce_fused_kernel_matches_plain(cuda):
     assert all(torch.equal(a, b) for a, b in zip(out.rec, k[0]))
 
 
-def test_bounce_fused_pos_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("scene", FUSED_SCENES)
+def test_bounce_fused_pos_kernel_matches_plain(cuda, scene):
     """K8 at 512 blocks, 8 levels, `rem` mixed (zero, one, many), pointers
-    near every carry, the refill cut after level 5: the pointer planes are
-    exact on every lane that did not flip."""
+    near every carry, the refill cut after level 5, on the three scenes:
+    the pointer planes are exact on every lane that did not flip."""
     n, n_inner, width, sq = 512 * bounce.BLOCK, 8, 600, 10
-    scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n, seed=2)
+    frac = FUSED_SCENES[scene]
+    scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n, seed=2,
+                                                          scene=scene)
     rs = np.random.default_rng(3)
     to = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
     ptr = [to(rs.choice([0, 7, width - 1], n)), to(rs.integers(0, 500, n)),
@@ -456,7 +474,7 @@ def test_bounce_fused_pos_kernel_matches_plain(cuda):
     assert bounce.launches_fused_pos == before + 1
     p = bounce.bounce_fused_pos_ref(tables, st, cam_row, bg, seed2, *state,
                                     *ptr, **kw)
-    noflip = _fused_close(k, p)
+    noflip = _fused_close(k, p, frac)
     for a, b in zip(k[3 + 9:], p[3 + 9:]):
         assert torch.equal(a[noflip], b[noflip])
     ST = k[0][7]

@@ -28,12 +28,13 @@ torch.set_num_threads(2)
 N, N_INNER, WINDOW, BASE = 4096, 2, 6, 3
 
 
-def test_direct_ref_matches_pallas_direct():
-    """cornellBox, 4,096 lanes (one tile of the JAX kernel), 2 levels
-    written at base 3 of a 6-level buffer: levels 3-4 within tolerance,
-    flags, take and alive counts exact, every other level untouched (it
-    holds a marker value in both)."""
-    js, jc = jreg.cornell_box()
+@pytest.mark.parametrize("scene", ["cornell_box", "book3", "cornell_smoke"])
+def test_direct_ref_matches_pallas_direct(scene):
+    """cornellBox, book3 and cornellSmoke, 4,096 lanes (one tile of the JAX
+    kernel), 2 levels written at base 3 of a 6-level buffer: levels 3-4
+    within tolerance, flags, take and alive counts exact, every other
+    level untouched (it holds a marker value in both)."""
+    js, jc = getattr(jreg, scene)()
     ts = TT.scene_from_numpy(js)
     jc.width, jc.samples_per_pixel = 32, 16
     npix, sqrt_spp = 32 * 32, 4

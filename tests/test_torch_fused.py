@@ -28,6 +28,10 @@ from go_raytracer_tpu_torch.scene import types as TT
 torch.set_num_threads(2)
 
 MISMATCH_FRAC = 2e-3
+# book3's glass sphere bends a ray that differs by one rounding into a
+# visibly different one after a few refractions: at 3 levels 2.53e-3 of
+# the lanes alive in both (5 of 1,977) left the 2e-3 bound on their rays
+MISMATCH_FRAC_DIELECTRIC = 5e-3
 N = 4096
 W, SQRT_SPP = 32, 4
 NPIX = W * W
@@ -61,8 +65,8 @@ def _lane_state(n, seed=0):
         rs.integers(0, 50, n).astype(np.int32))]
 
 
-def _cornell():
-    js, jc = jreg.cornell_box()
+def _cornell(scene="cornell_box"):
+    js, jc = getattr(jreg, scene)()
     ts = TT.scene_from_numpy(js)
     jc.width, jc.samples_per_pixel = W, SQRT_SPP * SQRT_SPP
     tc = Camera(**{f.name: getattr(jc, f.name)
@@ -76,22 +80,23 @@ def _cornell():
     return jargs, targs
 
 
-def _compare(jout, tout, n_state_int=(7, 8), exact_float_planes=()):
-    """Records, segment counts and state of one call, JAX against port.
-    Returns the mask of lanes that agree on alive."""
+def _compare(jout, tout, frac=MISMATCH_FRAC):
+    """Records, segment counts and state of one call, JAX against port,
+    with at most `frac` of the lanes beyond the tolerances. Returns the
+    mask of lanes that agree on alive."""
     jrec, _, jseg, *jst = jax.tree.map(np.asarray, jout)
     trec, _, tseg, *tst = tout
     trec = [x.numpy() for x in trec]
     tst = [x.numpy() for x in tst]
     tseg = tseg.numpy()
     assert tseg[0] == jseg[0]
-    assert np.all(np.abs(tseg - jseg) <= MISMATCH_FRAC * N)
+    assert np.all(np.abs(tseg - jseg) <= frac * N)
     # integer record planes: the flag words (queue) or CF and ST (positional)
     int_planes = [k for k, x in enumerate(trec) if x.dtype == np.int32]
     agree_rec = np.ones_like(trec[0], dtype=bool)
     for k in int_planes:
         assert trec[k].shape == jrec[k].shape
-        assert (trec[k] != jrec[k]).mean() <= MISMATCH_FRAC
+        assert (trec[k] != jrec[k]).mean() <= frac
         agree_rec &= trec[k] == jrec[k]
         np.testing.assert_array_equal(trec[k][0], jrec[k][0])
     for k in range(len(trec)):
@@ -100,27 +105,37 @@ def _compare(jout, tout, n_state_int=(7, 8), exact_float_planes=()):
         a, b = jrec[k][agree_rec], trec[k][agree_rec]
         assert (np.isnan(a) == np.isnan(b)).all()
         bad = ~np.isclose(b, a, rtol=2e-3, atol=2e-3, equal_nan=True)
-        assert bad.mean() <= MISMATCH_FRAC
+        assert bad.mean() <= frac
         np.testing.assert_allclose(trec[k][0], jrec[k][0], rtol=2e-3,
                                    atol=2e-3)
-    assert (tst[7] != jst[7]).mean() <= MISMATCH_FRAC
+    assert (tst[7] != jst[7]).mean() <= frac
     same = tst[7] == jst[7]
     both = (tst[7] > 0) & (jst[7] > 0)
     for k, rtol in ((0, 2e-4), (1, 2e-4), (2, 2e-4), (3, 2e-3), (4, 2e-3),
                     (5, 2e-3)):
         bad = ~np.isclose(tst[k][both], jst[k][both], rtol=rtol, atol=2e-3)
-        assert bad.mean() <= MISMATCH_FRAC
+        assert bad.mean() <= frac
     np.testing.assert_array_equal(tst[8][same], jst[8][same])
     np.testing.assert_array_equal(tst[6], jst[6])
     return same, jst, tst
 
 
+SCENES = ["cornell_box", "book3", "cornell_smoke"]
+
+
+def _frac(scene):
+    return MISMATCH_FRAC_DIELECTRIC if scene == "book3" else MISMATCH_FRAC
+
+
+@pytest.mark.parametrize("scene", SCENES)
 @pytest.mark.parametrize("n_inner", [1, 3])
-def test_bounce_fused_ref_matches_pallas(n_inner):
-    """cornellBox tables, 4096 lanes, a mixed alive/depth state and the
-    refill planes of a real queue refill (dead lanes take consecutive
-    items by rank, the queue running out before the last dead lane)."""
-    jargs, targs = _cornell()
+def test_bounce_fused_ref_matches_pallas(n_inner, scene):
+    """cornellBox, book3 (dielectric, sphere light) and cornellSmoke (two
+    media, whose uniforms widen every level's PRNG slots) tables, 4096
+    lanes, a mixed alive/depth state and the refill planes of a real queue
+    refill (dead lanes take consecutive items by rank, the queue running
+    out before the last dead lane)."""
+    jargs, targs = _cornell(scene)
     state = _lane_state(N)
     dead = state[7] == 0
     next_item, item_end = 1000, 1000 + int(dead.sum()) - 37
@@ -139,19 +154,20 @@ def test_bounce_fused_ref_matches_pallas(n_inner):
         *[torch.from_numpy(x) for x in state],
         *[torch.from_numpy(x) for x in refill], **kw)
     assert len(tout) == 3 + 9 and len(tout[0]) == 4
-    _, jst, tst = _compare(jout, tout)
+    _, jst, tst = _compare(jout, tout, _frac(scene))
     # a taken lane starts at depth 0 and every lane alive at a level ages
     assert tout[2][0].item() == int((~dead | take).sum())
 
 
+@pytest.mark.parametrize("scene", SCENES)
 @pytest.mark.parametrize("n_inner,refill_rem", [(1, 1), (3, 2)])
-def test_bounce_fused_pos_ref_matches_pallas(n_inner, refill_rem):
+def test_bounce_fused_pos_ref_matches_pallas(n_inner, refill_rem, scene):
     """The same tables and state with per-lane item pointers near every
     carry (last stratum column, last stratum, last pixel column) and `rem`
     mixed (zero, one, many); seed2[1] cuts the refill before the call's
     last level. pi, pj, si, sj, rem are exact on every lane that agrees on
     alive."""
-    jargs, targs = _cornell()
+    jargs, targs = _cornell(scene)
     state = _lane_state(N, seed=1)
     rs = np.random.default_rng(2)
     pi = rs.choice([0, 5, W - 1], N).astype(np.float32)
@@ -171,10 +187,10 @@ def test_bounce_fused_pos_ref_matches_pallas(n_inner, refill_rem):
         *[torch.from_numpy(x) for x in state],
         *[torch.from_numpy(x) for x in ptr], **kw)
     assert len(tout) == 3 + 14 and len(tout[0]) == 8
-    same, jst, tst = _compare(jout, tout)
+    same, jst, tst = _compare(jout, tout, _frac(scene))
     for k in range(9, 14):
         np.testing.assert_array_equal(tst[k][same], jst[k][same])
-        assert (tst[k] != jst[k]).mean() <= MISMATCH_FRAC
+        assert (tst[k] != jst[k]).mean() <= _frac(scene)
     st = tout[0][7].numpy()
     # level 0 starts exactly the dead lanes with items left; nothing starts
     # at or after level seed2[1]; the planes stay whole numbers in range
@@ -197,9 +213,9 @@ def test_bounce_fused_pos_ref_matches_pallas(n_inner, refill_rem):
 
 
 def test_fused_wrappers_reject_unsupported():
-    """A scene outside the kernels' subset, or defocus, raises instead of
-    running another path."""
-    js, _ = jreg.book3()
+    """A scene outside the kernels' subset (simpleLight: noise textures),
+    or defocus, raises instead of running another path."""
+    js, _ = jreg.simple_light()
     ts = TT.scene_from_numpy(js)
     z = torch.zeros(256)
     zi = torch.zeros(256, dtype=torch.int32)

@@ -194,8 +194,8 @@ def test_no_silent_fallbacks(monkeypatch):
         regen.render_regen(registry.model_example()[0], cam, n_lanes=256,
                            schedule="positional", device="cpu")
     for schedule in ("auto", "queue", "positional"):
-        with pytest.raises(NotImplementedError):
-            regen.render_regen(registry.book3()[0], cam, n_lanes=256,
+        with pytest.raises(NotImplementedError, match="noise"):
+            regen.render_regen(registry.simple_light()[0], cam, n_lanes=256,
                                schedule=schedule, device="cpu")
     cam.defocus_angle = 0.5
     for schedule in ("auto", "queue", "positional"):

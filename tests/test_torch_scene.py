@@ -85,13 +85,15 @@ def test_scene_from_numpy_carries_jax_scene():
 
 
 def test_supported_is_the_cornell_subset():
-    """Only scenes inside the fused kernel's subset are supported by it;
+    """Only scenes inside the fused kernels' subset are supported by them
+    (cornellBox, book3 with its glass sphere and sphere light, cornellSmoke
+    with its media; the others have checker, noise or image textures);
     scene 8 (a mesh) is outside it and inside the ext-mode kernel's."""
     ok = {treg.SCENES[k][0]: tpb.supported(treg.SCENES[k][1]()[0])
           for k in range(1, 8)}
-    assert ok == {"book1": False, "book2": False, "book3": False,
+    assert ok == {"book1": False, "book2": False, "book3": True,
                   "simpleLight": False, "quads": False, "cornellBox": True,
-                  "cornellSmoke": False}
+                  "cornellSmoke": True}
     mesh, _ = treg.model_example()
     assert not tpb.supported(mesh) and tpb.supported_ext(mesh)
     assert mesh.has_tri_bvh and not tpb.supported_ext(treg.book3()[0])
