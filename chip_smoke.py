@@ -5,10 +5,11 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is swallowed):
   1. environment: torch / CUDA versions, the card's name and power limit,
-     the build of every CUDA kernel from csrc/ (one nvcc each, in
-     parallel), and each kernel's registers, shared memory and spills from
-     its build log (the fused kernels once per feature set of the bounce
-     core: <spheres, dielectric, media>);
+     whether PIL imports, the build of every CUDA kernel from csrc/ (one
+     nvcc each, in parallel) and its wall time, and each kernel's
+     registers, shared memory and spills from its build log (the fused
+     kernels once per feature set of the bounce core: <spheres,
+     dielectric, media, textures>);
   2. K1 `bounce_fused_q` against its plain PyTorch version on the card
      (cornellBox tables, 131072 lanes = 512 blocks as in the flagship, 8
      levels, a mixed alive/depth state), and every level's starts taking
@@ -107,6 +108,17 @@ Phases (any failure exits non-zero; nothing is swallowed):
      paths, no non-finite pixel, segments per path within 5% of the
      registry's mean path length, `--direct-rec` with `queue_ik`'s
      segments, the schedules' channel means within 1e-2 of `queue_ik`'s;
+ 22. simpleLight (marble noise) and book1 (checker, 389 spheres, moving
+     ones among them, glass, metal, defocus): K1, K9, K6 and K8 against
+     their plain versions as in phase 21 (the new rays counted over all
+     lanes), K6 on a test scene with a checker ground and quad and a
+     perlin, a marble and a turbulent sphere, the four kernels timed at
+     the registry cadence (1) with their bounds, both scenes at their
+     registry configuration (400x225, 100 spp, depth 50, 131072 lanes)
+     through `cli.main` under the four routes with phase 21's gates (but
+     at most TEX_NONFINITE_MAX non-finite pixel values: the reference's
+     own 0/0 weight at an edge-on light sample), and one timed render
+     each at `--cadence 8`;
 then the `kernels` JSON line (K1-K12), the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
@@ -136,14 +148,42 @@ K1_OPS_PER_SEGMENT = 480
 # dielectric branch (~45 on the lanes that meet the glass); cornellSmoke
 # has 6 quads and two rotated box media (~45 each: the slab in object
 # space, the log of the free flight), and no box
+# simpleLight: 3 spheres and a quad (~130) and shading, the quad light's
+# sample and pdf (~150), and on a marble row (the ground and the large
+# sphere: nearly every hit) 7 turbulence octaves x 8 corners x ~30 float
+# operations (gradient, normalisation, weight, dot; the hash is integer
+# work) and the sine (~1,700); book1: 389 sphere tests x ~30 (~11,700),
+# shading, the sun's cone sample and sphere pdf (~220), the checker (~10),
+# metal and glass (~45)
 OPS_PER_SEGMENT = {"cornell_box": K1_OPS_PER_SEGMENT, "book3": 560,
-                   "cornell_smoke": 470}
+                   "cornell_smoke": 470, "simple_light": 2000,
+                   "book1": 12000}
 # the new scenes' registry configurations: (-S number, mean path length)
 NEW_SCENES = {"book3": (3, 5.54), "cornell_smoke": (7, 2.91)}
+# the textured scenes' (phase 22): simpleLight's marble noise, book1's
+# checker, 389 spheres and defocus
+TEX_SCENES = {"simple_light": (4, 1.69), "book1": (1, 2.60)}
 # book3's glass sphere turns a rounding into a reflect/refract flip within a
 # few levels: the fraction of lanes its checks allow to flip
 # (tests/test_torch_fused.py measures 2.5e-3 against the JAX package)
 DIEL_MISMATCH_FRAC = 5e-3
+# phase 22's: simpleLight is held to K1's default, book1 (glass, fuzzed
+# metal, 389 spheres on a radius-1000 ground sphere with its f32 acne) to
+# book3's. At 8 levels on a random pool few lanes stay alive in both runs
+# (1,143-4,642 of 131,072), and a ray that went another way from the acne
+# is a large share of those: their rays are counted over all lanes. The
+# pool's far hits on the ground sphere carry its acne into the marble's 7
+# octaves, which moves the records of other lanes at every level: simpleLight
+# K6 1.25e-3 of the records, 7.6e-3 of the lanes at one level or more
+TEX_MISMATCH_FRAC = {"simple_light": 2e-3, "book1": DIEL_MISMATCH_FRAC}
+# non-finite pixel values a phase-22 render may have: where a light is
+# sampled exactly edge-on (simpleLight: a point on the light's plane;
+# book1: the sun's cone edge) the mixture pdf and the scattering pdf are
+# both 0 and the weight 0/0 is NaN, in the reference and the JAX package
+# as here (the plain version reproduces it from the card's inputs); the
+# tonemap writes it 0, as the reference's PrintColor does. One pixel (3
+# values) per 9,000,000-path render was seen; 4 pixels are allowed
+TEX_NONFINITE_MAX = 12
 # cornellBox's K1 per call as PERF.md §6 records it before this version of
 # the core (NVIDIA H100 80GB HBM3, 700 W)
 K1_EARLIER_MS = 0.1079
@@ -355,6 +395,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi_line()
     t_start = time.perf_counter()
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__} imports"
+    except ImportError as e:
+        pil = f"PIL does not import ({e})"
+    print(f"[1] {pil} (the image-texture scenes decode assets/earthmap.jpg "
+          f"through it)")
 
     def phase_start(k):
         print(f"[{k}] starts at {time.perf_counter() - t_start:.1f} s")
@@ -1144,11 +1191,17 @@ def main():
             torch.tensor(next_item, device=dev), st_[7], item_end, width=600,
             npix=npix, sqrt_spp=10)
 
-    def fused_pair(name, k, p, frac=K1_MISMATCH_FRAC, tag="12"):
+    def fused_pair(name, k, p, frac=K1_MISMATCH_FRAC, tag="12", tex=False):
         """Mismatch fractions of one fused call, kernel against plain
-        version, at most `frac` of the lanes each; returns (level-0 record
-        max abs err, lanes that did not flip)."""
+        version, at most `frac` of the lanes each. With `tex` (a textured
+        scene, where a rounding of a far hit point moves a noise value on
+        other lanes at every level) the new rays are counted over all
+        lanes, not over those alive in both, and a lane flips when one of
+        its levels' records leaves the tolerance: at most levels x `frac`
+        of the lanes. Returns (level-0 record max abs err, lanes that did
+        not flip)."""
         krec, _, kseg, *kst = k
+        levels = krec[0].shape[0]
         prec, _, pseg, *pst = p
         check(kseg[0].item() == pseg[0].item(),
               f"{name}: level-0 alive counts differ")
@@ -1176,18 +1229,21 @@ def main():
         alive_both = (kst[7] > 0) & (pst[7] > 0)
         ray_mis = max((~torch.isclose(a[alive_both], b[alive_both],
                                       rtol=K1_RTOL, atol=K1_ATOL))
-                      .float().mean().item()
+                      .float().sum().item()
+                      / (n if tex else max(int(alive_both.sum()), 1))
                       for a, b in zip(kst[:6], pst[:6]))
         flip = (~noflip).float().mean().item()
-        print(f"[{tag}] {name} vs plain at {n} lanes x {n_inner} levels: "
+        print(f"[{tag}] {name} vs plain at {n} lanes x {levels} levels: "
               f"mismatch fractions flags {int_mis:.2e}  alive {alive_mis:.2e}"
-              f"  records {v_mis:.2e}  alive lanes' rays {ray_mis:.2e}  "
-              f"flipped lanes {flip:.2e} (limit {frac}, "
+              f"  records {v_mis:.2e}  "
+              f"{'all' if tex else 'alive'} lanes' rays {ray_mis:.2e}  "
+              f"flipped lanes {flip:.2e} (limit {frac}"
+              f"{f', flipped lanes {levels} x {frac}' if tex else ''}, "
               f"rtol=atol={K1_RTOL}); level-0 record max abs err {err0:.3e};"
               f" alive per level {kseg.tolist()}")
         for what, mis in (("flags", int_mis), ("alive", alive_mis),
                           ("records", v_mis), ("rays", ray_mis),
-                          ("flipped lanes", flip)):
+                          ("flipped lanes", flip / (levels if tex else 1))):
             check(mis <= frac, f"{name}: {what} mismatch {mis}")
         check(torch.equal(kst[6][noflip], pst[6][noflip])
               and torch.equal(kst[8][noflip], pst[8][noflip]),
@@ -2011,18 +2067,23 @@ def main():
     # ---- 21. book3 and cornellSmoke on the fused kernels ----------------
     phase_start(21)
     n, n_inner = 1 << 17, 8
-    for sc in NEW_SCENES:
-        frac = DIEL_MISMATCH_FRAC if sc == "book3" else K1_MISMATCH_FRAC
+
+    def hold_dense_scene(tag, sc, frac, tex=False):
+        """K1, K9, K6 and K8 against their plain versions on a registry
+        scene's tables and camera (its width, height, strata and defocus),
+        131072 lanes, 8 levels, a mixed state: starts, ranks and time
+        planes exact, the rest within `frac` of the lanes."""
         _, cam_s, tab_s, st_s, row_s, bg_s, state = cornell_inputs(
             dev, n, scene=sc)
-        sq_s = cam_s.spp_sqrt
-        q_kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner,
-                    width=600, sqrt_spp=sq_s, npix=npix)
-        print(f"[21] {sc}: statics {st_s}; core variant "
-              f"{bounce.fused_features(st_s)}")
+        sq_s, w_s, h_s = cam_s.spp_sqrt, cam_s.width, cam_s.image_height
+        npix_s, dfc = w_s * h_s, cam_s.defocus_angle > 0
+        q_kw = dict(has_defocus=dfc, max_depth=50, n_inner=n_inner,
+                    width=w_s, sqrt_spp=sq_s, npix=npix_s)
+        print(f"[{tag}] {sc}: statics {st_s}; core variant "
+              f"{bounce.fused_features(st_s)}; defocus {dfc}")
         # K1 with starts at level 0 only: the starts, their ranks and the
         # time planes (PRNG slot 4) exact, the rest within `frac`
-        seed21 = torch.tensor([-123456789, 1, 1000, npix * 10],
+        seed21 = torch.tensor([-123456789, 1, 1000, npix_s * 10],
                               dtype=torch.int32, device=dev)
         k_o = bounce.FusedQOut.empty(n, n_inner, dev)
         bounce.bounce_fused_q(tab_s, st_s, row_s, bg_s, seed21, *state,
@@ -2050,7 +2111,7 @@ def main():
                    for a, b in zip(k_o.rec[:3], p_o.rec[:3]))
         nan_k = [int(torch.isnan(k_o.rec[0][j]).sum()) for j in range(n_inner)]
         nan_p = [int(torch.isnan(p_o.rec[0][j]).sum()) for j in range(n_inner)]
-        print(f"[21] {sc}: K1 vs plain at {n} lanes x {n_inner} levels: "
+        print(f"[{tag}] {sc}: K1 vs plain at {n} lanes x {n_inner} levels: "
               f"takes, bases, level-0 starts and ranks and the time plane "
               f"exact; mismatch fractions FL {fl_mis:.2e} alive "
               f"{alive_mis:.2e} V {v_mis:.2e} (limit {frac}, rtol=atol="
@@ -2080,39 +2141,46 @@ def main():
         fl9 = ((kb[3][lv] & 7) != (pb[3][lv] & 7)).float().mean().item()
         check(fl9 <= frac and torch.equal(kb[3][3] & ~3, pb[3][3] & ~3),
               f"K9 on {sc}: flags differ from its plain version")
-        print(f"[21] {sc}: K9 equal to K1 bit for bit at rows 3..{2 + n_inner}"
-              f", other rows untouched; vs plain FL mismatch {fl9:.2e}")
+        print(f"[{tag}] {sc}: K9 equal to K1 bit for bit at rows "
+              f"3..{2 + n_inner}, other rows untouched; vs plain FL mismatch "
+              f"{fl9:.2e}")
         # K6 on the refill planes of a real refill, K8 with rem mixed and
         # the refill cut after level 5
         r21 = regen.queue_refill_planes(
-            torch.tensor(1000, device=dev), state[7], npix * 10, width=600,
-            npix=npix, sqrt_spp=sq_s)
-        f_kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner)
+            torch.tensor(1000, device=dev), state[7], npix_s * 10,
+            width=w_s, npix=npix_s, sqrt_spp=sq_s)
+        f_kw = dict(has_defocus=dfc, max_depth=50, n_inner=n_inner)
         k6 = bounce.bounce_fused(tab_s, st_s, row_s, bg_s, seed6, *state,
                                  *r21, **f_kw)
         torch.cuda.synchronize()
         p6 = bounce.bounce_fused_ref(tab_s, st_s, row_s, bg_s, seed6, *state,
                                      *r21, **f_kw)
-        fused_pair(f"K6 on {sc}", k6, p6, frac, tag="21")
+        fused_pair(f"K6 on {sc}", k6, p6, frac, tag=tag, tex=tex)
         rs = np.random.default_rng(5)
         to_f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
-        ptr21 = [to_f(rs.choice([0, 7, 599], n)), to_f(rs.integers(0, 599, n)),
+        ptr21 = [to_f(rs.choice([0, 7, w_s - 1], n)),
+                 to_f(rs.integers(0, h_s - 1, n)),
                  to_f(rs.choice([0, sq_s - 1], n)),
                  to_f(rs.choice([0, 1, sq_s - 1], n)),
                  to_f(rs.choice([0, 1, 2, 275], n))]
         seed21p = torch.tensor([24680, 5], dtype=torch.int32, device=dev)
-        p_kw = dict(width=600, sqrt_spp=sq_s, **f_kw)
+        p_kw = dict(width=w_s, sqrt_spp=sq_s, **f_kw)
         k8 = bounce.bounce_fused_pos(tab_s, st_s, row_s, bg_s, seed21p, *state,
                                      *ptr21, **p_kw)
         torch.cuda.synchronize()
         p8 = bounce.bounce_fused_pos_ref(tab_s, st_s, row_s, bg_s, seed21p,
                                          *state, *ptr21, **p_kw)
-        _, noflip21 = fused_pair(f"K8 on {sc}", k8, p8, frac, tag="21")
+        _, noflip21 = fused_pair(f"K8 on {sc}", k8, p8, frac, tag=tag,
+                                 tex=tex)
         check(all(torch.equal(a[noflip21], b[noflip21])
                   for a, b in zip(k8[12:], p8[12:]))
               and torch.equal(k8[0][7][0], p8[0][7][0])
               and not k8[0][7][5:].any(),
               f"K8 on {sc}: pointer planes or starts differ")
+
+    for sc in NEW_SCENES:
+        hold_dense_scene("21", sc, DIEL_MISMATCH_FRAC if sc == "book3"
+                         else K1_MISMATCH_FRAC)
 
     # the registry configurations through the CLI, on the four routes of a
     # dense scene; launch counts read around each render
@@ -2129,49 +2197,224 @@ def main():
                 ("queue", ["--schedule", "queue"], "bounce_fused"),
                 ("positional", ["--schedule", "positional"],
                  "bounce_fused_pos"))
-    for sc, (num, regen_len) in NEW_SCENES.items():
-        _, cam_s = cornell_inputs(dev, 8, scene=sc)[:2]
-        paths_s = cam_s.width * cam_s.image_height * cam_s.spp_sqrt ** 2
-        res = {}
-        for label, extra, kern in routes21:
-            reset_counts()
-            st_r = run_cli_dense(num, extra, f"{sc}_{label}.ppm")
-            counts = {"bounce_fused_q": bounce.launches,
-                      "bounce_fused_q_direct": bounce.launches_direct,
-                      "bounce_fused": bounce.launches_fused,
-                      "bounce_fused_pos": bounce.launches_fused_pos,
-                      "harvest_levels": harvest.launches,
-                      "reverse_harvest": harvest.launches_rows}
-            st_r["means"] = ppm_channel_means(os.path.join(
-                out_dir, f"{sc}_{label}.ppm"))
-            res[label] = st_r
-            ratio = st_r["segments"] / st_r["paths"]
-            print(f"[21] {sc} {cam_s.width}x{cam_s.image_height} "
-                  f"{cam_s.samples_per_pixel}spp "
-                  f"({cam_s.spp_sqrt ** 2} strata) depth 50, 131072 lanes, "
-                  f"{label}, on {card}: paths {st_r['paths']}, segments "
-                  f"{st_r['segments']} ({ratio:.4f}/path, registry "
-                  f"{regen_len}), {st_r['rays_per_s']:.6g} rays/s, render "
-                  f"loop {st_r['elapsed_s']:.4f} s, windows {st_r['windows']}"
-                  f", nonfinite {st_r['nonfinite']}, channel means "
-                  f"{np.round(st_r['means'], 5).tolist()}; launches "
-                  + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
-            check(st_r["paths"] == paths_s, f"{sc} {label}: paths {st_r['paths']}"
-                  f" != {paths_s}")
-            check(st_r["nonfinite"] == 0, f"{sc} {label}: non-finite pixels")
-            check(abs(ratio - regen_len) <= 0.05 * regen_len,
-                  f"{sc} {label}: segments/path {ratio} vs {regen_len}")
-            others = [k for k in ("bounce_fused_q", "bounce_fused_q_direct",
-                                  "bounce_fused", "bounce_fused_pos")
-                      if k != kern]
-            check(counts[kern] > 0 and not any(counts[k] for k in others),
-                  f"{sc} {label}: the render did not go through {kern} alone")
-        check(res["direct_rec"]["segments"] == res["queue_ik"]["segments"],
-              f"{sc}: --direct-rec segments differ from queue_ik's")
-        for label in ("queue", "positional"):
-            check(np.abs(res[label]["means"] - res["queue_ik"]["means"]).max()
-                  <= 1e-2, f"{sc} {label}: channel means beyond 1e-2 of "
-                  f"queue_ik's")
+
+    def render_dense_routes(tag, scenes, nonfinite_max=0):
+        """Each scene at its registry configuration through `cli.main`
+        under the four routes: paths, non-finite pixels (at most
+        `nonfinite_max` values), segments per path within 5% of the
+        registry's, `--direct-rec` with `queue_ik`'s segments, the
+        schedules' channel means within 1e-2 of `queue_ik`'s. Returns
+        {scene: {route: stats}}."""
+        out = {}
+        for sc, (num, regen_len) in scenes.items():
+            _, cam_s = cornell_inputs(dev, 8, scene=sc)[:2]
+            paths_s = cam_s.width * cam_s.image_height * cam_s.spp_sqrt ** 2
+            res = {}
+            for label, extra, kern in routes21:
+                reset_counts()
+                st_r = run_cli_dense(num, extra, f"{sc}_{label}.ppm")
+                counts = {"bounce_fused_q": bounce.launches,
+                          "bounce_fused_q_direct": bounce.launches_direct,
+                          "bounce_fused": bounce.launches_fused,
+                          "bounce_fused_pos": bounce.launches_fused_pos,
+                          "harvest_levels": harvest.launches,
+                          "reverse_harvest": harvest.launches_rows}
+                st_r["means"] = ppm_channel_means(os.path.join(
+                    out_dir, f"{sc}_{label}.ppm"))
+                st_r["launches"] = counts
+                res[label] = st_r
+                ratio = st_r["segments"] / st_r["paths"]
+                print(f"[{tag}] {sc} {cam_s.width}x{cam_s.image_height} "
+                      f"{cam_s.samples_per_pixel}spp "
+                      f"({cam_s.spp_sqrt ** 2} strata) depth 50, 131072 "
+                      f"lanes, {label}, on {card}: paths {st_r['paths']}, "
+                      f"segments {st_r['segments']} ({ratio:.4f}/path, "
+                      f"registry {regen_len}), {st_r['rays_per_s']:.6g} "
+                      f"rays/s, render loop {st_r['elapsed_s']:.4f} s, "
+                      f"windows {st_r['windows']}, nonfinite "
+                      f"{st_r['nonfinite']}, channel means "
+                      f"{np.round(st_r['means'], 5).tolist()}; launches "
+                      + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+                check(st_r["paths"] == paths_s,
+                      f"{sc} {label}: paths {st_r['paths']} != {paths_s}")
+                check(st_r["nonfinite"] <= nonfinite_max,
+                      f"{sc} {label}: {st_r['nonfinite']} non-finite pixel "
+                      f"values (at most {nonfinite_max})")
+                check(abs(ratio - regen_len) <= 0.05 * regen_len,
+                      f"{sc} {label}: segments/path {ratio} vs {regen_len}")
+                others = [k for k in ("bounce_fused_q", "bounce_fused_q_direct",
+                                      "bounce_fused", "bounce_fused_pos")
+                          if k != kern]
+                check(counts[kern] > 0 and not any(counts[k] for k in others),
+                      f"{sc} {label}: the render did not go through {kern} "
+                      f"alone")
+            check(res["direct_rec"]["segments"] == res["queue_ik"]["segments"],
+                  f"{sc}: --direct-rec segments differ from queue_ik's")
+            for label in ("queue", "positional"):
+                check(np.abs(res[label]["means"]
+                             - res["queue_ik"]["means"]).max() <= 1e-2,
+                      f"{sc} {label}: channel means beyond 1e-2 of "
+                      f"queue_ik's")
+            out[sc] = res
+        return out
+
+    render_dense_routes("21", NEW_SCENES)
+
+    # ---- 22. simpleLight and book1 on the fused kernels -----------------
+    phase_start(22)
+    # the hand-written noise and checker, and defocus: K1, K9, K6 and K8
+    # on both scenes against their plain versions, as in phase 21
+    for sc in TEX_SCENES:
+        hold_dense_scene("22", sc, TEX_MISMATCH_FRAC[sc], tex=True)
+    # the perlin and turbulent kinds, which no registry scene has: K6 on a
+    # checker ground and quad and one sphere of each noise kind
+    tb = SceneBuilder(background=(0.2, 0.3, 0.4))
+    tb.sphere((0, -1000, 0), 1000.0, tb.lambertian(
+        tex=tb.checker(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
+    tb.quad((-8, 0.01, -8.8), (16, 0, 0), (0, 6, 0), tb.lambertian(
+        tex=tb.checker(0.5, (0.8, 0.1, 0.1), (0.1, 0.1, 0.8))))
+    for kind, x in (("perlin", -4.0), ("marble", 0.0), ("turbulent", 4.0)):
+        tb.sphere((x, 1.5, 0.0), 1.5, tb.lambertian(
+            tex=tb.noise_texture(4, kind)))
+    tb.add_light(tb.quad((-3, 7, -3), (6, 0, 0), (0, 0, 6),
+                         tb.diffuse_light((6, 6, 6))))
+    tsc = tb.build()
+    to_d = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    ttab = tuple(to_d(t) for t in bounce.pack_scene(tsc))
+    tst_ = bounce.scene_statics(tsc)
+    rs22 = np.random.default_rng(22)
+    o22 = rs22.uniform(-7, 7, (n, 3)).astype(np.float32)
+    d22 = (rs22.normal(size=(n, 3)) * 3).astype(np.float32)
+    st22 = [to_d(o22[:, k]) for k in range(3)] \
+        + [to_d(d22[:, k]) for k in range(3)] \
+        + [to_d(rs22.uniform(0, 1, n).astype(np.float32)),
+           to_d(np.ones(n, np.int32)), to_d(np.zeros(n, np.int32))]
+    none22 = [torch.zeros(n, dtype=torch.int32, device=dev)] \
+        + [torch.zeros(n, device=dev)] * 4
+    row22 = cornell_inputs(dev, 8, scene="book1")[4]
+    bg22 = to_d(np.asarray(tsc.background, np.float32))
+    # one level: the texture values at the first hit (later levels add
+    # the grazing-edge flips of a closed scene, held on the registry ones)
+    t_kw = dict(has_defocus=False, max_depth=50, n_inner=1)
+    k6t = bounce.bounce_fused(ttab, tst_, row22, bg22, seed6, *st22,
+                              *none22, **t_kw)
+    torch.cuda.synchronize()
+    p6t = bounce.bounce_fused_ref(ttab, tst_, row22, bg22, seed6, *st22,
+                                  *none22, **t_kw)
+    gray = ((p6t[0][0][0] == p6t[0][1][0]) & (p6t[0][1][0] == p6t[0][2][0])
+            & (p6t[0][0][0] > 0)).sum().item()
+    print(f"[22] perlin, marble, turbulent and checker test scene (variant "
+          f"{bounce.fused_features(tst_)}): {gray} lanes shade a noise gray")
+    fused_pair("K6 on the texture test scene", k6t, p6t, K1_MISMATCH_FRAC,
+               tag="22", tex=True)
+    check(gray > 1000, "the texture test scene shaded too few noise lanes")
+
+    # K1, K9, K6 and K8 timed on both scenes at their registry cadence,
+    # each on an aged pool, with their bounds
+    tex_times = {}
+    for sc in TEX_SCENES:
+        _, cam_s, tab_s, st_s, row_s, bg_s, _ = cornell_inputs(dev, 8,
+                                                               scene=sc)
+        cad_s, sq_s, w_s = cam_s.regen_cadence, cam_s.spp_sqrt, cam_s.width
+        npix_s = w_s * cam_s.image_height
+        total_s = npix_s * sq_s * sq_s
+        dfc = cam_s.defocus_angle > 0
+        tb_bytes = sum(t.numel() * 4 for t in tab_s)
+        kw_s = dict(has_defocus=dfc, max_depth=50, n_inner=cad_s, width=w_s,
+                    sqrt_spp=sq_s, npix=npix_s)
+        seed_s = torch.tensor([7, cad_s, 0, total_s], dtype=torch.int32,
+                              device=dev)
+        o_s = bounce.FusedQOut.empty(n, cad_s, dev)
+        st0_s = aged_state(lambda st_: bounce.bounce_fused_q(
+            tab_s, st_s, row_s, bg_s, seed_s, *st_, out=o_s, **kw_s)[4:],
+            regen._init_state(n, dev))
+        t = {}
+        t["K1"] = time_ms(lambda: bounce.bounce_fused_q(
+            tab_s, st_s, row_s, bg_s, seed_s, *st0_s, out=o_s, **kw_s), 20)
+        segs_s = int(o_s.seg.sum())
+        t["K1 plain"] = time_ms(lambda: bounce.bounce_fused_q_ref(
+            tab_s, st_s, row_s, bg_s, seed_s, *st0_s, out=o_s, **kw_s), 3)
+        bufs_s = regen.WindowBuffers.empty(n, 2, cad_s, dev).rec
+        base_s = torch.zeros(1, dtype=torch.int32, device=dev)
+        t["K9"] = time_ms(lambda: bounce.bounce_fused_q_direct(
+            tab_s, st_s, row_s, bg_s, seed_s, base_s, bufs_s, *st0_s,
+            out=o_s, **kw_s), 20)
+        t["K9 plain"] = time_ms(lambda: bounce.bounce_fused_q_direct_ref(
+            tab_s, st_s, row_s, bg_s, seed_s, base_s, bufs_s, *st0_s,
+            out=o_s, **kw_s), 3)
+        b1 = fused_bound(n * (36 + 36) + cad_s * n * 16 + tb_bytes, segs_s,
+                         sc)
+        f_kw = dict(has_defocus=dfc, max_depth=50, n_inner=cad_s)
+        nxt_s = [0]
+
+        def refill_s(st_):
+            r_ = regen.queue_refill_planes(
+                torch.tensor(nxt_s[0], device=dev), st_[7], total_s,
+                width=w_s, npix=npix_s, sqrt_spp=sq_s)
+            nxt_s[0] += int(r_[0].sum())
+            return r_
+
+        o6s = bounce.FusedOut.empty(n, cad_s, dev)
+        st6s = aged_state(lambda st_: bounce.bounce_fused(
+            tab_s, st_s, row_s, bg_s, seed6, *st_, *refill_s(st_), out=o6s,
+            **f_kw)[3:], regen._init_state(n, dev))
+        r6s = refill_s(st6s)
+        t["K6"] = time_ms(lambda: bounce.bounce_fused(
+            tab_s, st_s, row_s, bg_s, seed6, *st6s, *r6s, out=o6s, **f_kw),
+            20)
+        segs6s = int(o6s.seg.sum())
+        t["K6 plain"] = time_ms(lambda: bounce.bounce_fused_ref(
+            tab_s, st_s, row_s, bg_s, seed6, *st6s, *r6s, out=o6s, **f_kw), 3)
+        b6 = fused_bound(n * (36 + 20 + 36) + cad_s * n * 16 + tb_bytes,
+                         segs6s, sc)
+        q_s, lb_s, _, _ = regen.pos_tables(npix_s, sq_s * sq_s, n)
+        o8s = bounce.FusedOut.empty(n, cad_s, dev, positional=True)
+        p_kw = dict(width=w_s, sqrt_spp=sq_s, **f_kw)
+        seed8s = torch.tensor([13579, cad_s], dtype=torch.int32, device=dev)
+        st8s = aged_state(lambda st_: bounce.bounce_fused_pos(
+            tab_s, st_s, row_s, bg_s, seed8s, *st_, out=o8s, **p_kw)[3:],
+            regen._init_state_pos(n, dev, q_s, lb_s, sq_s * sq_s, w_s))
+        t["K8"] = time_ms(lambda: bounce.bounce_fused_pos(
+            tab_s, st_s, row_s, bg_s, seed8s, *st8s, out=o8s, **p_kw), 20)
+        segs8s = int(o8s.seg.sum())
+        t["K8 plain"] = time_ms(lambda: bounce.bounce_fused_pos_ref(
+            tab_s, st_s, row_s, bg_s, seed8s, *st8s, out=o8s, **p_kw), 3)
+        b8 = fused_bound(n * (56 + 56) + cad_s * n * 32 + tb_bytes, segs8s,
+                         sc)
+        tex_times[sc] = t
+        print(f"[22] {sc}, {n} lanes x {cad_s} level(s) per call, on {card}:"
+              f" K1 ({segs_s} segments) {t['K1']:.4f} ms, plain "
+              f"{t['K1 plain']:.3f} ms, bound {b1[0]:.4f} ms ({b1[1]}); K9 "
+              f"{t['K9']:.4f} ms, plain {t['K9 plain']:.3f} ms; K6 ({segs6s}"
+              f" segments) {t['K6']:.4f} ms, plain {t['K6 plain']:.3f} ms, "
+              f"bound {b6[0]:.4f} ms ({b6[1]}); K8 ({segs8s} segments) "
+              f"{t['K8']:.4f} ms, plain {t['K8 plain']:.3f} ms, bound "
+              f"{b8[0]:.4f} ms ({b8[1]}); {OPS_PER_SEGMENT[sc]} operations "
+              f"per segment")
+
+    # the registry configurations through the CLI under the four routes;
+    # these scenes' lights can be sampled exactly edge-on, where the
+    # reference's mixture pdf and scattering pdf are both 0 and its weight
+    # 0/0 is NaN (PrintColor writes that component as 0): a few such paths
+    # per render are the reference's own, not a fault
+    tex_res = render_dense_routes("22", TEX_SCENES,
+                                  nonfinite_max=TEX_NONFINITE_MAX)
+    # one timed run per scene at cadence 8, for the cadence work
+    for sc, (num, regen_len) in TEX_SCENES.items():
+        reset_counts()
+        st_c = run_cli_dense(num, ["--cadence", "8"], f"{sc}_cadence8.ppm")
+        ratio = st_c["segments"] / st_c["paths"]
+        print(f"[22] {sc} at --cadence 8 (registry {regen_len}) on {card}: "
+              f"segments {st_c['segments']} ({ratio:.4f}/path), render loop "
+              f"{st_c['elapsed_s']:.4f} s against "
+              f"{tex_res[sc]['queue_ik']['elapsed_s']:.4f} s at cadence 1, "
+              f"K1 calls {bounce.launches} against "
+              f"{tex_res[sc]['queue_ik']['launches']['bounce_fused_q']}, "
+              f"nonfinite {st_c['nonfinite']}")
+        check(abs(ratio - regen_len) <= 0.05 * regen_len
+              and st_c["nonfinite"] <= TEX_NONFINITE_MAX,
+              f"{sc} at cadence 8: segments/path {ratio} or non-finite "
+              f"pixels")
 
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",

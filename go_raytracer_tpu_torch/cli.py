@@ -5,13 +5,13 @@ the reference binary (main.go:416-480): -S scene number, -o output file,
 Runs on the GPU; `--cpu` runs the plain PyTorch versions of the kernels
 on the CPU instead. Without a GPU and without `--cpu` it exits with an
 error rather than falling back. An unknown -S exits with 2 and the list of
-valid scenes. `-S 3` (book3), `-S 6` (cornellBox) and `-S 7`
-(cornellSmoke) run the dense path; a scene with noise, image or checker
-textures (`-S 1`, `2`, `4`, `5`) exits with 2 and a message naming what is
-missing. `-S 8` (a mesh) runs the mesh path; `--mesh` picks its
-closest-hit route: `binned` (default; `--b1-fused` fuses each round into
-one kernel), `binned2` (the persistent-block intersector) or `walk` (the
-BVH8 walk; `--no-traverse8` the binary BVH walk). `--direct-rec` has the
+valid scenes. `-S 1` (book1), `-S 3` (book3), `-S 4` (simpleLight), `-S 6`
+(cornellBox) and `-S 7` (cornellSmoke) run the dense path; a scene with
+image textures (`-S 2`, `-S 5`) exits with 2 and a message naming them.
+`-S 8` (a mesh) runs the mesh path; `--mesh` picks its closest-hit route:
+`binned` (default; `--b1-fused` fuses each round into one kernel),
+`binned2` (the persistent-block intersector) or `walk` (the BVH8 walk;
+`--no-traverse8` the binary BVH walk). `--direct-rec` has the
 in-kernel-queue kernel write its records in place. These are the JAX
 package's GRT_MESH, GRT_B1_FUSED, GRT_TRAVERSE8 and GRT_DIRECT_REC as
 flags; where the JAX package would quietly take another route, the run

@@ -1,8 +1,10 @@
-"""Maps from uniform variates to sampling domains (torch tensors).
+"""Maps from uniform variates to sampling domains (torch tensors), and the
+uint32 hash arithmetic of the kernels' counter-based PRNG and noise.
 
-Every function takes its uniforms as arguments, so the caller owns the
-random stream: an explicit `torch.Generator` in the renderer, numpy-made
-tensors in the tests.
+Every sampling function takes its uniforms as arguments, so the caller
+owns the random stream: an explicit `torch.Generator` in the renderer,
+numpy-made tensors in the tests. torch has no uint32 arithmetic, so the
+hash values live in int64 tensors masked to 32 bits.
 """
 
 from __future__ import annotations
@@ -12,6 +14,24 @@ import math
 import torch
 
 TWO_PI = 2.0 * math.pi
+M32 = 0xFFFFFFFF
+
+
+def mul32(x, c: int):
+    """(x * c) mod 2^32 for int64 tensors holding uint32 values, without
+    leaving int64 range: split x into 16-bit halves."""
+    lo = x & 0xFFFF
+    hi = x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & M32
+
+
+def mix32(x):
+    """lowbias32 finalizer (public-domain integer hash, Wellons)."""
+    x = x ^ (x >> 16)
+    x = mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
 
 
 def unit_disk(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:

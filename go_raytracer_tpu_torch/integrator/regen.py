@@ -260,12 +260,14 @@ class _DrainWatch:
 def _window_impl(tables, statics, cam_row, bg, acc, state, next_item, seeds,
                  item_base: int, item_end: int, *, width, npix, sqrt_spp,
                  window, refill, cadence, max_depth, max_contribution,
-                 bufs: WindowBuffers = None, direct_rec: bool = False):
+                 has_defocus=False, bufs: WindowBuffers = None,
+                 direct_rec: bool = False):
     """One window over items [item_base, item_end): forward kernel calls
     until the window drains, then the harvest into `acc` (rows relative to
     item_base, updated in place). `state` (nine planes) is updated in
     place; `next_item` is a (1,) int32 tensor on the device; `seeds` the
-    (outer,) int32 per-call seeds. `direct_rec`: every call gets the whole
+    (outer,) int32 per-call seeds; `has_defocus`: the camera rays leave
+    from the defocus disk. `direct_rec`: every call gets the whole
     record buffers and its first level's row as a device tensor
     (`bounce_fused_q_direct`) instead of its slice of the buffers; the
     records are the same. Returns (acc, state, cur) with cur an int64
@@ -292,7 +294,7 @@ def _window_impl(tables, statics, cam_row, bg, acc, state, next_item, seeds,
         level_base = torch.arange(0, outer * cadence, cadence,
                                   dtype=torch.int32, device=dev)
     n_run = 0
-    kw = dict(has_defocus=False, max_depth=max_depth, n_inner=cadence,
+    kw = dict(has_defocus=has_defocus, max_depth=max_depth, n_inner=cadence,
               width=width, sqrt_spp=sqrt_spp, npix=npix)
     for i in range(outer):
         sl = slice(i * cadence, (i + 1) * cadence)
@@ -376,7 +378,7 @@ class SchedBuffers:
 def _queue_window(tables, statics, cam_row, bg, acc, state, next_item, seeds,
                   item_base: int, item_end: int, *, width, npix, sqrt_spp,
                   window, refill, cadence, max_depth, max_contribution,
-                  bufs: SchedBuffers = None):
+                  has_defocus=False, bufs: SchedBuffers = None):
     """One window of the `queue` schedule over items [item_base, item_end):
     `window // cadence` calls of `bounce_fused`, each of the first
     ceil(refill / cadence) preceded by the refill (`queue_refill_planes`:
@@ -405,7 +407,7 @@ def _queue_window(tables, statics, cam_row, bg, acc, state, next_item, seeds,
             refill_planes = bufs.idle
         bounce_mod.bounce_fused(
             tables, statics, cam_row, bg, seeds[i:i + 1], *state,
-            *refill_planes, has_defocus=False, max_depth=max_depth,
+            *refill_planes, has_defocus=has_defocus, max_depth=max_depth,
             n_inner=cadence,
             out=bounce_mod.FusedOut(rec=[r[sl] for r in bufs.rec],
                                     seg=bufs.seg[i], state=state))
@@ -421,7 +423,8 @@ def _queue_window(tables, statics, cam_row, bg, acc, state, next_item, seeds,
 
 def _pos_window(tables, statics, cam_row, bg, B, state, quota, first_pix,
                 seeds, *, width, sqrt_spp, G, window, refill, cadence,
-                max_depth, max_contribution, bufs: SchedBuffers = None):
+                max_depth, max_contribution, has_defocus=False,
+                bufs: SchedBuffers = None):
     """One window of the `positional` schedule: `window // cadence` calls
     of `bounce_fused_pos`, then the reverse scan in plain tensor code. It
     runs the clamp recursion L = clamp?(E + W * L) backwards per lane and,
@@ -445,7 +448,7 @@ def _pos_window(tables, statics, cam_row, bg, B, state, quota, first_pix,
         sl = slice(i * cadence, (i + 1) * cadence)
         bounce_mod.bounce_fused_pos(
             tables, statics, cam_row, bg, seed2[i], *state,
-            has_defocus=False, max_depth=max_depth, n_inner=cadence,
+            has_defocus=has_defocus, max_depth=max_depth, n_inner=cadence,
             width=width, sqrt_spp=sqrt_spp,
             out=bounce_mod.FusedOut(rec=[r[sl] for r in bufs.rec],
                                     seg=bufs.seg[i], state=state))
@@ -837,14 +840,12 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     if direct_rec and schedule != "queue_ik":
         raise ValueError(f"direct_rec is an option of the queue_ik "
                          f"schedule, not of {schedule!r}")
-    if use_fused and cam.defocus_angle > 0:
-        raise NotImplementedError("defocus blur on the fused-kernel paths "
-                                  "is a later slice (ROADMAP.md)")
     if n_lanes % bounce_mod.BLOCK:
         raise ValueError(f"n_lanes must be a multiple of {bounce_mod.BLOCK}")
     device = resolve_device(device)
     cadence = _resolve_cadence(cadence, cam)
     arrays = cam.derived()
+    defocus = arrays.defocus_angle > 0
     h, w = cam.image_height, cam.width
     npix = h * w
     sqrt_spp = cam.spp_sqrt
@@ -939,7 +940,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
             0, total_items, width=w, npix=npix, sqrt_spp=sqrt_spp,
             window=window, refill=refill, cadence=cadence,
             max_depth=cam.max_depth, max_contribution=cam.max_contribution,
-            bufs=bufs, direct_rec=direct_rec)
+            has_defocus=defocus, bufs=bufs, direct_rec=direct_rec)
         next_dev = cur[0:1].to(torch.int32)
         return cur
 
@@ -958,7 +959,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
             device_seeds(wi), 0, total_items, width=w, npix=npix,
             sqrt_spp=sqrt_spp, window=window, refill=refill, cadence=cadence,
             max_depth=cam.max_depth, max_contribution=cam.max_contribution,
-            bufs=bufs)
+            has_defocus=defocus, bufs=bufs)
         next_q = cur[0]
         return cur
 
@@ -968,7 +969,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
             first_pix_dev, device_seeds(wi), width=w, sqrt_spp=sqrt_spp, G=G,
             window=window, refill=refill, cadence=cadence,
             max_depth=cam.max_depth, max_contribution=cam.max_contribution,
-            bufs=bufs)[2]
+            has_defocus=defocus, bufs=bufs)[2]
 
     def checkpoint_cb(ni, nw):
         meta["windows"] = nw

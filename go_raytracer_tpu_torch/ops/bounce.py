@@ -32,17 +32,18 @@ Counterpart of the JAX package's `ops/pallas/bounce.py`. Three parts:
   the closest mesh hit folded in as per-lane planes (`mesh_ext_planes`).
   CUDA tensors launch `csrc/bounce.cu`, CPU tensors run `bounce_ref`.
 
-The four fused kernels cover the scenes `supported()` accepts: spheres,
-quads and (rotated) fused boxes; lambertian, metal, dielectric,
-diffuse-light and isotropic materials; constant-density media; solid
-textures; quad and sphere lights; no defocus. `bounce` covers spheres,
-quads, boxes, lambertian, metal and diffuse-light materials, quad and
-sphere lights and the external mesh hit (`supported_ext`). Everything else
-(noise, image and checker textures, defocus, triangle lights) raises;
-nothing falls back. All share one bounce core (`_bounce_core_ref` here,
-`csrc/bounce_core.cuh` on the card, compiled once per feature set), and
-the fused ones one PRNG and one camera ray generation (`_camera_rays_ref`,
-`csrc/fused_common.cuh`).
+The four fused kernels cover the scenes `supported()` accepts: spheres
+(moving ones too), quads and (rotated) fused boxes; lambertian, metal,
+dielectric, diffuse-light and isotropic materials; constant-density
+media; solid, checker and noise (perlin, marble, turbulent) textures;
+quad and sphere lights; camera rays with or without defocus. `bounce`
+covers spheres, quads, boxes, lambertian, metal and diffuse-light
+materials, solid textures, quad and sphere lights and the external mesh
+hit (`supported_ext`). Everything else (image textures, triangle lights)
+raises; nothing falls back. All share one bounce core (`_bounce_core_ref`
+here, `csrc/bounce_core.cuh` on the card, compiled once per feature set),
+and the fused ones one PRNG and one camera ray generation
+(`_camera_rays_ref`, `csrc/fused_common.cuh`).
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from go_raytracer_tpu_torch.core import rng
+from go_raytracer_tpu_torch.scene import perlin
 from go_raytracer_tpu_torch.scene import types as T
 
 INV_PI = 1.0 / math.pi
@@ -114,9 +117,7 @@ MAX_MEDIA = 8
 
 def _refused_statics(st: dict) -> list:
     """What in these statics the fused kernels do not compute, in words."""
-    named = [("noise textures", st["has_noise"]),
-             ("image textures", st["has_image"]),
-             ("checker textures", st["has_checker"]),
+    named = [("image textures", st["has_image"]),
              ("an external mesh hit", st["ext_hit"]),
              (f"more than {MAX_MEDIA} media", st["n_media"] > MAX_MEDIA),
              (f"no primitive or more than {MAX_PRIMS}",
@@ -129,8 +130,9 @@ def _refused_statics(st: dict) -> list:
 def supported_statics(st: dict) -> bool:
     """The fused kernels' subset, read from `scene_statics`: spheres, quads
     and fused boxes; lambertian, metal, dielectric, diffuse-light and
-    isotropic materials; constant-density media; solid textures. Noise,
-    image and checker textures are later slices (ROADMAP.md)."""
+    isotropic materials; constant-density media; solid, checker and noise
+    (perlin, marble, turbulent) textures. Image textures are a later slice
+    (ROADMAP.md)."""
     return not _refused_statics(st)
 
 
@@ -153,12 +155,15 @@ def fused_features(st: dict) -> int:
     """The compile-time feature set of the fused kernels' bounce core for
     these statics (csrc/fused_common.cuh): bit 0 the sphere section, bit 1
     the fr column (metal fuzz or dielectric index) with the dielectric
-    branch, bit 2 isotropic scattering with the media loop. A scene
-    without spheres, fr column and media runs the core compiled without
-    them."""
+    branch, bit 2 isotropic scattering with the media loop, bit 3 the
+    texture value (the checker select and the noise), on when the layout
+    has a scale column. A scene without spheres, fr column, media and
+    textures runs the core compiled without them."""
+    lay = _mat_layout(st)
     return ((1 if st["n_sph"] else 0)
-            | (2 if "fr" in _mat_layout(st) else 0)
-            | (4 if st["has_isotropic"] else 0))
+            | (2 if "fr" in lay else 0)
+            | (4 if st["has_isotropic"] else 0)
+            | (8 if "scale" in lay else 0))
 
 
 def supported_ext_statics(st: dict) -> bool:
@@ -342,24 +347,7 @@ def pack_camera(arrays) -> np.ndarray:
 # arithmetic, so values live in int64 tensors masked to 32 bits.
 # ---------------------------------------------------------------------------
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x, c: int):
-    """(x * c) mod 2^32 for int64 tensors holding uint32 values, without
-    leaving int64 range: split x into 16-bit halves."""
-    lo = x & 0xFFFF
-    hi = x >> 16
-    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x):
-    """lowbias32 finalizer (public-domain integer hash, Wellons)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
+_M32, _mul32, _mix32 = rng.M32, rng.mul32, rng.mix32
 
 
 def _bits_to_u01(bits):
@@ -433,19 +421,19 @@ def _onb_transform(nx, ny, nz, lx, ly, lz):
             lx * uz + ly * vz + lz * wz)
 
 
-def _media_update(st, med, rays, u, carry):
+def _media_update(st, med, rays, u, t_best, n_hx, n_hy, n_hz):
     """Constant-density media (medium.go:27-58), after every primitive
     section and the ext hit: each medium's boundary span (sphere roots, or
     the rotated box's slabs in object space) clamped by the closest hit so
     far, and an exponential free-flight distance from the medium's
     uniform u[N_U + m]. A medium winner carries normal (1, 0, 0), front
-    face true and an isotropic material with the medium's albedo. `carry`
-    = (t_best, normal xyz, material planes, sphere winner, medium winner),
-    updated and returned."""
+    face true and an isotropic material with the medium's albedo. Returns
+    the updated (t_best, normal xyz) and the winning medium's index per
+    lane (-1 where none wins)."""
     ox, oy, oz, dx, dy, dz, a_quad, inv_a = rays
-    t_best, n_hx, n_hy, n_hz, mat, win_sphere, win_med = carry
     ray_len = torch.sqrt(a_quad)
     inv_len = 1.0 / ray_len
+    med_idx = torch.full_like(ox, -1, dtype=torch.int64)
     for m, g in enumerate(med.tolist()[:st["n_media"]]):
         if g[0] > 0.5:
             # box span in object space (transformation.go:25-34, 79-85)
@@ -490,11 +478,50 @@ def _media_update(st, med, rays, u, carry):
         n_hx = torch.where(win, 1.0, n_hx)    # medium.go:54
         n_hy = torch.where(win, 0.0, n_hy)
         n_hz = torch.where(win, 0.0, n_hz)
-        vals = [float(T.MAT_ISOTROPIC), g[17], g[18], g[19], 0.0]
-        mat = [torch.where(win, v, mv) for v, mv in zip(vals, mat)]
-        win_sphere = win_sphere & ~win
-        win_med = win_med | win
-    return t_best, n_hx, n_hy, n_hz, mat, win_sphere, win_med
+        med_idx = torch.where(win, m, med_idx)
+    return t_best, n_hx, n_hy, n_hz, med_idx
+
+
+def _texture_value(st, mat, hx, hy, hz, lit):
+    """The albedo at the hit points (texture.go:25-60, 88-125), op for op
+    as the JAX kernel: the checker select by the parity of the summed
+    floors of scale * p (solid and noise rows pack even == odd, so the
+    select is unconditional wherever the layout has a scale column), then
+    on noise rows perlin 0.5 (1 + noise(scale p)), marble 0.5 (1 +
+    sin(scale pz + 10 turb(p))) or turbulent turb(p) as gray. The noise
+    is computed only on the `lit` lanes whose row needs it (the others'
+    texture is never read). Returns (r, g, b) planes."""
+    if "scale" not in mat:
+        return mat["ev_r"], mat["ev_g"], mat["ev_b"]
+    sc = mat["scale"]
+    fsum = sum(torch.floor(sc * h).to(torch.int32) for h in (hx, hy, hz))
+    even = torch.remainder(fsum, 2) == 0
+    tex = [torch.where(even, mat["ev_" + c], mat["od_" + c]) for c in "rgb"]
+    if not st["has_noise"]:
+        return tuple(tex)
+    texk = mat["texk"]
+    seed = mat["seed_img"].view(torch.int32).to(torch.int64) & _M32
+    gray = torch.zeros_like(hx)
+    lane_p = torch.nonzero(lit & (texk == float(T.TEX_PERLIN))).squeeze(1)
+    lane_t = torch.nonzero(lit & ((texk == float(T.TEX_MARBLE))
+                                  | (texk == float(T.TEX_TURBULENT)))) \
+        .squeeze(1)
+    if lane_p.numel():                                    # texture.go:115
+        s_p = sc[lane_p]
+        nz = perlin.noise_planes(seed[lane_p], s_p * hx[lane_p],
+                                 s_p * hy[lane_p], s_p * hz[lane_p])
+        gray[lane_p] = 0.5 * (1.0 + nz)
+    if lane_t.numel():
+        tb = perlin.turbulence_planes(seed[lane_t], hx[lane_t], hy[lane_t],
+                                      hz[lane_t])
+        marble = texk[lane_t] == float(T.TEX_MARBLE)     # texture.go:117
+        gray[lane_t] = torch.where(
+            marble, 0.5 * (1.0 + torch.sin(sc[lane_t] * hz[lane_t]
+                                           + 10.0 * tb)), tb)  # :119
+    need = torch.zeros_like(lit)
+    need[lane_p] = True
+    need[lane_t] = True
+    return tuple(torch.where(need, gray, t) for t in tex)
 
 
 def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
@@ -502,41 +529,33 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     """One bounce of the supported subset (camera.go:293-331): closest hit
     over the sphere, quad and box sections, the external mesh hit folded
     in (`ext`, with st["ext_hit"]), the media (`med`, the `pack_scene`
-    media table, with st["n_media"]), face-forward flip, emission or
-    background, mixture light/cosine/isotropic sampling and its pdf, metal
-    and dielectric scattering. Mirrors the JAX kernel's `_bounce_core` op
-    for op. `u` holds N_U + n_media uniform planes; `tm` (ray time) is
-    needed when the scene has spheres. Returns (vr, vg, vb, emit, cf, new
-    origin xyz, new direction xyz, alive_out)."""
+    media table, with st["n_media"]), face-forward flip, the texture value
+    (checker, perlin, marble, turbulent), emission or background, mixture
+    light/cosine/isotropic sampling and its pdf, metal and dielectric
+    scattering. Mirrors the JAX kernel's `_bounce_core` op for op; where
+    JAX carries the winner's material columns through the scan, this
+    carries the winner's row and gathers its columns once after it (the
+    same values, bit for bit: the noise seed is a bit pattern). `u` holds
+    N_U + n_media uniform planes; `tm` (ray time) is needed when the scene
+    has spheres. Returns (vr, vg, vb, emit, cf, new origin xyz, new
+    direction xyz, alive_out)."""
     P = prims.tolist()
     Lr = lights.tolist()
     lay = _mat_layout(st)
-    fr_i = lay.index("fr") if "fr" in lay else None
     t_best = torch.full_like(ox, float("inf"))
     n_hx = torch.zeros_like(ox)
     n_hy = torch.zeros_like(ox)
     n_hz = torch.zeros_like(ox)
-    # kind, ev_r, ev_g, ev_b, then the metal fuzz / dielectric index where
-    # the table has it
-    mat_cols = [0, 1, 2, 3] + ([fr_i] if fr_i is not None else [])
-    mat = [torch.zeros_like(ox) for _ in mat_cols]
-    win_sphere = torch.zeros_like(ox, dtype=torch.bool)
-    win_med = torch.zeros_like(ox, dtype=torch.bool)
-    sph_r = torch.ones_like(ox)
+    row = torch.full_like(ox, -1, dtype=torch.int64)
 
-    def update(ok, t_c, cnx, cny, cnz, g, sphere_r=None):
-        nonlocal t_best, n_hx, n_hy, n_hz, mat, win_sphere, sph_r
+    def update(ok, t_c, cnx, cny, cnz, r):
+        nonlocal t_best, n_hx, n_hy, n_hz, row
         ok = ok & (t_c < t_best)
         t_best = torch.where(ok, t_c, t_best)
         n_hx = torch.where(ok, cnx, n_hx)
         n_hy = torch.where(ok, cny, n_hy)
         n_hz = torch.where(ok, cnz, n_hz)
-        mat = [torch.where(ok, g[MAT_BASE + c], m)
-               for c, m in zip(mat_cols, mat)]
-        if st["n_sph"]:
-            win_sphere = torch.where(ok, sphere_r is not None, win_sphere)
-            if sphere_r is not None:
-                sph_r = torch.where(ok, sphere_r, sph_r)
+        row = torch.where(ok, r, row)
 
     # spheres (objects.go:83-115): the normal slots carry c - o until the
     # winner's outward normal (p - c) / r is resolved below
@@ -544,7 +563,8 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
         a_quad = _dot3(dx, dy, dz, dx, dy, dz)
         inv_a = 1.0 / a_quad
     for p in range(st["n_sph"]):
-        g = P[st["sph_base"] + p]
+        r = st["sph_base"] + p
+        g = P[r]
         cx = g[1] + tm * g[4] - ox
         cy = g[2] + tm * g[5] - oy
         cz = g[3] + tm * g[6] - oz
@@ -557,10 +577,11 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
         sur1 = (T_MIN < r1) & (r1 < t_best)
         root = torch.where(sur1, r1, r2)
         ok = (g[0] >= 0.0) & (disc >= 0.0) & (T_MIN < root) & (root < t_best)
-        update(ok, root, cx, cy, cz, g, sphere_r=g[7])
+        update(ok, root, cx, cy, cz, r)
 
     for p in range(st["n_quad"]):
-        g = P[st["quad_base"] + p]
+        r = st["quad_base"] + p
+        g = P[r]
         dn = _dot3(dx, dy, dz, g[1], g[2], g[3])
         on = _dot3(ox, oy, oz, g[1], g[2], g[3])
         t_q = (g[4] - on) / dn
@@ -573,13 +594,14 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
               & (T_MIN <= t_q) & (t_q <= t_best)
               & (alpha >= 0.0) & (alpha <= 1.0)
               & (beta >= 0.0) & (beta <= 1.0))
-        update(ok, t_q, g[1], g[2], g[3], g)
+        update(ok, t_q, g[1], g[2], g[3], r)
 
     if st["n_box"]:
         ix_w, iy_w, iz_w = (1.0 / _safe_d(dx), 1.0 / _safe_d(dy),
                             1.0 / _safe_d(dz))
     for b in range(st["n_box"]):
-        g = P[st["box_base"] + b]
+        r = st["box_base"] + b
+        g = P[r]
         if st["box_rot"]:
             cos, sin = g[7], g[8]
             osx = ox - g[9]
@@ -620,8 +642,14 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
         nz = torch.where(is_z, torch.where(bdz >= 0, flip, -flip), zero)
         if st["box_rot"]:
             nx, nz = cos * nx + sin * nz, -sin * nx + cos * nz
-        update(ok, t_c, nx, ny, nz, g)
+        update(ok, t_c, nx, ny, nz, r)
 
+    # the winner's material columns (`lay`): the primitive row's, zero
+    # where nothing was hit
+    won = row >= 0
+    rows = torch.clamp(row, min=0)
+    mat = {name: torch.where(won, prims[rows, MAT_BASE + c], 0.0)
+           for c, name in enumerate(lay)}
     if st["ext_hit"]:
         # the mesh hit wins only when strictly nearer; planes: t, the
         # un-flipped outward normal, then the material columns (`lay`)
@@ -630,22 +658,32 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
         n_hx = torch.where(okx, ext[1], n_hx)
         n_hy = torch.where(okx, ext[2], n_hy)
         n_hz = torch.where(okx, ext[3], n_hz)
-        mat = [torch.where(okx, ext[4 + c], m) for c, m in zip(mat_cols, mat)]
-        win_sphere = win_sphere & ~okx
+        mat = {name: torch.where(okx, ext[4 + c], mat[name])
+               for c, name in enumerate(lay)}
+        row = torch.where(okx, -1, row)
+    win_med = torch.zeros_like(ox, dtype=torch.bool)
     if st["n_media"]:
-        t_best, n_hx, n_hy, n_hz, mat, win_sphere, win_med = _media_update(
+        t_best, n_hx, n_hy, n_hz, med_idx = _media_update(
             st, med, (ox, oy, oz, dx, dy, dz, a_quad, inv_a), u,
-            (t_best, n_hx, n_hy, n_hz, mat, win_sphere, win_med))
+            t_best, n_hx, n_hy, n_hz)
+        win_med = med_idx >= 0
+        mi = torch.clamp(med_idx, min=0)
+        alb = {c: med[mi, 17 + k] for k, c in enumerate("rgb")}
+        med_vals = {"kind": float(T.MAT_ISOTROPIC), "texk": float(T.TEX_SOLID),
+                    **{p + c: alb[c] for p in ("ev_", "od_") for c in "rgb"}}
+        mat = {name: torch.where(win_med, med_vals.get(name, 0.0), v)
+               for name, v in mat.items()}
+        row = torch.where(win_med, -1, row)
 
-    m_kind, tex_r, tex_g, tex_b = mat[:4]
+    m_kind = mat["kind"]
     hit = torch.isfinite(t_best)
     t_safe = torch.where(hit, t_best, 1.0)
     hx = ox + t_safe * dx
     hy = oy + t_safe * dy
     hz = oz + t_safe * dz
     if st["n_sph"]:
-        sph_ok = win_sphere & hit
-        inv_r = 1.0 / torch.where(sph_ok, sph_r, 1.0)
+        sph_ok = (row >= 0) & (row < st["quad_base"]) & hit
+        inv_r = 1.0 / torch.where(sph_ok, prims[rows, 7], 1.0)
         n_hx = torch.where(sph_ok, (t_safe * dx - n_hx) * inv_r, n_hx)
         n_hy = torch.where(sph_ok, (t_safe * dy - n_hy) * inv_r, n_hy)
         n_hz = torch.where(sph_ok, (t_safe * dz - n_hz) * inv_r, n_hz)
@@ -654,6 +692,7 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     n_hx = torch.where(front, n_hx, -n_hx)
     n_hy = torch.where(front, n_hy, -n_hy)
     n_hz = torch.where(front, n_hz, -n_hz)
+    tex_r, tex_g, tex_b = _texture_value(st, mat, hx, hy, hz, alive & hit)
 
     miss = alive & ~hit
     lit = alive & hit
@@ -767,7 +806,7 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     if st["has_metal"]:
         # metal (materials.go:70-79): mirror direction plus fuzz * a
         # uniform unit vector
-        m_fr = mat[4]
+        m_fr = mat["fr"]
         dn_m = _dot3(dx, dy, dz, n_hx, n_hy, n_hz)
         rx, ry, rz = _normalize3(dx - 2.0 * dn_m * n_hx,
                                  dy - 2.0 * dn_m * n_hy,
@@ -789,7 +828,7 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
         # u[2], total internal reflection tested on squares, refraction as
         # vec.go:141-146
         udx, udy, udz = _normalize3(dx, dy, dz)
-        m_ridx = mat[4]
+        m_ridx = mat["fr"]
         ri = torch.where(front, 1.0 / m_ridx, m_ridx)
         cos_d = torch.clamp(-_dot3(udx, udy, udz, n_hx, n_hy, n_hz), max=1.0)
         r0 = (1.0 - m_ridx) / (1.0 + m_ridx)
@@ -826,22 +865,35 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
             diffuse | is_metal | is_diel)
 
 
-def _camera_rays_ref(cam, pi, pj, si, sj, u_jx, u_jy):
-    """Camera ray generation (camera.go:256-270) without defocus, for every
-    lane: the ray from the camera centre through pixel (pi, pj) at stratum
-    (si, sj) jittered by (u_jx, u_jy). `cam` = the `pack_camera` row as a
-    list. Returns (origin xyz, direction xyz) planes."""
+def _camera_rays_ref(cam, pi, pj, si, sj, u01, base: int, has_defocus: bool):
+    """Camera ray generation (camera.go:256-270) for every lane, from PRNG
+    slots base .. base + 3 (`u01(slot)`, a plane): the ray through pixel
+    (pi, pj) at stratum (si, sj) jittered by slots 0-1, from the camera
+    centre, or with defocus from the point of the defocus disk at radius
+    sqrt(u2) and angle 2 pi u3 (the JAX kernel's polar map, not the
+    reference's rejection sampler; slots 2-3 are drawn only then). `cam` =
+    the `pack_camera` row as a list. Returns (origin xyz, direction xyz)
+    planes."""
     recip = cam[18]
-    off_x = (si + u_jx) * recip - 0.5
-    off_y = (sj + u_jy) * recip - 0.5
+    off_x = (si + u01(base)) * recip - 0.5
+    off_y = (sj + u01(base + 1)) * recip - 0.5
     px = pi + off_x
     py = pj + off_y
     sx = cam[0] + px * cam[3] + py * cam[6]
     sy = cam[1] + px * cam[4] + py * cam[7]
     sz = cam[2] + px * cam[5] + py * cam[8]
-    cx = cam[9] + torch.zeros_like(sx)
-    cy = cam[10] + torch.zeros_like(sx)
-    cz = cam[11] + torch.zeros_like(sx)
+    if has_defocus:
+        r_d = torch.sqrt(u01(base + 2))
+        phi_d = (2.0 * math.pi) * u01(base + 3)
+        da = r_d * torch.cos(phi_d)
+        db = r_d * torch.sin(phi_d)
+        cx = cam[9] + da * cam[12] + db * cam[15]
+        cy = cam[10] + da * cam[13] + db * cam[16]
+        cz = cam[11] + da * cam[14] + db * cam[17]
+    else:
+        cx = cam[9] + torch.zeros_like(sx)
+        cy = cam[10] + torch.zeros_like(sx)
+        cz = cam[11] + torch.zeros_like(sx)
     return cx, cy, cz, sx - cx, sy - cy, sz - cz
 
 
@@ -886,8 +938,6 @@ def bounce_fused_q_ref(tables, statics, cam_row, bg, seed4, ox, oy, oz,
 
     FL bits: 0 firefly clamp, 1 emit, 2 started, and for a started lane
     bits 3.. its rank among the level's starts (so item = base + FL >> 3)."""
-    if has_defocus:
-        raise NotImplementedError("defocus blur is a later slice (ROADMAP.md)")
     prims, lights = tables[0], tables[1]
     st = statics
     n = ox.shape[0]
@@ -913,8 +963,8 @@ def bounce_fused_q_ref(tables, statics, cam_row, bg, seed4, ox, oy, oz,
         out.take[j] = n_take
         pi, pj, si, sj = (c.to(torch.float32) for c in
                           _item_to_coords(item, npix, width, sqrt_spp))
-        cx, cy, cz, rdx, rdy, rdz = _camera_rays_ref(cam, pi, pj, si, sj,
-                                                     u01(0), u01(1))
+        cx, cy, cz, rdx, rdy, rdz = _camera_rays_ref(
+            cam, pi, pj, si, sj, u01, 0, has_defocus)
         ox = torch.where(take, cx, ox)
         oy = torch.where(take, cy, oy)
         oz = torch.where(take, cz, oz)
@@ -960,20 +1010,24 @@ def bounce_fused_q_ref(tables, statics, cam_row, bg, seed4, ox, oy, oz,
 # FUSED_TABLE_FIELDS in csrc/fused_common.cuh.
 _FUSED_TABLE_INTS = ("p_cols", "sph_base", "n_sph", "quad_base", "n_quad",
                      "box_base", "n_box", "n_lights", "n_lights_live",
-                     "fr_col", "n_media", "feat")
+                     "fr_col", "n_media", "feat", "texk_col", "scale_col",
+                     "seed_col", "defocus")
 
 
-def _fused_table_ints(statics, prims) -> dict:
-    """Values of `_FUSED_TABLE_INTS` for a scene's statics and prim table."""
+def _fused_table_ints(statics, prims, has_defocus: bool) -> dict:
+    """Values of `_FUSED_TABLE_INTS` for a scene's statics and prim table
+    and the camera's defocus; a column the layout lacks is -1."""
     st = statics
     lay = _mat_layout(st)
+    col = lambda name: MAT_BASE + lay.index(name) if name in lay else -1
     return dict(p_cols=prims.shape[1], sph_base=st["sph_base"],
                 n_sph=st["n_sph"], quad_base=st["quad_base"],
                 n_quad=st["n_quad"], box_base=st["box_base"],
                 n_box=st["n_box"], n_lights=st["n_lights"],
-                n_lights_live=st["n_lights_live"],
-                fr_col=MAT_BASE + lay.index("fr") if "fr" in lay else -1,
-                n_media=st["n_media"], feat=fused_features(st))
+                n_lights_live=st["n_lights_live"], fr_col=col("fr"),
+                n_media=st["n_media"], feat=fused_features(st),
+                texk_col=col("texk"), scale_col=col("scale"),
+                seed_col=col("seed_img"), defocus=int(bool(has_defocus)))
 
 
 def _fused_table_checks(tables, statics):
@@ -1017,8 +1071,8 @@ def _check_cuda_args(tensors):
 
 
 def _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state, *,
-                         max_depth, n_inner, width, sqrt_spp, npix,
-                         out: FusedQOut, lvl_base=None):
+                         has_defocus, max_depth, n_inner, width, sqrt_spp,
+                         npix, out: FusedQOut, lvl_base=None):
     """Launch K1, or with `lvl_base` (a (1,) int32 tensor) its direct entry
     point, which writes level j to row lvl_base[0] + j of the whole-window
     buffers `out.rec` (S, N)."""
@@ -1067,7 +1121,8 @@ def _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state, *,
         base=p(out.base), cursor_out=p(out.cursor),
         dead_cnt=p(scratch), cur_buf=p(scratch) + 4 * 2 * (n // BLOCK),
         lvl_base=None if lvl_base is None else p(lvl_base),
-        rec_levels=rec_levels, **_fused_table_ints(st, prims), n=n,
+        rec_levels=rec_levels, **_fused_table_ints(st, prims, has_defocus),
+        n=n,
         n_inner=n_inner, max_depth=max_depth, width=width,
         sqrt_spp=sqrt_spp, npix=npix)
     lib = _cuda.library("bounce_fused_q")
@@ -1107,13 +1162,12 @@ def bounce_fused_q(tables, statics, cam_row, bg, seed4, ox, oy, oz, dx, dy,
             tables, statics, cam_row, bg, seed4, *state,
             has_defocus=has_defocus, max_depth=max_depth, n_inner=n_inner,
             width=width, sqrt_spp=sqrt_spp, npix=npix, out=out)
-    if has_defocus:
-        raise NotImplementedError("defocus blur is a later slice (ROADMAP.md)")
     if out is None:
         out = FusedQOut.empty(ox.shape[0], n_inner, ox.device)
     _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state,
-                         max_depth=max_depth, n_inner=n_inner, width=width,
-                         sqrt_spp=sqrt_spp, npix=npix, out=out)
+                         has_defocus=has_defocus, max_depth=max_depth,
+                         n_inner=n_inner, width=width, sqrt_spp=sqrt_spp,
+                         npix=npix, out=out)
     return (tuple(out.rec), None, out.seg, out.take) + tuple(out.state)
 
 
@@ -1176,15 +1230,11 @@ def bounce_fused_q_direct(tables, statics, cam_row, bg, seed4, base,
         return bounce_fused_q_direct_ref(tables, statics, cam_row, bg, seed4,
                                          base, rec_bufs, *state, out=out,
                                          **kw)
-    if has_defocus:
-        raise NotImplementedError("defocus blur is a later slice (ROADMAP.md)")
     if out is None:
         out = FusedQOut.empty(ox.shape[0], n_inner, ox.device)
     out = dataclasses.replace(out, rec=list(rec_bufs))
     _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state,
-                         max_depth=max_depth, n_inner=n_inner, width=width,
-                         sqrt_spp=sqrt_spp, npix=npix, out=out,
-                         lvl_base=base)
+                         out=out, lvl_base=base, **kw)
     return tuple(rec_bufs) + (out.seg, out.take) + tuple(out.state)
 
 
@@ -1225,12 +1275,10 @@ class FusedOut:
             + [f((n,), torch.float32) for _ in range(5 if positional else 0)])
 
 
-def _check_fused(statics, has_defocus):
+def _check_fused(statics):
     if not supported_statics(statics):
         raise NotImplementedError(
             "scene outside this kernel's subset (see supported())")
-    if has_defocus:
-        raise NotImplementedError("defocus blur is a later slice (ROADMAP.md)")
 
 
 def _finish_fused(out, seg_counts, state):
@@ -1251,7 +1299,7 @@ def bounce_fused_ref(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy,
     slots 5 + k j .. (k = N_U + n_media uniforms per level: the last
     n_media feed the media), the merged V/FL records, the alive count and
     the depth cap."""
-    _check_fused(statics, has_defocus)
+    _check_fused(statics)
     prims, lights = tables[0], tables[1]
     n = ox.shape[0]
     if out is None:
@@ -1262,8 +1310,8 @@ def bounce_fused_ref(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy,
     lane = torch.arange(n, dtype=torch.int64, device=ox.device)
     u01 = lambda slot: _u01(lane, seed, slot)
     take = take_i32 > 0
-    cx, cy, cz, rdx, rdy, rdz = _camera_rays_ref(cam, pi, pj, si, sj,
-                                                 u01(0), u01(1))
+    cx, cy, cz, rdx, rdy, rdz = _camera_rays_ref(
+        cam, pi, pj, si, sj, u01, 0, has_defocus)
     ox = torch.where(take, cx, ox)
     oy = torch.where(take, cy, oy)
     oz = torch.where(take, cz, oz)
@@ -1307,7 +1355,7 @@ def bounce_fused_pos_ref(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx,
     selects (sj, then si, then pi, then pj) that keep the planes exact
     integers; then one bounce from slots k j + 5 .., the unmerged E / W /
     clamp records, the alive count and the depth cap."""
-    _check_fused(statics, has_defocus)
+    _check_fused(statics)
     prims, lights = tables[0], tables[1]
     n = ox.shape[0]
     if out is None:
@@ -1329,7 +1377,7 @@ def bounce_fused_pos_ref(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx,
             else torch.zeros_like(alive)
         out.rec[7][j] = take.to(torch.int32)
         cx, cy, cz, rdx, rdy, rdz = _camera_rays_ref(
-            cam, pi, pj, si, sj, u01(base + 0), u01(base + 1))
+            cam, pi, pj, si, sj, u01, base, has_defocus)
         ox = torch.where(take, cx, ox)
         oy = torch.where(take, cy, oy)
         oz = torch.where(take, cz, oz)
@@ -1405,7 +1453,8 @@ _FusedPosArgs = _args_struct(
 
 
 def _launch_fused(lib, struct, tables, statics, cam_row, bg, seed_field, seed,
-                  state, extra_in, rec_names, out: FusedOut, n_inner, ints):
+                  state, extra_in, rec_names, out: FusedOut, n_inner,
+                  has_defocus, ints):
     """Check every tensor, fill `struct` and launch the entry point of
     library `lib`. `seed_field`: the struct's name of the seed tensor
     ("seed", one int, or "seed2", two); `state`: the input state planes
@@ -1443,7 +1492,8 @@ def _launch_fused(lib, struct, tables, statics, cam_row, bg, seed_field, seed,
         **{k: p(t) for k, t in zip(names, out.state)},
         **{nm: p(t) for nm, t, _ in extra_in},
         **{nm: p(t) for nm, t in zip(rec_names, out.rec)}, seg=p(out.seg),
-        **_fused_table_ints(st, prims), n=n, n_inner=n_inner, **ints)
+        **_fused_table_ints(st, prims, has_defocus), n=n, n_inner=n_inner,
+        **ints)
     err = getattr(_cuda.library(lib), _cuda.ENTRY[lib])(
         ctypes.addressof(a),
         torch.cuda.current_stream(prims.device).cuda_stream)
@@ -1479,14 +1529,14 @@ def bounce_fused(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy, dz,
             tables, statics, cam_row, bg, seed, *state, *refill,
             has_defocus=has_defocus, max_depth=max_depth, n_inner=n_inner,
             out=out)
-    _check_fused(statics, has_defocus)
+    _check_fused(statics)
     if out is None:
         out = FusedOut.empty(ox.shape[0], n_inner, ox.device)
     extra = [("take", take_i32, torch.int32)] + [
         (nm, t, torch.float32) for nm, t in zip(POS_NAMES, refill[1:])]
     _launch_fused("bounce_fused", _FusedArgs, tables, statics, cam_row, bg,
                   "seed", seed, state, extra, ("vr", "vg", "vb", "fl"), out,
-                  n_inner, dict(max_depth=max_depth))
+                  n_inner, has_defocus, dict(max_depth=max_depth))
     launches_fused += 1
     return (tuple(out.rec), None, out.seg) + tuple(out.state)
 
@@ -1518,14 +1568,14 @@ def bounce_fused_pos(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx, dy,
             tables, statics, cam_row, bg, seed2, *state,
             has_defocus=has_defocus, max_depth=max_depth, n_inner=n_inner,
             width=width, sqrt_spp=sqrt_spp, out=out)
-    _check_fused(statics, has_defocus)
+    _check_fused(statics)
     if out is None:
         out = FusedOut.empty(ox.shape[0], n_inner, ox.device, positional=True)
     _launch_fused("bounce_fused_pos", _FusedPosArgs, tables, statics, cam_row,
                   bg, "seed2", seed2, state, [],
                   ("er", "eg", "eb", "wr", "wg", "wb", "cf", "st"), out,
-                  n_inner, dict(max_depth=max_depth, width=width,
-                                sqrt_spp=sqrt_spp))
+                  n_inner, has_defocus, dict(max_depth=max_depth, width=width,
+                                             sqrt_spp=sqrt_spp))
     launches_fused_pos += 1
     return (tuple(out.rec), None, out.seg) + tuple(out.state)
 

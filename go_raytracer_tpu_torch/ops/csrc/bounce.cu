@@ -67,6 +67,7 @@ __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
     T.fr_col = a.fr_col;
     T.med = nullptr;
     T.n_media = 0;
+    T.texk_col = T.scale_col = T.seed_col = -1;
     ExtHit ext;
     if (a.n_ext > 0) {
       ext.t = a.ext[0][lane];
@@ -79,8 +80,9 @@ __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
       ext.tex_b = a.ext[7][lane];
       ext.fr = a.ext_fr >= 0 ? a.ext[a.ext_fr][lane] : 0.0f;
     }
-    // spheres, no dielectric, no media: the subset of ops/bounce.supported_ext
-    const BounceResult r = bounce_core<true, false, false>(
+    // spheres, no dielectric, media or textures: the subset of
+    // ops/bounce.supported_ext
+    const BounceResult r = bounce_core<true, false, false, false>(
         T, ox, oy, oz, dx, dy, dz, a.tm[lane], u, a.n_ext > 0 ? &ext : nullptr, NoMediaU{});
     if (r.emit) {
       er = r.vr;

@@ -11,17 +11,38 @@
 // The core is compiled once per feature set, as the TPU kernel is traced
 // once per scene's statics: SPH the sphere section and the deferred sphere
 // normal, DIEL the dielectric branch, MED the media loop and isotropic
-// scattering. A scene without them (cornellBox) runs code that has none of
-// their branches or registers. Metal is a runtime branch of every variant.
+// scattering, TEX the texture value (the checker select and the noise). A
+// scene without them (cornellBox) runs code that has none of their
+// branches or registers. Metal is a runtime branch of every variant.
+//
+// Without TEX the closest-hit loop carries the winner's material (kind,
+// even colour, fr). With TEX it carries the winner's row instead and reads
+// the row's material and texture columns once after the loop (kind, even
+// and odd colour, fr, texk, scale, seed): two more colours and three
+// columns would otherwise ride every candidate's update. A medium or mesh
+// winner has no row and brings its own material, a solid albedo. The
+// texture value is the JAX kernel's (`_bounce_core`, texture.go:25-60,
+// 88-125): the checker select by the parity of floor(scale*x) +
+// floor(scale*y) + floor(scale*z) (a two's-complement `& 1`, which is the
+// floor-mod by 2 of negative sums too), unconditional because solid and
+// noise rows pack even == odd; then, on a noise row, perlin 0.5 (1 +
+// noise(scale p)), marble 0.5 (1 + sin(scale pz + 10 turb(p))) or
+// turbulent turb(p), branched on texk per lane: a lane pays the 8 or 56
+// hashed gradients of its own kind and no other lane pays them.
 //
 // Table layouts (ops/bounce.py): primitive row = 13 geometry columns then
-// the material block (kind, even rgb, odd rgb, [fr]); light row = L_COLS;
-// medium row = M_COLS.
+// the material block (kind, even rgb, odd rgb, [texk], [fr], [scale],
+// [seed]); light row = L_COLS; medium row = M_COLS.
 //
 // Precision: nvcc contracts multiply-adds into FMAs, and the code uses
 // rsqrtf and __sincosf; the plain PyTorch version does neither, so the two
 // agree to about 1e-6 relative, and a ray grazing an edge may take the
-// other branch. The medium's free flight uses logf (not __logf), so its
+// other branch. The noise normalises each gradient with rsqrtf (at most
+// 2 ulp from the correctly rounded value, PTX ISA rsqrt.approx.ftz) and
+// the marble uses sinf (full range reduction): a noise value moves by
+// ~1e-6; near a far hit, whose position already differs by the large
+// sphere's f32 acne, the marble's 7 octaves amplify that, and a checker
+// cell boundary may flip. The medium's free flight uses logf (not __logf), so its
 // `hit_dist <= dist_inside` test flips only where the inputs already
 // differ by a rounding. The sphere-light pdf's sqrt(1 - r^2 / dsq) is left
 // unclamped, as in the reference: from inside the sphere it is NaN.
@@ -42,6 +63,9 @@
 #define MAT_DIELECTRIC 2.0f
 #define MAT_DIFFUSE_LIGHT 3.0f
 #define MAT_ISOTROPIC 4.0f
+#define TEX_PERLIN 3.0f
+#define TEX_MARBLE 4.0f
+#define TEX_TURBULENT 5.0f
 // uniform slots (the wavefront order of the JAX package); medium m draws
 // slot N_U + m, through the caller's functor
 #define U_METAL_A 0
@@ -64,6 +88,9 @@ struct BounceTables {
   int n_lights, n_lights_live;
   int fr_col;  // column of the metal fuzz / dielectric index, -1 if none
   int n_media;
+  // columns of the texture kind, the checker/noise scale and the noise seed
+  // bits, -1 where the layout lacks them (read by the TEX variants only)
+  int texk_col, scale_col, seed_col;
 };
 
 // The externally computed closest mesh hit of one ray: t (inf = none), the
@@ -83,6 +110,76 @@ struct BounceResult {
 struct NoMediaU {
   __device__ __forceinline__ float operator()(int) const { return 0.5f; }
 };
+
+// lowbias32 finalizer (public-domain integer hash, Wellons): the PRNG's
+// and the noise's
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// Gradient noise in [-1, 1] (scene/perlin.py noise_planes, perlin.go:34-54):
+// the eight lattice corners' hashed unit gradients, Hermite-smoothed
+// trilinear interpolation of their dots.
+__device__ __forceinline__ float perlin_noise(uint32_t seed, float x, float y, float z) {
+  const float flx = floorf(x), fly = floorf(y), flz = floorf(z);
+  const float ux = x - flx, uy = y - fly, uz = z - flz;
+  const int i0 = (int)flx, j0 = (int)fly, k0 = (int)flz;
+  const float smx = ux * ux * (3.0f - 2.0f * ux);
+  const float smy = uy * uy * (3.0f - 2.0f * uy);
+  const float smz = uz * uz * (3.0f - 2.0f * uz);
+  float acc = 0.0f;
+#pragma unroll
+  for (int di = 0; di < 2; ++di) {
+#pragma unroll
+    for (int dj = 0; dj < 2; ++dj) {
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        // corner hash (perlin.go:45-49's permutation XOR, as a hash)
+        const uint32_t h = mix32(((uint32_t)(i0 + di) * 0x9E3779B1u) ^
+                                 ((uint32_t)(j0 + dj) * 0x85EBCA77u) ^
+                                 ((uint32_t)(k0 + dk) * 0xC2B2AE3Du) ^ seed);
+        const float gx = (float)(h & 0x3FFu) * (2.0f / 1024.0f) - 1.0f;
+        const float gy = (float)((h >> 10) & 0x3FFu) * (2.0f / 1024.0f) - 1.0f;
+        const float gz = (float)((h >> 20) & 0x3FFu) * (2.0f / 1024.0f) - 1.0f;
+        const float inv = rsqrtf(gx * gx + gy * gy + gz * gz + 1e-12f);
+        const float w = (di ? smx : 1.0f - smx) * (dj ? smy : 1.0f - smy) *
+                        (dk ? smz : 1.0f - smz);
+        acc += w * ((gx * inv) * (ux - (float)di) + (gy * inv) * (uy - (float)dj) +
+                    (gz * inv) * (uz - (float)dk));
+      }
+    }
+  }
+  return acc;
+}
+
+// 7-octave turbulence (perlin.go:57-69)
+__device__ __forceinline__ float turbulence(uint32_t seed, float x, float y, float z) {
+  float acc = 0.0f, weight = 1.0f;
+  for (int o = 0; o < 7; ++o) {
+    acc += weight * perlin_noise(seed, x, y, z);
+    weight *= 0.5f;
+    x *= 2.0f;
+    y *= 2.0f;
+    z *= 2.0f;
+  }
+  return fabsf(acc);
+}
+
+// The material columns of the winner's row: kind, even colour, fr.
+__device__ __forceinline__ void load_mat(const float* g, const BounceTables& T, float& m_kind,
+                                         float& tex_r, float& tex_g, float& tex_b,
+                                         float& m_fr) {
+  m_kind = __ldg(g + MAT_BASE);
+  tex_r = __ldg(g + MAT_BASE + 1);
+  tex_g = __ldg(g + MAT_BASE + 2);
+  tex_b = __ldg(g + MAT_BASE + 3);
+  if (T.fr_col >= 0) m_fr = __ldg(g + T.fr_col);
+}
 
 // v kept at least 1e-30 away from zero, its sign kept
 __device__ __forceinline__ float safe_d(float v) {
@@ -116,7 +213,7 @@ __device__ __forceinline__ void onb_transform(float nx, float ny, float nz, floa
 
 // `ext` may be null (no mesh hit to fold). The ray must be alive. `u`
 // holds the N_U uniforms of the level; `u_med(m)` returns medium m's.
-template <bool SPH, bool DIEL, bool MED, class UMed>
+template <bool SPH, bool DIEL, bool MED, bool TEX, class UMed>
 __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float ox, float oy,
                                                     float oz, float dx, float dy, float dz,
                                                     float tm, const float* u,
@@ -127,6 +224,7 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
   float m_kind = 0.0f, tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f, m_fr = 0.0f;
   bool win_sphere = false, win_med = false;
   float sph_r = 1.0f;
+  int win_row = -1;  // TEX: the winning primitive row, -1 if none
 
   // ---- closest hit: spheres (objects.go:83-115) ---------------------------
   // the normal slots carry c - o until the winner's (p - c) / r is resolved
@@ -153,11 +251,10 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
           nz = cz;
           win_sphere = true;
           sph_r = __ldg(g + 7);
-          m_kind = __ldg(g + MAT_BASE);
-          tex_r = __ldg(g + MAT_BASE + 1);
-          tex_g = __ldg(g + MAT_BASE + 2);
-          tex_b = __ldg(g + MAT_BASE + 3);
-          if (T.fr_col >= 0) m_fr = __ldg(g + T.fr_col);
+          if constexpr (TEX)
+            win_row = T.sph_base + s;
+          else
+            load_mat(g, T, m_kind, tex_r, tex_g, tex_b, m_fr);
         }
       }
     }
@@ -179,11 +276,10 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
       ny = __ldg(g + 2);
       nz = __ldg(g + 3);
       win_sphere = false;
-      m_kind = __ldg(g + MAT_BASE);
-      tex_r = __ldg(g + MAT_BASE + 1);
-      tex_g = __ldg(g + MAT_BASE + 2);
-      tex_b = __ldg(g + MAT_BASE + 3);
-      if (T.fr_col >= 0) m_fr = __ldg(g + T.fr_col);
+      if constexpr (TEX)
+        win_row = T.quad_base + q;
+      else
+        load_mat(g, T, m_kind, tex_r, tex_g, tex_b, m_fr);
     }
   }
   // ---- fused boxes, rotate-Y + translate rows (transformation.go) -----------
@@ -220,11 +316,10 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
       ny = nyo;
       nz = -sn * nxo + cs * nzo;
       win_sphere = false;
-      m_kind = __ldg(g + MAT_BASE);
-      tex_r = __ldg(g + MAT_BASE + 1);
-      tex_g = __ldg(g + MAT_BASE + 2);
-      tex_b = __ldg(g + MAT_BASE + 3);
-      if (T.fr_col >= 0) m_fr = __ldg(g + T.fr_col);
+      if constexpr (TEX)
+        win_row = T.box_base + k;
+      else
+        load_mat(g, T, m_kind, tex_r, tex_g, tex_b, m_fr);
     }
   }
   // ---- the external mesh hit wins only when strictly nearer ------------------
@@ -234,6 +329,7 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
     ny = ext->ny;
     nz = ext->nz;
     win_sphere = false;
+    win_row = -1;
     m_kind = ext->kind;
     tex_r = ext->tex_r;
     tex_g = ext->tex_g;
@@ -298,6 +394,7 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
             nz = 0.0f;
             win_sphere = false;
             win_med = true;
+            win_row = -1;
             m_kind = MAT_ISOTROPIC;
             tex_r = __ldg(g + 17);
             tex_g = __ldg(g + 18);
@@ -312,6 +409,33 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
   const bool hit = isfinite(t_best);
   const float ts = hit ? t_best : 1.0f;
   const float hx = ox + ts * dx, hy = oy + ts * dy, hz = oz + ts * dz;
+  // ---- the texture value (texture.go:25-60, 88-125) --------------------------
+  if constexpr (TEX) {
+    if (win_row >= 0) {
+      const float* g = P + win_row * pc;
+      load_mat(g, T, m_kind, tex_r, tex_g, tex_b, m_fr);
+      const float sc = __ldg(g + T.scale_col);
+      const int fsum = (int)floorf(sc * hx) + (int)floorf(sc * hy) + (int)floorf(sc * hz);
+      if (fsum & 1) {  // odd cell: the odd colour
+        tex_r = __ldg(g + MAT_BASE + 4);
+        tex_g = __ldg(g + MAT_BASE + 5);
+        tex_b = __ldg(g + MAT_BASE + 6);
+      }
+      const float texk = T.texk_col >= 0 ? __ldg(g + T.texk_col) : 0.0f;
+      if (texk == TEX_PERLIN || texk == TEX_MARBLE || texk == TEX_TURBULENT) {
+        // the seed column holds uint32 bits: read them as such
+        const uint32_t seed = __ldg(reinterpret_cast<const unsigned int*>(g + T.seed_col));
+        float gray;
+        if (texk == TEX_PERLIN) {
+          gray = 0.5f * (1.0f + perlin_noise(seed, sc * hx, sc * hy, sc * hz));
+        } else {
+          const float tb = turbulence(seed, hx, hy, hz);
+          gray = texk == TEX_MARBLE ? 0.5f * (1.0f + sinf(sc * hz + 10.0f * tb)) : tb;
+        }
+        tex_r = tex_g = tex_b = gray;
+      }
+    }
+  }
   // the winning sphere's outward normal (t*d - (c - o)) / r (objects.go:96-99)
   if constexpr (SPH) {
     if (win_sphere && hit) {

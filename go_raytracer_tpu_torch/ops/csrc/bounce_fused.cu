@@ -55,7 +55,7 @@ struct FusedArgs {
   int n, n_inner, max_depth;
 };
 
-template <bool SPH, bool DIEL, bool MED>
+template <bool SPH, bool DIEL, bool MED, bool TEX>
 __global__ void __launch_bounds__(BLOCK) bounce_fused_levels(FusedArgs a) {
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   float ox = a.ox_in[lane], oy = a.oy_in[lane], oz = a.oz_in[lane];
@@ -69,14 +69,14 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_levels(FusedArgs a) {
 
   // ---- camera ray generation for the lanes that start a path --------------
   if (a.take[lane] > 0) {
-    camera_ray(a.cam, a.pi[lane], a.pj[lane], a.si[lane], a.sj[lane],
-               u01(ulane, seed_mix, 0), u01(ulane, seed_mix, 1), ox, oy, oz, dx, dy, dz);
+    camera_ray(a.cam, a.pi[lane], a.pj[lane], a.si[lane], a.sj[lane], ulane, seed_mix, 0,
+               a.defocus != 0, ox, oy, oz, dx, dy, dz);
     tm = u01(ulane, seed_mix, 4);
     alive = true;
     depth = 0;
   }
 
-  const BounceTables T = fused_tables<SPH, DIEL, MED>(a);
+  const BounceTables T = fused_tables<SPH, DIEL, MED, TEX>(a);
   const uint32_t n_u = N_U + (uint32_t)a.n_media;
   for (int j = 0; j < a.n_inner; ++j) {
     const int n_alive = __syncthreads_count(alive);
@@ -91,7 +91,7 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_levels(FusedArgs a) {
       for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + k);
       const HashMediaU um{ulane, seed_mix, slot0};
       const BounceResult r =
-          bounce_core<SPH, DIEL, MED>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
+          bounce_core<SPH, DIEL, MED, TEX>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
       vr = r.vr;
       vg = r.vg;
       vb = r.vb;
@@ -132,7 +132,8 @@ extern "C" int grt_bounce_fused(const FusedArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(a.seg, 0, sizeof(int) * a.n_inner, s);
   if (err != cudaSuccess) return (int)err;
-#define LAUNCH_LEVELS(S, D, M) bounce_fused_levels<S, D, M><<<a.n / BLOCK, BLOCK, 0, s>>>(a)
+#define LAUNCH_LEVELS(S, D, M, X) \
+  bounce_fused_levels<S, D, M, X><<<a.n / BLOCK, BLOCK, 0, s>>>(a)
   FEATURE_SWITCH(a.feat, LAUNCH_LEVELS)
 #undef LAUNCH_LEVELS
   return (int)cudaGetLastError();

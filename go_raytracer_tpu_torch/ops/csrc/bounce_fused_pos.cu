@@ -59,7 +59,7 @@ struct FusedPosArgs {
   int n, n_inner, max_depth, width, sqrt_spp;
 };
 
-template <bool SPH, bool DIEL, bool MED>
+template <bool SPH, bool DIEL, bool MED, bool TEX>
 __global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a) {
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   float ox = a.ox_in[lane], oy = a.oy_in[lane], oz = a.oz_in[lane];
@@ -77,7 +77,7 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a)
   const float s_wrap = (float)a.sqrt_spp - 0.5f;
   const float p_wrap = (float)a.width - 0.5f;
 
-  const BounceTables T = fused_tables<SPH, DIEL, MED>(a);
+  const BounceTables T = fused_tables<SPH, DIEL, MED, TEX>(a);
   const uint32_t slots = N_U_RAYGEN + N_U + (uint32_t)a.n_media;
   for (int j = 0; j < a.n_inner; ++j) {
     const uint32_t slot0 = (uint32_t)j * slots;
@@ -86,8 +86,8 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a)
     const bool take = !alive && rem > 0.5f && refill_rem > j;
     a.st[rec] = take ? 1 : 0;
     if (take) {
-      camera_ray(a.cam, pi, pj, si, sj, u01(ulane, seed_mix, slot0 + 0),
-                 u01(ulane, seed_mix, slot0 + 1), ox, oy, oz, dx, dy, dz);
+      camera_ray(a.cam, pi, pj, si, sj, ulane, seed_mix, slot0, a.defocus != 0, ox, oy, oz,
+                 dx, dy, dz);
       tm = u01(ulane, seed_mix, slot0 + 4);
       alive = true;
       depth = 0;
@@ -122,7 +122,7 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a)
       for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + N_U_RAYGEN + k);
       const HashMediaU um{ulane, seed_mix, slot0 + N_U_RAYGEN};
       const BounceResult r =
-          bounce_core<SPH, DIEL, MED>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
+          bounce_core<SPH, DIEL, MED, TEX>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
       vr = r.vr;
       vg = r.vg;
       vb = r.vb;
@@ -170,8 +170,8 @@ extern "C" int grt_bounce_fused_pos(const FusedPosArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(a.seg, 0, sizeof(int) * a.n_inner, s);
   if (err != cudaSuccess) return (int)err;
-#define LAUNCH_LEVELS(S, D, M) \
-  bounce_fused_pos_levels<S, D, M><<<a.n / BLOCK, BLOCK, 0, s>>>(a)
+#define LAUNCH_LEVELS(S, D, M, X) \
+  bounce_fused_pos_levels<S, D, M, X><<<a.n / BLOCK, BLOCK, 0, s>>>(a)
   FEATURE_SWITCH(a.feat, LAUNCH_LEVELS)
 #undef LAUNCH_LEVELS
   return (int)cudaGetLastError();

@@ -93,7 +93,7 @@ count_dead(const int* __restrict__ alive, int* __restrict__ dead_cnt) {
   if (threadIdx.x == 0) dead_cnt[blockIdx.x] = c;
 }
 
-template <bool SPH, bool DIEL, bool MED>
+template <bool SPH, bool DIEL, bool MED, bool TEX>
 __global__ void __launch_bounds__(BLOCK)
 fused_q_level(FusedQArgs a, int j) {
   __shared__ int red[NWARP];
@@ -162,9 +162,8 @@ fused_q_level(FusedQArgs a, int j) {
     const int pi = pixel - pj * a.width;
     const int si = stratum / a.sqrt_spp;
     const int sj = stratum - si * a.sqrt_spp;
-    camera_ray(cam, (float)pi, (float)pj, (float)si, (float)sj,
-               u01(ulane, seed_mix, slot0 + 0), u01(ulane, seed_mix, slot0 + 1), ox, oy,
-               oz, dx, dy, dz);
+    camera_ray(cam, (float)pi, (float)pj, (float)si, (float)sj, ulane, seed_mix, slot0,
+               a.defocus != 0, ox, oy, oz, dx, dy, dz);
     tm = u01(ulane, seed_mix, slot0 + 4);
     alive = true;
     depth = 0;
@@ -176,10 +175,10 @@ fused_q_level(FusedQArgs a, int j) {
     float u[N_U];
 #pragma unroll
     for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + N_U_RAYGEN + k);
-    const BounceTables T = fused_tables<SPH, DIEL, MED>(a);
+    const BounceTables T = fused_tables<SPH, DIEL, MED, TEX>(a);
     const HashMediaU um{ulane, seed_mix, slot0 + N_U_RAYGEN};
     const BounceResult r =
-        bounce_core<SPH, DIEL, MED>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
+        bounce_core<SPH, DIEL, MED, TEX>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
     vr = r.vr;
     vg = r.vg;
     vb = r.vb;
@@ -227,7 +226,7 @@ static int run_levels(FusedQArgs a, cudaStream_t s) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   for (int j = 0; j < a.n_inner; ++j) {
-#define LAUNCH_LEVEL(S, D, M) fused_q_level<S, D, M><<<nb, BLOCK, 0, s>>>(a, j)
+#define LAUNCH_LEVEL(S, D, M, X) fused_q_level<S, D, M, X><<<nb, BLOCK, 0, s>>>(a, j)
     FEATURE_SWITCH(a.feat, LAUNCH_LEVEL)
 #undef LAUNCH_LEVEL
     err = cudaGetLastError();

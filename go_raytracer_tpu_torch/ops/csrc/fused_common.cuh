@@ -12,15 +12,6 @@
 #define NWARP (BLOCK / 32)
 #define N_U_RAYGEN 5
 
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
 // U[0,1) from (lane, seed, slot): bit for bit the TPU kernels' _u01 and
 // _u01_dyn. `seed_mix` = seed * 0x9E3779B9.
 __device__ __forceinline__ float u01(uint32_t lane, uint32_t seed_mix,
@@ -29,24 +20,40 @@ __device__ __forceinline__ float u01(uint32_t lane, uint32_t seed_mix,
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
-// Camera ray generation (camera.go:256-270) without defocus: the ray from
-// the camera centre through pixel (pi, pj) at stratum (si, sj) jittered by
-// (u_jx, u_jy). cam = the (1, 20) row of ops/bounce.pack_camera.
+// Camera ray generation (camera.go:256-270) from PRNG slots slot0 ..
+// slot0 + 3 of the lane: the ray through pixel (pi, pj) at stratum (si, sj)
+// jittered by slots 0-1, from the camera centre, or with `defocus` from the
+// point of the defocus disk at radius sqrt(u2) and angle 2 pi u3 (the TPU
+// kernel's polar map; slots 2-3 are drawn only then). cam = the (1, 20)
+// row of ops/bounce.pack_camera: pixel00, du, dv, centre, defocus_u,
+// defocus_v, 1/sqrt(spp). A call's defocus is the same on every lane, so
+// the branch never diverges.
 __device__ __forceinline__ void camera_ray(const float* __restrict__ cam, float pi, float pj,
-                                           float si, float sj, float u_jx, float u_jy,
+                                           float si, float sj, uint32_t lane,
+                                           uint32_t seed_mix, uint32_t slot0, bool defocus,
                                            float& ox, float& oy, float& oz, float& dx,
                                            float& dy, float& dz) {
   const float recip = cam[18];
-  const float off_x = (si + u_jx) * recip - 0.5f;
-  const float off_y = (sj + u_jy) * recip - 0.5f;
+  const float off_x = (si + u01(lane, seed_mix, slot0)) * recip - 0.5f;
+  const float off_y = (sj + u01(lane, seed_mix, slot0 + 1)) * recip - 0.5f;
   const float px = pi + off_x;
   const float py = pj + off_y;
   const float sx = cam[0] + px * cam[3] + py * cam[6];
   const float sy = cam[1] + px * cam[4] + py * cam[7];
   const float sz = cam[2] + px * cam[5] + py * cam[8];
-  ox = cam[9];
-  oy = cam[10];
-  oz = cam[11];
+  if (defocus) {
+    const float r = sqrtf(u01(lane, seed_mix, slot0 + 2));
+    float s, c;
+    __sincosf(6.2831855f * u01(lane, seed_mix, slot0 + 3), &s, &c);
+    const float da = r * c, db = r * s;
+    ox = cam[9] + da * cam[12] + db * cam[15];
+    oy = cam[10] + da * cam[13] + db * cam[16];
+    oz = cam[11] + da * cam[14] + db * cam[17];
+  } else {
+    ox = cam[9];
+    oy = cam[10];
+    oz = cam[11];
+  }
   dx = sx - ox;
   dy = sy - oy;
   dz = sz - oz;
@@ -68,12 +75,14 @@ struct HashMediaU {
 #define FUSED_TABLE_FIELDS                                                  \
   int p_cols, sph_base, n_sph, quad_base, n_quad, box_base, n_box;         \
   int n_lights, n_lights_live, fr_col, n_media;                            \
-  int feat; /* bit 0 spheres, bit 1 the fr column, bit 2 isotropic/media */
+  int feat; /* bits: 0 spheres, 1 the fr column, 2 media, 3 textures */    \
+  int texk_col, scale_col, seed_col; /* -1: the layout lacks the column */ \
+  int defocus; /* camera rays from the defocus disk */
 
 // The dense tables of a scene inside ops/bounce.supported_statics, for the
 // core compiled with these features: a section the variant lacks is
 // hard-wired empty, so its code folds away.
-template <bool SPH, bool DIEL, bool MED, class A>
+template <bool SPH, bool DIEL, bool MED, bool TEX, class A>
 __device__ __forceinline__ BounceTables fused_tables(const A& a) {
   BounceTables T;
   T.prims = a.prims;
@@ -91,19 +100,28 @@ __device__ __forceinline__ BounceTables fused_tables(const A& a) {
   T.n_lights_live = a.n_lights_live;
   T.fr_col = DIEL ? a.fr_col : -1;
   T.n_media = MED ? a.n_media : 0;
+  T.texk_col = TEX ? a.texk_col : -1;
+  T.scale_col = TEX ? a.scale_col : -1;
+  T.seed_col = TEX ? a.seed_col : -1;
   return T;
 }
 
-// Run CASE(SPH, DIEL, MED) for the feature bits of a call: one kernel
+// Run CASE(SPH, DIEL, MED, TEX) for the feature bits of a call: one kernel
 // variant per feature set, picked once per call on the host.
-#define FEATURE_SWITCH(feat, CASE)            \
-  switch ((feat) & 7) {                       \
-    case 0: CASE(false, false, false); break; \
-    case 1: CASE(true, false, false); break;  \
-    case 2: CASE(false, true, false); break;  \
-    case 3: CASE(true, true, false); break;   \
-    case 4: CASE(false, false, true); break;  \
-    case 5: CASE(true, false, true); break;   \
-    case 6: CASE(false, true, true); break;   \
-    default: CASE(true, true, true); break;   \
+#define FEATURE_SWITCH3(feat, TEXV, CASE)            \
+  switch ((feat) & 7) {                              \
+    case 0: CASE(false, false, false, TEXV); break;  \
+    case 1: CASE(true, false, false, TEXV); break;   \
+    case 2: CASE(false, true, false, TEXV); break;   \
+    case 3: CASE(true, true, false, TEXV); break;    \
+    case 4: CASE(false, false, true, TEXV); break;   \
+    case 5: CASE(true, false, true, TEXV); break;    \
+    case 6: CASE(false, true, true, TEXV); break;    \
+    default: CASE(true, true, true, TEXV); break;    \
+  }
+#define FEATURE_SWITCH(feat, CASE)       \
+  if ((feat) & 8) {                      \
+    FEATURE_SWITCH3(feat, true, CASE)    \
+  } else {                               \
+    FEATURE_SWITCH3(feat, false, CASE)   \
   }

@@ -7,8 +7,9 @@ an aged pool), and split a call's time into the host's and the device's.
     python3 scripts/time_fused_kernels.py [--repo DIR] [--scene NAME ...]
                                           [--out FILE]
 
-For each scene (default: cornell_box, book3, cornell_smoke; a scene the
-checkout's kernels do not take is skipped) and kernel it prints:
+For each scene (default: cornell_box, book3, cornell_smoke, simple_light,
+book1; a scene the checkout's kernels do not take is skipped), at its
+registry width, height, cadence and defocus, and kernel it prints:
 
 * ms per call between two CUDA events around 20 calls, the least of three
   batches (what chip_smoke.py reports);
@@ -101,7 +102,8 @@ def main():
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package is timed")
     ap.add_argument("--scene", nargs="*",
-                    default=["cornell_box", "book3", "cornell_smoke"])
+                    default=["cornell_box", "book3", "cornell_smoke",
+                             "simple_light", "book1"])
     ap.add_argument("--out", default=os.path.join("build",
                                                   "time_fused_kernels.json"))
     args = ap.parse_args()
@@ -122,8 +124,7 @@ def main():
     for name in ("bounce_fused_q", "bounce_fused", "bounce_fused_pos"):
         print(f"{name}.cu: " + " | ".join(_cuda.ptxas_report(name)))
     dev = torch.device("cuda")
-    n, width = 1 << 17, 600
-    npix = width * width
+    n = 1 << 17
     results = {"repo": os.path.abspath(args.repo), "card": card,
                "scenes": {}}
     for sc in args.scene:
@@ -137,7 +138,9 @@ def main():
         row = to(bounce.pack_camera(cam.derived()))
         bg = to(np.asarray(scene.background, np.float32))
         cad, sq = cam.regen_cadence, cam.spp_sqrt
-        qkw = dict(has_defocus=False, max_depth=cam.max_depth, n_inner=cad,
+        width, dfc = cam.width, cam.defocus_angle > 0
+        npix = width * cam.image_height
+        qkw = dict(has_defocus=dfc, max_depth=cam.max_depth, n_inner=cad,
                    width=width, sqrt_spp=sq, npix=npix)
         seed4 = torch.tensor([7, cad, 0, npix * sq * sq], dtype=torch.int32,
                              device=dev)
@@ -166,10 +169,10 @@ def main():
                 tab, st, row, bg, seed4, base, bufs, *state, out=out, **qkw),
             "K6": lambda: bounce.bounce_fused(
                 tab, st, row, bg, seed1, *state, *refill, out=fout,
-                has_defocus=False, max_depth=cam.max_depth, n_inner=cad),
+                has_defocus=dfc, max_depth=cam.max_depth, n_inner=cad),
             "K8": lambda: bounce.bounce_fused_pos(
                 tab, st, row, bg, seed2, *pstate, out=pout,
-                has_defocus=False, max_depth=cam.max_depth, n_inner=cad,
+                has_defocus=dfc, max_depth=cam.max_depth, n_inner=cad,
                 width=width, sqrt_spp=sq)}
         res = {}
         for k, fn in calls.items():

@@ -24,6 +24,22 @@ from go_raytracer_tpu_torch.scene import types as TT
 torch.set_num_threads(2)
 
 MISMATCH_FRAC = 0.01
+# Fraction of the lanes that agree on their flags whose records may leave
+# rtol = atol = 2e-3 (0: none may). On the textured scenes a hit point
+# that differs by a rounding moves the texture: the marble's turbulence
+# sums 7 octaves up to frequency 64 and is scaled by 10 inside the sine,
+# so simpleLight's radius-1000 ground sphere, whose far hits carry its
+# f32 acne (~2.5e-4 in position), moves a marble value by up to ~7e-3;
+# book1's checker may flip a cell at a boundary. Measured: simpleLight
+# 2.4e-4 (1 lane) at 1 level, 1.2e-3 at 3; book1 2.4e-4 and 6.5e-4.
+V_FRAC = {"simple_light": 2e-3, "book1": 5e-3}
+# Fraction of the lanes alive in both whose new ray may leave the
+# tolerances. book1's secondary rays leave its radius-1000 ground sphere,
+# whose roots carry the f32 acne of docs/PERFORMANCE.md:688-700, and meet
+# glass and fuzzed metal among 389 spheres: at 1 level no origin differs,
+# at 3 levels 15 of the 987 lanes alive in both (1.52e-2, 3.7e-3 of all
+# lanes) carry a ray ~1e-3 apart.
+STATE_FRAC = {"book1": 0.02}
 
 
 def test_mix32_and_u01_bitwise():
@@ -84,22 +100,24 @@ def _lane_state(n, seed=0):
             rs.integers(0, 50, n).astype(np.int32)]
 
 
-@pytest.mark.parametrize("scene", ["cornell_box", "book3", "cornell_smoke"])
+@pytest.mark.parametrize("scene", ["cornell_box", "book3", "cornell_smoke",
+                                   "simple_light", "book1"])
 @pytest.mark.parametrize("n_inner", [1, 3])
 def test_bounce_fused_q_ref_matches_pallas(n_inner, scene):
-    """cornellBox, book3 (glass sphere, sphere light, rotated box) and
-    cornellSmoke (two media: 2 more PRNG slots per level) tables, 4096
-    lanes, a mixed alive/depth state, the queue refilling at the first two
-    levels: the plain PyTorch version against the JAX kernel in interpret
-    mode."""
+    """cornellBox, book3 (glass sphere, sphere light, rotated box),
+    cornellSmoke (two media: 2 more PRNG slots per level), simpleLight
+    (marble noise) and book1 (389 spheres, moving ones among them, a
+    checker ground, metal, glass, defocus) tables, 4096 lanes, a mixed
+    alive/depth state, the queue refilling at the first two levels: the
+    plain PyTorch version against the JAX kernel in interpret mode."""
     js, jc = getattr(jreg, scene)()
     ts = TT.scene_from_numpy(js)
     jc.width, jc.samples_per_pixel = 32, 16
     npix, sqrt_spp, n = 32 * 32, 4, 4096
     state = [np.ascontiguousarray(x) for x in _lane_state(n)]
     seed4 = np.array([-123456789, 2, 100, npix * 16], np.int32)
-    kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner, width=32,
-              sqrt_spp=sqrt_spp, npix=npix)
+    kw = dict(has_defocus=jc.defocus_angle > 0, max_depth=50,
+              n_inner=n_inner, width=32, sqrt_spp=sqrt_spp, npix=npix)
     jout = jpb.bounce_fused_q(
         jpb.pack_scene(js), jpb.scene_statics(js), jpb.pack_camera(jc.derived()),
         js.background, jnp.asarray(seed4), *[jnp.asarray(x) for x in state],
@@ -134,21 +152,22 @@ def test_bounce_fused_q_ref_matches_pallas(n_inner, scene):
     for k in range(3):
         a, b = jrec[k][agree], trec[k][agree]
         assert (np.isnan(a) == np.isnan(b)).all()
-        np.testing.assert_allclose(b[~np.isnan(a)], a[~np.isnan(a)],
-                                   rtol=2e-3, atol=2e-3)
+        bad = ~np.isclose(b, a, rtol=2e-3, atol=2e-3, equal_nan=True)
+        print(f"{scene}: V[{k}] beyond tolerance on {bad.mean():.2e}")
+        assert bad.mean() <= V_FRAC.get(scene, 0.0)
     both = (tst[7] > 0) & (jst[7] > 0)
     for k, rtol in ((0, 2e-4), (1, 2e-4), (2, 2e-4), (3, 2e-3), (4, 2e-3),
                     (5, 2e-3)):
         bad = ~np.isclose(tst[k][both], jst[k][both], rtol=rtol, atol=2e-3)
-        assert bad.mean() <= MISMATCH_FRAC
+        assert bad.mean() <= STATE_FRAC.get(scene, MISMATCH_FRAC)
     np.testing.assert_array_equal(tst[8][both], jst[8][both])
     np.testing.assert_array_equal(tst[6], jst[6])
 
 
 def test_cpu_wrapper_rejects_unsupported_statics():
-    """A scene outside the kernel's subset (simpleLight: noise textures)
+    """A scene outside the kernel's subset (quads: an image texture)
     raises instead of running another path."""
-    js, _ = jreg.simple_light()
+    js, _ = jreg.quads_scene()
     ts = TT.scene_from_numpy(js)
     assert not tpb.supported(ts)
     z = torch.zeros(256)
@@ -159,3 +178,68 @@ def test_cpu_wrapper_rejects_unsupported_statics():
             tpb.scene_statics(ts), torch.zeros(1, 20), torch.zeros(3),
             torch.zeros(4, dtype=torch.int32), z, z, z, z, z, z, z, zi, zi,
             has_defocus=False, max_depth=4, width=4, sqrt_spp=1, npix=16)
+
+
+def test_defocus_starts_match_pallas():
+    """book1's camera (defocus 0.6, focus 10) over a scene that every
+    camera ray misses (one sphere and the light far behind the camera), so
+    a started lane's new origin is its camera ray's origin, the point of
+    the defocus disk, and a light-sampled lane's new direction is the
+    light sample minus origin + direction: both planes of every start
+    from `bounce_fused_q_ref` against JAX's `bounce_fused_q` in interpret
+    mode, and the origins inside the disk and spread over it."""
+    from go_raytracer_tpu.scene.builder import SceneBuilder as JBuilder
+
+    _, jc = jreg.book1()
+    jc.width, jc.samples_per_pixel = 32, 16
+    b = JBuilder(background=(0.5, 0.7, 1.0))
+    b.sphere((130, 20, 30), 1.0, b.lambertian((0.5, 0.5, 0.5)))
+    b.add_light(b.quad((120, 40, 20), (4, 0, 0), (0, 0, 4),
+                       b.diffuse_light((4, 4, 4))))
+    js = b.build()
+    ts = TT.scene_from_numpy(js)
+    npix, n = 32 * 18, 4096
+    z = np.zeros(n, np.float32)
+    state = [z, z, z, z, z, z, z, np.zeros(n, np.int32),
+             np.zeros(n, np.int32)]
+    seed4 = np.array([24681357, 1, 0, npix * 16], np.int32)
+    kw = dict(has_defocus=True, max_depth=50, n_inner=1, width=32,
+              sqrt_spp=4, npix=npix)
+    jout = jpb.bounce_fused_q(
+        jpb.pack_scene(js), jpb.scene_statics(js),
+        jpb.pack_camera(jc.derived()), js.background, jnp.asarray(seed4),
+        *[jnp.asarray(x) for x in state], interpret=True, **kw)
+    jrec, _, _, jtc, *jst = jax.tree.map(np.asarray, jout)
+    tc = Camera(**{f.name: getattr(jc, f.name)
+                   for f in dataclasses.fields(Camera)})
+    row = tpb.pack_camera(tc.derived())
+    targs = (tuple(torch.from_numpy(t) for t in tpb.pack_scene(ts)),
+             tpb.scene_statics(ts), torch.from_numpy(row),
+             torch.from_numpy(np.array(ts.background)),
+             torch.from_numpy(seed4), *[torch.from_numpy(x) for x in state])
+    trec, _, _, ttc, *tst = tpb.bounce_fused_q(*targs, **kw)
+    assert ttc[0].item() == jtc[0] == n
+    started = (jrec[3][0] & 4) != 0
+    assert started.all() and ((trec[3][0].numpy() & 4) != 0).all()
+    # every ray missed: the records are the background, nothing goes on
+    assert (jrec[3][0] & 2).all() and not tst[7].numpy().any()
+    for k in range(3):
+        np.testing.assert_allclose(tst[k].numpy(), jst[k], rtol=1e-5,
+                                   atol=1e-5)
+    # the other half's direction is the cosine sample about a missed hit's
+    # zero normal, a don't-care: JAX's normalisation flushes its 1e-38
+    # (subnormal) guard to zero and makes it NaN, this package's keeps it
+    light = np.isfinite(np.stack(jst[3:6])).all(axis=0)
+    assert 0.4 < light.mean() < 0.6
+    for k in range(3, 6):
+        np.testing.assert_allclose(tst[k].numpy()[light], jst[k][light],
+                                   rtol=1e-5, atol=1e-5)
+    centre, radius = row[0, 9:12], float(np.linalg.norm(row[0, 12:15]))
+    dist = np.linalg.norm(np.stack([tst[k].numpy() for k in range(3)], 1)
+                          - centre, axis=1)
+    assert radius > 0.05 and dist.max() <= radius * 1.0001
+    assert dist.std() > 0.15 * radius
+    # without defocus every start leaves from the centre, exactly
+    t0 = tpb.bounce_fused_q(*targs, **dict(kw, has_defocus=False))
+    for k in range(3):
+        assert (t0[4 + k].numpy() == centre[k]).all()

@@ -130,3 +130,40 @@ def test_core_metal_glass_sphere_light_matches_pallas():
     assert tpb.fused_features(st) == 3
     _, pW, pna = _core_vs_pallas(js, seed=0)
     assert (pna & (pW == 1.0).all(axis=-1)).sum() > 50
+
+
+def test_core_textures_match_pallas():
+    """One primitive of each texture kind the fused kernels gained: a
+    checker ground sphere (negative coordinates: the parity is a floor-mod)
+    and a checker quad, and perlin, marble and turbulent noise spheres,
+    beside a quad light. Only marble is in a registry scene, so this is
+    where perlin and turbulent are held. The W planes of the lanes each
+    texture shades must agree (`compare_bounce`: all but 1e-3 of the
+    lanes; a checker cell boundary or a noise value carried by a rounding
+    of the hit point may differ on a few)."""
+    b = JBuilder(background=(0.2, 0.3, 0.4))
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(
+        tex=b.checker(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
+    b.quad((-8, 0.01, -8.8), (16, 0, 0), (0, 6, 0), b.lambertian(
+        tex=b.checker(0.5, (0.8, 0.1, 0.1), (0.1, 0.1, 0.8))))
+    kinds = ("perlin", "marble", "turbulent")
+    centres = [(-4.0, 1.5, 0.0), (0.0, 1.5, 0.0), (4.0, 1.5, 0.0)]
+    for k, c in zip(kinds, centres):
+        b.sphere(c, 1.5, b.lambertian(tex=b.noise_texture(4, k)))
+    b.add_light(b.quad((-3, 7, -3), (6, 0, 0), (0, 0, 6),
+                       b.diffuse_light((6, 6, 6))))
+    js = b.build()
+    st = tpb.scene_statics(TT.scene_from_numpy(js))
+    assert st["has_noise"] and st["has_checker"]
+    assert tpb.fused_features(st) == 1 | 8
+    pE, pW, pna = _core_vs_pallas(js, seed=11, origin_rng=(-7, 7),
+                                  dir_scale=3)
+    # every texture was met: noise spheres shade gray (r == g == b, not a
+    # solid albedo), checker lanes their two colours
+    gray = pna & (pW[:, 0] == pW[:, 1]) & (pW[:, 1] == pW[:, 2]) \
+        & (pW[:, 0] > 0)
+    assert gray.sum() > 100
+    ratio = lambda c: np.isclose(pW[:, 0] / np.maximum(pW[:, 1], 1e-30), c,
+                                 rtol=1e-4)
+    assert (pna & ratio(0.2 / 0.3)).sum() > 20      # ground, even cells
+    assert (pna & ratio(8.0)).sum() > 20            # quad, even cells

@@ -90,11 +90,11 @@ def test_without_gpu_and_without_cpu_flag_fails_clearly(tmp_path):
 def test_unported_paths_exit_2(tmp_path):
     """Flags kept for parity but naming unported paths exit 2 with a
     message, and so do scenes outside the kernels' subsets, naming what
-    they lack: book1's checker, book2's, simpleLight's and quads' noise."""
+    they lack: book2's and quads' image textures."""
     for extra, word in ((["--integrator", "wavefront"], "ROADMAP"),
                         (["-S", "8", "--schedule", "positional"], "ROADMAP"),
-                        (["-S", "1"], "checker"), (["-S", "2"], "noise"),
-                        (["-S", "4"], "noise"), (["-S", "5"], "noise"),
+                        (["-S", "2"], "image textures"),
+                        (["-S", "5"], "image textures"),
                         (["-S", "8", "--schedule", "queue_ik"], "ROADMAP")):
         r = run_cli(["-o", str(tmp_path / "x.ppm"), "--cpu", "--width", "8",
                      "--spp", "1", "--quiet", *extra])
@@ -119,6 +119,25 @@ def test_book3_and_cornell_smoke_render(tmp_path, scene, regen_len):
     txt = out.read_text().split()
     assert txt[:4] == ["P3", "32", "32", "255"]
     assert len(txt) == 4 + 32 * 32 * 3
+
+
+@pytest.mark.parametrize("scene,regen_len", [(4, 1.69), (1, 2.60)])
+def test_simple_light_and_book1_render(tmp_path, scene, regen_len):
+    """-S 4 (simpleLight: marble noise) and -S 1 (book1: 389 spheres, a
+    checker ground, glass, metal, defocus) at 32 px (18 rows), 4 spp: exit
+    0, a finite image, and segments per path near the registry's mean path
+    length (within 10%: a 2,304-path sample)."""
+    out = tmp_path / f"s{scene}.ppm"
+    r = run_cli(["-S", str(scene), "-o", str(out), "--cpu", "--width", "32",
+                 "--spp", "4", "--lanes", "4096", "--stats", "--quiet"])
+    assert r.returncode == 0, r.stderr[-2000:]
+    stats = json.loads(r.stdout.strip().splitlines()[-1])
+    assert stats["paths"] == 32 * 18 * 4 and stats["nonfinite"] == 0
+    assert abs(stats["segments"] / stats["paths"] - regen_len) \
+        <= 0.1 * regen_len
+    txt = out.read_text().split()
+    assert txt[:4] == ["P3", "32", "18", "255"]
+    assert len(txt) == 4 + 32 * 18 * 3
 
 
 def test_route_flags_refuse_instead_of_falling_back(tmp_path):

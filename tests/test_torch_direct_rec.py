@@ -21,27 +21,35 @@ from go_raytracer_tpu_torch.ops import bounce as tpb
 from go_raytracer_tpu_torch.render.camera import Camera
 from go_raytracer_tpu_torch.scene import types as TT
 from go_raytracer_tpu_torch.scenes import registry as treg
-from tests.test_torch_bounce import _lane_state
+from tests.test_torch_bounce import V_FRAC, _lane_state
 
 torch.set_num_threads(2)
 
 N, N_INNER, WINDOW, BASE = 4096, 2, 6, 3
+# book1 (glass, fuzzed metal, 389 spheres on a radius-1000 ground sphere
+# with its f32 acne) is held to book3's dielectric bound: measured, 10 of
+# the 8,192 flag words at the second level (1.2e-3)
+FLIP_FRAC = {"book1": 5e-3}
 
 
-@pytest.mark.parametrize("scene", ["cornell_box", "book3", "cornell_smoke"])
+@pytest.mark.parametrize("scene", ["cornell_box", "book3", "cornell_smoke",
+                                   "simple_light", "book1"])
 def test_direct_ref_matches_pallas_direct(scene):
-    """cornellBox, book3 and cornellSmoke, 4,096 lanes (one tile of the JAX
-    kernel), 2 levels written at base 3 of a 6-level buffer: levels 3-4
-    within tolerance, flags, take and alive counts exact, every other
-    level untouched (it holds a marker value in both)."""
+    """cornellBox, book3, cornellSmoke, simpleLight (marble noise) and
+    book1 (checker, 389 spheres, defocus), 4,096 lanes (one tile of the
+    JAX kernel), 2 levels written at base 3 of a 6-level buffer: levels
+    3-4 within tolerance (on the textured scenes all but `V_FRAC` of the
+    lanes, tests/test_torch_bounce.py), flags, take and alive counts
+    exact, every other level untouched (it holds a marker value in
+    both)."""
     js, jc = getattr(jreg, scene)()
     ts = TT.scene_from_numpy(js)
     jc.width, jc.samples_per_pixel = 32, 16
     npix, sqrt_spp = 32 * 32, 4
     state = [np.ascontiguousarray(x) for x in _lane_state(N, seed=7)]
     seed4 = np.array([987654321, 2, 50, npix * 16], np.int32)
-    kw = dict(has_defocus=False, max_depth=50, n_inner=N_INNER, width=32,
-              sqrt_spp=sqrt_spp, npix=npix)
+    kw = dict(has_defocus=jc.defocus_angle > 0, max_depth=50,
+              n_inner=N_INNER, width=32, sqrt_spp=sqrt_spp, npix=npix)
     marker = [np.full((WINDOW, N), -7.5, np.float32)] * 3 \
         + [np.full((WINDOW, N), -9, np.int32)]
     jbufs = tuple(jnp.asarray(m.reshape(WINDOW, N // 128, 128))
@@ -73,9 +81,13 @@ def test_direct_ref_matches_pallas_direct(scene):
     np.testing.assert_array_equal(ttc, jtc)
     np.testing.assert_array_equal(tseg, jseg)
     lv = slice(BASE, BASE + N_INNER)
-    # flag bits 0-2 as the JAX kernel's; bits 3.. (the port's addition)
+    # flag bits 0-2 as the JAX kernel's (book1: at the first level; at the
+    # second a lane whose ray left the ground sphere's acne or glass may
+    # meet another material, FLIP_FRAC); bits 3.. (the port's addition)
     # rank each level's starts in lane order
-    np.testing.assert_array_equal(trec[3][lv] & 7, jrec[3][lv])
+    np.testing.assert_array_equal(trec[3][BASE] & 7, jrec[3][BASE])
+    flip = (trec[3][lv] & 7) != jrec[3][lv]
+    assert flip.mean() <= FLIP_FRAC.get(scene, 0.0)
     for j in range(BASE, BASE + N_INNER):
         started = (trec[3][j] & 4) != 0
         np.testing.assert_array_equal(trec[3][j][started] >> 3,
@@ -83,15 +95,17 @@ def test_direct_ref_matches_pallas_direct(scene):
     for k in range(3):
         a, b = jrec[k][lv], trec[k][lv]
         assert (np.isnan(a) == np.isnan(b)).all()
-        np.testing.assert_allclose(b[~np.isnan(a)], a[~np.isnan(a)],
-                                   rtol=2e-3, atol=2e-3)
+        bad = ~np.isclose(b, a, rtol=2e-3, atol=2e-3, equal_nan=True)
+        assert bad.mean() <= V_FRAC.get(scene, 0.0)
     outside = np.ones(WINDOW, bool)
     outside[lv] = False
     for r, m in zip(trec + jrec, marker + marker):
         np.testing.assert_array_equal(r[outside], m[outside])
     assert ((trec[3][lv] & 4) != 0).sum() == ttc.sum() > 0
-    np.testing.assert_array_equal(tst[7], jst[7])
-    np.testing.assert_array_equal(tst[8], jst[8])
+    same = ~flip.any(axis=0)
+    assert (tst[7] != jst[7]).mean() <= FLIP_FRAC.get(scene, 0.0)
+    np.testing.assert_array_equal(tst[7][same], jst[7][same])
+    np.testing.assert_array_equal(tst[8][same], jst[8][same])
 
 
 def test_direct_ref_equals_the_plane_path_and_clips_rows():

@@ -32,6 +32,21 @@ MISMATCH_FRAC = 2e-3
 # visibly different one after a few refractions: at 3 levels 2.53e-3 of
 # the lanes alive in both (5 of 1,977) left the 2e-3 bound on their rays
 MISMATCH_FRAC_DIELECTRIC = 5e-3
+# book1 (glass, fuzzed metal and 389 spheres on a radius-1000 ground
+# sphere with its f32 acne) is held to book3's bound; simpleLight to the
+# default. Measured at 3 levels: book1's flags 7.3e-4 (K8), its records
+# 6.5e-4, simpleLight's records 8.1e-4 (K6) and flags 0 of the lanes.
+# On the textured scenes a hit point one rounding apart moves the texture
+# (the marble's 7 turbulence octaves, a checker cell boundary), so the
+# level-0 records of that fraction of the lanes may leave rtol = atol =
+# 2e-3; the other scenes' level-0 records are held on every lane.
+V0_FRAC = {"simple_light": MISMATCH_FRAC, "book1": MISMATCH_FRAC_DIELECTRIC}
+# After 3 levels few lanes are alive in both (136-1,814 of 4,096), so one
+# lane whose new ray went another way is up to 7e-3 of them. Measured, of
+# the lanes alive in both: simpleLight 1 of 191 (K8), book1 6 of 315 (K6)
+# and 6 of 589 (K8), each its ground sphere's acne carried through a
+# bounce: 2.4e-4 and 1.5e-3 of all lanes, which `frac` bounds.
+BOTH_FRAC = {"simple_light": 1e-2, "book1": 3e-2}
 N = 4096
 W, SQRT_SPP = 32, 4
 NPIX = W * W
@@ -66,6 +81,8 @@ def _lane_state(n, seed=0):
 
 
 def _cornell(scene="cornell_box"):
+    """The JAX and port arguments of a registry scene at W x W, SQRT_SPP^2
+    spp, and whether its camera has defocus."""
     js, jc = getattr(jreg, scene)()
     ts = TT.scene_from_numpy(js)
     jc.width, jc.samples_per_pixel = W, SQRT_SPP * SQRT_SPP
@@ -77,13 +94,19 @@ def _cornell(scene="cornell_box"):
              tpb.scene_statics(ts),
              torch.from_numpy(tpb.pack_camera(tc.derived())),
              torch.from_numpy(np.array(ts.background)))
-    return jargs, targs
+    return jargs, targs, jc.defocus_angle > 0
 
 
-def _compare(jout, tout, frac=MISMATCH_FRAC):
+def _compare(jout, tout, scene):
     """Records, segment counts and state of one call, JAX against port,
-    with at most `frac` of the lanes beyond the tolerances. Returns the
-    mask of lanes that agree on alive."""
+    with at most `_frac(scene)` of the lanes beyond the tolerances
+    (`V0_FRAC` of them for the level-0 float records; of the lanes alive
+    in both, `BOTH_FRAC` for the new ray). Returns the mask of lanes that
+    agree on alive, and on the textured scenes also on every record flag
+    (a lane whose path died a level earlier in one of the two is dead in
+    both at the end, with another depth and item pointer), and the two
+    states."""
+    frac = _frac(scene)
     jrec, _, jseg, *jst = jax.tree.map(np.asarray, jout)
     trec, _, tseg, *tst = tout
     trec = [x.numpy() for x in trec]
@@ -106,36 +129,47 @@ def _compare(jout, tout, frac=MISMATCH_FRAC):
         assert (np.isnan(a) == np.isnan(b)).all()
         bad = ~np.isclose(b, a, rtol=2e-3, atol=2e-3, equal_nan=True)
         assert bad.mean() <= frac
-        np.testing.assert_allclose(trec[k][0], jrec[k][0], rtol=2e-3,
-                                   atol=2e-3)
+        bad0 = ~np.isclose(trec[k][0], jrec[k][0], rtol=2e-3, atol=2e-3)
+        assert bad0.mean() <= V0_FRAC.get(scene, 0.0)
     assert (tst[7] != jst[7]).mean() <= frac
     same = tst[7] == jst[7]
+    if scene in V0_FRAC:
+        same &= agree_rec.all(axis=0)
+        assert (~same).mean() <= frac
     both = (tst[7] > 0) & (jst[7] > 0)
     for k, rtol in ((0, 2e-4), (1, 2e-4), (2, 2e-4), (3, 2e-3), (4, 2e-3),
                     (5, 2e-3)):
         bad = ~np.isclose(tst[k][both], jst[k][both], rtol=rtol, atol=2e-3)
-        assert bad.mean() <= frac
+        assert bad.sum() <= frac * N
+        assert bad.mean() <= max(frac, BOTH_FRAC.get(scene, 0.0))
     np.testing.assert_array_equal(tst[8][same], jst[8][same])
     np.testing.assert_array_equal(tst[6], jst[6])
     return same, jst, tst
 
 
-SCENES = ["cornell_box", "book3", "cornell_smoke"]
+SCENES = ["cornell_box", "book3", "cornell_smoke", "simple_light", "book1"]
+# (n_inner, refill_rem) per scene: simpleLight's JAX kernels unroll the
+# noise of every level in interpret mode (~11 s a level on this CPU), so
+# its multi-level case runs 2 levels, the refill cut after the first
+LEVELS = {s: ((1, 1), (3, 2)) for s in SCENES}
+LEVELS["simple_light"] = ((1, 1), (2, 1))
 
 
 def _frac(scene):
-    return MISMATCH_FRAC_DIELECTRIC if scene == "book3" else MISMATCH_FRAC
+    return MISMATCH_FRAC_DIELECTRIC if scene in ("book3", "book1") \
+        else MISMATCH_FRAC
 
 
-@pytest.mark.parametrize("scene", SCENES)
-@pytest.mark.parametrize("n_inner", [1, 3])
+@pytest.mark.parametrize("n_inner,scene", [
+    (lv[0], s) for s in SCENES for lv in LEVELS[s]])
 def test_bounce_fused_ref_matches_pallas(n_inner, scene):
-    """cornellBox, book3 (dielectric, sphere light) and cornellSmoke (two
-    media, whose uniforms widen every level's PRNG slots) tables, 4096
+    """cornellBox, book3 (dielectric, sphere light), cornellSmoke (two
+    media, whose uniforms widen every level's PRNG slots), simpleLight
+    (marble noise) and book1 (checker, 389 spheres, defocus) tables, 4096
     lanes, a mixed alive/depth state and the refill planes of a real queue
     refill (dead lanes take consecutive items by rank, the queue running
     out before the last dead lane)."""
-    jargs, targs = _cornell(scene)
+    jargs, targs, defocus = _cornell(scene)
     state = _lane_state(N)
     dead = state[7] == 0
     next_item, item_end = 1000, 1000 + int(dead.sum()) - 37
@@ -145,7 +179,7 @@ def test_bounce_fused_ref_matches_pallas(n_inner, scene):
     stratum, pid = item // NPIX, item % NPIX
     refill = [take.astype(np.int32)] + [x.astype(np.float32) for x in (
         pid % W, pid // W, stratum // SQRT_SPP, stratum % SQRT_SPP)]
-    kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner)
+    kw = dict(has_defocus=defocus, max_depth=50, n_inner=n_inner)
     jout = jpb.bounce_fused(
         *jargs, jnp.int32(-123456789), *[jnp.asarray(x) for x in state],
         *[jnp.asarray(x) for x in refill], interpret=True, **kw)
@@ -154,20 +188,20 @@ def test_bounce_fused_ref_matches_pallas(n_inner, scene):
         *[torch.from_numpy(x) for x in state],
         *[torch.from_numpy(x) for x in refill], **kw)
     assert len(tout) == 3 + 9 and len(tout[0]) == 4
-    _, jst, tst = _compare(jout, tout, _frac(scene))
+    _, jst, tst = _compare(jout, tout, scene)
     # a taken lane starts at depth 0 and every lane alive at a level ages
     assert tout[2][0].item() == int((~dead | take).sum())
 
 
-@pytest.mark.parametrize("scene", SCENES)
-@pytest.mark.parametrize("n_inner,refill_rem", [(1, 1), (3, 2)])
+@pytest.mark.parametrize("n_inner,refill_rem,scene", [
+    (*lv, s) for s in SCENES for lv in LEVELS[s]])
 def test_bounce_fused_pos_ref_matches_pallas(n_inner, refill_rem, scene):
     """The same tables and state with per-lane item pointers near every
     carry (last stratum column, last stratum, last pixel column) and `rem`
     mixed (zero, one, many); seed2[1] cuts the refill before the call's
     last level. pi, pj, si, sj, rem are exact on every lane that agrees on
     alive."""
-    jargs, targs = _cornell(scene)
+    jargs, targs, defocus = _cornell(scene)
     state = _lane_state(N, seed=1)
     rs = np.random.default_rng(2)
     pi = rs.choice([0, 5, W - 1], N).astype(np.float32)
@@ -177,7 +211,7 @@ def test_bounce_fused_pos_ref_matches_pallas(n_inner, refill_rem, scene):
     rem = rs.choice([0, 1, 2, 40], N).astype(np.float32)
     ptr = [pi, pj, si, sj, rem]
     seed2 = np.array([987654321, refill_rem], np.int32)
-    kw = dict(has_defocus=False, max_depth=50, n_inner=n_inner, width=W,
+    kw = dict(has_defocus=defocus, max_depth=50, n_inner=n_inner, width=W,
               sqrt_spp=SQRT_SPP)
     jout = jpb.bounce_fused_pos(
         *jargs, jnp.asarray(seed2), *[jnp.asarray(x) for x in state],
@@ -187,7 +221,7 @@ def test_bounce_fused_pos_ref_matches_pallas(n_inner, refill_rem, scene):
         *[torch.from_numpy(x) for x in state],
         *[torch.from_numpy(x) for x in ptr], **kw)
     assert len(tout) == 3 + 14 and len(tout[0]) == 8
-    same, jst, tst = _compare(jout, tout, _frac(scene))
+    same, jst, tst = _compare(jout, tout, scene)
     for k in range(9, 14):
         np.testing.assert_array_equal(tst[k][same], jst[k][same])
         assert (tst[k] != jst[k]).mean() <= _frac(scene)
@@ -213,9 +247,10 @@ def test_bounce_fused_pos_ref_matches_pallas(n_inner, refill_rem, scene):
 
 
 def test_fused_wrappers_reject_unsupported():
-    """A scene outside the kernels' subset (simpleLight: noise textures),
-    or defocus, raises instead of running another path."""
-    js, _ = jreg.simple_light()
+    """A scene outside the kernels' subset (quads: an image texture)
+    raises instead of running another path; a defocus camera runs, and its
+    started lanes leave from points of the defocus disk."""
+    js, _ = jreg.quads_scene()
     ts = TT.scene_from_numpy(js)
     z = torch.zeros(256)
     zi = torch.zeros(256, dtype=torch.int32)
@@ -230,8 +265,15 @@ def test_fused_wrappers_reject_unsupported():
                              z, z, z, z, z, z, z, zi, zi, z, z, z, z, z,
                              has_defocus=False, max_depth=4, width=4,
                              sqrt_spp=1)
-    _, targs = _cornell()
-    with pytest.raises(NotImplementedError, match="defocus"):
-        tpb.bounce_fused(*targs, torch.zeros(1, dtype=torch.int32),
-                         z, z, z, z, z, z, z, zi, zi, zi, z, z, z, z,
-                         has_defocus=True, max_depth=4)
+    # book1's defocus camera runs, and the flag moves the camera rays:
+    # every lane starts a path, from the defocus disk or from the centre,
+    # and the first bounces differ
+    _, targs, defocus = _cornell("book1")
+    assert defocus
+    pix = torch.arange(256, dtype=torch.float32) % W
+    outs = [tpb.bounce_fused(*targs, torch.zeros(1, dtype=torch.int32),
+                             z, z, z, z, z, z, z, zi, zi, zi + 1, pix, pix,
+                             z, z, has_defocus=d, max_depth=4)
+            for d in (True, False)]
+    assert all(o[2][0].item() == 256 for o in outs)
+    assert not torch.equal(outs[0][3], outs[1][3])

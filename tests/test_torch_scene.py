@@ -87,13 +87,52 @@ def test_scene_from_numpy_carries_jax_scene():
 def test_supported_is_the_cornell_subset():
     """Only scenes inside the fused kernels' subset are supported by them
     (cornellBox, book3 with its glass sphere and sphere light, cornellSmoke
-    with its media; the others have checker, noise or image textures);
-    scene 8 (a mesh) is outside it and inside the ext-mode kernel's."""
+    with its media, simpleLight with its marble noise, book1 with its
+    checker, 389 spheres and defocus; book2 and quads have image
+    textures); scene 8 (a mesh) is outside it and inside the ext-mode
+    kernel's."""
     ok = {treg.SCENES[k][0]: tpb.supported(treg.SCENES[k][1]()[0])
           for k in range(1, 8)}
-    assert ok == {"book1": False, "book2": False, "book3": True,
-                  "simpleLight": False, "quads": False, "cornellBox": True,
+    assert ok == {"book1": True, "book2": False, "book3": True,
+                  "simpleLight": True, "quads": False, "cornellBox": True,
                   "cornellSmoke": True}
+    for k in (2, 5):
+        assert tpb.refused_features(treg.SCENES[k][1]()[0]) \
+            == ["image textures"]
     mesh, _ = treg.model_example()
     assert not tpb.supported(mesh) and tpb.supported_ext(mesh)
     assert mesh.has_tri_bvh and not tpb.supported_ext(treg.book3()[0])
+
+
+@pytest.mark.parametrize("name", ["simple_light", "book1"])
+def test_noise_seeds_and_texture_columns_identical(name):
+    """The noise is only as equal as its seeds: the port's registry builds
+    simpleLight's and book1's tables as JAX's do, read through the packed
+    prim table the kernels take: the Perlin seeds' bits in `seed_img`
+    (simpleLight), book1's 389 sphere rows with their `center_delta` (its
+    moving spheres) and the checker's `inv_scale` in `scale`."""
+    js, _ = getattr(jreg, name)()
+    ts, _ = getattr(treg, name)()
+    np.testing.assert_array_equal(np.asarray(js.perlin.seed), ts.perlin.seed)
+    jp, tp_ = np.asarray(jpb.pack_scene(js)[0]), tpb.pack_scene(ts)[0]
+    np.testing.assert_array_equal(jp.view(np.uint32), tp_.view(np.uint32))
+    st = tpb.scene_statics(ts)
+    lay = tpb._mat_layout(st)
+    col = lambda c: tpb.MAT_BASE + lay.index(c)
+    live = tp_[:, 0] >= 0
+    if name == "simple_light":
+        noise = live & (tp_[:, col("texk")] == TT.TEX_MARBLE)
+        assert noise.sum() == 2
+        seeds = tp_[noise, col("seed_img")].view(np.uint32)
+        assert set(seeds.tolist()) <= set(ts.perlin.seed.tolist())
+        np.testing.assert_array_equal(tp_[noise, col("scale")], 4.0)
+    else:
+        assert st["n_sph"] == 389
+        moving = live[:389] & (np.abs(tp_[:389, 4:7]).sum(axis=1) > 0)
+        assert moving.sum() > 0
+        np.testing.assert_array_equal(tp_[:389, 4:7],
+                                      np.asarray(js.spheres.center_delta))
+        ground = tp_[0]
+        assert ground[7] == 1000.0
+        np.testing.assert_allclose(ground[col("scale")], 1 / 0.32,
+                                   rtol=1e-6)
