@@ -119,6 +119,17 @@ Phases (any failure exits non-zero; nothing is swallowed):
      at most TEX_NONFINITE_MAX non-finite pixel values: the reference's
      own 0/0 weight at an edge-on light sample), and one timed render
      each at `--cadence 8`;
+ 23. the staged closest-hit scan: each fused variant's registers, staged
+     shared bytes and resident blocks per SM (at least 4) on the five
+     dense scenes and on the synthetic scan scene at MAX_PRIMS = 4,096 rows
+     (scenes/synthetic.py, lambertian and metal, inactive rows) in two
+     mixes, spheres past the staging budget and quads past it; on book1
+     and both mixes K1, K9, K6 and K8 against their plain versions at one
+     level, and K1 and K9 (on book1 also K6 and K8) at 8 (the queue's
+     outputs exact, the lanes' flags, alive bits and records within phases
+     21-22's fractions, the new rays too at one level), K9 equal to K1 bit
+     for bit, the coincident pair's tie going to the first row, K3 on the
+     scan scenes; and K1's device time per level on each scene;
 then the `kernels` JSON line (K1-K12), the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
@@ -371,6 +382,26 @@ def cornell_inputs(dev, n, seed=0, scene="cornell_box"):
              to((rs.uniform(size=n) < 0.6).astype(np.int32)),
              to(rs.integers(0, 50, n).astype(np.int32))]
     return scene, cam, tables, statics, cam_row, bg, state
+
+
+def scan_inputs(dev, n, n_sph, n_quad, n_box, seed=0):
+    """The synthetic scan scene (scenes/synthetic.py: the coincident pair
+    first, lambertian and metal spheres, some moving, quads, rotated
+    boxes, every INACTIVE_EVERY-th row cleared to kind -1), no dielectric,
+    with its camera and a mixed lane state of rays among its primitives,
+    as cornell_inputs returns them."""
+    import numpy as np
+    import torch
+    from go_raytracer_tpu_torch.ops import bounce
+    from go_raytracer_tpu_torch.scenes import synthetic as syn
+
+    scene, cam, tabs, statics = syn.build(n_sph, n_quad, n_box, seed=seed,
+                                          dielectric=False)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    state = [to(x) for x in syn.lane_state(n, seed + 1)]
+    return (scene, cam, tuple(to(t) for t in tabs), statics,
+            to(bounce.pack_camera(cam.derived())),
+            to(np.asarray(scene.background, np.float32)), state)
 
 
 def main():
@@ -2415,6 +2446,304 @@ def main():
               and st_c["nonfinite"] <= TEX_NONFINITE_MAX,
               f"{sc} at cadence 8: segments/path {ratio} or non-finite "
               f"pixels")
+
+    # ---- 23. the staged closest-hit scan --------------------------------
+    phase_start(23)
+    from go_raytracer_tpu_torch.scenes import synthetic as syn
+    # the synthetic scan scene at MAX_PRIMS rows two ways: spheres past the
+    # staging budget (its quads and boxes all read from global memory), and
+    # quads past it (its spheres and a prefix of its quads staged, its
+    # boxes read from global memory)
+    scan_sets = {"scan_spheres": (3500, 300, 296),
+                 "scan_quads": (200, 1800, 2096)}
+    scan_in = {nm: scan_inputs(dev, n, *cnt, seed=23)
+               for nm, cnt in scan_sets.items()}
+    dense23 = {sc: cornell_inputs(dev, n, scene=sc)
+               for sc in ("cornell_box", "book3", "cornell_smoke",
+                          "simple_light", "book1")}
+    all23 = {**dense23, **scan_in}
+    # every variant's registers, staged bytes and resident blocks per SM
+    for sc, inp in all23.items():
+        st_i = inp[3]
+        feat = bounce.fused_features(st_i)
+        cnt = (st_i["n_sph"], st_i["n_quad"], st_i["n_box"])
+        libs23 = [("bounce_fused_q", "K1/K9"), ("bounce_fused", "K6"),
+                  ("bounce_fused_pos", "K8")]
+        if bounce.supported_ext_statics(st_i):
+            libs23.append(("bounce", "K3"))
+        parts = []
+        for lib, kname in libs23:
+            inf = _cuda.kernel_info(lib, feat, *cnt)
+            parts.append(f"{kname} {inf['registers']} registers, "
+                         f"{inf['dynamic_smem']} B staged + "
+                         f"{inf['static_smem']} B static shared, "
+                         f"{inf['blocks_per_sm']} blocks/SM, "
+                         f"{inf['local_bytes']} B spill")
+            check(lib == "bounce" or inf["blocks_per_sm"] >= 4,
+                  f"{sc} {kname}: {inf['blocks_per_sm']} resident blocks "
+                  f"per SM (the staged geometry must leave 4)")
+        print(f"[23] {sc} ({cnt[0]} spheres, {cnt[1]} quads, {cnt[2]} boxes;"
+              f" variant {feat}): " + "; ".join(parts))
+
+    def hold_scan(name, inp, levels, frac, tex=False, fused=True):
+        """K1 and K9 (and with `fused` K6 and K8) against their plain
+        versions on a scene's tables (131072 lanes, starts at level 0 from
+        the item queue): the queue's outputs exact (takes, bases, the
+        cursor, the level-0 alive count, every start and its rank); the
+        flag words' clamp and emit bits, the alive bits and depths and
+        the records within rtol = atol = K1_RTOL on all but `frac` of the
+        lanes, at one level as over several (a ray that grazes an edge
+        takes the other side in the kernel, whose multiply-adds are
+        fused, and not in the plain version: book1 flips 3 of 131,072
+        lanes' flags at one level); K1's new rays too at one level, as
+        phases 21-22 hold K1 over several levels without them (a lane
+        that went another way at one level carries another ray from then
+        on: 5.2e-3 of the scan scene's lanes after 8). K9 equal to K1 bit
+        for bit. `tex`: a textured scene, whose K6 and K8 rays are
+        counted over all lanes, as in phase 22. Returns K1's outputs and
+        its level-0 record max abs err."""
+        _, cam_s, tab_s, st_s, row_s, bg_s, state = inp
+        sq_s, w_s = cam_s.spp_sqrt, cam_s.width
+        npix_s = w_s * cam_s.image_height
+        q_kw = dict(has_defocus=cam_s.defocus_angle > 0, max_depth=50,
+                    n_inner=levels, width=w_s, sqrt_spp=sq_s, npix=npix_s)
+        seed23 = torch.tensor([-123456789, 1, 1000, npix_s * sq_s * sq_s],
+                              dtype=torch.int32, device=dev)
+        k_o = bounce.FusedQOut.empty(n, levels, dev)
+        bounce.bounce_fused_q(tab_s, st_s, row_s, bg_s, seed23, *state,
+                              out=k_o, **q_kw)
+        torch.cuda.synchronize()
+        p_o = bounce.FusedQOut.empty(n, levels, dev)
+        bounce.bounce_fused_q_ref(tab_s, st_s, row_s, bg_s, seed23, *state,
+                                  out=p_o, **q_kw)
+        fl_mis = (k_o.rec[3] != p_o.rec[3]).float().mean().item()
+        alive_mis = (k_o.state[7] != p_o.state[7]).float().mean().item()
+        depth_mis = (k_o.state[8] != p_o.state[8]).float().mean().item()
+        v_off = torch.zeros_like(k_o.rec[3], dtype=torch.bool)
+        for a, b in zip(k_o.rec[:3], p_o.rec[:3]):
+            v_off |= ~torch.isclose(a, b, rtol=K1_RTOL, atol=K1_ATOL,
+                                    equal_nan=True)
+        v_mis = v_off.float().mean().item()
+        both = (k_o.state[7] > 0) & (p_o.state[7] > 0)
+        ray_mis = max((~torch.isclose(a[both], b[both], rtol=K1_RTOL,
+                                      atol=K1_ATOL)).float().sum().item() / n
+                      for a, b in zip(k_o.state[:6], p_o.state[:6]))
+        agree0 = k_o.rec[3][0] == p_o.rec[3][0]
+        err0 = max((a[0] - b[0])[agree0].abs().nan_to_num(0.0).max().item()
+                   for a, b in zip(k_o.rec[:3], p_o.rec[:3]))
+        print(f"[23] {name}: K1 vs plain at {n} lanes x {levels} level(s): "
+              f"takes, bases, cursor, level-0 alive count, starts and ranks "
+              f"exact; lanes whose flag words differ "
+              f"{int((k_o.rec[3] != p_o.rec[3]).any(0).sum())}; mismatch "
+              f"fractions FL {fl_mis:.2e} alive {alive_mis:.2e} depth "
+              f"{depth_mis:.2e} records {v_mis:.2e} rays {ray_mis:.2e} "
+              f"(limit {frac}); level-0 record max abs err {err0:.3e}")
+        check(torch.equal(k_o.take, p_o.take) and torch.equal(k_o.base,
+                                                              p_o.base)
+              and torch.equal(k_o.cursor, p_o.cursor)
+              and k_o.seg[0].item() == p_o.seg[0].item()
+              and torch.equal(k_o.rec[3][0] & ~3, p_o.rec[3][0] & ~3),
+              f"K1 on {name}: takes, bases, cursor, level-0 count or starts "
+              f"differ")
+        for what, mis in (("FL", fl_mis), ("alive", alive_mis),
+                          ("depth", depth_mis), ("records", v_mis),
+                          ("rays", ray_mis if levels == 1 else 0.0)):
+            check(mis <= frac, f"K1 on {name}: {what} mismatch {mis}")
+        # K9: K1's device code through the direct entry, bit for bit
+        base23 = torch.tensor([3], dtype=torch.int32, device=dev)
+        kb = [torch.full((levels + 5, n), -7.5, device=dev)
+              for _ in range(3)] + [torch.full((levels + 5, n), -9,
+                                               dtype=torch.int32, device=dev)]
+        k9o = bounce.FusedQOut.empty(n, levels, dev)
+        bounce.bounce_fused_q_direct(tab_s, st_s, row_s, bg_s, seed23, base23,
+                                     kb, *state, out=k9o, **q_kw)
+        torch.cuda.synchronize()
+        lv = slice(3, 3 + levels)
+        check(all(torch.equal(b[lv], r) for b, r in zip(kb, k_o.rec))
+              and all(torch.equal(a, b) for a, b in zip(k9o.state, k_o.state))
+              and all(bool((b[:3] == b[0, 0]).all())
+                      and bool((b[3 + levels:] == b[0, 0]).all())
+                      for b in kb),
+              f"K9 on {name} differs from K1, or wrote outside its rows")
+        if levels == 1:
+            pb = [b.clone() for b in kb]
+            bounce.bounce_fused_q_direct_ref(tab_s, st_s, row_s, bg_s, seed23,
+                                             base23, pb, *state, **q_kw)
+            check(torch.equal(kb[3] & ~3, pb[3] & ~3)
+                  and (kb[3] != pb[3]).float().mean().item() <= frac,
+                  f"K9 on {name}: starts differ from its plain version, or "
+                  f"its flags beyond {frac}")
+        if not fused:
+            return k_o, err0
+        # K6 and K8 through the same scan
+        f_kw = dict(has_defocus=q_kw["has_defocus"], max_depth=50,
+                    n_inner=levels)
+        r23 = regen.queue_refill_planes(
+            torch.tensor(1000, device=dev), state[7],
+            npix_s * sq_s * sq_s, width=w_s, npix=npix_s, sqrt_spp=sq_s)
+        k6 = bounce.bounce_fused(tab_s, st_s, row_s, bg_s, seed6, *state,
+                                 *r23, **f_kw)
+        torch.cuda.synchronize()
+        p6 = bounce.bounce_fused_ref(tab_s, st_s, row_s, bg_s, seed6, *state,
+                                     *r23, **f_kw)
+        fused_pair(f"K6 on {name}", k6, p6, frac, tag="23", tex=tex)
+        rs23 = np.random.default_rng(23)
+        to_f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+        ptr23 = [to_f(rs23.integers(0, w_s, n)),
+                 to_f(rs23.integers(0, cam_s.image_height - 1, n)),
+                 to_f(rs23.integers(0, sq_s, n)),
+                 to_f(rs23.integers(0, sq_s, n)),
+                 to_f(rs23.choice([0, 1, 2, 40], n))]
+        seed23p = torch.tensor([24680, 1], dtype=torch.int32, device=dev)
+        p_kw = dict(width=w_s, sqrt_spp=sq_s, **f_kw)
+        k8 = bounce.bounce_fused_pos(tab_s, st_s, row_s, bg_s, seed23p, *state,
+                                     *ptr23, **p_kw)
+        torch.cuda.synchronize()
+        p8 = bounce.bounce_fused_pos_ref(tab_s, st_s, row_s, bg_s, seed23p,
+                                         *state, *ptr23, **p_kw)
+        fused_pair(f"K8 on {name}", k8, p8, frac, tag="23", tex=tex)
+        check(torch.equal(k8[0][7][0], p8[0][7][0]),
+              f"K8 on {name}: its level-0 starts differ")
+        return k_o, err0
+
+    def hold_cull(name, inp, levels):
+        """The sphere cull changes no winner, on the card, bit for bit: K1
+        on the scene's table with every 13th sphere row from the sixth
+        cleared to kind -1, against K1 on the table with the same rows
+        moved straight below the ground sphere, 1e6 down (where no ray
+        meets them first). A moved row stretches its block's bounds down
+        there, so the two tables cull different blocks; every output
+        (records, counts, cursor, lane state) must be the same bits."""
+        _, cam_s, tab_s, st_s, row_s, bg_s, state = inp
+        sq_s, w_s = cam_s.spp_sqrt, cam_s.width
+        npix_s = w_s * cam_s.image_height
+        q_kw = dict(has_defocus=cam_s.defocus_angle > 0, max_depth=50,
+                    n_inner=levels, width=w_s, sqrt_spp=sq_s, npix=npix_s)
+        seed_c = torch.tensor([77, 1, 0, npix_s * sq_s * sq_s],
+                              dtype=torch.int32, device=dev)
+        rows = torch.arange(st_s["sph_base"] + 5,
+                            st_s["sph_base"] + st_s["n_sph"], 13, device=dev)
+        cleared = tab_s[0].clone()
+        cleared[rows] = -1.0
+        moved = tab_s[0].clone()
+        moved[rows, 1:4] = torch.tensor([0.0, -1e6, 0.0], device=dev)
+        moved[rows, 4:7] = 0.0
+        outs = []
+        for prims in (cleared, moved):
+            o_c = bounce.FusedQOut.empty(n, levels, dev)
+            bounce.bounce_fused_q((prims,) + tuple(tab_s[1:]), st_s, row_s,
+                                  bg_s, seed_c, *state, out=o_c, **q_kw)
+            outs.append([t.view(torch.int32) if t.is_floating_point() else t
+                         for t in (*o_c.rec, o_c.seg, o_c.take, o_c.base,
+                                   o_c.cursor, *o_c.state)])
+        torch.cuda.synchronize()
+        n_diff = sum(int((a != b).sum()) for a, b in zip(*outs))
+        print(f"[23] {name}: the cull, K1 at {n} lanes x {levels} level(s) "
+              f"on {len(rows)} sphere rows cleared against the same rows "
+              f"moved out of reach: {n_diff} output elements differ")
+        check(n_diff == 0, f"{name}: the sphere cull changed a winner "
+              f"({n_diff} output elements differ)")
+
+    for sc in ("book1", "scan_spheres"):
+        for lv in (1, 8):
+            hold_cull(sc, all23[sc], lv)
+
+    for sc in ("book1", *scan_sets):
+        frac23 = TEX_MISMATCH_FRAC["book1"] if sc == "book1" \
+            else K1_MISMATCH_FRAC
+        k_o1, _ = hold_scan(sc, all23[sc], 1, frac23, tex=sc in TEX_SCENES)
+        # over 8 levels K6 and K8 on book1, as phase 22; on the scan scenes
+        # K1 and K9 (K6 and K8 run the same scan, held above at one level)
+        hold_scan(sc, all23[sc], 8, frac23, tex=sc in TEX_SCENES,
+                  fused=sc == "book1")
+        if sc in scan_sets:
+            # the coincident pair: every camera ray that meets it emits the
+            # first row's colour
+            fl0 = k_o1.rec[3][0]
+            emit0 = ((fl0 & 4) != 0) & ((fl0 & 2) != 0)
+            v0 = torch.stack([k_o1.rec[k][0] for k in range(3)], dim=1)
+            first = (v0 == torch.tensor(syn.TIE_FIRST, device=dev)).all(1)
+            second = (v0 == torch.tensor(syn.TIE_SECOND, device=dev)).all(1)
+            print(f"[23] {sc}: {int(first[emit0].sum())} camera rays meet "
+                  f"the coincident pair and emit the first row's colour, "
+                  f"{int(second.sum())} the second's")
+            check(int(first[emit0].sum()) > 1000 and not second.any(),
+                  f"{sc}: the coincident pair's tie did not go to the "
+                  f"first row")
+            # K3 on the same tables, one level from given uniforms
+            _, _, tab_s, st_s, _, bg_s, state = all23[sc]
+            o23 = torch.stack(state[:3], dim=1).contiguous()
+            d23 = torch.stack(state[3:6], dim=1).contiguous()
+            alive23 = state[7] > 0
+            u23 = torch.from_numpy(np.random.default_rng(230).uniform(
+                0, 1, (n, bounce.N_U)).astype(np.float32)).to(dev)
+            k3s = bounce.bounce(tab_s, st_s, o23, d23, state[6], alive23, u23,
+                                bg_s)
+            torch.cuda.synchronize()
+            p3s = bounce.bounce_ref(tab_s, st_s, o23, d23, state[6], alive23,
+                                    u23, bg_s)
+            ew3 = max((~torch.isclose(a, b, rtol=K1_RTOL, atol=K1_ATOL,
+                                      equal_nan=True)).any(dim=-1)
+                      .float().mean().item()
+                      for a, b in ((k3s[0], p3s[0]), (k3s[1], p3s[1])))
+            go3s = k3s[5] & p3s[5]
+            ray3 = max((~torch.isclose(a[go3s], b[go3s], rtol=K1_RTOL,
+                                       atol=K1_ATOL)).float().sum().item() / n
+                       for a, b in ((k3s[3], p3s[3]), (k3s[4], p3s[4])))
+            al3 = (k3s[5] != p3s[5]).float().mean().item()
+            cf3 = (k3s[2] != p3s[2]).float().mean().item()
+            print(f"[23] {sc}: K3 vs plain at {n} lanes: mismatch fractions "
+                  f"alive {al3:.2e} clamp flag {cf3:.2e} E/W {ew3:.2e} "
+                  f"scattered rays {ray3:.2e} (limit {K3_MISMATCH_FRAC})")
+            check(max(al3, cf3, ew3, ray3) <= K3_MISMATCH_FRAC,
+                  f"K3 on {sc} differs from its plain version")
+
+    # K1's device time per level on each scene, at its cadence on an aged
+    # pool: the `fused_q_level` launches of 10 calls under torch.profiler,
+    # taken only when the profile holds every launch (a long process's
+    # profile can lose some), beside CUDA events around the same 10 calls
+    # (count_dead and any host gap included)
+    acts23 = [torch.profiler.ProfilerActivity.CPU,
+              torch.profiler.ProfilerActivity.CUDA]
+    for sc, inp in all23.items():
+        _, cam_s, tab_s, st_s, row_s, bg_s, _ = inp
+        cad_s = max(cam_s.regen_cadence, 1)
+        sq_s, w_s = cam_s.spp_sqrt, cam_s.width
+        npix_s = w_s * cam_s.image_height
+        kw_s = dict(has_defocus=cam_s.defocus_angle > 0, max_depth=50,
+                    n_inner=cad_s, width=w_s, sqrt_spp=sq_s, npix=npix_s)
+        seed_s = torch.tensor([7, cad_s, 0, npix_s * sq_s * sq_s],
+                              dtype=torch.int32, device=dev)
+        o_s = bounce.FusedQOut.empty(n, cad_s, dev)
+        st0_s = aged_state(lambda st_: bounce.bounce_fused_q(
+            tab_s, st_s, row_s, bg_s, seed_s, *st_, out=o_s, **kw_s)[4:],
+            regen._init_state(n, dev))
+
+        def run23():
+            bounce.bounce_fused_q(tab_s, st_s, row_s, bg_s, seed_s, *st0_s,
+                                  out=o_s, **kw_s)
+
+        ev_ms = time_ms(run23, 10) / cad_s
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts23) as prof23:
+            for _ in range(10):
+                run23()
+            torch.cuda.synchronize()
+        lvl_us, lvl_n = 0.0, 0
+        for e in prof23.key_averages():
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            if t > 0 and "CUDA" in str(getattr(e, "device_type", "")) \
+                    and kernel_of(e.key, "fused_q_level"):
+                lvl_us += t
+                lvl_n += e.count
+        prof_txt = (f"{lvl_us / lvl_n:.2f} us per level on the device"
+                    if lvl_n == 10 * cad_s else
+                    f"device time not measured (the profile holds {lvl_n} "
+                    f"of {10 * cad_s} level launches)")
+        print(f"[23] {sc}: K1 {prof_txt}; {ev_ms * 1e3:.2f} us per level "
+              f"between CUDA events ({cad_s} level(s) a call, {n} lanes, "
+              f"aged pool, {int(o_s.seg.sum())} segments a call) on {card}")
 
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",

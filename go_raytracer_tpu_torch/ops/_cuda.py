@@ -41,6 +41,9 @@ ENTRY = {"bounce_fused_q": "grt_bounce_fused_q",
          "stream2": "grt_stream2_rows"}
 # further entry points of a library, with the same signature
 MORE_ENTRIES = {"bounce_fused_q": ("grt_bounce_fused_q_direct",)}
+# libraries whose kernels run the bounce core's staged scan; each exports
+# `int grt_kernel_info(feat, n_sph, n_quad, n_box, int* out)`
+STAGED = ("bounce_fused_q", "bounce_fused", "bounce_fused_pos", "bounce")
 # The mesh intersectors must agree with their plain versions bit for bit,
 # so their multiply-adds stay uncontracted (csrc/mt.cuh).
 EXTRA_FLAGS = {name: ["-fmad=false"] for name in (
@@ -127,8 +130,28 @@ def library(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.grt_error_string.argtypes = [ctypes.c_int]
         lib.grt_error_string.restype = ctypes.c_char_p
+        if name in STAGED:
+            lib.grt_kernel_info.argtypes = [ctypes.c_int] * 4 \
+                + [ctypes.c_void_p]
+            lib.grt_kernel_info.restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def kernel_info(name: str, feat: int, n_sph: int, n_quad: int,
+                n_box: int) -> dict:
+    """What the card says of the staged-scan kernel of csrc/<name>.cu (one
+    of STAGED) in the variant of feature bits `feat`, on a primitive table
+    of these section sizes: registers, the staged geometry's dynamic
+    shared bytes, static shared bytes, resident blocks per SM at the
+    kernels' 256 threads, and spill (local) bytes per thread."""
+    out = (ctypes.c_int * 5)()
+    lib = library(name)
+    err = lib.grt_kernel_info(feat, n_sph, n_quad, n_box, out)
+    if err:
+        raise RuntimeError(f"{name} kernel info: {error_string(err)}")
+    return dict(zip(("registers", "dynamic_smem", "static_smem",
+                     "blocks_per_sm", "local_bytes"), out))
 
 
 def ptxas_report(name: str) -> list:

@@ -158,7 +158,9 @@ def fused_features(st: dict) -> int:
     branch, bit 2 isotropic scattering with the media loop, bit 3 the
     texture value (the checker select and the noise), on when the layout
     has a scale column. A scene without spheres, fr column, media and
-    textures runs the core compiled without them."""
+    textures runs the core compiled without them. The kernels add bit 4,
+    the sphere cull of the staged scan, themselves, for a table with more
+    than one block of 8 staged spheres (csrc/fused_common.cuh)."""
     lay = _mat_layout(st)
     return ((1 if st["n_sph"] else 0)
             | (2 if "fr" in lay else 0)

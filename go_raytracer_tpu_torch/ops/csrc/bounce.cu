@@ -8,7 +8,8 @@
 // un-flipped outward normal, then the winning triangle's material columns
 // in the primitive table's order). The mesh hit replaces the dense winner
 // only when strictly nearer; everything after that is `bounce_core`
-// (bounce_core.cuh), shared with bounce_fused_q.cu.
+// (bounce_core.cuh), shared with bounce_fused_q.cu, whose staged scan reads
+// the geometry from the block's shared memory.
 //
 // What bounds it: bytes. Per lane it reads 29 B of ray state, 36 B of
 // uniforms and 4*n_ext B of mesh hit, and writes 50 B, against a few hundred
@@ -39,7 +40,33 @@ struct BounceArgs {
   int n, n_u, n_ext, ext_fr;  // ext_fr: plane of the fuzz column, -1 if none
 };
 
+// the core's tables of this kernel: spheres, no dielectric, media or
+// textures (the subset of ops/bounce.supported_ext)
+__device__ __forceinline__ BounceTables bounce_tables(const BounceArgs& a) {
+  BounceTables T;
+  T.prims = a.prims;
+  T.lights = a.lights;
+  T.bg = a.bg;
+  T.p_cols = a.p_cols;
+  T.sph_base = a.sph_base;
+  T.n_sph = a.n_sph;
+  T.quad_base = a.quad_base;
+  T.n_quad = a.n_quad;
+  T.box_base = a.box_base;
+  T.n_box = a.n_box;
+  T.n_lights = a.n_lights;
+  T.n_lights_live = a.n_lights_live;
+  T.fr_col = a.fr_col;
+  T.med = nullptr;
+  T.n_media = 0;
+  T.texk_col = T.scale_col = T.seed_col = -1;
+  return T;
+}
+
 __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
+  // the geometry into shared memory, before the ragged edge's return
+  const BounceTables T = bounce_tables(a);
+  stage_geometry(T, false);
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   if (lane >= a.n) return;
   const float ox = a.o[3 * lane], oy = a.o[3 * lane + 1], oz = a.o[3 * lane + 2];
@@ -51,23 +78,6 @@ __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
     float u[N_U];
 #pragma unroll
     for (int k = 0; k < N_U; ++k) u[k] = a.u[(size_t)lane * a.n_u + k];
-    BounceTables T;
-    T.prims = a.prims;
-    T.lights = a.lights;
-    T.bg = a.bg;
-    T.p_cols = a.p_cols;
-    T.sph_base = a.sph_base;
-    T.n_sph = a.n_sph;
-    T.quad_base = a.quad_base;
-    T.n_quad = a.n_quad;
-    T.box_base = a.box_base;
-    T.n_box = a.n_box;
-    T.n_lights = a.n_lights;
-    T.n_lights_live = a.n_lights_live;
-    T.fr_col = a.fr_col;
-    T.med = nullptr;
-    T.n_media = 0;
-    T.texk_col = T.scale_col = T.seed_col = -1;
     ExtHit ext;
     if (a.n_ext > 0) {
       ext.t = a.ext[0][lane];
@@ -80,8 +90,6 @@ __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
       ext.tex_b = a.ext[7][lane];
       ext.fr = a.ext_fr >= 0 ? a.ext[a.ext_fr][lane] : 0.0f;
     }
-    // spheres, no dielectric, media or textures: the subset of
-    // ops/bounce.supported_ext
     const BounceResult r = bounce_core<true, false, false, false>(
         T, ox, oy, oz, dx, dy, dz, a.tm[lane], u, a.n_ext > 0 ? &ext : nullptr, NoMediaU{});
     if (r.emit) {
@@ -121,8 +129,18 @@ __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
 extern "C" int grt_bounce(const BounceArgs* args, void* stream) {
   const BounceArgs a = *args;
   const int nb = (a.n + BLOCK - 1) / BLOCK;
-  bounce_level<<<nb, BLOCK, 0, (cudaStream_t)stream>>>(a);
+  const int smem = stage_layout(a.n_sph, a.n_quad, a.n_box).bytes;
+  const cudaError_t err = allow_smem((const void*)bounce_level, smem);
+  if (err != cudaSuccess) return (int)err;
+  bounce_level<<<nb, BLOCK, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// kernel_info of the kernel on a table of these section sizes (`feat` is
+// not read: the kernel has one variant)
+extern "C" int grt_kernel_info(int feat, int n_sph, int n_quad, int n_box, int* out) {
+  return kernel_info((const void*)bounce_level, BLOCK,
+                     stage_layout(n_sph, n_quad, n_box).bytes, out);
 }
 
 extern "C" const char* grt_error_string(int err) {

@@ -15,12 +15,11 @@
 // scene without them (cornellBox) runs code that has none of their
 // branches or registers. Metal is a runtime branch of every variant.
 //
-// Without TEX the closest-hit loop carries the winner's material (kind,
-// even colour, fr). With TEX it carries the winner's row instead and reads
-// the row's material and texture columns once after the loop (kind, even
-// and odd colour, fr, texk, scale, seed): two more colours and three
-// columns would otherwise ride every candidate's update. A medium or mesh
-// winner has no row and brings its own material, a solid albedo. The
+// The closest-hit loops carry the winner's row, and its material columns
+// are read once after them (kind, even colour, fr; with TEX also the odd
+// colour, texk, scale and seed, after the hit point is known), so that no
+// material column rides a candidate's update. A medium or mesh winner has
+// no row and brings its own material, a solid albedo. The
 // texture value is the JAX kernel's (`_bounce_core`, texture.go:25-60,
 // 88-125): the checker select by the parity of floor(scale*x) +
 // floor(scale*y) + floor(scale*z) (a two's-complement `& 1`, which is the
@@ -33,6 +32,32 @@
 // Table layouts (ops/bounce.py): primitive row = 13 geometry columns then
 // the material block (kind, even rgb, odd rgb, [texk], [fr], [scale],
 // [seed]); light row = L_COLS; medium row = M_COLS.
+//
+// The staged scan. Every lane tests every primitive row, and all lanes of
+// a warp read the same row at the same time, so what paces the closest-hit
+// loop is the issue of its loads, not their bytes: the row-major table
+// costs 8 scalar read-only loads per sphere row and 10-13 per quad or box
+// row. So each block first copies the geometry columns of the table into
+// dynamic shared memory (`stage_geometry`, the counterpart of the TPU
+// kernel's table in VMEM), in rows of float4 that a warp reads with one
+// broadcast load each:
+//   sphere {c0.xyz, r^2} {cd.xyz, kind}                      2 x 16 B
+//   quad   {n.xyz, D} {alpha.xyz, alpha0} {beta.xyz, beta0}  3 x 16 B
+//   box    {lo.xyz, cos} {hi.xyz, sin} {offset.xyz, kind}    3 x 16 B
+// A quad row has no slot for its kind: an inactive quad (kind -1) is staged
+// with a zero normal, so its `|dn| >= 1e-8` fails as its kind test did. The
+// material columns stay in global memory and are read once, for the winner,
+// after the loops. The block stages a prefix of each section in section
+// order within STAGE_BYTES (`stage_layout`; every registry scene fits
+// whole, book1's 389 spheres in 14,112 B with their block bounds), and the
+// rows past it are read from global memory by the same row test, in the
+// same order, so a table of MAX_PRIMS rows gives the same winners. The
+// per-row arithmetic is the one of the row-major loop it replaces,
+// expression for expression; a sphere row whose discriminant is negative
+// skips the square root and the root selection (exact: such a row cannot
+// win). The CULL variant, for more than one block of 8 staged spheres,
+// scans them by blocks and skips a block whose padded bounds the ray
+// cannot meet (`sphere_block_hit`), with the same winners.
 //
 // Precision: nvcc contracts multiply-adds into FMAs, and the code uses
 // rsqrtf and __sincosf; the plain PyTorch version does neither, so the two
@@ -78,6 +103,74 @@
 #define U_MA 7
 #define U_MB 8
 
+// Dynamic shared memory the staged geometry may take per block. With the
+// kernels' 256 threads and at most 64 registers, 4 blocks fit on an SM by
+// registers; 4 x (54 KB + 1 KB reserved + K1's 96 B static) stays within
+// the SM's 228 KB, so staging never costs a resident block.
+#define STAGE_BYTES (54 * 1024)
+#define SPH_F4 2
+#define QUAD_F4 3
+#define BOX_F4 3
+// the sphere cull: bounds of each block of SPH_BLOCK staged rows, BLK_F4
+// float4s a block, and the padding of its slab test (`sphere_block_hit`)
+#define SPH_BLOCK 8
+#define BLK_F4 2
+#define CULL_PAD 4e-3f
+
+// The staged prefix of each section, its float4 offsets, and the bytes.
+struct StageLayout {
+  int n_sph, n_quad, n_box;  // staged rows of each section
+  int n_blk;                 // blocks of SPH_BLOCK staged sphere rows, the
+                             // last one filled up with rows that never win
+  int quad_at, box_at;       // float4 index of the first staged quad, box
+  int blk_at;                // float4 index of the first block's bounds
+  int bytes;                 // dynamic shared memory of the block
+};
+
+__host__ __device__ inline StageLayout stage_layout(int n_sph, int n_quad, int n_box) {
+  StageLayout L;
+  int room = STAGE_BYTES / 16;
+  // spheres in whole blocks, each with its bounds
+  const int max_sph = room / (SPH_F4 * SPH_BLOCK + BLK_F4) * SPH_BLOCK;
+  L.n_sph = n_sph < max_sph ? n_sph : max_sph;
+  L.n_blk = (L.n_sph + SPH_BLOCK - 1) / SPH_BLOCK;
+  room -= L.n_blk * (SPH_F4 * SPH_BLOCK + BLK_F4);
+  L.n_quad = n_quad < room / QUAD_F4 ? n_quad : room / QUAD_F4;
+  room -= L.n_quad * QUAD_F4;
+  L.n_box = n_box < room / BOX_F4 ? n_box : room / BOX_F4;
+  L.quad_at = L.n_blk * SPH_BLOCK * SPH_F4;
+  L.box_at = L.quad_at + L.n_quad * QUAD_F4;
+  L.blk_at = L.box_at + L.n_box * BOX_F4;
+  L.bytes = (L.blk_at + L.n_blk * BLK_F4) * 16;
+  return L;
+}
+
+// Let `fn` take `bytes` of dynamic shared memory: above the default 48 KB
+// a kernel has to ask for it.
+static inline cudaError_t allow_smem(const void* fn, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// What the compiler and the occupancy calculator say of kernel `fn` at
+// `block` threads and `smem` bytes of dynamic shared memory: out = {
+// registers, dynamic shared bytes, static shared bytes, resident blocks
+// per SM, local (spill) bytes per thread}.
+static inline int kernel_info(const void* fn, int block, int smem, int* out) {
+  cudaFuncAttributes fa = {};
+  cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err == cudaSuccess) err = allow_smem(fn, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, block, smem);
+  out[0] = fa.numRegs;
+  out[1] = smem;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = blocks;
+  out[4] = (int)fa.localSizeBytes;
+  return (int)err;
+}
+
 struct BounceTables {
   const float* prims;
   const float* lights;
@@ -92,6 +185,124 @@ struct BounceTables {
   // bits, -1 where the layout lacks them (read by the TEX variants only)
   int texk_col, scale_col, seed_col;
 };
+
+// The block's staged geometry (`stage_geometry`, `stage_layout` of the
+// table's section sizes): the dynamic shared memory of every kernel that
+// runs the core. Addressed as shared memory directly, so the scan carries
+// neither a pointer nor the layout in registers: the layout is recomputed
+// from the section sizes where it is used.
+extern __shared__ float4 grt_geo[];
+
+// One row of each section as the staged float4s (see the layout above),
+// read from the row-major table: what stage_geometry writes, and what the
+// scan reads for a row past the staged prefix.
+__device__ __forceinline__ void sph_row_global(const float* g, float4& a, float4& b) {
+  a = make_float4(__ldg(g + 1), __ldg(g + 2), __ldg(g + 3), __ldg(g + 8));
+  b = make_float4(__ldg(g + 4), __ldg(g + 5), __ldg(g + 6), __ldg(g));
+}
+
+__device__ __forceinline__ void quad_row_global(const float* g, float4& n, float4& al,
+                                                float4& be) {
+  const bool on = __ldg(g) >= 0.0f;  // the kind, folded into the normal
+  n = make_float4(on ? __ldg(g + 1) : 0.0f, on ? __ldg(g + 2) : 0.0f, on ? __ldg(g + 3) : 0.0f,
+                  __ldg(g + 4));
+  al = make_float4(__ldg(g + 5), __ldg(g + 6), __ldg(g + 7), __ldg(g + 11));
+  be = make_float4(__ldg(g + 8), __ldg(g + 9), __ldg(g + 10), __ldg(g + 12));
+}
+
+__device__ __forceinline__ void box_row_global(const float* g, float4& lo, float4& hi,
+                                               float4& off) {
+  lo = make_float4(__ldg(g + 1), __ldg(g + 2), __ldg(g + 3), __ldg(g + 7));
+  hi = make_float4(__ldg(g + 4), __ldg(g + 5), __ldg(g + 6), __ldg(g + 8));
+  off = make_float4(__ldg(g + 9), __ldg(g + 10), __ldg(g + 11), __ldg(g));
+}
+
+// Copy the geometry columns of the staged prefix of each section
+// (`stage_layout`) into the block's dynamic shared memory `grt_geo`; with
+// `bounds`, also each sphere block's bounds for the cull. Every thread of
+// the block calls it, outside any branch on its lane (`bounds` is the
+// variant's, the same for the whole block); it ends with the block's
+// barrier.
+__device__ __forceinline__ void stage_geometry(const BounceTables& T, bool bounds) {
+  const StageLayout L = stage_layout(T.n_sph, T.n_quad, T.n_box);
+  float4* smem = grt_geo;
+  const float* __restrict__ P = T.prims;
+  const int pc = T.p_cols;
+  for (int s = threadIdx.x; s < L.n_blk * SPH_BLOCK; s += blockDim.x) {
+    float4* r = smem + SPH_F4 * s;
+    if (s < L.n_sph) {
+      sph_row_global(P + (T.sph_base + s) * pc, r[0], r[1]);
+    } else {  // the last block's fill: no discriminant, kind -1
+      r[0] = make_float4(0.0f, 0.0f, 0.0f, -INFINITY);
+      r[1] = make_float4(0.0f, 0.0f, 0.0f, -1.0f);
+    }
+  }
+  for (int q = threadIdx.x; q < L.n_quad; q += blockDim.x) {
+    float4* r = smem + L.quad_at + QUAD_F4 * q;
+    quad_row_global(P + (T.quad_base + q) * pc, r[0], r[1], r[2]);
+  }
+  for (int k = threadIdx.x; k < L.n_box; k += blockDim.x) {
+    float4* r = smem + L.box_at + BOX_F4 * k;
+    box_row_global(P + (T.box_base + k) * pc, r[0], r[1], r[2]);
+  }
+  __syncthreads();
+  if (!bounds) return;
+  // the bounds of each block of staged sphere rows: the box of its active
+  // spheres swept over the motion (time 0 to 1), radius |r| (a hollow
+  // sphere's is negative), as {lo, CULL_PAD S} {hi, 0}, S = |centre|_1 +
+  // |half extent|_1 of the box; a block without an active row gets an
+  // empty box at the origin
+  for (int k = threadIdx.x; k < L.n_blk; k += blockDim.x) {
+    float lx = INFINITY, ly = INFINITY, lz = INFINITY;
+    float hx = -INFINITY, hy = -INFINITY, hz = -INFINITY;
+    for (int s = SPH_BLOCK * k; s < SPH_BLOCK * (k + 1); ++s) {
+      const float4 a = smem[SPH_F4 * s], b = smem[SPH_F4 * s + 1];
+      if (b.w < 0.0f) continue;
+      const float r = sqrtf(a.w);
+      const float x1 = a.x + b.x, y1 = a.y + b.y, z1 = a.z + b.z;
+      lx = fminf(lx, fminf(a.x, x1) - r);
+      ly = fminf(ly, fminf(a.y, y1) - r);
+      lz = fminf(lz, fminf(a.z, z1) - r);
+      hx = fmaxf(hx, fmaxf(a.x, x1) + r);
+      hy = fmaxf(hy, fmaxf(a.y, y1) + r);
+      hz = fmaxf(hz, fmaxf(a.z, z1) + r);
+    }
+    if (!(lx <= hx)) lx = ly = lz = hx = hy = hz = 0.0f;
+    const float size = fabsf(0.5f * (lx + hx)) + fabsf(0.5f * (ly + hy)) +
+                       fabsf(0.5f * (lz + hz)) + 0.5f * ((hx - lx) + (hy - ly) + (hz - lz));
+    float4* r = smem + L.blk_at + BLK_F4 * k;
+    r[0] = make_float4(lx, ly, lz, CULL_PAD * size);
+    r[1] = make_float4(hx, hy, hz, 0.0f);
+  }
+  __syncthreads();
+}
+
+// The cull of a block of staged sphere rows: false only when no row of the
+// block can pass the row test of `bounce_core` for this ray with a root in
+// (T_MIN, t_best). The slab test is of the block's box padded by CULL_PAD
+// M, M = |o|_1 + S >= the distance from the ray's origin to any of the
+// block's sphere centres, those centres' magnitudes, and their radii. Why
+// that pad is enough: the row test's rounding (unit roundoff eps = 2^-24)
+// moves its discriminant by at most ~40 eps a M^2, so a row it passes has
+// the ray within r + sqrt(40 eps) M = r + 1.55e-3 M of the sphere's
+// centre, and its root puts the hit point within that distance too (its
+// own rounding adds ~1e-6 M); CULL_PAD takes 2.5 times that. The slab
+// test's own rounding (the fma against the rounded o / d) moves a slab's
+// face by a few eps M, far inside the margin. The box holds the centre at
+// any ray time in [0, 1]. So skipping the block changes no winner: the
+// scan keeps the rows' order and the strict `<`. `po` = CULL_PAD |o|_1,
+// (ix, iy, iz) = 1 / d and (oix, oiy, oiz) = o / d, per ray.
+__device__ __forceinline__ bool sphere_block_hit(const float4 lo, const float4 hi, float po,
+                                                 float ix, float iy, float iz, float oix,
+                                                 float oiy, float oiz, float t_best) {
+  const float pad = lo.w + po;
+  const float tx0 = fmaf(lo.x - pad, ix, -oix), tx1 = fmaf(hi.x + pad, ix, -oix);
+  const float ty0 = fmaf(lo.y - pad, iy, -oiy), ty1 = fmaf(hi.y + pad, iy, -oiy);
+  const float tz0 = fmaf(lo.z - pad, iz, -oiz), tz1 = fmaf(hi.z + pad, iz, -oiz);
+  const float near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+  return fmaxf(near, T_MIN) <= fminf(far, t_best);
+}
 
 // The externally computed closest mesh hit of one ray: t (inf = none), the
 // un-flipped outward normal, and the winning triangle's material columns.
@@ -188,6 +399,15 @@ __device__ __forceinline__ float safe_d(float v) {
 
 __device__ __forceinline__ float safe_inv(float v) { return 1.0f / safe_d(v); }
 
+// |d|^2 of a ray: dx*dx rounded, dy*dy and dz*dz fused. The sphere and
+// media roots and the dielectric's unit direction use it, so that they
+// round alike in every kernel: left to nvcc, which product of
+// dx*dx + dy*dy + dz*dz it rounds depends on the code around it (on the
+// same source it rounded dy*dy in K1 and dx*dx in K6).
+__device__ __forceinline__ float len_sq(float dx, float dy, float dz) {
+  return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+}
+
 __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
   const float inv = rsqrtf(x * x + y * y + z * z + 1e-38f);
   x *= inv;
@@ -213,88 +433,121 @@ __device__ __forceinline__ void onb_transform(float nx, float ny, float nz, floa
 
 // `ext` may be null (no mesh hit to fold). The ray must be alive. `u`
 // holds the N_U uniforms of the level; `u_med(m)` returns medium m's.
-template <bool SPH, bool DIEL, bool MED, bool TEX, class UMed>
+// CULL: the staged sphere rows by blocks (`sphere_block_hit`), for a table
+// whose staged spheres make more than one block (stage_geometry's bounds).
+template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL = false, class UMed>
 __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float ox, float oy,
                                                     float oz, float dx, float dy, float dz,
                                                     float tm, const float* u,
                                                     const ExtHit* ext, const UMed& u_med) {
   const float* __restrict__ P = T.prims;
   const int pc = T.p_cols;
+  const float4* __restrict__ G = grt_geo;
+  const StageLayout stg = stage_layout(T.n_sph, T.n_quad, T.n_box);
   float t_best = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
   float m_kind = 0.0f, tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f, m_fr = 0.0f;
   bool win_sphere = false, win_med = false;
-  float sph_r = 1.0f;
-  int win_row = -1;  // TEX: the winning primitive row, -1 if none
+  int win_row = -1;  // the winning primitive row, -1 if none
 
   // ---- closest hit: spheres (objects.go:83-115) ---------------------------
   // the normal slots carry c - o until the winner's (p - c) / r is resolved
   if constexpr (SPH) {
     if (T.n_sph > 0) {
-      const float a_quad = dx * dx + dy * dy + dz * dz;
+      const float a_quad = len_sq(dx, dy, dz);
       const float inv_a = 1.0f / a_quad;
-      for (int s = 0; s < T.n_sph; ++s) {
-        const float* g = P + (T.sph_base + s) * pc;
-        const float cx = __ldg(g + 1) + tm * __ldg(g + 4) - ox;
-        const float cy = __ldg(g + 2) + tm * __ldg(g + 5) - oy;
-        const float cz = __ldg(g + 3) + tm * __ldg(g + 6) - oz;
+      // a: {c0, r^2}, b: {cd, kind}
+      auto sphere = [&](int row, const float4 a, const float4 b) {
+        const float cx = a.x + tm * b.x - ox;
+        const float cy = a.y + tm * b.y - oy;
+        const float cz = a.z + tm * b.z - oz;
         const float h = dx * cx + dy * cy + dz * cz;
-        const float c = cx * cx + cy * cy + cz * cz - __ldg(g + 8);
+        const float c = cx * cx + cy * cy + cz * cz - a.w;
         const float disc = h * h - a_quad * c;
-        const float sq = sqrtf(fmaxf(disc, 0.0f));
-        const float r1 = (h - sq) * inv_a, r2 = (h + sq) * inv_a;
-        const float root = (T_MIN < r1 && r1 < t_best) ? r1 : r2;
-        const bool ok = __ldg(g) >= 0.0f && disc >= 0.0f && T_MIN < root && root < t_best;
-        if (ok) {
-          t_best = root;
-          nx = cx;
-          ny = cy;
-          nz = cz;
-          win_sphere = true;
-          sph_r = __ldg(g + 7);
-          if constexpr (TEX)
-            win_row = T.sph_base + s;
-          else
-            load_mat(g, T, m_kind, tex_r, tex_g, tex_b, m_fr);
+        if (disc >= 0.0f) {  // the row can win only with disc >= 0
+          const float sq = sqrtf(fmaxf(disc, 0.0f));
+          const float r1 = (h - sq) * inv_a, r2 = (h + sq) * inv_a;
+          const float root = (T_MIN < r1 && r1 < t_best) ? r1 : r2;
+          if (b.w >= 0.0f && T_MIN < root && root < t_best) {
+            t_best = root;
+            nx = cx;
+            ny = cy;
+            nz = cz;
+            win_sphere = true;
+            win_row = row;
+          }
         }
+      };
+      if constexpr (CULL) {
+        // the staged rows by whole blocks, a block skipped where the ray
+        // cannot meet it (sphere_block_hit)
+        const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+        const float oix = ox * ix, oiy = oy * iy, oiz = oz * iz;
+        const float po = CULL_PAD * (fabsf(ox) + fabsf(oy) + fabsf(oz));
+        const float4* __restrict__ B = G + stg.blk_at;
+        for (int k = 0; k < stg.n_blk; ++k) {
+          if (!sphere_block_hit(B[BLK_F4 * k], B[BLK_F4 * k + 1], po, ix, iy, iz, oix, oiy,
+                                oiz, t_best))
+            continue;
+#pragma unroll
+          for (int s = SPH_BLOCK * k; s < SPH_BLOCK * (k + 1); ++s)
+            sphere(T.sph_base + s, G[SPH_F4 * s], G[SPH_F4 * s + 1]);
+        }
+      } else {
+        for (int s = 0; s < stg.n_sph; ++s)
+          sphere(T.sph_base + s, G[SPH_F4 * s], G[SPH_F4 * s + 1]);
+      }
+      for (int s = stg.n_sph; s < T.n_sph; ++s) {
+        float4 a, b;
+        sph_row_global(P + (T.sph_base + s) * pc, a, b);
+        sphere(T.sph_base + s, a, b);
       }
     }
   }
   // ---- quads (objects.go:167-206) ------------------------------------------
-  for (int q = 0; q < T.n_quad; ++q) {
-    const float* g = P + (T.quad_base + q) * pc;
-    const float dn = dx * __ldg(g + 1) + dy * __ldg(g + 2) + dz * __ldg(g + 3);
-    const float on = ox * __ldg(g + 1) + oy * __ldg(g + 2) + oz * __ldg(g + 3);
-    const float t_q = (__ldg(g + 4) - on) / dn;
+  // n: {normal, D} (zero normal: inactive), al: {alpha row, alpha0}, be: {beta row, beta0}
+  auto quad = [&](int row, const float4 n, const float4 al, const float4 be) {
+    const float dn = dx * n.x + dy * n.y + dz * n.z;
+    const float on = ox * n.x + oy * n.y + oz * n.z;
+    const float t_q = (n.w - on) / dn;
     const float px = ox + t_q * dx, py = oy + t_q * dy, pz = oz + t_q * dz;
-    const float al = px * __ldg(g + 5) + py * __ldg(g + 6) + pz * __ldg(g + 7) - __ldg(g + 11);
-    const float be = px * __ldg(g + 8) + py * __ldg(g + 9) + pz * __ldg(g + 10) - __ldg(g + 12);
-    const bool ok = __ldg(g) >= 0.0f && fabsf(dn) >= 1e-8f && T_MIN <= t_q &&
-                    t_q < t_best && al >= 0.0f && al <= 1.0f && be >= 0.0f && be <= 1.0f;
+    const float alpha = px * al.x + py * al.y + pz * al.z - al.w;
+    const float beta = px * be.x + py * be.y + pz * be.z - be.w;
+    const bool ok = fabsf(dn) >= 1e-8f && T_MIN <= t_q && t_q < t_best && alpha >= 0.0f &&
+                    alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f;
     if (ok) {
       t_best = t_q;
-      nx = __ldg(g + 1);
-      ny = __ldg(g + 2);
-      nz = __ldg(g + 3);
+      nx = n.x;
+      ny = n.y;
+      nz = n.z;
       win_sphere = false;
-      if constexpr (TEX)
-        win_row = T.quad_base + q;
-      else
-        load_mat(g, T, m_kind, tex_r, tex_g, tex_b, m_fr);
+      win_row = row;
+    }
+  };
+  {
+    int q = 0;
+    for (; q < stg.n_quad; ++q) {
+      const float4* r = G + stg.quad_at + QUAD_F4 * q;
+      quad(T.quad_base + q, r[0], r[1], r[2]);
+    }
+    for (; q < T.n_quad; ++q) {
+      float4 n, al, be;
+      quad_row_global(P + (T.quad_base + q) * pc, n, al, be);
+      quad(T.quad_base + q, n, al, be);
     }
   }
   // ---- fused boxes, rotate-Y + translate rows (transformation.go) -----------
-  for (int k = 0; k < T.n_box; ++k) {
-    const float* g = P + (T.box_base + k) * pc;
-    const float cs = __ldg(g + 7), sn = __ldg(g + 8);
-    const float osx = ox - __ldg(g + 9), oyo = oy - __ldg(g + 10), osz = oz - __ldg(g + 11);
+  // lo: {lo, cos}, hi: {hi, sin}, off: {offset, kind}
+  auto box = [&](int row, const float4 lo, const float4 hi, const float4 off) {
+    const float cs = lo.w, sn = hi.w;
+    const float osx = ox - off.x, oyo = oy - off.y, osz = oz - off.z;
     const float oxo = cs * osx - sn * osz;
     const float ozo = sn * osx + cs * osz;
     const float dxo = cs * dx - sn * dz;
     const float dzo = sn * dx + cs * dz;
     const float ix = safe_inv(dxo), iy = safe_inv(dy), iz = safe_inv(dzo);
-    const float tx0 = (__ldg(g + 1) - oxo) * ix, tx1 = (__ldg(g + 4) - oxo) * ix;
-    const float ty0 = (__ldg(g + 2) - oyo) * iy, ty1 = (__ldg(g + 5) - oyo) * iy;
-    const float tz0 = (__ldg(g + 3) - ozo) * iz, tz1 = (__ldg(g + 6) - ozo) * iz;
+    const float tx0 = (lo.x - oxo) * ix, tx1 = (hi.x - oxo) * ix;
+    const float ty0 = (lo.y - oyo) * iy, ty1 = (hi.y - oyo) * iy;
+    const float tz0 = (lo.z - ozo) * iz, tz1 = (hi.z - ozo) * iz;
     const float lx = fminf(tx0, tx1), hx = fmaxf(tx0, tx1);
     const float ly = fminf(ty0, ty1), hy = fmaxf(ty0, ty1);
     const float lz = fminf(tz0, tz1), hz = fmaxf(tz0, tz1);
@@ -302,7 +555,7 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
     const float far = fminf(fminf(hx, hy), hz);
     const bool entry = near >= T_MIN;
     const float t_c = entry ? near : far;
-    const bool ok = __ldg(g) >= 0.0f && far > near && T_MIN <= t_c && t_c < t_best;
+    const bool ok = off.w >= 0.0f && far > near && T_MIN <= t_c && t_c < t_best;
     if (ok) {
       const bool is_x = (entry ? lx : hx) == t_c;
       const bool is_y = !is_x && (entry ? ly : hy) == t_c;
@@ -316,11 +569,28 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
       ny = nyo;
       nz = -sn * nxo + cs * nzo;
       win_sphere = false;
-      if constexpr (TEX)
-        win_row = T.box_base + k;
-      else
-        load_mat(g, T, m_kind, tex_r, tex_g, tex_b, m_fr);
+      win_row = row;
     }
+  };
+  {
+    int k = 0;
+    for (; k < stg.n_box; ++k) {
+      const float4* r = G + stg.box_at + BOX_F4 * k;
+      box(T.box_base + k, r[0], r[1], r[2]);
+    }
+    for (; k < T.n_box; ++k) {
+      float4 lo, hi, off;
+      box_row_global(P + (T.box_base + k) * pc, lo, hi, off);
+      box(T.box_base + k, lo, hi, off);
+    }
+  }
+  // the winner's material columns (TEX: after the texture's hit point) and
+  // a winning sphere's radius, from the table in global memory
+  float sph_r = 1.0f;
+  if (win_row >= 0) {
+    const float* g = P + win_row * pc;
+    if constexpr (!TEX) load_mat(g, T, m_kind, tex_r, tex_g, tex_b, m_fr);
+    if (SPH && win_sphere) sph_r = __ldg(g + 7);
   }
   // ---- the external mesh hit wins only when strictly nearer ------------------
   if (ext != nullptr && ext->t < t_best) {
@@ -343,7 +613,7 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
   // front face true and an isotropic material with the medium's albedo.
   if constexpr (MED) {
     if (T.n_media > 0) {
-      const float a_quad = dx * dx + dy * dy + dz * dz;
+      const float a_quad = len_sq(dx, dy, dz);
       const float inv_a = 1.0f / a_quad;
       const float ray_len = sqrtf(a_quad);
       const float inv_len = 1.0f / ray_len;
@@ -587,8 +857,8 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
       // dielectric (materials.go:94-130): Schlick reflectance against
       // u[U_DIEL], total internal reflection tested on squares, refraction
       // as vec.go:141-146
-      float ux = dx, uy = dy, uz = dz;
-      normalize3(ux, uy, uz);
+      const float inv_d = rsqrtf(len_sq(dx, dy, dz) + 1e-38f);
+      const float ux = dx * inv_d, uy = dy * inv_d, uz = dz * inv_d;
       const float ri = front ? 1.0f / m_fr : m_fr;
       const float cos_d = fminf(-(ux * nx + uy * ny + uz * nz), 1.0f);
       float r0 = (1.0f - m_fr) / (1.0f + m_fr);

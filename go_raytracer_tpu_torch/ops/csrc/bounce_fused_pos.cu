@@ -34,8 +34,9 @@
 //
 // The bounce itself is `bounce_core` (bounce_core.cuh), whose precision note
 // applies here, compiled once per feature set of the scene (fused_common.cuh's
-// FEATURE_SWITCH picks the variant); the PRNG and the ray generation are
-// fused_common.cuh's.
+// FEATURE_SWITCH picks the variant); its staged scan reads the geometry
+// that each block copies into shared memory once for all its levels. The
+// PRNG and the ray generation are fused_common.cuh's.
 
 #include "fused_common.cuh"
 
@@ -59,8 +60,8 @@ struct FusedPosArgs {
   int n, n_inner, max_depth, width, sqrt_spp;
 };
 
-template <bool SPH, bool DIEL, bool MED, bool TEX>
-__global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a) {
+template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL>
+__global__ void __launch_bounds__(BLOCK, 4) bounce_fused_pos_levels(FusedPosArgs a) {
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   float ox = a.ox_in[lane], oy = a.oy_in[lane], oz = a.oz_in[lane];
   float dx = a.dx_in[lane], dy = a.dy_in[lane], dz = a.dz_in[lane];
@@ -70,6 +71,10 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a)
   float pi = a.pi_in[lane], pj = a.pj_in[lane];
   float si = a.si_in[lane], sj = a.sj_in[lane];
   float rem = a.rem_in[lane];
+  // the geometry into shared memory once for all levels, before any branch
+  // on the lane (the lane's loads above are in flight meanwhile)
+  const BounceTables T = fused_tables<SPH, DIEL, MED, TEX>(a);
+  stage_geometry(T, CULL);
 
   const uint32_t seed_mix = (uint32_t)a.seed2[0] * 0x9E3779B9u;
   const int refill_rem = a.seed2[1];
@@ -77,7 +82,6 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a)
   const float s_wrap = (float)a.sqrt_spp - 0.5f;
   const float p_wrap = (float)a.width - 0.5f;
 
-  const BounceTables T = fused_tables<SPH, DIEL, MED, TEX>(a);
   const uint32_t slots = N_U_RAYGEN + N_U + (uint32_t)a.n_media;
   for (int j = 0; j < a.n_inner; ++j) {
     const uint32_t slot0 = (uint32_t)j * slots;
@@ -122,7 +126,7 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a)
       for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + N_U_RAYGEN + k);
       const HashMediaU um{ulane, seed_mix, slot0 + N_U_RAYGEN};
       const BounceResult r =
-          bounce_core<SPH, DIEL, MED, TEX>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
+          bounce_core<SPH, DIEL, MED, TEX, CULL>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
       vr = r.vr;
       vg = r.vg;
       vb = r.vb;
@@ -168,13 +172,28 @@ __global__ void __launch_bounds__(BLOCK) bounce_fused_pos_levels(FusedPosArgs a)
 extern "C" int grt_bounce_fused_pos(const FusedPosArgs* args, void* stream) {
   const FusedPosArgs a = *args;
   cudaStream_t s = (cudaStream_t)stream;
+  const int smem = fused_stage_bytes(a.feat, a.n_sph, a.n_quad, a.n_box);
   cudaError_t err = cudaMemsetAsync(a.seg, 0, sizeof(int) * a.n_inner, s);
   if (err != cudaSuccess) return (int)err;
-#define LAUNCH_LEVELS(S, D, M, X) \
-  bounce_fused_pos_levels<S, D, M, X><<<a.n / BLOCK, BLOCK, 0, s>>>(a)
-  FEATURE_SWITCH(a.feat, LAUNCH_LEVELS)
+#define LAUNCH_LEVELS(S, D, M, X, C)                                                          \
+  if ((err = allow_smem((const void*)bounce_fused_pos_levels<S, D, M, X, C>, smem)) == cudaSuccess) \
+  bounce_fused_pos_levels<S, D, M, X, C><<<a.n / BLOCK, BLOCK, smem, s>>>(a)
+  FEATURE_SWITCH(with_cull(a.feat, a.n_sph, a.n_quad, a.n_box), LAUNCH_LEVELS)
 #undef LAUNCH_LEVELS
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// kernel_info of the variant for feature bits `feat` on a table of these
+// section sizes
+extern "C" int grt_kernel_info(int feat, int n_sph, int n_quad, int n_box, int* out) {
+  const int smem = fused_stage_bytes(feat, n_sph, n_quad, n_box);
+  int err = 0;
+#define INFO(S, D, M, X, C) \
+  err = kernel_info((const void*)bounce_fused_pos_levels<S, D, M, X, C>, BLOCK, smem, out)
+  FEATURE_SWITCH(with_cull(feat, n_sph, n_quad, n_box), INFO)
+#undef INFO
+  return err;
 }
 
 extern "C" const char* grt_error_string(int err) {

@@ -24,11 +24,17 @@
 //
 // What bounds it: per lane and level it reads and writes the 36-byte state
 // and writes a 16-byte record (about 88 bytes), and does a few hundred
-// float operations (6 quads, 2 rotated slab boxes, the light sample and the
-// pdf). Both bounds are microseconds at 131072 lanes; what it pays on this
-// card is the launch per level and the divergence between lanes that hit
-// different materials. Tables are a few hundred floats, read with uniform
-// read-only loads (one broadcast per warp).
+// float operations per segment on cornellBox (6 quads, 2 rotated slab
+// boxes, the light sample and the pdf), ~12,000 on book1 (389 sphere
+// tests). Both bounds are microseconds at 131072 lanes; what it pays on
+// this card is the launch per level, the divergence between lanes that
+// hit different materials, and on a large table the issue of the scan's
+// loads: every lane of a warp reads the same row at once. So each block
+// stages the table's geometry in shared memory before its first branch on
+// the lane (`stage_geometry`, bounce_core.cuh), and the scan reads a row
+// with two or three broadcast `LDS.128`; with more than one block of 8
+// spheres the variant with the sphere cull skips the blocks a ray cannot
+// meet.
 //
 // `grt_bounce_fused_q_direct` replaces the Pallas TPU kernel
 // `bounce_fused_q_direct` (the same file, `_fused_q_kernel_direct`): the same
@@ -41,8 +47,9 @@
 // The bounce itself (closest hit, media, shading, sampling) is `bounce_core`
 // in bounce_core.cuh, shared with bounce.cu; its precision note applies
 // here. `fused_q_level` is compiled once per feature set of the core
-// (spheres, the fr column with dielectric, media with isotropic) and the
-// entry points launch the scene's variant. Level j draws its uniforms from
+// (spheres, the fr column with dielectric, media with isotropic, textures,
+// the sphere cull) and the entry points launch the scene's variant with
+// the staged geometry's dynamic shared memory. Level j draws its uniforms from
 // PRNG slots j * (N_U_RAYGEN + N_U + n_media) on: five for the camera ray,
 // nine for the bounce, one per medium, as the TPU kernel does. The PRNG and
 // the camera ray generation are fused_common.cuh's, shared with
@@ -93,12 +100,15 @@ count_dead(const int* __restrict__ alive, int* __restrict__ dead_cnt) {
   if (threadIdx.x == 0) dead_cnt[blockIdx.x] = c;
 }
 
-template <bool SPH, bool DIEL, bool MED, bool TEX>
-__global__ void __launch_bounds__(BLOCK)
+template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL>
+__global__ void __launch_bounds__(BLOCK, 4)
 fused_q_level(FusedQArgs a, int j) {
   __shared__ int red[NWARP];
   __shared__ int red2[NWARP];
   __shared__ int warp_dead[NWARP];
+  // the geometry into shared memory, before any branch on the lane
+  const BounceTables T = fused_tables<SPH, DIEL, MED, TEX>(a);
+  stage_geometry(T, CULL);
   const int nb = gridDim.x;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -175,10 +185,9 @@ fused_q_level(FusedQArgs a, int j) {
     float u[N_U];
 #pragma unroll
     for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + N_U_RAYGEN + k);
-    const BounceTables T = fused_tables<SPH, DIEL, MED, TEX>(a);
     const HashMediaU um{ulane, seed_mix, slot0 + N_U_RAYGEN};
     const BounceResult r =
-        bounce_core<SPH, DIEL, MED, TEX>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
+        bounce_core<SPH, DIEL, MED, TEX, CULL>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
     vr = r.vr;
     vg = r.vg;
     vb = r.vb;
@@ -222,13 +231,18 @@ fused_q_level(FusedQArgs a, int j) {
 
 static int run_levels(FusedQArgs a, cudaStream_t s) {
   const int nb = a.n / BLOCK;
+  const int smem = fused_stage_bytes(a.feat, a.n_sph, a.n_quad, a.n_box);
+  const int feat = with_cull(a.feat, a.n_sph, a.n_quad, a.n_box);
   count_dead<<<nb, BLOCK, 0, s>>>(a.alive_in, a.dead_cnt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   for (int j = 0; j < a.n_inner; ++j) {
-#define LAUNCH_LEVEL(S, D, M, X) fused_q_level<S, D, M, X><<<nb, BLOCK, 0, s>>>(a, j)
-    FEATURE_SWITCH(a.feat, LAUNCH_LEVEL)
+#define LAUNCH_LEVEL(S, D, M, X, C)                                                 \
+  if ((err = allow_smem((const void*)fused_q_level<S, D, M, X, C>, smem)) == cudaSuccess) \
+  fused_q_level<S, D, M, X, C><<<nb, BLOCK, smem, s>>>(a, j)
+    FEATURE_SWITCH(feat, LAUNCH_LEVEL)
 #undef LAUNCH_LEVEL
+    if (err != cudaSuccess) return (int)err;
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     // later levels read the state this level wrote
@@ -255,6 +269,18 @@ extern "C" int grt_bounce_fused_q(const FusedQArgs* args, void* stream) {
 extern "C" int grt_bounce_fused_q_direct(const FusedQArgs* args, void* stream) {
   if (args->lvl_base == nullptr) return (int)cudaErrorInvalidValue;
   return run_levels(*args, (cudaStream_t)stream);
+}
+
+// Registers, dynamic and static shared bytes, resident blocks per SM and
+// spill bytes of the level kernel for feature bits `feat` on a table of
+// these section sizes (kernel_info's `out`).
+extern "C" int grt_kernel_info(int feat, int n_sph, int n_quad, int n_box, int* out) {
+  const int smem = fused_stage_bytes(feat, n_sph, n_quad, n_box);
+  int err = 0;
+#define INFO(S, D, M, X, C) err = kernel_info((const void*)fused_q_level<S, D, M, X, C>, BLOCK, smem, out)
+  FEATURE_SWITCH(with_cull(feat, n_sph, n_quad, n_box), INFO)
+#undef INFO
+  return err;
 }
 
 extern "C" const char* grt_error_string(int err) {

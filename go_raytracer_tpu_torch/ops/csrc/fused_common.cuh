@@ -1,7 +1,7 @@
 // What the fused regen kernels share (bounce_fused_q.cu, bounce_fused.cu,
 // bounce_fused_pos.cu): the counter-based PRNG, the camera ray generation,
-// the block size, the table fields and the dispatch on the scene's
-// features. One thread per lane, state as SoA planes; the lane
+// the block size, the table fields, the staged geometry's bytes and the
+// dispatch on the scene's features. One thread per lane, state as SoA planes; the lane
 // count is a multiple of BLOCK (checked by the wrappers).
 
 #pragma once
@@ -75,7 +75,8 @@ struct HashMediaU {
 #define FUSED_TABLE_FIELDS                                                  \
   int p_cols, sph_base, n_sph, quad_base, n_quad, box_base, n_box;         \
   int n_lights, n_lights_live, fr_col, n_media;                            \
-  int feat; /* bits: 0 spheres, 1 the fr column, 2 media, 3 textures */    \
+  int feat; /* bits: 0 spheres, 1 the fr column, 2 media, 3 textures;  \
+                (4, the cull, is with_cull's) */                         \
   int texk_col, scale_col, seed_col; /* -1: the layout lacks the column */ \
   int defocus; /* camera rays from the defocus disk */
 
@@ -106,22 +107,43 @@ __device__ __forceinline__ BounceTables fused_tables(const A& a) {
   return T;
 }
 
-// Run CASE(SPH, DIEL, MED, TEX) for the feature bits of a call: one kernel
-// variant per feature set, picked once per call on the host.
-#define FEATURE_SWITCH3(feat, TEXV, CASE)            \
-  switch ((feat) & 7) {                              \
-    case 0: CASE(false, false, false, TEXV); break;  \
-    case 1: CASE(true, false, false, TEXV); break;   \
-    case 2: CASE(false, true, false, TEXV); break;   \
-    case 3: CASE(true, true, false, TEXV); break;    \
-    case 4: CASE(false, false, true, TEXV); break;   \
-    case 5: CASE(true, false, true, TEXV); break;    \
-    case 6: CASE(false, true, true, TEXV); break;    \
-    default: CASE(true, true, true, TEXV); break;    \
+// The dynamic shared memory of a fused kernel's launch: the staged
+// geometry (bounce_core.cuh) of the sections its variant scans.
+inline int fused_stage_bytes(int feat, int n_sph, int n_quad, int n_box) {
+  return stage_layout((feat & 1) ? n_sph : 0, n_quad, n_box).bytes;
+}
+
+// Feature bit 4, set here and not by the caller: the sphere cull of the
+// core (CULL), for a table whose staged spheres make more than one block
+// of SPH_BLOCK rows.
+#define FEAT_CULL 16
+inline int with_cull(int feat, int n_sph, int n_quad, int n_box) {
+  return (feat & 1) && stage_layout(n_sph, n_quad, n_box).n_blk > 1 ? feat | FEAT_CULL : feat;
+}
+
+// Run CASE(SPH, DIEL, MED, TEX, CULL) for the feature bits of a call: one
+// kernel variant per feature set, picked once per call on the host (CULL
+// only with SPH: 24 variants).
+#define FEATURE_SWITCH3(feat, TEXV, CULLV, CASE)           \
+  switch ((feat) & 7) {                                    \
+    case 0: CASE(false, false, false, TEXV, false); break; \
+    case 1: CASE(true, false, false, TEXV, CULLV); break;  \
+    case 2: CASE(false, true, false, TEXV, false); break;  \
+    case 3: CASE(true, true, false, TEXV, CULLV); break;   \
+    case 4: CASE(false, false, true, TEXV, false); break;  \
+    case 5: CASE(true, false, true, TEXV, CULLV); break;   \
+    case 6: CASE(false, true, true, TEXV, false); break;   \
+    default: CASE(true, true, true, TEXV, CULLV); break;   \
+  }
+#define FEATURE_SWITCH2(feat, TEXV, CASE)      \
+  if ((feat) & FEAT_CULL) {                    \
+    FEATURE_SWITCH3(feat, TEXV, true, CASE)    \
+  } else {                                     \
+    FEATURE_SWITCH3(feat, TEXV, false, CASE)   \
   }
 #define FEATURE_SWITCH(feat, CASE)       \
   if ((feat) & 8) {                      \
-    FEATURE_SWITCH3(feat, true, CASE)    \
+    FEATURE_SWITCH2(feat, true, CASE)    \
   } else {                               \
-    FEATURE_SWITCH3(feat, false, CASE)   \
+    FEATURE_SWITCH2(feat, false, CASE)   \
   }

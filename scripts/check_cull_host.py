@@ -1,0 +1,219 @@
+#!/usr/bin/env python3
+"""Check on the CPU that the sphere cull of the bounce core changes no
+winner: compile csrc/bounce_core.cuh with the host's C++ compiler against a
+stand-in for the few CUDA built-ins it uses, and run `bounce_core` on many
+rays with the cull (CULL = true) and without it, on the same staged
+table; every output of every ray must be equal bit for bit.
+
+    python3 scripts/check_cull_host.py [--rays 300000] [--pad VALUE]
+                                       [--cxx c++] [--flags "-O2 -mfma"]
+
+The tables are book1's (389 spheres, 49 blocks) and the synthetic scan
+scene at 1,603 spheres, 40 quads and 20 boxes (scenes/synthetic.py, its
+inactive rows cleared; 1,536 spheres staged in 192 blocks, the rest read
+from the table). A third of the rays are random over the scenes, the
+rest aimed at the rim of a random sphere at its ray time, within 1e-3 of
+its radius, from 1-31 units away or 100-500: the grazing rays whose
+roots the rounding moves most. --pad replaces CULL_PAD in a copy of the
+header (a mutation check: a pad far below the one the header derives
+must make rays differ, or the check would not see a wrong cull). The
+build goes to build/check_cull_host/ (git-ignored). Exits non-zero if a
+ray differs. The host's rounding is not the card's (no contraction
+unless the flags ask for it, libm's sin and cos): it checks the cull's
+logic and its margin, chip_smoke.py phase 23 the kernels on the card.
+"""
+
+import argparse
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from go_raytracer_tpu_torch.ops import bounce  # noqa: E402
+from go_raytracer_tpu_torch.scenes import registry, synthetic  # noqa: E402
+
+CSRC = os.path.join(ROOT, "go_raytracer_tpu_torch", "ops", "csrc")
+OUT = os.path.join(ROOT, "build", "check_cull_host")
+
+# the CUDA names bounce_core.cuh uses, for a host compiler: one thread, a
+# block of one thread, read-only loads as plain loads
+STANDIN = r"""
+#pragma once
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+struct dim3 { unsigned x, y, z; };
+static dim3 threadIdx{0, 0, 0}, blockDim{1, 1, 1};
+template <class T> T __ldg(const T* p) { return *p; }
+inline void __syncthreads() {}
+inline int min(int a, int b) { return a < b ? a : b; }
+inline void __sincosf(float x, float* s, float* c) { *s = sinf(x); *c = cosf(x); }
+inline float rsqrtf(float a) { return 1.0f / sqrtf(a); }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float __fmul_rn(float a, float b) { return a * b; }
+using std::isfinite;
+typedef int cudaError_t;
+enum { cudaSuccess = 0 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+struct cudaFuncAttributes { size_t sharedSizeBytes, localSizeBytes; int numRegs; };
+inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return 0; }
+inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes*, const void*) { return 0; }
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, const void*, int, size_t) {
+  return 0;
+}
+"""
+
+CHECK_SRC = r"""
+#include "cuda_runtime.h"
+#include "bounce_core.cuh"
+#include <cstdio>
+#include <cstdlib>
+#include <random>
+#include <vector>
+
+float4 grt_geo[STAGE_BYTES / 16];
+
+template <bool TEX>
+static bool same_bounce(const BounceTables& T, const float* o, const float* d, float tm,
+                        const float* u) {
+  const BounceResult a = bounce_core<true, true, false, TEX, true>(
+      T, o[0], o[1], o[2], d[0], d[1], d[2], tm, u, nullptr, NoMediaU{});
+  const BounceResult b = bounce_core<true, true, false, TEX, false>(
+      T, o[0], o[1], o[2], d[0], d[1], d[2], tm, u, nullptr, NoMediaU{});
+  const float fa[] = {a.vr, a.vg, a.vb, a.ox, a.oy, a.oz, a.dx, a.dy, a.dz};
+  const float fb[] = {b.vr, b.vg, b.vb, b.ox, b.oy, b.oz, b.dx, b.dy, b.dz};
+  return std::memcmp(fa, fb, sizeof fa) == 0 && a.emit == b.emit && a.cf == b.cf &&
+         a.alive == b.alive;
+}
+
+int main(int argc, char** argv) {
+  FILE* f = std::fopen(argv[1], "rb");
+  int h[15];
+  if (!f || std::fread(h, 4, 15, f) != 15) return 2;
+  std::vector<float> P(h[0] * h[1]), Lt(h[2] * L_COLS);
+  if (std::fread(P.data(), 4, P.size(), f) != P.size()) return 2;
+  if (std::fread(Lt.data(), 4, Lt.size(), f) != Lt.size()) return 2;
+  std::fclose(f);
+  float bg[3] = {0.7f, 0.8f, 1.0f};
+  BounceTables T;
+  T.prims = P.data();
+  T.lights = Lt.data();
+  T.med = nullptr;
+  T.bg = bg;
+  T.p_cols = h[1];
+  T.sph_base = h[3], T.n_sph = h[4], T.quad_base = h[5], T.n_quad = h[6];
+  T.box_base = h[7], T.n_box = h[8], T.n_lights = h[9], T.n_lights_live = h[10];
+  T.fr_col = h[11], T.n_media = 0, T.texk_col = h[12], T.scale_col = h[13];
+  T.seed_col = h[14];
+  stage_geometry(T, true);
+  const StageLayout L = stage_layout(T.n_sph, T.n_quad, T.n_box);
+  std::printf("%d of %d spheres staged in %d blocks, %d B\n", L.n_sph, T.n_sph, L.n_blk,
+              L.bytes);
+  std::mt19937 rng(1234);
+  std::uniform_real_distribution<float> U(0, 1);
+  std::normal_distribution<float> N(0, 1);
+  const long long n = std::atoll(argv[2]);
+  long long differ = 0;
+  for (long long i = 0; i < n; ++i) {
+    float o[3], d[3];
+    const float tm = U(rng);
+    if (i % 3 == 0) {  // random rays over the scene
+      o[0] = U(rng) * 30 - 15, o[1] = U(rng) * 4 + 0.05f, o[2] = U(rng) * 30 - 15;
+      for (int k = 0; k < 3; ++k) d[k] = N(rng) * 3;
+    } else {  // at the rim of an active sphere, near or far
+      const float* g;
+      do g = &P[(T.sph_base + rng() % T.n_sph) * h[1]]; while (g[0] < 0);
+      const float c[3] = {g[1] + tm * g[4], g[2] + tm * g[5], g[3] + tm * g[6]};
+      const float dist = i % 3 == 1 ? 1 + 30 * U(rng) : 100 + 400 * U(rng);
+      float w[3] = {N(rng), N(rng), N(rng)}, v[3] = {N(rng), N(rng), N(rng)};
+      const float wn = std::sqrt(w[0] * w[0] + w[1] * w[1] + w[2] * w[2]);
+      for (int k = 0; k < 3; ++k) o[k] = c[k] + w[k] / wn * dist;
+      const float vw = (v[0] * w[0] + v[1] * w[1] + v[2] * w[2]) / (wn * wn);
+      for (int k = 0; k < 3; ++k) v[k] -= vw * w[k];
+      const float vn = std::sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
+      const float rim = std::fabs(g[7]) * (1 + (U(rng) - 0.5f) * 2e-3f);
+      for (int k = 0; k < 3; ++k) d[k] = c[k] + v[k] / vn * rim - o[k];
+    }
+    float u[N_U];
+    for (int k = 0; k < N_U; ++k) u[k] = U(rng);
+    const bool ok = T.scale_col >= 0 ? same_bounce<true>(T, o, d, tm, u)
+                                     : same_bounce<false>(T, o, d, tm, u);
+    differ += ok ? 0 : 1;
+  }
+  std::printf("%lld rays, %lld differ\n", n, differ);
+  return differ != 0;
+}
+"""
+
+
+def write_table(path, scene, prims=None):
+    """The packed tables and the core's table ints, as the C++ check reads
+    them."""
+    p, lights, _, _ = bounce.pack_scene(scene)
+    p = p if prims is None else prims
+    st = bounce.scene_statics(scene)
+    lay = bounce._mat_layout(st)
+    col = lambda nm: bounce.MAT_BASE + lay.index(nm) if nm in lay else -1
+    hdr = np.array([p.shape[0], p.shape[1], lights.shape[0], st["sph_base"],
+                    st["n_sph"], st["quad_base"], st["n_quad"], st["box_base"],
+                    st["n_box"], st["n_lights"], st["n_lights_live"],
+                    col("fr"), col("texk"), col("scale"), col("seed_img")],
+                   np.int32)
+    with open(path, "wb") as fh:
+        fh.write(hdr.tobytes())
+        fh.write(np.ascontiguousarray(p, np.float32).tobytes())
+        fh.write(np.ascontiguousarray(lights, np.float32).tobytes())
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rays", type=int, default=300000)
+    ap.add_argument("--pad", help="CULL_PAD of the copy under test")
+    ap.add_argument("--cxx", default=shutil.which("c++") or "g++")
+    ap.add_argument("--flags", default="-O2")
+    args = ap.parse_args()
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "cuda_runtime.h"), "w") as fh:
+        fh.write(STANDIN)
+    with open(os.path.join(CSRC, "bounce_core.cuh")) as fh:
+        core = fh.read()
+    if args.pad:
+        core = re.sub(r"#define CULL_PAD \S+", f"#define CULL_PAD {args.pad}f",
+                      core)
+    with open(os.path.join(OUT, "bounce_core.cuh"), "w") as fh:
+        fh.write(core)
+    with open(os.path.join(OUT, "check.cpp"), "w") as fh:
+        fh.write(CHECK_SRC)
+    exe = os.path.join(OUT, "check")
+    subprocess.run([args.cxx, "-std=c++17", *args.flags.split(), "-I", OUT,
+                    "-o", exe, os.path.join(OUT, "check.cpp")], check=True)
+    scan, _, tabs, st = synthetic.build(1603, 40, 20)
+    tables = {"book1": (registry.book1()[0], None),
+              "scan 1603/40/20": (scan, tabs[0])}
+    bad = 0
+    for name, (scene, prims) in tables.items():
+        path = os.path.join(OUT, name.split()[0] + ".bin")
+        write_table(path, scene, prims)
+        run = subprocess.run([exe, path, str(args.rays)], capture_output=True,
+                             text=True)
+        print(f"{name} (CULL_PAD {args.pad or 'as in the header'}, "
+              f"{args.cxx} {args.flags}): "
+              + run.stdout.strip().replace("\n", "; "))
+        bad += run.returncode != 0
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

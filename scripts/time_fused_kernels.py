@@ -26,6 +26,16 @@ kernels the same way, so two commits compare in one call: parent, change,
 change, parent. The results go to --out as JSON (default
 build/time_fused_kernels.json, git-ignored). Without a GPU it exits
 non-zero.
+
+--save FILE keeps each kernel's input planes (its aged pool) and its
+outputs of one call on them (records, counts and lane state; the calls
+are deterministic), and --compare FILE runs each kernel once more on the
+inputs another checkout saved and holds the outputs against that
+checkout's: per scene and kernel, the planes that differ, their
+differing elements and largest difference. Two checkouts whose kernels
+compute the same thing bit for bit show none.
+Where the kernel reports it (`_cuda.kernel_info`), each kernel's
+registers, staged shared bytes and resident blocks per SM are printed.
 """
 
 import argparse
@@ -97,6 +107,27 @@ def device_us(fn, names, reps=20):
     return total / reps if total > 0 else None
 
 
+def compare_planes(mine, theirs):
+    """[(plane, differing elements, largest difference, elements beyond
+    rtol = atol = 2e-3)] of two lists of output planes, NaN equal to
+    NaN."""
+    import torch
+    diffs = []
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            diffs.append((i, "shape or type", None, None))
+            continue
+        ne = (a != b) & ~(torch.isnan(a) & torch.isnan(b)) \
+            if a.is_floating_point() else a != b
+        if ne.any():
+            d = (a[ne].double() - b[ne].double()).abs()
+            far = int((~torch.isclose(a.double(), b.double(), rtol=2e-3,
+                                      atol=2e-3, equal_nan=True)).sum())
+            diffs.append((i, int(ne.sum()),
+                          float(d.nan_to_num(float("inf")).max()), far))
+    return diffs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
@@ -106,6 +137,8 @@ def main():
                              "simple_light", "book1"])
     ap.add_argument("--out", default=os.path.join("build",
                                                   "time_fused_kernels.json"))
+    ap.add_argument("--save", help="file for the kernels' outputs")
+    ap.add_argument("--compare", help="outputs saved by another run")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -127,6 +160,10 @@ def main():
     n = 1 << 17
     results = {"repo": os.path.abspath(args.repo), "card": card,
                "scenes": {}}
+    saved = {}
+    other = torch.load(args.compare) if args.compare else {}
+    libs = {"K1": "bounce_fused_q", "K9": "bounce_fused_q",
+            "K6": "bounce_fused", "K8": "bounce_fused_pos"}
     for sc in args.scene:
         scene, cam = getattr(registry, sc)()
         if not bounce.supported(scene):
@@ -162,26 +199,60 @@ def main():
                                        width)
         pout = bounce.FusedOut.empty(n, cad, dev, positional=True)
         seed2 = torch.tensor([13, cad], dtype=torch.int32, device=dev)
-        calls = {
-            "K1": lambda: bounce.bounce_fused_q(tab, st, row, bg, seed4,
-                                                *state, out=out, **qkw),
-            "K9": lambda: bounce.bounce_fused_q_direct(
-                tab, st, row, bg, seed4, base, bufs, *state, out=out, **qkw),
-            "K6": lambda: bounce.bounce_fused(
-                tab, st, row, bg, seed1, *state, *refill, out=fout,
-                has_defocus=dfc, max_depth=cam.max_depth, n_inner=cad),
-            "K8": lambda: bounce.bounce_fused_pos(
-                tab, st, row, bg, seed2, *pstate, out=pout,
-                has_defocus=dfc, max_depth=cam.max_depth, n_inner=cad,
-                width=width, sqrt_spp=sq)}
+        # each kernel as a function of its input planes, and its outputs
+        runs = {
+            "K1": (state, lambda s: bounce.bounce_fused_q(
+                tab, st, row, bg, seed4, *s, out=out, **qkw)),
+            "K9": (state, lambda s: bounce.bounce_fused_q_direct(
+                tab, st, row, bg, seed4, base, bufs, *s, out=out, **qkw)),
+            "K6": (list(state) + list(refill), lambda s: bounce.bounce_fused(
+                tab, st, row, bg, seed1, *s, out=fout, has_defocus=dfc,
+                max_depth=cam.max_depth, n_inner=cad)),
+            "K8": (pstate, lambda s: bounce.bounce_fused_pos(
+                tab, st, row, bg, seed2, *s, out=pout, has_defocus=dfc,
+                max_depth=cam.max_depth, n_inner=cad, width=width,
+                sqrt_spp=sq))}
+        outputs = {
+            "K1": lambda: list(out.rec) + [out.seg, out.take, out.base,
+                                           out.cursor] + list(out.state),
+            "K9": lambda: [b[:cad] for b in bufs] + [out.seg, out.take]
+            + list(out.state),
+            "K6": lambda: list(fout.rec) + [fout.seg] + list(fout.state),
+            "K8": lambda: list(pout.rec) + [pout.seg] + list(pout.state)}
+
+        def run_on(k, inputs):
+            """The outputs of one call of kernel k on these inputs."""
+            runs[k][1]([x.to(dev) for x in inputs])
+            torch.cuda.synchronize()
+            return [t.detach().cpu().clone() for t in outputs[k]()]
+
         res = {}
-        for k, fn in calls.items():
-            res[k] = dict(ms=time_ms(fn, 20), host_us=host_us(fn),
-                          device_us=device_us(fn, DEVICE_NAMES[k]))
+        for k, (inputs, fn) in runs.items():
+            call = lambda: fn(inputs)
+            res[k] = dict(ms=time_ms(call, 20), host_us=host_us(call),
+                          device_us=device_us(call, DEVICE_NAMES[k]))
+            if hasattr(_cuda, "kernel_info"):
+                res[k]["info"] = _cuda.kernel_info(
+                    libs[k], bounce.fused_features(st), st["n_sph"],
+                    st["n_quad"], st["n_box"])
             print(f"{sc} {k} ({cad} levels, {n} lanes): {res[k]['ms']:.4f} ms "
                   f"per call, host {res[k]['host_us']:.1f} us, device "
-                  f"{res[k]['device_us']} us; {card}")
+                  f"{res[k]['device_us']} us; {res[k].get('info', '')}; "
+                  f"{card}")
+            key = f"{sc}/{k}"
+            saved[key] = dict(inputs=[x.cpu().clone() for x in inputs],
+                              outputs=run_on(k, inputs))
+            if key in other:
+                diffs = compare_planes(run_on(k, other[key]["inputs"]),
+                                       other[key]["outputs"])
+                results.setdefault("compare", {})[key] = diffs
+                print(f"{key} on the inputs of {args.compare}: "
+                      + ("bit for bit" if not diffs else "; ".join(
+                          f"plane {i}: {c} elements differ, largest {m}, "
+                          f"{f} beyond 2e-3" for i, c, m, f in diffs)))
         results["scenes"][sc] = res
+    if args.save:
+        torch.save(saved, args.save)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(results, fh, indent=1)

@@ -798,3 +798,186 @@ def test_textured_scene_kernels_match_plain(cuda, scene):
                                   *ptr, **pkw),
           bounce.bounce_fused_pos_ref(tables, st, cam_row, bg, seed2, *state,
                                       *ptr, **pkw))
+
+
+# the synthetic scan scene (scenes/synthetic.py) at MAX_PRIMS rows: spheres
+# past the kernels' staging budget, or quads past it; lambertian and metal
+SCAN_SETS = {"spheres": (3500, 300, 296), "quads": (200, 1800, 2096)}
+
+
+def _scan(dev, n, counts, seed=0):
+    """The scan scene's tables, statics, camera row and background at this
+    mix of rows, and a mixed lane state of rays among its primitives."""
+    from go_raytracer_tpu_torch.scenes import synthetic as syn
+    _, cam, tabs, st = syn.build(*counts, seed=seed, dielectric=False)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    state = [to(x) for x in syn.lane_state(n, seed + 1)]
+    return (cam, tuple(to(t) for t in tabs), st,
+            to(bounce.pack_camera(cam.derived())),
+            to(np.asarray(syn.CAMERA["background"], np.float32)), state)
+
+
+@pytest.mark.parametrize("mix", SCAN_SETS)
+def test_staged_scan_kernels_match_plain_at_one_level(cuda, mix):
+    """K1, K9, K6 and K8 on the scan scene at MAX_PRIMS rows (rows staged
+    in shared memory, then rows read from global memory), 512 blocks, one
+    level: the queue's outputs exact (takes, bases, cursor, the level-0
+    count, the starts and their ranks); flag words, alive bits, depths,
+    records and new rays within rtol = atol = 2e-3 on all but
+    MISMATCH_FRAC of the lanes (a ray grazing an edge may take the other
+    side: the kernel fuses multiply-adds); K9 equal to K1 bit for bit;
+    the coincident pair's tie to the first row."""
+    from go_raytracer_tpu_torch.scenes import synthetic as syn
+    n = 512 * bounce.BLOCK
+    cam, tables, st, cam_row, bg, state = _scan(cuda, n, SCAN_SETS[mix])
+    assert st["n_sph"] + st["n_quad"] + st["n_box"] == bounce.MAX_PRIMS
+    w, sq = cam.width, cam.spp_sqrt
+    npix = w * cam.image_height
+    qkw = dict(has_defocus=False, max_depth=50, n_inner=1, width=w,
+               sqrt_spp=sq, npix=npix)
+    seed4 = torch.tensor([-123456789, 1, 1000, npix * sq * sq],
+                         dtype=torch.int32, device=cuda)
+    k = bounce.FusedQOut.empty(n, 1, cuda)
+    bounce.bounce_fused_q(tables, st, cam_row, bg, seed4, *state, out=k,
+                          **qkw)
+    torch.cuda.synchronize()
+    p = bounce.FusedQOut.empty(n, 1, cuda)
+    bounce.bounce_fused_q_ref(tables, st, cam_row, bg, seed4, *state, out=p,
+                              **qkw)
+    for a, b in ((k.take, p.take), (k.base, p.base), (k.seg, p.seg),
+                 (k.cursor, p.cursor), (k.rec[3] & ~3, p.rec[3] & ~3)):
+        assert torch.equal(a, b)
+    for a, b in ((k.rec[3], p.rec[3]), (k.state[7], p.state[7]),
+                 (k.state[8], p.state[8])):
+        assert (a != b).float().mean() <= MISMATCH_FRAC
+    for a, b in zip(k.rec[:3], p.rec[:3]):
+        assert (~torch.isclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
+                ).float().mean() <= MISMATCH_FRAC
+    alive = (k.state[7] > 0) & (p.state[7] > 0)
+    for a, b in zip(k.state[:6], p.state[:6]):
+        assert (~torch.isclose(a[alive], b[alive], rtol=RTOL, atol=ATOL)
+                ).float().sum() <= MISMATCH_FRAC * n
+    fl0 = k.rec[3][0]
+    emit = ((fl0 & 4) != 0) & ((fl0 & 2) != 0)
+    v0 = torch.stack([k.rec[c][0] for c in range(3)], dim=1)
+    first = (v0 == torch.tensor(syn.TIE_FIRST, device=cuda)).all(1)
+    second = (v0 == torch.tensor(syn.TIE_SECOND, device=cuda)).all(1)
+    assert int(first[emit].sum()) > 1000 and not second.any()
+    bufs = [torch.zeros((3, n), device=cuda) for _ in range(3)] \
+        + [torch.zeros((3, n), dtype=torch.int32, device=cuda)]
+    base = torch.tensor([1], dtype=torch.int32, device=cuda)
+    bounce.bounce_fused_q_direct(tables, st, cam_row, bg, seed4, base, bufs,
+                                 *state, **qkw)
+    assert all(torch.equal(b[1], r[0]) for b, r in zip(bufs, k.rec))
+    seed = torch.tensor([-123456789], dtype=torch.int32, device=cuda)
+    refill = regen.queue_refill_planes(
+        torch.tensor(1000, device=cuda), state[7], npix * sq * sq, width=w,
+        npix=npix, sqrt_spp=sq)
+    rs = np.random.default_rng(4)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
+    ptr = [to(rs.integers(0, w, n)), to(rs.integers(0, w - 1, n)),
+           to(rs.integers(0, sq, n)), to(rs.integers(0, sq, n)),
+           to(rs.choice([0, 1, 2, 40], n))]
+    seed2 = torch.tensor([24680, 1], dtype=torch.int32, device=cuda)
+    kw = dict(has_defocus=False, max_depth=50, n_inner=1)
+    for fn, ref, args in (
+            (bounce.bounce_fused, bounce.bounce_fused_ref,
+             (seed, *state, *refill)),
+            (bounce.bounce_fused_pos, bounce.bounce_fused_pos_ref,
+             (seed2, *state, *ptr))):
+        extra = dict(width=w, sqrt_spp=sq) if fn is bounce.bounce_fused_pos \
+            else {}
+        kk = fn(tables, st, cam_row, bg, *args, **kw, **extra)
+        torch.cuda.synchronize()
+        pp = ref(tables, st, cam_row, bg, *args, **kw, **extra)
+        _fused_close(kk, pp)
+
+
+@pytest.mark.parametrize("mix", SCAN_SETS)
+def test_staged_scan_bounce_kernel_matches_plain(cuda, mix):
+    """K3 on the scan scene at MAX_PRIMS rows, one bounce from given
+    uniforms: alive and clamp flags, E, W and the scattered rays within
+    rtol = atol = 2e-3 on all but K3's fraction of the lanes (1e-3, as
+    chip_smoke holds K3)."""
+    n = 256 * bounce.BLOCK
+    _, tables, st, _, bg, state = _scan(cuda, n, SCAN_SETS[mix], seed=5)
+    o = torch.stack(state[:3], dim=1).contiguous()
+    d = torch.stack(state[3:6], dim=1).contiguous()
+    alive = state[7] > 0
+    u = torch.from_numpy(np.random.default_rng(6).uniform(
+        0, 1, (n, bounce.N_U)).astype(np.float32)).to(cuda)
+    k = bounce.bounce(tables, st, o, d, state[6], alive, u, bg)
+    torch.cuda.synchronize()
+    p = bounce.bounce_ref(tables, st, o, d, state[6], alive, u, bg)
+    frac = 1e-3
+    assert (k[5] != p[5]).float().mean() <= frac
+    assert (k[2] != p[2]).float().mean() <= frac
+    for a, b in zip(k[:2], p[:2]):
+        assert (~torch.isclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
+                ).any(-1).float().mean() <= frac
+    go = k[5] & p[5]
+    for a, b in zip(k[3:5], p[3:5]):
+        assert (~torch.isclose(a[go], b[go], rtol=RTOL, atol=ATOL)
+                ).any(-1).float().sum() <= frac * n
+
+
+def test_staged_scan_keeps_four_blocks_per_sm(cuda):
+    """Every fused variant keeps 4 resident blocks per SM with its staged
+    geometry, on the five dense registry scenes and on the scan scene at
+    MAX_PRIMS rows; the staged bytes stay within the budget."""
+    from go_raytracer_tpu_torch.ops import _cuda
+    from go_raytracer_tpu_torch.scenes import synthetic as syn
+    statics = [bounce.scene_statics(getattr(registry, sc)()[0])
+               for sc in ("cornell_box", "book3", "cornell_smoke",
+                          "simple_light", "book1")]
+    statics += [syn.build(*c, dielectric=False)[3]
+                for c in SCAN_SETS.values()]
+    for st in statics:
+        for lib in ("bounce_fused_q", "bounce_fused", "bounce_fused_pos"):
+            info = _cuda.kernel_info(lib, bounce.fused_features(st),
+                                     st["n_sph"], st["n_quad"], st["n_box"])
+            assert info["blocks_per_sm"] >= 4
+            assert 0 < info["dynamic_smem"] <= 54 * 1024
+
+
+@pytest.mark.parametrize("scene", ["book1", "scan_spheres"])
+def test_staged_scan_cull_changes_no_winner(cuda, scene):
+    """The sphere cull on the card (book1's 389 spheres in 49 blocks; the
+    scan scene's 3,500, of which 1,536 staged in 192 blocks): the kernels'
+    outputs on a table whose every 13th sphere row from the sixth is
+    cleared to kind -1 equal those on a table with the same rows moved
+    straight below the ground sphere, 1e6 down, bit for bit, at one level
+    and at 8 (a moved row stretches its block's bounds, so the two tables
+    cull different blocks; a skipped block or a cleared row decides
+    nothing). chip_smoke.py phase 23 holds the same at 131,072 lanes."""
+    n = 512 * bounce.BLOCK
+    if scene == "book1":
+        _, cam, tables, st, cam_row, bg, state = _cornell(cuda, n,
+                                                          scene="book1")
+    else:
+        cam, tables, st, cam_row, bg, state = _scan(cuda, n,
+                                                    SCAN_SETS["spheres"])
+    w, sq = cam.width, cam.spp_sqrt
+    npix = w * cam.image_height
+    rows = torch.arange(st["sph_base"] + 5, st["sph_base"] + st["n_sph"], 13,
+                        device=cuda)
+    cleared = tables[0].clone()
+    cleared[rows] = -1.0
+    moved = tables[0].clone()
+    moved[rows, 1:4] = torch.tensor([0.0, -1e6, 0.0], device=cuda)
+    moved[rows, 4:7] = 0.0
+    seed4 = torch.tensor([77, 1, 0, npix * sq * sq], dtype=torch.int32,
+                         device=cuda)
+    for levels in (1, 8):
+        qkw = dict(has_defocus=cam.defocus_angle > 0, max_depth=50,
+                   n_inner=levels, width=w, sqrt_spp=sq, npix=npix)
+        outs = []
+        for t in (cleared, moved):
+            o = bounce.FusedQOut.empty(n, levels, cuda)
+            bounce.bounce_fused_q((t,) + tables[1:], st, cam_row, bg, seed4,
+                                  *state, out=o, **qkw)
+            outs.append([x.view(torch.int32) if x.is_floating_point() else x
+                         for x in (*o.rec, o.seg, o.take, o.base, o.cursor,
+                                   *o.state)])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
