@@ -129,8 +129,21 @@ Phases (any failure exits non-zero; nothing is swallowed):
      outputs exact, the lanes' flags, alive bits and records within phases
      21-22's fractions, the new rays too at one level), K9 equal to K1 bit
      for bit, the coincident pair's tie going to the first row, K3 on the
-     scan scenes; and K1's device time per level on each scene;
-then the `kernels` JSON line (K1-K12), the nvidia-smi line, and the final
+     scan scenes; and K1's device time per level on each scene (quads
+     and book2 too);
+ 24. quads (the earth map on a quad) and book2 (the earth map on a
+     sphere; 1,006 spheres, 400 boxes of which 5 are read from global
+     memory, glass, two sphere media): their staged rows against the
+     kernel's shared memory, K1, K6 and K8 against their plain versions
+     on an aged pool as in phase 21 with each call's image lanes counted
+     and their texels held (TEXEL_MOVED_FRAC), K9 refusing both, the three
+     kernels timed with their bounds, both scenes at their registry
+     configuration (quads 400x400, book2 800x800, 100 spp, depth 50 and
+     40, 131072 lanes) through `cli.main` under `queue_ik`, `--schedule
+     queue` and `--schedule positional` with phase 22's gates, and
+     `--direct-rec` exiting 2 naming the image textures;
+then the `kernels` JSON line (K1-K12; K1, K6 and K8 name their image
+variant), the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -166,9 +179,15 @@ K1_OPS_PER_SEGMENT = 480
 # work) and the sine (~1,700); book1: 389 sphere tests x ~30 (~11,700),
 # shading, the sun's cone sample and sphere pdf (~220), the checker (~10),
 # metal and glass (~45)
+# quads: 5 quads x ~38, shading, the quad light's sample and pdf (~150),
+# the marble on the one marble quad (~1,700 on its hits, a fifth of them:
+# ~350) and an image lane's uv, index and texel (~40); book2: 1,006 sphere
+# tests x ~25 (~25,000), 400 box slabs x ~40 in object space (~16,000),
+# the quad, the two sphere media (~90), shading, the light's sample and pdf
+# and the dielectric (~300), the marble on its sphere's hits (~400)
 OPS_PER_SEGMENT = {"cornell_box": K1_OPS_PER_SEGMENT, "book3": 560,
                    "cornell_smoke": 470, "simple_light": 2000,
-                   "book1": 12000}
+                   "book1": 12000, "quads_scene": 700, "book2": 42000}
 # the new scenes' registry configurations: (-S number, mean path length)
 NEW_SCENES = {"book3": (3, 5.54), "cornell_smoke": (7, 2.91)}
 # the textured scenes' (phase 22): simpleLight's marble noise, book1's
@@ -195,6 +214,30 @@ TEX_MISMATCH_FRAC = {"simple_light": 2e-3, "book1": DIEL_MISMATCH_FRAC}
 # tonemap writes it 0, as the reference's PrintColor does. One pixel (3
 # values) per 9,000,000-path render was seen; 4 pixels are allowed
 TEX_NONFINITE_MAX = 12
+# the scenes with image textures (phase 24): quads' earth map on a quad,
+# book2's on a sphere beside every other feature of the fused kernels
+IMG_SCENES = {"quads_scene": (5, 1.47), "book2": (2, 5.08)}
+# quads is held to K1's default. book2's marble sphere is ~900 units from
+# the camera, where a root carries ~6e-4 units of float32 rounding, and
+# its marble (0.5 (1 + sin(0.2 z + 10 turb(p))), 7 octaves each as steep
+# as the first) turns a unit into ~100 rad: at one level 1,304 of its
+# 16,610 marble lanes (7.9%, 1.0% of all lanes) leave rtol 2e-3, against
+# 8 other lanes; over 8 levels of an aged pool 1.07e-2 of the records, and
+# the glass, the medium filling the glass orb and the fog flip 6.0e-3 of
+# the flag words (NVIDIA H100 80GB HBM3, 700 W). book2 is held to 2e-2.
+IMG_MISMATCH_FRAC = {"quads_scene": 2e-3, "book2": 2e-2}
+# of the image lanes that agree on their flags at level 0, those whose
+# texel may move to a neighbour (a hit point one rounding apart), measured
+# on NVIDIA H100 80GB HBM3, 700 W: quads 0 of 11,277 (K1, K6) and of 9,885
+# (K8); book2 6 of 12,477 (K1, K6: 4.8e-4) and 3 of 3,917 (K8, one of them
+# a lane whose winner flipped to the fog). book2's earth sphere is ~1,000
+# units from the camera and 100 in radius, so a root's discriminant
+# cancels ~100 to 1 and the hit carries ~3e-4 units of rounding; the JAX
+# package and the plain version part on 1 of 321 lanes the same way
+# (tests/test_torch_bounce.py)
+TEXEL_MOVED_FRAC = {"quads_scene": 1e-3, "book2": 2e-3}
+# how many columns away a moved texel may lie (texel_check in phase 24)
+TEXEL_COLS = 16
 # cornellBox's K1 per call as PERF.md §6 records it before this version of
 # the core (NVIDIA H100 80GB HBM3, 700 W)
 K1_EARLIER_MS = 0.1079
@@ -2099,11 +2142,100 @@ def main():
     phase_start(21)
     n, n_inner = 1 << 17, 8
 
-    def hold_dense_scene(tag, sc, frac, tex=False):
+    def texel_check(tag, sc, name, krec, prec, probe, weights, flags,
+                    images):
+        """The texels of one fused call on a scene with image textures,
+        against the plain version's (its `probe`: the texel each lane
+        read, per level), on the image lanes that agree on the record
+        planes `flags`, from the weights (the record planes `weights`):
+        where the kernel's leaves the plain one by more than rtol 1e-4 the
+        two read other texels if the three channels' ratios kernel/plain
+        differ (a texel of another colour), and only the pdf ratio moved if
+        they are one number (a light-pdf test that flipped). Held at level
+        0, where both ran on the same rays: at least 100 image lanes, the
+        texel the plain version's on all but TEXEL_MOVED_FRAC[sc] of the
+        agreeing lanes, and the other texel one within a row and
+        TEXEL_COLS columns of the plain one (the kernel's weight over the
+        plain pdf ratio, within rtol 1e-3: a uv one rounding apart, not a
+        wrong lookup; near a sphere's pole u moves 1/sin(theta) times as
+        far as the normal) on all but one lane in ten, or one lane: a lane
+        whose winner flipped to another diffuse one keeps its flags (book2:
+        the earth sphere in the plain version, the fog around it in the
+        kernel, its weight the fog's white). Later levels start from rays
+        the two computed apart by a rounding, which a far hit (book2's
+        marble, its earth sphere ~1,000 units away) carries into the next
+        uv: their counts are printed. Returns (image lanes, lanes whose
+        texel moved) at level 0."""
+        img = torch.stack(probe) >= 0
+        agree = img.clone()
+        for f in flags:
+            agree &= krec[f] == prec[f]
+        w_k = torch.stack([krec[c] for c in weights], -1)
+        w_p = torch.stack([prec[c] for c in weights], -1)
+        off = (~torch.isclose(w_k, w_p, rtol=1e-4, atol=0.0)).any(-1) & agree
+        # kernel/plain per channel, against the brightest channel's (a
+        # channel black in both agrees with any ratio)
+        q = w_k / w_p
+        q0 = q.gather(-1, w_p.argmax(-1, keepdim=True))
+        one_ratio = (torch.isclose(q, q0, rtol=1e-4, atol=0.0)
+                     | ((w_p == 0) & (w_k == 0))).all(-1)
+        moved = off & ~one_ratio
+        n_img, n_agree, n_moved, n_ratio = (
+            int(x[0].sum()) for x in (img, agree, moved, off & one_ratio))
+        # the moved lanes' texel: the kernel weight over the plain ratio
+        lanes = torch.nonzero(moved[0]).squeeze(1)
+        texels = images.reshape(-1, 3)
+        t_idx = probe[0][lanes]
+        t_p = texels[t_idx]
+        big = t_p.argmax(dim=1, keepdim=True)
+        implied = w_k[0][lanes] * (t_p.gather(1, big)
+                                   / w_p[0][lanes].gather(1, big))
+        hm, wm = images.shape[1], images.shape[2]
+        row, col = t_idx // wm % hm, t_idx % wm
+        base = t_idx - row * wm - col
+        step = torch.full_like(lanes, TEXEL_COLS + 1)
+        for di in range(-TEXEL_COLS, TEXEL_COLS + 1):
+            for dj in (-1, 0, 1):
+                # columns wrap (u's seam), rows clamp (the poles)
+                nb = base + (row + dj).clamp(0, hm - 1) * wm \
+                    + (col + di) % wm
+                hit = torch.isclose(implied, texels[nb], rtol=1e-3,
+                                    atol=1e-6).all(dim=1)
+                step = torch.where(hit, torch.minimum(
+                    step, torch.full_like(step, abs(di))), step)
+        near = step <= TEXEL_COLS
+        for k in torch.nonzero(~near).squeeze(1).tolist()[:3]:
+            print(f"[{tag}] {name}: moved lane {int(lanes[k])} (plain texel "
+                  f"row {int(row[k])} column {int(col[k])}, "
+                  f"{t_p[k].tolist()}; the kernel's weights over the plain "
+                  f"ratio {implied[k].tolist()}; weights kernel "
+                  f"{w_k[0][lanes[k]].tolist()} plain "
+                  f"{w_p[0][lanes[k]].tolist()})")
+        print(f"[{tag}] {name}: at level 0 {n_img} image lanes, {n_agree} "
+              f"of them agree on their flags, the texel moved on {n_moved} "
+              f"(limit {TEXEL_MOVED_FRAC[sc]} of them), {int(near.sum())} "
+              f"of those to a texel within a row and {TEXEL_COLS} columns "
+              f"(columns apart, each: {sorted(step.tolist())}), the pdf "
+              f"ratio alone on {n_ratio}; over all {img.shape[0]} levels "
+              f"{int(img.sum())} image lanes, {int(agree.sum())} agree, the "
+              f"texel moved on {int(moved.sum())}")
+        check(n_img >= 100 and n_moved <= TEXEL_MOVED_FRAC[sc] * n_agree
+              and n_moved - int(near.sum()) <= max(1, n_moved // 10),
+              f"{name}: too few image lanes, or the texel moved on "
+              f"{n_moved} of {n_agree} at level 0, or "
+              f"{n_moved - int(near.sum())} of them away from the texels "
+              f"around the plain one")
+        return n_img, n_moved
+
+    def hold_dense_scene(tag, sc, frac, tex=False, image=False):
         """K1, K9, K6 and K8 against their plain versions on a registry
         scene's tables and camera (its width, height, strata and defocus),
         131072 lanes, 8 levels, a mixed state: starts, ranks and time
-        planes exact, the rest within `frac` of the lanes."""
+        planes exact, the rest within `frac` of the lanes. With `image` (a
+        scene with image textures): the pool aged by K1 first, the queue
+        from the image's middle row, K9 refusing the scene, and each
+        call's texels held (`texel_check`). Returns the image lanes each
+        kernel shaded and whose texel moved, {kernel: (lanes, moved)}."""
         _, cam_s, tab_s, st_s, row_s, bg_s, state = cornell_inputs(
             dev, n, scene=sc)
         sq_s, w_s, h_s = cam_s.spp_sqrt, cam_s.width, cam_s.image_height
@@ -2112,17 +2244,28 @@ def main():
                     width=w_s, sqrt_spp=sq_s, npix=npix_s)
         print(f"[{tag}] {sc}: statics {st_s}; core variant "
               f"{bounce.fused_features(st_s)}; defocus {dfc}")
+        # the middle row's items: quads' first rows see no image
+        cur0 = (h_s // 2) * w_s if image else 1000
+        texels = {}
+        if image:
+            seed_a = torch.tensor([97, 1, cur0, npix_s * 10],
+                                  dtype=torch.int32, device=dev)
+            o_a = bounce.FusedQOut.empty(n, 1, dev)
+            state = aged_state(lambda st_: bounce.bounce_fused_q(
+                tab_s, st_s, row_s, bg_s, seed_a, *st_, out=o_a,
+                **dict(q_kw, n_inner=1))[4:], regen._init_state(n, dev))
         # K1 with starts at level 0 only: the starts, their ranks and the
         # time planes (PRNG slot 4) exact, the rest within `frac`
-        seed21 = torch.tensor([-123456789, 1, 1000, npix_s * 10],
+        seed21 = torch.tensor([-123456789, 1, cur0, npix_s * 10],
                               dtype=torch.int32, device=dev)
         k_o = bounce.FusedQOut.empty(n, n_inner, dev)
         bounce.bounce_fused_q(tab_s, st_s, row_s, bg_s, seed21, *state,
                               out=k_o, **q_kw)
         torch.cuda.synchronize()
         p_o = bounce.FusedQOut.empty(n, n_inner, dev)
+        probe = []
         bounce.bounce_fused_q_ref(tab_s, st_s, row_s, bg_s, seed21, *state,
-                                  out=p_o, **q_kw)
+                                  out=p_o, probe=probe, **q_kw)
         check(torch.equal(k_o.take, p_o.take)
               and torch.equal(k_o.base, p_o.base)
               and torch.equal(k_o.rec[3][0] & ~3, p_o.rec[3][0] & ~3)
@@ -2150,46 +2293,70 @@ def main():
               f"per level kernel {nan_k} plain {nan_p}")
         for what, mis in (("FL", fl_mis), ("alive", alive_mis), ("V", v_mis)):
             check(mis <= frac, f"K1 on {sc}: {what} mismatch {mis}")
-        # K9 against K1 bit for bit at a device base, and against its plain
-        # version
-        base21 = torch.tensor([3], dtype=torch.int32, device=dev)
-        kb = [torch.full((n_inner + 5, n), -7.5, device=dev)
-              for _ in range(3)] + [torch.full((n_inner + 5, n), -9,
-                                               dtype=torch.int32, device=dev)]
-        k9o = bounce.FusedQOut.empty(n, n_inner, dev)
-        bounce.bounce_fused_q_direct(tab_s, st_s, row_s, bg_s, seed21, base21,
-                                     kb, *state, out=k9o, **q_kw)
-        torch.cuda.synchronize()
-        lv = slice(3, 3 + n_inner)
-        check(all(torch.equal(b[lv], r) for b, r in zip(kb, k_o.rec))
-              and all(torch.equal(a, b) for a, b in zip(k9o.state, k_o.state))
-              and all(bool((b[:3] == b[0, 0]).all())
-                      and bool((b[3 + n_inner:] == b[0, 0]).all()) for b in kb),
-              f"K9 on {sc} differs from K1, or wrote outside its rows")
-        pb = [b.clone() for b in kb]
-        bounce.bounce_fused_q_direct_ref(tab_s, st_s, row_s, bg_s, seed21,
-                                         base21, pb, *state, **q_kw)
-        fl9 = ((kb[3][lv] & 7) != (pb[3][lv] & 7)).float().mean().item()
-        check(fl9 <= frac and torch.equal(kb[3][3] & ~3, pb[3][3] & ~3),
-              f"K9 on {sc}: flags differ from its plain version")
-        print(f"[{tag}] {sc}: K9 equal to K1 bit for bit at rows "
-              f"3..{2 + n_inner}, other rows untouched; vs plain FL mismatch "
-              f"{fl9:.2e}")
+        if image:
+            texels["K1"] = texel_check(tag, sc, f"K1 on {sc}",
+                                       k_o.rec, p_o.rec, probe, (0, 1, 2), (3,), tab_s[4])
+            base_i = torch.zeros(1, dtype=torch.int32, device=dev)
+            try:
+                bounce.bounce_fused_q_direct(
+                    tab_s, st_s, row_s, bg_s, seed21, base_i,
+                    [r.clone() for r in k_o.rec], *state, **q_kw)
+                refused = False
+            except NotImplementedError as e:
+                refused = "image textures" in str(e)
+            check(refused, f"K9 on {sc}: ran, or refused without naming the "
+                  f"image textures")
+            print(f"[{tag}] {sc}: K9 refuses the scene (image textures)")
+        if not image:
+            # K9 against K1 bit for bit at a device base, and against its
+            # plain version
+            base21 = torch.tensor([3], dtype=torch.int32, device=dev)
+            kb = [torch.full((n_inner + 5, n), -7.5, device=dev)
+                  for _ in range(3)] + [torch.full(
+                      (n_inner + 5, n), -9, dtype=torch.int32, device=dev)]
+            k9o = bounce.FusedQOut.empty(n, n_inner, dev)
+            bounce.bounce_fused_q_direct(tab_s, st_s, row_s, bg_s, seed21,
+                                         base21, kb, *state, out=k9o, **q_kw)
+            torch.cuda.synchronize()
+            lv = slice(3, 3 + n_inner)
+            check(all(torch.equal(b[lv], r) for b, r in zip(kb, k_o.rec))
+                  and all(torch.equal(a, b)
+                          for a, b in zip(k9o.state, k_o.state))
+                  and all(bool((b[:3] == b[0, 0]).all())
+                          and bool((b[3 + n_inner:] == b[0, 0]).all())
+                          for b in kb),
+                  f"K9 on {sc} differs from K1, or wrote outside its rows")
+            pb = [b.clone() for b in kb]
+            bounce.bounce_fused_q_direct_ref(tab_s, st_s, row_s, bg_s,
+                                             seed21, base21, pb, *state,
+                                             **q_kw)
+            fl9 = ((kb[3][lv] & 7) != (pb[3][lv] & 7)).float().mean().item()
+            check(fl9 <= frac and torch.equal(kb[3][3] & ~3, pb[3][3] & ~3),
+                  f"K9 on {sc}: flags differ from its plain version")
+            print(f"[{tag}] {sc}: K9 equal to K1 bit for bit at rows "
+                  f"3..{2 + n_inner}, other rows untouched; vs plain FL "
+                  f"mismatch {fl9:.2e}")
         # K6 on the refill planes of a real refill, K8 with rem mixed and
         # the refill cut after level 5
         r21 = regen.queue_refill_planes(
-            torch.tensor(1000, device=dev), state[7], npix_s * 10,
+            torch.tensor(cur0, device=dev), state[7], npix_s * 10,
             width=w_s, npix=npix_s, sqrt_spp=sq_s)
         f_kw = dict(has_defocus=dfc, max_depth=50, n_inner=n_inner)
         k6 = bounce.bounce_fused(tab_s, st_s, row_s, bg_s, seed6, *state,
                                  *r21, **f_kw)
         torch.cuda.synchronize()
+        probe = []
         p6 = bounce.bounce_fused_ref(tab_s, st_s, row_s, bg_s, seed6, *state,
-                                     *r21, **f_kw)
+                                     *r21, probe=probe, **f_kw)
         fused_pair(f"K6 on {sc}", k6, p6, frac, tag=tag, tex=tex)
+        if image:
+            texels["K6"] = texel_check(tag, sc, f"K6 on {sc}",
+                                       k6[0], p6[0], probe, (0, 1, 2), (3,), tab_s[4])
         rs = np.random.default_rng(5)
         to_f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
-        ptr21 = [to_f(rs.choice([0, 7, w_s - 1], n)),
+        # (image) every column: the edge columns of quads see no image
+        ptr21 = [to_f(rs.integers(0, w_s, n) if image
+                      else rs.choice([0, 7, w_s - 1], n)),
                  to_f(rs.integers(0, h_s - 1, n)),
                  to_f(rs.choice([0, sq_s - 1], n)),
                  to_f(rs.choice([0, 1, sq_s - 1], n)),
@@ -2199,8 +2366,9 @@ def main():
         k8 = bounce.bounce_fused_pos(tab_s, st_s, row_s, bg_s, seed21p, *state,
                                      *ptr21, **p_kw)
         torch.cuda.synchronize()
+        probe = []
         p8 = bounce.bounce_fused_pos_ref(tab_s, st_s, row_s, bg_s, seed21p,
-                                         *state, *ptr21, **p_kw)
+                                         *state, *ptr21, probe=probe, **p_kw)
         _, noflip21 = fused_pair(f"K8 on {sc}", k8, p8, frac, tag=tag,
                                  tex=tex)
         check(all(torch.equal(a[noflip21], b[noflip21])
@@ -2208,6 +2376,10 @@ def main():
               and torch.equal(k8[0][7][0], p8[0][7][0])
               and not k8[0][7][5:].any(),
               f"K8 on {sc}: pointer planes or starts differ")
+        if image:
+            texels["K8"] = texel_check(tag, sc, f"K8 on {sc}",
+                                       k8[0], p8[0], probe, (3, 4, 5), (6, 7), tab_s[4])
+        return texels
 
     for sc in NEW_SCENES:
         hold_dense_scene("21", sc, DIEL_MISMATCH_FRAC if sc == "book3"
@@ -2229,10 +2401,10 @@ def main():
                 ("positional", ["--schedule", "positional"],
                  "bounce_fused_pos"))
 
-    def render_dense_routes(tag, scenes, nonfinite_max=0):
+    def render_dense_routes(tag, scenes, nonfinite_max=0, routes=routes21):
         """Each scene at its registry configuration through `cli.main`
-        under the four routes: paths, non-finite pixels (at most
-        `nonfinite_max` values), segments per path within 5% of the
+        under `routes` (default the four): paths, non-finite pixels (at
+        most `nonfinite_max` values), segments per path within 5% of the
         registry's, `--direct-rec` with `queue_ik`'s segments, the
         schedules' channel means within 1e-2 of `queue_ik`'s. Returns
         {scene: {route: stats}}."""
@@ -2241,7 +2413,7 @@ def main():
             _, cam_s = cornell_inputs(dev, 8, scene=sc)[:2]
             paths_s = cam_s.width * cam_s.image_height * cam_s.spp_sqrt ** 2
             res = {}
-            for label, extra, kern in routes21:
+            for label, extra, kern in routes:
                 reset_counts()
                 st_r = run_cli_dense(num, extra, f"{sc}_{label}.ppm")
                 counts = {"bounce_fused_q": bounce.launches,
@@ -2257,7 +2429,8 @@ def main():
                 ratio = st_r["segments"] / st_r["paths"]
                 print(f"[{tag}] {sc} {cam_s.width}x{cam_s.image_height} "
                       f"{cam_s.samples_per_pixel}spp "
-                      f"({cam_s.spp_sqrt ** 2} strata) depth 50, 131072 "
+                      f"({cam_s.spp_sqrt ** 2} strata) depth "
+                      f"{cam_s.max_depth}, 131072 "
                       f"lanes, {label}, on {card}: paths {st_r['paths']}, "
                       f"segments {st_r['segments']} ({ratio:.4f}/path, "
                       f"registry {regen_len}), {st_r['rays_per_s']:.6g} "
@@ -2279,7 +2452,9 @@ def main():
                 check(counts[kern] > 0 and not any(counts[k] for k in others),
                       f"{sc} {label}: the render did not go through {kern} "
                       f"alone")
-            check(res["direct_rec"]["segments"] == res["queue_ik"]["segments"],
+            check("direct_rec" not in res
+                  or res["direct_rec"]["segments"]
+                  == res["queue_ik"]["segments"],
                   f"{sc}: --direct-rec segments differ from queue_ik's")
             for label in ("queue", "positional"):
                 check(np.abs(res[label]["means"]
@@ -2340,17 +2515,30 @@ def main():
                tag="22", tex=True)
     check(gray > 1000, "the texture test scene shaded too few noise lanes")
 
-    # K1, K9, K6 and K8 timed on both scenes at their registry cadence,
-    # each on an aged pool, with their bounds
-    tex_times = {}
-    for sc in TEX_SCENES:
+    def time_dense_scene(tag, sc):
+        """K1, K9 (not on a scene with image textures, which it refuses),
+        K6 and K8 timed on a registry scene at its cadence, each on an aged
+        pool, with their plain versions and bounds. The bytes count the
+        tables once, an image table by the texels the call reads (12 B for
+        each image lane of the plain version's call on the same inputs).
+        Returns {kernel: ms, kernel + " bound": (ms, by)}."""
         _, cam_s, tab_s, st_s, row_s, bg_s, _ = cornell_inputs(dev, 8,
                                                                scene=sc)
+        image = st_s["has_image"]
+
+        def texel_bytes(ref, *args, **kw):
+            """12 B for each texel the plain version's call reads."""
+            if not image:
+                return 0
+            probe = []
+            ref(*args, probe=probe, **kw)
+            return 12 * int(sum((p_ >= 0).sum() for p_ in probe))
+
         cad_s, sq_s, w_s = cam_s.regen_cadence, cam_s.spp_sqrt, cam_s.width
         npix_s = w_s * cam_s.image_height
         total_s = npix_s * sq_s * sq_s
         dfc = cam_s.defocus_angle > 0
-        tb_bytes = sum(t.numel() * 4 for t in tab_s)
+        tb_bytes = sum(t.numel() * t.element_size() for t in tab_s[:4])
         kw_s = dict(has_defocus=dfc, max_depth=50, n_inner=cad_s, width=w_s,
                     sqrt_spp=sq_s, npix=npix_s)
         seed_s = torch.tensor([7, cad_s, 0, total_s], dtype=torch.int32,
@@ -2365,16 +2553,19 @@ def main():
         segs_s = int(o_s.seg.sum())
         t["K1 plain"] = time_ms(lambda: bounce.bounce_fused_q_ref(
             tab_s, st_s, row_s, bg_s, seed_s, *st0_s, out=o_s, **kw_s), 3)
-        bufs_s = regen.WindowBuffers.empty(n, 2, cad_s, dev).rec
-        base_s = torch.zeros(1, dtype=torch.int32, device=dev)
-        t["K9"] = time_ms(lambda: bounce.bounce_fused_q_direct(
-            tab_s, st_s, row_s, bg_s, seed_s, base_s, bufs_s, *st0_s,
-            out=o_s, **kw_s), 20)
-        t["K9 plain"] = time_ms(lambda: bounce.bounce_fused_q_direct_ref(
-            tab_s, st_s, row_s, bg_s, seed_s, base_s, bufs_s, *st0_s,
-            out=o_s, **kw_s), 3)
-        b1 = fused_bound(n * (36 + 36) + cad_s * n * 16 + tb_bytes, segs_s,
-                         sc)
+        if not image:
+            bufs_s = regen.WindowBuffers.empty(n, 2, cad_s, dev).rec
+            base_s = torch.zeros(1, dtype=torch.int32, device=dev)
+            t["K9"] = time_ms(lambda: bounce.bounce_fused_q_direct(
+                tab_s, st_s, row_s, bg_s, seed_s, base_s, bufs_s, *st0_s,
+                out=o_s, **kw_s), 20)
+            t["K9 plain"] = time_ms(lambda: bounce.bounce_fused_q_direct_ref(
+                tab_s, st_s, row_s, bg_s, seed_s, base_s, bufs_s, *st0_s,
+                out=o_s, **kw_s), 3)
+        b1 = fused_bound(n * (36 + 36) + cad_s * n * 16 + tb_bytes
+                         + texel_bytes(bounce.bounce_fused_q_ref, tab_s,
+                                       st_s, row_s, bg_s, seed_s, *st0_s,
+                                       out=o_s, **kw_s), segs_s, sc)
         f_kw = dict(has_defocus=dfc, max_depth=50, n_inner=cad_s)
         nxt_s = [0]
 
@@ -2396,8 +2587,10 @@ def main():
         segs6s = int(o6s.seg.sum())
         t["K6 plain"] = time_ms(lambda: bounce.bounce_fused_ref(
             tab_s, st_s, row_s, bg_s, seed6, *st6s, *r6s, out=o6s, **f_kw), 3)
-        b6 = fused_bound(n * (36 + 20 + 36) + cad_s * n * 16 + tb_bytes,
-                         segs6s, sc)
+        b6 = fused_bound(n * (36 + 20 + 36) + cad_s * n * 16 + tb_bytes
+                         + texel_bytes(bounce.bounce_fused_ref, tab_s, st_s,
+                                       row_s, bg_s, seed6, *st6s, *r6s,
+                                       out=o6s, **f_kw), segs6s, sc)
         q_s, lb_s, _, _ = regen.pos_tables(npix_s, sq_s * sq_s, n)
         o8s = bounce.FusedOut.empty(n, cad_s, dev, positional=True)
         p_kw = dict(width=w_s, sqrt_spp=sq_s, **f_kw)
@@ -2410,18 +2603,28 @@ def main():
         segs8s = int(o8s.seg.sum())
         t["K8 plain"] = time_ms(lambda: bounce.bounce_fused_pos_ref(
             tab_s, st_s, row_s, bg_s, seed8s, *st8s, out=o8s, **p_kw), 3)
-        b8 = fused_bound(n * (56 + 56) + cad_s * n * 32 + tb_bytes, segs8s,
-                         sc)
-        tex_times[sc] = t
-        print(f"[22] {sc}, {n} lanes x {cad_s} level(s) per call, on {card}:"
-              f" K1 ({segs_s} segments) {t['K1']:.4f} ms, plain "
-              f"{t['K1 plain']:.3f} ms, bound {b1[0]:.4f} ms ({b1[1]}); K9 "
-              f"{t['K9']:.4f} ms, plain {t['K9 plain']:.3f} ms; K6 ({segs6s}"
+        b8 = fused_bound(n * (56 + 56) + cad_s * n * 32 + tb_bytes
+                         + texel_bytes(bounce.bounce_fused_pos_ref, tab_s,
+                                       st_s, row_s, bg_s, seed8s, *st8s,
+                                       out=o8s, **p_kw), segs8s, sc)
+        k9_txt = ("K9 refuses the scene" if image else
+                  f"K9 {t['K9']:.4f} ms, plain {t['K9 plain']:.3f} ms")
+        print(f"[{tag}] {sc}, {n} lanes x {cad_s} level(s) per call, on "
+              f"{card}: K1 ({segs_s} segments) {t['K1']:.4f} ms, plain "
+              f"{t['K1 plain']:.3f} ms, bound {b1[0]:.4f} ms ({b1[1]}); "
+              f"{k9_txt}; K6 ({segs6s}"
               f" segments) {t['K6']:.4f} ms, plain {t['K6 plain']:.3f} ms, "
               f"bound {b6[0]:.4f} ms ({b6[1]}); K8 ({segs8s} segments) "
               f"{t['K8']:.4f} ms, plain {t['K8 plain']:.3f} ms, bound "
               f"{b8[0]:.4f} ms ({b8[1]}); {OPS_PER_SEGMENT[sc]} operations "
               f"per segment")
+        t.update({"K1 bound": b1, "K6 bound": b6, "K8 bound": b8})
+        return t
+
+    # K1, K9, K6 and K8 timed on both scenes at their registry cadence,
+    # each on an aged pool, with their bounds
+    for sc in TEX_SCENES:
+        time_dense_scene("22", sc)
 
     # the registry configurations through the CLI under the four routes;
     # these scenes' lights can be sampled exactly edge-on, where the
@@ -2460,7 +2663,7 @@ def main():
                for nm, cnt in scan_sets.items()}
     dense23 = {sc: cornell_inputs(dev, n, scene=sc)
                for sc in ("cornell_box", "book3", "cornell_smoke",
-                          "simple_light", "book1")}
+                          "simple_light", "book1", "quads_scene", "book2")}
     all23 = {**dense23, **scan_in}
     # every variant's registers, staged bytes and resident blocks per SM
     for sc, inp in all23.items():
@@ -2745,13 +2948,72 @@ def main():
               f"between CUDA events ({cad_s} level(s) a call, {n} lanes, "
               f"aged pool, {int(o_s.seg.sum())} segments a call) on {card}")
 
+    # ---- 24. quads and book2: image textures read inside K1, K6, K8 -----
+    phase_start(24)
+    # book2 is the first registry scene that does not stage whole: the
+    # staged prefix of each section (bounce_core.cuh `stage_layout`), held
+    # against the dynamic shared memory the kernel launches with
+    for sc in IMG_SCENES:
+        st_i = dense23[sc][3]
+        cnt = (st_i["n_sph"], st_i["n_quad"], st_i["n_box"])
+        room = 54 * 1024 // 16
+        sph = min(cnt[0], room // 18 * 8)
+        blk = -(-sph // 8)
+        room -= blk * 18
+        quad = min(cnt[1], room // 3)
+        room -= quad * 3
+        box = min(cnt[2], room // 3)
+        stage_b = (blk * 18 + quad * 3 + box * 3) * 16
+        inf = _cuda.kernel_info("bounce_fused_q", bounce.fused_features(st_i),
+                                *cnt)
+        print(f"[24] {sc}: staged {sph} of {cnt[0]} spheres ({blk} blocks), "
+              f"{quad} of {cnt[1]} quads, {box} of {cnt[2]} boxes in "
+              f"{stage_b} B (the kernel's {inf['dynamic_smem']} B); rows "
+              f"read from global memory: {cnt[0] - sph} spheres, "
+              f"{cnt[1] - quad} quads, {cnt[2] - box} boxes")
+        check(stage_b == inf["dynamic_smem"],
+              f"{sc}: staged bytes {inf['dynamic_smem']} != {stage_b}")
+    # K1, K6 and K8 against their plain versions on an aged pool, their
+    # texels held; K9 refuses the scenes
+    img_texels = {sc: hold_dense_scene("24", sc, IMG_MISMATCH_FRAC[sc],
+                                       tex=True, image=True)
+                  for sc in IMG_SCENES}
+    img_times = {sc: time_dense_scene("24", sc) for sc in IMG_SCENES}
+    # the registry configurations through the CLI under queue_ik, queue and
+    # positional; --direct-rec exits 2 naming the image textures
+    img_res = render_dense_routes(
+        "24", IMG_SCENES, nonfinite_max=TEX_NONFINITE_MAX,
+        routes=[r for r in routes21 if r[0] != "direct_rec"])
+    for sc, (num, _) in IMG_SCENES.items():
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["-S", str(num), "--direct-rec", "--quiet", "-o",
+                           os.path.join(out_dir, f"{sc}_direct.ppm")])
+        print(f"[24] {sc} --direct-rec: exit {rc}, "
+              f"{err.getvalue().strip()!r}")
+        check(rc == 2 and "image textures" in err.getvalue(),
+              f"{sc} --direct-rec: exit {rc} without naming image textures")
+    img_launches = {k: sum(img_res[sc][label]["launches"][k]
+                           for sc in IMG_SCENES for label in img_res[sc])
+                    for k in ("bounce_fused_q", "bounce_fused",
+                              "bounce_fused_pos")}
+    print(f"[24] image scenes: texels (image lanes, moved) {img_texels}; "
+          f"launches of the image variant over the six renders "
+          f"{img_launches}")
+    # the image variant in the kernels line: feature bit 5 of the core
+    # (ops/bounce.fused_features), and its launches in phase 24's renders
+    img_variant = {k: f"image variant (feature bit {bounce.FEAT_IMG}: "
+                      f"quads, book2): {v} launches in phase 24's renders"
+                   for k, v in img_launches.items()}
+
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_q.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:2196",
          "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_bound_by, "library_ms": None},
+         "bound_by": k1_bound_by, "library_ms": None,
+         "variants": img_variant["bounce_fused_q"]},
         {"name": "reverse_harvest_levels", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/harvest.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/harvest.py:273",
@@ -2781,7 +3043,8 @@ def main():
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:1577",
          "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_ms,
          "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by,
-         "library_ms": None},
+         "library_ms": None,
+         "variants": img_variant["bounce_fused"]},
         {"name": "reverse_harvest", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/harvest_rows.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/harvest.py:225",
@@ -2793,7 +3056,8 @@ def main():
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:1842",
          "launches": k8_launches, "max_abs_err": k8_err, "ms": k8_ms,
          "plain_ms": k8_plain_ms, "bound_ms": k8_bound, "bound_by": k8_by,
-         "library_ms": None},
+         "library_ms": None,
+         "variants": img_variant["bounce_fused_pos"]},
         {"name": "bounce_fused_q_direct", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_q.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:2343",

@@ -5,9 +5,12 @@ the reference binary (main.go:416-480): -S scene number, -o output file,
 Runs on the GPU; `--cpu` runs the plain PyTorch versions of the kernels
 on the CPU instead. Without a GPU and without `--cpu` it exits with an
 error rather than falling back. An unknown -S exits with 2 and the list of
-valid scenes. `-S 1` (book1), `-S 3` (book3), `-S 4` (simpleLight), `-S 6`
-(cornellBox) and `-S 7` (cornellSmoke) run the dense path; a scene with
-image textures (`-S 2`, `-S 5`) exits with 2 and a message naming them.
+valid scenes. `-S 1` (book1), `-S 2` (book2), `-S 3` (book3), `-S 4`
+(simpleLight), `-S 5` (quads), `-S 6` (cornellBox) and `-S 7`
+(cornellSmoke) run the dense path, book2 and quads with their image
+textures read inside the kernels; `--direct-rec` on a scene with image
+textures exits with 2 and a message naming them, as the JAX package
+refuses it.
 `-S 8` (a mesh) runs the mesh path; `--mesh` picks its closest-hit route:
 `binned` (default; `--b1-fused` fuses each round into one kernel),
 `binned2` (the persistent-block intersector) or `walk` (the BVH8 walk;

@@ -805,8 +805,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     if direct_rec and scene.has_image:
         raise ValueError(
             "direct_rec: the direct-record path excludes scenes with image "
-            "textures (their texel patch needs each level's planes), as in "
-            "the JAX package")
+            "textures, as in the JAX package")
     use_fused = bounce_mod.supported(scene)
     use_ext = (not use_fused and scene.has_tri_bvh
                and bounce_mod.supported_ext(scene))

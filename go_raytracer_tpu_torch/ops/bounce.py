@@ -35,12 +35,14 @@ Counterpart of the JAX package's `ops/pallas/bounce.py`. Three parts:
 The four fused kernels cover the scenes `supported()` accepts: spheres
 (moving ones too), quads and (rotated) fused boxes; lambertian, metal,
 dielectric, diffuse-light and isotropic materials; constant-density
-media; solid, checker and noise (perlin, marble, turbulent) textures;
-quad and sphere lights; camera rays with or without defocus. `bounce`
-covers spheres, quads, boxes, lambertian, metal and diffuse-light
-materials, solid textures, quad and sphere lights and the external mesh
-hit (`supported_ext`). Everything else (image textures, triangle lights)
-raises; nothing falls back. All share one bounce core (`_bounce_core_ref`
+media; solid, checker, noise (perlin, marble, turbulent) and image
+textures (K9, `bounce_fused_q_direct`, refuses images, as the JAX
+package's direct-record path does); quad and sphere lights; camera rays
+with or without defocus. `bounce` covers spheres, quads, boxes,
+lambertian, metal and diffuse-light materials, solid textures, quad and
+sphere lights and the external mesh hit (`supported_ext`). Everything
+else (an image-textured mesh, triangle lights) raises; nothing falls
+back. All share one bounce core (`_bounce_core_ref`
 here, `csrc/bounce_core.cuh` on the card, compiled once per feature set),
 and the fused ones one PRNG and one camera ray generation
 (`_camera_rays_ref`, `csrc/fused_common.cuh`).
@@ -83,6 +85,8 @@ N_U_RAYGEN = 5   # camera ray generation: jitter x/y, defocus a/b, time
 
 # the CUDA kernel's block size; the lane count must be a multiple of it
 BLOCK = 256
+# feature bit of the fused kernels' image variant (csrc/fused_common.cuh)
+FEAT_IMG = 32
 
 # Launches of the CUDA kernel through `bounce_fused_q` and
 # `bounce_fused_q_direct` (one per call each).
@@ -117,8 +121,7 @@ MAX_MEDIA = 8
 
 def _refused_statics(st: dict) -> list:
     """What in these statics the fused kernels do not compute, in words."""
-    named = [("image textures", st["has_image"]),
-             ("an external mesh hit", st["ext_hit"]),
+    named = [("an external mesh hit", st["ext_hit"]),
              (f"more than {MAX_MEDIA} media", st["n_media"] > MAX_MEDIA),
              (f"no primitive or more than {MAX_PRIMS}",
               not 0 < st["n_sph"] + st["n_quad"] + st["n_box"] <= MAX_PRIMS),
@@ -130,9 +133,9 @@ def _refused_statics(st: dict) -> list:
 def supported_statics(st: dict) -> bool:
     """The fused kernels' subset, read from `scene_statics`: spheres, quads
     and fused boxes; lambertian, metal, dielectric, diffuse-light and
-    isotropic materials; constant-density media; solid, checker and noise
-    (perlin, marble, turbulent) textures. Image textures are a later slice
-    (ROADMAP.md)."""
+    isotropic materials; constant-density media; solid, checker, noise
+    (perlin, marble, turbulent) and image textures; at most MAX_PRIMS rows,
+    MAX_LIGHTS lights and MAX_MEDIA media, and no external mesh hit."""
     return not _refused_statics(st)
 
 
@@ -157,15 +160,18 @@ def fused_features(st: dict) -> int:
     the fr column (metal fuzz or dielectric index) with the dielectric
     branch, bit 2 isotropic scattering with the media loop, bit 3 the
     texture value (the checker select and the noise), on when the layout
-    has a scale column. A scene without spheres, fr column, media and
-    textures runs the core compiled without them. The kernels add bit 4,
-    the sphere cull of the staged scan, themselves, for a table with more
-    than one block of 8 staged spheres (csrc/fused_common.cuh)."""
+    has a scale column or the scene has images; bit 5 (FEAT_IMG) the image
+    texel read inside the kernel, only ever with bit 3. A scene without
+    spheres, fr column, media and textures runs the core compiled without
+    them. The kernels add bit 4, the sphere cull of the staged scan,
+    themselves, for a table with more than one block of 8 staged spheres
+    (csrc/fused_common.cuh)."""
     lay = _mat_layout(st)
     return ((1 if st["n_sph"] else 0)
             | (2 if "fr" in lay else 0)
             | (4 if st["has_isotropic"] else 0)
-            | (8 if "scale" in lay else 0))
+            | (8 if "scale" in lay or st["has_image"] else 0)
+            | (FEAT_IMG if st["has_image"] else 0))
 
 
 def supported_ext_statics(st: dict) -> bool:
@@ -250,7 +256,11 @@ def pack_scene(scene: T.Scene):
     (the reference's strict-`<` tie-break); lights (L, L_COLS); media
     (M, M_COLS); and the 1-row block-AABB placeholder (the JAX package's
     `cull=False` table; its culled variant serves an unported experiment).
-    Returns float32 numpy arrays (prims, lights, media, blk)."""
+    Returns numpy arrays (prims, lights, media, blk), float32, and when the
+    scene has image textures also its image table: the texels (n_img, Hm,
+    Wm, 3) float32, padded to the largest image, and each image's (w, h)
+    (n_img, 2) int32, both contiguous (the fused kernels read the texel at
+    a hit's uv from them)."""
     st = scene_statics(scene)
     lay = _mat_layout(st)
     p_cols = MAT_BASE + len(lay)
@@ -331,6 +341,10 @@ def pack_scene(scene: T.Scene):
         + [md.box_min[:, i] for i in range(3)]
         + [md.box_max[:, i] for i in range(3)] + [md.neg_inv_density]
         + [alb[:, i] for i in range(3)], axis=1).astype(np.float32)
+    if st["has_image"]:
+        return (prims, lights, med, blk,
+                np.array(scene.images.data, np.float32),
+                np.array(scene.images.wh, np.int32))
     return prims, lights, med, blk
 
 
@@ -526,8 +540,78 @@ def _texture_value(st, mat, hx, hy, hz, lit):
     return tuple(torch.where(need, gray, t) for t in tex)
 
 
+def _atan2(y, x):
+    """atan2 by the JAX kernel's degree-9 minimax polynomial (A&S 4.4.49,
+    ~1e-5 rad), op for op: the sphere uv must index the same texel."""
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    hi = torch.maximum(ax, ay)
+    t = torch.minimum(ax, ay) / torch.clamp(hi, min=1e-30)
+    t2 = t * t
+    r = t * (0.9998660 + t2 * (-0.3302995 + t2 * (0.1801410 + t2 * (
+        -0.0851330 + 0.0208351 * t2))))
+    r = torch.where(ay > ax, 0.5 * math.pi - r, r)
+    r = torch.where(x < 0.0, math.pi - r, r)
+    return torch.where(y < 0.0, -r, r)
+
+
+def _acos(x):
+    """acos(x) = atan2(sqrt(1 - x^2), x), the JAX kernel's. The square root
+    is taken in float64 and rounded once, the correctly rounded float32
+    root that XLA and the card's `__fsqrt_rn` give: PyTorch's float32
+    `sqrt` on the CPU may be one ulp off, which can move the texel."""
+    root = torch.sqrt(torch.clamp(1.0 - x * x, min=0.0).to(torch.float64))
+    return _atan2(root.to(x.dtype), x)
+
+
+def image_texel_index(wh, hm: int, wm: int, img_id, u, v):
+    """Flat index into the (n_img, Hm, Wm, 3) texel table, as rows of 3,
+    of the nearest texel at (u, v) (texture.go:70-86, the JAX package's
+    `sampling.image_value`): truncated mod-repeat, v flipped, truncation to
+    int and the clamp to the image's own (w, h) (imageLoader.go:49-62)."""
+    uu = torch.abs(torch.fmod(u, 1.0))
+    vv = 1.0 - torch.abs(torch.fmod(v, 1.0))
+    w = wh[img_id, 0]
+    h = wh[img_id, 1]
+    i = (uu * (w.to(u.dtype) - 1.0)).to(torch.int32)
+    j = (vv * (h.to(u.dtype) - 1.0)).to(torch.int32)
+    i = torch.minimum(torch.clamp(i, min=0), w - 1).to(torch.int64)
+    j = torch.minimum(torch.clamp(j, min=0), h - 1).to(torch.int64)
+    return (img_id.to(torch.int64) * hm + j) * wm + i
+
+
+def image_value(data, wh, img_id, u, v):
+    """(N, 3) nearest texels of images `img_id` at (u, v): the JAX
+    package's `sampling.image_value` on the `pack_scene` image table."""
+    idx = image_texel_index(wh, data.shape[1], data.shape[2], img_id, u, v)
+    return data.reshape(-1, 3)[idx]
+
+
+def _image_albedo(images, is_img, img_f, is_sph, out_n, quad_uv):
+    """The texel albedo of the lanes `is_img` (lit, diffuse, their row's
+    texk an image; the JAX package's patch `patch_image_weight_planes`):
+    uv of a sphere from its pre-flip outward normal `out_n`
+    (objects.go:44-50), of a quad its (alpha, beta) `quad_uv`
+    (objects.go:196-199); image id `img_f` (the seed_img column). Returns
+    the (r, g, b) planes and the texel's flat index (-1 off `is_img`)."""
+    data, wh = images
+    ox_, oy_, oz_ = out_n
+    theta = _acos(torch.clamp(-oy_, -1.0, 1.0))
+    phi = _atan2(-oz_, ox_) + math.pi
+    uu = torch.where(is_sph, phi * (0.5 * INV_PI), quad_uv[0])
+    vv = torch.where(is_sph, theta * INV_PI, quad_uv[1])
+    zero = torch.zeros_like(uu)
+    img_id = torch.where(is_img, img_f, 0.0).to(torch.int64)
+    idx = image_texel_index(wh, data.shape[1], data.shape[2], img_id,
+                            torch.where(is_img, uu, zero),
+                            torch.where(is_img, vv, zero))
+    texel = data.reshape(-1, 3)[idx]
+    return (texel[:, 0], texel[:, 1], texel[:, 2],
+            torch.where(is_img, idx, -1))
+
+
 def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
-                     tm=None, ext=None, med=None):
+                     tm=None, ext=None, med=None, images=None, probe=None):
     """One bounce of the supported subset (camera.go:293-331): closest hit
     over the sphere, quad and box sections, the external mesh hit folded
     in (`ext`, with st["ext_hit"]), the media (`med`, the `pack_scene`
@@ -539,8 +623,13 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     carries the winner's row and gathers its columns once after it (the
     same values, bit for bit: the noise seed is a bit pattern). `u` holds
     N_U + n_media uniform planes; `tm` (ray time) is needed when the scene
-    has spheres. Returns (vr, vg, vb, emit, cf, new origin xyz, new
-    direction xyz, alive_out)."""
+    has spheres. With st["has_image"], `images` = the `pack_scene` image
+    table (texels, wh) and a diffuse lane whose row has an image texture
+    takes the texel at its uv as albedo (`_image_albedo`): its record is
+    the JAX kernel's after `patch_image_weight_planes`. `probe` (a list,
+    for the tests) receives each call's (N,) int64 flat texel index of
+    those lanes, -1 elsewhere. Returns (vr, vg, vb, emit, cf, new origin
+    xyz, new direction xyz, alive_out)."""
     P = prims.tolist()
     Lr = lights.tolist()
     lay = _mat_layout(st)
@@ -549,8 +638,10 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     n_hy = torch.zeros_like(ox)
     n_hz = torch.zeros_like(ox)
     row = torch.full_like(ox, -1, dtype=torch.int64)
+    # the winning quad's (alpha, beta), its texture uv: kept with images
+    quad_uv = [torch.zeros_like(ox), torch.zeros_like(ox)]
 
-    def update(ok, t_c, cnx, cny, cnz, r):
+    def update(ok, t_c, cnx, cny, cnz, r, uv=None):
         nonlocal t_best, n_hx, n_hy, n_hz, row
         ok = ok & (t_c < t_best)
         t_best = torch.where(ok, t_c, t_best)
@@ -558,6 +649,9 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
         n_hy = torch.where(ok, cny, n_hy)
         n_hz = torch.where(ok, cnz, n_hz)
         row = torch.where(ok, r, row)
+        if uv is not None:
+            for k in range(2):
+                quad_uv[k] = torch.where(ok, uv[k], quad_uv[k])
 
     # spheres (objects.go:83-115): the normal slots carry c - o until the
     # winner's outward normal (p - c) / r is resolved below
@@ -596,7 +690,8 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
               & (T_MIN <= t_q) & (t_q <= t_best)
               & (alpha >= 0.0) & (alpha <= 1.0)
               & (beta >= 0.0) & (beta <= 1.0))
-        update(ok, t_q, g[1], g[2], g[3], r)
+        update(ok, t_q, g[1], g[2], g[3], r,
+               (alpha, beta) if st["has_image"] else None)
 
     if st["n_box"]:
         ix_w, iy_w, iz_w = (1.0 / _safe_d(dx), 1.0 / _safe_d(dy),
@@ -689,6 +784,7 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
         n_hx = torch.where(sph_ok, (t_safe * dx - n_hx) * inv_r, n_hx)
         n_hy = torch.where(sph_ok, (t_safe * dy - n_hy) * inv_r, n_hy)
         n_hz = torch.where(sph_ok, (t_safe * dz - n_hz) * inv_r, n_hz)
+    out_n = (n_hx, n_hy, n_hz)    # pre-flip outward normal: the sphere uv
     # media force frontFace = true (medium.go:55)
     front = (_dot3(dx, dy, dz, n_hx, n_hy, n_hz) < 0.0) | win_med
     n_hx = torch.where(front, n_hx, -n_hx)
@@ -705,6 +801,17 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     if st["has_isotropic"]:
         is_iso = lit & (m_kind == float(T.MAT_ISOTROPIC))
         diffuse = diffuse | is_iso
+    if st["has_image"]:
+        # a diffuse lane on an image row shades with the texel at its uv
+        # (the albedo of an emitting or metal row stays its even colour)
+        is_img = diffuse & (mat["texk"] == float(T.TEX_IMAGE))
+        is_sph = (row >= 0) & (row < st["quad_base"])
+        *texel, tex_idx = _image_albedo(images, is_img, mat["seed_img"],
+                                        is_sph, out_n, quad_uv)
+        tex_r, tex_g, tex_b = (torch.where(is_img, a, b) for a, b in
+                               zip(texel, (tex_r, tex_g, tex_b)))
+        if probe is not None:
+            probe.append(tex_idx)
     e_on = is_light & front
     zero = torch.zeros_like(ox)
     er = torch.where(miss, bg[0], torch.where(e_on, tex_r, zero))
@@ -932,11 +1039,12 @@ class FusedQOut:
 def bounce_fused_q_ref(tables, statics, cam_row, bg, seed4, ox, oy, oz,
                        dx, dy, dz, time, alive_i32, depth, *, has_defocus,
                        max_depth, n_inner=1, width=0, sqrt_spp=0, npix=0,
-                       out: Optional[FusedQOut] = None):
+                       out: Optional[FusedQOut] = None, probe=None):
     """Plain PyTorch version of `bounce_fused_q` (same arguments, same
     results): `n_inner` levels, each one global exclusive rank of the
     dead lanes in flat lane order, the refill, camera rays, one bounce,
-    the records and the depth cap.
+    the records and the depth cap. `probe` (a list) receives each level's
+    texel indices (`_bounce_core_ref`).
 
     FL bits: 0 firefly clamp, 1 emit, 2 started, and for a started lane
     bits 3.. its rank among the level's starts (so item = base + FL >> 3)."""
@@ -981,7 +1089,8 @@ def bounce_fused_q_ref(tables, statics, cam_row, bg, seed4, ox, oy, oz,
         (vr, vg, vb, emit, cf, nox, noy, noz, ndx, ndy, ndz,
          alive_out) = _bounce_core_ref(st, prims, lights, bgl, ox, oy, oz,
                                        dx, dy, dz, alive, u, tm=tm,
-                                       med=tables[2])
+                                       med=tables[2], images=tables[4:6],
+                                       probe=probe)
         out.rec[0][j] = vr
         out.rec[1][j] = vg
         out.rec[2][j] = vb
@@ -1010,19 +1119,27 @@ def bounce_fused_q_ref(tables, statics, cam_row, bg, seed4, ox, oy, oz,
 
 # The table ints of every fused kernel's argument struct, in the order of
 # FUSED_TABLE_FIELDS in csrc/fused_common.cuh.
+# The image table's pointers come first (texels, wh), then the ints.
+_FUSED_TABLE_PTRS = ("img", "img_wh")
 _FUSED_TABLE_INTS = ("p_cols", "sph_base", "n_sph", "quad_base", "n_quad",
                      "box_base", "n_box", "n_lights", "n_lights_live",
                      "fr_col", "n_media", "feat", "texk_col", "scale_col",
-                     "seed_col", "defocus")
+                     "seed_col", "defocus", "img_h", "img_w")
 
 
-def _fused_table_ints(statics, prims, has_defocus: bool) -> dict:
-    """Values of `_FUSED_TABLE_INTS` for a scene's statics and prim table
-    and the camera's defocus; a column the layout lacks is -1."""
+def _fused_table_ints(statics, tables, has_defocus: bool) -> dict:
+    """Values of `_FUSED_TABLE_INTS` and `_FUSED_TABLE_PTRS` for a scene's
+    statics and tables and the camera's defocus; a column the layout lacks
+    is -1, the image table of a scene without images null and 0 x 0."""
     st = statics
+    prims = tables[0]
     lay = _mat_layout(st)
     col = lambda name: MAT_BASE + lay.index(name) if name in lay else -1
-    return dict(p_cols=prims.shape[1], sph_base=st["sph_base"],
+    img = dict(img=None, img_wh=None, img_h=0, img_w=0)
+    if st["has_image"]:
+        img = dict(img=tables[4].data_ptr(), img_wh=tables[5].data_ptr(),
+                   img_h=tables[4].shape[1], img_w=tables[4].shape[2])
+    return dict(**img, p_cols=prims.shape[1], sph_base=st["sph_base"],
                 n_sph=st["n_sph"], quad_base=st["quad_base"],
                 n_quad=st["n_quad"], box_base=st["box_base"],
                 n_box=st["n_box"], n_lights=st["n_lights"],
@@ -1034,16 +1151,24 @@ def _fused_table_ints(statics, prims, has_defocus: bool) -> dict:
 
 def _fused_table_checks(tables, statics):
     """The (name, tensor, dtype, shape) checks of the tables a fused kernel
-    reads: prims, lights, and the media table, whose n_media rows it reads
-    (raises here if it has fewer)."""
+    reads: prims, lights, the media table, whose n_media rows it reads
+    (raises here if it has fewer), and with images the image table."""
     med = tables[2]
     if med.dim() != 2 or med.shape[1] != M_COLS \
             or med.shape[0] < statics["n_media"]:
         raise ValueError(f"media table: shape {tuple(med.shape)}, expected "
                          f"at least ({statics['n_media']}, {M_COLS})")
     f32 = torch.float32
-    return [("prims", tables[0], f32, None), ("lights", tables[1], f32, None),
-            ("med", med, f32, None)]
+    checks = [("prims", tables[0], f32, None),
+              ("lights", tables[1], f32, None), ("med", med, f32, None)]
+    if statics["has_image"]:
+        if len(tables) < 6 or tables[4].dim() != 4 or tables[4].shape[3] != 3:
+            raise ValueError("a scene with images needs pack_scene's image "
+                             "table (n_img, Hm, Wm, 3) and wh (n_img, 2)")
+        checks += [("images", tables[4], f32, None),
+                   ("images wh", tables[5], torch.int32,
+                    (tables[4].shape[0], 2))]
+    return checks
 
 
 class _FusedQArgs(ctypes.Structure):
@@ -1055,7 +1180,8 @@ class _FusedQArgs(ctypes.Structure):
         "alive_in", "depth_in",
         "ox", "oy", "oz", "dx", "dy", "dz", "tm", "alive", "depth",
         "vr", "vg", "vb", "fl", "seg", "take", "base", "cursor_out",
-        "dead_cnt", "cur_buf", "lvl_base")] + [(name, ctypes.c_int) for name in (
+        "dead_cnt", "cur_buf", "lvl_base") + _FUSED_TABLE_PTRS] + [
+            (name, ctypes.c_int) for name in (
             _FUSED_TABLE_INTS + ("n", "n_inner", "max_depth", "width",
                                  "sqrt_spp", "npix", "rec_levels"))]
 
@@ -1123,7 +1249,7 @@ def _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state, *,
         base=p(out.base), cursor_out=p(out.cursor),
         dead_cnt=p(scratch), cur_buf=p(scratch) + 4 * 2 * (n // BLOCK),
         lvl_base=None if lvl_base is None else p(lvl_base),
-        rec_levels=rec_levels, **_fused_table_ints(st, prims, has_defocus),
+        rec_levels=rec_levels, **_fused_table_ints(st, tables, has_defocus),
         n=n,
         n_inner=n_inner, max_depth=max_depth, width=width,
         sqrt_spp=sqrt_spp, npix=npix)
@@ -1173,6 +1299,16 @@ def bounce_fused_q(tables, statics, cam_row, bg, seed4, ox, oy, oz, dx, dy,
     return (tuple(out.rec), None, out.seg, out.take) + tuple(out.state)
 
 
+def _check_direct(statics):
+    if not supported_statics(statics):
+        raise NotImplementedError(
+            "scene outside this kernel's subset (see supported())")
+    if statics["has_image"]:
+        raise NotImplementedError(
+            "bounce_fused_q_direct: the direct-record path excludes scenes "
+            "with image textures, as in the JAX package")
+
+
 def bounce_fused_q_direct_ref(tables, statics, cam_row, bg, seed4, base,
                               rec_bufs, ox, oy, oz, dx, dy, dz, time,
                               alive_i32, depth, *, has_defocus, max_depth,
@@ -1182,6 +1318,7 @@ def bounce_fused_q_direct_ref(tables, statics, cam_row, bg, seed4, base,
     same results): `bounce_fused_q_ref`, its records copied to rows
     base[0] .. base[0] + n_inner - 1 of the buffers (the rows that
     exist)."""
+    _check_direct(statics)
     n = ox.shape[0]
     if out is None:
         out = FusedQOut.empty(n, n_inner, ox.device)
@@ -1216,10 +1353,9 @@ def bounce_fused_q_direct(tables, statics, cam_row, bg, seed4, base,
     receives the counts, bases, cursor and state as for `bounce_fused_q`.
 
     CUDA tensors launch the kernel's direct entry point; CPU tensors run
-    `bounce_fused_q_direct_ref`."""
-    if not supported_statics(statics):
-        raise NotImplementedError(
-            "scene outside this kernel's subset (see supported())")
+    `bounce_fused_q_direct_ref`. A scene with image textures raises, as
+    the JAX package's direct-record path excludes them."""
+    _check_direct(statics)
     if len(rec_bufs) != 4 or any(r.shape != rec_bufs[0].shape
                                  or r.dim() != 2 for r in rec_bufs):
         raise ValueError("rec_bufs must be four (S, N) buffers")
@@ -1294,13 +1430,13 @@ def _finish_fused(out, seg_counts, state):
 def bounce_fused_ref(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy,
                      dz, time, alive_i32, depth, take_i32, pi, pj, si, sj, *,
                      has_defocus, max_depth, n_inner=1,
-                     out: Optional[FusedOut] = None):
+                     out: Optional[FusedOut] = None, probe=None):
     """Plain PyTorch version of `bounce_fused` (same arguments, same
     results), op for op as the JAX kernel: the camera rays blended into
     the taken lanes from PRNG slots 0-4, then per level j one bounce from
     slots 5 + k j .. (k = N_U + n_media uniforms per level: the last
     n_media feed the media), the merged V/FL records, the alive count and
-    the depth cap."""
+    the depth cap. `probe`: as `bounce_fused_q_ref`'s."""
     _check_fused(statics)
     prims, lights = tables[0], tables[1]
     n = ox.shape[0]
@@ -1330,7 +1466,8 @@ def bounce_fused_ref(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy,
         (vr, vg, vb, emit, cf, nox, noy, noz, ndx, ndy, ndz,
          alive_out) = _bounce_core_ref(statics, prims, lights, bgl, ox, oy,
                                        oz, dx, dy, dz, alive, u, tm=tm,
-                                       med=tables[2])
+                                       med=tables[2], images=tables[4:6],
+                                       probe=probe)
         out.rec[0][j] = vr
         out.rec[1][j] = vg
         out.rec[2][j] = vb
@@ -1348,7 +1485,8 @@ def bounce_fused_ref(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy,
 def bounce_fused_pos_ref(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx,
                          dy, dz, time, alive_i32, depth, pi, pj, si, sj, rem,
                          *, has_defocus, max_depth, n_inner=1, width=0,
-                         sqrt_spp=0, out: Optional[FusedOut] = None):
+                         sqrt_spp=0, out: Optional[FusedOut] = None,
+                         probe=None):
     """Plain PyTorch version of `bounce_fused_pos` (same arguments, same
     results), op for op as the JAX kernel. Per level j < seed2[1], a dead
     lane with rem > 0.5 starts its next item: the started flag is recorded,
@@ -1356,7 +1494,8 @@ def bounce_fused_pos_ref(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx,
     N_U + n_media slots per level), and the item pointer advances by carry
     selects (sj, then si, then pi, then pj) that keep the planes exact
     integers; then one bounce from slots k j + 5 .., the unmerged E / W /
-    clamp records, the alive count and the depth cap."""
+    clamp records, the alive count and the depth cap. `probe`: as
+    `bounce_fused_q_ref`'s."""
     _check_fused(statics)
     prims, lights = tables[0], tables[1]
     n = ox.shape[0]
@@ -1413,7 +1552,8 @@ def bounce_fused_pos_ref(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx,
         (vr, vg, vb, emit, cf, nox, noy, noz, ndx, ndy, ndz,
          alive_out) = _bounce_core_ref(statics, prims, lights, bgl, ox, oy,
                                        oz, dx, dy, dz, alive, u, tm=tm,
-                                       med=tables[2])
+                                       med=tables[2], images=tables[4:6],
+                                       probe=probe)
         for c, v in enumerate((vr, vg, vb)):
             out.rec[c][j] = torch.where(emit, v, zero)
             out.rec[3 + c][j] = torch.where(emit, zero, v)
@@ -1441,7 +1581,7 @@ _FusedArgs = _args_struct(
     "_FusedArgs",
     ("prims", "lights", "med", "cam", "bg", "seed")
     + tuple(k + "_in" for k in STATE_NAMES) + ("take",) + POS_NAMES[:4]
-    + STATE_NAMES + ("vr", "vg", "vb", "fl", "seg"),
+    + STATE_NAMES + ("vr", "vg", "vb", "fl", "seg") + _FUSED_TABLE_PTRS,
     _FUSED_TABLE_INTS + ("n", "n_inner", "max_depth"))
 
 # Mirror of `FusedPosArgs` in csrc/bounce_fused_pos.cu (field for field).
@@ -1450,7 +1590,8 @@ _FusedPosArgs = _args_struct(
     ("prims", "lights", "med", "cam", "bg", "seed2")
     + tuple(k + "_in" for k in STATE_NAMES + POS_NAMES)
     + STATE_NAMES + POS_NAMES
-    + ("er", "eg", "eb", "wr", "wg", "wb", "cf", "st", "seg"),
+    + ("er", "eg", "eb", "wr", "wg", "wb", "cf", "st", "seg")
+    + _FUSED_TABLE_PTRS,
     _FUSED_TABLE_INTS + ("n", "n_inner", "max_depth", "width", "sqrt_spp"))
 
 
@@ -1494,7 +1635,7 @@ def _launch_fused(lib, struct, tables, statics, cam_row, bg, seed_field, seed,
         **{k: p(t) for k, t in zip(names, out.state)},
         **{nm: p(t) for nm, t, _ in extra_in},
         **{nm: p(t) for nm, t in zip(rec_names, out.rec)}, seg=p(out.seg),
-        **_fused_table_ints(st, prims, has_defocus), n=n, n_inner=n_inner,
+        **_fused_table_ints(st, tables, has_defocus), n=n, n_inner=n_inner,
         **ints)
     err = getattr(_cuda.library(lib), _cuda.ENTRY[lib])(
         ctypes.addressof(a),

@@ -11,9 +11,10 @@
 // The core is compiled once per feature set, as the TPU kernel is traced
 // once per scene's statics: SPH the sphere section and the deferred sphere
 // normal, DIEL the dielectric branch, MED the media loop and isotropic
-// scattering, TEX the texture value (the checker select and the noise). A
-// scene without them (cornellBox) runs code that has none of their
-// branches or registers. Metal is a runtime branch of every variant.
+// scattering, TEX the texture value (the checker select and the noise), IMG
+// (only with TEX) the image texel. A scene without them (cornellBox) runs
+// code that has none of their branches or registers. Metal is a runtime
+// branch of every variant.
 //
 // The closest-hit loops carry the winner's row, and its material columns
 // are read once after them (kind, even colour, fr; with TEX also the odd
@@ -28,6 +29,21 @@
 // noise(scale p)), marble 0.5 (1 + sin(scale pz + 10 turb(p))) or
 // turbulent turb(p), branched on texk per lane: a lane pays the 8 or 56
 // hashed gradients of its own kind and no other lane pays them.
+//
+// The image texel (IMG). The TPU kernel cannot gather per lane, so it
+// writes each lane's diffuse pdf ratio, uv and image id as four more record
+// planes, and XLA patches the weight to texel(u, v) * ratio afterwards
+// (`patch_image_weight_planes`). The card can gather: a diffuse lane whose
+// row has an image texture reads its texel here, three loads from a table
+// that fits in L2 (the earth map is 6.3 MB as float32), and shades with it
+// in the albedo's place, so its record is that patched weight and the
+// kernels write no extra plane. The uv is the winning quad's (alpha, beta),
+// kept by the scan in this variant only, or a sphere's from its pre-flip
+// outward normal through the TPU kernel's atan2/acos polynomial; the
+// polynomial, the uv and the texel index have their roundings written out
+// (`__fmul_rn`, `__fadd_rn`, `__fdiv_rn`, `__fsqrt_rn`) so that nvcc
+// contracts none of them and the index is the plain version's from the
+// same normal.
 //
 // Table layouts (ops/bounce.py): primitive row = 13 geometry columns then
 // the material block (kind, even rgb, odd rgb, [texk], [fr], [scale],
@@ -48,10 +64,12 @@
 // with a zero normal, so its `|dn| >= 1e-8` fails as its kind test did. The
 // material columns stay in global memory and are read once, for the winner,
 // after the loops. The block stages a prefix of each section in section
-// order within STAGE_BYTES (`stage_layout`; every registry scene fits
-// whole, book1's 389 spheres in 14,112 B with their block bounds), and the
-// rows past it are read from global memory by the same row test, in the
-// same order, so a table of MAX_PRIMS rows gives the same winners. The
+// order within STAGE_BYTES (`stage_layout`; book1's 389 spheres fit in
+// 14,112 B with their block bounds; book2's 1,006 spheres take 126 blocks,
+// 36,288 B, its quad 48 B and 395 of its 400 boxes the rest, so its last 5
+// boxes are read from global memory), and the rows past it are read from
+// global memory by the same row test, in the same order, so a table of
+// MAX_PRIMS rows gives the same winners. The
 // per-row arithmetic is the one of the row-major loop it replaces,
 // expression for expression; a sphere row whose discriminant is negative
 // skips the square root and the root selection (exact: such a row cannot
@@ -88,6 +106,7 @@
 #define MAT_DIELECTRIC 2.0f
 #define MAT_DIFFUSE_LIGHT 3.0f
 #define MAT_ISOTROPIC 4.0f
+#define TEX_IMAGE 2.0f
 #define TEX_PERLIN 3.0f
 #define TEX_MARBLE 4.0f
 #define TEX_TURBULENT 5.0f
@@ -182,8 +201,14 @@ struct BounceTables {
   int fr_col;  // column of the metal fuzz / dielectric index, -1 if none
   int n_media;
   // columns of the texture kind, the checker/noise scale and the noise seed
-  // bits, -1 where the layout lacks them (read by the TEX variants only)
+  // bits (the image id on an image row), -1 where the layout lacks them
+  // (read by the TEX variants only)
   int texk_col, scale_col, seed_col;
+  // the image table (IMG variants only): texels (n_img, img_h, img_w, 3),
+  // padded to the largest image, and each image's (w, h)
+  const float* img;
+  const int* img_wh;
+  int img_h, img_w;
 };
 
 // The block's staged geometry (`stage_geometry`, `stage_layout` of the
@@ -392,6 +417,51 @@ __device__ __forceinline__ void load_mat(const float* g, const BounceTables& T, 
   if (T.fr_col >= 0) m_fr = __ldg(g + T.fr_col);
 }
 
+// atan2 by the TPU kernel's degree-9 minimax polynomial (A&S 4.4.49, ~1e-5
+// rad; `_atan2` in ops/bounce.py), every rounding written out so that nvcc
+// contracts none: the sphere uv must index the plain version's texel. The
+// constants are the float32 values of the JAX kernel's.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float hi = fmaxf(ax, ay);
+  const float t = __fdiv_rn(fminf(ax, ay), fmaxf(hi, 0x1.4484cp-100f));  // 1e-30
+  const float t2 = __fmul_rn(t, t);
+  float p = __fadd_rn(-0x1.5cb46cp-4f, __fmul_rn(0x1.555cbep-6f, t2));  // -0.085133, 0.0208351
+  p = __fadd_rn(0x1.70edc4p-3f, __fmul_rn(t2, p));                      // 0.180141
+  p = __fadd_rn(-0x1.523a08p-2f, __fmul_rn(t2, p));                     // -0.3302995
+  p = __fadd_rn(0x1.ffee7p-1f, __fmul_rn(t2, p));                       // 0.999866
+  float r = __fmul_rn(t, p);
+  if (ay > ax) r = __fsub_rn(0x1.921fb6p+0f, r);  // pi / 2
+  if (x < 0.0f) r = __fsub_rn(0x1.921fb6p+1f, r);  // pi
+  return y < 0.0f ? -r : r;
+}
+
+// The texture uv of a sphere hit from its outward normal (objects.go:44-50):
+// u = (atan2(-z, x) + pi) / 2 pi, v = acos(-y) / pi, as the TPU kernel.
+__device__ __forceinline__ void sphere_uv(float nx, float ny, float nz, float& u, float& v) {
+  const float c = fminf(fmaxf(-ny, -1.0f), 1.0f);
+  const float theta = atan2_poly(__fsqrt_rn(fmaxf(0.0f, __fsub_rn(1.0f, __fmul_rn(c, c)))), c);
+  const float phi = __fadd_rn(atan2_poly(-nz, nx), 0x1.921fb6p+1f);
+  u = __fmul_rn(phi, 0x1.45f306p-3f);    // 1 / 2 pi
+  v = __fmul_rn(theta, 0x1.45f306p-2f);  // 1 / pi
+}
+
+// The nearest texel of image `id` at (u, v) (texture.go:70-86,
+// `image_texel_index` in ops/bounce.py): truncated mod-repeat, v flipped,
+// truncation to int, the clamp to the image's own (w, h).
+__device__ __forceinline__ void image_texel(const BounceTables& T, int id, float u, float v,
+                                            float& r, float& g, float& b) {
+  const float uu = fabsf(fmodf(u, 1.0f));
+  const float vv = __fsub_rn(1.0f, fabsf(fmodf(v, 1.0f)));
+  const int w = __ldg(T.img_wh + 2 * id), h = __ldg(T.img_wh + 2 * id + 1);
+  const int i = min(max((int)__fmul_rn(uu, (float)w - 1.0f), 0), w - 1);
+  const int j = min(max((int)__fmul_rn(vv, (float)h - 1.0f), 0), h - 1);
+  const float* px = T.img + (((size_t)id * T.img_h + j) * T.img_w + i) * 3;
+  r = __ldg(px);
+  g = __ldg(px + 1);
+  b = __ldg(px + 2);
+}
+
 // v kept at least 1e-30 away from zero, its sign kept
 __device__ __forceinline__ float safe_d(float v) {
   return fabsf(v) < 1e-30f ? (v < 0.0f ? -1e-30f : 1e-30f) : v;
@@ -435,7 +505,9 @@ __device__ __forceinline__ void onb_transform(float nx, float ny, float nz, floa
 // holds the N_U uniforms of the level; `u_med(m)` returns medium m's.
 // CULL: the staged sphere rows by blocks (`sphere_block_hit`), for a table
 // whose staged spheres make more than one block (stage_geometry's bounds).
-template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL = false, class UMed>
+// IMG (with TEX): a diffuse lane on an image row shades with its texel.
+template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL = false, bool IMG = false,
+          class UMed>
 __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float ox, float oy,
                                                     float oz, float dx, float dy, float dz,
                                                     float tm, const float* u,
@@ -446,8 +518,10 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
   const StageLayout stg = stage_layout(T.n_sph, T.n_quad, T.n_box);
   float t_best = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
   float m_kind = 0.0f, tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f, m_fr = 0.0f;
+  static_assert(TEX || !IMG, "the image variant is a texture variant");
   bool win_sphere = false, win_med = false;
   int win_row = -1;  // the winning primitive row, -1 if none
+  float win_al = 0.0f, win_be = 0.0f;  // IMG: the winning quad's (alpha, beta)
 
   // ---- closest hit: spheres (objects.go:83-115) ---------------------------
   // the normal slots carry c - o until the winner's (p - c) / r is resolved
@@ -521,6 +595,10 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
       nz = n.z;
       win_sphere = false;
       win_row = row;
+      if constexpr (IMG) {  // the quad's texture uv (objects.go:196-199)
+        win_al = alpha;
+        win_be = beta;
+      }
     }
   };
   {
@@ -684,7 +762,8 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
     if (win_row >= 0) {
       const float* g = P + win_row * pc;
       load_mat(g, T, m_kind, tex_r, tex_g, tex_b, m_fr);
-      const float sc = __ldg(g + T.scale_col);
+      // an image scene may have no scale column: its rows select even
+      const float sc = (!IMG || T.scale_col >= 0) ? __ldg(g + T.scale_col) : 0.0f;
       const int fsum = (int)floorf(sc * hx) + (int)floorf(sc * hy) + (int)floorf(sc * hz);
       if (fsum & 1) {  // odd cell: the odd colour
         tex_r = __ldg(g + MAT_BASE + 4);
@@ -713,6 +792,18 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
       nx = (ts * dx - nx) * inv_r;
       ny = (ts * dy - ny) * inv_r;
       nz = (ts * dz - nz) * inv_r;
+    }
+  }
+  // ---- the image texel (texture.go:70-86) on a diffuse lane whose row has
+  // an image texture, from the pre-flip outward normal or the quad's uv
+  if constexpr (IMG) {
+    if (win_row >= 0 && (m_kind == MAT_LAMBERTIAN || (MED && m_kind == MAT_ISOTROPIC))) {
+      const float* g = P + win_row * pc;
+      if (__ldg(g + T.texk_col) == TEX_IMAGE) {
+        float uu = win_al, vv = win_be;
+        if (SPH && win_sphere) sphere_uv(nx, ny, nz, uu, vv);
+        image_texel(T, (int)__ldg(g + T.seed_col), uu, vv, tex_r, tex_g, tex_b);
+      }
     }
   }
   // face-forward flip (hittable.go:27-34), from the un-flipped outward

@@ -34,7 +34,7 @@
 //
 // The bounce itself is `bounce_core` (bounce_core.cuh), whose precision note
 // applies here, compiled once per feature set of the scene (fused_common.cuh's
-// FEATURE_SWITCH picks the variant); its staged scan reads the geometry
+// FEATURE_SWITCH picks the variant; an image scene's reads its texels); its staged scan reads the geometry
 // that each block copies into shared memory once for all its levels. The
 // PRNG and the ray generation are fused_common.cuh's.
 
@@ -60,7 +60,7 @@ struct FusedPosArgs {
   int n, n_inner, max_depth, width, sqrt_spp;
 };
 
-template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL>
+template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL, bool IMG>
 __global__ void __launch_bounds__(BLOCK, 4) bounce_fused_pos_levels(FusedPosArgs a) {
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   float ox = a.ox_in[lane], oy = a.oy_in[lane], oz = a.oz_in[lane];
@@ -73,7 +73,7 @@ __global__ void __launch_bounds__(BLOCK, 4) bounce_fused_pos_levels(FusedPosArgs
   float rem = a.rem_in[lane];
   // the geometry into shared memory once for all levels, before any branch
   // on the lane (the lane's loads above are in flight meanwhile)
-  const BounceTables T = fused_tables<SPH, DIEL, MED, TEX>(a);
+  const BounceTables T = fused_tables<SPH, DIEL, MED, TEX, IMG>(a);
   stage_geometry(T, CULL);
 
   const uint32_t seed_mix = (uint32_t)a.seed2[0] * 0x9E3779B9u;
@@ -126,7 +126,7 @@ __global__ void __launch_bounds__(BLOCK, 4) bounce_fused_pos_levels(FusedPosArgs
       for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + N_U_RAYGEN + k);
       const HashMediaU um{ulane, seed_mix, slot0 + N_U_RAYGEN};
       const BounceResult r =
-          bounce_core<SPH, DIEL, MED, TEX, CULL>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
+          bounce_core<SPH, DIEL, MED, TEX, CULL, IMG>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
       vr = r.vr;
       vg = r.vg;
       vb = r.vb;
@@ -175,9 +175,9 @@ extern "C" int grt_bounce_fused_pos(const FusedPosArgs* args, void* stream) {
   const int smem = fused_stage_bytes(a.feat, a.n_sph, a.n_quad, a.n_box);
   cudaError_t err = cudaMemsetAsync(a.seg, 0, sizeof(int) * a.n_inner, s);
   if (err != cudaSuccess) return (int)err;
-#define LAUNCH_LEVELS(S, D, M, X, C)                                                          \
-  if ((err = allow_smem((const void*)bounce_fused_pos_levels<S, D, M, X, C>, smem)) == cudaSuccess) \
-  bounce_fused_pos_levels<S, D, M, X, C><<<a.n / BLOCK, BLOCK, smem, s>>>(a)
+#define LAUNCH_LEVELS(S, D, M, X, C, I)                                                          \
+  if ((err = allow_smem((const void*)bounce_fused_pos_levels<S, D, M, X, C, I>, smem)) == cudaSuccess) \
+  bounce_fused_pos_levels<S, D, M, X, C, I><<<a.n / BLOCK, BLOCK, smem, s>>>(a)
   FEATURE_SWITCH(with_cull(a.feat, a.n_sph, a.n_quad, a.n_box), LAUNCH_LEVELS)
 #undef LAUNCH_LEVELS
   if (err != cudaSuccess) return (int)err;
@@ -189,8 +189,8 @@ extern "C" int grt_bounce_fused_pos(const FusedPosArgs* args, void* stream) {
 extern "C" int grt_kernel_info(int feat, int n_sph, int n_quad, int n_box, int* out) {
   const int smem = fused_stage_bytes(feat, n_sph, n_quad, n_box);
   int err = 0;
-#define INFO(S, D, M, X, C) \
-  err = kernel_info((const void*)bounce_fused_pos_levels<S, D, M, X, C>, BLOCK, smem, out)
+#define INFO(S, D, M, X, C, I) \
+  err = kernel_info((const void*)bounce_fused_pos_levels<S, D, M, X, C, I>, BLOCK, smem, out)
   FEATURE_SWITCH(with_cull(feat, n_sph, n_quad, n_box), INFO)
 #undef INFO
   return err;

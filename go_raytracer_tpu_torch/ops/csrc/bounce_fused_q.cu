@@ -42,13 +42,15 @@
 // n) at row lvl_base[0] + j, the base read on the device from a (1,) int32
 // tensor, so the host loop passes the whole buffers and a device base instead
 // of slicing them per call; a row past rec_levels is not written. Every other
-// row keeps its contents. What bounds it is K1's.
+// row keeps its contents. What bounds it is K1's. It refuses the image
+// variant (feature bit 5), as the JAX package's direct-record path excludes
+// scenes with image textures.
 //
 // The bounce itself (closest hit, media, shading, sampling) is `bounce_core`
 // in bounce_core.cuh, shared with bounce.cu; its precision note applies
 // here. `fused_q_level` is compiled once per feature set of the core
 // (spheres, the fr column with dielectric, media with isotropic, textures,
-// the sphere cull) and the entry points launch the scene's variant with
+// the sphere cull, the image texel) and the entry points launch the scene's variant with
 // the staged geometry's dynamic shared memory. Level j draws its uniforms from
 // PRNG slots j * (N_U_RAYGEN + N_U + n_media) on: five for the camera ray,
 // nine for the bounce, one per medium, as the TPU kernel does. The PRNG and
@@ -100,14 +102,14 @@ count_dead(const int* __restrict__ alive, int* __restrict__ dead_cnt) {
   if (threadIdx.x == 0) dead_cnt[blockIdx.x] = c;
 }
 
-template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL>
+template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL, bool IMG>
 __global__ void __launch_bounds__(BLOCK, 4)
 fused_q_level(FusedQArgs a, int j) {
   __shared__ int red[NWARP];
   __shared__ int red2[NWARP];
   __shared__ int warp_dead[NWARP];
   // the geometry into shared memory, before any branch on the lane
-  const BounceTables T = fused_tables<SPH, DIEL, MED, TEX>(a);
+  const BounceTables T = fused_tables<SPH, DIEL, MED, TEX, IMG>(a);
   stage_geometry(T, CULL);
   const int nb = gridDim.x;
   const int b = blockIdx.x;
@@ -187,7 +189,7 @@ fused_q_level(FusedQArgs a, int j) {
     for (int k = 0; k < N_U; ++k) u[k] = u01(ulane, seed_mix, slot0 + N_U_RAYGEN + k);
     const HashMediaU um{ulane, seed_mix, slot0 + N_U_RAYGEN};
     const BounceResult r =
-        bounce_core<SPH, DIEL, MED, TEX, CULL>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
+        bounce_core<SPH, DIEL, MED, TEX, CULL, IMG>(T, ox, oy, oz, dx, dy, dz, tm, u, nullptr, um);
     vr = r.vr;
     vg = r.vg;
     vb = r.vb;
@@ -237,9 +239,9 @@ static int run_levels(FusedQArgs a, cudaStream_t s) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   for (int j = 0; j < a.n_inner; ++j) {
-#define LAUNCH_LEVEL(S, D, M, X, C)                                                 \
-  if ((err = allow_smem((const void*)fused_q_level<S, D, M, X, C>, smem)) == cudaSuccess) \
-  fused_q_level<S, D, M, X, C><<<nb, BLOCK, smem, s>>>(a, j)
+#define LAUNCH_LEVEL(S, D, M, X, C, I)                                                 \
+  if ((err = allow_smem((const void*)fused_q_level<S, D, M, X, C, I>, smem)) == cudaSuccess) \
+  fused_q_level<S, D, M, X, C, I><<<nb, BLOCK, smem, s>>>(a, j)
     FEATURE_SWITCH(feat, LAUNCH_LEVEL)
 #undef LAUNCH_LEVEL
     if (err != cudaSuccess) return (int)err;
@@ -267,7 +269,7 @@ extern "C" int grt_bounce_fused_q(const FusedQArgs* args, void* stream) {
 }
 
 extern "C" int grt_bounce_fused_q_direct(const FusedQArgs* args, void* stream) {
-  if (args->lvl_base == nullptr) return (int)cudaErrorInvalidValue;
+  if (args->lvl_base == nullptr || (args->feat & FEAT_IMG)) return (int)cudaErrorInvalidValue;
   return run_levels(*args, (cudaStream_t)stream);
 }
 
@@ -277,7 +279,7 @@ extern "C" int grt_bounce_fused_q_direct(const FusedQArgs* args, void* stream) {
 extern "C" int grt_kernel_info(int feat, int n_sph, int n_quad, int n_box, int* out) {
   const int smem = fused_stage_bytes(feat, n_sph, n_quad, n_box);
   int err = 0;
-#define INFO(S, D, M, X, C) err = kernel_info((const void*)fused_q_level<S, D, M, X, C>, BLOCK, smem, out)
+#define INFO(S, D, M, X, C, I) err = kernel_info((const void*)fused_q_level<S, D, M, X, C, I>, BLOCK, smem, out)
   FEATURE_SWITCH(with_cull(feat, n_sph, n_quad, n_box), INFO)
 #undef INFO
   return err;

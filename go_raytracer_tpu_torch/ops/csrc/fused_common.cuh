@@ -71,19 +71,22 @@ struct HashMediaU {
 };
 
 // The table fields every fused kernel's argument struct carries, in this
-// order (ops/bounce._FUSED_TABLE_INTS mirrors them).
+// order (ops/bounce._FUSED_TABLE_PTRS and _FUSED_TABLE_INTS mirror them).
 #define FUSED_TABLE_FIELDS                                                  \
+  const float* img;   /* (n_img, img_h, img_w, 3) texels; null: no image */ \
+  const int* img_wh;  /* (n_img, 2) each image's (w, h) */                 \
   int p_cols, sph_base, n_sph, quad_base, n_quad, box_base, n_box;         \
   int n_lights, n_lights_live, fr_col, n_media;                            \
-  int feat; /* bits: 0 spheres, 1 the fr column, 2 media, 3 textures;  \
-                (4, the cull, is with_cull's) */                         \
+  int feat; /* bits: 0 spheres, 1 the fr column, 2 media, 3 textures,  \
+                5 images; (4, the cull, is with_cull's) */               \
   int texk_col, scale_col, seed_col; /* -1: the layout lacks the column */ \
-  int defocus; /* camera rays from the defocus disk */
+  int defocus; /* camera rays from the defocus disk */                     \
+  int img_h, img_w; /* the image table's padded height and width */
 
 // The dense tables of a scene inside ops/bounce.supported_statics, for the
 // core compiled with these features: a section the variant lacks is
 // hard-wired empty, so its code folds away.
-template <bool SPH, bool DIEL, bool MED, bool TEX, class A>
+template <bool SPH, bool DIEL, bool MED, bool TEX, bool IMG, class A>
 __device__ __forceinline__ BounceTables fused_tables(const A& a) {
   BounceTables T;
   T.prims = a.prims;
@@ -104,6 +107,10 @@ __device__ __forceinline__ BounceTables fused_tables(const A& a) {
   T.texk_col = TEX ? a.texk_col : -1;
   T.scale_col = TEX ? a.scale_col : -1;
   T.seed_col = TEX ? a.seed_col : -1;
+  T.img = IMG ? a.img : nullptr;
+  T.img_wh = IMG ? a.img_wh : nullptr;
+  T.img_h = IMG ? a.img_h : 0;
+  T.img_w = IMG ? a.img_w : 0;
   return T;
 }
 
@@ -121,29 +128,35 @@ inline int with_cull(int feat, int n_sph, int n_quad, int n_box) {
   return (feat & 1) && stage_layout(n_sph, n_quad, n_box).n_blk > 1 ? feat | FEAT_CULL : feat;
 }
 
-// Run CASE(SPH, DIEL, MED, TEX, CULL) for the feature bits of a call: one
-// kernel variant per feature set, picked once per call on the host (CULL
-// only with SPH: 24 variants).
-#define FEATURE_SWITCH3(feat, TEXV, CULLV, CASE)           \
-  switch ((feat) & 7) {                                    \
-    case 0: CASE(false, false, false, TEXV, false); break; \
-    case 1: CASE(true, false, false, TEXV, CULLV); break;  \
-    case 2: CASE(false, true, false, TEXV, false); break;  \
-    case 3: CASE(true, true, false, TEXV, CULLV); break;   \
-    case 4: CASE(false, false, true, TEXV, false); break;  \
-    case 5: CASE(true, false, true, TEXV, CULLV); break;   \
-    case 6: CASE(false, true, true, TEXV, false); break;   \
-    default: CASE(true, true, true, TEXV, CULLV); break;   \
+// Feature bit 5: the image texel (IMG), set by ops/bounce.fused_features
+// for a scene with image textures, always with bit 3.
+#define FEAT_IMG 32
+
+// Run CASE(SPH, DIEL, MED, TEX, CULL, IMG) for the feature bits of a call:
+// one kernel variant per feature set, picked once per call on the host
+// (CULL only with SPH, IMG only with TEX: 36 variants).
+#define FEATURE_SWITCH3(feat, TEXV, CULLV, IMGV, CASE)           \
+  switch ((feat) & 7) {                                          \
+    case 0: CASE(false, false, false, TEXV, false, IMGV); break; \
+    case 1: CASE(true, false, false, TEXV, CULLV, IMGV); break;  \
+    case 2: CASE(false, true, false, TEXV, false, IMGV); break;  \
+    case 3: CASE(true, true, false, TEXV, CULLV, IMGV); break;   \
+    case 4: CASE(false, false, true, TEXV, false, IMGV); break;  \
+    case 5: CASE(true, false, true, TEXV, CULLV, IMGV); break;   \
+    case 6: CASE(false, true, true, TEXV, false, IMGV); break;   \
+    default: CASE(true, true, true, TEXV, CULLV, IMGV); break;   \
   }
-#define FEATURE_SWITCH2(feat, TEXV, CASE)      \
-  if ((feat) & FEAT_CULL) {                    \
-    FEATURE_SWITCH3(feat, TEXV, true, CASE)    \
-  } else {                                     \
-    FEATURE_SWITCH3(feat, TEXV, false, CASE)   \
+#define FEATURE_SWITCH2(feat, TEXV, IMGV, CASE)    \
+  if ((feat) & FEAT_CULL) {                        \
+    FEATURE_SWITCH3(feat, TEXV, true, IMGV, CASE)  \
+  } else {                                         \
+    FEATURE_SWITCH3(feat, TEXV, false, IMGV, CASE) \
   }
-#define FEATURE_SWITCH(feat, CASE)       \
-  if ((feat) & 8) {                      \
-    FEATURE_SWITCH2(feat, true, CASE)    \
-  } else {                               \
-    FEATURE_SWITCH2(feat, false, CASE)   \
+#define FEATURE_SWITCH(feat, CASE)              \
+  if ((feat) & FEAT_IMG) {                      \
+    FEATURE_SWITCH2(feat, true, true, CASE)     \
+  } else if ((feat) & 8) {                      \
+    FEATURE_SWITCH2(feat, true, false, CASE)    \
+  } else {                                      \
+    FEATURE_SWITCH2(feat, false, false, CASE)   \
   }

@@ -59,10 +59,15 @@ static dim3 threadIdx{0, 0, 0}, blockDim{1, 1, 1};
 template <class T> T __ldg(const T* p) { return *p; }
 inline void __syncthreads() {}
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 inline void __sincosf(float x, float* s, float* c) { *s = sinf(x); *c = cosf(x); }
 inline float rsqrtf(float a) { return 1.0f / sqrtf(a); }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return sqrtf(a); }
 using std::isfinite;
 typedef int cudaError_t;
 enum { cudaSuccess = 0 };

@@ -8,7 +8,8 @@ an aged pool), and split a call's time into the host's and the device's.
                                           [--out FILE]
 
 For each scene (default: cornell_box, book3, cornell_smoke, simple_light,
-book1; a scene the checkout's kernels do not take is skipped), at its
+book1, quads_scene, book2; a scene the checkout's kernels do not take is
+skipped, and K9 on a scene with image textures, which it refuses), at its
 registry width, height, cadence and defocus, and kernel it prints:
 
 * ms per call between two CUDA events around 20 calls, the least of three
@@ -134,7 +135,8 @@ def main():
         os.path.abspath(__file__))), help="checkout whose package is timed")
     ap.add_argument("--scene", nargs="*",
                     default=["cornell_box", "book3", "cornell_smoke",
-                             "simple_light", "book1"])
+                             "simple_light", "book1", "quads_scene",
+                             "book2"])
     ap.add_argument("--out", default=os.path.join("build",
                                                   "time_fused_kernels.json"))
     ap.add_argument("--save", help="file for the kernels' outputs")
@@ -226,6 +228,8 @@ def main():
             torch.cuda.synchronize()
             return [t.detach().cpu().clone() for t in outputs[k]()]
 
+        if scene.has_image:
+            del runs["K9"]
         res = {}
         for k, (inputs, fn) in runs.items():
             call = lambda: fn(inputs)

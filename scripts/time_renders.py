@@ -7,7 +7,8 @@ window loop took, so that two checkouts compare in one call.
                                     [--schedule NAME ...] [--reps N]
                                     [--out FILE]
 
-Each scene (default: simple_light, cornell_box) renders at its registry
+Each scene (default: simple_light, cornell_box; also book1, book2, book3,
+quads_scene, cornell_smoke) renders at its registry
 configuration (`python -m go_raytracer_tpu_torch -S n --stats`) under each
 schedule (default: queue_ik, queue, positional), `--reps` times (default
 2; the first run of a process carries its warm-up). Per run it prints the
@@ -33,8 +34,8 @@ import os
 import subprocess
 import sys
 
-SCENE_NUMBERS = {"book1": 1, "book3": 3, "simple_light": 4,
-                 "cornell_box": 6, "cornell_smoke": 7}
+SCENE_NUMBERS = {"book1": 1, "book2": 2, "book3": 3, "simple_light": 4,
+                 "quads_scene": 5, "cornell_box": 6, "cornell_smoke": 7}
 SCHEDULE_FLAGS = {"queue_ik": [], "queue": ["--schedule", "queue"],
                   "positional": ["--schedule", "positional"]}
 

@@ -8,6 +8,7 @@ float planes use test_pallas_bounce.py's rtol/atol (2e-4 / 2e-3 for
 origins, 2e-3 / 2e-3 for the rest) on lanes that agree."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +21,7 @@ from go_raytracer_tpu.scenes import registry as jreg
 from go_raytracer_tpu_torch.ops import bounce as tpb
 from go_raytracer_tpu_torch.render.camera import Camera
 from go_raytracer_tpu_torch.scene import types as TT
+from go_raytracer_tpu_torch.scene.builder import SceneBuilder as TSceneBuilder
 
 torch.set_num_threads(2)
 
@@ -32,7 +34,11 @@ MISMATCH_FRAC = 0.01
 # f32 acne (~2.5e-4 in position), moves a marble value by up to ~7e-3;
 # book1's checker may flip a cell at a boundary. Measured: simpleLight
 # 2.4e-4 (1 lane) at 1 level, 1.2e-3 at 3; book1 2.4e-4 and 6.5e-4.
-V_FRAC = {"simple_light": 2e-3, "book1": 5e-3}
+# book2's marble sphere (scale 0.2, ~900 units from the camera) takes its
+# turbulence at up to 64 x ~300, where a float32 resolves ~2e-3: camera
+# rays one rounding apart shade it up to ~10% apart. Measured at 1 level:
+# 12-13 lanes (2.9e-3-3.2e-3), every one a marble hit.
+V_FRAC = {"simple_light": 2e-3, "book1": 5e-3, "book2": 1e-2}
 # Fraction of the lanes alive in both whose new ray may leave the
 # tolerances. book1's secondary rays leave its radius-1000 ground sphere,
 # whose roots carry the f32 acne of docs/PERFORMANCE.md:688-700, and meet
@@ -100,16 +106,57 @@ def _lane_state(n, seed=0):
             rs.integers(0, 50, n).astype(np.int32)]
 
 
-@pytest.mark.parametrize("scene", ["cornell_box", "book3", "cornell_smoke",
-                                   "simple_light", "book1"])
-@pytest.mark.parametrize("n_inner", [1, 3])
+def image_records(js, jrec, jimg, probe, agree, planes=(0, 1, 2)):
+    """The image lanes of a call on a scene with image textures: the JAX
+    kernel's weight records (`planes` of `jrec`) patched with the texel
+    (`patch_image_weight_planes`, as its windows do) replace `jrec`'s in
+    place; returns, per level, the lanes where JAX and the port took a
+    texel, those where both did and agree on their flags (`agree`), and the
+    JAX and port texel indices (the JAX one from its uv and image-id planes
+    through `image_texel_index`, which test_torch_image.py holds to
+    `sampling.image_value` bit for bit; the port's from its `probe`)."""
+    patched = jpb.patch_image_weight_planes(
+        js, *[jnp.asarray(jrec[k]) for k in planes], jimg)
+    for k, x in zip(planes, patched):
+        jrec[k] = np.asarray(x)
+    ratio, uu, vv, img_id = (np.asarray(x) for x in jimg)
+    is_img = img_id >= 0
+    data = torch.from_numpy(np.asarray(js.images.data))
+    wh = torch.from_numpy(np.asarray(js.images.wh))
+    j_idx = tpb.image_texel_index(
+        wh, data.shape[1], data.shape[2],
+        torch.from_numpy(np.where(is_img, img_id, 0).astype(np.int64)),
+        torch.from_numpy(np.where(is_img, uu, 0)),
+        torch.from_numpy(np.where(is_img, vv, 0))).numpy()
+    t_idx = np.stack([p.numpy() for p in probe])
+    both = is_img & (t_idx >= 0) & agree
+    return is_img, t_idx >= 0, both, j_idx, t_idx
+
+
+# On the image scenes, of the lanes that agree on their flags and took a
+# texel in both, the fraction whose texel index may differ: a hit point one
+# rounding apart lands in the next texel. Measured at one level: quads 0
+# of 192 lanes; book2 1 of 321 (3.1e-3), a camera ray grazing the top of
+# the earth sphere (outward normal y 0.973), whose root the discriminant's
+# rounding moves by ~7e-3 units, ~5e-5 in u: the next texel column.
+TEXEL_FRAC = {"book2": 1e-2}
+
+
+@pytest.mark.parametrize("n_inner,scene", [
+    (1, s) for s in ["cornell_box", "book3", "cornell_smoke", "simple_light",
+                     "book1", "quads_scene", "book2"]]
+    + [(3, s) for s in ["cornell_box", "book3", "cornell_smoke",
+                        "simple_light", "book1", "quads_scene"]])
 def test_bounce_fused_q_ref_matches_pallas(n_inner, scene):
     """cornellBox, book3 (glass sphere, sphere light, rotated box),
     cornellSmoke (two media: 2 more PRNG slots per level), simpleLight
-    (marble noise) and book1 (389 spheres, moving ones among them, a
-    checker ground, metal, glass, defocus) tables, 4096 lanes, a mixed
-    alive/depth state, the queue refilling at the first two levels: the
-    plain PyTorch version against the JAX kernel in interpret mode."""
+    (marble noise), book1 (389 spheres, moving ones among them, a
+    checker ground, metal, glass, defocus), quads (the earth image on a
+    quad) and book2 (every feature, the earth image on a sphere; one level:
+    ~20 s in interpret mode) tables, 4096 lanes, a mixed alive/depth state,
+    the queue refilling at the first two levels: the plain PyTorch version
+    against the JAX kernel in interpret mode, its records on image lanes
+    patched with the texel as the JAX windows patch them."""
     js, jc = getattr(jreg, scene)()
     ts = TT.scene_from_numpy(js)
     jc.width, jc.samples_per_pixel = 32, 16
@@ -122,17 +169,34 @@ def test_bounce_fused_q_ref_matches_pallas(n_inner, scene):
         jpb.pack_scene(js), jpb.scene_statics(js), jpb.pack_camera(jc.derived()),
         js.background, jnp.asarray(seed4), *[jnp.asarray(x) for x in state],
         interpret=True, **kw)
-    jrec, _, jseg, jtc, *jst = jax.tree.map(np.asarray, jout)
+    jrec, jimg, jseg, jtc, *jst = jax.tree.map(np.asarray, jout)
+    jrec = list(jrec)
     tables = tuple(torch.from_numpy(t) for t in tpb.pack_scene(ts))
     tc = Camera(**{f.name: getattr(jc, f.name)
                    for f in dataclasses.fields(Camera)})
-    tout = tpb.bounce_fused_q(
+    probe = []
+    fn = tpb.bounce_fused_q if jimg is None else functools.partial(
+        tpb.bounce_fused_q_ref, probe=probe)
+    tout = fn(
         tables, tpb.scene_statics(ts),
         torch.from_numpy(tpb.pack_camera(tc.derived())),
         torch.from_numpy(np.array(ts.background)), torch.from_numpy(seed4),
         *[torch.from_numpy(x) for x in state], **kw)
     trec, _, tseg, ttc, *tst = tout
     trec = [x.numpy() for x in trec]
+    if jimg is not None:
+        j_img, t_img, both_img, j_idx, t_idx = image_records(
+            js, jrec, jimg, probe, (trec[3] & 7) == jrec[3])
+        moved = (j_idx != t_idx)[both_img].mean()
+        print(f"{scene}: image lanes per level JAX {j_img.sum(axis=1)} port "
+              f"{t_img.sum(axis=1)}; texel moved on {moved:.2e} of "
+              f"{both_img.sum()}")
+        assert j_img[0].sum() >= 100 and t_img[0].sum() >= 100
+        assert moved <= TEXEL_FRAC.get(scene, 0.0)
+        same_texel = both_img & (j_idx == t_idx)
+        for k in range(3):
+            a, b = jrec[k][same_texel], trec[k][same_texel]
+            assert np.allclose(b, a, rtol=2e-3, atol=2e-3)
     tst = [x.numpy() for x in tst]
 
     assert ttc[0].item() == jtc[0] and tseg[0].item() == jseg[0]
@@ -164,12 +228,24 @@ def test_bounce_fused_q_ref_matches_pallas(n_inner, scene):
     np.testing.assert_array_equal(tst[6], jst[6])
 
 
+def nine_media_scene():
+    """A scene outside the fused kernels' subset: a quad light and nine
+    constant-density spheres, one more medium than MAX_MEDIA."""
+    b = TSceneBuilder(background=(0.1, 0.1, 0.1))
+    b.add_light(b.quad((-1, 3, -1), (2, 0, 0), (0, 0, 2),
+                       b.diffuse_light((4, 4, 4))))
+    for m in range(tpb.MAX_MEDIA + 1):
+        b.constant_medium_sphere((3.0 * m, 0, 0), 1.0, 0.5,
+                                 albedo=(0.5, 0.5, 0.5))
+    return b.build()
+
+
 def test_cpu_wrapper_rejects_unsupported_statics():
-    """A scene outside the kernel's subset (quads: an image texture)
-    raises instead of running another path."""
-    js, _ = jreg.quads_scene()
-    ts = TT.scene_from_numpy(js)
-    assert not tpb.supported(ts)
+    """A scene outside the kernel's subset (nine media) raises instead of
+    running another path, and so does K9 on a scene with image textures
+    (quads), as the JAX package's direct-record path refuses it."""
+    ts = nine_media_scene()
+    assert tpb.refused_features(ts) == [f"more than {tpb.MAX_MEDIA} media"]
     z = torch.zeros(256)
     zi = torch.zeros(256, dtype=torch.int32)
     with pytest.raises(NotImplementedError):
@@ -178,6 +254,16 @@ def test_cpu_wrapper_rejects_unsupported_statics():
             tpb.scene_statics(ts), torch.zeros(1, 20), torch.zeros(3),
             torch.zeros(4, dtype=torch.int32), z, z, z, z, z, z, z, zi, zi,
             has_defocus=False, max_depth=4, width=4, sqrt_spp=1, npix=16)
+    qs = TT.scene_from_numpy(jreg.quads_scene()[0])
+    assert tpb.supported(qs)
+    rec = [torch.zeros(2, 256)] * 3 + [torch.zeros(2, 256, dtype=torch.int32)]
+    with pytest.raises(NotImplementedError, match="image textures"):
+        tpb.bounce_fused_q_direct(
+            tuple(torch.from_numpy(t) for t in tpb.pack_scene(qs)),
+            tpb.scene_statics(qs), torch.zeros(1, 20), torch.zeros(3),
+            torch.zeros(4, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+            rec, z, z, z, z, z, z, z, zi, zi, has_defocus=False, max_depth=4,
+            width=4, sqrt_spp=1, npix=16)
 
 
 def test_defocus_starts_match_pallas():

@@ -89,12 +89,11 @@ def test_without_gpu_and_without_cpu_flag_fails_clearly(tmp_path):
 
 def test_unported_paths_exit_2(tmp_path):
     """Flags kept for parity but naming unported paths exit 2 with a
-    message, and so do scenes outside the kernels' subsets, naming what
-    they lack: book2's and quads' image textures."""
+    message, and so do routes a scene cannot run, naming what it has:
+    book2's image textures on the direct-record path."""
     for extra, word in ((["--integrator", "wavefront"], "ROADMAP"),
                         (["-S", "8", "--schedule", "positional"], "ROADMAP"),
-                        (["-S", "2"], "image textures"),
-                        (["-S", "5"], "image textures"),
+                        (["-S", "2", "--direct-rec"], "image textures"),
                         (["-S", "8", "--schedule", "queue_ik"], "ROADMAP")):
         r = run_cli(["-o", str(tmp_path / "x.ppm"), "--cpu", "--width", "8",
                      "--spp", "1", "--quiet", *extra])

@@ -744,15 +744,44 @@ def test_textured_scene_kernels_match_plain(cuda, scene):
     starts, ranks and time plane exact; flags, alive bits and records
     beyond rtol = atol = 2e-3 on at most `frac` of the lanes, and so the
     alive lanes' new rays, counted over all lanes."""
+    _dense_scene_kernels_match_plain(cuda, scene, TEX_SCENES[scene])
+
+
+def _texel_moved(krec, prec, probe, weights, flags):
+    """Lanes that took a texel in the plain version (its `probe`) and agree
+    on the record planes `flags`, and among them those whose kernel weight
+    (the record planes `weights`) is not the plain one to rtol 1e-4: the
+    kernel read another texel (the two ratios agree to ~1e-6; neighbouring
+    texels of 8-bit images differ by 1/255 at least, where they differ)."""
+    img = torch.stack(probe) >= 0
+    agree = img.clone()
+    for f in flags:
+        agree &= krec[f] == prec[f]
+    moved = torch.zeros_like(agree)
+    for c in weights:
+        moved |= ~torch.isclose(krec[c], prec[c], rtol=1e-4, atol=0.0)
+    return img, agree, moved & agree
+
+
+def _dense_scene_kernels_match_plain(cuda, scene, frac, texel_frac=None):
+    """K1, K6 and K8 at 512 blocks, 8 levels, on a registry scene at its
+    camera: K1's takes, starts, ranks and time plane exact; flags, alive
+    bits and records beyond rtol = atol = 2e-3 on at most `frac` of the
+    lanes, and so the alive lanes' new rays, counted over all lanes. With
+    `texel_frac` (a scene with image textures), each call's texels too
+    (`_texel_moved`) at level 0, where both ran on the same rays: at
+    least 100 image lanes, and on all but `texel_frac` of the image lanes
+    whose flags agree the kernel's weight is the plain one to rtol 1e-4
+    (the same texel and pdf ratio; chip_smoke.py tells the two apart)."""
+    images = texel_frac is not None
     n, n_inner = 512 * bounce.BLOCK, 8
-    frac = TEX_SCENES[scene]
     scene, cam, tables, st, cam_row, bg, state = _cornell(cuda, n,
                                                           scene=scene)
     w, sq = cam.width, cam.spp_sqrt
     npix, dfc = w * cam.image_height, cam.defocus_angle > 0
     kw = dict(has_defocus=dfc, max_depth=50, n_inner=n_inner)
 
-    def close(k, p):
+    def close(k, p, probe, weights, flags):
         krec, _, kseg, *kst = k
         prec, _, pseg, *pst = p
         assert kseg[0].item() == pseg[0].item()
@@ -765,39 +794,79 @@ def test_textured_scene_kernels_match_plain(cuda, scene):
         for a, b in zip(kst[:6], pst[:6]):
             off = ~torch.isclose(a[alive], b[alive], rtol=RTOL, atol=ATOL)
             assert off.float().sum().item() <= frac * n
+        if images:
+            img, agree, moved = _texel_moved(krec, prec, probe, weights,
+                                             flags)
+            assert img[0].sum().item() >= 100
+            assert moved[0].sum().item() <= texel_frac * agree[0].sum().item()
 
-    seed4 = torch.tensor([12345, 1, 0, npix * 100], dtype=torch.int32,
+    # (images) the queue from the middle row: quads' random rays miss it,
+    # and its first rows see no image
+    cursor = (cam.image_height // 2) * w if images else 0
+    seed4 = torch.tensor([12345, 1, cursor, npix * 100], dtype=torch.int32,
                          device=cuda)
     qkw = dict(kw, width=w, sqrt_spp=sq, npix=npix)
     k = bounce.bounce_fused_q(tables, st, cam_row, bg, seed4, *state, **qkw)
+    probe = []
     p = bounce.bounce_fused_q_ref(tables, st, cam_row, bg, seed4, *state,
-                                  **qkw)
+                                  probe=probe, **qkw)
     torch.cuda.synchronize()
     assert torch.equal(k[3], p[3])
     assert torch.equal(k[0][3][0] & ~3, p[0][3][0] & ~3)
     assert torch.equal(k[4 + 6], p[4 + 6])
     assert _started_ranks_are_a_prefix(k[0][3], k[3])
-    close((k[0], None, k[2], *k[4:]), (p[0], None, p[2], *p[4:]))
+    close((k[0], None, k[2], *k[4:]), (p[0], None, p[2], *p[4:]), probe,
+          (0, 1, 2), (3,))
     refill = regen.queue_refill_planes(
-        torch.tensor(1000, device=cuda), state[7], npix * 100, width=w,
-        npix=npix, sqrt_spp=sq)
+        torch.tensor(cursor + 1000, device=cuda), state[7], npix * 100,
+        width=w, npix=npix, sqrt_spp=sq)
     seed = torch.tensor([-123456789], dtype=torch.int32, device=cuda)
+    probe = []
     close(bounce.bounce_fused(tables, st, cam_row, bg, seed, *state, *refill,
                               **kw),
           bounce.bounce_fused_ref(tables, st, cam_row, bg, seed, *state,
-                                  *refill, **kw))
+                                  *refill, probe=probe, **kw),
+          probe, (0, 1, 2), (3,))
     rs = np.random.default_rng(3)
     to = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
-    ptr = [to(rs.choice([0, 7, w - 1], n)),
+    # the columns next to the carries, or (images) every column: the edge
+    # columns of quads and book2 see no image
+    ptr = [to(rs.integers(0, w, n) if images
+              else rs.choice([0, 7, w - 1], n)),
            to(rs.integers(0, cam.image_height - 1, n)),
            to(rs.choice([0, sq - 1], n)), to(rs.choice([0, 3, sq - 1], n)),
            to(rs.choice([0, 1, 2, 300], n))]
     seed2 = torch.tensor([24680, 5], dtype=torch.int32, device=cuda)
     pkw = dict(kw, width=w, sqrt_spp=sq)
+    probe = []
     close(bounce.bounce_fused_pos(tables, st, cam_row, bg, seed2, *state,
                                   *ptr, **pkw),
           bounce.bounce_fused_pos_ref(tables, st, cam_row, bg, seed2, *state,
-                                      *ptr, **pkw))
+                                      *ptr, probe=probe, **pkw),
+          probe, (3, 4, 5), (6, 7))
+
+
+# quads (the earth map on a quad, marble, metal) and book2 (the earth map
+# on a sphere, 1,006 spheres, 400 boxes, glass, two sphere media, marble).
+# book2's marble sphere is ~900 units from the camera, where a root
+# carries ~6e-4 units of float32 rounding, which its 7 turbulence octaves
+# (x 10 inside the sine) turn into ~0.06 rad: chip_smoke.py measures
+# 1.07e-2 of its records beyond the tolerance over 8 levels (IMG_MISMATCH
+# _FRAC there), and 5.4e-3 of its lanes' alive bits apart here
+IMG_SCENES = {"quads_scene": MISMATCH_FRAC, "book2": 2e-2}
+# the image lanes whose weight may move at level 0, of those that agree on
+# their flags: a texel or a light-pdf test one rounding apart (chip_smoke
+# phase 24 measured quads 0 of 11,277, book2 52 of 12,477: 6 texels one
+# column over, 46 pdf ratios, its earth sphere's roots at ~1,000 units)
+TEXEL_FRAC = {"quads_scene": 1e-3, "book2": 1e-2}
+
+
+@pytest.mark.parametrize("scene", IMG_SCENES)
+def test_image_scene_kernels_match_plain(cuda, scene):
+    """K1, K6 and K8 on quads and book2 against their plain versions, as
+    on the textured scenes, and their texels."""
+    _dense_scene_kernels_match_plain(cuda, scene, IMG_SCENES[scene],
+                                     TEXEL_FRAC[scene])
 
 
 # the synthetic scan scene (scenes/synthetic.py) at MAX_PRIMS rows: spheres

@@ -175,8 +175,9 @@ def test_checkpoint_resume_bit_exact(tmp_path, monkeypatch):
 
 def test_no_silent_fallbacks(monkeypatch):
     """No GPU and no CPU request: a clear error, on every schedule.
-    Unported schedules and scenes outside the kernels' subset (image
-    textures) raise, and a defocus camera renders; and a wrapper handed a CUDA tensor goes for its kernel (here,
+    Unported schedules and routes a scene cannot run (the direct-record
+    path on a scene with image textures) raise, and a defocus camera
+    renders; and a wrapper handed a CUDA tensor goes for its kernel (here,
     with no card, it fails) instead of taking its plain version."""
     scene, cam = registry.cornell_box()
     cam.width, cam.samples_per_pixel = 8, 1
@@ -193,10 +194,9 @@ def test_no_silent_fallbacks(monkeypatch):
     with pytest.raises(NotImplementedError):
         regen.render_regen(registry.model_example()[0], cam, n_lanes=256,
                            schedule="positional", device="cpu")
-    for schedule in ("auto", "queue", "positional"):
-        with pytest.raises(NotImplementedError, match="image textures"):
-            regen.render_regen(registry.quads_scene()[0], cam, n_lanes=256,
-                               schedule=schedule, device="cpu")
+    with pytest.raises(ValueError, match="image textures"):
+        regen.render_regen(registry.quads_scene()[0], cam, n_lanes=256,
+                           direct_rec=True, device="cpu")
     # a defocus camera renders on every schedule of the fused kernels
     cam.defocus_angle = 0.5
     cam.max_depth = 4

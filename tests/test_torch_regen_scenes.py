@@ -1,8 +1,10 @@
-"""One `queue_ik` window of the port on book3, cornellSmoke, simpleLight and
-book1 against the JAX package's `_window_impl` (Pallas kernels in
-interpret mode), fed the same per-call seeds: the scenes the fused
-kernels gained with the dielectric, the sphere light and the
-constant-density media, then with the noise, the checker and defocus.
+"""One `queue_ik` window of the port on book3, cornellSmoke, simpleLight,
+book1 and quads against the JAX package's `_window_impl` (Pallas kernels
+in interpret mode, its records patched with the image texel), fed the
+same per-call seeds: the scenes the fused kernels gained with the
+dielectric, the sphere light and the constant-density media, then with
+the noise, the checker and defocus, then with the image texture read in
+the kernel.
 
 Both trace the same paths up to float rounding. A lane that branches the
 other way (a reflect/refract choice, a free flight at a medium's far
@@ -35,11 +37,11 @@ torch.set_num_threads(2)
 # reflection then runs tens of levels longer or shorter. Measured here: 3
 # of the 4,096 items differ and the totals by 36 segments of 22,297
 # (1.6e-3).
-# simpleLight measured equal; book1 (389 spheres, glass and fuzzed metal on
+# simpleLight and quads measured equal; book1 (389 spheres, glass and fuzzed metal on
 # a radius-1000 ground sphere with its f32 acne, depth 50) 28 of 6,176
 # (4.5e-3), 16 of its 2,304 items differing.
 SEGMENTS_RTOL = {"book3": 5e-3, "cornell_smoke": 1e-3, "simple_light": 1e-3,
-                 "book1": 5e-3}
+                 "book1": 5e-3, "quads_scene": 1e-3}
 # Channel means within 1e-3, but book1's: each of its 16 differing items
 # carries a whole path's radiance (a sky of ~0.7), so its means part by
 # 2.0e-3, 3.5e-3 and 6.6e-4 at 2,304 paths.
@@ -47,7 +49,7 @@ MEANS_RTOL = {"book1": 5e-3}
 
 
 @pytest.mark.parametrize("scene", ["book3", "cornell_smoke", "simple_light",
-                                   "book1"])
+                                   "book1", "quads_scene"])
 def test_window_matches_jax_window(scene):
     """32 px, 4 spp, depth 50, 4096 lanes (every item starts at the first
     level, so a flipped lane changes only its own path), the registry's

@@ -85,20 +85,21 @@ def test_scene_from_numpy_carries_jax_scene():
 
 
 def test_supported_is_the_cornell_subset():
-    """Only scenes inside the fused kernels' subset are supported by them
+    """Every dense reference scene is inside the fused kernels' subset
     (cornellBox, book3 with its glass sphere and sphere light, cornellSmoke
     with its media, simpleLight with its marble noise, book1 with its
-    checker, 389 spheres and defocus; book2 and quads have image
+    checker, 389 spheres and defocus, book2 and quads with their image
     textures); scene 8 (a mesh) is outside it and inside the ext-mode
-    kernel's."""
+    kernel's, which refuses the image scenes."""
     ok = {treg.SCENES[k][0]: tpb.supported(treg.SCENES[k][1]()[0])
           for k in range(1, 8)}
-    assert ok == {"book1": True, "book2": False, "book3": True,
-                  "simpleLight": True, "quads": False, "cornellBox": True,
+    assert ok == {"book1": True, "book2": True, "book3": True,
+                  "simpleLight": True, "quads": True, "cornellBox": True,
                   "cornellSmoke": True}
     for k in (2, 5):
-        assert tpb.refused_features(treg.SCENES[k][1]()[0]) \
-            == ["image textures"]
+        sc = treg.SCENES[k][1]()[0]
+        assert tpb.refused_features(sc) == [] and sc.has_image
+        assert not tpb.supported_ext_statics(tpb.scene_statics(sc, ext=True))
     mesh, _ = treg.model_example()
     assert not tpb.supported(mesh) and tpb.supported_ext(mesh)
     assert mesh.has_tri_bvh and not tpb.supported_ext(treg.book3()[0])
@@ -136,3 +137,42 @@ def test_noise_seeds_and_texture_columns_identical(name):
         assert ground[7] == 1000.0
         np.testing.assert_allclose(ground[col("scale")], 1 / 0.32,
                                    rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["quads_scene", "book2"])
+def test_image_scenes_carry_their_image_table(name):
+    """quads and book2 carried across by `scene_from_numpy` (and built by
+    the port's own registry) give the JAX image table, texture ids and
+    packed columns exactly: `pack_scene` returns JAX's four tables bit for
+    bit and then the texels and each image's (w, h), and the image row's
+    `seed_img` column holds its image id."""
+    js, _ = getattr(jreg, name)()
+    cs = TT.scene_from_numpy(js)
+    ts, _ = getattr(treg, name)()
+    for sc in (cs, ts):
+        _assert_tables_equal(js, sc)
+        assert sc.has_image
+        np.testing.assert_array_equal(sc.textures.image_id,
+                                      np.asarray(js.textures.image_id))
+        packed = tpb.pack_scene(sc)
+        assert len(packed) == 6
+        for x, y in zip(jpb.pack_scene(js), packed[:4]):
+            x = np.asarray(x)
+            assert x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(x.view(np.uint32),
+                                          y.view(np.uint32))
+        data, wh = packed[4:]
+        assert data.dtype == np.float32 and wh.dtype == np.int32
+        assert data.flags.c_contiguous and wh.flags.c_contiguous
+        np.testing.assert_array_equal(data, np.asarray(js.images.data))
+        np.testing.assert_array_equal(wh, np.asarray(js.images.wh))
+        assert tuple(wh[0]) == (1024, 512) and data.shape == (1, 512, 1024, 3)
+    st = tpb.scene_statics(cs)
+    lay = tpb._mat_layout(st)
+    prims = packed[0]
+    col = lambda c: tpb.MAT_BASE + lay.index(c)
+    img_rows = (prims[:, 0] >= 0) & (prims[:, col("texk")] == TT.TEX_IMAGE)
+    assert img_rows.sum() == 1
+    np.testing.assert_array_equal(prims[img_rows, col("seed_img")], 0.0)
+    assert tpb.fused_features(st) & tpb.FEAT_IMG \
+        and tpb.fused_features(st) & 8
