@@ -95,8 +95,10 @@ Phases (any failure exits non-zero; nothing is swallowed):
      full frame) and held to phase 10's 25-spp walk render; then the
      slice's main path, `--mesh binned2` at the full registry
      configuration, held to phase 10's uncut walk render;
- 20. timings of K9-K12 at those shapes with their bounds (K11's also under
-     the work of the earlier schedule: blocks of 128, a window of 32), and
+ 20. timings of K9-K12 at those shapes with their bounds (K10 on every
+     round of phase 18's fused call, beside K4's rounds of phase 11, each
+     round with its bound; K11's also under the work of the earlier
+     schedule: blocks of 128, a window of 32), and
      the device's busy share of a 4-spp binned2 render under
      torch.profiler;
  21. book3 (glass sphere, sphere light) and cornellSmoke (two media): K1,
@@ -1802,7 +1804,8 @@ def main():
     check(c10 == counters7 and torch.equal(fi8, bi8) and torch.equal(ft8, bt8),
           f"K10's route differs from the unfused binned route ({c10} vs "
           f"{counters7})")
-    k10_args = calls10[0][0]
+    k10_rounds = [a for a, _ in calls10]
+    k10_args = k10_rounds[0]
     print(f"[18] K10 vs plain on the {len(calls10)} rounds of one fused "
           f"binned_closest: t, idx, next key and bits equal bit for bit; the "
           f"same rounds ({c10['rounds']}) and host reads ({c10['host_reads']})"
@@ -2068,22 +2071,37 @@ def main():
         b, o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
         return max(b, o) * 1e3, "bytes" if b >= o else "operations"
 
-    k10_ms = time_ms(lambda: real_round(*k10_args), 20)
+    # K10 on every round of phase 18's fused call (the same rounds as phase
+    # 11's K4 rounds), each beside its bound
+    k10_per = [time_ms(lambda a=a: real_round(*a), 20) for a in k10_rounds]
+    k10_ms = k10_per[0]
     k10_plain_ms = time_ms(lambda: stream.stream_round_rows_ref(*k10_args), 1,
                            warmup=0)
-    n10 = k10_args[7].numel()
     k_cl = bvh.cl_lo.shape[0]
     n_mask = (k_cl + 31) // 32
-    k10_tests = int(((k10_args[4] - k10_args[3]).long().sum()) * 8
-                    * stream.BLOCK)
-    k10_bound, k10_by = bound_of(
-        bvh.cl_lines.numel() * 4 + n10 * (8 * 4 + 8) + 8 * (n10 // stream.BLOCK)
-        + n10 * 4 * (3 + n_mask),
-        k10_tests * MT_OPS + n10 * k_cl * BOX_OPS)
+
+    def k10_bound_of(a):
+        n_r = a[7].numel()
+        tests = int((a[4] - a[3]).clamp(min=0).long().sum()) * 8 * stream.BLOCK
+        return bound_of(
+            bvh.cl_lines.numel() * 4 + n_r * (8 * 4 + 8)
+            + 16 * (n_r // stream.BLOCK) + n_r * 4 * (3 + n_mask),
+            tests * MT_OPS + n_r * k_cl * BOX_OPS) + (tests,)
+
+    k10_bounds = [k10_bound_of(a) for a in k10_rounds]
+    k10_bound, k10_by, k10_tests = k10_bounds[0]
+    n10 = k10_args[7].numel()
     print(f"[20] K10 round 0 at {n10} rays ({k10_tests} ray-triangle tests, "
           f"{k_cl} boxes per ray): kernel {k10_ms:.4f} ms, plain "
           f"{k10_plain_ms:.2f} ms, bound {k10_bound:.5f} ms ({k10_by}) on "
           f"{card}")
+    print(f"[20] K10 on every round of that fused binned_closest, on {card}: "
+          f"{[round(x, 4) for x in k10_per]} ms (K4 on the same rounds, "
+          f"phase 11: {[round(x, 4) for x in k4_per]}); sum "
+          f"{sum(k10_per):.4f} ms, largest {max(k10_per):.4f}, mean "
+          f"{sum(k10_per) / len(k10_per):.4f} (K4 {sum(k4_per) / len(k4_per):.4f});"
+          f" bounds per round {[round(b[0], 5) for b in k10_bounds]} ms, "
+          f"summing to {sum(b[0] for b in k10_bounds):.5f}")
     k11_ms = time_ms(lambda: stream2.stream2_rows(*k11_args), 10)
     k11_plain_ms = time_ms(lambda: stream2.stream2_rows_ref(*k11_args), 1,
                            warmup=0)

@@ -1,8 +1,8 @@
 // Moller-Trumbore of one ray against one triangle and against one packed
-// 8-triangle group (objects.go:408-461), the staged stream of a block's
-// group range (stream_round.cu's), cp.async helpers, and the addressing of
-// the packed tables of scene/bvh8.py. Shared by stream.cu, stream_round.cu,
-// stream2.cu, traverse8.cu and traverse.cu.
+// 8-triangle group (objects.go:408-461), cp.async helpers, the slab test, and
+// the addressing of the packed tables of scene/bvh8.py. Shared by stream.cu
+// and stream_round.cu (through stream_items.cuh), stream2.cu, traverse8.cu
+// and traverse.cu.
 //
 // The operation order is that of `mt_groups_ref` in ops/stream.py (and of the
 // JAX kernels). Sources that include this header are compiled with
@@ -21,7 +21,6 @@
 
 #define T_MIN 1e-3f
 #define ENTRY_FLOATS 128  // 8 slots x 16 fields
-#define STREAM_CHUNK 16   // groups staged per step of stream_groups: 8 KB
 
 // Float offset of slot 0, field 0 of entry m in a line-packed table: entry
 // m, slot s, field f is at row (m >> 3) * 8 + s, column (m & 7) * 16 + f of
@@ -133,34 +132,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Stream the groups [glo, ghi) of a line-packed table against this thread's
-// ray, in ascending order. The block stages STREAM_CHUNK groups at a time
-// into `sh` (STREAM_CHUNK * ENTRY_FLOATS floats, 16-byte aligned; each group
-// read as 16-byte vectors) and every thread tests its ray against each staged
-// triangle, reading the same shared address as its neighbours (a broadcast).
-// Every thread of the block calls it with the same range, since it holds
-// barriers.
-template <int NT>
-__device__ __forceinline__ void stream_groups(const float* __restrict__ lines, int glo, int ghi,
-                                              float* sh, float ox, float oy, float oz, float dx,
-                                              float dy, float dz, float& t_best, int& idx) {
-  const float4* __restrict__ src = reinterpret_cast<const float4*>(lines);
-  float4* dst = reinterpret_cast<float4*>(sh);
-  for (int g0 = glo; g0 < ghi; g0 += STREAM_CHUNK) {
-    const int ng = min(STREAM_CHUNK, ghi - g0);
-    __syncthreads();
-    // stage ng groups: 32 float4 per group (slot s = 4 float4, 8 slots)
-    for (int i = threadIdx.x; i < ng * 32; i += NT) {
-      const int g = g0 + (i >> 5);
-      const int s = (i >> 2) & 7;
-      dst[i] = __ldg(src + (packed_offset(g) + (size_t)s * 128) / 4 + (i & 3));
-    }
-    __syncthreads();
-    for (int k = 0; k < ng; ++k)
-      mt_group(sh + k * ENTRY_FLOATS, 16, ox, oy, oz, dx, dy, dz, t_best, idx);
-  }
 }
 
 // 1 / v with |v| lifted to 1e-30 (sign kept), the slab tests' inverse

@@ -19,10 +19,11 @@ stream); on CPU tensors it runs the plain PyTorch version
 `stream_rows_ref`.
 
 `stream_round_rows` (K10, `csrc/stream_round.cu`) is one whole round of
-`ops/trace.binned_closest` in one launch: the stream of `stream_rows`, the
-mark of the block's cluster interval in each ray's processed bits, and
-each ray's next candidate cluster (`candidates`); its plain version is
-`stream_round_rows_ref`.
+`ops/trace.binned_closest` in one call: the stream of `stream_rows` (the
+same work items and merge, from `csrc/stream_items.cuh`), then one pass
+that finishes each ray's (t, idx), marks the block's cluster interval in
+its processed bits and finds its next candidate cluster (`candidates`);
+its plain version is `stream_round_rows_ref`.
 
 Tie rules (they keep the winners equal to the BVH8 walk's): inside a
 group the least t wins and, on equal t, the largest triangle id; across
@@ -216,12 +217,48 @@ def stream_rows_ref(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx, *,
 
 
 class _StreamArgs(ctypes.Structure):
-    """Mirror of `StreamArgs` in csrc/stream.cu (field for field)."""
+    """Mirror of `StreamArgs` in csrc/stream_items.cuh (field for field)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "lines", "glo", "ghi", "ox", "oy", "oz", "dx", "dy", "dz",
         "t_in", "idx_in", "t_out", "idx_out", "keys", "scan")] + [
             (name, ctypes.c_int) for name in ("n_blocks", "n_groups", "ch")]
+
+
+def _stream_args(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
+    """The `StreamArgs` of one launch of the item stream, its outputs
+    (t_out, idx_out) and its scratch (each ray's merged key, the item scan
+    with its counter), which the caller keeps alive until the launch is
+    enqueued. Raises unless the tensors are what csrc/stream_items.cuh
+    reads: contiguous CUDA tensors of the right type and size."""
+    f32, i32 = torch.float32, torch.int32
+    n = ox.numel()
+    planes = [("ox", ox, f32), ("oy", oy, f32), ("oz", oz, f32),
+              ("dx", dx, f32), ("dy", dy, f32), ("dz", dz, f32),
+              ("t", t, f32), ("idx", idx, i32)]
+    for name, x, dt in planes + [("tri_lines", tri_lines, f32),
+                                 ("glo", glo, i32), ("ghi", ghi, i32)]:
+        if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"{name}: needs a contiguous CUDA {dt} tensor")
+    for name, x, _ in planes:
+        if x.numel() != n:
+            raise ValueError(f"{name}: {x.numel()} elements, expected {n}")
+    if tri_lines.dim() != 2 or tri_lines.shape[1] != 128 \
+            or tri_lines.shape[0] % 8:
+        raise ValueError("tri_lines must be (8*L, 128)")
+    if CH % 8 or CH <= 0:
+        raise ValueError(f"CH={CH} must be a positive multiple of 8")
+    blocks = n // BLOCK
+    t_out, idx_out = torch.empty_like(t), torch.empty_like(idx)
+    keys = torch.empty(n, dtype=torch.int64, device=ox.device)
+    scan = torch.empty(blocks + 2, dtype=torch.int32, device=ox.device)
+    p = lambda x: x.data_ptr()
+    a = _StreamArgs(lines=p(tri_lines), glo=p(glo), ghi=p(ghi), ox=p(ox),
+                    oy=p(oy), oz=p(oz), dx=p(dx), dy=p(dy), dz=p(dz),
+                    t_in=p(t), idx_in=p(idx), t_out=p(t_out),
+                    idx_out=p(idx_out), keys=p(keys), scan=p(scan),
+                    n_blocks=blocks, n_groups=tri_lines.shape[0], ch=CH)
+    return a, t_out, idx_out, (keys, scan)
 
 
 def stream_rows(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
@@ -245,35 +282,10 @@ def stream_rows(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
                                t, idx)
     from go_raytracer_tpu_torch.ops import _cuda
 
-    f32, i32 = torch.float32, torch.int32
-    planes = [("ox", ox, f32), ("oy", oy, f32), ("oz", oz, f32),
-              ("dx", dx, f32), ("dy", dy, f32), ("dz", dz, f32),
-              ("t", t, f32), ("idx", idx, i32)]
-    for name, x, dt in planes + [("tri_lines", tri_lines, f32),
-                                 ("glo", glo, i32), ("ghi", ghi, i32)]:
-        if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(f"{name}: needs a contiguous CUDA {dt} tensor")
-    for name, x, _ in planes:
-        if x.numel() != n:
-            raise ValueError(f"{name}: {x.numel()} elements, expected {n}")
-    if tri_lines.dim() != 2 or tri_lines.shape[1] != 128 \
-            or tri_lines.shape[0] % 8:
-        raise ValueError("tri_lines must be (8*L, 128)")
-    if CH % 8 or CH <= 0:
-        raise ValueError(f"CH={CH} must be a positive multiple of 8")
-    t_out = torch.empty_like(t)
-    idx_out = torch.empty_like(idx)
+    a, t_out, idx_out, _scratch = _stream_args(tri_lines, glo, ghi, ox, oy,
+                                               oz, dx, dy, dz, t, idx)
     if blocks == 0:
         return t_out, idx_out
-    # scratch: each ray's merged best, and the item scan with its counter
-    keys = torch.empty(n, dtype=torch.int64, device=ox.device)
-    scan = torch.empty(blocks + 2, dtype=torch.int32, device=ox.device)
-    p = lambda x: x.data_ptr()
-    a = _StreamArgs(lines=p(tri_lines), glo=p(glo), ghi=p(ghi), ox=p(ox),
-                    oy=p(oy), oz=p(oz), dx=p(dx), dy=p(dy), dz=p(dz),
-                    t_in=p(t), idx_in=p(idx), t_out=p(t_out),
-                    idx_out=p(idx_out), keys=p(keys), scan=p(scan),
-                    n_blocks=blocks, n_groups=tri_lines.shape[0], ch=CH)
     err = _cuda.library("stream").grt_stream_rows(
         ctypes.addressof(a), torch.cuda.current_stream(ox.device).cuda_stream)
     if err:
@@ -304,13 +316,12 @@ def stream_round_rows_ref(tri_lines, lo, hi, glo, ghi, ca, cb, ox, oy, oz,
 
 
 class _RoundArgs(ctypes.Structure):
-    """Mirror of `RoundArgs` in csrc/stream_round.cu (field for field)."""
+    """Mirror of `RoundArgs` in csrc/stream_round.cu (field for field): the
+    stream's `StreamArgs`, then the mark's and the scan's arguments."""
 
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "lines", "lo", "hi", "glo", "ghi", "ca", "cb", "ox", "oy", "oz",
-        "dx", "dy", "dz", "t_in", "idx_in", "masks_in", "t_out", "idx_out",
-        "key_out", "masks_out")] + [(name, ctypes.c_int) for name in (
-            "n_blocks", "n_groups", "k_cl", "n_mask")]
+    _fields_ = [("s", _StreamArgs)] + [(name, ctypes.c_void_p) for name in (
+        "lo", "hi", "ca", "cb", "masks_in", "key_out", "masks_out")] + [
+            (name, ctypes.c_int) for name in ("k_cl", "n_mask")]
 
 
 def stream_round_rows(tri_lines, lo, hi, glo, ghi, ca, cb, ox, oy, oz, dx,
@@ -324,7 +335,8 @@ def stream_round_rows(tri_lines, lo, hi, glo, ghi, ca, cb, ox, oy, oz, dx,
     Ray planes, t (float32) and idx (int32): (N,) with N a multiple of
     `BLOCK`; glo/ghi/ca/cb: (blocks,) int32; masks: (ceil(K/32), N) int32.
     Returns new (t, idx, key, masks) with key = K where a ray has no
-    candidate. CUDA tensors launch csrc/stream_round.cu; CPU tensors run
+    candidate. CUDA tensors launch csrc/stream_round.cu (three kernels: the
+    item scan, the item stream and the finish pass); CPU tensors run
     `stream_round_rows_ref`."""
     global launches_round
     n = ox.numel()
@@ -349,35 +361,21 @@ def stream_round_rows(tri_lines, lo, hi, glo, ghi, ca, cb, ox, oy, oz, dx,
                                      oy, oz, dx, dy, dz, t, idx, masks)
     from go_raytracer_tpu_torch.ops import _cuda
 
-    f32, i32 = torch.float32, torch.int32
-    planes = [("ox", ox, f32), ("oy", oy, f32), ("oz", oz, f32),
-              ("dx", dx, f32), ("dy", dy, f32), ("dz", dz, f32),
-              ("t", t, f32), ("idx", idx, i32)]
-    for name, x, dt in planes + [
-            ("tri_lines", tri_lines, f32), ("lo", lo, f32), ("hi", hi, f32),
-            ("glo", glo, i32), ("ghi", ghi, i32), ("ca", ca, i32),
-            ("cb", cb, i32), ("masks", masks, i32)]:
+    for name, x, dt in (("lo", lo, torch.float32), ("hi", hi, torch.float32),
+                        ("ca", ca, torch.int32), ("cb", cb, torch.int32),
+                        ("masks", masks, torch.int32)):
         if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
             raise ValueError(f"{name}: needs a contiguous CUDA {dt} tensor")
-    for name, x, _ in planes:
-        if x.numel() != n:
-            raise ValueError(f"{name}: {x.numel()} elements, expected {n}")
-    if tri_lines.dim() != 2 or tri_lines.shape[1] != 128 \
-            or tri_lines.shape[0] % 8:
-        raise ValueError("tri_lines must be (8*L, 128)")
-    t_out, idx_out = torch.empty_like(t), torch.empty_like(idx)
+    s, t_out, idx_out, _scratch = _stream_args(tri_lines, glo, ghi, ox, oy,
+                                               oz, dx, dy, dz, t, idx)
     key = torch.empty_like(idx)
     m_out = torch.empty_like(masks)
     if blocks == 0:
         return t_out, idx_out, key, m_out
     p = lambda x: x.data_ptr()
-    a = _RoundArgs(lines=p(tri_lines), lo=p(lo), hi=p(hi), glo=p(glo),
-                   ghi=p(ghi), ca=p(ca), cb=p(cb), ox=p(ox), oy=p(oy),
-                   oz=p(oz), dx=p(dx), dy=p(dy), dz=p(dz), t_in=p(t),
-                   idx_in=p(idx), masks_in=p(masks), t_out=p(t_out),
-                   idx_out=p(idx_out), key_out=p(key), masks_out=p(m_out),
-                   n_blocks=blocks, n_groups=tri_lines.shape[0], k_cl=k_cl,
-                   n_mask=n_mask)
+    a = _RoundArgs(s=s, lo=p(lo), hi=p(hi), ca=p(ca), cb=p(cb),
+                   masks_in=p(masks), key_out=p(key), masks_out=p(m_out),
+                   k_cl=k_cl, n_mask=n_mask)
     err = _cuda.library("stream_round").grt_stream_round_rows(
         ctypes.addressof(a), torch.cuda.current_stream(ox.device).cuda_stream)
     if err:

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time and check the binned mesh kernels K4 `stream_rows` and K11
-`stream2_rows` on one NVIDIA GPU, at one real bounce level of scene 8
-(modelExample, 65,536 lanes), with their compile-time choices swept.
+"""Time and check the mesh kernels K4 `stream_rows`, K10
+`stream_round_rows`, K11 `stream2_rows` and K12 `bvh_closest` on one NVIDIA
+GPU, at one real bounce level of scene 8 (modelExample, 65,536 lanes), with
+their compile-time choices swept.
 
-    python3 scripts/tune_mesh_kernels.py [--repo DIR] [--sweep] [--out FILE]
+    python3 scripts/tune_mesh_kernels.py [--repo DIR] [--sweep] [--renders]
+                                         [--out FILE]
 
 It builds the kernels, prints each one's registers, shared memory and
 spills, makes the level the way chip_smoke.py phase 7 does (three levels
@@ -15,22 +17,34 @@ capped lanes), and then:
   bit), and times every round (CUDA events; the least of three batches):
   the round-0 time, the sum over the rounds and the largest round, with
   the lengths of the blocks' group ranges (mean, max) per round;
+* K10: the same for every round of one `binned_closest(b1_fused=True)`
+  (t, idx, next key and bits bit for bit against `stream_round_rows_ref`),
+  timed per round beside K4's rounds;
 * K11: sorts the level's rays as `binned2_closest` does, holds the kernel
   against `stream2_rows_ref` (idx, t and rounds per unit equal) and times
-  it.
+  it;
+* K12: sorts the level's rays as the walk route does (chip_smoke.py phase
+  18), holds the kernel against `bvh_closest_ref` (idx equal, t bit for
+  bit) and times it, with the walk's work (node visits, triangle tests).
+
+--renders also renders modelExample at 25 spp (600x337, depth 50) on the
+`--b1-fused` route and on `--mesh walk --no-traverse8` and prints each
+render loop's wall time and the image's SHA-256.
 
 --repo DIR imports the package from another checkout (the parent commit,
 unpacked with `git archive`) and times its kernels the same way, so two
 commits compare in one call: parent, change, change, parent. --sweep
-times K4 at `stream.CH` in (16, 32, 64) and K11 at `stream2.RANGE_W` in
-(2, 4, 8, 16, 32) with `stream2.TEAM` in (1, 2, 4, 8) warps per unit, each
-variant held against its plain version first, in two passes (forward,
-then reversed).
+times K4 at `stream.CH` in (16, 32, 64), K11 at `stream2.RANGE_W` in
+(2, 4, 8, 16, 32) with `stream2.TEAM` in (1, 2, 4, 8) warps per unit, and
+K12 at `traverse.WARP_RAYS` in (32, 16, 8) with `traverse.LEAF_BATCH` in
+(1, 2, 4, 8) where the package has them, each variant held against its
+plain version first, in two passes (forward, then reversed).
 The results go to --out as JSON (default build/tune_mesh_kernels.json,
 git-ignored) beside a printed summary. Without a GPU it exits non-zero.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -62,7 +76,11 @@ def main():
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package is timed")
     ap.add_argument("--sweep", action="store_true",
-                    help="time every variant of CH, RANGE_W and TEAM")
+                    help="time every variant of CH, RANGE_W, TEAM, "
+                         "WARP_RAYS and LEAF_BATCH")
+    ap.add_argument("--renders", action="store_true",
+                    help="time the 25-spp --b1-fused and --no-traverse8 "
+                         "renders")
     ap.add_argument("--out", default=os.path.join("build",
                                                   "tune_mesh_kernels.json"))
     args = ap.parse_args()
@@ -73,7 +91,7 @@ def main():
     sys.path.insert(0, os.path.abspath(args.repo))
     from go_raytracer_tpu_torch.integrator import regen
     from go_raytracer_tpu_torch.ops import _cuda, intersect, stream, stream2
-    from go_raytracer_tpu_torch.ops import trace
+    from go_raytracer_tpu_torch.ops import trace, traverse
     from go_raytracer_tpu_torch.scenes import registry
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -86,7 +104,7 @@ def main():
     print(f"built in {time.perf_counter() - t0:.1f} s")
     report = {}
     if hasattr(_cuda, "ptxas_report"):
-        for name in ("stream", "stream2"):
+        for name in ("stream", "stream_round", "stream2", "traverse"):
             report[name] = _cuda.ptxas_report(name)
             for line in report[name]:
                 print(f"ptxas {name}: {line}")
@@ -154,8 +172,78 @@ def main():
         return {"round0_ms": per[0], "sum_ms": sum(per), "max_ms": max(per),
                 "per_round_ms": per}
 
-    # ---- K11: the level's coherence-sorted rays ---------------------------
+    # ---- K10: every round of one fused binned_closest ----------------------
+    calls10 = []
+    real10 = stream.stream_round_rows
+
+    def spy10(*a):
+        calls10.append(a)
+        return real10(*a)
+
+    stream.stream_round_rows = spy10
+    try:
+        trace.binned_closest(ms, o8, d8, cap8, alive8, b1_fused=True)
+    finally:
+        stream.stream_round_rows = real10
+    k_cl = bvh.cl_lo.shape[0]
+    n_mask = (k_cl + 31) // 32
+
+    def k10_bound_ms(a):
+        """Operations or bytes of one round, as chip_smoke.py phase 20."""
+        n_r = a[7].numel()
+        tests = int((a[4] - a[3]).clamp(min=0).long().sum()) * 8 * 128
+        nbytes = (bvh.cl_lines.numel() * 4 + n_r * 40 + 16 * (n_r // 128)
+                  + n_r * 4 * (3 + n_mask))
+        return max(nbytes / 3.35e12,
+                   (tests * 46 + n_r * k_cl * 12) / 67e12) * 1e3
+
+    def k10_check():
+        for a in calls10:
+            k = real10(*a)
+            p = stream.stream_round_rows_ref(*a)
+            if not all(torch.equal(x, y) for x, y in zip(k, p)):
+                raise SystemExit("K10 differs from its plain version")
+
+    def k10_time():
+        per = [time_ms(lambda a=a: real10(*a), 20) for a in calls10]
+        return {"round0_ms": per[0], "sum_ms": sum(per), "max_ms": max(per),
+                "mean_ms": sum(per) / len(per), "per_round_ms": per,
+                "bound_ms": [k10_bound_ms(a) for a in calls10]}
+
+    # ---- K12: the level's rays sorted as the walk route sorts them ---------
     cap0 = torch.where(alive8, cap8, 0.0)
+    keyw = torch.where(alive8, trace.coherence_key(bvh, o8, d8), 0x7FFFFFFF)
+    permw = torch.sort(keyw).indices
+    k12_args = (bvh.bvh_nodes, bvh.bvh_tris, o8[permw].contiguous(),
+                d8[permw].contiguous(), cap0[permw].contiguous())
+
+    def k12_check():
+        kt, ki = traverse.bvh_closest(*k12_args, n_nodes=bvh.n_nodes)
+        torch.cuda.synchronize()
+        work = {}
+        pt, pi = traverse.bvh_closest_ref(*k12_args, n_nodes=bvh.n_nodes,
+                                          visits=work)
+        if not (torch.equal(ki, pi) and torch.equal(kt, pt)):
+            raise SystemExit("K12 differs from its plain version")
+        if "ray_visits" not in work:     # a package without the counts
+            return work
+        # the walk's shape per ray and per warp (the kernel's WARP_RAYS
+        # consecutive sorted rays): what a warp's dependent steps follow
+        v, lv = work.pop("ray_visits"), work.pop("ray_leaves")
+        wr = traverse.WARP_RAYS
+        wv, wl = v.view(-1, wr), lv.view(-1, wr)
+        stat = lambda x: {"mean": float(x.float().mean()), "max": int(x.max())}
+        work.update(warp_rays=wr, ray_visits=stat(v), ray_leaves=stat(lv),
+                    warp_max_visits=stat(wv.amax(dim=1)),
+                    warp_sum_leaves=stat(wl.sum(dim=1)),
+                    warp_max_leaves=stat(wl.amax(dim=1)))
+        return work
+
+    def k12_time():
+        return time_ms(lambda: traverse.bvh_closest(
+            *k12_args, n_nodes=bvh.n_nodes), 20)
+
+    # ---- K11: the level's coherence-sorted rays ---------------------------
     key = torch.where(cap0 > 0, trace.coherence_key(bvh, o8, d8), 0x7FFFFFFF)
     perm = torch.sort(key).indices
     k11_args = (bvh.cl2_lines, bvh.cl2_lo, bvh.cl2_hi, bvh.cl2_gs,
@@ -185,10 +273,13 @@ def main():
            "ptxas": report, "k4_rounds": k4_rounds}
     if not args.sweep:
         k4_check()
+        k10_check()
         out["k4"] = k4_time()
         if hasattr(stream, "CH"):
             out["k4"].update(ch=stream.CH, items=k4_items(stream.CH))
+        out["k10"] = k10_time()
         out["k11"] = dict(k11_check(), ms=k11_time())
+        out["k12"] = dict(k12_check(), ms=k12_time())
     else:
         chs = (16, 32, 64)
         k11_vars = [(team, w) for team in (1, 2, 4, 8)
@@ -221,6 +312,33 @@ def main():
         out["k11_sweep"] = [
             dict(k11_work[v], team=v[0], range_w=v[1], ms=k11_res[v])
             for v in k11_vars]
+        if hasattr(traverse, "WARP_RAYS"):
+            k12_vars = [(wr, b) for wr in (32, 16, 8) for b in (1, 2, 4, 8)]
+            saved = traverse.WARP_RAYS, traverse.LEAF_BATCH
+            res = {v: [] for v in k12_vars}
+            try:
+                for v in k12_vars:
+                    traverse.WARP_RAYS, traverse.LEAF_BATCH = v
+                    k12_check()
+                for order in (1, -1):
+                    for v in k12_vars[::order]:
+                        traverse.WARP_RAYS, traverse.LEAF_BATCH = v
+                        res[v].append(k12_time())
+            finally:
+                traverse.WARP_RAYS, traverse.LEAF_BATCH = saved
+            out["k12_sweep"] = [{"warp_rays": v[0], "leaf_batch": v[1],
+                                 "ms": res[v]} for v in k12_vars]
+    if args.renders:
+        out["renders"] = {}
+        for name, kw in (("b1_fused", dict(mesh="binned", b1_fused=True)),
+                         ("walk_bvh2", dict(mesh="walk", traverse8=False))):
+            sc, cm = registry.model_example()
+            cm.samples_per_pixel = 25
+            img, st = regen.render_regen(sc, cm, seed=0, device=dev, **kw)
+            out["renders"][name] = {
+                "elapsed_s": st["elapsed_s"], "levels": st["levels"],
+                "route": st["mesh"]["route"],
+                "sha256": hashlib.sha256(img.tobytes()).hexdigest()[:16]}
     # the earlier schedule's work (blocks of 128, a window of 32) on the
     # same rays, for the bound's like-for-like comparison
     if unit != 128:

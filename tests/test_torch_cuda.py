@@ -659,6 +659,47 @@ def test_stream_round_kernel_matches_plain(cuda, scene8):
     assert torch.equal(k[3][:, tail], masks[:, tail])
 
 
+def test_stream_round_kernel_on_uneven_ranges(cuda, scene8):
+    """K10 on a pool whose blocks' group ranges are very uneven: one block
+    spanning every cluster beside single-cluster blocks, blocks of two
+    neighbouring clusters, empty blocks and sentinel rays: t, idx, the next
+    key and the bits equal the plain version's bit for bit."""
+    ms = trace.to_device(scene8[0], cuda)
+    bvh = ms.tri_bvh
+    k_cl = bvh.cl_lo.shape[0]
+    blocks = 96
+    n = blocks * stream.BLOCK
+    o, d, cap, alive = _mesh_rays(cuda, n, 16)
+    rs = np.random.default_rng(17)
+    first = np.sort(rs.integers(0, k_cl - 1, blocks))
+    last = first.copy()
+    last[1::4] += 1                          # two neighbouring clusters
+    first[0], last[0] = 0, k_cl - 1          # the whole table
+    first[40], last[40] = 3, k_cl - 2        # most of it
+    last[-6:] = -1                           # empty, sentinel rays
+    empty = last < 0
+    gs = bvh.cl_gs.long().cpu().numpy()
+    to = lambda x: torch.from_numpy(np.ascontiguousarray(x)).int().to(cuda)
+    glo = to(np.where(empty, 0, gs[first]))
+    ghi = to(np.where(empty, 0, gs[np.clip(last, 0, None) + 1]))
+    ca, cb = to(np.where(empty, 0, first)), to(last)
+    masks = torch.from_numpy(rs.integers(
+        -(1 << 31), 1 << 31, ((k_cl + 31) // 32, n)).astype(np.int32)).to(cuda)
+    planes = [o[:, k].contiguous() for k in range(3)] \
+        + [d[:, k].contiguous() for k in range(3)]
+    args = (bvh.cl_lines, bvh.cl_lo, bvh.cl_hi, glo, ghi, ca, cb, *planes,
+            torch.where(alive, cap, 0.0),
+            torch.full((n,), -1, dtype=torch.int32, device=cuda), masks)
+    before = stream.launches_round, stream.launches
+    k = stream.stream_round_rows(*args)
+    torch.cuda.synchronize()
+    assert (stream.launches_round, stream.launches) == (before[0] + 1,
+                                                         before[1])
+    p = stream.stream_round_rows_ref(*args)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert (k[1][:stream.BLOCK] >= 0).sum() > 10 and (k[2] < k_cl).any()
+
+
 @pytest.mark.parametrize("team", [1, 2, 4, 8])
 def test_stream2_kernel_matches_plain(cuda, scene8, team, monkeypatch):
     """K11 on 20,480 coherence-sorted rays of the statue (capped, dead),
@@ -704,6 +745,72 @@ def test_bvh_kernel_matches_plain(cuda, scene8):
                                       n_nodes=bvh.n_nodes)
     assert torch.equal(ki, pi) and torch.equal(kt, pt)
     assert (ki >= 0).sum() > 1000 and (ki[~alive] == -1).all()
+
+
+def _bvh_tables(v, leaf_size, dev):
+    """The aligned K12 tables of a BVH over triangle vertices v (T, 3, 3)
+    with leaves of at most `leaf_size`, on `dev`, and the node count."""
+    from go_raytracer_tpu_torch.scene import bvh as bvh_mod
+    fb = bvh_mod.build(v, leaf_size=leaf_size)
+    vp = v[fb.order[:v.shape[0]]].astype(np.float32)
+    rows = np.concatenate([fb.node_min, fb.node_max, np.stack(
+        [fb.first, fb.count, fb.skip], axis=1)], axis=1).astype(np.float32)
+    tris = np.concatenate([vp[:, 0], vp[:, 1] - vp[:, 0],
+                           vp[:, 2] - vp[:, 0]], axis=1)
+    nodes, tris = traverse.pack_tables(rows, tris)
+    return (torch.from_numpy(nodes).to(dev), torch.from_numpy(tris).to(dev),
+            fb.n_nodes)
+
+
+@pytest.mark.parametrize("warp_rays,leaf_batch", [(32, 1), (32, 32),
+                                                   (16, 8), (8, 2)])
+@pytest.mark.parametrize("tree", ["statue", "partial16", "leaf40"])
+def test_bvh_kernel_on_incoherent_rays(cuda, scene8, tree, warp_rays,
+                                       leaf_batch, monkeypatch):
+    """K12 on unsorted, incoherent rays (random origins and directions
+    through the mesh, 30% capped, 10% dead, a lane count that is not a
+    multiple of the block), with 32, 16 or 8 rays a warp and the walk
+    phase ended at 1 to 32 held leaves: on the statue, on 3,001 random
+    triangles with leaves of at most 16 (partial leaves, a partial last
+    one) and with leaves of up to 40 (a leaf tested over two rows of 32
+    lanes): idx equal and t bit for bit; and on the statue's
+    coherence-sorted rays too."""
+    monkeypatch.setattr(traverse, "LEAF_BATCH", leaf_batch)
+    monkeypatch.setattr(traverse, "WARP_RAYS", warp_rays)
+    if tree == "statue":
+        bvh = trace.to_device(scene8[0], cuda).tri_bvh
+        nodes, tris, n_nodes = bvh.bvh_nodes, bvh.bvh_tris, bvh.n_nodes
+        v = None
+    else:
+        # tests/test_bvh.py's random_mesh (that file imports JAX)
+        rs = np.random.default_rng(18)
+        v = rs.uniform(-10, 10, (3001, 1, 3)) \
+            + rs.uniform(-0.8, 0.8, (3001, 3, 3))
+        nodes, tris, n_nodes = _bvh_tables(
+            v, 16 if tree == "partial16" else 40, cuda)
+    n = 20000 + 77
+    rs = np.random.default_rng(19)
+    scale = 8.0 if v is None else 12.0
+    o = rs.uniform(-scale, scale, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    cap = np.where(rs.uniform(size=n) < 0.3, scale, np.inf)
+    cap = np.where(rs.uniform(size=n) < 0.9, cap, 0.0).astype(np.float32)
+    o, d, cap = (torch.from_numpy(x).to(cuda) for x in (o, d, cap))
+    runs = [(o, d, cap)]
+    if tree == "statue":
+        perm = torch.sort(trace.coherence_key(bvh, o, d)).indices
+        runs.append((o[perm].contiguous(), d[perm].contiguous(),
+                     cap[perm].contiguous()))
+    for o_, d_, cap_ in runs:
+        before = traverse.launches
+        kt, ki = traverse.bvh_closest(nodes, tris, o_, d_, cap_,
+                                      n_nodes=n_nodes)
+        torch.cuda.synchronize()
+        assert traverse.launches == before + 1
+        pt, pi = traverse.bvh_closest_ref(nodes, tris, o_, d_, cap_,
+                                          n_nodes=n_nodes)
+        assert torch.equal(ki, pi) and torch.equal(kt, pt)
+        assert (ki >= 0).sum() > 1000
 
 
 def test_five_routes_agree_on_card(cuda, scene8):

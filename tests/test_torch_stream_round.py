@@ -3,7 +3,9 @@
 the Pallas kernel in interpret mode on the same sorted planes, ranges and
 processed bits (t, idx, next key and bits), and `binned_closest(...,
 b1_fused=True)` against the JAX route under GRT_B1_FUSED=1 and against
-the port's unfused route (same rounds, bit-equal results)."""
+the port's unfused route (same rounds, bit-equal results); and a plain
+model of the CUDA round (K4's work items and merge, then the finish pass:
+decode, mark, scan) against the plain version on very uneven ranges."""
 
 import jax  # noqa: F401  (conftest pins JAX to the CPU)
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ from go_raytracer_tpu_torch.ops import stream as tstream
 from go_raytracer_tpu_torch.ops import trace as ttrace
 from go_raytracer_tpu_torch.scene import types as TT
 from tests.test_bvh import _scenes_with_and_without_bvh
+from tests.test_torch_stream import split_merge_model
 
 torch.set_num_threads(2)
 
@@ -90,6 +93,57 @@ def test_stream_round_rows_ref_matches_pallas_kernel(monkeypatch):
     # the empty blocks' rays keep their bits, t and idx
     np.testing.assert_array_equal(pm.numpy()[:, 3072:], masks[:, 3072:])
     assert tstream.launches_round == 0
+
+
+@pytest.mark.parametrize("ch", [8, tstream.CH, 64])
+def test_item_round_equals_the_plain_round(ch, monkeypatch):
+    """The CUDA round as a plain model: the stream split into work items of
+    `ch` groups and merged on each ray's 64-bit key (the model of
+    tests/test_torch_stream.py), then the finish pass (the decoded t and
+    idx, the mark of [ca, cb], the candidate scan on the decoded t) equals
+    `stream_round_rows_ref` bit for bit (t, idx, key, bits) on a pool whose
+    ranges are very uneven: one block spanning every cluster beside
+    single-cluster blocks, an empty block and a block of sentinel rays."""
+    _, ms = mesh_pair(2000, 71, monkeypatch)
+    bvh = ms.tri_bvh
+    k_cl = bvh.cl_lo.shape[0]
+    n_mask = (k_cl + 31) // 32
+    blocks = 8
+    n = blocks * tstream.BLOCK
+    gs = bvh.cl_gs.long()
+    rs = np.random.default_rng(72)
+    first = np.array([0] + sorted(rs.integers(0, k_cl, 5).tolist())
+                     + [0, 0])
+    last = first.copy()
+    last[0] = k_cl - 1                                  # the whole table
+    last[6:] = -1                                       # empty; sentinels
+    empty = last < 0
+    glo = torch.from_numpy(np.where(empty, 0, gs[first].numpy())).int()
+    ghi = torch.from_numpy(np.where(empty, 0, gs[np.clip(last, 0, None) + 1]
+                                    .numpy())).int()
+    ca = torch.from_numpy(np.where(empty, 0, first)).int()
+    cb = torch.from_numpy(last).int()
+    assert int(ghi[0] - glo[0]) > 20 * int((ghi[1:6] - glo[1:6]).max())
+    o, d, cap, alive = rays(n, 73)
+    tt = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    planes = [tt(o[:, k]) for k in range(3)] + [tt(d[:, k]) for k in range(3)]
+    t0 = tt(np.where(alive, cap, 0.0).astype(np.float32))
+    idx0 = torch.full((n,), -1, dtype=torch.int32)
+    masks = tt(rs.integers(-(1 << 31), 1 << 31, (n_mask, n)).astype(np.int32)
+               & (rs.uniform(size=(n_mask, n)) < 0.3).astype(np.int32))
+    want = tstream.stream_round_rows_ref(bvh.cl_lines, bvh.cl_lo, bvh.cl_hi,
+                                         glo, ghi, ca, cb, *planes, t0,
+                                         idx0, masks)
+    t1, i1 = split_merge_model(bvh.cl_lines, glo, ghi, *planes, t0, idx0,
+                               ch=ch)
+    m1 = tstream.mark_range(masks, ca.repeat_interleave(tstream.BLOCK),
+                            cb.repeat_interleave(tstream.BLOCK))
+    k1, _ = tstream.candidates(bvh.cl_lo, bvh.cl_hi, *planes, t1,
+                               tstream.processed(m1, k_cl))
+    for got, w in zip((t1, i1, k1, m1), want):
+        assert torch.equal(got, w)
+    assert (i1[:tstream.BLOCK] >= 0).sum() > 5
+    assert torch.equal(m1[:, 6 * tstream.BLOCK:], masks[:, 6 * tstream.BLOCK:])
 
 
 def test_binned_fused_route_matches_jax_and_the_unfused_route(monkeypatch):
