@@ -29,9 +29,11 @@ Phases (any failure exits non-zero; nothing is swallowed):
   7. the mesh path's intersectors at scene 8's shapes (modelExample: the
      65,536-triangle statue, 65,536 rays of a real bounce level, capped and
      dead lanes included): K4 `stream_rows` on every call one
-     `binned_closest` makes, and K5 `bvh8_closest`, against their plain
-     versions (idx equal on every lane, t bit for bit); K4's winners
-     against K5's; both routes of `mesh_closest` against the plain
+     `binned_closest` makes, and K5 `bvh8_closest` on the level's rays as
+     they lie and sorted as the walk route sorts them, against their plain
+     versions (idx equal on every lane, t bit for bit), with the plain
+     walk's steps per ray and per warp of 4, 8 and 32 sorted rays; K4's
+     winners against K5's; both routes of `mesh_closest` against the plain
      skip-link walk; the blocks' group ranges (mean, max) at round 0 and
      over all rounds, and K4's work items;
   8. K3 `bounce` against its plain version on that level with its ext
@@ -43,17 +45,19 @@ Phases (any failure exits non-zero; nothing is swallowed):
      lanes), whose start ranks and per-level bases come from the refill's
      cumulative sum: every level's starts take base .. base+take-1 once
      each, and K2 against its plain version on those records; then the
-     scene-8 render through `cli.main` on the binned route, launch counts
-     read around it. To keep the script's time, this one render is CUT to
-     25 spp (5x5 strata; 600x337, depth 50, 65,536 lanes otherwise as the
-     registry has it) and held against the walk route at the same 25 spp
-     in the same call; then the walk route through `cli.main` at the full
-     registry configuration (250 spp = 225 strata), so that K5 runs on a
-     main path at full width;
+     scene-8 render through `cli.main --mesh binned`, launch counts read
+     around it. To keep the script's time, this one render is CUT to 25
+     spp (5x5 strata; 600x337, depth 50, 65,536 lanes otherwise as the
+     registry has it) and held against the default route (the walk) at the
+     same 25 spp in the same call; then the slice's main path, `-S 8` with
+     no route named, through `cli.main` at the full registry
+     configuration (250 spp = 225 strata): the walk route, through K5, K3
+     and K2 alone;
  11. timings of K3-K5 at those shapes with their bounds (K4 on every round
-     of phase 7's call: each round, the sum and the largest), rounds and
-     host reads per level, and the device's busy share of a scene-8 render
-     at 1 spp under torch.profiler;
+     of phase 7's call: each round, the sum and the largest; K5 on the
+     level's rays as they lie and sorted), rounds and host reads per level,
+     and the device's busy share of a scene-8 render at 1 spp under
+     torch.profiler on the binned route and on the walk;
  12. K6 `bounce_fused` against its plain version (cornellBox tables,
      131072 lanes, 8 levels, a mixed alive/depth state, the take plane of
      a real refill), and K8 `bounce_fused_pos` likewise with `rem` mixed
@@ -89,12 +93,15 @@ Phases (any failure exits non-zero; nothing is swallowed):
      then one uncut scene-8 window on the walk route with binned2 and the
      binary BVH walk fed the same rays at every level: the lanes whose
      winners differ, as ties (equal t) and non-ties, and the first one;
+     and at every 32nd level of that window K5 against its plain version
+     on the level's rays as they lie and sorted;
  19. renders through `cli.main`, launch counts read around each:
-     `-S 8 --mesh binned2` (K11 once per level, no K4), `--b1-fused` and
-     `--mesh walk --no-traverse8`, all three CUT to 25 spp (5x5 strata, the
-     full frame) and held to phase 10's 25-spp walk render; then the
-     slice's main path, `--mesh binned2` at the full registry
-     configuration, held to phase 10's uncut walk render;
+     `-S 8 --mesh binned2` (K11 once per level, no K4), `--b1-fused` (the
+     binned route's fused rounds) and `--mesh walk --no-traverse8`, all
+     three CUT to 25 spp (5x5 strata, the full frame) and, with phase 10's
+     `--mesh binned` render, held to phase 10's 25-spp walk render; then
+     `--mesh binned2` at the full registry configuration, held to phase
+     10's uncut walk render;
  20. timings of K9-K12 at those shapes with their bounds (K10 on every
      round of phase 18's fused call, beside K4's rounds of phase 11, each
      round with its bound; K11's also under the work of the earlier
@@ -364,10 +371,8 @@ def plain_versions(bounce, harvest, stream, traverse8):
     saved = (bounce.bounce, stream.stream_rows, traverse8.bvh8_closest,
              harvest.harvest_levels_into)
 
-    def plain_walk(nodes, tris, o, d, t_cap=None, *, dense_nodes=False,
-                   max_stack=None):
-        return traverse8.bvh8_closest_ref(nodes, tris, o, d, t_cap,
-                                          dense_nodes=dense_nodes)
+    def plain_walk(nodes, tris, o, d, t_cap=None, *, max_stack=None):
+        return traverse8.bvh8_closest_ref(nodes, tris, o, d, t_cap)
 
     def plain_harvest(acc, Vr, Vg, Vb, FL, bases, *, item_base, s_run,
                       refill_levels, max_contribution):
@@ -909,28 +914,54 @@ def main():
           f"CH={stream.CH} groups: round 0 {items7[0]}, all rounds "
           f"{sum(items7)} ({items7})")
 
-    # K5 against its plain version, and against K4's winners
+    # K5 against its plain version, on the level's rays as they lie and
+    # sorted as the walk route sorts them, and against K4's winners
     cap0 = torch.where(alive8, cap8, 0.0)
+    keyw = torch.where(alive8, trace.coherence_key(bvh, o8, d8), 0x7FFFFFFF)
+    permw = torch.sort(keyw).indices
+    k5_sorted = (o8[permw].contiguous(), d8[permw].contiguous(),
+                 cap0[permw].contiguous())
+
+    def k5_vs_plain(o_, d_, c_, what, visits=None):
+        """K5 and its plain version on these rays: (t, idx, max abs err);
+        fails unless idx is equal and t bit for bit."""
+        kt, ki = traverse8.bvh8_closest(bvh.bvh8_nodes, bvh.bvh8_tris, o_,
+                                        d_, c_, max_stack=bvh.max_stack)
+        torch.cuda.synchronize()
+        pt, pi = traverse8.bvh8_closest_ref(bvh.bvh8_nodes, bvh.bvh8_tris,
+                                            o_, d_, c_, visits=visits)
+        check(torch.equal(ki, pi) and torch.equal(kt, pt),
+              f"K5 differs from its plain version ({what})")
+        return kt, ki, (kt - pt).abs().nan_to_num(0.0).max().item()
+
     visits = {}
-    kt5, ki5 = traverse8.bvh8_closest(bvh.nodes8, bvh.tris8, o8, d8, cap0,
-                                      dense_nodes=bvh.bvh8_dense,
-                                      max_stack=bvh.max_stack)
-    torch.cuda.synchronize()
-    pt5, pi5 = traverse8.bvh8_closest_ref(bvh.nodes8, bvh.tris8, o8, d8, cap0,
-                                          dense_nodes=bvh.bvh8_dense,
-                                          visits=visits)
-    check(torch.equal(ki5, pi5) and torch.equal(kt5, pt5),
-          "K5 differs from its plain version")
-    k5_err = (kt5 - pt5).abs().nan_to_num(0.0).max().item()
+    kt5, ki5, k5_err = k5_vs_plain(o8, d8, cap0, "phase 7's level", visits)
+    visits_s = {}
+    _, ki5s, k5_err_s = k5_vs_plain(*k5_sorted, "phase 7's level, sorted",
+                                    visits_s)
+    check(torch.equal(ki5s, ki5[permw]), "K5: sorting the rays moves a winner")
+    k5_err = max(k5_err, k5_err_s)
+    # the plain walk's steps per ray (node visits + group tests) and the
+    # most steps of a ray in each warp of 4, 8 and 32 sorted rays: a warp
+    # of the kernel lasts as long as its heaviest ray
+    steps5 = visits_s["ray_visits"] + visits_s["ray_groups"]
+    warp5 = {wr: steps5.view(-1, wr).amax(dim=1).float() for wr in (4, 8, 32)}
     check(torch.equal(bi8, ki5) and torch.equal(bt8, kt5),
           "K4's winners (binned route) differ from K5's (walk)")
     wt8, wi8 = trace.mesh_closest(ms, o8, d8, cap8, alive8, mesh="walk")
     check(torch.equal(wi8, ki5) and torch.equal(wt8, kt5),
           "the walk route's sort and unsort change a result")
     n_hit8 = int((ki5 >= 0).sum())
-    print(f"[7] K5 vs plain: idx equal, t bit for bit; {n_hit8} lanes hit the "
-          f"statue; walk work {visits['node_visits']} node visits, "
-          f"{visits['group_tests']} group tests; K4 winners == K5 winners")
+    print(f"[7] K5 vs plain (team {traverse8.TEAM}, block {traverse8.BLOCK}),"
+          f" on the rays as they lie and sorted: idx equal, t bit for bit; "
+          f"{n_hit8} lanes hit the statue; walk work {visits['node_visits']} "
+          f"node visits, {visits['group_tests']} group tests; steps per "
+          f"sorted ray mean {steps5.float().mean().item():.2f} max "
+          f"{int(steps5.max())}; the heaviest ray of a warp of 4 / 8 / 32 "
+          f"sorted rays: mean " + " / ".join(
+              f"{warp5[w].mean().item():.2f}" for w in (4, 8, 32))
+          + ", max " + " / ".join(f"{int(warp5[w].max())}" for w in (4, 8, 32))
+          + "; K4 winners == K5 winners")
     # both routes against the plain skip-link walk (its own Moller-Trumbore
     # form and closed intervals: an edge-grazing ray may differ)
     st8, si8 = trace.bvh_tri_closest(ms, o8, d8, trace.T_MIN, float("inf"))
@@ -996,7 +1027,7 @@ def main():
     sc8, cm8 = reg8.model_example()
     cm8.width, cm8.samples_per_pixel = 48, 16
     kw9 = dict(seed=3, n_lanes=1 << 15, device=dev)
-    img_k, st_k = regen.render_regen(sc8, cm8, **kw9)
+    img_k, st_k = regen.render_regen(sc8, cm8, mesh="binned", **kw9)
     img_w, st_w = regen.render_regen(sc8, cm8, mesh="walk", **kw9)
     check(np.array_equal(img_k, img_w) and st_k["segments"] == st_w["segments"],
           "scene 8: the two routes render different images from one seed")
@@ -1096,7 +1127,8 @@ def main():
     # the binned route, cut to 25 spp (5x5 strata) for the script's time
     paths25 = 600 * 337 * 25
     reset_counts()
-    s8 = run_cli8(["--spp", "25"], "modelExample_binned25.ppm")
+    s8 = run_cli8(["--mesh", "binned", "--spp", "25"],
+                  "modelExample_binned25.ppm")
     k3_launches, k4_launches = bounce.launches_bounce, stream.launches
     k2_launches_8 = harvest.launches
     ratio8 = s8["segments"] / s8["paths"]
@@ -1113,8 +1145,9 @@ def main():
           f"{m8['host_reads'] / s8['levels'] + 1:.3f} (one per round, one "
           f"before the first, one for the level's counts)")
     check(s8["paths"] == paths25, f"scene 8 binned: paths != {paths25}")
-    check(s8["nonfinite"] == 0 and s8["schedule"] == "queue",
-          "scene 8: non-finite pixels or wrong schedule")
+    check(s8["nonfinite"] == 0 and s8["schedule"] == "queue"
+          and m8["route"] == "binned",
+          "scene 8: non-finite pixels, wrong schedule or wrong route")
     check(abs(ratio8 - small_ratio) <= 0.05 * small_ratio,
           f"scene 8: segments/path {ratio8} vs the small render's {small_ratio}")
     check(k3_launches == s8["levels"] and k4_launches == m8["rounds"]
@@ -1122,15 +1155,15 @@ def main():
           "scene 8: launch counts do not match levels, rounds and windows")
     check(k3_launches > 0 and k4_launches > 0 and k2_launches_8 > 0,
           "scene 8 binned render did not launch K3, K4 and K2")
-    # the walk route at the same cut and seed, held against the binned run.
+    # the default route (the walk) at the same cut and seed, held against
+    # the binned run.
     # Both routes return the same winners, so the two runs trace the same
     # paths unless a ray meets two triangles of different groups at one t
     # (the routes visit groups in different orders); after one such lane
     # the lanes' items and random numbers part ways, and the segment totals
     # then differ by their statistical spread.
     reset_counts()
-    s8w25 = run_cli8(["--mesh", "walk", "--spp", "25"],
-                     "modelExample_walk25.ppm")
+    s8w25 = run_cli8(["--spp", "25"], "modelExample_walk25.ppm")
     with open(os.path.join(out_dir, "modelExample_binned25.ppm"), "rb") as fa, \
             open(os.path.join(out_dir, "modelExample_walk25.ppm"), "rb") as fb:
         same_image = fa.read() == fb.read()
@@ -1140,18 +1173,25 @@ def main():
           f"{traverse8.launches} K4 {stream.launches}; segments equal to the "
           f"binned run's: {s8w25['segments'] == s8['segments']}, image files "
           f"identical: {same_image}")
-    check(s8w25["paths"] == s8["paths"] and s8w25["nonfinite"] == 0,
-          "scene 8 walk route at 25 spp: paths or non-finite pixels")
+    check(s8w25["paths"] == s8["paths"] and s8w25["nonfinite"] == 0
+          and s8w25["mesh"]["route"] == "walk",
+          "scene 8 default route at 25 spp: paths, non-finite pixels or a "
+          "route other than the walk")
     check(traverse8.launches == s8w25["levels"] > 0 and stream.launches == 0,
           "scene 8 walk route at 25 spp did not go through K5 alone")
     check(abs(s8w25["segments"] - s8["segments"]) <= 2e-3 * s8["segments"],
           "scene 8 at 25 spp: the routes' segments differ by more than 2e-3")
-    # the walk route as a main path of its own, at the full registry
-    # configuration
+    # the slice's main path: `-S 8` with no route named (the walk), at the
+    # full registry configuration
     reset_counts()
-    s8w = run_cli8(["--mesh", "walk"], "modelExample_walk.ppm")
+    s8w = run_cli8([], "modelExample_walk.ppm")
     k5_launches = traverse8.launches
     k3_launches = bounce.launches_bounce    # K3 on the uncut main path
+    k2_launches_main8 = harvest.launches
+    others8 = (bounce.launches + bounce.launches_fused
+               + bounce.launches_fused_pos + bounce.launches_direct
+               + harvest.launches_rows + stream.launches
+               + stream.launches_round + stream2.launches + traverse.launches)
     ratio8w = s8w["segments"] / s8w["paths"]
     print(f"[10] flagship modelExample 600x337 250spp (225 strata) depth 50, "
           f"{s8w['lanes']} lanes, walk route, on {card}: paths {s8w['paths']},"
@@ -1159,14 +1199,16 @@ def main():
           f"{s8w['rays_per_s']:.6g} rays/s, elapsed {s8w['elapsed_s']:.3f} s,"
           f" windows {s8w['windows']}, levels {s8w['levels']}, occupancy "
           f"{s8w['occupancy']:.4f}; launches K5 {k5_launches} K3 "
-          f"{bounce.launches_bounce} K4 {stream.launches} K2 "
-          f"{harvest.launches}")
-    check(s8w["paths"] == SCENE8_PATHS and s8w["nonfinite"] == 0,
-          "scene 8 walk route: paths or non-finite pixels")
-    check(k5_launches == s8w["levels"] > 0 and stream.launches == 0
-          and bounce.launches_bounce == s8w["levels"]
-          and harvest.launches == s8w["windows"],
-          "scene 8 walk route did not go through K5, K3 and K2 alone")
+          f"{k3_launches} K2 {k2_launches_main8}, the other nine kernels "
+          f"{others8}")
+    check(s8w["paths"] == SCENE8_PATHS and s8w["nonfinite"] == 0
+          and s8w["mesh"]["route"] == "walk",
+          "scene 8 main path: paths, non-finite pixels or a route other "
+          "than the walk")
+    check(k5_launches == s8w["levels"] > 0 and others8 == 0
+          and k3_launches == s8w["levels"]
+          and k2_launches_main8 == s8w["windows"],
+          "scene 8 main path did not go through K5, K3 and K2 alone")
     check(abs(ratio8w - small_ratio) <= 0.05 * small_ratio,
           f"scene 8 walk: segments/path {ratio8w} vs the small render's "
           f"{small_ratio}")
@@ -1180,13 +1222,18 @@ def main():
     k4_ops_s = k4_tests * MT_OPS / FP32_OPS_PER_S
     k4_bound = max(k4_bytes / HBM_BYTES_PER_S, k4_ops_s) * 1e3
     k4_by = "bytes" if k4_bytes / HBM_BYTES_PER_S >= k4_ops_s else "operations"
-    k5_args = (bvh.nodes8, bvh.tris8, o8, d8, cap0)
-    k5_kw = dict(dense_nodes=bvh.bvh8_dense)
+    k5_args = (bvh.bvh8_nodes, bvh.bvh8_tris, o8, d8, cap0)
     k5_ms = time_ms(lambda: traverse8.bvh8_closest(
-        *k5_args, max_stack=bvh.max_stack, **k5_kw), 20)
-    k5_plain_ms = time_ms(lambda: traverse8.bvh8_closest_ref(*k5_args, **k5_kw),
-                          1, warmup=0)
-    k5_bytes = (bvh.nodes8.numel() + bvh.tris8.numel()) * 4 + n8 * (28 + 8)
+        *k5_args, max_stack=bvh.max_stack), 20)
+    k5_sorted_ms = time_ms(lambda: traverse8.bvh8_closest(
+        bvh.bvh8_nodes, bvh.bvh8_tris, *k5_sorted, max_stack=bvh.max_stack),
+        20)
+    # the plain version on the rays the walk route hands K5 (sorted)
+    k5_plain_ms = time_ms(lambda: traverse8.bvh8_closest_ref(
+        bvh.bvh8_nodes, bvh.bvh8_tris, *k5_sorted), 1, warmup=0)
+    # its tables (pack_tables' rows) read once, 28 bytes in and 8 out a ray
+    k5_bytes = (bvh.bvh8_nodes.numel() + bvh.bvh8_tris.numel()) * 4 \
+        + n8 * (28 + 8)
     k5_ops_s = (visits["node_visits"] * 8 * BOX_OPS
                 + visits["group_tests"] * 8 * MT_OPS) / FP32_OPS_PER_S
     k5_bound = max(k5_bytes / HBM_BYTES_PER_S, k5_ops_s) * 1e3
@@ -1218,7 +1265,8 @@ def main():
     print(f"[11] at {n8} lanes of scene 8 on {card}: K3 {k3_ms:.4f} ms, "
           f"plain {k3_plain_ms:.3f} ms, bound {k3_bound:.5f} ms ({k3_by}); K4 round 0 {k4_ms:.4f} ms, "
           f"plain {k4_plain_ms:.2f} ms, bound {k4_bound:.5f} ms ({k4_by}); K5 "
-          f"{k5_ms:.4f} ms, plain {k5_plain_ms:.2f} ms, bound {k5_bound:.5f} "
+          f"{k5_ms:.4f} ms on the rays as they lie, {k5_sorted_ms:.4f} ms "
+          f"sorted, plain {k5_plain_ms:.2f} ms, bound {k5_bound:.5f} "
           f"ms ({k5_by}); one binned_closest {binned_ms:.3f} ms "
           f"({counters7['rounds']} rounds), one walk-route mesh_closest "
           f"{walk_ms:.3f} ms")
@@ -1227,9 +1275,10 @@ def main():
     # the binned route's ~40 launches per round)
     sc8, cm8 = reg8.model_example()
     cm8.samples_per_pixel = 1
-    _, ust = regen.render_regen(sc8, cm8, seed=5, device=dev)
+    _, ust = regen.render_regen(sc8, cm8, seed=5, device=dev, mesh="binned")
     with torch.profiler.profile(activities=acts) as prof8:
-        _, pst8 = regen.render_regen(sc8, cm8, seed=5, device=dev)
+        _, pst8 = regen.render_regen(sc8, cm8, seed=5, device=dev,
+                                     mesh="binned")
     dev_us8 = device_times(prof8)
     if dev_us8:
         all_us = sum(dev_us8.values())
@@ -1255,6 +1304,30 @@ def main():
                   f"{k[:48]} {v / 1e3:.2f}" for k, v in top8))
     else:
         print("[11] profiler reported no device time: busy share not measured")
+    # the same on the main path's route, the walk
+    _, ustw = regen.render_regen(sc8, cm8, seed=5, device=dev)
+    with torch.profiler.profile(activities=acts) as prof8w:
+        _, pst8w = regen.render_regen(sc8, cm8, seed=5, device=dev)
+    dev_us8w = device_times(prof8w)
+    if dev_us8w:
+        all_w = sum(dev_us8w.values())
+        perw = lambda name, count: sum(
+            v for k, v in dev_us8w.items() if name in k) / 1e3 / count
+        top8w = sorted(dev_us8w.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[11] scene 8 at 1 spp on the walk route ({pst8w['levels']} "
+              f"levels): render loop {ustw['elapsed_s']:.3f} s unprofiled, "
+              f"{pst8w['elapsed_s']:.3f} s under the profiler; device busy "
+              f"{all_w / 1e6:.3f} s = {all_w / 1e6 / pst8w['elapsed_s']:.3f} "
+              f"of the profiled loop; device ms per launch: K5 "
+              f"bvh8_closest_kernel "
+              f"{perw('bvh8_closest_kernel', pst8w['levels']):.5f}, K3 "
+              f"bounce_level {perw('bounce_level', pst8w['levels']):.5f}, K2 "
+              f"{perw('harvest_levels', pst8w['windows']):.5f}; top device "
+              f"events, ms: " + ", ".join(f"{k[:48]} {v / 1e3:.2f}"
+                                          for k, v in top8w))
+    else:
+        print("[11] profiler reported no device time on the walk route: "
+              "busy share not measured")
 
     # ---- 12. K6 and K8 against their plain versions ---------------------
     phase_start(12)
@@ -1896,11 +1969,23 @@ def main():
     # and a fault otherwise (a route missed the nearer triangle).
     ctxw = regen.MeshContext.build(scene8, cam8, dev, mesh="walk")
     real_mc = trace.mesh_closest
-    parts = {"levels": 0, "lanes": 0, "first": None,
+    parts = {"levels": 0, "lanes": 0, "first": None, "k5_levels": 0,
              "binned2": [0, 0], "walk+bvh2": [0, 0]}   # [ties, non-ties]
 
     def mc_spy(ms_, o_, d_, t_cap=None, alive=None, **kw):
         t_w, i_w = real_mc(ms_, o_, d_, t_cap, alive, **kw)
+        if parts["levels"] % 32 == 0:
+            # K5 against its plain version on this level, the rays as they
+            # lie and sorted as the walk route sorts them
+            c_ = torch.where(alive, t_cap, 0.0)
+            key_ = torch.where(alive, trace.coherence_key(bvh, o_, d_),
+                               0x7FFFFFFF)
+            p_ = torch.sort(key_).indices
+            where = f"phase 18's window, level {parts['levels']}"
+            k5_vs_plain(o_, d_, c_, where)
+            k5_vs_plain(o_[p_].contiguous(), d_[p_].contiguous(),
+                        c_[p_].contiguous(), where + ", sorted")
+            parts["k5_levels"] += 1
         parts["levels"] += 1
         parts["lanes"] += int(alive.sum())
         for name, rk in (("binned2", dict(mesh="binned2")),
@@ -1945,7 +2030,9 @@ def main():
           f"binned2 and the binary BVH walk: lanes whose winner differs from "
           f"the walk's (ties / non-ties) binned2 {parts['binned2'][0]} / "
           f"{parts['binned2'][1]}, walk+bvh2 {parts['walk+bvh2'][0]} / "
-          f"{parts['walk+bvh2'][1]}; first: {parts['first']}")
+          f"{parts['walk+bvh2'][1]}; first: {parts['first']}; K5 equal to "
+          f"its plain version (idx, t bit for bit) on {parts['k5_levels']} "
+          f"of its levels, the rays as they lie and sorted")
     check(parts["levels"] == s_run18 > refill8,
           "the route comparison did not see every level of the window")
 
@@ -1970,6 +2057,10 @@ def main():
               f"{name}: segments beyond 1e-3 or channel means beyond 1e-2 of "
               f"the walk route's")
 
+    # phase 10's `--mesh binned` render, held to the default route's (the
+    # walk) the same way
+    held_to("binned, 25 spp", s8, "modelExample_binned25.ppm", s8w25,
+            "modelExample_walk25.ppm", walk25_means)
     # the binned2 route at 25 spp (5x5 strata, the full frame), held to the
     # walk route's 25-spp render, then uncut below
     reset_counts()
@@ -3053,8 +3144,9 @@ def main():
         {"name": "bvh8_closest", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/traverse8.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/traverse8.py:238",
-         "launches": k5_launches, "max_abs_err": k5_err, "ms": k5_ms,
-         "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by,
+         "launches": k5_launches, "max_abs_err": k5_err,
+         "ms": k5_sorted_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
+         "bound_by": k5_by,
          "library_ms": None},
         {"name": "bounce_fused", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused.cu",

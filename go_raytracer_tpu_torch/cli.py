@@ -12,10 +12,12 @@ textures read inside the kernels; `--direct-rec` on a scene with image
 textures exits with 2 and a message naming them, as the JAX package
 refuses it.
 `-S 8` (a mesh) runs the mesh path; `--mesh` picks its closest-hit route:
-`binned` (default; `--b1-fused` fuses each round into one kernel),
-`binned2` (the persistent-block intersector) or `walk` (the BVH8 walk;
-`--no-traverse8` the binary BVH walk). `--direct-rec` has the
-in-kernel-queue kernel write its records in place. These are the JAX
+`auto` (default: the walk, or binned with `--b1-fused`), `binned`
+(`--b1-fused` fuses each round into one kernel), `binned2` (the
+persistent-block intersector) or `walk` (the BVH8 walk; `--no-traverse8`
+the binary BVH walk). The JAX package's auto is binned, a TPU choice; on
+the H100 the walk is the fastest route every triangle BVH can run.
+`--direct-rec` has the in-kernel-queue kernel write its records in place. These are the JAX
 package's GRT_MESH, GRT_B1_FUSED, GRT_TRAVERSE8 and GRT_DIRECT_REC as
 flags; where the JAX package would quietly take another route, the run
 exits with 2 and a message. `--schedule queue` and
@@ -68,9 +70,10 @@ def main(argv=None):
                          "scene, queue refills the item queue before each "
                          "kernel call and positional gives every lane a "
                          "static block of items")
-    ap.add_argument("--mesh", choices=["binned", "binned2", "walk"],
-                    default="binned",
-                    help="closest mesh hit: the binned intersector, the "
+    ap.add_argument("--mesh", choices=["auto", "binned", "binned2", "walk"],
+                    default="auto",
+                    help="closest mesh hit: auto = the BVH walk (binned "
+                         "with --b1-fused), the binned intersector, the "
                          "persistent-block binned intersector (one kernel "
                          "launch per level) or the BVH walk (JAX: GRT_MESH)")
     ap.add_argument("--b1-fused", action="store_true",

@@ -514,10 +514,10 @@ def window_generator(seed: int, w: int, device) -> torch.Generator:
 class MeshContext:
     """What the mesh window reads, on the render device: the scene tables
     of `ops/trace.to_device`, the packed kernel tables and statics, the
-    per-triangle material columns, background and camera. `mesh`,
-    `b1_fused` and `traverse8` pick the closest-hit route
-    (`ops/trace.mesh_closest`); `counters` gathers calls, rounds and host
-    reads of the intersector."""
+    per-triangle material columns, background and camera. `mesh` (with
+    "auto" resolved by `ops/trace.resolve_route`), `b1_fused` and
+    `traverse8` pick the closest-hit route (`ops/trace.mesh_closest`);
+    `counters` gathers calls, rounds and host reads of the intersector."""
 
     ms: object
     tables: tuple
@@ -525,7 +525,7 @@ class MeshContext:
     tri_mat: torch.Tensor
     bg: torch.Tensor
     arrays: camera_mod.CameraArrays
-    mesh: str = "binned"
+    mesh: str = "walk"
     b1_fused: bool = False
     traverse8: bool = True
     counters: dict = dataclasses.field(default_factory=dict)
@@ -537,7 +537,7 @@ class MeshContext:
 
     @staticmethod
     def build(scene: T.Scene, cam: camera_mod.Camera, device,
-              mesh: str = "binned", b1_fused: bool = False,
+              mesh: str = "auto", b1_fused: bool = False,
               traverse8: bool = True) -> "MeshContext":
         """Raises ValueError when the scene's tables cannot run the
         route (`ops/trace.check_route`)."""
@@ -552,7 +552,8 @@ class MeshContext:
             statics=statics,
             tri_mat=to_dev(bounce_mod.tri_mat_table(scene, statics)),
             bg=to_dev(np.asarray(scene.background, np.float32)),
-            arrays=cam.derived(), mesh=mesh, b1_fused=b1_fused,
+            arrays=cam.derived(),
+            mesh=trace_mod.resolve_route(mesh, b1_fused), b1_fused=b1_fused,
             traverse8=traverse8)
 
 
@@ -769,7 +770,7 @@ def _assemble_image(acc, *, total_items, n_strata, npix, h, w):
 def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                  n_lanes: int = 1 << 17, refill_len: int = 0,
                  cadence: int = 0, schedule: str = "auto", device=None,
-                 mesh: str = "binned", b1_fused: bool = False,
+                 mesh: str = "auto", b1_fused: bool = False,
                  traverse8: bool = True, direct_rec: bool = False,
                  checkpoint_path=None, checkpoint_every: int = 4,
                  scene_name: str = "", verbose: bool = False):
@@ -789,11 +790,12 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     bit-identical to its scan-and-sort epilogue. A scene with a triangle
     BVH runs the mesh path (stats["schedule"] == "queue"): at most
     `MESH_MAX_LANES` lanes, cadence 1, `refill_len` 0 means 4 *
-    (max_depth + 1), and `mesh` ("binned", "binned2" or "walk"),
-    `b1_fused` (binned only) and `traverse8` (walk only) pick the
-    closest-hit route (`ops/trace.mesh_closest`; stats["mesh"]["route"]
-    names it). `direct_rec` runs `queue_ik` through
-    `bounce_fused_q_direct`. A route or option the scene cannot run raises
+    (max_depth + 1), and `mesh` ("auto", "binned", "binned2" or "walk";
+    "auto" is the walk, or binned with `b1_fused`), `b1_fused` (binned
+    only) and `traverse8` (walk only) pick the closest-hit route
+    (`ops/trace.mesh_closest`; stats["mesh"]["route"] names it); on a
+    dense scene they stay at their defaults. `direct_rec` runs `queue_ik`
+    through `bounce_fused_q_direct`. A route or option the scene cannot run raises
     ValueError; nothing falls back to another. Checkpoint/resume: between
     windows no path is in flight, so (accumulator, cursor, window count)
     is a consistent checkpoint, and a matching one resumes where it
@@ -809,7 +811,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     use_fused = bounce_mod.supported(scene)
     use_ext = (not use_fused and scene.has_tri_bvh
                and bounce_mod.supported_ext(scene))
-    if not use_ext and (mesh != "binned" or b1_fused or not traverse8):
+    if not use_ext and (mesh != "auto" or b1_fused or not traverse8):
         raise ValueError("mesh, b1_fused and traverse8 pick the closest-hit "
                          "route of a mesh scene; this scene has no mesh")
     if not (use_fused or use_ext):
@@ -825,7 +827,8 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     if not use_fused and schedule == "positional":
         raise NotImplementedError(
             "schedule 'positional' on a mesh scene runs the unfused "
-            "reference-engine window, which is ROADMAP.md item 8")
+            "reference-engine window, which comes with the XLA-style engine "
+            "(ROADMAP.md)")
     if schedule not in (("auto", "queue_ik", "queue", "positional")
                         if use_fused else ("auto", "queue")):
         raise NotImplementedError(

@@ -1737,7 +1737,7 @@ def tri_mat_table(scene: T.Scene, statics) -> np.ndarray:
 
 
 def mesh_ext_planes(ms, statics, tri_mat, o, d, t_cap, alive, *,
-                    mesh="binned", b1_fused=False, traverse8=True,
+                    mesh="auto", b1_fused=False, traverse8=True,
                     counters=None):
     """The external mesh-hit planes for `bounce(..., ext=...)`: run the
     mesh closest hit (`ops/trace.mesh_closest`, pruned by `t_cap`, the

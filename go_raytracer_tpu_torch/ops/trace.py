@@ -5,8 +5,10 @@ Counterpart of the mesh half of the JAX package's `ops/trace.py`:
 
 * `to_device` moves the scene tables the mesh path reads onto a device;
 * `mesh_closest` (the JAX package's `pallas_bvh_closest`) routes a bounce
-  level's rays to one of five kernels (`route_name` names them):
-  - mesh="binned" (the default): `binned_closest`, K4
+  level's rays to one of five kernels (`route_name` names them);
+  mesh="auto" (the default, `resolve_route`) is the walk, or the binned
+  route where `b1_fused` asks for its fused rounds:
+  - mesh="binned": `binned_closest`, K4
     `ops/stream.stream_rows` inside, or with `b1_fused` K10
     `ops/stream.stream_round_rows`;
   - mesh="binned2": `binned2_closest`, one launch of K11
@@ -55,9 +57,10 @@ def _ns(table, fields, device):
 def to_device(scene: T.Scene, device) -> _pytypes.SimpleNamespace:
     """The tables the mesh path reads, as tensors on `device`: the dense
     primitive tables (for the caps), the triangle table, and the BVH with
-    its 8-wide collapse, `ops/traverse.pack_bvh`'s rows (`bvh_nodes`,
-    `bvh_tris`) and both cluster partitions (the finer one's boxes also as
-    `cl2_lo`/`cl2_hi`). `bvh.max_stack` is the deepest stack the BVH8 walk
+    its 8-wide collapse with `ops/traverse8.pack_tables`' rows of it
+    (`bvh8_nodes`, `bvh8_tris`), `ops/traverse.pack_bvh`'s rows
+    (`bvh_nodes`, `bvh_tris`) and both cluster partitions (the finer
+    one's boxes also as `cl2_lo`/`cl2_hi`). `bvh.max_stack` is the deepest stack the BVH8 walk
     can reach on this tree."""
     dev = torch.device(device)
     out = _pytypes.SimpleNamespace(
@@ -82,8 +85,12 @@ def to_device(scene: T.Scene, device) -> _pytypes.SimpleNamespace:
             setattr(bvh, f, None)
     bvh.n_nodes, bvh.leaf_size = b.n_nodes, b.leaf_size
     bvh.bvh8_dense = b.bvh8_dense
-    bvh.max_stack = (bvh8_mod.max_stack(b.nodes8, b.bvh8_dense)
-                     if b.nodes8 is not None else None)
+    bvh.max_stack = bvh.bvh8_nodes = bvh.bvh8_tris = None
+    if b.nodes8 is not None:
+        bvh.max_stack = bvh8_mod.max_stack(b.nodes8, b.bvh8_dense)
+        bvh.bvh8_nodes, bvh.bvh8_tris = (
+            x.to(dev) for x in trav8_mod.pack_tables(
+                np.asarray(b.nodes8), np.asarray(b.tris8), b.bvh8_dense))
     bvh.bvh_nodes, bvh.bvh_tris = (
         torch.from_numpy(x).to(dev) for x in trav_mod.pack_bvh(scene))
     bvh.cl2_lo = bvh.cl2_hi = None
@@ -180,9 +187,21 @@ def _part1by2(x):
 ROUTES = ("binned", "binned2", "walk")
 
 
-def route_name(mesh="binned", *, b1_fused=False, traverse8=True) -> str:
+def resolve_route(mesh="auto", b1_fused=False) -> str:
+    """`mesh` with "auto" resolved: the walk, which every triangle BVH
+    can run and which is the fastest route on the H100 (PERF.md §5), or
+    the binned route where `b1_fused` (an option of that route alone)
+    asks for it. The JAX package's GRT_MESH=auto takes the binned route,
+    a choice made on the TPU."""
+    if mesh == "auto":
+        return "binned" if b1_fused else "walk"
+    return mesh
+
+
+def route_name(mesh="auto", *, b1_fused=False, traverse8=True) -> str:
     """The route's name as the render stats give it: "binned",
     "binned+b1_fused", "binned2", "walk" (the BVH8 walk) or "walk+bvh2"."""
+    mesh = resolve_route(mesh, b1_fused)
     if mesh == "binned" and b1_fused:
         return "binned+b1_fused"
     if mesh == "walk" and not traverse8:
@@ -190,13 +209,14 @@ def route_name(mesh="binned", *, b1_fused=False, traverse8=True) -> str:
     return mesh
 
 
-def check_route(bvh, mesh="binned", *, b1_fused=False, traverse8=True):
+def check_route(bvh, mesh="auto", *, b1_fused=False, traverse8=True):
     """Raise ValueError where the route cannot run on these tables, rather
     than take another one: binned2 without the finer `cl2_*` partition,
     b1_fused off the binned route or with more than 256 clusters or no
     cluster-box table, traverse8=False off the walk route."""
-    if mesh not in ROUTES:
-        raise ValueError(f"mesh={mesh!r}: expected one of {ROUTES}")
+    if mesh != "auto" and mesh not in ROUTES:
+        raise ValueError(f"mesh={mesh!r}: expected 'auto' or one of {ROUTES}")
+    mesh = resolve_route(mesh, b1_fused)
     if bvh.nodes8 is None:
         raise ValueError("mesh_closest needs a scene with a triangle BVH")
     if mesh == "binned2" and bvh.cl2_lines is None:
@@ -263,13 +283,14 @@ def _pad_pool(o, d, t_cap, alive, tile):
     return o, d, t_cap
 
 
-def mesh_closest(ms, o, d, t_cap=None, alive=None, *, mesh="binned",
+def mesh_closest(ms, o, d, t_cap=None, alive=None, *, mesh="auto",
                  b1_fused=False, traverse8=True, counters=None):
     """Closest triangle hit for rays o, d (N, 3) with per-ray cap `t_cap`
     (default inf) and live mask `alive`: returns (t, idx) with idx == -1
     and t == the cap (0 for a dead ray) where nothing beats the cap.
 
-    mesh="binned": the binned intersector (`b1_fused`: its fused rounds),
+    mesh="auto" is `resolve_route`'s route. mesh="binned": the binned
+    intersector (`b1_fused`: its fused rounds),
     when the scene has cluster tables; mesh="binned2": the
     persistent-block intersector; mesh="walk" (or "binned" with no cluster
     tables): rays are grouped by `coherence_key`, dead rays last, so
@@ -280,6 +301,7 @@ def mesh_closest(ms, o, d, t_cap=None, alive=None, *, mesh="binned",
     one t, they may keep different ones."""
     bvh = ms.tri_bvh
     check_route(bvh, mesh, b1_fused=b1_fused, traverse8=traverse8)
+    mesh = resolve_route(mesh, b1_fused)
     if mesh == "binned" and bvh.cl_lines is not None:
         return binned_closest(ms, o, d, t_cap, alive, b1_fused=b1_fused,
                               counters=counters)
@@ -297,8 +319,8 @@ def mesh_closest(ms, o, d, t_cap=None, alive=None, *, mesh="binned",
     o_s, d_s, cap_s = (x[perm].contiguous() for x in (o, d, t_cap))
     if traverse8:
         t_s, i_s = trav8_mod.bvh8_closest(
-            bvh.nodes8, bvh.tris8, o_s, d_s, cap_s,
-            dense_nodes=bvh.bvh8_dense, max_stack=bvh.max_stack)
+            bvh.bvh8_nodes, bvh.bvh8_tris, o_s, d_s, cap_s,
+            max_stack=bvh.max_stack)
     else:
         t_s, i_s = trav_mod.bvh_closest(bvh.bvh_nodes, bvh.bvh_tris, o_s,
                                         d_s, cap_s, n_nodes=bvh.n_nodes)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time and check the mesh kernels K4 `stream_rows`, K10
-`stream_round_rows`, K11 `stream2_rows` and K12 `bvh_closest` on one NVIDIA
-GPU, at one real bounce level of scene 8 (modelExample, 65,536 lanes), with
-their compile-time choices swept.
+`stream_round_rows`, K11 `stream2_rows`, K12 `bvh_closest` and K5
+`bvh8_closest` on one NVIDIA GPU, at one real bounce level of scene 8
+(modelExample, 65,536 lanes), with their compile-time choices swept.
 
-    python3 scripts/tune_mesh_kernels.py [--repo DIR] [--sweep] [--renders]
-                                         [--out FILE]
+    python3 scripts/tune_mesh_kernels.py [--repo DIR] [--kernels LIST]
+                                         [--sweep] [--renders]
+                                         [--uncut ROUTES] [--out FILE]
 
 It builds the kernels, prints each one's registers, shared memory and
 spills, makes the level the way chip_smoke.py phase 7 does (three levels
@@ -25,11 +26,26 @@ capped lanes), and then:
   it;
 * K12: sorts the level's rays as the walk route does (chip_smoke.py phase
   18), holds the kernel against `bvh_closest_ref` (idx equal, t bit for
-  bit) and times it, with the walk's work (node visits, triangle tests).
+  bit) and times it, with the walk's work (node visits, triangle tests);
+* K5: holds the kernel against `bvh8_closest_ref` (idx equal, t bit for
+  bit) on the level's rays as they lie and sorted as the walk route sorts
+  them, times it on both with its bound, and gives the plain walk's steps
+  per ray (node visits plus group tests) and the most steps of a ray in
+  each warp of 4, 8 and 32 consecutive sorted rays (the rays a warp holds
+  at 8 or 4 lanes a ray, and at one).
 
+--kernels picks which of k4, k10, k11, k12 and k5 run (default all).
+--k5-tail times K5 on the sorted level's heaviest rays alone (4, 128 and
+8,192 of them) and on the level with every ray above 20 or 40 steps given a
+zero cap; --k5-lines times it against the same kernel reading
+scene/bvh8's line tables instead of `traverse8.pack_tables`' rows (its
+source rewritten from csrc/traverse8.cu and built beside the kernels), in
+turns, on the sorted and unsorted rays.
 --renders also renders modelExample at 25 spp (600x337, depth 50) on the
-`--b1-fused` route and on `--mesh walk --no-traverse8` and prints each
-render loop's wall time and the image's SHA-256.
+binned, binned2 and walk routes, `--b1-fused` and `--mesh walk
+--no-traverse8`, and prints each render loop's wall time, its segments and
+the image's SHA-256; --uncut binned,binned2,walk renders those routes at
+the full registry configuration (250 spp) too.
 
 --repo DIR imports the package from another checkout (the parent commit,
 unpacked with `git archive`) and times its kernels the same way, so two
@@ -38,12 +54,15 @@ times K4 at `stream.CH` in (16, 32, 64), K11 at `stream2.RANGE_W` in
 (2, 4, 8, 16, 32) with `stream2.TEAM` in (1, 2, 4, 8) warps per unit, and
 K12 at `traverse.WARP_RAYS` in (32, 16, 8) with `traverse.LEAF_BATCH` in
 (1, 2, 4, 8) where the package has them, each variant held against its
-plain version first, in two passes (forward, then reversed).
+plain version first, in two passes (forward, then reversed), and K5 at
+`traverse8.TEAM` in (8, 4) with `traverse8.BLOCK` in (64, 128, 256) and
+`traverse8.LEAF_BATCH` in 1 .. 32 / TEAM, on the sorted and unsorted rays.
 The results go to --out as JSON (default build/tune_mesh_kernels.json,
 git-ignored) beside a printed summary. Without a GPU it exits non-zero.
 """
 
 import argparse
+import ctypes
 import hashlib
 import json
 import os
@@ -75,12 +94,21 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package is timed")
+    ap.add_argument("--kernels", default="k4,k10,k11,k12,k5",
+                    help="comma-separated kernels to check and time")
     ap.add_argument("--sweep", action="store_true",
                     help="time every variant of CH, RANGE_W, TEAM, "
-                         "WARP_RAYS and LEAF_BATCH")
+                         "WARP_RAYS, LEAF_BATCH and K5's TEAM and BLOCK")
     ap.add_argument("--renders", action="store_true",
-                    help="time the 25-spp --b1-fused and --no-traverse8 "
-                         "renders")
+                    help="time the 25-spp renders of the five routes")
+    ap.add_argument("--k5-tail", action="store_true",
+                    help="time K5 on the heaviest sorted rays alone")
+    ap.add_argument("--k5-lines", action="store_true",
+                    help="time K5 against the same kernel reading the BVH8 "
+                         "line tables")
+    ap.add_argument("--uncut", default="",
+                    help="comma-separated routes (binned, binned2, walk) "
+                         "rendered at the full registry configuration")
     ap.add_argument("--out", default=os.path.join("build",
                                                   "tune_mesh_kernels.json"))
     args = ap.parse_args()
@@ -91,7 +119,7 @@ def main():
     sys.path.insert(0, os.path.abspath(args.repo))
     from go_raytracer_tpu_torch.integrator import regen
     from go_raytracer_tpu_torch.ops import _cuda, intersect, stream, stream2
-    from go_raytracer_tpu_torch.ops import trace, traverse
+    from go_raytracer_tpu_torch.ops import trace, traverse, traverse8
     from go_raytracer_tpu_torch.scenes import registry
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -104,15 +132,18 @@ def main():
     print(f"built in {time.perf_counter() - t0:.1f} s")
     report = {}
     if hasattr(_cuda, "ptxas_report"):
-        for name in ("stream", "stream_round", "stream2", "traverse"):
+        for name in ("stream", "stream_round", "stream2", "traverse",
+                     "traverse8"):
             report[name] = _cuda.ptxas_report(name)
             for line in report[name]:
                 print(f"ptxas {name}: {line}")
     dev = torch.device("cuda")
 
+    kernels = set(args.kernels.split(","))
+
     # ---- the level (chip_smoke.py phase 7) --------------------------------
     scene8, cam8 = registry.model_example()
-    ctx = regen.MeshContext.build(scene8, cam8, dev)
+    ctx = regen.MeshContext.build(scene8, cam8, dev, mesh="walk")
     ms, bvh = ctx.ms, ctx.ms.tri_bvh
     n8 = regen.MESH_MAX_LANES
     geo = dict(width=cam8.width, npix=cam8.width * cam8.image_height,
@@ -269,21 +300,176 @@ def main():
     def k11_time():
         return time_ms(lambda: stream2.stream2_rows(*k11_args), 10)
 
+    # ---- K5: the level's rays as they lie, and sorted as the walk sorts -
+    k5_runs = {"unsorted": (o8, d8, cap0),
+               "sorted": (o8[permw].contiguous(), d8[permw].contiguous(),
+                          cap0[permw].contiguous())}
+    max_stack = bvh.max_stack
+    if hasattr(traverse8, "pack_tables"):    # the kernel reads packed rows
+        k5_tables, k5_kw = (bvh.bvh8_nodes, bvh.bvh8_tris), {}
+    else:                                    # the line tables as they are
+        k5_tables = (bvh.nodes8, bvh.tris8)
+        k5_kw = dict(dense_nodes=bvh.bvh8_dense)
+
+    def k5_check(order):
+        o_, d_, c_ = k5_runs[order]
+        kt, ki = traverse8.bvh8_closest(*k5_tables, o_, d_, c_,
+                                        max_stack=max_stack, **k5_kw)
+        torch.cuda.synchronize()
+        work = {}
+        pt, pi = traverse8.bvh8_closest_ref(*k5_tables, o_, d_, c_,
+                                            visits=work, **k5_kw)
+        if not (torch.equal(ki, pi) and torch.equal(kt, pt)):
+            raise SystemExit(f"K5 differs from its plain version ({order})")
+        nbytes = sum(x.numel() for x in k5_tables) * 4 + n8 * (28 + 8)
+        ops = (work["node_visits"] * 8 * 12
+               + work["group_tests"] * 8 * 46)
+        work["bound_ms"] = max(nbytes / 3.35e12, ops / 67e12) * 1e3
+        work["bound_by"] = ("bytes" if nbytes / 3.35e12 >= ops / 67e12
+                            else "operations")
+        if "ray_visits" in work:    # a package with the per-ray counts
+            steps = work.pop("ray_visits") + work.pop("ray_groups")
+            work["ray_steps"] = {"mean": float(steps.float().mean()),
+                                 "max": int(steps.max())}
+            for wr in (4, 8, 32):
+                w = steps.view(-1, wr).amax(dim=1).float()
+                work[f"warp{wr}_max_steps"] = {"mean": float(w.mean()),
+                                               "max": int(w.max())}
+        return work
+
+    def k5_time(order):
+        o_, d_, c_ = k5_runs[order]
+        return time_ms(lambda: traverse8.bvh8_closest(
+            *k5_tables, o_, d_, c_, max_stack=max_stack, **k5_kw), 20)
+
+    def k5_tail():
+        """K5 on the sorted level's heaviest rays alone (by the plain
+        walk's steps), and on the level with every ray heavier than a
+        limit given a zero cap: what the longest chains cost."""
+        o_, d_, c_ = k5_runs["sorted"]
+        work = {}
+        traverse8.bvh8_closest_ref(*k5_tables, o_, d_, c_, visits=work)
+        steps = work["ray_visits"] + work["ray_groups"]
+        heavy = torch.argsort(steps, descending=True)
+        res = {}
+        for nh in (4, 128, 8192):
+            h = heavy[:nh]
+            sub_ = tuple(x[h].contiguous() for x in (o_, d_, c_))
+            res[f"heaviest_{nh}"] = {
+                "steps": [int(steps[h].min()), int(steps[h].max())],
+                "ms": time_ms(lambda: traverse8.bvh8_closest(
+                    *k5_tables, *sub_, max_stack=max_stack), 20)}
+        for lim in (20, 40):
+            cl = torch.where(steps <= lim, c_, 0.0)
+            res[f"steps_le_{lim}"] = {
+                "rays": int((steps <= lim).sum()),
+                "ms": time_ms(lambda: traverse8.bvh8_closest(
+                    *k5_tables, o_, d_, cl, max_stack=max_stack), 20)}
+        print(f"k5 tail: {res}")
+        return res
+
+    def k5_lines():
+        """K5 against the same kernel reading scene/bvh8's line tables (the
+        padded node lines, the packed group lines) in place of
+        `pack_tables`' rows, in turns: the source is csrc/traverse8.cu with
+        its row addressing rewritten, built beside the kernels."""
+        lib_dir = os.path.dirname(_cuda._target("traverse8"))
+        src = open(os.path.join(_cuda._CSRC, "traverse8.cu")).read()
+        for a, b in (
+                ("const float4* nodes;", "const float* nodes;"),
+                ("const float4* tris;", "const float* tris;"),
+                ("void lane_leaf(const float4* tris,",
+                 "void lane_leaf(const float* tris,"),
+                ("void team_leaf(const float4* tris,",
+                 "void team_leaf(const float* tris,"),
+                ("      const float4* row = tris + ((size_t)(g + (two ? q : 0))"
+                 " * 8 + k + j * T) * 3;\n"
+                 "      r[q][j][0] = __ldg(row);\n"
+                 "      r[q][j][1] = __ldg(row + 1);\n"
+                 "      r[q][j][2] = __ldg(row + 2);",
+                 "      const float* row = tris + packed_offset(g + (two ? q : 0))"
+                 " + (k + j * T) * 128;\n"
+                 "      r[q][j][0] = __ldg(reinterpret_cast<const float4*>(row));\n"
+                 "      r[q][j][1] = __ldg(reinterpret_cast<const float4*>(row + 4));\n"
+                 "      const float2 c2 = __ldg(reinterpret_cast<const float2*>(row + 8));\n"
+                 "      r[q][j][2] = make_float4(c2.x, c2.y, 0.0f, 0.0f);"),
+                ("const float4* e = a.nodes + (size_t)(is_node ? m : 0) * 16;",
+                 "const float* e = a.nodes + (size_t)(is_node ? m : 0) * 1024;"),
+                ("const float4 lo = __ldg(e + 2 * (k + j * T)), "
+                 "hi = __ldg(e + 2 * (k + j * T) + 1);",
+                 "const float4 lo = __ldg(reinterpret_cast<const float4*>("
+                 "e + (k + j * T) * 128));\n"
+                 "          float4 hi = __ldg(reinterpret_cast<const float4*>("
+                 "e + (k + j * T) * 128 + 4));\n"
+                 "          hi.z = __ldg(e + 8 + k + j * T);")):
+            if src.count(a) != 1:
+                raise SystemExit(f"k5_lines: csrc/traverse8.cu changed: {a!r}")
+            src = src.replace(a, b)
+        cu = os.path.join(lib_dir, "traverse8_lines.cu")
+        with open(cu, "w") as fh:
+            fh.write(src)
+        so = cu[:-3] + ".so"
+        subprocess.run([_cuda._nvcc(), *_cuda._flags("traverse8"),
+                        "-I", _cuda._CSRC, "-o", so, cu], check=True,
+                       capture_output=True)
+        lib = ctypes.CDLL(so)
+        lib.grt_bvh8_closest.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        if bvh.bvh8_dense:
+            raise SystemExit("k5_lines reads the padded node layout only")
+
+        def lines(o_, d_, c_):
+            n = o_.shape[0]
+            t_out = torch.empty(n, dtype=torch.float32, device=dev)
+            i_out = torch.empty(n, dtype=torch.int32, device=dev)
+            p = lambda x: x.data_ptr()
+            a = traverse8._Traverse8Args(
+                nodes=p(bvh.nodes8), tris=p(bvh.tris8), o=p(o_), d=p(d_),
+                t_cap=p(c_), t_out=p(t_out), idx_out=p(i_out), n=n,
+                team=traverse8.TEAM, block=traverse8.BLOCK,
+                stride=max_stack | 1, leaf_batch=traverse8.LEAF_BATCH)
+            if lib.grt_bvh8_closest(ctypes.addressof(a),
+                                    torch.cuda.current_stream().cuda_stream):
+                raise SystemExit("k5_lines: launch failed")
+            return t_out, i_out
+
+        rows = lambda o_, d_, c_: traverse8.bvh8_closest(
+            *k5_tables, o_, d_, c_, max_stack=max_stack)
+        res = {}
+        for order, r_ in k5_runs.items():
+            if not all(torch.equal(x, y) for x, y in zip(rows(*r_),
+                                                        lines(*r_))):
+                raise SystemExit(f"k5_lines: the two layouts differ ({order})")
+            for name, fn in (("rows", rows), ("lines", lines),
+                             ("lines", lines), ("rows", rows)):
+                res.setdefault(f"{name}_{order}_ms", []).append(
+                    time_ms(lambda: fn(*r_), 20))
+        print(f"k5 layouts: {res}")
+        return res
+
     out = {"card": card, "package": os.path.abspath(args.repo),
            "ptxas": report, "k4_rounds": k4_rounds}
     if not args.sweep:
-        k4_check()
-        k10_check()
-        out["k4"] = k4_time()
-        if hasattr(stream, "CH"):
-            out["k4"].update(ch=stream.CH, items=k4_items(stream.CH))
-        out["k10"] = k10_time()
-        out["k11"] = dict(k11_check(), ms=k11_time())
-        out["k12"] = dict(k12_check(), ms=k12_time())
+        if "k4" in kernels:
+            k4_check()
+            out["k4"] = k4_time()
+            if hasattr(stream, "CH"):
+                out["k4"].update(ch=stream.CH, items=k4_items(stream.CH))
+        if "k10" in kernels:
+            k10_check()
+            out["k10"] = k10_time()
+        if "k11" in kernels:
+            out["k11"] = dict(k11_check(), ms=k11_time())
+        if "k12" in kernels:
+            out["k12"] = dict(k12_check(), ms=k12_time())
+        if "k5" in kernels:
+            out["k5"] = {order: dict(k5_check(order), ms=k5_time(order))
+                         for order in k5_runs}
+            out["k5"]["schedule"] = {k: getattr(traverse8, k, None)
+                                     for k in ("TEAM", "BLOCK", "LEAF_BATCH")}
     else:
-        chs = (16, 32, 64)
+        chs = (16, 32, 64) if "k4" in kernels else ()
         k11_vars = [(team, w) for team in (1, 2, 4, 8)
-                    for w in (2, 4, 8, 16, 32)]
+                    for w in (2, 4, 8, 16, 32)] if "k11" in kernels else []
         saved = stream.CH, stream2.RANGE_W, stream2.TEAM
         k4_res = {ch: [] for ch in chs}
         k11_res = {v: [] for v in k11_vars}
@@ -312,7 +498,7 @@ def main():
         out["k11_sweep"] = [
             dict(k11_work[v], team=v[0], range_w=v[1], ms=k11_res[v])
             for v in k11_vars]
-        if hasattr(traverse, "WARP_RAYS"):
+        if hasattr(traverse, "WARP_RAYS") and "k12" in kernels:
             k12_vars = [(wr, b) for wr in (32, 16, 8) for b in (1, 2, 4, 8)]
             saved = traverse.WARP_RAYS, traverse.LEAF_BATCH
             res = {v: [] for v in k12_vars}
@@ -328,17 +514,66 @@ def main():
                 traverse.WARP_RAYS, traverse.LEAF_BATCH = saved
             out["k12_sweep"] = [{"warp_rays": v[0], "leaf_batch": v[1],
                                  "ms": res[v]} for v in k12_vars]
-    if args.renders:
+        if hasattr(traverse8, "TEAM") and "k5" in kernels:
+            k5_vars = [(team, blk, lb) for team in (8, 4)
+                       for blk in (64, 128, 256)
+                       for lb in ((1, 2, 3, 4) if team == 8
+                                  else (1, 2, 4, 8))]
+            names = ("TEAM", "BLOCK", "LEAF_BATCH")
+            saved = tuple(getattr(traverse8, k) for k in names)
+
+            def k5_set(v):
+                for name, x in zip(names, v):
+                    setattr(traverse8, name, x)
+
+            res = {v: [] for v in k5_vars}
+            try:
+                for v in k5_vars:
+                    k5_set(v)
+                    k5_check("sorted")
+                    k5_check("unsorted")
+                for order in (1, -1):
+                    for v in k5_vars[::order]:
+                        k5_set(v)
+                        res[v].append((k5_time("sorted"),
+                                       k5_time("unsorted")))
+            finally:
+                k5_set(saved)
+            out["k5_sweep"] = [{"team": v[0], "block": v[1],
+                                "leaf_batch": v[2],
+                                "sorted_ms": [r[0] for r in res[v]],
+                                "unsorted_ms": [r[1] for r in res[v]]}
+                               for v in k5_vars]
+            best = sorted(out["k5_sweep"], key=lambda r: min(r["sorted_ms"]))
+            for r in best[:6]:
+                print(f"k5 sweep: team {r['team']} block {r['block']} "
+                      f"leaf_batch {r['leaf_batch']}: sorted "
+                      f"{min(r['sorted_ms']):.4f} ms, unsorted "
+                      f"{min(r['unsorted_ms']):.4f} ms")
+    if args.k5_tail:
+        out["k5_tail"] = k5_tail()
+    if args.k5_lines:
+        out["k5_lines"] = k5_lines()
+    route_kw = {"binned": dict(mesh="binned"),
+                "binned2": dict(mesh="binned2"), "walk": dict(mesh="walk"),
+                "b1_fused": dict(mesh="binned", b1_fused=True),
+                "walk_bvh2": dict(mesh="walk", traverse8=False)}
+    renders = [(name, 25) for name in route_kw] if args.renders else []
+    renders += [(name, None) for name in args.uncut.split(",") if name]
+    if renders:
         out["renders"] = {}
-        for name, kw in (("b1_fused", dict(mesh="binned", b1_fused=True)),
-                         ("walk_bvh2", dict(mesh="walk", traverse8=False))):
-            sc, cm = registry.model_example()
-            cm.samples_per_pixel = 25
-            img, st = regen.render_regen(sc, cm, seed=0, device=dev, **kw)
-            out["renders"][name] = {
-                "elapsed_s": st["elapsed_s"], "levels": st["levels"],
-                "route": st["mesh"]["route"],
-                "sha256": hashlib.sha256(img.tobytes()).hexdigest()[:16]}
+    for name, spp in renders:
+        sc, cm = registry.model_example()
+        if spp is not None:
+            cm.samples_per_pixel = spp
+        img, st = regen.render_regen(sc, cm, seed=0, device=dev,
+                                     **route_kw[name])
+        key = name if spp is not None else f"{name}_uncut"
+        out["renders"][key] = {
+            "elapsed_s": st["elapsed_s"], "levels": st["levels"],
+            "segments": st["segments"], "route": st["mesh"]["route"],
+            "sha256": hashlib.sha256(img.tobytes()).hexdigest()[:16]}
+        print(f"render {key}: {out['renders'][key]}", flush=True)
     # the earlier schedule's work (blocks of 128, a window of 32) on the
     # same rays, for the bound's like-for-like comparison
     if unit != 128:

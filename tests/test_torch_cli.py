@@ -141,10 +141,16 @@ def test_simple_light_and_book1_render(tmp_path, scene, regen_len):
 
 def test_route_flags_refuse_instead_of_falling_back(tmp_path):
     """Where the JAX package would quietly take another route, the port
-    exits 2 with a message: the BVH walk's option off the walk route, the
-    fused round off the binned route, and records written in place on a
-    scene with image textures (scene 5)."""
-    for extra, word in ((["-S", "8", "--no-traverse8"], "traverse8"),
+    exits 2 with a message: the BVH walk's option off the walk route
+    (named, or the binned route that `--b1-fused` makes of auto), the
+    fused round off the binned route, a mesh route on a scene without a
+    mesh, and records written in place on a scene with image textures
+    (scene 5)."""
+    for extra, word in ((["-S", "8", "--mesh", "binned", "--no-traverse8"],
+                         "traverse8"),
+                        (["-S", "8", "--b1-fused", "--no-traverse8"],
+                         "traverse8"),
+                        (["-S", "6", "--mesh", "walk"], "no mesh"),
                         (["-S", "8", "--mesh", "walk", "--b1-fused"],
                          "b1_fused"),
                         (["-S", "5", "--direct-rec"], "image")):

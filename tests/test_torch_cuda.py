@@ -5,6 +5,8 @@ plain versions against the JAX package). Run on a GPU machine with
 `python -m pytest tests/test_torch_cuda.py -m gpu`; chip_smoke.py runs the
 same comparisons at the flagship's shapes."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -265,8 +267,9 @@ def test_stream_kernel_on_adversarial_ranges(cuda, scene8):
 
 
 def test_bvh8_kernel_matches_plain(cuda, scene8):
-    """K5 on the statue: idx equal and t bit for bit, on the padded node
-    table and on a line-packed copy; a dead lane keeps cap 0 and -1."""
+    """K5 on the statue: idx equal and t bit for bit, on the rows packed
+    from the padded node table and from a line-packed copy (the same
+    rows); a dead lane keeps cap 0 and -1."""
     from go_raytracer_tpu_torch.scene import bvh8
 
     ms = trace.to_device(scene8[0], cuda)
@@ -274,20 +277,93 @@ def test_bvh8_kernel_matches_plain(cuda, scene8):
     o, d, cap, alive = _mesh_rays(cuda, 20000, 3)
     cap0 = torch.where(alive, cap, 0.0)
     entries = traverse8.node_entries(bvh.nodes8, bvh.bvh8_dense).cpu().numpy()
-    packed = torch.from_numpy(bvh8._pack_lines(entries.copy())).to(cuda)
-    for nodes, dense in ((bvh.nodes8, bvh.bvh8_dense), (packed, True)):
+    lines = bvh8._pack_lines(entries.copy())
+    rows = traverse8.pack_tables(lines, bvh.tris8.cpu().numpy(), True)
+    torch.testing.assert_close(rows[0][:bvh.bvh8_nodes.shape[0]].cuda(),
+                               bvh.bvh8_nodes, rtol=0, atol=0, equal_nan=True)
+    for nodes, tris in ((bvh.bvh8_nodes, bvh.bvh8_tris),
+                        tuple(x.to(cuda) for x in rows)):
         before = traverse8.launches
-        kt, ki = traverse8.bvh8_closest(nodes, bvh.tris8, o, d, cap0,
-                                        dense_nodes=dense,
+        kt, ki = traverse8.bvh8_closest(nodes, tris, o, d, cap0,
                                         max_stack=bvh.max_stack)
         torch.cuda.synchronize()
         assert traverse8.launches == before + 1
-        pt, pi = traverse8.bvh8_closest_ref(nodes, bvh.tris8, o, d, cap0,
-                                            dense_nodes=dense)
+        pt, pi = traverse8.bvh8_closest_ref(nodes, tris, o, d, cap0)
         assert torch.equal(ki, pi) and torch.equal(kt, pt)
         assert (ki >= 0).sum() > 1000 and (ki[~alive] == -1).all()
     with pytest.raises(ValueError, match="max_stack"):
-        traverse8.bvh8_closest(bvh.nodes8, bvh.tris8, o, d, cap0)
+        traverse8.bvh8_closest(bvh.bvh8_nodes, bvh.bvh8_tris, o, d, cap0)
+
+
+def _bvh8_tables(v, leaf_size, dev):
+    """K5's rows (nodes, tris; `traverse8.pack_tables`) and `max_stack` of
+    a BVH over triangle vertices v (T, 3, 3) with leaves of at most
+    `leaf_size`, on `dev`."""
+    from go_raytracer_tpu_torch.scene import bvh as bvh_mod
+    from go_raytracer_tpu_torch.scene import bvh8 as bvh8_mod
+    fb = bvh_mod.build(v, leaf_size=leaf_size)
+    vp = v[fb.order[:v.shape[0]]].astype(np.float32)
+    b8 = bvh8_mod.collapse(fb.node_min, fb.node_max, fb.first, fb.count,
+                           fb.skip, vp[:, 0], vp[:, 1] - vp[:, 0],
+                           vp[:, 2] - vp[:, 0], max_leaf=leaf_size)
+    return (*(x.to(dev) for x in traverse8.pack_tables(
+        b8.node_lines, b8.tri_lines, b8.dense_nodes)),
+            bvh8_mod.max_stack(b8.node_lines, b8.dense_nodes))
+
+
+@pytest.mark.parametrize("team,block,leaf_batch", [
+    (8, 128, 2), (8, 64, 1), (8, 128, 4), (4, 256, 8), (4, 128, 2)])
+@pytest.mark.parametrize("tree", ["statue", "leaf16", "coincident"])
+def test_bvh8_kernel_on_incoherent_and_sorted_rays(cuda, scene8, tree, team,
+                                                   block, leaf_batch,
+                                                   monkeypatch):
+    """K5 with 8 lanes a ray (or 4 with two slots each), blocks of 64 to
+    256 threads and the walk phase ended at 1 to 8 held leaves, on
+    unsorted incoherent rays (random origins and directions through the
+    mesh, 30% capped, 10% dead, a lane count that is not a multiple of
+    the block) and on the same rays sorted as the walk route sorts them:
+    on the statue, on 3,001 random triangles in leaves of up to 16
+    (two-group leaves) and on a mesh with every triangle twice (ties inside
+    a group and across leaves): idx equal and t bit for bit."""
+    monkeypatch.setattr(traverse8, "TEAM", team)
+    monkeypatch.setattr(traverse8, "BLOCK", block)
+    monkeypatch.setattr(traverse8, "LEAF_BATCH", leaf_batch)
+    rs = np.random.default_rng(23)
+    if tree == "statue":
+        bvh = trace.to_device(scene8[0], cuda).tri_bvh
+        nodes, tris = bvh.bvh8_nodes, bvh.bvh8_tris
+        max_stack, scale = bvh.max_stack, 8.0
+    else:
+        v = rs.uniform(-10, 10, (3001, 1, 3)) \
+            + rs.uniform(-0.8, 0.8, (3001, 3, 3))
+        if tree == "coincident":
+            v = np.concatenate([v, v[::-1]])
+        nodes, tris, max_stack = _bvh8_tables(v, 16, cuda)
+        scale = 12.0
+    n = 20000 + 77
+    o = rs.uniform(-scale, scale, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    cap = np.where(rs.uniform(size=n) < 0.3, scale, np.inf)
+    cap = np.where(rs.uniform(size=n) < 0.9, cap, 0.0).astype(np.float32)
+    o, d, cap = (torch.from_numpy(x).to(cuda) for x in (o, d, cap))
+    # the walk route's key over the rays' cube
+    box = types.SimpleNamespace(node_min=torch.full((1, 3), -scale,
+                                                    device=cuda),
+                                node_max=torch.full((1, 3), scale,
+                                                    device=cuda))
+    key = torch.where(cap > 0, trace.coherence_key(box, o, d), 0x7FFFFFFF)
+    perm = torch.sort(key).indices
+    for o_, d_, cap_ in ((o, d, cap), (o[perm].contiguous(),
+                                       d[perm].contiguous(),
+                                       cap[perm].contiguous())):
+        before = traverse8.launches
+        kt, ki = traverse8.bvh8_closest(nodes, tris, o_, d_, cap_,
+                                        max_stack=max_stack)
+        torch.cuda.synchronize()
+        assert traverse8.launches == before + 1
+        pt, pi = traverse8.bvh8_closest_ref(nodes, tris, o_, d_, cap_)
+        assert torch.equal(ki, pi) and torch.equal(kt, pt)
+        assert (ki >= 0).sum() > 1000 and (ki[cap_ == 0] == -1).all()
 
 
 def test_mesh_closest_routes_agree_on_card(cuda, scene8):
@@ -359,7 +435,7 @@ def test_scene8_render_on_kernels(cuda, scene8):
         m.launches = 0
     bounce.launches_bounce = 0
     img_k, st_k = regen.render_regen(scene, cam, seed=3, n_lanes=4096,
-                                     device=cuda)
+                                     device=cuda, mesh="binned")
     assert bounce.launches_bounce > 0 and stream.launches > 0
     assert harvest.launches > 0 and traverse8.launches == 0
     img_w, st_w = regen.render_regen(scene, cam, seed=3, n_lanes=4096,

@@ -45,7 +45,7 @@ def renders():
                                     n_lanes=4096)
     ts, tc = registry.model_example()
     timg, tst = regen.render_regen(ts, small(tc), seed=0, n_lanes=4096,
-                                   device="cpu")
+                                   device="cpu", mesh="binned")
     return (np.asarray(jimg), jst), (timg, tst), (ts, tc)
 
 
@@ -173,8 +173,8 @@ def test_checkpoint_resume_bit_exact(tmp_path, monkeypatch):
 
 def test_cli_renders_scene_8(tmp_path, capsys):
     """`-S 8 --cpu` through cli.main: exit 0, one JSON stats line, a P3
-    PPM at 16:9; `--mesh walk` too."""
-    for extra in ([], ["--mesh", "walk"]):
+    PPM at 16:9, on the walk route (the default); `--mesh binned` too."""
+    for extra in ([], ["--mesh", "binned"]):
         out = tmp_path / "m.ppm"
         rc = cli.main(["-S", "8", "-o", str(out), "--cpu", "--width", "32",
                        "--spp", "1", "--max-depth", "3", "--lanes", "1024",
@@ -184,6 +184,61 @@ def test_cli_renders_scene_8(tmp_path, capsys):
         assert stats["scene"] == "modelExample"
         assert stats["schedule"] == "queue" and stats["device"] == "cpu"
         assert stats["paths"] == 32 * 18 and stats["nonfinite"] == 0
-        assert stats["mesh"]["route"] == (extra[-1] if extra else "binned")
+        assert stats["mesh"]["route"] == (extra[-1] if extra else "walk")
         txt = out.read_text().split()
         assert txt[:4] == ["P3", "32", "18", "255"]
+
+
+@pytest.mark.parametrize("extra,route,kernel", [
+    ([], "walk", "bvh8_closest"),
+    (["--b1-fused"], "binned+b1_fused", "stream_round_rows"),
+    (["--mesh", "binned"], "binned", "stream_rows")])
+def test_default_route_is_the_walk(tmp_path, capsys, monkeypatch, extra,
+                                   route, kernel):
+    """`-S 8` without `--mesh` takes the walk (`route_name` of the auto
+    route), with every level's closest hit one call of `bvh8_closest` and
+    none of the binned intersector's; `--b1-fused` alone still resolves to
+    the binned route's fused rounds, and `--mesh binned` to the binned
+    route."""
+    from go_raytracer_tpu_torch.ops import stream, trace, traverse8
+
+    calls = {}
+    for mod, name in ((traverse8, "bvh8_closest"), (stream, "stream_rows"),
+                      (stream, "stream_round_rows")):
+        real = getattr(mod, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(mod, name, counted)
+    out = tmp_path / "m.ppm"
+    rc = cli.main(["-S", "8", "-o", str(out), "--cpu", "--width", "16",
+                   "--spp", "1", "--max-depth", "2", "--lanes", "1024",
+                   "--stats", "--quiet", *extra])
+    assert rc == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["mesh"]["route"] == route == trace.route_name(
+        "auto" if "--mesh" not in extra else extra[1],
+        b1_fused="--b1-fused" in extra)
+    assert list(calls) == [kernel] and calls[kernel] >= stats["levels"] > 0
+    if kernel == "bvh8_closest":
+        assert calls[kernel] == stats["mesh"]["mesh_calls"] \
+            == stats["levels"]
+        assert "rounds" not in stats["mesh"]
+
+
+def test_auto_route_on_a_dense_scene():
+    """On a scene without a mesh, mesh="auto" (the default) means nothing:
+    cornellBox renders the same image with it named or not, and a named
+    mesh route is refused."""
+    scene, cam = registry.cornell_box()
+    cam.width, cam.samples_per_pixel, cam.max_depth = 16, 1, 3
+    kw = dict(seed=2, n_lanes=256, device="cpu")
+    img_a, st_a = regen.render_regen(scene, cam, mesh="auto", **kw)
+    img_d, st_d = regen.render_regen(scene, cam, **kw)
+    np.testing.assert_array_equal(img_a, img_d)
+    assert st_a["segments"] == st_d["segments"] > 0 and "mesh" not in st_a
+    for route in ("binned", "binned2", "walk"):
+        with pytest.raises(ValueError, match="no mesh"):
+            regen.render_regen(scene, cam, mesh=route, **kw)

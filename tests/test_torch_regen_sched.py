@@ -346,7 +346,7 @@ def test_schedule_resolution_and_refusals():
     assert st["schedule"] == "queue_ik"
     mesh, mcam = registry.model_example()
     mcam.width, mcam.samples_per_pixel = 8, 1
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="XLA-style engine"):
         regen.render_regen(mesh, mcam, n_lanes=256, schedule="positional",
                            device="cpu")
     with pytest.raises(NotImplementedError):

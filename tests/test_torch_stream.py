@@ -256,7 +256,7 @@ def test_binned_closest_matches_independent_oracles(monkeypatch):
     md = ttrace.to_device(TT.scene_from_numpy(jd), "cpu")
     o, d, _, _ = rays(777, 22, caps=False)
     o, d = torch.from_numpy(o), torch.from_numpy(d)
-    pt, pi = ttrace.mesh_closest(ms, o, d)            # default: binned
+    pt, pi = ttrace.mesh_closest(ms, o, d, mesh="binned")
     wt, wi = ttrace.bvh_tri_closest(ms, o, d, ttrace.T_MIN, INF)
     hit = torch.isfinite(wt)
     assert torch.equal(pi >= 0, hit) and hit.sum() > 30

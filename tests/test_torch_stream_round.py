@@ -161,11 +161,11 @@ def test_binned_fused_route_matches_jax_and_the_unfused_route(monkeypatch):
     tt = torch.from_numpy
     cf, cu = {}, {}
     ft, fi = ttrace.mesh_closest(ms, tt(o), tt(d), tt(cap), tt(alive),
-                                 b1_fused=True, counters=cf)
+                                 mesh="binned", b1_fused=True, counters=cf)
     np.testing.assert_array_equal(fi.numpy(), np.asarray(ji))
     np.testing.assert_allclose(ft.numpy(), np.asarray(jt), rtol=1e-5)
     ut, ui = ttrace.mesh_closest(ms, tt(o), tt(d), tt(cap), tt(alive),
-                                 counters=cu)
+                                 mesh="binned", counters=cu)
     assert torch.equal(fi, ui) and torch.equal(ft, ut)
     assert cf == cu and cf["rounds"] >= 2
     assert (fi >= 0).sum() > 300
@@ -184,7 +184,7 @@ def test_fused_route_refuses_what_it_cannot_run(monkeypatch):
     big = torch.zeros((257, 3))
     monkeypatch.setattr(bvh, "cl_lo", big)
     with pytest.raises(ValueError, match="256"):
-        ttrace.mesh_closest(ms, o, d, b1_fused=True)
+        ttrace.mesh_closest(ms, o, d, mesh="binned", b1_fused=True)
     z = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="256"):
         tstream.stream_round_rows(bvh.cl_lines, big, big, z, z, z, z,
@@ -194,7 +194,7 @@ def test_fused_route_refuses_what_it_cannot_run(monkeypatch):
     monkeypatch.setattr(bvh, "cl_lo", torch.zeros((10, 3)))
     monkeypatch.setattr(bvh, "cl_boxes", None)
     with pytest.raises(ValueError, match="cluster-box"):
-        ttrace.mesh_closest(ms, o, d, b1_fused=True)
+        ttrace.mesh_closest(ms, o, d, mesh="binned", b1_fused=True)
 
 
 def test_mark_range_and_processed_bits():
