@@ -151,8 +151,34 @@ Phases (any failure exits non-zero; nothing is swallowed):
      40, 131072 lanes) through `cli.main` under `queue_ik`, `--schedule
      queue` and `--schedule positional` with phase 22's gates, and
      `--direct-rec` exiting 2 naming the image textures;
+ 25. K3 `bounce` in full: in dense mode (the reference engine's bounce) on
+     the seven dense scenes, one feature set each (ops/bounce.
+     fused_features: cornellBox 0, book3 3, cornellSmoke 4, simpleLight 9,
+     book1 11, quads 42, book2 47), at 131072 lanes, and in ext mode on
+     scene 8, on scene 8 with a glass sphere and a fog medium
+     (scenes/synthetic.glass_fog_statue) and on an image-textured mesh
+     (synthetic.image_mesh), at 65536 lanes: against its plain version on
+     camera rays and one level later (flag words within each scene's
+     flip fraction, image lanes' texels within TEXEL_MOVED_FRAC), then
+     timed (CUDA events and the profile's device time) with its bound,
+     registers, staged bytes and spill per variant;
+ 26. the reference engine's paths through `cli.main`, launch counts set to
+     0 before each and read after: the slice's main path, cornellBox
+     600x600 `--integrator wavefront` (its bounce on K3 alone), CUT to 16
+     spp, held to two `queue_ik` seeds at 16 spp by channel means (within
+     4 standard deviations of the two-seed difference), and with
+     `--backend xla` (no kernel; 4 spp) held to K3 on the same random
+     stream and to `queue_ik`; book2 800x800 on K3 with
+     every feature (4 spp, CUT); modelExample 600x337 on the wavefront
+     integrator (the eager bounce, K5 once a level; 4 spp, CUT) and under
+     `--schedule positional` (25 spp, CUT), held to the walk route;
+     lanternhouse (`--obj assets/lanternhouse.obj`: triangle lights, no
+     kernel carries it) through regen's unfused window at 600x337, 16 spp
+     (CUT), depth 50; the five other dense scenes at 1 spp on the
+     wavefront integrator and the two ext meshes through `render_regen`,
+     counting K3's launches per feature set;
 then the `kernels` JSON line (K1-K12; K1, K6 and K8 name their image
-variant), the nvidia-smi line, and the final
+variant, K3 its feature sets), the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -273,6 +299,13 @@ BOX_OPS = 12
 # 2 spheres x ~30, the ext fold, shading, the sphere-light sample and pdf,
 # the metal reflection
 K3_OPS_PER_SEGMENT = 300
+# the same count on phase 25's other ext meshes: the glass sphere's test
+# and the dielectric branch (~75) and the fog's sphere span and free
+# flight (~35) beside scene 8's; the image mesh's ground sphere and quad
+# light (~70), shading, the quad light's sample and pdf (~150) and the
+# texel's index (~15)
+K3_EXT_OPS = {"scene8": K3_OPS_PER_SEGMENT, "glass_fog": 410,
+              "image_mesh": 235}
 SCENE8_PATHS = 600 * 337 * 225
 
 
@@ -3115,6 +3148,372 @@ def main():
                       f"quads, book2): {v} launches in phase 24's renders"
                    for k, v in img_launches.items()}
 
+    # ---- 25. K3 in both modes, every feature set ---------------------------
+    phase_start(25)
+    from go_raytracer_tpu_torch.render import camera as camera_mod
+    from go_raytracer_tpu_torch.scene import builder as builder_mod
+    from go_raytracer_tpu_torch.scene import obj_loader
+    from go_raytracer_tpu_torch.scenes import synthetic
+
+    def k3_device_ms(run, reps=20):
+        """K3's device time per call: the launches queued behind a
+        ~0.1 s spin of the device, so that they run back to back, between
+        two CUDA events. None where the host took longer to queue them
+        than the spin lasted (the events would then hold host gaps)."""
+        run()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)
+        h0 = time.perf_counter()
+        t0.record()
+        for _ in range(reps):
+            run()
+        t1.record()
+        queued_s = time.perf_counter() - h0
+        torch.cuda.synchronize()
+        return None if queued_s > 0.05 else t0.elapsed_time(t1) / reps
+
+    def k3_case(tag, tables_, st_, bg_, rays, frac, ext_fn=None,
+                texel_frac=None, ops=None, levels=2):
+        """K3 against `bounce_ref` on `levels` levels of one pool (camera
+        rays, a tenth of the lanes dead; the next level on the kernel's
+        rays), then K3 timed on the last level's inputs. Flag words
+        (alive', clamp) may differ on `frac` of the lanes, E/W and the
+        continuing rays on `frac` of the agreeing ones (rtol = atol =
+        K1_RTOL); an image lane's texel may move on `texel_frac` of the
+        image lanes. Returns the row of the PERF table."""
+        o, d, t, alive, g = rays
+        n = o.shape[0]
+        n_u = bounce.N_U + st_["n_media"]
+        worst = dict(flags=0.0, ew=0.0, ray=0.0, err=0.0)
+        c0 = time.perf_counter()
+        img_lanes = img_moved = 0
+        for lvl in range(levels):
+            u = torch.rand((n, n_u), generator=g, device=dev)
+            ext = ext_fn(o, d, t, alive) if ext_fn else None
+            k = bounce.bounce(tables_, st_, o, d, t, alive, u, bg_, ext=ext)
+            torch.cuda.synchronize()
+            probe = []
+            p = bounce.bounce_ref(tables_, st_, o, d, t, alive, u, bg_,
+                                  ext=ext, probe=probe)
+            flags = (k[5] == p[5]) & (k[2] == p[2])
+            off = torch.zeros_like(alive)
+            for a, b in ((k[0], p[0]), (k[1], p[1])):
+                off |= (~torch.isclose(a, b, rtol=K1_RTOL, atol=K1_ATOL,
+                                       equal_nan=True)).any(dim=-1)
+            go = flags & k[5]
+            ray_off = torch.zeros_like(alive)
+            for a, b in ((k[3], p[3]), (k[4], p[4])):
+                ray_off |= go & (~torch.isclose(a, b, rtol=K1_RTOL,
+                                                atol=K1_ATOL)).any(dim=-1)
+            ok = flags & ~off
+            worst["flags"] = max(worst["flags"], 1 - flags.float().mean()
+                                 .item())
+            worst["ew"] = max(worst["ew"], (off & flags).float().mean().item())
+            worst["ray"] = max(worst["ray"], ray_off.float().mean().item())
+            worst["err"] = max(worst["err"], max(
+                (a - b)[ok].abs().nan_to_num(0.0).max().item()
+                for a, b in ((k[0], p[0]), (k[1], p[1]))))
+            check(not k[5][~alive].any() and not k[1][~alive].any(),
+                  f"K3 {tag}: a dead lane shades or goes on")
+            if probe:
+                img = (probe[0] >= 0) & flags
+                img_lanes += int(img.sum())
+                img_moved += int((img & off).sum())
+            o, d, alive = k[3].contiguous(), k[4].contiguous(), k[5].clone()
+        for name, val in (("flag words", worst["flags"]), ("E/W", worst["ew"]),
+                          ("continuing rays", worst["ray"])):
+            check(val <= frac, f"K3 {tag}: {name} mismatch {val} > {frac}")
+        if texel_frac is not None:
+            check(img_lanes > 0 and img_moved <= texel_frac * img_lanes,
+                  f"K3 {tag}: texel moved on {img_moved} of {img_lanes} "
+                  f"image lanes")
+        # K3 timed on the last level's inputs (its ext planes fixed)
+        u = torch.rand((n, n_u), generator=g, device=dev)
+        ext = ext_fn(o, d, t, alive) if ext_fn else None
+        out = bounce.bounce_out(n, dev)
+
+        def run():
+            bounce.bounce(tables_, st_, o, d, t, alive, u, bg_, ext=ext,
+                          out=out)
+
+        ms = time_ms(run, 20)
+        dev_ms = k3_device_ms(run)
+        plain_ms = time_ms(lambda: bounce.bounce_ref(
+            tables_, st_, o, d, t, alive, u, bg_, ext=ext), 1, warmup=0)
+        n_ext = len(ext) if ext else 0
+        nbytes = n * (29 + 4 * n_u + 4 * n_ext + 50)
+        segs = int(alive.sum())
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = segs * ops / FP32_OPS_PER_S * 1e3
+        feat = bounce.fused_features(st_)
+        info = _cuda.kernel_info("bounce", feat, st_["n_sph"], st_["n_quad"],
+                                 st_["n_box"])
+        row = dict(feat=feat, lanes=n, alive=segs, ms=ms, device_ms=dev_ms,
+                   plain_ms=plain_ms, bound_ms=max(b_ms, o_ms),
+                   bound_by="bytes" if b_ms >= o_ms else "operations",
+                   err=worst["err"], info=info)
+        dev_txt = (f"{dev_ms:.5f} ms on the device (queued back to back)"
+                   if dev_ms is not None else "device time not measured")
+        print(f"[25] K3 {tag} (variant {feat}{', ext' if ext else ''}, "
+              f"{n} lanes, {segs} alive at the timed level) vs plain over "
+              f"{levels} level(s): mismatch fractions flag words "
+              f"{worst['flags']:.2e} E/W {worst['ew']:.2e} continuing rays "
+              f"{worst['ray']:.2e} (limit {frac}, rtol=atol={K1_RTOL}); E/W "
+              f"max abs err {worst['err']:.3e}"
+              + (f"; image lanes {img_lanes}, texel moved on {img_moved}"
+                 if texel_frac is not None else "")
+              + f"; {ms:.5f} ms per call between CUDA events, {dev_txt}, "
+              f"plain {plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']}: {nbytes} B, {ops} operations per alive "
+              f"lane); {info['registers']} registers, "
+              f"{info['dynamic_smem']} B staged, {info['blocks_per_sm']} "
+              f"blocks/SM, {info['local_bytes']} B local (spill) per thread;"
+              f" on {card}; the case took {time.perf_counter() - c0:.1f} s")
+        return row
+
+    def camera_pool(cam, n, seed):
+        """Camera rays through random pixels of `cam`, a tenth dead."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        pid = torch.randint(0, cam.width * cam.image_height, (n,),
+                            generator=g, device=dev)
+        s0 = torch.zeros(n, device=dev)
+        o, d, t = camera_mod.generate_rays(
+            cam.derived(), cam.width, pid, s0, s0,
+            torch.rand((n, camera_mod.N_U_RAYGEN), generator=g, device=dev))
+        alive = torch.rand(n, generator=g, device=dev) > 0.1
+        return o.contiguous(), d.contiguous(), t.contiguous(), alive, g
+
+    k3_flip = {"cornell_box": K3_MISMATCH_FRAC, "book3": DIEL_MISMATCH_FRAC,
+               "cornell_smoke": K3_MISMATCH_FRAC,
+               "simple_light": TEX_MISMATCH_FRAC["simple_light"],
+               "book1": TEX_MISMATCH_FRAC["book1"],
+               "quads_scene": IMG_MISMATCH_FRAC["quads_scene"],
+               "book2": IMG_MISMATCH_FRAC["book2"]}
+    k3_rows = {}
+    for sc, frac in k3_flip.items():
+        scene_, cam_ = getattr(reg8, sc)()
+        st_ = bounce.scene_statics(scene_)
+        tab_ = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in bounce.pack_scene(scene_))
+        bg_ = torch.tensor(np.asarray(scene_.background, np.float32),
+                           device=dev)
+        k3_rows[sc] = k3_case(
+            sc, tab_, st_, bg_, camera_pool(cam_, 131072, 25), frac,
+            texel_frac=TEXEL_MOVED_FRAC.get(sc), ops=OPS_PER_SEGMENT[sc])
+
+    def ext_planes_of(ctx):
+        def fn(o, d, t, alive):
+            ms_ = ctx.ms
+            cap = torch.full((o.shape[0],), float("inf"), device=dev)
+            if ms_.has_spheres:
+                cap = torch.minimum(cap, intersect.sphere_ts(
+                    ms_.spheres, o, d, t, 1e-3, float("inf")).amin(dim=1))
+            if ms_.has_quads:
+                cap = torch.minimum(cap, intersect.quad_ts(
+                    ms_.quads, o, d, 1e-3, float("inf")).amin(dim=1))
+            return bounce.mesh_ext_planes(ms_, ctx.statics, ctx.tri_mat, o, d,
+                                          cap, alive)
+        return fn
+
+    b_gf = builder_mod.SceneBuilder()
+    look_gf = synthetic.glass_fog_statue(b_gf, obj_loader, builder_mod.Transform)
+    b_im = builder_mod.SceneBuilder(background=(0.1, 0.1, 0.1))
+    synthetic.image_mesh(b_im)
+    ext_scenes = {"scene8": (scene8, ((10, 5, 10), (0, 0, 0))),
+                  "glass_fog": (b_gf.build(), look_gf),
+                  "image_mesh": (b_im.build(bvh_threshold=1),
+                                 ((0, 4, 12), (0, 0, 0)))}
+    for sc, (scene_, look) in ext_scenes.items():
+        cam_ = Camera(aspect_ratio=16 / 9, width=600, samples_per_pixel=1,
+                      max_depth=50, vertical_fov=40)
+        cam_.position(*look, (0, 1, 0))
+        ctx_ = regen.MeshContext.build(scene_, cam_, dev)
+        k3_rows[sc] = k3_case(
+            sc, ctx_.tables, ctx_.statics, ctx_.bg,
+            camera_pool(cam_, regen.MESH_MAX_LANES, 26), K3_MISMATCH_FRAC,
+            ext_fn=ext_planes_of(ctx_),
+            texel_frac=TEXEL_MOVED_FRAC["quads_scene"]
+            if ctx_.statics["has_image"] else None, ops=K3_EXT_OPS[sc])
+    print("[25] bounce.cu variants (ptxas): "
+          + " | ".join(_cuda.ptxas_report("bounce")))
+
+    # ---- 26. the reference engine's paths through cli.main --------------
+    phase_start(26)
+
+    def ppm_pixels(path):
+        with open(path) as fh:
+            txt = fh.read().split()
+        return np.asarray(txt[4:], dtype=np.float64).reshape(-1, 3) \
+            / float(txt[3])
+
+    def seed_sd(path_a, path_b):
+        """Per channel, the standard deviation of the difference of two
+        renders' channel means, from two seeds' per-pixel differences
+        (pixels are independent): sqrt(mean((a - b)^2) / npix)."""
+        a, b = ppm_pixels(path_a), ppm_pixels(path_b)
+        return np.sqrt(((a - b) ** 2).mean(axis=0) / a.shape[0]), \
+            np.abs(a.mean(axis=0) - b.mean(axis=0))
+
+    def run_cli26(num, extra, image):
+        reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-S", str(num), "-o", os.path.join(out_dir, image),
+                           "--stats", "--quiet", *extra])
+        check(rc == 0, f"cli.main -S {num} {extra} returned {rc}")
+        st_ = json.loads(buf.getvalue().strip().splitlines()[-1])
+        st_["launches"] = dict(
+            K3=bounce.launches_bounce, K5=traverse8.launches,
+            K2=harvest.launches,
+            fused=bounce.launches + bounce.launches_fused
+            + bounce.launches_fused_pos + bounce.launches_direct,
+            other=harvest.launches_rows + stream.launches
+            + stream.launches_round + stream2.launches + traverse.launches)
+        st_["image"] = os.path.join(out_dir, image)
+        lv = st_.get("levels") or 1
+        print(f"[26] -S {num} {' '.join(extra)} on {card}: paths "
+              f"{st_['paths']}, segments {st_['segments']} "
+              f"({st_['segments'] / st_['paths']:.4f}/path), elapsed "
+              f"{st_['elapsed_s']:.3f} s, levels {st_.get('levels')}, "
+              f"{st_['elapsed_s'] / lv * 1e3:.3f} ms per level, backend "
+              f"{st_.get('backend')}, nonfinite {st_['nonfinite']}, channel "
+              f"means {np.round(ppm_channel_means(st_['image']), 5).tolist()}"
+              f"; launches {st_['launches']}")
+        check(st_["nonfinite"] <= TEX_NONFINITE_MAX,
+              f"-S {num} {extra}: {st_['nonfinite']} non-finite pixels")
+        return st_
+
+    def held(tag, st_, ref, ref2):
+        """`st_`'s image against `ref`'s by channel means, within four
+        standard deviations of the two-seed difference measured from
+        `ref` and `ref2` (the same path at another seed)."""
+        sd, spread = seed_sd(ref["image"], ref2["image"])
+        diff = np.abs(ppm_channel_means(st_["image"])
+                      - ppm_channel_means(ref["image"]))
+        print(f"[26] {tag}: channel means differ by "
+              f"{np.round(diff, 6).tolist()}; two seeds of the reference "
+              f"differ by {np.round(spread, 6).tolist()}, standard deviation"
+              f" of that difference {np.round(sd, 6).tolist()}, tolerance "
+              f"4 sd")
+        check((diff <= 4 * sd).all(), f"{tag}: channel means off by {diff}"
+              f" (4 sd {4 * sd})")
+        check(st_["paths"] == ref["paths"], f"{tag}: paths")
+
+    # the slice's main path, counts set to 0 just before it: cornellBox at
+    # full width through the wavefront integrator, its bounce on K3
+    w6 = run_cli26(6, ["--integrator", "wavefront", "--spp", "16"],
+                   "cornell_wavefront16.ppm")
+    k3_wavefront_launches = w6["launches"]["K3"]
+    check(w6["backend"] == "pallas" and k3_wavefront_launches == w6["levels"]
+          > 0 and w6["launches"]["fused"] + w6["launches"]["other"]
+          + w6["launches"]["K5"] == 0,
+          "cornellBox wavefront: the bounce did not go through K3 alone")
+    q6a = run_cli26(6, ["--spp", "16"], "cornell_qik16_s0.ppm")
+    q6b = run_cli26(6, ["--spp", "16", "--seed", "1"], "cornell_qik16_s1.ppm")
+    held("cornellBox wavefront (K3) vs queue_ik, 600x600 16 spp", w6, q6a,
+         q6b)
+    # --backend xla (the eager bounce, ~15x K3's time a level: CUT to 4
+    # spp), against K3 on the same random stream (the same paths but for
+    # the flips of grazing rays) and against queue_ik
+    x6 = run_cli26(6, ["--integrator", "wavefront", "--backend", "xla",
+                       "--spp", "4"], "cornell_wavefront_xla4.ppm")
+    check(x6["backend"] == "xla" and sum(x6["launches"].values()) == 0,
+          "cornellBox wavefront --backend xla launched a kernel")
+    w6_4 = run_cli26(6, ["--integrator", "wavefront", "--spp", "4"],
+                     "cornell_wavefront4.ppm")
+    q6c = run_cli26(6, ["--spp", "4"], "cornell_qik4_s0.ppm")
+    q6d = run_cli26(6, ["--spp", "4", "--seed", "1"], "cornell_qik4_s1.ppm")
+    check(abs(x6["segments"] - w6_4["segments"]) <= 1e-3 * w6_4["segments"],
+          "cornellBox wavefront: xla and auto segments differ by > 1e-3")
+    held("cornellBox wavefront --backend xla vs --backend auto, 4 spp", x6,
+         w6_4, q6d)
+    held("cornellBox wavefront --backend xla vs queue_ik, 4 spp", x6, q6c,
+         q6d)
+    # book2 with every feature on K3
+    w2 = run_cli26(2, ["--integrator", "wavefront", "--spp", "4"],
+                   "book2_wavefront4.ppm")
+    check(w2["backend"] == "pallas" and w2["launches"]["K3"] == w2["levels"]
+          > 0 and w2["nonfinite"] <= TEX_NONFINITE_MAX,
+          "book2 wavefront: not on K3, or non-finite pixels")
+    q2a = run_cli26(2, ["--spp", "4"], "book2_qik4_s0.ppm")
+    q2b = run_cli26(2, ["--spp", "4", "--seed", "1"], "book2_qik4_s1.ppm")
+    held("book2 wavefront (K3, every feature) vs queue_ik, 800x800 4 spp",
+         w2, q2a, q2b)
+    # scene 8 through the wavefront integrator: the eager bounce, its
+    # triangle hit on K5
+    w8 = run_cli26(8, ["--integrator", "wavefront", "--spp", "4"],
+                   "modelExample_wavefront4.ppm")
+    check(w8["launches"]["K5"] == w8["levels"] > 0 and w8["launches"]["K3"]
+          == 0 and w8["mesh"]["route"] == "walk",
+          "scene 8 wavefront: the triangle hit is not on K5 once a level")
+    r8a = run_cli26(8, ["--spp", "4"], "modelExample_walk4_s0.ppm")
+    r8b = run_cli26(8, ["--spp", "4", "--seed", "1"],
+                    "modelExample_walk4_s1.ppm")
+    held("modelExample wavefront vs the walk route, 600x337 4 spp", w8, r8a,
+         r8b)
+    # scene 8 under `positional`: the eager bounce per level, K5 inside
+    p8 = run_cli26(8, ["--schedule", "positional", "--spp", "25"],
+                   "modelExample_positional25.ppm")
+    check(p8["schedule"] == "positional" and p8["bounce"] == "wavefront"
+          and p8["launches"]["K5"] == p8["levels"] > 0,
+          "scene 8 positional: not the eager bounce with K5 a level")
+    r8c = run_cli26(8, ["--spp", "25", "--seed", "1"],
+                    "modelExample_walk25_s1.ppm")
+    held("modelExample positional vs the walk route, 600x337 25 spp", p8,
+         dict(s8w25, image=os.path.join(out_dir, "modelExample_walk25.ppm")),
+         r8c)
+    # lanternhouse: triangle lights, no kernel carries it: regen's unfused
+    # window on the eager bounce with the dense triangle class
+    lh = run_cli26(8, ["--obj", "assets/lanternhouse.obj", "--spp", "16"],
+                   "lanternhouse16.ppm")
+    lh_px = ppm_pixels(lh["image"])
+    check(lh["bounce"] == "wavefront" and lh["backend"] == "xla"
+          and lh["segments"] > 0 and lh_px.max() > 0.05
+          and lh["paths"] == 600 * 337 * 16
+          and sum(lh["launches"].values()) == lh["launches"]["K2"],
+          "lanternhouse: not the eager bounce, or nothing rendered")
+    # every dense scene at 1 spp on the wavefront integrator: K3's
+    # launches per feature set in a render
+    k3_render = {"cornell_box": k3_wavefront_launches,
+                 "book2": w2["launches"]["K3"]}
+    for sc, num in (("book1", 1), ("book3", 3), ("simple_light", 4),
+                    ("quads_scene", 5), ("cornell_smoke", 7)):
+        ws = run_cli26(num, ["--integrator", "wavefront", "--spp", "1"],
+                       f"{sc}_wavefront1.ppm")
+        check(ws["launches"]["K3"] == ws["levels"] > 0
+              and ws["nonfinite"] <= TEX_NONFINITE_MAX,
+              f"{sc} wavefront: not on K3, or non-finite pixels")
+        k3_render[sc] = ws["launches"]["K3"]
+    k3_render["scene8"] = k3_launches
+    for sc in ("glass_fog", "image_mesh"):
+        scene_, look = ext_scenes[sc]
+        cam_ = Camera(aspect_ratio=16 / 9, width=300, samples_per_pixel=4,
+                      max_depth=50, vertical_fov=40)
+        cam_.position(*look, (0, 1, 0))
+        reset_counts()
+        img_, st_ = regen.render_regen(scene_, cam_, device=dev)
+        k3_render[sc] = bounce.launches_bounce
+        check(st_["bounce"] == "ext" and k3_render[sc] == st_["levels"] > 0
+              and st_["nonfinite"] == 0,
+              f"{sc}: the regen render did not bounce on K3 a level")
+        print(f"[26] {sc} 300x168 4 spp through render_regen on {card}: "
+              f"segments {st_['segments']}, levels {st_['levels']}, K3 "
+              f"launches {k3_render[sc]}, channel means "
+              f"{np.round(img_.mean(axis=(0, 1)), 5).tolist()}")
+    print("[26] K3 rows (PERF.md §6): " + json.dumps(
+        {sc: dict({k: v for k, v in r.items() if k != "info"},
+                  launches_render=k3_render[sc], **r["info"])
+         for sc, r in k3_rows.items()}))
+    k3_variants = ("feature sets (ops/bounce.fused_features) dense mode "
+                   + ", ".join(f"{sc} {k3_rows[sc]['feat']}"
+                               for sc in k3_flip)
+                   + "; ext mode " + ", ".join(
+                       f"{sc} {k3_rows[sc]['feat']}" for sc in ext_scenes)
+                   + "; launches in phase 26's renders "
+                   + json.dumps(k3_render))
+
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_q.cu",
@@ -3134,7 +3533,7 @@ def main():
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:1245",
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": None},
+         "library_ms": None, "variants": k3_variants},
         {"name": "stream_rows", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/stream.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/stream.py:213",

@@ -21,11 +21,14 @@ the H100 the walk is the fastest route every triangle BVH can run.
 package's GRT_MESH, GRT_B1_FUSED, GRT_TRAVERSE8 and GRT_DIRECT_REC as
 flags; where the JAX package would quietly take another route, the run
 exits with 2 and a message. `--schedule queue` and
-`--schedule positional` run a dense scene on those schedules instead of
-the in-kernel queue. Flags whose paths are not ported yet (other
-integrators and backends, the schedules a scene kind does not have) are
-accepted with their JAX-package choices and exit with 2 and a message
-naming ROADMAP.md when set to anything but a ported path.
+`--schedule positional` run a scene on those schedules instead of the
+in-kernel queue (a mesh scene, or `--backend xla`, runs `queue` by
+default and refuses `queue_ik` with exit 2). `--backend xla` runs the
+reference engine's bounce (`integrator/wavefront._bounce`) in place of
+the kernels; `--integrator wavefront` runs the reference engine's
+stratified renderer (`render/renderer.py`), with `--mode` and `--batch`,
+and `--backend auto` there runs its bounce as the K3 kernel where the
+kernel carries the scene.
 """
 
 from __future__ import annotations
@@ -50,9 +53,13 @@ def main(argv=None):
     ap.add_argument("--mode", choices=["while", "scan"], default="while",
                     help="wavefront loop form (wavefront integrator only)")
     ap.add_argument("--backend", choices=["auto", "xla", "pallas"], default="auto",
-                    help="bounce backend: auto = the fused CUDA kernel")
+                    help="bounce backend: auto = the CUDA kernels where they "
+                         "carry the scene, pallas = the kernels or an error, "
+                         "xla = the reference engine's tensor-code bounce")
     ap.add_argument("--integrator", choices=["regen", "wavefront"],
-                    default="regen", help="regen (the ported path)")
+                    default="regen",
+                    help="regen (ray regeneration) or wavefront (the "
+                         "reference engine's stratified renderer)")
     ap.add_argument("--regen", action="store_true",
                     help="(compat alias for --integrator regen)")
     ap.add_argument("--batch", type=int, default=1 << 17,
@@ -106,13 +113,10 @@ def main(argv=None):
         print(f"error: unknown scene {args.scene!r}; valid: {valid}",
               file=sys.stderr)
         return 2
-    if args.integrator != "regen" and not args.regen:
-        print("error: only the regen integrator is ported (ROADMAP.md: the "
-              "XLA-engine / wavefront path is queued)", file=sys.stderr)
-        return 2
-    if args.backend == "xla":
-        print("error: --backend xla has no counterpart here; auto and pallas "
-              "both run the CUDA kernel", file=sys.stderr)
+    wavefront = args.integrator == "wavefront" and not args.regen
+    if wavefront and (args.direct_rec or args.schedule != "auto"):
+        print("error: --direct-rec and --schedule are options of the regen "
+              "integrator", file=sys.stderr)
         return 2
 
     import torch
@@ -150,13 +154,26 @@ def main(argv=None):
         prof = torch.profiler.profile(activities=acts)
         prof.__enter__()
     try:
-        linear, stats = regen_mod.render_regen(
-            scene, cam, seed=args.seed, n_lanes=args.lanes,
-            cadence=args.cadence, schedule=args.schedule, device=device,
-            mesh=args.mesh, b1_fused=args.b1_fused,
-            traverse8=args.traverse8, direct_rec=args.direct_rec,
-            checkpoint_path=args.checkpoint or None,
-            scene_name=name, verbose=not args.quiet)
+        if wavefront:
+            from go_raytracer_tpu_torch.render import renderer
+
+            linear, stats = renderer.render(
+                scene, cam, seed=args.seed, mode=args.mode,
+                ray_batch=args.batch, device=device,
+                verbose=not args.quiet,
+                checkpoint_path=args.checkpoint or None, scene_name=name,
+                backend=args.backend,
+                route=dict(mesh=args.mesh, b1_fused=args.b1_fused,
+                           traverse8=args.traverse8))
+        else:
+            linear, stats = regen_mod.render_regen(
+                scene, cam, seed=args.seed, n_lanes=args.lanes,
+                cadence=args.cadence, schedule=args.schedule, device=device,
+                mesh=args.mesh, b1_fused=args.b1_fused,
+                traverse8=args.traverse8, direct_rec=args.direct_rec,
+                backend=args.backend,
+                checkpoint_path=args.checkpoint or None,
+                scene_name=name, verbose=not args.quiet)
     except (NotImplementedError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -41,3 +41,46 @@ def unit_disk(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     r = torch.sqrt(u1)
     phi = TWO_PI * u2
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def _sqrt0(x: torch.Tensor) -> torch.Tensor:
+    """sqrt clamped to 0 for x <= 0, with a finite derivative everywhere.
+
+    sqrt(max(0, x)) has the right value but an infinite derivative where
+    the clamp bites, and inf times a zero cotangent is NaN: cone-sampling a
+    sphere light from inside it NaN'd every parameter gradient in the JAX
+    package (GRAD.md). The double where keeps the value and zeroes the
+    backward on the clamped branch."""
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def unit_vector(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the sphere, (..., 3): z ~ U[-1, 1], phi ~
+    U[0, 2 pi) (Archimedes), distributionally the rejection sampler of
+    vec/vec.go:159-167."""
+    z = 1.0 - 2.0 * u1
+    r = _sqrt0(1.0 - z * z)
+    phi = TWO_PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def cosine_direction(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Cosine-weighted hemisphere direction about +z, (..., 3)
+    (vec/vec.go:177-186)."""
+    phi = TWO_PI * u1
+    sq = torch.sqrt(u2)
+    return torch.stack([torch.cos(phi) * sq, torch.sin(phi) * sq,
+                        _sqrt0(1.0 - u2)], dim=-1)
+
+
+def to_sphere(radius: torch.Tensor, dist_squared: torch.Tensor,
+              u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Cone sample toward a sphere of `radius` at squared distance
+    `dist_squared`, in the frame whose +z points at its centre
+    (hittable/objects.go:70-80)."""
+    cos_theta_max = _sqrt0(1.0 - radius * radius / dist_squared)
+    z = 1.0 + u2 * (cos_theta_max - 1.0)
+    phi = TWO_PI * u1
+    t = _sqrt0(1.0 - z * z)
+    return torch.stack([torch.cos(phi) * t, torch.sin(phi) * t, z], dim=-1)

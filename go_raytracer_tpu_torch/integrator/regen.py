@@ -12,13 +12,16 @@ plain tensor code before each `bounce_fused` call of `cadence` levels, and
 item index and `bounce_fused_pos` restarts it at any level from its own
 pointer planes; the reverse scan retreats the pointers and sums each
 path into one of the lane's few pixel slots.
-Mesh scenes (a triangle BVH) run the `queue` schedule's unfused window
-(`_mesh_window`): per level the refill, the camera rays and the uniforms
-are plain tensor code, the closest mesh hit comes from one of the five
-routes of ops/trace.mesh_closest (the binned intersector, its fused
-rounds, the persistent-block intersector, the BVH8 walk or the binary
-BVH walk), and the `bounce` kernel folds it into the dense winner and
-shades.
+Scenes off the fused kernels (a triangle mesh, triangle lights, or the
+"xla" backend) run an unfused window: `_mesh_window` for the `queue`
+schedule, `_pos_window_unfused` for `positional`. Per level the refill,
+the camera rays and the uniforms are plain tensor code. On a BVH mesh the
+`bounce` kernel carries (`ops/bounce.supported_ext`), the closest mesh
+hit comes from one of the five routes of ops/trace.mesh_closest (the
+binned intersector, its fused rounds, the persistent-block intersector,
+the BVH8 walk or the binary BVH walk) and the kernel folds it into the
+dense winner and shades; elsewhere the level is the reference engine's
+bounce (`integrator/wavefront._bounce`).
 The forward pass records, per level and lane, the merged V plane (the
 vertex's emission or its scatter weight) and flag bits (clamp, emit,
 started); the reverse harvest then evaluates L = clamp?(emit ? V : V*L)
@@ -34,8 +37,9 @@ drains. The forward loop stops early once every lane is dead and nothing
 can refill (the unwritten levels would be all-zero records).
 
 These are the JAX package's `queue_ik`, `queue` (fused harvest) and
-`positional` schedules on its fused-kernel branch, and its `queue` schedule
-on the external-mesh-hit path (integrator/regen.py there).
+`positional` schedules on its fused-kernel branch, its `queue` schedule on
+the external-mesh-hit path, and its `queue` and `positional` schedules on
+the whole-XLA `wavefront._bounce` (integrator/regen.py there).
 """
 
 from __future__ import annotations
@@ -43,10 +47,12 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time as _time
+from typing import Optional
 
 import numpy as np
 import torch
 
+from go_raytracer_tpu_torch.integrator import wavefront
 from go_raytracer_tpu_torch.ops import bounce as bounce_mod
 from go_raytracer_tpu_torch.ops import harvest as harvest_mod
 from go_raytracer_tpu_torch.ops import intersect as ix_mod
@@ -512,23 +518,30 @@ def window_generator(seed: int, w: int, device) -> torch.Generator:
 
 @dataclasses.dataclass
 class MeshContext:
-    """What the mesh window reads, on the render device: the scene tables
-    of `ops/trace.to_device`, the packed kernel tables and statics, the
-    per-triangle material columns, background and camera. `mesh` (with
-    "auto" resolved by `ops/trace.resolve_route`), `b1_fused` and
-    `traverse8` pick the closest-hit route (`ops/trace.mesh_closest`);
-    `counters` gathers calls, rounds and host reads of the intersector."""
+    """What the unfused window reads, on the render device: the scene
+    tables of `ops/trace.to_device` (`ms`), the background and camera, and
+    for the external-hit bounce (`ext`) the packed kernel tables and
+    statics and the per-triangle material columns. `mesh` (with "auto"
+    resolved by `ops/trace.resolve_route`), `b1_fused` and `traverse8`
+    pick a BVH mesh's closest-hit route (`ops/trace.mesh_closest`);
+    `counters` gathers calls, rounds and host reads of the intersector.
+
+    `bounce_level` is the window's bounce: `mesh_bounce` (the mesh hit
+    as ext planes, then K3) where `ext`, else the reference engine's
+    `integrator/wavefront._bounce`, as the JAX package picks its
+    `bounce_fn`."""
 
     ms: object
-    tables: tuple
-    statics: dict
-    tri_mat: torch.Tensor
+    tables: Optional[tuple]
+    statics: Optional[dict]
+    tri_mat: Optional[torch.Tensor]
     bg: torch.Tensor
     arrays: camera_mod.CameraArrays
     mesh: str = "walk"
     b1_fused: bool = False
     traverse8: bool = True
     counters: dict = dataclasses.field(default_factory=dict)
+    ext: bool = True
 
     @property
     def route(self) -> dict:
@@ -538,23 +551,43 @@ class MeshContext:
     @staticmethod
     def build(scene: T.Scene, cam: camera_mod.Camera, device,
               mesh: str = "auto", b1_fused: bool = False,
-              traverse8: bool = True) -> "MeshContext":
+              traverse8: bool = True, ext: bool = True) -> "MeshContext":
         """Raises ValueError when the scene's tables cannot run the
-        route (`ops/trace.check_route`)."""
+        route (`ops/trace.check_route`) and, with `ext`, when the scene
+        has no triangle BVH."""
         to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        statics = bounce_mod.scene_statics(scene, ext=True)
         ms = trace_mod.to_device(scene, device)
-        trace_mod.check_route(ms.tri_bvh, mesh, b1_fused=b1_fused,
-                              traverse8=traverse8)
+        if scene.has_tri_bvh:
+            trace_mod.check_route(ms.tri_bvh, mesh, b1_fused=b1_fused,
+                                  traverse8=traverse8)
+        elif ext:
+            raise ValueError("the external-hit bounce needs a triangle BVH")
+        tables = statics = tri_mat = None
+        if ext:
+            statics = bounce_mod.scene_statics(scene, ext=True)
+            tables = tuple(to_dev(t) for t in bounce_mod.pack_scene(scene))
+            tri_mat = to_dev(bounce_mod.tri_mat_table(scene, statics))
         return MeshContext(
-            ms=ms,
-            tables=tuple(to_dev(t) for t in bounce_mod.pack_scene(scene)),
-            statics=statics,
-            tri_mat=to_dev(bounce_mod.tri_mat_table(scene, statics)),
+            ms=ms, tables=tables, statics=statics, tri_mat=tri_mat,
             bg=to_dev(np.asarray(scene.background, np.float32)),
             arrays=cam.derived(),
             mesh=trace_mod.resolve_route(mesh, b1_fused), b1_fused=b1_fused,
-            traverse8=traverse8)
+            traverse8=traverse8, ext=ext)
+
+    def bounce_level(self, o, d, t, alive, u, out=None):
+        """One bounce of the window's lanes: (E, W, cf, new_o, new_d,
+        alive'); `out` (`ops/bounce.bounce_out`) is used by the ext
+        bounce only."""
+        if self.ext:
+            return mesh_bounce(self, o, d, t, alive, u, out)
+        return wavefront._bounce(
+            self.ms, o, d, t, alive, u, counters=self.counters,
+            route=self.route if self.ms.has_tri_bvh else None)
+
+    @property
+    def n_u(self) -> int:
+        return bounce_mod.N_U + self.ms.media.kind.shape[0] \
+            * int(self.ms.has_media)
 
 
 def mesh_bounce(ctx: MeshContext, o, d, t, alive, u, out=None):
@@ -645,11 +678,15 @@ def refill_lanes(arrays, state, cursor, gen, do_refill: bool, item_end: int,
 
 def _mesh_window(ctx: MeshContext, acc, state, next_item: int, gen,
                  item_end: int, *, width, npix, sqrt_spp, window, refill,
-                 max_depth, max_contribution, bufs: WindowBuffers):
-    """One window of the mesh path over items [next_item, item_end):
-    `window` levels of refill (the first `refill` only), camera rays, one
-    draw of uniforms and `mesh_bounce`, recorded as V/FL planes, then the
-    harvest into `acc` (in place). The started lane's rank rides in FL
+                 max_depth, max_contribution, bufs: WindowBuffers,
+                 cadence: int = 1):
+    """One window of the `queue` schedule's unfused path over items
+    [next_item, item_end): `window` levels of refill (at the levels of the
+    first `refill` that are multiples of `cadence`), camera rays, one draw
+    of uniforms and `ctx.bounce_level` (the ext-mode kernel on a mesh
+    scene it carries, else the reference engine's bounce), recorded as
+    V/FL planes, then the harvest into `acc` (in place). The started lane's
+    rank rides in FL
     bits 3.. and FL bit 2 marks the start, as `bounce_fused_q` writes
     them, so the harvest is the one of the in-kernel-queue path. The loop
     ends early once every lane is dead and nothing can start; that and
@@ -658,7 +695,7 @@ def _mesh_window(ctx: MeshContext, acc, state, next_item: int, gen,
     o, d, t, alive, depth = state
     n = o.shape[0]
     dev = o.device
-    n_u = bounce_mod.N_U + ctx.statics["n_media"]
+    n_u = ctx.n_u
     cursor = torch.tensor(next_item, dtype=torch.int64, device=dev)
     # one set of bounce outputs for every level: `refill_lanes` copies the
     # lane state into fresh tensors before the next bounce overwrites it
@@ -667,14 +704,15 @@ def _mesh_window(ctx: MeshContext, acc, state, next_item: int, gen,
     s_run = 0
     for s in range(window):
         o, d, t, alive, depth, take, rank = refill_lanes(
-            ctx.arrays, (o, d, t, alive, depth), cursor, gen, s < refill,
-            item_end, width=width, npix=npix, sqrt_spp=sqrt_spp)
+            ctx.arrays, (o, d, t, alive, depth), cursor, gen,
+            s < refill and s % cadence == 0, item_end, width=width,
+            npix=npix, sqrt_spp=sqrt_spp)
         bufs.base[s, 0] = cursor
         cursor = cursor + take.sum()
 
         u = torch.rand((n, n_u), generator=gen, dtype=torch.float32,
                        device=dev)
-        E, W, cf, o, d, alive_out = mesh_bounce(ctx, o, d, t, alive, u, out)
+        E, W, cf, o, d, alive_out = ctx.bounce_level(o, d, t, alive, u, out)
         dead = ~alive
         E = torch.where(dead[:, None], 0.0, E)
         W = torch.where(dead[:, None], 0.0, W)
@@ -705,6 +743,85 @@ def _mesh_window(ctx: MeshContext, acc, state, next_item: int, gen,
         item_base=0, s_run=s_run, refill_levels=refill,
         max_contribution=max_contribution)
     return [o, d, t, alive, depth], next_item, segments, s_run
+
+
+def _pos_window_unfused(ctx: MeshContext, B, state, quota, lane_base,
+                        first_pix, gen, *, width, n_strata, sqrt_spp, G,
+                        window, refill, cadence, max_depth,
+                        max_contribution):
+    """One window of the `positional` schedule's unfused path (the JAX
+    package's `_window_impl_pos` off its fused kernel): at every level
+    that is a multiple of `cadence` among the first `refill`, a dead lane
+    with items left starts its next one, item lane_base + k (pixel-major:
+    pixel item // n_strata, stratum item % n_strata), on a camera ray from
+    `gen`; then one draw of uniforms and `ctx.bounce_level`, recorded as
+    E, W, clamp flag and started flag. The reverse scan runs the clamp
+    recursion per lane and, at each cadence block's start, counts the
+    lane's starts back down to find the path's pixel slot g = pixel -
+    first_pix in [0, G), and adds L into B[:, g] (B: (3, G, N), in
+    place). `state` = [o, d, t, alive, depth, k] (k int64, the starts so
+    far); `quota`, `lane_base`, `first_pix` are (N,) int64 tensors on the
+    device. Returns (B, state, cur), cur an int64 device tensor [starts
+    so far over all lanes, segments traced, levels]."""
+    o, d, t, alive, depth, k = state
+    n = o.shape[0]
+    arrays = ctx.arrays
+    Es, Ws, CFs, STs = [], [], [], []
+    segments = torch.zeros((), dtype=torch.int64, device=o.device)
+    for s in range(window):
+        if s < refill and s % cadence == 0:
+            take = ~alive & (k < quota)
+        else:
+            take = torch.zeros_like(alive)
+        item = lane_base + k
+        pid = torch.div(item, n_strata, rounding_mode="floor")
+        stratum = item - pid * n_strata
+        s_i = torch.div(stratum, sqrt_spp, rounding_mode="floor")
+        u_cam = torch.rand((n, camera_mod.N_U_RAYGEN), generator=gen,
+                           dtype=torch.float32, device=o.device)
+        o_n, d_n, t_n = camera_mod.generate_rays(
+            arrays, width, pid, s_i.to(torch.float32),
+            (stratum - s_i * sqrt_spp).to(torch.float32), u_cam)
+        o = torch.where(take[:, None], o_n, o)
+        d = torch.where(take[:, None], d_n, d)
+        t = torch.where(take, t_n, t)
+        k = k + take.to(torch.int64)
+        depth = torch.where(take, torch.zeros_like(depth), depth)
+        alive = alive | take
+        u = torch.rand((n, ctx.n_u), generator=gen, dtype=torch.float32,
+                       device=o.device)
+        E, W, cf, o_n, d_n, alive_n = ctx.bounce_level(o, d, t, alive, u)
+        dead = ~alive
+        Es.append(torch.where(dead[:, None], 0.0, E))
+        Ws.append(torch.where(dead[:, None], 0.0, W))
+        CFs.append(cf & alive)
+        STs.append(take)
+        segments = segments + alive.sum()
+        # depth cap (camera.go:293-296): a path gets max_depth + 1 levels
+        alive_n = alive_n & (depth < max_depth)
+        depth = torch.where(alive, depth + 1, depth)
+        o, d, alive = o_n, d_n, alive_n
+
+    L = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
+    cnt = k
+    slots = torch.arange(G, device=o.device)[:, None]
+    for s in reversed(range(window)):
+        raw = Es[s] + Ws[s] * L
+        L = torch.where(CFs[s][:, None],
+                        wavefront.clamp_contribution(raw, max_contribution),
+                        raw)
+        if s % cadence:
+            continue
+        started = STs[s]
+        cnt = cnt - started.to(torch.int64)
+        g = torch.div(lane_base + cnt, n_strata, rounding_mode="floor") \
+            - first_pix
+        hit = started[None, :] & (g[None, :] == slots)      # (G, N)
+        B += torch.where(hit[None], L.t()[:, None, :], 0.0)
+        L = torch.where(started[:, None], 0.0, L)
+    cur = torch.stack([k.sum(), segments,
+                       segments.new_full((), window)])
+    return B, [o, d, t, alive, depth, k], cur
 
 
 def _window_pipeline(dispatch, total_items, n_windows, bar,
@@ -772,35 +889,47 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                  cadence: int = 0, schedule: str = "auto", device=None,
                  mesh: str = "auto", b1_fused: bool = False,
                  traverse8: bool = True, direct_rec: bool = False,
+                 backend: str = "auto",
                  checkpoint_path=None, checkpoint_every: int = 4,
                  scene_name: str = "", verbose: bool = False):
     """Render the full image with ray regeneration on `device` (default
     CUDA; "cpu" runs the kernels' plain versions). Returns (linear image
     (H, W, 3) float32 numpy, stats).
 
-    A dense scene inside the fused kernels' subset runs, with `schedule`
-    "auto" or "queue_ik", the in-kernel queue (stats["schedule"] ==
-    "queue_ik"): `refill_len` 0 sizes the window to the workload
-    (`_auto_refill`), `cadence` 0 takes the scene's hint. On request it
-    runs "queue" (the refill in plain tensor code before each
-    `bounce_fused` call) or "positional" (static per-lane item blocks,
-    `bounce_fused_pos`); for both, `refill_len` 0 means 4 * (max_depth +
-    1). There is no `harvest` argument: "queue" always harvests through
-    the `reverse_harvest` kernel, which the JAX package's tests show
-    bit-identical to its scan-and-sort epilogue. A scene with a triangle
-    BVH runs the mesh path (stats["schedule"] == "queue"): at most
-    `MESH_MAX_LANES` lanes, cadence 1, `refill_len` 0 means 4 *
-    (max_depth + 1), and `mesh` ("auto", "binned", "binned2" or "walk";
-    "auto" is the walk, or binned with `b1_fused`), `b1_fused` (binned
-    only) and `traverse8` (walk only) pick the closest-hit route
+    `backend` picks the bounce, as the JAX package's does: "auto" and
+    "pallas" the fused kernels where they carry the scene
+    (`ops/bounce.supported`), else on a BVH mesh the external-hit kernel
+    where it carries the scene (`supported_ext`), else the reference
+    engine's bounce (`integrator/wavefront._bounce`); "xla" that bounce on
+    every scene. "pallas" on a scene no kernel carries raises.
+
+    On the fused kernels, `schedule` "auto" or "queue_ik" runs the
+    in-kernel queue (stats["schedule"] == "queue_ik"): `refill_len` 0
+    sizes the window to the workload (`_auto_refill`), `cadence` 0 takes
+    the scene's hint. On request it runs "queue" (the refill in plain
+    tensor code before each `bounce_fused` call) or "positional" (static
+    per-lane item blocks, `bounce_fused_pos`); for both, `refill_len` 0
+    means 4 * (max_depth + 1). There is no `harvest` argument: "queue"
+    always harvests through the `reverse_harvest` kernel, which the JAX
+    package's tests show bit-identical to its scan-and-sort epilogue.
+    Off the fused kernels (a mesh, triangle lights, backend "xla") the
+    window is unfused: per level the refill, camera rays and uniforms are
+    tensor code and the bounce is `MeshContext.bounce_level`; "auto" and
+    "queue" run `_mesh_window` (the external-hit kernel where it carries
+    the scene), "positional" runs `_pos_window_unfused` (the reference
+    engine's bounce, as in the JAX package); "queue_ik" raises. A scene
+    with a triangle BVH there runs at most `MESH_MAX_LANES` lanes at
+    cadence 1, and `mesh` ("auto", "binned", "binned2" or "walk"; "auto"
+    is the walk, or binned with `b1_fused`), `b1_fused` (binned only) and
+    `traverse8` (walk only) pick its closest-hit route
     (`ops/trace.mesh_closest`; stats["mesh"]["route"] names it); on a
-    dense scene they stay at their defaults. `direct_rec` runs `queue_ik`
-    through `bounce_fused_q_direct`. A route or option the scene cannot run raises
-    ValueError; nothing falls back to another. Checkpoint/resume: between
-    windows no path is in flight, so (accumulator, cursor, window count)
-    is a consistent checkpoint, and a matching one resumes where it
-    stopped; "positional" stores its (3, G, N) accumulator and the
-    per-lane start counts `k`."""
+    scene without a mesh they stay at their defaults. `direct_rec` runs
+    `queue_ik` through `bounce_fused_q_direct`. A route or option the
+    scene cannot run raises ValueError; nothing falls back to another.
+    Checkpoint/resume: between windows no path is in flight, so
+    (accumulator, cursor, window count) is a consistent checkpoint, and a
+    matching one resumes where it stopped; "positional" stores its (3, G,
+    N) accumulator and the per-lane start counts `k`."""
     from go_raytracer_tpu_torch.render import checkpoint as checkpoint_mod
     from go_raytracer_tpu_torch.utils import progress
 
@@ -808,37 +937,35 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         raise ValueError(
             "direct_rec: the direct-record path excludes scenes with image "
             "textures, as in the JAX package")
-    use_fused = bounce_mod.supported(scene)
-    use_ext = (not use_fused and scene.has_tri_bvh
+    if backend not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown backend {backend!r}")
+    # the JAX package's choice: the fused kernels where they carry the
+    # scene, else the external-hit kernel on a BVH mesh it carries, else
+    # (and always with backend "xla") the reference engine's bounce
+    use_fused = backend != "xla" and bounce_mod.supported(scene)
+    use_ext = (backend != "xla" and not use_fused and scene.has_tri_bvh
                and bounce_mod.supported_ext(scene))
-    if not use_ext and (mesh != "auto" or b1_fused or not traverse8):
+    if backend == "pallas" and not (use_fused or use_ext):
+        raise NotImplementedError(
+            "backend 'pallas': no kernel carries this scene ("
+            + ", ".join(bounce_mod.refused_features(scene)) + ")")
+    if not scene.has_tri_bvh and (mesh != "auto" or b1_fused
+                                  or not traverse8):
         raise ValueError("mesh, b1_fused and traverse8 pick the closest-hit "
                          "route of a mesh scene; this scene has no mesh")
-    if not (use_fused or use_ext):
-        missing = bounce_mod.refused_features(scene)
-        if scene.has_tri_bvh:
-            # the mesh path's kernel (`bounce`) takes triangles but not yet
-            # the dense kernels' media and dielectric
-            missing = [m for m in missing if m != "triangles"] or [
-                "media, dielectric or isotropic materials beside a mesh"]
-        raise NotImplementedError(
-            "scene outside the ported kernels' subsets: it has "
-            + ", ".join(missing) + "; these are queued in ROADMAP.md")
-    if not use_fused and schedule == "positional":
-        raise NotImplementedError(
-            "schedule 'positional' on a mesh scene runs the unfused "
-            "reference-engine window, which comes with the XLA-style engine "
-            "(ROADMAP.md)")
     if schedule not in (("auto", "queue_ik", "queue", "positional")
-                        if use_fused else ("auto", "queue")):
+                        if use_fused else ("auto", "queue", "positional")):
         raise NotImplementedError(
-            f"schedule {schedule!r}: dense scenes run 'queue_ik' (auto), "
-            "'queue' or 'positional', mesh scenes the unfused 'queue'; the "
-            "other combinations are queued in ROADMAP.md")
-    if use_ext:
-        schedule = "queue"
-    elif schedule == "auto":
-        schedule = "queue_ik"
+            f"schedule {schedule!r}: scenes on the fused kernels run "
+            "'queue_ik' (auto), 'queue' or 'positional'; the others (mesh "
+            "scenes, backend 'xla') the unfused 'queue' (auto) or "
+            "'positional', where the JAX package quietly runs 'queue' for "
+            "'queue_ik' (ROADMAP.md)")
+    if schedule == "auto":
+        schedule = "queue_ik" if use_fused else "queue"
+    # off the fused kernels the positional level is the reference
+    # engine's bounce on every scene, as in the JAX package
+    use_ext = use_ext and schedule != "positional"
     if direct_rec and schedule != "queue_ik":
         raise ValueError(f"direct_rec is an option of the queue_ik "
                          f"schedule, not of {schedule!r}")
@@ -855,23 +982,23 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     total_items = npix * n_strata
     d1 = cam.max_depth + 1
     n = n_lanes
-    if use_ext:
+    unfused = not use_fused
+    refill = refill_len or (
+        _auto_refill(total_items, n, d1, cadence, cam)
+        if schedule == "queue_ik" else 4 * d1)
+    if unfused and scene.has_tri_bvh:
+        # the JAX package's mesh-scene settings off the fused kernels
         n = min(n, MESH_MAX_LANES)
         cadence = 1
-        refill = refill_len or 4 * d1
-        window = refill + d1
-    else:
-        refill = refill_len or (
-            _auto_refill(total_items, n, d1, cadence, cam)
-            if schedule == "queue_ik" else 4 * d1)
-        window = -(-(refill + d1) // cadence) * cadence
+    window = -(-(refill + d1) // cadence) * cadence
     outer = window // cadence
     positional = schedule == "positional"
 
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    if use_ext:
+    if unfused:
         ctx = MeshContext.build(scene, cam, device, mesh=mesh,
-                                b1_fused=b1_fused, traverse8=traverse8)
+                                b1_fused=b1_fused, traverse8=traverse8,
+                                ext=use_ext)
         state = _init_state_mesh(n, device)
     else:
         tables = tuple(to_dev(t) for t in bounce_mod.pack_scene(scene))
@@ -879,7 +1006,10 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         cam_row = to_dev(bounce_mod.pack_camera(arrays))
         bg = to_dev(np.asarray(scene.background, np.float32))
         state = _init_state(n, device)
-    if schedule in ("queue", "positional") and use_fused:
+    if unfused:
+        bufs = None if positional else WindowBuffers.empty(n, window, 1,
+                                                           device)
+    elif schedule in ("queue", "positional"):
         bufs = SchedBuffers.empty(
             n, outer, cadence, device,
             None if positional else -(-refill // cadence))
@@ -913,7 +1043,15 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                 start_i = int(loaded[1])
                 n_windows = int(loaded[2].get("windows", 0))
                 k_resume = k
-    if positional:
+    if positional and unfused:
+        quota_dev = torch.from_numpy(quota).to(device)
+        lane_base_dev = torch.from_numpy(lane_base).to(device)
+        first_pix_dev = torch.from_numpy(first_pix).to(device)
+        state = state + [torch.zeros(n, dtype=torch.int64, device=device)
+                         if k_resume is None else
+                         torch.from_numpy(np.asarray(k_resume, np.int64))
+                         .to(device)]
+    elif positional:
         state = _init_state_pos(n, device, quota, lane_base, n_strata, w,
                                 k=k_resume)
         quota_dev = torch.from_numpy(quota).to(device)
@@ -928,9 +1066,21 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
             ctx, acc, state, next_host, window_generator(seed, wi, device),
             total_items, width=w, npix=npix, sqrt_spp=sqrt_spp,
             window=window, refill=refill, max_depth=cam.max_depth,
-            max_contribution=cam.max_contribution, bufs=bufs)
+            max_contribution=cam.max_contribution, bufs=bufs,
+            cadence=cadence)
         ctx.counters["levels"] = ctx.counters.get("levels", 0) + s_run
         return torch.tensor([next_host, segs, s_run], dtype=torch.int64)
+
+    def dispatch_pos_unfused(wi):
+        nonlocal state
+        _, state, cur = _pos_window_unfused(
+            ctx, acc, state, quota_dev, lane_base_dev, first_pix_dev,
+            window_generator(seed, wi, device), width=w, n_strata=n_strata,
+            sqrt_spp=sqrt_spp, G=G, window=window, refill=refill,
+            cadence=cadence, max_depth=cam.max_depth,
+            max_contribution=cam.max_contribution)
+        ctx.counters["levels"] = ctx.counters.get("levels", 0) + window
+        return cur
 
     next_host = start_i
 
@@ -976,18 +1126,23 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     def checkpoint_cb(ni, nw):
         meta["windows"] = nw
         if positional:
+            k = state[5].cpu().numpy().astype(np.int32) if unfused \
+                else _pos_state_k(state, quota)
             checkpoint_mod.save(checkpoint_path, acc.cpu().numpy(), ni, meta,
-                                extra={"k": _pos_state_k(state, quota)})
+                                extra={"k": k})
         else:
             checkpoint_mod.save(checkpoint_path, acc.cpu().numpy(), ni, meta)
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = _time.perf_counter()
+    if unfused:
+        dispatch_fn = dispatch_pos_unfused if positional else dispatch_mesh
+    else:
+        dispatch_fn = {"queue_ik": dispatch, "queue": dispatch_queue,
+                       "positional": dispatch_pos}[schedule]
     next_i, segments, n_windows, window_times = _window_pipeline(
-        dispatch_mesh if use_ext else
-        {"queue_ik": dispatch, "queue": dispatch_queue,
-         "positional": dispatch_pos}[schedule],
+        dispatch_fn,
         total_items, n_windows, bar,
         checkpoint_cb=checkpoint_cb if checkpoint_path else None,
         checkpoint_every=checkpoint_every, start_i=start_i)
@@ -1016,11 +1171,14 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                    if device.type == "cuda" else "cpu"),
         "nonfinite": int((~np.isfinite(linear)).sum()),
     }
-    if use_ext:
+    stats["backend"] = "pallas" if use_fused or use_ext else "xla"
+    if unfused:
         stats["lanes"] = n
         stats["levels"] = ctx.counters.pop("levels", 0)
-        stats["mesh"] = dict(ctx.counters, route=trace_mod.route_name(
-            **ctx.route))
+        stats["bounce"] = "ext" if use_ext else "wavefront"
+        if scene.has_tri_bvh:
+            stats["mesh"] = dict(ctx.counters, route=trace_mod.route_name(
+                **ctx.route))
     if schedule == "queue_ik":
         stats["direct_rec"] = direct_rec
     return linear, stats

@@ -1,0 +1,266 @@
+"""The reference engine: the reference's recursive `rayColor`
+(camera/camera.go:293-331) as a fixed-shape forward pass over bounce
+levels and a reverse combine (the JAX package's `integrator/wavefront.py`).
+
+Per bounce, each live ray gives an (emission, weight, clamp?) triple:
+
+  miss             -> E = background, terminate           (camera.go:300-302)
+  diffuse light    -> E = emitted (front face only),      (materials.go:146-155)
+                      terminate                           (camera.go:312-314)
+  metal/dielectric -> W = attenuation, no clamp           (camera.go:315-317)
+  lambertian/iso   -> W = atten * scatterPdf / mixPdf,    (camera.go:319-328)
+                      the clamp applies at this level     (camera.go:330)
+
+The recursion L(depth) = clamp(E + W * L(depth - 1)) is then evaluated
+backwards over the recorded levels, which reproduces the per-level firefly
+clamp (camera.go:334-341) exactly, where a forward throughput could not.
+The forward pass runs a fixed number of levels (mode "scan") or stops once
+every ray has terminated (mode "while", one host read a level).
+
+Depth: the recursion stops at depth < 0 (camera.go:294), so max_depth + 1
+surface interactions occur and the deepest child contributes black.
+
+Everything is out-of-place tensor code, with the score-function factors
+of the dielectric choice and the media transit (value 1), so autograd can
+run through it. `backend="pallas"` runs the bounce as the K3 kernel
+(`ops/bounce.bounce`, forward only) instead.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from go_raytracer_tpu_torch.core import onb, rng, vecmath as vm
+from go_raytracer_tpu_torch.integrator import sampling
+from go_raytracer_tpu_torch.ops import trace as trace_mod
+from go_raytracer_tpu_torch.scene import types as T
+
+INV_4PI = 1.0 / (4.0 * math.pi)
+# uniform slots per ray per bounce; medium m draws slot N_FIXED_U + m
+U_METAL_A, U_METAL_B, U_DIEL, U_MIX, U_PICK, U_LA, U_LB, U_MA, U_MB = range(9)
+N_FIXED_U = 9
+
+
+def clamp_contribution(color: torch.Tensor, max_value) -> torch.Tensor:
+    """Firefly clamp (camera.go:334-341): rescale so the component sum does
+    not exceed max_value. A NaN sum compares false and passes unscaled, as
+    in Go."""
+    intensity = torch.sum(color, dim=-1, keepdim=True)
+    over = intensity > max_value
+    # divide only on the taken branch, so the derivative stays finite
+    scale = torch.where(over, max_value / torch.where(over, intensity, 1.0),
+                        1.0)
+    return color * scale
+
+
+def _bounce(ds, o, d, time, alive, u, *, route=None, counters=None):
+    """One bounce of every ray: the closest hit (`ops/trace.trace`), the
+    emission, and the scattered direction with its weight. ds =
+    `ops/trace.to_device(scene, device)`; u (N, N_FIXED_U + media) holds
+    the level's uniforms; `route` (a dict of `mesh_closest`'s route
+    arguments) picks a BVH mesh's closest-hit route. Returns (E, W,
+    clamp flag, new_o, new_d, alive')."""
+    n_med = ds.media.kind.shape[0]
+    hit = trace_mod.trace(ds, o, d, time, u[:, N_FIXED_U:N_FIXED_U + n_med],
+                          alive=alive, counters=counters, **(route or {}))
+    mats = ds.materials
+    kind = mats.kind[hit.mat_id]
+    tex_val = sampling.texture_value(ds, mats.tex_id[hit.mat_id].to(torch.int64),
+                                     hit.u, hit.v, hit.p)
+    fuzz = mats.fuzz[hit.mat_id]
+    ref_idx = mats.ref_idx[hit.mat_id]
+
+    miss = alive & ~hit.hit
+    lit = alive & hit.hit
+    false1 = torch.zeros_like(lit)
+    is_light = lit & (kind == T.MAT_DIFFUSE_LIGHT)
+    is_metal = (lit & (kind == T.MAT_METAL)) if ds.has_metal else false1
+    is_diel = (lit & (kind == T.MAT_DIELECTRIC)) if ds.has_dielectric \
+        else false1
+    is_iso = (lit & (kind == T.MAT_ISOTROPIC)) if ds.has_isotropic else false1
+    diffuse = (lit & (kind == T.MAT_LAMBERTIAN)) | is_iso
+
+    # emission: the background on a miss, the texture on a light's front
+    # face (materials.go:150-155: back faces emit black)
+    zero3 = torch.zeros_like(tex_val)
+    E = torch.where(miss[:, None], ds.background[None, :].to(o.dtype), zero3)
+    E = torch.where((is_light & hit.front_face)[:, None], tex_val, E)
+
+    # diffuse: the 50/50 mixture of the light pdf and the material pdf
+    # (camera.go:319-328, pdf.go:58-74)
+    cos_dir = onb.transform(onb.build(hit.normal),
+                            rng.cosine_direction(u[:, U_MA], u[:, U_MB]))
+    if ds.has_isotropic:
+        iso_dir = rng.unit_vector(u[:, U_MA], u[:, U_MB])
+        mat_dir = torch.where(is_iso[:, None], iso_dir, cos_dir)
+    else:
+        mat_dir = cos_dir
+    if ds.lights.n > 0:
+        light_dir = sampling.lights_sample(ds, hit.p, u[:, U_PICK],
+                                           u[:, U_LA], u[:, U_LB])
+        gen_dir = torch.where((u[:, U_MIX] < 0.5)[:, None], light_dir, mat_dir)
+        l_pdf = sampling.lights_pdf_value(ds, hit.p, gen_dir)
+    else:
+        # No lights list: the reference would panic (rand.Intn(0),
+        # hittable.go:101); a user scene degrades to pure material
+        # sampling, so no 0/0 weight poisons half the diffuse samples.
+        gen_dir = mat_dir
+        l_pdf = None
+    cos_theta = vm.dot(vm.normalize(gen_dir), hit.normal)
+    cosine_pdf = torch.clamp(cos_theta, min=0.0) / math.pi  # pdf.go:33-36
+    mat_pdf = torch.where(is_iso, INV_4PI, cosine_pdf) if ds.has_isotropic \
+        else cosine_pdf
+    pdf_value = mat_pdf if l_pdf is None else 0.5 * l_pdf + 0.5 * mat_pdf
+    scatter_pdf = mat_pdf                          # materials.go:51-57,161-163
+    # pdf_value == 0 (or NaN, from inside a sphere light): the reference
+    # divides by it (camera.go:328), and the inf or NaN that follows is
+    # always zeroed downstream (the clamp turns an inf sum into NaN
+    # components, and PrintColor's NaN guard, color.go:28-36, zeroes the
+    # vertex's whole triple), so the path's subtree contributes 0. That
+    # limit is taken explicitly here (E and W of the vertex set to 0
+    # below) instead of dividing: the film value is the same, and a real
+    # x / 0 would poison gradients through inf * 0 products (GRAD.md).
+    ok_div = diffuse & (pdf_value > 0)
+    bad_pdf = diffuse & ~ok_div
+    ratio = torch.where(ok_div, scatter_pdf, 0.0) \
+        / torch.where(ok_div, pdf_value, 1.0)
+    W = torch.where(diffuse[:, None], tex_val * ratio[:, None], zero3)
+    new_d = gen_dir
+
+    if ds.has_metal:
+        # metal (materials.go:70-79): the raw direction reflected,
+        # normalised, plus fuzz times a unit vector
+        fuzz_vec = rng.unit_vector(u[:, U_METAL_A], u[:, U_METAL_B])
+        d_metal = vm.normalize(vm.reflect(d, hit.normal)) \
+            + fuzz[:, None] * fuzz_vec
+        W = torch.where(is_metal[:, None], tex_val, W)
+        new_d = torch.where(is_metal[:, None], d_metal, new_d)
+
+    if ds.has_dielectric:
+        # dielectric (materials.go:94-130)
+        ud = vm.normalize(d)
+        ri = torch.where(hit.front_face, 1.0 / ref_idx, ref_idx)
+        cos_t = torch.clamp(vm.dot(-ud, hit.normal), max=1.0)
+        # Schlick takes the material's index whichever way the ray
+        # travels (materials.go:126-130), a reference quirk kept here
+        r0 = ((1.0 - ref_idx) / (1.0 + ref_idx)) ** 2
+        schlick = r0 + (1.0 - r0) * (1.0 - cos_t) ** 5
+        # total internal reflection on squares: ri sin > 1 <=> ri^2 (1 -
+        # cos^2) > 1, which avoids sqrt(0)'s infinite derivative
+        must_reflect = ri * ri * (1.0 - cos_t * cos_t) > 1.0
+        do_reflect = must_reflect | (schlick > u[:, U_DIEL])
+        d_diel = torch.where(do_reflect[:, None], vm.reflect(ud, hit.normal),
+                             vm.refract(ud, hit.normal, ri[:, None]))
+        # score-function factor of the reflect/refract choice: value 1,
+        # derivative d(log p_branch)/d(ref_idx) times the path's value;
+        # the refraction's pathwise term covers the rest
+        p_sel = torch.where(must_reflect, 1.0,
+                            torch.where(do_reflect, schlick, 1.0 - schlick))
+        sur_d = p_sel / torch.clamp(p_sel, min=1e-12).detach()
+        W = torch.where(is_diel[:, None], sur_d[:, None].expand_as(tex_val), W)
+        new_d = torch.where(is_diel[:, None], d_diel, new_d)
+
+    if ds.has_media:
+        # score-function factor of the media transit (value 1, derivative
+        # d(med_logp)/d(density)), on this vertex's emission and on
+        # everything after it
+        sur_m = torch.exp(hit.med_logp - hit.med_logp.detach())[:, None]
+        E = E * sur_m
+        W = W * sur_m
+
+    # the bad-mixture-pdf vertex contributes nothing, and its lane ends
+    E = torch.where(bad_pdf[:, None], 0.0, E)
+    W = torch.where(bad_pdf[:, None], 0.0, W)
+    new_o = torch.where(lit[:, None], hit.p, o)
+    alive_next = (is_metal | is_diel | diffuse) & ~bad_pdf
+    return E, W, diffuse, new_o, new_d, alive_next
+
+
+def use_kernel(ds, n: int, backend: str) -> bool:
+    """Whether `radiance` runs the bounce as the K3 kernel: "pallas"
+    always, "auto" when the kernel carries the scene and n is a multiple
+    of 128 (the JAX package's rule), "xla" never."""
+    from go_raytracer_tpu_torch.ops import bounce as bounce_mod
+
+    if backend not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend == "pallas" or (
+        backend == "auto" and bounce_mod.supported(ds.host) and n % 128 == 0)
+
+
+def kernel_tables(ds):
+    """The K3 kernel's packed tables (on ds's device) and dense statics,
+    packed once per device scene."""
+    from go_raytracer_tpu_torch.ops import bounce as bounce_mod
+
+    if getattr(ds, "k3", None) is None:
+        scene = ds.host
+        if not bounce_mod.supported(scene):
+            raise NotImplementedError(
+                "backend 'pallas': the bounce kernel does not carry this "
+                "scene (" + ", ".join(bounce_mod.refused_features(scene))
+                + ")")
+        ds.k3 = (tuple(torch.from_numpy(t).to(ds.device)
+                       for t in bounce_mod.pack_scene(scene)),
+                 bounce_mod.scene_statics(scene))
+    return ds.k3
+
+
+def radiance(ds, o, d, time, gen, max_depth: int, max_contribution: float,
+             mode: str = "scan", backend: str = "xla", uniforms=None,
+             route=None, counters=None):
+    """Radiance (N, 3) of camera rays (o, d, time). Returns (L, stats):
+    stats["segments"] the number of traced ray segments and
+    stats["levels"] the bounce levels run (ints).
+
+    ds = `ops/trace.to_device(scene, device)`; gen: the torch.Generator on
+    the rays' device that draws each level's (N, N_FIXED_U + media)
+    uniforms, or `uniforms` (max_depth + 1, N, ...) given in its place.
+    mode "scan" runs max_depth + 1 levels; "while" stops once no ray is
+    alive (one host read a level). backend: "xla" the tensor-code bounce
+    (`_bounce`), "pallas" the K3 kernel (`ops/bounce.bounce`; on CPU
+    tensors its plain version), "auto" the kernel where `use_kernel`
+    allows it. `route` and `counters` go to a BVH mesh's closest hit."""
+    from go_raytracer_tpu_torch.ops import bounce as bounce_mod
+
+    if mode not in ("scan", "while"):
+        raise ValueError(f"unknown mode {mode!r}")
+    n = o.shape[0]
+    dev = o.device
+    kernel = use_kernel(ds, n, backend)
+    if kernel:
+        tables, statics = kernel_tables(ds)
+        o, d, time = o.contiguous(), d.contiguous(), time.contiguous()
+    n_u = N_FIXED_U + ds.media.kind.shape[0]
+    steps = max_depth + 1
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    Es, Ws, CFs = [], [], []
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    levels = 0
+    for s in range(steps):
+        if mode == "while" and s > 0 and not bool(alive.any()):
+            break
+        u = uniforms[s] if uniforms is not None else torch.rand(
+            (n, n_u), generator=gen, dtype=o.dtype, device=dev)
+        if kernel:
+            E, W, cf, o_n, d_n, alive_n, _ = bounce_mod.bounce(
+                tables, statics, o, d, time, alive, u, ds.background)
+        else:
+            E, W, cf, o_n, d_n, alive_n = _bounce(
+                ds, o, d, time, alive, u, route=route, counters=counters)
+        dead = ~alive
+        Es.append(torch.where(dead[:, None], 0.0, E))
+        Ws.append(torch.where(dead[:, None], 0.0, W))
+        CFs.append(cf & alive)
+        segments = segments + alive.sum()
+        levels += 1
+        o, d, alive = o_n, d_n, alive_n
+    # reverse combine: L = clamp?(E + W * L_child), the deepest child black
+    L = torch.zeros((n, 3), dtype=o.dtype, device=dev)
+    for E, W, cf in zip(reversed(Es), reversed(Ws), reversed(CFs)):
+        raw = E + W * L
+        L = torch.where(cf[:, None], clamp_contribution(raw, max_contribution),
+                        raw)
+    return L, {"segments": int(segments), "levels": levels}

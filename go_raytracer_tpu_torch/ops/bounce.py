@@ -28,9 +28,11 @@ Counterpart of the JAX package's `ops/pallas/bounce.py`. Three parts:
   lane carries its own next-item pointer as exact small-integer float32
   planes and restarts at any level. `csrc/bounce_fused_pos.cu` on the
   card, `bounce_fused_pos_ref` on the CPU.
-* `bounce`: one bounce level of the mesh path from given uniforms, with
-  the closest mesh hit folded in as per-lane planes (`mesh_ext_planes`).
-  CUDA tensors launch `csrc/bounce.cu`, CPU tensors run `bounce_ref`.
+* `bounce`: one bounce level from given uniforms, in the dense mode of
+  the reference engine (`integrator/wavefront.radiance`) or with the
+  closest mesh hit folded in as per-lane planes (`mesh_ext_planes`), the
+  mesh path's. CUDA tensors launch `csrc/bounce.cu`, CPU tensors run
+  `bounce_ref`.
 
 The four fused kernels cover the scenes `supported()` accepts: spheres
 (moving ones too), quads and (rotated) fused boxes; lambertian, metal,
@@ -38,11 +40,11 @@ dielectric, diffuse-light and isotropic materials; constant-density
 media; solid, checker, noise (perlin, marble, turbulent) and image
 textures (K9, `bounce_fused_q_direct`, refuses images, as the JAX
 package's direct-record path does); quad and sphere lights; camera rays
-with or without defocus. `bounce` covers spheres, quads, boxes,
-lambertian, metal and diffuse-light materials, solid textures, quad and
-sphere lights and the external mesh hit (`supported_ext`). Everything
-else (an image-textured mesh, triangle lights) raises; nothing falls
-back. All share one bounce core (`_bounce_core_ref`
+with or without defocus. `bounce` covers the same features in its dense
+mode, and with the external mesh hit (`supported_ext`) a mesh beside
+them, image-textured ones included. Everything else (triangle lights,
+tables over the caps) raises; nothing falls back. All share one bounce
+core (`_bounce_core_ref`
 here, `csrc/bounce_core.cuh` on the card, compiled once per feature set),
 and the fused ones one PRNG and one camera ray generation
 (`_camera_rays_ref`, `csrc/fused_common.cuh`).
@@ -155,17 +157,17 @@ def supported(scene: T.Scene) -> bool:
 
 
 def fused_features(st: dict) -> int:
-    """The compile-time feature set of the fused kernels' bounce core for
-    these statics (csrc/fused_common.cuh): bit 0 the sphere section, bit 1
+    """The compile-time feature set of the bounce core for these statics,
+    the fused kernels' and `bounce`'s (csrc/fused_common.cuh): bit 0 the sphere section, bit 1
     the fr column (metal fuzz or dielectric index) with the dielectric
     branch, bit 2 isotropic scattering with the media loop, bit 3 the
     texture value (the checker select and the noise), on when the layout
     has a scale column or the scene has images; bit 5 (FEAT_IMG) the image
     texel read inside the kernel, only ever with bit 3. A scene without
     spheres, fr column, media and textures runs the core compiled without
-    them. The kernels add bit 4, the sphere cull of the staged scan,
-    themselves, for a table with more than one block of 8 staged spheres
-    (csrc/fused_common.cuh)."""
+    them. The kernels (`bounce` too) add bit 4, the sphere cull of the
+    staged scan, themselves, for a table with more than one block of 8
+    staged spheres (csrc/fused_common.cuh)."""
     lay = _mat_layout(st)
     return ((1 if st["n_sph"] else 0)
             | (2 if "fr" in lay else 0)
@@ -175,22 +177,20 @@ def fused_features(st: dict) -> int:
 
 
 def supported_ext_statics(st: dict) -> bool:
-    """What `bounce` carries, read from `scene_statics`: spheres, quads and
-    fused boxes; lambertian, metal and diffuse-light materials; solid
-    textures; quad and sphere lights; optionally an external mesh hit.
-    Media, dielectric, isotropic, noise, image and checker textures are
-    later slices (ROADMAP.md)."""
-    if (st["n_media"] or st["has_dielectric"] or st["has_isotropic"]
-            or st["has_noise"] or st["has_image"] or st["has_checker"]):
-        return False
-    return (0 < st["n_sph"] + st["n_quad"] + st["n_box"] <= MAX_PRIMS
+    """What `bounce` with an external mesh hit carries, read from
+    `scene_statics`: every feature of the fused kernels (every material,
+    texture and medium), within MAX_PRIMS rows, MAX_LIGHTS lights and
+    MAX_MEDIA media (the JAX package's `supported_ext`)."""
+    return (st["n_media"] <= MAX_MEDIA
+            and 0 < st["n_sph"] + st["n_quad"] + st["n_box"] <= MAX_PRIMS
             and 0 < st["n_lights_live"] <= MAX_LIGHTS)
 
 
 def supported_ext(scene: T.Scene) -> bool:
-    """True when `bounce` with external mesh-hit planes carries the scene:
-    triangles are allowed (their closest hit arrives as planes), triangle
-    lights are not (the light sampler covers quad and sphere rows)."""
+    """True when `bounce` with external mesh-hit planes carries the scene
+    (the JAX package's `supported_ext`): triangles are allowed (their
+    closest hit arrives as planes), triangle lights are not (the light
+    sampler covers quad and sphere rows), nor tables over the caps."""
     if scene.has_tri_lights:
         return False
     return supported_ext_statics(scene_statics(scene, ext=True))
@@ -749,13 +749,18 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
            for c, name in enumerate(lay)}
     if st["ext_hit"]:
         # the mesh hit wins only when strictly nearer; planes: t, the
-        # un-flipped outward normal, then the material columns (`lay`)
+        # un-flipped outward normal, with images the texture (u, v), then
+        # the material columns (`lay`)
         okx = ext[0] < t_best
         t_best = torch.where(okx, ext[0], t_best)
         n_hx = torch.where(okx, ext[1], n_hx)
         n_hy = torch.where(okx, ext[2], n_hy)
         n_hz = torch.where(okx, ext[3], n_hz)
-        mat = {name: torch.where(okx, ext[4 + c], mat[name])
+        k0 = 6 if st["has_image"] else 4
+        if st["has_image"]:
+            quad_uv = [torch.where(okx, ext[4 + k], quad_uv[k])
+                       for k in range(2)]
+        mat = {name: torch.where(okx, ext[k0 + c], mat[name])
                for c, name in enumerate(lay)}
         row = torch.where(okx, -1, row)
     win_med = torch.zeros_like(ox, dtype=torch.bool)
@@ -1743,20 +1748,18 @@ def mesh_ext_planes(ms, statics, tri_mat, o, d, t_cap, alive, *,
     mesh closest hit (`ops/trace.mesh_closest`, pruned by `t_cap`, the
     caller's dense-class pass, on the route that `mesh`, `b1_fused` and
     `traverse8` pick), recompute the winning triangle's
-    barycentrics, and gather its normal and material. Returns a tuple of
-    contiguous (N,) float32 planes: t (inf where no triangle beats the cap), the
-    outward normal (interpolated vertex normals where present, else the
-    face normal; un-flipped, the bounce recomputes `front`), then the
-    material columns of `_mat_layout(statics)`.
+    barycentrics, and gather its normal, uv and material. Returns a tuple
+    of contiguous (N,) float32 planes: t (inf where no triangle beats the
+    cap), the outward normal (interpolated vertex normals where present,
+    else the face normal; un-flipped, the bounce recomputes `front`), with
+    statics["has_image"] the texture u and v (the interpolated vertex uv
+    where present, else the barycentrics), then the material columns of
+    `_mat_layout(statics)`: the JAX package's plane order.
 
     ms: `ops/trace.to_device(scene, device)`; tri_mat: `tri_mat_table` as
     a tensor on the same device."""
     from go_raytracer_tpu_torch.ops import trace as trace_mod
 
-    if statics["has_image"]:
-        raise NotImplementedError(
-            "an image-textured mesh needs the texel patch of the JAX "
-            "package's patch_image_weight, a later slice (ROADMAP.md)")
     if not ms.has_tri_bvh:
         raise ValueError("mesh_ext_planes requires a built triangle BVH")
     t_t, i_t = trace_mod.mesh_closest(ms, o, d, t_cap=t_cap, alive=alive,
@@ -1777,30 +1780,58 @@ def mesh_ext_planes(ms, statics, tri_mat, o, d, t_cap, alive, *,
     ln = torch.sqrt(torch.sum(n_interp * n_interp, dim=-1))
     n_interp = n_interp / torch.clamp(ln, min=1e-30)[:, None]
     n_raw = torch.where(tr.has_vn[idx][:, None], n_interp, tr.n_face[idx])
+    uv = ()
+    if statics["has_image"]:
+        # the texture uv: interpolated vertex uv where the mesh has it,
+        # else the barycentrics (objects.go:437-446)
+        uvt = tr.uv[idx]
+        uv_i = (w[:, None] * uvt[:, 0] + bu[:, None] * uvt[:, 1]
+                + bv[:, None] * uvt[:, 2])
+        has_uv = tr.has_uv[idx]
+        uv = (torch.where(has_uv, uv_i[:, 0], bu).contiguous(),
+              torch.where(has_uv, uv_i[:, 1], bv).contiguous())
     return (torch.where(hit, t_safe, trace_mod.INF),
-            *n_raw.t().contiguous(), *tri_mat[:, idx])
+            *n_raw.t().contiguous(), *uv, *tri_mat[:, idx])
+
+
+def n_ext_planes(statics) -> int:
+    """The number of ext planes `mesh_ext_planes` gives for these statics:
+    t, the normal, with images u and v, and the material columns."""
+    return 4 + (2 if statics["has_image"] else 0) + len(_mat_layout(statics))
 
 
 def _check_bounce_statics(statics, ext):
-    if not supported_ext_statics(statics):
+    """Ext mode accepts what `supported_ext_statics` accepts, dense mode
+    what `supported_statics` accepts (the JAX package's `supported_ext`
+    and `supported`)."""
+    ok = supported_ext_statics(statics) if statics["ext_hit"] \
+        else supported_statics(statics)
+    if not ok:
         raise NotImplementedError(
-            "scene outside this kernel's subset (see supported_ext())")
-    n_ext = 4 + len(_mat_layout(statics))
+            "scene outside this kernel's subset (see supported() and "
+            "supported_ext())")
+    n_ext = n_ext_planes(statics)
     if statics["ext_hit"] and (ext is None or len(ext) != n_ext):
         raise ValueError(f"statics['ext_hit'] needs {n_ext} ext planes")
     if not statics["ext_hit"] and ext is not None:
         raise ValueError("ext planes given but statics['ext_hit'] is false")
 
 
-def bounce_ref(tables, statics, o, d, time, alive, u, bg, ext=None, out=None):
-    """Plain PyTorch version of `bounce` (same arguments, same results)."""
+def bounce_ref(tables, statics, o, d, time, alive, u, bg, ext=None, out=None,
+               probe=None):
+    """Plain PyTorch version of `bounce` (same arguments, same results).
+    `probe` (a list) receives the (N,) int64 flat texel index of the
+    image lanes, -1 elsewhere (`_bounce_core_ref`'s)."""
     _check_bounce_statics(statics, ext)
     prims, lights = tables[0], tables[1]
-    us = [u[:, k] for k in range(N_U)]
+    us = [u[:, k] for k in range(N_U + statics["n_media"])]
     (vr, vg, vb, emit, cf, nox, noy, noz, ndx, ndy, ndz, alive_out) = \
         _bounce_core_ref(statics, prims, lights, bg.tolist(),
                          o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                         d[:, 2], alive, us, tm=time, ext=ext)
+                         d[:, 2], alive, us, tm=time, ext=ext,
+                         med=tables[2] if statics["n_media"] else None,
+                         images=tuple(tables[4:6]) if statics["has_image"]
+                         else None, probe=probe)
     V = torch.stack([vr, vg, vb], dim=-1)
     zero = torch.zeros_like(V)
     res = (torch.where(emit[:, None], V, zero),
@@ -1817,16 +1848,29 @@ def bounce_ref(tables, statics, o, d, time, alive, u, bg, ext=None, out=None):
 class _BounceArgs(ctypes.Structure):
     """Mirror of `BounceArgs` in csrc/bounce.cu (field for field)."""
 
-    MAX_EXT = 16
+    MAX_EXT = 20
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "prims", "lights", "bg", "o", "d", "tm", "alive", "u")] + [
+        "prims", "lights", "med", "bg", "o", "d", "tm", "alive", "u")] + [
             ("ext", ctypes.c_void_p * MAX_EXT)] + [
             (name, ctypes.c_void_p) for name in (
-                "E", "W", "cf", "new_o", "new_d", "alive_out")] + [
+                "E", "W", "cf", "new_o", "new_d", "alive_out")
+            + _FUSED_TABLE_PTRS] + [
             (name, ctypes.c_int) for name in (
-                "p_cols", "sph_base", "n_sph", "quad_base", "n_quad",
-                "box_base", "n_box", "n_lights", "n_lights_live", "fr_col",
-                "n", "n_u", "n_ext", "ext_fr")]
+                _FUSED_TABLE_INTS + ("n", "n_u", "n_ext", "ext_uv", "ext_mat",
+                                     "ext_fr", "ext_texk", "ext_scale",
+                                     "ext_seed"))]
+
+
+def _ext_columns(statics) -> dict:
+    """Plane indices of the ext planes `bounce.cu` reads: the uv (-1
+    without images), the first material column, and fr, texk, scale and
+    the seed (-1 where the layout lacks the column)."""
+    lay = _mat_layout(statics)
+    base = 6 if statics["has_image"] else 4
+    at = lambda name: base + lay.index(name) if name in lay else -1
+    return dict(ext_uv=4 if statics["has_image"] else -1, ext_mat=base,
+                ext_fr=at("fr"), ext_texk=at("texk"), ext_scale=at("scale"),
+                ext_seed=at("seed_img"))
 
 
 def bounce_out(n: int, device):
@@ -1843,12 +1887,16 @@ def bounce(tables, statics, o, d, time, alive, u, bg, ext=None, out=None):
 
     tables = `pack_scene(scene)` as tensors; statics =
     `scene_statics(scene, ext=...)`; o, d: (N, 3) float32; time: (N,)
-    float32; alive: (N,) bool; u: (N, N_U) uniforms in the slot order
-    metal a/b, dielectric, mix, light pick, light a/b, material a/b; bg:
-    (3,). With statics["ext_hit"], `ext` = the planes of
-    `mesh_ext_planes`. Returns E (N, 3), W (N, 3), cf (N,) bool, new_o,
-    new_d (N, 3), alive' (N,) bool, None (the image-texture planes of the
-    JAX package, which this package does not produce yet). `out` =
+    float32; alive: (N,) bool; u: (N, N_U + n_media) uniforms in the slot
+    order metal a/b, dielectric, mix, light pick, light a/b, material a/b,
+    then one per medium; bg: (3,). Dense mode (statics["ext_hit"] false)
+    is the reference engine's bounce and carries what `supported`
+    carries; with statics["ext_hit"], `ext` = the planes of
+    `mesh_ext_planes` (what `supported_ext` carries). Returns E (N, 3), W
+    (N, 3), cf (N,) bool, new_o, new_d (N, 3), alive' (N,) bool, None: an
+    image-textured diffuse lane's texel is read inside the kernel, so W is
+    already the JAX package's weight after `patch_image_weight` and there
+    are no image planes to return. `out` =
     `bounce_out(N, device)` is written in place and returned, so a loop
     over levels allocates nothing; none of its tensors may be an input.
 
@@ -1863,45 +1911,34 @@ def bounce(tables, statics, o, d, time, alive, u, bg, ext=None, out=None):
 
     st = statics
     n = o.shape[0]
-    prims, lights = tables[0], tables[1]
     f32 = torch.float32
-    checks = [("prims", prims, f32, None), ("lights", lights, f32, None),
-              ("bg", bg, f32, (3,)), ("o", o, f32, (n, 3)),
-              ("d", d, f32, (n, 3)), ("time", time, f32, (n,)),
-              ("alive", alive, torch.bool, (n,)),
-              ("u", u, f32, (n, u.shape[1]))]
+    n_u = N_U + st["n_media"]
+    checks = _fused_table_checks(tables, st) + [
+        ("bg", bg, f32, (3,)), ("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)),
+        ("time", time, f32, (n,)), ("alive", alive, torch.bool, (n,)),
+        ("u", u, f32, (n, u.shape[1]))]
     ext = tuple(ext) if ext is not None else ()
-    if len(ext) > _BounceArgs.MAX_EXT:
-        raise ValueError(f"at most {_BounceArgs.MAX_EXT} ext planes")
     checks += [(f"ext[{k}]", e, f32, (n,)) for k, e in enumerate(ext)]
     _check_cuda_args(checks)
-    if u.shape[1] < N_U:
-        raise ValueError(f"u needs at least {N_U} columns")
-    if n == 0:
-        return (*out, None)
+    if u.shape[1] < n_u:
+        raise ValueError(f"u needs at least {n_u} columns (N_U + media)")
     if out is None:
         out = bounce_out(n, o.device)
+    if n == 0:
+        return (*out, None)
     E, W, cf, new_o, new_d, alive_out = out
-    checks += [(name, t, f32, (n, 3)) for name, t in (
+    _check_cuda_args([(name, t, f32, (n, 3)) for name, t in (
         ("out E", E), ("out W", W), ("out new_o", new_o),
-        ("out new_d", new_d))]
-    checks += [("out cf", cf, torch.bool, (n,)),
-               ("out alive", alive_out, torch.bool, (n,))]
-    lay = _mat_layout(st)
-    fr = lay.index("fr") if "fr" in lay else -1
+        ("out new_d", new_d))] + [("out cf", cf, torch.bool, (n,)),
+                                  ("out alive", alive_out, torch.bool, (n,))])
     p = lambda t: t.data_ptr()
     a = _BounceArgs(
-        prims=p(prims), lights=p(lights), bg=p(bg), o=p(o), d=p(d),
-        tm=p(time), alive=p(alive), u=p(u),
+        prims=p(tables[0]), lights=p(tables[1]), med=p(tables[2]), bg=p(bg),
+        o=p(o), d=p(d), tm=p(time), alive=p(alive), u=p(u),
         ext=(ctypes.c_void_p * _BounceArgs.MAX_EXT)(*(p(e) for e in ext)),
         E=p(E), W=p(W), cf=p(cf), new_o=p(new_o), new_d=p(new_d),
-        alive_out=p(alive_out), p_cols=prims.shape[1],
-        sph_base=st["sph_base"], n_sph=st["n_sph"],
-        quad_base=st["quad_base"], n_quad=st["n_quad"],
-        box_base=st["box_base"], n_box=st["n_box"],
-        n_lights=st["n_lights"], n_lights_live=st["n_lights_live"],
-        fr_col=MAT_BASE + fr if fr >= 0 else -1, n=n, n_u=u.shape[1],
-        n_ext=len(ext), ext_fr=4 + fr if fr >= 0 else -1)
+        alive_out=p(alive_out), **_fused_table_ints(st, tables, False),
+        n=n, n_u=u.shape[1], n_ext=len(ext), **_ext_columns(st))
     err = _cuda.library("bounce").grt_bounce(
         ctypes.addressof(a), torch.cuda.current_stream(o.device).cuda_stream)
     if err:

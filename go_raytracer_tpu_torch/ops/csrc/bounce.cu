@@ -1,29 +1,37 @@
-// bounce: one bounce level of the mesh path, for Hopper (sm_90a). Replaces
-// the Pallas TPU kernel `bounce` (go_raytracer_tpu/ops/pallas/bounce.py,
-// `_bounce_kernel`) in its external-hit mode.
+// bounce: one bounce level from given uniforms, for Hopper (sm_90a).
+// Replaces the Pallas TPU kernel `bounce` (go_raytracer_tpu/ops/pallas/
+// bounce.py, `_bounce_kernel`) in both of its modes: the dense mode, the
+// bounce of the reference engine (integrator/wavefront.radiance with the
+// kernel backend), and the external-hit mode of the mesh path.
 //
 // One thread per lane. The kernel has no PRNG, no refill and no ray
-// generation: the caller hands it the rays, the nine uniforms per lane, and
-// (optionally) the closest mesh hit per lane as `n_ext` planes (t, the
-// un-flipped outward normal, then the winning triangle's material columns
-// in the primitive table's order). The mesh hit replaces the dense winner
-// only when strictly nearer; everything after that is `bounce_core`
-// (bounce_core.cuh), shared with bounce_fused_q.cu, whose staged scan reads
-// the geometry from the block's shared memory.
+// generation: the caller hands it the rays, the n_u = N_U + n_media
+// uniforms per lane (medium m draws column N_U + m), and in the external-hit
+// mode the closest mesh hit per lane as `n_ext` planes (t, the un-flipped
+// outward normal, with images the texture u and v, then the winning
+// triangle's material columns in the primitive table's order). The mesh hit
+// replaces the dense winner only when strictly nearer; everything after
+// that is `bounce_core` (bounce_core.cuh), shared with the fused kernels
+// and compiled, as theirs, once per feature set (fused_common.cuh's
+// FEATURE_SWITCH over the bits of ops/bounce.fused_features, the sphere
+// cull added here for more than one block of staged spheres): media,
+// dielectric, the textures and the image texel are read as the fused
+// kernels read them.
 //
-// What bounds it: bytes. Per lane it reads 29 B of ray state, 36 B of
-// uniforms and 4*n_ext B of mesh hit, and writes 50 B, against a few hundred
-// float operations; at 65,536 lanes both bounds are about a microsecond, so
-// what it pays on this card is its launch.
+// What bounds it: bytes. Per lane it reads 29 B of ray state, 4 n_u B of
+// uniforms and 4 n_ext B of mesh hit, and writes 50 B, against a few hundred
+// float operations (more with noise textures); at 65,536-131,072 lanes both
+// bounds are a few microseconds, so what it pays on this card is its launch
+// and, on a large table, its scan.
 
-#include "bounce_core.cuh"
+#include "fused_common.cuh"
 
-#define BLOCK 256
-#define MAX_EXT 16
+#define MAX_EXT 20
 
 struct BounceArgs {
   const float* prims;
   const float* lights;
+  const float* med;     // (n_media, M_COLS)
   const float* bg;
   const float* o;       // (n, 3)
   const float* d;       // (n, 3)
@@ -35,38 +43,25 @@ struct BounceArgs {
   unsigned char* cf;    // (n,) bool
   float *new_o, *new_d; // (n, 3)
   unsigned char* alive_out;  // (n,) bool
-  int p_cols, sph_base, n_sph, quad_base, n_quad, box_base, n_box;
-  int n_lights, n_lights_live, fr_col;
-  int n, n_u, n_ext, ext_fr;  // ext_fr: plane of the fuzz column, -1 if none
+  FUSED_TABLE_FIELDS
+  int n, n_u, n_ext;
+  // ext planes of the uv (-1: no image), the material columns (kind, then
+  // the even and odd colours), and fr, texk, scale, seed (-1 where the
+  // layout lacks the column)
+  int ext_uv, ext_mat, ext_fr, ext_texk, ext_scale, ext_seed;
 };
 
-// the core's tables of this kernel: spheres, no dielectric, media or
-// textures (the subset of ops/bounce.supported_ext)
-__device__ __forceinline__ BounceTables bounce_tables(const BounceArgs& a) {
-  BounceTables T;
-  T.prims = a.prims;
-  T.lights = a.lights;
-  T.bg = a.bg;
-  T.p_cols = a.p_cols;
-  T.sph_base = a.sph_base;
-  T.n_sph = a.n_sph;
-  T.quad_base = a.quad_base;
-  T.n_quad = a.n_quad;
-  T.box_base = a.box_base;
-  T.n_box = a.n_box;
-  T.n_lights = a.n_lights;
-  T.n_lights_live = a.n_lights_live;
-  T.fr_col = a.fr_col;
-  T.med = nullptr;
-  T.n_media = 0;
-  T.texk_col = T.scale_col = T.seed_col = -1;
-  return T;
-}
+// the medium uniforms of a lane: columns N_U.. of its row of u
+struct RowMediaU {
+  const float* row;
+  __device__ __forceinline__ float operator()(int m) const { return row[N_U + m]; }
+};
 
+template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL, bool IMG>
 __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
   // the geometry into shared memory, before the ragged edge's return
-  const BounceTables T = bounce_tables(a);
-  stage_geometry(T, false);
+  const BounceTables T = fused_tables<SPH, DIEL, MED, TEX, IMG>(a);
+  stage_geometry(T, CULL);
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   if (lane >= a.n) return;
   const float ox = a.o[3 * lane], oy = a.o[3 * lane + 1], oz = a.o[3 * lane + 2];
@@ -75,23 +70,35 @@ __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
   float nox = ox, noy = oy, noz = oz, ndx = dx, ndy = dy, ndz = dz;
   unsigned char cf = 0, alive_out = 0;
   if (a.alive[lane] != 0) {
+    const float* urow = a.u + (size_t)lane * a.n_u;
     float u[N_U];
 #pragma unroll
-    for (int k = 0; k < N_U; ++k) u[k] = a.u[(size_t)lane * a.n_u + k];
+    for (int k = 0; k < N_U; ++k) u[k] = urow[k];
     ExtHit ext;
     if (a.n_ext > 0) {
-      ext.t = a.ext[0][lane];
-      ext.nx = a.ext[1][lane];
-      ext.ny = a.ext[2][lane];
-      ext.nz = a.ext[3][lane];
-      ext.kind = a.ext[4][lane];
-      ext.tex_r = a.ext[5][lane];
-      ext.tex_g = a.ext[6][lane];
-      ext.tex_b = a.ext[7][lane];
-      ext.fr = a.ext_fr >= 0 ? a.ext[a.ext_fr][lane] : 0.0f;
+      const auto plane = [&](int k) { return k >= 0 ? a.ext[k][lane] : 0.0f; };
+      ext.t = plane(0);
+      ext.nx = plane(1);
+      ext.ny = plane(2);
+      ext.nz = plane(3);
+      ext.u = IMG ? plane(a.ext_uv) : 0.0f;
+      ext.v = IMG ? plane(a.ext_uv + 1) : 0.0f;
+      ext.kind = plane(a.ext_mat);
+      ext.tex_r = plane(a.ext_mat + 1);
+      ext.tex_g = plane(a.ext_mat + 2);
+      ext.tex_b = plane(a.ext_mat + 3);
+      ext.od_r = TEX ? plane(a.ext_mat + 4) : 0.0f;
+      ext.od_g = TEX ? plane(a.ext_mat + 5) : 0.0f;
+      ext.od_b = TEX ? plane(a.ext_mat + 6) : 0.0f;
+      ext.fr = plane(a.ext_fr);
+      ext.texk = TEX ? plane(a.ext_texk) : 0.0f;
+      ext.scale = TEX ? plane(a.ext_scale) : 0.0f;
+      ext.seed_f = TEX ? plane(a.ext_seed) : 0.0f;
+      ext.seed = __float_as_uint(ext.seed_f);
     }
-    const BounceResult r = bounce_core<true, false, false, false>(
-        T, ox, oy, oz, dx, dy, dz, a.tm[lane], u, a.n_ext > 0 ? &ext : nullptr, NoMediaU{});
+    const BounceResult r = bounce_core<SPH, DIEL, MED, TEX, CULL, IMG>(
+        T, ox, oy, oz, dx, dy, dz, a.tm[lane], u, a.n_ext > 0 ? &ext : nullptr,
+        RowMediaU{urow});
     if (r.emit) {
       er = r.vr;
       eg = r.vg;
@@ -129,18 +136,29 @@ __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
 extern "C" int grt_bounce(const BounceArgs* args, void* stream) {
   const BounceArgs a = *args;
   const int nb = (a.n + BLOCK - 1) / BLOCK;
-  const int smem = stage_layout(a.n_sph, a.n_quad, a.n_box).bytes;
-  const cudaError_t err = allow_smem((const void*)bounce_level, smem);
+  const int smem = fused_stage_bytes(a.feat, a.n_sph, a.n_quad, a.n_box);
+  const int feat = with_cull(a.feat, a.n_sph, a.n_quad, a.n_box);
+  cudaError_t err = cudaSuccess;
+#define LAUNCH(S, D, M, X, C, I)                                                    \
+  if ((err = allow_smem((const void*)bounce_level<S, D, M, X, C, I>, smem)) == cudaSuccess) \
+  bounce_level<S, D, M, X, C, I><<<nb, BLOCK, smem, (cudaStream_t)stream>>>(a)
+  FEATURE_SWITCH(feat, LAUNCH)
+#undef LAUNCH
   if (err != cudaSuccess) return (int)err;
-  bounce_level<<<nb, BLOCK, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// kernel_info of the kernel on a table of these section sizes (`feat` is
-// not read: the kernel has one variant)
+// Registers, dynamic and static shared bytes, resident blocks per SM and
+// spill bytes of the variant for feature bits `feat` on a table of these
+// section sizes (kernel_info's `out`).
 extern "C" int grt_kernel_info(int feat, int n_sph, int n_quad, int n_box, int* out) {
-  return kernel_info((const void*)bounce_level, BLOCK,
-                     stage_layout(n_sph, n_quad, n_box).bytes, out);
+  const int smem = fused_stage_bytes(feat, n_sph, n_quad, n_box);
+  int err = 0;
+#define INFO(S, D, M, X, C, I) \
+  err = kernel_info((const void*)bounce_level<S, D, M, X, C, I>, BLOCK, smem, out)
+  FEATURE_SWITCH(with_cull(feat, n_sph, n_quad, n_box), INFO)
+#undef INFO
+  return err;
 }
 
 extern "C" const char* grt_error_string(int err) {

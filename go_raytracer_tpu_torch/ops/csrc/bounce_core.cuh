@@ -8,6 +8,11 @@
 // mesh hit from memory). Mirrors `_bounce_core_ref` in ops/bounce.py op for
 // op.
 //
+// A mesh hit handed in by the caller (`ExtHit`, bounce.cu) carries its own
+// material columns, uv and normal; it takes a row's place in everything
+// after the scan: the checker, the noise and the image texel read its
+// columns, as the TPU kernel's ext mode does.
+//
 // The core is compiled once per feature set, as the TPU kernel is traced
 // once per scene's statics: SPH the sphere section and the deferred sphere
 // normal, DIEL the dielectric branch, MED the media loop and isotropic
@@ -330,9 +335,14 @@ __device__ __forceinline__ bool sphere_block_hit(const float4 lo, const float4 h
 }
 
 // The externally computed closest mesh hit of one ray: t (inf = none), the
-// un-flipped outward normal, and the winning triangle's material columns.
+// un-flipped outward normal, the texture uv (IMG variants), and the winning
+// triangle's material columns: kind, even colour, fr, and for the TEX
+// variants the odd colour, texk, scale and the seed column, as its float
+// (an image row's image id) and as its bits (a noise row's seed).
 struct ExtHit {
-  float t, nx, ny, nz, kind, tex_r, tex_g, tex_b, fr;
+  float t, nx, ny, nz, u, v, kind, tex_r, tex_g, tex_b, fr;
+  float od_r, od_g, od_b, texk, scale, seed_f;
+  uint32_t seed;
 };
 
 struct BounceResult {
@@ -519,7 +529,7 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
   float t_best = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
   float m_kind = 0.0f, tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f, m_fr = 0.0f;
   static_assert(TEX || !IMG, "the image variant is a texture variant");
-  bool win_sphere = false, win_med = false;
+  bool win_sphere = false, win_med = false, win_ext = false;
   int win_row = -1;  // the winning primitive row, -1 if none
   float win_al = 0.0f, win_be = 0.0f;  // IMG: the winning quad's (alpha, beta)
 
@@ -677,12 +687,17 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
     ny = ext->ny;
     nz = ext->nz;
     win_sphere = false;
+    win_ext = true;
     win_row = -1;
     m_kind = ext->kind;
     tex_r = ext->tex_r;
     tex_g = ext->tex_g;
     tex_b = ext->tex_b;
     m_fr = ext->fr;
+    if constexpr (IMG) {  // the mesh's texture uv
+      win_al = ext->u;
+      win_be = ext->v;
+    }
   }
   // ---- constant-density media (medium.go:27-58) ------------------------------
   // each medium's boundary span (sphere roots, or the rotated box's slabs in
@@ -742,6 +757,7 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
             nz = 0.0f;
             win_sphere = false;
             win_med = true;
+            win_ext = false;
             win_row = -1;
             m_kind = MAT_ISOTROPIC;
             tex_r = __ldg(g + 17);
@@ -758,22 +774,25 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
   const float ts = hit ? t_best : 1.0f;
   const float hx = ox + ts * dx, hy = oy + ts * dy, hz = oz + ts * dz;
   // ---- the texture value (texture.go:25-60, 88-125) --------------------------
+  // (a mesh winner's columns come from its ext planes, a row's from the table)
   if constexpr (TEX) {
-    if (win_row >= 0) {
-      const float* g = P + win_row * pc;
-      load_mat(g, T, m_kind, tex_r, tex_g, tex_b, m_fr);
+    if (win_row >= 0 || win_ext) {
+      const float* g = P + (win_row >= 0 ? win_row : 0) * pc;
+      if (win_row >= 0) load_mat(g, T, m_kind, tex_r, tex_g, tex_b, m_fr);
       // an image scene may have no scale column: its rows select even
-      const float sc = (!IMG || T.scale_col >= 0) ? __ldg(g + T.scale_col) : 0.0f;
+      const float sc = win_ext ? ext->scale
+                       : (!IMG || T.scale_col >= 0) ? __ldg(g + T.scale_col) : 0.0f;
       const int fsum = (int)floorf(sc * hx) + (int)floorf(sc * hy) + (int)floorf(sc * hz);
       if (fsum & 1) {  // odd cell: the odd colour
-        tex_r = __ldg(g + MAT_BASE + 4);
-        tex_g = __ldg(g + MAT_BASE + 5);
-        tex_b = __ldg(g + MAT_BASE + 6);
+        tex_r = win_ext ? ext->od_r : __ldg(g + MAT_BASE + 4);
+        tex_g = win_ext ? ext->od_g : __ldg(g + MAT_BASE + 5);
+        tex_b = win_ext ? ext->od_b : __ldg(g + MAT_BASE + 6);
       }
-      const float texk = T.texk_col >= 0 ? __ldg(g + T.texk_col) : 0.0f;
+      const float texk = win_ext ? ext->texk : T.texk_col >= 0 ? __ldg(g + T.texk_col) : 0.0f;
       if (texk == TEX_PERLIN || texk == TEX_MARBLE || texk == TEX_TURBULENT) {
         // the seed column holds uint32 bits: read them as such
-        const uint32_t seed = __ldg(reinterpret_cast<const unsigned int*>(g + T.seed_col));
+        const uint32_t seed =
+            win_ext ? ext->seed : __ldg(reinterpret_cast<const unsigned int*>(g + T.seed_col));
         float gray;
         if (texk == TEX_PERLIN) {
           gray = 0.5f * (1.0f + perlin_noise(seed, sc * hx, sc * hy, sc * hz));
@@ -797,12 +816,14 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
   // ---- the image texel (texture.go:70-86) on a diffuse lane whose row has
   // an image texture, from the pre-flip outward normal or the quad's uv
   if constexpr (IMG) {
-    if (win_row >= 0 && (m_kind == MAT_LAMBERTIAN || (MED && m_kind == MAT_ISOTROPIC))) {
-      const float* g = P + win_row * pc;
-      if (__ldg(g + T.texk_col) == TEX_IMAGE) {
-        float uu = win_al, vv = win_be;
+    if ((win_row >= 0 || win_ext) &&
+        (m_kind == MAT_LAMBERTIAN || (MED && m_kind == MAT_ISOTROPIC))) {
+      const float* g = P + (win_row >= 0 ? win_row : 0) * pc;
+      if ((win_ext ? ext->texk : __ldg(g + T.texk_col)) == TEX_IMAGE) {
+        float uu = win_al, vv = win_be;  // a quad's (alpha, beta), a mesh's uv
         if (SPH && win_sphere) sphere_uv(nx, ny, nz, uu, vv);
-        image_texel(T, (int)__ldg(g + T.seed_col), uu, vv, tex_r, tex_g, tex_b);
+        const float id = win_ext ? ext->seed_f : __ldg(g + T.seed_col);
+        image_texel(T, (int)id, uu, vv, tex_r, tex_g, tex_b);
       }
     }
   }

@@ -1,7 +1,7 @@
 // What the fused regen kernels share (bounce_fused_q.cu, bounce_fused.cu,
 // bounce_fused_pos.cu): the counter-based PRNG, the camera ray generation,
 // the block size, the table fields, the staged geometry's bytes and the
-// dispatch on the scene's features. One thread per lane, state as SoA planes; the lane
+// dispatch on the scene's features. bounce.cu (K3) takes the last four. One thread per lane, state as SoA planes; the lane
 // count is a multiple of BLOCK (checked by the wrappers).
 
 #pragma once

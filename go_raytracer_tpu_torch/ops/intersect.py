@@ -1,12 +1,13 @@
 """Dense ray-primitive hit distances in matrix-product form.
 
-Counterpart of the JAX package's `ops/intersect.py` for the classes the
-mesh path needs: every ray against every sphere, quad or fused box, as
-(N, 3) @ (3, P) products plus elementwise work. The mesh path takes the
-row minimum as the cap `t_cap` that prunes the triangle traversal (the
-cross-class shrinking rayT.Max of hittable/bvh.go:69-82). These are plain
-matrix products in the JAX package too (no kernel), so `torch.matmul`
-is their port.
+Counterpart of the JAX package's `ops/intersect.py`: every ray against
+every sphere, quad, fused box or triangle, as (N, 3) @ (3, P) products
+plus elementwise work, and the boundary spans of the media. The mesh path
+takes the row minimum as the cap `t_cap` that prunes the triangle
+traversal (the cross-class shrinking rayT.Max of hittable/bvh.go:69-82);
+the reference engine (`ops/trace.trace`) takes each class's minimum as
+its candidate. These are plain matrix products in the JAX package too (no
+kernel), so `torch.matmul` is their port.
 
 Tables are namespaces of tensors on the rays' device (`ops/trace.to_device`).
 """
@@ -111,3 +112,53 @@ def tri_ts(tr, o, d, t_min: float, t_max: float) -> torch.Tensor:
           & (v >= 0.0) & (u + v <= 1.0) & (t_min <= t) & (t <= t_max)
           & tr.active[None, :])
     return torch.where(ok, t, INF)
+
+
+def tri_ts_factored(tr, o, d, t_min: float, t_max: float) -> torch.Tensor:
+    """Hit distances (N, T) in the JAX package's GEMM form of
+    Moller-Trumbore (objects.go:408-461), the dense triangle class of its
+    `trace`: with m = O x d, det = -(d.cn), u det = m.e1 - d.c_e1v0,
+    v det = -m.e0 - d.c_v0e0 and t det = O.cn - k, from the triangle
+    table's precomputed cn, c_e1v0, c_v0e0 and k."""
+    m = torch.linalg.cross(o, d)
+    det = -_mm(d, tr.cn)
+    u_det = _mm(m, tr.e1) - _mm(d, tr.c_e1v0)
+    v_det = -_mm(m, tr.e0) - _mm(d, tr.c_v0e0)
+    t_det = _mm(o, tr.cn) - tr.k[None, :]
+    ok_det = torch.abs(det) >= PARALLEL_EPS
+    inv = 1.0 / torch.where(ok_det, det, 1.0)
+    u = u_det * inv
+    v = v_det * inv
+    t = t_det * inv
+    valid = (ok_det & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+             & (t_min <= t) & (t <= t_max) & tr.active[None, :])
+    return torch.where(valid, t, INF)
+
+
+def sphere_roots(center, radius, o, d):
+    """Both quadratic roots (near, far) and a validity flag, for medium
+    boundary spans and the light pdf; `center` (..., 3) broadcasts against
+    `o`. The square root's argument is guarded (`core/rng._sqrt0`'s
+    double where), so its derivative stays finite where disc <= 0."""
+    oc = center - o
+    a = _dot(d, d)
+    h = _dot(d, oc)
+    c = _dot(oc, oc) - radius * radius
+    disc = h * h - a * c
+    pos = disc > 0
+    sqrtd = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+    return (h - sqrtd) / a, (h + sqrtd) / a, disc >= 0.0
+
+
+def box_slab_span(box_min, box_max, o, d):
+    """Slab entry and exit (t_near, t_far, hit) of an axis box, the first
+    and second quad hits of the reference's box-of-quads boundary
+    (aabb.go:90-113) for the medium path."""
+    d_safe = torch.where(torch.abs(d) < 1e-30,
+                         torch.where(d < 0, -1e-30, 1e-30), d)
+    inv = 1.0 / d_safe
+    t0 = (box_min - o) * inv
+    t1 = (box_max - o) * inv
+    near = torch.minimum(t0, t1).amax(dim=-1)
+    far = torch.maximum(t0, t1).amin(dim=-1)
+    return near, far, far > near

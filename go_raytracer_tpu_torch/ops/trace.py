@@ -19,7 +19,9 @@ Counterpart of the mesh half of the JAX package's `ops/trace.py`:
 * `bvh_tri_closest` is the plain lockstep skip-link walk over the binary
   BVH, kept as an oracle that shares nothing with the kernels;
 * `tri_hit_gathered` recomputes one triangle per ray (attributes of the
-  winner).
+  winner);
+* `trace` is the reference engine's closest hit over every class and the
+  media (the JAX package's `trace`), with its `Hit` record.
 
 Where the JAX package quietly takes another route (no `cl2_*` tables for
 binned2, too many clusters for the fused round), `check_route` raises.
@@ -30,11 +32,14 @@ passes) counts calls, rounds and those reads.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import types as _pytypes
 
 import numpy as np
 import torch
 
+from go_raytracer_tpu_torch.core import vecmath as vm
 from go_raytracer_tpu_torch.ops import intersect as ix
 from go_raytracer_tpu_torch.ops import stream as stream_mod
 from go_raytracer_tpu_torch.ops import stream2 as stream2_mod
@@ -54,27 +59,52 @@ def _ns(table, fields, device):
         for f in fields})
 
 
+_FLAGS = ("has_spheres", "has_quads", "has_boxes", "has_rot_boxes",
+          "has_triangles", "has_tri_bvh", "has_media", "has_noise",
+          "has_checker", "has_image", "has_metal", "has_dielectric",
+          "has_isotropic", "has_quad_lights", "has_sphere_lights",
+          "has_tri_lights")
+
+
 def to_device(scene: T.Scene, device) -> _pytypes.SimpleNamespace:
-    """The tables the mesh path reads, as tensors on `device`: the dense
-    primitive tables (for the caps), the triangle table, and the BVH with
-    its 8-wide collapse with `ops/traverse8.pack_tables`' rows of it
+    """The scene's tables as tensors on `device`, with its static flags
+    (`has_*`, `lights.n`): every primitive, material, texture, light,
+    medium and image table the reference engine (`trace`,
+    `integrator/wavefront._bounce`) reads, and for a triangle BVH the BVH
+    with its 8-wide collapse with `ops/traverse8.pack_tables`' rows of it
     (`bvh8_nodes`, `bvh8_tris`), `ops/traverse.pack_bvh`'s rows
     (`bvh_nodes`, `bvh_tris`) and both cluster partitions (the finer
-    one's boxes also as `cl2_lo`/`cl2_hi`). `bvh.max_stack` is the deepest stack the BVH8 walk
-    can reach on this tree."""
+    one's boxes also as `cl2_lo`/`cl2_hi`). `bvh.max_stack` is the
+    deepest stack the BVH8 walk can reach on this tree. `host` is the
+    scene itself (the kernels' packing reads it)."""
     dev = torch.device(device)
-    out = _pytypes.SimpleNamespace(
-        has_spheres=scene.has_spheres, has_quads=scene.has_quads,
-        has_boxes=scene.has_boxes, has_tri_bvh=scene.has_tri_bvh)
+    out = _pytypes.SimpleNamespace(host=scene, device=dev,
+                                   **{f: getattr(scene, f) for f in _FLAGS})
     out.spheres = _ns(scene.spheres, ("center0", "center_delta", "radius",
-                                      "active"), dev)
-    out.quads = _ns(scene.quads, ("q", "normal", "d_plane", "cvw", "cwu",
-                                  "active"), dev)
+                                      "mat_id", "active"), dev)
+    out.quads = _ns(scene.quads, ("q", "u", "v", "normal", "d_plane", "cvw",
+                                  "cwu", "area", "mat_id", "active"), dev)
     out.boxes = _ns(scene.boxes, ("lo", "hi", "cos_t", "sin_t", "offset",
-                                  "active"), dev)
+                                  "mat_id", "active"), dev)
     out.triangles = _ns(scene.triangles, (
-        "v0", "e0", "e1", "n_face", "vn", "has_vn", "uv", "has_uv",
-        "mat_id", "active"), dev)
+        "v0", "e0", "e1", "cn", "c_e1v0", "c_v0e0", "k", "n_face", "vn",
+        "has_vn", "uv", "has_uv", "area", "mat_id", "active"), dev)
+    out.media = _ns(scene.media, ("kind", "center", "radius", "cos_t",
+                                  "sin_t", "offset", "box_min", "box_max",
+                                  "neg_inv_density", "mat_id", "active"), dev)
+    out.materials = _ns(scene.materials, ("kind", "tex_id", "fuzz",
+                                          "ref_idx"), dev)
+    out.textures = _ns(scene.textures, ("kind", "color", "inv_scale", "even",
+                                        "odd", "scale", "noise_id",
+                                        "image_id"), dev)
+    out.perlin_seed = torch.from_numpy(
+        np.asarray(scene.perlin.seed, np.uint32).astype(np.int64)).to(dev)
+    out.images = _ns(scene.images, ("data", "wh"), dev)
+    out.images.wh = out.images.wh.to(torch.int32)
+    out.lights = _ns(scene.lights, ("kind", "prim_id"), dev)
+    out.lights.n = scene.lights.n
+    out.background = torch.from_numpy(
+        np.array(scene.background, np.float32)).to(dev)
     b = scene.tri_bvh
     derived = ("nodes8", "tris8", "cl_lo", "cl_hi", "cl_gs", "cl_lines",
                "cl_boxes", "cl2_boxes", "cl2_gs", "cl2_lines")
@@ -86,13 +116,15 @@ def to_device(scene: T.Scene, device) -> _pytypes.SimpleNamespace:
     bvh.n_nodes, bvh.leaf_size = b.n_nodes, b.leaf_size
     bvh.bvh8_dense = b.bvh8_dense
     bvh.max_stack = bvh.bvh8_nodes = bvh.bvh8_tris = None
+    bvh.bvh_nodes = bvh.bvh_tris = None
     if b.nodes8 is not None:
         bvh.max_stack = bvh8_mod.max_stack(b.nodes8, b.bvh8_dense)
         bvh.bvh8_nodes, bvh.bvh8_tris = (
             x.to(dev) for x in trav8_mod.pack_tables(
                 np.asarray(b.nodes8), np.asarray(b.tris8), b.bvh8_dense))
-    bvh.bvh_nodes, bvh.bvh_tris = (
-        torch.from_numpy(x).to(dev) for x in trav_mod.pack_bvh(scene))
+    if scene.has_tri_bvh:
+        bvh.bvh_nodes, bvh.bvh_tris = (
+            torch.from_numpy(x).to(dev) for x in trav_mod.pack_bvh(scene))
     bvh.cl2_lo = bvh.cl2_hi = None
     if bvh.cl2_gs is not None:
         bvh.cl2_lo, bvh.cl2_hi = stream2_mod.boxes_lo_hi(
@@ -475,3 +507,292 @@ def binned2_closest(ms, o, d, t_cap=None, alive=None, counters=None):
     t_o, i_o = _unsort(perm, t_s, i_s)
     _count_call(counters)
     return t_o[:n_orig], i_o[:n_orig]
+
+
+# ---------------------------------------------------------------------------
+# the reference engine's closest hit: every class densely, then the winner's
+# attributes (the JAX package's `trace`)
+# ---------------------------------------------------------------------------
+
+# hit class codes
+CLS_NONE = -1
+CLS_SPHERE = 0
+CLS_QUAD = 1
+CLS_TRI = 2
+CLS_MEDIUM = 3
+CLS_BOX = 4
+
+
+@dataclasses.dataclass
+class Hit:
+    """The closest hit of each ray: `hit` (anything, surface or medium),
+    `is_medium`, t, point p, the face-forward normal (hittable.go:27-34),
+    `front_face`, texture (u, v), material id, and `med_logp`, the
+    log-likelihood of the observed media transit (the score-function
+    channel of a density gradient; 0 without media)."""
+
+    hit: torch.Tensor
+    is_medium: torch.Tensor
+    t: torch.Tensor
+    p: torch.Tensor
+    normal: torch.Tensor
+    front_face: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    mat_id: torch.Tensor
+    med_logp: torch.Tensor
+
+
+def _sphere_attrs(sp, o, d, time, t, idx):
+    c0 = sp.center0[idx]
+    cd = sp.center_delta[idx]
+    r = sp.radius[idx]
+    cur_c = c0 + time[:, None] * cd
+    p = o + t[:, None] * d
+    outward = (p - cur_c) / r[:, None]
+    front = _dot(d, outward) < 0
+    normal = torch.where(front[:, None], outward, -outward)
+    # spherical uv (objects.go:44-50). arccos with a finite derivative at
+    # the poles, and atan2's (0, 0) fed as (1, 0), whose value is the same
+    # 0: both double wheres keep the value of the plain expression.
+    cy = torch.clamp(-outward[:, 1], -1.0, 1.0)
+    interior = torch.abs(cy) < 1.0
+    theta = torch.where(interior, torch.arccos(torch.where(interior, cy, 0.0)),
+                        torch.where(cy > 0, 0.0, math.pi))
+    pole = (outward[:, 0] == 0.0) & (outward[:, 2] == 0.0)
+    px = torch.where(pole, 1.0, outward[:, 0])
+    pz = torch.where(pole, 0.0, -outward[:, 2])
+    phi = torch.atan2(pz, px) + math.pi
+    return (p, normal, front, phi / (2.0 * math.pi), theta / math.pi,
+            sp.mat_id[idx])
+
+
+def _quad_attrs(qd, o, d, t, idx):
+    n = qd.normal[idx]
+    p = o + t[:, None] * d
+    planar = p - qd.q[idx]
+    alpha = _dot(planar, qd.cvw[idx])
+    beta = _dot(planar, qd.cwu[idx])
+    front = _dot(d, n) < 0
+    normal = torch.where(front[:, None], n, -n)
+    return p, normal, front, alpha, beta, qd.mat_id[idx]
+
+
+def _box_attrs(bx, o, d, t, idx):
+    """Attributes of a fused-box hit: the outward normal is the axis of
+    the slab that bounds the winning t (the entry slab when t is the entry
+    distance, else the exit slab), the face normal the six-quad box
+    (objects.go:227-237) reports; rotated rows compute the slab in object
+    space and rotate the normal back (transformation.go:94-107). uv is
+    zero (box fusion is gated on uv-independent textures)."""
+    lo, hi = bx.lo[idx], bx.hi[idx]
+    cos, sin = bx.cos_t[idx], bx.sin_t[idx]
+    osh = o - bx.offset[idx]
+    oo = torch.stack([cos * osh[:, 0] - sin * osh[:, 2], osh[:, 1],
+                      sin * osh[:, 0] + cos * osh[:, 2]], dim=-1)
+    do = torch.stack([cos * d[:, 0] - sin * d[:, 2], d[:, 1],
+                      sin * d[:, 0] + cos * d[:, 2]], dim=-1)
+    d_safe = torch.where(torch.abs(do) < 1e-30,
+                         torch.where(do < 0, -1e-30, 1e-30), do)
+    inv = 1.0 / d_safe
+    t0 = (lo - oo) * inv
+    t1 = (hi - oo) * inv
+    per_lo = torch.minimum(t0, t1)
+    per_hi = torch.maximum(t0, t1)
+    near = per_lo.amax(dim=-1)
+    far = per_hi.amin(dim=-1)
+    entry = torch.abs(t - near) <= torch.abs(far - t)
+    per = torch.where(entry[:, None], per_lo, per_hi)
+    axis = torch.argmax(torch.where(entry[:, None], per, -per), dim=-1)
+    sgn = torch.sign(torch.gather(d_safe, 1, axis[:, None]))[:, 0]
+    sgn = torch.where(entry, -sgn, sgn)
+    out_obj = sgn[:, None] * torch.eye(3, dtype=o.dtype, device=o.device)[axis]
+    outward = torch.stack([cos * out_obj[:, 0] + sin * out_obj[:, 2],
+                           out_obj[:, 1],
+                           -sin * out_obj[:, 0] + cos * out_obj[:, 2]], dim=-1)
+    front = _dot(d, outward) < 0
+    normal = torch.where(front[:, None], outward, -outward)
+    zero = torch.zeros_like(t)
+    return o + t[:, None] * d, normal, front, zero, zero, bx.mat_id[idx]
+
+
+def _tri_attrs(tr, o, d, t, idx):
+    """Attributes of a triangle hit: barycentrics recomputed for the
+    winner in the local form (objects.go:408-446), the interpolated vertex
+    normal where the mesh has one, else the face normal, and the
+    interpolated vertex uv where present, else the barycentrics
+    (objects.go:437-446)."""
+    _, u, v, _ = tri_hit_gathered(tr, idx, o, d, -INF, INF)
+    p = o + t[:, None] * d
+    w = 1.0 - u - v
+    vn = tr.vn[idx]
+    n_interp = vm.normalize(w[:, None] * vn[:, 0] + u[:, None] * vn[:, 1]
+                            + v[:, None] * vn[:, 2])
+    n_raw = torch.where(tr.has_vn[idx][:, None], n_interp, tr.n_face[idx])
+    front = _dot(d, n_raw) < 0
+    normal = torch.where(front[:, None], n_raw, -n_raw)
+    uvt = tr.uv[idx]
+    uv_i = w[:, None] * uvt[:, 0] + u[:, None] * uvt[:, 1] \
+        + v[:, None] * uvt[:, 2]
+    has_uv = tr.has_uv[idx]
+    return (p, normal, front, torch.where(has_uv, uv_i[:, 0], u),
+            torch.where(has_uv, uv_i[:, 1], v), tr.mat_id[idx])
+
+
+def media_candidates(ds, o, d, t_solid, u_med, t_min=T_MIN):
+    """Each medium's scattering-candidate distance (N, M), inf where none,
+    and (t0, t1, span_ok, ray_len) for the transit likelihood.
+
+    medium.go:27-58: the boundary span (sphere roots, or the rotated box's
+    slabs in object space), clamped by [rayT.Min, closest solid], and the
+    exponential free flight -ln(U) / rho. The sampled distance is
+    detached: a density gradient flows only through the score-function
+    factor (`trace`'s med_logp, `integrator/wavefront._bounce`), so the
+    pathwise and likelihood channels never count twice."""
+    med = ds.media
+    o_b = o[:, None, :]
+    d_b = d[:, None, :]
+    near_s, far_s, ok_s = ix.sphere_roots(med.center[None, :, :],
+                                          med.radius[None, :], o_b, d_b)
+    cos = med.cos_t[None, :]
+    sin = med.sin_t[None, :]
+    osh = o_b - med.offset[None, :, :]
+    o_obj = torch.stack([cos * osh[..., 0] - sin * osh[..., 2], osh[..., 1],
+                         sin * osh[..., 0] + cos * osh[..., 2]], dim=-1)
+    dy_b = d_b[..., 1].expand(o.shape[0], med.kind.shape[0])
+    d_obj = torch.stack([cos * d_b[..., 0] - sin * d_b[..., 2], dy_b,
+                         sin * d_b[..., 0] + cos * d_b[..., 2]], dim=-1)
+    near_b, far_b, ok_b = ix.box_slab_span(med.box_min[None, :, :],
+                                           med.box_max[None, :, :],
+                                           o_obj, d_obj)
+    is_sphere = (med.kind == T.MEDIUM_SPHERE)[None, :]
+    near = torch.where(is_sphere, near_s, near_b)
+    far = torch.where(is_sphere, far_s, far_b)
+    ok = torch.where(is_sphere, ok_s, ok_b)
+    ok = ok & (far > near + 1e-4)            # second boundary hit (medium.go:34)
+    t0 = torch.clamp(near, min=t_min)        # medium.go:37
+    t1 = torch.minimum(far, t_solid[:, None])  # medium.go:38
+    ok = ok & (t0 < t1)                      # medium.go:39
+    t0 = torch.clamp(t0, min=0.0)            # medium.go:43
+    ray_len = vm.length(d)[:, None]
+    dist_inside = (t1 - t0) * ray_len
+    hit_dist = (med.neg_inv_density[None, :] * torch.log(u_med)).detach()
+    span_ok = ok & med.active[None, :]
+    ok = span_ok & (hit_dist <= dist_inside)
+    t_cand = t0 + hit_dist / ray_len
+    return torch.where(ok, t_cand, INF), (t0, t1, span_ok, ray_len)
+
+
+def trace(ds, o, d, time, u_med, t_min: float = T_MIN, t_max: float = INF,
+          alive=None, *, mesh="auto", b1_fused=False, traverse8=True,
+          counters=None) -> Hit:
+    """The closest hit of a ray bundle over every primitive class and the
+    media (the JAX package's `trace`). ds = `to_device(scene, device)`;
+    u_med (N, M) are the media's uniforms; `alive` (N,) bool, optional:
+    dead rays skip the triangle BVH walk (their hit is never read).
+
+    Spheres, quads and boxes resolve densely first; their nearest hit caps
+    the triangle search (the shrinking rayT.Max of bvh.go:69-82 across
+    classes). Triangles of a BVH mesh go through `mesh_closest` on the
+    route that `mesh`, `b1_fused` and `traverse8` pick (on the card the
+    walk's default, the K5 kernel; the plain version on the CPU), pruned by
+    that cap; a mesh below the BVH threshold is tested densely
+    (`ops/intersect.tri_ts_factored`)."""
+    n = o.shape[0]
+    dev = o.device
+    per_class = []
+    if ds.has_spheres:
+        ts = ix.sphere_ts(ds.spheres, o, d, time, t_min, t_max)
+        per_class.append((CLS_SPHERE, *ts.min(dim=1)))
+    if ds.has_quads:
+        ts = ix.quad_ts(ds.quads, o, d, t_min, t_max)
+        per_class.append((CLS_QUAD, *ts.min(dim=1)))
+    if ds.has_boxes:
+        ts = ix.box_ts(ds.boxes, o, d, t_min, t_max)
+        per_class.append((CLS_BOX, *ts.min(dim=1)))
+    t_solid = torch.full((n,), INF, dtype=o.dtype, device=dev)
+    cls = torch.full((n,), CLS_NONE, dtype=torch.int64, device=dev)
+    loc = torch.zeros((n,), dtype=torch.int64, device=dev)
+    for code, t_c, i_c in per_class:
+        closer = t_c < t_solid
+        t_solid = torch.where(closer, t_c, t_solid)
+        cls = torch.where(closer, code, cls)
+        loc = torch.where(closer, i_c, loc)
+
+    if ds.has_triangles:
+        n_tri = ds.triangles.v0.shape[0]
+        if ds.has_tri_bvh:
+            t_t, i_t = mesh_closest(ds, o.detach(), d.detach(),
+                                    t_cap=t_solid.detach(), alive=alive,
+                                    mesh=mesh, b1_fused=b1_fused,
+                                    traverse8=traverse8, counters=counters)
+            i_t = i_t.to(torch.int64)
+        else:
+            ts = ix.tri_ts_factored(ds.triangles, o, d, t_min, t_max)
+            t_t, i_t = ts.min(dim=1)
+            i_t = torch.where(torch.isfinite(t_t), i_t, -1)
+        tri_win = (i_t >= 0) & (t_t < t_solid)
+        t_solid = torch.where(tri_win, t_t, t_solid)
+        cls = torch.where(tri_win, CLS_TRI, cls)
+        loc = torch.where(tri_win, torch.clamp(i_t, 0, n_tri - 1), loc)
+
+    if ds.has_media:
+        med_ts, (m_t0, m_t1, m_ok, ray_len) = media_candidates(
+            ds, o, d, t_solid, u_med, t_min)
+        t_med, med_idx = med_ts.min(dim=1)
+        is_medium = t_med < t_solid
+        t = torch.where(is_medium, t_med, t_solid)
+        cls = torch.where(is_medium, CLS_MEDIUM, cls)
+        # transit log-likelihood of the observed outcome at t:
+        # transmittance exp(-rho * overlap) per crossed medium, and the
+        # winner's free-flight density rho (the score-function channel of
+        # d/d(density))
+        rho = -1.0 / ds.media.neg_inv_density
+        t_evt = t.detach()
+        overlap = torch.clamp(torch.minimum(m_t1, t_evt[:, None]) - m_t0,
+                              min=0.0) * ray_len
+        overlap = torch.where(m_ok, overlap, 0.0).detach()
+        med_logp = -torch.sum(rho[None, :] * overlap, dim=1)
+        med_logp = med_logp + torch.where(is_medium, torch.log(rho[med_idx]),
+                                          0.0)
+    else:
+        med_idx = torch.zeros((n,), dtype=torch.int64, device=dev)
+        is_medium = torch.zeros((n,), dtype=torch.bool, device=dev)
+        t = t_solid
+        med_logp = torch.zeros((n,), dtype=o.dtype, device=dev)
+
+    hit = torch.isfinite(t) & (cls != CLS_NONE)
+    t_safe = torch.where(hit, t, 1.0)
+    p = o + t_safe[:, None] * d
+    cur = (p, o.new_tensor([1.0, 0.0, 0.0]).expand(n, 3),
+           torch.ones((n,), dtype=torch.bool, device=dev),
+           torch.zeros_like(t_safe), torch.zeros_like(t_safe),
+           torch.zeros((n,), dtype=ds.materials.kind.dtype, device=dev))
+
+    def merge(mask, attrs, cur):
+        return tuple(torch.where(mask[:, None] if a.dim() == 2 else mask, a, c)
+                     for a, c in zip(attrs, cur))
+
+    # each class gathers its winner's row, clamped into its own table
+    at = lambda table: torch.clamp(loc, 0, table.mat_id.shape[0] - 1)
+    if ds.has_spheres:
+        cur = merge(cls == CLS_SPHERE, _sphere_attrs(
+            ds.spheres, o, d, time, t_safe, at(ds.spheres)), cur)
+    if ds.has_quads:
+        cur = merge(cls == CLS_QUAD, _quad_attrs(
+            ds.quads, o, d, t_safe, at(ds.quads)), cur)
+    if ds.has_boxes:
+        cur = merge(cls == CLS_BOX, _box_attrs(
+            ds.boxes, o, d, t_safe, at(ds.boxes)), cur)
+    if ds.has_triangles:
+        cur = merge(cls == CLS_TRI, _tri_attrs(
+            ds.triangles, o, d, t_safe, at(ds.triangles)), cur)
+    if ds.has_media:
+        # a medium record: normal (1, 0, 0), front face true (medium.go:54-55)
+        cur = merge(cls == CLS_MEDIUM,
+                    (p, cur[1], torch.ones_like(cur[2]), cur[3], cur[4],
+                     ds.media.mat_id[med_idx]), cur)
+    p, normal, front, uu, vv, mat = cur
+    return Hit(hit=hit, is_medium=is_medium & hit, t=t, p=p, normal=normal,
+               front_face=front, u=uu, v=vv, mat_id=mat.to(torch.int64),
+               med_logp=med_logp)

@@ -140,3 +140,56 @@ def lane_state(n: int, seed: int = 0) -> list:
         rs.uniform(0, 1, n).astype(np.float32),
         (rs.uniform(size=n) < 0.6).astype(np.int32),
         rs.integers(0, 50, n).astype(np.int32))]
+
+
+# --------------------------------------------------------------------------
+# the external-hit bounce's test meshes (ops/bounce.bounce with ext planes)
+# --------------------------------------------------------------------------
+
+def glass_fog_statue(b, obj_loader, transform_cls):
+    """Fill builder `b` with scene 8 (modelExample: the ground sphere, the
+    procedural statue in gold metal, the sun; scenes/registry.py) and two
+    materials its mesh path does not otherwise meet: a glass sphere
+    beside the statue and a fog sphere medium around the pair. `obj_loader`
+    and `transform_cls` come from the same package as `b` (this package's
+    `scene/obj_loader` and `scene/builder.Transform`, or the JAX
+    package's), so both packages build the same scene. Returns the camera
+    position (look-from, look-at) of modelExample."""
+    b.sphere((0, -1000, 0), 1000, b.lambertian((0.4, 0.4, 0.4)))
+    gold = b.metal((1.0, 215 / 255, 0.0), 0.5)
+    opts = obj_loader.LoadOptions(scale_factor=5.0, center=True,
+                                  position=(0, 1.8, 0), default_material=gold)
+    lights = obj_loader.procedural_statue(
+        b, gold, opts, transform=transform_cls(rotate_y_deg=180))
+    b.sphere((3.0, 1.5, 2.0), 1.5, b.dielectric(1.5))
+    b.constant_medium_sphere((1.0, 2.0, 1.0), 4.5, 0.05, (0.9, 0.9, 0.9))
+    sun = b.sphere((7, 13, 7), 5, b.diffuse_light((4, 4, 4)))
+    for h in lights:
+        b.add_light(h)
+    b.add_light(sun)
+    return (10, 5, 10), (0, 0, 0)
+
+
+IMAGE_MESH_TRIS = 64
+
+
+def image_mesh(b, seed: int = 5):
+    """Fill builder `b` with an image-textured triangle mesh (an 8 x 8
+    ramp image, every triangle's vertex uv (0, 0), (1, 0), (0, 1)), a quad
+    light above it and a ground sphere (the scene of the JAX package's
+    tests/test_mesh_ext.py image-mesh case). Build it with
+    bvh_threshold=1, so the mesh has a BVH."""
+    img = np.linspace(0, 1, 8 * 8 * 3, dtype=np.float32).reshape(8, 8, 3)
+    mat = b.lambertian(tex=b.image_texture(img))
+    rng = np.random.default_rng(seed)
+    tris, uvs = [], []
+    for _ in range(IMAGE_MESH_TRIS):
+        v0 = rng.uniform(-3, 3, 3)
+        tris.append((v0, v0 + rng.uniform(0.2, 1.5, 3),
+                     v0 + rng.uniform(0.2, 1.5, 3)))
+        uvs.append(((0, 0), (1, 0), (0, 1)))
+    b.add_mesh(np.asarray(tris), np.full(IMAGE_MESH_TRIS, mat, np.int32),
+               uvs=np.asarray(uvs), has_uv=np.ones(IMAGE_MESH_TRIS, bool))
+    b.add_light(b.quad((-1, 6, -1), (2, 0, 0), (0, 0, 2),
+                       b.diffuse_light((4, 4, 4))))
+    b.sphere((0, -1003.6, 0), 1000.0, b.lambertian((0.4, 0.4, 0.4)))

@@ -195,12 +195,14 @@ def test_bounce_ref_matches_pallas_kernel_dense_only():
 
 
 def test_unsupported_scenes_raise(scene8):
-    """Outside `supported_ext` nothing falls back: dielectric statics and
-    an image-textured mesh raise."""
+    """Outside `supported_ext` nothing falls back: statics over the media
+    or light caps raise (dielectric, media and image-textured meshes are
+    inside it now, as in the JAX package's `supported_ext`)."""
     js, ts, st, ms, tables, tri_mat = scene8
+    assert tpb.supported_ext_statics(dict(st, has_dielectric=True))
     with pytest.raises(NotImplementedError, match="subset"):
-        tpb.bounce_ref(tables, dict(st, has_dielectric=True), None, None,
-                       None, None, None, None)
-    with pytest.raises(NotImplementedError, match="image"):
-        tpb.mesh_ext_planes(ms, dict(st, has_image=True), tri_mat, None, None,
-                            None, None)
+        tpb.bounce_ref(tables, dict(st, n_media=tpb.MAX_MEDIA + 1), None,
+                       None, None, None, None, None)
+    with pytest.raises(NotImplementedError, match="subset"):
+        tpb.bounce_ref(tables, dict(st, n_lights_live=0), None, None, None,
+                       None, None, None)

@@ -88,11 +88,15 @@ def test_without_gpu_and_without_cpu_flag_fails_clearly(tmp_path):
 
 
 def test_unported_paths_exit_2(tmp_path):
-    """Flags kept for parity but naming unported paths exit 2 with a
-    message, and so do routes a scene cannot run, naming what it has:
-    book2's image textures on the direct-record path."""
-    for extra, word in ((["--integrator", "wavefront"], "ROADMAP"),
-                        (["-S", "8", "--schedule", "positional"], "ROADMAP"),
+    """Flags naming a path a scene or integrator does not have exit 2 with
+    a message, naming what it has: book2's image textures on the
+    direct-record path, the in-kernel queue off the fused kernels, a
+    schedule on the wavefront integrator, the kernels on a scene with
+    triangle lights."""
+    for extra, word in ((["--integrator", "wavefront", "--schedule",
+                          "queue"], "regen"),
+                        (["-S", "8", "--obj", "assets/lanternhouse.obj",
+                          "--backend", "pallas"], "triangle lights"),
                         (["-S", "2", "--direct-rec"], "image textures"),
                         (["-S", "8", "--schedule", "queue_ik"], "ROADMAP")):
         r = run_cli(["-o", str(tmp_path / "x.ppm"), "--cpu", "--width", "8",

@@ -85,3 +85,30 @@ def test_every_cuda_source_is_registered_and_bound():
                           ("traverse8", ("launches",))):
         m = importlib.import_module(f"go_raytracer_tpu_torch.ops.{mod}")
         assert all(getattr(m, c) == 0 for c in counters), mod
+
+
+def test_reference_engine_modules_import_without_a_toolkit():
+    """The reference engine's modules import on a machine without CUDA or
+    a compiler and expose the JAX package's names: vector math, the basis,
+    the samplers, light and texture sampling, the dense trace, the
+    wavefront bounce and radiance, and the renderer."""
+    import importlib
+
+    names = {"core.vecmath": ("dot", "length", "cross", "normalize",
+                              "near_zero", "reflect", "refract"),
+             "core.onb": ("build", "transform"),
+             "core.rng": ("_sqrt0", "unit_vector", "cosine_direction",
+                          "to_sphere", "unit_disk"),
+             "integrator.sampling": ("texture_value", "_quad_light_pdf",
+                                     "_sphere_light_pdf", "_tri_light_pdf",
+                                     "lights_pdf_value", "lights_sample"),
+             "ops.trace": ("Hit", "trace", "media_candidates",
+                           "_sphere_attrs", "_quad_attrs", "_box_attrs",
+                           "_tri_attrs", "CLS_MEDIUM"),
+             "integrator.wavefront": ("clamp_contribution", "_bounce",
+                                      "radiance", "N_FIXED_U", "U_MB"),
+             "render.renderer": ("render", "render_to_file")}
+    for mod, attrs in names.items():
+        m = importlib.import_module(f"go_raytracer_tpu_torch.{mod}")
+        missing = [a for a in attrs if not hasattr(m, a)]
+        assert not missing, (mod, missing)

@@ -193,7 +193,7 @@ def test_no_silent_fallbacks(monkeypatch):
                            device="cpu")
     with pytest.raises(NotImplementedError):
         regen.render_regen(registry.model_example()[0], cam, n_lanes=256,
-                           schedule="positional", device="cpu")
+                           schedule="queue_ik", device="cpu")
     with pytest.raises(ValueError, match="image textures"):
         regen.render_regen(registry.quads_scene()[0], cam, n_lanes=256,
                            direct_rec=True, device="cpu")

@@ -85,7 +85,8 @@ def test_both_routes_render_the_same_image(renders):
 
 def test_lane_cap_and_schedules():
     """The mesh path caps the pool at 65,536 lanes, runs cadence 1 with
-    window = 5 * (max_depth + 1), and refuses the other schedules."""
+    window = 5 * (max_depth + 1), refuses the in-kernel queue and runs
+    `positional` on the reference engine's bounce."""
     ts, tc = registry.model_example()
     tc.width, tc.samples_per_pixel, tc.max_depth = 8, 1, 2
     _, st = regen.render_regen(ts, tc, n_lanes=1 << 17, device="cpu",
@@ -93,10 +94,13 @@ def test_lane_cap_and_schedules():
     assert st["lanes"] == regen.MESH_MAX_LANES == 1 << 16
     assert st["paths"] == 8 * 4 and st["schedule"] == "queue"
     assert st["occupancy"] == st["segments"] / (15 * (1 << 16))
-    for schedule in ("queue_ik", "positional"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            regen.render_regen(ts, tc, n_lanes=4096, device="cpu",
-                               schedule=schedule)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        regen.render_regen(ts, tc, n_lanes=4096, device="cpu",
+                           schedule="queue_ik")
+    _, sp = regen.render_regen(ts, tc, n_lanes=1 << 17, device="cpu",
+                               schedule="positional")
+    assert sp["lanes"] == regen.MESH_MAX_LANES and sp["paths"] == 8 * 4
+    assert sp["schedule"] == "positional" and sp["bounce"] == "wavefront"
 
 
 def far_mesh_scene(bg):

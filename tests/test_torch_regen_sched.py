@@ -338,17 +338,18 @@ def test_queue_ik_occupancy_beats_queue_on_deep_queue():
 
 
 def test_schedule_resolution_and_refusals():
-    """`auto` stays queue_ik on a dense scene; a mesh scene refuses
-    `positional` naming the roadmap item, and an unknown schedule raises."""
+    """`auto` stays queue_ik on a dense scene; a mesh scene runs
+    `positional` on the reference engine's bounce, and an unknown schedule
+    raises."""
     scene, cam = registry.cornell_box()
     cam.width, cam.samples_per_pixel, cam.max_depth = 8, 1, 2
     _, st = regen.render_regen(scene, cam, n_lanes=256, device="cpu")
     assert st["schedule"] == "queue_ik"
     mesh, mcam = registry.model_example()
     mcam.width, mcam.samples_per_pixel = 8, 1
-    with pytest.raises(NotImplementedError, match="XLA-style engine"):
-        regen.render_regen(mesh, mcam, n_lanes=256, schedule="positional",
-                           device="cpu")
+    _, ms = regen.render_regen(mesh, mcam, n_lanes=256, schedule="positional",
+                               device="cpu")
+    assert ms["schedule"] == "positional" and ms["bounce"] == "wavefront"
     with pytest.raises(NotImplementedError):
         regen.render_regen(scene, cam, n_lanes=256, schedule="lifo",
                            device="cpu")

@@ -90,7 +90,7 @@ def test_supported_is_the_cornell_subset():
     with its media, simpleLight with its marble noise, book1 with its
     checker, 389 spheres and defocus, book2 and quads with their image
     textures); scene 8 (a mesh) is outside it and inside the ext-mode
-    kernel's, which refuses the image scenes."""
+    kernel's, which takes what the JAX package's `supported_ext` takes."""
     ok = {treg.SCENES[k][0]: tpb.supported(treg.SCENES[k][1]()[0])
           for k in range(1, 8)}
     assert ok == {"book1": True, "book2": True, "book3": True,
@@ -99,10 +99,11 @@ def test_supported_is_the_cornell_subset():
     for k in (2, 5):
         sc = treg.SCENES[k][1]()[0]
         assert tpb.refused_features(sc) == [] and sc.has_image
-        assert not tpb.supported_ext_statics(tpb.scene_statics(sc, ext=True))
+        assert tpb.supported_ext_statics(tpb.scene_statics(sc, ext=True))
     mesh, _ = treg.model_example()
     assert not tpb.supported(mesh) and tpb.supported_ext(mesh)
-    assert mesh.has_tri_bvh and not tpb.supported_ext(treg.book3()[0])
+    assert mesh.has_tri_bvh and tpb.supported_ext(treg.book3()[0]) \
+        == jpb.supported_ext(jreg.book3()[0])
 
 
 @pytest.mark.parametrize("name", ["simple_light", "book1"])
