@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--parent DIR]
 
 Phases (any failure exits non-zero; nothing is swallowed):
   1. environment: torch / CUDA versions, the card's name and power limit,
@@ -128,25 +128,36 @@ Phases (any failure exits non-zero; nothing is swallowed):
      at most TEX_NONFINITE_MAX non-finite pixel values: the reference's
      own 0/0 weight at an edge-on light sample), and one timed render
      each at `--cadence 8`;
- 23. the staged closest-hit scan: each fused variant's registers, staged
-     shared bytes and resident blocks per SM (at least 4) on the five
-     dense scenes and on the synthetic scan scene at MAX_PRIMS = 4,096 rows
-     (scenes/synthetic.py, lambertian and metal, inactive rows) in two
-     mixes, spheres past the staging budget and quads past it; on book1
-     and both mixes K1, K9, K6 and K8 against their plain versions at one
-     level, and K1 and K9 (on book1 also K6 and K8) at 8 (the queue's
-     outputs exact, the lanes' flags, alive bits and records within phases
-     21-22's fractions, the new rays too at one level), K9 equal to K1 bit
-     for bit, the coincident pair's tie going to the first row, K3 on the
-     scan scenes; and K1's device time per level on each scene (quads
-     and book2 too);
+ 23. the culled closest-hit scan (every section of more than one block
+     of 8 culled, spheres in Morton order, winners by (t,
+     row), the box reciprocals hoisted where no box turns): each fused
+     variant's and K3's registers, spill, staged shared bytes (the scan
+     table's staged prefix) and resident blocks per SM (at least 4) on the
+     seven dense scenes, on the synthetic scan scene at MAX_PRIMS = 4,096
+     rows (scenes/synthetic.py, lambertian and metal, inactive rows) in two
+     mixes, spheres past the staging budget and quads past it, and on the
+     tie scene (the pair's second sphere moving, scanned first); on book1,
+     both mixes and the tie scene K1, K9, K6 and K8 against their plain
+     versions at one level, and K1 and K9 (on book1 also K6 and K8) at 8
+     (the queue's outputs exact, the lanes' flags, alive bits and records
+     within phases 21-22's fractions, the new rays too at one level), K9
+     equal to K1 bit for bit, the coincident pair's tie going to the first
+     row, K3 on the scan scenes, and on the tie scene K3 and its plain
+     version at ray time 0 giving every ray that meets the pair to the
+     first row; the cull bit for bit (rows cleared against rows moved out
+     of reach); K1's device time per level on each scene with its
+     brute-force bound and, on book1 and book2, its culled bound (the
+     plain model's tests on the call's rays); with `--parent DIR`, K1,
+     K9, K6, K8 and K3 held to the parent checkout's kernels on the same
+     inputs (scripts/time_fused_kernels.py --save/--compare);
  24. quads (the earth map on a quad) and book2 (the earth map on a
-     sphere; 1,006 spheres, 400 boxes of which 5 are read from global
-     memory, glass, two sphere media): their staged rows against the
+     sphere; 1,006 spheres, 400 boxes, all staged, glass, two
+     sphere media): their staged bytes against the
      kernel's shared memory, K1, K6 and K8 against their plain versions
      on an aged pool as in phase 21 with each call's image lanes counted
      and their texels held (TEXEL_MOVED_FRAC), K9 refusing both, the three
-     kernels timed with their bounds, both scenes at their registry
+     kernels timed with their bounds (book2 also its culled bound), both
+     scenes at their registry
      configuration (quads 400x400, book2 800x800, 100 spp, depth 50 and
      40, 131072 lanes) through `cli.main` under `queue_ik`, `--schedule
      queue` and `--schedule positional` with phase 22's gates, and
@@ -160,7 +171,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
      (synthetic.image_mesh), at 65536 lanes: against its plain version on
      camera rays and one level later (flag words within each scene's
      flip fraction, image lanes' texels within TEXEL_MOVED_FRAC), then
-     timed (CUDA events and the profile's device time) with its bound,
+     timed (CUDA events and the profile's device time) with its bound
+     (book1 and book2 also their culled bound),
      registers, staged bytes and spill per variant;
  26. the reference engine's paths through `cli.main`, launch counts set to
      0 before each and read after: the slice's main path, cornellBox
@@ -178,7 +190,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
      wavefront integrator and the two ext meshes through `render_regen`,
      counting K3's launches per feature set;
 then the `kernels` JSON line (K1-K12; K1, K6 and K8 name their image
-variant, K3 its feature sets), the nvidia-smi line, and the final
+variant, K3 its feature sets, K6 and K8 their redesign), the
+nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -223,6 +236,12 @@ K1_OPS_PER_SEGMENT = 480
 OPS_PER_SEGMENT = {"cornell_box": K1_OPS_PER_SEGMENT, "book3": 560,
                    "cornell_smoke": 470, "simple_light": 2000,
                    "book1": 12000, "quads_scene": 700, "book2": 42000}
+# the same counts outside the closest-hit scan, for the scenes the kernels
+# cull (book1: shading, the sun's sample and pdf, the checker, metal and
+# glass; book2: the media, shading, the light's sample and pdf, the
+# dielectric and the marble): the culled bound adds them to the scan's
+# tests that the plain model counts on the timed rays (`culled_ops`)
+NONSCAN_OPS = {"book1": 275, "book2": 790}
 # the new scenes' registry configurations: (-S number, mean path length)
 NEW_SCENES = {"book3": (3, 5.54), "cornell_smoke": (7, 2.91)}
 # the textured scenes' (phase 22): simpleLight's marble noise, book1's
@@ -307,6 +326,12 @@ K3_OPS_PER_SEGMENT = 300
 K3_EXT_OPS = {"scene8": K3_OPS_PER_SEGMENT, "glass_fog": 410,
               "image_mesh": 235}
 SCENE8_PATHS = 600 * 337 * 225
+# what the kernels line says of K6 and K8
+REDESIGN_SCAN = ("redesigned: the closest-hit scan of "
+                 "bounce_core.cuh over tight, culled blocks of every "
+                 "section (spheres in Morton order), winners by (t, row), "
+                 "the box reciprocals hoisted; timed per scene in phases "
+                 "22-24")
 
 
 def fail(msg):
@@ -425,12 +450,55 @@ def plain_versions(bounce, harvest, stream, traverse8):
          harvest.harvest_levels_into) = saved
 
 
-def fused_bound(nbytes, segs, scene="cornell_box"):
+def fused_bound(nbytes, segs, scene="cornell_box", ops=None):
     """(bound in ms, "bytes" or "operations") of a fused bounce call that
-    moves `nbytes` and traces `segs` segments of `scene`."""
+    moves `nbytes` and traces `segs` segments of `scene`, at `ops` float
+    operations a segment (default the brute-force count of the scene,
+    OPS_PER_SEGMENT)."""
     b = nbytes / HBM_BYTES_PER_S
-    o = segs * OPS_PER_SEGMENT[scene] / FP32_OPS_PER_S
+    o = segs * (OPS_PER_SEGMENT[scene] if ops is None else ops) \
+        / FP32_OPS_PER_S
     return max(b, o) * 1e3, "bytes" if b >= o else "operations"
+
+
+def bounce_rays(bounce, run_ref):
+    """The rays that enter the bounce of each level of `run_ref()` (a call
+    of a fused kernel's plain version): [(ox, oy, oz, dx, dy, dz, tm,
+    alive)], captured around the plain core."""
+    core = bounce._bounce_core_ref
+    got = []
+
+    def capture(st_, prims, lights, bg_, ox, oy, oz, dx, dy, dz, alive, u,
+                tm=None, **kw):
+        got.append((ox, oy, oz, dx, dy, dz, tm, alive.clone()))
+        return core(st_, prims, lights, bg_, ox, oy, oz, dx, dy, dz, alive,
+                    u, tm=tm, **kw)
+
+    bounce._bounce_core_ref = capture
+    try:
+        run_ref()
+    finally:
+        bounce._bounce_core_ref = core
+    return got
+
+
+def culled_ops(bounce, tables, statics, rays):
+    """Float operations per segment of the culled scan on these rays
+    [(ox, oy, oz, dx, dy, dz, tm, alive)]: the tests the plain model of the
+    kernels' scan makes (`closest_culled_ref`, `scan_ops`), over the alive
+    lanes of every level. The culled bound counts these beside the rest of
+    the bounce (NONSCAN_OPS)."""
+    import torch
+    lay, _ = bounce.scan_tables(tables[0], statics)
+    total, segs = 0.0, 0
+    with torch.no_grad():
+        for *ray, alive in rays:
+            stats = {}
+            bounce.closest_culled_ref(statics, tables[0], *ray, layout=lay,
+                                      stats=stats)
+            total += float(bounce.scan_ops(lay, stats)[alive].sum())
+            segs += int(alive.sum())
+    return total / max(segs, 1)
 
 
 def aged_state(run, state, calls=8):
@@ -467,19 +535,20 @@ def cornell_inputs(dev, n, seed=0, scene="cornell_box"):
     return scene, cam, tables, statics, cam_row, bg, state
 
 
-def scan_inputs(dev, n, n_sph, n_quad, n_box, seed=0):
+def scan_inputs(dev, n, n_sph, n_quad, n_box, seed=0, moving_pair=False):
     """The synthetic scan scene (scenes/synthetic.py: the coincident pair
     first, lambertian and metal spheres, some moving, quads, rotated
     boxes, every INACTIVE_EVERY-th row cleared to kind -1), no dielectric,
     with its camera and a mixed lane state of rays among its primitives,
-    as cornell_inputs returns them."""
+    as cornell_inputs returns them; `moving_pair`: the tie scene."""
     import numpy as np
     import torch
     from go_raytracer_tpu_torch.ops import bounce
     from go_raytracer_tpu_torch.scenes import synthetic as syn
 
     scene, cam, tabs, statics = syn.build(n_sph, n_quad, n_box, seed=seed,
-                                          dielectric=False)
+                                          dielectric=False,
+                                          moving_pair=moving_pair)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     state = [to(x) for x in syn.lane_state(n, seed + 1)]
     return (scene, cam, tuple(to(t) for t in tabs), statics,
@@ -488,6 +557,14 @@ def scan_inputs(dev, n, n_sph, n_quad, n_box, seed=0):
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="another checkout (the parent commit, "
+                    "unpacked into a git-ignored directory): phase 23 then "
+                    "holds the fused kernels' and K3's outputs to its "
+                    "kernels' on the same inputs "
+                    "(scripts/time_fused_kernels.py --save/--compare)")
+    args = ap.parse_args()
     try:
         import numpy as np
         import torch
@@ -2704,10 +2781,10 @@ def main():
             t["K9 plain"] = time_ms(lambda: bounce.bounce_fused_q_direct_ref(
                 tab_s, st_s, row_s, bg_s, seed_s, base_s, bufs_s, *st0_s,
                 out=o_s, **kw_s), 3)
-        b1 = fused_bound(n * (36 + 36) + cad_s * n * 16 + tb_bytes
-                         + texel_bytes(bounce.bounce_fused_q_ref, tab_s,
-                                       st_s, row_s, bg_s, seed_s, *st0_s,
-                                       out=o_s, **kw_s), segs_s, sc)
+        by1 = n * (36 + 36) + cad_s * n * 16 + tb_bytes + texel_bytes(
+            bounce.bounce_fused_q_ref, tab_s, st_s, row_s, bg_s, seed_s,
+            *st0_s, out=o_s, **kw_s)
+        b1 = fused_bound(by1, segs_s, sc) + (by1,)
         f_kw = dict(has_defocus=dfc, max_depth=50, n_inner=cad_s)
         nxt_s = [0]
 
@@ -2729,10 +2806,10 @@ def main():
         segs6s = int(o6s.seg.sum())
         t["K6 plain"] = time_ms(lambda: bounce.bounce_fused_ref(
             tab_s, st_s, row_s, bg_s, seed6, *st6s, *r6s, out=o6s, **f_kw), 3)
-        b6 = fused_bound(n * (36 + 20 + 36) + cad_s * n * 16 + tb_bytes
-                         + texel_bytes(bounce.bounce_fused_ref, tab_s, st_s,
-                                       row_s, bg_s, seed6, *st6s, *r6s,
-                                       out=o6s, **f_kw), segs6s, sc)
+        by6 = n * (36 + 20 + 36) + cad_s * n * 16 + tb_bytes + texel_bytes(
+            bounce.bounce_fused_ref, tab_s, st_s, row_s, bg_s, seed6, *st6s,
+            *r6s, out=o6s, **f_kw)
+        b6 = fused_bound(by6, segs6s, sc) + (by6,)
         q_s, lb_s, _, _ = regen.pos_tables(npix_s, sq_s * sq_s, n)
         o8s = bounce.FusedOut.empty(n, cad_s, dev, positional=True)
         p_kw = dict(width=w_s, sqrt_spp=sq_s, **f_kw)
@@ -2745,10 +2822,10 @@ def main():
         segs8s = int(o8s.seg.sum())
         t["K8 plain"] = time_ms(lambda: bounce.bounce_fused_pos_ref(
             tab_s, st_s, row_s, bg_s, seed8s, *st8s, out=o8s, **p_kw), 3)
-        b8 = fused_bound(n * (56 + 56) + cad_s * n * 32 + tb_bytes
-                         + texel_bytes(bounce.bounce_fused_pos_ref, tab_s,
-                                       st_s, row_s, bg_s, seed8s, *st8s,
-                                       out=o8s, **p_kw), segs8s, sc)
+        by8 = n * (56 + 56) + cad_s * n * 32 + tb_bytes + texel_bytes(
+            bounce.bounce_fused_pos_ref, tab_s, st_s, row_s, bg_s, seed8s,
+            *st8s, out=o8s, **p_kw)
+        b8 = fused_bound(by8, segs8s, sc) + (by8,)
         k9_txt = ("K9 refuses the scene" if image else
                   f"K9 {t['K9']:.4f} ms, plain {t['K9 plain']:.3f} ms")
         print(f"[{tag}] {sc}, {n} lanes x {cad_s} level(s) per call, on "
@@ -2761,6 +2838,21 @@ def main():
               f"{b8[0]:.4f} ms ({b8[1]}); {OPS_PER_SEGMENT[sc]} operations "
               f"per segment")
         t.update({"K1 bound": b1, "K6 bound": b6, "K8 bound": b8})
+        if sc in NONSCAN_OPS:
+            # the culled bound: the tests the plain model of the kernels'
+            # scan makes on the rays of K1's timed call, and the rest
+            rays1 = bounce_rays(bounce, lambda: bounce.bounce_fused_q_ref(
+                tab_s, st_s, row_s, bg_s, seed_s, *st0_s, out=o_s, **kw_s))
+            c_ops = culled_ops(bounce, tab_s, st_s, rays1) + NONSCAN_OPS[sc]
+            c1, c6, c8 = (fused_bound(by, sg, sc, c_ops) for by, sg in (
+                (b1[2], segs_s), (b6[2], segs6s), (b8[2], segs8s)))
+            print(f"[{tag}] {sc}: culled bounds (the plain model's tests on "
+                  f"K1's timed rays, {c_ops:.0f} operations a segment "
+                  f"against the brute force's {OPS_PER_SEGMENT[sc]}): K1 "
+                  f"{c1[0]:.4f} ms ({c1[1]}), K6 {c6[0]:.4f} ({c6[1]}), K8 "
+                  f"{c8[0]:.4f} ({c8[1]})")
+            t.update({"culled ops": c_ops, "K1 culled bound": c1,
+                      "K6 culled bound": c6, "K8 culled bound": c8})
         return t
 
     # K1, K9, K6 and K8 timed on both scenes at their registry cadence,
@@ -2803,6 +2895,10 @@ def main():
                  "scan_quads": (200, 1800, 2096)}
     scan_in = {nm: scan_inputs(dev, n, *cnt, seed=23)
                for nm, cnt in scan_sets.items()}
+    # the tie scene: the pair's second sphere moves away from the first
+    # over the ray time, so the kernels' Morton order scans it first; at
+    # ray time 0 the first must still win
+    scan_in["tie"] = scan_inputs(dev, n, 40, 2, 1, seed=23, moving_pair=True)
     dense23 = {sc: cornell_inputs(dev, n, scene=sc)
                for sc in ("cornell_box", "book3", "cornell_smoke",
                           "simple_light", "book1", "quads_scene", "book2")}
@@ -2811,7 +2907,9 @@ def main():
     for sc, inp in all23.items():
         st_i = inp[3]
         feat = bounce.fused_features(st_i)
-        cnt = (st_i["n_sph"], st_i["n_quad"], st_i["n_box"])
+        # the scan table's sections (inactive spheres and boxes left out)
+        lay_i, _ = bounce.scan_tables(inp[2][0], st_i)
+        cnt = lay_i.counts
         libs23 = [("bounce_fused_q", "K1/K9"), ("bounce_fused", "K6"),
                   ("bounce_fused_pos", "K8")]
         if bounce.supported_ext_statics(st_i):
@@ -2827,8 +2925,16 @@ def main():
             check(lib == "bounce" or inf["blocks_per_sm"] >= 4,
                   f"{sc} {kname}: {inf['blocks_per_sm']} resident blocks "
                   f"per SM (the staged geometry must leave 4)")
+        culled = [nm for nm, c in zip(("spheres", "quads", "boxes"), cnt)
+                  if c > bounce.SCAN_BLOCK]
         print(f"[23] {sc} ({cnt[0]} spheres, {cnt[1]} quads, {cnt[2]} boxes;"
-              f" variant {feat}): " + "; ".join(parts))
+              f" variant {feat}; culled sections {culled or 'none'}, box "
+              f"reciprocals {'per row' if lay_i.rot else 'hoisted'}; scan "
+              f"table {lay_i.table.shape[0] * 16} B, {lay_i.stage_bytes} B "
+              f"staged): " + "; ".join(parts))
+        check(inf["dynamic_smem"] == lay_i.stage_bytes,
+              f"{sc}: staged bytes {inf['dynamic_smem']} != "
+              f"{lay_i.stage_bytes}")
 
     def hold_scan(name, inp, levels, frac, tex=False, fused=True):
         """K1 and K9 (and with `fused` K6 and K8) against their plain
@@ -2993,7 +3099,7 @@ def main():
         for lv in (1, 8):
             hold_cull(sc, all23[sc], lv)
 
-    for sc in ("book1", *scan_sets):
+    for sc in ("book1", *scan_sets, "tie"):
         frac23 = TEX_MISMATCH_FRAC["book1"] if sc == "book1" \
             else K1_MISMATCH_FRAC
         k_o1, _ = hold_scan(sc, all23[sc], 1, frac23, tex=sc in TEX_SCENES)
@@ -3001,6 +3107,36 @@ def main():
         # K1 and K9 (K6 and K8 run the same scan, held above at one level)
         hold_scan(sc, all23[sc], 8, frac23, tex=sc in TEX_SCENES,
                   fused=sc == "book1")
+        if sc == "tie":
+            # K3 and its plain version on camera rays at ray time 0 aimed
+            # at the pair: every one that meets it emits the first row's
+            # colour, none the second's
+            _, _, tab_s, st_s, _, bg_s, _ = all23[sc]
+            order = bounce.scan_tables(tab_s[0], st_s)[0].order[0].tolist()
+            g_t = torch.Generator(dev).manual_seed(231)
+            o_t = torch.tensor([[0.0, 50.0, 20.0]], device=dev).expand(
+                n, 3).contiguous()
+            aim = torch.rand((n, 3), generator=g_t, device=dev) * 6.0 - 3.0
+            d_t = (torch.tensor([0.0, 50.0, 0.0], device=dev) + aim
+                   * torch.tensor([1.0, 1.0, 0.0], device=dev) - o_t)
+            tm0 = torch.zeros(n, device=dev)
+            alive_t = torch.ones(n, dtype=torch.bool, device=dev)
+            u_t = torch.rand((n, bounce.N_U), generator=g_t, device=dev)
+            first_c = torch.tensor(syn.TIE_FIRST, device=dev)
+            second_c = torch.tensor(syn.TIE_SECOND, device=dev)
+            where = "before" if order.index(1) < order.index(0) else "after"
+            for what, fn in (("K3", bounce.bounce),
+                             ("K3 plain", bounce.bounce_ref)):
+                e_t = fn(tab_s, st_s, o_t, d_t, tm0, alive_t, u_t, bg_s)[0]
+                torch.cuda.synchronize()
+                n1 = int((e_t == first_c).all(1).sum())
+                n2 = int((e_t == second_c).all(1).sum())
+                print(f"[23] tie: {what} at ray time 0, the second sphere "
+                      f"(row 1) scanned {where} the first: {n1} of {n} rays "
+                      f"emit the first row's colour, {n2} the second's")
+                check(order.index(1) < order.index(0) and n1 > n // 4
+                      and n2 == 0, f"tie: {what} did not give the tie to "
+                      f"the first row")
         if sc in scan_sets:
             # the coincident pair: every camera ray that meets it emits the
             # first row's colour
@@ -3086,35 +3222,94 @@ def main():
                     if lvl_n == 10 * cad_s else
                     f"device time not measured (the profile holds {lvl_n} "
                     f"of {10 * cad_s} level launches)")
+        # both bounds a level: the brute-force work (every row of every
+        # section, OPS_PER_SEGMENT) and, on a scene the kernels cull, the
+        # tests the plain model of the scan makes on this call's rays
+        segs23 = int(o_s.seg.sum())
+        by23 = n * 72 + cad_s * n * 16 + sum(
+            t_.numel() * t_.element_size() for t_ in tab_s[:4])
+        bnd_txt = "no bound (not a registry scene)"
+        if sc in OPS_PER_SEGMENT:
+            bb = fused_bound(by23, segs23, sc)
+            bnd_txt = (f"brute-force bound {bb[0] * 1e3 / cad_s:.2f} us a "
+                       f"level ({bb[1]})")
+        if sc in NONSCAN_OPS:
+            c_ops = culled_ops(bounce, tab_s, st_s, bounce_rays(
+                bounce, lambda: bounce.bounce_fused_q_ref(
+                    tab_s, st_s, row_s, bg_s, seed_s, *st0_s,
+                    out=bounce.FusedQOut.empty(n, cad_s, dev), **kw_s))) \
+                + NONSCAN_OPS[sc]
+            cb = fused_bound(by23, segs23, sc, c_ops)
+            bnd_txt += (f", culled bound {cb[0] * 1e3 / cad_s:.2f} us "
+                        f"({cb[1]}: {c_ops:.0f} operations a segment)")
         print(f"[23] {sc}: K1 {prof_txt}; {ev_ms * 1e3:.2f} us per level "
               f"between CUDA events ({cad_s} level(s) a call, {n} lanes, "
-              f"aged pool, {int(o_s.seg.sum())} segments a call) on {card}")
+              f"aged pool, {segs23} segments a call); {bnd_txt}; on {card}")
+
+    if args.parent:
+        # the kernels' outputs against the parent's on the same inputs:
+        # K1, K9, K6, K8 and K3 on the registry scenes and the scan mixes
+        # (scripts/time_fused_kernels.py): every differing element counted,
+        # and those beyond rtol = atol = 2e-3 (an integer plane's: every
+        # differing one) within the scene's flip fraction of the lanes
+        tfk = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "scripts", "time_fused_kernels.py")
+        scenes_p = ["cornell_box", "book3", "cornell_smoke", "simple_light",
+                    "book1", "quads_scene", "book2", "scan_spheres",
+                    "scan_quads"]
+        saved_p = os.path.join(out_dir, "kernels_parent.pt")
+        outs_p = {}
+        for tag_p, extra in (("parent", ["--repo", args.parent, "--save",
+                                         saved_p]),
+                             ("change", ["--compare", saved_p])):
+            js_p = os.path.join(out_dir, f"time_fused_{tag_p}.json")
+            run_p = subprocess.run(
+                [sys.executable, tfk, "--scene", *scenes_p, "--out", js_p]
+                + extra, capture_output=True, text=True, timeout=1200)
+            check(run_p.returncode == 0, f"time_fused_kernels.py ({tag_p}) "
+                  f"failed: {run_p.stderr[-2000:]}")
+            with open(js_p) as fh:
+                outs_p[tag_p] = json.load(fh)
+        fracs = {**TEX_MISMATCH_FRAC, **IMG_MISMATCH_FRAC,
+                 "book3": DIEL_MISMATCH_FRAC}
+        for key, diffs in sorted(outs_p["change"].get("compare", {}).items()):
+            sc_p, k_p = key.split("/")
+            dev_p = outs_p["parent"]["scenes"][sc_p][k_p]["device_us"]
+            dev_c = outs_p["change"]["scenes"][sc_p][k_p]["device_us"]
+            frac_p = fracs.get(sc_p, K1_MISMATCH_FRAC)
+            worst_p = max((f / n for _, c, _, f in diffs
+                           if isinstance(c, int)), default=0.0)
+            print(f"[23] {key} against the parent's kernel on its inputs: "
+                  + ("bit for bit" if not diffs else "; ".join(
+                      f"plane {i} {c} elements differ (largest {m}, {f} "
+                      f"beyond 2e-3)" for i, c, m, f in diffs))
+                  + f"; device {dev_c} us (parent {dev_p}) on {card}")
+            check(all(isinstance(c, int) for _, c, _, _ in diffs)
+                  and worst_p <= frac_p,
+                  f"{key}: {worst_p} of the lanes differ from the parent's "
+                  f"kernel (limit {frac_p})")
 
     # ---- 24. quads and book2: image textures read inside K1, K6, K8 -----
     phase_start(24)
-    # book2 is the first registry scene that does not stage whole: the
-    # staged prefix of each section (bounce_core.cuh `stage_layout`), held
-    # against the dynamic shared memory the kernel launches with
+    # the staged prefix of the scan table (bounce_core.cuh `stage_layout`:
+    # each section's block bounds and rows; book2's whole
+    # table, 57,104 B), held against the dynamic shared memory the kernel
+    # launches with
     for sc in IMG_SCENES:
         st_i = dense23[sc][3]
-        cnt = (st_i["n_sph"], st_i["n_quad"], st_i["n_box"])
-        room = 54 * 1024 // 16
-        sph = min(cnt[0], room // 18 * 8)
-        blk = -(-sph // 8)
-        room -= blk * 18
-        quad = min(cnt[1], room // 3)
-        room -= quad * 3
-        box = min(cnt[2], room // 3)
-        stage_b = (blk * 18 + quad * 3 + box * 3) * 16
+        lay_i, _ = bounce.scan_tables(dense23[sc][2][0], st_i)
+        cnt = lay_i.counts
+        total_b = lay_i.table.shape[0] * 16
         inf = _cuda.kernel_info("bounce_fused_q", bounce.fused_features(st_i),
                                 *cnt)
-        print(f"[24] {sc}: staged {sph} of {cnt[0]} spheres ({blk} blocks), "
-              f"{quad} of {cnt[1]} quads, {box} of {cnt[2]} boxes in "
-              f"{stage_b} B (the kernel's {inf['dynamic_smem']} B); rows "
-              f"read from global memory: {cnt[0] - sph} spheres, "
-              f"{cnt[1] - quad} quads, {cnt[2] - box} boxes")
-        check(stage_b == inf["dynamic_smem"],
-              f"{sc}: staged bytes {inf['dynamic_smem']} != {stage_b}")
+        print(f"[24] {sc}: {cnt[0]} spheres, {cnt[1]} quads, {cnt[2]} boxes;"
+              f" scan table {total_b} B, {lay_i.stage_bytes} B staged (the "
+              f"kernel's {inf['dynamic_smem']} B), "
+              f"{total_b - lay_i.stage_bytes} B read from global memory")
+        check(lay_i.stage_bytes == inf["dynamic_smem"]
+              and (sc != "book2" or lay_i.stage_bytes == total_b),
+              f"{sc}: staged bytes {inf['dynamic_smem']} != "
+              f"{lay_i.stage_bytes}, or book2's table not staged whole")
     # K1, K6 and K8 against their plain versions on an aged pool, their
     # texels held; K9 refuses the scenes
     img_texels = {sc: hold_dense_scene("24", sc, IMG_MISMATCH_FRAC[sc],
@@ -3175,7 +3370,7 @@ def main():
         return None if queued_s > 0.05 else t0.elapsed_time(t1) / reps
 
     def k3_case(tag, tables_, st_, bg_, rays, frac, ext_fn=None,
-                texel_frac=None, ops=None, levels=2):
+                texel_frac=None, ops=None, levels=2, nonscan=None):
         """K3 against `bounce_ref` on `levels` levels of one pool (camera
         rays, a tenth of the lanes dead; the next level on the kernel's
         rays), then K3 timed on the last level's inputs. Flag words
@@ -3254,6 +3449,14 @@ def main():
                    plain_ms=plain_ms, bound_ms=max(b_ms, o_ms),
                    bound_by="bytes" if b_ms >= o_ms else "operations",
                    err=worst["err"], info=info)
+        if nonscan is not None:
+            # the culled bound: the plain model's tests on the timed rays
+            c_ops = culled_ops(bounce, tables_, st_, [(
+                o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t,
+                alive)]) + nonscan
+            row["culled_bound_ms"] = max(b_ms, segs * c_ops / FP32_OPS_PER_S
+                                         * 1e3)
+            row["culled_ops"] = c_ops
         dev_txt = (f"{dev_ms:.5f} ms on the device (queued back to back)"
                    if dev_ms is not None else "device time not measured")
         print(f"[25] K3 {tag} (variant {feat}{', ext' if ext else ''}, "
@@ -3267,7 +3470,11 @@ def main():
               + f"; {ms:.5f} ms per call between CUDA events, {dev_txt}, "
               f"plain {plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
               f"({row['bound_by']}: {nbytes} B, {ops} operations per alive "
-              f"lane); {info['registers']} registers, "
+              f"lane)"
+              + (f", culled bound {row['culled_bound_ms']:.5f} ms "
+                 f"({row['culled_ops']:.0f} operations per alive lane, the "
+                 f"plain model's tests)" if nonscan is not None else "")
+              + f"; {info['registers']} registers, "
               f"{info['dynamic_smem']} B staged, {info['blocks_per_sm']} "
               f"blocks/SM, {info['local_bytes']} B local (spill) per thread;"
               f" on {card}; the case took {time.perf_counter() - c0:.1f} s")
@@ -3301,7 +3508,8 @@ def main():
                            device=dev)
         k3_rows[sc] = k3_case(
             sc, tab_, st_, bg_, camera_pool(cam_, 131072, 25), frac,
-            texel_frac=TEXEL_MOVED_FRAC.get(sc), ops=OPS_PER_SEGMENT[sc])
+            texel_frac=TEXEL_MOVED_FRAC.get(sc), ops=OPS_PER_SEGMENT[sc],
+            nonscan=NONSCAN_OPS.get(sc))
 
     def ext_planes_of(ctx):
         def fn(o, d, t, alive):
@@ -3553,7 +3761,8 @@ def main():
          "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_ms,
          "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by,
          "library_ms": None,
-         "variants": img_variant["bounce_fused"]},
+         "variants": img_variant["bounce_fused"],
+         "redesign": REDESIGN_SCAN},
         {"name": "reverse_harvest", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/harvest_rows.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/harvest.py:225",
@@ -3566,7 +3775,8 @@ def main():
          "launches": k8_launches, "max_abs_err": k8_err, "ms": k8_ms,
          "plain_ms": k8_plain_ms, "bound_ms": k8_bound, "bound_by": k8_by,
          "library_ms": None,
-         "variants": img_variant["bounce_fused_pos"]},
+         "variants": img_variant["bounce_fused_pos"],
+         "redesign": REDESIGN_SCAN},
         {"name": "bounce_fused_q_direct", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_q.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:2343",

@@ -165,9 +165,9 @@ def fused_features(st: dict) -> int:
     has a scale column or the scene has images; bit 5 (FEAT_IMG) the image
     texel read inside the kernel, only ever with bit 3. A scene without
     spheres, fr column, media and textures runs the core compiled without
-    them. The kernels (`bounce` too) add bit 4, the sphere cull of the
-    staged scan, themselves, for a table with more than one block of 8
-    staged spheres (csrc/fused_common.cuh)."""
+    them. The kernels (`bounce` too) add bit 4, the cull of the scan,
+    themselves, for a table of which some section holds more than one
+    block of SCAN_BLOCK rows (csrc/fused_common.cuh)."""
     lay = _mat_layout(st)
     return ((1 if st["n_sph"] else 0)
             | (2 if "fr" in lay else 0)
@@ -610,6 +610,466 @@ def _image_albedo(images, is_img, img_f, is_sph, out_n, quad_uv):
             torch.where(is_img, idx, -1))
 
 
+# ---- the closest-hit scan: the brute-force plain version, and the CUDA
+# kernels' culled scan and its plain model -----------------------------------
+#
+# The CUDA kernels (csrc/bounce_core.cuh) scan a table built here once per
+# scene (`scan_layout`): each section's rows in the scan's order, in blocks
+# of SCAN_BLOCK, each block led by the bounds of its rows. Spheres of more
+# than one block in the Morton order of their swept boxes' centres (the JAX
+# package's `pack_scene(cull=True)` key), quads and boxes in declaration
+# order (on book2's grid of boxes a warp needs fewer blocks so:
+# scripts/sim_sphere_cull.py); spheres and boxes carry their declaration
+# row, and inactive ones are left out. A section of more than one block is
+# culled: a block whose padded bounds the ray cannot meet in (T_MIN,
+# t_best] is skipped. A row takes the winner's place when it is nearer, or
+# as near and declared earlier, so the winner is the declaration-order
+# scan's whatever the order (`closest_culled_ref` is the plain model the
+# tests hold to `closest_ref`).
+SCAN_BLOCK = 8
+SCAN_F4 = (2, 3, 3)        # float4s of a staged sphere, quad and box row
+SCAN_PAD = 4e-3            # CULL_PAD of csrc/bounce_core.cuh
+# a lane whose direction's largest component is below this scans every
+# block (the cull's proof bounds t by that component)
+SCAN_MIN_D = 2.0 ** -64
+# the dynamic shared memory the kernels stage the scan table in, bytes
+# (STAGE_BYTES of csrc/bounce_core.cuh)
+STAGE_BYTES = 56 * 1024 - 128
+
+
+def _morton30(p, lo, ext):
+    """30-bit Morton code of float32 points (N, 3) in the box [lo, lo +
+    ext), as the JAX package's `pack_scene` computes it."""
+    from go_raytracer_tpu_torch.ops.trace import _part1by2
+
+    q = np.clip((p - lo) / ext * np.float32(1024.0), 0.0,
+                1023.0).astype(np.int32)
+    return (_part1by2(q[:, 0]) << 2) | (_part1by2(q[:, 1]) << 1) \
+        | _part1by2(q[:, 2])
+
+
+def _row_bounds(prims, st, sec):
+    """(rows, lo, hi, active) of section `sec` (0 spheres, 1 quads, 2
+    boxes): its declaration rows and each row's world box, float32. A
+    sphere's box holds it over the motion, radius |r|; a quad's is the hull
+    of the corners its packed columns describe (alpha, beta in {0, 1} on
+    its plane, solved in float64 and rounded outward); a box's the hull of
+    its rotated corners plus the offset (the JAX package's formula)."""
+    base, n = ((st["sph_base"], st["n_sph"]), (st["quad_base"], st["n_quad"]),
+               (st["box_base"], st["n_box"]))[sec]
+    rows = np.arange(base, base + n, dtype=np.int64)
+    g = prims[rows]
+    act = g[:, 0] >= 0.0
+    lo = np.zeros((n, 3), np.float32)
+    hi = np.zeros((n, 3), np.float32)
+    if sec == 0:
+        c0 = g[:, 1:4]
+        c1 = c0 + g[:, 4:7]
+        r = np.abs(g[:, 7:8])
+        lo, hi = np.minimum(c0, c1) - r, np.maximum(c0, c1) + r
+    elif sec == 1 and act.any():
+        q = g[act].astype(np.float64)
+        m = np.stack([q[:, 5:8], q[:, 8:11], q[:, 1:4]], axis=1)
+        corners = np.stack([np.linalg.solve(m, np.stack(
+            [q[:, 11] + a, q[:, 12] + b, q[:, 4]], axis=1)[..., None])[..., 0]
+            for a in (0.0, 1.0) for b in (0.0, 1.0)])
+        lo[act] = np.nextafter(corners.min(axis=0).astype(np.float32),
+                               np.float32(-np.inf))
+        hi[act] = np.nextafter(corners.max(axis=0).astype(np.float32),
+                               np.float32(np.inf))
+    elif sec == 2:
+        cs, sn = g[:, 7], g[:, 8]
+        pts = []
+        for m in range(8):
+            x = np.where(m & 1, g[:, 4], g[:, 1])
+            y = np.where(m & 2, g[:, 5], g[:, 2])
+            z = np.where(m & 4, g[:, 6], g[:, 3])
+            pts.append(np.stack([cs * x + sn * z, y, -sn * x + cs * z],
+                                axis=1) + g[:, 9:12])
+        pts = np.stack(pts)
+        lo, hi = pts.min(axis=0), pts.max(axis=0)
+    return rows, lo.astype(np.float32), hi.astype(np.float32), act
+
+
+@dataclasses.dataclass
+class ScanLayout:
+    """The culled scan's table of a packed primitive table (`scan_layout`).
+    Per section (spheres, quads, boxes): `order`, the declaration rows it
+    scans in their order; `lo`, `hi` (nb, 3) and `pad` (nb,), the bounds
+    of each block of SCAN_BLOCK of them and SCAN_PAD times their size
+    (|centre|_1 + |half extent|_1); `row_lo`, `row_hi`, each scanned row's
+    own box. `rot`: some box is rotated or offset (the kernels' box test
+    then turns the ray per row; otherwise its reciprocals are hoisted).
+    `table` (n_f4, 4) float32: per section the blocks' bounds {lo, pad}
+    {hi, 0}, then the rows: sphere {c0, r^2} {cd, row}, quad {normal
+    (zero: inactive), D} {alpha row, alpha0} {beta row, beta0}, box {lo,
+    cos} {hi, sin} {offset, row}."""
+    order: tuple
+    lo: tuple
+    hi: tuple
+    pad: tuple
+    row_lo: tuple
+    row_hi: tuple
+    rot: bool
+    table: np.ndarray
+
+    @property
+    def counts(self):
+        return tuple(len(o) for o in self.order)
+
+    @property
+    def stage_bytes(self):
+        """The kernels' staged prefix of `table`, bytes (`stage_layout`)."""
+        return min(self.table.shape[0], STAGE_BYTES // 16) * 16
+
+
+def scan_layout(prims, st, sphere_order: str = "morton",
+                box_order: str = "decl", pad: float = SCAN_PAD) -> ScanLayout:
+    """The culled scan's table of `prims` (a packed table, numpy or a
+    tensor) and its statics. The kernels take the defaults; "decl"
+    spheres give the declaration-order scan (scripts/check_cull_host.py's
+    reference), "morton" boxes sort the boxes as the spheres
+    (scripts/sim_sphere_cull.py's comparison), and `pad` replaces SCAN_PAD
+    (the host check's mutation)."""
+    prims = np.ascontiguousarray(
+        prims.detach().cpu().numpy() if isinstance(prims, torch.Tensor)
+        else prims, np.float32)
+    order, los, his, pads, rlo, rhi, parts = [], [], [], [], [], [], []
+    rot = False
+    for sec in range(3):
+        rows, lo, hi, act = _row_bounds(prims, st, sec)
+        keep = act if sec != 1 else np.ones_like(act)
+        # (a section of one block keeps its declaration order)
+        if act.sum() > SCAN_BLOCK and (
+                (sec == 0 and sphere_order == "morton")
+                or (sec == 2 and box_order == "morton")):
+            if act.any():
+                blo, bhi = lo[act].min(axis=0), hi[act].max(axis=0)
+                ext = np.maximum(bhi - blo, np.float32(1e-6))
+                key = np.where(act, _morton30(
+                    np.float32(0.5) * (lo + hi), blo, ext), 1 << 30)
+                perm = np.argsort(key, kind="stable")
+            else:
+                perm = np.arange(len(rows))
+            perm = perm[keep[perm]]
+        else:
+            perm = np.nonzero(keep)[0]
+        rows, lo, hi, act = rows[perm], lo[perm], hi[perm], act[perm]
+        g = prims[rows]
+        if sec == 2:
+            rot = rot or bool(((g[:, 7] != 1.0) | (g[:, 8] != 0.0)
+                               | (g[:, 9:12] != 0.0).any(axis=1)).any())
+        nb = -(-len(rows) // SCAN_BLOCK)
+        blo = np.zeros((nb, 3), np.float32)
+        bhi = np.zeros((nb, 3), np.float32)
+        for k in range(nb):
+            s = slice(SCAN_BLOCK * k, SCAN_BLOCK * (k + 1))
+            if act[s].any():
+                blo[k] = lo[s][act[s]].min(axis=0)
+                bhi[k] = hi[s][act[s]].max(axis=0)
+        size = (np.abs(np.float32(0.5) * (blo + bhi)).sum(axis=1)
+                + np.float32(0.5) * (bhi - blo).sum(axis=1))
+        bpad = (np.float32(pad) * size).astype(np.float32)
+        bnd = np.zeros((nb, 2, 4), np.float32)
+        bnd[:, 0, :3], bnd[:, 0, 3], bnd[:, 1, :3] = blo, bpad, bhi
+        rowid = rows.astype(np.float32)
+        if sec == 0:
+            f4 = np.stack([np.concatenate([g[:, 1:4], g[:, 8:9]], axis=1),
+                           np.concatenate([g[:, 4:7], rowid[:, None]],
+                                          axis=1)], axis=1)
+        elif sec == 1:
+            nrm = np.where(act[:, None], g[:, 1:4], 0.0)
+            f4 = np.stack([np.concatenate([nrm, g[:, 4:5]], axis=1),
+                           np.concatenate([g[:, 5:8], g[:, 11:12]], axis=1),
+                           np.concatenate([g[:, 8:11], g[:, 12:13]], axis=1)],
+                          axis=1)
+        else:
+            f4 = np.stack([np.concatenate([g[:, 1:4], g[:, 7:8]], axis=1),
+                           np.concatenate([g[:, 4:7], g[:, 8:9]], axis=1),
+                           np.concatenate([g[:, 9:12], rowid[:, None]],
+                                          axis=1)], axis=1)
+        parts += [bnd.reshape(-1, 4), f4.reshape(-1, 4)]
+        order.append(rows)
+        los.append(blo)
+        his.append(bhi)
+        pads.append(bpad)
+        rlo.append(lo)
+        rhi.append(hi)
+    table = np.ascontiguousarray(np.concatenate(parts).astype(np.float32))
+    if table.shape[0] == 0:
+        table = np.zeros((1, 4), np.float32)
+    return ScanLayout(tuple(order), tuple(los), tuple(his), tuple(pads),
+                      tuple(rlo), tuple(rhi), rot, table)
+
+
+def scan_tables(prims: torch.Tensor, st):
+    """`scan_layout` of a packed table tensor and its `table` on the
+    tensor's device, built once and kept on the tensor (rebuilt when the
+    tensor is written in place)."""
+    key = (prims._version, st["sph_base"], st["n_sph"], st["quad_base"],
+           st["n_quad"], st["box_base"], st["n_box"])
+    hit = getattr(prims, "_grt_scan", None)
+    if hit is None or hit[0] != key:
+        lay = scan_layout(prims, st)
+        hit = (key, lay, torch.from_numpy(lay.table).to(prims.device))
+        prims._grt_scan = hit
+    return hit[1], hit[2]
+
+
+class _Closest:
+    """The closest hit so far of every lane: t, the normal slots, the row
+    (-1: none) and the quad uv. A candidate takes its place when it is
+    strictly nearer, or with `by_row` also when it is as near and of a
+    lower declaration row (the rule that makes any scan order give the
+    declaration-order scan's winner)."""
+
+    def __init__(self, like, by_row: bool):
+        self.t = torch.full_like(like, float("inf"))
+        self.n = [torch.zeros_like(like) for _ in range(3)]
+        self.row = torch.full_like(like, -1, dtype=torch.int64)
+        self.uv = [torch.zeros_like(like), torch.zeros_like(like)]
+        self.by_row = by_row
+
+    def before(self, t, r: int):
+        if not self.by_row:
+            return t < self.t
+        return (t < self.t) | ((t == self.t) & (self.row > r))
+
+    def take(self, ok, t, n, r: int, uv=None):
+        ok = ok & self.before(t, r)
+        self.t = torch.where(ok, t, self.t)
+        self.n = [torch.where(ok, a, b) for a, b in zip(n, self.n)]
+        self.row = torch.where(ok, r, self.row)
+        if uv is not None:
+            self.uv = [torch.where(ok, a, b) for a, b in zip(uv, self.uv)]
+
+
+def _sphere_cand(g, ray, tm, a_quad, inv_a, before):
+    """A sphere row's test (objects.go:83-115): (ok, root, c - o), the
+    normal slots carrying c - o until the winner's normal is resolved."""
+    ox, oy, oz, dx, dy, dz = ray
+    cx = g[1] + tm * g[4] - ox
+    cy = g[2] + tm * g[5] - oy
+    cz = g[3] + tm * g[6] - oz
+    h = _dot3(dx, dy, dz, cx, cy, cz)
+    c = _dot3(cx, cy, cz, cx, cy, cz) - g[8]
+    disc = h * h - a_quad * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    r1 = (h - sq) * inv_a
+    r2 = (h + sq) * inv_a
+    root = torch.where((T_MIN < r1) & before(r1), r1, r2)
+    ok = (g[0] >= 0.0) & (disc >= 0.0) & (T_MIN < root) & before(root)
+    return ok, root, (cx, cy, cz)
+
+
+def _quad_cand(g, ray, before):
+    """A quad row's test (objects.go:167-206): (ok, t, normal, (alpha,
+    beta))."""
+    ox, oy, oz, dx, dy, dz = ray
+    dn = _dot3(dx, dy, dz, g[1], g[2], g[3])
+    on = _dot3(ox, oy, oz, g[1], g[2], g[3])
+    t_q = (g[4] - on) / dn
+    px = ox + t_q * dx
+    py = oy + t_q * dy
+    pz = oz + t_q * dz
+    alpha = _dot3(px, py, pz, g[5], g[6], g[7]) - g[11]
+    beta = _dot3(px, py, pz, g[8], g[9], g[10]) - g[12]
+    ok = ((g[0] >= 0.0) & (torch.abs(dn) >= 1e-8)
+          & (T_MIN <= t_q) & before(t_q)
+          & (alpha >= 0.0) & (alpha <= 1.0)
+          & (beta >= 0.0) & (beta <= 1.0))
+    return ok, t_q, (g[1], g[2], g[3]), (alpha, beta)
+
+
+def _box_cand(g, ray, inv_w, rot: bool, before):
+    """A fused box row's slab test, rotate-Y + translate (transformation.go):
+    (ok, t, normal). Without `rot` the ray is the object-space ray and its
+    reciprocals `inv_w` are the world ray's, hoisted out of the loop."""
+    ox, oy, oz, dx, dy, dz = ray
+    if rot:
+        cos, sin = g[7], g[8]
+        osx = ox - g[9]
+        oy_ = oy - g[10]
+        osz = oz - g[11]
+        bx_o = cos * osx - sin * osz
+        bz_o = sin * osx + cos * osz
+        by_o = oy_
+        bdx = cos * dx - sin * dz
+        bdz = sin * dx + cos * dz
+        ix_, iy_, iz_ = (1.0 / _safe_d(bdx), 1.0 / _safe_d(dy),
+                         1.0 / _safe_d(bdz))
+    else:
+        ix_, iy_, iz_ = inv_w
+        bx_o, by_o, bz_o = ox, oy, oz
+        bdx, bdz = dx, dz
+    tx0 = (g[1] - bx_o) * ix_
+    tx1 = (g[4] - bx_o) * ix_
+    ty0 = (g[2] - by_o) * iy_
+    ty1 = (g[5] - by_o) * iy_
+    tz0 = (g[3] - bz_o) * iz_
+    tz1 = (g[6] - bz_o) * iz_
+    lx, hx = torch.minimum(tx0, tx1), torch.maximum(tx0, tx1)
+    ly, hy = torch.minimum(ty0, ty1), torch.maximum(ty0, ty1)
+    lz, hz = torch.minimum(tz0, tz1), torch.maximum(tz0, tz1)
+    near = torch.maximum(torch.maximum(lx, ly), lz)
+    far = torch.minimum(torch.minimum(hx, hy), hz)
+    entry = near >= T_MIN
+    t_c = torch.where(entry, near, far)
+    ok = (g[0] >= 0.0) & (far > near) & (T_MIN <= t_c) & before(t_c)
+    is_x = torch.where(entry, lx, hx) == t_c
+    is_y = ~is_x & (torch.where(entry, ly, hy) == t_c)
+    is_z = ~is_x & ~is_y
+    flip = torch.where(entry, -1.0, 1.0)
+    zero = torch.zeros_like(t_c)
+    nx = torch.where(is_x, torch.where(bdx >= 0, flip, -flip), zero)
+    ny = torch.where(is_y, torch.where(dy >= 0, flip, -flip), zero)
+    nz = torch.where(is_z, torch.where(bdz >= 0, flip, -flip), zero)
+    if rot:
+        nx, nz = cos * nx + sin * nz, -sin * nx + cos * nz
+    return ok, t_c, (nx, ny, nz)
+
+
+def _row_test(sec, g, r, ray, tm, sph, inv_w, rot, win, uv: bool, go=None):
+    """Row `r` (table row `g`, a list) of section `sec` against every lane
+    (or the lanes `go`), taken where it wins."""
+    before = lambda t: win.before(t, r)
+    if sec == 0:
+        ok, t, n = _sphere_cand(g, ray, tm, *sph, before)
+        ab = None
+    elif sec == 1:
+        ok, t, n, ab = _quad_cand(g, ray, before)
+        ab = ab if uv else None
+    else:
+        ok, t, n = _box_cand(g, ray, inv_w, rot, before)
+        ab = None
+    win.take(ok if go is None else ok & go, t, n, r, ab)
+
+
+def _scan_ray_consts(ray):
+    ox, oy, oz, dx, dy, dz = ray
+    a_quad = _dot3(dx, dy, dz, dx, dy, dz)
+    inv_w = (1.0 / _safe_d(dx), 1.0 / _safe_d(dy), 1.0 / _safe_d(dz))
+    return (a_quad, 1.0 / a_quad), inv_w
+
+
+def closest_ref(st, P, ox, oy, oz, dx, dy, dz, tm):
+    """The closest hit over the sphere, quad and box sections, every row in
+    declaration order, a row taking the winner's place when strictly
+    nearer (the reference's `hittable_list`, camera.go:300). `P`: the
+    packed table as a list of rows. Returns (t, the normal slots (c - o
+    for a sphere), the row (-1: none), the winning quad's (alpha, beta))."""
+    ray = (ox, oy, oz, dx, dy, dz)
+    sph, inv_w = _scan_ray_consts(ray)
+    win = _Closest(ox, by_row=False)
+    for sec, (base, n) in enumerate(((st["sph_base"], st["n_sph"]),
+                                     (st["quad_base"], st["n_quad"]),
+                                     (st["box_base"], st["n_box"]))):
+        for r in range(base, base + n):
+            _row_test(sec, P[r], r, ray, tm, sph, inv_w, st["box_rot"], win,
+                      st["has_image"])
+    return win.t, win.n, win.row, win.uv
+
+
+def block_hit_ref(lo, hi, pad, ray):
+    """The cull's test of blocks (csrc/bounce_core.cuh `block_hit`) for
+    every lane, as (nb, N) bool: the block's box grown by its `pad` plus
+    SCAN_PAD |o|_1 met by the ray in (T_MIN, inf), its slabs from the
+    rounded o / d (the interval's far end is the caller's, t_best)."""
+    ox, oy, oz, dx, dy, dz = ray
+    inv = [1.0 / _safe_d(v) for v in (dx, dy, dz)]
+    oi = [o * i for o, i in zip((ox, oy, oz), inv)]
+    po = SCAN_PAD * (torch.abs(ox) + torch.abs(oy) + torch.abs(oz))
+    lo, hi = (torch.as_tensor(x, device=ox.device) for x in (lo, hi))
+    p = torch.as_tensor(pad, device=ox.device)[:, None] + po[None]
+    near = torch.full_like(p, -float("inf"))
+    far = torch.full_like(p, float("inf"))
+    for a in range(3):
+        t0 = (lo[:, a:a + 1] - p) * inv[a][None] - oi[a][None]
+        t1 = (hi[:, a:a + 1] + p) * inv[a][None] - oi[a][None]
+        near = torch.maximum(near, torch.minimum(t0, t1))
+        far = torch.minimum(far, torch.maximum(t0, t1))
+    return near, far
+
+
+# float operations of one test of the culled scan, counted from
+# csrc/bounce_core.cuh (a fused multiply-add as two; compares, min and max
+# left out): a block's bounds (6 fma, the pad's 7 adds), a sphere row (its
+# c - o, h, c and discriminant, and on a non-negative one the root and its
+# square root), a quad row (dn, on, t, the point, alpha and beta), a box
+# row with its reciprocals hoisted (6 subtracts, 6 multiplies) and with the
+# ray turned per row (the offset, the turn, 3 divisions)
+SCAN_OPS = {"block": 19, "sphere": 25, "quad": 30, "box": 12, "box_rot": 33}
+
+
+def scan_ops(layout: ScanLayout, stats) -> torch.Tensor:
+    """Float operations per lane of the culled scan from the plain model's
+    counts (`closest_culled_ref`'s `stats`) and SCAN_OPS: what a lane's
+    tests cost, the work the culled bound counts."""
+    row_ops = (SCAN_OPS["sphere"], SCAN_OPS["quad"],
+               SCAN_OPS["box_rot" if layout.rot else "box"])
+    return sum(SCAN_OPS["block"] * b.double() + r * w.double()
+               for b, r, w in zip(stats["blocks"], row_ops, stats["rows"]))
+
+
+def brute_ops(layout: ScanLayout) -> int:
+    """Float operations of the brute-force scan of the same rows (every row
+    of every section, SCAN_OPS)."""
+    n_sph, n_quad, n_box = layout.counts
+    return (n_sph * SCAN_OPS["sphere"] + n_quad * SCAN_OPS["quad"]
+            + n_box * SCAN_OPS["box_rot" if layout.rot else "box"])
+
+
+def closest_culled_ref(st, prims, ox, oy, oz, dx, dy, dz, tm, layout=None,
+                       stats=None):
+    """The CUDA kernels' culled scan as a plain model: `layout` (default
+    `scan_layout(prims, st)`) walked section by section and block by block,
+    a block of a section of more than one skipped on a lane whose ray
+    cannot meet its padded bounds in (T_MIN, t_best] (unless the lane's
+    largest direction component is below SCAN_MIN_D), a row taking the
+    winner's place when nearer or as near and declared earlier. Returns
+    what `closest_ref` returns; the tests hold the two equal. `stats` (a
+    dict) receives per section the blocks whose bounds each lane tested
+    and the rows it tested ("blocks", "rows": (N,) int64 each) and the
+    (nb, N) bool of the blocks it scanned ("scanned")."""
+    lay = layout if layout is not None else scan_layout(prims, st)
+    P = (prims.tolist() if isinstance(prims, torch.Tensor)
+         else np.asarray(prims).tolist())
+    ray = (ox, oy, oz, dx, dy, dz)
+    sph, inv_w = _scan_ray_consts(ray)
+    win = _Closest(ox, by_row=True)
+    no_cull = torch.maximum(torch.maximum(torch.abs(dx), torch.abs(dy)),
+                            torch.abs(dz)) < SCAN_MIN_D
+    blocks, rows, scanned = [], [], []
+    for sec in range(3):
+        blocks.append(torch.zeros_like(ox, dtype=torch.int64))
+        rows.append(torch.zeros_like(ox, dtype=torch.int64))
+        order = lay.order[sec]
+        nb = lay.lo[sec].shape[0]
+        cull = nb > 1
+        if cull:
+            near, far = block_hit_ref(lay.lo[sec], lay.hi[sec], lay.pad[sec],
+                                      ray)
+        seen = torch.zeros((nb,) + ox.shape, dtype=torch.bool,
+                           device=ox.device)
+        for k in range(nb):
+            if cull:
+                go = (torch.clamp(near[k], min=T_MIN)
+                      <= torch.minimum(far[k], win.t)) | no_cull
+                blocks[sec] += 1
+            else:
+                go = torch.ones_like(ox, dtype=torch.bool)
+            seen[k] = go
+            blk = order[SCAN_BLOCK * k:SCAN_BLOCK * (k + 1)]
+            rows[sec] += go.to(torch.int64) * len(blk)
+            for r in blk.tolist():
+                _row_test(sec, P[r], r, ray, tm, sph, inv_w, lay.rot, win,
+                          st["has_image"], go if cull else None)
+        scanned.append(seen)
+    if stats is not None:
+        stats.update(blocks=blocks, rows=rows, scanned=scanned)
+    return win.t, win.n, win.row, win.uv
+
+
 def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
                      tm=None, ext=None, med=None, images=None, probe=None):
     """One bounce of the supported subset (camera.go:293-331): closest hit
@@ -633,113 +1093,11 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     P = prims.tolist()
     Lr = lights.tolist()
     lay = _mat_layout(st)
-    t_best = torch.full_like(ox, float("inf"))
-    n_hx = torch.zeros_like(ox)
-    n_hy = torch.zeros_like(ox)
-    n_hz = torch.zeros_like(ox)
-    row = torch.full_like(ox, -1, dtype=torch.int64)
-    # the winning quad's (alpha, beta), its texture uv: kept with images
-    quad_uv = [torch.zeros_like(ox), torch.zeros_like(ox)]
-
-    def update(ok, t_c, cnx, cny, cnz, r, uv=None):
-        nonlocal t_best, n_hx, n_hy, n_hz, row
-        ok = ok & (t_c < t_best)
-        t_best = torch.where(ok, t_c, t_best)
-        n_hx = torch.where(ok, cnx, n_hx)
-        n_hy = torch.where(ok, cny, n_hy)
-        n_hz = torch.where(ok, cnz, n_hz)
-        row = torch.where(ok, r, row)
-        if uv is not None:
-            for k in range(2):
-                quad_uv[k] = torch.where(ok, uv[k], quad_uv[k])
-
-    # spheres (objects.go:83-115): the normal slots carry c - o until the
-    # winner's outward normal (p - c) / r is resolved below
     if st["n_sph"] or st["n_media"]:
         a_quad = _dot3(dx, dy, dz, dx, dy, dz)
         inv_a = 1.0 / a_quad
-    for p in range(st["n_sph"]):
-        r = st["sph_base"] + p
-        g = P[r]
-        cx = g[1] + tm * g[4] - ox
-        cy = g[2] + tm * g[5] - oy
-        cz = g[3] + tm * g[6] - oz
-        h = _dot3(dx, dy, dz, cx, cy, cz)
-        c = _dot3(cx, cy, cz, cx, cy, cz) - g[8]
-        disc = h * h - a_quad * c
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
-        r1 = (h - sq) * inv_a
-        r2 = (h + sq) * inv_a
-        sur1 = (T_MIN < r1) & (r1 < t_best)
-        root = torch.where(sur1, r1, r2)
-        ok = (g[0] >= 0.0) & (disc >= 0.0) & (T_MIN < root) & (root < t_best)
-        update(ok, root, cx, cy, cz, r)
-
-    for p in range(st["n_quad"]):
-        r = st["quad_base"] + p
-        g = P[r]
-        dn = _dot3(dx, dy, dz, g[1], g[2], g[3])
-        on = _dot3(ox, oy, oz, g[1], g[2], g[3])
-        t_q = (g[4] - on) / dn
-        px = ox + t_q * dx
-        py = oy + t_q * dy
-        pz = oz + t_q * dz
-        alpha = _dot3(px, py, pz, g[5], g[6], g[7]) - g[11]
-        beta = _dot3(px, py, pz, g[8], g[9], g[10]) - g[12]
-        ok = ((g[0] >= 0.0) & (torch.abs(dn) >= 1e-8)
-              & (T_MIN <= t_q) & (t_q <= t_best)
-              & (alpha >= 0.0) & (alpha <= 1.0)
-              & (beta >= 0.0) & (beta <= 1.0))
-        update(ok, t_q, g[1], g[2], g[3], r,
-               (alpha, beta) if st["has_image"] else None)
-
-    if st["n_box"]:
-        ix_w, iy_w, iz_w = (1.0 / _safe_d(dx), 1.0 / _safe_d(dy),
-                            1.0 / _safe_d(dz))
-    for b in range(st["n_box"]):
-        r = st["box_base"] + b
-        g = P[r]
-        if st["box_rot"]:
-            cos, sin = g[7], g[8]
-            osx = ox - g[9]
-            oy_ = oy - g[10]
-            osz = oz - g[11]
-            bx_o = cos * osx - sin * osz
-            bz_o = sin * osx + cos * osz
-            by_o = oy_
-            bdx = cos * dx - sin * dz
-            bdz = sin * dx + cos * dz
-            ix_, iy_, iz_ = (1.0 / _safe_d(bdx), 1.0 / _safe_d(dy),
-                             1.0 / _safe_d(bdz))
-        else:
-            ix_, iy_, iz_ = ix_w, iy_w, iz_w
-            bx_o, by_o, bz_o = ox, oy, oz
-            bdx, bdz = dx, dz
-        tx0 = (g[1] - bx_o) * ix_
-        tx1 = (g[4] - bx_o) * ix_
-        ty0 = (g[2] - by_o) * iy_
-        ty1 = (g[5] - by_o) * iy_
-        tz0 = (g[3] - bz_o) * iz_
-        tz1 = (g[6] - bz_o) * iz_
-        lx, hx = torch.minimum(tx0, tx1), torch.maximum(tx0, tx1)
-        ly, hy = torch.minimum(ty0, ty1), torch.maximum(ty0, ty1)
-        lz, hz = torch.minimum(tz0, tz1), torch.maximum(tz0, tz1)
-        near = torch.maximum(torch.maximum(lx, ly), lz)
-        far = torch.minimum(torch.minimum(hx, hy), hz)
-        entry = near >= T_MIN
-        t_c = torch.where(entry, near, far)
-        ok = (g[0] >= 0.0) & (far > near) & (T_MIN <= t_c) & (t_c <= t_best)
-        is_x = torch.where(entry, lx, hx) == t_c
-        is_y = ~is_x & (torch.where(entry, ly, hy) == t_c)
-        is_z = ~is_x & ~is_y
-        flip = torch.where(entry, -1.0, 1.0)
-        zero = torch.zeros_like(t_c)
-        nx = torch.where(is_x, torch.where(bdx >= 0, flip, -flip), zero)
-        ny = torch.where(is_y, torch.where(dy >= 0, flip, -flip), zero)
-        nz = torch.where(is_z, torch.where(bdz >= 0, flip, -flip), zero)
-        if st["box_rot"]:
-            nx, nz = cos * nx + sin * nz, -sin * nx + cos * nz
-        update(ok, t_c, nx, ny, nz, r)
+    t_best, (n_hx, n_hy, n_hz), row, quad_uv = closest_ref(
+        st, P, ox, oy, oz, dx, dy, dz, tm)
 
     # the winner's material columns (`lay`): the primitive row's, zero
     # where nothing was hit
@@ -1124,18 +1482,20 @@ def bounce_fused_q_ref(tables, statics, cam_row, bg, seed4, ox, oy, oz,
 
 # The table ints of every fused kernel's argument struct, in the order of
 # FUSED_TABLE_FIELDS in csrc/fused_common.cuh.
-# The image table's pointers come first (texels, wh), then the ints.
-_FUSED_TABLE_PTRS = ("img", "img_wh")
-_FUSED_TABLE_INTS = ("p_cols", "sph_base", "n_sph", "quad_base", "n_quad",
-                     "box_base", "n_box", "n_lights", "n_lights_live",
+# The image table's pointers come first (texels, wh), then the scan table
+# (`scan_tables`), then the ints.
+_FUSED_TABLE_PTRS = ("img", "img_wh", "scan")
+_FUSED_TABLE_INTS = ("p_cols", "n_sph", "quad_base", "n_quad", "n_box",
+                     "n_lights", "n_lights_live",
                      "fr_col", "n_media", "feat", "texk_col", "scale_col",
-                     "seed_col", "defocus", "img_h", "img_w")
+                     "seed_col", "defocus", "img_h", "img_w", "scan_rot")
 
 
 def _fused_table_ints(statics, tables, has_defocus: bool) -> dict:
     """Values of `_FUSED_TABLE_INTS` and `_FUSED_TABLE_PTRS` for a scene's
     statics and tables and the camera's defocus; a column the layout lacks
-    is -1, the image table of a scene without images null and 0 x 0."""
+    is -1, the image table of a scene without images null and 0 x 0. The
+    section sizes are the scan table's (its rows of each section)."""
     st = statics
     prims = tables[0]
     lay = _mat_layout(st)
@@ -1144,10 +1504,12 @@ def _fused_table_ints(statics, tables, has_defocus: bool) -> dict:
     if st["has_image"]:
         img = dict(img=tables[4].data_ptr(), img_wh=tables[5].data_ptr(),
                    img_h=tables[4].shape[1], img_w=tables[4].shape[2])
-    return dict(**img, p_cols=prims.shape[1], sph_base=st["sph_base"],
-                n_sph=st["n_sph"], quad_base=st["quad_base"],
-                n_quad=st["n_quad"], box_base=st["box_base"],
-                n_box=st["n_box"], n_lights=st["n_lights"],
+    scan, scan_t = scan_tables(prims, st)
+    n_sph, n_quad, n_box = scan.counts
+    return dict(**img, scan=scan_t.data_ptr(), scan_rot=int(scan.rot),
+                p_cols=prims.shape[1], n_sph=n_sph,
+                quad_base=st["quad_base"], n_quad=n_quad, n_box=n_box,
+                n_lights=st["n_lights"],
                 n_lights_live=st["n_lights_live"], fr_col=col("fr"),
                 n_media=st["n_media"], feat=fused_features(st),
                 texk_col=col("texk"), scale_col=col("scale"),

@@ -13,8 +13,8 @@
 // replaces the dense winner only when strictly nearer; everything after
 // that is `bounce_core` (bounce_core.cuh), shared with the fused kernels
 // and compiled, as theirs, once per feature set (fused_common.cuh's
-// FEATURE_SWITCH over the bits of ops/bounce.fused_features, the sphere
-// cull added here for more than one block of staged spheres): media,
+// FEATURE_SWITCH over the bits of ops/bounce.fused_features, the cull
+// added here for a section of more than one block): media,
 // dielectric, the textures and the image texel are read as the fused
 // kernels read them.
 //
@@ -61,7 +61,7 @@ template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL, bool IMG>
 __global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
   // the geometry into shared memory, before the ragged edge's return
   const BounceTables T = fused_tables<SPH, DIEL, MED, TEX, IMG>(a);
-  stage_geometry(T, CULL);
+  stage_geometry(T);
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   if (lane >= a.n) return;
   const float ox = a.o[3 * lane], oy = a.o[3 * lane + 1], oz = a.o[3 * lane + 2];

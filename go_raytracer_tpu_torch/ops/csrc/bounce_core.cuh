@@ -54,33 +54,49 @@
 // the material block (kind, even rgb, odd rgb, [texk], [fr], [scale],
 // [seed]); light row = L_COLS; medium row = M_COLS.
 //
-// The staged scan. Every lane tests every primitive row, and all lanes of
-// a warp read the same row at the same time, so what paces the closest-hit
-// loop is the issue of its loads, not their bytes: the row-major table
-// costs 8 scalar read-only loads per sphere row and 10-13 per quad or box
-// row. So each block first copies the geometry columns of the table into
+// The staged scan. Every lane tests the primitive rows of its scan, and all
+// lanes of a warp read the same row at the same time, so what paces the
+// closest-hit loop is the issue of its loads, not their bytes. The host
+// builds, once per table, the scan's own table (ops/bounce.scan_layout):
+// per section (spheres, quads, boxes) its rows in the scan's order, in
+// blocks of SCAN_BLOCK, each block led by its bounds {lo, pad} {hi, 0}, and
+// each row as float4s that a warp reads with one broadcast load each:
+//   sphere {c0.xyz, r^2} {cd.xyz, row}                        2 x 16 B
+//   quad   {n.xyz, D} {alpha.xyz, alpha0} {beta.xyz, beta0}   3 x 16 B
+//   box    {lo.xyz, cos} {hi.xyz, sin} {offset.xyz, row}      3 x 16 B
+// Spheres run in the Morton order of their swept boxes' centres, so that a
+// block's bounds are tight (in declaration order where they make one block);
+// quads and boxes in declaration order (book2's grid of boxes is already
+// tight so). `row` is the declaration row, exact
+// in float32; inactive spheres and boxes are left out, and an inactive quad
+// (kind -1) keeps its place with a zero normal, so its `|dn| >= 1e-8`
+// fails as its kind test did. The material columns stay in the row-major
+// table and are read once, for the winner, after the loops. Each block
+// first copies the prefix of the scan table that fits in STAGE_BYTES into
 // dynamic shared memory (`stage_geometry`, the counterpart of the TPU
-// kernel's table in VMEM), in rows of float4 that a warp reads with one
-// broadcast load each:
-//   sphere {c0.xyz, r^2} {cd.xyz, kind}                      2 x 16 B
-//   quad   {n.xyz, D} {alpha.xyz, alpha0} {beta.xyz, beta0}  3 x 16 B
-//   box    {lo.xyz, cos} {hi.xyz, sin} {offset.xyz, kind}    3 x 16 B
-// A quad row has no slot for its kind: an inactive quad (kind -1) is staged
-// with a zero normal, so its `|dn| >= 1e-8` fails as its kind test did. The
-// material columns stay in global memory and are read once, for the winner,
-// after the loops. The block stages a prefix of each section in section
-// order within STAGE_BYTES (`stage_layout`; book1's 389 spheres fit in
-// 14,112 B with their block bounds; book2's 1,006 spheres take 126 blocks,
-// 36,288 B, its quad 48 B and 395 of its 400 boxes the rest, so its last 5
-// boxes are read from global memory), and the rows past it are read from
-// global memory by the same row test, in the same order, so a table of
-// MAX_PRIMS rows gives the same winners. The
-// per-row arithmetic is the one of the row-major loop it replaces,
-// expression for expression; a sphere row whose discriminant is negative
-// skips the square root and the root selection (exact: such a row cannot
-// win). The CULL variant, for more than one block of 8 staged spheres,
-// scans them by blocks and skips a block whose padded bounds the ray
-// cannot meet (`sphere_block_hit`), with the same winners.
+// kernel's table in VMEM; book2's 1,006 spheres, quad and 400 boxes take
+// 57,104 B, all of it), and reads a block past that prefix from global
+// memory, so a table of MAX_PRIMS rows gives the same winners.
+//
+// Winners by (t, row). A row takes the winner's place when its t is
+// smaller, or equal and its declaration row lower (`before`), at every
+// place that accepts a sphere row in Morton order: its root choice and its
+// accept. A quad or box row comes in declaration order after every row of
+// the earlier sections, so it is always declared after the winner, and its
+// strict `<` is the same rule. The per-row arithmetic is that of the
+// declaration-order loop it replaces, expression for expression, so every
+// row's t is the same whatever the order, and the final winner is the
+// least (t, row): the winner of the reference's declaration-order scan
+// with its strict `<`. A sphere row whose discriminant is negative skips
+// the square root and the root selection (exact: such a row cannot win).
+//
+// The CULL variant, for a table of which some section makes more than one
+// block, tests a block's padded bounds before its rows in that section and
+// skips a block the ray cannot meet in (T_MIN, t_best] (`block_hit`, which
+// keeps a block that could tie); the winners stay the same. Without a
+// rotated or offset box (`rot`), the box test takes the ray's reciprocals
+// hoisted out of the loop, as the plain version does: with cos 1, sin 0
+// and a zero offset they are the same bits.
 //
 // Precision: nvcc contracts multiply-adds into FMAs, and the code uses
 // rsqrtf and __sincosf; the plain PyTorch version does neither, so the two
@@ -127,45 +143,42 @@
 #define U_MA 7
 #define U_MB 8
 
-// Dynamic shared memory the staged geometry may take per block. With the
-// kernels' 256 threads and at most 64 registers, 4 blocks fit on an SM by
-// registers; 4 x (54 KB + 1 KB reserved + K1's 96 B static) stays within
-// the SM's 228 KB, so staging never costs a resident block.
-#define STAGE_BYTES (54 * 1024)
+// Dynamic shared memory the staged geometry may take per block: an SM's
+// 228 KB hold 4 blocks of (57,216 B + 1 KB reserved + at most 128 B
+// static), and the kernels' 256 threads at most 64 registers fit 4 blocks
+// by registers too, so staging never costs a resident block.
+#define STAGE_BYTES (56 * 1024 - 128)
 #define SPH_F4 2
 #define QUAD_F4 3
 #define BOX_F4 3
-// the sphere cull: bounds of each block of SPH_BLOCK staged rows, BLK_F4
-// float4s a block, and the padding of its slab test (`sphere_block_hit`)
-#define SPH_BLOCK 8
-#define BLK_F4 2
+// rows a block of the scan, the float4s of its bounds, the padding of
+// their test, and the smallest largest direction component a lane culls
+// with (`block_hit`)
+#define SCAN_BLOCK 8
+#define BND_F4 2
 #define CULL_PAD 4e-3f
+#define SCAN_MIN_D 0x1p-64f
 
-// The staged prefix of each section, its float4 offsets, and the bytes.
+// float4s of a section of n rows of f4 float4s: its blocks' bounds, then
+// its rows
+__host__ __device__ inline int scan_section_f4(int n, int f4) {
+  return BND_F4 * ((n + SCAN_BLOCK - 1) / SCAN_BLOCK) + f4 * n;
+}
+
+// Where each section of the scan table starts, and its staged prefix.
 struct StageLayout {
-  int n_sph, n_quad, n_box;  // staged rows of each section
-  int n_blk;                 // blocks of SPH_BLOCK staged sphere rows, the
-                             // last one filled up with rows that never win
-  int quad_at, box_at;       // float4 index of the first staged quad, box
-  int blk_at;                // float4 index of the first block's bounds
-  int bytes;                 // dynamic shared memory of the block
+  int quad_at, box_at;  // float4 index of the quad and box sections (spheres: 0)
+  int staged;           // float4s staged in shared memory: a prefix of the table
+  int bytes;            // dynamic shared memory of the block
 };
 
 __host__ __device__ inline StageLayout stage_layout(int n_sph, int n_quad, int n_box) {
   StageLayout L;
-  int room = STAGE_BYTES / 16;
-  // spheres in whole blocks, each with its bounds
-  const int max_sph = room / (SPH_F4 * SPH_BLOCK + BLK_F4) * SPH_BLOCK;
-  L.n_sph = n_sph < max_sph ? n_sph : max_sph;
-  L.n_blk = (L.n_sph + SPH_BLOCK - 1) / SPH_BLOCK;
-  room -= L.n_blk * (SPH_F4 * SPH_BLOCK + BLK_F4);
-  L.n_quad = n_quad < room / QUAD_F4 ? n_quad : room / QUAD_F4;
-  room -= L.n_quad * QUAD_F4;
-  L.n_box = n_box < room / BOX_F4 ? n_box : room / BOX_F4;
-  L.quad_at = L.n_blk * SPH_BLOCK * SPH_F4;
-  L.box_at = L.quad_at + L.n_quad * QUAD_F4;
-  L.blk_at = L.box_at + L.n_box * BOX_F4;
-  L.bytes = (L.blk_at + L.n_blk * BLK_F4) * 16;
+  L.quad_at = scan_section_f4(n_sph, SPH_F4);
+  L.box_at = L.quad_at + scan_section_f4(n_quad, QUAD_F4);
+  const int total = L.box_at + scan_section_f4(n_box, BOX_F4);
+  L.staged = total < STAGE_BYTES / 16 ? total : STAGE_BYTES / 16;
+  L.bytes = L.staged * 16;
   return L;
 }
 
@@ -200,8 +213,13 @@ struct BounceTables {
   const float* lights;
   const float* med;  // (n_media, M_COLS)
   const float* bg;
+  // the scan table (ops/bounce.scan_layout) and its section sizes: the
+  // scanned rows of each section (a sphere or box row carries its
+  // declaration row; the quads' start at quad_base)
+  const float4* scan;
   int p_cols;
-  int sph_base, n_sph, quad_base, n_quad, box_base, n_box;
+  int n_sph, quad_base, n_quad, n_box;
+  int rot;  // some box is rotated or offset: the box test turns the ray per row
   int n_lights, n_lights_live;
   int fr_col;  // column of the metal fuzz / dielectric index, -1 if none
   int n_media;
@@ -223,116 +241,132 @@ struct BounceTables {
 // from the section sizes where it is used.
 extern __shared__ float4 grt_geo[];
 
-// One row of each section as the staged float4s (see the layout above),
-// read from the row-major table: what stage_geometry writes, and what the
-// scan reads for a row past the staged prefix.
-__device__ __forceinline__ void sph_row_global(const float* g, float4& a, float4& b) {
-  a = make_float4(__ldg(g + 1), __ldg(g + 2), __ldg(g + 3), __ldg(g + 8));
-  b = make_float4(__ldg(g + 4), __ldg(g + 5), __ldg(g + 6), __ldg(g));
-}
-
-__device__ __forceinline__ void quad_row_global(const float* g, float4& n, float4& al,
-                                                float4& be) {
-  const bool on = __ldg(g) >= 0.0f;  // the kind, folded into the normal
-  n = make_float4(on ? __ldg(g + 1) : 0.0f, on ? __ldg(g + 2) : 0.0f, on ? __ldg(g + 3) : 0.0f,
-                  __ldg(g + 4));
-  al = make_float4(__ldg(g + 5), __ldg(g + 6), __ldg(g + 7), __ldg(g + 11));
-  be = make_float4(__ldg(g + 8), __ldg(g + 9), __ldg(g + 10), __ldg(g + 12));
-}
-
-__device__ __forceinline__ void box_row_global(const float* g, float4& lo, float4& hi,
-                                               float4& off) {
-  lo = make_float4(__ldg(g + 1), __ldg(g + 2), __ldg(g + 3), __ldg(g + 7));
-  hi = make_float4(__ldg(g + 4), __ldg(g + 5), __ldg(g + 6), __ldg(g + 8));
-  off = make_float4(__ldg(g + 9), __ldg(g + 10), __ldg(g + 11), __ldg(g));
-}
-
-// Copy the geometry columns of the staged prefix of each section
-// (`stage_layout`) into the block's dynamic shared memory `grt_geo`; with
-// `bounds`, also each sphere block's bounds for the cull. Every thread of
-// the block calls it, outside any branch on its lane (`bounds` is the
-// variant's, the same for the whole block); it ends with the block's
-// barrier.
-__device__ __forceinline__ void stage_geometry(const BounceTables& T, bool bounds) {
+// Copy the staged prefix of the scan table (`stage_layout`) into the
+// block's dynamic shared memory `grt_geo`. Every thread of the block calls
+// it, outside any branch on its lane; it ends with the block's barrier.
+__device__ __forceinline__ void stage_geometry(const BounceTables& T) {
   const StageLayout L = stage_layout(T.n_sph, T.n_quad, T.n_box);
-  float4* smem = grt_geo;
-  const float* __restrict__ P = T.prims;
-  const int pc = T.p_cols;
-  for (int s = threadIdx.x; s < L.n_blk * SPH_BLOCK; s += blockDim.x) {
-    float4* r = smem + SPH_F4 * s;
-    if (s < L.n_sph) {
-      sph_row_global(P + (T.sph_base + s) * pc, r[0], r[1]);
-    } else {  // the last block's fill: no discriminant, kind -1
-      r[0] = make_float4(0.0f, 0.0f, 0.0f, -INFINITY);
-      r[1] = make_float4(0.0f, 0.0f, 0.0f, -1.0f);
-    }
-  }
-  for (int q = threadIdx.x; q < L.n_quad; q += blockDim.x) {
-    float4* r = smem + L.quad_at + QUAD_F4 * q;
-    quad_row_global(P + (T.quad_base + q) * pc, r[0], r[1], r[2]);
-  }
-  for (int k = threadIdx.x; k < L.n_box; k += blockDim.x) {
-    float4* r = smem + L.box_at + BOX_F4 * k;
-    box_row_global(P + (T.box_base + k) * pc, r[0], r[1], r[2]);
-  }
-  __syncthreads();
-  if (!bounds) return;
-  // the bounds of each block of staged sphere rows: the box of its active
-  // spheres swept over the motion (time 0 to 1), radius |r| (a hollow
-  // sphere's is negative), as {lo, CULL_PAD S} {hi, 0}, S = |centre|_1 +
-  // |half extent|_1 of the box; a block without an active row gets an
-  // empty box at the origin
-  for (int k = threadIdx.x; k < L.n_blk; k += blockDim.x) {
-    float lx = INFINITY, ly = INFINITY, lz = INFINITY;
-    float hx = -INFINITY, hy = -INFINITY, hz = -INFINITY;
-    for (int s = SPH_BLOCK * k; s < SPH_BLOCK * (k + 1); ++s) {
-      const float4 a = smem[SPH_F4 * s], b = smem[SPH_F4 * s + 1];
-      if (b.w < 0.0f) continue;
-      const float r = sqrtf(a.w);
-      const float x1 = a.x + b.x, y1 = a.y + b.y, z1 = a.z + b.z;
-      lx = fminf(lx, fminf(a.x, x1) - r);
-      ly = fminf(ly, fminf(a.y, y1) - r);
-      lz = fminf(lz, fminf(a.z, z1) - r);
-      hx = fmaxf(hx, fmaxf(a.x, x1) + r);
-      hy = fmaxf(hy, fmaxf(a.y, y1) + r);
-      hz = fmaxf(hz, fmaxf(a.z, z1) + r);
-    }
-    if (!(lx <= hx)) lx = ly = lz = hx = hy = hz = 0.0f;
-    const float size = fabsf(0.5f * (lx + hx)) + fabsf(0.5f * (ly + hy)) +
-                       fabsf(0.5f * (lz + hz)) + 0.5f * ((hx - lx) + (hy - ly) + (hz - lz));
-    float4* r = smem + L.blk_at + BLK_F4 * k;
-    r[0] = make_float4(lx, ly, lz, CULL_PAD * size);
-    r[1] = make_float4(hx, hy, hz, 0.0f);
-  }
+  const float4* __restrict__ S = T.scan;
+  for (int i = threadIdx.x; i < L.staged; i += blockDim.x) grt_geo[i] = __ldg(S + i);
   __syncthreads();
 }
 
-// The cull of a block of staged sphere rows: false only when no row of the
-// block can pass the row test of `bounce_core` for this ray with a root in
-// (T_MIN, t_best). The slab test is of the block's box padded by CULL_PAD
-// M, M = |o|_1 + S >= the distance from the ray's origin to any of the
-// block's sphere centres, those centres' magnitudes, and their radii. Why
-// that pad is enough: the row test's rounding (unit roundoff eps = 2^-24)
-// moves its discriminant by at most ~40 eps a M^2, so a row it passes has
-// the ray within r + sqrt(40 eps) M = r + 1.55e-3 M of the sphere's
-// centre, and its root puts the hit point within that distance too (its
-// own rounding adds ~1e-6 M); CULL_PAD takes 2.5 times that. The slab
-// test's own rounding (the fma against the rounded o / d) moves a slab's
-// face by a few eps M, far inside the margin. The box holds the centre at
-// any ray time in [0, 1]. So skipping the block changes no winner: the
-// scan keeps the rows' order and the strict `<`. `po` = CULL_PAD |o|_1,
-// (ix, iy, iz) = 1 / d and (oix, oiy, oiz) = o / d, per ray.
-__device__ __forceinline__ bool sphere_block_hit(const float4 lo, const float4 hi, float po,
-                                                 float ix, float iy, float iz, float oix,
-                                                 float oiy, float oiz, float t_best) {
-  const float pad = lo.w + po;
-  const float tx0 = fmaf(lo.x - pad, ix, -oix), tx1 = fmaf(hi.x + pad, ix, -oix);
-  const float ty0 = fmaf(lo.y - pad, iy, -oiy), ty1 = fmaf(hi.y + pad, iy, -oiy);
-  const float tz0 = fmaf(lo.z - pad, iz, -oiz), tz1 = fmaf(hi.z + pad, iz, -oiz);
+// A lane's constants of the cull: 1 / d (safe_d), o / d, CULL_PAD |o|_1,
+// and whether it culls at all (its largest direction component at least
+// SCAN_MIN_D).
+struct CullRay {
+  float ix, iy, iz, oix, oiy, oiz, po;
+  bool on;
+};
+
+// The cull of a block: false only when no row of the block can pass its row
+// test for this ray with a t in (T_MIN, t_best] (t_best included: a row as
+// near as the winner and declared earlier takes its place). The block's box
+// holds each row's box (a sphere swept over the motion, radius |r|; the
+// hull of the corners a quad's columns describe; the hull of a box's
+// rotated corners plus its offset), and the test pads it by CULL_PAD M,
+// M = |o|_1 + S (lo.w = CULL_PAD S, S = |centre|_1 + |half extent|_1 of the
+// block) >= the distance from the ray's origin to any point of the block
+// and those points' magnitudes. With unit roundoff eps = 2^-24, a row the
+// row test passes has its hit point near the row's box:
+// * sphere: the rounding moves the discriminant by at most ~40 eps a M^2,
+//   so the ray passes within r + sqrt(40 eps) M = r + 1.55e-3 M of the
+//   centre, and the root puts the hit point within that distance too (its
+//   own rounding adds ~1e-6 M);
+// * quad: the point o + t d the test forms lies on the ray within a few
+//   eps M and off the plane by the rounding of t's numerator, a few eps M;
+//   alpha and beta in [0, 1] hold it to the parallelogram up to their
+//   rounding, a few eps M over the sine of the quad's angle;
+// * box without `rot`: the row's slab on each axis is ((lo - o) / d,
+//   (hi - o) / d) with the same rounded 1 / d as the block's (`rot` is
+//   false only when no box turns or moves), the block's faces lie CULL_PAD
+//   M outside the row's, which neither subtraction's rounding (a few eps M)
+//   undoes, and rounding keeps the products' order: the block's interval
+//   holds the row's on each axis, and so the row's t, the axis-flat case
+//   (a direction component that safe_d replaces) included, as both use the
+//   same replaced 1 / d;
+// * box with `rot`: t lies in the row's object-space slabs, which hold o +
+//   t d within a few eps M of the box turned into world space, and the
+//   hull holds that box. An object-space component below 1e-30 that safe_d
+//   replaces moves the point by at most 1e-30 t on its axis, and t <=
+//   2 sqrt(3) M / |d|_max (the slab of the largest component bounds it).
+// The block test's own rounding (the fma against the rounded o / d) moves
+// a face by a few eps M, and its safe_d moves the ray by at most 2e-30 t
+// <= 2e-30 M sqrt(3) / |d|_max. A lane with |d|_max < SCAN_MIN_D = 2^-64
+// tests every block (`on` false), so every such term is below 1e-10 M;
+// CULL_PAD takes 2.5 times the largest (the sphere's). So a skipped block
+// holds no row that could win, and the winner is the declaration-order
+// scan's: the rows scanned keep their (t, row) rule.
+__device__ __forceinline__ bool block_hit(const float4 lo, const float4 hi, const CullRay& c,
+                                          float t_best) {
+  const float pad = lo.w + c.po;
+  const float tx0 = fmaf(lo.x - pad, c.ix, -c.oix), tx1 = fmaf(hi.x + pad, c.ix, -c.oix);
+  const float ty0 = fmaf(lo.y - pad, c.iy, -c.oiy), ty1 = fmaf(hi.y + pad, c.iy, -c.oiy);
+  const float tz0 = fmaf(lo.z - pad, c.iz, -c.oiz), tz1 = fmaf(hi.z + pad, c.iz, -c.oiz);
   const float near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
   const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
   return fmaxf(near, T_MIN) <= fminf(far, t_best);
 }
+
+// Scan one section of the scan table: `n` rows of F4 float4s from float4
+// `at`, block by block; with CULL and `cull` (the section has more than one
+// block) a block whose bounds the lane cannot meet is skipped. A block
+// whose rows are all staged is read from shared memory, any other from the
+// table. Without CULL every section holds at most one block, so the whole
+// table is staged and the rows are read in one plain loop. `row(j, v)`
+// tests the section's j-th row, `v` its float4s.
+template <int F4, bool CULL, int UNROLL, class Row>
+__device__ __forceinline__ void scan_section(const float4* __restrict__ S, int at, int n,
+                                             int staged, bool cull, const CullRay& c,
+                                             const float& t_best, Row row) {
+  const int nb = (n + SCAN_BLOCK - 1) / SCAN_BLOCK;
+  const int rows_at = at + BND_F4 * nb;
+  if constexpr (!CULL) {
+    for (int j = 0; j < n; ++j) {
+      float4 v[F4];
+#pragma unroll
+      for (int f = 0; f < F4; ++f) v[f] = grt_geo[rows_at + F4 * j + f];
+      row(j, v);
+    }
+    return;
+  }
+  for (int k = 0; k < nb; ++k) {
+    const int r0 = rows_at + F4 * SCAN_BLOCK * k;
+    const int e = min(SCAN_BLOCK, n - SCAN_BLOCK * k);
+    const bool in_smem = r0 + F4 * e <= staged;  // the same on every lane
+    if (cull && c.on) {
+      const int bk = at + BND_F4 * k;
+      const float4 lo = in_smem ? grt_geo[bk] : __ldg(S + bk);
+      const float4 hi = in_smem ? grt_geo[bk + 1] : __ldg(S + bk + 1);
+      if (!block_hit(lo, hi, c, t_best)) continue;
+    }
+    if (in_smem) {
+#pragma unroll UNROLL
+      for (int s = 0; s < SCAN_BLOCK; ++s) {
+        if (s < e) {
+          float4 v[F4];
+#pragma unroll
+          for (int f = 0; f < F4; ++f) v[f] = grt_geo[r0 + F4 * s + f];
+          row(SCAN_BLOCK * k + s, v);
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int s = 0; s < e; ++s) {
+        float4 v[F4];
+#pragma unroll
+        for (int f = 0; f < F4; ++f) v[f] = __ldg(S + r0 + F4 * s + f);
+        row(SCAN_BLOCK * k + s, v);
+      }
+    }
+  }
+}
+
+// A compile-time bool as a value, to instantiate a generic lambda twice.
+template <bool B>
+struct BoolC {
+  static constexpr bool value = B;
+};
 
 // The externally computed closest mesh hit of one ray: t (inf = none), the
 // un-flipped outward normal, the texture uv (IMG variants), and the winning
@@ -513,8 +547,8 @@ __device__ __forceinline__ void onb_transform(float nx, float ny, float nz, floa
 
 // `ext` may be null (no mesh hit to fold). The ray must be alive. `u`
 // holds the N_U uniforms of the level; `u_med(m)` returns medium m's.
-// CULL: the staged sphere rows by blocks (`sphere_block_hit`), for a table
-// whose staged spheres make more than one block (stage_geometry's bounds).
+// CULL: the blocks of a section of more than one are culled (`block_hit`),
+// for a table of which some section makes more than one block.
 // IMG (with TEX): a diffuse lane on an image row shades with its texel.
 template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL = false, bool IMG = false,
           class UMed>
@@ -524,14 +558,32 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
                                                     const ExtHit* ext, const UMed& u_med) {
   const float* __restrict__ P = T.prims;
   const int pc = T.p_cols;
-  const float4* __restrict__ G = grt_geo;
   const StageLayout stg = stage_layout(T.n_sph, T.n_quad, T.n_box);
   float t_best = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
   float m_kind = 0.0f, tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f, m_fr = 0.0f;
   static_assert(TEX || !IMG, "the image variant is a texture variant");
   bool win_sphere = false, win_med = false, win_ext = false;
-  int win_row = -1;  // the winning primitive row, -1 if none
+  float win_rowf = -1.0f;  // the winning primitive's declaration row, -1 if none
   float win_al = 0.0f, win_be = 0.0f;  // IMG: the winning quad's (alpha, beta)
+  // A sphere row before the winner: nearer, or with CULL (the spheres in
+  // Morton order) as near and declared earlier. The quads and the boxes
+  // come in declaration order after every earlier section's rows, so a row
+  // of theirs is always declared after the winner and `<` is the same rule.
+  auto before = [&](float t, float row) {
+    return t < t_best || (CULL && t == t_best && row < win_rowf);
+  };
+  // the lane's cull: its reciprocals (the box test's too without `rot`)
+  CullRay cr{};
+  if constexpr (CULL) {
+    cr.ix = safe_inv(dx);
+    cr.iy = safe_inv(dy);
+    cr.iz = safe_inv(dz);
+    cr.oix = ox * cr.ix;
+    cr.oiy = oy * cr.iy;
+    cr.oiz = oz * cr.iz;
+    cr.po = CULL_PAD * (fabsf(ox) + fabsf(oy) + fabsf(oz));
+    cr.on = fmaxf(fmaxf(fabsf(dx), fabsf(dy)), fabsf(dz)) >= SCAN_MIN_D;
+  }
 
   // ---- closest hit: spheres (objects.go:83-115) ---------------------------
   // the normal slots carry c - o until the winner's (p - c) / r is resolved
@@ -539,139 +591,125 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
     if (T.n_sph > 0) {
       const float a_quad = len_sq(dx, dy, dz);
       const float inv_a = 1.0f / a_quad;
-      // a: {c0, r^2}, b: {cd, kind}
-      auto sphere = [&](int row, const float4 a, const float4 b) {
-        const float cx = a.x + tm * b.x - ox;
-        const float cy = a.y + tm * b.y - oy;
-        const float cz = a.z + tm * b.z - oz;
-        const float h = dx * cx + dy * cy + dz * cz;
-        const float c = cx * cx + cy * cy + cz * cz - a.w;
-        const float disc = h * h - a_quad * c;
-        if (disc >= 0.0f) {  // the row can win only with disc >= 0
-          const float sq = sqrtf(fmaxf(disc, 0.0f));
-          const float r1 = (h - sq) * inv_a, r2 = (h + sq) * inv_a;
-          const float root = (T_MIN < r1 && r1 < t_best) ? r1 : r2;
-          if (b.w >= 0.0f && T_MIN < root && root < t_best) {
-            t_best = root;
-            nx = cx;
-            ny = cy;
-            nz = cz;
-            win_sphere = true;
-            win_row = row;
-          }
-        }
-      };
-      if constexpr (CULL) {
-        // the staged rows by whole blocks, a block skipped where the ray
-        // cannot meet it (sphere_block_hit)
-        const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-        const float oix = ox * ix, oiy = oy * iy, oiz = oz * iz;
-        const float po = CULL_PAD * (fabsf(ox) + fabsf(oy) + fabsf(oz));
-        const float4* __restrict__ B = G + stg.blk_at;
-        for (int k = 0; k < stg.n_blk; ++k) {
-          if (!sphere_block_hit(B[BLK_F4 * k], B[BLK_F4 * k + 1], po, ix, iy, iz, oix, oiy,
-                                oiz, t_best))
-            continue;
-#pragma unroll
-          for (int s = SPH_BLOCK * k; s < SPH_BLOCK * (k + 1); ++s)
-            sphere(T.sph_base + s, G[SPH_F4 * s], G[SPH_F4 * s + 1]);
-        }
-      } else {
-        for (int s = 0; s < stg.n_sph; ++s)
-          sphere(T.sph_base + s, G[SPH_F4 * s], G[SPH_F4 * s + 1]);
-      }
-      for (int s = stg.n_sph; s < T.n_sph; ++s) {
-        float4 a, b;
-        sph_row_global(P + (T.sph_base + s) * pc, a, b);
-        sphere(T.sph_base + s, a, b);
-      }
+      // v[0]: {c0, r^2}, v[1]: {cd, row}
+      scan_section<SPH_F4, CULL, SCAN_BLOCK>(
+          T.scan, 0, T.n_sph, stg.staged, T.n_sph > SCAN_BLOCK, cr, t_best,
+          [&](int, const float4* v) {
+            const float4 a = v[0], b = v[1];
+            const float cx = a.x + tm * b.x - ox;
+            const float cy = a.y + tm * b.y - oy;
+            const float cz = a.z + tm * b.z - oz;
+            const float h = dx * cx + dy * cy + dz * cz;
+            const float c = cx * cx + cy * cy + cz * cz - a.w;
+            const float disc = h * h - a_quad * c;
+            if (disc >= 0.0f) {  // the row can win only with disc >= 0
+              const float sq = sqrtf(fmaxf(disc, 0.0f));
+              const float r1 = (h - sq) * inv_a, r2 = (h + sq) * inv_a;
+              const float root = (T_MIN < r1 && before(r1, b.w)) ? r1 : r2;
+              if (T_MIN < root && before(root, b.w)) {
+                t_best = root;
+                nx = cx;
+                ny = cy;
+                nz = cz;
+                win_sphere = true;
+                win_rowf = b.w;
+              }
+            }
+          });
     }
   }
   // ---- quads (objects.go:167-206) ------------------------------------------
-  // n: {normal, D} (zero normal: inactive), al: {alpha row, alpha0}, be: {beta row, beta0}
-  auto quad = [&](int row, const float4 n, const float4 al, const float4 be) {
-    const float dn = dx * n.x + dy * n.y + dz * n.z;
-    const float on = ox * n.x + oy * n.y + oz * n.z;
-    const float t_q = (n.w - on) / dn;
-    const float px = ox + t_q * dx, py = oy + t_q * dy, pz = oz + t_q * dz;
-    const float alpha = px * al.x + py * al.y + pz * al.z - al.w;
-    const float beta = px * be.x + py * be.y + pz * be.z - be.w;
-    const bool ok = fabsf(dn) >= 1e-8f && T_MIN <= t_q && t_q < t_best && alpha >= 0.0f &&
-                    alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f;
-    if (ok) {
-      t_best = t_q;
-      nx = n.x;
-      ny = n.y;
-      nz = n.z;
-      win_sphere = false;
-      win_row = row;
-      if constexpr (IMG) {  // the quad's texture uv (objects.go:196-199)
-        win_al = alpha;
-        win_be = beta;
-      }
-    }
-  };
-  {
-    int q = 0;
-    for (; q < stg.n_quad; ++q) {
-      const float4* r = G + stg.quad_at + QUAD_F4 * q;
-      quad(T.quad_base + q, r[0], r[1], r[2]);
-    }
-    for (; q < T.n_quad; ++q) {
-      float4 n, al, be;
-      quad_row_global(P + (T.quad_base + q) * pc, n, al, be);
-      quad(T.quad_base + q, n, al, be);
-    }
-  }
+  // v[0]: {normal, D} (zero normal: inactive), v[1]: {alpha row, alpha0},
+  // v[2]: {beta row, beta0}; the declaration row is the section's
+  scan_section<QUAD_F4, CULL, 1>(
+      T.scan, stg.quad_at, T.n_quad, stg.staged, T.n_quad > SCAN_BLOCK, cr, t_best,
+      [&](int j, const float4* v) {
+        const float4 n = v[0], al = v[1], be = v[2];
+        const float dn = dx * n.x + dy * n.y + dz * n.z;
+        const float on = ox * n.x + oy * n.y + oz * n.z;
+        const float t_q = (n.w - on) / dn;
+        const float px = ox + t_q * dx, py = oy + t_q * dy, pz = oz + t_q * dz;
+        const float alpha = px * al.x + py * al.y + pz * al.z - al.w;
+        const float beta = px * be.x + py * be.y + pz * be.z - be.w;
+        const bool ok = fabsf(dn) >= 1e-8f && T_MIN <= t_q && t_q < t_best && alpha >= 0.0f &&
+                        alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f;
+        if (ok) {
+          t_best = t_q;
+          nx = n.x;
+          ny = n.y;
+          nz = n.z;
+          win_sphere = false;
+          win_rowf = (float)(T.quad_base + j);
+          if constexpr (IMG) {  // the quad's texture uv (objects.go:196-199)
+            win_al = alpha;
+            win_be = beta;
+          }
+        }
+      });
   // ---- fused boxes, rotate-Y + translate rows (transformation.go) -----------
-  // lo: {lo, cos}, hi: {hi, sin}, off: {offset, kind}
-  auto box = [&](int row, const float4 lo, const float4 hi, const float4 off) {
-    const float cs = lo.w, sn = hi.w;
-    const float osx = ox - off.x, oyo = oy - off.y, osz = oz - off.z;
-    const float oxo = cs * osx - sn * osz;
-    const float ozo = sn * osx + cs * osz;
-    const float dxo = cs * dx - sn * dz;
-    const float dzo = sn * dx + cs * dz;
-    const float ix = safe_inv(dxo), iy = safe_inv(dy), iz = safe_inv(dzo);
-    const float tx0 = (lo.x - oxo) * ix, tx1 = (hi.x - oxo) * ix;
-    const float ty0 = (lo.y - oyo) * iy, ty1 = (hi.y - oyo) * iy;
-    const float tz0 = (lo.z - ozo) * iz, tz1 = (hi.z - ozo) * iz;
-    const float lx = fminf(tx0, tx1), hx = fmaxf(tx0, tx1);
-    const float ly = fminf(ty0, ty1), hy = fmaxf(ty0, ty1);
-    const float lz = fminf(tz0, tz1), hz = fmaxf(tz0, tz1);
-    const float near = fmaxf(fmaxf(lx, ly), lz);
-    const float far = fminf(fminf(hx, hy), hz);
-    const bool entry = near >= T_MIN;
-    const float t_c = entry ? near : far;
-    const bool ok = off.w >= 0.0f && far > near && T_MIN <= t_c && t_c < t_best;
-    if (ok) {
-      const bool is_x = (entry ? lx : hx) == t_c;
-      const bool is_y = !is_x && (entry ? ly : hy) == t_c;
-      const bool is_z = !is_x && !is_y;
-      const float flip = entry ? -1.0f : 1.0f;
-      const float nxo = is_x ? (dxo >= 0.0f ? flip : -flip) : 0.0f;
-      const float nyo = is_y ? (dy >= 0.0f ? flip : -flip) : 0.0f;
-      const float nzo = is_z ? (dzo >= 0.0f ? flip : -flip) : 0.0f;
-      t_best = t_c;
-      nx = cs * nxo + sn * nzo;
-      ny = nyo;
-      nz = -sn * nxo + cs * nzo;
-      win_sphere = false;
-      win_row = row;
+  // v[0]: {lo, cos}, v[1]: {hi, sin}, v[2]: {offset, row}; with ROT the ray
+  // turned into the box's frame per row, without it the reciprocals hoisted
+  auto boxes = [&](auto rot_c) {
+    constexpr bool ROT = decltype(rot_c)::value;
+    float bix = cr.ix, biy = cr.iy, biz = cr.iz;
+    if constexpr (!ROT && !CULL) {
+      bix = safe_inv(dx);
+      biy = safe_inv(dy);
+      biz = safe_inv(dz);
     }
+    scan_section<BOX_F4, CULL, 1>(
+        T.scan, stg.box_at, T.n_box, stg.staged, T.n_box > SCAN_BLOCK, cr, t_best,
+        [&](int, const float4* v) {
+          const float4 lo = v[0], hi = v[1], off = v[2];
+          const float cs = lo.w, sn = hi.w;
+          float oxo = ox, oyo = oy, ozo = oz, dxo = dx, dzo = dz;
+          float ix = bix, iy = biy, iz = biz;
+          if constexpr (ROT) {
+            const float osx = ox - off.x, osz = oz - off.z;
+            oyo = oy - off.y;
+            oxo = cs * osx - sn * osz;
+            ozo = sn * osx + cs * osz;
+            dxo = cs * dx - sn * dz;
+            dzo = sn * dx + cs * dz;
+            ix = safe_inv(dxo);
+            iy = safe_inv(dy);
+            iz = safe_inv(dzo);
+          }
+          const float tx0 = (lo.x - oxo) * ix, tx1 = (hi.x - oxo) * ix;
+          const float ty0 = (lo.y - oyo) * iy, ty1 = (hi.y - oyo) * iy;
+          const float tz0 = (lo.z - ozo) * iz, tz1 = (hi.z - ozo) * iz;
+          const float lx = fminf(tx0, tx1), hx = fmaxf(tx0, tx1);
+          const float ly = fminf(ty0, ty1), hy = fmaxf(ty0, ty1);
+          const float lz = fminf(tz0, tz1), hz = fmaxf(tz0, tz1);
+          const float near = fmaxf(fmaxf(lx, ly), lz);
+          const float far = fminf(fminf(hx, hy), hz);
+          const bool entry = near >= T_MIN;
+          const float t_c = entry ? near : far;
+          const bool ok = far > near && T_MIN <= t_c && t_c < t_best;
+          if (ok) {
+            const bool is_x = (entry ? lx : hx) == t_c;
+            const bool is_y = !is_x && (entry ? ly : hy) == t_c;
+            const bool is_z = !is_x && !is_y;
+            const float flip = entry ? -1.0f : 1.0f;
+            const float nxo = is_x ? (dxo >= 0.0f ? flip : -flip) : 0.0f;
+            const float nyo = is_y ? (dy >= 0.0f ? flip : -flip) : 0.0f;
+            const float nzo = is_z ? (dzo >= 0.0f ? flip : -flip) : 0.0f;
+            t_best = t_c;
+            nx = ROT ? cs * nxo + sn * nzo : nxo;
+            ny = nyo;
+            nz = ROT ? -sn * nxo + cs * nzo : nzo;
+            win_sphere = false;
+            win_rowf = off.w;
+          }
+        });
   };
-  {
-    int k = 0;
-    for (; k < stg.n_box; ++k) {
-      const float4* r = G + stg.box_at + BOX_F4 * k;
-      box(T.box_base + k, r[0], r[1], r[2]);
-    }
-    for (; k < T.n_box; ++k) {
-      float4 lo, hi, off;
-      box_row_global(P + (T.box_base + k) * pc, lo, hi, off);
-      box(T.box_base + k, lo, hi, off);
-    }
+  if (T.n_box > 0) {  // the same on every lane
+    if (T.rot)
+      boxes(BoolC<true>{});
+    else
+      boxes(BoolC<false>{});
   }
+  int win_row = (int)win_rowf;
   // the winner's material columns (TEX: after the texture's hit point) and
   // a winning sphere's radius, from the table in global memory
   float sph_r = 1.0f;

@@ -67,7 +67,7 @@ __global__ void __launch_bounds__(BLOCK, 4) bounce_fused_levels(FusedArgs a) {
   // the geometry into shared memory once for all levels, before any branch
   // on the lane (the lane's loads above are in flight meanwhile)
   const BounceTables T = fused_tables<SPH, DIEL, MED, TEX, IMG>(a);
-  stage_geometry(T, CULL);
+  stage_geometry(T);
 
   const uint32_t seed_mix = (uint32_t)a.seed[0] * 0x9E3779B9u;
   const uint32_t ulane = (uint32_t)lane;

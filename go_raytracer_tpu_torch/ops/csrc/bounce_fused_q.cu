@@ -30,11 +30,10 @@
 // this card is the launch per level, the divergence between lanes that
 // hit different materials, and on a large table the issue of the scan's
 // loads: every lane of a warp reads the same row at once. So each block
-// stages the table's geometry in shared memory before its first branch on
-// the lane (`stage_geometry`, bounce_core.cuh), and the scan reads a row
-// with two or three broadcast `LDS.128`; with more than one block of 8
-// spheres the variant with the sphere cull skips the blocks a ray cannot
-// meet.
+// stages the scan table in shared memory before its first branch on the
+// lane (`stage_geometry`, bounce_core.cuh), and the scan reads a row with
+// two or three broadcast `LDS.128`; with more than one block of 8 rows in
+// a section the variant with the cull skips the blocks a ray cannot meet.
 //
 // `grt_bounce_fused_q_direct` replaces the Pallas TPU kernel
 // `bounce_fused_q_direct` (the same file, `_fused_q_kernel_direct`): the same
@@ -50,7 +49,7 @@
 // in bounce_core.cuh, shared with bounce.cu; its precision note applies
 // here. `fused_q_level` is compiled once per feature set of the core
 // (spheres, the fr column with dielectric, media with isotropic, textures,
-// the sphere cull, the image texel) and the entry points launch the scene's variant with
+// the cull, the image texel) and the entry points launch the scene's variant with
 // the staged geometry's dynamic shared memory. Level j draws its uniforms from
 // PRNG slots j * (N_U_RAYGEN + N_U + n_media) on: five for the camera ray,
 // nine for the bounce, one per medium, as the TPU kernel does. The PRNG and
@@ -110,7 +109,7 @@ fused_q_level(FusedQArgs a, int j) {
   __shared__ int warp_dead[NWARP];
   // the geometry into shared memory, before any branch on the lane
   const BounceTables T = fused_tables<SPH, DIEL, MED, TEX, IMG>(a);
-  stage_geometry(T, CULL);
+  stage_geometry(T);
   const int nb = gridDim.x;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;

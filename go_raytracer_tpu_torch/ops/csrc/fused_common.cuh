@@ -75,13 +75,16 @@ struct HashMediaU {
 #define FUSED_TABLE_FIELDS                                                  \
   const float* img;   /* (n_img, img_h, img_w, 3) texels; null: no image */ \
   const int* img_wh;  /* (n_img, 2) each image's (w, h) */                 \
-  int p_cols, sph_base, n_sph, quad_base, n_quad, box_base, n_box;         \
+  const float* scan;  /* the scan table (ops/bounce.scan_layout) */        \
+  int p_cols, n_sph, quad_base, n_quad, n_box;                            \
+  /* (n_sph, n_quad, n_box: the rows the scan table holds) */              \
   int n_lights, n_lights_live, fr_col, n_media;                            \
   int feat; /* bits: 0 spheres, 1 the fr column, 2 media, 3 textures,  \
                 5 images; (4, the cull, is with_cull's) */               \
   int texk_col, scale_col, seed_col; /* -1: the layout lacks the column */ \
   int defocus; /* camera rays from the defocus disk */                     \
-  int img_h, img_w; /* the image table's padded height and width */
+  int img_h, img_w; /* the image table's padded height and width */        \
+  int scan_rot; /* some box is rotated or offset */
 
 // The dense tables of a scene inside ops/bounce.supported_statics, for the
 // core compiled with these features: a section the variant lacks is
@@ -93,12 +96,12 @@ __device__ __forceinline__ BounceTables fused_tables(const A& a) {
   T.lights = a.lights;
   T.med = a.med;
   T.bg = a.bg;
+  T.scan = reinterpret_cast<const float4*>(a.scan);
+  T.rot = a.scan_rot;
   T.p_cols = a.p_cols;
-  T.sph_base = a.sph_base;
   T.n_sph = SPH ? a.n_sph : 0;
   T.quad_base = a.quad_base;
   T.n_quad = a.n_quad;
-  T.box_base = a.box_base;
   T.n_box = a.n_box;
   T.n_lights = a.n_lights;
   T.n_lights_live = a.n_lights_live;
@@ -120,12 +123,14 @@ inline int fused_stage_bytes(int feat, int n_sph, int n_quad, int n_box) {
   return stage_layout((feat & 1) ? n_sph : 0, n_quad, n_box).bytes;
 }
 
-// Feature bit 4, set here and not by the caller: the sphere cull of the
-// core (CULL), for a table whose staged spheres make more than one block
-// of SPH_BLOCK rows.
+// Feature bit 4, set here and not by the caller: the cull of the core's
+// scan (CULL), for a table of which some section makes more than one block
+// of SCAN_BLOCK rows.
 #define FEAT_CULL 16
 inline int with_cull(int feat, int n_sph, int n_quad, int n_box) {
-  return (feat & 1) && stage_layout(n_sph, n_quad, n_box).n_blk > 1 ? feat | FEAT_CULL : feat;
+  const bool many = ((feat & 1) && n_sph > SCAN_BLOCK) || n_quad > SCAN_BLOCK ||
+                    n_box > SCAN_BLOCK;
+  return many ? feat | FEAT_CULL : feat;
 }
 
 // Feature bit 5: the image texel (IMG), set by ops/bounce.fused_features
@@ -134,16 +139,16 @@ inline int with_cull(int feat, int n_sph, int n_quad, int n_box) {
 
 // Run CASE(SPH, DIEL, MED, TEX, CULL, IMG) for the feature bits of a call:
 // one kernel variant per feature set, picked once per call on the host
-// (CULL only with SPH, IMG only with TEX: 36 variants).
+// (IMG only with TEX: 48 variants).
 #define FEATURE_SWITCH3(feat, TEXV, CULLV, IMGV, CASE)           \
   switch ((feat) & 7) {                                          \
-    case 0: CASE(false, false, false, TEXV, false, IMGV); break; \
+    case 0: CASE(false, false, false, TEXV, CULLV, IMGV); break; \
     case 1: CASE(true, false, false, TEXV, CULLV, IMGV); break;  \
-    case 2: CASE(false, true, false, TEXV, false, IMGV); break;  \
+    case 2: CASE(false, true, false, TEXV, CULLV, IMGV); break;  \
     case 3: CASE(true, true, false, TEXV, CULLV, IMGV); break;   \
-    case 4: CASE(false, false, true, TEXV, false, IMGV); break;  \
+    case 4: CASE(false, false, true, TEXV, CULLV, IMGV); break;  \
     case 5: CASE(true, false, true, TEXV, CULLV, IMGV); break;   \
-    case 6: CASE(false, true, true, TEXV, false, IMGV); break;   \
+    case 6: CASE(false, true, true, TEXV, CULLV, IMGV); break;   \
     default: CASE(true, true, true, TEXV, CULLV, IMGV); break;   \
   }
 #define FEATURE_SWITCH2(feat, TEXV, IMGV, CASE)    \

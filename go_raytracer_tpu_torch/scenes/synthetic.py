@@ -14,7 +14,8 @@ so both packages can build the same scene from the same seed:
 * spheres 0 and 1: the coincident pair, radius 2 at (0, 50, 0): diffuse
   lights of colour TIE_FIRST and TIE_SECOND, seen by the camera
   (`CAMERA`) and by nothing else, so a primary ray that meets them emits
-  the first one's colour;
+  the first one's colour (with `moving_pair` the second one moves away
+  from the first over the ray time: the tie scene);
 * with `dielectric`, a hollow glass sphere (radius 1.2 and -1.0, the
   inner one's negative radius flipping its normal);
 * the rest of the spheres radius 0.15-0.4 over a 24 x 24 floor, about a
@@ -43,14 +44,20 @@ CAMERA = dict(aspect_ratio=1.0, width=32, samples_per_pixel=16,
 
 
 def scan_scene(b, transform, n_sph: int, n_quad: int = 2, n_box: int = 1,
-               seed: int = 0, dielectric: bool = True):
+               seed: int = 0, dielectric: bool = True,
+               moving_pair: bool = False):
     """Fill builder `b` (background CAMERA["background"]) with `n_sph`
     spheres (at least 4, or 6 with `dielectric`), `n_quad` quads (at
     least 1: the light) and `n_box` boxes; `transform` is the builder's
-    package's Transform class. Returns b.build()."""
+    package's Transform class. With `moving_pair` the pair's second sphere
+    moves from the first's place (at ray time 0) down to (0, 10, 0) (at
+    time 1): the tie scene, where the kernels' scan order (the Morton order
+    of the spheres' swept boxes) puts the second before the first, and the
+    rays at time 0 must still take the first. Returns b.build()."""
     rs = np.random.default_rng(seed)
     first = b.sphere((0.0, 50.0, 0.0), 2.0, b.diffuse_light(TIE_FIRST))
-    b.sphere((0.0, 50.0, 0.0), 2.0, b.diffuse_light(TIE_SECOND))
+    b.sphere((0.0, 50.0, 0.0), 2.0, b.diffuse_light(TIE_SECOND),
+             center2=(0.0, 10.0, 0.0) if moving_pair else None)
     n_fixed = 3
     if dielectric:
         glass = b.dielectric(1.5)
@@ -107,7 +114,7 @@ def clear_rows(prims: np.ndarray, rows) -> np.ndarray:
 
 
 def build(n_sph: int, n_quad: int = 2, n_box: int = 1, seed: int = 0,
-          dielectric: bool = True):
+          dielectric: bool = True, moving_pair: bool = False):
     """The scan scene on this package's builder, with its camera (CAMERA)
     and its packed tables (`pack_scene`, numpy) with the inactive rows
     cleared: (scene, camera, tables, statics)."""
@@ -117,7 +124,7 @@ def build(n_sph: int, n_quad: int = 2, n_box: int = 1, seed: int = 0,
 
     scene = scan_scene(SceneBuilder(background=CAMERA["background"]),
                        Transform, n_sph, n_quad, n_box, seed=seed,
-                       dielectric=dielectric)
+                       dielectric=dielectric, moving_pair=moving_pair)
     cam = Camera(**{k: v for k, v in CAMERA.items()
                     if k not in ("look_from", "look_at")})
     cam.position(CAMERA["look_from"], CAMERA["look_at"], (0, 1, 0))

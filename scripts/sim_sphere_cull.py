@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Estimate, on the CPU, how many blocks of 8 sphere rows the bounce
-kernels' culled scan (csrc/bounce_core.cuh, `sphere_block_hit`) makes a
-warp test, on the lane pool the fused-kernel timings use.
+"""Estimate, on the CPU, how many blocks of the bounce kernels' culled scan
+(csrc/bounce_core.cuh, `block_hit`) a warp tests, on a lane pool in the
+middle of the image, before and after the scan's redesign.
 
-    python3 scripts/sim_sphere_cull.py [--scene book1] [--lanes 131072]
-                                       [--calls 9] [--cursor-step 0]
+    python3 scripts/sim_sphere_cull.py [--scene book2 book1] [--lanes 65536]
+                                       [--calls 6] [--cursor N]
+                                       [--cursor-step 0]
 
 It ages a pool as scripts/time_fused_kernels.py does (`calls` calls of the
 plain `bounce_fused_q` at one level from an empty pool, the item queue
-starting at `cursor-step` x the call's index, 0: at item 0 every call), and
-takes the rays that enter the last call's bounce: the refilled camera
-rays and the lanes still alive. For each block of 8 rows of the sphere
-section it takes the box of its active spheres swept over the motion,
-unpadded, and counts the rays whose slab interval meets (T_MIN, inf): the
-cull's test before any hit has shortened the interval, so an upper bound
-of what the kernel tests. It prints the fraction of the blocks a lane
-needs and the fraction a warp of 32 consecutive lanes needs (the union of
-its lanes', which is what a warp executes). The plain version at 131,072
-lanes and 389 spheres takes about a minute on a few CPU cores.
+starting at `cursor` + `cursor-step` x the call's index; the default
+cursor starts the pool's items in the middle rows of the image, since from
+item 0 book2's first rows see almost nothing but sky), and takes the rays
+that enter the last call's bounce: the refilled camera rays and the lanes
+still alive. On them it runs the plain model of the scan
+(`ops/bounce.closest_culled_ref`, the same winners as the brute-force scan)
+three ways:
+
+* before: the scan as it was, spheres in declaration order culled by
+  blocks of 8 (their bounds tested, the interval shortened by each hit),
+  every quad and box row tested (the ray turned per box row);
+* after: the kernels' scan (`scan_layout`): spheres in Morton order, every
+  section of more than one block culled, boxes in declaration order;
+* after, boxes in Morton order: the choice the kernels did not take.
+
+For each it prints, per section, the share of the section's blocks the
+union of a warp's 32 lanes needs (what a warp executes), the rows and
+block tests a lane makes, and the scan's float operations per lane
+(`scan_ops`, SCAN_OPS) beside the brute-force scan's. The plain version
+at 65,536 lanes takes about a minute a scene on a few CPU cores.
 """
 
 import argparse
@@ -33,81 +44,124 @@ from go_raytracer_tpu_torch.integrator import regen  # noqa: E402
 from go_raytracer_tpu_torch.ops import bounce  # noqa: E402
 from go_raytracer_tpu_torch.scenes import registry  # noqa: E402
 
-T_MIN = 1e-3
-BLOCK_ROWS = 8
+SECTIONS = ("spheres", "quads", "boxes")
 
 
-def block_boxes(prims, n_sph):
-    """(lo, hi) of each block of BLOCK_ROWS rows of the sphere section:
-    the box of its active spheres at time 0 and 1, radius |r|; an empty
-    block's box is empty (lo = inf, hi = -inf)."""
-    g = prims[:n_sph]
-    act = g[:, 0] >= 0
-    c0, cd, r = g[:, 1:4], g[:, 4:7], np.abs(g[:, 7])[:, None]
-    lo = np.minimum(c0, c0 + cd) - r
-    hi = np.maximum(c0, c0 + cd) + r
-    nb = (n_sph + BLOCK_ROWS - 1) // BLOCK_ROWS
-    blo = np.full((nb, 3), np.inf)
-    bhi = np.full((nb, 3), -np.inf)
-    for k in np.nonzero(act)[0]:
-        blo[k // BLOCK_ROWS] = np.minimum(blo[k // BLOCK_ROWS], lo[k])
-        bhi[k // BLOCK_ROWS] = np.maximum(bhi[k // BLOCK_ROWS], hi[k])
-    return blo, bhi
-
-
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scene", default="book1")
-    ap.add_argument("--lanes", type=int, default=1 << 17)
-    ap.add_argument("--calls", type=int, default=9)
-    ap.add_argument("--cursor-step", type=int, default=0)
-    args = ap.parse_args()
-    scene, cam = getattr(registry, args.scene)()
+def bounce_rays(scene, cam, lanes, calls, cursor, step):
+    """The rays entering the last of `calls` plain one-level calls of
+    `bounce_fused_q` on an aged pool: (ox, oy, oz, dx, dy, dz, tm) of the
+    alive lanes, and the alive mask over all lanes."""
     tab = tuple(torch.from_numpy(t) for t in bounce.pack_scene(scene))
     st = bounce.scene_statics(scene)
     row = torch.from_numpy(bounce.pack_camera(cam.derived()))
     bg = torch.from_numpy(np.asarray(scene.background, np.float32))
-    n, sq = args.lanes, cam.spp_sqrt
+    sq = cam.spp_sqrt
     npix = cam.width * cam.image_height
     kw = dict(has_defocus=cam.defocus_angle > 0, max_depth=cam.max_depth,
               n_inner=1, width=cam.width, sqrt_spp=sq, npix=npix)
-    state = regen._init_state(n, torch.device("cpu"))
+    state = regen._init_state(lanes, torch.device("cpu"))
     rays = {}
     core = bounce._bounce_core_ref
 
     def capture(st_, prims, lights, bgl, ox, oy, oz, dx, dy, dz, alive, u,
-                **k):
-        rays["last"] = [x.double().numpy() for x in (ox, oy, oz, dx, dy, dz)]
-        rays["alive"] = alive.numpy().copy()
+                tm=None, **k):
+        rays["last"] = (ox, oy, oz, dx, dy, dz, tm)
+        rays["alive"] = alive.clone()
         return core(st_, prims, lights, bgl, ox, oy, oz, dx, dy, dz, alive,
-                    u, **k)
+                    u, tm=tm, **k)
 
     bounce._bounce_core_ref = capture
-    for i in range(args.calls):
-        seed4 = torch.tensor([7, 1, i * args.cursor_step, npix * sq * sq],
-                             dtype=torch.int32)
-        out = bounce.bounce_fused_q(tab, st, row, bg, seed4, *state, **kw)
-        state = [s.clone() for s in out[4:]]
-    bounce._bounce_core_ref = core
-    o, d = rays["last"][:3], rays["last"][3:]
-    alive = rays["alive"]
-    inv = [1.0 / np.where(np.abs(v) < 1e-30, np.copysign(1e-30, v), v)
-           for v in d]
-    blo, bhi = block_boxes(tab[0].numpy(), st["n_sph"])
-    need = np.zeros((blo.shape[0], n), bool)
-    for b in range(blo.shape[0]):
-        t0 = [(blo[b][a] - o[a]) * inv[a] for a in range(3)]
-        t1 = [(bhi[b][a] - o[a]) * inv[a] for a in range(3)]
-        near = np.max([np.minimum(x, y) for x, y in zip(t0, t1)], axis=0)
-        far = np.min([np.maximum(x, y) for x, y in zip(t0, t1)], axis=0)
-        need[b] = (np.maximum(near, T_MIN) <= far) & alive
-    warp_any = alive.reshape(-1, 32).any(axis=1)
-    union = need.reshape(need.shape[0], -1, 32).any(axis=2)[:, warp_any]
-    print(f"{args.scene}, {n} lanes, {args.calls} calls (cursor step "
-          f"{args.cursor_step}), {blo.shape[0]} blocks of {BLOCK_ROWS} "
-          f"sphere rows: lanes in the last call's bounce {alive.mean():.3f}; "
-          f"blocks a lane needs {need[:, alive].mean():.3f}, a warp's union "
-          f"{union.mean():.3f}")
+    try:
+        for i in range(calls):
+            seed4 = torch.tensor([7, 1, cursor + i * step, npix * sq * sq],
+                                 dtype=torch.int32)
+            out = bounce.bounce_fused_q(tab, st, row, bg, seed4, *state,
+                                        **kw)
+            state = [s.clone() for s in out[4:]]
+    finally:
+        bounce._bounce_core_ref = core
+    return tab[0], st, rays["last"], rays["alive"]
+
+
+def warp_share(scanned, alive):
+    """The share of a section's blocks the union of each warp's alive lanes
+    scans, over the warps with an alive lane."""
+    if scanned.shape[0] == 0:
+        return float("nan")
+    need = scanned & alive[None]
+    warp_any = alive.reshape(-1, 32).any(dim=1)
+    union = need.reshape(need.shape[0], -1, 32).any(dim=2)[:, warp_any]
+    return union.float().mean().item()
+
+
+def report(tag, lay, stats, alive, counts, extra_rows=(0, 0, 0)):
+    """One line per way: per section the warp share, rows and block tests
+    a lane makes; the scan's operations per lane."""
+    parts = []
+    for sec, name in enumerate(SECTIONS):
+        if counts[sec] == 0:
+            continue
+        rows = stats["rows"][sec][alive].double().mean().item() \
+            + extra_rows[sec]
+        blocks = stats["blocks"][sec][alive].double().mean().item()
+        share = 1.0 if extra_rows[sec] else warp_share(
+            stats["scanned"][sec], alive)
+        parts.append(f"{name} {share:.3f} of {len(lay.pad[sec])} blocks a "
+                     f"warp, {rows:.1f} rows and {blocks:.1f} block tests a "
+                     f"lane")
+    return f"  {tag}: " + "; ".join(parts)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", nargs="*", default=["book2", "book1"])
+    ap.add_argument("--lanes", type=int, default=1 << 16)
+    ap.add_argument("--calls", type=int, default=6)
+    ap.add_argument("--cursor", type=int, default=None,
+                    help="first item (default: the pool's items in the "
+                         "middle rows of the image)")
+    ap.add_argument("--cursor-step", type=int, default=0)
+    args = ap.parse_args()
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    for sc in args.scene:
+        scene, cam = getattr(registry, sc)()
+        npix = cam.width * cam.image_height
+        cursor = args.cursor if args.cursor is not None \
+            else max(npix // 2 - args.lanes // 2, 0)
+        prims, st, ray, alive = bounce_rays(scene, cam, args.lanes,
+                                            args.calls, cursor,
+                                            args.cursor_step)
+        ways = {"after": bounce.scan_layout(prims, st),
+                "after, boxes in Morton order": bounce.scan_layout(
+                    prims, st, box_order="morton"),
+                "before": bounce.scan_layout(prims, st, sphere_order="decl")}
+        counts = ways["after"].counts
+        if counts[2] == 0:
+            del ways["after, boxes in Morton order"]
+        print(f"{sc}: {args.lanes} lanes, {args.calls} calls from item "
+              f"{cursor} (step {args.cursor_step}), {alive.float().mean():.3f}"
+              f" of the lanes in the last call's bounce; {counts[0]} spheres,"
+              f" {counts[1]} quads, {counts[2]} boxes", flush=True)
+        for tag, lay in ways.items():
+            stats = {}
+            bounce.closest_culled_ref(st, prims, *ray, layout=lay,
+                                      stats=stats)
+            if tag == "before":
+                # the earlier scan culled the spheres alone
+                for sec in (1, 2):
+                    stats["blocks"][sec].zero_()
+                    stats["rows"][sec].zero_()
+                print(report(tag, lay, stats, alive, counts,
+                             (0, counts[1], counts[2])), flush=True)
+                # (its box test turned the ray per row, rotated or not)
+                ops = bounce.scan_ops(lay, stats)[alive].mean().item() \
+                    + counts[1] * bounce.SCAN_OPS["quad"] \
+                    + counts[2] * bounce.SCAN_OPS["box_rot"]
+            else:
+                print(report(tag, lay, stats, alive, counts), flush=True)
+                ops = bounce.scan_ops(lay, stats)[alive].mean().item()
+            print(f"    scan operations a lane {ops:.0f} (brute force "
+                  f"{bounce.brute_ops(lay)})", flush=True)
     return 0
 
 

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Time the fused bounce kernels K1 `bounce_fused_q`, K9
-`bounce_fused_q_direct`, K6 `bounce_fused` and K8 `bounce_fused_pos` on one
-NVIDIA GPU at the flagships' shapes (131,072 lanes, the scene's cadence,
-an aged pool), and split a call's time into the host's and the device's.
+"""Time the bounce kernels K1 `bounce_fused_q`, K9
+`bounce_fused_q_direct`, K6 `bounce_fused`, K8 `bounce_fused_pos` and K3
+`bounce` (dense mode, one level) on one NVIDIA GPU at the flagships' shapes
+(131,072 lanes, the scene's cadence, an aged pool), and split a call's
+time into the host's and the device's.
 
     python3 scripts/time_fused_kernels.py [--repo DIR] [--scene NAME ...]
                                           [--out FILE]
 
 For each scene (default: cornell_box, book3, cornell_smoke, simple_light,
-book1, quads_scene, book2; a scene the checkout's kernels do not take is
-skipped, and K9 on a scene with image textures, which it refuses), at its
-registry width, height, cadence and defocus, and kernel it prints:
+book1, quads_scene, book2; also scan_spheres and scan_quads, the synthetic
+scan scene's two mixes of chip_smoke.py phase 23 under a camera over its
+floor; a scene the checkout's kernels do not take is skipped, and K9 on a
+scene with image textures, which it refuses), at its registry width,
+height, cadence and defocus, and kernel it prints (K3 on the rays of K1's
+aged pool, from fixed uniforms):
 
 * ms per call between two CUDA events around 20 calls, the least of three
   batches (what chip_smoke.py reports);
@@ -50,7 +54,26 @@ import time
 DEVICE_NAMES = {"K1": ("fused_q_level", "count_dead"),
                 "K9": ("fused_q_level", "count_dead"),
                 "K6": ("bounce_fused_levels",),
-                "K8": ("bounce_fused_pos_levels",)}
+                "K8": ("bounce_fused_pos_levels",),
+                "K3": ("bounce_level",)}
+# the synthetic scan scene's mixes (spheres, quads, boxes), and the camera
+# the timings look at its 24 x 24 floor with
+SYNTH = {"scan_spheres": (3500, 300, 296), "scan_quads": (200, 1800, 2096)}
+SYNTH_CAMERA = dict(aspect_ratio=1.0, width=400, samples_per_pixel=16,
+                    max_depth=50, vertical_fov=60.0, regen_cadence=1,
+                    background=(0.5, 0.6, 0.7))
+
+
+def synth_scene(name):
+    """(scene, camera, packed tables with the inactive rows cleared,
+    statics) of a scan mix, its camera 18 units off the floor's middle."""
+    from go_raytracer_tpu_torch.render.camera import Camera
+    from go_raytracer_tpu_torch.scenes import synthetic
+
+    scene, _, tabs, st = synthetic.build(*SYNTH[name], dielectric=False)
+    cam = Camera(**SYNTH_CAMERA)
+    cam.position((0.0, 10.0, 18.0), (0.0, 0.5, 0.0), (0, 1, 0))
+    return scene, cam, tabs, st
 
 
 def time_ms(fn, reps):
@@ -137,6 +160,8 @@ def main():
                     default=["cornell_box", "book3", "cornell_smoke",
                              "simple_light", "book1", "quads_scene",
                              "book2"])
+    ap.add_argument("--kernels", nargs="*",
+                    default=["K1", "K9", "K6", "K8", "K3"])
     ap.add_argument("--out", default=os.path.join("build",
                                                   "time_fused_kernels.json"))
     ap.add_argument("--save", help="file for the kernels' outputs")
@@ -165,15 +190,23 @@ def main():
     saved = {}
     other = torch.load(args.compare) if args.compare else {}
     libs = {"K1": "bounce_fused_q", "K9": "bounce_fused_q",
-            "K6": "bounce_fused", "K8": "bounce_fused_pos"}
+            "K6": "bounce_fused", "K8": "bounce_fused_pos", "K3": "bounce"}
     for sc in args.scene:
-        scene, cam = getattr(registry, sc)()
+        if sc in SYNTH:
+            scene, cam, packed, st = synth_scene(sc)
+        else:
+            scene, cam = getattr(registry, sc)()
+            packed, st = bounce.pack_scene(scene), bounce.scene_statics(scene)
         if not bounce.supported(scene):
             print(f"{sc}: outside this checkout's kernels, skipped")
             continue
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        tab = tuple(to(t) for t in bounce.pack_scene(scene))
-        st = bounce.scene_statics(scene)
+        tab = tuple(to(t) for t in packed)
+        # the section sizes the kernels launch with: the scan table's rows
+        # where the checkout has one
+        counts = (bounce.scan_tables(tab[0], st)[0].counts
+                  if hasattr(bounce, "scan_tables")
+                  else (st["n_sph"], st["n_quad"], st["n_box"]))
         row = to(bounce.pack_camera(cam.derived()))
         bg = to(np.asarray(scene.background, np.float32))
         cad, sq = cam.regen_cadence, cam.spp_sqrt
@@ -201,6 +234,13 @@ def main():
                                        width)
         pout = bounce.FusedOut.empty(n, cad, dev, positional=True)
         seed2 = torch.tensor([13, cad], dtype=torch.int32, device=dev)
+        # K3 on the pool's rays, its uniforms fixed
+        k3_in = [torch.stack(state[:3], 1).contiguous(),
+                 torch.stack(state[3:6], 1).contiguous(), state[6],
+                 state[7] > 0, torch.rand(
+                     (n, bounce.N_U + st["n_media"]), device=dev,
+                     generator=torch.Generator(dev).manual_seed(3))]
+        k3_out = bounce.bounce_out(n, dev)
         # each kernel as a function of its input planes, and its outputs
         runs = {
             "K1": (state, lambda s: bounce.bounce_fused_q(
@@ -213,23 +253,31 @@ def main():
             "K8": (pstate, lambda s: bounce.bounce_fused_pos(
                 tab, st, row, bg, seed2, *s, out=pout, has_defocus=dfc,
                 max_depth=cam.max_depth, n_inner=cad, width=width,
-                sqrt_spp=sq))}
+                sqrt_spp=sq)),
+            "K3": (k3_in, lambda s: bounce.bounce(
+                tab, st, *s, bg, out=k3_out))}
         outputs = {
             "K1": lambda: list(out.rec) + [out.seg, out.take, out.base,
                                            out.cursor] + list(out.state),
             "K9": lambda: [b[:cad] for b in bufs] + [out.seg, out.take]
             + list(out.state),
             "K6": lambda: list(fout.rec) + [fout.seg] + list(fout.state),
-            "K8": lambda: list(pout.rec) + [pout.seg] + list(pout.state)}
+            "K8": lambda: list(pout.rec) + [pout.seg] + list(pout.state),
+            "K3": lambda: list(k3_out)}
 
         def run_on(k, inputs):
-            """The outputs of one call of kernel k on these inputs."""
+            """The outputs of one call of kernel k on these inputs (K3's
+            buffers zeroed first: it writes no dead lane's ray)."""
+            if k == "K3":
+                for t in k3_out:
+                    t.zero_()
             runs[k][1]([x.to(dev) for x in inputs])
             torch.cuda.synchronize()
             return [t.detach().cpu().clone() for t in outputs[k]()]
 
         if scene.has_image:
             del runs["K9"]
+        runs = {k: v for k, v in runs.items() if k in args.kernels}
         res = {}
         for k, (inputs, fn) in runs.items():
             call = lambda: fn(inputs)
@@ -237,9 +285,9 @@ def main():
                           device_us=device_us(call, DEVICE_NAMES[k]))
             if hasattr(_cuda, "kernel_info"):
                 res[k]["info"] = _cuda.kernel_info(
-                    libs[k], bounce.fused_features(st), st["n_sph"],
-                    st["n_quad"], st["n_box"])
-            print(f"{sc} {k} ({cad} levels, {n} lanes): {res[k]['ms']:.4f} ms "
+                    libs[k], bounce.fused_features(st), *counts)
+            lv = 1 if k == "K3" else cad
+            print(f"{sc} {k} ({lv} levels, {n} lanes): {res[k]['ms']:.4f} ms "
                   f"per call, host {res[k]['host_us']:.1f} us, device "
                   f"{res[k]['device_us']} us; {res[k].get('info', '')}; "
                   f"{card}")

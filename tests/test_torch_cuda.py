@@ -1175,13 +1175,14 @@ def test_staged_scan_bounce_kernel_matches_plain(cuda, mix):
 
 def test_staged_scan_keeps_four_blocks_per_sm(cuda):
     """Every fused variant keeps 4 resident blocks per SM with its staged
-    geometry, on the five dense registry scenes and on the scan scene at
-    MAX_PRIMS rows; the staged bytes stay within the budget."""
+    geometry, on the seven dense registry scenes and on the scan scene at
+    MAX_PRIMS rows; the staged bytes stay within the budget
+    (bounce.STAGE_BYTES, csrc/bounce_core.cuh)."""
     from go_raytracer_tpu_torch.ops import _cuda
     from go_raytracer_tpu_torch.scenes import synthetic as syn
     statics = [bounce.scene_statics(getattr(registry, sc)()[0])
                for sc in ("cornell_box", "book3", "cornell_smoke",
-                          "simple_light", "book1")]
+                          "simple_light", "book1", "quads_scene", "book2")]
     statics += [syn.build(*c, dielectric=False)[3]
                 for c in SCAN_SETS.values()]
     for st in statics:
@@ -1189,14 +1190,15 @@ def test_staged_scan_keeps_four_blocks_per_sm(cuda):
             info = _cuda.kernel_info(lib, bounce.fused_features(st),
                                      st["n_sph"], st["n_quad"], st["n_box"])
             assert info["blocks_per_sm"] >= 4
-            assert 0 < info["dynamic_smem"] <= 54 * 1024
+            assert 0 < info["dynamic_smem"] <= bounce.STAGE_BYTES
 
 
 @pytest.mark.parametrize("scene", ["book1", "scan_spheres"])
 def test_staged_scan_cull_changes_no_winner(cuda, scene):
-    """The sphere cull on the card (book1's 389 spheres in 49 blocks; the
-    scan scene's 3,500, of which 1,536 staged in 192 blocks): the kernels'
-    outputs on a table whose every 13th sphere row from the sixth is
+    """The cull on the card (book1's 389 spheres in 49 blocks; the scan
+    scene's 3,500 spheres, 300 quads and 296 boxes, past the staging
+    budget): the kernels' outputs on a table whose every 13th sphere row
+    from the sixth is
     cleared to kind -1 equal those on a table with the same rows moved
     straight below the ground sphere, 1e6 down, bit for bit, at one level
     and at 8 (a moved row stretches its block's bounds, so the two tables

@@ -277,11 +277,12 @@ def test_fused_schedules_match_pallas_on_scan_scene(schedule):
 
 @pytest.mark.parametrize("pad,exact", [(None, True), ("1e-5", False)])
 def test_sphere_cull_changes_no_winner_on_host(pad, exact):
-    """scripts/check_cull_host.py: the CUDA core's bounce with the sphere
-    cull against it without, compiled for the host, on random and grazing
-    rays over book1 and the scan scene: bit for bit with the header's
-    CULL_PAD; with a pad far below the one it derives, some rays differ
-    (so the check sees a wrong cull)."""
+    """scripts/check_cull_host.py: the CUDA core's bounce with the cull on
+    the kernels' scan table against it without on the declaration-order
+    one, compiled for the host, on random and grazing rays over book1,
+    book2 and the scan scene: bit for bit with the header's CULL_PAD; with
+    a pad far below the one it derives, some rays differ (so the check sees
+    a wrong cull)."""
     if not (shutil.which("c++") or shutil.which("g++")):
         pytest.skip("needs a host C++ compiler")
     script = os.path.join(os.path.dirname(os.path.dirname(
@@ -290,6 +291,6 @@ def test_sphere_cull_changes_no_winner_on_host(pad, exact):
         + (["--pad", pad] if pad else [])
     run = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     lines = [ln for ln in run.stdout.splitlines() if "differ" in ln]
-    assert len(lines) == 2, run.stdout + run.stderr
+    assert len(lines) == 3, run.stdout + run.stderr
     assert all(ln.endswith(" 0 differ") for ln in lines) == exact
     assert run.returncode == (0 if exact else 1)
