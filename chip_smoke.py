@@ -36,8 +36,11 @@ Phases (any failure exits non-zero; nothing is swallowed):
      winners against K5's; both routes of `mesh_closest` against the plain
      skip-link walk; the blocks' group ranges (mean, max) at round 0 and
      over all rounds, and K4's work items;
-  8. K3 `bounce` against its plain version on that level with its ext
-     planes;
+  8. K3's cap entry (the dense classes' nearest t, one launch) against
+     the tensor cap, and K3 `bounce` from the walk's winner (t, idx),
+     the triangle gathered in the kernel, against its plain version (the
+     gather of ops/bounce.ext_planes_from_hit, then bounce_ref) on that
+     level;
   9. a small scene-8 render on the kernels against the same render, on
      the card and on the same random stream, with every kernel swapped
      for its plain version;
@@ -52,8 +55,11 @@ Phases (any failure exits non-zero; nothing is swallowed):
      same 25 spp in the same call; then the slice's main path, `-S 8` with
      no route named, through `cli.main` at the full registry
      configuration (250 spp = 225 strata): the walk route, through K5, K3
-     and K2 alone;
- 11. timings of K3-K5 at those shapes with their bounds (K4 on every round
+     (and its cap entry once a level) and K2 alone, the plain gather and
+     cap never called;
+ 11. timings of K3-K5 at those shapes with their bounds (K3 and its cap
+     entry through the launch the mesh context prepared: ms per call, host
+     us per call, device ms; K4 on every round
      of phase 7's call: each round, the sum and the largest; K5 on the
      level's rays as they lie and sorted), rounds and host reads per level,
      and the device's busy share of a scene-8 render at 1 spp under
@@ -148,7 +154,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
      of reach); K1's device time per level on each scene with its
      brute-force bound and, on book1 and book2, its culled bound (the
      plain model's tests on the call's rays); with `--parent DIR`, K1,
-     K9, K6, K8 and K3 held to the parent checkout's kernels on the same
+     K9, K6, K8 and K3 (on both of its pools; on every registry scene bit
+     for bit) held to the parent checkout's kernels on the same
      inputs (scripts/time_fused_kernels.py --save/--compare);
  24. quads (the earth map on a quad) and book2 (the earth map on a
      sphere; 1,006 spheres, 400 boxes, all staged, glass, two
@@ -168,12 +175,15 @@ Phases (any failure exits non-zero; nothing is swallowed):
      book1 11, quads 42, book2 47), at 131072 lanes, and in ext mode on
      scene 8, on scene 8 with a glass sphere and a fog medium
      (scenes/synthetic.glass_fog_statue) and on an image-textured mesh
-     (synthetic.image_mesh), at 65536 lanes: against its plain version on
-     camera rays and one level later (flag words within each scene's
-     flip fraction, image lanes' texels within TEXEL_MOVED_FRAC), then
-     timed (CUDA events and the profile's device time) with its bound
-     (book1 and book2 also their culled bound),
-     registers, staged bytes and spill per variant;
+     (synthetic.image_mesh), at 65536 lanes, from the walk's winner:
+     against its plain version on camera rays and one level later (flag
+     words within each scene's flip fraction, image lanes' texels within
+     TEXEL_MOVED_FRAC), on book1 and book2 (the sorted variant: the lane
+     sort and the warp's shared block test) also against the same kernel
+     in launch order, bit for bit, then timed (CUDA events, host us per
+     call and device time; the sorted variants also in launch order) with
+     its bound (book1 and book2 also their culled bound), registers,
+     staged bytes and spill per variant;
  26. the reference engine's paths through `cli.main`, launch counts set to
      0 before each and read after: the slice's main path, cornellBox
      600x600 `--integrator wavefront` (its bounce on K3 alone), CUT to 16
@@ -190,7 +200,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
      wavefront integrator and the two ext meshes through `render_regen`,
      counting K3's launches per feature set;
 then the `kernels` JSON line (K1-K12; K1, K6 and K8 name their image
-variant, K3 its feature sets, K6 and K8 their redesign), the
+variant, K3 its feature sets and its cap entry, K3, K6 and K8 their
+redesign), the
 nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
@@ -326,6 +337,17 @@ K3_OPS_PER_SEGMENT = 300
 K3_EXT_OPS = {"scene8": K3_OPS_PER_SEGMENT, "glass_fog": 410,
               "image_mesh": 235}
 SCENE8_PATHS = 600 * 337 * 225
+# what the kernels line says of K3
+REDESIGN_K3 = ("redesigned: in ext mode the mesh winner is gathered inside "
+               "the kernel from the walk's (t, idx), the dense cap is one "
+               "launch of its cap entry, and the launch is prepared once a "
+               "scene; on the culled tables a sorted variant (the lanes "
+               "sorted over the whole call, each warp's block tests shared) "
+               "for lanes in no spatial order, equal to the launch order "
+               "bit for bit; phases 8, 10, 11 and 25")
+# the seven dense registry scenes
+REGISTRY_DENSE = ("cornell_box", "book3", "cornell_smoke", "simple_light",
+                  "book1", "quads_scene", "book2")
 # what the kernels line says of K6 and K8
 REDESIGN_SCAN = ("redesigned: the closest-hit scan of "
                  "bounce_core.cuh over tight, culled blocks of every "
@@ -377,6 +399,43 @@ def time_ms(fn, reps, warmup=1):
     return best
 
 
+def host_us(fn, reps=40):
+    """Host microseconds per call of `fn`, `reps` calls enqueued back to
+    back before the synchronize (the least of three batches)."""
+    import torch
+    fn()
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def queued_device_ms(run, reps=20):
+    """Device ms per call of `run`: the launches queued behind a ~0.1 s
+    spin of the device, so that they run back to back, between two CUDA
+    events. None where the host took longer to queue them than the spin
+    lasted (the events would then hold host gaps)."""
+    import torch
+    run()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    h0 = time.perf_counter()
+    t0.record()
+    for _ in range(reps):
+        run()
+    t1.record()
+    queued_s = time.perf_counter() - h0
+    torch.cuda.synchronize()
+    return None if queued_s > 0.05 else t0.elapsed_time(t1) / reps
+
+
 def kernel_of(key, names):
     """True when a profiler event key is a launch of one of the kernels
     `names` (a template instance `void name<...>(...)` included)."""
@@ -422,12 +481,14 @@ def started_ranks_are_a_prefix(fl, take):
 
 @contextlib.contextmanager
 def plain_versions(bounce, harvest, stream, traverse8):
-    """Swap the mesh path's four kernel wrappers for their plain PyTorch
-    versions, whatever device the tensors are on, so that a render on the
-    card can be repeated op for op without the kernels, on the same
+    """Swap the mesh path's kernel wrappers (K3 and its dense cap, through
+    `bounce.bounce` and the prepared `K3Launch`, K4, K5, K2) for their plain
+    PyTorch versions, whatever device the tensors are on, so that a render
+    on the card can be repeated op for op without the kernels, on the same
     random stream."""
     saved = (bounce.bounce, stream.stream_rows, traverse8.bvh8_closest,
-             harvest.harvest_levels_into)
+             harvest.harvest_levels_into, bounce.K3Launch.__call__,
+             bounce.K3Launch.cap)
 
     def plain_walk(nodes, tris, o, d, t_cap=None, *, max_stack=None):
         return traverse8.bvh8_closest_ref(nodes, tris, o, d, t_cap)
@@ -440,14 +501,23 @@ def plain_versions(bounce, harvest, stream, traverse8):
         return harvest.write_rows_ref(acc, rows, bases, item_base=item_base,
                                       n_rows=min(s_run, refill_levels))
 
+    def plain_k3(self, o, d, time, alive, u, ext=None, out=None):
+        return bounce.bounce_ref(self.tables, self.statics, o, d, time,
+                                 alive, u, self.bg, ext, out, tri=self.tri)
+
+    def plain_cap(self, ms, o, d, time, out=None):
+        return bounce.dense_cap_ref(ms, o, d, time)
+
     bounce.bounce, stream.stream_rows = bounce.bounce_ref, stream.stream_rows_ref
     traverse8.bvh8_closest = plain_walk
     harvest.harvest_levels_into = plain_harvest
+    bounce.K3Launch.__call__, bounce.K3Launch.cap = plain_k3, plain_cap
     try:
         yield
     finally:
         (bounce.bounce, stream.stream_rows, traverse8.bvh8_closest,
-         harvest.harvest_levels_into) = saved
+         harvest.harvest_levels_into, bounce.K3Launch.__call__,
+         bounce.K3Launch.cap) = saved
 
 
 def fused_bound(nbytes, segs, scene="cornell_box", ops=None):
@@ -1087,13 +1157,30 @@ def main():
 
     # ---- 8. K3 against its plain version on that level -----------------
     phase_start(8)
-    ext8 = bounce.mesh_ext_planes(ms, ctx.statics, ctx.tri_mat, o8, d8, cap8,
-                                  alive8)
-    k3 = bounce.bounce(ctx.tables, ctx.statics, o8, d8, t8, alive8, u8,
-                       ctx.bg, ext=ext8)
+    # the dense cap (K3's cap entry, one launch) against the tensor cap
+    cap8_k = ctx.k3.cap(ms, o8, d8, t8)
+    torch.cuda.synchronize()
+    cap8_fin = torch.isfinite(cap8_k) & torch.isfinite(cap8)
+    cap_set_mis = (torch.isfinite(cap8_k) != torch.isfinite(cap8)).float() \
+        .mean().item()
+    cap_off = (~torch.isclose(cap8_k[cap8_fin], cap8[cap8_fin], rtol=K1_RTOL,
+                              atol=K1_ATOL)).float().mean().item()
+    cap_err = (cap8_k[cap8_fin] - cap8[cap8_fin]).abs().max().item()
+    print(f"[8] K3's cap entry vs the tensor cap at {n8} lanes: finite on "
+          f"{int(cap8_fin.sum())} lanes, the finite set differs on "
+          f"{cap_set_mis:.2e} of the lanes, t beyond rtol=atol={K1_RTOL} on "
+          f"{cap_off:.2e} of the common ones (limit {K3_MISMATCH_FRAC}); max "
+          f"abs err {cap_err:.3e}")
+    check(cap8_fin.any() and cap_set_mis <= K3_MISMATCH_FRAC
+          and cap_off <= K3_MISMATCH_FRAC,
+          "K3's cap entry differs from the tensor cap")
+    # K3 from the walk's winner (t, idx), gathered in the kernel, against
+    # the plain gather (ops/bounce.ext_planes_from_hit) and bounce_ref
+    hit8 = bounce.MeshHit(*trace.mesh_closest(ms, o8, d8, cap8, alive8))
+    k3 = ctx.k3(o8, d8, t8, alive8, u8, ext=hit8)
     torch.cuda.synchronize()
     p3 = bounce.bounce_ref(ctx.tables, ctx.statics, o8, d8, t8, alive8, u8,
-                           ctx.bg, ext=ext8)
+                           ctx.bg, ext=hit8, tri=ctx.tri)
     alive_mis3 = (k3[5] != p3[5]).float().mean().item()
     cf_mis3 = (k3[2] != p3[2]).float().mean().item()
     agree3 = k3[5] == p3[5]
@@ -1109,7 +1196,9 @@ def main():
     ray_mis3 = max((~torch.isclose(a[go3], b[go3], rtol=K1_RTOL,
                                    atol=K1_ATOL)).float().mean().item()
                    for a, b in ((k3[3], p3[3]), (k3[4], p3[4])))
-    print(f"[8] K3 vs plain at {n8} lanes with ext planes: mismatch fractions"
+    print(f"[8] K3 vs plain at {n8} lanes from the walk's winner ("
+          f"{int((hit8.idx >= 0).sum())} lanes hit the statue; the kernel "
+          f"gathers the triangle): mismatch fractions"
           f" alive {alive_mis3:.2e}  clamp flag {cf_mis3:.2e}  E/W "
           f"{ew_mis3:.2e}  scattered ray {ray_mis3:.2e} (limit "
           f"{K3_MISMATCH_FRAC}, rtol=atol={K1_RTOL}); E/W max abs err "
@@ -1124,6 +1213,7 @@ def main():
     phase_start(9)
     def reset_counts():
         bounce.launches = bounce.launches_bounce = 0
+        bounce.launches_cap = bounce.launches_sort = 0
         bounce.launches_fused = bounce.launches_fused_pos = 0
         bounce.launches_direct = 0
         harvest.launches = harvest.launches_rows = 0
@@ -1144,8 +1234,9 @@ def main():
     reset_counts()
     with plain_versions(bounce, harvest, stream, traverse8):
         img_p, st_p = regen.render_regen(sc8, cm8, mesh="walk", **kw9)
-    check(bounce.launches_bounce + stream.launches + traverse8.launches
-          + harvest.launches == 0, "the plain render launched a kernel")
+    check(bounce.launches_bounce + bounce.launches_cap + stream.launches
+          + traverse8.launches + harvest.launches == 0,
+          "the plain render launched a kernel")
     small_ratio = st_k["segments"] / st_k["paths"]
     mean_k, mean_p = img_k.mean(axis=(0, 1)), img_p.mean(axis=(0, 1))
     pix_off = (~np.isclose(img_k, img_p, rtol=1e-3, atol=1e-3)).any(-1).mean()
@@ -1294,9 +1385,27 @@ def main():
     # the slice's main path: `-S 8` with no route named (the walk), at the
     # full registry configuration
     reset_counts()
-    s8w = run_cli8([], "modelExample_walk.ppm")
+    # the plain gather and cap must not run on the card's path: count
+    # their calls around the render
+    plain_calls = {"ext_planes_from_hit": 0, "dense_cap_ref": 0}
+    saved_plain = {k: getattr(bounce, k) for k in plain_calls}
+
+    def counting(name):
+        def fn(*a, **k):
+            plain_calls[name] += 1
+            return saved_plain[name](*a, **k)
+        return fn
+
+    for k in plain_calls:
+        setattr(bounce, k, counting(k))
+    try:
+        s8w = run_cli8([], "modelExample_walk.ppm")
+    finally:
+        for k, f in saved_plain.items():
+            setattr(bounce, k, f)
     k5_launches = traverse8.launches
     k3_launches = bounce.launches_bounce    # K3 on the uncut main path
+    cap_launches = bounce.launches_cap      # its dense cap entry
     k2_launches_main8 = harvest.launches
     others8 = (bounce.launches + bounce.launches_fused
                + bounce.launches_fused_pos + bounce.launches_direct
@@ -1309,16 +1418,19 @@ def main():
           f"{s8w['rays_per_s']:.6g} rays/s, elapsed {s8w['elapsed_s']:.3f} s,"
           f" windows {s8w['windows']}, levels {s8w['levels']}, occupancy "
           f"{s8w['occupancy']:.4f}; launches K5 {k5_launches} K3 "
-          f"{k3_launches} K2 {k2_launches_main8}, the other nine kernels "
-          f"{others8}")
+          f"{k3_launches} (its cap entry {cap_launches}) K2 "
+          f"{k2_launches_main8}, the other nine kernels {others8}; calls of "
+          f"the plain gather and cap {plain_calls}")
     check(s8w["paths"] == SCENE8_PATHS and s8w["nonfinite"] == 0
           and s8w["mesh"]["route"] == "walk",
           "scene 8 main path: paths, non-finite pixels or a route other "
           "than the walk")
     check(k5_launches == s8w["levels"] > 0 and others8 == 0
-          and k3_launches == s8w["levels"]
-          and k2_launches_main8 == s8w["windows"],
-          "scene 8 main path did not go through K5, K3 and K2 alone")
+          and k3_launches == s8w["levels"] == cap_launches
+          and k2_launches_main8 == s8w["windows"]
+          and not any(plain_calls.values()),
+          "scene 8 main path did not go through K5, K3 (its cap entry "
+          "once a level) and K2 alone")
     check(abs(ratio8w - small_ratio) <= 0.05 * small_ratio,
           f"scene 8 walk: segments/path {ratio8w} vs the small render's "
           f"{small_ratio}")
@@ -1353,12 +1465,29 @@ def main():
                                                  mesh="walk"), 10)
     binned_ms = time_ms(lambda: trace.binned_closest(ms, o8, d8, cap8, alive8),
                         5)
-    k3_run = lambda: bounce.bounce(ctx.tables, ctx.statics, o8, d8, t8, alive8,
-                                   u8, ctx.bg, ext=ext8)
+    # K3 from the walk's winner and its cap entry, through the launch the
+    # mesh context prepared once: ms per call between CUDA events, host us
+    # per call (enqueued back to back), device ms (queued behind a spin)
+    k3_out8 = bounce.bounce_out(n8, dev)
+    cap_out8 = torch.empty(n8, device=dev)
+    k3_run = lambda: ctx.k3(o8, d8, t8, alive8, u8, ext=hit8, out=k3_out8)
+    cap_run = lambda: ctx.k3.cap(ms, o8, d8, t8, out=cap_out8)
     k3_ms = time_ms(k3_run, 20)
+    k3_host = host_us(k3_run)
+    k3_dev = queued_device_ms(k3_run)
+    cap_ms = time_ms(cap_run, 20)
+    cap_host = host_us(cap_run)
+    cap_dev = queued_device_ms(cap_run)
     k3_plain_ms = time_ms(lambda: bounce.bounce_ref(
-        ctx.tables, ctx.statics, o8, d8, t8, alive8, u8, ctx.bg, ext=ext8), 3)
-    k3_bytes = n8 * (24 + 4 + 1 + 36 + 4 * len(ext8) + 50) \
+        ctx.tables, ctx.statics, o8, d8, t8, alive8, u8, ctx.bg, ext=hit8,
+        tri=ctx.tri), 3)
+    cap_plain_ms = time_ms(lambda: bounce.dense_cap_ref(ms, o8, d8, t8), 3)
+    # bytes: per lane the ray (24 B), time, alive, 9 uniforms, the walk's
+    # (t, idx) in and 50 B out; the rows of the distinct triangles hit and
+    # the packed tables read once
+    tris_hit = int(torch.unique(hit8.idx[(hit8.idx >= 0) & alive8]).numel())
+    k3_bytes = n8 * (24 + 4 + 1 + 36 + 8 + 50) \
+        + tris_hit * ctx.tri.rows.shape[1] * 4 \
         + sum(t.numel() * 4 for t in ctx.tables)
     k3_ops_s = n_alive8 * K3_OPS_PER_SEGMENT / FP32_OPS_PER_S
     k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops_s) * 1e3
@@ -1372,8 +1501,15 @@ def main():
           f"{[round(x, 4) for x in k4_per]} ms; sum {sum(k4_per):.4f} ms, "
           f"largest {max(k4_per):.4f} ms, mean {sum(k4_per) / len(k4_per):.4f}"
           f" ms; the rounds' bounds sum to {k4_all_bound:.5f} ms")
-    print(f"[11] at {n8} lanes of scene 8 on {card}: K3 {k3_ms:.4f} ms, "
-          f"plain {k3_plain_ms:.3f} ms, bound {k3_bound:.5f} ms ({k3_by}); K4 round 0 {k4_ms:.4f} ms, "
+    cap_bound = n8 * (24 + 4 + 4) / HBM_BYTES_PER_S * 1e3
+    print(f"[11] at {n8} lanes of scene 8 on {card}: K3 from the walk's "
+          f"winner {k3_ms:.4f} ms per call between CUDA events, host "
+          f"{k3_host:.1f} us per call, device {k3_dev} ms; plain "
+          f"{k3_plain_ms:.3f} ms, bound {k3_bound:.5f} ms ({k3_by}; "
+          f"{tris_hit} triangle rows of {ctx.tri.rows.shape[1] * 4} B); its "
+          f"cap entry {cap_ms:.4f} ms, host {cap_host:.1f} us, device "
+          f"{cap_dev} ms, plain (the tensor cap) {cap_plain_ms:.3f} ms, "
+          f"bound {cap_bound:.5f} ms (bytes); K4 round 0 {k4_ms:.4f} ms, "
           f"plain {k4_plain_ms:.2f} ms, bound {k4_bound:.5f} ms ({k4_by}); K5 "
           f"{k5_ms:.4f} ms on the rays as they lie, {k5_sorted_ms:.4f} ms "
           f"sorted, plain {k5_plain_ms:.2f} ms, bound {k5_bound:.5f} "
@@ -3254,9 +3390,7 @@ def main():
         # differing one) within the scene's flip fraction of the lanes
         tfk = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "scripts", "time_fused_kernels.py")
-        scenes_p = ["cornell_box", "book3", "cornell_smoke", "simple_light",
-                    "book1", "quads_scene", "book2", "scan_spheres",
-                    "scan_quads"]
+        scenes_p = list(REGISTRY_DENSE) + ["scan_spheres", "scan_quads"]
         saved_p = os.path.join(out_dir, "kernels_parent.pt")
         outs_p = {}
         for tag_p, extra in (("parent", ["--repo", args.parent, "--save",
@@ -3277,17 +3411,25 @@ def main():
             dev_p = outs_p["parent"]["scenes"][sc_p][k_p]["device_us"]
             dev_c = outs_p["change"]["scenes"][sc_p][k_p]["device_us"]
             frac_p = fracs.get(sc_p, K1_MISMATCH_FRAC)
-            worst_p = max((f / n for _, c, _, f in diffs
+            worst_p = max((f / n for _, c, _, f, _ in diffs
                            if isinstance(c, int)), default=0.0)
             print(f"[23] {key} against the parent's kernel on its inputs: "
                   + ("bit for bit" if not diffs else "; ".join(
-                      f"plane {i} {c} elements differ (largest {m}, {f} "
-                      f"beyond 2e-3)" for i, c, m, f in diffs))
+                      f"plane {i} {c} elements differ ({nn} where the "
+                      f"parent's is NaN; largest {m}, {f} beyond 2e-3)"
+                      for i, c, m, f, nn in diffs))
                   + f"; device {dev_c} us (parent {dev_p}) on {card}")
-            check(all(isinstance(c, int) for _, c, _, _ in diffs)
+            check(all(isinstance(c, int) for _, c, _, _, _ in diffs)
                   and worst_p <= frac_p,
                   f"{key}: {worst_p} of the lanes differ from the parent's "
                   f"kernel (limit {frac_p})")
+            # K3's launch order and its sorted variant (K3s) compute each
+            # lane as before: on every registry scene, both pools, the
+            # parent's outputs bit for bit but where the parent's weight
+            # is a 0 / 0 NaN (now 0)
+            check(not (k_p.startswith("K3") and sc_p in REGISTRY_DENSE)
+                  or all(c == nn for _, c, _, _, nn in diffs),
+                  f"{key}: K3 differs from the parent's")
 
     # ---- 24. quads and book2: image textures read inside K1, K6, K8 -----
     phase_start(24)
@@ -3350,48 +3492,47 @@ def main():
     from go_raytracer_tpu_torch.scene import obj_loader
     from go_raytracer_tpu_torch.scenes import synthetic
 
-    def k3_device_ms(run, reps=20):
-        """K3's device time per call: the launches queued behind a
-        ~0.1 s spin of the device, so that they run back to back, between
-        two CUDA events. None where the host took longer to queue them
-        than the spin lasted (the events would then hold host gaps)."""
-        run()
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)
-        h0 = time.perf_counter()
-        t0.record()
-        for _ in range(reps):
-            run()
-        t1.record()
-        queued_s = time.perf_counter() - h0
-        torch.cuda.synchronize()
-        return None if queued_s > 0.05 else t0.elapsed_time(t1) / reps
-
     def k3_case(tag, tables_, st_, bg_, rays, frac, ext_fn=None,
-                texel_frac=None, ops=None, levels=2, nonscan=None):
-        """K3 against `bounce_ref` on `levels` levels of one pool (camera
-        rays, a tenth of the lanes dead; the next level on the kernel's
-        rays), then K3 timed on the last level's inputs. Flag words
-        (alive', clamp) may differ on `frac` of the lanes, E/W and the
-        continuing rays on `frac` of the agreeing ones (rtol = atol =
-        K1_RTOL); an image lane's texel may move on `texel_frac` of the
-        image lanes. Returns the row of the PERF table."""
+                texel_frac=None, ops=None, levels=2, nonscan=None, tri=None):
+        """K3 (through a launch prepared for the scene, `K3Launch`)
+        against `bounce_ref` on `levels` levels of one pool (camera rays,
+        a tenth of the lanes dead; the next level on the kernel's rays),
+        then K3 timed on the last level's inputs. Flag words (alive',
+        clamp) may differ on `frac` of the lanes, E/W and the continuing
+        rays on `frac` of the agreeing ones (rtol = atol = K1_RTOL); an
+        image lane's texel may move on `texel_frac` of the image lanes. In
+        ext mode `ext_fn` gives the walk's winner and `tri` the triangle
+        tables. K3 runs in launch order, as the render paths run it; on a
+        culled table its sorted variant (the lane sort and the warp's
+        shared block test, `sort=True`) runs beside it, every output equal
+        to the launch order's bit for bit at every level, and both are
+        timed. Returns the row of the PERF table."""
         o, d, t, alive, g = rays
         n = o.shape[0]
         n_u = bounce.N_U + st_["n_media"]
         worst = dict(flags=0.0, ew=0.0, ray=0.0, err=0.0)
         c0 = time.perf_counter()
         img_lanes = img_moved = 0
+        k3l = bounce.K3Launch(tables_, st_, bg_, tri)
+        k3s = bounce.K3Launch(tables_, st_, bg_, tri, sort=True)
+        k3s = k3s if k3s.sort else None
         for lvl in range(levels):
             u = torch.rand((n, n_u), generator=g, device=dev)
             ext = ext_fn(o, d, t, alive) if ext_fn else None
-            k = bounce.bounce(tables_, st_, o, d, t, alive, u, bg_, ext=ext)
+            k = k3l(o, d, t, alive, u, ext=ext)
+            if k3s is not None:
+                before_s = bounce.launches_sort
+                ks = k3s(o, d, t, alive, u, ext=ext)
+                torch.cuda.synchronize()
+                differ = [i for i, (a, b) in enumerate(zip(k[:6], ks[:6]))
+                          if not torch.equal(a, b)]
+                check(not differ and bounce.launches_sort == before_s + 1,
+                      f"K3 {tag}: the sorted variant differs from the launch "
+                      f"order on planes {differ}")
             torch.cuda.synchronize()
             probe = []
             p = bounce.bounce_ref(tables_, st_, o, d, t, alive, u, bg_,
-                                  ext=ext, probe=probe)
+                                  ext=ext, probe=probe, tri=tri)
             flags = (k[5] == p[5]) & (k[2] == p[2])
             off = torch.zeros_like(alive)
             for a, b in ((k[0], p[0]), (k[1], p[1])):
@@ -3424,21 +3565,33 @@ def main():
             check(img_lanes > 0 and img_moved <= texel_frac * img_lanes,
                   f"K3 {tag}: texel moved on {img_moved} of {img_lanes} "
                   f"image lanes")
-        # K3 timed on the last level's inputs (its ext planes fixed)
+        # K3 timed on the last level's inputs (its mesh hit fixed)
         u = torch.rand((n, n_u), generator=g, device=dev)
         ext = ext_fn(o, d, t, alive) if ext_fn else None
         out = bounce.bounce_out(n, dev)
-
-        def run():
-            bounce.bounce(tables_, st_, o, d, t, alive, u, bg_, ext=ext,
-                          out=out)
-
+        run = lambda: k3l(o, d, t, alive, u, ext=ext, out=out)
         ms = time_ms(run, 20)
-        dev_ms = k3_device_ms(run)
+        dev_ms = queued_device_ms(run)
+        host = host_us(run)
         plain_ms = time_ms(lambda: bounce.bounce_ref(
-            tables_, st_, o, d, t, alive, u, bg_, ext=ext), 1, warmup=0)
-        n_ext = len(ext) if ext else 0
-        nbytes = n * (29 + 4 * n_u + 4 * n_ext + 50)
+            tables_, st_, o, d, t, alive, u, bg_, ext=ext, tri=tri), 1,
+            warmup=0)
+        sorted_ = None
+        if k3s is not None:     # the sorted variant on the same lanes
+            run_s = lambda: k3s(o, d, t, alive, u, ext=ext, out=out)
+            sorted_ = dict(ms=time_ms(run_s, 20),
+                           device_ms=queued_device_ms(run_s),
+                           info=_cuda.kernel_info(
+                               "bounce", bounce.fused_features(st_)
+                               | bounce.FEAT_SORT, st_["n_sph"],
+                               st_["n_quad"], st_["n_box"]))
+        # bytes: per lane the ray, time and alive (29 B), the uniforms, in
+        # ext mode the walk's (t, idx) and the rows of the triangles hit,
+        # 50 B out
+        nbytes = n * (29 + 4 * n_u + (8 if ext is not None else 0) + 50)
+        if ext is not None:
+            nbytes += int(torch.unique(ext.idx[(ext.idx >= 0) & alive])
+                          .numel()) * tri.rows.shape[1] * 4
         segs = int(alive.sum())
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = segs * ops / FP32_OPS_PER_S * 1e3
@@ -3446,7 +3599,8 @@ def main():
         info = _cuda.kernel_info("bounce", feat, st_["n_sph"], st_["n_quad"],
                                  st_["n_box"])
         row = dict(feat=feat, lanes=n, alive=segs, ms=ms, device_ms=dev_ms,
-                   plain_ms=plain_ms, bound_ms=max(b_ms, o_ms),
+                   host_us=host, plain_ms=plain_ms,
+                   bound_ms=max(b_ms, o_ms), sorted=sorted_,
                    bound_by="bytes" if b_ms >= o_ms else "operations",
                    err=worst["err"], info=info)
         if nonscan is not None:
@@ -3467,8 +3621,15 @@ def main():
               f"max abs err {worst['err']:.3e}"
               + (f"; image lanes {img_lanes}, texel moved on {img_moved}"
                  if texel_frac is not None else "")
+              + (f"; the sorted variant equal to the launch order bit for "
+                 f"bit at every level" if k3s is not None else "")
               + f"; {ms:.5f} ms per call between CUDA events, {dev_txt}, "
-              f"plain {plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
+              f"host {host:.1f} us per call"
+              + (f" (sorted variant {sorted_['ms']:.5f} ms, device "
+                 f"{sorted_['device_ms']} ms, {sorted_['info']['registers']} "
+                 f"registers, {sorted_['info']['local_bytes']} B local)"
+                 if sorted_ else "")
+              + f", plain {plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
               f"({row['bound_by']}: {nbytes} B, {ops} operations per alive "
               f"lane)"
               + (f", culled bound {row['culled_bound_ms']:.5f} ms "
@@ -3511,18 +3672,12 @@ def main():
             texel_frac=TEXEL_MOVED_FRAC.get(sc), ops=OPS_PER_SEGMENT[sc],
             nonscan=NONSCAN_OPS.get(sc))
 
-    def ext_planes_of(ctx):
+    def mesh_hit_of(ctx):
+        """The walk's winner of each lane under the tensor cap."""
         def fn(o, d, t, alive):
-            ms_ = ctx.ms
-            cap = torch.full((o.shape[0],), float("inf"), device=dev)
-            if ms_.has_spheres:
-                cap = torch.minimum(cap, intersect.sphere_ts(
-                    ms_.spheres, o, d, t, 1e-3, float("inf")).amin(dim=1))
-            if ms_.has_quads:
-                cap = torch.minimum(cap, intersect.quad_ts(
-                    ms_.quads, o, d, 1e-3, float("inf")).amin(dim=1))
-            return bounce.mesh_ext_planes(ms_, ctx.statics, ctx.tri_mat, o, d,
-                                          cap, alive)
+            cap = bounce.dense_cap_ref(ctx.ms, o, d, t)
+            return bounce.MeshHit(*trace.mesh_closest(ctx.ms, o, d, cap,
+                                                      alive))
         return fn
 
     b_gf = builder_mod.SceneBuilder()
@@ -3541,7 +3696,7 @@ def main():
         k3_rows[sc] = k3_case(
             sc, ctx_.tables, ctx_.statics, ctx_.bg,
             camera_pool(cam_, regen.MESH_MAX_LANES, 26), K3_MISMATCH_FRAC,
-            ext_fn=ext_planes_of(ctx_),
+            ext_fn=mesh_hit_of(ctx_), tri=ctx_.tri,
             texel_frac=TEXEL_MOVED_FRAC["quads_scene"]
             if ctx_.statics["has_image"] else None, ops=K3_EXT_OPS[sc])
     print("[25] bounce.cu variants (ptxas): "
@@ -3714,10 +3869,13 @@ def main():
         {sc: dict({k: v for k, v in r.items() if k != "info"},
                   launches_render=k3_render[sc], **r["info"])
          for sc, r in k3_rows.items()}))
-    k3_variants = ("feature sets (ops/bounce.fused_features) dense mode "
+    k3_variants = ("feature sets (ops/bounce.fused_features; +64: the "
+                   "sorted variant, its lane sort and the warp's shared "
+                   "block test, on the culled tables) dense mode "
                    + ", ".join(f"{sc} {k3_rows[sc]['feat']}"
                                for sc in k3_flip)
-                   + "; ext mode " + ", ".join(
+                   + "; ext mode from the walk's (t, idx), the winner "
+                   "gathered in the kernel, " + ", ".join(
                        f"{sc} {k3_rows[sc]['feat']}" for sc in ext_scenes)
                    + "; launches in phase 26's renders "
                    + json.dumps(k3_render))
@@ -3741,7 +3899,14 @@ def main():
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:1245",
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": None, "variants": k3_variants},
+         "library_ms": None, "variants": k3_variants,
+         "host_us": k3_host, "device_ms": k3_dev,
+         "cap_entry": {"name": "bounce_cap", "launches": cap_launches,
+                       "ms": cap_ms, "host_us": cap_host,
+                       "device_ms": cap_dev, "plain_ms": cap_plain_ms,
+                       "bound_ms": cap_bound, "bound_by": "bytes",
+                       "max_abs_err": cap_err},
+         "redesign": REDESIGN_K3},
         {"name": "stream_rows", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/stream.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/stream.py:213",

@@ -55,7 +55,6 @@ import torch
 from go_raytracer_tpu_torch.integrator import wavefront
 from go_raytracer_tpu_torch.ops import bounce as bounce_mod
 from go_raytracer_tpu_torch.ops import harvest as harvest_mod
-from go_raytracer_tpu_torch.ops import intersect as ix_mod
 from go_raytracer_tpu_torch.ops import trace as trace_mod
 from go_raytracer_tpu_torch.render import camera as camera_mod
 from go_raytracer_tpu_torch.scene import types as T
@@ -526,8 +525,10 @@ class MeshContext:
     pick a BVH mesh's closest-hit route (`ops/trace.mesh_closest`);
     `counters` gathers calls, rounds and host reads of the intersector.
 
-    `bounce_level` is the window's bounce: `mesh_bounce` (the mesh hit
-    as ext planes, then K3) where `ext`, else the reference engine's
+    `bounce_level` is the window's bounce: `mesh_bounce` (the dense cap,
+    the mesh walk, then K3 on its winner, through `k3`, the launch
+    prepared once for the scene, and `tri`, the triangle tables it
+    gathers from) where `ext`, else the reference engine's
     `integrator/wavefront._bounce`, as the JAX package picks its
     `bounce_fn`."""
 
@@ -542,6 +543,9 @@ class MeshContext:
     traverse8: bool = True
     counters: dict = dataclasses.field(default_factory=dict)
     ext: bool = True
+    tri: Optional[bounce_mod.TriTable] = None
+    k3: Optional[bounce_mod.K3Launch] = None
+    cap_buf: Optional[torch.Tensor] = None
 
     @property
     def route(self) -> dict:
@@ -562,17 +566,19 @@ class MeshContext:
                                   traverse8=traverse8)
         elif ext:
             raise ValueError("the external-hit bounce needs a triangle BVH")
-        tables = statics = tri_mat = None
+        tables = statics = tri_mat = tri = k3 = None
+        bg = to_dev(np.asarray(scene.background, np.float32))
         if ext:
             statics = bounce_mod.scene_statics(scene, ext=True)
             tables = tuple(to_dev(t) for t in bounce_mod.pack_scene(scene))
             tri_mat = to_dev(bounce_mod.tri_mat_table(scene, statics))
+            tri = bounce_mod.TriTable.build(ms.triangles, tri_mat)
+            k3 = bounce_mod.K3Launch(tables, statics, bg, tri)
         return MeshContext(
-            ms=ms, tables=tables, statics=statics, tri_mat=tri_mat,
-            bg=to_dev(np.asarray(scene.background, np.float32)),
+            ms=ms, tables=tables, statics=statics, tri_mat=tri_mat, bg=bg,
             arrays=cam.derived(),
             mesh=trace_mod.resolve_route(mesh, b1_fused), b1_fused=b1_fused,
-            traverse8=traverse8, ext=ext)
+            traverse8=traverse8, ext=ext, tri=tri, k3=k3)
 
     def bounce_level(self, o, d, t, alive, u, out=None):
         """One bounce of the window's lanes: (E, W, cf, new_o, new_d,
@@ -592,27 +598,22 @@ class MeshContext:
 
 def mesh_bounce(ctx: MeshContext, o, d, t, alive, u, out=None):
     """One bounce level of a mesh scene: the dense classes' nearest hits
-    cap the mesh traversal (the cross-class shrinking rayT.Max), the mesh
-    closest hit becomes the ext planes, and `bounce` does the rest.
-    Returns (E, W, cf, new_o, new_d, alive'), in `out` where given
-    (`bounce_out`)."""
-    ms = ctx.ms
-    t_cap = torch.full((o.shape[0],), float("inf"), dtype=o.dtype,
-                       device=o.device)
-    if ms.has_spheres:
-        t_cap = torch.minimum(t_cap, ix_mod.sphere_ts(
-            ms.spheres, o, d, t, trace_mod.T_MIN, float("inf")).amin(dim=1))
-    if ms.has_quads:
-        t_cap = torch.minimum(t_cap, ix_mod.quad_ts(
-            ms.quads, o, d, trace_mod.T_MIN, float("inf")).amin(dim=1))
-    if ms.has_boxes:
-        t_cap = torch.minimum(t_cap, ix_mod.box_ts(
-            ms.boxes, o, d, trace_mod.T_MIN, float("inf")).amin(dim=1))
-    ext = bounce_mod.mesh_ext_planes(ctx.ms, ctx.statics, ctx.tri_mat, o, d,
-                                     t_cap, alive, counters=ctx.counters,
-                                     **ctx.route)
-    return bounce_mod.bounce(ctx.tables, ctx.statics, o, d, t, alive, u,
-                             ctx.bg, ext=ext, out=out)[:6]
+    cap the mesh traversal (the cross-class shrinking rayT.Max; one launch
+    of K3's cap entry on the card), the mesh closest hit on the context's
+    route gives each lane's winning triangle, and K3 gathers that winner
+    and does the rest. Returns (E, W, cf, new_o, new_d, alive'), in `out`
+    where given (`bounce_out`)."""
+    n = o.shape[0]
+    if ctx.cap_buf is None or ctx.cap_buf.shape[0] != n \
+            or ctx.cap_buf.device != o.device:
+        ctx.cap_buf = torch.empty(n, dtype=torch.float32, device=o.device)
+    t_cap = ctx.k3.cap(ctx.ms, o, d, t,
+                       out=ctx.cap_buf if o.is_cuda else None)
+    t_h, i_h = trace_mod.mesh_closest(ctx.ms, o, d, t_cap=t_cap, alive=alive,
+                                      counters=ctx.counters, **ctx.route)
+    hit = bounce_mod.MeshHit(t_h, i_h if i_h.dtype == torch.int32
+                             else i_h.to(torch.int32))
+    return ctx.k3(o, d, t, alive, u, ext=hit, out=out)[:6]
 
 
 def _init_state_mesh(n: int, device):

@@ -190,9 +190,9 @@ def use_kernel(ds, n: int, backend: str) -> bool:
         backend == "auto" and bounce_mod.supported(ds.host) and n % 128 == 0)
 
 
-def kernel_tables(ds):
-    """The K3 kernel's packed tables (on ds's device) and dense statics,
-    packed once per device scene."""
+def kernel_launch(ds):
+    """The K3 kernel's launch (`ops/bounce.K3Launch`: the packed tables on
+    ds's device and the dense statics), prepared once per device scene."""
     from go_raytracer_tpu_torch.ops import bounce as bounce_mod
 
     if getattr(ds, "k3", None) is None:
@@ -202,9 +202,10 @@ def kernel_tables(ds):
                 "backend 'pallas': the bounce kernel does not carry this "
                 "scene (" + ", ".join(bounce_mod.refused_features(scene))
                 + ")")
-        ds.k3 = (tuple(torch.from_numpy(t).to(ds.device)
-                       for t in bounce_mod.pack_scene(scene)),
-                 bounce_mod.scene_statics(scene))
+        ds.k3 = bounce_mod.K3Launch(
+            tuple(torch.from_numpy(t).to(ds.device)
+                  for t in bounce_mod.pack_scene(scene)),
+            bounce_mod.scene_statics(scene), ds.background)
     return ds.k3
 
 
@@ -223,15 +224,13 @@ def radiance(ds, o, d, time, gen, max_depth: int, max_contribution: float,
     (`_bounce`), "pallas" the K3 kernel (`ops/bounce.bounce`; on CPU
     tensors its plain version), "auto" the kernel where `use_kernel`
     allows it. `route` and `counters` go to a BVH mesh's closest hit."""
-    from go_raytracer_tpu_torch.ops import bounce as bounce_mod
-
     if mode not in ("scan", "while"):
         raise ValueError(f"unknown mode {mode!r}")
     n = o.shape[0]
     dev = o.device
     kernel = use_kernel(ds, n, backend)
     if kernel:
-        tables, statics = kernel_tables(ds)
+        k3 = kernel_launch(ds)
         o, d, time = o.contiguous(), d.contiguous(), time.contiguous()
     n_u = N_FIXED_U + ds.media.kind.shape[0]
     steps = max_depth + 1
@@ -245,8 +244,7 @@ def radiance(ds, o, d, time, gen, max_depth: int, max_contribution: float,
         u = uniforms[s] if uniforms is not None else torch.rand(
             (n, n_u), generator=gen, dtype=o.dtype, device=dev)
         if kernel:
-            E, W, cf, o_n, d_n, alive_n, _ = bounce_mod.bounce(
-                tables, statics, o, d, time, alive, u, ds.background)
+            E, W, cf, o_n, d_n, alive_n, _ = k3(o, d, time, alive, u)
         else:
             E, W, cf, o_n, d_n, alive_n = _bounce(
                 ds, o, d, time, alive, u, route=route, counters=counters)

@@ -40,7 +40,8 @@ ENTRY = {"bounce_fused_q": "grt_bounce_fused_q",
          "stream_round": "grt_stream_round_rows",
          "stream2": "grt_stream2_rows"}
 # further entry points of a library, with the same signature
-MORE_ENTRIES = {"bounce_fused_q": ("grt_bounce_fused_q_direct",)}
+MORE_ENTRIES = {"bounce_fused_q": ("grt_bounce_fused_q_direct",),
+                "bounce": ("grt_bounce_cap",)}
 # libraries whose kernels run the bounce core's staged scan; each exports
 # `int grt_kernel_info(feat, n_sph, n_quad, n_box, int* out)`
 STAGED = ("bounce_fused_q", "bounce_fused", "bounce_fused_pos", "bounce")
@@ -130,6 +131,9 @@ def library(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.grt_error_string.argtypes = [ctypes.c_int]
         lib.grt_error_string.restype = ctypes.c_char_p
+        if name == "bounce":
+            lib.grt_sort_sizes.argtypes = [ctypes.c_void_p]
+            lib.grt_sort_sizes.restype = ctypes.c_int
         if name in STAGED:
             lib.grt_kernel_info.argtypes = [ctypes.c_int] * 4 \
                 + [ctypes.c_void_p]

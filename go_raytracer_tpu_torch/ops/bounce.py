@@ -55,7 +55,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -94,8 +94,12 @@ FEAT_IMG = 32
 # `bounce_fused_q_direct` (one per call each).
 launches = 0
 launches_direct = 0
-# Launches of the CUDA kernel through `bounce` (one per call).
+# Launches of the CUDA kernel through `bounce` (one per call), of its lane
+# sort (one per sorted call) and of the mesh path's dense cap
+# (`K3Launch.cap`, one per call).
 launches_bounce = 0
+launches_sort = 0
+launches_cap = 0
 # Launches of the CUDA kernels through `bounce_fused` and
 # `bounce_fused_pos` (one per call each).
 launches_fused = 0
@@ -997,8 +1001,11 @@ def block_hit_ref(lo, hi, pad, ray):
 # c - o, h, c and discriminant, and on a non-negative one the root and its
 # square root), a quad row (dn, on, t, the point, alpha and beta), a box
 # row with its reciprocals hoisted (6 subtracts, 6 multiplies) and with the
-# ray turned per row (the offset, the turn, 3 divisions)
-SCAN_OPS = {"block": 19, "sphere": 25, "quad": 30, "box": 12, "box_rot": 33}
+# ray turned per row (the offset, the turn, 3 divisions), and a block's
+# bounds against a warp's bundle (`bundle_hit`: the 2 pads, 4 faces, 8
+# products and 2 subtractions an axis)
+SCAN_OPS = {"block": 19, "sphere": 25, "quad": 30, "box": 12, "box_rot": 33,
+            "bundle": 44}
 
 
 def scan_ops(layout: ScanLayout, stats) -> torch.Tensor:
@@ -1068,6 +1075,164 @@ def closest_culled_ref(st, prims, ox, oy, oz, dx, dy, dz, tm, layout=None,
     if stats is not None:
         stats.update(blocks=blocks, rows=rows, scanned=scanned)
     return win.t, win.n, win.row, win.uv
+
+
+# ---------------------------------------------------------------------------
+# K3's lane order and a warp's shared block test (the culled variants)
+# ---------------------------------------------------------------------------
+# A warp of the culled scan executes the union of its lanes' blocks, so K3's
+# sorted variant (K3 owns no lane state: a call's rays come and go by lane;
+# `K3Launch(sort=True)`) runs a call's lanes in the order of a key, in a
+# grid over the scan table's bounds
+# (`scan_box`): the direction's octant, above the Morton code of the
+# origin's cell at 2^SORT_OB cells an axis, above that of the cell of the
+# point SORT_REACH of the bounds' diagonal ahead on the ray at 2^SORT_RB;
+# dead lanes last. Each lane's result is computed as before and written at
+# its own index, so no caller sees the order. (The origin's cell alone
+# leaves a pool of camera rays, which share their origin, in the order it
+# came; the point ahead alone parts the bounced rays of one region:
+# scripts/sim_sphere_cull.py.) Within the sorted warps, the block bounds
+# are first tested against the bundle of the warp's rays
+# (`bundle_hit_ref`), 32 blocks at a time, and a lane runs its own
+# `block_hit` only on the blocks the bundle meets.
+SORT_OB, SORT_RB = 2, 3
+SORT_REACH = 0.2
+SORT_KEYS = 1 << (3 + 3 * (SORT_OB + SORT_RB))  # live keys; a dead lane's
+
+
+def scan_box(layout: ScanLayout):
+    """(lo, hi) float32 (3,): the box of every block bound of the scan
+    table (the grid the lane sort's key quantises in)."""
+    lo = [x for x in layout.lo if len(x)]
+    hi = [x for x in layout.hi if len(x)]
+    if not lo:
+        return np.zeros(3, np.float32), np.ones(3, np.float32)
+    return (np.concatenate(lo).min(axis=0).astype(np.float32),
+            np.concatenate(hi).max(axis=0).astype(np.float32))
+
+
+def sort_grid(layout: ScanLayout):
+    """(lo (3,), 1 / extent (3,), reach) float32 of the lane sort's grid
+    over `scan_box(layout)` (csrc/bounce.cu `key_lo`, `key_scale`,
+    `key_reach`)."""
+    lo, hi = scan_box(layout)
+    ext = np.maximum(hi - lo, np.float32(1e-6))
+    return (lo, (np.float32(1.0) / ext).astype(np.float32),
+            np.float32(SORT_REACH * float(np.linalg.norm(ext))))
+
+
+def _key_cells(p, lo, scale, bits):
+    """The Morton code of the cell of each point (N, 3) at 2^bits cells an
+    axis of the grid, the points clamped into it."""
+    from go_raytracer_tpu_torch.ops.trace import _part1by2
+
+    cells = float(1 << bits)
+    q = torch.clamp((p - lo) * scale * cells, 0.0, cells - 1.0) \
+        .to(torch.int32)
+    return (_part1by2(q[:, 0]) << 2) | (_part1by2(q[:, 1]) << 1) \
+        | _part1by2(q[:, 2])
+
+
+def lane_keys_ref(grid, o, d, alive):
+    """K3's sort key of every lane (csrc/bounce.cu `sort_keys`): the
+    direction's octant (x, y, z > 0 as bits 2, 1, 0), above the Morton
+    code of the origin's cell at 2^SORT_OB cells an axis of `grid`
+    (`sort_grid`), above that of the cell of o + reach d / |d| at
+    2^SORT_RB; SORT_KEYS for a dead lane (the kernel spreads the dead lanes
+    over keys from SORT_KEYS on). o, d: (N, 3) float32; alive: (N,) bool.
+    The kernel's 1 / |d| is rsqrtf, so a point on a cell's face may fall
+    in the next cell there: any order of the lanes gives the same
+    results."""
+    lo, scale, reach = (torch.as_tensor(x, device=o.device) for x in grid)
+    s = reach / torch.sqrt(torch.sum(d * d, dim=1, keepdim=True) + 1e-38)
+    octant = ((d[:, 0] > 0).to(torch.int32) << 2) \
+        | ((d[:, 1] > 0).to(torch.int32) << 1) | (d[:, 2] > 0).to(torch.int32)
+    key = (((octant << (3 * SORT_OB)) | _key_cells(o, lo, scale, SORT_OB))
+           << (3 * SORT_RB)) | _key_cells(o + s * d, lo, scale, SORT_RB)
+    return torch.where(alive, key, SORT_KEYS)
+
+
+def lane_order_ref(keys):
+    """The lanes in key order, (N,) int64 (`perm[i]` = the lane that runs
+    i-th): a stable counting sort. The kernel orders the lanes of one key
+    as their warps' atomics arrive; any order of them gives the same
+    results."""
+    return torch.sort(keys, stable=True).indices
+
+
+def _down32(x):
+    """float32 at or below each float64 of x, one ulp further down."""
+    f = x.astype(np.float32)
+    f = np.where(f.astype(np.float64) > x, np.nextafter(f, np.float32(-np.inf)),
+                 f)
+    return np.nextafter(f, np.float32(-np.inf))
+
+
+def _up32(x):
+    return -_down32(-x)
+
+
+def bundle_hit_ref(lo, hi, pad, ray, live):
+    """The shared block test of K3's sorted warps (csrc/bounce_core.cuh
+    `bundle_hit`) as a plain model: (nb, N // 32) bool, block k of the
+    section met by the bundle of warp w's live lanes (lanes 32 w .. 32 w +
+    31). The bundle is each axis's interval of the lanes' own rounded 1 / d
+    and o / d and the interval of their pads SCAN_PAD |o|_1; the block's
+    faces, moved out by the bundle's least and largest pad as `block_hit`
+    moves them, go through the interval products, bounded outward (here in
+    float64, rounded outward to float32 one ulp further), so the bundle's
+    (near, far) holds every lane's and the test passes every block that some
+    live lane's `block_hit` passes in (T_MIN, inf). A warp with a live lane
+    that culls nothing (largest |d| below SCAN_MIN_D) or has a non-finite
+    ray constant passes every block; a warp with no live lane none."""
+    ox, oy, oz, dx, dy, dz = (x.detach().cpu().numpy().astype(np.float32)
+                              for x in ray)
+    live = live.detach().cpu().numpy().astype(bool)
+    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+        inv = [np.float32(1.0) / np.where(np.abs(v) < 1e-30, np.where(
+            v < 0, np.float32(-1e-30), np.float32(1e-30)), v).astype(
+                np.float32) for v in (dx, dy, dz)]
+        oi = [(o * i).astype(np.float32) for o, i in zip((ox, oy, oz), inv)]
+    po = (np.float32(SCAN_PAD) * (np.abs(ox) + np.abs(oy) + np.abs(oz))) \
+        .astype(np.float32)
+    on = np.maximum(np.maximum(np.abs(dx), np.abs(dy)), np.abs(dz)) \
+        >= SCAN_MIN_D
+    n_w = len(ox) // 32
+    shape = lambda v: v[:32 * n_w].reshape(n_w, 32)
+    lw = shape(live)
+    bad = lw & ~shape(on)
+    for v in inv + oi + [po]:
+        bad |= lw & ~np.isfinite(shape(v))
+    mn = lambda v: np.where(lw, shape(v), np.inf).min(axis=1)
+    mx = lambda v: np.where(lw, shape(v), -np.inf).max(axis=1)
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    pad = np.asarray(pad, np.float32)
+    f64 = np.float64
+    with np.errstate(invalid="ignore", over="ignore"):
+        pmin = (pad[:, None] + mn(po)[None]).astype(np.float32)
+        pmax = (pad[:, None] + mx(po)[None]).astype(np.float32)
+        near = np.full(pmin.shape, -np.inf)
+        far = np.full(pmin.shape, np.inf)
+        for a in range(3):
+            i_lo, i_hi = mn(inv[a])[None], mx(inv[a])[None]
+            o_lo, o_hi = mn(oi[a])[None], mx(oi[a])[None]
+            faces = (((lo[:, a:a + 1] - pmax).astype(np.float32),
+                      (lo[:, a:a + 1] - pmin).astype(np.float32)),
+                     ((hi[:, a:a + 1] + pmin).astype(np.float32),
+                      (hi[:, a:a + 1] + pmax).astype(np.float32)))
+            t_lo, t_hi = np.inf, -np.inf
+            for x_lo, x_hi in faces:
+                prods = [x.astype(f64) * i.astype(f64) for x in (x_lo, x_hi)
+                         for i in (i_lo, i_hi)]
+                t_lo = np.minimum(t_lo, _down32(np.minimum.reduce(prods)
+                                                - o_hi.astype(f64)))
+                t_hi = np.maximum(t_hi, _up32(np.maximum.reduce(prods)
+                                              - o_lo.astype(f64)))
+            near = np.maximum(near, t_lo)
+            far = np.minimum(far, t_hi)
+        hit = np.maximum(near, np.float32(T_MIN)) <= far
+    hit = (hit | bad.any(axis=1)[None]) & lw.any(axis=1)[None]
+    return torch.from_numpy(hit)
 
 
 def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
@@ -1268,8 +1433,12 @@ def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
     if st["has_isotropic"]:
         mat_pdf = torch.where(is_iso, INV_4PI, mat_pdf)
     pdf_value = 0.5 * l_pdf + 0.5 * mat_pdf
-    ratio = torch.where(diffuse, mat_pdf, zero) \
-        / torch.where(diffuse, pdf_value, 1.0)
+    # a light sample below the surface (no scattering pdf) that misses the
+    # light by a rounding at its edge makes both pdfs 0: its weight is 0,
+    # where the reference's 0 / 0 is NaN (a pixel its PrintColor blacks out)
+    zero_zero = (mat_pdf == 0.0) & (pdf_value == 0.0)
+    ratio = torch.where(diffuse & ~zero_zero, mat_pdf, zero) \
+        / torch.where(diffuse & ~zero_zero, pdf_value, 1.0)
     emit = miss | e_on
     vr = torch.where(emit, er, torch.where(diffuse, tex_r * ratio, zero))
     vg = torch.where(emit, eg, torch.where(diffuse, tex_g * ratio, zero))
@@ -2097,42 +2266,77 @@ def bounce_fused_pos(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx, dy,
 def tri_mat_table(scene: T.Scene, statics) -> np.ndarray:
     """(len(_mat_layout), T) float32: every triangle's joined material
     columns, one row per column, so the per-lane join of
-    `mesh_ext_planes` is one gather that yields contiguous planes."""
+    `ext_planes_from_hit` is one gather that yields contiguous planes."""
     lay = _mat_layout(statics)
     return np.stack(join_mat_cols(scene, lay, scene.triangles.mat_id)) \
         .astype(np.float32)
 
 
-def mesh_ext_planes(ms, statics, tri_mat, o, d, t_cap, alive, *,
-                    mesh="auto", b1_fused=False, traverse8=True,
-                    counters=None):
-    """The external mesh-hit planes for `bounce(..., ext=...)`: run the
-    mesh closest hit (`ops/trace.mesh_closest`, pruned by `t_cap`, the
-    caller's dense-class pass, on the route that `mesh`, `b1_fused` and
-    `traverse8` pick), recompute the winning triangle's
-    barycentrics, and gather its normal, uv and material. Returns a tuple
-    of contiguous (N,) float32 planes: t (inf where no triangle beats the
-    cap), the outward normal (interpolated vertex normals where present,
-    else the face normal; un-flipped, the bounce recomputes `front`), with
-    statics["has_image"] the texture u and v (the interpolated vertex uv
-    where present, else the barycentrics), then the material columns of
-    `_mat_layout(statics)`: the JAX package's plane order.
+class MeshHit(NamedTuple):
+    """The mesh walk's winner of every lane as `ops/trace.mesh_closest`
+    returns it: t (N,) float32, and idx (N,) int32, the triangle, -1 where
+    no triangle beats the lane's cap. `bounce`'s ext mode takes it."""
+    t: torch.Tensor
+    idx: torch.Tensor
 
-    ms: `ops/trace.to_device(scene, device)`; tri_mat: `tri_mat_table` as
-    a tensor on the same device."""
+
+# Columns of a triangle's row in `tri_rows` (csrc/bounce.cu): v0, e0, e1,
+# the three vertex normals, the face normal, has_vn, has_uv, the three
+# vertex uv, then from TRI_MAT the material columns of `_mat_layout`; rows
+# padded to whole float4s.
+TRI_MAT = 32
+
+
+@dataclasses.dataclass
+class TriTable:
+    """What `bounce` gathers a mesh winner from: the triangle table of
+    `ops/trace.to_device` (`tr`: v0, e0, e1, vn, has_vn, n_face, uv,
+    has_uv), the material columns (`tri_mat_table` as a tensor) and, on the
+    card, their rows packed for the kernel (`rows`, built once)."""
+    tr: object
+    tri_mat: torch.Tensor
+    rows: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def build(tr, tri_mat) -> "TriTable":
+        rows = None
+        if tri_mat.is_cuda:
+            n = tri_mat.shape[1]
+            f32 = torch.float32
+            width = -(-(TRI_MAT + tri_mat.shape[0]) // 4) * 4
+            rows = torch.zeros((n, width), dtype=f32, device=tri_mat.device)
+            rows[:, 0:3], rows[:, 3:6], rows[:, 6:9] = tr.v0, tr.e0, tr.e1
+            rows[:, 9:18] = tr.vn.reshape(n, 9)
+            rows[:, 18:21] = tr.n_face
+            rows[:, 21] = tr.has_vn.to(f32)
+            rows[:, 22] = tr.has_uv.to(f32)
+            rows[:, 24:30] = tr.uv.reshape(n, 6)
+            rows[:, TRI_MAT:TRI_MAT + tri_mat.shape[0]] = tri_mat.t()
+        return TriTable(tr=tr, tri_mat=tri_mat, rows=rows)
+
+
+def ext_planes_from_hit(statics, tri: TriTable, o, d, hit: MeshHit,
+                        t_cap=None):
+    """The external mesh-hit planes of `bounce_ref` from the walk's winner:
+    the winning triangle's barycentrics recomputed, its normal, uv and
+    material gathered. Returns a tuple of contiguous (N,) float32 planes:
+    t (inf where no triangle won: idx -1, t not finite, or with `t_cap` t
+    not below it), the outward normal (interpolated vertex normals where
+    present, else the face normal; un-flipped, the bounce recomputes
+    `front`), with statics["has_image"] the texture u and v (the
+    interpolated vertex uv where present, else the barycentrics), then the
+    material columns of `_mat_layout(statics)`: the JAX package's plane
+    order. This is the plain version of K3's gather in ext mode
+    (csrc/bounce.cu `tri_ext`)."""
     from go_raytracer_tpu_torch.ops import trace as trace_mod
 
-    if not ms.has_tri_bvh:
-        raise ValueError("mesh_ext_planes requires a built triangle BVH")
-    t_t, i_t = trace_mod.mesh_closest(ms, o, d, t_cap=t_cap, alive=alive,
-                                      mesh=mesh, b1_fused=b1_fused,
-                                      traverse8=traverse8, counters=counters)
-    # the intersectors return the untouched cap with idx = -1 when no
-    # triangle beats it: gate on the idx
-    hit = torch.isfinite(t_t) & (i_t >= 0) & (t_t < t_cap)
-    idx = torch.where(hit, i_t, 0).to(torch.int64)
-    tr = ms.triangles
-    t_safe = torch.where(hit, t_t, 1.0)
+    t_t, i_t = hit
+    hit_ = torch.isfinite(t_t) & (i_t >= 0)
+    if t_cap is not None:
+        hit_ = hit_ & (t_t < t_cap)
+    idx = torch.where(hit_, i_t, 0).to(torch.int64)
+    tr = tri.tr
+    t_safe = torch.where(hit_, t_t, 1.0)
     _, bu, bv, _ = trace_mod.tri_hit_gathered(tr, idx, o, d, -trace_mod.INF,
                                               trace_mod.INF)
     w = 1.0 - bu - bv
@@ -2152,17 +2356,40 @@ def mesh_ext_planes(ms, statics, tri_mat, o, d, t_cap, alive, *,
         has_uv = tr.has_uv[idx]
         uv = (torch.where(has_uv, uv_i[:, 0], bu).contiguous(),
               torch.where(has_uv, uv_i[:, 1], bv).contiguous())
-    return (torch.where(hit, t_safe, trace_mod.INF),
-            *n_raw.t().contiguous(), *uv, *tri_mat[:, idx])
+    return (torch.where(hit_, t_safe, trace_mod.INF),
+            *n_raw.t().contiguous(), *uv, *tri.tri_mat[:, idx])
+
+
+def mesh_ext_planes(ms, statics, tri_mat, o, d, t_cap, alive, *,
+                    mesh="auto", b1_fused=False, traverse8=True,
+                    counters=None):
+    """The external mesh-hit planes of `bounce_ref`: run the mesh closest
+    hit (`ops/trace.mesh_closest`, pruned by `t_cap`, the caller's
+    dense-class pass, on the route that `mesh`, `b1_fused` and `traverse8`
+    pick), then `ext_planes_from_hit` on its winner (a hit counts where its
+    t is below the cap).
+
+    ms: `ops/trace.to_device(scene, device)`; tri_mat: `tri_mat_table` as
+    a tensor on the same device."""
+    from go_raytracer_tpu_torch.ops import trace as trace_mod
+
+    if not ms.has_tri_bvh:
+        raise ValueError("mesh_ext_planes requires a built triangle BVH")
+    hit = MeshHit(*trace_mod.mesh_closest(
+        ms, o, d, t_cap=t_cap, alive=alive, mesh=mesh, b1_fused=b1_fused,
+        traverse8=traverse8, counters=counters))
+    return ext_planes_from_hit(statics, TriTable(ms.triangles, tri_mat), o,
+                               d, hit, t_cap=t_cap)
 
 
 def n_ext_planes(statics) -> int:
-    """The number of ext planes `mesh_ext_planes` gives for these statics:
-    t, the normal, with images u and v, and the material columns."""
+    """The number of ext planes `ext_planes_from_hit` gives for these
+    statics: t, the normal, with images u and v, and the material
+    columns."""
     return 4 + (2 if statics["has_image"] else 0) + len(_mat_layout(statics))
 
 
-def _check_bounce_statics(statics, ext):
+def _check_bounce_scene(statics):
     """Ext mode accepts what `supported_ext_statics` accepts, dense mode
     what `supported_statics` accepts (the JAX package's `supported_ext`
     and `supported`)."""
@@ -2172,19 +2399,33 @@ def _check_bounce_statics(statics, ext):
         raise NotImplementedError(
             "scene outside this kernel's subset (see supported() and "
             "supported_ext())")
-    n_ext = n_ext_planes(statics)
-    if statics["ext_hit"] and (ext is None or len(ext) != n_ext):
-        raise ValueError(f"statics['ext_hit'] needs {n_ext} ext planes")
+
+
+def _check_bounce_ext(statics, ext):
+    """`ext` is the mesh hit (a `MeshHit`, or its planes) in ext mode, and
+    None in dense mode."""
+    if statics["ext_hit"] and ext is None:
+        raise ValueError("statics['ext_hit'] needs the mesh hit (ext)")
     if not statics["ext_hit"] and ext is not None:
-        raise ValueError("ext planes given but statics['ext_hit'] is false")
+        raise ValueError("ext given but statics['ext_hit'] is false")
+    if not isinstance(ext, (MeshHit, type(None))) \
+            and len(ext) != n_ext_planes(statics):
+        raise ValueError(f"statics['ext_hit'] needs {n_ext_planes(statics)} "
+                         f"ext planes or a MeshHit")
 
 
 def bounce_ref(tables, statics, o, d, time, alive, u, bg, ext=None, out=None,
-               probe=None):
+               probe=None, tri=None):
     """Plain PyTorch version of `bounce` (same arguments, same results).
-    `probe` (a list) receives the (N,) int64 flat texel index of the
-    image lanes, -1 elsewhere (`_bounce_core_ref`'s)."""
-    _check_bounce_statics(statics, ext)
+    `ext` may also be the planes of `ext_planes_from_hit` themselves.
+    `probe` (a list) receives the (N,) int64 flat texel index of the image
+    lanes, -1 elsewhere (`_bounce_core_ref`'s)."""
+    _check_bounce_scene(statics)
+    _check_bounce_ext(statics, ext)
+    if isinstance(ext, MeshHit):
+        if tri is None:
+            raise ValueError("a MeshHit needs the triangle tables (tri)")
+        ext = ext_planes_from_hit(statics, tri, o, d, ext)
     prims, lights = tables[0], tables[1]
     us = [u[:, k] for k in range(N_U + statics["n_media"])]
     (vr, vg, vb, emit, cf, nox, noy, noz, ndx, ndy, ndz, alive_out) = \
@@ -2207,32 +2448,53 @@ def bounce_ref(tables, statics, o, d, time, alive, u, bg, ext=None, out=None,
     return (*res, None)
 
 
-class _BounceArgs(ctypes.Structure):
-    """Mirror of `BounceArgs` in csrc/bounce.cu (field for field)."""
+def dense_cap_ref(ms, o, d, time):
+    """Plain PyTorch version of `K3Launch.cap`: each ray's nearest t over
+    the scene's spheres (at its time), quads and boxes in (T_MIN, inf),
+    inf where it meets none. ms: `ops/trace.to_device(scene, device)`."""
+    from go_raytracer_tpu_torch.ops import intersect as ix_mod
+    from go_raytracer_tpu_torch.ops import trace as trace_mod
 
-    MAX_EXT = 20
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "prims", "lights", "med", "bg", "o", "d", "tm", "alive", "u")] + [
-            ("ext", ctypes.c_void_p * MAX_EXT)] + [
-            (name, ctypes.c_void_p) for name in (
-                "E", "W", "cf", "new_o", "new_d", "alive_out")
-            + _FUSED_TABLE_PTRS] + [
-            (name, ctypes.c_int) for name in (
-                _FUSED_TABLE_INTS + ("n", "n_u", "n_ext", "ext_uv", "ext_mat",
-                                     "ext_fr", "ext_texk", "ext_scale",
-                                     "ext_seed"))]
+    t_cap = torch.full((o.shape[0],), float("inf"), dtype=o.dtype,
+                       device=o.device)
+    if ms.has_spheres:
+        t_cap = torch.minimum(t_cap, ix_mod.sphere_ts(
+            ms.spheres, o, d, time, trace_mod.T_MIN, float("inf"))
+            .amin(dim=1))
+    if ms.has_quads:
+        t_cap = torch.minimum(t_cap, ix_mod.quad_ts(
+            ms.quads, o, d, trace_mod.T_MIN, float("inf")).amin(dim=1))
+    if ms.has_boxes:
+        t_cap = torch.minimum(t_cap, ix_mod.box_ts(
+            ms.boxes, o, d, trace_mod.T_MIN, float("inf")).amin(dim=1))
+    return t_cap
 
 
-def _ext_columns(statics) -> dict:
-    """Plane indices of the ext planes `bounce.cu` reads: the uv (-1
-    without images), the first material column, and fr, texk, scale and
-    the seed (-1 where the layout lacks the column)."""
-    lay = _mat_layout(statics)
-    base = 6 if statics["has_image"] else 4
-    at = lambda name: base + lay.index(name) if name in lay else -1
-    return dict(ext_uv=4 if statics["has_image"] else -1, ext_mat=base,
-                ext_fr=at("fr"), ext_texk=at("texk"), ext_scale=at("scale"),
-                ext_seed=at("seed_img"))
+# Mirror of `BounceArgs` in csrc/bounce.cu (field for field).
+_BounceArgs = type("_BounceArgs", (ctypes.Structure,), {"_fields_": [
+    (name, ctypes.c_void_p) for name in (
+        "prims", "lights", "med", "bg", "o", "d", "tm", "alive", "u",
+        "hit_t", "hit_idx", "tri", "E", "W", "cf", "new_o", "new_d",
+        "alive_out", "t_cap", "perm", "sort_key", "sort_rank", "sort_hist",
+        "sort_sums") + _FUSED_TABLE_PTRS] + [
+    (name, ctypes.c_int) for name in _FUSED_TABLE_INTS] + [
+    (name, ctypes.c_float * 3) for name in ("key_lo", "key_scale")] + [
+    ("key_reach", ctypes.c_float)] + [
+    (name, ctypes.c_int) for name in (
+        "n", "n_u", "ext", "tri_cols", "tri_fr", "tri_texk", "tri_scale",
+        "tri_seed")]})
+
+# the kernels' feature bit of the sorted variant (kernel_info)
+FEAT_SORT = 64
+
+
+def k3_sorts(statics, layout: ScanLayout) -> bool:
+    """Whether K3 has a sorted variant for this table (csrc/bounce.cu): a
+    table of which some section makes more than one block, the tables
+    whose scan culls (`with_cull`)."""
+    counts = layout.counts
+    return ((fused_features(statics) & 1 and counts[0] > SCAN_BLOCK)
+            or counts[1] > SCAN_BLOCK or counts[2] > SCAN_BLOCK)
 
 
 def bounce_out(n: int, device):
@@ -2243,7 +2505,189 @@ def bounce_out(n: int, device):
     return vec(), vec(), flag(), vec(), vec(), flag()
 
 
-def bounce(tables, statics, o, d, time, alive, u, bg, ext=None, out=None):
+class K3Launch:
+    """K3 (`bounce`) prepared once for a scene: the table part of the
+    kernel's argument struct, the table ints and their checks, the
+    triangle rows of ext mode and the lane sort's grid, so that a call
+    sets only the lanes' pointers and count and checks the lanes' tensors.
+
+    tables = `pack_scene(scene)` as tensors; statics = `scene_statics(scene,
+    ext=...)`; bg (3,) float32; tri: a `TriTable` (ext mode, where `bounce`
+    takes a `MeshHit`). On CPU tables every call runs the plain versions.
+
+    `sort` runs a culled table's calls (`k3_sorts`) in the sorted variant:
+    the lanes ordered over the whole call and each warp's block tests
+    shared. Its results are the launch order's bit for bit. It pays on the
+    card where the caller's lanes lie in no spatial order (camera rays
+    through random pixels: book2 −15%, the 4,096-row scan scene −11% to
+    −31%) and costs 15-40% on lanes in pixel order, the renderer's and the
+    fused kernels' pools (PERF.md §6), so the render paths keep the launch
+    order (the default)."""
+
+    def __init__(self, tables, statics, bg, tri: Optional[TriTable] = None,
+                 sort: bool = False):
+        self.tables, self.statics, self.bg, self.tri = tables, statics, bg, tri
+        self.cuda = tables[0].is_cuda
+        self.n_u = N_U + statics["n_media"]
+        self.sort = False
+        self._scratch = {}
+        _check_bounce_scene(statics)
+        if not self.cuda:
+            return
+        from go_raytracer_tpu_torch.ops import _cuda
+
+        st = statics
+        _check_cuda_args(_fused_table_checks(tables, st)
+                         + [("bg", bg, torch.float32, (3,))])
+        lay, _ = scan_tables(tables[0], st)
+        self.sort = bool(sort) and k3_sorts(st, lay)
+        p = lambda t: t.data_ptr()
+        a = _BounceArgs(prims=p(tables[0]), lights=p(tables[1]),
+                        med=p(tables[2]), bg=p(bg),
+                        **_fused_table_ints(st, tables, False))
+        if st["ext_hit"]:
+            if tri is None or tri.rows is None or not tri.rows.is_cuda:
+                raise ValueError("ext mode on the card needs a TriTable "
+                                 "built from CUDA tensors")
+            lay_m = _mat_layout(st)
+            col = lambda name: (TRI_MAT + lay_m.index(name)
+                                if name in lay_m else -1)
+            a.tri, a.ext, a.tri_cols = p(tri.rows), 1, tri.rows.shape[1]
+            a.tri_fr, a.tri_texk = col("fr"), col("texk")
+            a.tri_scale, a.tri_seed = col("scale"), col("seed_img")
+        if self.sort:
+            lo, scale, reach = sort_grid(lay)
+            a.key_lo = (ctypes.c_float * 3)(*lo.tolist())
+            a.key_scale = (ctypes.c_float * 3)(*scale.tolist())
+            a.key_reach = float(reach)
+        self.args = a
+        lib = _cuda.library("bounce")
+        self._fn, self._cap_fn = lib.grt_bounce, lib.grt_bounce_cap
+        self._dev = tables[0].device
+
+    def _lanes(self, checks):
+        """Raise unless each (name, tensor, dtype, shape) is a contiguous
+        tensor on the tables' device of that dtype and shape."""
+        for name, t, dt, shape in checks:
+            if t.device != self._dev or t.dtype != dt or t.shape != shape \
+                    or not t.is_contiguous():
+                raise ValueError(
+                    f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, "
+                    f"expected a contiguous {dt} {tuple(shape)} on "
+                    f"{self._dev}")
+
+    def _sort_scratch(self, n):
+        s = self._scratch.get(n)
+        if s is None:
+            from go_raytracer_tpu_torch.ops import _cuda
+
+            sizes = (ctypes.c_int * 3)()
+            _cuda.library("bounce").grt_sort_sizes(sizes)
+            i32 = lambda k: torch.empty(k, dtype=torch.int32,
+                                        device=self._dev)
+            s = self._scratch[n] = (i32(n), i32(n), i32(n), i32(sizes[0]),
+                                    i32(sizes[1]))
+        return s
+
+    def __call__(self, o, d, time, alive, u, ext=None, out=None):
+        """`bounce` on this scene (its arguments but the tables, statics,
+        bg and tri)."""
+        global launches_bounce, launches_sort
+        st = self.statics
+        if not o.is_cuda:
+            return bounce_ref(self.tables, st, o, d, time, alive, u, self.bg,
+                              ext, out, tri=self.tri)
+        if not self.cuda:
+            raise ValueError("the lanes are on the card, the tables are not")
+        _check_bounce_ext(st, ext)
+        if st["ext_hit"] and not isinstance(ext, MeshHit):
+            raise ValueError("ext mode on the card takes the walk's MeshHit "
+                             "(t, idx), not planes")
+        n = o.shape[0]
+        f32 = torch.float32
+        if u.dim() != 2 or u.shape[1] < self.n_u:
+            raise ValueError(f"u needs at least {self.n_u} columns "
+                             f"(N_U + media)")
+        if out is None:
+            out = bounce_out(n, o.device)
+        E, W, cf, new_o, new_d, alive_out = out
+        vec, lane = (n, 3), (n,)
+        checks = [("o", o, f32, vec), ("d", d, f32, vec),
+                  ("time", time, f32, lane), ("alive", alive, torch.bool, lane),
+                  ("u", u, f32, (n, u.shape[1])), ("out E", E, f32, vec),
+                  ("out W", W, f32, vec), ("out cf", cf, torch.bool, lane),
+                  ("out new_o", new_o, f32, vec),
+                  ("out new_d", new_d, f32, vec),
+                  ("out alive", alive_out, torch.bool, lane)]
+        if st["ext_hit"]:
+            checks += [("hit t", ext.t, f32, lane),
+                       ("hit idx", ext.idx, torch.int32, lane)]
+        self._lanes(checks)
+        if n == 0:
+            return (*out, None)
+        a = self.args
+        a.o, a.d, a.tm, a.alive = (o.data_ptr(), d.data_ptr(),
+                                   time.data_ptr(), alive.data_ptr())
+        a.u, a.n, a.n_u = u.data_ptr(), n, u.shape[1]
+        a.E, a.W, a.cf = E.data_ptr(), W.data_ptr(), cf.data_ptr()
+        a.new_o, a.new_d = new_o.data_ptr(), new_d.data_ptr()
+        a.alive_out = alive_out.data_ptr()
+        if st["ext_hit"]:
+            a.hit_t, a.hit_idx = ext.t.data_ptr(), ext.idx.data_ptr()
+        if self.sort:
+            (a.perm, a.sort_key, a.sort_rank, a.sort_hist, a.sort_sums) = (
+                t.data_ptr() for t in self._sort_scratch(n))
+        err = self._fn(ctypes.addressof(a),
+                       torch.cuda.current_stream(self._dev).cuda_stream)
+        if err:
+            from go_raytracer_tpu_torch.ops import _cuda
+
+            raise RuntimeError(f"bounce launch failed: "
+                               f"{_cuda.error_string(err)}")
+        launches_bounce += 1
+        launches_sort += int(self.sort)
+        return (*out, None)
+
+    def perm(self, n):
+        """The lane order of the last sorted call of `n` lanes (a view of
+        the launch's scratch), None without the sort."""
+        s = self._scratch.get(n) if self.sort else None
+        return None if s is None else s[0]
+
+    def cap(self, ms, o, d, time, out=None):
+        """The dense cap of the mesh path: each ray's nearest t over the
+        scene's spheres (at its time), quads and boxes in (T_MIN, inf), inf
+        where none (`bounce_cap`, the core's scan). CPU tensors run
+        `dense_cap_ref` on `ms`; on the card `ms` is not read."""
+        global launches_cap
+        if not o.is_cuda:
+            return dense_cap_ref(ms, o, d, time)
+        if not self.cuda:
+            raise ValueError("the lanes are on the card, the tables are not")
+        n = o.shape[0]
+        f32 = torch.float32
+        if out is None:
+            out = torch.empty(n, dtype=f32, device=o.device)
+        self._lanes([("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)),
+                     ("time", time, f32, (n,)), ("out t_cap", out, f32, (n,))])
+        if n == 0:
+            return out
+        a = self.args
+        a.o, a.d, a.tm, a.t_cap, a.n = (o.data_ptr(), d.data_ptr(),
+                                        time.data_ptr(), out.data_ptr(), n)
+        err = self._cap_fn(ctypes.addressof(a),
+                           torch.cuda.current_stream(self._dev).cuda_stream)
+        if err:
+            from go_raytracer_tpu_torch.ops import _cuda
+
+            raise RuntimeError(f"bounce_cap launch failed: "
+                               f"{_cuda.error_string(err)}")
+        launches_cap += 1
+        return out
+
+
+def bounce(tables, statics, o, d, time, alive, u, bg, ext=None, out=None,
+           tri=None):
     """One bounce for the whole ray bundle from given uniforms (the JAX
     package's `bounce`).
 
@@ -2253,57 +2697,21 @@ def bounce(tables, statics, o, d, time, alive, u, bg, ext=None, out=None):
     order metal a/b, dielectric, mix, light pick, light a/b, material a/b,
     then one per medium; bg: (3,). Dense mode (statics["ext_hit"] false)
     is the reference engine's bounce and carries what `supported`
-    carries; with statics["ext_hit"], `ext` = the planes of
-    `mesh_ext_planes` (what `supported_ext` carries). Returns E (N, 3), W
-    (N, 3), cf (N,) bool, new_o, new_d (N, 3), alive' (N,) bool, None: an
-    image-textured diffuse lane's texel is read inside the kernel, so W is
-    already the JAX package's weight after `patch_image_weight` and there
-    are no image planes to return. `out` =
-    `bounce_out(N, device)` is written in place and returned, so a loop
-    over levels allocates nothing; none of its tensors may be an input.
+    carries; with statics["ext_hit"], `ext` = the mesh walk's `MeshHit`
+    and `tri` its scene's `TriTable` (on the CPU also the planes of
+    `ext_planes_from_hit`; what `supported_ext` carries). Returns E (N,
+    3), W (N, 3), cf (N,) bool, new_o, new_d (N, 3), alive' (N,) bool,
+    None: an image-textured diffuse lane's texel is read inside the kernel,
+    so W is already the JAX package's weight after `patch_image_weight` and
+    there are no image planes to return. `out` = `bounce_out(N, device)` is
+    written in place and returned, so a loop over levels allocates
+    nothing; none of its tensors may be an input.
 
-    CUDA tensors launch the kernel; CPU tensors run `bounce_ref`. The
+    CUDA tensors launch the kernel (a `K3Launch` prepared for this call;
+    a loop over levels keeps one); CPU tensors run `bounce_ref`. The
     kernel leaves a dead lane's direction as it was, where the plain
     version writes a don't-care sampled direction."""
-    global launches_bounce
     if not o.is_cuda:
-        return bounce_ref(tables, statics, o, d, time, alive, u, bg, ext, out)
-    _check_bounce_statics(statics, ext)
-    from go_raytracer_tpu_torch.ops import _cuda
-
-    st = statics
-    n = o.shape[0]
-    f32 = torch.float32
-    n_u = N_U + st["n_media"]
-    checks = _fused_table_checks(tables, st) + [
-        ("bg", bg, f32, (3,)), ("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)),
-        ("time", time, f32, (n,)), ("alive", alive, torch.bool, (n,)),
-        ("u", u, f32, (n, u.shape[1]))]
-    ext = tuple(ext) if ext is not None else ()
-    checks += [(f"ext[{k}]", e, f32, (n,)) for k, e in enumerate(ext)]
-    _check_cuda_args(checks)
-    if u.shape[1] < n_u:
-        raise ValueError(f"u needs at least {n_u} columns (N_U + media)")
-    if out is None:
-        out = bounce_out(n, o.device)
-    if n == 0:
-        return (*out, None)
-    E, W, cf, new_o, new_d, alive_out = out
-    _check_cuda_args([(name, t, f32, (n, 3)) for name, t in (
-        ("out E", E), ("out W", W), ("out new_o", new_o),
-        ("out new_d", new_d))] + [("out cf", cf, torch.bool, (n,)),
-                                  ("out alive", alive_out, torch.bool, (n,))])
-    p = lambda t: t.data_ptr()
-    a = _BounceArgs(
-        prims=p(tables[0]), lights=p(tables[1]), med=p(tables[2]), bg=p(bg),
-        o=p(o), d=p(d), tm=p(time), alive=p(alive), u=p(u),
-        ext=(ctypes.c_void_p * _BounceArgs.MAX_EXT)(*(p(e) for e in ext)),
-        E=p(E), W=p(W), cf=p(cf), new_o=p(new_o), new_d=p(new_d),
-        alive_out=p(alive_out), **_fused_table_ints(st, tables, False),
-        n=n, n_u=u.shape[1], n_ext=len(ext), **_ext_columns(st))
-    err = _cuda.library("bounce").grt_bounce(
-        ctypes.addressof(a), torch.cuda.current_stream(o.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"bounce launch failed: {_cuda.error_string(err)}")
-    launches_bounce += 1
-    return (*out, None)
+        return bounce_ref(tables, statics, o, d, time, alive, u, bg, ext, out,
+                          tri=tri)
+    return K3Launch(tables, statics, bg, tri)(o, d, time, alive, u, ext, out)

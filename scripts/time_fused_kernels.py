@@ -14,7 +14,10 @@ scan scene's two mixes of chip_smoke.py phase 23 under a camera over its
 floor; a scene the checkout's kernels do not take is skipped, and K9 on a
 scene with image textures, which it refuses), at its registry width,
 height, cadence and defocus, and kernel it prints (K3 on the rays of K1's
-aged pool, from fixed uniforms):
+aged pool, from fixed uniforms, and K3cam on chip_smoke.py phase 25's
+pool: camera rays through random pixels, a tenth of the lanes dead; where
+the checkout has it, K3 through a launch prepared once, `K3Launch`, and on
+a culled table K3s and K3cams, its sorted variant, on the same pools):
 
 * ms per call between two CUDA events around 20 calls, the least of three
   batches (what chip_smoke.py reports);
@@ -55,7 +58,13 @@ DEVICE_NAMES = {"K1": ("fused_q_level", "count_dead"),
                 "K9": ("fused_q_level", "count_dead"),
                 "K6": ("bounce_fused_levels",),
                 "K8": ("bounce_fused_pos_levels",),
-                "K3": ("bounce_level",)}
+                "K3": ("bounce_level",), "K3cam": ("bounce_level",),
+                "K3s": ("bounce_level", "bounce_level_sorted", "sort_keys",
+                        "sort_scan", "sort_scatter", "Memset"),
+                "K3cams": ("bounce_level", "bounce_level_sorted", "sort_keys",
+                           "sort_scan", "sort_scatter", "Memset")}
+# K3's lane sort (a fill and three kernels), in the K3 rows' device time
+SORT_NAMES = ("sort_keys", "sort_scan", "sort_scatter", "Memset")
 # the synthetic scan scene's mixes (spheres, quads, boxes), and the camera
 # the timings look at its 24 x 24 floor with
 SYNTH = {"scan_spheres": (3500, 300, 296), "scan_quads": (200, 1800, 2096)}
@@ -133,13 +142,13 @@ def device_us(fn, names, reps=20):
 
 def compare_planes(mine, theirs):
     """[(plane, differing elements, largest difference, elements beyond
-    rtol = atol = 2e-3)] of two lists of output planes, NaN equal to
-    NaN."""
+    rtol = atol = 2e-3, differing elements where theirs is NaN)] of two
+    lists of output planes, NaN equal to NaN."""
     import torch
     diffs = []
     for i, (a, b) in enumerate(zip(mine, theirs)):
         if a.shape != b.shape or a.dtype != b.dtype:
-            diffs.append((i, "shape or type", None, None))
+            diffs.append((i, "shape or type", None, None, None))
             continue
         ne = (a != b) & ~(torch.isnan(a) & torch.isnan(b)) \
             if a.is_floating_point() else a != b
@@ -147,8 +156,11 @@ def compare_planes(mine, theirs):
             d = (a[ne].double() - b[ne].double()).abs()
             far = int((~torch.isclose(a.double(), b.double(), rtol=2e-3,
                                       atol=2e-3, equal_nan=True)).sum())
+            theirs_nan = int((ne & torch.isnan(b)).sum()) \
+                if b.is_floating_point() else 0
             diffs.append((i, int(ne.sum()),
-                          float(d.nan_to_num(float("inf")).max()), far))
+                          float(d.nan_to_num(float("inf")).max()), far,
+                          theirs_nan))
     return diffs
 
 
@@ -161,7 +173,8 @@ def main():
                              "simple_light", "book1", "quads_scene",
                              "book2"])
     ap.add_argument("--kernels", nargs="*",
-                    default=["K1", "K9", "K6", "K8", "K3"])
+                    default=["K1", "K9", "K6", "K8", "K3", "K3cam", "K3s",
+                             "K3cams"])
     ap.add_argument("--out", default=os.path.join("build",
                                                   "time_fused_kernels.json"))
     ap.add_argument("--save", help="file for the kernels' outputs")
@@ -190,7 +203,8 @@ def main():
     saved = {}
     other = torch.load(args.compare) if args.compare else {}
     libs = {"K1": "bounce_fused_q", "K9": "bounce_fused_q",
-            "K6": "bounce_fused", "K8": "bounce_fused_pos", "K3": "bounce"}
+            "K6": "bounce_fused", "K8": "bounce_fused_pos", "K3": "bounce",
+            "K3cam": "bounce", "K3s": "bounce", "K3cams": "bounce"}
     for sc in args.scene:
         if sc in SYNTH:
             scene, cam, packed, st = synth_scene(sc)
@@ -241,6 +255,29 @@ def main():
                      (n, bounce.N_U + st["n_media"]), device=dev,
                      generator=torch.Generator(dev).manual_seed(3))]
         k3_out = bounce.bounce_out(n, dev)
+        # phase 25's pool: camera rays through random pixels, a tenth dead
+        from go_raytracer_tpu_torch.render import camera as camera_mod
+        g25 = torch.Generator(device=dev).manual_seed(25)
+        pid = torch.randint(0, npix, (n,), generator=g25, device=dev)
+        s0 = torch.zeros(n, device=dev)
+        c_o, c_d, c_t = camera_mod.generate_rays(
+            cam.derived(), width, pid, s0, s0, torch.rand(
+                (n, camera_mod.N_U_RAYGEN), generator=g25, device=dev))
+        k3c_in = [c_o.contiguous(), c_d.contiguous(), c_t.contiguous(),
+                  torch.rand(n, generator=g25, device=dev) > 0.1,
+                  torch.rand((n, bounce.N_U + st["n_media"]), generator=g25,
+                             device=dev)]
+        k3c_out = bounce.bounce_out(n, dev)
+        k3_feat = bounce.fused_features(st)
+        if hasattr(bounce, "K3Launch"):     # prepared once for the scene
+            k3 = bounce.K3Launch(tab, st, bg)
+            k3_call = lambda s, o_: k3(*s, out=o_)
+            k3s = bounce.K3Launch(tab, st, bg, sort=True)
+            k3s_call = lambda s, o_: k3s(*s, out=o_)
+        else:
+            k3_call = k3s_call = lambda s, o_: bounce.bounce(tab, st, *s, bg,
+                                                             out=o_)
+            k3s = None
         # each kernel as a function of its input planes, and its outputs
         runs = {
             "K1": (state, lambda s: bounce.bounce_fused_q(
@@ -254,8 +291,10 @@ def main():
                 tab, st, row, bg, seed2, *s, out=pout, has_defocus=dfc,
                 max_depth=cam.max_depth, n_inner=cad, width=width,
                 sqrt_spp=sq)),
-            "K3": (k3_in, lambda s: bounce.bounce(
-                tab, st, *s, bg, out=k3_out))}
+            "K3": (k3_in, lambda s: k3_call(s, k3_out)),
+            "K3cam": (k3c_in, lambda s: k3_call(s, k3c_out)),
+            "K3s": (k3_in, lambda s: k3s_call(s, k3_out)),
+            "K3cams": (k3c_in, lambda s: k3s_call(s, k3c_out))}
         outputs = {
             "K1": lambda: list(out.rec) + [out.seg, out.take, out.base,
                                            out.cursor] + list(out.state),
@@ -263,13 +302,14 @@ def main():
             + list(out.state),
             "K6": lambda: list(fout.rec) + [fout.seg] + list(fout.state),
             "K8": lambda: list(pout.rec) + [pout.seg] + list(pout.state),
-            "K3": lambda: list(k3_out)}
+            "K3": lambda: list(k3_out), "K3cam": lambda: list(k3c_out),
+            "K3s": lambda: list(k3_out), "K3cams": lambda: list(k3c_out)}
 
         def run_on(k, inputs):
             """The outputs of one call of kernel k on these inputs (K3's
             buffers zeroed first: it writes no dead lane's ray)."""
-            if k == "K3":
-                for t in k3_out:
+            if libs[k] == "bounce":
+                for t in (k3c_out if k.startswith("K3cam") else k3_out):
                     t.zero_()
             runs[k][1]([x.to(dev) for x in inputs])
             torch.cuda.synchronize()
@@ -277,19 +317,34 @@ def main():
 
         if scene.has_image:
             del runs["K9"]
+        # the sorted variant where a section culls (a checkout without it
+        # runs its K3 there, whose outputs the sorted variant's must equal)
+        culled = (counts[0] > 8 and bounce.fused_features(st) & 1) \
+            or counts[1] > 8 or counts[2] > 8
+        if not culled:
+            del runs["K3s"], runs["K3cams"]
         runs = {k: v for k, v in runs.items() if k in args.kernels}
         res = {}
         for k, (inputs, fn) in runs.items():
             call = lambda: fn(inputs)
             res[k] = dict(ms=time_ms(call, 20), host_us=host_us(call),
                           device_us=device_us(call, DEVICE_NAMES[k]))
+            if libs[k] == "bounce":     # the lane sort's share of it
+                res[k]["sort_us"] = device_us(call, SORT_NAMES)
             if hasattr(_cuda, "kernel_info"):
+                # (a checkout without the sorted variant runs its K3 there)
+                sort_bit = getattr(bounce, "FEAT_SORT", 0) \
+                    if k in ("K3s", "K3cams") else 0
                 res[k]["info"] = _cuda.kernel_info(
-                    libs[k], bounce.fused_features(st), *counts)
-            lv = 1 if k == "K3" else cad
+                    libs[k], k3_feat | sort_bit if libs[k] == "bounce"
+                    else bounce.fused_features(st), *counts)
+            lv = 1 if libs[k] == "bounce" else cad
             print(f"{sc} {k} ({lv} levels, {n} lanes): {res[k]['ms']:.4f} ms "
                   f"per call, host {res[k]['host_us']:.1f} us, device "
-                  f"{res[k]['device_us']} us; {res[k].get('info', '')}; "
+                  f"{res[k]['device_us']} us"
+                  + (f" (the lane sort {res[k]['sort_us']} us)"
+                     if res[k].get("sort_us") else "")
+                  + f"; {res[k].get('info', '')}; "
                   f"{card}")
             key = f"{sc}/{k}"
             saved[key] = dict(inputs=[x.cpu().clone() for x in inputs],
@@ -300,8 +355,9 @@ def main():
                 results.setdefault("compare", {})[key] = diffs
                 print(f"{key} on the inputs of {args.compare}: "
                       + ("bit for bit" if not diffs else "; ".join(
-                          f"plane {i}: {c} elements differ, largest {m}, "
-                          f"{f} beyond 2e-3" for i, c, m, f in diffs)))
+                          f"plane {i}: {c} elements differ ({nn} where "
+                          f"theirs is NaN), largest {m}, {f} beyond 2e-3"
+                          for i, c, m, f, nn in diffs)))
         results["scenes"][sc] = res
     if args.save:
         torch.save(saved, args.save)

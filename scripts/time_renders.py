@@ -5,18 +5,21 @@ window loop took, so that two checkouts compare in one call.
 
     python3 scripts/time_renders.py [--repo DIR] [--scene NAME ...]
                                     [--schedule NAME ...] [--reps N]
-                                    [--out FILE]
+                                    [--spp N] [--out FILE]
 
 Each scene (default: simple_light, cornell_box; also book1, book2, book3,
 quads_scene, cornell_smoke) renders at its registry
 configuration (`python -m go_raytracer_tpu_torch -S n --stats`) under each
-schedule (default: queue_ik, queue, positional), `--reps` times (default
-2; the first run of a process carries its warm-up). Per run it prints the
-window loop's seconds (`elapsed_s`), paths, segments, windows, the fused
-kernels' launches (K1 `bounce_fused_q` is one call per window level
-group, K6 `bounce_fused`, K8 `bounce_fused_pos`), and the image's SHA-256
-and channel means: two checkouts whose kernels compute the same thing bit
-for bit render the same image with the same launches.
+schedule (default: queue_ik, queue, positional; `wavefront` is the
+reference engine, `--integrator wavefront`, whose bounce is K3 `bounce`),
+`--reps` times (default 2; the first run of a process carries its
+warm-up); `--spp N` cuts the samples per pixel. Per run it prints the
+window loop's seconds (`elapsed_s`), paths, segments, windows (levels on
+the wavefront integrator), the kernels' launches (K1 `bounce_fused_q` is
+one call per window level group, K6 `bounce_fused`, K8
+`bounce_fused_pos`, K3 `bounce`), and the image's SHA-256 and channel
+means: two checkouts whose kernels compute the same thing bit for bit
+render the same image with the same launches.
 
 --repo DIR imports the package from another checkout (the parent commit,
 unpacked with `git archive` into a git-ignored directory such as
@@ -37,7 +40,8 @@ import sys
 SCENE_NUMBERS = {"book1": 1, "book2": 2, "book3": 3, "simple_light": 4,
                  "quads_scene": 5, "cornell_box": 6, "cornell_smoke": 7}
 SCHEDULE_FLAGS = {"queue_ik": [], "queue": ["--schedule", "queue"],
-                  "positional": ["--schedule", "positional"]}
+                  "positional": ["--schedule", "positional"],
+                  "wavefront": ["--integrator", "wavefront"]}
 
 
 def main():
@@ -51,6 +55,8 @@ def main():
                     default=["queue_ik", "queue", "positional"],
                     choices=sorted(SCHEDULE_FLAGS))
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--spp", type=int, default=None,
+                    help="samples per pixel in place of the registry's")
     ap.add_argument("--out", default=os.path.join("build",
                                                   "time_renders.json"))
     args = ap.parse_args()
@@ -74,13 +80,15 @@ def main():
         for sched in args.schedule:
             for rep in range(args.reps):
                 bounce.launches = bounce.launches_fused = 0
-                bounce.launches_fused_pos = 0
+                bounce.launches_fused_pos = bounce.launches_bounce = 0
                 image = os.path.join(img_dir, f"{sc}_{sched}.ppm")
                 buf = io.StringIO()
                 with contextlib.redirect_stdout(buf):
                     rc = cli.main(["-S", str(SCENE_NUMBERS[sc]), "-o", image,
                                    "--stats", "--quiet",
-                                   *SCHEDULE_FLAGS[sched]])
+                                   *SCHEDULE_FLAGS[sched], *(
+                                       ["--spp", str(args.spp)]
+                                       if args.spp else [])])
                 if rc != 0:
                     print(f"{sc} {sched}: the CLI returned {rc}",
                           file=sys.stderr)
@@ -93,11 +101,13 @@ def main():
                 px = np.array(tok[4:4 + 3 * w * h], np.float64).reshape(-1, 3)
                 run = dict(scene=sc, schedule=sched, rep=rep,
                            elapsed_s=st["elapsed_s"], paths=st["paths"],
-                           segments=st["segments"], windows=st["windows"],
+                           segments=st["segments"],
+                           windows=st.get("windows", st.get("levels")),
                            nonfinite=st["nonfinite"],
                            k1_calls=bounce.launches,
                            k6_calls=bounce.launches_fused,
                            k8_calls=bounce.launches_fused_pos,
+                           k3_calls=bounce.launches_bounce,
                            image_sha256=hashlib.sha256(raw).hexdigest(),
                            means=px.mean(0).tolist())
                 results["runs"].append(run)
@@ -105,7 +115,7 @@ def main():
                       f"paths {run['paths']}, segments {run['segments']}, "
                       f"windows {run['windows']}, K1 calls {run['k1_calls']},"
                       f" K6 calls {run['k6_calls']}, K8 calls "
-                      f"{run['k8_calls']}, image {run['image_sha256'][:16]}, "
+                      f"{run['k8_calls']}, K3 calls {run['k3_calls']}, image {run['image_sha256'][:16]}, "
                       f"means {np.round(run['means'], 4).tolist()}; {card}")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:

@@ -41,6 +41,13 @@ zero cap; --k5-lines times it against the same kernel reading
 scene/bvh8's line tables instead of `traverse8.pack_tables`' rows (its
 source rewritten from csrc/traverse8.cu and built beside the kernels), in
 turns, on the sorted and unsorted rays.
+--level measures the walk route's bounce level at that level's rays
+(`MeshContext.bounce_level`: the dense cap, the walk's sort and K5, K3 and
+its gather) and at 16 levels of a real window (`_mesh_window`: refill,
+camera rays, uniforms, the bounce, the records, one host read a level):
+host us per call (calls enqueued back to back), device launches per call
+(kernels, copies and fills under torch.profiler) and the window's wall
+time a level.
 --renders also renders modelExample at 25 spp (600x337, depth 50) on the
 binned, binned2 and walk routes, `--b1-fused` and `--mesh walk
 --no-traverse8`, and prints each render loop's wall time, its segments and
@@ -90,6 +97,67 @@ def time_ms(fn, reps):
     return best
 
 
+def device_launches(fn, calls):
+    """Device launches (kernels, copies, fills) per call of `fn` under
+    torch.profiler, over `calls` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / calls
+
+
+def level_cost(ctx, rays, geo, paths, cam8, n8, dev):
+    """The walk route's bounce level on the level's rays: host us per call,
+    device launches per call; and over 16 levels of a real window, wall ms
+    and device launches a level."""
+    import torch
+    from go_raytracer_tpu_torch.integrator import regen
+    o8, d8, t8, alive8 = rays
+    u = torch.rand((n8, ctx.n_u), device=dev)
+    out_b = regen.bounce_mod.bounce_out(n8, dev)
+    call = lambda: ctx.bounce_level(o8, d8, t8, alive8, u, out_b)
+    res = {"bounce_launches": device_launches(call, 5)}
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        best = min(best, (time.perf_counter() - t0) / 20 * 1e6)
+        torch.cuda.synchronize()
+    res["bounce_host_us"] = best
+    window = 16
+
+    def run_window():
+        bufs = regen.WindowBuffers.empty(n8, window, 1, dev)
+        acc = torch.zeros((paths + n8, 3), dtype=torch.float32, device=dev)
+        regen._mesh_window(
+            ctx, acc, regen._init_state_mesh(n8, dev), 0,
+            regen.window_generator(0, 0, dev), paths, window=window,
+            refill=window, max_depth=cam8.max_depth,
+            max_contribution=cam8.max_contribution, bufs=bufs, **geo)
+
+    run_window()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_window()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / window * 1e3)
+    res["window_ms_per_level"] = min(walls)
+    res["window_launches_per_level"] = device_launches(run_window, 1) / window
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
@@ -101,6 +169,9 @@ def main():
                          "WARP_RAYS, LEAF_BATCH and K5's TEAM and BLOCK")
     ap.add_argument("--renders", action="store_true",
                     help="time the 25-spp renders of the five routes")
+    ap.add_argument("--level", action="store_true",
+                    help="host time and launches of the walk's bounce "
+                         "level")
     ap.add_argument("--k5-tail", action="store_true",
                     help="time K5 on the heaviest sorted rays alone")
     ap.add_argument("--k5-lines", action="store_true",
@@ -554,6 +625,10 @@ def main():
         out["k5_tail"] = k5_tail()
     if args.k5_lines:
         out["k5_lines"] = k5_lines()
+    if args.level:
+        out["level"] = level_cost(ctx, (o8, d8, t8, alive8), geo, paths,
+                                  cam8, n8, dev)
+        print(f"level: {out['level']}", flush=True)
     route_kw = {"binned": dict(mesh="binned"),
                 "binned2": dict(mesh="binned2"), "walk": dict(mesh="walk"),
                 "b1_fused": dict(mesh="binned", b1_fused=True),

@@ -382,28 +382,31 @@ def test_mesh_closest_routes_agree_on_card(cuda, scene8):
 
 
 def test_bounce_ext_kernel_matches_plain(cuda, scene8):
-    """K3 on scene 8 with ext planes from a real closest hit: alive and
-    cf mismatch at most 1e-3 of the lanes, E/W and the scattered rays
-    within rtol = atol = 2e-3 on all but 1e-3 of the agreeing lanes."""
+    """K3 on scene 8 from a real closest hit (the walk's winner, gathered
+    in the kernel): alive and cf mismatch at most 1e-3 of the lanes, E/W
+    and the scattered rays within rtol = atol = 2e-3 on all but 1e-3 of
+    the agreeing lanes, against the plain gather and bounce."""
     scene = scene8[0]
     st = bounce.scene_statics(scene, ext=True)
     ms = trace.to_device(scene, cuda)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
     tables = tuple(to(t) for t in bounce.pack_scene(scene))
-    tri_mat = to(bounce.tri_mat_table(scene, st))
+    tri = bounce.TriTable.build(ms.triangles,
+                                to(bounce.tri_mat_table(scene, st)))
     n = 1 << 16
     o, d, _, alive = _mesh_rays(cuda, n, 7)
     tm = torch.zeros(n, device=cuda)
     u = to(np.random.default_rng(8).random((n, 9)).astype(np.float32))
     cap = intersect.sphere_ts(ms.spheres, o, d, tm, 1e-3,
                               float("inf")).amin(dim=1)
-    ext = bounce.mesh_ext_planes(ms, st, tri_mat, o, d, cap, alive)
+    hit = bounce.MeshHit(*trace.mesh_closest(ms, o, d, cap, alive))
     bg = to(np.asarray(scene.background, np.float32))
     before = bounce.launches_bounce
-    k = bounce.bounce(tables, st, o, d, tm, alive, u, bg, ext=ext)
+    k = bounce.bounce(tables, st, o, d, tm, alive, u, bg, ext=hit, tri=tri)
     torch.cuda.synchronize()
     assert bounce.launches_bounce == before + 1
-    p = bounce.bounce_ref(tables, st, o, d, tm, alive, u, bg, ext=ext)
+    p = bounce.bounce_ref(tables, st, o, d, tm, alive, u, bg, ext=hit,
+                          tri=tri)
     assert (k[5] != p[5]).float().mean() <= 1e-3
     assert (k[2] != p[2]).float().mean() <= 1e-3
     agree = k[5] == p[5]
@@ -418,9 +421,15 @@ def test_bounce_ext_kernel_matches_plain(cuda, scene8):
     assert not k[5][~alive].any() and not k[0][~alive].any()
     # given output buffers are written in place, with the same values
     out = bounce.bounce_out(n, cuda)
-    k2 = bounce.bounce(tables, st, o, d, tm, alive, u, bg, ext=ext, out=out)
+    k2 = bounce.bounce(tables, st, o, d, tm, alive, u, bg, ext=hit, out=out,
+                       tri=tri)
     assert all(a is b for a, b in zip(k2[:6], out))
     assert all(torch.equal(a, b) for a, b in zip(k2[:6], k[:6]))
+    # the card takes the walk's winner, not planes
+    with pytest.raises(ValueError):
+        bounce.bounce(tables, st, o, d, tm, alive, u, bg,
+                      ext=bounce.ext_planes_from_hit(st, tri, o, d, hit),
+                      tri=tri)
 
 
 def test_scene8_render_on_kernels(cuda, scene8):

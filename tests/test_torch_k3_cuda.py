@@ -79,39 +79,108 @@ def test_k3_dense_mode_every_feature_set(cuda, name):
     assert bounce.launches_bounce == before + 2
 
 
-@pytest.mark.parametrize("which", ["glass_fog", "image_mesh"])
-def test_k3_ext_mode_meshes(cuda, which):
+def _ext_scene(which):
     from go_raytracer_tpu_torch.scene import obj_loader
 
+    if which == "scene8":
+        return registry.model_example()[0], ((10, 5, 10), (0, 0, 0))
     b = builder_mod.SceneBuilder(background=(0.1, 0.1, 0.1))
     if which == "glass_fog":
         look = synthetic.glass_fog_statue(b, obj_loader,
                                           builder_mod.Transform)
-        scene = b.build()
-    else:
-        synthetic.image_mesh(b)
-        look = ((0, 4, 12), (0, 0, 0))
-        scene = b.build(bvh_threshold=1)
+        return b.build(), look
+    synthetic.image_mesh(b)
+    return b.build(bvh_threshold=1), ((0, 4, 12), (0, 0, 0))
+
+
+def _ext_ctx(cuda, which):
+    scene, look = _ext_scene(which)
     cam = camera_mod.Camera(aspect_ratio=16 / 9, width=300,
                             samples_per_pixel=1, vertical_fov=40)
     cam.position(*look, (0, 1, 0))
-    ctx = regen.MeshContext.build(scene, cam, cuda)
+    return regen.MeshContext.build(scene, cam, cuda), cam
+
+
+@pytest.mark.parametrize("which", ["glass_fog", "image_mesh"])
+def test_k3_ext_mode_meshes(cuda, which):
+    """K3 from the walk's winner (gathered in the kernel) against the plain
+    gather and bounce on the same (t, idx)."""
+    ctx, cam = _ext_ctx(cuda, which)
     o, d, t, alive, g = _rays(cuda, cam, N, 2)
     cap = intersect.sphere_ts(ctx.ms.spheres, o, d, t, 1e-3,
                               float("inf")).amin(dim=1)
     if ctx.ms.has_quads:
         cap = torch.minimum(cap, intersect.quad_ts(
             ctx.ms.quads, o, d, 1e-3, float("inf")).amin(dim=1))
-    ext = bounce.mesh_ext_planes(ctx.ms, ctx.statics, ctx.tri_mat, o, d, cap,
-                                 alive)
-    assert len(ext) == bounce.n_ext_planes(ctx.statics)
+    hit = bounce.MeshHit(*trace.mesh_closest(ctx.ms, o, d, cap, alive))
+    assert len(bounce.ext_planes_from_hit(ctx.statics, ctx.tri, o, d, hit)) \
+        == bounce.n_ext_planes(ctx.statics)
     u = torch.rand((N, ctx.n_u), generator=g, device=cuda)
-    k = bounce.bounce(ctx.tables, ctx.statics, o, d, t, alive, u, ctx.bg,
-                      ext=ext)
+    k = ctx.k3(o, d, t, alive, u, ext=hit)
     torch.cuda.synchronize()
     p = bounce.bounce_ref(ctx.tables, ctx.statics, o, d, t, alive, u, ctx.bg,
-                          ext=ext)
+                          ext=hit, tri=ctx.tri)
     _hold(k, p, alive, 1e-3)
+
+
+@pytest.mark.parametrize("which", ["scene8", "glass_fog", "image_mesh"])
+def test_k3_cap_matches_the_tensor_cap(cuda, which):
+    """The dense cap entry (one launch) against the tensor cap: the same
+    t but for rounding (2e-3 relative), and inf on the same lanes but on
+    1e-3 of them (a ray grazing a sphere)."""
+    ctx, cam = _ext_ctx(cuda, which)
+    o, d, t, _, _ = _rays(cuda, cam, N, 5)
+    before = bounce.launches_cap
+    k = ctx.k3.cap(ctx.ms, o, d, t)
+    torch.cuda.synchronize()
+    assert bounce.launches_cap == before + 1
+    p = bounce.dense_cap_ref(ctx.ms, o, d, t)
+    fin = torch.isfinite(k) & torch.isfinite(p)
+    assert (torch.isfinite(k) != torch.isfinite(p)).float().mean() <= 1e-3
+    assert fin.any()
+    assert (~torch.isclose(k[fin], p[fin], rtol=RTOL, atol=ATOL)
+            ).float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["book1", "book2", "scan_spheres",
+                                  "scan_quads"])
+def test_k3_sorted_equals_unsorted(cuda, name):
+    """On the culled tables K3's sorted variant orders a call's lanes and
+    shares the warp's block tests: its outputs equal the launch order's bit
+    for bit, and its order is a permutation with the dead lanes last."""
+    if name.startswith("scan_"):
+        mix = {"scan_spheres": (3500, 300, 296),
+               "scan_quads": (200, 1800, 2096)}[name]
+        scene, cam, packed, st = synthetic.build(*mix, dielectric=False)
+        cam = camera_mod.Camera(aspect_ratio=1.0, width=400,
+                                samples_per_pixel=16, vertical_fov=60.0)
+        cam.position((0.0, 10.0, 18.0), (0.0, 0.5, 0.0), (0, 1, 0))
+    else:
+        scene, cam = getattr(registry, name)()
+        packed, st = bounce.pack_scene(scene), bounce.scene_statics(scene)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    tables = tuple(to(x) for x in packed)
+    bg = to(np.asarray(scene.background, np.float32))
+    k3s = bounce.K3Launch(tables, st, bg, sort=True)
+    k3u = bounce.K3Launch(tables, st, bg)
+    assert k3s.sort and not k3u.sort
+    o, d, t, alive, g = _rays(cuda, cam, N, 6)
+    for level in range(3):
+        u = torch.rand((N, bounce.N_U + st["n_media"]), generator=g,
+                       device=cuda)
+        before = bounce.launches_sort
+        ks = k3s(o, d, t, alive, u)
+        assert bounce.launches_sort == before + 1
+        ku = k3u(o, d, t, alive, u)
+        torch.cuda.synchronize()
+        for a, b in zip(ks[:6], ku[:6]):
+            assert torch.equal(a, b), f"level {level}"
+        perm = k3s.perm(N).long()
+        assert torch.equal(torch.sort(perm).values,
+                           torch.arange(N, device=cuda))
+        n_live = int(alive.sum())
+        assert alive[perm[:n_live]].all() and not alive[perm[n_live:]].any()
+        o, d, alive = ks[3].contiguous(), ks[4].contiguous(), ks[5].clone()
 
 
 def test_radiance_on_k3_matches_the_tensor_bounce(cuda):
