@@ -178,11 +178,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
      (synthetic.image_mesh), at 65536 lanes, from the walk's winner:
      against its plain version on camera rays and one level later (flag
      words within each scene's flip fraction, image lanes' texels within
-     TEXEL_MOVED_FRAC), on book1 and book2 (the sorted variant: the lane
-     sort and the warp's shared block test) also against the same kernel
-     in launch order, bit for bit, then timed (CUDA events, host us per
-     call and device time; the sorted variants also in launch order) with
-     its bound (book1 and book2 also their culled bound), registers,
+     TEXEL_MOVED_FRAC), then timed (CUDA events, host us per call and
+     device time) with its bound (book1 and book2 also their culled bound), registers,
      staged bytes and spill per variant;
  26. the reference engine's paths through `cli.main`, launch counts set to
      0 before each and read after: the slice's main path, cornellBox
@@ -341,10 +338,7 @@ SCENE8_PATHS = 600 * 337 * 225
 REDESIGN_K3 = ("redesigned: in ext mode the mesh winner is gathered inside "
                "the kernel from the walk's (t, idx), the dense cap is one "
                "launch of its cap entry, and the launch is prepared once a "
-               "scene; on the culled tables a sorted variant (the lanes "
-               "sorted over the whole call, each warp's block tests shared) "
-               "for lanes in no spatial order, equal to the launch order "
-               "bit for bit; phases 8, 10, 11 and 25")
+               "scene; phases 8, 10, 11 and 25")
 # the seven dense registry scenes
 REGISTRY_DENSE = ("cornell_box", "book3", "cornell_smoke", "simple_light",
                   "book1", "quads_scene", "book2")
@@ -518,6 +512,23 @@ def plain_versions(bounce, harvest, stream, traverse8):
         (bounce.bounce, stream.stream_rows, traverse8.bvh8_closest,
          harvest.harvest_levels_into, bounce.K3Launch.__call__,
          bounce.K3Launch.cap) = saved
+
+
+def tri_hit_bytes(bounce, tri, statics, idx, alive):
+    """Bytes K3's ext gather needs of the distinct triangles the live lanes
+    hit (`idx`, -1: none): v0, e0 and e1; has_vn, then the three vertex
+    normals where the mesh has them, else the face normal; with images
+    has_uv and the three vertex uv where present; the material columns of
+    the scene's layout. Flags count as the plain tables' bools (1 B), the
+    rest as float32. Returns (bytes, distinct triangles)."""
+    import torch
+    ids = torch.unique(idx[(idx >= 0) & alive]).long()
+    has_vn = tri.tr.has_vn[ids]
+    nbytes = ids.numel() * (36 + 1 + 4 * len(bounce._mat_layout(statics))) \
+        + int(has_vn.sum()) * 36 + int((~has_vn).sum()) * 12
+    if statics["has_image"]:
+        nbytes += ids.numel() + int(tri.tr.has_uv[ids].sum()) * 24
+    return nbytes, int(ids.numel())
 
 
 def fused_bound(nbytes, segs, scene="cornell_box", ops=None):
@@ -1213,7 +1224,7 @@ def main():
     phase_start(9)
     def reset_counts():
         bounce.launches = bounce.launches_bounce = 0
-        bounce.launches_cap = bounce.launches_sort = 0
+        bounce.launches_cap = 0
         bounce.launches_fused = bounce.launches_fused_pos = 0
         bounce.launches_direct = 0
         harvest.launches = harvest.launches_rows = 0
@@ -1483,11 +1494,11 @@ def main():
         tri=ctx.tri), 3)
     cap_plain_ms = time_ms(lambda: bounce.dense_cap_ref(ms, o8, d8, t8), 3)
     # bytes: per lane the ray (24 B), time, alive, 9 uniforms, the walk's
-    # (t, idx) in and 50 B out; the rows of the distinct triangles hit and
-    # the packed tables read once
-    tris_hit = int(torch.unique(hit8.idx[(hit8.idx >= 0) & alive8]).numel())
-    k3_bytes = n8 * (24 + 4 + 1 + 36 + 8 + 50) \
-        + tris_hit * ctx.tri.rows.shape[1] * 4 \
+    # (t, idx) in and 50 B out; what the gather needs of the distinct
+    # triangles hit, and the packed tables read once
+    tri_bytes, tris_hit = tri_hit_bytes(bounce, ctx.tri, ctx.statics,
+                                        hit8.idx, alive8)
+    k3_bytes = n8 * (24 + 4 + 1 + 36 + 8 + 50) + tri_bytes \
         + sum(t.numel() * 4 for t in ctx.tables)
     k3_ops_s = n_alive8 * K3_OPS_PER_SEGMENT / FP32_OPS_PER_S
     k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops_s) * 1e3
@@ -1506,7 +1517,7 @@ def main():
           f"winner {k3_ms:.4f} ms per call between CUDA events, host "
           f"{k3_host:.1f} us per call, device {k3_dev} ms; plain "
           f"{k3_plain_ms:.3f} ms, bound {k3_bound:.5f} ms ({k3_by}; "
-          f"{tris_hit} triangle rows of {ctx.tri.rows.shape[1] * 4} B); its "
+          f"{tri_bytes} B of the {tris_hit} triangles hit); its "
           f"cap entry {cap_ms:.4f} ms, host {cap_host:.1f} us, device "
           f"{cap_dev} ms, plain (the tensor cap) {cap_plain_ms:.3f} ms, "
           f"bound {cap_bound:.5f} ms (bytes); K4 round 0 {k4_ms:.4f} ms, "
@@ -3423,10 +3434,9 @@ def main():
                   and worst_p <= frac_p,
                   f"{key}: {worst_p} of the lanes differ from the parent's "
                   f"kernel (limit {frac_p})")
-            # K3's launch order and its sorted variant (K3s) compute each
-            # lane as before: on every registry scene, both pools, the
-            # parent's outputs bit for bit but where the parent's weight
-            # is a 0 / 0 NaN (now 0)
+            # K3 computes each lane as before: on every registry scene,
+            # both pools, the parent's outputs bit for bit but where the
+            # parent's weight is a 0 / 0 NaN (now 0)
             check(not (k_p.startswith("K3") and sc_p in REGISTRY_DENSE)
                   or all(c == nn for _, c, _, _, nn in diffs),
                   f"{key}: K3 differs from the parent's")
@@ -3502,11 +3512,7 @@ def main():
         rays on `frac` of the agreeing ones (rtol = atol = K1_RTOL); an
         image lane's texel may move on `texel_frac` of the image lanes. In
         ext mode `ext_fn` gives the walk's winner and `tri` the triangle
-        tables. K3 runs in launch order, as the render paths run it; on a
-        culled table its sorted variant (the lane sort and the warp's
-        shared block test, `sort=True`) runs beside it, every output equal
-        to the launch order's bit for bit at every level, and both are
-        timed. Returns the row of the PERF table."""
+        tables. Returns the row of the PERF table."""
         o, d, t, alive, g = rays
         n = o.shape[0]
         n_u = bounce.N_U + st_["n_media"]
@@ -3514,21 +3520,10 @@ def main():
         c0 = time.perf_counter()
         img_lanes = img_moved = 0
         k3l = bounce.K3Launch(tables_, st_, bg_, tri)
-        k3s = bounce.K3Launch(tables_, st_, bg_, tri, sort=True)
-        k3s = k3s if k3s.sort else None
         for lvl in range(levels):
             u = torch.rand((n, n_u), generator=g, device=dev)
             ext = ext_fn(o, d, t, alive) if ext_fn else None
             k = k3l(o, d, t, alive, u, ext=ext)
-            if k3s is not None:
-                before_s = bounce.launches_sort
-                ks = k3s(o, d, t, alive, u, ext=ext)
-                torch.cuda.synchronize()
-                differ = [i for i, (a, b) in enumerate(zip(k[:6], ks[:6]))
-                          if not torch.equal(a, b)]
-                check(not differ and bounce.launches_sort == before_s + 1,
-                      f"K3 {tag}: the sorted variant differs from the launch "
-                      f"order on planes {differ}")
             torch.cuda.synchronize()
             probe = []
             p = bounce.bounce_ref(tables_, st_, o, d, t, alive, u, bg_,
@@ -3576,22 +3571,12 @@ def main():
         plain_ms = time_ms(lambda: bounce.bounce_ref(
             tables_, st_, o, d, t, alive, u, bg_, ext=ext, tri=tri), 1,
             warmup=0)
-        sorted_ = None
-        if k3s is not None:     # the sorted variant on the same lanes
-            run_s = lambda: k3s(o, d, t, alive, u, ext=ext, out=out)
-            sorted_ = dict(ms=time_ms(run_s, 20),
-                           device_ms=queued_device_ms(run_s),
-                           info=_cuda.kernel_info(
-                               "bounce", bounce.fused_features(st_)
-                               | bounce.FEAT_SORT, st_["n_sph"],
-                               st_["n_quad"], st_["n_box"]))
         # bytes: per lane the ray, time and alive (29 B), the uniforms, in
-        # ext mode the walk's (t, idx) and the rows of the triangles hit,
-        # 50 B out
+        # ext mode the walk's (t, idx) and what the gather needs of the
+        # triangles hit, 50 B out
         nbytes = n * (29 + 4 * n_u + (8 if ext is not None else 0) + 50)
         if ext is not None:
-            nbytes += int(torch.unique(ext.idx[(ext.idx >= 0) & alive])
-                          .numel()) * tri.rows.shape[1] * 4
+            nbytes += tri_hit_bytes(bounce, tri, st_, ext.idx, alive)[0]
         segs = int(alive.sum())
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = segs * ops / FP32_OPS_PER_S * 1e3
@@ -3600,7 +3585,7 @@ def main():
                                  st_["n_box"])
         row = dict(feat=feat, lanes=n, alive=segs, ms=ms, device_ms=dev_ms,
                    host_us=host, plain_ms=plain_ms,
-                   bound_ms=max(b_ms, o_ms), sorted=sorted_,
+                   bound_ms=max(b_ms, o_ms),
                    bound_by="bytes" if b_ms >= o_ms else "operations",
                    err=worst["err"], info=info)
         if nonscan is not None:
@@ -3621,15 +3606,8 @@ def main():
               f"max abs err {worst['err']:.3e}"
               + (f"; image lanes {img_lanes}, texel moved on {img_moved}"
                  if texel_frac is not None else "")
-              + (f"; the sorted variant equal to the launch order bit for "
-                 f"bit at every level" if k3s is not None else "")
               + f"; {ms:.5f} ms per call between CUDA events, {dev_txt}, "
-              f"host {host:.1f} us per call"
-              + (f" (sorted variant {sorted_['ms']:.5f} ms, device "
-                 f"{sorted_['device_ms']} ms, {sorted_['info']['registers']} "
-                 f"registers, {sorted_['info']['local_bytes']} B local)"
-                 if sorted_ else "")
-              + f", plain {plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
+              f"host {host:.1f} us per call, plain {plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
               f"({row['bound_by']}: {nbytes} B, {ops} operations per alive "
               f"lane)"
               + (f", culled bound {row['culled_bound_ms']:.5f} ms "
@@ -3869,9 +3847,7 @@ def main():
         {sc: dict({k: v for k, v in r.items() if k != "info"},
                   launches_render=k3_render[sc], **r["info"])
          for sc, r in k3_rows.items()}))
-    k3_variants = ("feature sets (ops/bounce.fused_features; +64: the "
-                   "sorted variant, its lane sort and the warp's shared "
-                   "block test, on the culled tables) dense mode "
+    k3_variants = ("feature sets (ops/bounce.fused_features) dense mode "
                    + ", ".join(f"{sc} {k3_rows[sc]['feat']}"
                                for sc in k3_flip)
                    + "; ext mode from the walk's (t, idx), the winner "

@@ -520,7 +520,7 @@ class MeshContext:
     """What the unfused window reads, on the render device: the scene
     tables of `ops/trace.to_device` (`ms`), the background and camera, and
     for the external-hit bounce (`ext`) the packed kernel tables and
-    statics and the per-triangle material columns. `mesh` (with "auto"
+    statics and the triangle tables (`tri`). `mesh` (with "auto"
     resolved by `ops/trace.resolve_route`), `b1_fused` and `traverse8`
     pick a BVH mesh's closest-hit route (`ops/trace.mesh_closest`);
     `counters` gathers calls, rounds and host reads of the intersector.
@@ -535,7 +535,6 @@ class MeshContext:
     ms: object
     tables: Optional[tuple]
     statics: Optional[dict]
-    tri_mat: Optional[torch.Tensor]
     bg: torch.Tensor
     arrays: camera_mod.CameraArrays
     mesh: str = "walk"
@@ -566,7 +565,7 @@ class MeshContext:
                                   traverse8=traverse8)
         elif ext:
             raise ValueError("the external-hit bounce needs a triangle BVH")
-        tables = statics = tri_mat = tri = k3 = None
+        tables = statics = tri = k3 = None
         bg = to_dev(np.asarray(scene.background, np.float32))
         if ext:
             statics = bounce_mod.scene_statics(scene, ext=True)
@@ -575,7 +574,7 @@ class MeshContext:
             tri = bounce_mod.TriTable.build(ms.triangles, tri_mat)
             k3 = bounce_mod.K3Launch(tables, statics, bg, tri)
         return MeshContext(
-            ms=ms, tables=tables, statics=statics, tri_mat=tri_mat, bg=bg,
+            ms=ms, tables=tables, statics=statics, bg=bg,
             arrays=cam.derived(),
             mesh=trace_mod.resolve_route(mesh, b1_fused), b1_fused=b1_fused,
             traverse8=traverse8, ext=ext, tri=tri, k3=k3)

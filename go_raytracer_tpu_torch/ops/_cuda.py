@@ -131,9 +131,6 @@ def library(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.grt_error_string.argtypes = [ctypes.c_int]
         lib.grt_error_string.restype = ctypes.c_char_p
-        if name == "bounce":
-            lib.grt_sort_sizes.argtypes = [ctypes.c_void_p]
-            lib.grt_sort_sizes.restype = ctypes.c_int
         if name in STAGED:
             lib.grt_kernel_info.argtypes = [ctypes.c_int] * 4 \
                 + [ctypes.c_void_p]

@@ -30,8 +30,7 @@ Counterpart of the JAX package's `ops/pallas/bounce.py`. Three parts:
   card, `bounce_fused_pos_ref` on the CPU.
 * `bounce`: one bounce level from given uniforms, in the dense mode of
   the reference engine (`integrator/wavefront.radiance`) or with the
-  closest mesh hit folded in as per-lane planes (`mesh_ext_planes`), the
-  mesh path's. CUDA tensors launch `csrc/bounce.cu`, CPU tensors run
+  mesh walk's closest hit (t, triangle) folded in, the mesh path's. CUDA tensors launch `csrc/bounce.cu`, CPU tensors run
   `bounce_ref`.
 
 The four fused kernels cover the scenes `supported()` accepts: spheres
@@ -94,11 +93,9 @@ FEAT_IMG = 32
 # `bounce_fused_q_direct` (one per call each).
 launches = 0
 launches_direct = 0
-# Launches of the CUDA kernel through `bounce` (one per call), of its lane
-# sort (one per sorted call) and of the mesh path's dense cap
-# (`K3Launch.cap`, one per call).
+# Launches of the CUDA kernel through `bounce` (one per call) and of the
+# mesh path's dense cap (`K3Launch.cap`, one per call).
 launches_bounce = 0
-launches_sort = 0
 launches_cap = 0
 # Launches of the CUDA kernels through `bounce_fused` and
 # `bounce_fused_pos` (one per call each).
@@ -203,7 +200,8 @@ def supported_ext(scene: T.Scene) -> bool:
 def scene_statics(scene: T.Scene, ext: bool = False) -> dict:
     """Static kernel parameters from the scene's flags and table shapes.
     `ext`: the bounce folds an externally computed mesh closest hit
-    (per-lane planes from `mesh_ext_planes`) into its winner."""
+    (the walk's `MeshHit`, or on the CPU the planes of
+    `ext_planes_from_hit`) into its winner."""
     n_sph = scene.spheres.count if scene.has_spheres else 0
     n_quad = scene.quads.count if scene.has_quads else 0
     n_box = scene.boxes.count if scene.has_boxes else 0
@@ -1001,11 +999,8 @@ def block_hit_ref(lo, hi, pad, ray):
 # c - o, h, c and discriminant, and on a non-negative one the root and its
 # square root), a quad row (dn, on, t, the point, alpha and beta), a box
 # row with its reciprocals hoisted (6 subtracts, 6 multiplies) and with the
-# ray turned per row (the offset, the turn, 3 divisions), and a block's
-# bounds against a warp's bundle (`bundle_hit`: the 2 pads, 4 faces, 8
-# products and 2 subtractions an axis)
-SCAN_OPS = {"block": 19, "sphere": 25, "quad": 30, "box": 12, "box_rot": 33,
-            "bundle": 44}
+# ray turned per row (the offset, the turn, 3 divisions)
+SCAN_OPS = {"block": 19, "sphere": 25, "quad": 30, "box": 12, "box_rot": 33}
 
 
 def scan_ops(layout: ScanLayout, stats) -> torch.Tensor:
@@ -1075,164 +1070,6 @@ def closest_culled_ref(st, prims, ox, oy, oz, dx, dy, dz, tm, layout=None,
     if stats is not None:
         stats.update(blocks=blocks, rows=rows, scanned=scanned)
     return win.t, win.n, win.row, win.uv
-
-
-# ---------------------------------------------------------------------------
-# K3's lane order and a warp's shared block test (the culled variants)
-# ---------------------------------------------------------------------------
-# A warp of the culled scan executes the union of its lanes' blocks, so K3's
-# sorted variant (K3 owns no lane state: a call's rays come and go by lane;
-# `K3Launch(sort=True)`) runs a call's lanes in the order of a key, in a
-# grid over the scan table's bounds
-# (`scan_box`): the direction's octant, above the Morton code of the
-# origin's cell at 2^SORT_OB cells an axis, above that of the cell of the
-# point SORT_REACH of the bounds' diagonal ahead on the ray at 2^SORT_RB;
-# dead lanes last. Each lane's result is computed as before and written at
-# its own index, so no caller sees the order. (The origin's cell alone
-# leaves a pool of camera rays, which share their origin, in the order it
-# came; the point ahead alone parts the bounced rays of one region:
-# scripts/sim_sphere_cull.py.) Within the sorted warps, the block bounds
-# are first tested against the bundle of the warp's rays
-# (`bundle_hit_ref`), 32 blocks at a time, and a lane runs its own
-# `block_hit` only on the blocks the bundle meets.
-SORT_OB, SORT_RB = 2, 3
-SORT_REACH = 0.2
-SORT_KEYS = 1 << (3 + 3 * (SORT_OB + SORT_RB))  # live keys; a dead lane's
-
-
-def scan_box(layout: ScanLayout):
-    """(lo, hi) float32 (3,): the box of every block bound of the scan
-    table (the grid the lane sort's key quantises in)."""
-    lo = [x for x in layout.lo if len(x)]
-    hi = [x for x in layout.hi if len(x)]
-    if not lo:
-        return np.zeros(3, np.float32), np.ones(3, np.float32)
-    return (np.concatenate(lo).min(axis=0).astype(np.float32),
-            np.concatenate(hi).max(axis=0).astype(np.float32))
-
-
-def sort_grid(layout: ScanLayout):
-    """(lo (3,), 1 / extent (3,), reach) float32 of the lane sort's grid
-    over `scan_box(layout)` (csrc/bounce.cu `key_lo`, `key_scale`,
-    `key_reach`)."""
-    lo, hi = scan_box(layout)
-    ext = np.maximum(hi - lo, np.float32(1e-6))
-    return (lo, (np.float32(1.0) / ext).astype(np.float32),
-            np.float32(SORT_REACH * float(np.linalg.norm(ext))))
-
-
-def _key_cells(p, lo, scale, bits):
-    """The Morton code of the cell of each point (N, 3) at 2^bits cells an
-    axis of the grid, the points clamped into it."""
-    from go_raytracer_tpu_torch.ops.trace import _part1by2
-
-    cells = float(1 << bits)
-    q = torch.clamp((p - lo) * scale * cells, 0.0, cells - 1.0) \
-        .to(torch.int32)
-    return (_part1by2(q[:, 0]) << 2) | (_part1by2(q[:, 1]) << 1) \
-        | _part1by2(q[:, 2])
-
-
-def lane_keys_ref(grid, o, d, alive):
-    """K3's sort key of every lane (csrc/bounce.cu `sort_keys`): the
-    direction's octant (x, y, z > 0 as bits 2, 1, 0), above the Morton
-    code of the origin's cell at 2^SORT_OB cells an axis of `grid`
-    (`sort_grid`), above that of the cell of o + reach d / |d| at
-    2^SORT_RB; SORT_KEYS for a dead lane (the kernel spreads the dead lanes
-    over keys from SORT_KEYS on). o, d: (N, 3) float32; alive: (N,) bool.
-    The kernel's 1 / |d| is rsqrtf, so a point on a cell's face may fall
-    in the next cell there: any order of the lanes gives the same
-    results."""
-    lo, scale, reach = (torch.as_tensor(x, device=o.device) for x in grid)
-    s = reach / torch.sqrt(torch.sum(d * d, dim=1, keepdim=True) + 1e-38)
-    octant = ((d[:, 0] > 0).to(torch.int32) << 2) \
-        | ((d[:, 1] > 0).to(torch.int32) << 1) | (d[:, 2] > 0).to(torch.int32)
-    key = (((octant << (3 * SORT_OB)) | _key_cells(o, lo, scale, SORT_OB))
-           << (3 * SORT_RB)) | _key_cells(o + s * d, lo, scale, SORT_RB)
-    return torch.where(alive, key, SORT_KEYS)
-
-
-def lane_order_ref(keys):
-    """The lanes in key order, (N,) int64 (`perm[i]` = the lane that runs
-    i-th): a stable counting sort. The kernel orders the lanes of one key
-    as their warps' atomics arrive; any order of them gives the same
-    results."""
-    return torch.sort(keys, stable=True).indices
-
-
-def _down32(x):
-    """float32 at or below each float64 of x, one ulp further down."""
-    f = x.astype(np.float32)
-    f = np.where(f.astype(np.float64) > x, np.nextafter(f, np.float32(-np.inf)),
-                 f)
-    return np.nextafter(f, np.float32(-np.inf))
-
-
-def _up32(x):
-    return -_down32(-x)
-
-
-def bundle_hit_ref(lo, hi, pad, ray, live):
-    """The shared block test of K3's sorted warps (csrc/bounce_core.cuh
-    `bundle_hit`) as a plain model: (nb, N // 32) bool, block k of the
-    section met by the bundle of warp w's live lanes (lanes 32 w .. 32 w +
-    31). The bundle is each axis's interval of the lanes' own rounded 1 / d
-    and o / d and the interval of their pads SCAN_PAD |o|_1; the block's
-    faces, moved out by the bundle's least and largest pad as `block_hit`
-    moves them, go through the interval products, bounded outward (here in
-    float64, rounded outward to float32 one ulp further), so the bundle's
-    (near, far) holds every lane's and the test passes every block that some
-    live lane's `block_hit` passes in (T_MIN, inf). A warp with a live lane
-    that culls nothing (largest |d| below SCAN_MIN_D) or has a non-finite
-    ray constant passes every block; a warp with no live lane none."""
-    ox, oy, oz, dx, dy, dz = (x.detach().cpu().numpy().astype(np.float32)
-                              for x in ray)
-    live = live.detach().cpu().numpy().astype(bool)
-    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
-        inv = [np.float32(1.0) / np.where(np.abs(v) < 1e-30, np.where(
-            v < 0, np.float32(-1e-30), np.float32(1e-30)), v).astype(
-                np.float32) for v in (dx, dy, dz)]
-        oi = [(o * i).astype(np.float32) for o, i in zip((ox, oy, oz), inv)]
-    po = (np.float32(SCAN_PAD) * (np.abs(ox) + np.abs(oy) + np.abs(oz))) \
-        .astype(np.float32)
-    on = np.maximum(np.maximum(np.abs(dx), np.abs(dy)), np.abs(dz)) \
-        >= SCAN_MIN_D
-    n_w = len(ox) // 32
-    shape = lambda v: v[:32 * n_w].reshape(n_w, 32)
-    lw = shape(live)
-    bad = lw & ~shape(on)
-    for v in inv + oi + [po]:
-        bad |= lw & ~np.isfinite(shape(v))
-    mn = lambda v: np.where(lw, shape(v), np.inf).min(axis=1)
-    mx = lambda v: np.where(lw, shape(v), -np.inf).max(axis=1)
-    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
-    pad = np.asarray(pad, np.float32)
-    f64 = np.float64
-    with np.errstate(invalid="ignore", over="ignore"):
-        pmin = (pad[:, None] + mn(po)[None]).astype(np.float32)
-        pmax = (pad[:, None] + mx(po)[None]).astype(np.float32)
-        near = np.full(pmin.shape, -np.inf)
-        far = np.full(pmin.shape, np.inf)
-        for a in range(3):
-            i_lo, i_hi = mn(inv[a])[None], mx(inv[a])[None]
-            o_lo, o_hi = mn(oi[a])[None], mx(oi[a])[None]
-            faces = (((lo[:, a:a + 1] - pmax).astype(np.float32),
-                      (lo[:, a:a + 1] - pmin).astype(np.float32)),
-                     ((hi[:, a:a + 1] + pmin).astype(np.float32),
-                      (hi[:, a:a + 1] + pmax).astype(np.float32)))
-            t_lo, t_hi = np.inf, -np.inf
-            for x_lo, x_hi in faces:
-                prods = [x.astype(f64) * i.astype(f64) for x in (x_lo, x_hi)
-                         for i in (i_lo, i_hi)]
-                t_lo = np.minimum(t_lo, _down32(np.minimum.reduce(prods)
-                                                - o_hi.astype(f64)))
-                t_hi = np.maximum(t_hi, _up32(np.maximum.reduce(prods)
-                                              - o_lo.astype(f64)))
-            near = np.maximum(near, t_lo)
-            far = np.minimum(far, t_hi)
-        hit = np.maximum(near, np.float32(T_MIN)) <= far
-    hit = (hit | bad.any(axis=1)[None]) & lw.any(axis=1)[None]
-    return torch.from_numpy(hit)
 
 
 def _bounce_core_ref(st, prims, lights, bg, ox, oy, oz, dx, dy, dz, alive, u,
@@ -2360,28 +2197,6 @@ def ext_planes_from_hit(statics, tri: TriTable, o, d, hit: MeshHit,
             *n_raw.t().contiguous(), *uv, *tri.tri_mat[:, idx])
 
 
-def mesh_ext_planes(ms, statics, tri_mat, o, d, t_cap, alive, *,
-                    mesh="auto", b1_fused=False, traverse8=True,
-                    counters=None):
-    """The external mesh-hit planes of `bounce_ref`: run the mesh closest
-    hit (`ops/trace.mesh_closest`, pruned by `t_cap`, the caller's
-    dense-class pass, on the route that `mesh`, `b1_fused` and `traverse8`
-    pick), then `ext_planes_from_hit` on its winner (a hit counts where its
-    t is below the cap).
-
-    ms: `ops/trace.to_device(scene, device)`; tri_mat: `tri_mat_table` as
-    a tensor on the same device."""
-    from go_raytracer_tpu_torch.ops import trace as trace_mod
-
-    if not ms.has_tri_bvh:
-        raise ValueError("mesh_ext_planes requires a built triangle BVH")
-    hit = MeshHit(*trace_mod.mesh_closest(
-        ms, o, d, t_cap=t_cap, alive=alive, mesh=mesh, b1_fused=b1_fused,
-        traverse8=traverse8, counters=counters))
-    return ext_planes_from_hit(statics, TriTable(ms.triangles, tri_mat), o,
-                               d, hit, t_cap=t_cap)
-
-
 def n_ext_planes(statics) -> int:
     """The number of ext planes `ext_planes_from_hit` gives for these
     statics: t, the normal, with images u and v, and the material
@@ -2475,27 +2290,11 @@ _BounceArgs = type("_BounceArgs", (ctypes.Structure,), {"_fields_": [
     (name, ctypes.c_void_p) for name in (
         "prims", "lights", "med", "bg", "o", "d", "tm", "alive", "u",
         "hit_t", "hit_idx", "tri", "E", "W", "cf", "new_o", "new_d",
-        "alive_out", "t_cap", "perm", "sort_key", "sort_rank", "sort_hist",
-        "sort_sums") + _FUSED_TABLE_PTRS] + [
+        "alive_out", "t_cap") + _FUSED_TABLE_PTRS] + [
     (name, ctypes.c_int) for name in _FUSED_TABLE_INTS] + [
-    (name, ctypes.c_float * 3) for name in ("key_lo", "key_scale")] + [
-    ("key_reach", ctypes.c_float)] + [
     (name, ctypes.c_int) for name in (
         "n", "n_u", "ext", "tri_cols", "tri_fr", "tri_texk", "tri_scale",
         "tri_seed")]})
-
-# the kernels' feature bit of the sorted variant (kernel_info)
-FEAT_SORT = 64
-
-
-def k3_sorts(statics, layout: ScanLayout) -> bool:
-    """Whether K3 has a sorted variant for this table (csrc/bounce.cu): a
-    table of which some section makes more than one block, the tables
-    whose scan culls (`with_cull`)."""
-    counts = layout.counts
-    return ((fused_features(statics) & 1 and counts[0] > SCAN_BLOCK)
-            or counts[1] > SCAN_BLOCK or counts[2] > SCAN_BLOCK)
-
 
 def bounce_out(n: int, device):
     """Output buffers of `bounce` for `n` lanes: E, W (N, 3) float32, cf
@@ -2507,30 +2306,18 @@ def bounce_out(n: int, device):
 
 class K3Launch:
     """K3 (`bounce`) prepared once for a scene: the table part of the
-    kernel's argument struct, the table ints and their checks, the
-    triangle rows of ext mode and the lane sort's grid, so that a call
-    sets only the lanes' pointers and count and checks the lanes' tensors.
+    kernel's argument struct, the table ints and their checks and the
+    triangle rows of ext mode, so that a call sets only the lanes'
+    pointers and count and checks the lanes' tensors.
 
     tables = `pack_scene(scene)` as tensors; statics = `scene_statics(scene,
     ext=...)`; bg (3,) float32; tri: a `TriTable` (ext mode, where `bounce`
-    takes a `MeshHit`). On CPU tables every call runs the plain versions.
+    takes a `MeshHit`). On CPU tables every call runs the plain versions."""
 
-    `sort` runs a culled table's calls (`k3_sorts`) in the sorted variant:
-    the lanes ordered over the whole call and each warp's block tests
-    shared. Its results are the launch order's bit for bit. It pays on the
-    card where the caller's lanes lie in no spatial order (camera rays
-    through random pixels: book2 −15%, the 4,096-row scan scene −11% to
-    −31%) and costs 15-40% on lanes in pixel order, the renderer's and the
-    fused kernels' pools (PERF.md §6), so the render paths keep the launch
-    order (the default)."""
-
-    def __init__(self, tables, statics, bg, tri: Optional[TriTable] = None,
-                 sort: bool = False):
+    def __init__(self, tables, statics, bg, tri: Optional[TriTable] = None):
         self.tables, self.statics, self.bg, self.tri = tables, statics, bg, tri
         self.cuda = tables[0].is_cuda
         self.n_u = N_U + statics["n_media"]
-        self.sort = False
-        self._scratch = {}
         _check_bounce_scene(statics)
         if not self.cuda:
             return
@@ -2539,8 +2326,6 @@ class K3Launch:
         st = statics
         _check_cuda_args(_fused_table_checks(tables, st)
                          + [("bg", bg, torch.float32, (3,))])
-        lay, _ = scan_tables(tables[0], st)
-        self.sort = bool(sort) and k3_sorts(st, lay)
         p = lambda t: t.data_ptr()
         a = _BounceArgs(prims=p(tables[0]), lights=p(tables[1]),
                         med=p(tables[2]), bg=p(bg),
@@ -2555,11 +2340,6 @@ class K3Launch:
             a.tri, a.ext, a.tri_cols = p(tri.rows), 1, tri.rows.shape[1]
             a.tri_fr, a.tri_texk = col("fr"), col("texk")
             a.tri_scale, a.tri_seed = col("scale"), col("seed_img")
-        if self.sort:
-            lo, scale, reach = sort_grid(lay)
-            a.key_lo = (ctypes.c_float * 3)(*lo.tolist())
-            a.key_scale = (ctypes.c_float * 3)(*scale.tolist())
-            a.key_reach = float(reach)
         self.args = a
         lib = _cuda.library("bounce")
         self._fn, self._cap_fn = lib.grt_bounce, lib.grt_bounce_cap
@@ -2576,23 +2356,10 @@ class K3Launch:
                     f"expected a contiguous {dt} {tuple(shape)} on "
                     f"{self._dev}")
 
-    def _sort_scratch(self, n):
-        s = self._scratch.get(n)
-        if s is None:
-            from go_raytracer_tpu_torch.ops import _cuda
-
-            sizes = (ctypes.c_int * 3)()
-            _cuda.library("bounce").grt_sort_sizes(sizes)
-            i32 = lambda k: torch.empty(k, dtype=torch.int32,
-                                        device=self._dev)
-            s = self._scratch[n] = (i32(n), i32(n), i32(n), i32(sizes[0]),
-                                    i32(sizes[1]))
-        return s
-
     def __call__(self, o, d, time, alive, u, ext=None, out=None):
         """`bounce` on this scene (its arguments but the tables, statics,
         bg and tri)."""
-        global launches_bounce, launches_sort
+        global launches_bounce
         st = self.statics
         if not o.is_cuda:
             return bounce_ref(self.tables, st, o, d, time, alive, u, self.bg,
@@ -2634,9 +2401,6 @@ class K3Launch:
         a.alive_out = alive_out.data_ptr()
         if st["ext_hit"]:
             a.hit_t, a.hit_idx = ext.t.data_ptr(), ext.idx.data_ptr()
-        if self.sort:
-            (a.perm, a.sort_key, a.sort_rank, a.sort_hist, a.sort_sums) = (
-                t.data_ptr() for t in self._sort_scratch(n))
         err = self._fn(ctypes.addressof(a),
                        torch.cuda.current_stream(self._dev).cuda_stream)
         if err:
@@ -2645,14 +2409,7 @@ class K3Launch:
             raise RuntimeError(f"bounce launch failed: "
                                f"{_cuda.error_string(err)}")
         launches_bounce += 1
-        launches_sort += int(self.sort)
         return (*out, None)
-
-    def perm(self, n):
-        """The lane order of the last sorted call of `n` lanes (a view of
-        the launch's scratch), None without the sort."""
-        s = self._scratch.get(n) if self.sort else None
-        return None if s is None else s[0]
 
     def cap(self, ms, o, d, time, out=None):
         """The dense cap of the mesh path: each ray's nearest t over the
@@ -2688,8 +2445,10 @@ class K3Launch:
 
 def bounce(tables, statics, o, d, time, alive, u, bg, ext=None, out=None,
            tri=None):
-    """One bounce for the whole ray bundle from given uniforms (the JAX
-    package's `bounce`).
+    """One bounce for the whole ray bundle from given uniforms: the JAX
+    package's `bounce` with its arguments and results, kept as that
+    one-call form for the tests and `chip_smoke.py` (a render loop holds a
+    `K3Launch`, which this builds for the one call).
 
     tables = `pack_scene(scene)` as tensors; statics =
     `scene_statics(scene, ext=...)`; o, d: (N, 3) float32; time: (N,)
@@ -2707,8 +2466,7 @@ def bounce(tables, statics, o, d, time, alive, u, bg, ext=None, out=None,
     written in place and returned, so a loop over levels allocates
     nothing; none of its tensors may be an input.
 
-    CUDA tensors launch the kernel (a `K3Launch` prepared for this call;
-    a loop over levels keeps one); CPU tensors run `bounce_ref`. The
+    CUDA tensors launch the kernel; CPU tensors run `bounce_ref`. The
     kernel leaves a dead lane's direction as it was, where the plain
     version writes a don't-care sampled direction."""
     if not o.is_cuda:

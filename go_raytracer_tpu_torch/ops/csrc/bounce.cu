@@ -27,24 +27,9 @@
 // the dense classes' nearest t per lane (the core's scan, t only), which
 // caps the mesh walk.
 //
-// The sorted variants (a table of which some section makes more than one
-// block, `with_cull`; run where the caller asks, `perm` given). A warp of
-// the culled scan executes the union of its lanes' blocks, so a call first
-// orders its lanes by a key of the direction's octant, the origin's cell
-// and the cell of a point ahead on the ray (`sort_keys`, `sort_scan`,
-// `sort_scatter`: a counting sort over the whole call, dead lanes last),
-// and lane i of the launch runs lane perm[i], reading its inputs and
-// writing its outputs at perm[i]: no caller sees the order, and each lane's
-// result is computed as before. Within a sorted warp the blocks of a culled
-// section are first tested 32 at a time against the bundle of the warp's
-// rays (`bundle_hit`), and each lane runs its own block test only on the
-// blocks the bundle meets. On the card this pays only on lanes in no
-// spatial order; lanes in pixel order, whose neighbours share their
-// shading branches, run faster in the launch order (PERF.md §6).
-//
 // What bounds it: in ext mode bytes (per lane 29 B of ray state, 4 n_u B of
-// uniforms, 8 B of mesh hit and a triangle row where it hit, 50 B out); on
-// the culled tables the scan's operations.
+// uniforms, 8 B of mesh hit and what the gather reads of the triangle row
+// where it hit, 50 B out); on the culled tables the scan's operations.
 
 #include "fused_common.cuh"
 
@@ -52,24 +37,6 @@
 // three vertex normals, the face normal, has_vn, has_uv, the three vertex
 // uv, then from TRI_MAT the material columns of ops/bounce._mat_layout
 #define TRI_MAT 32
-
-// the lane sort's key, in a grid over the scan table's bounds: the
-// direction's octant, above the Morton code of the origin's cell at
-// 2^SORT_OB cells an axis, above that of the cell of the point `key_reach`
-// (a fifth of the bounds' diagonal) along the unit direction at 2^SORT_RB.
-// Rays from one region that leave it towards one region meet the same
-// blocks; the second point orders the rays of one origin (a camera's) by
-// their direction. Dead lanes take the DEAD_BINS keys from SORT_KEYS on.
-// The scan runs in chunks of SORT_CHUNK keys (`sort_scan`), their sums
-// scanned again by every block of `sort_scatter` (at most 2 BLOCK of
-// them).
-#define SORT_OB 2
-#define SORT_RB 3
-#define SORT_KEYS (1 << (3 + 3 * (SORT_OB + SORT_RB)))
-#define DEAD_BINS 256
-#define SORT_CHUNK 1024
-#define SORT_CHUNKS ((SORT_KEYS + DEAD_BINS + SORT_CHUNK - 1) / SORT_CHUNK)
-#define FEAT_SORT 64
 
 struct BounceArgs {
   const float* prims;
@@ -89,15 +56,7 @@ struct BounceArgs {
   float *new_o, *new_d; // (n, 3)
   unsigned char* alive_out;  // (n,) bool
   float* t_cap;         // bounce_cap: (n,) the dense classes' nearest t
-  int* perm;            // sorted: (n,) lane i runs lane perm[i]; null: unsorted
-  int* sort_key;        // sorted: (n,) scratch: each lane's key
-  int* sort_rank;       // sorted: (n,) scratch: its rank among its key's lanes
-  int* sort_hist;       // sorted: (SORT_CHUNKS * SORT_CHUNK,) lanes per key
-  int* sort_sums;       // sorted: (SORT_CHUNKS,) lanes per chunk of keys
   FUSED_TABLE_FIELDS
-  float key_lo[3];      // sorted: the key grid's low corner,
-  float key_scale[3];   // 1 / its extent on each axis,
-  float key_reach;      // and the distance of the key's point along the ray
   int n, n_u, ext;
   // ext mode: the triangle row's floats, and the columns of fr, texk, scale
   // and the seed (-1 where the layout lacks the column)
@@ -193,75 +152,45 @@ __device__ __forceinline__ ExtHit tri_ext(const BounceArgs& a, int lane, float o
   return e;
 }
 
-// One bounce of every lane. SORTED: lane i of the launch runs lane perm[i],
-// and every lane of a warp that holds a live lane runs the core (the
-// bundle's ballots need all 32): a dead lane, or one past n (which runs
-// lane perm[n - 1] and writes nothing), on the ray and uniforms of the
-// warp's first live lane, so that the bundle holds only traced rays; the
-// uniforms are read where the core uses them, after the scan, so that they
-// hold no registers across it.
-template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL, bool IMG, bool SORTED>
-__device__ __forceinline__ void level(const BounceArgs& a) {
+template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL, bool IMG>
+__global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
   // the geometry into shared memory, before the ragged edge's return
   const BounceTables T = fused_tables<SPH, DIEL, MED, TEX, IMG>(a);
   stage_geometry(T);
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  int lane = i, src = i;
-  bool live, run;
-  if constexpr (SORTED) {
-    lane = a.perm[min(i, a.n - 1)];
-    live = i < a.n && a.alive[lane] != 0;
-    const unsigned warp_live = __ballot_sync(0xffffffffu, live);
-    run = warp_live != 0u;
-    src = run ? __shfl_sync(0xffffffffu, lane, __ffs(warp_live) - 1) : lane;
-    if (live) src = lane;
-  } else {
-    if (i >= a.n) return;
-    live = run = a.alive[lane] != 0;
-  }
+  const int lane = blockIdx.x * BLOCK + threadIdx.x;
+  if (lane >= a.n) return;
   const float ox = a.o[3 * lane], oy = a.o[3 * lane + 1], oz = a.o[3 * lane + 2];
   const float dx = a.d[3 * lane], dy = a.d[3 * lane + 1], dz = a.d[3 * lane + 2];
   float er = 0.0f, eg = 0.0f, eb = 0.0f, wr = 0.0f, wg = 0.0f, wb = 0.0f;
   float nox = ox, noy = oy, noz = oz, ndx = dx, ndy = dy, ndz = dz;
   unsigned char cf = 0, alive_out = 0;
-  if (run) {
-    const float* urow = a.u + (size_t)src * a.n_u;
-    float u_reg[N_U];
-    if constexpr (!SORTED) {
+  if (a.alive[lane] != 0) {
+    const float* urow = a.u + (size_t)lane * a.n_u;
+    float u[N_U];
 #pragma unroll
-      for (int k = 0; k < N_U; ++k) u_reg[k] = urow[k];
-    }
-    // the traced ray: the lane's own, or in a sorted warp the first live
-    // lane's for a lane that has none
-    const float sx = SORTED ? a.o[3 * src] : ox, sy = SORTED ? a.o[3 * src + 1] : oy;
-    const float sz = SORTED ? a.o[3 * src + 2] : oz, sdx = SORTED ? a.d[3 * src] : dx;
-    const float sdy = SORTED ? a.d[3 * src + 1] : dy, sdz = SORTED ? a.d[3 * src + 2] : dz;
+    for (int k = 0; k < N_U; ++k) u[k] = urow[k];
     ExtHit ext;
-    if (a.ext) ext = tri_ext<TEX, IMG>(a, src, sx, sy, sz, sdx, sdy, sdz);
-    const BounceResult r = bounce_core<SPH, DIEL, MED, TEX, CULL, IMG, SORTED>(
-        T, sx, sy, sz, sdx, sdy, sdz, a.tm[src], SORTED ? urow : u_reg,
-        a.ext ? &ext : nullptr, RowMediaU{urow});
-    if (live) {
-      if (r.emit) {
-        er = r.vr;
-        eg = r.vg;
-        eb = r.vb;
-      } else {
-        wr = r.vr;
-        wg = r.vg;
-        wb = r.vb;
-      }
-      cf = r.cf ? 1 : 0;
-      alive_out = r.alive ? 1 : 0;
-      nox = r.ox;
-      noy = r.oy;
-      noz = r.oz;
-      ndx = r.dx;
-      ndy = r.dy;
-      ndz = r.dz;
+    if (a.ext) ext = tri_ext<TEX, IMG>(a, lane, ox, oy, oz, dx, dy, dz);
+    const BounceResult r = bounce_core<SPH, DIEL, MED, TEX, CULL, IMG>(
+        T, ox, oy, oz, dx, dy, dz, a.tm[lane], u, a.ext ? &ext : nullptr, RowMediaU{urow});
+    if (r.emit) {
+      er = r.vr;
+      eg = r.vg;
+      eb = r.vb;
+    } else {
+      wr = r.vr;
+      wg = r.vg;
+      wb = r.vb;
     }
+    cf = r.cf ? 1 : 0;
+    alive_out = r.alive ? 1 : 0;
+    nox = r.ox;
+    noy = r.oy;
+    noz = r.oz;
+    ndx = r.dx;
+    ndy = r.dy;
+    ndz = r.dz;
   }
-  if (SORTED && i >= a.n) return;
   a.E[3 * lane] = er;
   a.E[3 * lane + 1] = eg;
   a.E[3 * lane + 2] = eb;
@@ -276,17 +205,6 @@ __device__ __forceinline__ void level(const BounceArgs& a) {
   a.new_d[3 * lane + 1] = ndy;
   a.new_d[3 * lane + 2] = ndz;
   a.alive_out[lane] = alive_out;
-}
-
-template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL, bool IMG>
-__global__ void __launch_bounds__(BLOCK) bounce_level(BounceArgs a) {
-  level<SPH, DIEL, MED, TEX, CULL, IMG, false>(a);
-}
-
-// The sorted variant, held to 64 registers (4 blocks an SM, as the others)
-template <bool SPH, bool DIEL, bool MED, bool TEX, bool IMG>
-__global__ void __launch_bounds__(BLOCK, 4) bounce_level_sorted(BounceArgs a) {
-  level<SPH, DIEL, MED, TEX, true, IMG, true>(a);
 }
 
 // The dense cap of the mesh path: each lane's nearest t over the sphere,
@@ -304,144 +222,16 @@ __global__ void __launch_bounds__(BLOCK) bounce_cap(BounceArgs a) {
                       .t;
 }
 
-// ---- the lane sort ----------------------------------------------------------
-// The Morton code of the cell of point p at 2^B cells an axis of the key's
-// grid, the point clamped into it.
-template <int B>
-__device__ __forceinline__ int key_cell(const float (&p)[3], const BounceArgs& a) {
-  const float cells = (float)(1 << B);
-  int c[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    c[k] = (int)fminf(fmaxf((p[k] - a.key_lo[k]) * a.key_scale[k] * cells, 0.0f), cells - 1.0f);
-  int m = 0;
-#pragma unroll
-  for (int b = B - 1; b >= 0; --b)
-    m = (m << 3) | (((c[0] >> b) & 1) << 2) | (((c[1] >> b) & 1) << 1) | ((c[2] >> b) & 1);
-  return m;
-}
-
-// Each lane's key (`ops/bounce.lane_keys_ref`), and its rank among the
-// lanes of its key. The lanes of a warp that share a key take their ranks
-// from one atomic (the camera rays of a call share few keys); a dead lane's
-// key is SORT_KEYS plus its warp's index modulo DEAD_BINS, so that the dead
-// lanes, last in the order, do not all count on one address.
-__global__ void __launch_bounds__(BLOCK) sort_keys(BounceArgs a) {
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  int key = -1;  // past n: no key
-  if (i < a.n) {
-    key = SORT_KEYS + (i >> 5) % DEAD_BINS;
-    if (a.alive[i] != 0) {
-      const float dx = a.d[3 * i], dy = a.d[3 * i + 1], dz = a.d[3 * i + 2];
-      const float o[3] = {a.o[3 * i], a.o[3 * i + 1], a.o[3 * i + 2]};
-      const float s = a.key_reach * rsqrtf(dx * dx + dy * dy + dz * dz + 1e-38f);
-      const float p[3] = {o[0] + s * dx, o[1] + s * dy, o[2] + s * dz};
-      const int oct = ((dx > 0.0f) << 2) | ((dy > 0.0f) << 1) | (dz > 0.0f);
-      key = (((oct << (3 * SORT_OB)) | key_cell<SORT_OB>(o, a)) << (3 * SORT_RB)) |
-            key_cell<SORT_RB>(p, a);
-    }
-  }
-  const unsigned peers = __match_any_sync(0xffffffffu, key);
-  const int leader = __ffs(peers) - 1, l = threadIdx.x & 31;
-  int base = 0;
-  if (l == leader && key >= 0) base = atomicAdd(a.sort_hist + key, __popc(peers));
-  base = __shfl_sync(0xffffffffu, base, leader);
-  if (key < 0) return;
-  a.sort_key[i] = key;
-  a.sort_rank[i] = base + __popc(peers & ((1u << l) - 1u));
-}
-
-// The exclusive sum over a block of BLOCK threads of each thread's v; `total`
-// gets the block's sum. Every thread of the block calls it.
-__device__ __forceinline__ int block_exclusive(int v, int& total) {
-  __shared__ int warp_sum[NWARP];
-  const int l = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (l >= o) x += y;
-  }
-  if (l == 31) warp_sum[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    int s = l < NWARP ? warp_sum[l] : 0;
-#pragma unroll
-    for (int o = 1; o < NWARP; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, o);
-      if (l >= o) s += y;
-    }
-    if (l < NWARP) warp_sum[l] = s;
-  }
-  __syncthreads();
-  const int pre = (w > 0 ? warp_sum[w - 1] : 0) + x - v;
-  total = warp_sum[NWARP - 1];
-  __syncthreads();
-  return pre;
-}
-
-// Each chunk of SORT_CHUNK counts into its exclusive sum (in place), and
-// the chunk's total into sort_sums: one block a chunk, 4 counts a thread.
-__global__ void __launch_bounds__(BLOCK) sort_scan(BounceArgs a) {
-  int4* h = reinterpret_cast<int4*>(a.sort_hist + blockIdx.x * SORT_CHUNK) + threadIdx.x;
-  const int4 c = *h;
-  int total;
-  const int pre = block_exclusive(c.x + c.y + c.z + c.w, total);
-  *h = make_int4(pre, pre + c.x, pre + c.x + c.y, pre + c.x + c.y + c.z);
-  if (threadIdx.x == 0) a.sort_sums[blockIdx.x] = total;
-}
-
-// Lane i to its place: the sums of the chunks before its key's, its key's
-// offset in the chunk and its rank.
-__global__ void __launch_bounds__(BLOCK) sort_scatter(BounceArgs a) {
-  static_assert(SORT_CHUNKS <= 2 * BLOCK, "sort_scatter scans 2 chunk sums a thread");
-  __shared__ int chunk_at[2 * BLOCK];
-  const int c0 = 2 * threadIdx.x;
-  const int s0 = c0 < SORT_CHUNKS ? a.sort_sums[c0] : 0;
-  const int s1 = c0 + 1 < SORT_CHUNKS ? a.sort_sums[c0 + 1] : 0;
-  int total;
-  const int pre = block_exclusive(s0 + s1, total);
-  chunk_at[c0] = pre;
-  chunk_at[c0 + 1] = pre + s0;
-  __syncthreads();
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= a.n) return;
-  const int key = a.sort_key[i];
-  a.perm[chunk_at[key / SORT_CHUNK] + a.sort_hist[key] + a.sort_rank[i]] = i;
-}
-
-template <bool S, bool D, bool M, bool X, bool C, bool I>
-static cudaError_t launch_level(const BounceArgs& a, int nb, int smem, cudaStream_t stream) {
-  if constexpr (C) {
-    if (a.perm != nullptr) {
-      cudaError_t err = allow_smem((const void*)bounce_level_sorted<S, D, M, X, I>, smem);
-      if (err == cudaSuccess) bounce_level_sorted<S, D, M, X, I><<<nb, BLOCK, smem, stream>>>(a);
-      return err;
-    }
-  }
-  cudaError_t err = allow_smem((const void*)bounce_level<S, D, M, X, C, I>, smem);
-  if (err == cudaSuccess) bounce_level<S, D, M, X, C, I><<<nb, BLOCK, smem, stream>>>(a);
-  return err;
-}
-
-// One bounce level: with `perm`, the lane sort first (a culled table only).
+// One bounce level.
 extern "C" int grt_bounce(const BounceArgs* args, void* stream) {
   const BounceArgs a = *args;
-  const cudaStream_t s = (cudaStream_t)stream;
   const int nb = (a.n + BLOCK - 1) / BLOCK;
   const int smem = fused_stage_bytes(a.feat, a.n_sph, a.n_quad, a.n_box);
   const int feat = with_cull(a.feat, a.n_sph, a.n_quad, a.n_box);
-  if (a.perm != nullptr && !(feat & FEAT_CULL)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  if (a.perm != nullptr) {
-    err = cudaMemsetAsync(a.sort_hist, 0, sizeof(int) * SORT_CHUNKS * SORT_CHUNK, s);
-    if (err != cudaSuccess) return (int)err;
-    sort_keys<<<nb, BLOCK, 0, s>>>(a);
-    sort_scan<<<SORT_CHUNKS, BLOCK, 0, s>>>(a);
-    sort_scatter<<<nb, BLOCK, 0, s>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-#define LAUNCH(S, D, M, X, C, I) err = launch_level<S, D, M, X, C, I>(a, nb, smem, s)
+#define LAUNCH(S, D, M, X, C, I)                                                    \
+  if ((err = allow_smem((const void*)bounce_level<S, D, M, X, C, I>, smem)) == cudaSuccess) \
+  bounce_level<S, D, M, X, C, I><<<nb, BLOCK, smem, (cudaStream_t)stream>>>(a)
   FEATURE_SWITCH(feat, LAUNCH)
 #undef LAUNCH
   if (err != cudaSuccess) return (int)err;
@@ -471,28 +261,15 @@ extern "C" int grt_bounce_cap(const BounceArgs* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// The scratch of the lane sort: SORT_CHUNKS * SORT_CHUNK counts and
-// SORT_CHUNKS chunk sums (ints).
-extern "C" int grt_sort_sizes(int* out) {
-  out[0] = SORT_CHUNKS * SORT_CHUNK;
-  out[1] = SORT_CHUNKS;
-  out[2] = SORT_KEYS;
-  return 0;
-}
-
 // Registers, dynamic and static shared bytes, resident blocks per SM and
-// spill bytes of the variant for feature bits `feat` (FEAT_SORT: the sorted
-// variant of a culled table) on a table of these section sizes
-// (kernel_info's `out`).
+// spill bytes of the variant for feature bits `feat` on a table of these
+// section sizes (kernel_info's `out`).
 extern "C" int grt_kernel_info(int feat, int n_sph, int n_quad, int n_box, int* out) {
   const int smem = fused_stage_bytes(feat, n_sph, n_quad, n_box);
-  const bool sorted = (feat & FEAT_SORT) != 0;
   int err = 0;
-#define INFO(S, D, M, X, C, I)                                                          \
-  err = (C && sorted)                                                                   \
-            ? kernel_info((const void*)bounce_level_sorted<S, D, M, X, I>, BLOCK, smem, out) \
-            : kernel_info((const void*)bounce_level<S, D, M, X, C, I>, BLOCK, smem, out)
-  FEATURE_SWITCH(with_cull(feat & ~FEAT_SORT, n_sph, n_quad, n_box), INFO)
+#define INFO(S, D, M, X, C, I) \
+  err = kernel_info((const void*)bounce_level<S, D, M, X, C, I>, BLOCK, smem, out)
+  FEATURE_SWITCH(with_cull(feat, n_sph, n_quad, n_box), INFO)
 #undef INFO
   return err;
 }

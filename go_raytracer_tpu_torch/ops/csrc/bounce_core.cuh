@@ -158,9 +158,6 @@
 #define BND_F4 2
 #define CULL_PAD 4e-3f
 #define SCAN_MIN_D 0x1p-64f
-// warps of the largest block of the kernels that run the core (their BLOCK
-// of fused_common.cuh), for a shared word of each warp
-#define BLOCK_WARPS 8
 
 // float4s of a section of n rows of f4 float4s: its blocks' bounds, then
 // its rows
@@ -311,100 +308,6 @@ __device__ __forceinline__ bool block_hit(const float4 lo, const float4 hi, cons
   return fmaxf(near, T_MIN) <= fminf(far, t_best);
 }
 
-// ---- a warp's shared block test (K3's sorted warps, BUNDLE) ----------------
-// The warp's lanes' cull constants as intervals: per axis the least and
-// largest 1 / d and o / d, and the least and largest CULL_PAD |o|_1; `all`:
-// some lane culls nothing (`on` false) or has a constant that is not
-// finite, and then every block passes.
-struct Bundle {
-  float ix0, ix1, iy0, iy1, iz0, iz1;
-  float ox0, ox1, oy0, oy1, oz0, oz1;
-  float p0, p1;
-  bool all;
-};
-
-// float <-> int of the same order, for the warp's integer reductions
-__device__ __forceinline__ int f2ord(float f) {
-  const int i = __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-__device__ __forceinline__ float ord2f(int i) {
-  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
-}
-
-// The bundle of the warp's lanes. Every lane of the warp calls it.
-__device__ __forceinline__ Bundle warp_bundle(const CullRay& c) {
-  const unsigned full = 0xffffffffu;
-  const auto lo = [&](float v) { return ord2f(__reduce_min_sync(full, f2ord(v))); };
-  const auto hi = [&](float v) { return ord2f(__reduce_max_sync(full, f2ord(v))); };
-  Bundle b{lo(c.ix), hi(c.ix), lo(c.iy), hi(c.iy), lo(c.iz), hi(c.iz),
-           lo(c.oix), hi(c.oix), lo(c.oiy), hi(c.oiy), lo(c.oiz), hi(c.oiz),
-           lo(c.po), hi(c.po), false};
-  const bool fin = isfinite(c.ix) && isfinite(c.iy) && isfinite(c.iz) && isfinite(c.oix) &&
-                   isfinite(c.oiy) && isfinite(c.oiz) && isfinite(c.po);
-  b.all = __any_sync(full, !c.on || !fin);
-  return b;
-}
-
-// One axis of `bundle_hit`: the faces lo - pad and hi + pad of every lane
-// lie in [lo - p1, lo - p0] and [hi + p0, hi + p1] (each lane rounds
-// its own lo.w + po and then the face, and rounding keeps order), and a
-// lane's slab ends fma(face, 1 / d, -o / d) are single roundings of the
-// exact products less o / d: the interval products of the faces and the
-// 1 / d interval, rounded down and up, less the o / d interval, rounded
-// down and up, hold every lane's ends.
-__device__ __forceinline__ void bundle_axis(float lo, float hi, float w, float p0, float p1,
-                                            float i0, float i1, float o0, float o1,
-                                            float& near, float& far) {
-  const float f[4] = {__fsub_rn(lo, __fadd_rn(w, p1)), __fsub_rn(lo, __fadd_rn(w, p0)),
-                      __fadd_rn(hi, __fadd_rn(w, p0)), __fadd_rn(hi, __fadd_rn(w, p1))};
-  float t0 = INFINITY, t1 = -INFINITY;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    t0 = fminf(t0, fminf(__fmul_rd(f[k], i0), __fmul_rd(f[k], i1)));
-    t1 = fmaxf(t1, fmaxf(__fmul_ru(f[k], i0), __fmul_ru(f[k], i1)));
-  }
-  near = fmaxf(near, __fsub_rd(t0, o1));
-  far = fminf(far, __fsub_ru(t1, o0));
-}
-
-// The bundle's test of a block: false only when no lane's `block_hit`
-// can pass it for any t_best (`bundle_hit_ref` in ops/bounce.py is its
-// plain model). Each lane's (near, far) lies inside the bundle's, so a
-// lane that passes, max(near, T_MIN) <= far, makes the bundle pass. A
-// bundle whose 1 / d interval straddles zero on an axis has slab ends of
-// both signs without bound there and passes on that axis.
-__device__ __forceinline__ bool bundle_hit(const float4 lo, const float4 hi, const Bundle& b) {
-  float near = -INFINITY, far = INFINITY;
-  bundle_axis(lo.x, hi.x, lo.w, b.p0, b.p1, b.ix0, b.ix1, b.ox0, b.ox1, near, far);
-  bundle_axis(lo.y, hi.y, lo.w, b.p0, b.p1, b.iy0, b.iy1, b.oy0, b.oy1, near, far);
-  bundle_axis(lo.z, hi.z, lo.w, b.p0, b.p1, b.iz0, b.iz1, b.oz0, b.oz1, near, far);
-  return b.all || fmaxf(near, T_MIN) <= far;
-}
-
-// The bundle's test of the blocks w0 .. w0 + 31 of a section (bounds from
-// float4 `at`, `nb` blocks), bit b for block w0 + b: on the card lane b
-// tests block w0 + b and the warp's ballot gathers the bits; a host build
-// (scripts/check_cull_host.py, a warp of one lane) tests the 32 in turn.
-__device__ __forceinline__ unsigned bundle_word(const float4* __restrict__ S, int at, int nb,
-                                                int staged, int w0, const Bundle& bb) {
-  const auto meet = [&](int k) {
-    if (k >= nb) return false;
-    const int bk = at + BND_F4 * k;
-    const bool in_smem = bk + BND_F4 <= staged;
-    const float4 lo = in_smem ? grt_geo[bk] : __ldg(S + bk);
-    const float4 hi = in_smem ? grt_geo[bk + 1] : __ldg(S + bk + 1);
-    return bundle_hit(lo, hi, bb);
-  };
-#ifdef __CUDA_ARCH__
-  return __ballot_sync(0xffffffffu, meet(w0 + (int)(threadIdx.x & 31)));
-#else
-  unsigned word = 0u;
-  for (int b = 0; b < 32; ++b) word |= (meet(w0 + b) ? 1u : 0u) << b;
-  return word;
-#endif
-}
-
 // Scan one section of the scan table: `n` rows of F4 float4s from float4
 // `at`, block by block; with CULL and `cull` (the section has more than one
 // block) a block whose bounds the lane cannot meet is skipped. A block
@@ -412,16 +315,7 @@ __device__ __forceinline__ unsigned bundle_word(const float4* __restrict__ S, in
 // table. Without CULL every section holds at most one block, so the whole
 // table is staged and the rows are read in one plain loop. `row(j, v)`
 // tests the section's j-th row, `v` its float4s.
-//
-// BUNDLE (K3's sorted warps; every lane of the warp calls the scan, a lane
-// with no ray of its own on a ray of another lane): the blocks of a
-// culled section are first tested 32 at a time against the warp's bundle
-// (`bundle_hit`, lane l the l-th block of each 32), and the warp visits, in
-// order, only the blocks the ballot keeps, where each lane runs its own
-// `block_hit` as without BUNDLE. The bundle keeps every block that some
-// lane's own test keeps, so each lane scans the same blocks in the same
-// order, and its winner is the one without BUNDLE.
-template <int F4, bool CULL, int UNROLL, bool BUNDLE = false, class Row>
+template <int F4, bool CULL, int UNROLL, class Row>
 __device__ __forceinline__ void scan_section(const float4* __restrict__ S, int at, int n,
                                              int staged, bool cull, const CullRay& c,
                                              const float& t_best, Row row) {
@@ -436,7 +330,7 @@ __device__ __forceinline__ void scan_section(const float4* __restrict__ S, int a
     }
     return;
   }
-  const auto block = [&](int k) {
+  for (int k = 0; k < nb; ++k) {
     const int r0 = rows_at + F4 * SCAN_BLOCK * k;
     const int e = min(SCAN_BLOCK, n - SCAN_BLOCK * k);
     const bool in_smem = r0 + F4 * e <= staged;  // the same on every lane
@@ -444,7 +338,7 @@ __device__ __forceinline__ void scan_section(const float4* __restrict__ S, int a
       const int bk = at + BND_F4 * k;
       const float4 lo = in_smem ? grt_geo[bk] : __ldg(S + bk);
       const float4 hi = in_smem ? grt_geo[bk + 1] : __ldg(S + bk + 1);
-      if (!block_hit(lo, hi, c, t_best)) return;
+      if (!block_hit(lo, hi, c, t_best)) continue;
     }
     if (in_smem) {
 #pragma unroll UNROLL
@@ -465,35 +359,7 @@ __device__ __forceinline__ void scan_section(const float4* __restrict__ S, int a
         row(SCAN_BLOCK * k + s, v);
       }
     }
-  };
-  if constexpr (BUNDLE) {
-    if (cull) {
-      // The warp's ballot of each 32 blocks lives in shared memory and the
-      // loop carries only the next block's index, so that the rows' tests
-      // keep the registers they have without BUNDLE. (The bundle is
-      // gathered again for each 32 blocks for the same reason.) Every lane
-      // writes the same word after the ballot, which no lane passes before
-      // all have read the previous one.
-      __shared__ unsigned grt_word[BLOCK_WARPS];
-      unsigned& word = grt_word[threadIdx.x >> 5];
-      for (int k = 0; k < nb;) {
-        if ((k & 31) == 0) {
-          word = bundle_word(S, at, nb, staged, k, warp_bundle(c));
-          __syncwarp();
-        }
-        const unsigned rest = word >> (k & 31);  // the same on every lane
-        if (rest == 0u) {
-          k = (k | 31) + 1;
-          continue;
-        }
-        k += __ffs(rest) - 1;
-        block(k);
-        ++k;
-      }
-      return;
-    }
   }
-  for (int k = 0; k < nb; ++k) block(k);
 }
 
 // A compile-time bool as a value, to instantiate a generic lambda twice.
@@ -690,9 +556,8 @@ struct Closest {
 };
 
 // The scan of `bounce_core` for one ray at time `tm`, and the dense cap of
-// the mesh path (bounce.cu `bounce_cap`). BUNDLE: every lane of the warp
-// calls it (`scan_section`).
-template <bool SPH, bool CULL, bool IMG, bool BUNDLE = false>
+// the mesh path (bounce.cu `bounce_cap`).
+template <bool SPH, bool CULL, bool IMG>
 __device__ __forceinline__ Closest closest_scan(const BounceTables& T, float ox, float oy,
                                                 float oz, float dx, float dy, float dz,
                                                 float tm) {
@@ -728,7 +593,7 @@ __device__ __forceinline__ Closest closest_scan(const BounceTables& T, float ox,
       const float a_quad = len_sq(dx, dy, dz);
       const float inv_a = 1.0f / a_quad;
       // v[0]: {c0, r^2}, v[1]: {cd, row}
-      scan_section<SPH_F4, CULL, SCAN_BLOCK, BUNDLE>(
+      scan_section<SPH_F4, CULL, SCAN_BLOCK>(
           T.scan, 0, T.n_sph, stg.staged, T.n_sph > SCAN_BLOCK, cr, t_best,
           [&](int, const float4* v) {
             const float4 a = v[0], b = v[1];
@@ -757,7 +622,7 @@ __device__ __forceinline__ Closest closest_scan(const BounceTables& T, float ox,
   // ---- quads (objects.go:167-206) ------------------------------------------
   // v[0]: {normal, D} (zero normal: inactive), v[1]: {alpha row, alpha0},
   // v[2]: {beta row, beta0}; the declaration row is the section's
-  scan_section<QUAD_F4, CULL, 1, BUNDLE>(
+  scan_section<QUAD_F4, CULL, 1>(
       T.scan, stg.quad_at, T.n_quad, stg.staged, T.n_quad > SCAN_BLOCK, cr, t_best,
       [&](int j, const float4* v) {
         const float4 n = v[0], al = v[1], be = v[2];
@@ -793,7 +658,7 @@ __device__ __forceinline__ Closest closest_scan(const BounceTables& T, float ox,
       biy = safe_inv(dy);
       biz = safe_inv(dz);
     }
-    scan_section<BOX_F4, CULL, 1, BUNDLE>(
+    scan_section<BOX_F4, CULL, 1>(
         T.scan, stg.box_at, T.n_box, stg.staged, T.n_box > SCAN_BLOCK, cr, t_best,
         [&](int, const float4* v) {
           const float4 lo = v[0], hi = v[1], off = v[2];
@@ -853,10 +718,8 @@ __device__ __forceinline__ Closest closest_scan(const BounceTables& T, float ox,
 // CULL: the blocks of a section of more than one are culled (`block_hit`),
 // for a table of which some section makes more than one block.
 // IMG (with TEX): a diffuse lane on an image row shades with its texel.
-// BUNDLE: the scan's warp-shared block test (`closest_scan`); every lane of
-// the warp calls the core.
 template <bool SPH, bool DIEL, bool MED, bool TEX, bool CULL = false, bool IMG = false,
-          bool BUNDLE = false, class UMed>
+          class UMed>
 __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float ox, float oy,
                                                     float oz, float dx, float dy, float dz,
                                                     float tm, const float* u,
@@ -864,7 +727,7 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
   const float* __restrict__ P = T.prims;
   const int pc = T.p_cols;
   static_assert(TEX || !IMG, "the image variant is a texture variant");
-  const Closest h = closest_scan<SPH, CULL, IMG, BUNDLE>(T, ox, oy, oz, dx, dy, dz, tm);
+  const Closest h = closest_scan<SPH, CULL, IMG>(T, ox, oy, oz, dx, dy, dz, tm);
   float t_best = h.t, nx = h.nx, ny = h.ny, nz = h.nz;
   float m_kind = 0.0f, tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f, m_fr = 0.0f;
   bool win_sphere = h.sphere, win_med = false, win_ext = false;
@@ -1091,10 +954,7 @@ __device__ __forceinline__ BounceResult bounce_core(const BounceTables& T, float
   }
 
   // ---- mixture pdf: mean of the live lights' pdfs (hittable.go:89-97) -------
-  // Which product of |g|^2 nvcc leaves unfused depends on the code around
-  // it: K3's other variants fuse dz and dy (len_sq's rounding); the sorted
-  // variant writes that out, so that each of its lanes is theirs bit for bit.
-  const float g_len_sq = BUNDLE ? len_sq(gdx, gdy, gdz) : gdx * gdx + gdy * gdy + gdz * gdz;
+  const float g_len_sq = gdx * gdx + gdy * gdy + gdz * gdz;
   const float g_len = sqrtf(g_len_sq);
   float l_pdf = 0.0f;
   for (int l = 0; l < n_live; ++l) {

@@ -10,7 +10,6 @@
 
 #define BLOCK 256
 #define NWARP (BLOCK / 32)
-static_assert(NWARP <= BLOCK_WARPS, "the core's shared words of a warp");
 #define N_U_RAYGEN 5
 
 // U[0,1) from (lane, seed, slot): bit for bit the TPU kernels' _u01 and

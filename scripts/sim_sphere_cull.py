@@ -5,7 +5,7 @@ middle of the image, before and after the scan's redesign.
 
     python3 scripts/sim_sphere_cull.py [--scene book2 book1] [--lanes 65536]
                                        [--calls 6] [--cursor N]
-                                       [--cursor-step 0] [--pool aged camera]
+                                       [--cursor-step 0]
 
 It ages a pool as scripts/time_fused_kernels.py does (`calls` calls of the
 plain `bounce_fused_q` at one level from an empty pool, the item queue
@@ -27,23 +27,8 @@ three ways:
 For each it prints, per section, the share of the section's blocks the
 union of a warp's 32 lanes needs (what a warp executes), the rows and
 block tests a lane makes, and the scan's float operations per lane
-(`scan_ops`, SCAN_OPS) beside the brute-force scan's.
-
-Then, on the kernels' scan, the lane orders of K3 (csrc/bounce.cu): the
-lanes as the pool leaves them, in a random order, sorted by the kernel's
-key (`ops/bounce.lane_keys_ref`), by the octant and the origin's cell
-alone or the cell of the point ahead alone, and by the kernel's key
-within blocks of 256 and 1,024 lanes; for each, per
-culled section, the share of its blocks a warp executes and the share the
-warp's bundle passes (`bundle_hit_ref`), and the scan's float operations a
-warp-lane executes without the bundle (every lane tests every block's
-bounds, the warp runs the rows of the union of its lanes' blocks) and with
-it (each 32 blocks against the bundle, the bundle's blocks against each
-lane's bounds, the same rows). The kernels' tests never reject a block the
-bundle must keep, and the script checks that on every warp. `--pool
-camera` takes chip_smoke.py phase 25's pool in place of the aged one:
-camera rays through random pixels, a tenth of the lanes dead. The plain
-version at 65,536 lanes takes a minute or less a scene on a few CPU cores.
+(`scan_ops`, SCAN_OPS) beside the brute-force scan's. The plain version
+at 65,536 lanes takes about a minute a scene on a few CPU cores.
 """
 
 import argparse
@@ -98,93 +83,6 @@ def bounce_rays(scene, cam, lanes, calls, cursor, step):
     return tab[0], st, rays["last"], rays["alive"]
 
 
-def camera_pool(scene, cam, lanes, seed=25):
-    """chip_smoke.py phase 25's pool: camera rays through random pixels, a
-    tenth of the lanes dead: (prims, statics, ray, alive)."""
-    from go_raytracer_tpu_torch.render import camera as camera_mod
-
-    g = torch.Generator().manual_seed(seed)
-    pid = torch.randint(0, cam.width * cam.image_height, (lanes,),
-                        generator=g)
-    s0 = torch.zeros(lanes)
-    o, d, t = camera_mod.generate_rays(
-        cam.derived(), cam.width, pid, s0, s0,
-        torch.rand((lanes, camera_mod.N_U_RAYGEN), generator=g))
-    alive = torch.rand(lanes, generator=g) > 0.1
-    prims = torch.from_numpy(bounce.pack_scene(scene)[0])
-    ray = tuple(x.contiguous() for x in (o[:, 0], o[:, 1], o[:, 2], d[:, 0],
-                                         d[:, 1], d[:, 2])) + (t,)
-    return prims, bounce.scene_statics(scene), ray, alive
-
-
-def lane_orders(lay, ray, alive, seed=0):
-    """The lane orders K3 could run a call in: {name: permutation}."""
-    n = alive.shape[0]
-    o = torch.stack(ray[:3], 1)
-    d = torch.stack(ray[3:6], 1)
-    keys = bounce.lane_keys_ref(bounce.sort_grid(lay), o, d, alive)
-    lo, scale, reach = (torch.as_tensor(x) for x in bounce.sort_grid(lay))
-    octant = ((d[:, 0] > 0).int() << 2) | ((d[:, 1] > 0).int() << 1) \
-        | (d[:, 2] > 0).int()
-    # the other keys of the same grid: the origin's cell alone (5 bits an
-    # axis), the cell of the point ahead alone
-    at_o = torch.where(alive, (octant << 15) | bounce._key_cells(
-        o, lo, scale, 5), 1 << 30)
-    ahead = o + reach / torch.linalg.norm(d, dim=1, keepdim=True) * d
-    at_p = torch.where(alive, (octant << 15) | bounce._key_cells(
-        ahead, lo, scale, 5), 1 << 30)
-    local = lambda b: torch.cat([
-        i0 + torch.sort(keys[i0:i0 + b], stable=True).indices
-        for i0 in range(0, n, b)])
-    return {"as the pool lies": torch.arange(n),
-            "random": torch.randperm(n, generator=torch.Generator()
-                                     .manual_seed(seed)),
-            "sorted within 256 lanes": local(256),
-            "sorted within 1,024 lanes": local(1024),
-            "sorted by octant and origin cell": bounce.lane_order_ref(at_o),
-            "sorted by octant and the point ahead":
-                bounce.lane_order_ref(at_p),
-            "sorted by the kernel's key": bounce.lane_order_ref(keys)}
-
-
-def warp_work(lay, stats, ray, alive, perm):
-    """Per culled section the share of its blocks a warp executes and the
-    share its bundle passes, and the scan's float operations a warp-lane
-    executes without and with the bundle, for the lanes in order `perm`."""
-    al = alive[perm]
-    rays_p = tuple(x[perm] for x in ray[:6])
-    live = al.reshape(-1, 32).any(1)
-    row_ops = (bounce.SCAN_OPS["sphere"], bounce.SCAN_OPS["quad"],
-               bounce.SCAN_OPS["box_rot" if lay.rot else "box"])
-    ops = torch.zeros(2, dtype=torch.float64)
-    shares = {}
-    for sec in range(3):
-        n = lay.counts[sec]
-        if n == 0:
-            continue
-        nb = len(lay.pad[sec])
-        need = stats["scanned"][sec][:, perm] & al[None]
-        union = need.reshape(nb, -1, 32).any(2)[:, live]
-        rows = torch.tensor([min(bounce.SCAN_BLOCK, n - bounce.SCAN_BLOCK * k)
-                             for k in range(nb)], dtype=torch.float64)
-        row_work = (union.double() * rows[:, None]).sum(0) * row_ops[sec]
-        if nb == 1:
-            ops += row_work.mean()
-            continue
-        bund = bounce.bundle_hit_ref(lay.lo[sec], lay.hi[sec], lay.pad[sec],
-                                     rays_p, al)[:, live]
-        if not (bund | ~union).all():
-            raise AssertionError(f"section {sec}: the bundle rejects a block "
-                                 f"a lane scans")
-        ops[0] += (nb * bounce.SCAN_OPS["block"] + row_work).mean()
-        ops[1] += (-(-nb // 32) * bounce.SCAN_OPS["bundle"]
-                   + bund.double().sum(0) * bounce.SCAN_OPS["block"]
-                   + row_work).mean()
-        shares[SECTIONS[sec]] = (union.float().mean().item(),
-                                 bund.float().mean().item())
-    return shares, ops.tolist()
-
-
 def warp_share(scanned, alive):
     """The share of a section's blocks the union of each warp's alive lanes
     scans, over the warps with an alive lane."""
@@ -214,63 +112,6 @@ def report(tag, lay, stats, alive, counts, extra_rows=(0, 0, 0)):
     return f"  {tag}: " + "; ".join(parts)
 
 
-def simulate(sc, pool, args):
-    """The report of one scene on one pool."""
-    scene, cam = getattr(registry, sc)()
-    npix = cam.width * cam.image_height
-    cursor = args.cursor if args.cursor is not None \
-        else max(npix // 2 - args.lanes // 2, 0)
-    if pool == "aged":
-        prims, st, ray, alive = bounce_rays(scene, cam, args.lanes,
-                                            args.calls, cursor,
-                                            args.cursor_step)
-        what = (f"{args.calls} calls from item {cursor} (step "
-                f"{args.cursor_step})")
-    else:
-        prims, st, ray, alive = camera_pool(scene, cam, args.lanes)
-        what = "camera rays through random pixels (phase 25's pool)"
-    ways = {"after": bounce.scan_layout(prims, st),
-            "after, boxes in Morton order": bounce.scan_layout(
-                prims, st, box_order="morton"),
-            "before": bounce.scan_layout(prims, st, sphere_order="decl")}
-    counts = ways["after"].counts
-    if counts[2] == 0:
-        del ways["after, boxes in Morton order"]
-    print(f"{sc}: {args.lanes} lanes, {what}, {alive.float().mean():.3f} of "
-          f"the lanes in the bounce; {counts[0]} spheres, {counts[1]} quads, "
-          f"{counts[2]} boxes", flush=True)
-    for tag, lay in ways.items():
-        stats = {}
-        bounce.closest_culled_ref(st, prims, *ray, layout=lay, stats=stats)
-        if tag == "before":
-            # the earlier scan culled the spheres alone
-            for sec in (1, 2):
-                stats["blocks"][sec].zero_()
-                stats["rows"][sec].zero_()
-            print(report(tag, lay, stats, alive, counts,
-                         (0, counts[1], counts[2])), flush=True)
-            # (its box test turned the ray per row, rotated or not)
-            ops = bounce.scan_ops(lay, stats)[alive].mean().item() \
-                + counts[1] * bounce.SCAN_OPS["quad"] \
-                + counts[2] * bounce.SCAN_OPS["box_rot"]
-        else:
-            print(report(tag, lay, stats, alive, counts), flush=True)
-            ops = bounce.scan_ops(lay, stats)[alive].mean().item()
-        print(f"    scan operations a lane {ops:.0f} (brute force "
-              f"{bounce.brute_ops(lay)})", flush=True)
-        if tag != "after":
-            continue
-        print("  K3's lane orders on the kernels' scan (per culled section "
-              "the share of its blocks a warp executes / its bundle passes; "
-              "scan operations a warp-lane executes without / with the "
-              "bundle):", flush=True)
-        for name, perm in lane_orders(lay, ray, alive).items():
-            shares, (plain, bund) = warp_work(lay, stats, ray, alive, perm)
-            print(f"    {name}: " + "; ".join(
-                f"{k} {u:.3f} / {b:.3f}" for k, (u, b) in shares.items())
-                + f"; {plain:.0f} / {bund:.0f}", flush=True)
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", nargs="*", default=["book2", "book1"])
@@ -280,13 +121,47 @@ def main():
                     help="first item (default: the pool's items in the "
                          "middle rows of the image)")
     ap.add_argument("--cursor-step", type=int, default=0)
-    ap.add_argument("--pool", nargs="*", default=["aged"],
-                    choices=["aged", "camera"])
     args = ap.parse_args()
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     for sc in args.scene:
-        for pool in args.pool:
-            simulate(sc, pool, args)
+        scene, cam = getattr(registry, sc)()
+        npix = cam.width * cam.image_height
+        cursor = args.cursor if args.cursor is not None \
+            else max(npix // 2 - args.lanes // 2, 0)
+        prims, st, ray, alive = bounce_rays(scene, cam, args.lanes,
+                                            args.calls, cursor,
+                                            args.cursor_step)
+        ways = {"after": bounce.scan_layout(prims, st),
+                "after, boxes in Morton order": bounce.scan_layout(
+                    prims, st, box_order="morton"),
+                "before": bounce.scan_layout(prims, st, sphere_order="decl")}
+        counts = ways["after"].counts
+        if counts[2] == 0:
+            del ways["after, boxes in Morton order"]
+        print(f"{sc}: {args.lanes} lanes, {args.calls} calls from item "
+              f"{cursor} (step {args.cursor_step}), {alive.float().mean():.3f}"
+              f" of the lanes in the last call's bounce; {counts[0]} spheres,"
+              f" {counts[1]} quads, {counts[2]} boxes", flush=True)
+        for tag, lay in ways.items():
+            stats = {}
+            bounce.closest_culled_ref(st, prims, *ray, layout=lay,
+                                      stats=stats)
+            if tag == "before":
+                # the earlier scan culled the spheres alone
+                for sec in (1, 2):
+                    stats["blocks"][sec].zero_()
+                    stats["rows"][sec].zero_()
+                print(report(tag, lay, stats, alive, counts,
+                             (0, counts[1], counts[2])), flush=True)
+                # (its box test turned the ray per row, rotated or not)
+                ops = bounce.scan_ops(lay, stats)[alive].mean().item() \
+                    + counts[1] * bounce.SCAN_OPS["quad"] \
+                    + counts[2] * bounce.SCAN_OPS["box_rot"]
+            else:
+                print(report(tag, lay, stats, alive, counts), flush=True)
+                ops = bounce.scan_ops(lay, stats)[alive].mean().item()
+            print(f"    scan operations a lane {ops:.0f} (brute force "
+                  f"{bounce.brute_ops(lay)})", flush=True)
     return 0
 
 

@@ -16,8 +16,7 @@ scene with image textures, which it refuses), at its registry width,
 height, cadence and defocus, and kernel it prints (K3 on the rays of K1's
 aged pool, from fixed uniforms, and K3cam on chip_smoke.py phase 25's
 pool: camera rays through random pixels, a tenth of the lanes dead; where
-the checkout has it, K3 through a launch prepared once, `K3Launch`, and on
-a culled table K3s and K3cams, its sorted variant, on the same pools):
+the checkout has it, K3 through a launch prepared once, `K3Launch`):
 
 * ms per call between two CUDA events around 20 calls, the least of three
   batches (what chip_smoke.py reports);
@@ -58,13 +57,7 @@ DEVICE_NAMES = {"K1": ("fused_q_level", "count_dead"),
                 "K9": ("fused_q_level", "count_dead"),
                 "K6": ("bounce_fused_levels",),
                 "K8": ("bounce_fused_pos_levels",),
-                "K3": ("bounce_level",), "K3cam": ("bounce_level",),
-                "K3s": ("bounce_level", "bounce_level_sorted", "sort_keys",
-                        "sort_scan", "sort_scatter", "Memset"),
-                "K3cams": ("bounce_level", "bounce_level_sorted", "sort_keys",
-                           "sort_scan", "sort_scatter", "Memset")}
-# K3's lane sort (a fill and three kernels), in the K3 rows' device time
-SORT_NAMES = ("sort_keys", "sort_scan", "sort_scatter", "Memset")
+                "K3": ("bounce_level",), "K3cam": ("bounce_level",)}
 # the synthetic scan scene's mixes (spheres, quads, boxes), and the camera
 # the timings look at its 24 x 24 floor with
 SYNTH = {"scan_spheres": (3500, 300, 296), "scan_quads": (200, 1800, 2096)}
@@ -173,8 +166,7 @@ def main():
                              "simple_light", "book1", "quads_scene",
                              "book2"])
     ap.add_argument("--kernels", nargs="*",
-                    default=["K1", "K9", "K6", "K8", "K3", "K3cam", "K3s",
-                             "K3cams"])
+                    default=["K1", "K9", "K6", "K8", "K3", "K3cam"])
     ap.add_argument("--out", default=os.path.join("build",
                                                   "time_fused_kernels.json"))
     ap.add_argument("--save", help="file for the kernels' outputs")
@@ -204,7 +196,7 @@ def main():
     other = torch.load(args.compare) if args.compare else {}
     libs = {"K1": "bounce_fused_q", "K9": "bounce_fused_q",
             "K6": "bounce_fused", "K8": "bounce_fused_pos", "K3": "bounce",
-            "K3cam": "bounce", "K3s": "bounce", "K3cams": "bounce"}
+            "K3cam": "bounce"}
     for sc in args.scene:
         if sc in SYNTH:
             scene, cam, packed, st = synth_scene(sc)
@@ -268,16 +260,11 @@ def main():
                   torch.rand((n, bounce.N_U + st["n_media"]), generator=g25,
                              device=dev)]
         k3c_out = bounce.bounce_out(n, dev)
-        k3_feat = bounce.fused_features(st)
         if hasattr(bounce, "K3Launch"):     # prepared once for the scene
             k3 = bounce.K3Launch(tab, st, bg)
             k3_call = lambda s, o_: k3(*s, out=o_)
-            k3s = bounce.K3Launch(tab, st, bg, sort=True)
-            k3s_call = lambda s, o_: k3s(*s, out=o_)
         else:
-            k3_call = k3s_call = lambda s, o_: bounce.bounce(tab, st, *s, bg,
-                                                             out=o_)
-            k3s = None
+            k3_call = lambda s, o_: bounce.bounce(tab, st, *s, bg, out=o_)
         # each kernel as a function of its input planes, and its outputs
         runs = {
             "K1": (state, lambda s: bounce.bounce_fused_q(
@@ -292,9 +279,7 @@ def main():
                 max_depth=cam.max_depth, n_inner=cad, width=width,
                 sqrt_spp=sq)),
             "K3": (k3_in, lambda s: k3_call(s, k3_out)),
-            "K3cam": (k3c_in, lambda s: k3_call(s, k3c_out)),
-            "K3s": (k3_in, lambda s: k3s_call(s, k3_out)),
-            "K3cams": (k3c_in, lambda s: k3s_call(s, k3c_out))}
+            "K3cam": (k3c_in, lambda s: k3_call(s, k3c_out))}
         outputs = {
             "K1": lambda: list(out.rec) + [out.seg, out.take, out.base,
                                            out.cursor] + list(out.state),
@@ -302,14 +287,13 @@ def main():
             + list(out.state),
             "K6": lambda: list(fout.rec) + [fout.seg] + list(fout.state),
             "K8": lambda: list(pout.rec) + [pout.seg] + list(pout.state),
-            "K3": lambda: list(k3_out), "K3cam": lambda: list(k3c_out),
-            "K3s": lambda: list(k3_out), "K3cams": lambda: list(k3c_out)}
+            "K3": lambda: list(k3_out), "K3cam": lambda: list(k3c_out)}
 
         def run_on(k, inputs):
             """The outputs of one call of kernel k on these inputs (K3's
             buffers zeroed first: it writes no dead lane's ray)."""
             if libs[k] == "bounce":
-                for t in (k3c_out if k.startswith("K3cam") else k3_out):
+                for t in (k3c_out if k == "K3cam" else k3_out):
                     t.zero_()
             runs[k][1]([x.to(dev) for x in inputs])
             torch.cuda.synchronize()
@@ -317,34 +301,19 @@ def main():
 
         if scene.has_image:
             del runs["K9"]
-        # the sorted variant where a section culls (a checkout without it
-        # runs its K3 there, whose outputs the sorted variant's must equal)
-        culled = (counts[0] > 8 and bounce.fused_features(st) & 1) \
-            or counts[1] > 8 or counts[2] > 8
-        if not culled:
-            del runs["K3s"], runs["K3cams"]
         runs = {k: v for k, v in runs.items() if k in args.kernels}
         res = {}
         for k, (inputs, fn) in runs.items():
             call = lambda: fn(inputs)
             res[k] = dict(ms=time_ms(call, 20), host_us=host_us(call),
                           device_us=device_us(call, DEVICE_NAMES[k]))
-            if libs[k] == "bounce":     # the lane sort's share of it
-                res[k]["sort_us"] = device_us(call, SORT_NAMES)
             if hasattr(_cuda, "kernel_info"):
-                # (a checkout without the sorted variant runs its K3 there)
-                sort_bit = getattr(bounce, "FEAT_SORT", 0) \
-                    if k in ("K3s", "K3cams") else 0
                 res[k]["info"] = _cuda.kernel_info(
-                    libs[k], k3_feat | sort_bit if libs[k] == "bounce"
-                    else bounce.fused_features(st), *counts)
+                    libs[k], bounce.fused_features(st), *counts)
             lv = 1 if libs[k] == "bounce" else cad
             print(f"{sc} {k} ({lv} levels, {n} lanes): {res[k]['ms']:.4f} ms "
                   f"per call, host {res[k]['host_us']:.1f} us, device "
-                  f"{res[k]['device_us']} us"
-                  + (f" (the lane sort {res[k]['sort_us']} us)"
-                     if res[k].get("sort_us") else "")
-                  + f"; {res[k].get('info', '')}; "
+                  f"{res[k]['device_us']} us; {res[k].get('info', '')}; "
                   f"{card}")
             key = f"{sc}/{k}"
             saved[key] = dict(inputs=[x.cpu().clone() for x in inputs],

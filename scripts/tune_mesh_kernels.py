@@ -46,8 +46,11 @@ turns, on the sorted and unsorted rays.
 its gather) and at 16 levels of a real window (`_mesh_window`: refill,
 camera rays, uniforms, the bounce, the records, one host read a level):
 host us per call (calls enqueued back to back), device launches per call
-(kernels, copies and fills under torch.profiler) and the window's wall
-time a level.
+(kernels, copies and fills under torch.profiler), the calls that wait on
+the device (torch.cuda's sync debug mode, with the source lines that make
+them) and the window's wall time a level. The renders of a call that
+also takes --level run after the profiler; time them in a call of their
+own.
 --renders also renders modelExample at 25 spp (600x337, depth 50) on the
 binned, binned2 and walk routes, `--b1-fused` and `--mesh walk
 --no-traverse8`, and prints each render loop's wall time, its segments and
@@ -114,10 +117,32 @@ def device_launches(fn, calls):
                if e.device_type == DeviceType.CUDA) / calls
 
 
+def host_syncs(fn):
+    """Calls that wait on the device (torch.cuda's sync debug mode) in one
+    call of `fn`: their number and the five source lines that make the
+    most of them, as "file:line count"."""
+    import collections
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return sum(sites.values()), [f"{k} {v}" for k, v in sites.most_common(5)]
+
+
 def level_cost(ctx, rays, geo, paths, cam8, n8, dev):
     """The walk route's bounce level on the level's rays: host us per call,
-    device launches per call; and over 16 levels of a real window, wall ms
-    and device launches a level."""
+    device launches per call and calls that wait on the device; and over
+    16 levels of a real window, wall ms, device launches and calls that
+    wait a level."""
     import torch
     from go_raytracer_tpu_torch.integrator import regen
     o8, d8, t8, alive8 = rays
@@ -125,6 +150,7 @@ def level_cost(ctx, rays, geo, paths, cam8, n8, dev):
     out_b = regen.bounce_mod.bounce_out(n8, dev)
     call = lambda: ctx.bounce_level(o8, d8, t8, alive8, u, out_b)
     res = {"bounce_launches": device_launches(call, 5)}
+    res["bounce_syncs"], res["bounce_sync_sites"] = host_syncs(call)
     best = float("inf")
     for _ in range(3):
         torch.cuda.synchronize()
@@ -155,6 +181,8 @@ def level_cost(ctx, rays, geo, paths, cam8, n8, dev):
         walls.append((time.perf_counter() - t0) / window * 1e3)
     res["window_ms_per_level"] = min(walls)
     res["window_launches_per_level"] = device_launches(run_window, 1) / window
+    n_sync, res["window_sync_sites"] = host_syncs(run_window)
+    res["window_syncs_per_level"] = n_sync / window
     return res
 
 

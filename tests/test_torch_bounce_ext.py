@@ -36,6 +36,17 @@ def scene8():
     return js, ts, st, ms, tables, tri_mat
 
 
+def mesh_planes(ms, st, tri_mat, o, d, t_cap, alive, **route):
+    """The ext planes the JAX package's `mesh_ext_planes` gives: the
+    port's mesh closest hit pruned by `t_cap` (`ops/trace.mesh_closest` on
+    `route`), then the plain gather on its winner
+    (`ops/bounce.ext_planes_from_hit`)."""
+    hit = tpb.MeshHit(*ttrace.mesh_closest(ms, o, d, t_cap=t_cap,
+                                           alive=alive, **route))
+    return tpb.ext_planes_from_hit(st, tpb.TriTable(ms.triangles, tri_mat),
+                                   o, d, hit, t_cap=t_cap)
+
+
 def bundle(seed, lo=-6.0, hi=8.0, dead_frac=0.1):
     rs = np.random.default_rng(seed)
     o = rs.uniform(lo, hi, (N, 3)).astype(np.float32)
@@ -90,8 +101,8 @@ def test_mesh_ext_planes_match_jax(scene8):
     tt = torch.from_numpy
     cap = tt(np.array(jcap))
     for route in ("binned", "walk"):
-        pext = tpb.mesh_ext_planes(ms, st, tri_mat, tt(o), tt(d), cap,
-                                   tt(alive), mesh=route)
+        pext = mesh_planes(ms, st, tri_mat, tt(o), tt(d), cap, tt(alive),
+                           mesh=route)
         assert len(pext) == len(jext) == 12
         jhit = np.isfinite(np.asarray(jext[0])) & alive
         phit = np.isfinite(pext[0].numpy())
@@ -136,7 +147,7 @@ def test_bounce_ref_matches_pallas_kernel_on_scene8(scene8):
     o, d, tm, alive, u = bundle(3)
     tt = torch.from_numpy
     cap = tix.sphere_ts(ms.spheres, tt(o), tt(d), tt(tm), 1e-3, INF).amin(dim=1)
-    ext = tpb.mesh_ext_planes(ms, st, tri_mat, tt(o), tt(d), cap, tt(alive))
+    ext = mesh_planes(ms, st, tri_mat, tt(o), tt(d), cap, tt(alive))
     jst = jpb.scene_statics(js, ext=True)
     jout = jpb.bounce(jpb.pack_scene(js), jst, jnp.asarray(o), jnp.asarray(d),
                       jnp.asarray(tm), jnp.asarray(alive), jnp.asarray(u),

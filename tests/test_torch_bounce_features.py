@@ -37,6 +37,7 @@ from go_raytracer_tpu_torch.render import camera as tcam
 from go_raytracer_tpu_torch.scene import types as TT
 from go_raytracer_tpu_torch.scenes import registry as treg
 from go_raytracer_tpu_torch.scenes import synthetic as syn
+from tests.test_torch_bounce_ext import mesh_planes
 
 torch.set_num_threads(2)
 
@@ -128,8 +129,8 @@ def ext_case(jscene, lanes, look):
         cap = torch.minimum(cap, tpb_sph(ms, tt(o), tt(d), tt(t)))
     if ms.has_quads:
         cap = torch.minimum(cap, tpb_quad(ms, tt(o), tt(d)))
-    ext = tpb.mesh_ext_planes(ms, st, tt(tpb.tri_mat_table(ts, st)), tt(o),
-                              tt(d), cap, tt(alive))
+    ext = mesh_planes(ms, st, tt(tpb.tri_mat_table(ts, st)), tt(o), tt(d),
+                      cap, tt(alive))
     assert len(ext) == tpb.n_ext_planes(st)
     jst = jpb.scene_statics(jscene, ext=True)
     jst["cull"] = False

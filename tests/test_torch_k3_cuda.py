@@ -1,7 +1,7 @@
 """K3 `bounce` (csrc/bounce.cu) on the card against its plain version,
 on every feature set in dense mode and on the ext meshes, and the
 reference engine's radiance on the kernel against the tensor-code
-bounce. Marked `gpu`: they skip on a machine without one (the CPU tests
+bounce; the bounce core's 0 / 0 weight rule on K3 and K1. Marked `gpu`: they skip on a machine without one (the CPU tests
 hold the plain versions against the JAX package). Run on a GPU machine
 with `python -m pytest --noconftest -m gpu tests/test_torch_k3_cuda.py`;
 chip_smoke.py phase 25 runs the same comparisons at full width."""
@@ -142,45 +142,114 @@ def test_k3_cap_matches_the_tensor_cap(cuda, which):
             ).float().mean() <= 1e-3
 
 
-@pytest.mark.parametrize("name", ["book1", "book2", "scan_spheres",
-                                  "scan_quads"])
-def test_k3_sorted_equals_unsorted(cuda, name):
-    """On the culled tables K3's sorted variant orders a call's lanes and
-    shares the warp's block tests: its outputs equal the launch order's bit
-    for bit, and its order is a permutation with the dead lanes last."""
-    if name.startswith("scan_"):
-        mix = {"scan_spheres": (3500, 300, 296),
-               "scan_quads": (200, 1800, 2096)}[name]
-        scene, cam, packed, st = synthetic.build(*mix, dielectric=False)
-        cam = camera_mod.Camera(aspect_ratio=1.0, width=400,
-                                samples_per_pixel=16, vertical_fov=60.0)
-        cam.position((0.0, 10.0, 18.0), (0.0, 0.5, 0.0), (0, 1, 0))
-    else:
-        scene, cam = getattr(registry, name)()
-        packed, st = bounce.pack_scene(scene), bounce.scene_statics(scene)
+# the 0 / 0 weight's planted lanes (tests/test_torch_zero_pdf.py holds the
+# plain rule to the JAX package on the CPU): ZZ_N lanes, the first PLANTED
+# straight down onto a floor at y = 0 beside a quad light in its plane
+ZZ_N = 1024
+PLANTED = ZZ_N // 2
+
+
+def floor_scene(builder):
+    """A diffuse floor quad at y = 0 (x, z in [-3, 3]), a quad light in the
+    same plane beside it (x in [5, 7]) and a quad light above (y = 4),
+    built with `builder` (the port's SceneBuilder or the JAX package's)."""
+    b = builder(background=(0.1, 0.2, 0.3))
+    b.quad((-3, 0, -3), (6, 0, 0), (0, 0, 6), b.lambertian((0.5, 0.6, 0.7)))
+    b.add_light(b.quad((5, 0, -1), (2, 0, 0), (0, 0, 2),
+                       b.diffuse_light((4, 4, 4))))
+    b.add_light(b.quad((-1, 4, -1), (2, 0, 0), (0, 0, 2),
+                       b.diffuse_light((3, 3, 3))))
+    return b.build()
+
+
+def planted_lanes(seed, n_u):
+    """PLANTED lanes from (x, 1, z) straight down, then lanes from random
+    points above the floor in random downward directions; every lane
+    alive, uniforms from the seed (slot 3 < 0.5: the light sample, slot 4
+    the light: < 0.5 the one in the floor's plane, which only the planted
+    lanes pick)."""
+    rs = np.random.default_rng(seed)
+    o = np.zeros((ZZ_N, 3), np.float32)
+    d = np.zeros((ZZ_N, 3), np.float32)
+    o[:PLANTED, 0] = rs.uniform(-2.5, 2.5, PLANTED)
+    o[:PLANTED, 1] = 1.0
+    o[:PLANTED, 2] = rs.uniform(-2.5, 2.5, PLANTED)
+    d[:PLANTED, 1] = -1.0
+    rest = ZZ_N - PLANTED
+    o[PLANTED:] = rs.uniform((-2, 0.5, -2), (2, 3, 2), (rest, 3))
+    d[PLANTED:] = rs.normal(size=(rest, 3))
+    d[PLANTED:, 1] = -np.abs(d[PLANTED:, 1]) - 0.2
+    tm = np.zeros(ZZ_N, np.float32)
+    alive = np.ones(ZZ_N, bool)
+    u = rs.uniform(0, 1, (ZZ_N, n_u)).astype(np.float32)
+    # the other lanes sample the light above: a sample towards the light in
+    # the floor's plane grazes it, where the two packages' hit points part
+    # by a rounding (the port's lies on the plane, so it is 0 / 0 too)
+    u[PLANTED:, 4] = 0.5 + 0.5 * u[PLANTED:, 4]
+    return o, d, tm, alive, u
+
+
+def zero_zero_lanes(u):
+    """The planted lanes that sample the light in the floor's plane: both
+    of their pdfs are 0."""
+    pick = np.zeros(ZZ_N, bool)
+    pick[:PLANTED] = (u[:PLANTED, 3] < 0.5) & (u[:PLANTED, 4] < 0.5)
+    return pick
+
+
+def test_k3_weighs_zero_zero_lanes_zero(cuda):
+    """K3 on the planted lanes: weight 0 where both pdfs are 0, finite
+    everywhere, and the plain version's weight on every lane."""
+    ts = floor_scene(builder_mod.SceneBuilder)
+    st = bounce.scene_statics(ts)
+    o, d, tm, alive, u = (torch.from_numpy(x).to(cuda) for x in
+                          planted_lanes(5, bounce.N_U + st["n_media"]))
+    tabs = tuple(torch.from_numpy(t).to(cuda) for t in bounce.pack_scene(ts))
+    bg = torch.tensor(ts.background, dtype=torch.float32, device=cuda)
+    k = bounce.bounce(tabs, st, o, d, tm, alive, u, bg)
+    p = bounce.bounce_ref(tabs, st, o, d, tm, alive, u, bg)
+    torch.cuda.synchronize()
+    zz = torch.from_numpy(zero_zero_lanes(u.cpu().numpy())).to(cuda)
+    assert torch.isfinite(k[1]).all()
+    assert (k[1][zz] == 0).all() and (k[4][zz, 1] == 0).all()
+    torch.testing.assert_close(k[1], p[1], rtol=2e-3, atol=2e-3)
+
+
+def test_fused_kernel_weighs_zero_zero_lanes_zero(cuda):
+    """K1 (`bounce_fused_q`), one level without refill on the planted
+    lanes alone (its own uniforms pick the light: on the other lanes,
+    whose floor hit lies off the plane by a rounding, a sample towards the
+    light in the plane grazes it, and the kernel's rounding is not the
+    plain version's): the lanes whose light sample has dy = 0 weigh 0,
+    every weight is finite and the plain version's."""
+    ts = floor_scene(builder_mod.SceneBuilder)
+    st = bounce.scene_statics(ts)
+    o, d, tm, alive, _ = (x[:PLANTED] for x in planted_lanes(5, bounce.N_U))
+    n = o.shape[0]
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
-    tables = tuple(to(x) for x in packed)
-    bg = to(np.asarray(scene.background, np.float32))
-    k3s = bounce.K3Launch(tables, st, bg, sort=True)
-    k3u = bounce.K3Launch(tables, st, bg)
-    assert k3s.sort and not k3u.sort
-    o, d, t, alive, g = _rays(cuda, cam, N, 6)
-    for level in range(3):
-        u = torch.rand((N, bounce.N_U + st["n_media"]), generator=g,
-                       device=cuda)
-        before = bounce.launches_sort
-        ks = k3s(o, d, t, alive, u)
-        assert bounce.launches_sort == before + 1
-        ku = k3u(o, d, t, alive, u)
-        torch.cuda.synchronize()
-        for a, b in zip(ks[:6], ku[:6]):
-            assert torch.equal(a, b), f"level {level}"
-        perm = k3s.perm(N).long()
-        assert torch.equal(torch.sort(perm).values,
-                           torch.arange(N, device=cuda))
-        n_live = int(alive.sum())
-        assert alive[perm[:n_live]].all() and not alive[perm[n_live:]].any()
-        o, d, alive = ks[3].contiguous(), ks[4].contiguous(), ks[5].clone()
+    tabs = tuple(to(t) for t in bounce.pack_scene(ts))
+    cam = camera_mod.Camera(aspect_ratio=1.0, width=32,
+                            samples_per_pixel=1, max_depth=50)
+    cam.position((0, 2, 6), (0, 0, 0), (0, 1, 0))
+    cam_row = to(bounce.pack_camera(cam.derived()))
+    bg = to(np.asarray(ts.background, np.float32))
+    state = [to(o[:, 0]), to(o[:, 1]), to(o[:, 2]), to(d[:, 0]), to(d[:, 1]),
+             to(d[:, 2]), to(tm), to(alive.astype(np.int32)),
+             to(np.zeros(n, np.int32))]
+    seed4 = torch.tensor([777, 0, 0, 32 * 32], dtype=torch.int32,
+                         device=cuda)
+    kw = dict(has_defocus=False, max_depth=50, n_inner=1, width=32,
+              sqrt_spp=1, npix=32 * 32)
+    k = bounce.bounce_fused_q(tabs, st, cam_row, bg, seed4, *state, **kw)
+    p = bounce.bounce_fused_q_ref(tabs, st, cam_row, bg, seed4, *state, **kw)
+    torch.cuda.synchronize()
+    v_k = torch.stack([k[0][c][0] for c in range(3)], dim=-1)
+    v_p = torch.stack([p[0][c][0] for c in range(3)], dim=-1)
+    flat = (k[4 + 4] == 0) & (k[4 + 7] > 0)
+    assert flat.sum() > 20
+    assert torch.isfinite(v_k).all()
+    assert (v_k[flat] == 0).all()
+    torch.testing.assert_close(v_k, v_p, rtol=2e-3, atol=2e-3)
 
 
 def test_radiance_on_k3_matches_the_tensor_bounce(cuda):

@@ -2,9 +2,10 @@
 kernel now does itself, the gather of the winning triangle
 (`ops/bounce.ext_planes_from_hit` on the walk's (t, idx)) and the dense cap
 (`dense_cap_ref`, the cap entry's plain version), against the composition
-they replace (the tensor cap, `mesh_ext_planes` and `bounce_ref` on its
-planes) exactly, and against the JAX package's `mesh_ext_planes` + `bounce`
-in interpret mode within the repo's tolerances. Cases: scene 8, the
+they replace (the tensor cap, the walk pruned by it, and `bounce_ref` on
+the planes of its winner) exactly, and against the JAX package's
+`mesh_ext_planes` + `bounce` in interpret mode within the repo's
+tolerances. Cases: scene 8, the
 glass-and-fog statue and the image-textured mesh of `scenes/synthetic.py`.
 
 Tolerances against JAX: alive' and the clamp flag equal, and E, W and the
@@ -108,8 +109,9 @@ def test_cap_plain_version_is_the_tensor_cap(case):
 
 
 def test_ext_from_hit_equals_the_planes_path(case):
-    """The gather on the walk's (t, idx) gives the planes of
-    `mesh_ext_planes` (which also gates on the cap) bit for bit, and the
+    """The gather on the walk's (t, idx) gives the planes of the same
+    gather gated on the cap, as the JAX package's `mesh_ext_planes` gates
+    (the walk already prunes by it), bit for bit, and the
     plain bounce from the hit the one from those planes; `mesh_bounce`
     (cap, walk, K3 from the hit) the tensor cap + planes + bounce_ref
     composition."""
@@ -118,8 +120,8 @@ def test_ext_from_hit_equals_the_planes_path(case):
     o, d, t, alive, u = (torch.from_numpy(x) for x in rays(
         case["look"], 2048, 2, n_u))
     cap = tensor_cap(ms, o, d, t)
-    planes = tpb.mesh_ext_planes(ms, st, case["tri_mat"], o, d, cap, alive)
     hit = tpb.MeshHit(*ttrace.mesh_closest(ms, o, d, cap, alive))
+    planes = tpb.ext_planes_from_hit(st, tri, o, d, hit, t_cap=cap)
     assert (hit.idx >= 0).any()
     from_hit = tpb.ext_planes_from_hit(st, tri, o, d, hit)
     assert len(from_hit) == len(planes) == tpb.n_ext_planes(st)
