@@ -196,9 +196,27 @@ Phases (any failure exits non-zero; nothing is swallowed):
      (CUT), depth 50; the five other dense scenes at 1 spp on the
      wavefront integrator and the two ext meshes through `render_regen`,
      counting K3's launches per feature set;
+ 27. gradients through the reference engine (autograd over
+     `wavefront.radiance` mode "scan" backend "xla", `parallel/mesh`):
+     GRAD.md's configuration, 128x128 @ 16 spp (4x4 strata, 262,144
+     rays), depth 10, on cornellBox, book3 and cornellSmoke, every leaf
+     and the camera origin: the gradient step (forward + backward between
+     two synchronizes; the least of three), the forward alone, forward
+     segments, grad rays/s, peak memory above what was allocated before
+     the step, every leaf finite, two runs'
+     leaves within GRAD_RUN_TO_RUN (the scatter-add's atomic order), no
+     kernel launched; GRAD.md's pathwise FD rows (central differences,
+     common random numbers) within GRAD_FD_REL, the score-function rows
+     and the camera printed; the card's gradient against the CPU's on the
+     same uniforms at 32x32 @ 4 spp, depth 6, on the lanes whose paths
+     agree (GRAD_CPU_RTOL); modelExample at 600x337 @ 1 spp, depth 10,
+     its triangle hit on K5 (launches counted: one a level, no other
+     kernel), every leaf finite; five `make_train_step` steps on
+     cornellBox at GRAD.md's scale toward a target rendered with the true
+     parameters from a perturbed white wall and light: the loss falls;
 then the `kernels` JSON line (K1-K12; K1, K6 and K8 name their image
 variant, K3 its feature sets and its cap entry, K3, K6 and K8 their
-redesign), the
+redesign, K5 its launches on phase 27's modelExample gradient), the
 nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
@@ -635,6 +653,373 @@ def scan_inputs(dev, n, n_sph, n_quad, n_box, seed=0, moving_pair=False):
     return (scene, cam, tuple(to(t) for t in tabs), statics,
             to(bounce.pack_camera(cam.derived())),
             to(np.asarray(scene.background, np.float32)), state)
+
+
+# the gradient phase (27): GRAD.md's configuration (128x128 @ 16 spp =
+# 4x4 strata, depth 10) on the three registry scenes whose leaves cover
+# the parameter vector, and modelExample at its full width
+GRAD_SCENES = ("cornell_box", "book3", "cornell_smoke")
+GRAD_WIDTH, GRAD_SPP, GRAD_DEPTH = 128, 16, 10
+# modelExample's registry width (600x337), at 1 spp
+GRAD_MESH_WIDTH = 600
+# the pathwise rows of GRAD.md's FD table, held to central differences
+# with common random numbers at GRAD_FD_REL (abs GRAD_FD_ABS), as
+# tests/test_grad.py::test_grad_scale_cornell_fd holds them:
+# (leaf, index or "light" for the light's texture row, eps, label).
+# Texture row 0 of the three scenes is the red wall (0.65, 0.05, 0.05):
+# GRAD.md and test_grad.py call it the white wall's; row 1 is the white
+# wall's, held too
+GRAD_FD_PATHWISE = {
+    "cornell_box": [("tex_color", (0, 0), 1e-2,
+                     "red-wall albedo R (GRAD.md's 'white-wall' row 0)"),
+                    ("tex_color", (1, 0), 1e-2, "white-wall albedo R"),
+                    ("tex_color", "light", 1e-1, "light emission R"),
+                    ("background", (1,), 1e-2, "background G")],
+    "book3": [("tex_color", (0, 0), 1e-2, "red-wall albedo R")],
+    "cornell_smoke": [("tex_color", (0, 0), 1e-2, "red-wall albedo R")]}
+# the score-function rows (ref_idx through the Schlick choice, the media
+# density through the transit likelihood; GRAD.md's eps) and the camera
+# origin (a silhouette's boundary term the estimator does not model):
+# printed, finite, agreeing with the FD only in expectation
+GRAD_FD_SCORE = {"book3": [("ref_idx", "diel", 2e-3, "glass ref_idx")],
+                 "cornell_smoke": [("med_neg_inv_density", (0,), 2.0,
+                                    "smoke neg_inv_density")]}
+GRAD_FD_REL, GRAD_FD_ABS = 0.05, 5e-5
+# two card runs of one gradient differ by the atomic order of the
+# gathers' scatter-add backward: each leaf's largest difference against
+# its largest entry
+GRAD_RUN_TO_RUN = 1e-3
+# the card's gradient against the CPU's on the same uniforms (32x32 @ 4
+# spp, depth 6), on the lanes whose paths agree on both devices (at every
+# level the same alive flag and a continuing origin, and in the end the
+# radiance, within GRAD_LANE_TOL relative and absolute; a lane a rounding
+# sent the other way, at most DIEL_MISMATCH_FRAC of them, is left out:
+# radiance alone does not tell the glass's two branches apart where both
+# reach the light with weight 1): each leaf's largest difference against
+# its largest entry
+GRAD_CPU_RTOL, GRAD_LANE_TOL = 1e-3, 2e-3
+
+
+def gradient_phase(dev, card):
+    """Phase 27: the gradient path (autograd over the reference engine,
+    `wavefront.radiance` mode "scan" backend "xla", then an MSE and an
+    Adam step through `parallel/mesh`) on the card. Returns its summary
+    (rows per scene, modelExample's, the CPU agreement, the train
+    losses); fails on a non-finite leaf, an FD row off its tolerance, a
+    card gradient off the CPU's, a modelExample forward without K5, or a
+    train loss that does not fall."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from go_raytracer_tpu_torch.integrator import wavefront
+    from go_raytracer_tpu_torch.ops import bounce, harvest, stream, stream2
+    from go_raytracer_tpu_torch.ops import trace, traverse, traverse8
+    from go_raytracer_tpu_torch.parallel import mesh as pmesh
+    from go_raytracer_tpu_torch.render import camera as camera_mod
+    from go_raytracer_tpu_torch.scenes import registry
+
+    def launches():
+        return dict(K5=traverse8.launches, K3=bounce.launches_bounce,
+                    other=bounce.launches + bounce.launches_cap
+                    + bounce.launches_fused + bounce.launches_fused_pos
+                    + bounce.launches_direct + harvest.launches
+                    + harvest.launches_rows + stream.launches
+                    + stream.launches_round + stream2.launches
+                    + traverse.launches)
+
+    def zero_launches():
+        bounce.launches = bounce.launches_bounce = bounce.launches_cap = 0
+        bounce.launches_fused = bounce.launches_fused_pos = 0
+        bounce.launches_direct = harvest.launches = harvest.launches_rows = 0
+        stream.launches = stream.launches_round = stream2.launches = 0
+        traverse.launches = traverse8.launches = 0
+
+    def setup(name, width, spp, depth, device):
+        scene, cam = getattr(registry, name)()
+        cam.width, cam.samples_per_pixel, cam.max_depth = width, spp, depth
+        if name != "model_example":
+            cam.aspect_ratio = 1.0
+        arrays = cam.derived()
+        npix = width * cam.image_height
+        sq = cam.spp_sqrt
+        ids = torch.arange(npix, device=device).repeat(sq * sq)
+        st = torch.arange(sq * sq, device=device).repeat_interleave(npix)
+        s_i = torch.div(st, sq, rounding_mode="floor").float()
+        s_j = (st % sq).float()
+        ds = trace.to_device(scene, device)
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in pmesh.extract_params(ds).items()}
+        delta = torch.zeros(3, device=device, requires_grad=True)
+        c0 = torch.from_numpy(arrays.center).to(device)
+        p0 = torch.from_numpy(arrays.pixel00).to(device)
+
+        def f(p, dlt, seed=5, uniforms=None, per_lane=False, mask=None):
+            """Mean radiance (nan_to_num) of the scene carrying p, the
+            camera moved by dlt; uniforms from a generator seeded `seed`
+            (common random numbers) or given as (u_cam, per-level u)."""
+            arr = dataclasses.replace(arrays, center=c0 + dlt,
+                                      pixel00=p0 + dlt)
+            if uniforms is None:
+                g = torch.Generator(device=device).manual_seed(seed)
+                u = torch.rand((ids.shape[0], camera_mod.N_U_RAYGEN),
+                               generator=g, device=device)
+                us = None
+            else:
+                g, (u, us) = None, uniforms
+            o, d, t = camera_mod.generate_rays(arr, width, ids, s_i, s_j, u)
+            L, stt = wavefront.radiance(pmesh.apply_params(ds, p), o, d, t,
+                                        g, depth, cam.max_contribution,
+                                        mode="scan", uniforms=us)
+            L = torch.nan_to_num(L)
+            if per_lane:
+                return L
+            if mask is not None:
+                return (L * mask[:, None]).sum() / (3 * mask.sum()), stt
+            return L.mean(), stt
+        return scene, ds, params, delta, f, ids.shape[0]
+
+    def grads_of(f, params, delta, **kw):
+        for v in list(params.values()) + [delta]:
+            v.grad = None
+        loss, stt = f(params, delta, **kw)
+        loss.backward()
+        out = {k: (torch.zeros_like(v) if v.grad is None else v.grad.clone())
+               for k, v in params.items()}
+        out["camera"] = delta.grad.clone()
+        return out, stt
+
+    def rel_diff(a, b):
+        scale = float(b.abs().max())
+        return float((a - b).abs().max()) / scale if scale > 0 else \
+            float((a - b).abs().max())
+
+    summary = {"card": card, "rows": {}}
+    for name in GRAD_SCENES:
+        scene, ds, params, delta, f, n = setup(name, GRAD_WIDTH, GRAD_SPP,
+                                               GRAD_DEPTH, dev)
+        kinds = scene.materials.kind
+        light_tex = int(scene.materials.tex_id[np.where(kinds == 3)[0][0]])
+        diel = int(np.where(kinds == 2)[0][0]) if (kinds == 2).any() else 0
+        zero_launches()
+        g0, stt = grads_of(f, params, delta)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # what earlier phases still hold is not the step's
+        base = torch.cuda.memory_allocated()
+        step_ms, runs = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gr, stt = grads_of(f, params, delta)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            runs.append(gr)
+        peak = torch.cuda.max_memory_allocated() - base
+        check(sum(launches().values()) == 0,
+              f"{name}: the gradient path launched a kernel "
+              f"{launches()}")
+        fwd_ms = []
+        with torch.no_grad():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                val, _ = f(params, delta)
+                float(val)
+                fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        for k, v in runs[0].items():
+            check(bool(torch.isfinite(v).all()),
+                  f"{name}: the gradient of {k} is not finite")
+        run_to_run = {k: rel_diff(runs[1][k], runs[0][k]) for k in runs[0]}
+        check(max(run_to_run.values()) <= GRAD_RUN_TO_RUN,
+              f"{name}: two card runs' gradients differ by {run_to_run}")
+        segs = stt["segments"]
+        best = min(step_ms)
+        fd_rows = []
+
+        def fd_row(leaf, idx, eps, label, gated):
+            idx = (light_tex, 0) if idx == "light" else \
+                (diel,) if idx == "diel" else idx
+            with torch.no_grad():
+                vals = []
+                for sgn in (1, -1):
+                    p2 = {k: v.detach().clone() for k, v in params.items()}
+                    p2[leaf][idx] += sgn * eps
+                    vals.append(float(f(p2, delta)[0]))
+            fd = (vals[0] - vals[1]) / (2 * eps)
+            an = float(runs[0][leaf][idx])
+            rel = abs(an - fd) / max(abs(an), abs(fd), 1e-12)
+            row = dict(param=label, leaf=leaf, idx=list(idx), analytic=an,
+                       fd=fd, rel_err=rel, gated=gated)
+            fd_rows.append(row)
+            check(np.isfinite(an) and np.isfinite(fd),
+                  f"{name} {label}: not finite ({an}, {fd})")
+            if gated:
+                check(abs(an - fd) <= GRAD_FD_REL * abs(fd) + GRAD_FD_ABS,
+                      f"{name} {label}: analytic {an} against FD {fd}")
+
+        for row in GRAD_FD_PATHWISE.get(name, []):
+            fd_row(*row, gated=True)
+        for row in GRAD_FD_SCORE.get(name, []):
+            fd_row(*row, gated=False)
+        if name == "cornell_box":
+            with torch.no_grad():
+                e = torch.tensor([1.0, 0.0, 0.0], device=dev)
+                fd = (float(f(params, e)[0]) - float(f(params, -e)[0])) / 2.0
+            an = float(runs[0]["camera"][0])
+            fd_rows.append(dict(param="camera origin x", leaf="camera",
+                                idx=[0], analytic=an, fd=fd,
+                                rel_err=abs(an - fd) / max(abs(an), abs(fd),
+                                                           1e-12),
+                                gated=False))
+        row = dict(rays=n, fwd_segments=segs, grad_step_ms=best,
+                   grad_step_ms_all=step_ms, fwd_ms=min(fwd_ms),
+                   grad_rays_per_s=segs / (best / 1e3),
+                   peak_bytes=peak, run_to_run=run_to_run, fd=fd_rows)
+        summary["rows"][name] = row
+        print(f"[27] {name} {GRAD_WIDTH}x{GRAD_WIDTH} @ {GRAD_SPP} spp depth "
+              f"{GRAD_DEPTH} on {card}: {n} rays, forward segments {segs}, "
+              f"gradient step {best:.2f} ms (runs "
+              f"{[round(x, 2) for x in step_ms]}), forward alone "
+              f"{min(fwd_ms):.2f} ms, {segs / (best / 1e3):.4g} grad rays/s, "
+              f"peak memory {peak / 2**30:.3f} GiB; run to run "
+              f"{max(run_to_run.values()):.3g}")
+        for r in fd_rows:
+            print(f"[27]   {name} {r['param']}: analytic {r['analytic']:.6g}"
+                  f" FD {r['fd']:.6g} rel {r['rel_err']:.4f}"
+                  + (" (gated)" if r["gated"] else " (printed)"))
+        del runs, g0
+        torch.cuda.empty_cache()
+
+    # the card's gradient against the CPU's on the same uniforms
+    summary["cpu"] = {}
+    for name in GRAD_SCENES:
+        per_dev = []
+        rs = np.random.default_rng(11)
+        for device in ("cpu", dev):
+            scene, ds, params, delta, f, n = setup(name, 32, 4, 6, device)
+            if not per_dev:
+                n_u = 9 + ds.media.kind.shape[0]
+                u_np = (rs.uniform(0, 1, (n, 5)).astype(np.float32),
+                        rs.uniform(0, 1, (7, n, n_u)).astype(np.float32))
+            un = tuple(torch.from_numpy(x).to(device) for x in u_np)
+            levels = []
+            bounce_fn = wavefront._bounce
+
+            def recorded(*a, **k):
+                out = bounce_fn(*a, **k)
+                levels.append((out[3].detach().cpu(), out[5].cpu()))
+                return out
+            wavefront._bounce = recorded
+            try:
+                with torch.no_grad():
+                    lane_L = f(params, delta, uniforms=un, per_lane=True)
+            finally:
+                wavefront._bounce = bounce_fn
+            per_dev.append((f, params, delta, un, lane_L.cpu(), levels))
+        (fc, pc, dc, uc, Lc, lc), (fg, pg, dg, ug, Lg, lg) = per_dev
+        close = lambda a, b: torch.isclose(a, b, rtol=GRAD_LANE_TOL,
+                                           atol=GRAD_LANE_TOL)
+        agree = close(Lc, Lg).all(-1)
+        for (oc, ac), (og, ag) in zip(lc, lg):
+            agree &= (ac == ag) & (~ac | close(oc, og).all(-1))
+        flipped = 1.0 - float(agree.float().mean())
+        check(flipped <= DIEL_MISMATCH_FRAC,
+              f"{name}: {flipped} of the lanes differ between CPU and card")
+        gc, _ = grads_of(fc, pc, dc, uniforms=uc, mask=agree.float())
+        gg, _ = grads_of(fg, pg, dg, uniforms=ug,
+                         mask=agree.float().to(dev))
+        diffs = {k: rel_diff(gg[k].cpu(), gc[k]) for k in gc}
+        summary["cpu"][name] = dict(flipped=flipped, rel=diffs)
+        print(f"[27] {name} 32x32 @ 4 spp depth 6, card against CPU on the "
+              f"same uniforms: {flipped:.3g} of the lanes flipped, leaf "
+              f"differences (against each leaf's largest) "
+              + json.dumps({k: float(f"{v:.3g}") for k, v in diffs.items()}))
+        check(max(diffs.values()) <= GRAD_CPU_RTOL,
+              f"{name}: card gradient off the CPU's by {diffs}")
+
+    # modelExample at its full width, 1 spp: K5 carries the triangle hit
+    scene, ds, params, delta, f, n = setup("model_example", GRAD_MESH_WIDTH,
+                                           1, GRAD_DEPTH, dev)
+    zero_launches()
+    gm, stt = grads_of(f, params, delta)
+    torch.cuda.synchronize()
+    warm = launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gm, stt = grads_of(f, params, delta)
+    torch.cuda.synchronize()
+    ms8 = (time.perf_counter() - t0) * 1e3
+    peak8 = torch.cuda.max_memory_allocated() - base
+    k8 = launches()
+    for k, v in gm.items():
+        check(bool(torch.isfinite(v).all()),
+              f"modelExample: the gradient of {k} is not finite")
+    check(k8["K5"] == stt["levels"] == GRAD_DEPTH + 1 and k8["K3"] == 0
+          and k8["other"] == 0 and warm == k8,
+          f"modelExample gradient: K5 not launched once a level {k8}")
+    tex = gm["tex_color"]
+    kinds = scene.materials.kind
+    rows8 = {lbl: int(scene.materials.tex_id[np.where(kinds == kd)[0][0]])
+             for lbl, kd in (("ground albedo", 0), ("statue colour", 1),
+                             ("sun emission", 3))}
+    check(all(float(tex[r].abs().max()) > 0 for r in rows8.values()),
+          "modelExample: an albedo or emission leaf has no gradient")
+    summary["model_example"] = dict(
+        rays=n, fwd_segments=stt["segments"], grad_step_ms=ms8,
+        grad_rays_per_s=stt["segments"] / (ms8 / 1e3), peak_bytes=peak8,
+        launches=k8, tex_rows={k: tex[r].tolist() for k, r in rows8.items()})
+    print(f"[27] modelExample {GRAD_MESH_WIDTH} wide @ 1 spp depth "
+          f"{GRAD_DEPTH} on {card}: "
+          f"{n} rays, forward segments {stt['segments']}, gradient step "
+          f"{ms8:.2f} ms, {stt['segments'] / (ms8 / 1e3):.4g} grad rays/s, "
+          f"peak memory {peak8 / 2**30:.3f} GiB, launches {k8}; "
+          + json.dumps(summary["model_example"]["tex_rows"]))
+    del gm
+    torch.cuda.empty_cache()
+
+    # five Adam steps of make_train_step on cornellBox at GRAD.md's scale
+    scene, cam = registry.cornell_box()
+    cam.width, cam.aspect_ratio, cam.max_depth = GRAD_WIDTH, 1.0, GRAD_DEPTH
+    npix = GRAD_WIDTH * GRAD_WIDTH
+    train_step, params, opt = pmesh.make_train_step(
+        scene, cam, n_rays=npix, n_sample_batches=GRAD_SPP,
+        max_depth=GRAD_DEPTH, learning_rate=0.1, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    ids = pmesh.pixel_ids(npix, GRAD_SPP, dev)
+    with torch.no_grad():
+        ds = trace.to_device(scene, dev)
+        target, _ = pmesh.render_batches(
+            ds, cam.derived(), GRAD_WIDTH, ids, GRAD_DEPTH,
+            cam.max_contribution,
+            torch.Generator(device=dev).manual_seed(99))
+        light_tex = int(scene.materials.tex_id[
+            np.where(scene.materials.kind == 3)[0][0]])
+        # the white wall (texture row 1) and the light, perturbed
+        params["tex_color"][1] = torch.tensor([0.3, 0.3, 0.3], device=dev)
+        params["tex_color"][light_tex] *= 0.4
+    losses, train_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(train_step(params, ids, target))
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"train step on cornellBox: the loss did not fall {losses}")
+    summary["train"] = dict(losses=losses, step_ms=train_ms,
+                            albedo=params["tex_color"][1].tolist(),
+                            emission=params["tex_color"][light_tex].tolist())
+    print(f"[27] make_train_step on cornellBox {GRAD_WIDTH}x{GRAD_WIDTH}, "
+          f"{GRAD_SPP} batches, depth {GRAD_DEPTH}, Adam lr 0.1, on {card}: "
+          f"losses {[round(x, 6) for x in losses]}, step ms "
+          f"{[round(x, 1) for x in train_ms]}, white-wall albedo "
+          f"{summary['train']['albedo']}, emission "
+          f"{summary['train']['emission']}")
+    return summary
 
 
 def main():
@@ -3856,6 +4241,11 @@ def main():
                    + "; launches in phase 26's renders "
                    + json.dumps(k3_render))
 
+    # ---- 27. gradients through the reference engine -------------------
+    phase_start(27)
+    grad = gradient_phase(dev, card)
+    print("[27] gradient rows (PERF.md): " + json.dumps(grad))
+
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_q.cu",
@@ -3895,7 +4285,8 @@ def main():
          "launches": k5_launches, "max_abs_err": k5_err,
          "ms": k5_sorted_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_by,
-         "library_ms": None},
+         "library_ms": None,
+         "launches_grad": grad["model_example"]["launches"]["K5"]},
         {"name": "bounce_fused", "route": "cuda",
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:1577",

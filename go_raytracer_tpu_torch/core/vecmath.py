@@ -22,7 +22,18 @@ def length_squared(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
 
 
 def length(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
-    return torch.sqrt(length_squared(v, keepdim=keepdim))
+    """|v|. The square root takes a double where: where |v|^2 is 0 (or
+    NaN) its value, sqrt's own, enters as a constant, so the derivative
+    there is 0 where sqrt's is infinite. A lane whose vector is 0 and
+    whose result is masked out (a triangle's interpolated normal at a ray
+    parallel to the dummy row it gathered: u and v near 1e30, w + u + v
+    cancelling to 0) would otherwise give 0 * inf = NaN to every gradient
+    upstream of it (modelExample's fuzz on the card, PERF.md); the JAX
+    package's `length` is unguarded."""
+    lsq = length_squared(v, keepdim=keepdim)
+    pos = lsq > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, lsq, 1.0)),
+                       torch.sqrt(lsq).detach())
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -24,18 +24,30 @@ from go_raytracer_tpu_torch.scene import types as T
 # Textures
 # --------------------------------------------------------------------------
 
+def param_rows(table, idx):
+    """table[idx] for a parameter table (a leaf of `parallel/mesh.
+    extract_params`) and per-ray row ids idx (N,): `index_select`, whose
+    backward is an `index_add_`. On CUDA that is an atomic scatter-add, so
+    two runs' gradients may differ in the last bits; the backward of
+    `table[idx]` is a sorted accumulation that runs each row's
+    contributions one after another, ~21 ms a gather at 262,144 rays on a
+    4-row table (NVIDIA H100, PERF.md)."""
+    return torch.index_select(table, 0, idx)
+
+
 def texture_value(ds, tex_id, u, v, p):
     """Texture colour (N, 3) at (u, v, p) for per-ray texture ids."""
     tx = ds.textures
     kind = tx.kind[tex_id]
-    out = tx.color[tex_id]  # TEX_SOLID (texture.go:25-27)
+    out = param_rows(tx.color, tex_id)  # TEX_SOLID (texture.go:25-27)
 
     # checkerboard by the parity of the summed floor(p / scale)
     # (texture.go:50-60): Go's int truncation of an already floored float
     # is floor, and a floor-mod by 2 classifies negative sums as Go does
     ints = torch.floor(tx.inv_scale[tex_id][:, None] * p).to(torch.int32)
     is_even = torch.remainder(ints.sum(-1), 2) == 0
-    checker = torch.where(is_even[:, None], tx.even[tex_id], tx.odd[tex_id])
+    checker = torch.where(is_even[:, None], param_rows(tx.even, tex_id),
+                          param_rows(tx.odd, tex_id))
     out = torch.where((kind == T.TEX_CHECKER)[:, None], checker, out)
 
     if ds.has_image:
@@ -94,7 +106,13 @@ def _sphere_light_pdf(ds, lt_pid, o, d):
     reference's sqrt(1 - r^2 / dist^2) is unguarded, so from inside the
     sphere it is NaN, which the film's NaN guard zeroes; the NaN is kept
     here as a constant, so the square root only ever sees a positive
-    argument and its derivative stays finite (GRAD.md)."""
+    argument and its derivative stays finite (GRAD.md). The reciprocal
+    takes the same double where: a lane whose origin lies on or inside
+    the light (a hit on its surface, the rounding then decides) gets the
+    reference's NaN or inf as a constant, so 1 / solid_angle's derivative
+    never meets it. The JAX package divides unguarded there: its backward
+    gives NaN to every leaf upstream of such a lane, even where the pdf
+    is not used (modelExample's fuzz on the card, PERF.md)."""
     sp = ds.spheres
     pid = torch.clamp(lt_pid, 0, sp.radius.shape[0] - 1).to(torch.int64)
     c0 = sp.center0[pid]      # PdfValue uses the centre at time 0 (:57)
@@ -110,7 +128,10 @@ def _sphere_light_pdf(ds, lt_pid, o, d):
     cos_theta_max = torch.where(
         arg > 0, safe, torch.where(arg == 0, 0.0, float("nan")))
     solid_angle = 2.0 * torch.pi * (1.0 - cos_theta_max)
-    return torch.where(hit, 1.0 / solid_angle, 0.0)
+    ok = hit & (solid_angle > 0)
+    pdf = 1.0 / torch.where(ok, solid_angle, 1.0)
+    return torch.where(ok, pdf, torch.where(hit, 1.0 / solid_angle.detach(),
+                                            0.0))
 
 
 def _tri_light_pdf(ds, lt_pid, o, d):

@@ -22,8 +22,13 @@ surface interactions occur and the deepest child contributes black.
 
 Everything is out-of-place tensor code, with the score-function factors
 of the dielectric choice and the media transit (value 1), so autograd can
-run through it. `backend="pallas"` runs the bounce as the K3 kernel
-(`ops/bounce.bounce`, forward only) instead.
+run through it: the gradient of a render with respect to the scene's
+parameters (`parallel/mesh.extract_params`) or the camera's vectors is
+the JAX package's `jax.grad` of mode "scan" on backend "xla". A BVH
+mesh's closest-hit distance carries no gradient (`ops/trace.trace`).
+`backend="pallas"` runs the bounce as the K3 kernel (`ops/bounce.bounce`,
+forward only) instead, and refuses to run where autograd would need its
+derivative.
 """
 
 from __future__ import annotations
@@ -69,8 +74,8 @@ def _bounce(ds, o, d, time, alive, u, *, route=None, counters=None):
     kind = mats.kind[hit.mat_id]
     tex_val = sampling.texture_value(ds, mats.tex_id[hit.mat_id].to(torch.int64),
                                      hit.u, hit.v, hit.p)
-    fuzz = mats.fuzz[hit.mat_id]
-    ref_idx = mats.ref_idx[hit.mat_id]
+    fuzz = sampling.param_rows(mats.fuzz, hit.mat_id)
+    ref_idx = sampling.param_rows(mats.ref_idx, hit.mat_id)
 
     miss = alive & ~hit.hit
     lit = alive & hit.hit
@@ -181,7 +186,9 @@ def _bounce(ds, o, d, time, alive, u, *, route=None, counters=None):
 def use_kernel(ds, n: int, backend: str) -> bool:
     """Whether `radiance` runs the bounce as the K3 kernel: "pallas"
     always, "auto" when the kernel carries the scene and n is a multiple
-    of 128 (the JAX package's rule), "xla" never."""
+    of 128 (the JAX package's rule), "xla" never. Whether the kernel
+    carries a scene rests on its flags and table shapes, which
+    `parallel/mesh.apply_params` keeps."""
     from go_raytracer_tpu_torch.ops import bounce as bounce_mod
 
     if backend not in ("auto", "xla", "pallas"):
@@ -192,11 +199,17 @@ def use_kernel(ds, n: int, backend: str) -> bool:
 
 def kernel_launch(ds):
     """The K3 kernel's launch (`ops/bounce.K3Launch`: the packed tables on
-    ds's device and the dense statics), prepared once per device scene."""
+    ds's device and the dense statics). Its tables are packed from ds's
+    own parameter tensors (`ops/trace.host_scene`), and packed again when
+    one of them was replaced or updated in place since, so the kernel
+    never renders with stale parameters."""
     from go_raytracer_tpu_torch.ops import bounce as bounce_mod
 
-    if getattr(ds, "k3", None) is None:
-        scene = ds.host
+    stamp = tuple((t, t._version)
+                  for t in trace_mod.param_tensors(ds).values())
+    if ds.k3 is None or any(a is not b or va != vb for (a, va), (b, vb)
+                            in zip(ds.k3_stamp, stamp)):
+        scene = trace_mod.host_scene(ds)
         if not bounce_mod.supported(scene):
             raise NotImplementedError(
                 "backend 'pallas': the bounce kernel does not carry this "
@@ -205,7 +218,8 @@ def kernel_launch(ds):
         ds.k3 = bounce_mod.K3Launch(
             tuple(torch.from_numpy(t).to(ds.device)
                   for t in bounce_mod.pack_scene(scene)),
-            bounce_mod.scene_statics(scene), ds.background)
+            bounce_mod.scene_statics(scene), ds.background.detach())
+        ds.k3_stamp = stamp
     return ds.k3
 
 
@@ -223,12 +237,25 @@ def radiance(ds, o, d, time, gen, max_depth: int, max_contribution: float,
     alive (one host read a level). backend: "xla" the tensor-code bounce
     (`_bounce`), "pallas" the K3 kernel (`ops/bounce.bounce`; on CPU
     tensors its plain version), "auto" the kernel where `use_kernel`
-    allows it. `route` and `counters` go to a BVH mesh's closest hit."""
+    allows it; where the kernel would run while autograd is on and a
+    parameter tensor of ds or a ray tensor requires a gradient, it raises
+    ValueError (no switch to "xla"). `route` and `counters` go to a BVH
+    mesh's closest hit."""
     if mode not in ("scan", "while"):
         raise ValueError(f"unknown mode {mode!r}")
     n = o.shape[0]
     dev = o.device
     kernel = use_kernel(ds, n, backend)
+    if kernel and torch.is_grad_enabled():
+        wants = [k for k, v in trace_mod.param_tensors(ds).items()
+                 if v.requires_grad]
+        wants += [k for k, v in (("o", o), ("d", d), ("time", time))
+                  if v.requires_grad]
+        if wants:
+            raise ValueError(
+                f"backend {backend!r} runs the bounce as the K3 kernel, "
+                f"which is forward-only, but {', '.join(wants)} require a "
+                "gradient: use backend 'xla', or torch.no_grad()")
     if kernel:
         k3 = kernel_launch(ds)
         o, d, time = o.contiguous(), d.contiguous(), time.contiguous()

@@ -21,7 +21,10 @@ Counterpart of the mesh half of the JAX package's `ops/trace.py`:
 * `tri_hit_gathered` recomputes one triangle per ray (attributes of the
   winner);
 * `trace` is the reference engine's closest hit over every class and the
-  media (the JAX package's `trace`), with its `Hit` record.
+  media (the JAX package's `trace`), with its `Hit` record;
+* `PARAMS`, `param_tensors` and `host_scene` name a device scene's
+  differentiable parameters (`parallel/mesh.extract_params`) and give
+  the numpy scene that carries their current values.
 
 Where the JAX package quietly takes another route (no `cl2_*` tables for
 binned2, too many clusters for the fused round), `check_route` raises.
@@ -76,7 +79,8 @@ def to_device(scene: T.Scene, device) -> _pytypes.SimpleNamespace:
     (`bvh_nodes`, `bvh_tris`) and both cluster partitions (the finer
     one's boxes also as `cl2_lo`/`cl2_hi`). `bvh.max_stack` is the
     deepest stack the BVH8 walk can reach on this tree. `host` is the
-    scene itself (the kernels' packing reads it)."""
+    scene itself; a kernel packs its tables from `host_scene(ds)`, which
+    reads the parameter leaves (`PARAMS`) from the tensors."""
     dev = torch.device(device)
     out = _pytypes.SimpleNamespace(host=scene, device=dev,
                                    **{f: getattr(scene, f) for f in _FLAGS})
@@ -130,7 +134,42 @@ def to_device(scene: T.Scene, device) -> _pytypes.SimpleNamespace:
         bvh.cl2_lo, bvh.cl2_hi = stream2_mod.boxes_lo_hi(
             bvh.cl2_boxes, bvh.cl2_gs.shape[0] - 1)
     out.tri_bvh = bvh
+    # K3's launch, prepared by integrator/wavefront.kernel_launch, and the
+    # parameter tensors it was packed from
+    out.k3, out.k3_stamp = None, ()
     return out
+
+
+# the differentiable scene parameters (the JAX package's
+# parallel/mesh.extract_params): leaf name -> (table, field) of a device
+# scene, the table None for the scene itself
+PARAMS = {"tex_color": ("textures", "color"), "tex_even": ("textures", "even"),
+          "tex_odd": ("textures", "odd"), "fuzz": ("materials", "fuzz"),
+          "ref_idx": ("materials", "ref_idx"),
+          "med_neg_inv_density": ("media", "neg_inv_density"),
+          "background": (None, "background")}
+
+
+def param_tensors(ds) -> dict:
+    """The device scene's parameter tensors by leaf name (`PARAMS`)."""
+    return {k: getattr(ds if tab is None else getattr(ds, tab), f)
+            for k, (tab, f) in PARAMS.items()}
+
+
+def host_scene(ds) -> T.Scene:
+    """ds's host scene with its parameter leaves read back from ds's own
+    tensors (detached): what a kernel packs its tables from, so that a
+    scene made by `parallel/mesh.apply_params`, or whose tensors were
+    updated in place, never runs with the parameters it was built with."""
+    p = {k: v.detach().cpu().numpy() for k, v in param_tensors(ds).items()}
+    s = ds.host
+    rep = lambda tab, **kw: dataclasses.replace(tab, **kw)
+    return dataclasses.replace(
+        s, textures=rep(s.textures, color=p["tex_color"], even=p["tex_even"],
+                        odd=p["tex_odd"]),
+        materials=rep(s.materials, fuzz=p["fuzz"], ref_idx=p["ref_idx"]),
+        media=rep(s.media, neg_inv_density=p["med_neg_inv_density"]),
+        background=p["background"])
 
 
 def _cross(a, b):
@@ -753,8 +792,8 @@ def trace(ds, o, d, time, u_med, t_min: float = T_MIN, t_max: float = INF,
                               min=0.0) * ray_len
         overlap = torch.where(m_ok, overlap, 0.0).detach()
         med_logp = -torch.sum(rho[None, :] * overlap, dim=1)
-        med_logp = med_logp + torch.where(is_medium, torch.log(rho[med_idx]),
-                                          0.0)
+        med_logp = med_logp + torch.where(
+            is_medium, torch.log(torch.index_select(rho, 0, med_idx)), 0.0)
     else:
         med_idx = torch.zeros((n,), dtype=torch.int64, device=dev)
         is_medium = torch.zeros((n,), dtype=torch.bool, device=dev)

@@ -24,8 +24,11 @@ Vec = Tuple[float, float, float]
 
 @dataclasses.dataclass
 class CameraArrays:
-    """Derived camera vectors (float32 numpy); `defocus_angle` gates the
-    thin-lens branch and `recip_spp_sqrt` scales the stratum jitter."""
+    """Derived camera vectors (float32 numpy, or float32 tensors: a
+    tensor that requires a gradient, e.g. `center` and `pixel00` moved by
+    a camera offset, keeps its graph through `generate_rays`);
+    `defocus_angle` gates the thin-lens branch and `recip_spp_sqrt` scales
+    the stratum jitter."""
 
     center: np.ndarray
     pixel00: np.ndarray
@@ -120,7 +123,8 @@ def generate_rays(arrays: CameraArrays, width: int, pixel_ids: torch.Tensor,
                   s_i: torch.Tensor, s_j: torch.Tensor, u: torch.Tensor):
     """Rays for flat pixel ids (row-major j*width+i) at stratum (s_i, s_j),
     from `u`, an (n, 5) float32 tensor of uniforms on the ids' device.
-    Returns (origin (n, 3), direction (n, 3), time (n,)).
+    Returns (origin (n, 3), direction (n, 3), time (n,)); where the
+    camera's vectors are tensors, the rays are differentiable in them.
 
     getRay (camera.go:256-270): stratified jitter in the pixel footprint,
     optional defocus-disk origin, uniform ray time for motion blur."""

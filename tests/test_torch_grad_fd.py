@@ -1,0 +1,338 @@
+"""The port's gradients against central finite differences: every check
+of tests/test_grad.py, on the port, with that file's scenes, sizes,
+tolerances and inputs. The port is fed the JAX package's own random
+streams (the per-level uniforms JAX's `radiance` draws from its key, the
+camera's uniforms, the rays' jitter), so each check runs on the very
+samples its JAX twin runs on; the estimators that agree with the FD only
+in expectation (ref_idx, the media density) are then held on the same
+sample sets. Common random numbers: both sides of a difference take the
+same uniforms."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from go_raytracer_tpu_torch.integrator import wavefront as twf
+from go_raytracer_tpu_torch.ops import trace as ttrace
+from go_raytracer_tpu_torch.parallel import mesh as tmesh
+from go_raytracer_tpu_torch.render import camera as tcam
+from go_raytracer_tpu_torch.scene import types as T
+from go_raytracer_tpu_torch.scene.builder import SceneBuilder
+from go_raytracer_tpu_torch.scenes import registry
+from tests.test_torch_wavefront import jax_uniforms
+
+torch.set_num_threads(2)
+
+
+def _radiance(ds, o, d, t, key, depth, max_c):
+    """The port's radiance on the uniforms JAX's radiance draws from key
+    (an int seed of jax.random.key, or a key)."""
+    key = jax.random.key(key) if isinstance(key, int) else key
+    us = jax_uniforms(key, depth + 1, o.shape[0], 9 + ds.media.kind.shape[0])
+    L, _ = twf.radiance(ds, o, d, t, None, depth, max_c, mode="scan",
+                        uniforms=torch.from_numpy(us))
+    return L
+
+
+def _jax_normal(seed, n):
+    return torch.from_numpy(np.array(jax.random.normal(
+        jax.random.key(seed), (n, 3))))
+
+
+def _jax_u_cam(key, n):
+    key = jax.random.key(key) if isinstance(key, int) else key
+    return torch.from_numpy(np.array(jax.random.uniform(
+        key, (n, tcam.N_U_RAYGEN))))
+
+
+def _device_scene(scene):
+    return ttrace.to_device(scene, "cpu")
+
+
+def _leaves(ds):
+    return {k: v.detach().clone().requires_grad_(True)
+            for k, v in tmesh.extract_params(ds).items()}
+
+
+def _shifted(params, path, idx, delta):
+    out = {k: v.detach().clone() for k, v in params.items()}
+    out[path][idx] += delta
+    return out
+
+
+def _grad(f, params):
+    """{leaf: gradient} of f(params), zero where f does not read a leaf."""
+    f(params).backward()
+    return {k: torch.zeros_like(v) if v.grad is None else v.grad
+            for k, v in params.items()}
+
+
+def _scene():
+    b = SceneBuilder(background=(0.0, 0.0, 0.0))
+    b.quad((-5, 0, -5), (10, 0, 0), (0, 0, 10), b.lambertian((0.6, 0.5, 0.4)))
+    q = b.quad((-1, 4, -1), (2, 0, 0), (0, 0, 2), b.diffuse_light((3, 3, 3)))
+    b.add_light(q)
+    return b.build()
+
+
+def _rays(n, o, d, jitter_seed=None, jitter=0.0):
+    """n rays from o toward d, the directions jittered as test_grad.py
+    jitters them (jax.random.normal of key jitter_seed)."""
+    oo = torch.tensor([o], dtype=torch.float32).repeat(n, 1)
+    dd = torch.tensor([d], dtype=torch.float32).repeat(n, 1)
+    if jitter_seed is not None:
+        dd = dd + _jax_normal(jitter_seed, n) * jitter
+    return oo, dd, torch.zeros(n)
+
+
+def _render_mean(ds, params, key, n=512, depth=4):
+    o, d, t = _rays(n, (0.0, 2.0, 3.0), (0.05, -0.6, -1.0))
+    return _radiance(tmesh.apply_params(ds, params), o, d, t, key, depth,
+                     1.5).mean()
+
+
+def _fd_check(f, params, path, idx, eps, rel, abs_tol=1e-4, min_mag=1e-5):
+    g = _grad(f, params)
+    fd = (float(f(_shifted(params, path, idx, eps)))
+          - float(f(_shifted(params, path, idx, -eps)))) / (2 * eps)
+    an = float(g[path][idx])
+    assert np.isfinite(an), (path, idx)
+    assert an == pytest.approx(fd, rel=rel, abs=abs_tol), (path, idx, an, fd)
+    assert abs(an) > min_mag, f"gradient unexpectedly zero for {path}{idx}"
+
+
+def test_grad_matches_finite_differences():
+    ds = _device_scene(_scene())
+    params = _leaves(ds)
+    f = lambda p: _render_mean(ds, p, 11)
+    g = _grad(f, params)
+    # the ground albedo's red channel and the light's red emission
+    for path, idx in [("tex_color", (0, 0)), ("tex_color", (1, 0))]:
+        eps = 1e-2
+        fd = (float(f(_shifted(params, path, idx, eps)))
+              - float(f(_shifted(params, path, idx, -eps)))) / (2 * eps)
+        an = float(g[path][idx])
+        assert an == pytest.approx(fd, rel=5e-2, abs=1e-4), (path, idx)
+        assert abs(an) > 1e-5, f"gradient unexpectedly zero for {path}{idx}"
+
+
+def test_grad_background():
+    ds = _device_scene(_scene())
+    g = _grad(lambda p: _render_mean(ds, p, 3), _leaves(ds))
+    # paths that bounce off the finite ground quad and escape carry
+    # throughput into the background term, in every channel
+    assert float(g["background"].abs().min()) > 1e-6
+    assert bool(torch.isfinite(g["background"]).all())
+
+
+def test_grad_fuzz_matches_fd():
+    """Metal fuzz is reparameterised (reflect + fuzz * unit vector): the
+    gradient flows fuzz -> bounce direction -> the wall's hit point ->
+    the light sample's geometry."""
+    b = SceneBuilder(background=(0.0, 0.0, 0.0))
+    b.quad((-20, 0, -20), (40, 0, 0), (0, 0, 40),
+           b.metal((0.9, 0.9, 0.9), 0.3))
+    b.quad((-20, -20, -8), (40, 0, 0), (0, 40, 0),
+           b.lambertian((0.7, 0.7, 0.7)))
+    q = b.quad((-1, 7, -5), (2, 0, 0), (0, 0, 2), b.diffuse_light((8, 8, 8)))
+    b.add_light(q)
+    ds = _device_scene(b.build())
+    o, d, t = _rays(4096, (0.0, 3.0, 4.0), (0.0, -0.55, -1.0))
+
+    def f(p):
+        L = _radiance(tmesh.apply_params(ds, p), o, d, t, 7, 3, 10.0)
+        return torch.nan_to_num(L).mean()
+
+    _fd_check(f, _leaves(ds), "fuzz", (0,), eps=2e-3, rel=0.15,
+              abs_tol=2e-3, min_mag=1e-4)
+
+
+def test_grad_ref_idx_matches_fd():
+    """The dielectric index through the Schlick choice's score-function
+    factor, on a glass pane between two emissive planes (its only
+    ref_idx sensitivity is the branch probability); the FD is averaged
+    over independent sample sets, since branch flips make the two agree
+    only in expectation."""
+    b = SceneBuilder(background=(0.0, 0.0, 0.0))
+    b.quad((-200, 0, -200), (400, 0, 0), (0, 0, 400),
+           b.diffuse_light((1, 1, 1)))
+    b.quad((-100, 2.5, -100), (0, 0, 200), (200, 0, 0), b.dielectric(1.5))
+    q = b.quad((-200, 9, 200), (0, 0, -400), (400, 0, 0),
+               b.diffuse_light((3, 3, 3)))
+    b.add_light(q)
+    scene = b.build()
+    ds = _device_scene(scene)
+    diel = int(np.argmax(scene.materials.kind == T.MAT_DIELECTRIC))
+    n = 8192
+
+    def f(p, k):
+        o, d, t = _rays(n, (0.0, 5.0, 6.0), (0.0, -0.6, -1.0), 100 + k, 0.1)
+        L = _radiance(tmesh.apply_params(ds, p), o, d, t, 200 + k, 3, 10.0)
+        return torch.nan_to_num(L).mean()
+
+    eps = 1e-2
+    ads, fds = [], []
+    for k in range(6):
+        params = _leaves(ds)
+        ads.append(float(_grad(lambda p: f(p, k), params)["ref_idx"][diel]))
+        fds.append((float(f(_shifted(params, "ref_idx", (diel,), eps), k))
+                    - float(f(_shifted(params, "ref_idx", (diel,), -eps), k)))
+                   / (2 * eps))
+    ad, fd = float(np.mean(ads)), float(np.mean(fds))
+    assert np.isfinite(ad) and abs(ad) > 1e-3
+    assert ad == pytest.approx(fd, rel=0.2, abs=0.02), (ad, fd)
+
+
+def test_grad_medium_density_matches_fd():
+    """The medium's density through the transit likelihood's score
+    channel (the sampled distances are detached: no double counting)."""
+    b = SceneBuilder(background=(0.0, 0.0, 0.0))
+    b.constant_medium_box((-2, -2, -2), (2, 2, 2), 0.4, albedo=(0.8, 0.8, 0.8))
+    q = b.quad((-3, -3, -6), (6, 0, 0), (0, 6, 0), b.diffuse_light((4, 4, 4)))
+    b.add_light(q)
+    ds = _device_scene(b.build())
+    o, d, t = _rays(8192, (0.0, 0.0, 5.0), (0.0, 0.0, -1.0), 4, 0.1)
+
+    def f(p):
+        L = _radiance(tmesh.apply_params(ds, p), o, d, t, 5, 6, 1.5)
+        return torch.nan_to_num(L).mean()
+
+    # the leaf is -1/density; denser fog attenuates the light behind it
+    _fd_check(f, _leaves(ds), "med_neg_inv_density", (0,), eps=2e-2,
+              rel=0.15, abs_tol=2e-3)
+
+
+def _camera_f(ds, arrays, width, depth, seed_cam=6, seed_path=8):
+    """f(delta): the mean radiance with the camera's center and pixel00
+    moved by delta (3,), the same uniforms (JAX's keys seed_cam and
+    seed_path) at every delta."""
+    n = width * width
+    ids = torch.arange(n)
+    zero = torch.zeros(())
+    u = _jax_u_cam(seed_cam, n)
+
+    def f(delta):
+        arr = dataclasses.replace(
+            arrays, center=torch.from_numpy(arrays.center) + delta,
+            pixel00=torch.from_numpy(arrays.pixel00) + delta)
+        o, d, t = tcam.generate_rays(arr, width, ids, zero, zero, u)
+        L = _radiance(ds, o, d, t, seed_path, depth, 1.5)
+        return torch.nan_to_num(L).mean()
+    return f
+
+
+def test_grad_camera_translation_matches_fd():
+    """Camera-origin gradient: translating the camera shifts center and
+    pixel00 together; generate_rays and the wavefront carry it."""
+    ds = _device_scene(_scene())
+    cam = tcam.Camera(width=16, aspect_ratio=1.0, samples_per_pixel=1,
+                      max_depth=3, vertical_fov=60)
+    cam.position((0, 2.5, 4), (0, 0, 0))
+    f = _camera_f(ds, cam.derived(), 16, 3)
+    delta = torch.zeros(3, requires_grad=True)
+    f(delta).backward()
+    g = delta.grad
+    assert bool(torch.isfinite(g).all())
+    for axis in range(3):
+        e = torch.zeros(3)
+        e[axis] = 1e-3
+        fd = (float(f(e)) - float(f(-e))) / 2e-3
+        assert float(g[axis]) == pytest.approx(fd, rel=0.1, abs=1e-3), axis
+    assert float(g.abs().max()) > 1e-4
+
+
+def test_grad_is_deterministic():
+    """Two CPU runs give the same gradient bit for bit (on the card a
+    gather's backward accumulates in atomic order: PERF.md)."""
+    ds = _device_scene(_scene())
+    g1 = _grad(lambda p: _render_mean(ds, p, 5), _leaves(ds))
+    g2 = _grad(lambda p: _render_mean(ds, p, 5), _leaves(ds))
+    for k in g1:
+        np.testing.assert_array_equal(g1[k].numpy(), g2[k].numpy())
+
+
+def test_grad_scale_cornell_fd():
+    """GRAD.md's pathwise rows (albedo, emission, background; rel 5%) on
+    the registry's cornellBox at 64x64 @ 8 spp (4 strata), depth 10."""
+    scene, cam = registry.cornell_box()
+    cam.width, cam.aspect_ratio = 64, 1.0
+    cam.samples_per_pixel, cam.max_depth = 8, 10
+    arrays = cam.derived()
+    npix = 64 * cam.image_height
+    sq = cam.spp_sqrt
+    ids = torch.arange(npix).repeat(sq * sq)
+    st = torch.arange(sq * sq).repeat_interleave(npix)
+    s_i = torch.div(st, sq, rounding_mode="floor").float()
+    s_j = (st % sq).float()
+    ds = _device_scene(scene)
+    params = _leaves(ds)
+    k_rays, k_path = jax.random.split(jax.random.key(5))
+    u = _jax_u_cam(k_rays, ids.shape[0])
+
+    def f(p):
+        o, d, t = tcam.generate_rays(arrays, 64, ids, s_i, s_j, u)
+        L = _radiance(tmesh.apply_params(ds, p), o, d, t, k_path,
+                      cam.max_depth, cam.max_contribution)
+        return torch.nan_to_num(L).mean()
+
+    g = _grad(f, params)
+    for leaf in g.values():
+        assert bool(torch.isfinite(leaf).all())
+    emit_rows = np.where(scene.materials.kind == T.MAT_DIFFUSE_LIGHT)[0]
+    emit_tex = int(scene.materials.tex_id[emit_rows[0]])
+    with torch.no_grad():
+        for path, idx, eps, rel in [("tex_color", (0, 0), 1e-2, 0.05),
+                                    ("tex_color", (emit_tex, 0), 1e-1, 0.05),
+                                    ("background", (1,), 1e-2, 0.05)]:
+            fd = (float(f(_shifted(params, path, idx, eps)))
+                  - float(f(_shifted(params, path, idx, -eps)))) / (2 * eps)
+            a = float(g[path][idx])
+            assert a == pytest.approx(fd, rel=rel, abs=5e-5), (path, idx)
+
+
+def _cam_grad_vs_fd(scene, eps=1e-3, depth=3):
+    """Camera-x translation at 64x64: (analytic, FD), common random
+    numbers."""
+    cam = tcam.Camera(width=64, aspect_ratio=1.0, samples_per_pixel=1,
+                      max_depth=depth, vertical_fov=50)
+    cam.position((0, 0, 6), (0, 0, 0))
+    f = _camera_f(_device_scene(scene), cam.derived(), 64, depth)
+    dx = torch.zeros(3, requires_grad=True)
+    f(dx).backward()
+    e = torch.tensor([eps, 0.0, 0.0])
+    with torch.no_grad():
+        fd = (float(f(e)) - float(f(-e))) / (2 * eps)
+    return float(dx.grad[0]), fd
+
+
+def _black_sphere(bg):
+    b = SceneBuilder(background=(bg,) * 3)
+    b.sphere((0.8, 0.0, 0.0), 1.0, b.lambertian((0.02, 0.02, 0.02)))
+    q = b.quad((50, 50, 50), (1, 0, 0), (0, 1, 0), b.diffuse_light((1, 1, 1)))
+    b.add_light(q)
+    return b.build()
+
+
+def test_grad_camera_boundary_term_controlled():
+    """A flat-radiance scene (a black sphere before a constant
+    background): no value a path computes depends on the camera origin,
+    so the interior derivative is zero, and the FD is the silhouette's
+    boundary term alone (pixel flips; edge sampling is out of scope)."""
+    g_s, fd_s = _cam_grad_vs_fd(_black_sphere(2.0))
+    assert abs(g_s) < 1e-6, g_s
+    assert abs(fd_s) > 0.05, fd_s
+
+
+def test_grad_camera_boundary_term_scales_with_jump():
+    """With the geometry (so the set of flipped pixels) held, the FD
+    residual scales with the silhouette's radiance jump: the background
+    brightness ratio."""
+    resids = []
+    for bg in (0.6, 2.0):
+        g, fd = _cam_grad_vs_fd(_black_sphere(bg))
+        assert abs(g) < 1e-6
+        resids.append(abs(fd - g))
+    assert resids[1] / resids[0] == pytest.approx(2.0 / 0.6, rel=0.1), resids
