@@ -214,10 +214,29 @@ Phases (any failure exits non-zero; nothing is swallowed):
      kernel), every leaf finite; five `make_train_step` steps on
      cornellBox at GRAD.md's scale toward a target rendered with the true
      parameters from a perturbed white wall and light: the loss falls;
+ 28. multi-device on a one-rank NCCL group (`parallel/distributed
+     .initialize` over a file:// rendezvous in a temporary directory; NCCL
+     runs a rank per GPU and the machine has one): the slice's main path,
+     `render_regen_sharded` on the cornellBox flagship at full registry
+     size under `queue_ik` (K1, K2; launch counts set to 0 before it and
+     read after), held to `render_regen` with the same seed bit for bit,
+     image and segments, and the same under `--direct-rec` (K9),
+     `queue` (K6, K7) and `positional` (K8); the `queue_ik` and `queue`
+     loop times of both in fresh calls, in turns; one window's sum and the
+     final gather
+     timed alone; modelExample at 4 spp (phase 26's cut) held to
+     `render_regen` bit for bit (K5, K3, K2); the sharded
+     `make_train_step` on a 1 x 1 mesh against the one-device step on the
+     same keyed uniforms at GRAD.md's 128x128 x 16 batches, three Adam
+     steps: losses within MULTI_LOSS_RTOL, gradients and leaves within
+     GRAD_RUN_TO_RUN; `render_sharded` on cornellBox at 1 spp (the
+     reference engine): finite, segments per path within phase 5's gate;
+     the group destroyed at the end;
 then the `kernels` JSON line (K1-K12; K1, K6 and K8 name their image
 variant, K3 its feature sets and its cap entry, K3, K6 and K8 their
-redesign, K5 its launches on phase 27's modelExample gradient), the
-nvidia-smi line, and the final
+redesign, K5 its launches on phase 27's modelExample gradient, K1-K3 and
+K5-K9 their launches in phase 28's sharded renders), the nvidia-smi line,
+and the final
 {"ok": true, "device": ...} line.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -700,6 +719,32 @@ GRAD_RUN_TO_RUN = 1e-3
 GRAD_CPU_RTOL, GRAD_LANE_TOL = 1e-3, 2e-3
 
 
+def zero_launches():
+    """Every kernel wrapper's launch count set to 0."""
+    from go_raytracer_tpu_torch.ops import bounce, harvest, stream, stream2
+    from go_raytracer_tpu_torch.ops import traverse, traverse8
+
+    bounce.launches = bounce.launches_bounce = bounce.launches_cap = 0
+    bounce.launches_fused = bounce.launches_fused_pos = 0
+    bounce.launches_direct = harvest.launches = harvest.launches_rows = 0
+    stream.launches = stream.launches_round = stream2.launches = 0
+    traverse.launches = traverse8.launches = 0
+
+
+def launch_counts():
+    """{kernel: launches since zero_launches}, K3's cap entry as "cap"."""
+    from go_raytracer_tpu_torch.ops import bounce, harvest, stream, stream2
+    from go_raytracer_tpu_torch.ops import traverse, traverse8
+
+    return dict(K1=bounce.launches, K2=harvest.launches,
+                K3=bounce.launches_bounce, cap=bounce.launches_cap,
+                K4=stream.launches, K5=traverse8.launches,
+                K6=bounce.launches_fused, K7=harvest.launches_rows,
+                K8=bounce.launches_fused_pos, K9=bounce.launches_direct,
+                K10=stream.launches_round, K11=stream2.launches,
+                K12=traverse.launches)
+
+
 def gradient_phase(dev, card):
     """Phase 27: the gradient path (autograd over the reference engine,
     `wavefront.radiance` mode "scan" backend "xla", then an MSE and an
@@ -728,13 +773,6 @@ def gradient_phase(dev, card):
                     + harvest.launches_rows + stream.launches
                     + stream.launches_round + stream2.launches
                     + traverse.launches)
-
-    def zero_launches():
-        bounce.launches = bounce.launches_bounce = bounce.launches_cap = 0
-        bounce.launches_fused = bounce.launches_fused_pos = 0
-        bounce.launches_direct = harvest.launches = harvest.launches_rows = 0
-        stream.launches = stream.launches_round = stream2.launches = 0
-        traverse.launches = traverse8.launches = 0
 
     def setup(name, width, spp, depth, device):
         scene, cam = getattr(registry, name)()
@@ -1019,6 +1057,267 @@ def gradient_phase(dev, card):
           f"{[round(x, 1) for x in train_ms]}, white-wall albedo "
           f"{summary['train']['albedo']}, emission "
           f"{summary['train']['emission']}")
+    return summary
+
+# the multi-device phase (28): a one-rank NCCL group (a rank per GPU, and
+# the machine has one card). MULTI_SEED seeds every render of the phase
+MULTI_SEED = 7
+MULTI_TIMEOUT_S = 300.0
+# the flagship's schedules, each held to render_regen bit for bit, and the
+# kernels each must launch under render_regen_sharded
+MULTI_SCHEDULES = (("queue_ik", {}, ("K1", "K2")),
+                   ("direct_rec", dict(direct_rec=True), ("K9", "K2")),
+                   ("queue", dict(schedule="queue"), ("K6", "K7")),
+                   ("positional", dict(schedule="positional"), ("K8",)))
+# modelExample cut as phase 26 cuts it, and render_sharded's cut
+MULTI_MODEL_SPP, MULTI_WAVEFRONT_SPP = 4, 1
+# the sharded train step against the one-device step on the same keyed
+# uniforms: losses (relative) and, at every step, each leaf's gradient
+# and value against its largest entry
+MULTI_LOSS_RTOL = 1e-5
+MULTI_TRAIN_STEPS = 3
+
+
+def multidevice_phase(dev, card):
+    """Phase 28: multi-device rendering and training on a one-rank NCCL
+    group (`parallel/distributed.initialize` over a file:// rendezvous in
+    a temporary directory, destroyed at the end). Returns its summary;
+    fails where the group does not form, a sharded render differs from
+    `render_regen` in one bit or does not launch its kernels, the sharded
+    train step leaves the one-device step's losses or leaves, or
+    `render_sharded` gives a non-finite image or segments per path off
+    phase 5's gate."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from go_raytracer_tpu_torch.integrator import regen
+    from go_raytracer_tpu_torch.ops import trace
+    from go_raytracer_tpu_torch.parallel import distributed
+    from go_raytracer_tpu_torch.parallel import mesh as pmesh
+    from go_raytracer_tpu_torch.scenes import registry
+
+    summary = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        check(distributed.initialize(f"file://{tmp}/rdzv", 1, 0, device=dev,
+                                     timeout=MULTI_TIMEOUT_S),
+              "distributed.initialize did not form the group")
+        try:
+            mesh = distributed.global_render_mesh()
+            check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1,)
+                  and mesh.device_type == "cuda",
+                  f"group {dist.get_backend()}, mesh {tuple(mesh.shape)} "
+                  f"on {mesh.device_type}")
+            print(f"[28] one-rank {dist.get_backend()} group on {card}: "
+                  f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}")
+            fscene, fcam = registry.cornell_box()
+
+            def both(scene, cam, **kw):
+                """render_regen_sharded, then render_regen, same seed:
+                (images, stats, launches) of each."""
+                out = []
+                for sharded in (True, False):
+                    zero_launches()
+                    if sharded:
+                        img, st = regen.render_regen_sharded(
+                            scene, cam, mesh, seed=MULTI_SEED, device=dev,
+                            **kw)
+                    else:
+                        img, st = regen.render_regen(
+                            scene, cam, seed=MULTI_SEED, device=dev, **kw)
+                    out.append((img, st, launch_counts()))
+                return out
+
+            rows = {}
+            for tag, kw, kernels in MULTI_SCHEDULES:
+                (img_s, st_s, l_s), (img_1, st_1, l_1) = both(
+                    fscene, fcam, **kw)
+                diff = float(np.abs(img_s - img_1).max())
+                rows[tag] = dict(
+                    equal=bool(np.array_equal(img_s, img_1)), max_diff=diff,
+                    segments=st_s["segments"],
+                    segments_regen=st_1["segments"],
+                    windows=st_s["windows"],
+                    loop_s=[st_s["elapsed_s"], st_1["elapsed_s"]],
+                    launches={k: l_s[k] for k in kernels},
+                    launches_regen={k: l_1[k] for k in kernels},
+                    segments_per_shard=st_s["segments_per_shard"])
+                print(f"[28] cornellBox flagship 600x600 100spp depth 50 "
+                      f"{tag} on {card}: render_regen_sharded vs render_regen"
+                      f" (seed {MULTI_SEED}): equal "
+                      f"{rows[tag]['equal']} (max diff {diff}), segments "
+                      f"{st_s['segments']} / {st_1['segments']}, windows "
+                      f"{st_s['windows']}, loop s {st_s['elapsed_s']:.5f} / "
+                      f"{st_1['elapsed_s']:.5f}, launches "
+                      f"{rows[tag]['launches']} / "
+                      f"{rows[tag]['launches_regen']}")
+                check(rows[tag]["equal"]
+                      and st_s["segments"] == st_1["segments"],
+                      f"{tag}: the one-rank sharded render is not "
+                      "render_regen's")
+                check(all(l_s[k] > 0 for k in kernels),
+                      f"{tag}: the sharded render did not launch {kernels}"
+                      f" ({l_s})")
+                check(st_s["devices"] == 1
+                      and st_s["segments_per_shard"] == [st_s["segments"]],
+                      f"{tag}: stats {st_s['devices']}, "
+                      f"{st_s['segments_per_shard']}")
+            # the loop time of both in fresh calls, in turns (the first
+            # pair above ran each schedule's first calls: allocations, and
+            # the group's first collective)
+            for tag, kw, _ in MULTI_SCHEDULES[::2]:
+                loops = {"sharded": [], "regen": []}
+                for sharded in (False, True, True, False):
+                    if sharded:
+                        st = regen.render_regen_sharded(
+                            fscene, fcam, mesh, seed=MULTI_SEED, device=dev,
+                            **kw)[1]
+                    else:
+                        st = regen.render_regen(fscene, fcam, seed=MULTI_SEED,
+                                                device=dev, **kw)[1]
+                    loops["sharded" if sharded else "regen"].append(
+                        st["elapsed_s"])
+                rows[tag]["loops"] = loops
+                print(f"[28] {tag} flagship loop s, in turns (regen, sharded,"
+                      f" sharded, regen) on {card}: sharded "
+                      f"{[round(x, 5) for x in loops['sharded']]}, "
+                      f"render_regen {[round(x, 5) for x in loops['regen']]}"
+                      f", {rows[tag]['windows']} window(s)")
+            # the collectives alone: one window's sum, the final gather
+            shard = regen.Shard(0, 1, mesh.get_group(0))
+            red = torch.zeros(3, dtype=torch.int64, device=dev)
+            acc = torch.zeros((fcam.width * fcam.image_height
+                               * fcam.spp_sqrt ** 2, 3),
+                              dtype=torch.float32, device=dev)
+            coll = dict(
+                sum_ms=time_ms(lambda: dist.all_reduce(
+                    red, group=shard.group), 100),
+                sum_host_us=host_us(lambda: dist.all_reduce(
+                    red, group=shard.group)),
+                gather_ms=time_ms(lambda: shard.gather(acc), 3),
+                gather_bytes=acc.numel() * 4)
+            del acc
+            torch.cuda.empty_cache()
+            rows["collectives"] = coll
+            print(f"[28] collectives on {card}: one window's sum (3 int64, "
+                  f"NCCL all_reduce) {coll['sum_ms']:.5f} ms, host "
+                  f"{coll['sum_host_us']:.1f} us; the accumulator's gather "
+                  f"({coll['gather_bytes']} B) {coll['gather_ms']:.4f} ms")
+
+            # modelExample, cut in spp as phase 26 cuts it
+            mscene, mcam = registry.model_example()
+            mcam.samples_per_pixel = MULTI_MODEL_SPP
+            (img_s, st_s, l_s), (img_1, st_1, l_1) = both(mscene, mcam)
+            rows["model_example"] = dict(
+                equal=bool(np.array_equal(img_s, img_1)),
+                max_diff=float(np.abs(img_s - img_1).max()),
+                segments=[st_s["segments"], st_1["segments"]],
+                loop_s=[st_s["elapsed_s"], st_1["elapsed_s"]],
+                launches={k: l_s[k] for k in ("K5", "K3", "cap", "K2")})
+            print(f"[28] modelExample 600x337 @ {MULTI_MODEL_SPP} spp "
+                  f"(route {st_s['mesh']['route']}) on {card}: sharded vs "
+                  f"render_regen: " + json.dumps(rows["model_example"]))
+            check(rows["model_example"]["equal"]
+                  and st_s["segments"] == st_1["segments"]
+                  and np.isfinite(img_s).all(),
+                  "modelExample: the one-rank sharded render is not "
+                  "render_regen's")
+            check(all(v > 0 for v in rows["model_example"]["launches"]
+                      .values()),
+                  f"modelExample: kernels not launched {l_s}")
+
+            # the sharded train step against the one-device step
+            scene, cam = registry.cornell_box()
+            cam.width, cam.aspect_ratio = GRAD_WIDTH, 1.0
+            cam.max_depth = GRAD_DEPTH
+            npix = GRAD_WIDTH * GRAD_WIDTH
+            ids = pmesh.pixel_ids(npix, GRAD_SPP, dev)
+            with torch.no_grad():
+                target, _ = pmesh.render_batches(
+                    trace.to_device(scene, dev), cam.derived(), GRAD_WIDTH,
+                    ids, GRAD_DEPTH, cam.max_contribution,
+                    torch.Generator(device=dev).manual_seed(99))
+            light = int(scene.materials.tex_id[
+                np.where(scene.materials.kind == 3)[0][0]])
+            runs = {}
+            train_mesh = pmesh.make_mesh(1)
+            for tag, m in (("one_device", None), ("sharded", train_mesh)):
+                step, params, _ = pmesh.make_train_step(
+                    scene, cam, n_rays=npix, n_sample_batches=GRAD_SPP,
+                    max_depth=GRAD_DEPTH, learning_rate=0.1, device=dev,
+                    generator=pmesh.KeyedUniforms(1), mesh=m)
+                with torch.no_grad():
+                    params["tex_color"][1] = torch.tensor([0.3, 0.3, 0.3],
+                                                          device=dev)
+                    params["tex_color"][light] *= 0.4
+                losses, grads, ms = [], [], []
+                for _ in range(MULTI_TRAIN_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses.append(step(params, ids, target))
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    grads.append({k: p.grad.clone() for k, p in
+                                  params.items()})
+                runs[tag] = (losses, grads, params, ms)
+
+            def rel(a, b):
+                scale = float(b.abs().max())
+                return float((a - b).abs().max()) / scale if scale > 0 \
+                    else float((a - b).abs().max())
+
+            (l1, g1, p1, ms1), (ls_, gs, ps, mss) = runs["one_device"], \
+                runs["sharded"]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ls_, l1))
+            grad_rel = max(rel(a[k], b[k]) for a, b in zip(gs, g1)
+                           for k in b)
+            leaf_rel = max(rel(ps[k].detach(), p1[k].detach()) for k in p1)
+            rows["train"] = dict(losses=ls_, losses_one_device=l1,
+                                 loss_rel=loss_rel, grad_rel=grad_rel,
+                                 leaf_rel=leaf_rel, step_ms=mss,
+                                 step_ms_one_device=ms1)
+            print(f"[28] sharded make_train_step (1 x 1 mesh) vs the "
+                  f"one-device step, cornellBox {GRAD_WIDTH}x{GRAD_WIDTH}, "
+                  f"{GRAD_SPP} batches, depth {GRAD_DEPTH}, KeyedUniforms(1),"
+                  f" {MULTI_TRAIN_STEPS} Adam steps on {card}: losses "
+                  f"{[round(x, 7) for x in ls_]} / "
+                  f"{[round(x, 7) for x in l1]} (rel {loss_rel:.3g}), "
+                  f"gradients {grad_rel:.3g}, leaves {leaf_rel:.3g} of their"
+                  f" largest; step ms {[round(x, 1) for x in mss]} / "
+                  f"{[round(x, 1) for x in ms1]}")
+            check(np.isfinite(ls_).all() and loss_rel <= MULTI_LOSS_RTOL
+                  and grad_rel <= GRAD_RUN_TO_RUN
+                  and leaf_rel <= GRAD_RUN_TO_RUN,
+                  f"sharded train step off the one-device step: "
+                  f"{rows['train']}")
+            del runs, g1, gs, p1, ps
+            torch.cuda.empty_cache()
+
+            # render_sharded on cornellBox, cut in spp
+            wcam = registry.cornell_box()[1]
+            wcam.samples_per_pixel = MULTI_WAVEFRONT_SPP
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, st = pmesh.render_sharded(fscene, wcam, mesh,
+                                           seed=MULTI_SEED, device=dev)
+            wall = time.perf_counter() - t0
+            npx = wcam.width * wcam.image_height
+            ratio = st["segments"] / npx
+            rows["render_sharded"] = dict(
+                segments=st["segments"], per_path=ratio, wall_s=wall,
+                means=img.reshape(-1, 3).mean(0).tolist(),
+                launches=sum(launch_counts().values()))
+            print(f"[28] render_sharded cornellBox 600x600 @ "
+                  f"{MULTI_WAVEFRONT_SPP} spp depth 50 (the reference "
+                  f"engine, backend xla, mode while) on {card}: "
+                  + json.dumps(rows["render_sharded"]))
+            check(np.isfinite(img).all() and 2.78 <= ratio <= 3.08,
+                  f"render_sharded: {rows['render_sharded']}")
+        finally:
+            dist.destroy_process_group()
+    summary.update(rows)
     return summary
 
 
@@ -1607,14 +1906,7 @@ def main():
 
     # ---- 9. a small scene-8 render: kernels against plain versions ------
     phase_start(9)
-    def reset_counts():
-        bounce.launches = bounce.launches_bounce = 0
-        bounce.launches_cap = 0
-        bounce.launches_fused = bounce.launches_fused_pos = 0
-        bounce.launches_direct = 0
-        harvest.launches = harvest.launches_rows = 0
-        stream.launches = traverse8.launches = 0
-        stream.launches_round = stream2.launches = traverse.launches = 0
+    reset_counts = zero_launches
 
     # 32,768 lanes hold all 20,736 paths at once, so every path keeps its
     # lane and its random numbers in both renders, and a lane that K3's
@@ -4246,8 +4538,18 @@ def main():
     grad = gradient_phase(dev, card)
     print("[27] gradient rows (PERF.md): " + json.dumps(grad))
 
+    # ---- 28. multi-device on a one-rank NCCL group ---------------------
+    phase_start(28)
+    multi = multidevice_phase(dev, card)
+    print("[28] multi-device rows (PERF.md): " + json.dumps(multi))
+    sharded = {k: v for tag in ("queue_ik", "direct_rec", "queue",
+                                "positional", "model_example")
+               for k, v in multi[tag]["launches"].items()}
+    sharded["K2"] = multi["queue_ik"]["launches"]["K2"]
+
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",
+         "launches_sharded": sharded["K1"],
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_q.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:2196",
          "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
@@ -4255,12 +4557,14 @@ def main():
          "bound_by": k1_bound_by, "library_ms": None,
          "variants": img_variant["bounce_fused_q"]},
         {"name": "reverse_harvest_levels", "route": "cuda",
+         "launches_sharded": sharded["K2"],
          "source": "go_raytracer_tpu_torch/ops/csrc/harvest.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/harvest.py:273",
          "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None},
         {"name": "bounce", "route": "cuda",
+         "launches_sharded": sharded["K3"],
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:1245",
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
@@ -4280,6 +4584,7 @@ def main():
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
          "library_ms": None},
         {"name": "bvh8_closest", "route": "cuda",
+         "launches_sharded": sharded["K5"],
          "source": "go_raytracer_tpu_torch/ops/csrc/traverse8.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/traverse8.py:238",
          "launches": k5_launches, "max_abs_err": k5_err,
@@ -4288,6 +4593,7 @@ def main():
          "library_ms": None,
          "launches_grad": grad["model_example"]["launches"]["K5"]},
         {"name": "bounce_fused", "route": "cuda",
+         "launches_sharded": sharded["K6"],
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:1577",
          "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_ms,
@@ -4296,12 +4602,14 @@ def main():
          "variants": img_variant["bounce_fused"],
          "redesign": REDESIGN_SCAN},
         {"name": "reverse_harvest", "route": "cuda",
+         "launches_sharded": sharded["K7"],
          "source": "go_raytracer_tpu_torch/ops/csrc/harvest_rows.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/harvest.py:225",
          "launches": k7_launches, "max_abs_err": k7_err, "ms": k7_ms,
          "plain_ms": k7_plain_ms, "bound_ms": k7_bound, "bound_by": "bytes",
          "library_ms": None},
         {"name": "bounce_fused_pos", "route": "cuda",
+         "launches_sharded": sharded["K8"],
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_pos.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:1842",
          "launches": k8_launches, "max_abs_err": k8_err, "ms": k8_ms,
@@ -4310,6 +4618,7 @@ def main():
          "variants": img_variant["bounce_fused_pos"],
          "redesign": REDESIGN_SCAN},
         {"name": "bounce_fused_q_direct", "route": "cuda",
+         "launches_sharded": sharded["K9"],
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_q.cu",
          "replaces": "go_raytracer_tpu/ops/pallas/bounce.py:2343",
          "launches": k9_launches, "max_abs_err": k9_err, "ms": k9_ms,

@@ -34,6 +34,21 @@ def mix32(x):
     return x ^ (x >> 16)
 
 
+def bits_to_u01(bits):
+    """23 hash bits -> the mantissa of a float in [1, 2) -> minus 1: a
+    float32 uniform in [0, 1)."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def keyed_u01(counter, key: int):
+    """Uniforms in [0, 1) from a counter-based hash: counter (an int64
+    tensor of non-negative counts) under a 32-bit key. mix32 is a
+    bijection of 32-bit words, so distinct counters below 2^32 hash to
+    distinct words (the uniform keeps the top 23 bits of its word)."""
+    return bits_to_u01(mix32(mix32(counter & M32) ^ key ^ (counter >> 32)))
+
+
 def unit_disk(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     """Uniform point on the unit disk, (..., 2). Distributionally equal to
     the rejection sampler vec/vec.go:149-156: radius = sqrt(U) gives the

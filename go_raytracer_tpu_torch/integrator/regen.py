@@ -40,6 +40,12 @@ These are the JAX package's `queue_ik`, `queue` (fused harvest) and
 `positional` schedules on its fused-kernel branch, its `queue` schedule on
 the external-mesh-hit path, and its `queue` and `positional` schedules on
 the whole-XLA `wavefront._bounce` (integrator/regen.py there).
+
+`render_regen_sharded` runs any of them over the ranks of a
+`torch.distributed` group: each rank renders its own item range (or, under
+`positional`, its slice of a global lane pool) with its own random
+streams, the ranks sum three counts after each window, and the
+accumulators are gathered once at the end.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from go_raytracer_tpu_torch.integrator import wavefront
 from go_raytracer_tpu_torch.ops import bounce as bounce_mod
@@ -189,12 +196,19 @@ def _resolve_cadence(cadence: int, cam) -> int:
     return cam.regen_cadence if getattr(cam, "regen_cadence", 0) > 0 else 1
 
 
-def window_seeds(seed: int, w: int, outer: int) -> torch.Tensor:
+def _stream_key(seed: int, w: int, rank: int) -> int:
+    """The 63-bit key of window `w` of rank `rank`'s stream. Rank 0's key
+    is (seed, w)'s alone, so a one-rank sharded render draws
+    `render_regen`'s numbers."""
+    return (seed * 0x9E3779B97F4A7C15 + w + (rank << 40)) & ((1 << 63) - 1)
+
+
+def window_seeds(seed: int, w: int, outer: int, rank: int = 0) -> torch.Tensor:
     """The (outer,) int32 per-kernel-call seeds of window `w`, from an
-    explicit torch.Generator keyed by (seed, w): a resumed render draws
-    the same seeds for the same window."""
-    g = torch.Generator().manual_seed(
-        (seed * 0x9E3779B97F4A7C15 + w) & ((1 << 63) - 1))
+    explicit torch.Generator keyed by (seed, w, rank): a resumed render
+    draws the same seeds for the same window, and each rank of a sharded
+    render its own."""
+    g = torch.Generator().manual_seed(_stream_key(seed, w, rank))
     return torch.randint(INT32_MIN, INT32_MAX, (outer,), generator=g,
                          dtype=torch.int64).to(torch.int32)
 
@@ -507,11 +521,13 @@ def _pos_window(tables, statics, cam_row, bg, B, state, quota, first_pix,
 MESH_MAX_LANES = 1 << 16
 
 
-def window_generator(seed: int, w: int, device) -> torch.Generator:
-    """The random stream of window `w` on `device`, keyed by (seed, w): a
-    resumed render draws the same numbers for the same window."""
+def window_generator(seed: int, w: int, device,
+                     rank: int = 0) -> torch.Generator:
+    """The random stream of window `w` on `device`, keyed by (seed, w,
+    rank): a resumed render draws the same numbers for the same window,
+    and each rank of a sharded render its own."""
     g = torch.Generator(device=device)
-    g.manual_seed((seed * 0x9E3779B97F4A7C15 + w) & ((1 << 63) - 1))
+    g.manual_seed(_stream_key(seed, w, rank))
     return g
 
 
@@ -679,9 +695,10 @@ def refill_lanes(arrays, state, cursor, gen, do_refill: bool, item_end: int,
 def _mesh_window(ctx: MeshContext, acc, state, next_item: int, gen,
                  item_end: int, *, width, npix, sqrt_spp, window, refill,
                  max_depth, max_contribution, bufs: WindowBuffers,
-                 cadence: int = 1):
+                 cadence: int = 1, item_base: int = 0):
     """One window of the `queue` schedule's unfused path over items
-    [next_item, item_end): `window` levels of refill (at the levels of the
+    [next_item, item_end), written to `acc` at rows relative to
+    `item_base`: `window` levels of refill (at the levels of the
     first `refill` that are multiples of `cadence`), camera rays, one draw
     of uniforms and `ctx.bounce_level` (the ext-mode kernel on a mesh
     scene it carries, else the reference engine's bounce), recorded as
@@ -740,7 +757,7 @@ def _mesh_window(ctx: MeshContext, acc, state, next_item: int, gen,
     next_item = int(cursor)
     harvest_mod.harvest_levels_into(
         acc, *(r[:s_run] for r in bufs.rec), bufs.base.reshape(-1),
-        item_base=0, s_run=s_run, refill_levels=refill,
+        item_base=item_base, s_run=s_run, refill_levels=refill,
         max_contribution=max_contribution)
     return [o, d, t, alive, depth], next_item, segments, s_run
 
@@ -878,6 +895,46 @@ def _window_pipeline(dispatch, total_items, n_windows, bar,
     return next_i, segments, n_windows, window_times
 
 
+@dataclasses.dataclass
+class Shard:
+    """A rank's place in a sharded render: rank `index` of the `count`
+    ranks of the process group `group` (None: the default group)."""
+
+    index: int
+    count: int
+    group: object = None
+
+    def lockstep(self, dispatch, cursor_base: int, device):
+        """`dispatch` for `_window_pipeline` in lockstep over the group:
+        after this rank's window, one int64 tensor on the device [items
+        started over all ranks, segments over all ranks, levels] is summed
+        over the group (on NCCL the host does not wait for it) and is read
+        one window late, as the pipeline reads a one-device window. Every
+        rank makes the same decisions from the same sums, so every rank
+        runs, and joins the reduction of, every window: a rank whose
+        items have all started runs windows that start nothing until the
+        last rank's items have. `cursor_base` is where this rank's cursor
+        (cur[0]) starts. Returns (the wrapped dispatch, a 0-d int64 device
+        tensor counting this rank's segments)."""
+        seg = torch.zeros((), dtype=torch.int64, device=device)
+
+        def run(wi):
+            cur = dispatch(wi).to(device)
+            seg.add_(cur[1])
+            red = torch.stack([cur[0] - cursor_base, cur[1], cur[2]])
+            dist.all_reduce(red, group=self.group)
+            return red
+        return run, seg
+
+    def gather(self, t):
+        """Every rank's `t`, stacked in rank order: (count, *t.shape), on
+        every rank."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.count)]
+        dist.all_gather(parts, t, group=self.group)
+        return torch.stack(parts)
+
+
 def _assemble_image(acc, *, total_items, n_strata, npix, h, w):
     """Mean over strata (item = stratum * npix + pixel) -> (h, w, 3)."""
     return acc[:total_items].reshape(n_strata, npix, 3).mean(dim=0) \
@@ -891,7 +948,8 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                  traverse8: bool = True, direct_rec: bool = False,
                  backend: str = "auto",
                  checkpoint_path=None, checkpoint_every: int = 4,
-                 scene_name: str = "", verbose: bool = False):
+                 scene_name: str = "", verbose: bool = False,
+                 shard: Optional["Shard"] = None):
     """Render the full image with ray regeneration on `device` (default
     CUDA; "cpu" runs the kernels' plain versions). Returns (linear image
     (H, W, 3) float32 numpy, stats).
@@ -929,7 +987,10 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     Checkpoint/resume: between windows no path is in flight, so
     (accumulator, cursor, window count) is a consistent checkpoint, and a
     matching one resumes where it stopped; "positional" stores its (3, G,
-    N) accumulator and the per-lane start counts `k`."""
+    N) accumulator and the per-lane start counts `k`.
+
+    `shard` (`render_regen_sharded` passes it) renders one rank's share of
+    a sharded render and returns the whole image on every rank."""
     from go_raytracer_tpu_torch.render import checkpoint as checkpoint_mod
     from go_raytracer_tpu_torch.utils import progress
 
@@ -937,6 +998,8 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         raise ValueError(
             "direct_rec: the direct-record path excludes scenes with image "
             "textures, as in the JAX package")
+    if shard and checkpoint_path:
+        raise ValueError("a sharded render keeps no checkpoint")
     if backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
     # the JAX package's choice: the fused kernels where they carry the
@@ -983,8 +1046,13 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     d1 = cam.max_depth + 1
     n = n_lanes
     unfused = not use_fused
+    n_rank, rank = (shard.count, shard.index) if shard else (1, 0)
+    # this rank's items [item_base, item_end), as the JAX package splits them
+    chunk = -(-total_items // n_rank)
+    item_base = min(rank * chunk, total_items)
+    item_end = min(item_base + chunk, total_items)
     refill = refill_len or (
-        _auto_refill(total_items, n, d1, cadence, cam)
+        _auto_refill(chunk, n, d1, cadence, cam)
         if schedule == "queue_ik" else 4 * d1)
     if unfused and scene.has_tri_bvh:
         # the JAX package's mesh-scene settings off the fused kernels
@@ -1023,12 +1091,17 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     start_i = 0
     k_resume = None
     if positional:
-        quota, lane_base, first_pix, G = pos_tables(npix, n_strata, n)
+        # a sharded render's global pool of n_rank * n lanes: this rank
+        # runs its slice of the lanes' blocks
+        quota, lane_base, first_pix, G = pos_tables(npix, n_strata,
+                                                    n_rank * n)
+        lanes = slice(rank * n, (rank + 1) * n)
+        quota, lane_base = quota[lanes], lane_base[lanes]
         acc = torch.zeros((3, G, n), dtype=torch.float32, device=device)
         meta["schedule"] = np.bytes_(b"positional")
     else:
         # `n_lanes` tail rows absorb the plain harvest's row-tail writes
-        acc = torch.zeros((total_items + n, 3), dtype=torch.float32,
+        acc = torch.zeros((chunk + n, 3), dtype=torch.float32,
                           device=device)
     if checkpoint_path:
         loaded = checkpoint_mod.load(checkpoint_path)
@@ -1046,7 +1119,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     if positional and unfused:
         quota_dev = torch.from_numpy(quota).to(device)
         lane_base_dev = torch.from_numpy(lane_base).to(device)
-        first_pix_dev = torch.from_numpy(first_pix).to(device)
+        first_pix_dev = torch.from_numpy(first_pix[lanes]).to(device)
         state = state + [torch.zeros(n, dtype=torch.int64, device=device)
                          if k_resume is None else
                          torch.from_numpy(np.asarray(k_resume, np.int64))
@@ -1055,19 +1128,20 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         state = _init_state_pos(n, device, quota, lane_base, n_strata, w,
                                 k=k_resume)
         quota_dev = torch.from_numpy(quota).to(device)
-        first_pix_dev = torch.from_numpy(first_pix.astype(np.float32)) \
-            .to(device)
+        first_pix_dev = torch.from_numpy(
+            first_pix[lanes].astype(np.float32)).to(device)
     bar.tick(start_i)
-    next_dev = torch.tensor([start_i], dtype=torch.int32, device=device)
+    next_dev = torch.tensor([item_base + start_i], dtype=torch.int32,
+                            device=device)
 
     def dispatch_mesh(wi):
         nonlocal state, next_host
         state, next_host, segs, s_run = _mesh_window(
-            ctx, acc, state, next_host, window_generator(seed, wi, device),
-            total_items, width=w, npix=npix, sqrt_spp=sqrt_spp,
-            window=window, refill=refill, max_depth=cam.max_depth,
-            max_contribution=cam.max_contribution, bufs=bufs,
-            cadence=cadence)
+            ctx, acc, state, next_host,
+            window_generator(seed, wi, device, rank), item_end, width=w,
+            npix=npix, sqrt_spp=sqrt_spp, window=window, refill=refill,
+            max_depth=cam.max_depth, max_contribution=cam.max_contribution,
+            bufs=bufs, cadence=cadence, item_base=item_base)
         ctx.counters["levels"] = ctx.counters.get("levels", 0) + s_run
         return torch.tensor([next_host, segs, s_run], dtype=torch.int64)
 
@@ -1075,21 +1149,22 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         nonlocal state
         _, state, cur = _pos_window_unfused(
             ctx, acc, state, quota_dev, lane_base_dev, first_pix_dev,
-            window_generator(seed, wi, device), width=w, n_strata=n_strata,
+            window_generator(seed, wi, device, rank), width=w,
+            n_strata=n_strata,
             sqrt_spp=sqrt_spp, G=G, window=window, refill=refill,
             cadence=cadence, max_depth=cam.max_depth,
             max_contribution=cam.max_contribution)
         ctx.counters["levels"] = ctx.counters.get("levels", 0) + window
         return cur
 
-    next_host = start_i
+    next_host = item_base + start_i
 
     def dispatch(wi):
         nonlocal next_dev
-        seeds = window_seeds(seed, wi, outer)
+        seeds = window_seeds(seed, wi, outer, rank)
         _, _, cur = _window_impl(
             tables, statics, cam_row, bg, acc, state, next_dev, seeds,
-            0, total_items, width=w, npix=npix, sqrt_spp=sqrt_spp,
+            item_base, item_end, width=w, npix=npix, sqrt_spp=sqrt_spp,
             window=window, refill=refill, cadence=cadence,
             max_depth=cam.max_depth, max_contribution=cam.max_contribution,
             has_defocus=defocus, bufs=bufs, direct_rec=direct_rec)
@@ -1097,18 +1172,19 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         return cur
 
     def device_seeds(wi):
-        seeds = window_seeds(seed, wi, outer)
+        seeds = window_seeds(seed, wi, outer, rank)
         # pinned + non_blocking: a pageable copy would wait for the stream
         return (seeds.pin_memory() if device.type == "cuda" else seeds) \
             .to(device, non_blocking=True)
 
-    next_q = torch.tensor(start_i, dtype=torch.int64, device=device)
+    next_q = torch.tensor(item_base + start_i, dtype=torch.int64,
+                          device=device)
 
     def dispatch_queue(wi):
         nonlocal next_q
         _, _, cur = _queue_window(
             tables, statics, cam_row, bg, acc, state, next_q,
-            device_seeds(wi), 0, total_items, width=w, npix=npix,
+            device_seeds(wi), item_base, item_end, width=w, npix=npix,
             sqrt_spp=sqrt_spp, window=window, refill=refill, cadence=cadence,
             max_depth=cam.max_depth, max_contribution=cam.max_contribution,
             has_defocus=defocus, bufs=bufs)
@@ -1141,6 +1217,9 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     else:
         dispatch_fn = {"queue_ik": dispatch, "queue": dispatch_queue,
                        "positional": dispatch_pos}[schedule]
+    if shard:
+        dispatch_fn, seg_rank = shard.lockstep(
+            dispatch_fn, 0 if positional else item_base, device)
     next_i, segments, n_windows, window_times = _window_pipeline(
         dispatch_fn,
         total_items, n_windows, bar,
@@ -1152,8 +1231,14 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     elapsed = _time.perf_counter() - t0
 
     if positional:
+        if shard:
+            # (n_rank, 3, G, n) -> (3, G, n_rank * n), lane = rank * n + i
+            acc = shard.gather(acc).permute(1, 2, 0, 3).reshape(
+                3, G, n_rank * n)
         linear = pos_film(acc.cpu().numpy(), first_pix, npix, n_strata, h, w)
     else:
+        if shard:
+            acc = shard.gather(acc[:chunk]).reshape(n_rank * chunk, 3)
         linear = _assemble_image(acc, total_items=total_items,
                                  n_strata=n_strata, npix=npix, h=h, w=w) \
             .cpu().numpy()
@@ -1166,7 +1251,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         "windows": n_windows,
         "window_s": window_times,
         "schedule": schedule,
-        "occupancy": segments / max(n_windows * window * n, 1),
+        "occupancy": segments / max(n_windows * window * n * n_rank, 1),
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "nonfinite": int((~np.isfinite(linear)).sum()),
@@ -1181,4 +1266,61 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                 **ctx.route))
     if schedule == "queue_ik":
         stats["direct_rec"] = direct_rec
+    if shard:
+        per = shard.gather(seg_rank.reshape(1)).reshape(-1).tolist()
+        stats.update(devices=n_rank, segments_per_shard=per,
+                     work_balance=min(per) / max(max(per), 1))
     return linear, stats
+
+
+def render_regen_sharded(scene: T.Scene, cam: camera_mod.Camera, mesh,
+                         seed: int = 0, n_lanes: int = 1 << 17,
+                         refill_len: int = 0, cadence: int = 0,
+                         backend: str = "auto", reorder="auto",
+                         schedule: str = "auto", device=None,
+                         mesh_route: str = "auto", direct_rec: bool = False):
+    """`render_regen` over the ranks of a 1-D device mesh
+    (`parallel/mesh.make_mesh(axes=("data",))`, or the JAX package's
+    (n, 1) meshes): every rank of the mesh calls it with the same
+    arguments and gets the whole image (H, W, 3) and the stats.
+
+    Rank r owns the items [r * chunk, min((r + 1) * chunk, total)), chunk
+    = ceil(total / ranks), and runs its own pool of `n_lanes` lanes over
+    them on `device` (CUDA unless the caller asks for the CPU; the mesh's
+    device type). Its window seeds and random streams are keyed by (seed,
+    r, window), rank 0's as `render_regen`'s, so a one-rank mesh renders
+    `render_regen`'s image and segments bit for bit. Under `positional`
+    the global pool of ranks * n_lanes lanes owns the static item blocks
+    (`pos_tables`) and rank r runs lanes [r * n_lanes, (r + 1) * n_lanes).
+    No collective runs inside a window; after each, one small sum over
+    the ranks (`Shard.lockstep`), read one window late; at the end one
+    gather of the accumulators. Stats add `devices`,
+    `segments_per_shard` and `work_balance` (the least over the most);
+    `occupancy` counts every rank's lanes.
+
+    Options as `render_regen`'s, with its "auto" resolution and its
+    refusals; `mesh_route` is its `mesh` (the closest-hit route of a mesh
+    scene). `reorder`: "auto" and False run without the lane coherence
+    sort (the JAX package's "auto" is off); True raises
+    NotImplementedError, the sort is not ported (ROADMAP.md §1)."""
+    if reorder is True:
+        raise NotImplementedError(
+            "reorder=True: the lane coherence sort is not ported yet "
+            "(ROADMAP.md §1, item 3); 'auto' and False run without it, as "
+            "the JAX package's 'auto' does")
+    if reorder not in ("auto", False):
+        raise ValueError(f"reorder must be 'auto', True or False, not "
+                         f"{reorder!r}")
+    if any(k != 1 for k in mesh.shape[1:]):
+        raise ValueError(f"render_regen_sharded expects a 1-D mesh, not "
+                         f"one of shape {tuple(mesh.shape)}")
+    device = resolve_device(device)
+    if device.type != mesh.device_type:
+        raise ValueError(f"the mesh's ranks run on {mesh.device_type}, "
+                         f"the render on {device}")
+    shard = Shard(index=mesh.get_local_rank(0), count=mesh.size(0),
+                  group=mesh.get_group(0))
+    return render_regen(scene, cam, seed=seed, n_lanes=n_lanes,
+                        refill_len=refill_len, cadence=cadence,
+                        schedule=schedule, device=device, mesh=mesh_route,
+                        direct_rec=direct_rec, backend=backend, shard=shard)

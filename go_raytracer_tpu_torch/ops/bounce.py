@@ -366,12 +366,7 @@ def pack_camera(arrays) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 _M32, _mul32, _mix32 = rng.M32, rng.mul32, rng.mix32
-
-
-def _bits_to_u01(bits):
-    """23 hash bits -> the mantissa of a float in [1, 2) -> minus 1."""
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return f - 1.0
+_bits_to_u01 = rng.bits_to_u01
 
 
 def _u01_dyn(lane, seed, slot):

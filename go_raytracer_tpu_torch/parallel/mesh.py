@@ -1,6 +1,7 @@
-"""Scene parameters for inverse rendering and a differentiable training
-step: the one-device part of the JAX package's `parallel/mesh.py`
-(`extract_params`, `apply_params`, `make_train_step`).
+"""Device meshes, sharded rendering, scene parameters for inverse
+rendering and a differentiable training step, on one device or sharded
+over the ranks of a `torch.distributed` group: the JAX package's
+`parallel/mesh.py`.
 
 The gradient is autograd over the reference engine
 (`integrator/wavefront.radiance`, mode "scan", backend "xla"), which
@@ -11,23 +12,184 @@ root, bias-corrected moments).
 On the card the backward of a table gather (a texture's colour, a
 material's fuzz) is a scatter-add whose atomic order varies, so two runs'
 gradients may differ in the last bits; on the CPU they are equal.
-Device meshes and sharded rendering (`make_mesh`, `render_sharded`, the
-sharded step) are not ported yet.
+
+Sharding. A mesh is a `DeviceMesh` over every rank of the default group
+(`parallel/distributed.initialize`): "data" shards rays (pixels),
+"sample" shards sample batches. JAX's threefry splits a key the same way
+however the rays are sharded; a `torch.Generator` per rank would not. So
+the sharded paths draw `KeyedUniforms`: each number is a hash of (seed,
+stream, the ray's global position, its slot), and a rank computes only
+its own rays' numbers, whatever the rank count.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import math
 import types as _pytypes
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from go_raytracer_tpu_torch.core import rng
 from go_raytracer_tpu_torch.integrator import regen as regen_mod
 from go_raytracer_tpu_torch.integrator import wavefront
 from go_raytracer_tpu_torch.ops import trace as trace_mod
 from go_raytracer_tpu_torch.render import camera as camera_mod
 from go_raytracer_tpu_torch.scene import types as T
+
+
+def mesh_shape(n: int, axes: Tuple[str, ...] = ("data", "sample")):
+    """The shape of the JAX package's `make_mesh(n, axes)`: (n,) for one
+    axis; for two, the most-square factorisation (n // d, d), d the
+    largest divisor of n not above sqrt(n)."""
+    if n < 1:
+        raise ValueError(f"a mesh needs at least one rank, not {n}")
+    if len(axes) == 1:
+        return (n,)
+    if len(axes) != 2:
+        raise ValueError(f"a mesh has one or two axes, not {axes}")
+    d = max(k for k in range(1, math.isqrt(n) + 1) if n % k == 0)
+    return (n // d, d)
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              axes: Tuple[str, ...] = ("data", "sample")):
+    """A `torch.distributed.device_mesh.DeviceMesh` of shape
+    `mesh_shape(n, axes)` named `axes` over the ranks of the default group
+    (`parallel/distributed.initialize` forms it): on CUDA under NCCL, on
+    the CPU under gloo. rank r sits at r's row-major coordinate.
+    `init_device_mesh` spans the whole group, so n (default: the world
+    size) must equal the world size: a smaller or larger n raises
+    ValueError, as does a call without a group (RuntimeError)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call "
+                           "parallel.distributed.initialize() first")
+    world = dist.get_world_size()
+    n = n_devices or world
+    if n != world:
+        raise ValueError(f"a mesh of {n} ranks in a group of {world}: the "
+                         "mesh spans every rank of the group")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, mesh_shape(n, axes),
+                            mesh_dim_names=tuple(axes))
+
+
+def host_key(seed: int) -> int:
+    """A seed of this rank's own (JAX: `fold_in(key, process_index)`):
+    `seed` with the rank folded in, rank 0 without a group."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return (seed * 0x9E3779B97F4A7C15 + rank + 1) & ((1 << 63) - 1)
+
+
+@dataclasses.dataclass
+class KeyedUniforms:
+    """Uniforms keyed by global position. Stream `stream` of `seed` (a
+    stratum of `render_sharded`, a step of the train step) gives the ray
+    at global position p, slot k, the number `rng.keyed_u01(p * slots +
+    k, key(seed, stream))`: the camera's `camera_mod.N_U_RAYGEN` slots
+    first, then each level's n_u. A rank that holds some rays computes
+    exactly their numbers, so an image or a gradient does not depend on
+    how the rays are split over ranks. The train step moves `stream` on
+    by one a step."""
+
+    seed: int = 0
+    stream: int = 0
+
+    def key(self) -> int:
+        s = self.seed & ((1 << 64) - 1)
+        return rng.mix32(rng.mix32((s ^ (s >> 32)) & rng.M32)
+                         ^ (self.stream & rng.M32))
+
+    def rays(self, pos, n_u: int, levels: int) -> "RayUniforms":
+        """The numbers of the rays at global positions `pos` (an int64
+        tensor (n,)), for `levels` levels of n_u uniforms."""
+        slots = camera_mod.N_U_RAYGEN + levels * n_u
+        return RayUniforms(self.key(), pos.to(torch.int64) * slots, n_u)
+
+
+class RayUniforms:
+    """Some rays' keyed numbers (`KeyedUniforms.rays`): `camera()` the (n,
+    N_U_RAYGEN) camera uniforms, `[s]` level s's (n, n_u), each computed
+    when asked for, so a render holds one level's numbers at a time
+    (`wavefront.radiance(uniforms=...)` reads them by level)."""
+
+    def __init__(self, key: int, base, n_u: int):
+        self.key, self.base, self.n_u = key, base, n_u
+
+    def _slots(self, first: int, count: int):
+        k = torch.arange(first, first + count, dtype=torch.int64,
+                         device=self.base.device)
+        return rng.keyed_u01(self.base[:, None] + k[None, :], self.key)
+
+    def camera(self):
+        return self._slots(0, camera_mod.N_U_RAYGEN)
+
+    def __getitem__(self, s: int):
+        return self._slots(camera_mod.N_U_RAYGEN + s * self.n_u, self.n_u)
+
+
+def _mesh_place(mesh, device):
+    """(device, rank index, rank count) of this rank in a mesh over every
+    rank of the default group; the device is checked against the mesh's
+    device type."""
+    device = regen_mod.resolve_device(device)
+    if device.type != mesh.device_type:
+        raise ValueError(f"the mesh's ranks run on {mesh.device_type}, the "
+                         f"render on {device}")
+    if mesh.size() != dist.get_world_size():
+        raise ValueError("the mesh must span every rank of the group")
+    coord = mesh.get_coordinate()
+    index = int(np.ravel_multi_index(tuple(coord), tuple(mesh.shape)))
+    return device, index, mesh.size()
+
+
+def render_sharded(scene: T.Scene, cam: camera_mod.Camera, mesh,
+                   seed: int = 0, mode: str = "while", device=None):
+    """The whole image through the reference engine, its rays sharded over
+    every rank of `mesh` (JAX's `render_sharded`): the pixel ids, padded
+    to a multiple of the rank count, are split into equal runs in rank
+    order, and each stratum is one `wavefront.radiance` call (backend
+    "xla", `mode`) over the rank's run. Uniforms are `KeyedUniforms(seed,
+    stratum)` at the pixel id, so the image does not depend on the rank
+    count. Every rank of the mesh calls it; each gets the image (H, W, 3)
+    float32 numpy and {"segments": traced segments over every ray of
+    every rank, the padding's included}."""
+    device, index, count = _mesh_place(mesh, device)
+    ds = trace_mod.to_device(scene, device)
+    arrays = cam.derived()
+    h, w = cam.image_height, cam.width
+    npix = h * w
+    per = -(-npix // count)
+    ids = torch.arange(index * per, (index + 1) * per, device=device)
+    sqrt_spp = cam.spp_sqrt
+    n_u = wavefront.N_FIXED_U + ds.media.kind.shape[0]
+    acc = torch.zeros((per, 3), dtype=torch.float32, device=device)
+    segments = 0
+    with torch.no_grad():
+        for s_i in range(sqrt_spp):
+            for s_j in range(sqrt_spp):
+                u = KeyedUniforms(seed, s_i * sqrt_spp + s_j).rays(
+                    ids, n_u, cam.max_depth + 1)
+                o, d, t = camera_mod.generate_rays(
+                    arrays, w, ids,
+                    torch.tensor(float(s_i), device=device),
+                    torch.tensor(float(s_j), device=device), u.camera())
+                L, st = wavefront.radiance(ds, o, d, t, None, cam.max_depth,
+                                           cam.max_contribution, mode=mode,
+                                           uniforms=u)
+                acc += L
+                segments += st["segments"]
+    img = regen_mod.Shard(index, count).gather(acc).reshape(-1, 3)[:npix] \
+        .reshape(h, w, 3) / (sqrt_spp * sqrt_spp)
+    seg = torch.tensor([segments], dtype=torch.int64, device=device)
+    dist.all_reduce(seg)
+    return img.cpu().numpy(), {"segments": int(seg)}
 
 
 def extract_params(ds) -> dict:
@@ -77,29 +239,61 @@ def apply_params(ds, params) -> _pytypes.SimpleNamespace:
 
 
 def render_batches(ds, arrays, width: int, ids, max_depth: int,
-                   max_contribution: float, generator):
+                   max_contribution: float, generator, pos=None):
     """The mean over batches of the radiance of camera rays at stratum
     (0, 0), JAX's `loss_fn` render: ids (S, N) pixel ids. The S batches
-    go through one `radiance` call of S * N rays (JAX vmaps them), the
-    camera uniforms drawn first, then the path uniforms, from `generator`
-    (on ds's device). Returns (image (N, 3), forward segments)."""
+    go through one `radiance` call of S * N rays (JAX vmaps them). With a
+    `torch.Generator` (on ds's device) the camera uniforms are drawn
+    first, then the path uniforms; with `KeyedUniforms` the ray of batch
+    b, column c takes the numbers of global position pos[b, c] (default
+    b * N + c). Returns (image (N, 3), forward segments)."""
     s, n = ids.shape
     flat = ids.reshape(-1)
-    u = torch.rand((s * n, camera_mod.N_U_RAYGEN), generator=generator,
-                   device=flat.device)
+    keyed = isinstance(generator, KeyedUniforms)
+    if keyed:
+        if pos is None:
+            pos = torch.arange(s * n, device=flat.device)
+        uniforms = generator.rays(
+            pos.reshape(-1), wavefront.N_FIXED_U + ds.media.kind.shape[0],
+            max_depth + 1)
+        u, generator = uniforms.camera(), None
+    else:
+        uniforms = None
+        u = torch.rand((s * n, camera_mod.N_U_RAYGEN), generator=generator,
+                       device=flat.device)
     zero = torch.zeros((), device=flat.device)
     o, d, t = camera_mod.generate_rays(arrays, width, flat, zero, zero, u)
     L, st = wavefront.radiance(ds, o, d, t, generator, max_depth,
-                               max_contribution, mode="scan")
+                               max_contribution, mode="scan",
+                               uniforms=uniforms)
     return L.reshape(s, n, 3).mean(dim=0), st["segments"]
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of a tensor over the ranks of a group, whose backward is
+    the sum of the incoming gradients over the same ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def make_train_step(scene: T.Scene, cam: camera_mod.Camera, n_rays: int,
                     n_sample_batches: int, max_depth: int,
                     learning_rate: float = 1e-2, device=None,
-                    generator=None):
-    """Differentiable render + MSE loss + Adam update on one device (CUDA
-    unless `device` says otherwise).
+                    generator=None, mesh=None):
+    """Differentiable render + MSE loss + Adam update, on one device (CUDA
+    unless `device` says otherwise) or sharded over a ("data", "sample")
+    mesh (`make_mesh`).
 
     Returns (train_step, params, optimizer): params are `extract_params`'
     leaves as fresh tensors that require a gradient, optimizer a
@@ -110,13 +304,49 @@ def make_train_step(scene: T.Scene, cam: camera_mod.Camera, n_rays: int,
     MSE of their mean against target (n_rays, 3), updates params in place
     and returns the loss as a float. Every leaf gets a gradient, zero
     where the render does not read it, as under optax. Uniforms come from
-    `generator` (a torch.Generator on the device; seed 0 when None)."""
+    `generator`: a torch.Generator on the device (seed 0 when None and no
+    mesh), or `KeyedUniforms`, whose stream moves on by one a step.
+
+    On a mesh (its device type the device's), every rank calls the step
+    with the same ids and target and renders its block: batches
+    [i_s * S_r, (i_s + 1) * S_r) and rays [i_d * N_r, (i_d + 1) * N_r),
+    S_r = S / n_sample, N_r = N / n_data, (i_d, i_s) its coordinate. The
+    uniforms must be keyed (`KeyedUniforms(0)` when None), so the step's
+    loss and gradient are the one-device step's on the same
+    `KeyedUniforms`. The loss is not linear in the batch mean, so the
+    rank's batch sum goes through a sum over the "sample" ranks that
+    autograd differentiates, the loss of the rank's pixels is summed over
+    the "data" ranks, and after the backward each leaf's gradient is
+    summed over every rank before Adam, which then makes the same update
+    on every rank."""
     device = regen_mod.resolve_device(device)
     ds = trace_mod.to_device(scene, device)
     arrays = cam.derived()
     w = cam.width
+    if mesh is not None:
+        if isinstance(generator, torch.Generator):
+            raise ValueError("a sharded step draws KeyedUniforms (keyed by "
+                             "global position), not a torch.Generator")
+        if mesh.ndim != 2:
+            raise ValueError("the sharded step runs on a (\"data\", "
+                             "\"sample\") mesh")
+        device, _, _ = _mesh_place(mesh, device)
+        n_data, n_sample = mesh.shape
+        if n_rays % n_data or n_sample_batches % n_sample:
+            raise ValueError(
+                f"{n_sample_batches} batches of {n_rays} rays do not split "
+                f"over a {n_data} x {n_sample} mesh")
+        i_d, i_s = mesh.get_coordinate()
+        data_g, sample_g = mesh.get_group(0), mesh.get_group(1)
+        s_r, n_r = n_sample_batches // n_sample, n_rays // n_data
+        rows = slice(i_s * s_r, (i_s + 1) * s_r)
+        cols = slice(i_d * n_r, (i_d + 1) * n_r)
+        pos = (torch.arange(rows.start, rows.stop, device=device)[:, None]
+               * n_rays
+               + torch.arange(cols.start, cols.stop, device=device)[None])
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = KeyedUniforms(0) if mesh is not None else \
+            torch.Generator(device=device).manual_seed(0)
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in extract_params(ds).items()}
     optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate)
@@ -126,14 +356,31 @@ def make_train_step(scene: T.Scene, cam: camera_mod.Camera, n_rays: int,
             raise ValueError(f"ids of shape {tuple(ids.shape)}, the step "
                              f"renders ({n_sample_batches}, {n_rays})")
         optimizer.zero_grad(set_to_none=True)
-        img, _ = render_batches(apply_params(ds, params), arrays, w, ids,
-                                max_depth, cam.max_contribution, generator)
-        loss = torch.mean((img - target) ** 2)
-        loss.backward()
+        sc = apply_params(ds, params)
+        if mesh is None:
+            img, _ = render_batches(sc, arrays, w, ids, max_depth,
+                                    cam.max_contribution, generator)
+            loss = torch.mean((img - target) ** 2)
+            loss.backward()
+        else:
+            img, _ = render_batches(sc, arrays, w, ids[rows, cols],
+                                    max_depth, cam.max_contribution,
+                                    generator, pos=pos)
+            img = _SumOver.apply(img * s_r, sample_g) / n_sample_batches
+            loss = ((img - target[cols]) ** 2).sum() / (n_rays * 3)
+            # every "sample" rank of a column holds the column's loss: each
+            # backs up its share so that the sum's backward counts it once
+            (loss / n_sample).backward()
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=data_g)
         for p in params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            if mesh is not None:
+                dist.all_reduce(p.grad)
         optimizer.step()
+        if isinstance(generator, KeyedUniforms):
+            generator.stream += 1
         return loss.item()
 
     return train_step, params, optimizer

@@ -1,7 +1,8 @@
 """Package rules of the port: no module of go_raytracer_tpu_torch, and not
-chip_smoke.py or the port's example, imports jax, flax, optax or the JAX
-package — checked on the source (AST), so a lazy import inside a
-function is caught too."""
+chip_smoke.py, the port's example or the rank workers of its
+multi-process tests (tests/torch_dist_workers.py, imported by every
+spawned rank), imports jax, flax, optax or the JAX package — checked on
+the source (AST), so a lazy import inside a function is caught too."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "go_raytracer_tpu")
 def _port_sources():
     pkg = os.path.join(_ROOT, "go_raytracer_tpu_torch")
     out = [os.path.join(_ROOT, "chip_smoke.py"),
-           os.path.join(_ROOT, "examples", "inverse_rendering_torch.py")]
+           os.path.join(_ROOT, "examples", "inverse_rendering_torch.py"),
+           os.path.join(_ROOT, "tests", "torch_dist_workers.py")]
     for d, _, files in os.walk(pkg):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
