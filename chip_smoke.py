@@ -231,12 +231,29 @@ Phases (any failure exits non-zero; nothing is swallowed):
      steps: losses within MULTI_LOSS_RTOL, gradients and leaves within
      GRAD_RUN_TO_RUN; `render_sharded` on cornellBox at 1 spp (the
      reference engine): finite, segments per path within phase 5's gate;
-     the group destroyed at the end;
+     the sorted `queue` flagship (reorder=True) bit for bit too; the
+     group destroyed at the end;
+ 29. the lane coherence sort (`render_regen(reorder=True)`): (a) the
+     sort's permutation and gathered planes on the card against the CPU,
+     bit for bit, on aged 131,072-lane pools of cornellBox, book1 and
+     book2, the sort's ms, host and device time and launches a call, and
+     K6's device time on those rays as they lie and sorted; (b) K7's
+     unwinding entry `grt_harvest_rows_perm` on a recorded sorted book1
+     window against its plain version (bit for bit) and, with identity
+     perms, against K7, its ms a window beside K7's on the same records,
+     its plain version's and its bytes bound; (c) the three flagships
+     (PERF.md §4) sorted and unsorted under `queue`, in turns: paths,
+     non-finite values, segments per path within 5% of `regen_len`,
+     channel means within 1e-2 of the unsorted render, launches (K6 and
+     the unwinding entry only), loop times; scripts/ab_reorder.py's cell
+     (book1, book2 at 25 spp, cadence 4: queue_ik, queue, sorted queue).
+     K6's device time a call inside sorted and unsorted renders comes from
+     scripts/ab_reorder_torch.py --profile, in fresh processes;
 then the `kernels` JSON line (K1-K12; K1, K6 and K8 name their image
-variant, K3 its feature sets and its cap entry, K3, K6 and K8 their
-redesign, K5 its launches on phase 27's modelExample gradient, K1-K3 and
-K5-K9 their launches in phase 28's sharded renders), the nvidia-smi line,
-and the final
+variant, K3 its feature sets and its cap entry, K7 its unwinding entry,
+K3, K6 and K8 their redesign, K5 its launches on phase 27's modelExample
+gradient, K1-K3 and K5-K9 their launches in phase 28's sharded renders),
+the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -727,6 +744,7 @@ def zero_launches():
     bounce.launches = bounce.launches_bounce = bounce.launches_cap = 0
     bounce.launches_fused = bounce.launches_fused_pos = 0
     bounce.launches_direct = harvest.launches = harvest.launches_rows = 0
+    harvest.launches_rows_perm = 0
     stream.launches = stream.launches_round = stream2.launches = 0
     traverse.launches = traverse8.launches = 0
 
@@ -740,6 +758,7 @@ def launch_counts():
                 K3=bounce.launches_bounce, cap=bounce.launches_cap,
                 K4=stream.launches, K5=traverse8.launches,
                 K6=bounce.launches_fused, K7=harvest.launches_rows,
+                K7p=harvest.launches_rows_perm,
                 K8=bounce.launches_fused_pos, K9=bounce.launches_direct,
                 K10=stream.launches_round, K11=stream2.launches,
                 K12=traverse.launches)
@@ -1068,7 +1087,8 @@ MULTI_TIMEOUT_S = 300.0
 MULTI_SCHEDULES = (("queue_ik", {}, ("K1", "K2")),
                    ("direct_rec", dict(direct_rec=True), ("K9", "K2")),
                    ("queue", dict(schedule="queue"), ("K6", "K7")),
-                   ("positional", dict(schedule="positional"), ("K8",)))
+                   ("positional", dict(schedule="positional"), ("K8",)),
+                   ("reorder", dict(reorder=True), ("K6", "K7p")))
 # modelExample cut as phase 26 cuts it, and render_sharded's cut
 MULTI_MODEL_SPP, MULTI_WAVEFRONT_SPP = 4, 1
 # the sharded train step against the one-device step on the same keyed
@@ -1318,6 +1338,286 @@ def multidevice_phase(dev, card):
         finally:
             dist.destroy_process_group()
     summary.update(rows)
+    return summary
+
+
+# the lane coherence sort's phase (29): the three flagships it is measured
+# on (PERF.md §4), each at its registry configuration, and the cell of
+# scripts/ab_reorder.py (book1 and book2 at 25 spp, cadence 4)
+REORDER_SCENES = ("cornell_box", "book1", "book2")
+REORDER_LANES = 1 << 17
+REORDER_AB_SPP, REORDER_AB_CADENCE = 25, 4
+
+
+def reorder_phase(dev, card):
+    """Phase 29: the lane coherence sort (`render_regen(reorder=True)`, the
+    `queue` schedule with `coherence_sort` before every K6 call and K7's
+    unwinding entry). Returns its summary, with the `kernels` line's
+    figures of the unwinding entry under "k7p"; fails where the sort's
+    permutation on the card is not the CPU's, the unwinding entry differs
+    from its plain version (or, with identity perms, from K7) in one bit,
+    or a sorted flagship misses a gate or does not launch K6 and the
+    unwinding entry."""
+    import numpy as np
+    import torch
+
+    from go_raytracer_tpu_torch.integrator import regen
+    from go_raytracer_tpu_torch.ops import bounce, harvest
+    from go_raytracer_tpu_torch.scenes import registry
+
+    n = REORDER_LANES
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    summary = {"card": card}
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def scene_args(sc):
+        scene, cam = getattr(registry, sc)()
+        tables = tuple(to(t) for t in bounce.pack_scene(scene))
+        statics = bounce.scene_statics(scene)
+        return (scene, cam, tables, statics,
+                to(bounce.pack_camera(cam.derived())),
+                to(np.asarray(scene.background, np.float32)),
+                tuple(to(b) for b in bounce.coherence_bounds(scene)))
+
+    # (a) the permutation, card against CPU, on aged pools; the sort's
+    # launches, host and device time a call; K6 on the pool as it lies and
+    # sorted (the same rays)
+    pools = {}
+    for sc in REORDER_SCENES:
+        scene, cam, tables, statics, cam_row, bg, bounds = scene_args(sc)
+        cad, sq = cam.regen_cadence, cam.spp_sqrt
+        npix = cam.width * cam.image_height
+        fkw = dict(has_defocus=cam.defocus_angle > 0, max_depth=cam.max_depth,
+                   n_inner=cad)
+        nxt = [npix // 2]
+
+        def refill(st_):
+            r_ = regen.queue_refill_planes(
+                torch.tensor(nxt[0], device=dev), st_[7], npix * sq * sq,
+                width=cam.width, npix=npix, sqrt_spp=sq)
+            nxt[0] += int(r_[0].sum())
+            return r_
+
+        seed = torch.tensor([-987654321], dtype=torch.int32, device=dev)
+        o6 = bounce.FusedOut.empty(n, cad, dev)
+        pool = aged_state(lambda st_: bounce.bounce_fused(
+            tables, statics, cam_row, bg, seed, *st_, *refill(st_), out=o6,
+            **fkw)[3:], regen._init_state(n, dev))
+        sorted_k = regen._init_state(n, dev)
+        perm_k = torch.empty(n, dtype=torch.int32, device=dev)
+        regen.coherence_sort(pool, *bounds, sorted_k, perm_k)
+        cpu = torch.device("cpu")
+        sorted_c = regen._init_state(n, cpu)
+        perm_c = torch.empty(n, dtype=torch.int32)
+        regen.coherence_sort([x.cpu() for x in pool],
+                             *(b.cpu() for b in bounds), sorted_c, perm_c)
+        torch.cuda.synchronize()
+        same = torch.equal(perm_k.cpu(), perm_c) and all(
+            torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+            for a, b in zip(sorted_k, sorted_c))
+        sort_ms = time_ms(lambda: regen.coherence_sort(
+            pool, *bounds, sorted_k, perm_k), 20)
+        sort_host = host_us(lambda: regen.coherence_sort(
+            pool, *bounds, sorted_k, perm_k))
+        # the device time and launches a call from the profiler: queued
+        # behind a spin (queued_device_ms), the sort's 61 launches a call
+        # fill the launch queue and the host waits
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(10):
+                regen.coherence_sort(pool, *bounds, sorted_k, perm_k)
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.key_averages()
+                      if "CUDA" in str(getattr(e, "device_type", ""))
+                      and getattr(e, "self_device_time_total", getattr(
+                          e, "self_cuda_time_total", 0.0)) > 0]
+        sort_launches = sum(e.count for e in dev_events) / 10
+        sort_dev = sum(device_times(prof).values()) / 10 / 1e3 \
+            if dev_events else None
+        # K6 on the same rays as they lie and sorted, fresh outputs so
+        # that every call sees the same inputs
+        k6_dev = {}
+        for tag, st_ in (("as_they_lie", pool), ("sorted", sorted_k)):
+            nxt[0] = npix // 2
+            r_ = refill(st_)
+            o_ = bounce.FusedOut.empty(n, cad, dev)
+            k6_dev[tag] = queued_device_ms(lambda: bounce.bounce_fused(
+                tables, statics, cam_row, bg, seed, *st_, *r_, out=o_,
+                **fkw))
+        alive = int((pool[7] != 0).sum())
+        pools[sc] = dict(equal=same, alive=alive, sort_ms=sort_ms,
+                         sort_host_us=sort_host, sort_device_ms=sort_dev,
+                         sort_launches=sort_launches, k6_device_ms=k6_dev)
+        print(f"[29] (a) {sc}: coherence_sort on an aged {n}-lane pool "
+              f"({alive} alive, cadence {cad}), card vs CPU: permutation "
+              f"and planes equal {same}; the sort {sort_ms:.4f} ms a call, "
+              f"host {sort_host:.1f} us, device {sort_dev} ms, "
+              f"{sort_launches:g} launches; K6 device ms on these rays as "
+              f"they lie {k6_dev['as_they_lie']} / sorted "
+              f"{k6_dev['sorted']} on {card}")
+        check(same, f"{sc}: the sort's permutation on the card is not the "
+              "CPU's")
+        del pool, sorted_k, sorted_c, o6
+    summary["sort"] = pools
+
+    # (b) the unwinding entry on a recorded book1 window with its real
+    # perms, against its plain version and, with identity perms, K7
+    scene, cam, tables, statics, cam_row, bg, bounds = scene_args("book1")
+    cad, sq = cam.regen_cadence, cam.spp_sqrt
+    npix = cam.width * cam.image_height
+    total = npix * sq * sq
+    d1 = cam.max_depth + 1
+    refill_l = 4 * d1
+    window = -(-(refill_l + d1) // cad) * cad
+    outer, rows = window // cad, -(-refill_l // cad)
+    bufs = regen.SchedBuffers.empty(n, outer, cad, dev, rows, reorder=True)
+    nan = float("nan")
+    acc_k = torch.full((total + n, 3), nan, dtype=torch.float32, device=dev)
+    wkw = dict(width=cam.width, npix=npix, sqrt_spp=sq, window=window,
+               refill=refill_l, cadence=cad, max_depth=cam.max_depth,
+               max_contribution=cam.max_contribution,
+               has_defocus=cam.defocus_angle > 0)
+    zero_launches()
+    _, _, cur = regen._queue_window(
+        tables, statics, cam_row, bg, acc_k, regen._init_state(n, dev),
+        torch.tensor(0, device=dev), regen.window_seeds(0, 0, outer).to(dev),
+        0, total, bufs=bufs, reorder=bounds, **wkw)
+    torch.cuda.synchronize()
+    lw = launch_counts()
+    check(lw["K6"] == outer and lw["K7p"] == 1 and lw["K7"] == 0,
+          f"the sorted window did not launch K6 a call and the unwinding "
+          f"entry once: {lw}")
+    q_next, q_segs, _ = (int(x) for x in cur.tolist())
+    rec = [r.view(outer, cad, n) for r in bufs.rec]
+    hkw = dict(cadence=cad, refill_outer=rows,
+               max_contribution=cam.max_contribution)
+    acc_p = torch.full_like(acc_k, nan)
+
+    def run_plain():
+        r_ = harvest.reverse_harvest_ref(*rec, bufs.sts, perms=bufs.perm,
+                                         **hkw)
+        harvest.write_rows_ref(acc_p, r_, bufs.nis, item_base=0,
+                               n_rows=rows)
+
+    plain_ms = time_ms(run_plain, 1, warmup=0)
+    check(not torch.isnan(acc_k[:q_next]).any()
+          and bool(torch.isnan(acc_k[q_next:]).all()),
+          "the unwinding entry missed a started item or wrote past them")
+    k7p_err = (acc_k[:q_next] - acc_p[:q_next]).abs().max().item()
+    k7p_equal = torch.equal(acc_k[:q_next], acc_p[:q_next])
+    acc_t = torch.full_like(acc_k, nan)
+    k7p_ms = time_ms(lambda: harvest.reverse_harvest_into(
+        acc_t, *rec, bufs.sts, bufs.nis, item_base=0, perms=bufs.perm,
+        **hkw), 10)
+    check(torch.equal(acc_t[:q_next], acc_k[:q_next]),
+          "the unwinding entry's timing run differs from the window's")
+    acc_u = torch.full_like(acc_k, nan)
+    k7_ms = time_ms(lambda: harvest.reverse_harvest_into(
+        acc_u, *rec, bufs.sts, bufs.nis, item_base=0, **hkw), 10)
+    ident = torch.arange(n, dtype=torch.int32, device=dev).repeat(outer, 1)
+    acc_i = torch.full_like(acc_k, nan)
+    harvest.reverse_harvest_into(acc_i, *rec, bufs.sts, bufs.nis,
+                                 item_base=0, perms=ident, **hkw)
+    torch.cuda.synchronize()
+    ident_equal = torch.equal(acc_i[:q_next], acc_u[:q_next])
+    # K7's bytes (16 a lane a level, 4 a lane a refill row, 12 a path, the
+    # row bases) plus the perm rows the walk reads (rows 1..outer-1); the
+    # rank plane is the entry's scratch, not a byte the harvest needs
+    k7p_bytes = window * n * 16 + rows * n * 4 + q_next * 12 + rows * 4 \
+        + (outer - 1) * n * 4
+    k7p_bound = k7p_bytes / HBM_BYTES_PER_S * 1e3
+    summary["k7p_window"] = dict(
+        levels=window, rows=rows, paths=q_next, segments=q_segs,
+        equal=k7p_equal, max_abs_err=k7p_err, identity_equals_k7=ident_equal,
+        ms=k7p_ms, k7_ms=k7_ms, plain_ms=plain_ms, bound_ms=k7p_bound,
+        bytes=k7p_bytes)
+    print(f"[29] (b) book1 sorted queue window ({window} levels, {rows} "
+          f"refill rows, {n} lanes, {q_next} paths): the unwinding entry vs "
+          f"its plain version equal {k7p_equal} (max abs err {k7p_err}); "
+          f"with identity perms equal to K7 {ident_equal}; ms a window "
+          f"{k7p_ms:.4f}, K7 on the same records {k7_ms:.4f}, plain "
+          f"{plain_ms:.2f}, bound {k7p_bound:.4f} (bytes, {k7p_bytes} B) on "
+          f"{card}")
+    check(k7p_equal and k7p_err == 0.0,
+          "the unwinding entry differs from its plain version")
+    check(ident_equal, "the unwinding entry with identity perms is not K7")
+    del acc_k, acc_p, acc_t, acc_u, acc_i, rec, bufs, ident
+    torch.cuda.empty_cache()
+
+    # (c) the flagships sorted and unsorted: gates, launches, loops in
+    # turns (unsorted, sorted, sorted, unsorted)
+    flags = {}
+    for sc in REORDER_SCENES:
+        scene, cam = getattr(registry, sc)()
+        runs = {False: [], True: []}
+        for reorder in (False, True, True, False):
+            zero_launches()
+            img, st = regen.render_regen(scene, cam, seed=0, n_lanes=n,
+                                         schedule="queue", reorder=reorder,
+                                         device=dev)
+            runs[reorder].append((img, st, launch_counts()))
+        (img_u, st_u, l_u), (img_s, st_s, l_s) = runs[False][0], \
+            runs[True][0]
+        means_u = img_u.reshape(-1, 3).mean(0)
+        means_s = img_s.reshape(-1, 3).mean(0)
+        npath = cam.width * cam.image_height * cam.spp_sqrt ** 2
+        ratio = st_s["segments"] / st_s["paths"]
+        flags[sc] = dict(
+            paths=st_s["paths"], segments=st_s["segments"],
+            segments_unsorted=st_u["segments"], per_path=ratio,
+            regen_len=cam.regen_len, windows=st_s["windows"],
+            nonfinite=st_s["nonfinite"], means=means_s.tolist(),
+            means_unsorted=means_u.tolist(),
+            loop_s={"unsorted": [r[1]["elapsed_s"] for r in runs[False]],
+                    "sorted": [r[1]["elapsed_s"] for r in runs[True]]},
+            launches={k: l_s[k] for k in ("K6", "K7", "K7p", "K1")},
+            launches_unsorted={k: l_u[k] for k in ("K6", "K7", "K7p")})
+        print(f"[29] (c) {sc} {cam.width}x{cam.image_height} "
+              f"{cam.samples_per_pixel} spp depth {cam.max_depth} cadence "
+              f"{cam.regen_cadence}, {n} lanes, `queue` with reorder=True on "
+              f"{card}: " + json.dumps(flags[sc]))
+        check(st_s["schedule"] == "queue" and st_s["reorder"] is True,
+              f"{sc}: stats {st_s['schedule']}, reorder {st_s.get('reorder')}")
+        check(st_s["paths"] == npath, f"{sc}: paths {st_s['paths']}")
+        check(st_s["nonfinite"] <= TEX_NONFINITE_MAX,
+              f"{sc}: {st_s['nonfinite']} non-finite pixel values")
+        check(abs(ratio / cam.regen_len - 1.0) <= 0.05,
+              f"{sc}: segments/path {ratio} off regen_len {cam.regen_len}")
+        check(np.abs(means_s - means_u).max() <= 1e-2,
+              f"{sc}: channel means {means_s} vs unsorted {means_u}")
+        check(l_s["K6"] > 0 and l_s["K7p"] == st_s["windows"]
+              and l_s["K7"] == 0 and l_s["K1"] == 0,
+              f"{sc}: the sorted render did not run K6 and the unwinding "
+              f"entry alone ({l_s})")
+        del runs, img_u, img_s
+    summary["flagships"] = flags
+
+    # scripts/ab_reorder.py's cell: book1 and book2 at 25 spp, cadence 4,
+    # JAX's two arms (queue_ik unsorted, queue sorted) and queue unsorted
+    ab = {}
+    for sc in ("book1", "book2"):
+        scene, cam = getattr(registry, sc)()
+        cam.samples_per_pixel = REORDER_AB_SPP
+        for tag, kw in (("queue_ik", {}), ("queue", dict(schedule="queue")),
+                        ("queue_sorted", dict(reorder=True))):
+            st = regen.render_regen(scene, cam, seed=0, n_lanes=n,
+                                    cadence=REORDER_AB_CADENCE, device=dev,
+                                    **kw)[1]
+            ab[f"{sc}/{tag}"] = dict(
+                loop_s=st["elapsed_s"], rays_per_s=st["rays_per_s"],
+                segments=st["segments"], windows=st["windows"],
+                occupancy=st["occupancy"])
+    summary["ab_cell"] = ab
+    print(f"[29] ab_reorder cell ({REORDER_AB_SPP} spp, cadence "
+          f"{REORDER_AB_CADENCE}, one render an arm) on {card}: "
+          + json.dumps(ab))
+
+    summary["k7p"] = dict(
+        launches=sum(f["launches"]["K7p"] for f in flags.values()),
+        launches_per_render={sc: f["launches"]["K7p"]
+                             for sc, f in flags.items()},
+        max_abs_err=k7p_err, ms=k7p_ms, plain_ms=plain_ms,
+        bound_ms=k7p_bound, k7_ms_same_records=k7_ms)
     return summary
 
 
@@ -4543,9 +4843,16 @@ def main():
     multi = multidevice_phase(dev, card)
     print("[28] multi-device rows (PERF.md): " + json.dumps(multi))
     sharded = {k: v for tag in ("queue_ik", "direct_rec", "queue",
-                                "positional", "model_example")
+                                "positional", "model_example", "reorder")
                for k, v in multi[tag]["launches"].items()}
     sharded["K2"] = multi["queue_ik"]["launches"]["K2"]
+    sharded["K6"] = multi["queue"]["launches"]["K6"]
+
+    # ---- 29. the lane coherence sort (reorder=True) ---------------------
+    phase_start(29)
+    reo = reorder_phase(dev, card)
+    print("[29] reorder rows (PERF.md): " + json.dumps(reo))
+    k7p = reo["k7p"]
 
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",
@@ -4607,7 +4914,20 @@ def main():
          "replaces": "go_raytracer_tpu/ops/pallas/harvest.py:225",
          "launches": k7_launches, "max_abs_err": k7_err, "ms": k7_ms,
          "plain_ms": k7_plain_ms, "bound_ms": k7_bound, "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None,
+         "perm_entry": {"name": "reverse_harvest (unwinding the lane sort)",
+                        "entry": "grt_harvest_rows_perm",
+                        "replaces": "go_raytracer_tpu/integrator/regen.py:"
+                                    "552 (its XLA reverse scan that "
+                                    "unwinds the sort, :573)",
+                        "launches": k7p["launches"],
+                        "launches_per_render": k7p["launches_per_render"],
+                        "launches_sharded": sharded["K7p"],
+                        "max_abs_err": k7p["max_abs_err"], "ms": k7p["ms"],
+                        "k7_ms_same_records": k7p["k7_ms_same_records"],
+                        "plain_ms": k7p["plain_ms"],
+                        "bound_ms": k7p["bound_ms"], "bound_by": "bytes",
+                        "library_ms": None}},
         {"name": "bounce_fused_pos", "route": "cuda",
          "launches_sharded": sharded["K8"],
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_pos.cu",

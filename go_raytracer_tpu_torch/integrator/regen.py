@@ -39,7 +39,11 @@ can refill (the unwritten levels would be all-zero records).
 These are the JAX package's `queue_ik`, `queue` (fused harvest) and
 `positional` schedules on its fused-kernel branch, its `queue` schedule on
 the external-mesh-hit path, and its `queue` and `positional` schedules on
-the whole-XLA `wavefront._bounce` (integrator/regen.py there).
+the whole-XLA `wavefront._bounce` (integrator/regen.py there). Its lane
+coherence sort (`reorder=True`) runs on the fused `queue` schedule: before
+every `bounce_fused` call `coherence_sort` puts the lanes in (direction
+octant, origin Morton cell) order, dead lanes last, and the harvest
+unwinds the sorts.
 
 `render_regen_sharded` runs any of them over the ranks of a
 `torch.distributed` group: each rank renders its own item range (or, under
@@ -363,7 +367,9 @@ class SchedBuffers:
     channels as one view. `seg`: (outer, cadence) alive counts. `queue`
     only: `sts` (refill_outer, N) started flags, `nis` (refill_outer,)
     first item of each refill row, and `idle`, five all-zero refill planes
-    for the calls past the refill."""
+    for the calls past the refill; with the lane coherence sort (`reorder`)
+    also `perm` (outer, N) int32, each call's permutation, and `spare`, a
+    second set of the nine state planes that the sort gathers into."""
 
     rec: list
     seg: torch.Tensor
@@ -372,10 +378,13 @@ class SchedBuffers:
     idle: tuple = None
     E: torch.Tensor = None
     W: torch.Tensor = None
+    perm: torch.Tensor = None
+    spare: list = None
 
     @staticmethod
     def empty(n: int, outer: int, cadence: int, device,
-              refill_outer: int = None) -> "SchedBuffers":
+              refill_outer: int = None,
+              reorder: bool = False) -> "SchedBuffers":
         S = outer * cadence
         f = lambda shape, dt: torch.empty(shape, dtype=dt, device=device)
         seg = f((outer, cadence), torch.int32)
@@ -391,13 +400,50 @@ class SchedBuffers:
             sts=f((refill_outer, n), torch.int32),
             nis=f((refill_outer,), torch.int32),
             idle=(torch.zeros(n, dtype=torch.int32, device=device),
-                  zf, zf, zf, zf))
+                  zf, zf, zf, zf),
+            perm=f((outer, n), torch.int32) if reorder else None,
+            spare=_init_state(n, device) if reorder else None)
+
+
+def coherence_keys(state, blo, bext):
+    """The lane coherence sort's key of every lane of `state` (nine planes),
+    int32 (N,): (octant << 27) | (morton30(origin) >> 3), the octant
+    (dx > 0) << 2 | (dy > 0) << 1 | (dz > 0), the Morton code in the box
+    (blo, bext) (device float32 (3,) tensors, `ops/bounce.coherence_bounds`),
+    as the JAX package's `_morton30` takes it: each coordinate to
+    clip((o - blo) / bext * 1024, 0, 1023), truncated (a NaN to 0). A dead
+    lane's key is 0x7FFFFFFF. Divided by tensors: a division by a scalar
+    may run as a product with its reciprocal on the card."""
+    o = torch.stack(state[0:3])
+    q = ((o - blo[:, None]) / bext[:, None] * 1024.0).clamp_(0.0, 1023.0) \
+        .nan_to_num_(0.0).to(torch.int32)
+    m = trace_mod._part1by2(q)
+    morton = (m[0] << 2) | (m[1] << 1) | m[2]
+    d = (torch.stack(state[3:6]) > 0).to(torch.int32)
+    key = (((d[0] << 2) | (d[1] << 1) | d[2]) << 27) | (morton >> 3)
+    return torch.where(state[7] != 0, key, INT32_MAX)
+
+
+def coherence_sort(state, blo, bext, out, perm_out):
+    """The JAX package's `coherence_sort` (integrator/regen.py there): the
+    lanes of `state` (nine planes) in the order of `coherence_keys`, ties
+    by lane (a stable sort: its sort by (key, lane)), gathered into the
+    nine planes `out` (never `state` itself), which are returned.
+    `perm_out` ((N,) int32) receives the permutation: perm[i] is the lane
+    of `state` now at position i. Dead lanes form the tail, where the
+    refill's consecutive camera rays then land."""
+    _, idx = torch.sort(coherence_keys(state, blo, bext), stable=True)
+    for src, dst in zip(state, out):
+        torch.index_select(src, 0, idx, out=dst)
+    perm_out.copy_(idx)
+    return out
 
 
 def _queue_window(tables, statics, cam_row, bg, acc, state, next_item, seeds,
                   item_base: int, item_end: int, *, width, npix, sqrt_spp,
                   window, refill, cadence, max_depth, max_contribution,
-                  has_defocus=False, bufs: SchedBuffers = None):
+                  has_defocus=False, bufs: SchedBuffers = None,
+                  reorder=None):
     """One window of the `queue` schedule over items [item_base, item_end):
     `window // cadence` calls of `bounce_fused`, each of the first
     ceil(refill / cadence) preceded by the refill (`queue_refill_planes`:
@@ -406,18 +452,30 @@ def _queue_window(tables, statics, cam_row, bg, acc, state, next_item, seeds,
     place). `state` (nine planes) is updated in place; `next_item` is a 0-d
     int64 tensor on the device; `seeds` the (outer,) int32 per-call seeds
     on the device. Nothing is read back: returns (acc, state, cur) with
-    cur an int64 device tensor [next item, segments traced, levels]."""
+    cur an int64 device tensor [next item, segments traced, levels].
+
+    `reorder` (None: off), the scene's Morton box (blo, bext) as device
+    tensors (`ops/bounce.coherence_bounds`): every call sorts the lanes
+    first (`coherence_sort`), drain calls too, and the refill then ranks
+    the dead lanes in the sorted order; the permutations go to `bufs.perm`
+    and the harvest unwinds them. The sort gathers into `bufs.spare` and
+    the two sets of planes swap, so the planes of `state` may change (the
+    list is updated in place)."""
     n = state[0].shape[0]
     outer = window // cadence
     refill_outer = -(-refill // cadence)
     if bufs is None:
         bufs = SchedBuffers.empty(n, outer, cadence, state[0].device,
-                                  refill_outer)
+                                  refill_outer, reorder=reorder is not None)
+    cur = list(state)
     for i in range(outer):
         sl = slice(i * cadence, (i + 1) * cadence)
+        if reorder is not None:
+            cur, bufs.spare = coherence_sort(cur, *reorder, bufs.spare,
+                                             bufs.perm[i]), cur
         if i < refill_outer:
             refill_planes = queue_refill_planes(
-                next_item, state[7], item_end, width=width, npix=npix,
+                next_item, cur[7], item_end, width=width, npix=npix,
                 sqrt_spp=sqrt_spp)
             bufs.sts[i] = refill_planes[0]
             bufs.nis[i] = next_item
@@ -425,15 +483,17 @@ def _queue_window(tables, statics, cam_row, bg, acc, state, next_item, seeds,
         else:
             refill_planes = bufs.idle
         bounce_mod.bounce_fused(
-            tables, statics, cam_row, bg, seeds[i:i + 1], *state,
+            tables, statics, cam_row, bg, seeds[i:i + 1], *cur,
             *refill_planes, has_defocus=has_defocus, max_depth=max_depth,
             n_inner=cadence,
             out=bounce_mod.FusedOut(rec=[r[sl] for r in bufs.rec],
-                                    seg=bufs.seg[i], state=state))
+                                    seg=bufs.seg[i], state=cur))
+    state[:] = cur
     harvest_mod.reverse_harvest_into(
         acc, *(r.view(outer, cadence, n) for r in bufs.rec), bufs.sts,
         bufs.nis, item_base=item_base, cadence=cadence,
-        refill_outer=refill_outer, max_contribution=max_contribution)
+        refill_outer=refill_outer, max_contribution=max_contribution,
+        perms=None if reorder is None else bufs.perm)
     segments = bufs.seg.sum(dtype=torch.int64)
     cur = torch.stack([next_item, segments,
                        segments.new_full((), outer * cadence)])
@@ -946,7 +1006,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                  cadence: int = 0, schedule: str = "auto", device=None,
                  mesh: str = "auto", b1_fused: bool = False,
                  traverse8: bool = True, direct_rec: bool = False,
-                 backend: str = "auto",
+                 backend: str = "auto", reorder="auto",
                  checkpoint_path=None, checkpoint_every: int = 4,
                  scene_name: str = "", verbose: bool = False,
                  shard: Optional["Shard"] = None):
@@ -984,6 +1044,15 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     scene without a mesh they stay at their defaults. `direct_rec` runs
     `queue_ik` through `bounce_fused_q_direct`. A route or option the
     scene cannot run raises ValueError; nothing falls back to another.
+
+    `reorder` True runs the lane coherence sort (`coherence_sort` before
+    every `bounce_fused` call, the harvest unwinding it): on the fused
+    kernels only, where "auto" then resolves to `queue`, the JAX package's
+    resolution; with "queue_ik", "positional" or `direct_rec`, and off the
+    fused kernels, it raises ValueError where the JAX package quietly
+    drops it. "auto" (the JAX package's "auto" is off) and False leave it
+    off. The image agrees with the unsorted one statistically, not bit
+    for bit: the kernels key their random numbers on the lane's position.
     Checkpoint/resume: between windows no path is in flight, so
     (accumulator, cursor, window count) is a consistent checkpoint, and a
     matching one resumes where it stopped; "positional" stores its (3, G,
@@ -1002,6 +1071,10 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         raise ValueError("a sharded render keeps no checkpoint")
     if backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
+    if reorder != "auto" and not isinstance(reorder, bool):
+        raise ValueError(f"reorder must be 'auto', True or False, not "
+                         f"{reorder!r}")
+    reorder = reorder is True
     # the JAX package's choice: the fused kernels where they carry the
     # scene, else the external-hit kernel on a BVH mesh it carries, else
     # (and always with backend "xla") the reference engine's bounce
@@ -1016,6 +1089,18 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                                   or not traverse8):
         raise ValueError("mesh, b1_fused and traverse8 pick the closest-hit "
                          "route of a mesh scene; this scene has no mesh")
+    if reorder and not use_fused:
+        raise ValueError(
+            "reorder=True: the lane coherence sort runs on the fused "
+            "kernels' 'queue' schedule, and no fused kernel carries this "
+            "scene with this backend (a mesh, triangle lights or backend "
+            "'xla'), where the JAX package drops the sort")
+    if reorder and (schedule in ("queue_ik", "positional") or direct_rec):
+        raise ValueError(
+            f"reorder=True runs the 'queue' schedule, not "
+            f"{'direct_rec' if direct_rec else repr(schedule)}: the JAX "
+            "package's sort turns the in-kernel queue off, and positional "
+            "lanes own fixed item blocks")
     if schedule not in (("auto", "queue_ik", "queue", "positional")
                         if use_fused else ("auto", "queue", "positional")):
         raise NotImplementedError(
@@ -1025,7 +1110,8 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
             "'positional', where the JAX package quietly runs 'queue' for "
             "'queue_ik' (ROADMAP.md)")
     if schedule == "auto":
-        schedule = "queue_ik" if use_fused else "queue"
+        schedule = "queue" if reorder \
+            else "queue_ik" if use_fused else "queue"
     # off the fused kernels the positional level is the reference
     # engine's bounce on every scene, as in the JAX package
     use_ext = use_ext and schedule != "positional"
@@ -1074,13 +1160,15 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         cam_row = to_dev(bounce_mod.pack_camera(arrays))
         bg = to_dev(np.asarray(scene.background, np.float32))
         state = _init_state(n, device)
+        bounds = tuple(to_dev(b) for b in bounce_mod.coherence_bounds(scene)) \
+            if reorder else None
     if unfused:
         bufs = None if positional else WindowBuffers.empty(n, window, 1,
                                                            device)
     elif schedule in ("queue", "positional"):
         bufs = SchedBuffers.empty(
             n, outer, cadence, device,
-            None if positional else -(-refill // cadence))
+            None if positional else -(-refill // cadence), reorder=reorder)
     else:
         bufs = WindowBuffers.empty(n, outer, cadence, device)
     n_windows = 0
@@ -1187,7 +1275,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
             device_seeds(wi), item_base, item_end, width=w, npix=npix,
             sqrt_spp=sqrt_spp, window=window, refill=refill, cadence=cadence,
             max_depth=cam.max_depth, max_contribution=cam.max_contribution,
-            has_defocus=defocus, bufs=bufs)
+            has_defocus=defocus, bufs=bufs, reorder=bounds)
         next_q = cur[0]
         return cur
 
@@ -1266,6 +1354,8 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                 **ctx.route))
     if schedule == "queue_ik":
         stats["direct_rec"] = direct_rec
+    if schedule == "queue" and use_fused:
+        stats["reorder"] = reorder
     if shard:
         per = shard.gather(seg_rank.reshape(1)).reshape(-1).tolist()
         stats.update(devices=n_rank, segments_per_shard=per,
@@ -1300,17 +1390,8 @@ def render_regen_sharded(scene: T.Scene, cam: camera_mod.Camera, mesh,
 
     Options as `render_regen`'s, with its "auto" resolution and its
     refusals; `mesh_route` is its `mesh` (the closest-hit route of a mesh
-    scene). `reorder`: "auto" and False run without the lane coherence
-    sort (the JAX package's "auto" is off); True raises
-    NotImplementedError, the sort is not ported (ROADMAP.md §1)."""
-    if reorder is True:
-        raise NotImplementedError(
-            "reorder=True: the lane coherence sort is not ported yet "
-            "(ROADMAP.md §1, item 3); 'auto' and False run without it, as "
-            "the JAX package's 'auto' does")
-    if reorder not in ("auto", False):
-        raise ValueError(f"reorder must be 'auto', True or False, not "
-                         f"{reorder!r}")
+    scene). `reorder` True: each rank sorts its own lane pool
+    (`render_regen`'s lane coherence sort, with its refusals)."""
     if any(k != 1 for k in mesh.shape[1:]):
         raise ValueError(f"render_regen_sharded expects a 1-D mesh, not "
                          f"one of shape {tuple(mesh.shape)}")
@@ -1323,4 +1404,5 @@ def render_regen_sharded(scene: T.Scene, cam: camera_mod.Camera, mesh,
     return render_regen(scene, cam, seed=seed, n_lanes=n_lanes,
                         refill_len=refill_len, cadence=cadence,
                         schedule=schedule, device=device, mesh=mesh_route,
-                        direct_rec=direct_rec, backend=backend, shard=shard)
+                        direct_rec=direct_rec, backend=backend,
+                        reorder=reorder, shard=shard)

@@ -41,7 +41,8 @@ ENTRY = {"bounce_fused_q": "grt_bounce_fused_q",
          "stream2": "grt_stream2_rows"}
 # further entry points of a library, with the same signature
 MORE_ENTRIES = {"bounce_fused_q": ("grt_bounce_fused_q_direct",),
-                "bounce": ("grt_bounce_cap",)}
+                "bounce": ("grt_bounce_cap",),
+                "harvest_rows": ("grt_harvest_rows_perm",)}
 # libraries whose kernels run the bounce core's staged scan; each exports
 # `int grt_kernel_info(feat, n_sph, n_quad, n_box, int* out)`
 STAGED = ("bounce_fused_q", "bounce_fused", "bounce_fused_pos", "bounce")

@@ -257,7 +257,8 @@ def pack_scene(scene: T.Scene):
     to a P_BLOCK multiple with kind=-1 rows and kept in declaration order
     (the reference's strict-`<` tie-break); lights (L, L_COLS); media
     (M, M_COLS); and the 1-row block-AABB placeholder (the JAX package's
-    `cull=False` table; its culled variant serves an unported experiment).
+    `cull=False` table; of its culled variant the port keeps only the
+    Morton box of the lane coherence sort, `coherence_bounds`).
     Returns numpy arrays (prims, lights, media, blk), float32, and when the
     scene has image textures also its image table: the texels (n_img, Hm,
     Wm, 3) float32, padded to the largest image, and each image's (w, h)
@@ -643,6 +644,63 @@ def _morton30(p, lo, ext):
                 1023.0).astype(np.int32)
     return (_part1by2(q[:, 0]) << 2) | (_part1by2(q[:, 1]) << 1) \
         | _part1by2(q[:, 2])
+
+
+def coherence_bounds(scene: T.Scene):
+    """The box (blo, bext) in which the lane coherence sort
+    (`integrator/regen.coherence_sort`) takes the Morton code of a lane's
+    origin, each a (3,) float32 array, as the JAX package's window derives
+    it from the block table of `pack_scene(scene, cull=True)`: blo the least
+    corner of every active primitive's box, bext the span to the greatest
+    corner, at least 1e-6. A sphere's box holds it over the motion with
+    radius |r|; a quad's is the hull of its four corners widened by 1e-4; a
+    box's the hull of its eight rotated corners plus the offset. Inactive
+    rows count as the table's empty boxes (lo 3e38, hi -3e38); a scene
+    without dense primitives has the table's one zero row: blo 0, bext
+    1e-6. Everything in float32, in the JAX package's order of operations,
+    so that the Morton cells, and with them the permutation, are its own
+    (`_row_bounds`, the scan table's boxes, rounds otherwise)."""
+    f32 = lambda a: np.asarray(a, np.float32)
+    big = np.float32(3e38)
+    los, his = [], []
+
+    def add(lo, hi, active):
+        act = np.asarray(active, bool)[:, None]
+        los.append(np.where(act, lo, big).min(axis=0, initial=big))
+        his.append(np.where(act, hi, -big).max(axis=0, initial=-big))
+
+    if scene.has_spheres:
+        sp = scene.spheres
+        c0 = f32(sp.center0)
+        c1 = c0 + f32(sp.center_delta)
+        r = np.abs(f32(sp.radius))[:, None]
+        add(np.minimum(c0, c1) - r, np.maximum(c0, c1) + r, sp.active)
+    if scene.has_quads:
+        qd = scene.quads
+        q, u, v = f32(qd.q), f32(qd.u), f32(qd.v)
+        corners = np.stack([q, q + u, q + v, q + u + v])
+        eps = np.float32(1e-4)
+        add(corners.min(axis=0) - eps, corners.max(axis=0) + eps, qd.active)
+    if scene.has_boxes:
+        bx = scene.boxes
+        lo, hi = f32(bx.lo), f32(bx.hi)
+        cs, sn, off = f32(bx.cos_t), f32(bx.sin_t), f32(bx.offset)
+        cw = []
+        for m in range(8):
+            x = np.where(m & 1, hi[:, 0], lo[:, 0])
+            y = np.where(m & 2, hi[:, 1], lo[:, 1])
+            z = np.where(m & 4, hi[:, 2], lo[:, 2])
+            cw.append(np.stack([cs * x + sn * z, y, -sn * x + cs * z],
+                               axis=-1) + off)
+        cw = np.stack(cw)
+        add(cw.min(axis=0), cw.max(axis=0), bx.active)
+    if not los:
+        return np.zeros(3, np.float32), np.full(3, 1e-6, np.float32)
+    blo = np.min(los, axis=0).astype(np.float32)
+    with np.errstate(over="ignore"):
+        bext = np.maximum(np.max(his, axis=0).astype(np.float32) - blo,
+                          np.float32(1e-6))
+    return blo, bext.astype(np.float32)
 
 
 def _row_bounds(prims, st, sec):

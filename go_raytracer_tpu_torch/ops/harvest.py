@@ -19,7 +19,11 @@ points) plus the accumulator row scans of its regen windows.
   flags arrive as planes of their own (`STs`), as the JAX kernel
   `reverse_harvest` takes them. `csrc/harvest_rows.cu` ranks each row's
   starts itself; the plain version is `reverse_harvest_ref` +
-  `write_rows_ref`.
+  `write_rows_ref`. With `perms` (a window whose lanes were sorted before
+  every call, `integrator/regen.coherence_sort`) it unwinds each row's
+  sort, as the JAX package's XLA reverse scan does with `reorder`: the
+  kernel's `grt_harvest_rows_perm` entry follows each lane timeline across
+  the sorts.
 
 Record planes are level-major (S, N): level s of a window is row s, the
 (outer, cadence, N) layout of the JAX package flattened.
@@ -33,8 +37,10 @@ import torch
 
 # Launches of the CUDA kernel through `harvest_levels_into` (one per call).
 launches = 0
-# Launches of the CUDA kernel through `reverse_harvest_into` (one per call).
+# Launches of the CUDA kernel through `reverse_harvest_into` (one per call),
+# without and with `perms`.
 launches_rows = 0
+launches_rows_perm = 0
 # block size of csrc/harvest_rows.cu; the lane count must be a multiple
 ROWS_BLOCK = 256
 
@@ -84,14 +90,19 @@ def _pull_started(started, rows, r, L):
 
 
 def reverse_harvest_ref(Vr, Vg, Vb, FL, STs, *, cadence, refill_outer,
-                        max_contribution):
+                        max_contribution, perms=None):
     """Plain PyTorch version of the JAX kernel `reverse_harvest`: records
     Vr/Vg/Vb (float32) and FL (int32, bit0 clamp, bit1 emit) of shape
     (outer, cadence, N), started flags STs (outer, N) int32 of which only
     the first `refill_outer` rows can hold starts. Returns (hr, hg, hb),
     each (refill_outer, N) float32: row r holds the radiances of the paths
     that started at inner level 0 of outer row r, packed to the row front
-    in lane order (zeros after)."""
+    in lane order (zeros after).
+
+    `perms` ((outer, N) int32; None: the lanes kept their places): perm[r][i]
+    is the lane that the lane at position i of row r held in row r - 1.
+    After row r's starts, L goes back to that order, L_prev[perm[r]] = L,
+    which is the JAX package's unstable sort by the unique key perm[r]."""
     outer, cad, n = Vr.shape
     if cad != cadence:
         raise ValueError(f"records have cadence {cad}, not {cadence}")
@@ -105,6 +116,9 @@ def reverse_harvest_ref(Vr, Vg, Vb, FL, STs, *, cadence, refill_outer,
                             max_contribution)
         if r < refill_outer:
             L = _pull_started(STs[r] != 0, rows, r, L)
+        if perms is not None:
+            p = perms[r].long()
+            L = [torch.empty_like(Lc).index_put_((p,), Lc) for Lc in L]
     return tuple(rows)
 
 
@@ -182,14 +196,15 @@ class _HarvestRowsArgs(ctypes.Structure):
     field)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "vr", "vg", "vb", "fl", "sts", "nis", "acc", "cnt")] + [
+        "vr", "vg", "vb", "fl", "sts", "nis", "acc", "cnt", "perm",
+        "rank")] + [
         ("item_base", ctypes.c_longlong), ("n", ctypes.c_int),
         ("outer", ctypes.c_int), ("cadence", ctypes.c_int),
         ("refill_outer", ctypes.c_int), ("max_contribution", ctypes.c_float)]
 
 
 def reverse_harvest_into(acc, Vr, Vg, Vb, FL, STs, NIs, *, item_base, cadence,
-                         refill_outer, max_contribution):
+                         refill_outer, max_contribution, perms=None):
     """Harvest a `queue` window into `acc` ((rows, 3) float32, in place):
     every path started at inner level 0 of an outer row r < refill_outer
     writes its radiance to acc[NIs[r] - item_base + rank], its rank among
@@ -203,12 +218,17 @@ def reverse_harvest_into(acc, Vr, Vg, Vb, FL, STs, NIs, *, item_base, cadence,
     `write_rows_ref`) also writes each row's zero tail, which later rows
     overwrite; rows of acc past the window's last started item so hold
     zeros there and are left as they were by the kernel. Everything before
-    is identical."""
-    global launches_rows
+    is identical.
+
+    `perms` ((outer, N) int32, see `reverse_harvest_ref`): the lanes were
+    sorted before every call; each row's starts are ranked in the row's
+    own lane order, and the harvest unwinds the sorts (on CUDA the
+    kernel's `grt_harvest_rows_perm` entry, `launches_rows_perm`)."""
+    global launches_rows, launches_rows_perm
     if not acc.is_cuda:
         rows = reverse_harvest_ref(
             Vr, Vg, Vb, FL, STs, cadence=cadence, refill_outer=refill_outer,
-            max_contribution=max_contribution)
+            max_contribution=max_contribution, perms=perms)
         return write_rows_ref(acc, rows, NIs, item_base=item_base,
                               n_rows=refill_outer)
     from go_raytracer_tpu_torch.ops import _cuda
@@ -226,18 +246,33 @@ def reverse_harvest_into(acc, Vr, Vg, Vb, FL, STs, NIs, *, item_base, cadence,
             or STs.shape[1] != n or NIs.shape[0] < refill_outer \
             or acc.dim() != 2 or acc.shape[1] != 3:
         raise ValueError("reverse_harvest_into: inconsistent shapes")
+    if perms is not None and (
+            not perms.is_cuda or perms.dtype != torch.int32
+            or not perms.is_contiguous() or perms.shape != (outer, n)):
+        raise ValueError("perms: needs a contiguous CUDA int32 tensor of "
+                         f"shape {(outer, n)}")
     cnt = torch.empty(max(refill_outer, 1) * (n // ROWS_BLOCK),
                       dtype=torch.int32, device=acc.device)
+    rank = None if perms is None else torch.empty(
+        (max(refill_outer, 1), n), dtype=torch.int32, device=acc.device)
     a = _HarvestRowsArgs(
         vr=Vr.data_ptr(), vg=Vg.data_ptr(), vb=Vb.data_ptr(),
         fl=FL.data_ptr(), sts=STs.data_ptr(), nis=NIs.data_ptr(),
-        acc=acc.data_ptr(), cnt=cnt.data_ptr(), item_base=item_base, n=n,
-        outer=outer, cadence=cadence, refill_outer=refill_outer,
+        acc=acc.data_ptr(), cnt=cnt.data_ptr(),
+        perm=None if perms is None else perms.data_ptr(),
+        rank=None if rank is None else rank.data_ptr(), item_base=item_base,
+        n=n, outer=outer, cadence=cadence, refill_outer=refill_outer,
         max_contribution=max_contribution)
-    err = _cuda.library("harvest_rows").grt_harvest_rows(
-        ctypes.addressof(a), torch.cuda.current_stream(acc.device).cuda_stream)
+    lib = _cuda.library("harvest_rows")
+    entry = lib.grt_harvest_rows if perms is None \
+        else lib.grt_harvest_rows_perm
+    err = entry(ctypes.addressof(a),
+                torch.cuda.current_stream(acc.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"harvest_rows launch failed: {_cuda.error_string(err)}")
-    launches_rows += 1
+    if perms is None:
+        launches_rows += 1
+    else:
+        launches_rows_perm += 1
     return acc

@@ -5,7 +5,7 @@ middle of the image, before and after the scan's redesign.
 
     python3 scripts/sim_sphere_cull.py [--scene book2 book1] [--lanes 65536]
                                        [--calls 6] [--cursor N]
-                                       [--cursor-step 0]
+                                       [--cursor-step 0] [--sorted]
 
 It ages a pool as scripts/time_fused_kernels.py does (`calls` calls of the
 plain `bounce_fused_q` at one level from an empty pool, the item queue
@@ -22,7 +22,11 @@ three ways:
   every quad and box row tested (the ray turned per box row);
 * after: the kernels' scan (`scan_layout`): spheres in Morton order, every
   section of more than one block culled, boxes in declaration order;
-* after, boxes in Morton order: the choice the kernels did not take.
+* after, boxes in Morton order: the choice the kernels did not take;
+* with `--sorted`, also after on the same rays put in the order of the
+  lane coherence sort (`regen.coherence_sort`, `reorder=True`): the warps
+  of a sorted `queue` call (the call's refill would fill the dead tail
+  with camera rays, which the pool here holds in place).
 
 For each it prints, per section, the share of the section's blocks the
 union of a warp's 32 lanes needs (what a warp executes), the rows and
@@ -121,6 +125,8 @@ def main():
                     help="first item (default: the pool's items in the "
                          "middle rows of the image)")
     ap.add_argument("--cursor-step", type=int, default=0)
+    ap.add_argument("--sorted", action="store_true",
+                    help="also scan the rays in the lane coherence order")
     args = ap.parse_args()
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     for sc in args.scene:
@@ -138,11 +144,23 @@ def main():
         counts = ways["after"].counts
         if counts[2] == 0:
             del ways["after, boxes in Morton order"]
+        rays = {tag: (ray, alive) for tag in ways}
+        if args.sorted:
+            bounds = [torch.from_numpy(b)
+                      for b in bounce.coherence_bounds(scene)]
+            planes = list(ray) + [alive.to(torch.int32),
+                                  torch.zeros_like(alive, dtype=torch.int32)]
+            _, idx = torch.sort(regen.coherence_keys(planes, *bounds),
+                                stable=True)
+            tag = "after, lanes in coherence order"
+            ways[tag] = ways["after"]
+            rays[tag] = (tuple(x[idx] for x in ray), alive[idx])
         print(f"{sc}: {args.lanes} lanes, {args.calls} calls from item "
               f"{cursor} (step {args.cursor_step}), {alive.float().mean():.3f}"
               f" of the lanes in the last call's bounce; {counts[0]} spheres,"
               f" {counts[1]} quads, {counts[2]} boxes", flush=True)
         for tag, lay in ways.items():
+            ray, alive = rays[tag]
             stats = {}
             bounce.closest_culled_ref(st, prims, *ray, layout=lay,
                                       stats=stats)

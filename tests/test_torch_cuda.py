@@ -627,6 +627,71 @@ def test_schedule_window_kernels_match_plain(cuda, schedule):
         assert torch.isfinite(B).all() and float(B.sum()) > 0
 
 
+def test_sorted_queue_window_harvest_matches_plain(cuda):
+    """One `queue` window with the lane coherence sort on the kernels: the
+    sort on the card gives the CPU's permutation on every call's pool (bit
+    for bit), and K7's unwinding entry (`perms`) writes what
+    `reverse_harvest_ref(perms=)` + `write_rows_ref` write, bit for bit,
+    every started item once and nothing else; with identity `perms` it
+    writes what K7 writes."""
+    n, cad, depth = 64 * bounce.BLOCK, 4, 6
+    scene, cam, tables, st, cam_row, bg, _ = _cornell(cuda, n)
+    npix, sq, width = 360000, 10, 600
+    total = 5 * n
+    refill, window, outer = 12, 20, 5
+    seeds = regen.window_seeds(5, 0, outer).to(cuda)
+    kw = dict(width=width, sqrt_spp=sq, window=window, refill=refill,
+              cadence=cad, max_depth=depth,
+              max_contribution=cam.max_contribution)
+    bounds = tuple(torch.from_numpy(b).to(cuda)
+                   for b in bounce.coherence_bounds(scene))
+    bufs = regen.SchedBuffers.empty(n, outer, cad, cuda, 3, reorder=True)
+    acc = torch.full((total + n, 3), float("nan"), device=cuda)
+    before = (bounce.launches_fused, harvest.launches_rows,
+              harvest.launches_rows_perm)
+    _, _, cur = regen._queue_window(
+        tables, st, cam_row, bg, acc, regen._init_state(n, cuda),
+        torch.tensor(0, device=cuda), seeds, 0, total, npix=npix, bufs=bufs,
+        reorder=bounds, **kw)
+    torch.cuda.synchronize()
+    assert (bounce.launches_fused, harvest.launches_rows,
+            harvest.launches_rows_perm) == (before[0] + outer, before[1],
+                                            before[2] + 1)
+    nxt = int(cur[0])
+    rec = [r.view(outer, cad, n) for r in bufs.rec]
+    hkw = dict(cadence=cad, refill_outer=3,
+               max_contribution=cam.max_contribution)
+    rows = harvest.reverse_harvest_ref(*rec, bufs.sts, perms=bufs.perm,
+                                       **hkw)
+    acc_p = torch.full_like(acc, float("nan"))
+    harvest.write_rows_ref(acc_p, rows, bufs.nis, item_base=0, n_rows=3)
+    assert not torch.isnan(acc[:nxt]).any()
+    assert torch.equal(acc[:nxt], acc_p[:nxt])
+    assert torch.isnan(acc[nxt:]).all()
+    # the sort itself, card against CPU, on a pool in mid-flight
+    pool = _cornell(cuda, n, seed=3)[6]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        out = regen._init_state(n, dev)
+        perm = torch.empty(n, dtype=torch.int32, device=dev)
+        regen.coherence_sort([x.to(dev) for x in pool],
+                             *(b.to(dev) for b in bounds), out, perm)
+        outs.append([perm.cpu()] + [x.cpu() for x in out])
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    # identity perms: K7's output
+    ident = torch.arange(n, dtype=torch.int32, device=cuda).repeat(outer, 1)
+    acc_i = torch.full_like(acc, float("nan"))
+    acc_k = torch.full_like(acc, float("nan"))
+    harvest.reverse_harvest_into(acc_i, *rec, bufs.sts, bufs.nis,
+                                 item_base=0, perms=ident, **hkw)
+    harvest.reverse_harvest_into(acc_k, *rec, bufs.sts, bufs.nis,
+                                 item_base=0, **hkw)
+    torch.cuda.synchronize()
+    assert torch.equal(acc_i[:nxt], acc_k[:nxt])
+    assert torch.isnan(acc_i[nxt:]).all()
+
+
 # ---------------------------------------------------------------------------
 # K9-K12: the direct-record queue and the further mesh routes' kernels
 # ---------------------------------------------------------------------------

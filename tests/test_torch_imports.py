@@ -82,7 +82,8 @@ def test_every_cuda_source_is_registered_and_bound():
     for mod, counters in (("bounce", ("launches", "launches_direct",
                                       "launches_bounce", "launches_fused",
                                       "launches_fused_pos")),
-                          ("harvest", ("launches", "launches_rows")),
+                          ("harvest", ("launches", "launches_rows",
+                                       "launches_rows_perm")),
                           ("stream", ("launches", "launches_round")),
                           ("stream2", ("launches",)),
                           ("traverse", ("launches",)),

@@ -179,7 +179,21 @@ def test_one_rank_equals_render_regen(one_rank, name):
 
 
 def test_reorder_true_raises(one_rank):
-    """The lane coherence sort is not ported: reorder=True raises naming
-    the roadmap, and nothing renders without it in its place."""
-    assert one_rank["reorder"].startswith("NotImplementedError")
-    assert "ROADMAP" in one_rank["reorder"]
+    """reorder=True through render_regen_sharded raises ValueError wherever
+    render_regen refuses the lane coherence sort (under queue_ik,
+    positional or direct_rec, and off the fused kernels), and elsewhere
+    passes through: a one-rank group renders render_regen(reorder=True)'s
+    image and segments bit for bit on the `queue` schedule (the "reorder"
+    case of test_one_rank_equals_render_regen; four ranks in
+    test_exact_bookkeeping_in_every_schedule). The name is kept from when
+    the sharded entry refused the sort everywhere."""
+    refusals = one_rank["reorder_refusals"]
+    assert set(refusals) == {"queue_ik", "positional", "direct_rec", "xla"}
+    for tag, err in refusals.items():
+        assert err is not None and err.startswith("ValueError"), (tag, err)
+        assert "reorder" in err
+    got = one_rank["reorder"]
+    assert got["equal"] and got["max_diff"] == 0.0
+    assert got["segments"][0] == got["segments"][1]
+    st = one_rank["reorder_schedule"]
+    assert st["schedule"] == "queue" and st["reorder"] is True

@@ -267,6 +267,7 @@ SCHEDULES = {
     "positional": dict(schedule="positional"),
     "xla": dict(backend="xla"),
     "xla_positional": dict(backend="xla", schedule="positional"),
+    "reorder": dict(reorder=True),
 }
 BOX_SEED = 41
 MODEL_LANES = 512
@@ -275,7 +276,7 @@ MODEL_LANES = 512
 def _stats(st):
     keep = ("segments", "paths", "devices", "segments_per_shard",
             "work_balance", "schedule", "backend", "occupancy", "windows",
-            "nonfinite", "direct_rec", "bounce")
+            "nonfinite", "direct_rec", "bounce", "reorder")
     return {k: st[k] for k in keep if k in st}
 
 
@@ -338,8 +339,16 @@ def regen_scenarios(rank, n_ranks, out_dir):
                          segments=[sa["segments"], sb["segments"]],
                          devices=sa["devices"],
                          per_shard=sa["segments_per_shard"])
-    one["reorder"] = _raises(lambda: regen.render_regen_sharded(
-        box_scene(), box_cam(), mesh, reorder=True, device="cpu"))
+    one["reorder_schedule"] = _stats(regen.render_regen_sharded(
+        box_scene(), box_cam(), mesh, seed=BOX_SEED, n_lanes=LANES,
+        device="cpu", reorder=True)[1])
+    one["reorder_refusals"] = {
+        tag: _raises(lambda: regen.render_regen_sharded(
+            box_scene(), box_cam(), mesh, reorder=True, device="cpu", **kw))
+        for tag, kw in (("queue_ik", dict(schedule="queue_ik")),
+                        ("positional", dict(schedule="positional")),
+                        ("direct_rec", dict(direct_rec=True)),
+                        ("xla", dict(backend="xla")))}
     with open(os.path.join(out_dir, "regen_one.json"), "w") as fh:
         json.dump(one, fh)
     dist.destroy_process_group()
