@@ -238,10 +238,13 @@ Phases (any failure exits non-zero; nothing is swallowed):
      bit for bit, on aged 131,072-lane pools of cornellBox, book1 and
      book2, the sort's ms, host and device time and launches a call, and
      K6's device time on those rays as they lie and sorted; (b) K7's
-     unwinding entry `grt_harvest_rows_perm` on a recorded sorted book1
-     window against its plain version (bit for bit) and, with identity
-     perms, against K7, its ms a window beside K7's on the same records,
-     its plain version's and its bytes bound; (c) the three flagships
+     unwinding entry `grt_harvest_rows_perm` on a recorded sorted window
+     of each of those flagships against its plain version (bit for bit,
+     every started item once, NaN past the last) and, with identity
+     perms, against K7; its ms a window beside K7's on the same records,
+     in turns, its plain version's and its bytes bound; its barrier share
+     (its own grid's barriers alone, `K7P_PROBE_CU`), its time with L in
+     three planes, and its registers and spill; (c) the three flagships
      (PERF.md §4) sorted and unsorted under `queue`, in turns: paths,
      non-finite values, segments per path within 5% of `regen_len`,
      channel means within 1e-2 of the unsorted render, launches (K6 and
@@ -402,6 +405,11 @@ REDESIGN_SCAN = ("redesigned: the closest-hit scan of "
                  "section (spheres in Morton order), winners by (t, row), "
                  "the box reciprocals hoisted; timed per scene in phases "
                  "22-24")
+# what the kernels line says of K7's unwinding entry
+REDESIGN_K7P = ("redesigned: the lanes stay in place and L moves through "
+                "two state buffers, one cooperative launch with a "
+                "grid-wide barrier a row, K7's block-ballot ranks, no rank "
+                "plane; timed on a window of each flagship in phase 29 (b)")
 
 
 def fail(msg):
@@ -1348,6 +1356,197 @@ REORDER_SCENES = ("cornell_box", "book1", "book2")
 REORDER_LANES = 1 << 17
 REORDER_AB_SPP, REORDER_AB_CADENCE = 25, 4
 
+# What phase 29 (b) times beside K7's unwinding entry, built from the
+# checkout's csrc/harvest_rows.cu: the entry's cooperative grid and
+# barriers with the work removed (its barrier share), and the entry with L
+# in three float planes in place of one float4 a lane (its scatter then
+# touches three sectors a lane, not one).
+K7P_PROBE_CU = r"""
+#include "%s"
+
+__global__ void __launch_bounds__(BLOCK) barriers_only(int outer) {
+  cg::grid_group grid = cg::this_grid();
+  for (int r = outer - 1; r > 0; --r) grid.sync();
+}
+
+__global__ void __launch_bounds__(BLOCK) harvest_rows_perm_planes(
+    HarvestRowsArgs a) {
+  __shared__ int warp_starts[2][NWARP];
+  cg::grid_group grid = cg::this_grid();
+  const int tiles = a.n / BLOCK;
+  const int first = blockIdx.x;
+  const size_t n = a.n;
+  RowIn w = row_in(a, a.outer - 1, first);
+  int k = 0;
+  for (int r = a.outer - 1; r >= 0; --r) {
+    const float* cur = (const float*)a.state + (size_t)(r & 1) * 3 * n;
+    float* prev = (float*)a.state + (size_t)((r + 1) & 1) * 3 * n;
+    for (int tile = first; tile < tiles; tile += gridDim.x, ++k) {
+      const int i = tile * BLOCK + threadIdx.x;
+      if (tile != first) w = row_in(a, r, tile);
+      float lr = 0.0f, lg = 0.0f, lb = 0.0f;
+      if (r < a.outer - 1) {
+        lr = __ldcg(cur + i);
+        lg = __ldcg(cur + n + i);
+        lb = __ldcg(cur + 2 * n + i);
+      }
+      level_step(a, w.last, lr, lg, lb);
+      for (int j = a.cadence - 2; j >= 0; --j)
+        level_step(a, load_level(a, ((size_t)r * a.cadence + j) * a.n + i),
+                   lr, lg, lb);
+      if (r < a.refill_outer) {
+        const int rank = tile_rank(w.started, warp_starts[k & 1]);
+        if (w.started) write_start(a, w.slot0 + rank, lr, lg, lb);
+      }
+      if (r > 0) {
+        __stcg(prev + w.perm, lr);
+        __stcg(prev + n + w.perm, lg);
+        __stcg(prev + 2 * n + w.perm, lb);
+      }
+    }
+    if (r > 0) {
+      w = row_in(a, r - 1, first);
+      grid.sync();
+    }
+  }
+}
+
+extern "C" int grt_probe_barriers(const HarvestRowsArgs* args,
+                                  void* stream) {
+  int blocks;
+  const int err = perm_grid(args->n, &blocks);
+  if (err) return err;
+  int outer = args->outer;
+  void* params[] = {&outer};
+  return (int)cudaLaunchCooperativeKernel((const void*)barriers_only,
+                                          dim3(blocks), dim3(BLOCK), params,
+                                          0, (cudaStream_t)stream);
+}
+
+extern "C" int grt_probe_perm_planes(const HarvestRowsArgs* args,
+                                     void* stream) {
+  HarvestRowsArgs a = *args;
+  cudaStream_t s = (cudaStream_t)stream;
+  int blocks;
+  int err = perm_grid(a.n, &blocks);
+  if (!err) err = rank_rows(a, s);
+  if (err) return err;
+  void* params[] = {&a};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)harvest_rows_perm_planes, dim3(blocks), dim3(BLOCK),
+      params, 0, s);
+}
+"""
+
+
+def k7p_probe_build():
+    """Start `nvcc` on K7P_PROBE_CU into build/k7p_probe/; returns what
+    k7p_probe_load waits for."""
+    from go_raytracer_tpu_torch.ops import _cuda
+
+    out = os.path.join(os.path.dirname(_cuda.BUILD_DIR), "k7p_probe")
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(out, "probe.cu")
+    with open(src, "w") as fh:
+        fh.write(K7P_PROBE_CU % os.path.join(_cuda._CSRC, "harvest_rows.cu"))
+    so, log = os.path.join(out, "probe.so"), os.path.join(out, "probe.log")
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([_cuda._nvcc(), *_cuda.FLAGS, "-o", so, src],
+                                stdout=fh, stderr=subprocess.STDOUT)
+    return proc, so, log
+
+
+def k7p_probe_load(build):
+    """The probe library of k7p_probe_build, once built; fails with the
+    compiler's output if it does not build."""
+    import ctypes
+
+    proc, so, log = build
+    if proc.wait() != 0:
+        with open(log) as fh:
+            fail(f"the unwinding entry's probe does not build:\n{fh.read()}")
+    lib = ctypes.CDLL(so)
+    for name in ("grt_probe_barriers", "grt_probe_perm_planes"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@contextlib.contextmanager
+def k7p_entry(fn):
+    """`harvest.reverse_harvest_into(perms=)` launches `fn` (a probe
+    entry, given the entry's arguments) in place of the unwinding entry."""
+    import types
+
+    from go_raytracer_tpu_torch.ops import _cuda
+
+    library = _cuda.library
+    _cuda.library = lambda name: types.SimpleNamespace(
+        grt_harvest_rows_perm=fn)
+    try:
+        yield
+    finally:
+        _cuda.library = library
+
+
+def reorder_scene_args(dev, sc):
+    """Flagship `sc` on the card, as the sorted `queue` schedule takes it:
+    (scene, camera, packed tables, statics, camera row, background, the
+    coherence sort's Morton box)."""
+    import numpy as np
+    import torch
+
+    from go_raytracer_tpu_torch.ops import bounce
+    from go_raytracer_tpu_torch.scenes import registry
+
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    scene, cam = getattr(registry, sc)()
+    return (scene, cam, tuple(to(t) for t in bounce.pack_scene(scene)),
+            bounce.scene_statics(scene), to(bounce.pack_camera(cam.derived())),
+            to(np.asarray(scene.background, np.float32)),
+            tuple(to(b) for b in bounce.coherence_bounds(scene)))
+
+
+def sorted_window(dev, sc, n):
+    """The first sorted `queue` window of flagship `sc` at `n` lanes,
+    recorded on the card through `regen._queue_window(reorder=)`. Returns
+    its records ((outer, cadence, n) each), buffers (STs, NIs, perms), the
+    harvest's keywords, its levels, outer and refill rows, the paths it
+    started and their segments, the launches it made and the acc that its
+    unwinding entry wrote (NaN past the last started item)."""
+    import torch
+
+    from go_raytracer_tpu_torch.integrator import regen
+
+    _, cam, tables, statics, cam_row, bg, bounds = reorder_scene_args(dev, sc)
+    cad, sq = cam.regen_cadence, cam.spp_sqrt
+    npix = cam.width * cam.image_height
+    total = npix * sq * sq
+    d1 = cam.max_depth + 1
+    refill_l = 4 * d1
+    window = -(-(refill_l + d1) // cad) * cad
+    outer, rows = window // cad, -(-refill_l // cad)
+    bufs = regen.SchedBuffers.empty(n, outer, cad, dev, rows, reorder=True)
+    acc = torch.full((total + n, 3), float("nan"), dtype=torch.float32,
+                     device=dev)
+    zero_launches()
+    _, _, cur = regen._queue_window(
+        tables, statics, cam_row, bg, acc, regen._init_state(n, dev),
+        torch.tensor(0, device=dev), regen.window_seeds(0, 0, outer).to(dev),
+        0, total, bufs=bufs, reorder=bounds, width=cam.width, npix=npix,
+        sqrt_spp=sq, window=window, refill=refill_l, cadence=cad,
+        max_depth=cam.max_depth, max_contribution=cam.max_contribution,
+        has_defocus=cam.defocus_angle > 0)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    paths, segments, _ = (int(x) for x in cur.tolist())
+    return dict(rec=[r.view(outer, cad, n) for r in bufs.rec], bufs=bufs,
+                acc=acc, hkw=dict(cadence=cad, refill_outer=rows,
+                                  max_contribution=cam.max_contribution),
+                levels=window, outer=outer, rows=rows, paths=paths,
+                segments=segments, launches=launches)
+
 
 def reorder_phase(dev, card):
     """Phase 29: the lane coherence sort (`render_regen(reorder=True)`, the
@@ -1362,30 +1561,22 @@ def reorder_phase(dev, card):
     import torch
 
     from go_raytracer_tpu_torch.integrator import regen
-    from go_raytracer_tpu_torch.ops import bounce, harvest
+    from go_raytracer_tpu_torch.ops import _cuda, bounce, harvest
     from go_raytracer_tpu_torch.scenes import registry
 
     n = REORDER_LANES
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     summary = {"card": card}
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def scene_args(sc):
-        scene, cam = getattr(registry, sc)()
-        tables = tuple(to(t) for t in bounce.pack_scene(scene))
-        statics = bounce.scene_statics(scene)
-        return (scene, cam, tables, statics,
-                to(bounce.pack_camera(cam.derived())),
-                to(np.asarray(scene.background, np.float32)),
-                tuple(to(b) for b in bounce.coherence_bounds(scene)))
+    probe_build = k7p_probe_build()
 
     # (a) the permutation, card against CPU, on aged pools; the sort's
     # launches, host and device time a call; K6 on the pool as it lies and
     # sorted (the same rays)
     pools = {}
     for sc in REORDER_SCENES:
-        scene, cam, tables, statics, cam_row, bg, bounds = scene_args(sc)
+        scene, cam, tables, statics, cam_row, bg, bounds = \
+            reorder_scene_args(dev, sc)
         cad, sq = cam.regen_cadence, cam.spp_sqrt
         npix = cam.width * cam.image_height
         fkw = dict(has_defocus=cam.defocus_angle > 0, max_depth=cam.max_depth,
@@ -1460,89 +1651,102 @@ def reorder_phase(dev, card):
         del pool, sorted_k, sorted_c, o6
     summary["sort"] = pools
 
-    # (b) the unwinding entry on a recorded book1 window with its real
-    # perms, against its plain version and, with identity perms, K7
-    scene, cam, tables, statics, cam_row, bg, bounds = scene_args("book1")
-    cad, sq = cam.regen_cadence, cam.spp_sqrt
-    npix = cam.width * cam.image_height
-    total = npix * sq * sq
-    d1 = cam.max_depth + 1
-    refill_l = 4 * d1
-    window = -(-(refill_l + d1) // cad) * cad
-    outer, rows = window // cad, -(-refill_l // cad)
-    bufs = regen.SchedBuffers.empty(n, outer, cad, dev, rows, reorder=True)
+    # (b) the unwinding entry on a recorded sorted window of each flagship
+    # with its real perms, against its plain version and, with identity
+    # perms, K7; timed beside K7 on the same records, in turns, and beside
+    # its own grid's barriers alone and its three-plane variant
+    t_b = time.perf_counter()
+    probe = k7p_probe_load(probe_build)
+    regs = [ln for ln in _cuda.ptxas_report("harvest_rows")
+            if ln.startswith("harvest_rows_perm:")]
     nan = float("nan")
-    acc_k = torch.full((total + n, 3), nan, dtype=torch.float32, device=dev)
-    wkw = dict(width=cam.width, npix=npix, sqrt_spp=sq, window=window,
-               refill=refill_l, cadence=cad, max_depth=cam.max_depth,
-               max_contribution=cam.max_contribution,
-               has_defocus=cam.defocus_angle > 0)
-    zero_launches()
-    _, _, cur = regen._queue_window(
-        tables, statics, cam_row, bg, acc_k, regen._init_state(n, dev),
-        torch.tensor(0, device=dev), regen.window_seeds(0, 0, outer).to(dev),
-        0, total, bufs=bufs, reorder=bounds, **wkw)
-    torch.cuda.synchronize()
-    lw = launch_counts()
-    check(lw["K6"] == outer and lw["K7p"] == 1 and lw["K7"] == 0,
-          f"the sorted window did not launch K6 a call and the unwinding "
-          f"entry once: {lw}")
-    q_next, q_segs, _ = (int(x) for x in cur.tolist())
-    rec = [r.view(outer, cad, n) for r in bufs.rec]
-    hkw = dict(cadence=cad, refill_outer=rows,
-               max_contribution=cam.max_contribution)
-    acc_p = torch.full_like(acc_k, nan)
+    wins = {}
+    for sc in REORDER_SCENES:
+        w = sorted_window(dev, sc, n)
+        rec, bufs, hkw, q_next = w["rec"], w["bufs"], w["hkw"], w["paths"]
+        lw, outer, rows = w["launches"], w["outer"], w["rows"]
+        check(lw["K6"] == outer and lw["K7p"] == 1 and lw["K7"] == 0,
+              f"{sc}: the sorted window did not launch K6 a call and the "
+              f"unwinding entry once: {lw}")
+        acc_k = w["acc"]
+        acc_p = torch.full_like(acc_k, nan)
 
-    def run_plain():
-        r_ = harvest.reverse_harvest_ref(*rec, bufs.sts, perms=bufs.perm,
-                                         **hkw)
-        harvest.write_rows_ref(acc_p, r_, bufs.nis, item_base=0,
-                               n_rows=rows)
+        def run_plain():
+            r_ = harvest.reverse_harvest_ref(*rec, bufs.sts, perms=bufs.perm,
+                                             **hkw)
+            harvest.write_rows_ref(acc_p, r_, bufs.nis, item_base=0,
+                                   n_rows=rows)
 
-    plain_ms = time_ms(run_plain, 1, warmup=0)
-    check(not torch.isnan(acc_k[:q_next]).any()
-          and bool(torch.isnan(acc_k[q_next:]).all()),
-          "the unwinding entry missed a started item or wrote past them")
-    k7p_err = (acc_k[:q_next] - acc_p[:q_next]).abs().max().item()
-    k7p_equal = torch.equal(acc_k[:q_next], acc_p[:q_next])
-    acc_t = torch.full_like(acc_k, nan)
-    k7p_ms = time_ms(lambda: harvest.reverse_harvest_into(
-        acc_t, *rec, bufs.sts, bufs.nis, item_base=0, perms=bufs.perm,
-        **hkw), 10)
-    check(torch.equal(acc_t[:q_next], acc_k[:q_next]),
-          "the unwinding entry's timing run differs from the window's")
-    acc_u = torch.full_like(acc_k, nan)
-    k7_ms = time_ms(lambda: harvest.reverse_harvest_into(
-        acc_u, *rec, bufs.sts, bufs.nis, item_base=0, **hkw), 10)
-    ident = torch.arange(n, dtype=torch.int32, device=dev).repeat(outer, 1)
-    acc_i = torch.full_like(acc_k, nan)
-    harvest.reverse_harvest_into(acc_i, *rec, bufs.sts, bufs.nis,
-                                 item_base=0, perms=ident, **hkw)
-    torch.cuda.synchronize()
-    ident_equal = torch.equal(acc_i[:q_next], acc_u[:q_next])
-    # K7's bytes (16 a lane a level, 4 a lane a refill row, 12 a path, the
-    # row bases) plus the perm rows the walk reads (rows 1..outer-1); the
-    # rank plane is the entry's scratch, not a byte the harvest needs
-    k7p_bytes = window * n * 16 + rows * n * 4 + q_next * 12 + rows * 4 \
-        + (outer - 1) * n * 4
-    k7p_bound = k7p_bytes / HBM_BYTES_PER_S * 1e3
-    summary["k7p_window"] = dict(
-        levels=window, rows=rows, paths=q_next, segments=q_segs,
-        equal=k7p_equal, max_abs_err=k7p_err, identity_equals_k7=ident_equal,
-        ms=k7p_ms, k7_ms=k7_ms, plain_ms=plain_ms, bound_ms=k7p_bound,
-        bytes=k7p_bytes)
-    print(f"[29] (b) book1 sorted queue window ({window} levels, {rows} "
-          f"refill rows, {n} lanes, {q_next} paths): the unwinding entry vs "
-          f"its plain version equal {k7p_equal} (max abs err {k7p_err}); "
-          f"with identity perms equal to K7 {ident_equal}; ms a window "
-          f"{k7p_ms:.4f}, K7 on the same records {k7_ms:.4f}, plain "
-          f"{plain_ms:.2f}, bound {k7p_bound:.4f} (bytes, {k7p_bytes} B) on "
-          f"{card}")
-    check(k7p_equal and k7p_err == 0.0,
-          "the unwinding entry differs from its plain version")
-    check(ident_equal, "the unwinding entry with identity perms is not K7")
-    del acc_k, acc_p, acc_t, acc_u, acc_i, rec, bufs, ident
-    torch.cuda.empty_cache()
+        plain_ms = time_ms(run_plain, 1, warmup=0)
+        check(not torch.isnan(acc_k[:q_next]).any()
+              and bool(torch.isnan(acc_k[q_next:]).all()),
+              f"{sc}: the unwinding entry missed a started item or wrote "
+              "past them")
+        err = (acc_k[:q_next] - acc_p[:q_next]).abs().max().item()
+        equal = torch.equal(acc_k[:q_next], acc_p[:q_next])
+        accs = {tag: torch.full_like(acc_k, nan)
+                for tag in ("entry", "k7", "planes", "ident")}
+
+        def call(tag, perms):
+            return lambda: harvest.reverse_harvest_into(
+                accs[tag], *rec, bufs.sts, bufs.nis, item_base=0,
+                perms=perms, **hkw)
+
+        ms = {"entry": [], "k7": []}
+        for tag in ("entry", "k7", "k7", "entry"):
+            ms[tag].append(time_ms(call(tag, None if tag == "k7"
+                                        else bufs.perm), 10))
+        check(torch.equal(accs["entry"][:q_next], acc_k[:q_next]),
+              f"{sc}: the unwinding entry's timing run differs from the "
+              "window's")
+        with k7p_entry(probe.grt_probe_barriers):
+            barrier_ms = time_ms(call("planes", bufs.perm), 10)
+        with k7p_entry(probe.grt_probe_perm_planes):
+            planes_ms = time_ms(call("planes", bufs.perm), 10)
+        planes_equal = torch.equal(accs["planes"][:q_next], acc_k[:q_next])
+        ident = torch.arange(n, dtype=torch.int32, device=dev).repeat(
+            outer, 1)
+        call("ident", ident)()
+        torch.cuda.synchronize()
+        ident_equal = torch.equal(accs["ident"][:q_next],
+                                  accs["k7"][:q_next])
+        # K7's bytes (16 a lane a level, 4 a lane a refill row, 12 a path,
+        # the row bases) plus the perm rows the entry reads (rows
+        # 1..outer-1); its state buffers are the design's traffic, not a
+        # byte the harvest needs
+        nbytes = w["levels"] * n * 16 + rows * n * 4 + q_next * 12 \
+            + rows * 4 + (outer - 1) * n * 4
+        entry_ms = min(ms["entry"])
+        wins[sc] = dict(
+            levels=w["levels"], outer=outer, rows=rows, paths=q_next,
+            segments=w["segments"], equal=equal, max_abs_err=err,
+            identity_equals_k7=ident_equal, ms=ms["entry"], k7_ms=ms["k7"],
+            plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bytes=nbytes, barriers_ms=barrier_ms,
+            barrier_share=barrier_ms / entry_ms, planes_ms=planes_ms,
+            planes_equal=planes_equal)
+        print(f"[29] (b) {sc} sorted queue window ({w['levels']} levels, "
+              f"{outer} outer rows, {rows} refill rows, {n} lanes, {q_next} "
+              f"paths): the unwinding entry vs its plain version equal "
+              f"{equal} (max abs err {err}); with identity perms equal to "
+              f"K7 {ident_equal}; ms a window, in turns, entry / K7 "
+              f"{ms['entry'][0]:.4f} / {ms['k7'][0]:.4f}, "
+              f"{ms['k7'][1]:.4f} / {ms['entry'][1]:.4f}; its {outer - 1} "
+              f"barriers alone {barrier_ms:.4f} (share "
+              f"{barrier_ms / entry_ms:.3f}); L in three planes "
+              f"{planes_ms:.4f} (equal {planes_equal}); plain "
+              f"{plain_ms:.2f}, bound {wins[sc]['bound_ms']:.4f} (bytes, "
+              f"{nbytes} B); {regs} on {card}")
+        check(equal and err == 0.0,
+              f"{sc}: the unwinding entry differs from its plain version")
+        check(ident_equal,
+              f"{sc}: the unwinding entry with identity perms is not K7")
+        check(planes_equal, f"{sc}: the three-plane probe differs from the "
+              "unwinding entry")
+        del w, rec, bufs, acc_k, acc_p, accs, ident
+        torch.cuda.empty_cache()
+    summary["k7p_windows"] = wins
+    print(f"[29] (b) took {time.perf_counter() - t_b:.1f} s")
 
     # (c) the flagships sorted and unsorted: gates, launches, loops in
     # turns (unsorted, sorted, sorted, unsorted)
@@ -1612,12 +1816,17 @@ def reorder_phase(dev, card):
           f"{REORDER_AB_CADENCE}, one render an arm) on {card}: "
           + json.dumps(ab))
 
+    b1 = wins["book1"]
     summary["k7p"] = dict(
         launches=sum(f["launches"]["K7p"] for f in flags.values()),
         launches_per_render={sc: f["launches"]["K7p"]
                              for sc, f in flags.items()},
-        max_abs_err=k7p_err, ms=k7p_ms, plain_ms=plain_ms,
-        bound_ms=k7p_bound, k7_ms_same_records=k7_ms)
+        max_abs_err=max(v["max_abs_err"] for v in wins.values()),
+        ms=min(b1["ms"]), plain_ms=b1["plain_ms"], bound_ms=b1["bound_ms"],
+        k7_ms_same_records=min(b1["k7_ms"]), registers=regs,
+        windows={sc: {k: v[k] for k in (
+            "ms", "k7_ms", "bound_ms", "plain_ms", "barriers_ms",
+            "barrier_share", "planes_ms")} for sc, v in wins.items()})
     return summary
 
 
@@ -4927,7 +5136,9 @@ def main():
                         "k7_ms_same_records": k7p["k7_ms_same_records"],
                         "plain_ms": k7p["plain_ms"],
                         "bound_ms": k7p["bound_ms"], "bound_by": "bytes",
-                        "library_ms": None}},
+                        "library_ms": None, "registers": k7p["registers"],
+                        "windows": k7p["windows"],
+                        "redesign": REDESIGN_K7P}},
         {"name": "bounce_fused_pos", "route": "cuda",
          "launches_sharded": sharded["K8"],
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused_pos.cu",

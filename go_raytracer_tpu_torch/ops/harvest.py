@@ -21,9 +21,10 @@ points) plus the accumulator row scans of its regen windows.
   starts itself; the plain version is `reverse_harvest_ref` +
   `write_rows_ref`. With `perms` (a window whose lanes were sorted before
   every call, `integrator/regen.coherence_sort`) it unwinds each row's
-  sort, as the JAX package's XLA reverse scan does with `reorder`: the
-  kernel's `grt_harvest_rows_perm` entry follows each lane timeline across
-  the sorts.
+  sort, as the JAX package's XLA reverse scan does with `reorder`: in the
+  kernel's `grt_harvest_rows_perm` entry the lanes stay in place and each
+  row's L moves to the previous row's order through a state buffer, one
+  grid-wide barrier a row.
 
 Record planes are level-major (S, N): level s of a window is row s, the
 (outer, cadence, N) layout of the JAX package flattened.
@@ -197,7 +198,7 @@ class _HarvestRowsArgs(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "vr", "vg", "vb", "fl", "sts", "nis", "acc", "cnt", "perm",
-        "rank")] + [
+        "state")] + [
         ("item_base", ctypes.c_longlong), ("n", ctypes.c_int),
         ("outer", ctypes.c_int), ("cadence", ctypes.c_int),
         ("refill_outer", ctypes.c_int), ("max_contribution", ctypes.c_float)]
@@ -253,14 +254,16 @@ def reverse_harvest_into(acc, Vr, Vg, Vb, FL, STs, NIs, *, item_base, cadence,
                          f"shape {(outer, n)}")
     cnt = torch.empty(max(refill_outer, 1) * (n // ROWS_BLOCK),
                       dtype=torch.int32, device=acc.device)
-    rank = None if perms is None else torch.empty(
-        (max(refill_outer, 1), n), dtype=torch.int32, device=acc.device)
+    # L of every lane, (r, g, b, pad), in two buffers that the rows swap
+    state = None if perms is None else torch.empty(
+        (2, n, 4), dtype=torch.float32, device=acc.device)
     a = _HarvestRowsArgs(
         vr=Vr.data_ptr(), vg=Vg.data_ptr(), vb=Vb.data_ptr(),
         fl=FL.data_ptr(), sts=STs.data_ptr(), nis=NIs.data_ptr(),
         acc=acc.data_ptr(), cnt=cnt.data_ptr(),
         perm=None if perms is None else perms.data_ptr(),
-        rank=None if rank is None else rank.data_ptr(), item_base=item_base,
+        state=None if state is None else state.data_ptr(),
+        item_base=item_base,
         n=n, outer=outer, cadence=cadence, refill_outer=refill_outer,
         max_contribution=max_contribution)
     lib = _cuda.library("harvest_rows")

@@ -627,13 +627,77 @@ def test_schedule_window_kernels_match_plain(cuda, schedule):
         assert torch.isfinite(B).all() and float(B.sum()) > 0
 
 
-def test_sorted_queue_window_harvest_matches_plain(cuda):
+def _sorted_synthetic_window(dev, outer, cadence, refill_outer, blocks):
+    """K7's unwinding entry on a synthetic window (the invariants of
+    tests/test_torch_reorder.py's `_window`: emission only at terminal
+    vertices, starts only in refill rows) whose rows were sorted by random
+    bijections, at item base 1000: bit for bit what the plain version
+    writes, and with identity perms what K7 writes. The acc starts as NaN
+    and holds as many slots before its tail as the window has starts, so
+    no NaN before the tail and only NaN in it means every start wrote its
+    own slot once and nothing else was written."""
+    n, maxc, base = blocks * harvest.ROWS_BLOCK, 1.5, 1000
+    rs = np.random.default_rng(18 + outer * cadence + refill_outer)
+    shape = (outer, cadence, n)
+    term = rs.uniform(size=shape) < 0.35
+    V = np.where(term[None], rs.uniform(0.0, 2.0, (3,) + shape),
+                 rs.uniform(0.0, 1.0, (3,) + shape)).astype(np.float32)
+    FL = (rs.uniform(size=shape) < 0.3).astype(np.int32) \
+        | (term.astype(np.int32) << 1)
+    STs = np.zeros((outer, n), np.int32)
+    STs[:refill_outer] = rs.uniform(size=(refill_outer, n)) < 0.3
+    perms = np.stack([rs.permutation(n) for _ in range(outer)]).astype(
+        np.int32)
+    counts = STs.sum(axis=1)
+    nis = (base + np.concatenate([[0], np.cumsum(counts)])[:outer]).astype(
+        np.int32)
+    total = int(counts.sum())
+    cpu = [torch.from_numpy(np.ascontiguousarray(a))
+           for a in (V[0], V[1], V[2], FL, STs, nis, perms)]
+    card = [t.to(dev) for t in cpu]
+    hkw = dict(cadence=cadence, refill_outer=refill_outer,
+               max_contribution=maxc)
+    acc_p = torch.full((total + n, 3), float("nan"))
+    harvest.write_rows_ref(acc_p, harvest.reverse_harvest_ref(
+        *cpu[:5], perms=cpu[6], **hkw), cpu[5], item_base=base,
+        n_rows=refill_outer)
+    ident = torch.arange(n, dtype=torch.int32, device=dev).repeat(outer, 1)
+    out = {}
+    for tag, perm in (("perm", card[6]), ("ident", ident), ("k7", None)):
+        before = (harvest.launches_rows, harvest.launches_rows_perm)
+        acc = torch.full((total + n, 3), float("nan"), device=dev)
+        harvest.reverse_harvest_into(acc, *card[:6], item_base=base,
+                                     perms=perm, **hkw)
+        torch.cuda.synchronize()
+        assert (harvest.launches_rows, harvest.launches_rows_perm) == (
+            before[0] + (perm is None), before[1] + (perm is not None))
+        assert not torch.isnan(acc[:total]).any()
+        assert torch.isnan(acc[total:]).all()
+        out[tag] = acc[:total].cpu()
+    assert torch.equal(out["perm"], acc_p[:total])
+    assert torch.equal(out["ident"], out["k7"])
+
+
+# (outer, cadence, refill_outer, blocks of 256 lanes) of the synthetic
+# windows; "past_the_grid" has more tiles than the card holds blocks at
+# once, so the entry's blocks walk them grid-stride
+SORTED_SYNTHETIC = {"no_refill": (5, 2, 0, 64), "one_row": (1, 3, 1, 64),
+                    "cadence1": (40, 1, 30, 64), "cadence4": (12, 4, 9, 64),
+                    "past_the_grid": (6, 1, 4, 2048)}
+
+
+@pytest.mark.parametrize("case", ["window"] + list(SORTED_SYNTHETIC))
+def test_sorted_queue_window_harvest_matches_plain(cuda, case):
     """One `queue` window with the lane coherence sort on the kernels: the
     sort on the card gives the CPU's permutation on every call's pool (bit
-    for bit), and K7's unwinding entry (`perms`) writes what
-    `reverse_harvest_ref(perms=)` + `write_rows_ref` write, bit for bit,
-    every started item once and nothing else; with identity `perms` it
-    writes what K7 writes."""
+    for bit), and K7's unwinding entry (`perms`, one more count on
+    `launches_rows_perm` a call) writes what `reverse_harvest_ref(perms=)`
+    + `write_rows_ref` write, bit for bit, every started item once and
+    nothing else; with identity `perms` it writes what K7 writes. The other
+    cases run the entry on synthetic windows (`_sorted_synthetic_window`)."""
+    if case in SORTED_SYNTHETIC:
+        _sorted_synthetic_window(cuda, *SORTED_SYNTHETIC[case])
+        return
     n, cad, depth = 64 * bounce.BLOCK, 4, 6
     scene, cam, tables, st, cam_row, bg, _ = _cornell(cuda, n)
     npix, sq, width = 360000, 10, 600
