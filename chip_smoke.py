@@ -27,7 +27,7 @@ Phases (any failure exits non-zero; nothing is swallowed):
      and K2 held against its plain version on that window; cornellBox's K1
      beside its earlier time; K1 and K9 on book3 and cornellSmoke;
   7. the mesh path's intersectors at scene 8's shapes (modelExample: the
-     65,536-triangle statue, 65,536 rays of a real bounce level, capped and
+     65,536-triangle statue, 131,072 rays of a real bounce level, capped and
      dead lanes included): K4 `stream_rows` on every call one
      `binned_closest` makes, and K5 `bvh8_closest` on the level's rays as
      they lie and sorted as the walk route sorts them, against their plain
@@ -44,19 +44,23 @@ Phases (any failure exits non-zero; nothing is swallowed):
   9. a small scene-8 render on the kernels against the same render, on
      the card and on the same random stream, with every kernel swapped
      for its plain version;
- 10. one real scene-8 window (255 levels, starts at the first 204, 65,536
+ 10. one real scene-8 window (255 levels, starts at the first 204, 131,072
      lanes), whose start ranks and per-level bases come from the refill's
      cumulative sum: every level's starts take base .. base+take-1 once
      each, and K2 against its plain version on those records; then the
      scene-8 render through `cli.main --mesh binned`, launch counts read
      around it. To keep the script's time, this one render is CUT to 25
-     spp (5x5 strata; 600x337, depth 50, 65,536 lanes otherwise as the
+     spp (5x5 strata; 600x337, depth 50, 131,072 lanes otherwise as the
      registry has it) and held against the default route (the walk) at the
      same 25 spp in the same call; then the slice's main path, `-S 8` with
      no route named, through `cli.main` at the full registry
      configuration (250 spp = 225 strata): the walk route, through K5, K3
      (and its cap entry once a level) and K2 alone, the plain gather and
-     cap never called;
+     cap never called, its levels replayed as a CUDA graph with the mesh
+     level's glue kernel once a level and its plain glue never called
+     (every kernel once a level run); then that render again under
+     torch.profiler, the launch counters held to the kernels the card ran,
+     by name, and its image to the main path's;
  11. timings of K3-K5 at those shapes with their bounds (K3 and its cap
      entry through the launch the mesh context prepared: ms per call, host
      us per call, device ms; K4 on every round
@@ -175,7 +179,7 @@ Phases (any failure exits non-zero; nothing is swallowed):
      book1 11, quads 42, book2 47), at 131072 lanes, and in ext mode on
      scene 8, on scene 8 with a glass sphere and a fog medium
      (scenes/synthetic.glass_fog_statue) and on an image-textured mesh
-     (synthetic.image_mesh), at 65536 lanes, from the walk's winner:
+     (synthetic.image_mesh), at 131072 lanes, from the walk's winner:
      against its plain version on camera rays and one level later (flag
      words within each scene's flip fraction, image lanes' texels within
      TEXEL_MOVED_FRAC), then timed (CUDA events, host us per call and
@@ -252,10 +256,24 @@ Phases (any failure exits non-zero; nothing is swallowed):
      (book1, book2 at 25 spp, cadence 4: queue_ik, queue, sorted queue).
      K6's device time a call inside sorted and unsorted renders comes from
      scripts/ab_reorder_torch.py --profile, in fresh processes;
-then the `kernels` JSON line (K1-K12; K1, K6 and K8 name their image
-variant, K3 its feature sets and its cap entry, K7 its unwinding entry,
-K3, K6 and K8 their redesign, K5 its launches on phase 27's modelExample
-gradient, K1-K3 and K5-K9 their launches in phase 28's sharded renders),
+ 30. the mesh window as one device program, on one real scene-8 window
+     (255 levels, refill 204, 131,072 lanes): (a) the mesh level's glue
+     kernel (`ops/mesh_level`, csrc/mesh_level.cu: `grt_mesh_refill`,
+     `grt_mesh_record`) against its plain version at every level, bit for
+     bit, both entries timed on a real level beside their plain versions
+     and their bytes bound; (b) the window replayed as a CUDA graph
+     against the same window run eagerly on the plain glue (same state,
+     seed and cursor), on the walk and on binned2: records, bases,
+     accumulator, cursor, segments and levels bit for bit; (c) the walk
+     window graphed and eager (the glue kernel, no graph): per level the
+     host-issued launches, the calls that wait on the device (torch.cuda's
+     sync debug mode, with their source lines; at most one a window in the
+     graphed one) and the wall ms;
+then the `kernels` JSON line (K1-K12 and the mesh level's glue; K1, K6
+and K8 name their image variant, K3 its feature sets and its cap entry,
+K7 its unwinding entry, K3, K6 and K8 their redesign, K5 its launches on
+phase 27's modelExample gradient, K1-K3 and K5-K9 their launches in
+phase 28's sharded renders),
 the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.
 
@@ -512,6 +530,16 @@ def device_times(prof):
     return out
 
 
+def device_launches(prof, names):
+    """{kernel name: its launches on the device} of a profile, for each of
+    `names` (`kernel_of`): the kernels the card ran, a CUDA graph's nodes
+    included, as the profiler's device events count them."""
+    from torch.autograd import DeviceType
+
+    keys = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {nm: sum(1 for k in keys if kernel_of(k, nm)) for nm in names}
+
+
 def ppm_channel_means(path):
     """Channel means in [0, 1] of a P3 PPM as the CLI writes it."""
     import numpy as np
@@ -538,13 +566,15 @@ def started_ranks_are_a_prefix(fl, take):
 @contextlib.contextmanager
 def plain_versions(bounce, harvest, stream, traverse8):
     """Swap the mesh path's kernel wrappers (K3 and its dense cap, through
-    `bounce.bounce` and the prepared `K3Launch`, K4, K5, K2) for their plain
-    PyTorch versions, whatever device the tensors are on, so that a render
-    on the card can be repeated op for op without the kernels, on the same
-    random stream."""
+    `bounce.bounce` and the prepared `K3Launch`, K4, K5, K2 and the mesh
+    level's glue) for their plain PyTorch versions, whatever device the
+    tensors are on, so that a render on the card can be repeated op for
+    op without the kernels, on the same random stream."""
+    from go_raytracer_tpu_torch.ops import mesh_level
+
     saved = (bounce.bounce, stream.stream_rows, traverse8.bvh8_closest,
              harvest.harvest_levels_into, bounce.K3Launch.__call__,
-             bounce.K3Launch.cap)
+             bounce.K3Launch.cap, mesh_level.refill, mesh_level.record)
 
     def plain_walk(nodes, tris, o, d, t_cap=None, *, max_stack=None):
         return traverse8.bvh8_closest_ref(nodes, tris, o, d, t_cap)
@@ -568,12 +598,16 @@ def plain_versions(bounce, harvest, stream, traverse8):
     traverse8.bvh8_closest = plain_walk
     harvest.harvest_levels_into = plain_harvest
     bounce.K3Launch.__call__, bounce.K3Launch.cap = plain_k3, plain_cap
+    # the mesh level's glue (its plain version reads the host, so the
+    # render's levels run eagerly: `mesh_level.kernel_glue`)
+    mesh_level.refill, mesh_level.record = (mesh_level.refill_ref,
+                                            mesh_level.record_ref)
     try:
         yield
     finally:
         (bounce.bounce, stream.stream_rows, traverse8.bvh8_closest,
          harvest.harvest_levels_into, bounce.K3Launch.__call__,
-         bounce.K3Launch.cap) = saved
+         bounce.K3Launch.cap, mesh_level.refill, mesh_level.record) = saved
 
 
 def tri_hit_bytes(bounce, tri, statics, idx, alive):
@@ -749,20 +783,27 @@ def zero_launches():
     from go_raytracer_tpu_torch.ops import bounce, harvest, stream, stream2
     from go_raytracer_tpu_torch.ops import traverse, traverse8
 
+    from go_raytracer_tpu_torch.ops import mesh_level
+
     bounce.launches = bounce.launches_bounce = bounce.launches_cap = 0
     bounce.launches_fused = bounce.launches_fused_pos = 0
     bounce.launches_direct = harvest.launches = harvest.launches_rows = 0
     harvest.launches_rows_perm = 0
     stream.launches = stream.launches_round = stream2.launches = 0
     traverse.launches = traverse8.launches = 0
+    mesh_level.launches_refill = mesh_level.launches_record = 0
 
 
 def launch_counts():
-    """{kernel: launches since zero_launches}, K3's cap entry as "cap"."""
-    from go_raytracer_tpu_torch.ops import bounce, harvest, stream, stream2
-    from go_raytracer_tpu_torch.ops import traverse, traverse8
+    """{kernel: launches since zero_launches}, K3's cap entry as "cap",
+    the mesh level's glue entries as "refill" and "record"."""
+    from go_raytracer_tpu_torch.ops import bounce, harvest, mesh_level
+    from go_raytracer_tpu_torch.ops import stream, stream2, traverse
+    from go_raytracer_tpu_torch.ops import traverse8
 
     return dict(K1=bounce.launches, K2=harvest.launches,
+                refill=mesh_level.launches_refill,
+                record=mesh_level.launches_record,
                 K3=bounce.launches_bounce, cap=bounce.launches_cap,
                 K4=stream.launches, K5=traverse8.launches,
                 K6=bounce.launches_fused, K7=harvest.launches_rows,
@@ -1830,6 +1871,321 @@ def reorder_phase(dev, card):
     return summary
 
 
+# the runtime calls that put work on the card, as torch.profiler names them
+HOST_LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                    "cuGraphLaunch", "cudaMemcpyAsync", "cuMemcpyAsync",
+                    "cudaMemsetAsync", "cuMemsetD")
+
+
+def window_costs(run, levels):
+    """Per level of the window `run()` runs (`levels()`: the levels it ran
+    last): wall ms (host clock between two synchronizes, the least of
+    three runs), calls that wait on the device (torch.cuda's sync debug
+    mode, with the five source lines that make the most), and under
+    torch.profiler the host-issued launches (runtime calls of
+    HOST_LAUNCH_APIS: kernels, graph launches, copies, fills) and the
+    device launches (kernels and copies on the card, a graph's nodes
+    included)."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+
+    run()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / levels())
+    sites = collections.Counter()
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            # the innermost frames of this repository that led to the wait
+            own = [f"{os.path.basename(f.filename)}:{f.lineno}"
+                   for f in traceback.extract_stack()[:-1]
+                   if "go_raytracer_tpu_torch" in f.filename
+                   or f.filename.endswith("chip_smoke.py")]
+            sites[" < ".join([f"{os.path.basename(filename)}:{lineno}"]
+                             + own[::-1][:3])] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    waits = sum(sites.values()) / levels()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    host = collections.Counter(
+        e.name for e in prof.events() if e.device_type == DeviceType.CPU
+        and e.name.startswith(HOST_LAUNCH_APIS))
+    device = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return dict(wall_ms=min(walls), walls_ms=walls, waits=waits,
+                wait_sites=[f"{k} {v}" for k, v in sites.most_common(5)],
+                host_launches=sum(host.values()) / levels(),
+                host_apis=dict(host), device_launches=device / levels(),
+                levels=levels())
+
+
+def mesh_window_phase(dev, card, main_launches):
+    """Phase 30: the mesh window as one device program. On one real scene-8
+    window (255 levels, refill 204, 131,072 lanes): (a) the glue kernel
+    (`ops/mesh_level`: `refill`, `record`) against its plain version at
+    every level, bit for bit, and both entries timed on a real level with
+    their bytes bound; (b) the window replayed as a CUDA graph against the
+    same window run eagerly on the plain glue, from the same state, seed
+    and cursor, on the walk and on binned2: records, bases, accumulator,
+    cursor, segments and levels bit for bit; (c) the graphed window and
+    the eager one (the glue kernel, no graph) on the walk: per level the
+    host-issued launches, the calls that wait on the device (at most one a
+    window in the graphed one) and the wall ms. `main_launches`: the
+    glue's launches on phase 10's main path.
+    Returns the `kernels` line's entry of the glue kernel."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from go_raytracer_tpu_torch.integrator import regen
+    from go_raytracer_tpu_torch.ops import _cuda, mesh_level
+    from go_raytracer_tpu_torch.scenes import registry
+
+    scene, cam = registry.model_example()
+    n = regen.MESH_MAX_LANES
+    npix = cam.width * cam.image_height
+    total = npix * cam.spp_sqrt ** 2
+    d1 = cam.max_depth + 1
+    window, refill = 5 * d1, 4 * d1
+    geo = dict(width=cam.width, npix=npix, sqrt_spp=cam.spp_sqrt,
+               window=window, refill=refill, max_depth=cam.max_depth,
+               max_contribution=cam.max_contribution)
+
+    def fresh(ctx, seed=0, bufs=None, sync=True):
+        bufs = bufs or regen.WindowBuffers.empty(n, window, 1, dev)
+        for r in bufs.rec:
+            r.zero_()
+        acc = torch.zeros((total + n, 3), dtype=torch.float32, device=dev)
+        st, cur, n_run = regen._mesh_window(
+            ctx, acc, regen._init_state_mesh(n, dev), 0,
+            regen.window_generator(seed, 0, dev), total, bufs=bufs, **geo)
+        if sync:
+            torch.cuda.synchronize()
+        return bufs, acc, cur, n_run
+
+    def tensors(lv):
+        return [getattr(lv, f.name) for f in dataclasses.fields(lv)]
+
+    def clone_level(lv):
+        return dataclasses.replace(lv, **{f.name: getattr(lv, f.name).clone()
+                                          for f in dataclasses.fields(lv)})
+
+    as_bits = lambda x: x.view(torch.int32) if x.is_floating_point() else x
+
+    # (a) the glue kernel against its plain version at every level
+    ctx = regen.MeshContext.build(scene, cam, dev, mesh="walk")
+    ctx.graph = False
+    real = dict(refill=mesh_level.refill, record=mesh_level.record)
+    diffs = dict(refill=0, record=0, levels=0)
+    err = [0.0]
+    snap = {}
+
+    def compare(name, mine, theirs):
+        for a, b in zip(mine, theirs):
+            if not torch.equal(as_bits(a), as_bits(b)):
+                diffs[name] += 1
+                if a.is_floating_point():
+                    err[0] = max(err[0], float(
+                        (a - b).abs().nan_to_num(float("inf")).max()))
+
+    def refill_chk(lv, arrays, cam_row, base, **kw):
+        lp, bp = clone_level(lv), base.clone()
+        if int(lv.lvl[0]) == 5:
+            snap["refill"] = (clone_level(lv), base.clone(), kw)
+        real["refill"](lv, arrays, cam_row, base, **kw)
+        mesh_level.refill_ref(lp, arrays, cam_row, bp, **kw)
+        compare("refill", lv.state + [lv.start, lv.cnt, lv.lvl, base],
+                lp.state + [lp.start, lp.cnt, lp.lvl, bp])
+        diffs["levels"] += 1
+
+    def record_chk(lv, rec, *res, max_depth):
+        lp, rp = clone_level(lv), [r.clone() for r in rec]
+        if int(lv.lvl[0]) == 6:
+            snap["record"] = (clone_level(lv), rp, [x.clone() for x in res])
+        real["record"](lv, rec, *res, max_depth=max_depth)
+        mesh_level.record_ref(lp, rp, *res, max_depth=max_depth)
+        compare("record", lv.state + [lv.cnt] + list(rec),
+                lp.state + [lp.cnt] + rp)
+
+    mesh_level.refill, mesh_level.record = refill_chk, record_chk
+    try:
+        _, _, cur_a, run_a = fresh(ctx)
+    finally:
+        mesh_level.refill, mesh_level.record = real["refill"], real["record"]
+    print(f"[30] (a) one scene-8 window ({window} levels, refill {refill}, "
+          f"{n} lanes; {run_a} levels run, [next item, segments, levels "
+          f"recorded] {cur_a.tolist()}): the glue kernel against its plain "
+          f"version at each of its {diffs['levels']} levels: refill "
+          f"{diffs['refill']}, record {diffs['record']} differing tensors, "
+          f"max abs err {err[0]}")
+    check(diffs["levels"] == run_a > refill and diffs["refill"] == 0
+          and diffs["record"] == 0,
+          "the mesh level's glue kernel differs from its plain version")
+
+    # both entries timed on a real level (level 5's refill and record),
+    # each call on the snapshot's state: the device time of the entry's
+    # kernels under torch.profiler (CUDA events round one launch would
+    # hold the wrapper's host time)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def timed(fn, restore, names, reps=20):
+        restore()
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                restore()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(v for k, v in device_times(prof).items()
+                 if kernel_of(k, names))
+        return us / 1e3 / reps
+
+    lv0, base0, kw0 = snap["refill"]
+    lv_r, base_r = clone_level(lv0), base0.clone()
+
+    def restore_refill():
+        for a, b in zip(tensors(lv_r), tensors(lv0)):
+            a.copy_(b)
+
+    refill_ms = timed(lambda: real["refill"](lv_r, ctx.arrays, ctx.cam_row,
+                                             base_r, **kw0), restore_refill,
+                      ("mesh_count", "mesh_refill"))
+    lv1, rec1, res1 = snap["record"]
+    lv_c, rec_c = clone_level(lv1), [r.clone() for r in rec1]
+
+    def restore_record():
+        for a, b in zip(tensors(lv_c), tensors(lv1)):
+            a.copy_(b)
+
+    record_ms = timed(lambda: real["record"](
+        lv_c, rec_c, *res1, max_depth=cam.max_depth), restore_record,
+                      ("mesh_record",))
+
+    def plain_ms(fn, restore, reps=5):
+        best = float("inf")
+        for _ in range(reps):
+            restore()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    refill_plain = plain_ms(lambda: mesh_level.refill_ref(
+        lv_r, ctx.arrays, ctx.cam_row, base_r, **kw0), restore_refill)
+    record_plain = plain_ms(lambda: mesh_level.record_ref(
+        lv_c, rec_c, *res1, max_depth=cam.max_depth), restore_record)
+    restore_refill()
+    takes = n - int(lv0.alive.sum())
+    takes = min(takes, int(kw0["item_end"]) - int(lv0.cnt[5, 2]))
+    # bytes each entry must move on this level: refill reads alive, writes
+    # the start word, and reads the uniforms and writes the state (o, d,
+    # t, alive, depth: 33 B) of the lanes it starts; record reads alive,
+    # depth, the start word, E, W, cf, alive', the new o and d, and writes
+    # V, FL, o, d, alive and depth
+    refill_bytes = n * (1 + 4) + takes * (20 + 33)
+    record_bytes = n * (1 + 4 + 4 + 24 + 2 + 24) + n * (16 + 24 + 1 + 4)
+    refill_bound = refill_bytes / HBM_BYTES_PER_S * 1e3
+    record_bound = record_bytes / HBM_BYTES_PER_S * 1e3
+    check(refill_ms > 0 and record_ms > 0,
+          "the profiler saw no device time of the glue kernel")
+    print(f"[30] (a) glue kernel on a real level ({takes} starts) on {card}:"
+          f" device ms a call: refill {refill_ms:.5f} ms (plain "
+          f"{refill_plain:.3f} ms, bound "
+          f"{refill_bound:.5f} ms, {refill_bytes} B), record "
+          f"{record_ms:.5f} ms (plain {record_plain:.3f} ms, bound "
+          f"{record_bound:.5f} ms, {record_bytes} B); registers: "
+          + " | ".join(_cuda.ptxas_report("mesh_level")))
+
+    # (b) graphed against eager on the plain glue, bit for bit
+    graph_rows = {}
+    for route in ("walk", "binned2"):
+        ctx_g = regen.MeshContext.build(scene, cam, dev, mesh=route)
+        ctx_e = regen.MeshContext.build(scene, cam, dev, mesh=route)
+        ctx_e.graph = False
+        check(ctx_g.graph, f"{route}: the window is not graphed")
+        bg_, ag, cg, ng = fresh(ctx_g, seed=3)
+        mesh_level.refill = mesh_level.refill_ref
+        mesh_level.record = mesh_level.record_ref
+        try:
+            be, ae, ce, ne = fresh(ctx_e, seed=3)
+        finally:
+            mesh_level.refill, mesh_level.record = (real["refill"],
+                                                    real["record"])
+        lev = int(cg[2])
+        same = (torch.equal(cg, ce) and torch.equal(ag, ae) and all(
+            torch.equal(a[:lev], b[:lev])
+            for a, b in zip(bg_.rec + [bg_.base], be.rec + [be.base])))
+        graph_rows[route] = dict(equal=same, cur=cg.tolist(),
+                                 levels_run=[ng, ne])
+        print(f"[30] (b) {route}: the window as a CUDA graph against the "
+              f"same window eager on the plain glue (seed 3, cursor 0): "
+              f"[next item, segments, levels recorded] {cg.tolist()} / "
+              f"{ce.tolist()}, levels run {ng} / {ne}; records, bases and "
+              f"accumulator " + ("equal bit for bit" if same else "DIFFER"))
+        check(same and ctx_g.levels.graph is not None,
+              f"{route}: the graphed window differs from the eager one")
+        del bg_, ag, be, ae
+
+    # (c) per level: host-issued launches, waits, wall ms, graphed and eager
+    costs = {}
+    bufs_c = regen.WindowBuffers.empty(n, window, 1, dev)
+    for name, graph in (("graph", True), ("eager", False)):
+        ctx_c = regen.MeshContext.build(scene, cam, dev, mesh="walk")
+        ctx_c.graph = graph
+        last = [0]
+
+        def run_c(ctx_c=ctx_c):
+            last[0] = fresh(ctx_c, seed=4, bufs=bufs_c, sync=False)[3]
+
+        costs[name] = window_costs(run_c, lambda: last[0])
+        print(f"[30] (c) the walk window {name} on {card}: per level "
+              + json.dumps(costs[name]))
+    check(costs["graph"]["waits"] * costs["graph"]["levels"] <= 1,
+          "the graphed walk window waits on the device more than once")
+    return {"name": "mesh_level", "route": "cuda",
+            "source": "go_raytracer_tpu_torch/ops/csrc/mesh_level.cu",
+            "replaces": "go_raytracer_tpu/integrator/regen.py:429 (fwd_step "
+                        "outside bounce_fn, XLA; no pallas_call)",
+            "launches": main_launches["refill"], "max_abs_err": err[0],
+            "ms": refill_ms + record_ms,
+            "plain_ms": refill_plain + record_plain,
+            "bound_ms": refill_bound + record_bound, "bound_by": "bytes",
+            "library_ms": None,
+            "entries": [
+                {"name": "grt_mesh_refill",
+                 "launches": main_launches["refill"], "ms": refill_ms, "plain_ms": refill_plain,
+                 "bound_ms": refill_bound, "bound_by": "bytes"},
+                {"name": "grt_mesh_record",
+                 "launches": main_launches["record"], "ms": record_ms, "plain_ms": record_plain,
+                 "bound_ms": record_bound, "bound_by": "bytes"}],
+            "graph_vs_eager": graph_rows, "window_costs": costs}
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1851,6 +2207,7 @@ def main():
         from go_raytracer_tpu_torch import cli
         from go_raytracer_tpu_torch.integrator import regen
         from go_raytracer_tpu_torch.ops import _cuda, bounce, harvest
+        from go_raytracer_tpu_torch.ops import mesh_level
         from go_raytracer_tpu_torch.render.camera import Camera
         from go_raytracer_tpu_torch.scene.builder import SceneBuilder
     except ImportError as e:
@@ -2233,14 +2590,19 @@ def main():
     gen = regen.window_generator(0, 0, dev)
     bufs3 = regen.WindowBuffers.empty(n8, 3, 1, dev)
     acc8 = torch.zeros((4 * n8, 3), dtype=torch.float32, device=dev)
-    state8, nxt, _, _ = regen._mesh_window(
+    state8, cur7, _ = regen._mesh_window(
         ctx, acc8, regen._init_state_mesh(n8, dev), 0, gen, SCENE8_PATHS,
         window=3, refill=2, max_depth=cam8.max_depth,
         max_contribution=cam8.max_contribution, bufs=bufs3, **geo)
+    nxt = int(cur7[0])
     del bufs3, acc8
-    o8, d8, t8, alive8, _, _, _ = regen.refill_lanes(
-        ctx.arrays, state8, torch.tensor(nxt, device=dev), gen, True,
-        nxt + n8 // 4, **geo)
+    lv8 = mesh_level.MeshLevel.empty(n8, 1, ctx.n_u, dev)
+    lv8.begin(state8, cur7[0])
+    lv8.u_cam.uniform_(generator=gen)
+    mesh_level.refill(lv8, ctx.arrays, ctx.cam_row,
+                      torch.zeros(1, dtype=torch.int32, device=dev),
+                      item_end=nxt + n8 // 4, refill=1, cadence=1, **geo)
+    o8, d8, t8, alive8 = lv8.o, lv8.d, lv8.t, lv8.alive
     u8 = torch.rand((n8, 9), generator=gen, dtype=torch.float32, device=dev)
     cap8 = intersect.sphere_ts(ms.spheres, o8, d8, t8, 1e-3,
                                float("inf")).amin(dim=1)
@@ -2432,7 +2794,8 @@ def main():
     with plain_versions(bounce, harvest, stream, traverse8):
         img_p, st_p = regen.render_regen(sc8, cm8, mesh="walk", **kw9)
     check(bounce.launches_bounce + bounce.launches_cap + stream.launches
-          + traverse8.launches + harvest.launches == 0,
+          + traverse8.launches + harvest.launches + mesh_level.launches_refill
+          + mesh_level.launches_record == 0,
           "the plain render launched a kernel")
     small_ratio = st_k["segments"] / st_k["paths"]
     mean_k, mean_p = img_k.mean(axis=(0, 1)), img_p.mean(axis=(0, 1))
@@ -2462,11 +2825,13 @@ def main():
     acc8_k = torch.zeros((SCENE8_PATHS + n8, 3), dtype=torch.float32,
                          device=dev)
     harvest.launches = 0
-    _, nxt8, seg8, s_run8 = regen._mesh_window(
+    # (the levels recorded: any run past the drained one record nothing)
+    _, cur8, _ = regen._mesh_window(
         ctx, acc8_k, regen._init_state_mesh(n8, dev), 0,
         regen.window_generator(0, 0, dev), SCENE8_PATHS, window=window8,
         refill=refill8, max_depth=cam8.max_depth,
         max_contribution=cam8.max_contribution, bufs=bufs8, **geo)
+    nxt8, seg8, s_run8 = cur8.tolist()
     check(harvest.launches == 1, "the mesh window did not launch K2 once")
     rec8 = [r[:s_run8] for r in bufs8.rec]
     bases8 = bufs8.base.reshape(-1)
@@ -2539,16 +2904,16 @@ def main():
           f"{s8['occupancy']:.4f}, nonfinite {s8['nonfinite']}; launches K3 "
           f"{k3_launches} K4 {k4_launches} K2 {k2_launches_8} K5 "
           f"{traverse8.launches} K1 {bounce.launches}; rounds per level "
-          f"{m8['rounds'] / s8['levels']:.3f}, host reads per level "
-          f"{m8['host_reads'] / s8['levels'] + 1:.3f} (one per round, one "
-          f"before the first, one for the level's counts)")
+          f"{m8['rounds'] / s8['levels_run']:.3f}, host reads per level "
+          f"{m8['host_reads'] / s8['levels_run']:.3f} (one per round, one "
+          f"before the first; the level's counts stay on the device)")
     check(s8["paths"] == paths25, f"scene 8 binned: paths != {paths25}")
     check(s8["nonfinite"] == 0 and s8["schedule"] == "queue"
           and m8["route"] == "binned",
           "scene 8: non-finite pixels, wrong schedule or wrong route")
     check(abs(ratio8 - small_ratio) <= 0.05 * small_ratio,
           f"scene 8: segments/path {ratio8} vs the small render's {small_ratio}")
-    check(k3_launches == s8["levels"] and k4_launches == m8["rounds"]
+    check(k3_launches == s8["levels_run"] and k4_launches == m8["rounds"]
           and k2_launches_8 == s8["windows"],
           "scene 8: launch counts do not match levels, rounds and windows")
     check(k3_launches > 0 and k4_launches > 0 and k2_launches_8 > 0,
@@ -2575,7 +2940,8 @@ def main():
           and s8w25["mesh"]["route"] == "walk",
           "scene 8 default route at 25 spp: paths, non-finite pixels or a "
           "route other than the walk")
-    check(traverse8.launches == s8w25["levels"] > 0 and stream.launches == 0,
+    check(traverse8.launches == s8w25["levels_run"] > 0
+          and stream.launches == 0,
           "scene 8 walk route at 25 spp did not go through K5 alone")
     check(abs(s8w25["segments"] - s8["segments"]) <= 2e-3 * s8["segments"],
           "scene 8 at 25 spp: the routes' segments differ by more than 2e-3")
@@ -2595,11 +2961,28 @@ def main():
 
     for k in plain_calls:
         setattr(bounce, k, counting(k))
+    # and the mesh level's plain glue
+    glue_plain = {"refill_ref": 0, "record_ref": 0}
+    saved_glue = {k: getattr(mesh_level, k) for k in glue_plain}
+
+    def counting_glue(name):
+        def fn(*a, **k):
+            glue_plain[name] += 1
+            return saved_glue[name](*a, **k)
+        return fn
+
+    for k in glue_plain:
+        setattr(mesh_level, k, counting_glue(k))
     try:
         s8w = run_cli8([], "modelExample_walk.ppm")
     finally:
         for k, f in saved_plain.items():
             setattr(bounce, k, f)
+        for k, f in saved_glue.items():
+            setattr(mesh_level, k, f)
+    # the mesh level's glue kernel on the main path (phase 30's kernels line)
+    ml_launches_main8 = dict(refill=mesh_level.launches_refill,
+                             record=mesh_level.launches_record)
     k5_launches = traverse8.launches
     k3_launches = bounce.launches_bounce    # K3 on the uncut main path
     cap_launches = bounce.launches_cap      # its dense cap entry
@@ -2622,8 +3005,8 @@ def main():
           and s8w["mesh"]["route"] == "walk",
           "scene 8 main path: paths, non-finite pixels or a route other "
           "than the walk")
-    check(k5_launches == s8w["levels"] > 0 and others8 == 0
-          and k3_launches == s8w["levels"] == cap_launches
+    check(k5_launches == s8w["levels_run"] > 0 and others8 == 0
+          and k3_launches == s8w["levels_run"] == cap_launches
           and k2_launches_main8 == s8w["windows"]
           and not any(plain_calls.values()),
           "scene 8 main path did not go through K5, K3 (its cap entry "
@@ -2631,6 +3014,50 @@ def main():
     check(abs(ratio8w - small_ratio) <= 0.05 * small_ratio,
           f"scene 8 walk: segments/path {ratio8w} vs the small render's "
           f"{small_ratio}")
+    print(f"[10] the main path's mesh levels: {s8w['levels_run']} run, "
+          f"{s8w['levels']} recorded, CUDA graph {s8w['mesh']['graph']} "
+          f"({s8w['mesh']['replays']} replays); glue kernel launches "
+          f"{ml_launches_main8}, plain glue calls {glue_plain}")
+    check(s8w["mesh"]["graph"] and not any(glue_plain.values())
+          and ml_launches_main8 == dict(refill=s8w["levels_run"],
+                                        record=s8w["levels_run"])
+          and s8w["mesh"]["replays"] == s8w["levels_run"] - 1
+          and s8w["levels"] <= s8w["levels_run"],
+          "scene 8 main path: its levels did not replay as a CUDA graph "
+          "through the glue kernel once a level")
+    # the launch counters against the card's own count: the main path once
+    # more, under torch.profiler, its kernels on the device counted by name
+    # (the graph's nodes included; the render's levels run past a drain
+    # follow the host's pace, so this run counts its own)
+    reset_counts()
+    with torch.profiler.profile(activities=acts) as prof10:
+        s8p = run_cli8([], "modelExample_walk_profiled.ppm")
+        torch.cuda.synchronize()
+    counted10 = {"mesh_count": mesh_level.launches_refill,
+                 "mesh_refill": mesh_level.launches_refill,
+                 "mesh_record": mesh_level.launches_record,
+                 "bounce_cap": bounce.launches_cap,
+                 "bounce_level": bounce.launches_bounce,
+                 "bvh8_closest_kernel": traverse8.launches,
+                 "harvest_levels": harvest.launches}
+    on_card10 = device_launches(prof10, counted10)
+    del prof10
+    with open(os.path.join(out_dir, "modelExample_walk.ppm"), "rb") as fa, \
+            open(os.path.join(out_dir, "modelExample_walk_profiled.ppm"),
+                 "rb") as fb:
+        same10 = fa.read() == fb.read()
+    print(f"[10] the main path again under torch.profiler: {s8p['levels_run']}"
+          f" levels run, {s8p['mesh']['replays']} graph replays; launches "
+          f"by the counters {counted10}, on the device {on_card10}; image "
+          f"file identical to the main path's: {same10}")
+    check(on_card10 == counted10
+          and counted10["bounce_level"] == s8p["levels_run"]
+          == counted10["mesh_record"] == counted10["bvh8_closest_kernel"]
+          and counted10["harvest_levels"] == s8p["windows"]
+          and s8p["mesh"]["replays"] == s8p["levels_run"] - 1
+          and s8p["levels"] == s8w["levels"] and same10,
+          "scene 8 main path: the launch counters differ from the kernels "
+          "the card ran, or the profiled render differs")
 
     # ---- 11. timings of K3-K5, and the busy share of a scene-8 render --
     phase_start(11)
@@ -2726,14 +3153,14 @@ def main():
     if dev_us8:
         all_us = sum(dev_us8.values())
         k4_names = ("stream_prep", "stream_items", "stream_finish")
-        own_us = sum(v for k, v in dev_us8.items() if k.startswith(
-            ("bounce_level", "bvh8_closest_kernel", "harvest_levels")
+        own_us = sum(v for k, v in dev_us8.items() if kernel_of(
+            k, ("bounce_level", "bvh8_closest_kernel", "harvest_levels")
             + k4_names))
         per = lambda names, count: sum(
-            v for k, v in dev_us8.items() if k.startswith(names)) / 1e3 / count
+            v for k, v in dev_us8.items() if kernel_of(k, names)) / 1e3 / count
         print(f"[11] profiled device ms per launch in that render: K3 "
-              f"bounce_level {per('bounce_level', pst8['levels']):.5f}, K4 "
-              f"stream_prep + stream_items + stream_finish (all rounds) "
+              f"bounce_level {per('bounce_level', pst8['levels_run']):.5f}, "
+              f"K4 stream_prep + stream_items + stream_finish (all rounds) "
               f"{per(k4_names, pst8['mesh']['rounds']):.5f}, K2 "
               f"harvest_levels {per('harvest_levels', pst8['windows']):.5f}")
         top8 = sorted(dev_us8.items(), key=lambda kv: -kv[1])[:8]
@@ -2763,8 +3190,9 @@ def main():
               f"{all_w / 1e6:.3f} s = {all_w / 1e6 / pst8w['elapsed_s']:.3f} "
               f"of the profiled loop; device ms per launch: K5 "
               f"bvh8_closest_kernel "
-              f"{perw('bvh8_closest_kernel', pst8w['levels']):.5f}, K3 "
-              f"bounce_level {perw('bounce_level', pst8w['levels']):.5f}, K2 "
+              f"{perw('bvh8_closest_kernel', pst8w['levels_run']):.5f}, K3 "
+              f"bounce_level {perw('bounce_level', pst8w['levels_run']):.5f}, "
+              f"K2 "
               f"{perw('harvest_levels', pst8w['windows']):.5f}; top device "
               f"events, ms: " + ", ".join(f"{k[:48]} {v / 1e3:.2f}"
                                           for k, v in top8w))
@@ -3458,9 +3886,11 @@ def main():
     bufs18 = regen.WindowBuffers.empty(n8, window8, 1, dev)
     acc18 = torch.zeros((SCENE8_PATHS + n8, 3), dtype=torch.float32,
                         device=dev)
+    # the spy reads the host at every level: the levels run eagerly
+    ctxw.graph = False
     trace.mesh_closest = mc_spy
     try:
-        _, _, _, s_run18 = regen._mesh_window(
+        _, _, s_run18 = regen._mesh_window(
             ctxw, acc18, regen._init_state_mesh(n8, dev), 0,
             regen.window_generator(0, 0, dev), SCENE8_PATHS, window=window8,
             refill=refill8, max_depth=cam8.max_depth,
@@ -3521,8 +3951,8 @@ def main():
           f"{traverse8.launches} K12 {traverse.launches}")
     check(s8b2["mesh"]["route"] == "binned2", "binned2: stats name another "
           "route")
-    check(k11_launches == s8b2["levels"] > 0
-          and bounce.launches_bounce == s8b2["levels"]
+    check(k11_launches == s8b2["levels_run"] > 0
+          and bounce.launches_bounce == s8b2["levels_run"]
           and harvest.launches == s8b2["windows"]
           and stream.launches + stream.launches_round + traverse8.launches
           + traverse.launches == 0,
@@ -3531,7 +3961,7 @@ def main():
     held_to("binned2, 25 spp", s8b2, "modelExample_binned2_25.ppm", s8w25,
             "modelExample_walk25.ppm", walk25_means)
     # the slice's main path at the full registry configuration (600x337,
-    # 250 spp = 225 strata, depth 50, 65,536 lanes), held to phase 10's
+    # 250 spp = 225 strata, depth 50, 131,072 lanes), held to phase 10's
     # uncut walk render
     reset_counts()
     s8b2u = run_cli8(["--mesh", "binned2"], "modelExample_binned2.ppm")
@@ -3546,8 +3976,8 @@ def main():
           f"{harvest.launches}")
     check(s8b2u["paths"] == SCENE8_PATHS and s8b2u["mesh"]["route"]
           == "binned2", "binned2 flagship: paths or route")
-    check(k11_launches == s8b2u["levels"] > 0
-          and bounce.launches_bounce == s8b2u["levels"]
+    check(k11_launches == s8b2u["levels_run"] > 0
+          and bounce.launches_bounce == s8b2u["levels_run"]
           and harvest.launches == s8b2u["windows"]
           and stream.launches + stream.launches_round + traverse8.launches
           + traverse.launches == 0,
@@ -3575,7 +4005,7 @@ def main():
     print(f"[19] modelExample 600x337 at 25 spp, walk on the binary BVH, on "
           f"{card}: elapsed {s8t['elapsed_s']:.3f} s, levels {s8t['levels']};"
           f" launches K12 {k12_launches} K5 {traverse8.launches}")
-    check(k12_launches == s8t["levels"] > 0 and traverse8.launches == 0
+    check(k12_launches == s8t["levels_run"] > 0 and traverse8.launches == 0
           and s8t["mesh"]["route"] == "walk+bvh2",
           "--no-traverse8 render did not go through K12 alone")
     held_to("walk + bvh2, 25 spp", s8t, "modelExample_bvh2_25.ppm", s8w25,
@@ -3684,9 +4114,9 @@ def main():
               f"{pst20['elapsed_s']:.3f} s under the profiler; device busy "
               f"{all20 / 1e6:.3f} s = {all20 / 1e6 / pst20['elapsed_s']:.3f} of"
               f" the profiled loop; K11 {k11_us / 1e3:.2f} ms = "
-              f"{k11_us / 1e3 / pst20['levels']:.4f} ms per level; top device "
-              f"events, ms: " + ", ".join(f"{k[:48]} {v / 1e3:.2f}"
-                                          for k, v in top20))
+              f"{k11_us / 1e3 / pst20['levels_run']:.4f} ms per level; top "
+              f"device events, ms: " + ", ".join(f"{k[:48]} {v / 1e3:.2f}"
+                                                 for k, v in top20))
     else:
         print("[20] profiler reported no device time: busy share not measured")
 
@@ -5022,11 +5452,12 @@ def main():
         reset_counts()
         img_, st_ = regen.render_regen(scene_, cam_, device=dev)
         k3_render[sc] = bounce.launches_bounce
-        check(st_["bounce"] == "ext" and k3_render[sc] == st_["levels"] > 0
+        check(st_["bounce"] == "ext"
+              and k3_render[sc] == st_["levels_run"] > 0
               and st_["nonfinite"] == 0,
               f"{sc}: the regen render did not bounce on K3 a level")
         print(f"[26] {sc} 300x168 4 spp through render_regen on {card}: "
-              f"segments {st_['segments']}, levels {st_['levels']}, K3 "
+              f"segments {st_['segments']}, levels {st_['levels_run']}, K3 "
               f"launches {k3_render[sc]}, channel means "
               f"{np.round(img_.mean(axis=(0, 1)), 5).tolist()}")
     print("[26] K3 rows (PERF.md §6): " + json.dumps(
@@ -5062,6 +5493,10 @@ def main():
     reo = reorder_phase(dev, card)
     print("[29] reorder rows (PERF.md): " + json.dumps(reo))
     k7p = reo["k7p"]
+
+    # ---- 30. the mesh window as one device program ----------------------
+    phase_start(30)
+    ml_row = mesh_window_phase(dev, card, ml_launches_main8)
 
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",
@@ -5173,6 +5608,7 @@ def main():
          "launches": k12_launches, "max_abs_err": k12_err, "ms": k12_ms,
          "plain_ms": k12_plain_ms, "bound_ms": k12_bound,
          "bound_by": k12_by, "library_ms": None},
+        ml_row,
     ]
     print(f"[end] {time.perf_counter() - t_start:.1f} s after the build "
           f"began")

@@ -14,14 +14,17 @@ pointer planes; the reverse scan retreats the pointers and sums each
 path into one of the lane's few pixel slots.
 Scenes off the fused kernels (a triangle mesh, triangle lights, or the
 "xla" backend) run an unfused window: `_mesh_window` for the `queue`
-schedule, `_pos_window_unfused` for `positional`. Per level the refill,
-the camera rays and the uniforms are plain tensor code. On a BVH mesh the
+schedule, `_pos_window_unfused` for `positional`. In `_mesh_window` a
+level draws its uniforms, runs the refill and camera rays and, after the
+bounce, the records as the glue kernel of `ops/mesh_level`, and reads
+nothing back to the host: its counts stay in a device plane. On a BVH mesh the
 `bounce` kernel carries (`ops/bounce.supported_ext`), the closest mesh
 hit comes from one of the five routes of ops/trace.mesh_closest (the
 binned intersector, its fused rounds, the persistent-block intersector,
 the BVH8 walk or the binary BVH walk) and the kernel folds it into the
-dense winner and shades; elsewhere the level is the reference engine's
-bounce (`integrator/wavefront._bounce`).
+dense winner and shades, and on the card the level of the walk and
+binned2 routes replays as one CUDA graph (GRAPH_ROUTES); elsewhere the
+level is the reference engine's bounce (`integrator/wavefront._bounce`).
 The forward pass records, per level and lane, the merged V plane (the
 vertex's emission or its scatter weight) and flag bits (clamp, emit,
 started); the reverse harvest then evaluates L = clamp?(emit ? V : V*L)
@@ -64,9 +67,12 @@ import torch
 import torch.distributed as dist
 
 from go_raytracer_tpu_torch.integrator import wavefront
+from go_raytracer_tpu_torch.ops import _cuda
 from go_raytracer_tpu_torch.ops import bounce as bounce_mod
 from go_raytracer_tpu_torch.ops import harvest as harvest_mod
+from go_raytracer_tpu_torch.ops import mesh_level as mesh_level_mod
 from go_raytracer_tpu_torch.ops import trace as trace_mod
+from go_raytracer_tpu_torch.ops.mesh_level import refill_assign
 from go_raytracer_tpu_torch.render import camera as camera_mod
 from go_raytracer_tpu_torch.scene import types as T
 
@@ -244,20 +250,21 @@ class WindowBuffers:
 
 
 class _DrainWatch:
-    """Early drain exit of the forward loop. A call whose last level had
-    no alive lane after its refill proves the window drained: every lane
-    is dead and no item can start again. On the CPU that count is read
-    directly; on the GPU it is copied to pinned memory behind the kernel
-    and read once its event has completed, so the host never waits, and
-    how many calls run past the drained one follows the host's pace. Those
-    calls trace nothing; the window's counts come from the device
-    (`_window_impl`), not from the number of calls."""
+    """Early drain exit of a window's forward loop. `rows` ((calls, k)
+    int32, on the render device) holds each call's counts once the call
+    has run, and `done(row, i)` tells from call i's row (a list of k ints)
+    that the window drained: every lane is dead and no item can start
+    again. On the CPU the row is read directly; on the GPU it is copied to
+    pinned memory behind the call and read once its event has completed,
+    so the host never waits, and how many calls run past the drained one
+    follows the host's pace. Those calls trace nothing; the window's
+    counts come from the device, not from the number of calls."""
 
-    def __init__(self, seg):
-        self.seg = seg
-        self.cuda = seg.is_cuda
+    def __init__(self, rows, done=lambda row, i: row[0] == 0):
+        self.rows, self.done = rows, done
+        self.cuda = rows.is_cuda
         if self.cuda:
-            self.host = torch.empty(seg.shape[0], dtype=torch.int32,
+            self.host = torch.empty(tuple(rows.shape), dtype=torch.int32,
                                     pin_memory=True)
             self.pending = collections.deque()
         self.last = -1
@@ -265,17 +272,17 @@ class _DrainWatch:
     def record(self, i: int):
         self.last = i
         if self.cuda:
-            self.host[i:i + 1].copy_(self.seg[i, -1:], non_blocking=True)
+            self.host[i].copy_(self.rows[i], non_blocking=True)
             ev = torch.cuda.Event()
             ev.record()
             self.pending.append((i, ev))
 
     def drained(self) -> bool:
         if not self.cuda:
-            return int(self.seg[self.last, -1]) == 0
+            return bool(self.done(self.rows[self.last].tolist(), self.last))
         while self.pending and self.pending[0][1].query():
             i, _ = self.pending.popleft()
-            if int(self.host[i]) == 0:
+            if self.done(self.host[i].tolist(), i):
                 return True
         return False
 
@@ -312,7 +319,8 @@ def _window_impl(tables, statics, cam_row, bg, acc, state, next_item, seeds,
     src = tab_host.to(torch.int32)
     tab.copy_(src.pin_memory() if tab.is_cuda else src, non_blocking=True)
     tab[0, 2:3].copy_(next_item)
-    watch = _DrainWatch(bufs.seg)
+    # a call whose last level had no alive lane after its refill drained
+    watch = _DrainWatch(bufs.seg[:, -1:])
     if direct_rec:
         level_base = torch.arange(0, outer * cadence, cadence,
                                   dtype=torch.int32, device=dev)
@@ -576,9 +584,11 @@ def _pos_window(tables, statics, cam_row, bg, B, state, quota, first_pix,
 # the mesh path: the `queue` schedule's unfused window
 # ---------------------------------------------------------------------------
 
-# Lane cap of the mesh path, and its cadence of 1: the JAX package's
-# defaults, kept so both packages walk the same windows.
-MESH_MAX_LANES = 1 << 16
+# Lane cap of the mesh path, re-derived on the H100: with the level a CUDA
+# graph the uncut modelExample walk renders 31-40% faster on 131,072 lanes
+# than on the JAX package's 65,536 (PERF.md §6, PR 19), so the two
+# packages' windows part there. Its cadence of 1 is the JAX package's.
+MESH_MAX_LANES = 1 << 17
 
 
 def window_generator(seed: int, w: int, device,
@@ -591,28 +601,44 @@ def window_generator(seed: int, w: int, device,
     return g
 
 
+# Closest-hit routes whose level reads nothing back to the host: on the
+# card the whole level (the refill glue, K3's cap entry, the route, K3, the
+# record glue) replays as one CUDA graph. The binned routes read the host
+# once a round, and the reference engine's bounce is eager; their levels
+# run the same glue kernels eagerly.
+GRAPH_ROUTES = ("walk", "binned2")
+
+
 @dataclasses.dataclass
 class MeshContext:
     """What the unfused window reads, on the render device: the scene
-    tables of `ops/trace.to_device` (`ms`), the background and camera, and
-    for the external-hit bounce (`ext`) the packed kernel tables and
-    statics and the triangle tables (`tri`). `mesh` (with "auto"
-    resolved by `ops/trace.resolve_route`), `b1_fused` and `traverse8`
-    pick a BVH mesh's closest-hit route (`ops/trace.mesh_closest`);
-    `counters` gathers calls, rounds and host reads of the intersector.
+    tables of `ops/trace.to_device` (`ms`), the background, the camera
+    (`arrays`, its vectors as tensors on the device, and `cam_row`, the
+    glue kernel's packed row) and for the external-hit bounce (`ext`) the
+    packed kernel tables and statics and the triangle tables (`tri`).
+    `mesh` (with "auto" resolved by `ops/trace.resolve_route`), `b1_fused`
+    and `traverse8` pick a BVH mesh's closest-hit route
+    (`ops/trace.mesh_closest`); `counters` gathers calls, rounds and host
+    reads of the intersector.
 
     `bounce_level` is the window's bounce: `mesh_bounce` (the dense cap,
     the mesh walk, then K3 on its winner, through `k3`, the launch
     prepared once for the scene, and `tri`, the triangle tables it
     gathers from) where `ext`, else the reference engine's
     `integrator/wavefront._bounce`, as the JAX package picks its
-    `bounce_fn`."""
+    `bounce_fn`.
+
+    `graph`: the window's levels replay as a CUDA graph (ext mode on the
+    card on a route of GRAPH_ROUTES, with the glue kernel: a plain glue
+    swapped in for it reads the host). `levels` keeps the window's buffers
+    (`_MeshLevels`) from one window to the next."""
 
     ms: object
     tables: Optional[tuple]
     statics: Optional[dict]
     bg: torch.Tensor
     arrays: camera_mod.CameraArrays
+    cam_row: torch.Tensor
     mesh: str = "walk"
     b1_fused: bool = False
     traverse8: bool = True
@@ -621,6 +647,8 @@ class MeshContext:
     tri: Optional[bounce_mod.TriTable] = None
     k3: Optional[bounce_mod.K3Launch] = None
     cap_buf: Optional[torch.Tensor] = None
+    graph: bool = False
+    levels: Optional["_MeshLevels"] = None
 
     @property
     def route(self) -> dict:
@@ -634,6 +662,7 @@ class MeshContext:
         """Raises ValueError when the scene's tables cannot run the
         route (`ops/trace.check_route`) and, with `ext`, when the scene
         has no triangle BVH."""
+        device = torch.device(device)
         to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
         ms = trace_mod.to_device(scene, device)
         if scene.has_tri_bvh:
@@ -649,11 +678,14 @@ class MeshContext:
             tri_mat = to_dev(bounce_mod.tri_mat_table(scene, statics))
             tri = bounce_mod.TriTable.build(ms.triangles, tri_mat)
             k3 = bounce_mod.K3Launch(tables, statics, bg, tri)
+        arrays = cam.derived().to(device)
+        route = trace_mod.resolve_route(mesh, b1_fused)
         return MeshContext(
-            ms=ms, tables=tables, statics=statics, bg=bg,
-            arrays=cam.derived(),
-            mesh=trace_mod.resolve_route(mesh, b1_fused), b1_fused=b1_fused,
-            traverse8=traverse8, ext=ext, tri=tri, k3=k3)
+            ms=ms, tables=tables, statics=statics, bg=bg, arrays=arrays,
+            cam_row=mesh_level_mod.pack_camera(arrays, device), mesh=route,
+            b1_fused=b1_fused, traverse8=traverse8, ext=ext, tri=tri, k3=k3,
+            graph=ext and device.type == "cuda" and route in GRAPH_ROUTES
+            and mesh_level_mod.kernel_glue())
 
     def bounce_level(self, o, d, t, alive, u, out=None):
         """One bounce of the window's lanes: (E, W, cf, new_o, new_d,
@@ -702,24 +734,6 @@ def _init_state_mesh(n: int, device):
             torch.zeros(n, dtype=torch.int32, device=device)]
 
 
-def refill_assign(next_item, alive, do_refill: bool, item_end: int, *,
-                  npix: int, sqrt_spp: int):
-    """Queue items -> dead lanes: a dead lane's item is `next_item` plus
-    its rank among the dead lanes in lane order, so the lanes that take
-    form a prefix of the dead lanes and map to consecutive items.
-    `next_item` is a 0-d int64 tensor. Returns (take, rank, pixel id,
-    stratum row, stratum column)."""
-    dead = ~alive
-    rank = torch.cumsum(dead.to(torch.int64), 0) - 1
-    item = next_item + rank
-    take = dead & (item < item_end) if do_refill else torch.zeros_like(dead)
-    stratum = torch.div(item, npix, rounding_mode="floor")
-    pid = item - stratum * npix
-    s_i = torch.div(stratum, sqrt_spp, rounding_mode="floor")
-    return (take, rank, pid, s_i.to(torch.float32),
-            (stratum - s_i * sqrt_spp).to(torch.float32))
-
-
 def queue_refill_planes(next_item, alive_i32, item_end: int, *, width: int,
                         npix: int, sqrt_spp: int):
     """The refill of the `queue` schedule as the planes `bounce_fused`
@@ -733,93 +747,113 @@ def queue_refill_planes(next_item, alive_i32, item_end: int, *, width: int,
             pj.to(torch.float32), s_i, s_j)
 
 
-def refill_lanes(arrays, state, cursor, gen, do_refill: bool, item_end: int,
-                 *, width, npix, sqrt_spp):
-    """One level's refill: the dead lanes of `state` (o, d, t, alive,
-    depth) take the next queue items from `cursor` on (`refill_assign`)
-    and start on fresh camera rays drawn from `gen`. Returns the new
-    (o, d, t, alive, depth) and (take, rank)."""
-    o, d, t, alive, depth = state
-    take, rank, pid, s_i, s_j = refill_assign(
-        cursor, alive, do_refill, item_end, npix=npix, sqrt_spp=sqrt_spp)
-    u_cam = torch.rand((o.shape[0], camera_mod.N_U_RAYGEN), generator=gen,
-                       dtype=torch.float32, device=o.device)
-    o_n, d_n, t_n = camera_mod.generate_rays(arrays, width, pid, s_i, s_j,
-                                             u_cam)
-    return (torch.where(take[:, None], o_n, o),
-            torch.where(take[:, None], d_n, d), torch.where(take, t_n, t),
-            alive | take, torch.where(take, torch.zeros_like(depth), depth),
-            take, rank)
+class _MeshLevels:
+    """The levels of mesh windows on fixed buffers: the lane state and
+    uniforms of `ops/mesh_level.MeshLevel`, the bounce's outputs and the
+    record planes and bases of `bufs`. `step` draws a level's uniforms
+    from the window's generator (u_cam, then u, as `torch.rand` draws
+    them) and runs the level: the refill glue, `ctx.bounce_level`, the
+    record glue. With `ctx.graph` the first level runs eagerly (it loads
+    every kernel), the second is captured as a CUDA graph
+    (`ops/_cuda.Graph`, whose replays count the kernels' launches) and
+    every later one replays it on the current stream, counted in
+    ctx.counters["replays"]. A capture or launch that fails raises. `key`:
+    the window arguments the buffers and the graph were made for."""
+
+    def __init__(self, ctx: MeshContext, bufs: WindowBuffers, n: int,
+                 device, *, window: int, max_depth: int, glue: dict, key):
+        self.bufs, self.key = bufs, key
+        self.lv = mesh_level_mod.MeshLevel.empty(n, window, ctx.n_u, device)
+        self.out = bounce_mod.bounce_out(n, device) if ctx.ext else None
+        self.base = bufs.base.view(-1)
+        self.glue, self.max_depth = glue, max_depth
+        self.graph, self.ran = None, False
+
+    def body(self, ctx: MeshContext):
+        lv = self.lv
+        mesh_level_mod.refill(lv, ctx.arrays, ctx.cam_row, self.base,
+                              **self.glue)
+        res = ctx.bounce_level(lv.o, lv.d, lv.t, lv.alive, lv.u, self.out)
+        mesh_level_mod.record(lv, self.bufs.rec, *res[:6],
+                              max_depth=self.max_depth)
+
+    def step(self, ctx: MeshContext, gen):
+        self.lv.u_cam.uniform_(generator=gen)
+        self.lv.u.uniform_(generator=gen)
+        if self.graph is None and ctx.graph and self.ran:
+            graph = _cuda.Graph()
+            graph.capture(lambda: self.body(ctx))
+            self.graph = graph
+        if self.graph is not None:
+            self.graph.replay()
+            ctx.counters["replays"] = ctx.counters.get("replays", 0) + 1
+        else:
+            self.body(ctx)
+            self.ran = True
 
 
-def _mesh_window(ctx: MeshContext, acc, state, next_item: int, gen,
+def _mesh_window(ctx: MeshContext, acc, state, next_item, gen,
                  item_end: int, *, width, npix, sqrt_spp, window, refill,
                  max_depth, max_contribution, bufs: WindowBuffers,
                  cadence: int = 1, item_base: int = 0):
     """One window of the `queue` schedule's unfused path over items
     [next_item, item_end), written to `acc` at rows relative to
-    `item_base`: `window` levels of refill (at the levels of the
-    first `refill` that are multiples of `cadence`), camera rays, one draw
-    of uniforms and `ctx.bounce_level` (the ext-mode kernel on a mesh
-    scene it carries, else the reference engine's bounce), recorded as
-    V/FL planes, then the harvest into `acc` (in place). The started lane's
-    rank rides in FL
-    bits 3.. and FL bit 2 marks the start, as `bounce_fused_q` writes
-    them, so the harvest is the one of the in-kernel-queue path. The loop
-    ends early once every lane is dead and nothing can start; that and
-    the counts cost one host read per level. Returns (state, next item,
-    segments, levels recorded)."""
-    o, d, t, alive, depth = state
-    n = o.shape[0]
-    dev = o.device
-    n_u = ctx.n_u
-    cursor = torch.tensor(next_item, dtype=torch.int64, device=dev)
-    # one set of bounce outputs for every level: `refill_lanes` copies the
-    # lane state into fresh tensors before the next bounce overwrites it
-    out = bounce_mod.bounce_out(n, dev)
-    segments = 0
-    s_run = 0
-    for s in range(window):
-        o, d, t, alive, depth, take, rank = refill_lanes(
-            ctx.arrays, (o, d, t, alive, depth), cursor, gen,
-            s < refill and s % cadence == 0, item_end, width=width,
-            npix=npix, sqrt_spp=sqrt_spp)
-        bufs.base[s, 0] = cursor
-        cursor = cursor + take.sum()
+    `item_base`: `window` levels of refill (at the levels of the first
+    `refill` that are multiples of `cadence`), camera rays, one draw of
+    uniforms and `ctx.bounce_level` (the ext-mode kernel on a mesh scene
+    it carries, else the reference engine's bounce), recorded as V/FL
+    planes (`ops/mesh_level`), then the harvest into `acc` (in place). The
+    started lane's rank rides in FL bits 3.. and FL bit 2 marks the start,
+    as `bounce_fused_q` writes them, so the harvest is the one of the
+    in-kernel-queue path. `next_item` is an int or a device tensor.
 
-        u = torch.rand((n, n_u), generator=gen, dtype=torch.float32,
-                       device=dev)
-        E, W, cf, o, d, alive_out = ctx.bounce_level(o, d, t, alive, u, out)
-        dead = ~alive
-        E = torch.where(dead[:, None], 0.0, E)
-        W = torch.where(dead[:, None], 0.0, W)
-        # depth cap (camera.go:293-296): a path gets max_depth + 1 levels
-        alive_out = alive_out & (depth < max_depth)
-        depth = torch.where(alive, depth + 1, depth)
-        # merged V/FL records (E and W are disjoint: lights and background
-        # terminate, scatterers do not emit)
-        emit = (E != 0.0).any(dim=-1)
-        V = torch.where(emit[:, None], E, W)
-        for c in range(3):
-            bufs.rec[c][s] = V[:, c]
-        bufs.rec[3][s] = ((cf & alive).to(torch.int64)
-                          | (emit.to(torch.int64) << 1)
-                          | (take.to(torch.int64) << 2)
-                          | torch.where(take, rank << 3,
-                                        torch.zeros_like(rank))) \
-            .to(torch.int32)
-        counts = torch.stack([alive.sum(), alive_out.sum(), cursor]).tolist()
-        segments += counts[0]
-        alive = alive_out
-        s_run = s + 1
-        if counts[1] == 0 and (s + 1 >= refill or counts[2] >= item_end):
+    Nothing is read back inside a level: each level writes its counts
+    (segments, lanes alive after it, the cursor) into a device plane, and
+    the loop ends early once one shows every lane dead and nothing left to
+    start, seen through `_DrainWatch`; levels run past that one trace
+    nothing. The levels run on buffers kept in `ctx.levels` from one window
+    to the next (as one CUDA graph where `ctx.graph`). Returns (state, the
+    window's buffers: o, d, t, alive, depth; cur, an int64 device tensor
+    [next item, segments traced, levels recorded], computed on the device;
+    the number of levels run, at least the levels recorded)."""
+    n = state[0].shape[0]
+    dev = state[0].device
+    glue = dict(item_end=item_end, refill=refill, cadence=cadence,
+                width=width, npix=npix, sqrt_spp=sqrt_spp)
+    key = (n, dev, window, max_depth, tuple(glue.values()),
+           bufs.rec[0].data_ptr(), bufs.base.data_ptr(), ctx.graph)
+    if ctx.levels is None or ctx.levels.key != key:
+        ctx.levels = _MeshLevels(ctx, bufs, n, dev, window=window,
+                                 max_depth=max_depth, glue=glue, key=key)
+    levels = ctx.levels
+    lv = levels.lv
+    lv.begin(state, next_item)
+    counts = lv.cnt[1:]
+    M = mesh_level_mod
+    watch = _DrainWatch(counts, lambda row, s: row[M.ALIVE_AFTER] == 0 and (
+        s + 1 >= refill or row[M.CURSOR] >= item_end))
+    n_run = 0
+    for s in range(window):
+        levels.step(ctx, gen)
+        n_run = s + 1
+        watch.record(s)
+        if watch.drained():
             break
-    next_item = int(cursor)
+    # the harvest runs over every level run: a level past the drained one
+    # records only dead lanes (zero V, no flags), which add nothing
     harvest_mod.harvest_levels_into(
-        acc, *(r[:s_run] for r in bufs.rec), bufs.base.reshape(-1),
-        item_base=item_base, s_run=s_run, refill_levels=refill,
+        acc, *(r[:n_run] for r in bufs.rec), bufs.base.reshape(-1),
+        item_base=item_base, s_run=n_run, refill_levels=refill,
         max_contribution=max_contribution)
-    return [o, d, t, alive, depth], next_item, segments, s_run
+    run = counts[:n_run]
+    drained = (run[:, M.ALIVE_AFTER] == 0) & (
+        (torch.arange(1, n_run + 1, device=dev) >= refill)
+        | (run[:, M.CURSOR] >= item_end))
+    recorded = torch.where(drained.any(),
+                           drained.to(torch.int64).argmax() + 1, n_run)
+    cur = torch.stack([run[-1, M.CURSOR].to(torch.int64),
+                       run[:, M.SEGMENTS].sum(dtype=torch.int64), recorded])
+    return lv.state, cur, n_run
 
 
 def _pos_window_unfused(ctx: MeshContext, B, state, quota, lane_base,
@@ -1031,11 +1065,17 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     always harvests through the `reverse_harvest` kernel, which the JAX
     package's tests show bit-identical to its scan-and-sort epilogue.
     Off the fused kernels (a mesh, triangle lights, backend "xla") the
-    window is unfused: per level the refill, camera rays and uniforms are
-    tensor code and the bounce is `MeshContext.bounce_level`; "auto" and
-    "queue" run `_mesh_window` (the external-hit kernel where it carries
-    the scene), "positional" runs `_pos_window_unfused` (the reference
-    engine's bounce, as in the JAX package); "queue_ik" raises. A scene
+    window is unfused and its bounce is `MeshContext.bounce_level`;
+    "auto" and "queue" run `_mesh_window` (the refill, camera rays and
+    records as the glue kernel of `ops/mesh_level`, the external-hit
+    kernel where it carries the scene, on the walk and binned2 routes one
+    CUDA graph a level; stats["mesh"]["graph"] says which and
+    stats["mesh"]["replays"] counts the replays; stats["levels"] counts
+    the levels recorded, up to each window's drain, and
+    stats["levels_run"] the levels run, which may go past it on the
+    card), "positional" runs `_pos_window_unfused`
+    (the reference engine's bounce, as in the JAX package); "queue_ik"
+    raises. A scene
     with a triangle BVH there runs at most `MESH_MAX_LANES` lanes at
     cadence 1, and `mesh` ("auto", "binned", "binned2" or "walk"; "auto"
     is the walk, or binned with `b1_fused`), `b1_fused` (binned only) and
@@ -1222,16 +1262,24 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     next_dev = torch.tensor([item_base + start_i], dtype=torch.int32,
                             device=device)
 
+    # the mesh window's cursor and its levels recorded, on the device
+    next_mesh = torch.tensor(item_base + start_i, dtype=torch.int64,
+                             device=device)
+    levels_recorded = torch.zeros((), dtype=torch.int64, device=device)
+
     def dispatch_mesh(wi):
-        nonlocal state, next_host
-        state, next_host, segs, s_run = _mesh_window(
-            ctx, acc, state, next_host,
+        nonlocal state, next_mesh
+        state, cur, n_run = _mesh_window(
+            ctx, acc, state, next_mesh,
             window_generator(seed, wi, device, rank), item_end, width=w,
             npix=npix, sqrt_spp=sqrt_spp, window=window, refill=refill,
             max_depth=cam.max_depth, max_contribution=cam.max_contribution,
             bufs=bufs, cadence=cadence, item_base=item_base)
-        ctx.counters["levels"] = ctx.counters.get("levels", 0) + s_run
-        return torch.tensor([next_host, segs, s_run], dtype=torch.int64)
+        # levels run: each launched every kernel of the level once
+        ctx.counters["levels"] = ctx.counters.get("levels", 0) + n_run
+        levels_recorded.add_(cur[2])
+        next_mesh = cur[0]
+        return cur
 
     def dispatch_pos_unfused(wi):
         nonlocal state
@@ -1244,8 +1292,6 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
             max_contribution=cam.max_contribution)
         ctx.counters["levels"] = ctx.counters.get("levels", 0) + window
         return cur
-
-    next_host = item_base + start_i
 
     def dispatch(wi):
         nonlocal next_dev
@@ -1347,11 +1393,13 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     stats["backend"] = "pallas" if use_fused or use_ext else "xla"
     if unfused:
         stats["lanes"] = n
-        stats["levels"] = ctx.counters.pop("levels", 0)
+        stats["levels_run"] = ctx.counters.pop("levels", 0)
+        stats["levels"] = (stats["levels_run"] if positional
+                           else int(levels_recorded))
         stats["bounce"] = "ext" if use_ext else "wavefront"
         if scene.has_tri_bvh:
             stats["mesh"] = dict(ctx.counters, route=trace_mod.route_name(
-                **ctx.route))
+                **ctx.route), graph=ctx.graph)
     if schedule == "queue_ik":
         stats["direct_rec"] = direct_rec
     if schedule == "queue" and use_fused:

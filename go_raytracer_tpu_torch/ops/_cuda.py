@@ -11,6 +11,10 @@ register and spill report (`-Xptxas -v`) is kept beside each library as
 
 Only `library()` builds; importing this module does nothing, so the CPU
 tests import every module without a CUDA toolkit.
+
+Every wrapper counts its kernel's launches through `count`, which also
+serves CUDA graphs (`Graph`): a launch captured into a graph runs at each
+replay, and is counted there.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "torch_kernels")
 SOURCES = ("bounce_fused_q", "harvest", "bounce", "stream", "traverse8",
            "bounce_fused", "bounce_fused_pos", "harvest_rows", "traverse",
-           "stream_round", "stream2")
+           "stream_round", "stream2", "mesh_level")
 # entry point of each library, all `int fn(const Args*, cudaStream_t)`
 ENTRY = {"bounce_fused_q": "grt_bounce_fused_q",
          "harvest": "grt_harvest_levels", "bounce": "grt_bounce",
@@ -38,11 +42,12 @@ ENTRY = {"bounce_fused_q": "grt_bounce_fused_q",
          "bounce_fused_pos": "grt_bounce_fused_pos",
          "harvest_rows": "grt_harvest_rows", "traverse": "grt_bvh_closest",
          "stream_round": "grt_stream_round_rows",
-         "stream2": "grt_stream2_rows"}
+         "stream2": "grt_stream2_rows", "mesh_level": "grt_mesh_refill"}
 # further entry points of a library, with the same signature
 MORE_ENTRIES = {"bounce_fused_q": ("grt_bounce_fused_q_direct",),
                 "bounce": ("grt_bounce_cap",),
-                "harvest_rows": ("grt_harvest_rows_perm",)}
+                "harvest_rows": ("grt_harvest_rows_perm",),
+                "mesh_level": ("grt_mesh_record",)}
 # libraries whose kernels run the bounce core's staged scan; each exports
 # `int grt_kernel_info(feat, n_sph, n_quad, n_box, int* out)`
 STAGED = ("bounce_fused_q", "bounce_fused", "bounce_fused_pos", "bounce")
@@ -55,6 +60,45 @@ FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs = {}
 build_seconds = None   # wall time of the last build_all() that compiled
+_noting = None         # the counts of the Graph being captured
+
+
+def count(where: dict, name: str):
+    """One launch of a kernel, or one call of a route, into the counter
+    `where[name]` (a wrapper module's `globals()` or a counters dict):
+    added now, or, while a `Graph` captures the launch, at each replay."""
+    if _noting is not None:
+        _noting.append((where, name))
+    else:
+        where[name] = where.get(name, 0) + 1
+
+
+class Graph:
+    """A CUDA graph of wrapper launches whose every replay counts them:
+    `capture(fn)` records fn()'s launches on a side stream (counted by
+    `count` into `noted`, not run), `replay()` runs them on the current
+    stream and adds `noted` to the counters. A capture that fails
+    raises."""
+
+    def __init__(self):
+        import torch
+        self.graph = torch.cuda.CUDAGraph()
+        self.noted = []
+
+    def capture(self, fn):
+        import torch
+        global _noting
+        _noting = self.noted
+        try:
+            with torch.cuda.graph(self.graph, capture_error_mode="relaxed"):
+                fn()
+        finally:
+            _noting = None
+
+    def replay(self):
+        self.graph.replay()
+        for where, name in self.noted:
+            where[name] = where.get(name, 0) + 1
 
 
 def _nvcc() -> str:

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from go_raytracer_tpu_torch.core import rng
+from go_raytracer_tpu_torch.ops import _cuda
 from go_raytracer_tpu_torch.scene import perlin
 from go_raytracer_tpu_torch.scene import types as T
 
@@ -1630,8 +1631,6 @@ def _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state, *,
     """Launch K1, or with `lvl_base` (a (1,) int32 tensor) its direct entry
     point, which writes level j to row lvl_base[0] + j of the whole-window
     buffers `out.rec` (S, N)."""
-    global launches, launches_direct
-    from go_raytracer_tpu_torch.ops import _cuda
 
     st = statics
     n = state[0].shape[0]
@@ -1687,9 +1686,9 @@ def _bounce_fused_q_cuda(tables, statics, cam_row, bg, seed4, state, *,
     if err:
         raise RuntimeError(f"bounce_fused_q launch failed: {_cuda.error_string(err)}")
     if lvl_base is None:
-        launches += 1
+        _cuda.count(globals(), "launches")
     else:
-        launches_direct += 1
+        _cuda.count(globals(), "launches_direct")
 
 
 def bounce_fused_q(tables, statics, cam_row, bg, seed4, ox, oy, oz, dx, dy,
@@ -2030,7 +2029,6 @@ def _launch_fused(lib, struct, tables, statics, cam_row, bg, seed_field, seed,
     (nine, or fourteen with the pointer planes); `extra_in`: further
     (name, tensor, dtype) inputs; `rec_names`: the struct's names of the
     record planes; `ints`: the struct's ints beyond the common ones."""
-    from go_raytracer_tpu_torch.ops import _cuda
 
     st = statics
     n = state[0].shape[0]
@@ -2090,7 +2088,6 @@ def bounce_fused(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy, dz,
     CUDA tensors launch the kernel; CPU tensors run `bounce_fused_ref`.
     The kernel leaves a dead lane's direction as it was, where the plain
     version (like the JAX kernel) writes a don't-care sampled direction."""
-    global launches_fused
     state = (ox, oy, oz, dx, dy, dz, time, alive_i32, depth)
     refill = (take_i32, pi, pj, si, sj)
     if not ox.is_cuda:
@@ -2106,7 +2103,7 @@ def bounce_fused(tables, statics, cam_row, bg, seed, ox, oy, oz, dx, dy, dz,
     _launch_fused("bounce_fused", _FusedArgs, tables, statics, cam_row, bg,
                   "seed", seed, state, extra, ("vr", "vg", "vb", "fl"), out,
                   n_inner, has_defocus, dict(max_depth=max_depth))
-    launches_fused += 1
+    _cuda.count(globals(), "launches_fused")
     return (tuple(out.rec), None, out.seg) + tuple(out.state)
 
 
@@ -2129,7 +2126,6 @@ def bounce_fused_pos(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx, dy,
     CUDA tensors launch the kernel; CPU tensors run
     `bounce_fused_pos_ref`. The kernel leaves a dead lane's direction as
     it was, where the plain version writes a don't-care direction."""
-    global launches_fused_pos
     state = (ox, oy, oz, dx, dy, dz, time, alive_i32, depth,
              pi, pj, si, sj, rem)
     if not ox.is_cuda:
@@ -2145,7 +2141,7 @@ def bounce_fused_pos(tables, statics, cam_row, bg, seed2, ox, oy, oz, dx, dy,
                   ("er", "eg", "eb", "wr", "wg", "wb", "cf", "st"), out,
                   n_inner, has_defocus, dict(max_depth=max_depth, width=width,
                                              sqrt_spp=sqrt_spp))
-    launches_fused_pos += 1
+    _cuda.count(globals(), "launches_fused_pos")
     return (tuple(out.rec), None, out.seg) + tuple(out.state)
 
 
@@ -2374,7 +2370,6 @@ class K3Launch:
         _check_bounce_scene(statics)
         if not self.cuda:
             return
-        from go_raytracer_tpu_torch.ops import _cuda
 
         st = statics
         _check_cuda_args(_fused_table_checks(tables, st)
@@ -2412,7 +2407,6 @@ class K3Launch:
     def __call__(self, o, d, time, alive, u, ext=None, out=None):
         """`bounce` on this scene (its arguments but the tables, statics,
         bg and tri)."""
-        global launches_bounce
         st = self.statics
         if not o.is_cuda:
             return bounce_ref(self.tables, st, o, d, time, alive, u, self.bg,
@@ -2457,11 +2451,9 @@ class K3Launch:
         err = self._fn(ctypes.addressof(a),
                        torch.cuda.current_stream(self._dev).cuda_stream)
         if err:
-            from go_raytracer_tpu_torch.ops import _cuda
-
             raise RuntimeError(f"bounce launch failed: "
                                f"{_cuda.error_string(err)}")
-        launches_bounce += 1
+        _cuda.count(globals(), "launches_bounce")
         return (*out, None)
 
     def cap(self, ms, o, d, time, out=None):
@@ -2469,7 +2461,6 @@ class K3Launch:
         scene's spheres (at its time), quads and boxes in (T_MIN, inf), inf
         where none (`bounce_cap`, the core's scan). CPU tensors run
         `dense_cap_ref` on `ms`; on the card `ms` is not read."""
-        global launches_cap
         if not o.is_cuda:
             return dense_cap_ref(ms, o, d, time)
         if not self.cuda:
@@ -2488,11 +2479,9 @@ class K3Launch:
         err = self._cap_fn(ctypes.addressof(a),
                            torch.cuda.current_stream(self._dev).cuda_stream)
         if err:
-            from go_raytracer_tpu_torch.ops import _cuda
-
             raise RuntimeError(f"bounce_cap launch failed: "
                                f"{_cuda.error_string(err)}")
-        launches_cap += 1
+        _cuda.count(globals(), "launches_cap")
         return out
 
 

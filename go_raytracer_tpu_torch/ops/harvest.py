@@ -36,6 +36,8 @@ import ctypes
 
 import torch
 
+from go_raytracer_tpu_torch.ops import _cuda
+
 # Launches of the CUDA kernel through `harvest_levels_into` (one per call).
 launches = 0
 # Launches of the CUDA kernel through `reverse_harvest_into` (one per call),
@@ -158,7 +160,6 @@ def harvest_levels_into(acc, Vr, Vg, Vb, FL, bases, *, item_base, s_run,
     Rows of acc past the window's last started item are left as they
     were by the kernel; the plain version writes zeros there (the JAX
     window's row tails). Everything before it is identical."""
-    global launches
     if s_run <= 0:
         return acc
     if not acc.is_cuda:
@@ -167,7 +168,6 @@ def harvest_levels_into(acc, Vr, Vg, Vb, FL, bases, *, item_base, s_run,
             max_contribution=max_contribution, s_run=s_run)
         return write_rows_ref(acc, rows, bases, item_base=item_base,
                               n_rows=min(s_run, refill_levels))
-    from go_raytracer_tpu_torch.ops import _cuda
 
     n = Vr.shape[1]
     for name, t, dt in (("Vr", Vr, torch.float32), ("Vg", Vg, torch.float32),
@@ -188,7 +188,7 @@ def harvest_levels_into(acc, Vr, Vg, Vb, FL, bases, *, item_base, s_run,
         ctypes.addressof(a), torch.cuda.current_stream(acc.device).cuda_stream)
     if err:
         raise RuntimeError(f"harvest launch failed: {_cuda.error_string(err)}")
-    launches += 1
+    _cuda.count(globals(), "launches")
     return acc
 
 
@@ -225,14 +225,12 @@ def reverse_harvest_into(acc, Vr, Vg, Vb, FL, STs, NIs, *, item_base, cadence,
     sorted before every call; each row's starts are ranked in the row's
     own lane order, and the harvest unwinds the sorts (on CUDA the
     kernel's `grt_harvest_rows_perm` entry, `launches_rows_perm`)."""
-    global launches_rows, launches_rows_perm
     if not acc.is_cuda:
         rows = reverse_harvest_ref(
             Vr, Vg, Vb, FL, STs, cadence=cadence, refill_outer=refill_outer,
             max_contribution=max_contribution, perms=perms)
         return write_rows_ref(acc, rows, NIs, item_base=item_base,
                               n_rows=refill_outer)
-    from go_raytracer_tpu_torch.ops import _cuda
 
     outer, cad, n = Vr.shape
     for name, t, dt in (("Vr", Vr, torch.float32), ("Vg", Vg, torch.float32),
@@ -275,7 +273,7 @@ def reverse_harvest_into(acc, Vr, Vg, Vb, FL, STs, NIs, *, item_base, cadence,
         raise RuntimeError(
             f"harvest_rows launch failed: {_cuda.error_string(err)}")
     if perms is None:
-        launches_rows += 1
+        _cuda.count(globals(), "launches_rows")
     else:
-        launches_rows_perm += 1
+        _cuda.count(globals(), "launches_rows_perm")
     return acc

@@ -37,6 +37,8 @@ import ctypes
 
 import torch
 
+from go_raytracer_tpu_torch.ops import _cuda
+
 T_MIN = 1.0e-3
 # Rays per block: the CUDA kernel's thread-block size, and the unit in
 # which the glue computes group ranges and marks clusters processed.
@@ -270,7 +272,6 @@ def stream_rows(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
     [b*BLOCK, (b+1)*BLOCK) in flat order. glo/ghi: (blocks,) int32 group
     ranges (glo == ghi leaves the block untouched). Returns the updated
     (t, idx) as new tensors."""
-    global launches
     n = ox.numel()
     if n % BLOCK:
         raise ValueError(f"ray count {n} is not a multiple of {BLOCK}")
@@ -280,7 +281,6 @@ def stream_rows(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
     if not ox.is_cuda:
         return stream_rows_ref(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz,
                                t, idx)
-    from go_raytracer_tpu_torch.ops import _cuda
 
     a, t_out, idx_out, _scratch = _stream_args(tri_lines, glo, ghi, ox, oy,
                                                oz, dx, dy, dz, t, idx)
@@ -290,7 +290,7 @@ def stream_rows(tri_lines, glo, ghi, ox, oy, oz, dx, dy, dz, t, idx):
         ctypes.addressof(a), torch.cuda.current_stream(ox.device).cuda_stream)
     if err:
         raise RuntimeError(f"stream_rows launch failed: {_cuda.error_string(err)}")
-    launches += 1
+    _cuda.count(globals(), "launches")
     return t_out, idx_out
 
 
@@ -338,7 +338,6 @@ def stream_round_rows(tri_lines, lo, hi, glo, ghi, ca, cb, ox, oy, oz, dx,
     candidate. CUDA tensors launch csrc/stream_round.cu (three kernels: the
     item scan, the item stream and the finish pass); CPU tensors run
     `stream_round_rows_ref`."""
-    global launches_round
     n = ox.numel()
     k_cl = lo.shape[0]
     n_mask = (k_cl + 31) // 32
@@ -359,7 +358,6 @@ def stream_round_rows(tri_lines, lo, hi, glo, ghi, ca, cb, ox, oy, oz, dx,
     if not ox.is_cuda:
         return stream_round_rows_ref(tri_lines, lo, hi, glo, ghi, ca, cb, ox,
                                      oy, oz, dx, dy, dz, t, idx, masks)
-    from go_raytracer_tpu_torch.ops import _cuda
 
     for name, x, dt in (("lo", lo, torch.float32), ("hi", hi, torch.float32),
                         ("ca", ca, torch.int32), ("cb", cb, torch.int32),
@@ -381,5 +379,5 @@ def stream_round_rows(tri_lines, lo, hi, glo, ghi, ca, cb, ox, oy, oz, dx,
     if err:
         raise RuntimeError(
             f"stream_round_rows launch failed: {_cuda.error_string(err)}")
-    launches_round += 1
+    _cuda.count(globals(), "launches_round")
     return t_out, idx_out, key, m_out

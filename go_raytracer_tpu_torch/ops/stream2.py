@@ -36,6 +36,7 @@ import ctypes
 
 import torch
 
+from go_raytracer_tpu_torch.ops import _cuda
 from go_raytracer_tpu_torch.ops.stream import (candidates, stream_rows_ref,
                                                unpack_lines)
 
@@ -137,7 +138,6 @@ def stream2_rows(tri_lines, lo, hi, gs, ox, oy, oz, dx, dy, dz, t, idx, *,
     (optional, (N / UNIT,) int32 on the device) receives each unit's
     rounds. CUDA tensors launch csrc/stream2.cu; CPU tensors run
     `stream2_rows_ref`."""
-    global launches
     n = ox.numel()
     k2 = lo.shape[0]
     if n % UNIT:
@@ -155,7 +155,6 @@ def stream2_rows(tri_lines, lo, hi, gs, ox, oy, oz, dx, dy, dz, t, idx, *,
         if rounds is not None:
             rounds.copy_(work["rounds"])
         return out
-    from go_raytracer_tpu_torch.ops import _cuda
 
     f32, i32 = torch.float32, torch.int32
     if rounds is None:
@@ -191,5 +190,5 @@ def stream2_rows(tri_lines, lo, hi, gs, ox, oy, oz, dx, dy, dz, t, idx, *,
         ctypes.addressof(a), torch.cuda.current_stream(ox.device).cuda_stream)
     if err:
         raise RuntimeError(f"stream2_rows launch failed: {_cuda.error_string(err)}")
-    launches += 1
+    _cuda.count(globals(), "launches")
     return t_out, idx_out

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from go_raytracer_tpu_torch.core import vecmath as vm
+from go_raytracer_tpu_torch.ops import _cuda
 from go_raytracer_tpu_torch.ops import intersect as ix
 from go_raytracer_tpu_torch.ops import stream as stream_mod
 from go_raytracer_tpu_torch.ops import stream2 as stream2_mod
@@ -325,7 +326,7 @@ def coherence_key(bvh, o, d):
 
 def _count_call(counters):
     if counters is not None:
-        counters["mesh_calls"] = counters.get("mesh_calls", 0) + 1
+        _cuda.count(counters, "mesh_calls")
 
 
 def _unsort(perm, t_s, i_s):

@@ -38,6 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
+from go_raytracer_tpu_torch.ops import _cuda
 from go_raytracer_tpu_torch.ops.stream import T_MIN, mt_tri_ref, safe_inv
 from go_raytracer_tpu_torch.scene import types as T
 
@@ -189,7 +190,6 @@ def bvh_closest(nodes, tris, o, d, t_cap=None, *, n_nodes):
     triangle table index); idx is -1 and t == t_cap where no triangle beats
     the ray's cap (a cap of 0 ends the walk at the root). o, d: (N, 3)
     float32."""
-    global launches
     if nodes.dim() != 2 or nodes.shape[1] != NODE_COLS \
             or not 0 < n_nodes <= nodes.shape[0]:
         raise ValueError(f"nodes must be (M, {NODE_COLS}) with M >= n_nodes")
@@ -200,7 +200,6 @@ def bvh_closest(nodes, tris, o, d, t_cap=None, *, n_nodes):
                          f"WARP_RAYS={WARP_RAYS} one of 8, 16, 32")
     if not o.is_cuda:
         return bvh_closest_ref(nodes, tris, o, d, t_cap, n_nodes=n_nodes)
-    from go_raytracer_tpu_torch.ops import _cuda
 
     n = o.shape[0]
     if t_cap is None:
@@ -228,5 +227,5 @@ def bvh_closest(nodes, tris, o, d, t_cap=None, *, n_nodes):
         ctypes.addressof(a), torch.cuda.current_stream(o.device).cuda_stream)
     if err:
         raise RuntimeError(f"bvh_closest launch failed: {_cuda.error_string(err)}")
-    launches += 1
+    _cuda.count(globals(), "launches")
     return t_out, idx_out

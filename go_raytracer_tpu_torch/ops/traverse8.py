@@ -34,6 +34,7 @@ import ctypes
 import numpy as np
 import torch
 
+from go_raytracer_tpu_torch.ops import _cuda
 from go_raytracer_tpu_torch.ops.stream import T_MIN, mt_groups_ref, unpack_lines
 
 # Per-ray stack entries the CUDA kernel takes at most (its shared-memory
@@ -221,10 +222,8 @@ def bvh8_closest(nodes, tris, o, d, t_cap=None, *, max_stack=None):
     float32. `max_stack` is the table's `scene/bvh8.max_stack`; the CUDA
     path needs it (at most `STACK`: it sizes the kernel's shared stack),
     the plain version grows its stack."""
-    global launches
     if not o.is_cuda:
         return bvh8_closest_ref(nodes, tris, o, d, t_cap)
-    from go_raytracer_tpu_torch.ops import _cuda
 
     n = o.shape[0]
     if max_stack is None or max_stack > STACK:
@@ -265,5 +264,5 @@ def bvh8_closest(nodes, tris, o, d, t_cap=None, *, max_stack=None):
         ctypes.addressof(a), torch.cuda.current_stream(o.device).cuda_stream)
     if err:
         raise RuntimeError(f"bvh8_closest launch failed: {_cuda.error_string(err)}")
-    launches += 1
+    _cuda.count(globals(), "launches")
     return t_out, idx_out

@@ -39,6 +39,15 @@ class CameraArrays:
     defocus_angle: float = 0.0
     recip_spp_sqrt: float = 0.1
 
+    def to(self, device) -> "CameraArrays":
+        """The same arrays with every vector a float32 tensor on `device`,
+        so that `generate_rays` there copies nothing."""
+        vec = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        return dataclasses.replace(
+            self, center=vec(self.center), pixel00=vec(self.pixel00),
+            du=vec(self.du), dv=vec(self.dv), defocus_u=vec(self.defocus_u),
+            defocus_v=vec(self.defocus_v))
+
 
 @dataclasses.dataclass
 class Camera:

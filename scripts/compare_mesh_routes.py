@@ -71,10 +71,11 @@ def main():
         """One render on `route`; `record` gets per window (input state,
         next item, kwargs, segments, levels)."""
         def spy(ctx, acc, state, next_item, gen, item_end, **kw):
-            saved = ([s.clone() for s in state], next_item, kw)
+            saved = ([s.clone() for s in state], int(next_item), kw)
             res = real_window(ctx, acc, state, next_item, gen, item_end,
                               **kw)
-            record.append(saved + (res[2], res[3]))
+            # segments and levels recorded, from the window's device counts
+            record.append(saved + tuple(res[1][1:].tolist()))
             return res
         regen._mesh_window = spy
         try:
@@ -140,6 +141,8 @@ def main():
 
     def window_count(ctx, *a, **kw):
         parts["window"] += 1
+        # the spy reads the host at every level: no level is a CUDA graph
+        ctx.graph = False
         return real_window(ctx, *a, **kw)
 
     trace.mesh_closest = mc_spy
@@ -181,14 +184,16 @@ def main():
                                              kw_a["window"], 1, dev)
             acc = torch.zeros((int(sa["paths"]) + state_a[0].shape[0], 3),
                               device=dev)
-            res = real_window(ctx, acc, [s.clone() for s in state_a], next_a,
-                              regen.window_generator(0, w, dev),
-                              int(sa["paths"]), **dict(kw_a, bufs=bufs))
+            _, cur, _ = real_window(
+                ctx, acc, [s.clone() for s in state_a], next_a,
+                regen.window_generator(0, w, dev), int(sa["paths"]),
+                **dict(kw_a, bufs=bufs))
+            res = cur.tolist()      # next item, segments, levels recorded
             outs[route] = (bufs, res)
-            print(f"[3] window {w} again on {route}: segments {res[2]}, "
-                  f"levels {res[3]}, next item {res[1]}")
+            print(f"[3] window {w} again on {route}: segments {res[1]}, "
+                  f"levels {res[2]}, next item {res[0]}")
         (ba, ra), (bb, rb) = outs[route_a], outs[route_b]
-        levels = min(ra[3], rb[3])
+        levels = min(ra[2], rb[2])
         first = None
         for s in range(levels):
             if not (torch.equal(ba.base[s], bb.base[s])

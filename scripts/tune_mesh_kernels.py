@@ -43,19 +43,29 @@ source rewritten from csrc/traverse8.cu and built beside the kernels), in
 turns, on the sorted and unsorted rays.
 --level measures the walk route's bounce level at that level's rays
 (`MeshContext.bounce_level`: the dense cap, the walk's sort and K5, K3 and
-its gather) and at 16 levels of a real window (`_mesh_window`: refill,
-camera rays, uniforms, the bounce, the records, one host read a level):
-host us per call (calls enqueued back to back), device launches per call
-(kernels, copies and fills under torch.profiler), the calls that wait on
-the device (torch.cuda's sync debug mode, with the source lines that make
-them) and the window's wall time a level. The renders of a call that
+its gather) and at 16 levels of a real window (`_mesh_window`: the
+refill, camera rays, uniforms, the bounce, the records; a CUDA graph a
+level where the package replays one): host us per call (calls enqueued
+back to back), device launches per call (kernels, copies and fills under
+torch.profiler, a graph's nodes included), host-issued launches a level
+(the runtime calls that put work on the card: kernel and graph launches,
+copies, fills), the calls that wait on the device (torch.cuda's sync
+debug mode, with the source lines that make them) and the window's wall
+time a level. The renders of a call that
 also takes --level run after the profiler; time them in a call of their
 own.
 --renders also renders modelExample at 25 spp (600x337, depth 50) on the
 binned, binned2 and walk routes, `--b1-fused` and `--mesh walk
---no-traverse8`, and prints each render loop's wall time, its segments and
-the image's SHA-256; --uncut binned,binned2,walk renders those routes at
-the full registry configuration (250 spp) too.
+--no-traverse8`, and prints each render loop's wall time, its paths,
+segments, windows, lanes, whether its levels replayed as a CUDA graph and
+the image's SHA-256; --more-renders does the same at 25 spp for the
+statue's other bounces: the reference engine's (backend "xla") and the
+`positional` schedule; --uncut binned,binned2,walk
+renders those routes at
+the full registry configuration (250 spp) too, with --mesh-lanes N on a
+pool of N lanes (the mesh path's cap, MESH_MAX_LANES, set to N). Time
+renders in a process of their own (`--kernels none --uncut walk`): a
+render timed after torch.profiler in one process runs slower.
 
 --repo DIR imports the package from another checkout (the parent commit,
 unpacked with `git archive`) and times its kernels the same way, so two
@@ -100,9 +110,18 @@ def time_ms(fn, reps):
     return best
 
 
-def device_launches(fn, calls):
-    """Device launches (kernels, copies, fills) per call of `fn` under
-    torch.profiler, over `calls` calls."""
+# the runtime calls that put work on the card, as torch.profiler names them
+HOST_LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                    "cuGraphLaunch", "cudaMemcpyAsync", "cuMemcpyAsync",
+                    "cudaMemsetAsync", "cuMemsetD")
+
+
+def launches(fn, calls):
+    """Launches per call of `fn` under torch.profiler, over `calls` calls:
+    (device launches: kernels, copies and fills on the card, a CUDA
+    graph's nodes included; host-issued launches: the runtime calls of
+    HOST_LAUNCH_APIS, a graph's replay one; {runtime call: count})."""
+    import collections
     import torch
     from torch.autograd import DeviceType
     fn()
@@ -113,8 +132,11 @@ def device_launches(fn, calls):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / calls
+    host = collections.Counter(
+        e.name for e in prof.events() if e.device_type == DeviceType.CPU
+        and e.name.startswith(HOST_LAUNCH_APIS))
+    device = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return device / calls, sum(host.values()) / calls, dict(host)
 
 
 def host_syncs(fn):
@@ -141,15 +163,16 @@ def host_syncs(fn):
 def level_cost(ctx, rays, geo, paths, cam8, n8, dev):
     """The walk route's bounce level on the level's rays: host us per call,
     device launches per call and calls that wait on the device; and over
-    16 levels of a real window, wall ms, device launches and calls that
-    wait a level."""
+    16 levels of a real window (its buffers kept from one run to the next,
+    as a render keeps them), wall ms, device and host-issued launches and
+    calls that wait a level."""
     import torch
     from go_raytracer_tpu_torch.integrator import regen
     o8, d8, t8, alive8 = rays
     u = torch.rand((n8, ctx.n_u), device=dev)
     out_b = regen.bounce_mod.bounce_out(n8, dev)
     call = lambda: ctx.bounce_level(o8, d8, t8, alive8, u, out_b)
-    res = {"bounce_launches": device_launches(call, 5)}
+    res = {"bounce_launches": launches(call, 5)[0]}
     res["bounce_syncs"], res["bounce_sync_sites"] = host_syncs(call)
     best = float("inf")
     for _ in range(3):
@@ -161,10 +184,10 @@ def level_cost(ctx, rays, geo, paths, cam8, n8, dev):
         torch.cuda.synchronize()
     res["bounce_host_us"] = best
     window = 16
+    bufs = regen.WindowBuffers.empty(n8, window, 1, dev)
+    acc = torch.zeros((paths + n8, 3), dtype=torch.float32, device=dev)
 
     def run_window():
-        bufs = regen.WindowBuffers.empty(n8, window, 1, dev)
-        acc = torch.zeros((paths + n8, 3), dtype=torch.float32, device=dev)
         regen._mesh_window(
             ctx, acc, regen._init_state_mesh(n8, dev), 0,
             regen.window_generator(0, 0, dev), paths, window=window,
@@ -180,9 +203,13 @@ def level_cost(ctx, rays, geo, paths, cam8, n8, dev):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) / window * 1e3)
     res["window_ms_per_level"] = min(walls)
-    res["window_launches_per_level"] = device_launches(run_window, 1) / window
+    dev_l, host_l, apis = launches(run_window, 1)
+    res["window_launches_per_level"] = dev_l / window
+    res["window_host_launches_per_level"] = host_l / window
+    res["window_host_apis"] = apis
     n_sync, res["window_sync_sites"] = host_syncs(run_window)
     res["window_syncs_per_level"] = n_sync / window
+    res["graph"] = bool(getattr(ctx, "graph", False))
     return res
 
 
@@ -197,6 +224,9 @@ def main():
                          "WARP_RAYS, LEAF_BATCH and K5's TEAM and BLOCK")
     ap.add_argument("--renders", action="store_true",
                     help="time the 25-spp renders of the five routes")
+    ap.add_argument("--more-renders", action="store_true",
+                    help="time the 25-spp renders of the statue's other "
+                         "bounces: backend xla, positional")
     ap.add_argument("--level", action="store_true",
                     help="host time and launches of the walk's bounce "
                          "level")
@@ -208,6 +238,9 @@ def main():
     ap.add_argument("--uncut", default="",
                     help="comma-separated routes (binned, binned2, walk) "
                          "rendered at the full registry configuration")
+    ap.add_argument("--mesh-lanes", type=int, default=0,
+                    help="lane pool of the renders (default: the "
+                         "package's MESH_MAX_LANES)")
     ap.add_argument("--out", default=os.path.join("build",
                                                   "tune_mesh_kernels.json"))
     args = ap.parse_args()
@@ -244,20 +277,37 @@ def main():
     scene8, cam8 = registry.model_example()
     ctx = regen.MeshContext.build(scene8, cam8, dev, mesh="walk")
     ms, bvh = ctx.ms, ctx.ms.tri_bvh
-    n8 = regen.MESH_MAX_LANES
+    n8 = 1 << 16     # the level's lanes (the lane cap up to PR 18)
     geo = dict(width=cam8.width, npix=cam8.width * cam8.image_height,
                sqrt_spp=cam8.spp_sqrt)
     paths = cam8.width * cam8.image_height * cam8.spp_sqrt ** 2
     gen = regen.window_generator(0, 0, dev)
     bufs = regen.WindowBuffers.empty(n8, 3, 1, dev)
     acc = torch.zeros((4 * n8, 3), dtype=torch.float32, device=dev)
-    state, nxt, _, _ = regen._mesh_window(
+    res = regen._mesh_window(
         ctx, acc, regen._init_state_mesh(n8, dev), 0, gen, paths, window=3,
         refill=2, max_depth=cam8.max_depth,
         max_contribution=cam8.max_contribution, bufs=bufs, **geo)
-    o8, d8, t8, alive8, _, _, _ = regen.refill_lanes(
-        ctx.arrays, state, torch.tensor(nxt, device=dev), gen, True,
-        nxt + n8 // 4, **geo)
+    # (state, next item, segments, levels) before the window's counts
+    # stayed on the device, (state, [next item, ...] on the device, levels
+    # run) since
+    state = res[0]
+    nxt = int(res[1]) if len(res) == 4 else int(res[1][0])
+    if hasattr(regen, "refill_lanes"):
+        # a checkout whose window refills in tensor code
+        o8, d8, t8, alive8, _, _, _ = regen.refill_lanes(
+            ctx.arrays, state, torch.tensor(nxt, device=dev), gen, True,
+            nxt + n8 // 4, **geo)
+    else:
+        # the level's refill through the glue's entry
+        from go_raytracer_tpu_torch.ops import mesh_level
+        lv = mesh_level.MeshLevel.empty(n8, 1, ctx.n_u, dev)
+        lv.begin(state, nxt)
+        lv.u_cam.uniform_(generator=gen)
+        mesh_level.refill(lv, ctx.arrays, ctx.cam_row,
+                          torch.zeros(1, dtype=torch.int32, device=dev),
+                          item_end=nxt + n8 // 4, refill=1, cadence=1, **geo)
+        o8, d8, t8, alive8 = lv.o, lv.d, lv.t, lv.alive
     cap8 = intersect.sphere_ts(ms.spheres, o8, d8, t8, 1e-3,
                                float("inf")).amin(dim=1)
     del bufs, acc
@@ -662,19 +712,32 @@ def main():
                 "b1_fused": dict(mesh="binned", b1_fused=True),
                 "walk_bvh2": dict(mesh="walk", traverse8=False)}
     renders = [(name, 25) for name in route_kw] if args.renders else []
+    # the statue's other bounces: the reference engine's (its hit on the
+    # walk) and the `positional` schedule
+    more_kw = {"xla": dict(backend="xla"),
+               "positional": dict(schedule="positional")}
+    renders += [(name, 25) for name in more_kw] if args.more_renders else []
     renders += [(name, None) for name in args.uncut.split(",") if name]
     if renders:
         out["renders"] = {}
     for name, spp in renders:
+        kw = route_kw.get(name) or more_kw[name]
         sc, cm = registry.model_example()
         if spp is not None:
             cm.samples_per_pixel = spp
+        if args.mesh_lanes:
+            regen.MESH_MAX_LANES = args.mesh_lanes
         img, st = regen.render_regen(sc, cm, seed=0, device=dev,
-                                     **route_kw[name])
+                                     n_lanes=max(args.mesh_lanes, 1 << 17),
+                                     **kw)
         key = name if spp is not None else f"{name}_uncut"
         out["renders"][key] = {
             "elapsed_s": st["elapsed_s"], "levels": st["levels"],
-            "segments": st["segments"], "route": st["mesh"]["route"],
+            "levels_run": st.get("levels_run"),
+            "paths": st["paths"], "segments": st["segments"],
+            "windows": st["windows"], "lanes": st["lanes"],
+            "route": st["mesh"]["route"],
+            "graph": st["mesh"].get("graph", False),
             "sha256": hashlib.sha256(img.tobytes()).hexdigest()[:16]}
         print(f"render {key}: {out['renders'][key]}", flush=True)
     # the earlier schedule's work (blocks of 128, a window of 32) on the

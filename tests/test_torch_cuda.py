@@ -1373,3 +1373,146 @@ def test_staged_scan_cull_changes_no_winner(cuda, scene):
                                    *o.state)])
         for a, b in zip(*outs):
             assert torch.equal(a, b)
+
+# ---------------------------------------------------------------------------
+# the mesh window's level glue (ops/mesh_level) and its graphed window
+# ---------------------------------------------------------------------------
+
+def _level_pool(dev, n, seed):
+    """A `MeshLevel` on `dev` with a mixed lane pool (60% alive, depths up
+    to 8) and a level's uniforms, and a bounce's outputs (NaN emissions
+    among them), from numpy."""
+    from go_raytracer_tpu_torch.ops import mesh_level
+    rs = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    lv = mesh_level.MeshLevel.empty(n, 16, 9, dev)
+    lv.begin([to(rs.normal(size=(n, 3)).astype(np.float32)),
+              to(rs.normal(size=(n, 3)).astype(np.float32)),
+              to(rs.random(n).astype(np.float32)), to(rs.random(n) < 0.6),
+              to(rs.integers(0, 9, n).astype(np.int32))], 0)
+    lv.u_cam.copy_(to(rs.random((n, 5)).astype(np.float32)))
+    emit = rs.random(n) < 0.3
+    E = np.where(emit[:, None], rs.random((n, 3)) * 4, 0.0).astype(np.float32)
+    E[rs.random(n) < 0.01, 2] = np.nan
+    W = np.where(emit[:, None], 0.0, rs.random((n, 3))).astype(np.float32)
+    bounce_res = (to(E), to(W), to(rs.random(n) < 0.5),
+                  to(rs.normal(size=(n, 3)).astype(np.float32)),
+                  to(rs.normal(size=(n, 3)).astype(np.float32)),
+                  to(rs.random(n) < 0.7))
+    return lv, bounce_res
+
+
+def _clone_level(lv):
+    import dataclasses
+    return dataclasses.replace(lv, **{f.name: getattr(lv, f.name).clone()
+                                      for f in dataclasses.fields(lv)})
+
+
+@pytest.mark.parametrize("scene", ["modelExample", "cornellBox"])
+def test_mesh_level_glue_matches_plain(cuda, scene):
+    """The glue kernel's two entries against their plain versions on the
+    same mixed pool, bit for bit: 32,768 lanes (128 blocks, so a lane's
+    rank sums the dead lanes of many blocks before it), at a level that
+    refills across item_end (half the dead lanes take), then at one past
+    the refill; defocus on (modelExample) and off (cornellBox)."""
+    from go_raytracer_tpu_torch.ops import mesh_level
+    _, cam = registry.get_scene(scene)[1]()
+    n = 128 * mesh_level.BLOCK
+    lv, res = _level_pool(cuda, n, seed=len(scene))
+    arrays = cam.derived().to(cuda)
+    cam_row = mesh_level.pack_camera(arrays, cuda)
+    npix = cam.width * cam.image_height
+    n_dead = int((~lv.alive).sum())
+    item_end = npix * cam.spp_sqrt ** 2
+    glue = dict(item_end=item_end, refill=6, cadence=1, width=cam.width,
+                npix=npix, sqrt_spp=cam.spp_sqrt)
+    as_bits = lambda x: x.view(torch.int32) if x.is_floating_point() else x
+    for s in (5, 6):
+        lv.lvl.fill_(s)
+        lv.cnt[s, mesh_level.CURSOR] = item_end - n_dead // 2
+        lp = _clone_level(lv)
+        base_k = torch.full((16,), -1, dtype=torch.int32, device=cuda)
+        base_p = base_k.clone()
+        rec_k = [torch.full((16, n), -3.0, device=cuda) for _ in range(3)] \
+            + [torch.full((16, n), -3, dtype=torch.int32, device=cuda)]
+        rec_p = [r.clone() for r in rec_k]
+        launches = mesh_level.launches_refill, mesh_level.launches_record
+        mesh_level.refill(lv, arrays, cam_row, base_k, **glue)
+        mesh_level.refill_ref(lp, arrays, cam_row, base_p, **glue)
+        takes = int(lv.cnt[s + 1, mesh_level.TAKES])
+        assert takes == (n_dead // 2 if s == 5 else 0)
+        mesh_level.record(lv, rec_k, *res, max_depth=cam.max_depth)
+        mesh_level.record_ref(lp, rec_p, *res, max_depth=cam.max_depth)
+        torch.cuda.synchronize()
+        assert (mesh_level.launches_refill, mesh_level.launches_record) == (
+            launches[0] + 1, launches[1] + 1)
+        for a, b in zip(lv.state + [lv.start, lv.cnt, lv.lvl, base_k]
+                        + rec_k, lp.state + [lp.start, lp.cnt, lp.lvl,
+                                             base_p] + rec_p):
+            assert torch.equal(as_bits(a), as_bits(b))
+        lv.alive.copy_(torch.rand(n, device=cuda) < 0.6)
+
+
+@pytest.mark.parametrize("route", ["walk", "binned2"])
+def test_mesh_window_graph_matches_eager(cuda, scene8, route, monkeypatch):
+    """One scene-8 window (48x27, 16 spp, depth 50, 8,192 lanes, 60
+    levels, refill 40) replayed as a CUDA graph against the same window
+    run eagerly on the glue's plain versions, from the same state, seed
+    and cursor (the state of an earlier window, lanes mid-path): records,
+    bases, accumulator, cursor, segments and levels recorded bit for
+    bit, and the graph's levels counted in every kernel's launches."""
+    from go_raytracer_tpu_torch.ops import mesh_level
+    scene, cam = scene8
+    cam.width, cam.samples_per_pixel = 48, 16
+    n, window, refill = 8192, 60, 40
+    npix = cam.width * cam.image_height
+    total = npix * cam.spp_sqrt ** 2
+    kw = dict(width=cam.width, npix=npix, sqrt_spp=cam.spp_sqrt,
+              window=window, refill=refill, max_depth=cam.max_depth,
+              max_contribution=cam.max_contribution)
+    ctx_g = regen.MeshContext.build(scene, cam, cuda, mesh=route)
+    ctx_e = regen.MeshContext.build(scene, cam, cuda, mesh=route)
+    assert ctx_g.graph and ctx_e.graph
+    ctx_e.graph = False
+    plain = dict(refill=mesh_level.refill_ref, record=mesh_level.record_ref)
+    kernel = dict(refill=mesh_level.refill, record=mesh_level.record)
+
+    def glue(fns):
+        for name, fn in fns.items():
+            monkeypatch.setattr(mesh_level, name, fn)
+
+    # an earlier window leaves lanes mid-path
+    glue(plain)
+    bufs0 = regen.WindowBuffers.empty(n, 7, 1, cuda)
+    state0, cur0, _ = regen._mesh_window(
+        ctx_e, torch.zeros((total + n, 3), device=cuda),
+        regen._init_state_mesh(n, cuda), 0,
+        regen.window_generator(5, 0, cuda), total,
+        **dict(kw, window=7, refill=7), bufs=bufs0)
+    state0 = [s.clone() for s in state0]
+    assert 0 < int(state0[3].sum()) < n
+    outs = {}
+    for name, ctx in (("graph", ctx_g), ("eager", ctx_e)):
+        glue(kernel if ctx.graph else plain)
+        bufs = regen.WindowBuffers.empty(n, window, 1, cuda)
+        for r in bufs.rec:
+            r.zero_()
+        acc = torch.zeros((total + n, 3), device=cuda)
+        k3 = bounce.launches_bounce
+        st, cur, n_run = regen._mesh_window(
+            ctx, acc, [s.clone() for s in state0], cur0[0],
+            regen.window_generator(5, 1, cuda), total, bufs=bufs, **kw)
+        torch.cuda.synchronize()
+        outs[name] = (bufs, acc, cur, n_run, bounce.launches_bounce - k3)
+    (bg, ag, cg, ng, kg), (be, ae, ce, ne, ke) = outs["graph"], outs["eager"]
+    assert ctx_g.levels.graph is not None and ctx_e.levels.graph is None
+    assert torch.equal(cg, ce) and int(cg[0]) > int(cur0[0])
+    levels = int(cg[2])
+    assert 0 < levels <= min(ng, ne)
+    for a, b in zip(bg.rec + [bg.base], be.rec + [be.base]):
+        assert torch.equal(a[:levels], b[:levels])
+    assert torch.equal(ag, ae)
+    # K3 once a level run, in the graph's replays as in the eager levels
+    assert kg == ng and ke == ne
+    assert ctx_g.counters["mesh_calls"] == ng
+    assert ctx_g.counters["replays"] == ng - 1

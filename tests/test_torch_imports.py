@@ -63,8 +63,9 @@ def test_chip_smoke_needs_the_repo(tmp_path):
 
 def test_every_cuda_source_is_registered_and_bound():
     """Each csrc/*.cu is built by ops/_cuda (SOURCES, ENTRY) and names the
-    TPU kernel it replaces; each wrapper module counts its launches from
-    zero and imports without a CUDA toolkit."""
+    TPU kernel it replaces (the port's own mesh-level glue says that it
+    replaces none); each wrapper module counts its launches from zero and
+    imports without a CUDA toolkit."""
     import importlib
 
     from go_raytracer_tpu_torch.ops import _cuda
@@ -77,13 +78,16 @@ def test_every_cuda_source_is_registered_and_bound():
         for entry in (_cuda.ENTRY[name],) + _cuda.MORE_ENTRIES.get(name, ()):
             assert f'extern "C" int {entry}(' in text, (name, entry)
         note = " ".join(text.replace("//", " ").split())
-        assert "Replaces the Pallas TPU kernel" in note, name
+        assert ("Replaces no Pallas TPU kernel" if name == "mesh_level"
+                else "Replaces the Pallas TPU kernel") in note, name
         assert "What bounds it" in note, name
     for mod, counters in (("bounce", ("launches", "launches_direct",
                                       "launches_bounce", "launches_fused",
                                       "launches_fused_pos")),
                           ("harvest", ("launches", "launches_rows",
                                        "launches_rows_perm")),
+                          ("mesh_level", ("launches_refill",
+                                          "launches_record")),
                           ("stream", ("launches", "launches_round")),
                           ("stream2", ("launches",)),
                           ("traverse", ("launches",)),

@@ -83,23 +83,29 @@ def test_both_routes_render_the_same_image(renders):
     assert 1 <= m["rounds"] / m["mesh_calls"] <= 128
 
 
-def test_lane_cap_and_schedules():
-    """The mesh path caps the pool at 65,536 lanes, runs cadence 1 with
-    window = 5 * (max_depth + 1), refuses the in-kernel queue and runs
-    `positional` on the reference engine's bounce."""
+def test_lane_cap_and_schedules(monkeypatch):
+    """The mesh path caps the pool at MESH_MAX_LANES, 131,072 lanes
+    (re-derived on the H100; the JAX package's cap is 65,536), runs
+    cadence 1 with window = 5 * (max_depth + 1), refuses the in-kernel
+    queue and runs `positional` on the reference engine's bounce. The
+    capping is checked on a cap of 2,048 lanes, a size the CPU renders
+    quickly."""
+    assert regen.MESH_MAX_LANES == 1 << 17
+    cap = 1 << 11
+    monkeypatch.setattr(regen, "MESH_MAX_LANES", cap)
     ts, tc = registry.model_example()
     tc.width, tc.samples_per_pixel, tc.max_depth = 8, 1, 2
-    _, st = regen.render_regen(ts, tc, n_lanes=1 << 17, device="cpu",
+    _, st = regen.render_regen(ts, tc, n_lanes=2 * cap, device="cpu",
                                mesh="walk")
-    assert st["lanes"] == regen.MESH_MAX_LANES == 1 << 16
+    assert st["lanes"] == cap
     assert st["paths"] == 8 * 4 and st["schedule"] == "queue"
-    assert st["occupancy"] == st["segments"] / (15 * (1 << 16))
+    assert st["occupancy"] == st["segments"] / (15 * cap)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         regen.render_regen(ts, tc, n_lanes=4096, device="cpu",
                            schedule="queue_ik")
-    _, sp = regen.render_regen(ts, tc, n_lanes=1 << 17, device="cpu",
+    _, sp = regen.render_regen(ts, tc, n_lanes=2 * cap, device="cpu",
                                schedule="positional")
-    assert sp["lanes"] == regen.MESH_MAX_LANES and sp["paths"] == 8 * 4
+    assert sp["lanes"] == cap and sp["paths"] == 8 * 4
     assert sp["schedule"] == "positional" and sp["bounce"] == "wavefront"
 
 
