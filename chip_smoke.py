@@ -171,8 +171,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
      scenes at their registry
      configuration (quads 400x400, book2 800x800, 100 spp, depth 50 and
      40, 131072 lanes) through `cli.main` under `queue_ik`, `--schedule
-     queue` and `--schedule positional` with phase 22's gates, and
-     `--direct-rec` exiting 2 naming the image textures;
+     queue` and `--schedule positional` (book2's CUT to 25 spp) with
+     phase 22's gates, and `--direct-rec` exiting 2 naming the image
+     textures;
  25. K3 `bounce` in full: in dense mode (the reference engine's bounce) on
      the seven dense scenes, one feature set each (ops/bounce.
      fused_features: cornellBox 0, book3 3, cornellSmoke 4, simpleLight 9,
@@ -193,19 +194,24 @@ Phases (any failure exits non-zero; nothing is swallowed):
      `--backend xla` (no kernel; 4 spp) held to K3 on the same random
      stream and to `queue_ik`; book2 800x800 on K3 with
      every feature (4 spp, CUT); modelExample 600x337 on the wavefront
-     integrator (the eager bounce, K5 once a level; 4 spp, CUT) and under
-     `--schedule positional` (25 spp, CUT), held to the walk route;
+     integrator (the tensor bounce, K5 once a level; 4 spp, CUT) and under
+     `--schedule positional` (9 spp, CUT), held to the walk route;
      lanternhouse (`--obj assets/lanternhouse.obj`: triangle lights, no
      kernel carries it) through regen's unfused window at 600x337, 16 spp
      (CUT), depth 50; the five other dense scenes at 1 spp on the
      wavefront integrator and the two ext meshes through `render_regen`,
-     counting K3's launches per feature set;
+     counting K3's launches per feature set; each path's levels replay as
+     CUDA graphs (stats "graph", levels run and recorded, ms a level run
+     printed beside EAGER_MS_BEFORE's eager figures);
  27. gradients through the reference engine (autograd over
      `wavefront.radiance` mode "scan" backend "xla", `parallel/mesh`):
      GRAD.md's configuration, 128x128 @ 16 spp (4x4 strata, 262,144
      rays), depth 10, on cornellBox, book3 and cornellSmoke, every leaf
      and the camera origin: the gradient step (forward + backward between
-     two synchronizes; the least of three), the forward alone, forward
+     two synchronizes; the least of three; and the same gradient as one
+     CUDA graph, its ms, pool and peak memory, its leaves against the
+     eager one's, held within GRAPH_LEAF_TOL with deterministic
+     algorithms on), the forward alone, forward
      segments, grad rays/s, peak memory above what was allocated before
      the step, every leaf finite, two runs'
      leaves within GRAD_RUN_TO_RUN (the scatter-add's atomic order), no
@@ -269,6 +275,21 @@ Phases (any failure exits non-zero; nothing is swallowed):
      host-issued launches, the calls that wait on the device (torch.cuda's
      sync debug mode, with their source lines; at most one a window in the
      graphed one) and the wall ms;
+ 31. the reference engine and the gradient step as device programs
+     (`engine_program_phase`): the reference engine's renders of
+     cornellBox on K3 (4 spp) and on the tensor bounce, book3,
+     cornellSmoke and modelExample on the walk (K5) at 1 spp, each level
+     one CUDA graph replay, against the same renders run eagerly, bit for
+     bit, with ms a level, levels run and recorded, and per level of one
+     131,072-ray call host-issued and device launches, waits and wall
+     ms; regen's unfused window on the tensor bounce for modelExample (4
+     spp) and lanternhouse (300 wide, 1 spp), graphed against eager, the
+     same image SHA-256; the launch counters of K3, K5 and the glue
+     against the card's count under torch.profiler; new uniforms at every
+     replay; `make_train_step` as one CUDA graph against the eager step,
+     five steps on GRAD.md's cornellBox and on modelExample at 1 spp
+     (losses within GRAPH_LOSS_RTOL, leaves within GRAPH_LEAF_TOL of
+     their largest entry, ms a step, peak memory, waits a step);
 then the `kernels` JSON line (K1-K12 and the mesh level's glue; K1, K6
 and K8 name their image variant, K3 its feature sets and its cap entry,
 K7 its unwinding entry, K3, K6 and K8 their redesign, K5 its launches on
@@ -776,6 +797,11 @@ GRAD_RUN_TO_RUN = 1e-3
 # reach the light with weight 1): each leaf's largest difference against
 # its largest entry
 GRAD_CPU_RTOL, GRAD_LANE_TOL = 1e-3, 2e-3
+# a captured gradient against the eager one on the same uniforms: the
+# backward's atomic scatter-adds add in another order (ROADMAP.md
+# "Differences by design"), so each leaf within this share of its largest
+# entry; losses within GRAPH_LOSS_RTOL
+GRAPH_LEAF_TOL, GRAPH_LOSS_RTOL = 3.1e-6, 1e-6
 
 
 def zero_launches():
@@ -827,8 +853,8 @@ def gradient_phase(dev, card):
     import torch
 
     from go_raytracer_tpu_torch.integrator import wavefront
-    from go_raytracer_tpu_torch.ops import bounce, harvest, stream, stream2
-    from go_raytracer_tpu_torch.ops import trace, traverse, traverse8
+    from go_raytracer_tpu_torch.ops import _cuda, bounce, harvest, stream
+    from go_raytracer_tpu_torch.ops import stream2, trace, traverse, traverse8
     from go_raytracer_tpu_torch.parallel import mesh as pmesh
     from go_raytracer_tpu_torch.render import camera as camera_mod
     from go_raytracer_tpu_torch.scenes import registry
@@ -847,7 +873,7 @@ def gradient_phase(dev, card):
         cam.width, cam.samples_per_pixel, cam.max_depth = width, spp, depth
         if name != "model_example":
             cam.aspect_ratio = 1.0
-        arrays = cam.derived()
+        arrays = cam.derived().to(device)
         npix = width * cam.image_height
         sq = cam.spp_sqrt
         ids = torch.arange(npix, device=device).repeat(sq * sq)
@@ -858,13 +884,15 @@ def gradient_phase(dev, card):
         params = {k: v.detach().clone().requires_grad_(True)
                   for k, v in pmesh.extract_params(ds).items()}
         delta = torch.zeros(3, device=device, requires_grad=True)
-        c0 = torch.from_numpy(arrays.center).to(device)
-        p0 = torch.from_numpy(arrays.pixel00).to(device)
+        c0, p0 = arrays.center, arrays.pixel00
 
-        def f(p, dlt, seed=5, uniforms=None, per_lane=False, mask=None):
+        def f(p, dlt, seed=5, uniforms=None, per_lane=False, mask=None,
+              graph=None):
             """Mean radiance (nan_to_num) of the scene carrying p, the
             camera moved by dlt; uniforms from a generator seeded `seed`
-            (common random numbers) or given as (u_cam, per-level u)."""
+            (common random numbers) or given as (u_cam, per-level u);
+            `graph` is radiance's (under no_grad its levels replay as a
+            CUDA graph by default)."""
             arr = dataclasses.replace(arrays, center=c0 + dlt,
                                       pixel00=p0 + dlt)
             if uniforms is None:
@@ -877,7 +905,8 @@ def gradient_phase(dev, card):
             o, d, t = camera_mod.generate_rays(arr, width, ids, s_i, s_j, u)
             L, stt = wavefront.radiance(pmesh.apply_params(ds, p), o, d, t,
                                         g, depth, cam.max_contribution,
-                                        mode="scan", uniforms=us)
+                                        mode="scan", uniforms=us,
+                                        graph=graph)
             L = torch.nan_to_num(L)
             if per_lane:
                 return L
@@ -900,6 +929,71 @@ def gradient_phase(dev, card):
         scale = float(b.abs().max())
         return float((a - b).abs().max()) / scale if scale > 0 else \
             float((a - b).abs().max())
+
+    def graphed_gradient(f, params, delta, n, n_u, ref):
+        """The gradient of f on seed 5's uniforms as one CUDA graph: ms a
+        replay (three), the graph pool's bytes, the peak over warm-up and
+        capture, each leaf against the eager gradient `ref`."""
+        uni = pmesh.StepUniforms.empty(n, GRAD_DEPTH + 1, n_u, dev)
+        uni.draw(torch.Generator(device=dev).manual_seed(5))
+        leaves = list(params.values()) + [delta]
+        for v in leaves:
+            v.grad = torch.zeros_like(v)
+
+        def body():
+            for v in leaves:
+                v.grad.zero_()
+            loss, _ = f(params, delta, uniforms=(uni.camera, uni.levels))
+            loss.backward()
+            return loss.detach()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pool0 = torch.cuda.memory_reserved()
+        step = _cuda.StepGraph(body, True, dev)
+        step()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        pool = torch.cuda.memory_reserved() - pool0
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v.grad.clone() for k, v in params.items()}
+        got["camera"] = delta.grad.clone()
+        rel = {k: rel_diff(got[k], ref[k]) for k in ref}
+        del step
+        # held with deterministic algorithms on, where the backward's
+        # scatter-adds add in a fixed order: the eager gradient, then the
+        # graphed one (in the default mode two eager runs already differ
+        # in the atomics' last bits, `run_to_run`)
+        torch.use_deterministic_algorithms(True)
+        try:
+            det_ref, _ = grads_of(f, params, delta)
+            for v in leaves:
+                v.grad = torch.zeros_like(v)
+            step = _cuda.StepGraph(body, True, dev)
+            step()
+            step()
+            step()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        det = {k: rel_diff(v.grad, det_ref[k]) for k, v in params.items()}
+        det["camera"] = rel_diff(delta.grad, det_ref["camera"])
+        check(max(det.values()) <= GRAPH_LEAF_TOL,
+              f"the graphed gradient differs from the eager one with "
+              f"deterministic algorithms: {det}")
+        for v in leaves:
+            v.grad = None
+        del step
+        return dict(step_ms=min(ms), step_ms_all=ms, pool_bytes=pool,
+                    peak_bytes=peak, rel=rel, rel_deterministic=det)
 
     summary = {"card": card, "rows": {}}
     for name in GRAD_SCENES:
@@ -940,7 +1034,12 @@ def gradient_phase(dev, card):
         run_to_run = {k: rel_diff(runs[1][k], runs[0][k]) for k in runs[0]}
         check(max(run_to_run.values()) <= GRAD_RUN_TO_RUN,
               f"{name}: two card runs' gradients differ by {run_to_run}")
-        segs = stt["segments"]
+        # the same gradient as one CUDA graph (ops/_cuda.StepGraph): seed
+        # 5's uniforms drawn once into fixed buffers, as f draws them, the
+        # gradients zeroed in place, forward and backward captured
+        gr_graph = graphed_gradient(f, params, delta, n,
+                                    9 + ds.media.kind.shape[0], runs[0])
+        segs = int(stt["segments"])
         best = min(step_ms)
         fd_rows = []
 
@@ -980,7 +1079,8 @@ def gradient_phase(dev, card):
                                                            1e-12),
                                 gated=False))
         row = dict(rays=n, fwd_segments=segs, grad_step_ms=best,
-                   grad_step_ms_all=step_ms, fwd_ms=min(fwd_ms),
+                   grad_step_ms_all=step_ms, graph=gr_graph,
+                   fwd_ms=min(fwd_ms),
                    grad_rays_per_s=segs / (best / 1e3),
                    peak_bytes=peak, run_to_run=run_to_run, fd=fd_rows)
         summary["rows"][name] = row
@@ -991,6 +1091,15 @@ def gradient_phase(dev, card):
               f"{min(fwd_ms):.2f} ms, {segs / (best / 1e3):.4g} grad rays/s, "
               f"peak memory {peak / 2**30:.3f} GiB; run to run "
               f"{max(run_to_run.values()):.3g}")
+        print(f"[27] {name}: the gradient step as one CUDA graph "
+              f"{gr_graph['step_ms']:.2f} ms (runs "
+              f"{[round(x, 2) for x in gr_graph['step_ms_all']]}; eager "
+              f"{best:.2f} ms), pool {gr_graph['pool_bytes'] / 2**30:.3f} "
+              f"GiB, peak {gr_graph['peak_bytes'] / 2**30:.3f} GiB, leaves "
+              f"against the eager step's (of each leaf's largest) "
+              f"{max(gr_graph['rel'].values()):.3g} (eager run to run "
+              f"{max(run_to_run.values()):.3g}), with deterministic "
+              f"algorithms {max(gr_graph['rel_deterministic'].values()):.3g}")
         for r in fd_rows:
             print(f"[27]   {name} {r['param']}: analytic {r['analytic']:.6g}"
                   f" FD {r['fd']:.6g} rel {r['rel_err']:.4f}"
@@ -1019,8 +1128,10 @@ def gradient_phase(dev, card):
                 return out
             wavefront._bounce = recorded
             try:
+                # the spy reads the host at every level: no graph
                 with torch.no_grad():
-                    lane_L = f(params, delta, uniforms=un, per_lane=True)
+                    lane_L = f(params, delta, uniforms=un, per_lane=True,
+                               graph=False)
             finally:
                 wavefront._bounce = bounce_fn
             per_dev.append((f, params, delta, un, lane_L.cpu(), levels))
@@ -1060,6 +1171,7 @@ def gradient_phase(dev, card):
     gm, stt = grads_of(f, params, delta)
     torch.cuda.synchronize()
     ms8 = (time.perf_counter() - t0) * 1e3
+    stt = dict(stt, segments=int(stt["segments"]))
     peak8 = torch.cuda.max_memory_allocated() - base
     k8 = launches()
     for k, v in gm.items():
@@ -1913,14 +2025,16 @@ def window_costs(run, levels):
             sites[" < ".join([f"{os.path.basename(filename)}:{lineno}"]
                              + own[::-1][:3])] += 1
 
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = seen
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
+    # the switch into the debug mode is itself reported as a wait: it is
+    # made before the warnings are gathered
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = seen
             run()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     waits = sum(sites.values()) / levels()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2184,6 +2298,387 @@ def mesh_window_phase(dev, card, main_launches):
                  "launches": main_launches["record"], "ms": record_ms, "plain_ms": record_plain,
                  "bound_ms": record_bound, "bound_by": "bytes"}],
             "graph_vs_eager": graph_rows, "window_costs": costs}
+
+
+# phase 31: the reference engine's renders, graphed against eager: (scene,
+# backend, spp at the registry width; CUT in spp: the eager tensor bounce
+# takes 8-12 ms a level on the host)
+ENGINE_RENDERS = (("cornell_box", "auto", 4), ("cornell_box", "xla", 1),
+                  ("book3", "xla", 1), ("cornell_smoke", "xla", 1),
+                  ("model_example", "xla", 1))
+# the eager figures of these paths before they were graphed, ms a level
+# (PERF.md §5, phase 26 before they were graphed): printed beside this
+# run's
+EAGER_MS_BEFORE = {"cornell_box auto": "0.531-0.813", "cornell_box xla": 8.19,
+                   "model_example xla": 12.2, "lanternhouse regen": 37.2}
+# the train steps held graphed against eager: GRAD.md's cornellBox step
+# (phase 27's scale) and modelExample at its width, 1 batch
+TRAIN_STEPS = 5
+
+
+def engine_program_phase(dev, card):
+    """Phase 31: the reference engine and the gradient step as device
+    programs. (a) `render/renderer.render` of ENGINE_RENDERS with each
+    level one CUDA graph replay against the same render with graph=False:
+    image (SHA-256), segments and levels bit for bit, ms a level run,
+    levels run and recorded; per level of one 131,072-ray radiance call,
+    host-issued and device launches, waits (none in the graphed call) and
+    wall ms (`window_costs`); (b) regen's unfused window on the tensor
+    bounce (`--backend xla`) for modelExample and lanternhouse, graphed
+    against eager: the same image SHA-256 and segments; (c) the launch
+    counters of K3, K5 and the glue against the card's own count of their
+    kernels under torch.profiler, on graphed calls captured before the
+    profile; (d) two graphed
+    calls on a continuing generator read new uniforms, the first seed
+    again the first bits; (e) `make_train_step` graphed against eager,
+    TRAIN_STEPS steps on GRAD.md's cornellBox and on modelExample at 1
+    spp: timed in the default mode (ms a step, peak memory, waits and
+    launches a step), held with deterministic algorithms on (losses
+    within GRAPH_LOSS_RTOL relative, leaves within GRAPH_LEAF_TOL of their
+    largest entry; the default mode's differences printed). Returns the
+    phase's rows."""
+    import copy
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from go_raytracer_tpu_torch.integrator import regen, wavefront
+    from go_raytracer_tpu_torch.ops import bounce, mesh_level, trace
+    from go_raytracer_tpu_torch.ops import traverse8
+    from go_raytracer_tpu_torch.parallel import mesh as pmesh
+    from go_raytracer_tpu_torch.render import camera as camera_mod
+    from go_raytracer_tpu_torch.render import renderer
+    from go_raytracer_tpu_torch.scenes import registry
+
+    sha = lambda img: hashlib.sha256(np.ascontiguousarray(img).tobytes()) \
+        .hexdigest()[:16]
+    t_phase = time.perf_counter()
+    clock = lambda: time.perf_counter() - t_phase
+    rows = {"card": card, "renders": {}, "regen": {}, "train": {}}
+
+    built = {}
+
+    def scene_of(name):
+        """The registry scene (built once: the mesh scenes' BVHs take
+        seconds) and a fresh camera of it."""
+        if name not in built:
+            built[name] = (registry.model_example(
+                obj_path="assets/lanternhouse.obj") if name == "lanternhouse"
+                else getattr(registry, name)())
+        scene, cam = built[name]
+        return scene, copy.deepcopy(cam)
+
+    def camera_rays(scene, cam, n, seed=3):
+        """n camera rays of stratum 0 over the image's pixels in order."""
+        gen0 = torch.Generator(device=dev).manual_seed(seed)
+        ids = torch.arange(n, device=dev) % (cam.width * cam.image_height)
+        zero = torch.zeros(n, device=dev)
+        u_cam = torch.rand((n, camera_mod.N_U_RAYGEN), generator=gen0,
+                           device=dev)
+        return camera_mod.generate_rays(cam.derived().to(dev), cam.width,
+                                        ids, zero, zero, u_cam)
+
+    # (a) the reference engine's renders
+    for name, backend, spp in ENGINE_RENDERS:
+        tag = f"{name} {backend}"
+        scene, cam = scene_of(name)
+        cam.samples_per_pixel = spp
+        out = {}
+        # eager first, then the graphed render twice (each captures its
+        # own levels): the first render of a process pays its warm-up
+        for mode, graph in (("eager", False), ("graph0", None),
+                            ("graph", None)):
+            zero_launches()
+            img, st = renderer.render(scene, cam, seed=0, device=dev,
+                                      backend=backend, graph=graph)
+            out[mode] = dict(sha=sha(img), segments=st["segments"],
+                             levels=st["levels"], levels_run=st["levels_run"],
+                             graph=st["graph"], elapsed_s=st["elapsed_s"],
+                             ms_level=st["elapsed_s"] * 1e3
+                             / max(st["levels_run"], 1),
+                             K3=bounce.launches_bounce, K5=traverse8.launches)
+        g, e = out["graph"], out["eager"]
+        g["elapsed_s_first"] = out["graph0"]["elapsed_s"]
+        same = (g["sha"] == e["sha"] == out["graph0"]["sha"]
+                and g["segments"] == e["segments"]
+                and g["levels"] == e["levels"])
+        # one radiance call of 131,072 camera rays (stratum 0): per level
+        scene_ds = trace.to_device(scene, dev)
+        n = 1 << 17
+        o, d, t = camera_rays(scene, cam, n)
+        costs = {}
+        # the eager call's costs on K3 alone (an eager profile of the
+        # tensor bounce takes seconds; its host launches a level are its
+        # device launches)
+        for mode, graph in (("graph", None), ("eager", False))[
+                :2 if backend == "auto" else 1]:
+            last = [1]
+
+            def run(graph=graph):
+                gen = torch.Generator(device=dev).manual_seed(4)
+                last[0] = wavefront.radiance(
+                    scene_ds, o, d, t, gen, cam.max_depth,
+                    cam.max_contribution, mode="while", backend=backend,
+                    route={} if scene.has_tri_bvh else None,
+                    graph=graph)[1]["levels_run"]
+
+            costs[mode] = window_costs(run, lambda: last[0])
+        del scene_ds
+        torch.cuda.empty_cache()
+        rows["renders"][tag] = dict(graph=g, eager=e, equal=same,
+                                    per_level=costs, spp=spp,
+                                    eager_ms_before=EAGER_MS_BEFORE.get(tag))
+        print(f"[31] (a) {tag} {cam.width}x{cam.image_height} @ {spp} spp "
+              f"on {card}: graphed {g['ms_level']:.4f} ms a level run "
+              f"({g['levels_run']} run, {g['levels']} recorded, "
+              f"{g['elapsed_s']:.3f} s; the first graphed render "
+              f"{g['elapsed_s_first']:.3f} s), eager {e['ms_level']:.4f} ms "
+              f"({e['levels_run']} run, {e['elapsed_s']:.3f} s; before this "
+              f"slice {EAGER_MS_BEFORE.get(tag, 'not measured')}); image "
+              f"SHA-256 {g['sha']} / {e['sha']}, segments {g['segments']} / "
+              f"{e['segments']}: " + ("equal bit for bit" if same else
+                                      "DIFFER"))
+        print(f"[31] (a) {tag}: one call of {n} rays, per level: graphed "
+              + json.dumps(costs["graph"]) + "; eager "
+              + json.dumps(costs.get("eager")) + f" (+{clock():.1f} s)")
+        check(same and g["graph"] and not e["graph"],
+              f"{tag}: the graphed render differs from the eager one")
+        check(costs["graph"]["waits"] == 0,
+              f"{tag}: a graphed radiance call waits on the device")
+        if backend == "auto":
+            check(g["K3"] == g["levels_run"] and e["K3"] == e["levels_run"],
+                  f"{tag}: K3 not launched once a level run")
+        if name == "model_example":
+            check(g["K5"] == g["levels_run"] and e["K5"] == e["levels_run"],
+                  f"{tag}: K5 not launched once a level run")
+
+    # (b) regen's unfused window on the tensor bounce, graphed vs eager
+    for name, width, spp in (("model_example", 600, 4),
+                             ("lanternhouse", 300, 1)):
+        scene, cam = scene_of(name)
+        cam.width, cam.samples_per_pixel = width, spp
+        out = {}
+        for mode, graph in (("graph", None), ("eager", False)):
+            zero_launches()
+            img, st = regen.render_regen(scene, cam, seed=0, device=dev,
+                                         backend="xla", graph=graph)
+            out[mode] = dict(sha=sha(img), segments=st["segments"],
+                             levels=st["levels"], levels_run=st["levels_run"],
+                             graph=st["graph"], elapsed_s=st["elapsed_s"],
+                             ms_level=st["elapsed_s"] * 1e3
+                             / max(st["levels_run"], 1),
+                             glue=mesh_level.launches_record)
+        g, e = out["graph"], out["eager"]
+        same = g["sha"] == e["sha"] and g["segments"] == e["segments"]
+        rows["regen"][name] = dict(graph=g, eager=e, equal=same)
+        print(f"[31] (b) regen --backend xla {name} {width} wide @ {spp} spp "
+              f"on {card}: graphed {g['ms_level']:.4f} ms a level run "
+              f"({g['levels_run']} run, {g['elapsed_s']:.3f} s), eager "
+              f"{e['ms_level']:.4f} ms ({e['levels_run']} run, "
+              f"{e['elapsed_s']:.3f} s); SHA-256 {g['sha']} / {e['sha']}, "
+              f"segments {g['segments']} / {e['segments']}: "
+              + ("equal" if same else "DIFFER") + f" (+{clock():.1f} s)")
+        check(same and g["graph"] and not e["graph"]
+              and g["glue"] == g["levels_run"],
+              f"regen --backend xla {name}: graphed differs from eager, or "
+              f"its levels were not graphed")
+
+    # (c) the counters against the card's count: one graphed radiance call
+    # of K3 (cornellBox) and of K5 (modelExample) and one graphed regen
+    # window on the tensor bounce (lanternhouse, the glue), each captured
+    # by a call before it (a capture under the profiler costs seconds), in
+    # one profile
+    runs = {}
+    for name, backend in (("cornell_box", "auto"), ("model_example", "xla")):
+        scene, cam = scene_of(name)
+        cam.max_depth = GRAD_DEPTH      # fewer levels: fewer events to read
+        ds_c = trace.to_device(scene, dev)
+        rays = camera_rays(scene, cam, 65536)
+
+        def call(ds_c=ds_c, cam=cam, backend=backend, rays=rays):
+            return wavefront.radiance(
+                ds_c, *rays, torch.Generator(device=dev).manual_seed(2),
+                cam.max_depth, cam.max_contribution, mode="while",
+                backend=backend)[1]
+        runs[name] = call
+    scene, cam = scene_of("lanternhouse")
+    cam.width, cam.samples_per_pixel, cam.max_depth = 200, 1, GRAD_DEPTH
+    ctx = regen.MeshContext.build(scene, cam, dev, ext=False)
+    n_w, d1 = 1 << 16, cam.max_depth + 1
+    npix_w = cam.width * cam.image_height
+    bufs_w = regen.WindowBuffers.empty(n_w, 5 * d1, 1, dev)
+
+    def window():
+        acc_w = torch.zeros((npix_w + n_w, 3), device=dev)
+        _, cur_w, n_run = regen._mesh_window(
+            ctx, acc_w, regen._init_state_mesh(n_w, dev), 0,
+            regen.window_generator(0, 0, dev), npix_w, width=cam.width,
+            npix=npix_w, sqrt_spp=1, window=5 * d1, refill=4 * d1,
+            max_depth=cam.max_depth, max_contribution=cam.max_contribution,
+            bufs=bufs_w)
+        return dict(graph=ctx.graph, levels_run=n_run)
+    runs["lanternhouse"] = window
+    for fn in runs.values():
+        fn()
+        fn()
+    torch.cuda.synchronize()
+    names = {"cornell_box": ("bounce_level",),
+             "model_example": ("bvh8_closest_kernel",),
+             "lanternhouse": ("mesh_count", "mesh_refill", "mesh_record")}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        # the profile's first launches are other kernels (a profile has
+        # lost launches at its start, PERF.md §7)
+        for _ in range(20):
+            torch.ones(1 << 16, device=dev).cumsum_(0)
+        torch.cuda.synchronize()
+        zero_launches()
+        st_c = {name: fn() for name, fn in runs.items()}
+        torch.cuda.synchronize()
+    mine = {"bounce_level": bounce.launches_bounce,
+            "bvh8_closest_kernel": traverse8.launches,
+            "mesh_count": mesh_level.launches_refill,
+            "mesh_refill": mesh_level.launches_refill,
+            "mesh_record": mesh_level.launches_record}
+    seen = device_launches(prof, list(mine))
+    del prof
+    counted = {name: {k: mine[k] for k in ks} for name, ks in names.items()}
+    on_card = {name: {k: seen[k] for k in ks} for name, ks in names.items()}
+    rows["counters"] = dict(counted=counted, on_card=on_card,
+                            levels_run={k: v["levels_run"]
+                                        for k, v in st_c.items()})
+    print(f"[31] (c) graphed calls under torch.profiler on {card}: "
+          f"launches by the counters {counted}, on the device {on_card}, "
+          f"levels run {rows['counters']['levels_run']} "
+          f"(+{clock():.1f} s)")
+    check(seen == mine and all(
+        st_c[name]["graph"] and all(v == st_c[name]["levels_run"]
+                                    for v in counted[name].values())
+        for name in names),
+          "the launch counters differ from the card's count or from the "
+          "levels run")
+    del ctx, bufs_w, runs
+    torch.cuda.empty_cache()
+
+    # (d) two replays read new uniforms
+    scene, cam = registry.cornell_box()
+    ds = trace.to_device(scene, dev)
+    rays = camera_rays(scene, cam, 65536)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    Ls, us = [], []
+    for _ in range(3):
+        Ls.append(wavefront.radiance(ds, *rays, gen, cam.max_depth,
+                                     cam.max_contribution,
+                                     backend="xla")[0])
+        us.append(ds.engine["levels"].u.clone())
+    again = wavefront.radiance(
+        ds, *rays, torch.Generator(device=dev).manual_seed(8), cam.max_depth,
+        cam.max_contribution, backend="xla")[0]
+    fresh = (ds.engine["levels"].level is not None
+             and not torch.equal(Ls[1], Ls[2])
+             and not torch.equal(us[1], us[2])
+             and torch.equal(again, Ls[0]))
+    rows["fresh_uniforms"] = fresh
+    print(f"[31] (d) graphed calls on one continuing generator read new "
+          f"uniforms, the first seed again its bits: {fresh}")
+    check(fresh, "graphed replays read frozen uniforms, or the same seed "
+          "gave other bits")
+    del ds, Ls, us
+    torch.cuda.empty_cache()
+
+    # (e) the train step as one graph against the eager step
+    for name, width, batches in (("cornell_box", GRAD_WIDTH, GRAD_SPP),
+                                 ("model_example", GRAD_MESH_WIDTH, 1)):
+        scene, cam = scene_of(name)
+        cam.width, cam.max_depth = width, GRAD_DEPTH
+        if name == "cornell_box":
+            cam.aspect_ratio = 1.0
+        npix = width * cam.image_height
+        ids = pmesh.pixel_ids(npix, batches, dev)
+        with torch.no_grad():
+            target, _ = pmesh.render_batches(
+                trace.to_device(scene, dev), cam.derived().to(dev), width,
+                ids, GRAD_DEPTH, cam.max_contribution,
+                torch.Generator(device=dev).manual_seed(99))
+        res = {}
+        # timed in the default mode; compared with deterministic
+        # algorithms on, where the backward's scatter-adds add in a fixed
+        # order: Adam turns their last-bit differences into differences
+        # of order its step in the leaves the render barely reads, so
+        # the default mode's trajectories are printed, not held
+        for mode, graph in (("graph", True), ("eager", False),
+                            ("graph_det", True), ("eager_det", False)):
+            torch.use_deterministic_algorithms(mode.endswith("_det"))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            step, params, _ = pmesh.make_train_step(
+                scene, cam, n_rays=npix, n_sample_batches=batches,
+                max_depth=GRAD_DEPTH, learning_rate=0.05, device=dev,
+                graph=graph,
+                generator=torch.Generator(device=dev).manual_seed(1))
+            with torch.no_grad():
+                params["tex_color"].mul_(0.8)
+            losses, ms = [], []
+            for _ in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(step(params, ids, target))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() - base
+            leaves = {k: v.detach().clone() for k, v in params.items()}
+            cost = window_costs(lambda: step(params, ids, target),
+                                lambda: 1) if mode == "graph" else None
+            res[mode] = dict(losses=losses, step_ms=ms, peak_bytes=peak,
+                             per_step=cost, leaves=leaves)
+            del step, params
+        torch.use_deterministic_algorithms(False)
+
+        def differ(a, b):
+            loss = max(abs(x - y) / max(abs(y), 1e-30)
+                       for x, y in zip(a["losses"], b["losses"]))
+            leaf = {}
+            for k, v in b["leaves"].items():
+                scale = float(v.abs().max()) or 1.0
+                leaf[k] = float((a["leaves"][k] - v).abs().max()) / scale
+            return loss, leaf
+
+        g, e = res["graph"], res["eager"]
+        loss_rel, leaf_rel = differ(res["graph_det"], res["eager_det"])
+        loss_def, leaf_def = differ(g, e)
+        for r in res.values():
+            del r["leaves"]
+        rows["train"][name] = dict(
+            graph=g, eager=e, loss_rel=loss_rel, leaf_rel=leaf_rel,
+            default_mode=dict(loss_rel=loss_def, leaf_rel=leaf_def),
+            deterministic_ms=dict(graph=res["graph_det"]["step_ms"],
+                                  eager=res["eager_det"]["step_ms"]),
+            rays=npix * batches)
+        print(f"[31] (e) make_train_step {name} {width} wide x {batches} "
+              f"batches, depth {GRAD_DEPTH}, on {card}: ms a step graphed "
+              f"{[round(x, 2) for x in g['step_ms']]} (replays from the "
+              f"third), eager {[round(x, 2) for x in e['step_ms']]}; peak "
+              f"{g['peak_bytes'] / 2**30:.3f} / {e['peak_bytes'] / 2**30:.3f}"
+              f" GiB; per step graphed " + json.dumps(g["per_step"])
+              + f"; losses {g['losses']} / {e['losses']}; with "
+              f"deterministic algorithms, largest relative loss difference "
+              f"{loss_rel:.3g}, leaves (of each leaf's largest) "
+              + json.dumps({k: float(f"{v:.3g}") for k, v in
+                            leaf_rel.items()})
+              + f"; in the default mode {loss_def:.3g}, "
+              + json.dumps({k: float(f"{v:.3g}") for k, v in
+                            leaf_def.items()}) + f" (+{clock():.1f} s)")
+        check(loss_rel <= GRAPH_LOSS_RTOL
+              and max(leaf_rel.values()) <= GRAPH_LEAF_TOL
+              and np.isfinite(g["losses"]).all(),
+              f"train step {name}: graphed differs from eager")
+        check(g["per_step"]["waits"] <= 1,
+              f"train step {name}: the graphed step waits more than once")
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -4383,19 +4878,27 @@ def main():
                 ("positional", ["--schedule", "positional"],
                  "bounce_fused_pos"))
 
-    def render_dense_routes(tag, scenes, nonfinite_max=0, routes=routes21):
+    def render_dense_routes(tag, scenes, nonfinite_max=0, routes=routes21,
+                            cut=None):
         """Each scene at its registry configuration through `cli.main`
         under `routes` (default the four): paths, non-finite pixels (at
         most `nonfinite_max` values), segments per path within 5% of the
         registry's, `--direct-rec` with `queue_ik`'s segments, the
-        schedules' channel means within 1e-2 of `queue_ik`'s. Returns
+        schedules' channel means within 1e-2 of `queue_ik`'s. `cut`:
+        {(scene, route): spp} renders CUT to fewer samples, held to
+        `queue_ik` at the same spp. Returns
         {scene: {route: stats}}."""
         out = {}
         for sc, (num, regen_len) in scenes.items():
             _, cam_s = cornell_inputs(dev, 8, scene=sc)[:2]
-            paths_s = cam_s.width * cam_s.image_height * cam_s.spp_sqrt ** 2
             res = {}
             for label, extra, kern in routes:
+                spp_cut = (cut or {}).get((sc, label))
+                spp_s = spp_cut or cam_s.samples_per_pixel
+                paths_s = cam_s.width * cam_s.image_height \
+                    * int(spp_s ** 0.5) ** 2
+                if spp_cut:
+                    extra = extra + ["--spp", str(spp_cut)]
                 reset_counts()
                 st_r = run_cli_dense(num, extra, f"{sc}_{label}.ppm")
                 counts = {"bounce_fused_q": bounce.launches,
@@ -4410,8 +4913,8 @@ def main():
                 res[label] = st_r
                 ratio = st_r["segments"] / st_r["paths"]
                 print(f"[{tag}] {sc} {cam_s.width}x{cam_s.image_height} "
-                      f"{cam_s.samples_per_pixel}spp "
-                      f"({cam_s.spp_sqrt ** 2} strata) depth "
+                      f"{spp_s}spp{' (CUT)' if spp_cut else ''} "
+                      f"({int(spp_s ** 0.5) ** 2} strata) depth "
                       f"{cam_s.max_depth}, 131072 "
                       f"lanes, {label}, on {card}: paths {st_r['paths']}, "
                       f"segments {st_r['segments']} ({ratio:.4f}/path, "
@@ -4439,8 +4942,20 @@ def main():
                   == res["queue_ik"]["segments"],
                   f"{sc}: --direct-rec segments differ from queue_ik's")
             for label in ("queue", "positional"):
-                check(np.abs(res[label]["means"]
-                             - res["queue_ik"]["means"]).max() <= 1e-2,
+                ref_means = res["queue_ik"]["means"]
+                spp_cut = (cut or {}).get((sc, label))
+                if spp_cut:
+                    # the image's gamma is taken per pixel, so fewer
+                    # samples lower its means: held to queue_ik at the
+                    # same spp
+                    image = f"{sc}_queue_ik{spp_cut}.ppm"
+                    run_cli_dense(num, ["--spp", str(spp_cut)], image)
+                    ref_means = ppm_channel_means(os.path.join(out_dir,
+                                                               image))
+                    print(f"[{tag}] {sc} queue_ik at {spp_cut} spp (the "
+                          f"reference of the CUT {label}): channel means "
+                          f"{np.round(ref_means, 5).tolist()}")
+                check(np.abs(res[label]["means"] - ref_means).max() <= 1e-2,
                       f"{sc} {label}: channel means beyond 1e-2 of "
                       f"queue_ik's")
             out[sc] = res
@@ -5086,9 +5601,11 @@ def main():
     img_times = {sc: time_dense_scene("24", sc) for sc in IMG_SCENES}
     # the registry configurations through the CLI under queue_ik, queue and
     # positional; --direct-rec exits 2 naming the image textures
+    # (book2's `positional` CUT to 25 spp: ~30 s at 100)
     img_res = render_dense_routes(
         "24", IMG_SCENES, nonfinite_max=TEX_NONFINITE_MAX,
-        routes=[r for r in routes21 if r[0] != "direct_rec"])
+        routes=[r for r in routes21 if r[0] != "direct_rec"],
+        cut={("book2", "positional"): 25})
     for sc, (num, _) in IMG_SCENES.items():
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
@@ -5313,7 +5830,7 @@ def main():
         return np.sqrt(((a - b) ** 2).mean(axis=0) / a.shape[0]), \
             np.abs(a.mean(axis=0) - b.mean(axis=0))
 
-    def run_cli26(num, extra, image):
+    def run_cli26(num, extra, image, before=None):
         reset_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -5329,15 +5846,20 @@ def main():
             other=harvest.launches_rows + stream.launches
             + stream.launches_round + stream2.launches + traverse.launches)
         st_["image"] = os.path.join(out_dir, image)
-        lv = st_.get("levels") or 1
+        lv = st_.get("levels_run") or st_.get("levels") or 1
         print(f"[26] -S {num} {' '.join(extra)} on {card}: paths "
               f"{st_['paths']}, segments {st_['segments']} "
               f"({st_['segments'] / st_['paths']:.4f}/path), elapsed "
-              f"{st_['elapsed_s']:.3f} s, levels {st_.get('levels')}, "
-              f"{st_['elapsed_s'] / lv * 1e3:.3f} ms per level, backend "
+              f"{st_['elapsed_s']:.3f} s, levels {st_.get('levels')} "
+              f"recorded, {st_.get('levels_run')} run, graph "
+              f"{st_.get('graph')}, "
+              f"{st_['elapsed_s'] / lv * 1e3:.3f} ms per level run, backend "
               f"{st_.get('backend')}, nonfinite {st_['nonfinite']}, channel "
               f"means {np.round(ppm_channel_means(st_['image']), 5).tolist()}"
-              f"; launches {st_['launches']}")
+              f"; launches {st_['launches']}"
+              + (f"; eager, before the levels were graphed, "
+                 f"{EAGER_MS_BEFORE[before]} ms per level" if before
+                 else ""))
         check(st_["nonfinite"] <= TEX_NONFINITE_MAX,
               f"-S {num} {extra}: {st_['nonfinite']} non-finite pixels")
         return st_
@@ -5361,10 +5883,11 @@ def main():
     # the slice's main path, counts set to 0 just before it: cornellBox at
     # full width through the wavefront integrator, its bounce on K3
     w6 = run_cli26(6, ["--integrator", "wavefront", "--spp", "16"],
-                   "cornell_wavefront16.ppm")
+                   "cornell_wavefront16.ppm", before="cornell_box auto")
     k3_wavefront_launches = w6["launches"]["K3"]
-    check(w6["backend"] == "pallas" and k3_wavefront_launches == w6["levels"]
-          > 0 and w6["launches"]["fused"] + w6["launches"]["other"]
+    check(w6["backend"] == "pallas" and w6["graph"]
+          and k3_wavefront_launches == w6["levels_run"] > 0
+          and w6["launches"]["fused"] + w6["launches"]["other"]
           + w6["launches"]["K5"] == 0,
           "cornellBox wavefront: the bounce did not go through K3 alone")
     q6a = run_cli26(6, ["--spp", "16"], "cornell_qik16_s0.ppm")
@@ -5375,9 +5898,12 @@ def main():
     # spp), against K3 on the same random stream (the same paths but for
     # the flips of grazing rays) and against queue_ik
     x6 = run_cli26(6, ["--integrator", "wavefront", "--backend", "xla",
-                       "--spp", "4"], "cornell_wavefront_xla4.ppm")
-    check(x6["backend"] == "xla" and sum(x6["launches"].values()) == 0,
-          "cornellBox wavefront --backend xla launched a kernel")
+                       "--spp", "4"], "cornell_wavefront_xla4.ppm",
+                   before="cornell_box xla")
+    check(x6["backend"] == "xla" and x6["graph"]
+          and sum(x6["launches"].values()) == 0,
+          "cornellBox wavefront --backend xla launched a kernel, or its "
+          "levels were not graphed")
     w6_4 = run_cli26(6, ["--integrator", "wavefront", "--spp", "4"],
                      "cornell_wavefront4.ppm")
     q6c = run_cli26(6, ["--spp", "4"], "cornell_qik4_s0.ppm")
@@ -5391,8 +5917,8 @@ def main():
     # book2 with every feature on K3
     w2 = run_cli26(2, ["--integrator", "wavefront", "--spp", "4"],
                    "book2_wavefront4.ppm")
-    check(w2["backend"] == "pallas" and w2["launches"]["K3"] == w2["levels"]
-          > 0 and w2["nonfinite"] <= TEX_NONFINITE_MAX,
+    check(w2["backend"] == "pallas" and w2["launches"]["K3"]
+          == w2["levels_run"] > 0 and w2["nonfinite"] <= TEX_NONFINITE_MAX,
           "book2 wavefront: not on K3, or non-finite pixels")
     q2a = run_cli26(2, ["--spp", "4"], "book2_qik4_s0.ppm")
     q2b = run_cli26(2, ["--spp", "4", "--seed", "1"], "book2_qik4_s1.ppm")
@@ -5401,9 +5927,9 @@ def main():
     # scene 8 through the wavefront integrator: the eager bounce, its
     # triangle hit on K5
     w8 = run_cli26(8, ["--integrator", "wavefront", "--spp", "4"],
-                   "modelExample_wavefront4.ppm")
-    check(w8["launches"]["K5"] == w8["levels"] > 0 and w8["launches"]["K3"]
-          == 0 and w8["mesh"]["route"] == "walk",
+                   "modelExample_wavefront4.ppm", before="model_example xla")
+    check(w8["launches"]["K5"] == w8["levels_run"] > 0 and w8["graph"]
+          and w8["launches"]["K3"] == 0 and w8["mesh"]["route"] == "walk",
           "scene 8 wavefront: the triangle hit is not on K5 once a level")
     r8a = run_cli26(8, ["--spp", "4"], "modelExample_walk4_s0.ppm")
     r8b = run_cli26(8, ["--spp", "4", "--seed", "1"],
@@ -5411,23 +5937,25 @@ def main():
     held("modelExample wavefront vs the walk route, 600x337 4 spp", w8, r8a,
          r8b)
     # scene 8 under `positional`: the eager bounce per level, K5 inside
-    p8 = run_cli26(8, ["--schedule", "positional", "--spp", "25"],
-                   "modelExample_positional25.ppm")
+    # (CUT to 9 spp: its eager levels were the phase's
+    # longest path, 15 s at 25 spp)
+    p8 = run_cli26(8, ["--schedule", "positional", "--spp", "9"],
+                   "modelExample_positional9.ppm")
     check(p8["schedule"] == "positional" and p8["bounce"] == "wavefront"
           and p8["launches"]["K5"] == p8["levels"] > 0,
           "scene 8 positional: not the eager bounce with K5 a level")
-    r8c = run_cli26(8, ["--spp", "25", "--seed", "1"],
-                    "modelExample_walk25_s1.ppm")
-    held("modelExample positional vs the walk route, 600x337 25 spp", p8,
-         dict(s8w25, image=os.path.join(out_dir, "modelExample_walk25.ppm")),
-         r8c)
+    r8d = run_cli26(8, ["--spp", "9"], "modelExample_walk9_s0.ppm")
+    r8c = run_cli26(8, ["--spp", "9", "--seed", "1"],
+                    "modelExample_walk9_s1.ppm")
+    held("modelExample positional vs the walk route, 600x337 9 spp", p8,
+         r8d, r8c)
     # lanternhouse: triangle lights, no kernel carries it: regen's unfused
     # window on the eager bounce with the dense triangle class
     lh = run_cli26(8, ["--obj", "assets/lanternhouse.obj", "--spp", "16"],
-                   "lanternhouse16.ppm")
+                   "lanternhouse16.ppm", before="lanternhouse regen")
     lh_px = ppm_pixels(lh["image"])
     check(lh["bounce"] == "wavefront" and lh["backend"] == "xla"
-          and lh["segments"] > 0 and lh_px.max() > 0.05
+          and lh["graph"] and lh["segments"] > 0 and lh_px.max() > 0.05
           and lh["paths"] == 600 * 337 * 16
           and sum(lh["launches"].values()) == lh["launches"]["K2"],
           "lanternhouse: not the eager bounce, or nothing rendered")
@@ -5439,7 +5967,7 @@ def main():
                     ("quads_scene", 5), ("cornell_smoke", 7)):
         ws = run_cli26(num, ["--integrator", "wavefront", "--spp", "1"],
                        f"{sc}_wavefront1.ppm")
-        check(ws["launches"]["K3"] == ws["levels"] > 0
+        check(ws["launches"]["K3"] == ws["levels_run"] > 0
               and ws["nonfinite"] <= TEX_NONFINITE_MAX,
               f"{sc} wavefront: not on K3, or non-finite pixels")
         k3_render[sc] = ws["launches"]["K3"]
@@ -5498,6 +6026,11 @@ def main():
     phase_start(30)
     ml_row = mesh_window_phase(dev, card, ml_launches_main8)
 
+    # ---- 31. the reference engine and the gradient step as programs -----
+    phase_start(31)
+    engine = engine_program_phase(dev, card)
+    print("[31] engine rows (PERF.md): " + json.dumps(engine))
+
     kernels = [
         {"name": "bounce_fused_q", "route": "cuda",
          "launches_sharded": sharded["K1"],
@@ -5521,6 +6054,8 @@ def main():
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
          "library_ms": None, "variants": k3_variants,
+         "launches_engine_graph": engine["counters"]["counted"][
+             "cornell_box"]["bounce_level"],
          "host_us": k3_host, "device_ms": k3_dev,
          "cap_entry": {"name": "bounce_cap", "launches": cap_launches,
                        "ms": cap_ms, "host_us": cap_host,
@@ -5542,7 +6077,9 @@ def main():
          "ms": k5_sorted_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_by,
          "library_ms": None,
-         "launches_grad": grad["model_example"]["launches"]["K5"]},
+         "launches_grad": grad["model_example"]["launches"]["K5"],
+         "launches_engine_graph": engine["counters"]["counted"][
+             "model_example"]["bvh8_closest_kernel"]},
         {"name": "bounce_fused", "route": "cuda",
          "launches_sharded": sharded["K6"],
          "source": "go_raytracer_tpu_torch/ops/csrc/bounce_fused.cu",

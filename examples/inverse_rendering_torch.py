@@ -9,7 +9,8 @@ renders and the target (Adam).
 
 This recovers the Cornell-style box's back-wall albedo and the light's
 emission together. The scene, flags, defaults and output fields are
-examples/inverse_rendering.py's. Runs on the GPU unless --cpu is given.
+examples/inverse_rendering.py's. Runs on the GPU unless --cpu is given;
+there each fitting step replays as one CUDA graph.
 
 Run:  python examples/inverse_rendering_torch.py [--steps 150] [--cpu]
           [--out inverse_rendering.npz]
@@ -55,7 +56,8 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from go_raytracer_tpu_torch.integrator import regen
+    from go_raytracer_tpu_torch.integrator import regen, wavefront
+    from go_raytracer_tpu_torch.ops import _cuda
     from go_raytracer_tpu_torch.ops import trace as trace_mod
     from go_raytracer_tpu_torch.parallel import mesh as pmesh
     from go_raytracer_tpu_torch.render.camera import Camera
@@ -68,7 +70,7 @@ def main(argv=None):
     cam = Camera(width=args.width, aspect_ratio=1.0, samples_per_pixel=1,
                  max_depth=args.max_depth, vertical_fov=40)
     cam.position((1.25, 1.25, -3.4), (1.25, 1.25, 0))
-    arrays = cam.derived()
+    arrays = cam.derived().to(device)
     npix = cam.width * cam.image_height
     ids = pmesh.pixel_ids(npix, args.spp, device)
     ds = trace_mod.to_device(scene, device)
@@ -97,24 +99,47 @@ def main(argv=None):
     params["tex_color"][light_tex] = torch.tensor([4.0, 4.0, 4.0])
     for v in params.values():
         v.requires_grad_(True)
-    opt = torch.optim.Adam(list(params.values()), lr=args.lr)
+    opt = torch.optim.Adam(list(params.values()), lr=args.lr,
+                           capturable=device.type == "cuda")
     # only the two free parameters move
     mask = torch.zeros_like(params["tex_color"])
     mask[back_tex] = 1.0
     mask[light_tex] = 1.0
 
-    losses, alb_err, emit_err = [], [], []
-    t0 = time.time()
-    for i in range(args.steps):
-        opt.zero_grad(set_to_none=True)
-        loss = torch.mean((render(params, 1000 + i) - target) ** 2)
+    # A step reads its uniforms from fixed buffers, drawn before it from
+    # the step's own generator in the order render() draws them, so that
+    # on the GPU the whole step (render, loss, backward, mask, Adam,
+    # clamp) replays as one CUDA graph (ops/_cuda.StepGraph).
+    n_u = wavefront.N_FIXED_U + ds.media.kind.shape[0]
+    uni = pmesh.StepUniforms.empty(ids.numel(), cam.max_depth + 1, n_u,
+                                   device)
+
+    def body():
+        opt.zero_grad(set_to_none=False)
+        img, _ = pmesh.render_batches(
+            pmesh.apply_params(ds, params), arrays, cam.width, ids,
+            cam.max_depth, cam.max_contribution, None,
+            uniforms=(uni.camera, uni.levels))
+        loss = torch.mean((img - target) ** 2)
         loss.backward()
         for k, v in params.items():
-            v.grad = (v.grad * mask if k == "tex_color" and v.grad is not None
-                      else torch.zeros_like(v))
+            if v.grad is None:
+                v.grad = torch.zeros_like(v)
+            if k == "tex_color":
+                v.grad.mul_(mask)
+            else:
+                v.grad.zero_()
         opt.step()
         with torch.no_grad():
             params["tex_color"].clamp_(0.0, 20.0)
+        return loss.detach()
+
+    step = _cuda.StepGraph(body, graph=device.type == "cuda", device=device)
+    losses, alb_err, emit_err = [], [], []
+    t0 = time.time()
+    for i in range(args.steps):
+        uni.draw(torch.Generator(device=device).manual_seed(1000 + i))
+        loss = step()
         tex = params["tex_color"].detach().cpu().numpy()
         losses.append(loss.item())
         alb_err.append(float(np.abs(tex[back_tex] - true_albedo).max()))

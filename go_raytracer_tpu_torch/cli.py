@@ -28,7 +28,11 @@ reference engine's bounce (`integrator/wavefront._bounce`) in place of
 the kernels; `--integrator wavefront` runs the reference engine's
 stratified renderer (`render/renderer.py`), with `--mode` and `--batch`,
 and `--backend auto` there runs its bounce as the K3 kernel where the
-kernel carries the scene.
+kernel carries the scene. On the GPU each level of the reference engine,
+and of regen's unfused window on the walk or binned2 route or a scene
+with no triangle BVH, replays as one CUDA graph. The stats say `graph`
+(whether it replayed) and `levels_run` (levels run, which on the GPU may
+pass a drain; `levels` counts those recorded).
 """
 
 from __future__ import annotations

@@ -16,9 +16,10 @@ from go_raytracer_tpu_torch.core import vecmath as vm
 def build(n: torch.Tensor):
     """(u, v, w), each (..., 3), for normals n (..., 3)."""
     w = vm.normalize(n)
-    use_y = (torch.abs(n[..., 0]) > 0.9)[..., None]
-    a = torch.where(use_y, n.new_tensor([0.0, 1.0, 0.0]),
-                    n.new_tensor([1.0, 0.0, 0.0]))
+    # the helper axis as a select of 0 and 1 on the device (no host
+    # constant to copy, so a CUDA graph can capture it)
+    use_y = (torch.abs(n[..., 0]) > 0.9)[..., None].to(n.dtype)
+    a = torch.cat([1.0 - use_y, use_y, torch.zeros_like(use_y)], dim=-1)
     v = vm.normalize(vm.cross(n, a))
     u = vm.normalize(vm.cross(n, v))
     return u, v, w

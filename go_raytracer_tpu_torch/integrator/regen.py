@@ -22,9 +22,10 @@ nothing back to the host: its counts stay in a device plane. On a BVH mesh the
 hit comes from one of the five routes of ops/trace.mesh_closest (the
 binned intersector, its fused rounds, the persistent-block intersector,
 the BVH8 walk or the binary BVH walk) and the kernel folds it into the
-dense winner and shades, and on the card the level of the walk and
-binned2 routes replays as one CUDA graph (GRAPH_ROUTES); elsewhere the
-level is the reference engine's bounce (`integrator/wavefront._bounce`).
+dense winner and shades; elsewhere the level is the reference engine's
+bounce (`integrator/wavefront._bounce`). On the card the level replays as
+one CUDA graph on the walk and binned2 routes (GRAPH_ROUTES) and on a
+scene with no triangle BVH, with either bounce.
 The forward pass records, per level and lane, the merged V plane (the
 vertex's emission or its scatter weight) and flag bits (clamp, emit,
 started); the reverse harvest then evaluates L = clamp?(emit ? V : V*L)
@@ -57,7 +58,6 @@ accumulators are gathered once at the end.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import time as _time
 from typing import Optional
@@ -249,42 +249,8 @@ class WindowBuffers:
             seed_tab=f((outer + 1, 4), torch.int32))
 
 
-class _DrainWatch:
-    """Early drain exit of a window's forward loop. `rows` ((calls, k)
-    int32, on the render device) holds each call's counts once the call
-    has run, and `done(row, i)` tells from call i's row (a list of k ints)
-    that the window drained: every lane is dead and no item can start
-    again. On the CPU the row is read directly; on the GPU it is copied to
-    pinned memory behind the call and read once its event has completed,
-    so the host never waits, and how many calls run past the drained one
-    follows the host's pace. Those calls trace nothing; the window's
-    counts come from the device, not from the number of calls."""
-
-    def __init__(self, rows, done=lambda row, i: row[0] == 0):
-        self.rows, self.done = rows, done
-        self.cuda = rows.is_cuda
-        if self.cuda:
-            self.host = torch.empty(tuple(rows.shape), dtype=torch.int32,
-                                    pin_memory=True)
-            self.pending = collections.deque()
-        self.last = -1
-
-    def record(self, i: int):
-        self.last = i
-        if self.cuda:
-            self.host[i].copy_(self.rows[i], non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record()
-            self.pending.append((i, ev))
-
-    def drained(self) -> bool:
-        if not self.cuda:
-            return bool(self.done(self.rows[self.last].tolist(), self.last))
-        while self.pending and self.pending[0][1].query():
-            i, _ = self.pending.popleft()
-            if self.done(self.host[i].tolist(), i):
-                return True
-        return False
+# the drain watch of every window loop (ops/_cuda.DrainWatch)
+_DrainWatch = _cuda.DrainWatch
 
 
 def _window_impl(tables, statics, cam_row, bg, acc, state, next_item, seeds,
@@ -602,11 +568,13 @@ def window_generator(seed: int, w: int, device,
 
 
 # Closest-hit routes whose level reads nothing back to the host: on the
-# card the whole level (the refill glue, K3's cap entry, the route, K3, the
-# record glue) replays as one CUDA graph. The binned routes read the host
-# once a round, and the reference engine's bounce is eager; their levels
-# run the same glue kernels eagerly.
-GRAPH_ROUTES = ("walk", "binned2")
+# card the whole level (the refill glue, the bounce, the record glue)
+# replays as one CUDA graph, whether the bounce is the external-hit kernel
+# (K3's cap entry, the route, K3) or the reference engine's bounce
+# (`wavefront._bounce`, its mesh hit on the route). A scene with no
+# triangle BVH reads nothing either. The binned routes read the host once
+# a round; their levels run the same glue kernels eagerly.
+GRAPH_ROUTES = trace_mod.GRAPH_ROUTES
 
 
 @dataclasses.dataclass
@@ -628,9 +596,10 @@ class MeshContext:
     `integrator/wavefront._bounce`, as the JAX package picks its
     `bounce_fn`.
 
-    `graph`: the window's levels replay as a CUDA graph (ext mode on the
-    card on a route of GRAPH_ROUTES, with the glue kernel: a plain glue
-    swapped in for it reads the host). `levels` keeps the window's buffers
+    `graph`: the window's levels replay as a CUDA graph (on the card, on a
+    route of GRAPH_ROUTES or a scene with no triangle BVH, with the glue
+    kernel: a plain glue swapped in for it reads the host). `levels`
+    keeps the window's buffers
     (`_MeshLevels`) from one window to the next."""
 
     ms: object
@@ -684,8 +653,8 @@ class MeshContext:
             ms=ms, tables=tables, statics=statics, bg=bg, arrays=arrays,
             cam_row=mesh_level_mod.pack_camera(arrays, device), mesh=route,
             b1_fused=b1_fused, traverse8=traverse8, ext=ext, tri=tri, k3=k3,
-            graph=ext and device.type == "cuda" and route in GRAPH_ROUTES
-            and mesh_level_mod.kernel_glue())
+            graph=device.type == "cuda" and mesh_level_mod.kernel_glue()
+            and (route in GRAPH_ROUTES or not scene.has_tri_bvh))
 
     def bounce_level(self, o, d, t, alive, u, out=None):
         """One bounce of the window's lanes: (E, W, cf, new_o, new_d,
@@ -810,7 +779,8 @@ def _mesh_window(ctx: MeshContext, acc, state, next_item, gen,
     Nothing is read back inside a level: each level writes its counts
     (segments, lanes alive after it, the cursor) into a device plane, and
     the loop ends early once one shows every lane dead and nothing left to
-    start, seen through `_DrainWatch`; levels run past that one trace
+    start, seen through `_DrainWatch` (at most `wavefront.RUN_AHEAD`
+    levels ahead of the last one seen); levels run past that one trace
     nothing. The levels run on buffers kept in `ctx.levels` from one window
     to the next (as one CUDA graph where `ctx.graph`). Returns (state, the
     window's buffers: o, d, t, alive, depth; cur, an int64 device tensor
@@ -831,7 +801,8 @@ def _mesh_window(ctx: MeshContext, acc, state, next_item, gen,
     counts = lv.cnt[1:]
     M = mesh_level_mod
     watch = _DrainWatch(counts, lambda row, s: row[M.ALIVE_AFTER] == 0 and (
-        s + 1 >= refill or row[M.CURSOR] >= item_end))
+        s + 1 >= refill or row[M.CURSOR] >= item_end),
+        ahead=wavefront.RUN_AHEAD)
     n_run = 0
     for s in range(window):
         levels.step(ctx, gen)
@@ -1043,7 +1014,8 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                  backend: str = "auto", reorder="auto",
                  checkpoint_path=None, checkpoint_every: int = 4,
                  scene_name: str = "", verbose: bool = False,
-                 shard: Optional["Shard"] = None):
+                 shard: Optional["Shard"] = None,
+                 graph: Optional[bool] = None):
     """Render the full image with ray regeneration on `device` (default
     CUDA; "cpu" runs the kernels' plain versions). Returns (linear image
     (H, W, 3) float32 numpy, stats).
@@ -1099,7 +1071,12 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     N) accumulator and the per-lane start counts `k`.
 
     `shard` (`render_regen_sharded` passes it) renders one rank's share of
-    a sharded render and returns the whole image on every rank."""
+    a sharded render and returns the whole image on every rank.
+
+    `graph` (the unfused `_mesh_window` only): None replays each level as
+    a CUDA graph wherever `MeshContext.build` allows it (stats["graph"]
+    says whether it did), False runs the levels eagerly, True raises
+    ValueError where no level can be captured."""
     from go_raytracer_tpu_torch.render import checkpoint as checkpoint_mod
     from go_raytracer_tpu_torch.utils import progress
 
@@ -1193,6 +1170,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         ctx = MeshContext.build(scene, cam, device, mesh=mesh,
                                 b1_fused=b1_fused, traverse8=traverse8,
                                 ext=use_ext)
+        ctx.graph = ctx.graph and not positional and graph is not False
         state = _init_state_mesh(n, device)
     else:
         tables = tuple(to_dev(t) for t in bounce_mod.pack_scene(scene))
@@ -1202,6 +1180,11 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         state = _init_state(n, device)
         bounds = tuple(to_dev(b) for b in bounce_mod.coherence_bounds(scene)) \
             if reorder else None
+    if graph and not (unfused and ctx.graph):
+        raise ValueError(
+            "graph=True: this render has no level a CUDA graph can capture "
+            "(the fused kernels, `positional`, a binned route, the CPU or "
+            "the plain glue)")
     if unfused:
         bufs = None if positional else WindowBuffers.empty(n, window, 1,
                                                            device)
@@ -1397,6 +1380,7 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         stats["levels"] = (stats["levels_run"] if positional
                            else int(levels_recorded))
         stats["bounce"] = "ext" if use_ext else "wavefront"
+        stats["graph"] = ctx.graph
         if scene.has_tri_bvh:
             stats["mesh"] = dict(ctx.counters, route=trace_mod.route_name(
                 **ctx.route), graph=ctx.graph)

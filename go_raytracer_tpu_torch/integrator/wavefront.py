@@ -33,12 +33,14 @@ derivative.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from go_raytracer_tpu_torch.core import onb, rng, vecmath as vm
 from go_raytracer_tpu_torch.integrator import sampling
+from go_raytracer_tpu_torch.ops import _cuda
 from go_raytracer_tpu_torch.ops import trace as trace_mod
 from go_raytracer_tpu_torch.scene import types as T
 
@@ -223,69 +225,297 @@ def kernel_launch(ds):
     return ds.k3
 
 
+@dataclasses.dataclass
+class Records:
+    """A radiance call's per-level records on fixed buffers (the JAX
+    package's "while" buffers): E, W (steps, N, 3), the clamp flag cf
+    (steps, N) bool and cnt (steps, 2) int32, [lanes alive at the level's
+    start (its segments), lanes alive after it]. Level s writes row s
+    through a device index (`write`), so one captured level serves every
+    depth; a row no level wrote stays 0 and adds nothing to the combine."""
+
+    E: torch.Tensor
+    W: torch.Tensor
+    cf: torch.Tensor
+    cnt: torch.Tensor
+
+    @staticmethod
+    def zeros(steps: int, n: int, dtype, device) -> "Records":
+        z = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+        return Records(E=z((steps, n, 3)), W=z((steps, n, 3)),
+                       cf=z((steps, n), torch.bool),
+                       cnt=z((steps, 2), torch.int32))
+
+    def write(self, idx, E, W, cf, alive, alive_next):
+        """Row idx (a (1,) int64 tensor on the records' device) from one
+        bounce: a dead lane's E and W as 0, its clamp flag off."""
+        dead = ~alive[:, None]
+        self.E.index_copy_(0, idx, torch.where(dead, 0.0, E)[None])
+        self.W.index_copy_(0, idx, torch.where(dead, 0.0, W)[None])
+        self.cf.index_copy_(0, idx, (cf & alive)[None])
+        self.cnt.index_copy_(0, idx, torch.stack(
+            [alive.sum(), alive_next.sum()]).to(torch.int32)[None])
+
+    def combine(self, levels: int, max_contribution) -> torch.Tensor:
+        """The reverse combine over rows [0, levels): L = clamp?(E + W *
+        L_child), the deepest child black. Rows past the last level that
+        had a live lane are 0 and leave L at 0."""
+        E, W, cf = self.E.unbind(0), self.W.unbind(0), self.cf.unbind(0)
+        L = torch.zeros_like(E[0])
+        for s in reversed(range(levels)):
+            raw = E[s] + W[s] * L
+            L = torch.where(cf[s][:, None],
+                            clamp_contribution(raw, max_contribution), raw)
+        return L
+
+
+# Levels a "while" call keeps in flight on the card before it polls the
+# oldest one's drain count: enough to keep the device fed (a replay is
+# ~20 us of host work against 0.1-2 ms of device work), few enough that
+# the levels run past a drain stay few.
+RUN_AHEAD = 4
+
+
+def _level(bounce, rec: Records, idx, o, d, time, alive, u):
+    """One level: the bounce, its records in row idx; returns the next (o,
+    d, alive)."""
+    E, W, cf, o_n, d_n, alive_n = bounce(o, d, time, alive, u)
+    rec.write(idx, E, W, cf, alive, alive_n)
+    return o_n, d_n, alive_n
+
+
+class Levels:
+    """The reference engine's levels on fixed buffers, for the card: the
+    lane state (o, d, t, alive), the level's uniforms u, the level index
+    `lvl` (a device tensor), the records (`Records`) and the combine's
+    outputs (L, segments `seg`, levels recorded `rec_levels`). `level` is
+    one CUDA graph (`ops/_cuda.Graph`) of a level: the bounce, its record
+    writes, the state update and lvl + 1; it is captured at the second
+    level the buffers run (the first runs eagerly and loads every
+    kernel). `combine` is one graph of the reverse combine over every
+    row, captured at the buffers' second call. `key`: what the graphs
+    read, objects compared by identity (`radiance` keeps one Levels in the
+    device scene's ds.engine["levels"])."""
+
+    def __init__(self, n: int, steps: int, n_u: int, dtype, device, key,
+                 kernel: bool):
+        z = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+        self.key, self.steps = key, steps
+        self.o, self.d, self.t = z((n, 3)), z((n, 3)), z((n,))
+        self.alive = z((n,), torch.bool)
+        self.u = z((n, n_u))
+        self.lvl = z((1,), torch.int64)
+        self.rec = Records.zeros(steps, n, dtype, device)
+        self.out = None
+        if kernel:
+            from go_raytracer_tpu_torch.ops import bounce as bounce_mod
+
+            self.out = bounce_mod.bounce_out(n, device)
+        self.L = z((n, 3))
+        self.seg, self.rec_levels = z((), torch.int64), z((), torch.int64)
+        self.level = self.combine = None
+        self.ran = self.combined = False
+
+    def made_for(self, key) -> bool:
+        plain = (int, float, str, tuple, torch.dtype)
+        return len(key) == len(self.key) and all(
+            a is b or (isinstance(a, plain) and a == b)
+            for a, b in zip(key, self.key))
+
+    def begin(self, o, d, time):
+        self.o.copy_(o)
+        self.d.copy_(d)
+        self.t.copy_(time)
+        self.alive.fill_(True)
+        self.lvl.zero_()
+
+    def level_body(self, bounce):
+        o_n, d_n, alive_n = _level(bounce, self.rec, self.lvl, self.o, self.d,
+                                   self.t, self.alive, self.u)
+        self.o.copy_(o_n)
+        self.d.copy_(d_n)
+        self.alive.copy_(alive_n)
+        self.lvl.add_(1)
+
+    def step(self, bounce, counters):
+        """Run the next level: eagerly the first time, then as the
+        captured graph (a capture or replay that fails raises)."""
+        if self.level is None and self.ran:
+            graph = _cuda.Graph()
+            graph.capture(lambda: self.level_body(bounce))
+            self.level = graph
+        if self.level is not None:
+            self.level.replay()
+            if counters is not None:
+                counters["replays"] = counters.get("replays", 0) + 1
+        else:
+            self.level_body(bounce)
+            self.ran = True
+
+    def combine_body(self, max_contribution):
+        self.L.copy_(self.rec.combine(self.steps, max_contribution))
+        alive0 = self.rec.cnt[:, 0]
+        self.seg.copy_(alive0.sum(dtype=torch.int64))
+        self.rec_levels.copy_((alive0 > 0).sum())
+
+    def finish(self, n_run: int, max_contribution):
+        """Zero the rows no level of this call wrote, then the combine (a
+        graph from the second call on)."""
+        if n_run < self.steps:
+            for r in (self.rec.E, self.rec.W, self.rec.cf, self.rec.cnt):
+                r[n_run:].zero_()
+        if self.combine is None and self.combined:
+            graph = _cuda.Graph()
+            graph.capture(lambda: self.combine_body(max_contribution))
+            self.combine = graph
+        if self.combine is not None:
+            self.combine.replay()
+        else:
+            self.combine_body(max_contribution)
+            self.combined = True
+
+
+def graph_route(ds, route=None) -> bool:
+    """Whether `_bounce` on ds reads nothing back to the host, so that a
+    CUDA graph can capture a level of it: always but on a BVH mesh's
+    binned routes (`ops/trace.GRAPH_ROUTES`)."""
+    if not ds.has_tri_bvh:
+        return True
+    route = route or {}
+    return trace_mod.resolve_route(route.get("mesh", "auto"),
+                                   route.get("b1_fused", False)) \
+        in trace_mod.GRAPH_ROUTES
+
+
 def radiance(ds, o, d, time, gen, max_depth: int, max_contribution: float,
              mode: str = "scan", backend: str = "xla", uniforms=None,
-             route=None, counters=None):
+             route=None, counters=None, graph=None):
     """Radiance (N, 3) of camera rays (o, d, time). Returns (L, stats):
-    stats["segments"] the number of traced ray segments and
-    stats["levels"] the bounce levels run (ints).
+    stats["segments"] the number of traced ray segments, a 0-d int64
+    tensor on the rays' device (no host read: a caller that needs the
+    int reads it once, as `render/renderer.render` does at the end of a
+    render); stats["levels"] the levels recorded (JAX's count: levels
+    with a live lane at their start), steps in mode "scan" and a 0-d
+    device tensor in mode "while"; stats["levels_run"] (int) the levels
+    run, which in mode "while" on the card may pass the drain;
+    stats["graph"] whether the levels replayed as a CUDA graph.
 
     ds = `ops/trace.to_device(scene, device)`; gen: the torch.Generator on
     the rays' device that draws each level's (N, N_FIXED_U + media)
     uniforms, or `uniforms` (max_depth + 1, N, ...) given in its place.
-    mode "scan" runs max_depth + 1 levels; "while" stops once no ray is
-    alive (one host read a level). backend: "xla" the tensor-code bounce
-    (`_bounce`), "pallas" the K3 kernel (`ops/bounce.bounce`; on CPU
-    tensors its plain version), "auto" the kernel where `use_kernel`
-    allows it; where the kernel would run while autograd is on and a
-    parameter tensor of ds or a ray tensor requires a gradient, it raises
-    ValueError (no switch to "xla"). `route` and `counters` go to a BVH
-    mesh's closest hit."""
+    The levels write their records into fixed buffers (`Records`) at a
+    device level index, and the reverse combine runs over them. mode
+    "scan" runs max_depth + 1 levels; "while" stops once no ray is alive,
+    seen through `ops/_cuda.DrainWatch`: on the CPU at once, on the card
+    behind an event, so the host never makes a synchronizing call; it runs
+    at most RUN_AHEAD levels past the last it has seen, and the levels it
+    runs past the drain record only dead lanes, which add nothing. So that the
+    draws do not follow the host's pace, a "while" call on the card then
+    moves gen on as if it had drawn every level (the generator's offset).
+    backend: "xla" the tensor-code bounce (`_bounce`), "pallas" the K3
+    kernel (`ops/bounce.bounce`; on CPU tensors its plain version),
+    "auto" the kernel where `use_kernel` allows it; where the kernel
+    would run while autograd is on and a parameter tensor of ds or a ray
+    tensor requires a gradient, it raises ValueError (no switch to
+    "xla"). `route` and `counters` go to a BVH mesh's closest hit.
+
+    `graph`: None replays each level as one CUDA graph (`Levels`, kept in
+    ds.engine) wherever it can: on the card, off the binned routes
+    (`graph_route`), with no autograd to record and outside another
+    capture; elsewhere the same levels run eagerly. False always runs
+    them eagerly; True raises ValueError where they cannot be captured.
+    A graphed call and an eager one on the same inputs and draws give
+    the same bits."""
     if mode not in ("scan", "while"):
         raise ValueError(f"unknown mode {mode!r}")
     n = o.shape[0]
     dev = o.device
     kernel = use_kernel(ds, n, backend)
-    if kernel and torch.is_grad_enabled():
+    wants = []
+    if torch.is_grad_enabled():
         wants = [k for k, v in trace_mod.param_tensors(ds).items()
                  if v.requires_grad]
         wants += [k for k, v in (("o", o), ("d", d), ("time", time))
                   if v.requires_grad]
-        if wants:
-            raise ValueError(
-                f"backend {backend!r} runs the bounce as the K3 kernel, "
-                f"which is forward-only, but {', '.join(wants)} require a "
-                "gradient: use backend 'xla', or torch.no_grad()")
-    if kernel:
-        k3 = kernel_launch(ds)
-        o, d, time = o.contiguous(), d.contiguous(), time.contiguous()
+    if kernel and wants:
+        raise ValueError(
+            f"backend {backend!r} runs the bounce as the K3 kernel, "
+            f"which is forward-only, but {', '.join(wants)} require a "
+            "gradient: use backend 'xla', or torch.no_grad()")
+    capturable = (dev.type == "cuda" and not wants and graph_route(ds, route)
+                  and not torch.cuda.is_current_stream_capturing())
+    if graph is None:
+        graph = capturable
+    elif graph and not capturable:
+        raise ValueError(
+            "graph=True: these levels cannot be captured (not on the card, "
+            "a binned mesh route, autograd recording, or inside a capture)")
+    k3 = kernel_launch(ds) if kernel else None
     n_u = N_FIXED_U + ds.media.kind.shape[0]
     steps = max_depth + 1
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    Es, Ws, CFs = [], [], []
-    segments = torch.zeros((), dtype=torch.int64, device=dev)
-    levels = 0
-    for s in range(steps):
-        if mode == "while" and s > 0 and not bool(alive.any()):
-            break
-        u = uniforms[s] if uniforms is not None else torch.rand(
+    skip = mode == "while" and uniforms is None and dev.type == "cuda"
+    offsets = []
+
+    def draw(s, out=None):
+        if uniforms is not None:
+            return uniforms[s] if out is None else out.copy_(uniforms[s])
+        if skip and s == 0:
+            offsets.append(gen.get_offset())
+        u = out.uniform_(generator=gen) if out is not None else torch.rand(
             (n, n_u), generator=gen, dtype=o.dtype, device=dev)
+        if skip and s == 0:
+            offsets.append(gen.get_offset())
+        return u
+
+    if graph:
+        # the graphs hold the addresses of what they read: the K3 launch's
+        # tables, the parameter tensors, the counters dict
+        key = (n, steps, n_u, o.dtype, str(dev), float(max_contribution),
+               tuple(sorted((route or {}).items())), k3, counters,
+               *trace_mod.param_tensors(ds).values())
+        lv = ds.engine.get("levels")
+        if lv is None or not lv.made_for(key):
+            lv = ds.engine["levels"] = Levels(n, steps, n_u, o.dtype, dev,
+                                              key, kernel)
+        rec = lv.rec
+        lv.begin(o, d, time)
+    else:
         if kernel:
-            E, W, cf, o_n, d_n, alive_n, _ = k3(o, d, time, alive, u)
+            o, d, time = o.contiguous(), d.contiguous(), time.contiguous()
+        rec = Records.zeros(steps, n, o.dtype, dev)
+        index = torch.arange(steps, device=dev)
+        alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    def bounce(o_, d_, t_, alive_, u_):
+        if k3 is None:
+            return _bounce(ds, o_, d_, t_, alive_, u_, route=route,
+                           counters=counters)
+        return k3(o_, d_, t_, alive_, u_, out=lv.out if graph else None)[:6]
+
+    watch = _cuda.DrainWatch(rec.cnt, lambda row, s: row[1] == 0,
+                             ahead=RUN_AHEAD) if mode == "while" else None
+    n_run = 0
+    for s in range(steps):
+        if graph:
+            draw(s, lv.u)
+            lv.step(bounce, counters)
         else:
-            E, W, cf, o_n, d_n, alive_n = _bounce(
-                ds, o, d, time, alive, u, route=route, counters=counters)
-        dead = ~alive
-        Es.append(torch.where(dead[:, None], 0.0, E))
-        Ws.append(torch.where(dead[:, None], 0.0, W))
-        CFs.append(cf & alive)
-        segments = segments + alive.sum()
-        levels += 1
-        o, d, alive = o_n, d_n, alive_n
-    # reverse combine: L = clamp?(E + W * L_child), the deepest child black
-    L = torch.zeros((n, 3), dtype=o.dtype, device=dev)
-    for E, W, cf in zip(reversed(Es), reversed(Ws), reversed(CFs)):
-        raw = E + W * L
-        L = torch.where(cf[:, None], clamp_contribution(raw, max_contribution),
-                        raw)
-    return L, {"segments": int(segments), "levels": levels}
+            o, d, alive = _level(bounce, rec, index[s:s + 1], o, d, time,
+                                 alive, draw(s))
+        n_run = s + 1
+        if watch is not None:
+            watch.record(s)
+            if watch.drained():
+                break
+    if skip and n_run < steps:
+        gen.set_offset(offsets[0] + steps * (offsets[1] - offsets[0]))
+    if graph:
+        lv.finish(n_run, max_contribution)
+        L, segments, recorded = (lv.L.clone(), lv.seg.clone(),
+                                 lv.rec_levels.clone())
+    else:
+        L = rec.combine(n_run, max_contribution)
+        segments = rec.cnt[:, 0].sum(dtype=torch.int64)
+        recorded = (rec.cnt[:, 0] > 0).sum()
+    return L, {"segments": segments,
+               "levels": steps if mode == "scan" else recorded,
+               "levels_run": n_run, "graph": bool(graph)}

@@ -14,11 +14,13 @@ tests import every module without a CUDA toolkit.
 
 Every wrapper counts its kernel's launches through `count`, which also
 serves CUDA graphs (`Graph`): a launch captured into a graph runs at each
-replay, and is counted there.
+replay, and is counted there. `DrainWatch` lets a host loop of levels
+learn, without waiting on the device, that its work has drained.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import hashlib
@@ -86,19 +88,115 @@ class Graph:
         self.noted = []
 
     def capture(self, fn):
+        # on a side stream that waits for the current one, as
+        # torch.cuda.graph does, but without its synchronize and cache
+        # flushes (a render captures a graph per scene: those would cost
+        # a wait and fresh allocations each time)
         import torch
         global _noting
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
         _noting = self.noted
         try:
-            with torch.cuda.graph(self.graph, capture_error_mode="relaxed"):
-                fn()
+            with torch.cuda.stream(side):
+                self.graph.capture_begin(capture_error_mode="relaxed")
+                try:
+                    fn()
+                finally:
+                    self.graph.capture_end()
         finally:
             _noting = None
+        main.wait_stream(side)
 
     def replay(self):
         self.graph.replay()
         for where, name in self.noted:
             where[name] = where.get(name, 0) + 1
+
+
+class StepGraph:
+    """A step (`body()`, which reads and writes only tensors that live
+    from one step to the next) run as one CUDA graph: the first call runs
+    body eagerly on a side stream (the warm-up: it loads every kernel and
+    makes what body allocates for good, an optimizer's state and the
+    gradients), the second captures it (`Graph`; autograd's backward and
+    an optimizer step capture with it, so long as the gradients already
+    exist and body zeroes them in place) and replays it, as does every
+    later call. Each call returns what body returned at the capture, or
+    at this call when eager: tensors that every replay rewrites. With
+    `graph` False every call runs body eagerly on the current stream. A
+    capture that fails raises."""
+
+    def __init__(self, body, graph: bool, device=None):
+        self.body, self.on, self.device = body, graph, device
+        self.calls, self.graph, self.out = 0, None, None
+
+    def __call__(self):
+        import torch
+        self.calls += 1
+        if not self.on:
+            return self.body()
+        if self.calls == 1:
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                out = self.body()
+            main.wait_stream(side)
+            return out
+        if self.graph is None:
+            graph = Graph()
+            graph.capture(lambda: setattr(self, "out", self.body()))
+            self.graph = graph
+        self.graph.replay()
+        return self.out
+
+
+class DrainWatch:
+    """Early drain exit of a loop of levels (or kernel calls). `rows`
+    ((calls, k) int32, on the render device) holds each call's counts once
+    the call has run, and `done(row, i)` tells from call i's row (a list
+    of k ints) that the work drained. On the CPU the row is read directly;
+    on the GPU it is copied to pinned memory behind the call and read once
+    its event has completed, so the host never waits, and how many calls
+    run past the drained one follows the host's pace. Those calls must
+    change nothing: the loop's counts come from the device, not from the
+    number of calls. With `ahead`, at most that many calls stay in
+    flight: past it, `drained` polls the oldest call's event (never a
+    synchronizing call) until it completes, so the host does not run more
+    than `ahead` calls past a drain."""
+
+    def __init__(self, rows, done=lambda row, i: row[0] == 0, ahead=None):
+        import torch
+        self.rows, self.done, self.ahead = rows, done, ahead
+        self.cuda = rows.is_cuda
+        if self.cuda:
+            self.host = torch.empty(tuple(rows.shape), dtype=torch.int32,
+                                    pin_memory=True)
+            self.pending = collections.deque()
+        self.last = -1
+
+    def record(self, i: int):
+        import torch
+        self.last = i
+        if self.cuda:
+            self.host[i].copy_(self.rows[i], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            self.pending.append((i, ev))
+
+    def drained(self) -> bool:
+        if not self.cuda:
+            return bool(self.done(self.rows[self.last].tolist(), self.last))
+        while self.pending and (self.pending[0][1].query() or (
+                self.ahead is not None and len(self.pending) > self.ahead)):
+            i, ev = self.pending.popleft()
+            while not ev.query():
+                pass
+            if self.done(self.host[i].tolist(), i):
+                return True
+        return False
 
 
 def _nvcc() -> str:

@@ -138,6 +138,11 @@ def to_device(scene: T.Scene, device) -> _pytypes.SimpleNamespace:
     # K3's launch, prepared by integrator/wavefront.kernel_launch, and the
     # parameter tensors it was packed from
     out.k3, out.k3_stamp = None, ()
+    # the reference engine's levels on fixed buffers, with their CUDA
+    # graphs (integrator/wavefront.Levels), kept from one call to the next
+    # under "levels"; the scenes `parallel/mesh.apply_params` makes share
+    # the dict, and a Levels serves only the tensors it was made for
+    out.engine = {}
     return out
 
 
@@ -257,6 +262,10 @@ def _part1by2(x):
 
 
 ROUTES = ("binned", "binned2", "walk")
+# Routes whose closest hit reads nothing back to the host, so a CUDA
+# graph can capture a level that runs them (K5 or K12 behind the sort;
+# K11). The binned routes read the host once a round.
+GRAPH_ROUTES = ("walk", "binned2")
 
 
 def resolve_route(mesh="auto", b1_fused=False) -> str:
@@ -804,7 +813,9 @@ def trace(ds, o, d, time, u_med, t_min: float = T_MIN, t_max: float = INF,
     hit = torch.isfinite(t) & (cls != CLS_NONE)
     t_safe = torch.where(hit, t, 1.0)
     p = o + t_safe[:, None] * d
-    cur = (p, o.new_tensor([1.0, 0.0, 0.0]).expand(n, 3),
+    x_axis = torch.zeros_like(p)
+    x_axis[:, 0] = 1.0          # filled on the device: no host constant
+    cur = (p, x_axis,
            torch.ones((n,), dtype=torch.bool, device=dev),
            torch.zeros_like(t_safe), torch.zeros_like(t_safe),
            torch.zeros((n,), dtype=ds.materials.kind.dtype, device=dev))

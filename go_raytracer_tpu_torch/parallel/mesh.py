@@ -37,6 +37,7 @@ import torch.distributed as dist
 from go_raytracer_tpu_torch.core import rng
 from go_raytracer_tpu_torch.integrator import regen as regen_mod
 from go_raytracer_tpu_torch.integrator import wavefront
+from go_raytracer_tpu_torch.ops import _cuda
 from go_raytracer_tpu_torch.ops import trace as trace_mod
 from go_raytracer_tpu_torch.render import camera as camera_mod
 from go_raytracer_tpu_torch.scene import types as T
@@ -159,7 +160,8 @@ def render_sharded(scene: T.Scene, cam: camera_mod.Camera, mesh,
     stratum)` at the pixel id, so the image does not depend on the rank
     count. Every rank of the mesh calls it; each gets the image (H, W, 3)
     float32 numpy and {"segments": traced segments over every ray of
-    every rank, the padding's included}."""
+    every rank, the padding's included; "graph": False, its levels run
+    eagerly}."""
     device, index, count = _mesh_place(mesh, device)
     ds = trace_mod.to_device(scene, device)
     arrays = cam.derived()
@@ -170,7 +172,7 @@ def render_sharded(scene: T.Scene, cam: camera_mod.Camera, mesh,
     sqrt_spp = cam.spp_sqrt
     n_u = wavefront.N_FIXED_U + ds.media.kind.shape[0]
     acc = torch.zeros((per, 3), dtype=torch.float32, device=device)
-    segments = 0
+    seg = torch.zeros((1,), dtype=torch.int64, device=device)
     with torch.no_grad():
         for s_i in range(sqrt_spp):
             for s_j in range(sqrt_spp):
@@ -182,14 +184,13 @@ def render_sharded(scene: T.Scene, cam: camera_mod.Camera, mesh,
                     torch.tensor(float(s_j), device=device), u.camera())
                 L, st = wavefront.radiance(ds, o, d, t, None, cam.max_depth,
                                            cam.max_contribution, mode=mode,
-                                           uniforms=u)
+                                           uniforms=u, graph=False)
                 acc += L
-                segments += st["segments"]
+                seg += st["segments"]
     img = regen_mod.Shard(index, count).gather(acc).reshape(-1, 3)[:npix] \
         .reshape(h, w, 3) / (sqrt_spp * sqrt_spp)
-    seg = torch.tensor([segments], dtype=torch.int64, device=device)
     dist.all_reduce(seg)
-    return img.cpu().numpy(), {"segments": int(seg)}
+    return img.cpu().numpy(), {"segments": int(seg), "graph": False}
 
 
 def extract_params(ds) -> dict:
@@ -239,18 +240,24 @@ def apply_params(ds, params) -> _pytypes.SimpleNamespace:
 
 
 def render_batches(ds, arrays, width: int, ids, max_depth: int,
-                   max_contribution: float, generator, pos=None):
+                   max_contribution: float, generator, pos=None,
+                   uniforms=None):
     """The mean over batches of the radiance of camera rays at stratum
     (0, 0), JAX's `loss_fn` render: ids (S, N) pixel ids. The S batches
     go through one `radiance` call of S * N rays (JAX vmaps them). With a
     `torch.Generator` (on ds's device) the camera uniforms are drawn
     first, then the path uniforms; with `KeyedUniforms` the ray of batch
     b, column c takes the numbers of global position pos[b, c] (default
-    b * N + c). Returns (image (N, 3), forward segments)."""
+    b * N + c); `uniforms` = (camera (S * N, N_U_RAYGEN), levels (max_depth
+    + 1, S * N, n_u)), drawn by the caller (`StepUniforms`), takes the
+    generator's place. Returns (image (N, 3), forward segments, a 0-d
+    tensor)."""
     s, n = ids.shape
     flat = ids.reshape(-1)
-    keyed = isinstance(generator, KeyedUniforms)
-    if keyed:
+    if uniforms is not None:
+        u, uniforms = uniforms
+        generator = None
+    elif isinstance(generator, KeyedUniforms):
         if pos is None:
             pos = torch.arange(s * n, device=flat.device)
         uniforms = generator.rays(
@@ -258,7 +265,6 @@ def render_batches(ds, arrays, width: int, ids, max_depth: int,
             max_depth + 1)
         u, generator = uniforms.camera(), None
     else:
-        uniforms = None
         u = torch.rand((s * n, camera_mod.N_U_RAYGEN), generator=generator,
                        device=flat.device)
     zero = torch.zeros((), device=flat.device)
@@ -267,6 +273,38 @@ def render_batches(ds, arrays, width: int, ids, max_depth: int,
                                max_contribution, mode="scan",
                                uniforms=uniforms)
     return L.reshape(s, n, 3).mean(dim=0), st["segments"]
+
+
+@dataclasses.dataclass
+class StepUniforms:
+    """A train step's uniforms on fixed buffers: `camera` (rays,
+    N_U_RAYGEN) and `levels` (levels, rays, n_u). `draw` fills them in the
+    order `render_batches` draws them from a torch.Generator (the camera's,
+    then each level's: the same numbers as `torch.rand` of those shapes),
+    or copies a `KeyedUniforms` stream's numbers of rays 0 .. rays - 1, so
+    that a captured step reads new numbers at every replay."""
+
+    camera: torch.Tensor
+    levels: torch.Tensor
+
+    @staticmethod
+    def empty(rays: int, levels: int, n_u: int, device) -> "StepUniforms":
+        return StepUniforms(
+            torch.empty((rays, camera_mod.N_U_RAYGEN), device=device),
+            torch.empty((levels, rays, n_u), device=device))
+
+    def draw(self, generator):
+        if isinstance(generator, KeyedUniforms):
+            levels, rays, n_u = self.levels.shape
+            keyed = generator.rays(
+                torch.arange(rays, device=self.levels.device), n_u, levels)
+            self.camera.copy_(keyed.camera())
+            for s in range(levels):
+                self.levels[s].copy_(keyed[s])
+            return
+        self.camera.uniform_(generator=generator)
+        for s in range(self.levels.shape[0]):
+            self.levels[s].uniform_(generator=generator)
 
 
 class _SumOver(torch.autograd.Function):
@@ -290,22 +328,34 @@ class _SumOver(torch.autograd.Function):
 def make_train_step(scene: T.Scene, cam: camera_mod.Camera, n_rays: int,
                     n_sample_batches: int, max_depth: int,
                     learning_rate: float = 1e-2, device=None,
-                    generator=None, mesh=None):
+                    generator=None, mesh=None, graph=None):
     """Differentiable render + MSE loss + Adam update, on one device (CUDA
     unless `device` says otherwise) or sharded over a ("data", "sample")
     mesh (`make_mesh`).
 
     Returns (train_step, params, optimizer): params are `extract_params`'
     leaves as fresh tensors that require a gradient, optimizer a
-    `torch.optim.Adam(lr=learning_rate)` over them, and
-    `train_step(params, ids, target)` renders `n_sample_batches` batches
-    of `n_rays` camera rays (ids (n_sample_batches, n_rays) pixel ids;
-    `pixel_ids(n_rays, n_sample_batches, device)` gives JAX's), takes the
-    MSE of their mean against target (n_rays, 3), updates params in place
-    and returns the loss as a float. Every leaf gets a gradient, zero
+    `torch.optim.Adam(lr=learning_rate)` over them (`capturable` on the
+    card), and `train_step(params, ids, target)` renders
+    `n_sample_batches` batches of `n_rays` camera rays (ids
+    (n_sample_batches, n_rays) pixel ids; `pixel_ids(n_rays,
+    n_sample_batches, device)` gives JAX's), takes the MSE of their mean
+    against target (n_rays, 3), updates params in place and returns the
+    loss as a float, its one host read. Every leaf gets a gradient, zero
     where the render does not read it, as under optax. Uniforms come from
     `generator`: a torch.Generator on the device (seed 0 when None and no
     mesh), or `KeyedUniforms`, whose stream moves on by one a step.
+
+    On one device the step draws its uniforms into fixed buffers
+    (`StepUniforms`) and copies ids and target into its own, then runs
+    the render, the MSE, the backward and Adam on them. `graph` (None:
+    on the card without a mesh) makes that one CUDA graph: the first step
+    runs eagerly on a side stream (it warms every kernel and makes every
+    gradient and Adam's state), the second is captured and every step
+    from then on replays it (`ops/_cuda.StepGraph`); the step then takes
+    only the params it returned. The gradients are zeroed in place before each
+    backward, so the captured step keeps their addresses. A capture that
+    fails raises; True raises ValueError off the card or on a mesh.
 
     On a mesh (its device type the device's), every rank calls the step
     with the same ids and target and renders its block: batches
@@ -318,11 +368,16 @@ def make_train_step(scene: T.Scene, cam: camera_mod.Camera, n_rays: int,
     autograd differentiates, the loss of the rank's pixels is summed over
     the "data" ranks, and after the backward each leaf's gradient is
     summed over every rank before Adam, which then makes the same update
-    on every rank."""
+    on every rank. That step runs eagerly."""
     device = regen_mod.resolve_device(device)
     ds = trace_mod.to_device(scene, device)
-    arrays = cam.derived()
+    arrays = cam.derived().to(device)
     w = cam.width
+    if graph is None:
+        graph = device.type == "cuda" and mesh is None
+    elif graph and (device.type != "cuda" or mesh is not None):
+        raise ValueError("graph=True: the train step is captured only on "
+                         "the card and without a mesh")
     if mesh is not None:
         if isinstance(generator, torch.Generator):
             raise ValueError("a sharded step draws KeyedUniforms (keyed by "
@@ -349,23 +404,28 @@ def make_train_step(scene: T.Scene, cam: camera_mod.Camera, n_rays: int,
             torch.Generator(device=device).manual_seed(0)
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in extract_params(ds).items()}
-    optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate)
+    optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate,
+                                 capturable=device.type == "cuda")
 
-    def train_step(params, ids, target):
+    def check_ids(ids):
         if tuple(ids.shape) != (n_sample_batches, n_rays):
             raise ValueError(f"ids of shape {tuple(ids.shape)}, the step "
                              f"renders ({n_sample_batches}, {n_rays})")
-        optimizer.zero_grad(set_to_none=True)
-        sc = apply_params(ds, params)
-        if mesh is None:
-            img, _ = render_batches(sc, arrays, w, ids, max_depth,
-                                    cam.max_contribution, generator)
-            loss = torch.mean((img - target) ** 2)
-            loss.backward()
-        else:
-            img, _ = render_batches(sc, arrays, w, ids[rows, cols],
-                                    max_depth, cam.max_contribution,
-                                    generator, pos=pos)
+
+    def zero_missing(params):
+        # a leaf the render does not read gets a zero gradient, as under
+        # optax
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+    if mesh is not None:
+        def sharded_step(params, ids, target):
+            check_ids(ids)
+            optimizer.zero_grad(set_to_none=True)
+            img, _ = render_batches(apply_params(ds, params), arrays, w,
+                                    ids[rows, cols], max_depth,
+                                    cam.max_contribution, generator, pos=pos)
             img = _SumOver.apply(img * s_r, sample_g) / n_sample_batches
             loss = ((img - target[cols]) ** 2).sum() / (n_rays * 3)
             # every "sample" rank of a column holds the column's loss: each
@@ -373,15 +433,48 @@ def make_train_step(scene: T.Scene, cam: camera_mod.Camera, n_rays: int,
             (loss / n_sample).backward()
             loss = loss.detach().clone()
             dist.all_reduce(loss, group=data_g)
-        for p in params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            if mesh is not None:
+            zero_missing(params)
+            for p in params.values():
                 dist.all_reduce(p.grad)
+            optimizer.step()
+            generator.stream += 1
+            return loss.item()
+
+        return sharded_step, params, optimizer
+
+    n_u = wavefront.N_FIXED_U + ds.media.kind.shape[0]
+    uni = StepUniforms.empty(n_sample_batches * n_rays, max_depth + 1, n_u,
+                             device)
+    ids_buf = torch.zeros((n_sample_batches, n_rays), dtype=torch.int64,
+                          device=device)
+    target_buf = torch.zeros((n_rays, 3), dtype=torch.float32, device=device)
+    own = dict(params)
+
+    def body():
+        optimizer.zero_grad(set_to_none=False)
+        img, _ = render_batches(apply_params(ds, own), arrays, w, ids_buf,
+                                max_depth, cam.max_contribution, None,
+                                uniforms=(uni.camera, uni.levels))
+        loss = torch.mean((img - target_buf) ** 2)
+        loss.backward()
+        zero_missing(own)
         optimizer.step()
+        return loss.detach()
+
+    step = _cuda.StepGraph(body, graph, device)
+
+    def train_step(params, ids, target):
+        check_ids(ids)
+        if graph and any(params.get(k) is not v for k, v in own.items()):
+            raise ValueError("a captured train step takes the params that "
+                             "make_train_step returned")
+        own.update(params)
+        ids_buf.copy_(ids)
+        target_buf.copy_(target)
+        uni.draw(generator)
         if isinstance(generator, KeyedUniforms):
             generator.stream += 1
-        return loss.item()
+        return step().item()
 
     return train_step, params, optimizer
 

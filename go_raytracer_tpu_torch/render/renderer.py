@@ -41,7 +41,7 @@ def render(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
            verbose: bool = False, checkpoint_path: Optional[str] = None,
            checkpoint_every: int = 8, scene_name: str = "",
            strata_per_launch: int = 0, backend: str = "auto",
-           route: Optional[dict] = None):
+           route: Optional[dict] = None, graph: Optional[bool] = None):
     """Render the scene on `device` (default CUDA; "cpu" runs the plain
     versions of the kernels). Returns (linear image (H, W, 3) float32
     numpy, stats).
@@ -49,12 +49,18 @@ def render(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     Pixels go in chunks of at most `ray_batch` rays, rounded up to a
     multiple of 128 (so the kernel backend's "auto" rule can hold), and
     `strata_per_launch` strata (0 = all) form one group between
-    checkpoints. `mode` and `backend` are `wavefront.radiance`'s; `route`
-    picks a BVH mesh's closest-hit route (`ops/trace.mesh_closest`'s
-    arguments). Each group-and-chunk draws from its own torch.Generator
-    on the device (`launch_generator`). With `checkpoint_path`, the
-    accumulator is saved every `checkpoint_every` groups and a matching
-    checkpoint resumes the render."""
+    checkpoints. `mode`, `backend` and `graph` are `wavefront.radiance`'s
+    (on the card each level one CUDA graph replay where it can be
+    captured; stats["graph"] says whether it was); `route` picks a BVH
+    mesh's closest-hit route (`ops/trace.mesh_closest`'s arguments).
+    Each group-and-chunk draws from its own torch.Generator on the device
+    (`launch_generator`). The camera's vectors go to the device once, and
+    segments and levels add up on the device: nothing is read back inside
+    a group but at a checkpoint, where the accumulator is saved every
+    `checkpoint_every` groups (a matching checkpoint resumes the render);
+    the counts are read once, at the end. stats["levels"] counts the
+    levels recorded, stats["levels_run"] the levels run (past a drain on
+    the card)."""
     device = regen_mod.resolve_device(device)
     ds = trace_mod.to_device(scene, device)
     route = dict(route or {})
@@ -64,7 +70,7 @@ def render(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
             or not route.get("traverse8", True):
         raise ValueError("mesh, b1_fused and traverse8 pick the closest-hit "
                          "route of a mesh scene; this scene has no mesh")
-    arrays = cam.derived()
+    arrays = cam.derived().to(device)
     h, w = cam.image_height, cam.width
     npix = h * w
     sqrt_spp = cam.spp_sqrt
@@ -90,7 +96,10 @@ def render(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         acc = torch.zeros((npad, 3), dtype=torch.float32, device=device)
 
     bar = progress.Bar((n_groups - start_group) * nchunks, enabled=verbose)
-    segments = levels = 0
+    segments = torch.zeros((), dtype=torch.int64, device=device)
+    levels = torch.zeros((), dtype=torch.int64, device=device)
+    levels_run = 0
+    graphed = graph is not False
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = _time.perf_counter()
@@ -113,15 +122,18 @@ def render(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                 L, st = wavefront.radiance(
                     ds, o, d, t, gen, cam.max_depth, cam.max_contribution,
                     mode=mode, backend=backend, route=route,
-                    counters=counters)
+                    counters=counters, graph=graph)
                 acc[c * chunk:(c + 1) * chunk] += L
                 segments += st["segments"]
                 levels += st["levels"]
+                levels_run += st["levels_run"]
+                graphed = graphed and st["graph"]
             bar.tick()
         if checkpoint_path and ((group + 1) % checkpoint_every == 0
                                 or group + 1 == n_groups):
             checkpoint_mod.save(checkpoint_path, acc.cpu().numpy(), group + 1,
                                 meta)
+    segments, levels = int(segments), int(levels)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = _time.perf_counter() - t0
@@ -136,6 +148,8 @@ def render(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
         "rays_per_s": segments / elapsed if elapsed > 0 else float("nan"),
         "paths_per_s": paths / elapsed if elapsed > 0 else float("nan"),
         "levels": levels,
+        "levels_run": levels_run,
+        "graph": graphed and levels_run > 0,
         "integrator": "wavefront",
         "mode": mode,
         "backend": "pallas" if kernel else "xla",

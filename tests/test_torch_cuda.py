@@ -1516,3 +1516,134 @@ def test_mesh_window_graph_matches_eager(cuda, scene8, route, monkeypatch):
     assert kg == ng and ke == ne
     assert ctx_g.counters["mesh_calls"] == ng
     assert ctx_g.counters["replays"] == ng - 1
+
+
+# the reference engine's levels and the train step as CUDA graphs
+
+
+def _camera_rays(scene_name, dev, n, seed=0):
+    """(device scene, camera, n camera rays o, d, t) of a registry scene."""
+    from go_raytracer_tpu_torch.render import camera as camera_mod
+    scene, cam = getattr(registry, scene_name)()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, cam.width * cam.image_height, (n,), device=dev,
+                        generator=g)
+    s = torch.zeros(n, device=dev)
+    u = torch.rand((n, camera_mod.N_U_RAYGEN), generator=g, device=dev)
+    return (scene, cam, *camera_mod.generate_rays(
+        cam.derived().to(dev), cam.width, ids, s, s, u))
+
+
+@pytest.mark.parametrize("name,backend,mode", [
+    ("cornell_box", "auto", "while"), ("cornell_box", "xla", "while"),
+    ("model_example", "xla", "scan")])
+def test_radiance_graph_matches_eager(cuda, name, backend, mode):
+    """`wavefront.radiance` with every level a CUDA graph replay against
+    the same call run eagerly (graph=False) on the same rays and seeds,
+    three calls each (the first runs level 0 eagerly and captures the
+    level, the second captures the combine): L, segments and levels
+    recorded bit for bit, and the generators left at the same offset
+    (a "while" call moves on as if it had drawn every level, wherever it
+    saw the drain). K3 (cornellBox "auto") or K5 (modelExample) runs once
+    a level run, in the graph's replays as eagerly."""
+    from go_raytracer_tpu_torch.integrator import wavefront
+    scene, cam, o, d, t = _camera_rays(name, cuda, 65536)
+    ds_g, ds_e = trace.to_device(scene, cuda), trace.to_device(scene, cuda)
+    depth = 10 if mode == "scan" else cam.max_depth
+    for call in range(3):
+        out = {}
+        for tag, ds, graph in (("graph", ds_g, None), ("eager", ds_e, False)):
+            gen = torch.Generator(device=cuda).manual_seed(20 + call)
+            k3, k5 = bounce.launches_bounce, traverse8.launches
+            L, st = wavefront.radiance(ds, o, d, t, gen, depth,
+                                       cam.max_contribution, mode=mode,
+                                       backend=backend, graph=graph)
+            torch.cuda.synchronize()
+            kernel = (bounce.launches_bounce - k3 if backend == "auto"
+                      else traverse8.launches - k5)
+            out[tag] = (L, st, gen.get_offset(), kernel)
+        (Lg, sg, og, kg), (Le, se, oe, ke) = out["graph"], out["eager"]
+        assert sg["graph"] and not se["graph"]
+        assert torch.equal(Lg, Le) and og == oe
+        assert int(sg["segments"]) == int(se["segments"]) > 0
+        assert int(sg["levels"]) == int(se["levels"])
+        if backend == "auto" or name == "model_example":
+            assert kg == sg["levels_run"] and ke == se["levels_run"]
+    assert ds_g.engine["levels"].level is not None \
+        and ds_g.engine["levels"].combine is not None
+
+
+def test_radiance_graph_replays_draw_new_uniforms(cuda):
+    """Two graphed calls on one continuing generator read new uniforms
+    (a frozen draw would render the same noise twice); a third call on
+    the first seed again gives the first call's bits."""
+    from go_raytracer_tpu_torch.integrator import wavefront
+    scene, cam, o, d, t = _camera_rays("cornell_box", cuda, 16384, seed=2)
+    ds = trace.to_device(scene, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    L = []
+    for _ in range(3):
+        L.append(wavefront.radiance(ds, o, d, t, gen, 8,
+                                    cam.max_contribution, backend="xla")[0])
+    us = ds.engine["levels"].u.clone()
+    L.append(wavefront.radiance(ds, o, d, t, gen, 8, cam.max_contribution,
+                                backend="xla")[0])
+    assert ds.engine["levels"].level is not None
+    assert not torch.equal(L[1], L[2]) and not torch.equal(L[2], L[3])
+    assert not torch.equal(us, ds.engine["levels"].u)
+    again = wavefront.radiance(
+        ds, o, d, t, torch.Generator(device=cuda).manual_seed(8), 8,
+        cam.max_contribution, backend="xla")[0]
+    assert torch.equal(again, L[0])
+
+
+def test_train_step_graph_matches_eager(cuda):
+    """`make_train_step` as one CUDA graph (the first step eager on a side
+    stream, the second captured, the rest replayed) against the eager
+    step on the same generator seed, five steps on cornellBox at 32x32, 4
+    batches, depth 6: losses within 1e-6 relative; each leaf within
+    3.1e-6 of its largest entry (the backward's atomic scatter-adds add
+    in another order); the loss falls; a step given other params
+    raises."""
+    from go_raytracer_tpu_torch.parallel import mesh as pmesh
+    scene, cam = registry.cornell_box()
+    cam.width, cam.aspect_ratio, cam.max_depth = 32, 1.0, 6
+    npix = 32 * 32
+    ids = pmesh.pixel_ids(npix, 4, cuda)
+    target = torch.full((npix, 3), 0.3, device=cuda)
+    runs = {}
+    for graph in (True, False):
+        step, params, _ = pmesh.make_train_step(
+            scene, cam, n_rays=npix, n_sample_batches=4, max_depth=6,
+            learning_rate=0.05, device=cuda, graph=graph,
+            generator=torch.Generator(device=cuda).manual_seed(3))
+        losses = [step(params, ids, target) for _ in range(5)]
+        runs[graph] = (losses, params)
+        if graph:
+            with pytest.raises(ValueError):
+                step(dict(params, fuzz=params["fuzz"].clone()), ids, target)
+    (lg, pg), (le, pe) = runs[True], runs[False]
+    assert np.allclose(lg, le, rtol=1e-6, atol=0) and lg[-1] < lg[0]
+    for k in pg:
+        scale = float(pe[k].detach().abs().max()) or 1.0
+        assert float((pg[k] - pe[k]).abs().max()) <= 3.1e-6 * scale, k
+
+
+def test_unfused_window_graph_matches_eager(cuda):
+    """regen's unfused window on the reference engine's bounce (`--backend
+    xla`) with every level a CUDA graph against the same render run
+    eagerly: cornellBox and lanternhouse (triangle lights, no triangle
+    BVH), the same image and segments bit for bit."""
+    for scene, cam in (registry.cornell_box(),
+                       registry.model_example(
+                           obj_path="assets/lanternhouse.obj")):
+        cam.width, cam.samples_per_pixel, cam.max_depth = 48, 4, 8
+        img_g, st_g = regen.render_regen(scene, cam, n_lanes=4096,
+                                         backend="xla", device=cuda)
+        img_e, st_e = regen.render_regen(scene, cam, n_lanes=4096,
+                                         backend="xla", device=cuda,
+                                         graph=False)
+        assert st_g["graph"] and not st_e["graph"]
+        assert st_g["bounce"] == "wavefront"
+        assert np.array_equal(img_g, img_e)
+        assert st_g["segments"] == st_e["segments"] > 0
