@@ -75,6 +75,7 @@ from go_raytracer_tpu_torch.ops import trace as trace_mod
 from go_raytracer_tpu_torch.ops.mesh_level import refill_assign
 from go_raytracer_tpu_torch.render import camera as camera_mod
 from go_raytracer_tpu_torch.scene import types as T
+from go_raytracer_tpu_torch.utils import spans
 
 INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
 
@@ -310,6 +311,7 @@ def _window_impl(tables, statics, cam_row, bg, acc, state, next_item, seeds,
         watch.record(i)
         if watch.drained():
             break
+    spans.add("calls", n_run)
     # the harvest may run over every call made: a call after the drained
     # one records only dead lanes (zero V, no flags), which add nothing
     s_run = n_run * cadence
@@ -463,6 +465,7 @@ def _queue_window(tables, statics, cam_row, bg, acc, state, next_item, seeds,
             out=bounce_mod.FusedOut(rec=[r[sl] for r in bufs.rec],
                                     seg=bufs.seg[i], state=cur))
     state[:] = cur
+    spans.add("calls", outer)
     harvest_mod.reverse_harvest_into(
         acc, *(r.view(outer, cadence, n) for r in bufs.rec), bufs.sts,
         bufs.nis, item_base=item_base, cadence=cadence,
@@ -505,6 +508,7 @@ def _pos_window(tables, statics, cam_row, bg, B, state, quota, first_pix,
             width=width, sqrt_spp=sqrt_spp,
             out=bounce_mod.FusedOut(rec=[r[sl] for r in bufs.rec],
                                     seg=bufs.seg[i], state=state))
+    spans.add("calls", outer)
 
     CF, ST = bufs.rec[6], bufs.rec[7]
     L = torch.zeros((3, n), dtype=torch.float32, device=state[0].device)
@@ -751,7 +755,8 @@ class _MeshLevels:
         self.lv.u.uniform_(generator=gen)
         if self.graph is None and ctx.graph and self.ran:
             graph = _cuda.Graph()
-            graph.capture(lambda: self.body(ctx))
+            with spans.span("render.capture"):
+                graph.capture(lambda: self.body(ctx))
             self.graph = graph
         if self.graph is not None:
             self.graph.replay()
@@ -810,6 +815,8 @@ def _mesh_window(ctx: MeshContext, acc, state, next_item, gen,
         watch.record(s)
         if watch.drained():
             break
+    spans.add("calls", n_run)
+    spans.add("wait_ns", watch.wait_ns)
     # the harvest runs over every level run: a level past the drained one
     # records only dead lanes (zero V, no flags), which add nothing
     harvest_mod.harvest_levels_into(
@@ -883,6 +890,7 @@ def _pos_window_unfused(ctx: MeshContext, B, state, quota, lane_base,
         alive_n = alive_n & (depth < max_depth)
         depth = torch.where(alive, depth + 1, depth)
         o, d, alive = o_n, d_n, alive_n
+    spans.add("calls", window)
 
     L = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
     cnt = k
@@ -924,7 +932,8 @@ def _window_pipeline(dispatch, total_items, n_windows, bar,
     def sync(cur):
         nonlocal next_i, segments, s_est
         prev = next_i
-        vals = [int(x) for x in cur.tolist()]            # one readback
+        with spans.span("render.sync"):
+            vals = [int(x) for x in cur.tolist()]        # one readback
         next_i = vals[0]
         segments += vals[1]
         if next_i > prev:
@@ -1006,6 +1015,7 @@ def _assemble_image(acc, *, total_items, n_strata, npix, h, w):
         .reshape(h, w, 3)
 
 
+@spans.traced("render")
 def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
                  n_lanes: int = 1 << 17, refill_len: int = 0,
                  cadence: int = 0, schedule: str = "auto", device=None,
@@ -1076,10 +1086,23 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
     `graph` (the unfused `_mesh_window` only): None replays each level as
     a CUDA graph wherever `MeshContext.build` allows it (stats["graph"]
     says whether it did), False runs the levels eagerly, True raises
-    ValueError where no level can be captured."""
+    ValueError where no level can be captured.
+
+    The call records the spans of `utils/spans.py`: the root "render",
+    and in it "render.setup" (with "render.setup.scene": the scene's
+    tables packed and uploaded, or `MeshContext.build`), "render.windows"
+    (the window loop to its last synchronize; its counts `windows` and
+    `calls`, the kernel calls of the fused path or the levels run off it,
+    which stats["windows"] and stats["calls"] repeat, and `wait_ns`, the
+    host's ns waiting for a level `wavefront.RUN_AHEAD` levels back on the
+    mesh path; stats["elapsed_s"] is its duration), "render.assemble"
+    (the image to the host) and "render.check" (the stats). In the loop,
+    "render.sync" is each read of a window's counts and the synchronize
+    after the last, and "render.capture" each level graph's capture."""
     from go_raytracer_tpu_torch.render import checkpoint as checkpoint_mod
     from go_raytracer_tpu_torch.utils import progress
 
+    setup = spans.span("render.setup").start()
     if direct_rec and scene.has_image:
         raise ValueError(
             "direct_rec: the direct-record path excludes scenes with image "
@@ -1167,16 +1190,18 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
 
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     if unfused:
-        ctx = MeshContext.build(scene, cam, device, mesh=mesh,
-                                b1_fused=b1_fused, traverse8=traverse8,
-                                ext=use_ext)
+        with spans.span("render.setup.scene"):
+            ctx = MeshContext.build(scene, cam, device, mesh=mesh,
+                                    b1_fused=b1_fused, traverse8=traverse8,
+                                    ext=use_ext)
         ctx.graph = ctx.graph and not positional and graph is not False
         state = _init_state_mesh(n, device)
     else:
-        tables = tuple(to_dev(t) for t in bounce_mod.pack_scene(scene))
-        statics = bounce_mod.scene_statics(scene)
-        cam_row = to_dev(bounce_mod.pack_camera(arrays))
-        bg = to_dev(np.asarray(scene.background, np.float32))
+        with spans.span("render.setup.scene"):
+            tables = tuple(to_dev(t) for t in bounce_mod.pack_scene(scene))
+            statics = bounce_mod.scene_statics(scene)
+            cam_row = to_dev(bounce_mod.pack_camera(arrays))
+            bg = to_dev(np.asarray(scene.background, np.float32))
         state = _init_state(n, device)
         bounds = tuple(to_dev(b) for b in bounce_mod.coherence_bounds(scene)) \
             if reorder else None
@@ -1328,70 +1353,81 @@ def render_regen(scene: T.Scene, cam: camera_mod.Camera, seed: int = 0,
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    t0 = _time.perf_counter()
-    if unfused:
-        dispatch_fn = dispatch_pos_unfused if positional else dispatch_mesh
-    else:
-        dispatch_fn = {"queue_ik": dispatch, "queue": dispatch_queue,
-                       "positional": dispatch_pos}[schedule]
-    if shard:
-        dispatch_fn, seg_rank = shard.lockstep(
-            dispatch_fn, 0 if positional else item_base, device)
-    next_i, segments, n_windows, window_times = _window_pipeline(
-        dispatch_fn,
-        total_items, n_windows, bar,
-        checkpoint_cb=checkpoint_cb if checkpoint_path else None,
-        checkpoint_every=checkpoint_every, start_i=start_i)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    bar.close()
-    elapsed = _time.perf_counter() - t0
+    setup.end()
+    with spans.span("render.windows", calls=0, wait_ns=0) as loop:
+        if unfused:
+            dispatch_fn = dispatch_pos_unfused if positional \
+                else dispatch_mesh
+        else:
+            dispatch_fn = {"queue_ik": dispatch, "queue": dispatch_queue,
+                           "positional": dispatch_pos}[schedule]
+        if shard:
+            dispatch_fn, seg_rank = shard.lockstep(
+                dispatch_fn, 0 if positional else item_base, device)
+        next_i, segments, n_windows, window_times = _window_pipeline(
+            dispatch_fn,
+            total_items, n_windows, bar,
+            checkpoint_cb=checkpoint_cb if checkpoint_path else None,
+            checkpoint_every=checkpoint_every, start_i=start_i)
+        loop.counts["windows"] = n_windows
+        if device.type == "cuda":
+            with spans.span("render.sync"):
+                torch.cuda.synchronize(device)
+        bar.close()
+    elapsed = loop.ns / 1e9
 
-    if positional:
+    with spans.span("render.assemble"):
+        if positional:
+            if shard:
+                # (n_rank, 3, G, n) -> (3, G, n_rank * n), lane r * n + i
+                acc = shard.gather(acc).permute(1, 2, 0, 3).reshape(
+                    3, G, n_rank * n)
+            linear = pos_film(acc.cpu().numpy(), first_pix, npix, n_strata,
+                              h, w)
+        else:
+            if shard:
+                acc = shard.gather(acc[:chunk]).reshape(n_rank * chunk, 3)
+            linear = _assemble_image(acc, total_items=total_items,
+                                     n_strata=n_strata, npix=npix, h=h,
+                                     w=w).cpu().numpy()
+    with spans.span("render.check"):
+        stats = {
+            "elapsed_s": elapsed,
+            "segments": segments,
+            "paths": total_items,
+            "rays_per_s": segments / elapsed if elapsed > 0
+            else float("nan"),
+            "paths_per_s": total_items / elapsed if elapsed > 0
+            else float("nan"),
+            "windows": n_windows,
+            "calls": loop.counts["calls"],
+            "window_s": window_times,
+            "schedule": schedule,
+            "occupancy": segments / max(n_windows * window * n * n_rank, 1),
+            "device": (torch.cuda.get_device_name(device)
+                       if device.type == "cuda" else "cpu"),
+            "nonfinite": int((~np.isfinite(linear)).sum()),
+        }
+        stats["backend"] = "pallas" if use_fused or use_ext else "xla"
+        if unfused:
+            stats["lanes"] = n
+            stats["levels_run"] = ctx.counters.pop("levels", 0)
+            stats["levels"] = (stats["levels_run"] if positional
+                               else int(levels_recorded))
+            stats["bounce"] = "ext" if use_ext else "wavefront"
+            stats["graph"] = ctx.graph
+            if scene.has_tri_bvh:
+                stats["mesh"] = dict(
+                    ctx.counters, route=trace_mod.route_name(**ctx.route),
+                    graph=ctx.graph)
+        if schedule == "queue_ik":
+            stats["direct_rec"] = direct_rec
+        if schedule == "queue" and use_fused:
+            stats["reorder"] = reorder
         if shard:
-            # (n_rank, 3, G, n) -> (3, G, n_rank * n), lane = rank * n + i
-            acc = shard.gather(acc).permute(1, 2, 0, 3).reshape(
-                3, G, n_rank * n)
-        linear = pos_film(acc.cpu().numpy(), first_pix, npix, n_strata, h, w)
-    else:
-        if shard:
-            acc = shard.gather(acc[:chunk]).reshape(n_rank * chunk, 3)
-        linear = _assemble_image(acc, total_items=total_items,
-                                 n_strata=n_strata, npix=npix, h=h, w=w) \
-            .cpu().numpy()
-    stats = {
-        "elapsed_s": elapsed,
-        "segments": segments,
-        "paths": total_items,
-        "rays_per_s": segments / elapsed if elapsed > 0 else float("nan"),
-        "paths_per_s": total_items / elapsed if elapsed > 0 else float("nan"),
-        "windows": n_windows,
-        "window_s": window_times,
-        "schedule": schedule,
-        "occupancy": segments / max(n_windows * window * n * n_rank, 1),
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
-        "nonfinite": int((~np.isfinite(linear)).sum()),
-    }
-    stats["backend"] = "pallas" if use_fused or use_ext else "xla"
-    if unfused:
-        stats["lanes"] = n
-        stats["levels_run"] = ctx.counters.pop("levels", 0)
-        stats["levels"] = (stats["levels_run"] if positional
-                           else int(levels_recorded))
-        stats["bounce"] = "ext" if use_ext else "wavefront"
-        stats["graph"] = ctx.graph
-        if scene.has_tri_bvh:
-            stats["mesh"] = dict(ctx.counters, route=trace_mod.route_name(
-                **ctx.route), graph=ctx.graph)
-    if schedule == "queue_ik":
-        stats["direct_rec"] = direct_rec
-    if schedule == "queue" and use_fused:
-        stats["reorder"] = reorder
-    if shard:
-        per = shard.gather(seg_rank.reshape(1)).reshape(-1).tolist()
-        stats.update(devices=n_rank, segments_per_shard=per,
-                     work_balance=min(per) / max(max(per), 1))
+            per = shard.gather(seg_rank.reshape(1)).reshape(-1).tolist()
+            stats.update(devices=n_rank, segments_per_shard=per,
+                         work_balance=min(per) / max(max(per), 1))
     return linear, stats
 
 

@@ -165,7 +165,8 @@ class DrainWatch:
     number of calls. With `ahead`, at most that many calls stay in
     flight: past it, `drained` polls the oldest call's event (never a
     synchronizing call) until it completes, so the host does not run more
-    than `ahead` calls past a drain."""
+    than `ahead` calls past a drain; `wait_ns` sums the host's time in
+    those polls (ns on `time.perf_counter_ns`)."""
 
     def __init__(self, rows, done=lambda row, i: row[0] == 0, ahead=None):
         import torch
@@ -176,6 +177,7 @@ class DrainWatch:
                                     pin_memory=True)
             self.pending = collections.deque()
         self.last = -1
+        self.wait_ns = 0
 
     def record(self, i: int):
         import torch
@@ -192,8 +194,11 @@ class DrainWatch:
         while self.pending and (self.pending[0][1].query() or (
                 self.ahead is not None and len(self.pending) > self.ahead)):
             i, ev = self.pending.popleft()
-            while not ev.query():
-                pass
+            if not ev.query():
+                t0 = time.perf_counter_ns()
+                while not ev.query():
+                    pass
+                self.wait_ns += time.perf_counter_ns() - t0
             if self.done(self.host[i].tolist(), i):
                 return True
         return False

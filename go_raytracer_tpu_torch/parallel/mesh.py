@@ -41,6 +41,7 @@ from go_raytracer_tpu_torch.ops import _cuda
 from go_raytracer_tpu_torch.ops import trace as trace_mod
 from go_raytracer_tpu_torch.render import camera as camera_mod
 from go_raytracer_tpu_torch.scene import types as T
+from go_raytracer_tpu_torch.utils import spans
 
 
 def mesh_shape(n: int, axes: Tuple[str, ...] = ("data", "sample")):
@@ -355,7 +356,14 @@ def make_train_step(scene: T.Scene, cam: camera_mod.Camera, n_rays: int,
     from then on replays it (`ops/_cuda.StepGraph`); the step then takes
     only the params it returned. The gradients are zeroed in place before each
     backward, so the captured step keeps their addresses. A capture that
-    fails raises; True raises ValueError off the card or on a mesh.
+    fails raises; True raises ValueError off the card or on a mesh. Each
+    call is the root span "train.step" (`utils/spans.py`), with
+    "train.inputs" (ids, target and uniforms into the buffers),
+    "train.launch" (the replay, or the eager body) and "train.loss_read"
+    in it; on the card its counts `forward_ms` (the gradients zeroed, the
+    render and the loss), `backward_ms` (the backward) and `adam_ms` (the
+    update) are the device's times of the step's phases, from timing
+    events that the graph records.
 
     On a mesh (its device type the device's), every rank calls the step
     with the same ids and target and renders its block: batches
@@ -449,32 +457,54 @@ def make_train_step(scene: T.Scene, cam: camera_mod.Camera, n_rays: int,
                           device=device)
     target_buf = torch.zeros((n_rays, 3), dtype=torch.float32, device=device)
     own = dict(params)
+    # on the card, timing events at the body's phase boundaries; external,
+    # so that every replay of the captured step records them
+    marks = [torch.cuda.Event(enable_timing=True, external=True)
+             for _ in range(4)] if device.type == "cuda" else None
+
+    def mark(i):
+        if marks:
+            marks[i].record()
 
     def body():
+        mark(0)
         optimizer.zero_grad(set_to_none=False)
         img, _ = render_batches(apply_params(ds, own), arrays, w, ids_buf,
                                 max_depth, cam.max_contribution, None,
                                 uniforms=(uni.camera, uni.levels))
         loss = torch.mean((img - target_buf) ** 2)
+        mark(1)
         loss.backward()
         zero_missing(own)
+        mark(2)
         optimizer.step()
+        mark(3)
         return loss.detach()
 
     step = _cuda.StepGraph(body, graph, device)
 
     def train_step(params, ids, target):
-        check_ids(ids)
-        if graph and any(params.get(k) is not v for k, v in own.items()):
-            raise ValueError("a captured train step takes the params that "
-                             "make_train_step returned")
-        own.update(params)
-        ids_buf.copy_(ids)
-        target_buf.copy_(target)
-        uni.draw(generator)
-        if isinstance(generator, KeyedUniforms):
-            generator.stream += 1
-        return step().item()
+        with spans.span("train.step") as root:
+            check_ids(ids)
+            if graph and any(params.get(k) is not v for k, v in own.items()):
+                raise ValueError("a captured train step takes the params "
+                                 "that make_train_step returned")
+            with spans.span("train.inputs"):
+                own.update(params)
+                ids_buf.copy_(ids)
+                target_buf.copy_(target)
+                uni.draw(generator)
+                if isinstance(generator, KeyedUniforms):
+                    generator.stream += 1
+            with spans.span("train.launch"):
+                out = step()
+            with spans.span("train.loss_read"):
+                loss = out.item()
+            if marks:
+                root.counts.update(zip(
+                    ("forward_ms", "backward_ms", "adam_ms"),
+                    (a.elapsed_time(b) for a, b in zip(marks, marks[1:]))))
+        return loss
 
     return train_step, params, optimizer
 
